@@ -5,7 +5,8 @@ The counterpart of ``analytics_zoo_tpu/ops/pallas_attention.py``: exact
 bottom-right (offset ``lk - lq``), optional per-row logsumexp. The
 kernel lives in ``csrc/flash_attn_fwd.cu`` (design notes there); it is
 compiled with ``nvcc`` for ``sm_90a`` at first use into ``build/`` at the
-repository root and loaded through ``ctypes``.
+repository root (a per-user cache for an installed package) and loaded
+through ``ctypes``.
 
 ``flash_attention`` takes a CPU tensor to ``flash_attention_reference``,
 the plain PyTorch version, and a CUDA tensor to the kernel; there is no
@@ -37,8 +38,6 @@ TILE = 64
 NEG_INF = -1e30
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attn_fwd.cu"
-# <repo>/build: the package's parent directory, listed in .gitignore
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,6 +47,16 @@ _lib_lock = threading.Lock()
 # what the last build printed (ptxas registers / spills per kernel) and
 # how long it took; read by chip_smoke.py
 build_info = {"log": "", "seconds": None, "path": None}
+
+
+def _build_dir() -> Path:
+    """``build/`` at the repository root in a source checkout (listed in
+    .gitignore); a per-user cache directory for an installed package."""
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").is_file():
+        return root / "build"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "analytics_zoo_tpu_torch" / "build"
 
 
 def _resolve_scale(scale: Optional[float], d: int) -> float:
@@ -105,8 +114,9 @@ def build_kernels() -> ctypes.CDLL:
         src = _SRC.read_bytes()
         tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()
                            ).hexdigest()[:12]
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = _BUILD_DIR / f"libzoo_flash_attn_fwd_{tag}.so"
+        build_dir = _build_dir()
+        build_dir.mkdir(parents=True, exist_ok=True)
+        so = build_dir / f"libzoo_flash_attn_fwd_{tag}.so"
         t0 = time.perf_counter()
         if not so.is_file():
             tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
@@ -142,7 +152,7 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, scale: float, with_lse: bool):
+            causal: bool, scale: Optional[float], with_lse: bool):
     lib = build_kernels()
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -159,6 +169,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lq % TILE or lk % TILE:
         raise ValueError(f"flash kernel: seq lens ({lq},{lk}) must be "
                          f"multiples of {TILE}")
+    if causal and lq > lk:
+        # rows attending to nothing are undefined under flash semantics
+        raise ValueError("causal attention requires len(q) <= len(kv)")
     if b * h > 65535:
         raise ValueError(f"flash kernel: batch*heads {b * h} > 65535")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -175,7 +188,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr() if lse is not None else None,
         _DTYPE_CODE[q.dtype], b, h, lq, lk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], scale, int(causal), stream)
+        *out.stride()[:3], _resolve_scale(scale, d), int(causal), stream)
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: code {rc}")
     flash_attention.launches += 1
@@ -188,11 +201,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention on ``[B, H, L, D]``: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors. Returns ``out`` (input
     dtype), plus ``lse`` ``[B*H, Lq]`` f32 when ``with_lse``."""
-    lq, lk = q.shape[2], k.shape[2]
-    if causal and lq > lk:
-        # rows attending to nothing are undefined under flash semantics
-        raise ValueError("causal attention requires len(q) <= len(kv)")
-    scale = _resolve_scale(scale, q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale, with_lse)
     return _launch(q, k, v, causal, scale, with_lse)

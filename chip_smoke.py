@@ -7,15 +7,19 @@
 Phases:
 1. Build: compiles the port's CUDA sources with nvcc for sm_90a into
    build/ and prints the card, the versions and the build time.
-2. Kernels: runs K1 (flash-attention forward) against its plain PyTorch
-   version on the card -- the serving shape [8,12,512,64] in bf16 and
-   f32, causal and not, cross-length causal [1,2,128->384,128], and the
-   logsumexp output at [2,4,256,64] -- and times the kernel, the plain
-   version and torch's scaled_dot_product_attention (a yardstick only;
-   the port never calls it).
+2. Kernels: runs K1 (flash-attention forward) through its wrapper
+   against its plain PyTorch version on the card -- [8,12,512,64] in
+   bf16 and f32, causal and not, the served call itself (q/k/v as
+   strided views into a fused [32,512,3,12,64] qkv projection, bf16;
+   the adaptive batcher grows the served batches to 32), cross-length
+   causal [1,2,128->384,128], and the logsumexp output at [2,4,256,64]
+   -- and times the kernel, the plain version and torch's
+   scaled_dot_product_attention (a yardstick only; the port never calls
+   it).
 3. Serving: saves a seeded BERT-base BERTClassifier (bf16), serves 64
    requests of 512 tokens through the port's launch() -> ServingWorker
-   -> InferenceModel with zoo.ops.attention_impl = "flash", checks that
+   -> InferenceModel with zoo.ops.attention_impl = "flash" (every batch
+   bucket the batcher can emit is warmed first), checks that
    every request is answered once with finite logits, that K1 ran for
    every encoder layer of every dispatched batch, and that 4 replies
    match the same model run with the einsum attention path.
@@ -100,9 +104,14 @@ def kernel_phase(torch, peaks):
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     cases = [
-        # name, (b, h, lq, lk, d), dtype, causal, with_lse
+        # name, (b, h, lq, lk, d), dtype, causal, with_lse. "served" is
+        # the call serving makes: the batcher's grown batch of 32, q/k/v
+        # strided views into the fused qkv projection
+        # (MultiHeadSelfAttention.forward)
         ("serve", (8, 12, 512, 512, 64), "bfloat16", False, False),
         ("serve", (8, 12, 512, 512, 64), "float32", False, False),
+        ("served", (32, 12, 512, 512, 64), "bfloat16", False, False),
+        ("served", (8, 12, 512, 512, 64), "float32", False, False),
         ("serve_causal", (8, 12, 512, 512, 64), "bfloat16", True, False),
         ("serve_causal", (8, 12, 512, 512, 64), "float32", True, False),
         ("cross_causal", (1, 2, 128, 384, 128), "bfloat16", True, False),
@@ -113,17 +122,20 @@ def kernel_phase(torch, peaks):
     ]
     rng = np.random.RandomState(0)
     checks = []
-    serve = {}
+    served = {}
     for name, (b, h, lq, lk, d), dt, causal, with_lse in cases:
         dtype = getattr(torch, dt)
 
-        def make(l):
+        def make(*shape):
             return torch.from_numpy(
-                rng.randn(b, h, l, d).astype(np.float32)).to(
-                    "cuda", dtype)
+                rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
 
-        q, k, v = make(lq), make(lk), make(lk)
-        got = fa._launch(q, k, v, causal, 1.0 / np.sqrt(d), with_lse)
+        if name == "served":
+            qkv = make(b, lq, 3, h, d)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        else:
+            q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
+        got = fa.flash_attention(q, k, v, causal, None, with_lse)
         torch.cuda.synchronize()
         ref = fa.flash_attention_reference(q, k, v, causal, None,
                                            with_lse)
@@ -143,8 +155,8 @@ def kernel_phase(torch, peaks):
                 fail(f"K1 {name} {dt}: lse error {lerr} > {LSE_TOL[dt]}")
         if name.startswith("serve"):
             kind = "bf16" if dt == "bfloat16" else "f32"
-            rec["ms"] = time_ms(torch, lambda: fa._launch(
-                q, k, v, causal, 1.0 / np.sqrt(d), False), 50)
+            rec["ms"] = time_ms(torch, lambda: fa.flash_attention(
+                q, k, v, causal), 50)
             rec["plain_ms"] = time_ms(
                 torch, lambda: fa.flash_attention_reference(
                     q, k, v, causal, None), 10)
@@ -155,8 +167,8 @@ def kernel_phase(torch, peaks):
             rec["bound_ms"], rec["bound_by"] = bound(
                 b, h, lq, lk, d, q.element_size(), causal, peaks[kind],
                 peaks["bw"])
-            if name == "serve" and dt == "bfloat16":
-                serve = rec
+            if name == "served" and dt == "bfloat16":
+                served = rec
         checks.append(rec)
         print(f"K1 {name} {dt} {[b, h, lq, lk, d]} causal={causal} "
               f"max_abs_err={err:.3g}"
@@ -171,7 +183,7 @@ def kernel_phase(torch, peaks):
                  f"(max abs error {err})")
         del q, k, v, got, ref, out, ref_out
     print(json.dumps({"kernel_checks": checks}), flush=True)
-    return serve
+    return served
 
 
 BERT_BASE = dict(num_classes=2, vocab=30522, hidden_size=768, n_block=12,
@@ -237,10 +249,12 @@ def serving_phase(torch, device="cuda", base=BERT_BASE, n_requests=64,
         d0 = dispatch.value
         fa.flash_attention.launches = 0
         # ---- main path: launch -> warm-up -> serve ----
+        # no warm_batch_sizes: launch() warms every bucket up to the
+        # batcher's growth cap, so no first use lands in the burst
         t0 = time.perf_counter()
         app = launch({
             "model": {"path": tmp},
-            "params": {"batch_size": batch, "warm_batch_sizes": [1, batch],
+            "params": {"batch_size": batch,
                        "warm_example": np.zeros((1, seq), np.int32)},
             "http": {"enabled": False}}, device=device)
         print(f"serving: launched in {time.perf_counter() - t0:.1f}s",
@@ -270,6 +284,7 @@ def serving_phase(torch, device="cuda", base=BERT_BASE, n_requests=64,
             launches = fa.flash_attention.launches
             dispatched = int(dispatch.value - d0)
             # ---- end of the main path ----
+            batcher = app.worker.batcher.stats()
             if set(got) != set(reqs):
                 fail(f"answered {len(got)}/{n_requests} requests")
             for uri, tensors in got.items():
@@ -294,7 +309,9 @@ def serving_phase(torch, device="cuda", base=BERT_BASE, n_requests=64,
             if not diff <= SERVE_TOL:
                 fail(f"served logits differ from the einsum path by {diff}")
             if profile:
-                x = np.stack([reqs[u] for u in sorted(reqs)[:batch]])
+                # a batch of the size the batcher served the burst in
+                x = np.stack([reqs[u] for u in
+                              sorted(reqs)[:batcher["max_batch_size"]]])
                 for impl in ("flash", "einsum"):
                     cfg.set("zoo.ops.attention_impl", impl)
                     print(f"profile: attention_impl={impl}", flush=True)
@@ -309,6 +326,9 @@ def serving_phase(torch, device="cuda", base=BERT_BASE, n_requests=64,
         "p50_ms": float(np.percentile(lat_ms, 50)),
         "p99_ms": float(np.percentile(lat_ms, 99)),
         "dispatched_batches": dispatched, "k1_launches": launches,
+        "served_batches": batcher["batches"],
+        "mean_occupancy": batcher["mean_occupancy"],
+        "max_batch_size": batcher["max_batch_size"],
         "device": (torch.cuda.get_device_name(0) if device == "cuda"
                    else device)}
     print("serving: " + json.dumps(summary), flush=True)
@@ -349,15 +369,18 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
-    serve = kernel_phase(torch, peaks)
+    served = kernel_phase(torch, peaks)
     launches = serving_phase(torch, profile=args.profile)
+    # K1 at the served call: [32,12,512,64] bf16 views into the qkv
+    # projection
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": serve["max_abs_err"], "ms": serve["ms"],
-        "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
-        "bound_by": serve["bound_by"],
-        "library_ms": serve["library_ms"]}]}), flush=True)
+        "shape": served["shape"],
+        "max_abs_err": served["max_abs_err"], "ms": served["ms"],
+        "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
+        "bound_by": served["bound_by"],
+        "library_ms": served["library_ms"]}]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -110,3 +110,24 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         fa.build_kernels()
     assert fa.flash_attention.launches == 0
+
+
+def test_kernel_build_dir_checkout_and_installed(monkeypatch, tmp_path):
+    """A source checkout builds into its own ``build/``; an installed
+    package (no pyproject.toml two levels up) into a per-user cache. The
+    kernel source ships with the package either way."""
+    import tomllib
+
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    assert fa._build_dir() == REPO / "build"
+    site = tmp_path / "site-packages" / "analytics_zoo_tpu_torch" / "ops"
+    site.mkdir(parents=True)
+    monkeypatch.setattr(fa, "__file__", str(site / "flash_attention.py"))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert fa._build_dir() == (tmp_path / "cache" / "analytics_zoo_tpu_torch"
+                               / "build")
+    data = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"][
+        "analytics_zoo_tpu_torch"]
+    assert any(fa._SRC.relative_to(PORT).match(g) for g in globs)
