@@ -18,6 +18,11 @@ qkv projection keeps its section axis: weight ``[3, H, H_in]`` (the
 reference's ``[H_in, 3, H]`` kernel with the input axis moved last),
 bias ``[3, H]``.
 
+Training passes ``train=True`` and ``rng``, a ``torch.Generator`` on the
+activations' device, which every dropout draws from (hidden and
+attention-prob dropout alike); a dropout that should run without one
+raises rather than being skipped.
+
 The sequence-parallel ring branch of the reference (``seq_axis``) and
 ``TransformerModule`` are still to be ported (ROADMAP queue 1).
 """
@@ -110,6 +115,22 @@ class Embed(nn.Module):
         return F.embedding(ids.long(), self.weight)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout drawing its mask from ``gen`` (``F.dropout``
+    takes no generator): each element kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``, as flax's
+    ``nn.Dropout``. Callers apply it only in training."""
+    if rate == 0.0:
+        return x
+    if gen is None:
+        raise ValueError(
+            f"dropout at rate {rate} in training needs a generator: pass "
+            "rng=torch.Generator(device) to the module's forward")
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=gen)
+    return x * keep / (1.0 - rate)
+
+
 def reset_parameters(module: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter of ``module`` from one CPU generator seeded
     with ``seed`` (submodules in registration order)."""
@@ -142,20 +163,19 @@ class MultiHeadSelfAttention(nn.Module):
         self.proj = Dense(hidden_size, hidden_size, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask=None, key_padding_mask=None,
-                train: bool = False):
+                train: bool = False, rng: Optional[torch.Generator] = None):
         b, l, _ = x.shape
         hd = self.hidden_size // self.n_head
         qkv = self.qkv(x).reshape(b, l, 3, self.n_head, hd)
-        # [B, nh, L, hd] views into the projection: the flash kernel
-        # reads them in place (strided rows)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        # attention-prob dropout needs a generator, which the training
-        # step of the learn slice will pass; without one the attention
-        # falls back to the exact path, as the reference does
+        # [B, nh, L, hd] views into the projection: the flash kernels
+        # read them in place (strided rows); unbind's backward stacks
+        # the three gradients back into one [B, L, 3, nh, hd] tensor
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
         out = dot_product_attention(
             q, k, v, mask=mask, key_padding_mask=key_padding_mask,
             causal=self.causal,
-            dropout_rate=self.attn_dropout if train else 0.0)
+            dropout_rate=self.attn_dropout if train else 0.0,
+            dropout_rng=rng if train else None)
         out = out.transpose(1, 2).reshape(b, l, self.hidden_size)
         return self.proj(out)
 
@@ -190,14 +210,16 @@ class TransformerBlock(nn.Module):
         return F.relu(t)
 
     def forward(self, x, mask=None, key_padding_mask=None,
-                train: bool = False):
+                train: bool = False, rng: Optional[torch.Generator] = None):
         attn = self.attention(x, mask=mask,
                               key_padding_mask=key_padding_mask,
-                              train=train)
-        attn = F.dropout(attn, self.hidden_dropout, training=train)
+                              train=train, rng=rng)
+        if train:
+            attn = dropout(attn, self.hidden_dropout, rng)
         x = self.ln_attn(x + attn)
-        h = self._act(self.ffn_in(x))
-        h = F.dropout(self.ffn_out(h), self.hidden_dropout, training=train)
+        h = self.ffn_out(self._act(self.ffn_in(x)))
+        if train:
+            h = dropout(h, self.hidden_dropout, rng)
         return self.ln_ffn(x + h)
 
 
@@ -237,7 +259,8 @@ class BERTModule(nn.Module):
         with torch.no_grad():
             self.position_embed.normal_(0.0, 0.02, generator=gen)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False,
+                rng: Optional[torch.Generator] = None):
         if isinstance(x, dict):
             ids = x["input_ids"]
             segs = x.get("token_type_ids")
@@ -249,10 +272,11 @@ class BERTModule(nn.Module):
         if segs is not None:
             h = h + self.segment_embed(segs)
         h = self.embed_ln(h)
-        h = F.dropout(h, self.hidden_dropout, training=train)
+        if train:
+            h = dropout(h, self.hidden_dropout, rng)
         # the padding mask stays [B, L] (no materialized 4-D mask)
         for i in range(self.n_block):
             h = getattr(self, f"encoder_{i}")(
-                h, key_padding_mask=attn_mask, train=train)
+                h, key_padding_mask=attn_mask, train=train, rng=rng)
         pooled = torch.tanh(self.pooler(h[:, 0]))
         return h, pooled

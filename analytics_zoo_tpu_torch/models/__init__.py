@@ -2,4 +2,7 @@ from analytics_zoo_tpu_torch.models.common import (  # noqa: F401
     ZooModel,
     register_model,
 )
-from analytics_zoo_tpu_torch.models.text import BERTClassifier  # noqa: F401
+from analytics_zoo_tpu_torch.models.text import (  # noqa: F401
+    BERTClassifier,
+    BERTSQuAD,
+)

@@ -6,23 +6,23 @@ name>, "config": <constructor kwargs>}``, the reference's schema -- and
 ``weights/state_dict.pt``, the module's torch ``state_dict``; so
 ``ZooModel.load_model(path)`` rebuilds the exact model.
 
-Training (``fit``/``evaluate``/``compile``) belongs to the learn slice
-of the port (ROADMAP queue 1) and raises until then.
+``fit``, ``evaluate``, ``predict`` and ``compile`` go through an
+``Estimator`` (``learn/estimator.py``) built from the subclass's
+``default_loss``, ``default_optimizer`` and ``default_metrics``.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Type
+from typing import Any, Dict, Sequence, Type
 
-import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.context import resolve_device
 from analytics_zoo_tpu_torch.common.log import get_logger
 from analytics_zoo_tpu_torch.keras.layers.transformer import reset_parameters
-from analytics_zoo_tpu_torch.utils.tree import tree_leaves, tree_map
+from analytics_zoo_tpu_torch.learn.estimator import Estimator, recompiled
 
 logger = get_logger(__name__)
 
@@ -30,23 +30,32 @@ _MODEL_REGISTRY: Dict[str, Type["ZooModel"]] = {}
 
 WEIGHTS_FILE = "state_dict.pt"
 
-_LEARN_SLICE = ("training is not ported yet: fit/evaluate/compile arrive "
-                "with the learn slice (ROADMAP queue 1)")
-
 
 class ZooModel:
     """Base: subclasses define ``_build_module() -> nn.Module`` and
-    ``_example_input()``, and register with @register_model.
+    ``_example_input()`` plus the loss/optimizer/metrics defaults, and
+    register with @register_model.
 
     ``device`` (None = CUDA, raising without a GPU) is where the module
-    lives; ``seed`` seeds its initial weights."""
+    lives; ``seed`` seeds its initial weights and the Estimator's
+    dropout generator."""
+
+    # subclasses override
+    default_loss: Any = None
+    default_optimizer: Any = "adam"
+    default_metrics: Sequence[Any] = ()
 
     def __init__(self, device=None, seed: int = 0, **kwargs):
         self._config = dict(kwargs)
         self.device = resolve_device(device)
+        self.seed = seed
         module = self._build_module()
         reset_parameters(module, seed)
         self.module = module.to(self.device).eval()
+        self.estimator = Estimator(
+            self.module, loss=self.default_loss,
+            optimizer=self.default_optimizer,
+            metrics=self.default_metrics, seed=seed, device=self.device)
 
     def _build_module(self) -> torch.nn.Module:
         raise NotImplementedError
@@ -56,27 +65,28 @@ class ZooModel:
 
     # ------------------------------------------------------------ engine --
     def compile(self, loss=None, optimizer=None, metrics=None, **kwargs):
-        raise NotImplementedError(_LEARN_SLICE)
+        """Re-configure the training engine (Keras-style); trained weights
+        carry over (recompiling changes the optimizer, not the model)."""
+        self.estimator = recompiled(
+            self.estimator, self.module,
+            loss=loss if loss is not None else self.default_loss,
+            optimizer=(optimizer if optimizer is not None
+                       else self.default_optimizer),
+            metrics=metrics if metrics is not None else self.default_metrics,
+            seed=kwargs.pop("seed", self.seed), device=self.device, **kwargs)
+        return self
 
     def fit(self, data, batch_size: int = 256, epochs: int = 1, **kwargs):
-        raise NotImplementedError(_LEARN_SLICE)
+        return self.estimator.fit(data, batch_size=batch_size,
+                                  epochs=epochs, **kwargs)
 
     def evaluate(self, data, batch_size: int = 256):
-        raise NotImplementedError(_LEARN_SLICE)
+        return self.estimator.evaluate(data, batch_size=batch_size)
 
     def predict(self, data, batch_size: int = 256) -> Any:
-        """Batched inference over host arrays (a tensor, or a dict/tuple
+        """Batched inference over host arrays (an array, or a dict/tuple
         of them sharing the leading axis); returns numpy."""
-        leaves = tree_leaves(data)
-        n = np.asarray(leaves[0]).shape[0]
-        outs = []
-        with torch.inference_mode():
-            for s in range(0, n, batch_size):
-                x = tree_map(lambda a: torch.as_tensor(
-                    np.asarray(a)[s:s + batch_size]).to(self.device), data)
-                outs.append(tree_map(
-                    lambda t: t.float().cpu().numpy(), self.module(x)))
-        return _concat(outs)
+        return self.estimator.predict(data, batch_size=batch_size)
 
     # ------------------------------------------------------- persistence --
     def save_model(self, path: str) -> None:
@@ -110,17 +120,6 @@ class ZooModel:
         n = sum(p.numel() for p in self.module.parameters())
         lines.append(f"total params: {n:,}")
         return "\n".join(lines)
-
-
-def _concat(parts):
-    """Concatenate per-batch output trees along the batch axis."""
-    first = parts[0]
-    if isinstance(first, dict):
-        return {k: _concat([p[k] for p in parts]) for k in first}
-    if isinstance(first, (tuple, list)):
-        return type(first)(_concat([p[i] for p in parts])
-                           for i in range(len(first)))
-    return np.concatenate(parts)
 
 
 def register_model(cls: Type[ZooModel]) -> Type[ZooModel]:

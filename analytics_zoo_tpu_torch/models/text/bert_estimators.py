@@ -3,8 +3,10 @@
 The counterpart of ``analytics_zoo_tpu/models/text/bert_estimators.py``
 (``_BERTHeadModule``, ``BERTClassifier``). The encoder computes in the
 configured ``dtype`` (``"bfloat16"`` for serving); the classification
-head stays f32. ``BERTNER`` and the SQuAD sibling are still to be
-ported (ROADMAP queue 1: models).
+head stays f32. ``fit`` trains through the Estimator with the
+reference's defaults (sparse categorical cross-entropy, Adam, accuracy).
+The SQuAD sibling is ``bert_squad.py``; ``BERTNER`` is still to be ported
+(ROADMAP queue 1: models).
 """
 
 from __future__ import annotations
@@ -13,11 +15,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.keras.layers.transformer import (
-    BERTModule, Dense)
+    BERTModule, Dense, dropout)
 from analytics_zoo_tpu_torch.models.common import ZooModel, register_model
 
 
@@ -40,10 +41,12 @@ class _BERTHeadModule(nn.Module):
             hidden_dropout=hidden_dropout, attn_dropout=0.0, dtype=dtype)
         self.head = Dense(hidden_size, num_classes)
 
-    def forward(self, x, train: bool = False):
-        seq, pooled = self.bert(x, train=train)
+    def forward(self, x, train: bool = False,
+                rng: Optional[torch.Generator] = None):
+        seq, pooled = self.bert(x, train=train, rng=rng)
         h = seq if self.per_token else pooled
-        h = F.dropout(h, self.hidden_dropout, training=train)
+        if train:
+            h = dropout(h, self.hidden_dropout, rng)
         return self.head(h.float())
 
 
@@ -55,6 +58,9 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 class _BERTEstimatorBase(ZooModel):
+    default_loss = "sparse_categorical_crossentropy"
+    default_optimizer = "adam"
+    default_metrics = ("accuracy",)
     per_token = False
 
     def __init__(self, num_classes: int, vocab: int,

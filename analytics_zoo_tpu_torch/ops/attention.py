@@ -1,5 +1,5 @@
-"""Attention dispatch: the K1 CUDA kernel on the card, plain PyTorch on
-the CPU.
+"""Attention dispatch: the flash-attention CUDA kernels (K1 forward, K2
+and K3 backward) on the card, plain PyTorch on the CPU.
 
 The counterpart of ``analytics_zoo_tpu/ops/attention.py``, with the same
 semantics: the causal diagonal is aligned bottom-right (``tril`` with
@@ -65,7 +65,10 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
                           dropout_rate: float = 0.0,
                           dropout_rng: Optional[torch.Generator] = None):
     """q, k, v: [B, H, L, D]. Returns [B, H, Lq, D]. ``dropout_rng`` is a
-    ``torch.Generator`` on the tensors' device."""
+    ``torch.Generator`` on the tensors' device, required when
+    ``dropout_rate > 0``. The flash path is differentiable: under
+    autograd on CUDA it runs K1 with logsumexp forward and K2/K3
+    backward (``flash_attention.FlashAttention``)."""
     d = q.shape[-1]
     l, lk = q.shape[2], k.shape[2]
     scale = scale if scale is not None else 1.0 / np.sqrt(d)
@@ -105,18 +108,19 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
     if dropout_rate == 0.0:
         return _einsum_attention(q, k, v, mask=mask, causal=causal,
                                  scale=scale)
-    if dropout_rate > 0.0 and dropout_rng is not None:
-        # dropout needs the materialized probs; inline the reference math
-        logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-        if causal:
-            logits = logits.masked_fill(~_causal_keep(l, lk, q.device),
-                                        NEG_INF)
-        if mask is not None:
-            logits = logits.masked_fill(~mask.bool(), NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
-        keep = torch.bernoulli(torch.full_like(probs, 1.0 - dropout_rate),
-                               generator=dropout_rng)
-        probs = probs * keep / (1.0 - dropout_rate)
-        return torch.einsum("bhqk,bhkd->bhqd", probs, v)
-    return reference_attention(q, k, v, mask=mask, causal=causal,
-                               scale=scale)
+    if dropout_rng is None:
+        # the reference skips the dropout here; the port refuses to
+        raise ValueError(f"attention dropout at rate {dropout_rate} needs "
+                         "dropout_rng, a torch.Generator on the tensors' "
+                         "device")
+    # dropout needs the materialized probs; inline the reference math
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        logits = logits.masked_fill(~_causal_keep(l, lk, q.device), NEG_INF)
+    if mask is not None:
+        logits = logits.masked_fill(~mask.bool(), NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    keep = torch.empty_like(probs).bernoulli_(1.0 - dropout_rate,
+                                              generator=dropout_rng)
+    probs = probs * keep / (1.0 - dropout_rate)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)

@@ -1,22 +1,26 @@
-"""Flash-attention forward (K1): a hand-written CUDA kernel for Hopper.
+"""Flash attention, forward (K1) and backward (K2 dQ, K3 dK/dV): hand-written
+CUDA kernels for Hopper, and their gradient (K4).
 
 The counterpart of ``analytics_zoo_tpu/ops/pallas_attention.py``: exact
 ``softmax(scale * Q K^T) V`` on ``[B, H, L, D]``, causal mask aligned
-bottom-right (offset ``lk - lq``), optional per-row logsumexp. The
-kernel lives in ``csrc/flash_attn_fwd.cu`` (design notes there); it is
-compiled with ``nvcc`` for ``sm_90a`` at first use into ``build/`` at the
-repository root (a per-user cache for an installed package) and loaded
-through ``ctypes``.
+bottom-right (offset ``lk - lq``), optional per-row logsumexp, and the
+backward that rebuilds the probabilities from that logsumexp. The
+kernels live in ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
+(design notes there); they are compiled with ``nvcc`` for ``sm_90a`` at
+first use into ``build/`` at the repository root (a per-user cache for an
+installed package) and loaded through ``ctypes``.
 
-``flash_attention`` takes a CPU tensor to ``flash_attention_reference``,
-the plain PyTorch version, and a CUDA tensor to the kernel; there is no
-fallback between the two. ``flash_attention.launches`` counts kernel
-launches.
+Every wrapper takes a CPU tensor to its plain PyTorch version and a CUDA
+tensor to its kernel; there is no fallback between the two.
+``flash_attention`` goes through ``FlashAttention`` (a
+``torch.autograd.Function``: K1 with logsumexp forward, K2 then K3
+backward) whenever autograd is recording and an input needs a gradient.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
-Shapes the kernel takes: D in {64, 128}; L and Lk multiples of
-``TILE`` (64); f32 or bf16; the last dimension contiguous and 16-byte
-aligned rows (other strides are free, so q/k/v may be views into a fused
-qkv projection). Anything else raises.
+Shapes the kernels take: D in {64, 128}; L and Lk multiples of ``TILE``
+(64); f32 or bf16; the last dimension contiguous and 16-byte aligned rows
+(other strides are free, so q/k/v may be views into a fused qkv
+projection). Anything else raises.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,12 +41,26 @@ import torch
 TILE = 64
 NEG_INF = -1e30
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attn_fwd.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SRC = _CSRC / "flash_attn_fwd.cu"
+_SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib = None
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_TAIL = [ctypes.c_float, _I, _P]   # scale, causal, stream
+# C entry point -> (source stem, argtypes)
+_ENTRY_POINTS = {
+    "zoo_flash_attn_fwd": ("flash_attn_fwd",
+                           [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
+    "zoo_flash_attn_bwd_dq": ("flash_attn_bwd",
+                              [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
+    "zoo_flash_attn_bwd_dkv": ("flash_attn_bwd",
+                               [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
+}
+
+_lib: Optional[Dict[str, ctypes.CDLL]] = None
 _lib_lock = threading.Lock()
 # what the last build printed (ptxas registers / spills per kernel) and
 # how long it took; read by chip_smoke.py
@@ -63,15 +81,19 @@ def _resolve_scale(scale: Optional[float], d: int) -> float:
     return float(scale) if scale is not None else 1.0 / float(np.sqrt(d))
 
 
+def _causal_keep(lq: int, lk: int, device) -> torch.Tensor:
+    return torch.ones(lq, lk, dtype=torch.bool, device=device).tril(lk - lq)
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = False,
                               scale: Optional[float] = None,
                               with_lse: bool = False
                               ) -> Union[torch.Tensor,
                                          Tuple[torch.Tensor, torch.Tensor]]:
-    """Plain PyTorch version of the kernel: the same function, computed
-    with the whole [Lq, Lk] score matrix in f32. Returns ``out`` in the
-    input dtype, plus ``lse`` as ``[B*H, Lq]`` f32 when ``with_lse``."""
+    """Plain PyTorch version of K1: the same function, computed with the
+    whole [Lq, Lk] score matrix in f32. Returns ``out`` in the input
+    dtype, plus ``lse`` as ``[B*H, Lq]`` f32 when ``with_lse``."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if causal and lq > lk:
@@ -79,14 +101,73 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     scale = _resolve_scale(scale, d)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
-        keep = torch.ones(lq, lk, dtype=torch.bool,
-                          device=q.device).tril(lk - lq)
-        s = s.masked_fill(~keep, NEG_INF)
+        s = s.masked_fill(~_causal_keep(lq, lk, q.device), NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     out = torch.matmul(torch.exp(s - lse[..., None]), v.float()).to(q.dtype)
     if with_lse:
         return out, lse.reshape(b * h, lq)
     return out
+
+
+def _bwd_plain(q, k, v, lse, delta, do, causal, scale, want_dq, want_dkv):
+    """The backward as ``_flash_bwd`` computes it, with whole [Lq, Lk]
+    matrices in f32: P rebuilt from ``lse``, dS rounded to the input
+    dtype before the dQ and dK products, P rounded to dO's dtype before
+    dV. Returns the wanted ones of dq, dk, dv, in the input dtypes."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    scale = _resolve_scale(scale, d)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~_causal_keep(lq, lk, q.device), NEG_INF)
+    p = torch.exp(s - lse.reshape(b, h, lq, 1))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta.reshape(b, h, lq, 1)) * scale).to(q.dtype).float()
+    out = []
+    if want_dq:
+        out.append(torch.matmul(ds, k.float()).to(q.dtype))
+    if want_dkv:
+        out.append(torch.matmul(ds.transpose(-1, -2), q.float()).to(k.dtype))
+        out.append(torch.matmul(p.to(do.dtype).float().transpose(-1, -2),
+                                do.float()).to(v.dtype))
+    return out
+
+
+def flash_attention_bwd_dq_reference(q, k, v, o, lse, do,
+                                     causal: bool = False,
+                                     scale: Optional[float] = None):
+    """Plain PyTorch version of K2: ``(dq, delta)`` with
+    ``delta = rowsum(do * o)`` as ``[B*H, Lq]`` f32 (``_flash_bwd``
+    :316-320)."""
+    b, h, lq, _ = o.shape
+    delta = (do.float() * o.float()).sum(-1).reshape(b * h, lq)
+    (dq,) = _bwd_plain(q, k, v, lse, delta, do, causal, scale, True, False)
+    return dq, delta
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, lse, delta, do,
+                                      causal: bool = False,
+                                      scale: Optional[float] = None):
+    """Plain PyTorch version of K3: ``(dk, dv)`` from K2's ``delta``."""
+    dk, dv = _bwd_plain(q, k, v, lse, delta, do, causal, scale, False, True)
+    return dk, dv
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor,
+                                  causal: bool = False,
+                                  scale: Optional[float] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain PyTorch version of K2, K3 and delta: (dq, dk, dv) in the
+    input dtypes, from the forward's ``o`` and ``lse`` ([B*H, Lq] f32)
+    and the output gradient ``do``."""
+    dq, delta = flash_attention_bwd_dq_reference(q, k, v, o, lse, do,
+                                                 causal, scale)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, lse, delta, do,
+                                               causal, scale)
+    return dq, dk, dv
 
 
 # ----------------------------------------------------------------- build --
@@ -98,47 +179,65 @@ def _nvcc() -> str:
     if not cand:
         raise RuntimeError(
             "nvcc not found (set NVCC or put the CUDA toolkit on PATH): "
-            "the flash-attention kernel is built from "
-            f"{_SRC.name} at first use")
+            "the flash-attention kernels are built from "
+            f"{', '.join(s.name for s in _SOURCES)} at first use")
     return cand
 
 
-def build_kernels() -> ctypes.CDLL:
-    """Compile ``csrc/flash_attn_fwd.cu`` for sm_90a (once per source
-    content) and load it. Raises if ``nvcc`` is missing or fails."""
+def build_kernels() -> Dict[str, ctypes.CDLL]:
+    """Compile every ``csrc/*.cu`` for sm_90a (once per content of all the
+    sources together; one ``nvcc`` per source, run side by side) and load
+    them. Returns ``{source stem: library}``. Raises if ``nvcc`` is
+    missing or fails."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
         nvcc = _nvcc()
-        src = _SRC.read_bytes()
-        tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()
-                           ).hexdigest()[:12]
+        digest = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
+        for src in _SOURCES:
+            digest.update(src.name.encode() + b"\0" + src.read_bytes())
+        tag = digest.hexdigest()[:12]
         build_dir = _build_dir()
         build_dir.mkdir(parents=True, exist_ok=True)
-        so = build_dir / f"libzoo_flash_attn_fwd_{tag}.so"
         t0 = time.perf_counter()
-        if not so.is_file():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-            proc = subprocess.run(
-                [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                capture_output=True, text=True)
+        sos = {src.stem: build_dir / f"libzoo_{src.stem}_{tag}.so"
+               for src in _SOURCES}
+        procs = {}
+        for src in _SOURCES:
+            so = sos[src.stem]
+            if not so.is_file():
+                tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
+                procs[src] = (tmp, subprocess.Popen(
+                    [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+        logs, failed = [], []
+        for src, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {_SRC.name}:\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, so)
-            build_info["log"] = proc.stdout + proc.stderr
+                failed.append(f"nvcc failed ({proc.returncode}) on "
+                              f"{src.name}:\n{out}")
+            else:
+                os.replace(tmp, sos[src.stem])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        if logs:
+            build_info["log"] = "\n".join(logs)
         build_info["seconds"] = time.perf_counter() - t0
-        build_info["path"] = str(so)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.zoo_flash_attn_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        _lib = lib
-        return lib
+        build_info["path"] = str(build_dir)
+        libs = {stem: ctypes.CDLL(str(so)) for stem, so in sos.items()}
+        for name, (stem, argtypes) in _ENTRY_POINTS.items():
+            fn = getattr(libs[stem], name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        _lib = libs
+        return libs
+
+
+def _entry(name: str):
+    return getattr(build_kernels()[_ENTRY_POINTS[name][0]], name)
 
 
 # ---------------------------------------------------------------- launch --
@@ -151,13 +250,15 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
                          f"(strides {tuple(t.stride())})")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, scale: Optional[float], with_lse: bool):
-    lib = build_kernels()
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, **more: torch.Tensor) -> None:
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash kernel: q, k, v must be on one CUDA device")
+    tensors = dict(q=q, k=k, v=v, **more)
+    if not (q.is_cuda and all(t.device == q.device
+                              for t in tensors.values())):
+        raise ValueError("flash kernel: every tensor must be on one CUDA "
+                         "device")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash kernel takes float32 or bfloat16 q/k/v, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -174,36 +275,169 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("causal attention requires len(q) <= len(kv)")
     if b * h > 65535:
         raise ValueError(f"flash kernel: batch*heads {b * h} > 65535")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in tensors.items():
+        if name in ("lse", "delta"):
+            if (t.dtype != torch.float32 or t.shape != (b * h, lq)
+                    or not t.is_contiguous()):
+                raise ValueError(f"flash kernel: {name} must be a "
+                                 f"contiguous [{b * h}, {lq}] f32 tensor")
+            continue
+        if name in ("o", "do") and (t.dtype != q.dtype
+                                    or t.shape != q.shape):
+            raise ValueError(f"flash kernel: {name} must match q "
+                             f"({tuple(q.shape)}, {q.dtype})")
         _check_layout(name, t)
-    # output [B, H, L, D] laid out as [B, L, H, D]: the caller's merge
-    # of heads back into [B, L, H*D] is then a free view
-    out = torch.empty(b, lq, h, d, dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+
+
+def _empty_bhld(b, h, l, d, like: torch.Tensor) -> torch.Tensor:
+    """``[B, H, L, D]`` laid out as ``[B, L, H, D]``: merging heads back
+    into ``[B, L, H*D]`` is then a free view."""
+    return torch.empty(b, l, h, d, dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, scale: Optional[float], with_lse: bool):
+    fn = _entry("zoo_flash_attn_fwd")
+    _check_inputs(q, k, v, causal)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    out = _empty_bhld(b, h, lq, d, q)
     lse = (torch.empty(b * h, lq, dtype=torch.float32, device=q.device)
            if with_lse else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.zoo_flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
-        _DTYPE_CODE[q.dtype], b, h, lq, lk, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], _resolve_scale(scale, d), int(causal), stream)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            _DTYPE_CODE[q.dtype], b, h, lq, lk, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], _resolve_scale(scale, d), int(causal),
+            _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: code {rc}")
     flash_attention.launches += 1
     return (out, lse) if with_lse else out
 
 
+def _last_dim_contiguous(t: torch.Tensor) -> torch.Tensor:
+    # autograd may hand over a gradient whose head dimension is strided;
+    # the kernels read rows of D contiguous elements (a layout step)
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, o: torch.Tensor,
+                           lse: torch.Tensor, do: torch.Tensor,
+                           causal: bool = False,
+                           scale: Optional[float] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: ``(dq, delta)``, where ``delta = rowsum(do * o)`` ([B*H, Lq]
+    f32) is what K3 reads. The kernel on CUDA, the plain version on the
+    CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_reference(q, k, v, o, lse, do, causal,
+                                                scale)
+    fn = _entry("zoo_flash_attn_bwd_dq")
+    do = _last_dim_contiguous(do)
+    _check_inputs(q, k, v, causal, o=o, do=do, lse=lse)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dq = _empty_bhld(b, h, lq, d, q)
+    delta = torch.empty(b * h, lq, dtype=torch.float32, device=q.device)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _DTYPE_CODE[q.dtype], b, h, lq, lk, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
+            _resolve_scale(scale, d), int(causal), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash dq kernel launch failed: code {rc}")
+    flash_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, lse: torch.Tensor,
+                            delta: torch.Tensor, do: torch.Tensor,
+                            causal: bool = False,
+                            scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: ``(dk, dv)`` from the ``delta`` that K2 returned. The kernel
+    on CUDA, the plain version on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_reference(q, k, v, lse, delta, do,
+                                                 causal, scale)
+    fn = _entry("zoo_flash_attn_bwd_dkv")
+    do = _last_dim_contiguous(do)
+    _check_inputs(q, k, v, causal, do=do, lse=lse, delta=delta)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dk = _empty_bhld(b, h, lk, d, k)
+    dv = _empty_bhld(b, h, lk, d, v)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODE[q.dtype], b, h, lq, lk, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            _resolve_scale(scale, d), int(causal), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash dkv kernel launch failed: code {rc}")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
+                        scale: Optional[float] = None):
+    """The backward of K1: delta and dQ (K2), then dK and dV (K3)."""
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4, the counterpart of ``pallas_flash_attention_fwd``'s custom_vjp:
+    forward K1 with logsumexp (saving q, k, v, o, lse), backward K2 then
+    K3. On CPU tensors the same wiring runs the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_reference(q, k, v, causal, scale,
+                                                 with_lse=True)
+        else:
+            out, lse = _launch(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     with_lse: bool = False):
-    """Flash attention on ``[B, H, L, D]``: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. Returns ``out`` (input
-    dtype), plus ``lse`` ``[B*H, Lq]`` f32 when ``with_lse``."""
+    """Flash attention on ``[B, H, L, D]``: the CUDA kernels for CUDA
+    tensors, the plain versions for CPU tensors. Returns ``out`` (input
+    dtype), plus ``lse`` ``[B*H, Lq]`` f32 (not differentiable) when
+    ``with_lse``. Differentiable through ``FlashAttention`` whenever
+    autograd records and an input needs a gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = FlashAttention.apply(q, k, v, causal, scale)
+        return (out, lse) if with_lse else out
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale, with_lse)
     return _launch(q, k, v, causal, scale, with_lse)
 
 
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

@@ -2,12 +2,14 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases (needs one card)
-    python3 chip_smoke.py --profile  # + a profile of one served batch
+    python3 chip_smoke.py --profile  # + profiles of one served batch and
+                                     #   of one train step
 
 Phases:
-1. Build: compiles the port's CUDA sources with nvcc for sm_90a into
-   build/ and prints the card, the versions and the build time.
-2. Kernels: runs K1 (flash-attention forward) through its wrapper
+1. Build: compiles the port's CUDA sources (one nvcc per source, side by
+   side) for sm_90a into build/ and prints the card, the versions, the
+   build time and ptxas' registers and spills per kernel.
+2. Forward kernel: runs K1 (flash-attention forward) through its wrapper
    against its plain PyTorch version on the card -- [8,12,512,64] in
    bf16 and f32, causal and not, the served call itself (q/k/v as
    strided views into a fused [32,512,3,12,64] qkv projection, bf16;
@@ -16,13 +18,29 @@ Phases:
    -- and times the kernel, the plain version and torch's
    scaled_dot_product_attention (a yardstick only; the port never calls
    it).
-3. Serving: saves a seeded BERT-base BERTClassifier (bf16), serves 64
+3. Backward kernels: runs K1 with logsumexp, then K2 (dQ and delta) and
+   K3 (dK/dV) through their wrappers against their plain versions on the
+   card -- the trained call ([48,12,384,64] q/k/v as views into a
+   [48,384,3,12,64] projection, random dO) in bf16 and f32, causal
+   [8,12,512,64] bf16, cross-length causal [1,2,128->384,128] in bf16
+   and f32 -- and times each kernel, its plain version and SDPA's
+   backward (autograd of SDPA forward+backward minus its forward).
+4. Serving: saves a seeded BERT-base BERTClassifier (bf16), serves 64
    requests of 512 tokens through the port's launch() -> ServingWorker
    -> InferenceModel with zoo.ops.attention_impl = "flash" (every batch
    bucket the batcher can emit is warmed first), checks that
    every request is answered once with finite logits, that K1 ran for
    every encoder layer of every dispatched batch, and that 4 replies
    match the same model run with the einsum attention path.
+5. Learn: fine-tunes a seeded BERT-base BERTSQuAD (bf16 encoder, seq 384,
+   batch 48, random token ids and spans) through ZooModel.fit ->
+   Estimator.fit for 2 epochs of 16 steps (the first warms up, the second
+   is timed) with zoo.ops.attention_impl = "flash"; checks finite losses
+   and that K1, K2 and K3 each launched at least 12 times per step; runs
+   evaluate and predict on the same Estimator; and holds one step's
+   gradients (hidden dropout off) with flash attention against the same
+   step with einsum attention. Prints steps/s, samples/s, tokens/s, MFU
+   (bench.py's formula against 989 TFLOP/s bf16) and peak device memory.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and
 last {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -43,6 +61,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 K1_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd.cu"
 K1_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:82"
+BWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd.cu"
+K2_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:209"
+K3_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:249"
 # |kernel - plain| <= TOL * (1 + |plain|): f32 is exact arithmetic in
 # another order; bf16 rounds P to bf16 before P.V (as the reference
 # kernel does) and rounds the output (one bf16 ulp is 2^-7 relative)
@@ -50,6 +71,16 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # BERT-base logits, bf16 encoder: flash vs einsum attention on the card
 SERVE_TOL = 5e-2
+# one BERT-base train step (48 x 384) at the initial weights, bf16
+# encoder: ||g_a - g_b|| / ||g_b|| per checked parameter for flash vs
+# einsum attention and for flash vs the same step in f32, and the bf16
+# losses' absolute difference. The bf16 paths round at other points (the
+# flash backward rounds dS to bf16 as _flash_bwd does; einsum's autograd
+# keeps the softmax backward in f32), and 12 post-LN layers compound
+# that: on an H100 the two bf16 paths came out 3.1% (layer-0 qkv) and
+# 3.6% (head) apart with the losses 6e-4 apart, so 2e-2 was too tight
+GRAD_TOL = 5e-2
+LOSS_TOL = 1e-2
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor-core and f32
 # CUDA-core FLOP/s, HBM bytes/s
@@ -88,16 +119,47 @@ def time_ms(torch, fn, iters: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(b, h, lq, lk, d, elt, causal, peak_flops, bw):
-    """(bound_ms, bound_by): bytes = q, k, v read once + o written once;
-    flops = 4 * d per visible (query, key) pair."""
-    pairs = (sum(min(lk, i + lk - lq + 1) for i in range(lq)) if causal
-             else lq * lk)
-    flops = 4.0 * b * h * d * pairs
-    nbytes = (2 * lq + 2 * lk) * b * h * d * elt
+def _pairs(lq, lk, causal):
+    """Visible (query, key) pairs of one head (bottom-right diagonal)."""
+    return (sum(min(lk, i + lk - lq + 1) for i in range(lq)) if causal
+            else lq * lk)
+
+
+def _roof(flops, nbytes, peak_flops, bw):
     t_ops, t_bytes = flops / peak_flops, nbytes / bw
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound(b, h, lq, lk, d, elt, causal, peak_flops, bw):
+    """(bound_ms, bound_by) of K1: bytes = q, k, v read once + o written
+    once; flops = 4 * d per visible (query, key) pair."""
+    flops = 4.0 * b * h * d * _pairs(lq, lk, causal)
+    nbytes = (2 * lq + 2 * lk) * b * h * d * elt
+    return _roof(flops, nbytes, peak_flops, bw)
+
+
+def bwd_bound(kernel, b, h, lq, lk, d, elt, causal, peak_flops, bw):
+    """(bound_ms, bound_by) of K2 or K3. K2 reads q, k, v, dO, O (for
+    delta) and lse, writes dQ and delta: 6 * d flops per visible pair
+    (S, dP, dQ). K3 reads q, k, v, dO, lse and delta, writes dK and dV:
+    8 * d flops per pair (S, dP, dV, dK)."""
+    pairs = _pairs(lq, lk, causal)
+    rows = 2 * b * h * lq * 4  # lse and delta, f32
+    if kernel == "dq":
+        flops = 6.0 * b * h * d * pairs
+        nbytes = (4 * lq + 2 * lk) * b * h * d * elt + rows
+    else:
+        flops = 8.0 * b * h * d * pairs
+        nbytes = (2 * lq + 4 * lk) * b * h * d * elt + rows
+    return _roof(flops, nbytes, peak_flops, bw)
+
+
+def _excess(got, want, tol):
+    """(max |got - want|, largest excess over tol * (1 + |want|))."""
+    diff = (got.float() - want.float()).abs()
+    return (diff.max().item(),
+            (diff - tol * (1 + want.float().abs())).max().item())
 
 
 def kernel_phase(torch, peaks):
@@ -186,9 +248,126 @@ def kernel_phase(torch, peaks):
     return served
 
 
+def backward_phase(torch, peaks):
+    """K1 with logsumexp, K2 and K3 against their plain versions; times
+    and bounds. Returns the trained call's bf16 record."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [
+        # "trained" is the call one BERT-base train step makes per
+        # layer: q/k/v views into the fused qkv projection, dO laid out
+        # as the attention output ([B, L, H, D] memory)
+        ("trained", (48, 12, 384, 384, 64), "bfloat16", False),
+        ("trained", (48, 12, 384, 384, 64), "float32", False),
+        ("causal", (8, 12, 512, 512, 64), "bfloat16", True),
+        ("cross_causal", (1, 2, 128, 384, 128), "bfloat16", True),
+        ("cross_causal", (1, 2, 128, 384, 128), "float32", True),
+    ]
+    rng = np.random.RandomState(1)
+    checks, trained = [], {}
+    for name, (b, h, lq, lk, d), dt, causal in cases:
+        dtype = getattr(torch, dt)
+        kind = "bf16" if dt == "bfloat16" else "f32"
+
+        def make(*shape):
+            return torch.from_numpy(
+                rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
+
+        if name == "trained":
+            qkv = make(b, lq, 3, h, d)
+            q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+            do = make(b, lq, h, d).transpose(1, 2)
+        else:
+            q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
+            do = make(b, h, lq, d)
+        o, lse = fa.flash_attention(q, k, v, causal, None, True)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
+        torch.cuda.synchronize()
+        rdq, rdelta = fa.flash_attention_bwd_dq_reference(
+            q, k, v, o, lse, do, causal)
+        rdk, rdv = fa.flash_attention_bwd_dkv_reference(
+            q, k, v, lse, rdelta, do, causal)
+        rec = {"case": name, "shape": [b, h, lq, lk, d], "dtype": dt,
+               "causal": causal, "tol": TOL[dt]}
+        for label, got, want, tol in (
+                ("dq", dq, rdq, TOL[dt]), ("delta", delta, rdelta,
+                                           TOL["float32"]),
+                ("dk", dk, rdk, TOL[dt]), ("dv", dv, rdv, TOL[dt])):
+            if not torch.isfinite(got.float()).all():
+                fail(f"backward {name} {dt}: non-finite {label}")
+            err, excess = _excess(got, want, tol)
+            rec[f"{label}_max_abs_err"] = err
+            if not excess <= 0:
+                fail(f"backward {name} {dt}: {label} error above {tol} * "
+                     f"(1 + |ref|) (max abs error {err})")
+        rec["k2_max_abs_err"] = max(rec["dq_max_abs_err"],
+                                    rec["delta_max_abs_err"])
+        rec["k3_max_abs_err"] = max(rec["dk_max_abs_err"],
+                                    rec["dv_max_abs_err"])
+        rec["k1_lse_ms"] = time_ms(torch, lambda: fa.flash_attention(
+            q, k, v, causal, None, True), 20)
+        rec["k2_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+            q, k, v, o, lse, do, causal), 20)
+        rec["k3_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, lse, delta, do, causal), 20)
+        rec["k2_plain_ms"] = time_ms(
+            torch, lambda: fa.flash_attention_bwd_dq_reference(
+                q, k, v, o, lse, do, causal), 3)
+        rec["k3_plain_ms"] = time_ms(
+            torch, lambda: fa.flash_attention_bwd_dkv_reference(
+                q, k, v, lse, rdelta, do, causal), 3)
+        for kern in ("dq", "dkv"):
+            key = "k2" if kern == "dq" else "k3"
+            rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = bwd_bound(
+                kern, b, h, lq, lk, d, q.element_size(), causal,
+                peaks[kind], peaks["bw"])
+        rec["k1_lse_bound_ms"], _ = bound(b, h, lq, lk, d, q.element_size(),
+                                          causal, peaks[kind], peaks["bw"])
+        rec["sdpa_bwd_ms"] = None
+        if lq == lk:
+            # SDPA aligns a causal diagonal top-left, so only equal
+            # lengths compute the same function
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            out = sdpa(qs, ks, vs, is_causal=causal)
+            # the backward alone, replayed on one retained graph
+            rec["sdpa_bwd_ms"] = time_ms(
+                torch, lambda: torch.autograd.grad(
+                    out, (qs, ks, vs), do, retain_graph=True), 20, warm=5)
+            del out
+            del qs, ks, vs
+        checks.append(rec)
+        print(f"K2/K3 {name} {dt} {[b, h, lq, lk, d]} causal={causal} "
+              f"err dq={rec['dq_max_abs_err']:.3g} "
+              f"delta={rec['delta_max_abs_err']:.3g} "
+              f"dk={rec['dk_max_abs_err']:.3g} "
+              f"dv={rec['dv_max_abs_err']:.3g}; K1-lse "
+              f"{rec['k1_lse_ms']:.4f}ms (bound {rec['k1_lse_bound_ms']:.4f})"
+              f"; K2 {rec['k2_ms']:.4f}ms plain {rec['k2_plain_ms']:.4f}ms "
+              f"bound {rec['k2_bound_ms']:.4f}ms ({rec['k2_bound_by']}); "
+              f"K3 {rec['k3_ms']:.4f}ms plain {rec['k3_plain_ms']:.4f}ms "
+              f"bound {rec['k3_bound_ms']:.4f}ms ({rec['k3_bound_by']}); "
+              f"K2+K3 {rec['k2_ms'] + rec['k3_ms']:.4f}ms vs SDPA backward "
+              + (f"{rec['sdpa_bwd_ms']:.4f}ms" if rec["sdpa_bwd_ms"]
+                 is not None else "n/a"), flush=True)
+        if name == "trained" and dt == "bfloat16":
+            trained = rec
+        del q, k, v, do, o, lse, dq, dk, dv, delta, rdq, rdk, rdv, rdelta
+    print(json.dumps({"backward_checks": checks}), flush=True)
+    return trained
+
+
 BERT_BASE = dict(num_classes=2, vocab=30522, hidden_size=768, n_block=12,
                  n_head=12, intermediate_size=3072, max_position_len=512,
                  dtype="bfloat16")
+# the JAX package's fine-tune workload (bench.py measure_bert): BERT-base
+# BERTSQuAD, seq 384, batch 48, 16 steps an epoch, bf16 encoder
+SQUAD_BASE = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
+                  intermediate_size=3072, max_position_len=512,
+                  dtype="bfloat16")
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 384, 48, 16
+BF16_PEAK = 989e12
 
 
 def profile_batch(torch, model, x, iters=10) -> None:
@@ -207,23 +386,48 @@ def profile_batch(torch, model, x, iters=10) -> None:
         for _ in range(3):
             model.predict(x)
         torch.cuda.synchronize()
+    _print_rows(prof, 3, wall, f"batch {x.shape} predict")
+
+
+# kernel-name marks of the groups a profile is summed into
+KERNEL_GROUPS = (
+    ("flash (K1-K3)", ("flash_fwd", "flash_bwd")),
+    ("gemm", ("nvjet", "gemm", "cutlass", "Kernel2")),
+    ("layer_norm", ("layer_norm", "GammaBeta")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("copies and casts", ("copy_kernel", "Memcpy", "Memset")),
+)
+
+
+def _print_rows(prof, n, wall, what, top=14) -> None:
+    """Device time by kernel per iteration (``n`` profiled iterations),
+    and the idle share against ``wall`` (seconds per iteration, measured
+    without the profiler, whose host-side cost would stretch the
+    window). Kernel rows only: an operator row repeats its kernels'
+    device time."""
     from torch.autograd import DeviceType
 
-    # kernel rows only: an operator row repeats its kernels' device time.
-    # The idle share is taken against the wall time measured without the
-    # profiler, whose host-side cost would stretch the window
-    rows = [(e.self_device_time_total / 3e3, e.count / 3, e.key)
+    rows = [(e.self_device_time_total / (n * 1e3), e.count / n, e.key)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile: batch {x.shape} predict wall {wall * 1e3:.3f} ms; "
-          f"device busy {busy:.3f} ms per batch; idle share "
+    print(f"profile: {what} wall {wall * 1e3:.3f} ms; device busy "
+          f"{busy:.3f} ms per iteration; idle share "
           f"{1 - busy / (wall * 1e3):.3f}", flush=True)
-    for ms, calls, name in rows[:14]:
+    for ms, calls, name in rows[:top]:
         print(f"profile:   {ms:9.4f} ms {100 * ms / max(busy, 1e-9):5.1f}% "
               f"x{calls:g} {name[:90]}", flush=True)
+    groups = {}
+    for ms, calls, name in rows:
+        key = next((g for g, marks in KERNEL_GROUPS if any(
+            m in name for m in marks)), "other")
+        groups[key] = groups.get(key, 0.0) + ms
+    print("profile:   by group " + ", ".join(
+        f"{g} {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)"
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
+        flush=True)
 
 
 def serving_phase(torch, device="cuda", base=BERT_BASE, n_requests=64,
@@ -335,11 +539,196 @@ def serving_phase(torch, device="cuda", base=BERT_BASE, n_requests=64,
     return launches
 
 
+def profile_train_step(torch, est, x, y, iters=5) -> None:
+    """Where one train step's time goes: host wall time per step and
+    device time by kernel (torch.profiler), kernel rows only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    est._train_step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        est._train_step(x, y)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            est._train_step(x, y)
+        torch.cuda.synchronize()
+    _print_rows(prof, 3, wall, f"train step {tuple(y.shape[:1])}", top=20)
+
+
+GRAD_PARAMS = ("squad.bert.encoder_0.attention.qkv.weight",
+               "squad.head.weight")
+
+
+def step_grads(torch, module, xb, yb, impl):
+    """(loss, {param: gradient}) of one step at ``module``'s weights with
+    ``impl`` attention (``train=False``: hidden dropout off)."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+    from analytics_zoo_tpu_torch.models.text.bert_squad import (
+        squad_span_loss)
+
+    cfg = get_config()
+    cfg.set("zoo.ops.attention_impl", impl)
+    params = dict(module.named_parameters())
+    module.zero_grad(set_to_none=True)
+    loss = squad_span_loss(module(xb, train=False), yb)
+    loss.backward()
+    grads = {k: params[k].grad.float().clone() for k in GRAD_PARAMS}
+    module.zero_grad(set_to_none=True)
+    cfg.set("zoo.ops.attention_impl", "flash")
+    return float(loss.detach()), grads
+
+
+def grad_check(torch, module, xb, yb, ref=None):
+    """One step's gradients with flash and with einsum attention at the
+    same weights and batch; with ``ref`` (loss, grads) of the same step
+    in f32, each bf16 path's distance from it too. Returns the relative
+    errors ||g_a - g_b|| / ||g_b|| and the flash/einsum loss gap."""
+    loss_f, g_f = step_grads(torch, module, xb, yb, "flash")
+    loss_e, g_e = step_grads(torch, module, xb, yb, "einsum")
+    pairs = [("flash_vs_einsum", g_f, g_e)]
+    if ref is not None:
+        pairs += [("flash_vs_f32", g_f, ref[1]), ("einsum_vs_f32", g_e,
+                                                  ref[1])]
+    rel = {name: {k: float((a[k] - b[k]).norm() / b[k].norm())
+                  for k in GRAD_PARAMS} for name, a, b in pairs}
+    losses = {"flash": loss_f, "einsum": loss_e}
+    if ref is not None:
+        losses["f32"] = ref[0]
+    print(f"learn: gradients rel_err={rel} (tol {GRAD_TOL}); loss "
+          f"{losses} (tol {LOSS_TOL})", flush=True)
+    return rel, abs(loss_f - loss_e)
+
+
+def learn_phase(torch, device="cuda", base=SQUAD_BASE, seq=TRAIN_SEQ,
+                batch=TRAIN_BATCH, steps_per_epoch=TRAIN_STEPS,
+                profile=False):
+    """The flash-vs-einsum gradient check at the initial weights, then
+    the BERT-base SQuAD fine-tune through ZooModel.fit -> Estimator.fit,
+    then evaluate and predict. Returns (K1, K2, K3) launches of the fit."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+    from analytics_zoo_tpu_torch.learn.optim import param_tree
+    from analytics_zoo_tpu_torch.models.text.bert_squad import BERTSQuAD
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    cfg = get_config()
+    # the auto threshold (512) is the reference's TPU figure: at L = 384
+    # it would route around the kernels
+    cfg.set("zoo.ops.attention_impl", "flash")
+    cuda = device == "cuda"
+    rng = np.random.RandomState(0)
+    n = batch * steps_per_epoch
+    x = {"input_ids": rng.randint(0, base["vocab"], (n, seq)
+                                  ).astype(np.int32)}
+    y = np.stack([rng.randint(0, seq, n), rng.randint(0, seq, n)],
+                 axis=1).astype(np.int32)
+    # one step's gradients at the initial weights and the first batch,
+    # hidden dropout off: flash (K1-lse, K2, K3) against einsum attention,
+    # both bf16, and both against the same step in f32 (einsum)
+    xb = {"input_ids": torch.from_numpy(x["input_ids"][:batch]).to(device)}
+    yb = torch.from_numpy(y[:batch]).to(device)
+    f32 = BERTSQuAD(device=device, seed=0, **dict(base, dtype="float32"))
+    ref = step_grads(torch, f32.module, xb, yb, "einsum")
+    del f32
+    if cuda:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = BERTSQuAD(device=device, seed=0, **base)
+    print(f"learn: BERTSQuAD built in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    rel, dloss = grad_check(torch, model.module, xb, yb, ref)
+    for name in ("flash_vs_einsum", "flash_vs_f32"):
+        if not all(r <= GRAD_TOL for r in rel[name].values()):
+            fail(f"gradients {name} differ: {rel[name]}")
+    if not dloss <= LOSS_TOL:
+        fail(f"flash and einsum losses differ by {dloss}")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+    # ---- main path: ZooModel.fit -> Estimator.fit ----
+    t0 = time.perf_counter()
+    hist = model.fit((x, y), batch_size=batch, epochs=2)
+    if cuda:
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = (fa.flash_attention.launches,
+                fa.flash_attention_bwd_dq.launches,
+                fa.flash_attention_bwd_dkv.launches)
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    est = model.estimator
+    steps = est.global_step
+    if steps != 2 * steps_per_epoch or len(hist) != 2:
+        fail(f"fit ran {steps} steps in {len(hist)} epochs")
+    losses = [h["loss"] for h in hist]
+    # an epoch's loss is the mean of its steps' losses: finite means
+    # every step's loss was finite
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    need = base["n_block"] * steps if cuda else 0
+    for kname, got in zip(("K1", "K2", "K3"), launches):
+        if got < need:
+            fail(f"{kname} launched {got} times in {steps} train steps "
+                 f"(< {need})")
+    timed = hist[1]["seconds"]
+    sps = steps_per_epoch / timed
+    p_dense = sum(p.numel() for pname, p in param_tree(model.module).items()
+                  if "embed" not in pname.lower())
+    flops_per_token = (6 * p_dense
+                       + 12 * base["n_block"] * base["hidden_size"] * seq)
+    mfu = sps * batch * seq * flops_per_token / BF16_PEAK
+
+    # evaluate and predict on the same Estimator
+    m = 2 * batch
+    ev = model.evaluate(({"input_ids": x["input_ids"][:m]}, y[:m]),
+                        batch_size=batch)
+    start, end = model.predict({"input_ids": x["input_ids"][:m]},
+                               batch_size=batch)
+    if not np.isfinite(ev["loss"]):
+        fail(f"evaluate: non-finite loss {ev}")
+    for t in (start, end):
+        if t.shape != (m, seq) or not np.isfinite(t).all():
+            fail(f"predict: bad span logits {t.shape}")
+
+    # the same comparison at the trained weights, for the record: with
+    # random labels the fit drives the tokens' final states together
+    # (spread = their spread over positions against their mean's norm),
+    # and the gradients become small differences of large terms
+    with torch.no_grad():
+        h = model.module.squad.bert(xb)[0].float()
+    spread = float((h.std(1).norm(dim=-1) / h.mean(1).norm(dim=-1)).mean())
+    print(f"learn: after the fit, token-state spread {spread:.4g}; "
+          f"gradients not checked there:", flush=True)
+    grad_check(torch, model.module, xb, yb)
+    summary = {
+        "model": "BERTSQuAD", "config": base, "seq": seq, "batch": batch,
+        "steps": steps, "losses": losses, "fit_s": fit_s,
+        "timed_epoch_s": timed, "steps_per_s": sps,
+        "samples_per_s": sps * batch, "tokens_per_s": sps * batch * seq,
+        "dense_params": p_dense, "mfu_bf16": mfu,
+        "peak_mem_gib": peak / 2 ** 30 if cuda else None,
+        "eval_loss": ev["loss"],
+        "launches": {"K1": launches[0], "K2": launches[1],
+                     "K3": launches[2]},
+        "grad_rel_err": rel, "loss_flash_vs_einsum": dloss,
+        "device": torch.cuda.get_device_name(0) if cuda else device}
+    print("learn: " + json.dumps(summary), flush=True)
+    if profile:
+        profile_train_step(torch, est, xb, yb)
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (flash and "
-                         "einsum attention) after the serving checks")
+                         "einsum attention) and one train step")
     args = ap.parse_args()
 
     import torch
@@ -370,17 +759,34 @@ def main() -> None:
             print(f"  ptxas: {line.strip()}", flush=True)
 
     served = kernel_phase(torch, peaks)
-    launches = serving_phase(torch, profile=args.profile)
-    # K1 at the served call: [32,12,512,64] bf16 views into the qkv
-    # projection
+    trained = backward_phase(torch, peaks)
+    serve_k1 = serving_phase(torch, profile=args.profile)
+    learn_k1, learn_k2, learn_k3 = learn_phase(torch, profile=args.profile)
+    # K1 at the served call ([32,12,512,64] bf16 views into the qkv
+    # projection); K2 and K3 at the trained call ([48,12,384,64] bf16).
+    # SDPA's backward computes K2 + K3 + delta together, so neither row
+    # has a single library call of its own
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches,
+        "replaces": K1_REPLACES, "launches": serve_k1 + learn_k1,
         "shape": served["shape"],
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"],
-        "library_ms": served["library_ms"]}]}), flush=True)
+        "library_ms": served["library_ms"]}] + [{
+            "name": kname, "route": "cuda", "source": BWD_SOURCE,
+            "replaces": replaces, "launches": launches,
+            "shape": trained["shape"],
+            "max_abs_err": trained[f"{key}_max_abs_err"],
+            "ms": trained[f"{key}_ms"],
+            "plain_ms": trained[f"{key}_plain_ms"],
+            "bound_ms": trained[f"{key}_bound_ms"],
+            "bound_by": trained[f"{key}_bound_by"],
+            "library_ms": None}
+            for kname, replaces, launches, key in (
+                ("flash_attn_bwd_dq", K2_REPLACES, learn_k2, "k2"),
+                ("flash_attn_bwd_dkv", K3_REPLACES, learn_k3, "k3"))]}),
+        flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

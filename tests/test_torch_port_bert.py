@@ -1,7 +1,7 @@
 """PyTorch port, BERT: the port's ``_BERTHeadModule`` at weights carried
 over from the JAX package by ``bridge.state_dict_from_flax`` gives the
-JAX package's logits, and ``BERTClassifier`` survives a save/load round
-trip.
+JAX package's logits, ``BERTClassifier`` survives a save/load round
+trip, and its ``fit`` trains.
 
 Small configuration: vocab 512, hidden 128, 2 blocks, 2 heads (d=64),
 intermediate 256, max_position_len 256, 3 classes.
@@ -157,7 +157,18 @@ class TestSaveLoad:
         assert not torch.equal(a.state_dict()[w], b.state_dict()[w])
         assert torch.equal(a.state_dict()[w], c.state_dict()[w])
 
-    def test_training_not_ported_yet(self):
-        model = BERTClassifier(device="cpu", **CFG)
-        with pytest.raises(NotImplementedError, match="learn slice"):
-            model.fit(None)
+    def test_fit_trains_the_weights(self):
+        """``fit`` runs through the Estimator with the reference's
+        defaults (sparse categorical cross-entropy, Adam, accuracy) and
+        moves the weights; ``evaluate`` reports loss and accuracy."""
+        model = BERTClassifier(device="cpu", seed=2, **CFG)
+        x = _inputs(7)
+        y = np.array([0, 2], np.int32)
+        w = "bert.encoder_1.ffn_in.weight"
+        before = model.module.state_dict()[w].clone()
+        hist = model.fit((x, y), batch_size=2, epochs=2)
+        assert [h["epoch"] for h in hist] == [1, 2]
+        assert all(np.isfinite(h["loss"]) for h in hist)
+        assert not torch.equal(model.module.state_dict()[w], before)
+        assert set(model.evaluate((x, y), batch_size=2)) == {"accuracy",
+                                                             "loss"}

@@ -48,6 +48,11 @@ def test_importing_the_port_loads_no_jax():
             "import analytics_zoo_tpu_torch.models\n"
             "import analytics_zoo_tpu_torch.bridge\n"
             "import analytics_zoo_tpu_torch.ops.flash_attention\n"
+            "import analytics_zoo_tpu_torch.learn\n"
+            "import analytics_zoo_tpu_torch.learn.checkpoint\n"
+            "import analytics_zoo_tpu_torch.data\n"
+            "import analytics_zoo_tpu_torch.common.triggers\n"
+            "import analytics_zoo_tpu_torch.models.text.bert_squad\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]\n"
             "assert not bad, bad\n")
@@ -130,4 +135,7 @@ def test_kernel_build_dir_checkout_and_installed(monkeypatch, tmp_path):
     data = tomllib.loads((REPO / "pyproject.toml").read_text())
     globs = data["tool"]["setuptools"]["package-data"][
         "analytics_zoo_tpu_torch"]
-    assert any(fa._SRC.relative_to(PORT).match(g) for g in globs)
+    names = {src.name for src in fa._SOURCES}
+    assert {"flash_attn_fwd.cu", "flash_attn_bwd.cu"} <= names
+    for src in fa._SOURCES:
+        assert any(src.relative_to(PORT).match(g) for g in globs), src
