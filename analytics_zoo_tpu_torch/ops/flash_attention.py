@@ -340,7 +340,6 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_bwd_dq_reference(q, k, v, o, lse, do, causal,
                                                 scale)
     fn = _entry("zoo_flash_attn_bwd_dq")
-    do = _last_dim_contiguous(do)
     _check_inputs(q, k, v, causal, o=o, do=do, lse=lse)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -370,7 +369,6 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_bwd_dkv_reference(q, k, v, lse, delta, do,
                                                  causal, scale)
     fn = _entry("zoo_flash_attn_bwd_dkv")
-    do = _last_dim_contiguous(do)
     _check_inputs(q, k, v, causal, do=do, lse=lse, delta=delta)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -391,6 +389,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
                         scale: Optional[float] = None):
     """The backward of K1: delta and dQ (K2), then dK and dV (K3)."""
+    do = _last_dim_contiguous(do)
     dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, causal, scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, scale)
     return dq, dk, dv

@@ -18,13 +18,15 @@ Phases:
    -- and times the kernel, the plain version and torch's
    scaled_dot_product_attention (a yardstick only; the port never calls
    it).
-3. Backward kernels: runs K1 with logsumexp, then K2 (dQ and delta) and
-   K3 (dK/dV) through their wrappers against their plain versions on the
-   card -- the trained call ([48,12,384,64] q/k/v as views into a
-   [48,384,3,12,64] projection, random dO) in bf16 and f32, causal
-   [8,12,512,64] bf16, cross-length causal [1,2,128->384,128] in bf16
-   and f32 -- and times each kernel, its plain version and SDPA's
-   backward (autograd of SDPA forward+backward minus its forward).
+3. Backward kernels: runs K1 with logsumexp (out and lse), then K2 (dQ
+   and delta) and K3 (dK/dV) on the kernel's checked out and lse, each
+   through its wrapper against its plain version on the card -- the
+   trained call ([48,12,384,64] q/k/v as views into a [48,384,3,12,64]
+   projection, random dO) in bf16 and f32, causal [8,12,512,64] bf16,
+   cross-length causal [1,2,128->384,128] in bf16 and f32 -- and times
+   each kernel, its plain version, SDPA's forward (beside K1 with
+   logsumexp) and SDPA's backward alone, replayed on one retained graph
+   (beside K2 + K3).
 4. Serving: saves a seeded BERT-base BERTClassifier (bf16), serves 64
    requests of 512 tokens through the port's launch() -> ServingWorker
    -> InferenceModel with zoo.ops.attention_impl = "flash" (every batch
@@ -37,10 +39,14 @@ Phases:
    Estimator.fit for 2 epochs of 16 steps (the first warms up, the second
    is timed) with zoo.ops.attention_impl = "flash"; checks finite losses
    and that K1, K2 and K3 each launched at least 12 times per step; runs
-   evaluate and predict on the same Estimator; and holds one step's
-   gradients (hidden dropout off) with flash attention against the same
-   step with einsum attention. Prints steps/s, samples/s, tokens/s, MFU
-   (bench.py's formula against 989 TFLOP/s bf16) and peak device memory.
+   evaluate and predict on the same Estimator; and, before the fit, holds
+   one step's gradients (hidden dropout off) with flash attention against
+   the same step with einsum attention, in f32 and in bf16; it repeats
+   the flash step with the backward's wiring broken on purpose (dQ
+   zeroed; dK and dV swapped) and fails unless the f32 check rejects
+   each broken step. Prints
+   steps/s, samples/s, tokens/s, MFU (bench.py's formula against 989
+   TFLOP/s bf16) and peak device memory.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and
 last {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -81,6 +87,10 @@ SERVE_TOL = 5e-2
 # 3.6% (head) apart with the losses 6e-4 apart, so 2e-2 was too tight
 GRAD_TOL = 5e-2
 LOSS_TOL = 1e-2
+# the same step in f32 (GEMMs without TF32, K1-K3 on FMA): flash and
+# einsum attention differ only in the order of exact f32 sums, so a
+# broken backward (dQ dropped, dK and dV swapped) shows far above this
+F32_GRAD_TOL = 1e-3
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor-core and f32
 # CUDA-core FLOP/s, HBM bytes/s
@@ -131,11 +141,11 @@ def _roof(flops, nbytes, peak_flops, bw):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(b, h, lq, lk, d, elt, causal, peak_flops, bw):
-    """(bound_ms, bound_by) of K1: bytes = q, k, v read once + o written
-    once; flops = 4 * d per visible (query, key) pair."""
+def bound(b, h, lq, lk, d, elt, causal, peak_flops, bw, with_lse=False):
+    """(bound_ms, bound_by) of K1: bytes = q, k, v read once + o (and the
+    f32 lse) written once; flops = 4 * d per visible (query, key) pair."""
     flops = 4.0 * b * h * d * _pairs(lq, lk, causal)
-    nbytes = (2 * lq + 2 * lk) * b * h * d * elt
+    nbytes = (2 * lq + 2 * lk) * b * h * d * elt + with_lse * b * h * lq * 4
     return _roof(flops, nbytes, peak_flops, bw)
 
 
@@ -250,7 +260,9 @@ def kernel_phase(torch, peaks):
 
 def backward_phase(torch, peaks):
     """K1 with logsumexp, K2 and K3 against their plain versions; times
-    and bounds. Returns the trained call's bf16 record."""
+    and bounds. K2 and K3 read the kernel's own out and lse (the main
+    path's inputs), each checked first against K1's plain version.
+    Returns the trained call's bf16 record."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -282,6 +294,23 @@ def backward_phase(torch, peaks):
             q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
             do = make(b, h, lq, d)
         o, lse = fa.flash_attention(q, k, v, causal, None, True)
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_attention_reference(q, k, v, causal, None, True)
+        rec = {"case": name, "shape": [b, h, lq, lk, d], "dtype": dt,
+               "causal": causal, "tol": TOL[dt], "lse_tol": LSE_TOL[dt]}
+        # K1 with logsumexp at this call, against its plain version: out
+        # within TOL * (1 + |ref|), lse within LSE_TOL; K2 and K3 below
+        # read this out and lse, as the main path's backward does
+        err, excess = _excess(o, ro, TOL[dt])
+        lerr = (lse - rlse).abs().max().item()
+        rec.update(k1_lse_out_max_abs_err=err, k1_lse_max_abs_err=lerr)
+        if not (torch.isfinite(o.float()).all() and excess <= 0):
+            fail(f"K1 with logsumexp {name} {dt}: out error above "
+                 f"{TOL[dt]} * (1 + |ref|) (max abs error {err})")
+        if not lerr <= LSE_TOL[dt]:
+            fail(f"K1 with logsumexp {name} {dt}: lse error {lerr} > "
+                 f"{LSE_TOL[dt]}")
+        del ro, rlse
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
         torch.cuda.synchronize()
@@ -289,8 +318,6 @@ def backward_phase(torch, peaks):
             q, k, v, o, lse, do, causal)
         rdk, rdv = fa.flash_attention_bwd_dkv_reference(
             q, k, v, lse, rdelta, do, causal)
-        rec = {"case": name, "shape": [b, h, lq, lk, d], "dtype": dt,
-               "causal": causal, "tol": TOL[dt]}
         for label, got, want, tol in (
                 ("dq", dq, rdq, TOL[dt]), ("delta", delta, rdelta,
                                            TOL["float32"]),
@@ -312,6 +339,9 @@ def backward_phase(torch, peaks):
             q, k, v, o, lse, do, causal), 20)
         rec["k3_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
             q, k, v, lse, delta, do, causal), 20)
+        rec["k1_lse_plain_ms"] = time_ms(
+            torch, lambda: fa.flash_attention_reference(
+                q, k, v, causal, None, True), 3)
         rec["k2_plain_ms"] = time_ms(
             torch, lambda: fa.flash_attention_bwd_dq_reference(
                 q, k, v, o, lse, do, causal), 3)
@@ -323,13 +353,18 @@ def backward_phase(torch, peaks):
             rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = bwd_bound(
                 kern, b, h, lq, lk, d, q.element_size(), causal,
                 peaks[kind], peaks["bw"])
-        rec["k1_lse_bound_ms"], _ = bound(b, h, lq, lk, d, q.element_size(),
-                                          causal, peaks[kind], peaks["bw"])
-        rec["sdpa_bwd_ms"] = None
+        rec["k1_lse_bound_ms"], rec["k1_lse_bound_by"] = bound(
+            b, h, lq, lk, d, q.element_size(), causal, peaks[kind],
+            peaks["bw"], with_lse=True)
+        rec["sdpa_fwd_ms"] = rec["sdpa_bwd_ms"] = None
         if lq == lk:
             # SDPA aligns a causal diagonal top-left, so only equal
             # lengths compute the same function
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            # the forward as training runs it: inputs that need a
+            # gradient, so it keeps its logsumexp for the backward
+            rec["sdpa_fwd_ms"] = time_ms(
+                torch, lambda: sdpa(qs, ks, vs, is_causal=causal), 20)
             out = sdpa(qs, ks, vs, is_causal=causal)
             # the backward alone, replayed on one retained graph
             rec["sdpa_bwd_ms"] = time_ms(
@@ -342,9 +377,14 @@ def backward_phase(torch, peaks):
               f"err dq={rec['dq_max_abs_err']:.3g} "
               f"delta={rec['delta_max_abs_err']:.3g} "
               f"dk={rec['dk_max_abs_err']:.3g} "
-              f"dv={rec['dv_max_abs_err']:.3g}; K1-lse "
-              f"{rec['k1_lse_ms']:.4f}ms (bound {rec['k1_lse_bound_ms']:.4f})"
-              f"; K2 {rec['k2_ms']:.4f}ms plain {rec['k2_plain_ms']:.4f}ms "
+              f"dv={rec['dv_max_abs_err']:.3g} "
+              f"k1_out={rec['k1_lse_out_max_abs_err']:.3g} "
+              f"k1_lse={rec['k1_lse_max_abs_err']:.3g}; K1-lse "
+              f"{rec['k1_lse_ms']:.4f}ms plain {rec['k1_lse_plain_ms']:.4f}ms"
+              f" bound {rec['k1_lse_bound_ms']:.4f}ms SDPA forward "
+              + (f"{rec['sdpa_fwd_ms']:.4f}ms" if rec["sdpa_fwd_ms"]
+                 is not None else "n/a")
+              + f"; K2 {rec['k2_ms']:.4f}ms plain {rec['k2_plain_ms']:.4f}ms "
               f"bound {rec['k2_bound_ms']:.4f}ms ({rec['k2_bound_by']}); "
               f"K3 {rec['k3_ms']:.4f}ms plain {rec['k3_plain_ms']:.4f}ms "
               f"bound {rec['k3_bound_ms']:.4f}ms ({rec['k3_bound_by']}); "
@@ -582,32 +622,69 @@ def step_grads(torch, module, xb, yb, impl):
     return float(loss.detach()), grads
 
 
+def _rel(a, b, keys=GRAD_PARAMS):
+    """{param: ||a - b|| / ||b||}."""
+    return {k: float((a[k] - b[k]).norm() / b[k].norm()) for k in keys}
+
+
 def grad_check(torch, module, xb, yb, ref=None):
     """One step's gradients with flash and with einsum attention at the
     same weights and batch; with ``ref`` (loss, grads) of the same step
     in f32, each bf16 path's distance from it too. Returns the relative
-    errors ||g_a - g_b|| / ||g_b|| and the flash/einsum loss gap."""
+    errors ||g_a - g_b|| / ||g_b||, the flash/einsum loss gap and the
+    einsum gradients."""
     loss_f, g_f = step_grads(torch, module, xb, yb, "flash")
     loss_e, g_e = step_grads(torch, module, xb, yb, "einsum")
     pairs = [("flash_vs_einsum", g_f, g_e)]
     if ref is not None:
         pairs += [("flash_vs_f32", g_f, ref[1]), ("einsum_vs_f32", g_e,
                                                   ref[1])]
-    rel = {name: {k: float((a[k] - b[k]).norm() / b[k].norm())
-                  for k in GRAD_PARAMS} for name, a, b in pairs}
+    rel = {name: _rel(a, b) for name, a, b in pairs}
     losses = {"flash": loss_f, "einsum": loss_e}
     if ref is not None:
         losses["f32"] = ref[0]
     print(f"learn: gradients rel_err={rel} (tol {GRAD_TOL}); loss "
           f"{losses} (tol {LOSS_TOL})", flush=True)
-    return rel, abs(loss_f - loss_e)
+    return rel, abs(loss_f - loss_e), g_e
+
+
+def fault_controls(torch, module, xb, yb, g_einsum, tol):
+    """The flash step again with the backward's wiring broken on purpose
+    (dQ zeroed; dK and dV swapped), each held against the einsum
+    gradients as the gradient check holds the sound step. Returns each
+    fault's relative error on the layer-0 qkv weight; with ``tol``, fails
+    unless each exceeds it, so that check is known to tell a broken
+    backward from a sound one."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    bwd = fa.flash_attention_bwd
+    faults = {"dq_zeroed": lambda dq, dk, dv: (torch.zeros_like(dq), dk, dv),
+              "dk_dv_swapped": lambda dq, dk, dv: (dq, dv, dk)}
+    qkv = GRAD_PARAMS[:1]
+    rel = {}
+    try:
+        for name, fault in faults.items():
+            fa.flash_attention_bwd = lambda *a, f=fault: f(*bwd(*a))
+            _, g = step_grads(torch, module, xb, yb, "flash")
+            rel[name] = _rel(g, g_einsum, qkv)[qkv[0]]
+    finally:
+        fa.flash_attention_bwd = bwd
+    print(f"learn: planted faults, {qkv[0]} rel_err={rel}"
+          + (f" (each must exceed {tol})" if tol else " (recorded)"),
+          flush=True)
+    for name, r in rel.items():
+        if tol and not r > tol:
+            fail(f"the gradient check misses a planted fault ({name}): "
+                 f"rel_err {r} <= {tol}")
+    return rel
 
 
 def learn_phase(torch, device="cuda", base=SQUAD_BASE, seq=TRAIN_SEQ,
                 batch=TRAIN_BATCH, steps_per_epoch=TRAIN_STEPS,
                 profile=False):
-    """The flash-vs-einsum gradient check at the initial weights, then
-    the BERT-base SQuAD fine-tune through ZooModel.fit -> Estimator.fit,
+    """The flash-vs-einsum gradient checks at the initial weights (f32,
+    with its planted-fault controls, and bf16), then the BERT-base SQuAD
+    fine-tune through ZooModel.fit -> Estimator.fit,
     then evaluate and predict. Returns (K1, K2, K3) launches of the fit."""
     from analytics_zoo_tpu_torch.common.config import get_config
     from analytics_zoo_tpu_torch.learn.optim import param_tree
@@ -626,12 +703,19 @@ def learn_phase(torch, device="cuda", base=SQUAD_BASE, seq=TRAIN_SEQ,
     y = np.stack([rng.randint(0, seq, n), rng.randint(0, seq, n)],
                  axis=1).astype(np.int32)
     # one step's gradients at the initial weights and the first batch,
-    # hidden dropout off: flash (K1-lse, K2, K3) against einsum attention,
-    # both bf16, and both against the same step in f32 (einsum)
+    # hidden dropout off. In f32: flash (K1-lse, K2, K3) against einsum
+    # attention, and the same with the backward broken on purpose
     xb = {"input_ids": torch.from_numpy(x["input_ids"][:batch]).to(device)}
     yb = torch.from_numpy(y[:batch]).to(device)
     f32 = BERTSQuAD(device=device, seed=0, **dict(base, dtype="float32"))
     ref = step_grads(torch, f32.module, xb, yb, "einsum")
+    rel32 = _rel(step_grads(torch, f32.module, xb, yb, "flash")[1], ref[1])
+    print(f"learn: f32 gradients flash vs einsum rel_err={rel32} (tol "
+          f"{F32_GRAD_TOL})", flush=True)
+    if not all(r <= F32_GRAD_TOL for r in rel32.values()):
+        fail(f"f32 gradients flash vs einsum differ: {rel32}")
+    planted = {"f32": fault_controls(torch, f32.module, xb, yb, ref[1],
+                                     F32_GRAD_TOL)}
     del f32
     if cuda:
         torch.cuda.empty_cache()
@@ -639,12 +723,16 @@ def learn_phase(torch, device="cuda", base=SQUAD_BASE, seq=TRAIN_SEQ,
     model = BERTSQuAD(device=device, seed=0, **base)
     print(f"learn: BERTSQuAD built in {time.perf_counter() - t0:.1f}s",
           flush=True)
-    rel, dloss = grad_check(torch, model.module, xb, yb, ref)
+    rel, dloss, g_einsum = grad_check(torch, model.module, xb, yb, ref)
     for name in ("flash_vs_einsum", "flash_vs_f32"):
         if not all(r <= GRAD_TOL for r in rel[name].values()):
             fail(f"gradients {name} differ: {rel[name]}")
     if not dloss <= LOSS_TOL:
         fail(f"flash and einsum losses differ by {dloss}")
+    # the same faults against the bf16 check, for the record
+    planted["bf16"] = fault_controls(torch, model.module, xb, yb, g_einsum,
+                                     None)
+    del g_einsum
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -695,17 +783,6 @@ def learn_phase(torch, device="cuda", base=SQUAD_BASE, seq=TRAIN_SEQ,
     for t in (start, end):
         if t.shape != (m, seq) or not np.isfinite(t).all():
             fail(f"predict: bad span logits {t.shape}")
-
-    # the same comparison at the trained weights, for the record: with
-    # random labels the fit drives the tokens' final states together
-    # (spread = their spread over positions against their mean's norm),
-    # and the gradients become small differences of large terms
-    with torch.no_grad():
-        h = model.module.squad.bert(xb)[0].float()
-    spread = float((h.std(1).norm(dim=-1) / h.mean(1).norm(dim=-1)).mean())
-    print(f"learn: after the fit, token-state spread {spread:.4g}; "
-          f"gradients not checked there:", flush=True)
-    grad_check(torch, model.module, xb, yb)
     summary = {
         "model": "BERTSQuAD", "config": base, "seq": seq, "batch": batch,
         "steps": steps, "losses": losses, "fit_s": fit_s,
@@ -716,7 +793,9 @@ def learn_phase(torch, device="cuda", base=SQUAD_BASE, seq=TRAIN_SEQ,
         "eval_loss": ev["loss"],
         "launches": {"K1": launches[0], "K2": launches[1],
                      "K3": launches[2]},
-        "grad_rel_err": rel, "loss_flash_vs_einsum": dloss,
+        "grad_rel_err": dict(rel, f32_flash_vs_einsum=rel32),
+        "loss_flash_vs_einsum": dloss,
+        "planted_fault_rel_err": planted,
         "device": torch.cuda.get_device_name(0) if cuda else device}
     print("learn: " + json.dumps(summary), flush=True)
     if profile:
@@ -763,9 +842,10 @@ def main() -> None:
     serve_k1 = serving_phase(torch, profile=args.profile)
     learn_k1, learn_k2, learn_k3 = learn_phase(torch, profile=args.profile)
     # K1 at the served call ([32,12,512,64] bf16 views into the qkv
-    # projection); K2 and K3 at the trained call ([48,12,384,64] bf16).
-    # SDPA's backward computes K2 + K3 + delta together, so neither row
-    # has a single library call of its own
+    # projection), with its logsumexp call at the trained shape beside
+    # it; K2 and K3 at the trained call ([48,12,384,64] bf16). SDPA's
+    # backward computes K2 + K3 + delta together, so neither row has a
+    # single library call of its own
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": serve_k1 + learn_k1,
@@ -773,7 +853,16 @@ def main() -> None:
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"],
-        "library_ms": served["library_ms"]}] + [{
+        "library_ms": served["library_ms"],
+        "lse_call": {
+            "shape": trained["shape"],
+            "max_abs_err": trained["k1_lse_out_max_abs_err"],
+            "lse_max_abs_err": trained["k1_lse_max_abs_err"],
+            "ms": trained["k1_lse_ms"],
+            "plain_ms": trained["k1_lse_plain_ms"],
+            "bound_ms": trained["k1_lse_bound_ms"],
+            "bound_by": trained["k1_lse_bound_by"],
+            "library_ms": trained["sdpa_fwd_ms"]}}] + [{
             "name": kname, "route": "cuda", "source": BWD_SOURCE,
             "replaces": replaces, "launches": launches,
             "shape": trained["shape"],
