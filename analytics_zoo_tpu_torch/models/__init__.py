@@ -3,6 +3,7 @@ from analytics_zoo_tpu_torch.models.common import (  # noqa: F401
     register_model,
 )
 from analytics_zoo_tpu_torch.models.text import (  # noqa: F401
+    BERTNER,
     BERTClassifier,
     BERTSQuAD,
 )

@@ -1,12 +1,15 @@
-"""BERT fine-tune estimators: sequence classification.
+"""BERT fine-tune estimators: sequence classification and NER.
 
 The counterpart of ``analytics_zoo_tpu/models/text/bert_estimators.py``
-(``_BERTHeadModule``, ``BERTClassifier``). The encoder computes in the
-configured ``dtype`` (``"bfloat16"`` for serving); the classification
-head stays f32. ``fit`` trains through the Estimator with the
-reference's defaults (sparse categorical cross-entropy, Adam, accuracy).
-The SQuAD sibling is ``bert_squad.py``; ``BERTNER`` is still to be ported
-(ROADMAP queue 1: models).
+(``_BERTHeadModule``, ``BERTClassifier``, ``BERTNER`` with
+``token_cross_entropy``). The encoder computes in the configured
+``dtype`` (``"bfloat16"`` for serving); the head stays f32. ``fit``
+trains through the Estimator with the reference's defaults (sparse
+categorical cross-entropy, Adam, accuracy for ``BERTClassifier``; the
+per-token cross-entropy that skips ``IGNORE_INDEX`` for ``BERTNER``).
+A padded batch passes ``attention_mask``, which every encoder layer
+hands to attention as its key-padding mask; on the card that keeps the
+flash kernels. The SQuAD sibling is ``bert_squad.py``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.keras.layers.transformer import (
@@ -99,3 +103,45 @@ class BERTClassifier(_BERTEstimatorBase):
     bare ``input_ids`` tensor; output ``[B, num_classes]`` f32 logits."""
 
     per_token = False
+
+
+IGNORE_INDEX = -1
+
+
+def token_cross_entropy(preds, labels):
+    """Per-token mean CE: preds ``[B, L, C]`` logits, labels ``[B, L]``
+    ids. Positions labelled ``IGNORE_INDEX`` (-1) -- padding --
+    contribute nothing to the loss."""
+    c = preds.shape[-1]
+    logp = F.log_softmax(preds.float().reshape(-1, c), -1)
+    ids = torch.as_tensor(labels, device=preds.device).reshape(-1).long()
+    keep = (ids != IGNORE_INDEX).float()
+    nll = -logp.gather(-1, ids.clamp(min=0)[:, None])[:, 0]
+    return (nll * keep).sum() / keep.sum().clamp(min=1.0)
+
+
+@register_model
+class BERTNER(_BERTEstimatorBase):
+    """Token-level tagging. fit expects ``x = {"input_ids",
+    "attention_mask", optional "token_type_ids"}`` and ``y = [B, L]``
+    int tag ids, with padding positions labelled ``IGNORE_INDEX`` (-1);
+    predictions are ``[B, L, num_classes]`` f32 logits."""
+
+    per_token = True
+    default_loss = staticmethod(token_cross_entropy)
+    default_metrics = ()  # per-token; see token_accuracy
+
+    @staticmethod
+    def decode_tags(logits) -> np.ndarray:
+        """[B, L, C] logits -> [B, L] argmax tag ids."""
+        return np.argmax(np.asarray(logits), axis=-1)
+
+    @staticmethod
+    def token_accuracy(logits, labels) -> float:
+        """Accuracy over real tokens only (labels == IGNORE_INDEX are
+        padding and excluded)."""
+        tags = BERTNER.decode_tags(logits)
+        labels = np.asarray(labels)
+        keep = labels != IGNORE_INDEX
+        total = max(int(keep.sum()), 1)
+        return float(((tags == labels) & keep).sum() / total)

@@ -7,9 +7,21 @@ semantics: the causal diagonal is aligned bottom-right (``tril`` with
 ``[B, H, Lq, Lk]``-broadcastable tensor with 1 = attend, and
 ``key_padding_mask`` is ``[B, Lk]`` with 1 = real token. The dispatch
 reads the same ``zoo.ops.attention_impl`` and
-``zoo.ops.attention_flash_min_seq`` keys. Where the reference takes
-JAX's stock Pallas kernel (key-padding masks, head_dim not a multiple
-of 64), the port has no kernel yet (ROADMAP K5) and raises.
+``zoo.ops.attention_flash_min_seq`` keys and keeps the reference's
+flash gates (L and Lk multiples of 128, no ``mask``, no dropout).
+
+A key-padding mask keeps the flash path on the card: K1-K3 take it
+(K5a). There the port follows ``_einsum_attention``, not the TPU's stock
+kernel. On the TPU the reference hands the mask to JAX's stock Pallas
+``flash_attention`` as segment ids, with ``q_seg = kv_seg`` when
+``lq == lk``, so a padded query row attends only to padded keys; the
+einsum path (and ``reference_attention``) lets every query row attend
+to the real keys. The two agree on real rows, which are all that BERT's
+losses and metrics read (padding is ``IGNORE_INDEX``); the port gives
+the einsum path's values at every row, including a row that sees no key
+(the mean of V, see ``flash_attention``). Where the reference takes the
+stock kernel at a head_dim that is not a multiple of 64 (K5b, TinyGenLM's
+prefill), the port has no kernel yet and raises.
 """
 
 from __future__ import annotations
@@ -59,6 +71,23 @@ def _einsum_attention(q, k, v, mask=None, causal: bool = False,
     return torch.matmul(probs.to(v.dtype), v)
 
 
+def _flash_route(impl: str, on_cuda: bool, l: int, lk: int, d: int,
+                 causal: bool, has_mask: bool, dropout_rate: float
+                 ) -> Optional[str]:
+    """Where the reference would take a flash kernel on its accelerator:
+    "kernels" (K1-K3, with or without a key-padding mask), "k5b" (the
+    stock kernel at head_dim % 64 != 0, not ported) or None (the einsum
+    path)."""
+    if (impl == "einsum" or has_mask or dropout_rate != 0.0
+            or not on_cuda or l % 128 or lk % 128):
+        return None
+    if d % 64 == 0:
+        return "kernels"
+    if d <= 128 and (not causal or l == lk):
+        return "k5b"
+    return None
+
+
 def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
                           causal: bool = False,
                           scale: Optional[float] = None,
@@ -68,7 +97,8 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
     ``torch.Generator`` on the tensors' device, required when
     ``dropout_rate > 0``. The flash path is differentiable: under
     autograd on CUDA it runs K1 with logsumexp forward and K2/K3
-    backward (``flash_attention.FlashAttention``)."""
+    backward (``flash_attention.FlashAttention``), with
+    ``key_padding_mask`` when one is given."""
     d = q.shape[-1]
     l, lk = q.shape[2], k.shape[2]
     scale = scale if scale is not None else 1.0 / np.sqrt(d)
@@ -86,21 +116,21 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
         # the threshold is the reference's (measured on a TPU); its
         # H100 crossover is an open question in PERF.md
         impl = "einsum"
-    flash_ok = (impl != "einsum"
-                and mask is None and dropout_rate == 0.0
-                and q.is_cuda
-                and l % 128 == 0 and lk % 128 == 0)
-    if flash_ok and d % 64 == 0 and key_padding_mask is None:
+    route = _flash_route(impl, q.is_cuda, l, lk, d, causal,
+                         mask is not None, dropout_rate)
+    if route == "kernels":
         from analytics_zoo_tpu_torch.ops.flash_attention import (
             flash_attention)
 
-        return flash_attention(q, k, v, causal, scale)
-    if flash_ok and d <= 128 and (not causal or l == lk):
+        return flash_attention(q, k, v, causal, scale,
+                               key_padding_mask=key_padding_mask)
+    if route == "k5b":
         raise NotImplementedError(
-            "flash attention with a key-padding mask or head_dim % 64 != 0 "
-            "needs the kv-valid-mask kernel (ROADMAP queue 2, K5), which "
-            "the PyTorch port has not ported yet; set "
-            "zoo.ops.attention_impl=einsum to take the plain path")
+            f"flash attention at head_dim {d} (not a multiple of 64) needs "
+            "the stock-kernel counterpart K5b, which the PyTorch port has "
+            "not ported yet (ROADMAP queue 1 item 7, the generation "
+            "plane); set zoo.ops.attention_impl=einsum to take the plain "
+            "path")
 
     if key_padding_mask is not None:
         pm = key_padding_mask[:, None, None, :].bool()

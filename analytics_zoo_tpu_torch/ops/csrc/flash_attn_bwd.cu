@@ -11,6 +11,18 @@
 // f32 accumulation, outputs in the input dtype, causal mask aligned
 // bottom-right (key j visible to query i when j <= i + Lk - Lq).
 //
+// Key-padding mask (optional, [B, Lk] bytes, nonzero = real key): the
+// backward of the key-padding branch of analytics_zoo_tpu/ops/attention.py
+// (:116-127, JAX's stock Pallas kernel with segment ids on the TPU), with
+// the reference einsum path's gradients. Masked pairs get P = 0 and dS = 0,
+// so padded keys get exactly zero dK, and dV from no row that sees a key.
+// A row that sees no key (all-zero mask row, or causal with left padding)
+// took the mean of V in the forward: it gives nothing to dQ or dK and
+// dO / Lk to the dV of every key. Such rows are always the first n_empty
+// rows of a (b, h) (n_empty follows from the first real key), so K3 adds
+// their share as one vector, E = (1/Lk) * sum of their dO rows, to every
+// key's dV; the q-tile loop gives them P = 0 like any masked pair.
+//
 // Design. Pallas ran each kernel as a grid whose last axis was a sequential
 // accumulation in VMEM scratch. Here a thread block owns one output tile and
 // walks the other axis in a loop of its own, so neither kernel needs atomics
@@ -39,6 +51,12 @@
 //     the first q tile whose last row sees its first key. A warp whose rows
 //     see nothing of a tile skips its arithmetic; a masked pair gets P = 0
 //     (nothing is divided, so a row with no visible key in a tile is safe).
+//   * key padding: K2 stages each kv tile's 64 mask bytes in shared memory
+//     beside K and V; K3 reads the mask of its own keys once. Fully padded
+//     tiles are still walked (skipping them is later work), and K3 writes
+//     every key's dK and dV, zeros included (the outputs come from
+//     torch.empty). The mask is a template flag (kMask), so a launch
+//     without one runs the unmasked kernels as they were.
 //
 // What bounds it. Per (b, h) K2 reads Q, K, V, dO, O once and writes dQ, and
 // does 6*D flops per visible (q, k) pair; K3 reads Q, K, V, dO and writes
@@ -77,6 +95,8 @@ struct Params {
   const void* dout;
   const float* lse;              // [B*H, Lq], natural log
   float* delta;                  // [B*H, Lq]: written by K2, read by K3
+  const uint8_t* mask;           // [B, Lk] key-padding mask, or nullptr
+  long long mask_sb;             // its batch stride
   void* dq;
   void* dk;
   void* dv;
@@ -117,6 +137,39 @@ __device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+__device__ __forceinline__ float to_f32(uint16_t x) {  // bf16 bits
+  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+// K3's share of the rows that see no key: e[c] = inv_lk * sum of dO[i][c]
+// over the first n_empty rows, for c < D. Those rows
+// are a prefix: row i sees no key when the first real key lies beyond
+// i + Lk - Lq under causal, or when there is no real key at all.
+template <int D, typename T>
+__device__ void empty_rows_dv(float* e, int* s_first, const uint8_t* mrow,
+                              const T* dout, long long do_sl, int lq, int lk,
+                              int causal, float inv_lk, int tid) {
+  if (tid == 0) *s_first = lk;
+  __syncthreads();
+  for (int j = tid; j < lk; j += kThreads) {
+    if (mrow[j] != 0) {
+      atomicMin(s_first, j);
+      break;
+    }
+  }
+  __syncthreads();
+  const int first = *s_first;
+  const int n_empty = causal ? min(max(first - (lk - lq), 0), lq)
+                             : (first == lk ? lq : 0);
+  if (tid < D) {
+    float acc = 0.f;
+    for (int i = 0; i < n_empty; ++i) acc += to_f32(dout[i * do_sl + tid]);
+    e[tid] = acc * inv_lk;
+  }
+  __syncthreads();
+}
+
 // A fragment (16 rows x 16 columns, slice c of D) of a row-major smem tile
 // whose row `0` is `t`
 template <int LD>
@@ -154,11 +207,12 @@ __device__ __forceinline__ void stage(uint16_t* t, const uint16_t* src,
 
 template <int D>
 constexpr size_t bf16_smem_bytes() {
-  return 4 * kTile * (D + kPad) * sizeof(uint16_t) + 2 * kTile * sizeof(float);
+  return 4 * kTile * (D + kPad) * sizeof(uint16_t) + 2 * kTile * sizeof(float)
+         + kTile;  // K2: the kv tile's mask bytes
 }
 
 // ------------------------------------------------------------ K2, bf16 --
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16_kernel(const Params p) {
   constexpr int LD = D + kPad;
@@ -169,6 +223,7 @@ flash_bwd_dq_bf16_kernel(const Params p) {
   uint16_t* sV = sK + kTile * LD;
   float* sLse = reinterpret_cast<float*>(sV + kTile * LD);  // log2 domain
   float* sDelta = sLse + kTile;
+  uint8_t* sM = reinterpret_cast<uint8_t*>(sDelta + kTile);  // tile's mask
 
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -189,6 +244,7 @@ flash_bwd_dq_bf16_kernel(const Params p) {
   const uint16_t* dout =
       static_cast<const uint16_t*>(p.dout) + b * p.do_sb + hh * p.do_sh;
   uint16_t* dq = static_cast<uint16_t*>(p.dq) + b * p.dq_sb + hh * p.dq_sh;
+  const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
 
   stage<D, LD>(sQ, q + q0 * p.q_sl, p.q_sl, kTile, tid);
   stage<D, LD>(sDO, dout + q0 * p.do_sl, p.do_sl, kTile, tid);
@@ -245,6 +301,7 @@ flash_bwd_dq_bf16_kernel(const Params p) {
                  kTile, tid);
     stage<D, LD>(sV, v + static_cast<long long>(kt) * kTile * p.v_sl, p.v_sl,
                  kTile, tid);
+    if (kMask && tid < kTile) sM[tid] = mrow[kt * kTile + tid];
     __syncthreads();
 
     // a warp whose rows all lie above this tile has nothing to add
@@ -278,10 +335,11 @@ flash_bwd_dq_bf16_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) {
         const bool top = e < 2;
         float pr = exp2f(s[n][e] * p.scale_log2 - (top ? lse_a : lse_b));
-        if (p.causal) {
-          const int col = kt * kTile + n * 8 + t4 * 2 + (e & 1);
-          if (col > q0 + (top ? ra : rb) + offset) pr = 0.f;
+        const int col = n * 8 + t4 * 2 + (e & 1);  // key within the tile
+        if (p.causal && kt * kTile + col > q0 + (top ? ra : rb) + offset) {
+          pr = 0.f;
         }
+        if (kMask && sM[col] == 0) pr = 0.f;
         s[n][e] = pr * (dp[n][e] - (top ? del_a : del_b)) * p.scale;
       }
     }
@@ -316,7 +374,7 @@ flash_bwd_dq_bf16_kernel(const Params p) {
 }
 
 // ------------------------------------------------------------ K3, bf16 --
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_bf16_kernel(const Params p) {
   constexpr int LD = D + kPad;
@@ -327,6 +385,8 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
   uint16_t* sDO = sQ + kTile * LD;
   float* sLse = reinterpret_cast<float*>(sDO + kTile * LD);  // log2 domain
   float* sDelta = sLse + kTile;
+  __shared__ float sE[D];        // dV share of the rows that see no key
+  __shared__ int sFirst;         // first real key of this batch row
 
   const int kt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -349,13 +409,22 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
   uint16_t* dv = static_cast<uint16_t*>(p.dv) + b * p.dv_sb + hh * p.dv_sh;
   const float* lse = p.lse + static_cast<long long>(bh) * p.lq;
   const float* delta = p.delta + static_cast<long long>(bh) * p.lq;
+  const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
 
   stage<D, LD>(sK, k + k0 * p.k_sl, p.k_sl, kTile, tid);
   stage<D, LD>(sV, v + k0 * p.v_sl, p.v_sl, kTile, tid);
+  if (kMask) {
+    // P^T dO for the rows that see no key (P = 1/Lk rounded to bf16, as
+    // the probabilities are before P^T dO)
+    empty_rows_dv<D>(sE, &sFirst, mrow, dout, p.do_sl, p.lq, p.lk, p.causal,
+                     __bfloat162float(__float2bfloat16(1.f / p.lk)), tid);
+  }
 
   const int row0 = warp * 16;          // this warp's first key in the tile
   const int ka = k0 + row0 + g;        // the two keys a thread holds
   const int kb = ka + 8;
+  const bool real_a = !kMask || mrow[ka] != 0;
+  const bool real_b = !kMask || mrow[kb] != 0;
 
   float acc_k[D / 8][4], acc_v[D / 8][4];
 #pragma unroll
@@ -416,6 +485,7 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
         const int qc = n * 8 + t4 * 2 + (e & 1);
         float pr = exp2f(s[n][e] * p.scale_log2 - sLse[qc]);
         if (p.causal && (e < 2 ? ka : kb) > q0 + qc + offset) pr = 0.f;
+        if (kMask && !(e < 2 ? real_a : real_b)) pr = 0.f;
         s[n][e] = pr;
         dp[n][e] = pr * (dp[n][e] - sDelta[qc]) * p.scale;
       }
@@ -452,10 +522,12 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
         pack_bf16(acc_k[n][0], acc_k[n][1]);
     *reinterpret_cast<uint32_t*>(dk + kb * p.dk_sl + col) =
         pack_bf16(acc_k[n][2], acc_k[n][3]);
+    const float e0 = kMask ? sE[col] : 0.f;
+    const float e1 = kMask ? sE[col + 1] : 0.f;
     *reinterpret_cast<uint32_t*>(dv + ka * p.dv_sl + col) =
-        pack_bf16(acc_v[n][0], acc_v[n][1]);
+        pack_bf16(acc_v[n][0] + e0, acc_v[n][1] + e1);
     *reinterpret_cast<uint32_t*>(dv + kb * p.dv_sl + col) =
-        pack_bf16(acc_v[n][2], acc_v[n][3]);
+        pack_bf16(acc_v[n][2] + e0, acc_v[n][3] + e1);
   }
 }
 
@@ -482,12 +554,13 @@ __device__ __forceinline__ void stage_f32(float (*t)[D], const float* src,
   }
 }
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32_kernel(const Params p) {
   constexpr int DP = D / 8;  // dimensions per thread
   __shared__ __align__(16) float sK[kFmaTile][D];
   __shared__ __align__(16) float sV[kFmaTile][D];
+  __shared__ uint8_t sM[kFmaTile];
 
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -505,6 +578,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
   const float* o = static_cast<const float*>(p.o) + b * p.o_sb + hh * p.o_sh;
   const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + hh * p.do_sh;
   float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + hh * p.dq_sh;
+  const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
 
   float qr[DP], dr[DP], acc[DP];
   float part_delta = 0.f;
@@ -530,6 +604,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
     __syncthreads();
     stage_f32<D>(sK, k + static_cast<long long>(kt) * kFmaTile * p.k_sl, p.k_sl, tid);
     stage_f32<D>(sV, v + static_cast<long long>(kt) * kFmaTile * p.v_sl, p.v_sl, tid);
+    if (kMask && tid < kFmaTile) sM[tid] = mrow[kt * kFmaTile + tid];
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kFmaTile; ++j) {
@@ -537,6 +612,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
       const float dpv = row_dot<DP>(dr, &sV[j][d0]);
       float pr = exp2f(s * p.scale_log2 - lse2);
       if (p.causal && kt * kFmaTile + j > row + offset) pr = 0.f;
+      if (kMask && sM[j] == 0) pr = 0.f;
       const float ds = pr * (dpv - del) * p.scale;
 #pragma unroll
       for (int i = 0; i < DP; ++i) acc[i] = fmaf(ds, sK[j][d0 + i], acc[i]);
@@ -547,7 +623,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
 }
 
 // ------------------------------------------------------------- K3, f32 --
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_f32_kernel(const Params p) {
   constexpr int DP = D / 8;
@@ -555,6 +631,8 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   __shared__ __align__(16) float sDO[kFmaTile][D];
   __shared__ float sLse[kFmaTile];
   __shared__ float sDelta[kFmaTile];
+  __shared__ float sE[D];        // dV share of the rows that see no key
+  __shared__ int sFirst;
 
   const int kt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -574,6 +652,13 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   float* dv = static_cast<float*>(p.dv) + b * p.dv_sb + hh * p.dv_sh;
   const float* lse = p.lse + static_cast<long long>(bh) * p.lq;
   const float* delta = p.delta + static_cast<long long>(bh) * p.lq;
+
+  const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
+  const bool real = !kMask || mrow[key] != 0;
+  if (kMask) {
+    empty_rows_dv<D>(sE, &sFirst, mrow, dout, p.do_sl, p.lq, p.lk, p.causal,
+                     1.f / p.lk, tid);
+  }
 
   float kr[DP], vr[DP], acc_k[DP], acc_v[DP];
 #pragma unroll
@@ -605,6 +690,7 @@ flash_bwd_dkv_f32_kernel(const Params p) {
       const float dpv = row_dot<DP>(vr, &sDO[i][d0]);
       float pr = exp2f(s * p.scale_log2 - sLse[i]);
       if (p.causal && key > q0 + i + offset) pr = 0.f;
+      if (kMask && !real) pr = 0.f;
       const float ds = pr * (dpv - sDelta[i]) * p.scale;
 #pragma unroll
       for (int d = 0; d < DP; ++d) {
@@ -616,7 +702,7 @@ flash_bwd_dkv_f32_kernel(const Params p) {
 #pragma unroll
   for (int d = 0; d < DP; ++d) {
     dk[key * p.dk_sl + d0 + d] = acc_k[d];
-    dv[key * p.dv_sl + d0 + d] = acc_v[d];
+    dv[key * p.dv_sl + d0 + d] = kMask ? acc_v[d] + sE[d0 + d] : acc_v[d];
   }
 }
 
@@ -642,8 +728,9 @@ int check(int lq, int lk, int batch, int heads, int causal) {
 }  // namespace
 
 // K2. dtype: 0 = float32, 1 = bfloat16. Writes dq and delta ([B*H, Lq] f32,
-// contiguous). Returns a cudaError_t (0 = launched); 1000 + n flags an
-// argument the kernel does not take.
+// contiguous). mask: [B, Lk] bytes (nonzero = real key) with batch stride
+// mask_sb, or null for none. Returns a cudaError_t (0 = launched); 1000 + n
+// flags an argument the kernel does not take.
 extern "C" int zoo_flash_attn_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq,
@@ -654,11 +741,14 @@ extern "C" int zoo_flash_attn_bwd_dq(
     long long o_sb, long long o_sh, long long o_sl,
     long long do_sb, long long do_sh, long long do_sl,
     long long dq_sb, long long dq_sh, long long dq_sl,
+    const void* mask, long long mask_sb,
     float scale, int causal, void* stream) {
   const int bad = check(lq, lk, batch, heads, causal);
   if (bad) return bad;
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.mask_sb = mask_sb;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
   p.dq = dq;
@@ -673,18 +763,31 @@ extern "C" int zoo_flash_attn_bwd_dq(
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool masked = mask != nullptr;  // the kMask instantiation or not
   if (dtype == 1) {
     const dim3 grid(lq / kTile, batch * heads);
-    if (d == 64)
-      return launch(flash_bwd_dq_bf16_kernel<64>, grid, bf16_smem_bytes<64>(), p, s);
-    if (d == 128)
-      return launch(flash_bwd_dq_bf16_kernel<128>, grid, bf16_smem_bytes<128>(), p, s);
+    if (d == 64) {
+      constexpr size_t smem = bf16_smem_bytes<64>();
+      return masked ? launch(flash_bwd_dq_bf16_kernel<64, true>, grid, smem, p, s)
+                    : launch(flash_bwd_dq_bf16_kernel<64, false>, grid, smem, p, s);
+    }
+    if (d == 128) {
+      constexpr size_t smem = bf16_smem_bytes<128>();
+      return masked ? launch(flash_bwd_dq_bf16_kernel<128, true>, grid, smem, p, s)
+                    : launch(flash_bwd_dq_bf16_kernel<128, false>, grid, smem, p, s);
+    }
     return 1004;
   }
   if (dtype == 0) {
     const dim3 grid(lq / kFmaRows, batch * heads);
-    if (d == 64) return launch(flash_bwd_dq_f32_kernel<64>, grid, 0, p, s);
-    if (d == 128) return launch(flash_bwd_dq_f32_kernel<128>, grid, 0, p, s);
+    if (d == 64) {
+      return masked ? launch(flash_bwd_dq_f32_kernel<64, true>, grid, 0, p, s)
+                    : launch(flash_bwd_dq_f32_kernel<64, false>, grid, 0, p, s);
+    }
+    if (d == 128) {
+      return masked ? launch(flash_bwd_dq_f32_kernel<128, true>, grid, 0, p, s)
+                    : launch(flash_bwd_dq_f32_kernel<128, false>, grid, 0, p, s);
+    }
     return 1004;
   }
   return 1005;
@@ -701,11 +804,14 @@ extern "C" int zoo_flash_attn_bwd_dkv(
     long long do_sb, long long do_sh, long long do_sl,
     long long dk_sb, long long dk_sh, long long dk_sl,
     long long dv_sb, long long dv_sh, long long dv_sl,
+    const void* mask, long long mask_sb,
     float scale, int causal, void* stream) {
   const int bad = check(lq, lk, batch, heads, causal);
   if (bad) return bad;
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dout = dout;
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.mask_sb = mask_sb;
   p.lse = static_cast<const float*>(lse);
   p.delta = const_cast<float*>(static_cast<const float*>(delta));
   p.dk = dk; p.dv = dv;
@@ -720,18 +826,31 @@ extern "C" int zoo_flash_attn_bwd_dkv(
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool masked = mask != nullptr;  // the kMask instantiation or not
   if (dtype == 1) {
     const dim3 grid(lk / kTile, batch * heads);
-    if (d == 64)
-      return launch(flash_bwd_dkv_bf16_kernel<64>, grid, bf16_smem_bytes<64>(), p, s);
-    if (d == 128)
-      return launch(flash_bwd_dkv_bf16_kernel<128>, grid, bf16_smem_bytes<128>(), p, s);
+    if (d == 64) {
+      constexpr size_t smem = bf16_smem_bytes<64>();
+      return masked ? launch(flash_bwd_dkv_bf16_kernel<64, true>, grid, smem, p, s)
+                    : launch(flash_bwd_dkv_bf16_kernel<64, false>, grid, smem, p, s);
+    }
+    if (d == 128) {
+      constexpr size_t smem = bf16_smem_bytes<128>();
+      return masked ? launch(flash_bwd_dkv_bf16_kernel<128, true>, grid, smem, p, s)
+                    : launch(flash_bwd_dkv_bf16_kernel<128, false>, grid, smem, p, s);
+    }
     return 1004;
   }
   if (dtype == 0) {
     const dim3 grid(lk / kFmaRows, batch * heads);
-    if (d == 64) return launch(flash_bwd_dkv_f32_kernel<64>, grid, 0, p, s);
-    if (d == 128) return launch(flash_bwd_dkv_f32_kernel<128>, grid, 0, p, s);
+    if (d == 64) {
+      return masked ? launch(flash_bwd_dkv_f32_kernel<64, true>, grid, 0, p, s)
+                    : launch(flash_bwd_dkv_f32_kernel<64, false>, grid, 0, p, s);
+    }
+    if (d == 128) {
+      return masked ? launch(flash_bwd_dkv_f32_kernel<128, true>, grid, 0, p, s)
+                    : launch(flash_bwd_dkv_f32_kernel<128, false>, grid, 0, p, s);
+    }
     return 1004;
   }
   return 1005;

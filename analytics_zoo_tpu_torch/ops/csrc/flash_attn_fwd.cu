@@ -7,6 +7,18 @@
 // ([B*H, Lq] f32), and a causal mask aligned bottom-right (key j is visible
 // to query i when j <= i + Lk - Lq).
 //
+// Key-padding mask (optional, [B, Lk] bytes, nonzero = real key): replaces
+// the key-padding branch of analytics_zoo_tpu/ops/attention.py (:116-127),
+// which on the TPU goes to JAX's stock Pallas flash_attention with segment
+// ids. Padded keys are invisible to every query row. A row that sees no key
+// at all (an all-zero mask row, or causal with left padding) gets what the
+// reference's einsum path gives with its finite -1e30 fill: the mean of V
+// over all Lk keys, and logsumexp kEmptyLse. The mask of each kv tile is
+// staged in shared memory beside K and V (64 bytes); fully padded tiles are
+// still walked (skipping them is later work). The mask is a template flag
+// (kMask), so a launch without one runs the unmasked kernel as it was: a
+// per-score test that is only predicated off still costs instructions.
+//
 // Design. The Pallas grid (bh, q-block, kv-block) ran its kv dimension as a
 // sequential loop on one TPU core, carrying (m, l, acc) in VMEM scratch.
 // Here one thread block owns one (b*h, 64-row q tile) and walks the kv
@@ -24,6 +36,11 @@
 //     each owning D/8 of its dimensions; scores are reduced with shuffles.
 //   * causal: kv tiles wholly above the diagonal are never loaded, and a
 //     warp whose rows all lie above a tile skips its arithmetic for it.
+//   * rows that see no key: masked scores are -inf, so such a row ends the
+//     loop with its running max still -inf. A block holding one computes
+//     the column means of V in one more pass (tid < D, one column a
+//     thread, coalesced) and writes them as that row's output. Only user
+//     inputs reach this pass; the loop itself never divides 0 by 0.
 //
 // What bounds it. Per (b, h) it reads Q, K, V once from device memory and
 // writes O once: 4*L*D elements against 4*L*Lk*D flops, so at L = 512,
@@ -53,6 +70,9 @@ constexpr int kFmaKv = 32;       // kv rows per smem tile on the f32 path
 constexpr int kFmaRows = 16;     // q rows per block on the f32 path
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// logsumexp of a row that sees no key: what f32 logsumexp gives for the
+// einsum path's row of -1e30 fills (log(Lk) is absorbed)
+constexpr float kEmptyLse = -1e30f;
 
 struct Params {
   const void* q;
@@ -60,6 +80,8 @@ struct Params {
   const void* v;
   void* o;
   float* lse;                    // nullptr unless with_lse
+  const uint8_t* mask;           // [B, Lk] key-padding mask, or nullptr
+  long long mask_sb;             // its batch stride
   long long q_sb, q_sh, q_sl;    // element strides: batch, head, seq
   long long k_sb, k_sh, k_sl;
   long long v_sb, v_sh, v_sl;
@@ -68,6 +90,29 @@ struct Params {
   float scale_log2;              // softmax scale * log2(e)
   int causal;
 };
+
+__device__ __forceinline__ float bf16_to_f32(uint16_t x) {
+  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+}
+
+// column means of V over all Lk keys into `mean` (threads tid < D, one
+// column each); the output of a row that sees no key
+template <int D, typename T>
+__device__ __forceinline__ void v_column_means(float* mean, const T* v,
+                                               long long sl, int lk, int tid) {
+  if (tid < D) {
+    float acc = 0.f;
+    for (int j = 0; j < lk; ++j) {
+      if constexpr (sizeof(T) == 2) {
+        acc += bf16_to_f32(v[j * sl + tid]);
+      } else {
+        acc += v[j * sl + tid];
+      }
+    }
+    mean[tid] = acc / static_cast<float>(lk);
+  }
+  __syncthreads();
+}
 
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
@@ -90,11 +135,13 @@ __device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
 }
 
 // ---------------------------------------------------------------- bf16 --
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const Params p) {
   __shared__ __align__(16) uint16_t sK[kTile][D + kPad];
   __shared__ __align__(16) uint16_t sV[kTile][D + kPad];
+  __shared__ uint8_t sM[kTile];  // this kv tile's key-padding mask
+  __shared__ float sMean[D];     // column means of V (rows with no key)
 
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -110,6 +157,7 @@ flash_fwd_bf16_kernel(const Params p) {
   const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + hh * p.k_sh;
   const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + hh * p.v_sh;
   uint16_t* o = static_cast<uint16_t*>(p.o) + b * p.o_sb + hh * p.o_sh;
+  const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
 
   const int row0 = qt * kTile + warp * 16;   // this warp's first q row
   const int ra = row0 + g;                   // the two rows a thread holds
@@ -153,6 +201,7 @@ flash_fwd_bf16_kernel(const Params p) {
       *reinterpret_cast<uint4*>(&sV[r][c]) =
           *reinterpret_cast<const uint4*>(v + key * p.v_sl + c);
     }
+    if (kMask && tid < kTile) sM[tid] = mrow[kt * kTile + tid];
     __syncthreads();
 
     // a warp whose rows all lie above this tile has nothing to add
@@ -180,11 +229,11 @@ flash_fwd_bf16_kernel(const Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[n][e] * p.scale_log2;
-        if (p.causal) {
-          const int col = kt * kTile + n * 8 + t4 * 2 + (e & 1);
-          const int row = (e < 2) ? ra : rb;
-          if (col > row + offset) x = -INFINITY;
+        const int col = n * 8 + t4 * 2 + (e & 1);  // key within the tile
+        if (p.causal && kt * kTile + col > ((e < 2) ? ra : rb) + offset) {
+          x = -INFINITY;
         }
+        if (kMask && sM[col] == 0) x = -INFINITY;
         s[n][e] = x;
       }
       mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
@@ -251,28 +300,39 @@ flash_fwd_bf16_kernel(const Params p) {
   l_b = fmaxf(l_b, 1e-30f);
   const float inv_a = 1.f / l_a;
   const float inv_b = 1.f / l_b;
+  // a row whose running max is still -inf saw no key (only a mask can
+  // do that: under causal alone, with Lq <= Lk, every row sees key 0)
+  const bool empty_a = kMask && m_a == -INFINITY;
+  const bool empty_b = kMask && m_b == -INFINITY;
+  if (kMask && __syncthreads_or(empty_a || empty_b)) {
+    v_column_means<D>(sMean, v, p.v_sl, p.lk, tid);
+  }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + t4 * 2;
     *reinterpret_cast<uint32_t*>(o + ra * p.o_sl + col) =
-        pack_bf16(acc[n][0] * inv_a, acc[n][1] * inv_a);
+        empty_a ? pack_bf16(sMean[col], sMean[col + 1])
+                : pack_bf16(acc[n][0] * inv_a, acc[n][1] * inv_a);
     *reinterpret_cast<uint32_t*>(o + rb * p.o_sl + col) =
-        pack_bf16(acc[n][2] * inv_b, acc[n][3] * inv_b);
+        empty_b ? pack_bf16(sMean[col], sMean[col + 1])
+                : pack_bf16(acc[n][2] * inv_b, acc[n][3] * inv_b);
   }
   if (p.lse != nullptr && t4 == 0) {
     float* lse = p.lse + static_cast<long long>(bh) * p.lq;
-    lse[ra] = (m_a + log2f(l_a)) * kLn2;
-    lse[rb] = (m_b + log2f(l_b)) * kLn2;
+    lse[ra] = empty_a ? kEmptyLse : (m_a + log2f(l_a)) * kLn2;
+    lse[rb] = empty_b ? kEmptyLse : (m_b + log2f(l_b)) * kLn2;
   }
 }
 
 // ----------------------------------------------------------------- f32 --
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const Params p) {
   constexpr int DP = D / 8;  // dimensions per thread
   __shared__ __align__(16) float sK[kFmaKv][D];
   __shared__ __align__(16) float sV[kFmaKv][D];
+  __shared__ uint8_t sM[kFmaKv];
+  __shared__ float sMean[D];
 
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -288,6 +348,7 @@ flash_fwd_f32_kernel(const Params p) {
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hh * p.v_sh;
   float* o = static_cast<float*>(p.o) + b * p.o_sb + hh * p.o_sh;
+  const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
 
   float qr[DP];
   float acc[DP];
@@ -315,6 +376,7 @@ flash_fwd_f32_kernel(const Params p) {
       *reinterpret_cast<float4*>(&sV[r][c]) =
           *reinterpret_cast<const float4*>(v + key * p.v_sl + c);
     }
+    if (kMask && tid < kFmaKv) sM[tid] = mrow[kt * kFmaKv + tid];
     __syncthreads();
 
     float s[kFmaKv];
@@ -328,6 +390,7 @@ flash_fwd_f32_kernel(const Params p) {
       part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 2);
       part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 4);
       if (p.causal && kt * kFmaKv + j > row + offset) part_dot = -INFINITY;
+      if (kMask && sM[j] == 0) part_dot = -INFINITY;
       s[j] = part_dot;
       mx = fmaxf(mx, part_dot);
     }
@@ -352,10 +415,17 @@ flash_fwd_f32_kernel(const Params p) {
 
   l = fmaxf(l, 1e-30f);
   const float inv = 1.f / l;
+  const bool empty = kMask && m == -INFINITY;  // this row saw no key
+  if (kMask && __syncthreads_or(empty)) {
+    v_column_means<D>(sMean, v, p.v_sl, p.lk, tid);
+  }
 #pragma unroll
-  for (int i = 0; i < DP; ++i) o[row * p.o_sl + d0 + i] = acc[i] * inv;
+  for (int i = 0; i < DP; ++i) {
+    o[row * p.o_sl + d0 + i] = empty ? sMean[d0 + i] : acc[i] * inv;
+  }
   if (p.lse != nullptr && part == 0) {
-    p.lse[static_cast<long long>(bh) * p.lq + row] = (m + log2f(l)) * kLn2;
+    p.lse[static_cast<long long>(bh) * p.lq + row] =
+        empty ? kEmptyLse : (m + log2f(l)) * kLn2;
   }
 }
 
@@ -367,8 +437,9 @@ cudaError_t launch(Kernel kernel, dim3 grid, const Params& p, cudaStream_t strea
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched);
-// 1000 + n flags an argument the kernel does not take.
+// dtype: 0 = float32, 1 = bfloat16. mask: [B, Lk] bytes (nonzero = real
+// key) with batch stride mask_sb, or null for none. Returns a cudaError_t
+// (0 = launched); 1000 + n flags an argument the kernel does not take.
 extern "C" int zoo_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int batch, int heads, int lq, int lk, int d,
@@ -376,10 +447,13 @@ extern "C" int zoo_flash_attn_fwd(
     long long k_sb, long long k_sh, long long k_sl,
     long long v_sb, long long v_sh, long long v_sl,
     long long o_sb, long long o_sh, long long o_sl,
+    const void* mask, long long mask_sb,
     float scale, int causal, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.lse = static_cast<float*>(lse);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.mask_sb = mask_sb;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
@@ -391,16 +465,29 @@ extern "C" int zoo_flash_attn_fwd(
   if (causal && lq > lk) return 1002;
   if (batch * heads > 65535) return 1003;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool masked = mask != nullptr;  // the kMask instantiation or not
   if (dtype == 1) {
     const dim3 grid(lq / kTile, batch * heads);
-    if (d == 64) return launch(flash_fwd_bf16_kernel<64>, grid, p, s);
-    if (d == 128) return launch(flash_fwd_bf16_kernel<128>, grid, p, s);
+    if (d == 64) {
+      return masked ? launch(flash_fwd_bf16_kernel<64, true>, grid, p, s)
+                    : launch(flash_fwd_bf16_kernel<64, false>, grid, p, s);
+    }
+    if (d == 128) {
+      return masked ? launch(flash_fwd_bf16_kernel<128, true>, grid, p, s)
+                    : launch(flash_fwd_bf16_kernel<128, false>, grid, p, s);
+    }
     return 1004;
   }
   if (dtype == 0) {
     const dim3 grid(lq / kFmaRows, batch * heads);
-    if (d == 64) return launch(flash_fwd_f32_kernel<64>, grid, p, s);
-    if (d == 128) return launch(flash_fwd_f32_kernel<128>, grid, p, s);
+    if (d == 64) {
+      return masked ? launch(flash_fwd_f32_kernel<64, true>, grid, p, s)
+                    : launch(flash_fwd_f32_kernel<64, false>, grid, p, s);
+    }
+    if (d == 128) {
+      return masked ? launch(flash_fwd_f32_kernel<128, true>, grid, p, s)
+                    : launch(flash_fwd_f32_kernel<128, false>, grid, p, s);
+    }
     return 1004;
   }
   return 1005;

@@ -10,17 +10,37 @@ kernels live in ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
 first use into ``build/`` at the repository root (a per-user cache for an
 installed package) and loaded through ``ctypes``.
 
+Every function also takes ``key_padding_mask`` (``[B, Lk]``, nonzero =
+real token, any pattern): the counterpart of the key-padding branch that
+the reference sends to JAX's stock Pallas kernel with segment ids
+(``analytics_zoo_tpu/ops/attention.py:116``). The semantics are
+``_einsum_attention``'s with the mask as ``[B, 1, 1, Lk]``:
+
+- a query row sees the real keys (and, with ``causal``, only those on or
+  below the diagonal); padded query rows are computed like any other;
+- a row that sees no key at all (an all-zero mask row, or ``causal``
+  with left padding) gets what the einsum path's finite ``-1e30`` fill
+  gives: the mean of V over all Lk keys, no gradient to q or k, and
+  ``dO / Lk`` to the dV of every key. Its logsumexp is reported as
+  ``EMPTY_LSE`` (``-1e30``, what f32 ``logsumexp`` of that filled row
+  gives); the backward finds such rows from the mask, not from the lse;
+- padded keys get exactly zero dK, and zero dV apart from that uniform
+  share of rows that see no key.
+
 Every wrapper takes a CPU tensor to its plain PyTorch version and a CUDA
 tensor to its kernel; there is no fallback between the two.
 ``flash_attention`` goes through ``FlashAttention`` (a
 ``torch.autograd.Function``: K1 with logsumexp forward, K2 then K3
 backward) whenever autograd is recording and an input needs a gradient.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``, and
+those given a key-padding mask in ``<wrapper>.masked_launches``.
 
 Shapes the kernels take: D in {64, 128}; L and Lk multiples of ``TILE``
 (64); f32 or bf16; the last dimension contiguous and 16-byte aligned rows
 (other strides are free, so q/k/v may be views into a fused qkv
-projection). Anything else raises.
+projection); a key-padding mask of ``[B, Lk]`` on the same device, of
+any dtype (converted once per call to contiguous bytes, ``mask != 0``).
+Anything else raises.
 """
 
 from __future__ import annotations
@@ -39,7 +59,8 @@ import numpy as np
 import torch
 
 TILE = 64
-NEG_INF = -1e30
+# the logsumexp reported for a query row that sees no key
+EMPTY_LSE = -1e30
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SRC = _CSRC / "flash_attn_fwd.cu"
@@ -49,7 +70,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_TAIL = [ctypes.c_float, _I, _P]   # scale, causal, stream
+# key-padding mask and its batch stride, scale, causal, stream
+_TAIL = [_P, _L, ctypes.c_float, _I, _P]
 # C entry point -> (source stem, argtypes)
 _ENTRY_POINTS = {
     "zoo_flash_attn_fwd": ("flash_attn_fwd",
@@ -85,48 +107,75 @@ def _causal_keep(lq: int, lk: int, device) -> torch.Tensor:
     return torch.ones(lq, lk, dtype=torch.bool, device=device).tril(lk - lq)
 
 
+def _visible(lq: int, lk: int, causal: bool,
+             key_padding_mask: Optional[torch.Tensor], device
+             ) -> Optional[torch.Tensor]:
+    """Which (query, key) pairs are visible, broadcastable to
+    ``[B, H, Lq, Lk]`` (None: all of them)."""
+    keep = _causal_keep(lq, lk, device) if causal else None
+    if key_padding_mask is not None:
+        real = (key_padding_mask != 0)[:, None, None, :]
+        keep = real if keep is None else keep & real
+    return keep
+
+
+def _scores(q, k, scale, keep):
+    """f32 ``scale * Q K^T`` with the pairs not in ``keep`` at -inf."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return s if keep is None else s.masked_fill(~keep, float("-inf"))
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = False,
                               scale: Optional[float] = None,
-                              with_lse: bool = False
+                              with_lse: bool = False,
+                              key_padding_mask: Optional[torch.Tensor] = None
                               ) -> Union[torch.Tensor,
                                          Tuple[torch.Tensor, torch.Tensor]]:
     """Plain PyTorch version of K1: the same function, computed with the
     whole [Lq, Lk] score matrix in f32. Returns ``out`` in the input
-    dtype, plus ``lse`` as ``[B*H, Lq]`` f32 when ``with_lse``."""
+    dtype, plus ``lse`` as ``[B*H, Lq]`` f32 when ``with_lse``. A row
+    that sees no key averages V over all keys, with ``EMPTY_LSE``."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if causal and lq > lk:
         raise ValueError("causal attention requires len(q) <= len(kv)")
-    scale = _resolve_scale(scale, d)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal:
-        s = s.masked_fill(~_causal_keep(lq, lk, q.device), NEG_INF)
+    s = _scores(q, k, _resolve_scale(scale, d),
+                _visible(lq, lk, causal, key_padding_mask, q.device))
+    # softmax through exp(s - lse), not logsumexp over a finite fill: in
+    # f32 the logsumexp of a row all at -1e30 is -1e30 (log(Lk) is
+    # absorbed), which would turn that row's mean into a sum
     lse = torch.logsumexp(s, dim=-1)
-    out = torch.matmul(torch.exp(s - lse[..., None]), v.float()).to(q.dtype)
+    empty = torch.isneginf(lse)
+    p = torch.exp(s - lse.masked_fill(empty, 0.0)[..., None])
+    p = torch.where(empty[..., None], 1.0 / lk, p)
+    out = torch.matmul(p, v.float()).to(q.dtype)
     if with_lse:
-        return out, lse.reshape(b * h, lq)
+        return out, lse.masked_fill(empty, EMPTY_LSE).reshape(b * h, lq)
     return out
 
 
-def _bwd_plain(q, k, v, lse, delta, do, causal, scale, want_dq, want_dkv):
+def _bwd_plain(q, k, v, lse, delta, do, causal, scale, want_dq, want_dkv,
+               key_padding_mask=None):
     """The backward as ``_flash_bwd`` computes it, with whole [Lq, Lk]
     matrices in f32: P rebuilt from ``lse``, dS rounded to the input
     dtype before the dQ and dK products, P rounded to dO's dtype before
-    dV. Returns the wanted ones of dq, dk, dv, in the input dtypes."""
+    dV. Masked pairs get P = 0 and dS = 0; a row that sees no key gives
+    P = 1/Lk to every key in dV alone. Returns the wanted ones of dq,
+    dk, dv, in the input dtypes."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     scale = _resolve_scale(scale, d)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal:
-        s = s.masked_fill(~_causal_keep(lq, lk, q.device), NEG_INF)
-    p = torch.exp(s - lse.reshape(b, h, lq, 1))
+    keep = _visible(lq, lk, causal, key_padding_mask, q.device)
+    p = torch.exp(_scores(q, k, scale, keep) - lse.reshape(b, h, lq, 1))
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     ds = (p * (dp - delta.reshape(b, h, lq, 1)) * scale).to(q.dtype).float()
     out = []
     if want_dq:
         out.append(torch.matmul(ds, k.float()).to(q.dtype))
     if want_dkv:
+        if keep is not None:
+            p = torch.where(~keep.any(-1, keepdim=True), 1.0 / lk, p)
         out.append(torch.matmul(ds.transpose(-1, -2), q.float()).to(k.dtype))
         out.append(torch.matmul(p.to(do.dtype).float().transpose(-1, -2),
                                 do.float()).to(v.dtype))
@@ -135,21 +184,25 @@ def _bwd_plain(q, k, v, lse, delta, do, causal, scale, want_dq, want_dkv):
 
 def flash_attention_bwd_dq_reference(q, k, v, o, lse, do,
                                      causal: bool = False,
-                                     scale: Optional[float] = None):
+                                     scale: Optional[float] = None,
+                                     key_padding_mask=None):
     """Plain PyTorch version of K2: ``(dq, delta)`` with
     ``delta = rowsum(do * o)`` as ``[B*H, Lq]`` f32 (``_flash_bwd``
     :316-320)."""
     b, h, lq, _ = o.shape
     delta = (do.float() * o.float()).sum(-1).reshape(b * h, lq)
-    (dq,) = _bwd_plain(q, k, v, lse, delta, do, causal, scale, True, False)
+    (dq,) = _bwd_plain(q, k, v, lse, delta, do, causal, scale, True, False,
+                       key_padding_mask)
     return dq, delta
 
 
 def flash_attention_bwd_dkv_reference(q, k, v, lse, delta, do,
                                       causal: bool = False,
-                                      scale: Optional[float] = None):
+                                      scale: Optional[float] = None,
+                                      key_padding_mask=None):
     """Plain PyTorch version of K3: ``(dk, dv)`` from K2's ``delta``."""
-    dk, dv = _bwd_plain(q, k, v, lse, delta, do, causal, scale, False, True)
+    dk, dv = _bwd_plain(q, k, v, lse, delta, do, causal, scale, False, True,
+                        key_padding_mask)
     return dk, dv
 
 
@@ -157,16 +210,19 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, o: torch.Tensor,
                                   lse: torch.Tensor, do: torch.Tensor,
                                   causal: bool = False,
-                                  scale: Optional[float] = None
+                                  scale: Optional[float] = None,
+                                  key_padding_mask=None
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
     """Plain PyTorch version of K2, K3 and delta: (dq, dk, dv) in the
     input dtypes, from the forward's ``o`` and ``lse`` ([B*H, Lq] f32)
     and the output gradient ``do``."""
     dq, delta = flash_attention_bwd_dq_reference(q, k, v, o, lse, do,
-                                                 causal, scale)
+                                                 causal, scale,
+                                                 key_padding_mask)
     dk, dv = flash_attention_bwd_dkv_reference(q, k, v, lse, delta, do,
-                                               causal, scale)
+                                               causal, scale,
+                                               key_padding_mask)
     return dq, dk, dv
 
 
@@ -251,14 +307,19 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool, **more: torch.Tensor) -> None:
+                  causal: bool, mask: Optional[torch.Tensor] = None,
+                  **more: torch.Tensor) -> None:
     b, h, lq, d = q.shape
     lk = k.shape[2]
     tensors = dict(q=q, k=k, v=v, **more)
-    if not (q.is_cuda and all(t.device == q.device
-                              for t in tensors.values())):
+    if not (q.is_cuda and all(t.device == q.device for t in
+                              (*tensors.values(),
+                               *([mask] if mask is not None else [])))):
         raise ValueError("flash kernel: every tensor must be on one CUDA "
                          "device")
+    if mask is not None and tuple(mask.shape) != (b, lk):
+        raise ValueError(f"flash kernel: key_padding_mask must be "
+                         f"[{b}, {lk}], got {tuple(mask.shape)}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash kernel takes float32 or bfloat16 q/k/v, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -300,10 +361,32 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _kernel_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The key-padding mask as the kernels read it: contiguous bytes,
+    nonzero = real. A contiguous uint8 mask is taken as it is; any
+    other is converted once (``mask != 0``)."""
+    if mask is None or (mask.dtype == torch.uint8 and mask.is_contiguous()):
+        return mask
+    return mask.ne(0).contiguous().view(torch.uint8)
+
+
+def _mask_args(mask: Optional[torch.Tensor]) -> tuple:
+    """(pointer, batch stride) of a ``_kernel_mask``; null for none."""
+    return (None, 0) if mask is None else (mask.data_ptr(), mask.stride(0))
+
+
+def _count(wrapper, mask) -> None:
+    wrapper.launches += 1
+    if mask is not None:
+        wrapper.masked_launches += 1
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, scale: Optional[float], with_lse: bool):
+            causal: bool, scale: Optional[float], with_lse: bool,
+            key_padding_mask: Optional[torch.Tensor] = None):
     fn = _entry("zoo_flash_attn_fwd")
-    _check_inputs(q, k, v, causal)
+    _check_inputs(q, k, v, causal, key_padding_mask)
+    mask = _kernel_mask(key_padding_mask)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     out = _empty_bhld(b, h, lq, d, q)
@@ -313,11 +396,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr() if lse is not None else None,
             _DTYPE_CODE[q.dtype], b, h, lq, lk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], _resolve_scale(scale, d), int(causal),
-            _stream(q))
+            *out.stride()[:3], *_mask_args(mask), _resolve_scale(scale, d),
+            int(causal), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: code {rc}")
-    flash_attention.launches += 1
+    _count(flash_attention, mask)
     return (out, lse) if with_lse else out
 
 
@@ -331,16 +414,18 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, o: torch.Tensor,
                            lse: torch.Tensor, do: torch.Tensor,
                            causal: bool = False,
-                           scale: Optional[float] = None
+                           scale: Optional[float] = None,
+                           key_padding_mask: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: ``(dq, delta)``, where ``delta = rowsum(do * o)`` ([B*H, Lq]
     f32) is what K3 reads. The kernel on CUDA, the plain version on the
     CPU."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, o, lse, do, causal,
-                                                scale)
+                                                scale, key_padding_mask)
     fn = _entry("zoo_flash_attn_bwd_dq")
-    _check_inputs(q, k, v, causal, o=o, do=do, lse=lse)
+    _check_inputs(q, k, v, causal, key_padding_mask, o=o, do=do, lse=lse)
+    mask = _kernel_mask(key_padding_mask)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dq = _empty_bhld(b, h, lq, d, q)
@@ -350,10 +435,11 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
             _DTYPE_CODE[q.dtype], b, h, lq, lk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
-            _resolve_scale(scale, d), int(causal), _stream(q))
+            *_mask_args(mask), _resolve_scale(scale, d), int(causal),
+            _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash dq kernel launch failed: code {rc}")
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, mask)
     return dq, delta
 
 
@@ -361,15 +447,19 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, lse: torch.Tensor,
                             delta: torch.Tensor, do: torch.Tensor,
                             causal: bool = False,
-                            scale: Optional[float] = None
+                            scale: Optional[float] = None,
+                            key_padding_mask: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: ``(dk, dv)`` from the ``delta`` that K2 returned. The kernel
     on CUDA, the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, lse, delta, do,
-                                                 causal, scale)
+                                                 causal, scale,
+                                                 key_padding_mask)
     fn = _entry("zoo_flash_attn_bwd_dkv")
-    _check_inputs(q, k, v, causal, do=do, lse=lse, delta=delta)
+    _check_inputs(q, k, v, causal, key_padding_mask, do=do, lse=lse,
+                  delta=delta)
+    mask = _kernel_mask(key_padding_mask)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dk = _empty_bhld(b, h, lk, d, k)
@@ -379,64 +469,81 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
             _DTYPE_CODE[q.dtype], b, h, lq, lk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-            _resolve_scale(scale, d), int(causal), _stream(q))
+            *_mask_args(mask), _resolve_scale(scale, d), int(causal),
+            _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash dkv kernel launch failed: code {rc}")
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, mask)
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        key_padding_mask: Optional[torch.Tensor] = None):
     """The backward of K1: delta and dQ (K2), then dK and dV (K3)."""
     do = _last_dim_contiguous(do)
-    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, causal, scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, scale)
+    key_padding_mask = _kernel_mask(key_padding_mask)  # once for both
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, causal, scale,
+                                       key_padding_mask)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, scale,
+                                     key_padding_mask)
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """K4, the counterpart of ``pallas_flash_attention_fwd``'s custom_vjp:
-    forward K1 with logsumexp (saving q, k, v, o, lse), backward K2 then
-    K3. On CPU tensors the same wiring runs the plain versions."""
+    forward K1 with logsumexp (saving q, k, v, o, lse and the key-padding
+    mask, which takes no gradient), backward K2 then K3. On CPU tensors
+    the same wiring runs the plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float],
+                key_padding_mask: Optional[torch.Tensor] = None):
+        mask = _kernel_mask(key_padding_mask)  # once for K1, K2 and K3
         if q.device.type == "cpu":
             out, lse = flash_attention_reference(q, k, v, causal, scale,
-                                                 with_lse=True)
+                                                 True, mask)
         else:
-            out, lse = _launch(q, k, v, causal, scale, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+            out, lse = _launch(q, k, v, causal, scale, True, mask)
+        ctx.save_for_backward(q, k, v, out, lse, mask)
         ctx.causal, ctx.scale = causal, scale
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, mask = ctx.saved_tensors
+        # positional: callers that wrap flash_attention_bwd see every
+        # argument in *args
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
-                                         ctx.scale)
-        return dq, dk, dv, None, None
+                                         ctx.scale, mask)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
-                    with_lse: bool = False):
+                    with_lse: bool = False,
+                    key_padding_mask: Optional[torch.Tensor] = None):
     """Flash attention on ``[B, H, L, D]``: the CUDA kernels for CUDA
     tensors, the plain versions for CPU tensors. Returns ``out`` (input
     dtype), plus ``lse`` ``[B*H, Lq]`` f32 (not differentiable) when
-    ``with_lse``. Differentiable through ``FlashAttention`` whenever
-    autograd records and an input needs a gradient."""
+    ``with_lse``. ``key_padding_mask`` is ``[B, Lk]``, nonzero = real
+    token. Differentiable through ``FlashAttention`` whenever autograd
+    records and an input needs a gradient."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        out, lse = FlashAttention.apply(q, k, v, causal, scale)
+        out, lse = FlashAttention.apply(q, k, v, causal, scale,
+                                        key_padding_mask)
         return (out, lse) if with_lse else out
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, scale, with_lse)
-    return _launch(q, k, v, causal, scale, with_lse)
+        return flash_attention_reference(q, k, v, causal, scale, with_lse,
+                                         key_padding_mask)
+    return _launch(q, k, v, causal, scale, with_lse, key_padding_mask)
 
 
-flash_attention.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+# kernel launches of each wrapper, and those of them given a mask
+for _wrapper in (flash_attention, flash_attention_bwd_dq,
+                 flash_attention_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.masked_launches = 0
+del _wrapper

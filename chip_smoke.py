@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # all phases (needs one card)
     python3 chip_smoke.py --profile  # + profiles of one served batch and
-                                     #   of one train step
+                                     #   of one SQuAD and one NER train step
 
 Phases:
 1. Build: compiles the port's CUDA sources (one nvcc per source, side by
@@ -27,14 +27,26 @@ Phases:
    each kernel, its plain version, SDPA's forward (beside K1 with
    logsumexp) and SDPA's backward alone, replayed on one retained graph
    (beside K2 + K3).
-4. Serving: saves a seeded BERT-base BERTClassifier (bf16), serves 64
+4. Masked kernels: the same four (K1, K1 with logsumexp, K2, K3) with a
+   key-padding mask, each against its plain version -- the NER trained
+   call ([32,12,128,64] views into the qkv projection, real lengths in
+   [2,128], one left-padded row) in bf16 and f32, a padded SQuAD call
+   ([48,12,384,64] bf16, lengths in [64,384]), cross-length causal
+   [1,2,128->384,128] with left padding (rows that see no key) in bf16
+   and f32, and a batch row with no real token in bf16 and f32. Checks
+   that padded keys get exactly zero dK (and dV, where every row sees a
+   key) and rows that see no key exactly zero dQ; times the kernels,
+   their plain versions and SDPA with a boolean attn_mask [B,1,1,Lk]
+   (forward, forward with inputs that need a gradient, backward alone),
+   with bounds from the visible pairs.
+5. Serving: saves a seeded BERT-base BERTClassifier (bf16), serves 64
    requests of 512 tokens through the port's launch() -> ServingWorker
    -> InferenceModel with zoo.ops.attention_impl = "flash" (every batch
    bucket the batcher can emit is warmed first), checks that
    every request is answered once with finite logits, that K1 ran for
    every encoder layer of every dispatched batch, and that 4 replies
    match the same model run with the einsum attention path.
-5. Learn: fine-tunes a seeded BERT-base BERTSQuAD (bf16 encoder, seq 384,
+6. Learn: fine-tunes a seeded BERT-base BERTSQuAD (bf16 encoder, seq 384,
    batch 48, random token ids and spans) through ZooModel.fit ->
    Estimator.fit for 2 epochs of 16 steps (the first warms up, the second
    is timed) with zoo.ops.attention_impl = "flash"; checks finite losses
@@ -47,9 +59,29 @@ Phases:
    each broken step. Prints
    steps/s, samples/s, tokens/s, MFU (bench.py's formula against 989
    TFLOP/s bf16) and peak device memory.
+7. NER learn: BERT-base BERTNER on CoNLL-2003's shape (bert-base-cased,
+   vocab 28996, 9 tags, seq 128, batch 32, bf16 encoder) on padded
+   batches (random ids, real lengths in [2,128], attention_mask, tags -1
+   on padding). Before the fit, one step's gradients with flash against
+   einsum attention in f32 and bf16, and the f32 check must reject the
+   step with the mask dropped from K2 and K3. Then 2 epochs of 16 steps
+   through ZooModel.fit (the second timed); checks finite losses and
+   that K1, K2 and K3 each launched with the mask at least 12 times per
+   step; runs evaluate and predict (token accuracy) and saves the model.
+   Prints steps/s, samples/s, real and padded tokens/s, MFU over padded
+   tokens and peak memory.
+8. NER serving: loads the saved NER model through InferenceModel,
+   warms every bucket with a padded example, serves 64 padded requests
+   (input_ids and attention_mask, 128 each) through a ServingWorker on
+   the memory queue whose input_fn passes both tensors; checks every
+   request is answered once with finite [128, 9] logits, K1 ran with the
+   mask for every encoder layer of every dispatched batch, and 4 replies
+   match the einsum path at real tokens.
 
-Prints a {"kernels": [...]} line, the card's name and power limit, and
-last {"ok": true, "device": {...}}. Any failed check exits non-zero.
+Prints each phase's seconds, a {"kernels": [...]} line (K1, K2 and K3
+each with a kv_mask_call at the NER trained call), the card's name and
+power limit, and last {"ok": true, "device": {...}}. Any failed check
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -66,6 +98,9 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 K1_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd.cu"
+# the key-padding branch the masked kernels replace (JAX's stock Pallas
+# flash_attention with segment ids on the TPU)
+K5A_REPLACES = "analytics_zoo_tpu/ops/attention.py:116"
 K1_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:82"
 BWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd.cu"
 K2_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:209"
@@ -129,6 +164,25 @@ def time_ms(torch, fn, iters: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 10) -> float:
+    """Device time per call of ``fn``: every CUDA kernel row of a
+    torch.profiler window of ``iters`` calls, summed, over ``iters``.
+    Beside ``time_ms`` it tells a call bound by its kernels from one
+    bound by the host's launch work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / (iters * 1e3)
+
+
 def _pairs(lq, lk, causal):
     """Visible (query, key) pairs of one head (bottom-right diagonal)."""
     return (sum(min(lk, i + lk - lq + 1) for i in range(lq)) if causal
@@ -141,28 +195,38 @@ def _roof(flops, nbytes, peak_flops, bw):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(b, h, lq, lk, d, elt, causal, peak_flops, bw, with_lse=False):
-    """(bound_ms, bound_by) of K1: bytes = q, k, v read once + o (and the
-    f32 lse) written once; flops = 4 * d per visible (query, key) pair."""
-    flops = 4.0 * b * h * d * _pairs(lq, lk, causal)
-    nbytes = (2 * lq + 2 * lk) * b * h * d * elt + with_lse * b * h * lq * 4
+def bound(b, h, lq, lk, d, elt, causal, peak_flops, bw, with_lse=False,
+          pairs=None, mask_bytes=0):
+    """(bound_ms, bound_by) of K1: bytes = q, k, v (and a key-padding
+    mask's ``mask_bytes``) read once + o (and the f32 lse) written once;
+    flops = 4 * d per visible (query, key) pair. ``pairs`` is the number
+    of visible pairs over all batch rows and heads (by default every
+    pair under the causal diagonal: no padding)."""
+    if pairs is None:
+        pairs = b * h * _pairs(lq, lk, causal)
+    flops = 4.0 * d * pairs
+    nbytes = ((2 * lq + 2 * lk) * b * h * d * elt + with_lse * b * h * lq * 4
+              + mask_bytes)
     return _roof(flops, nbytes, peak_flops, bw)
 
 
-def bwd_bound(kernel, b, h, lq, lk, d, elt, causal, peak_flops, bw):
+def bwd_bound(kernel, b, h, lq, lk, d, elt, causal, peak_flops, bw,
+              pairs=None, mask_bytes=0):
     """(bound_ms, bound_by) of K2 or K3. K2 reads q, k, v, dO, O (for
     delta) and lse, writes dQ and delta: 6 * d flops per visible pair
     (S, dP, dQ). K3 reads q, k, v, dO, lse and delta, writes dK and dV:
-    8 * d flops per pair (S, dP, dV, dK)."""
-    pairs = _pairs(lq, lk, causal)
+    8 * d flops per pair (S, dP, dV, dK). ``pairs`` and ``mask_bytes``
+    as in ``bound``."""
+    if pairs is None:
+        pairs = b * h * _pairs(lq, lk, causal)
     rows = 2 * b * h * lq * 4  # lse and delta, f32
     if kernel == "dq":
-        flops = 6.0 * b * h * d * pairs
+        flops = 6.0 * d * pairs
         nbytes = (4 * lq + 2 * lk) * b * h * d * elt + rows
     else:
-        flops = 8.0 * b * h * d * pairs
+        flops = 8.0 * d * pairs
         nbytes = (2 * lq + 4 * lk) * b * h * d * elt + rows
-    return _roof(flops, nbytes, peak_flops, bw)
+    return _roof(flops, nbytes + mask_bytes, peak_flops, bw)
 
 
 def _excess(got, want, tol):
@@ -398,6 +462,244 @@ def backward_phase(torch, peaks):
     return trained
 
 
+def padding_mask(rng, b, lk, lo, left_rows=(), zero_rows=()):
+    """[B, Lk] int32 key-padding mask (1 = real token): real lengths
+    uniform in [lo, lk], the first row full and the second at ``lo``;
+    ``left_rows`` padded on the left, ``zero_rows`` all padding."""
+    lens = rng.randint(lo, lk + 1, b)
+    lens[0] = lk
+    if b > 1:
+        lens[1] = lo
+    pos = np.arange(lk)[None, :]
+    m = pos < lens[:, None]
+    for r in left_rows:
+        m[r] = pos[0] >= lk - lens[r]
+    for r in zero_rows:
+        m[r] = False
+    return m.astype(np.int32)
+
+
+def _visible(m, lq, causal):
+    """[B, Lq, Lk] bool: the (query, key) pairs a mask (and the
+    bottom-right causal diagonal) leaves visible."""
+    lk = m.shape[1]
+    keep = np.broadcast_to(m[:, None, :] != 0, (m.shape[0], lq, lk))
+    if causal:
+        keep = keep & np.tril(np.ones((lq, lk), bool), lk - lq)[None]
+    return keep
+
+
+def masked_kernel_phase(torch, peaks):
+    """K1, K1 with logsumexp, K2 and K3 with a key-padding mask, each
+    through its wrapper against its plain version on the card, with the
+    kernel's own out and lse feeding K2 and K3 (as the main path's
+    backward does). Checks padded keys' dK (and, where every row sees a
+    key, dV) are exactly zero and rows that see no key get dQ = 0; times
+    the kernels, their plain versions and SDPA with a boolean
+    ``attn_mask [B, 1, 1, Lk]`` at the NER and padded-SQuAD calls.
+    Returns the NER trained call's bf16 record."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [
+        # name, (b, h, lq, lk, d), dtype, causal, timed. "ner_trained" is
+        # one BERT-base NER layer's call (q/k/v views into the qkv
+        # projection, real lengths in [2, 128], one left-padded row);
+        # "squad_padded" the SQuAD fine-tune's call with lengths in
+        # [64, 384]; "cross_causal_left" has rows that see no key (left
+        # padding past the bottom-right diagonal); "all_zero_row" a batch
+        # row with no real token
+        ("ner_trained", (32, 12, 128, 128, 64), "bfloat16", False, True),
+        ("ner_trained", (32, 12, 128, 128, 64), "float32", False, True),
+        ("squad_padded", (48, 12, 384, 384, 64), "bfloat16", False, True),
+        ("cross_causal_left", (1, 2, 128, 384, 128), "bfloat16", True,
+         False),
+        ("cross_causal_left", (1, 2, 128, 384, 128), "float32", True, False),
+        ("all_zero_row", (4, 12, 128, 128, 64), "bfloat16", False, False),
+        ("all_zero_row", (4, 12, 128, 128, 64), "float32", False, False),
+    ]
+    rng = np.random.RandomState(2)
+    checks, ner = [], {}
+    for name, (b, h, lq, lk, d), dt, causal, timed in cases:
+        dtype = getattr(torch, dt)
+        kind = "bf16" if dt == "bfloat16" else "f32"
+
+        def make(*shape):
+            return torch.from_numpy(
+                rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
+
+        if name in ("ner_trained", "squad_padded"):
+            qkv = make(b, lq, 3, h, d)
+            q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+            do = make(b, lq, h, d).transpose(1, 2)
+        else:
+            q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
+            do = make(b, h, lq, d)
+        if name == "ner_trained":
+            m_np = padding_mask(rng, b, lk, 2, left_rows=(2,))
+        elif name == "squad_padded":
+            m_np = padding_mask(rng, b, lk, 64)
+        elif name == "cross_causal_left":
+            # 100 real keys at the right end: rows 0-27 see no key
+            m_np = (np.arange(lk) >= lk - 100)[None].astype(np.int32)
+        else:
+            m_np = padding_mask(rng, b, lk, 2, zero_rows=(1,))
+        m = torch.from_numpy(m_np).cuda()
+        keep = _visible(m_np, lq, causal)
+        empty = torch.from_numpy(~keep.any(-1)).cuda()  # [B, Lq]
+        pairs = int(keep.sum()) * h
+        pad = torch.from_numpy(m_np == 0).cuda()        # [B, Lk]
+        rec = {"case": name, "shape": [b, h, lq, lk, d], "dtype": dt,
+               "causal": causal, "tol": TOL[dt], "lse_tol": LSE_TOL[dt],
+               "real_keys": int(m_np.sum()), "keys": b * lk,
+               "rows_without_key": int(empty.sum()) * h,
+               "visible_pairs": pairs}
+
+        def check(label, got, want, tol):
+            if not torch.isfinite(got.float()).all():
+                fail(f"masked {label} {name} {dt}: non-finite output")
+            err, excess = _excess(got, want, tol)
+            rec[f"{label}_max_abs_err"] = err
+            if not excess <= 0:
+                fail(f"masked {label} {name} {dt}: error above {tol} * "
+                     f"(1 + |ref|) (max abs error {err})")
+
+        out = fa.flash_attention(q, k, v, causal, None, False, m)
+        torch.cuda.synchronize()
+        check("k1", out, fa.flash_attention_reference(
+            q, k, v, causal, None, False, m), TOL[dt])
+        o, lse = fa.flash_attention(q, k, v, causal, None, True, m)
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_attention_reference(q, k, v, causal, None,
+                                                True, m)
+        check("k1_lse_out", o, ro, TOL[dt])
+        if not torch.isfinite(lse).all():
+            fail(f"masked K1 lse {name} {dt}: non-finite lse")
+        lerr = (lse - rlse).abs().max().item()
+        rec["k1_lse_max_abs_err"] = lerr
+        if not lerr <= LSE_TOL[dt]:
+            fail(f"masked K1 lse {name} {dt}: error {lerr} > {LSE_TOL[dt]}")
+        del ro, rlse
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
+                                              None, m)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal,
+                                            None, m)
+        torch.cuda.synchronize()
+        rdq, rdelta = fa.flash_attention_bwd_dq_reference(
+            q, k, v, o, lse, do, causal, None, m)
+        rdk, rdv = fa.flash_attention_bwd_dkv_reference(
+            q, k, v, lse, rdelta, do, causal, None, m)
+        check("dq", dq, rdq, TOL[dt])
+        check("delta", delta, rdelta, TOL["float32"])
+        check("dk", dk, rdk, TOL[dt])
+        check("dv", dv, rdv, TOL[dt])
+        # exact zeros: padded keys' dK; their dV where every row of the
+        # batch row sees a key; dQ of rows that see no key
+        pad_k = pad[:, None, :, None].expand_as(dk)
+        if torch.count_nonzero(dk[pad_k]):
+            fail(f"masked K3 {name} {dt}: padded keys get a nonzero dK")
+        full = ~empty.any(1)
+        pad_v = (pad & full[:, None])[:, None, :, None].expand_as(dv)
+        if torch.count_nonzero(dv[pad_v]):
+            fail(f"masked K3 {name} {dt}: padded keys get a nonzero dV")
+        if torch.count_nonzero(dq[empty[:, None, :, None].expand_as(dq)]):
+            fail(f"masked K2 {name} {dt}: a row that sees no key gets a "
+                 f"nonzero dQ")
+        rec["k2_max_abs_err"] = max(rec["dq_max_abs_err"],
+                                    rec["delta_max_abs_err"])
+        rec["k3_max_abs_err"] = max(rec["dk_max_abs_err"],
+                                    rec["dv_max_abs_err"])
+        if timed:
+            elt, mb = q.element_size(), b * lk
+            # the mask as the kernels read it (FlashAttention converts it
+            # once per forward and hands the bytes to K2 and K3)
+            mk = m.ne(0).view(torch.uint8)
+            calls = {
+                "k1": lambda: fa.flash_attention(q, k, v, causal, None,
+                                                 False, mk),
+                "k1_lse": lambda: fa.flash_attention(q, k, v, causal, None,
+                                                     True, mk),
+                "k2": lambda: fa.flash_attention_bwd_dq(
+                    q, k, v, o, lse, do, causal, None, mk),
+                "k3": lambda: fa.flash_attention_bwd_dkv(
+                    q, k, v, lse, delta, do, causal, None, mk)}
+            for key, fn in calls.items():
+                rec[f"{key}_ms"] = time_ms(torch, fn, 50 if key == "k1"
+                                           else 20)
+                rec[f"{key}_device_ms"] = device_ms(torch, fn)
+            rec["k1_plain_ms"] = time_ms(
+                torch, lambda: fa.flash_attention_reference(
+                    q, k, v, causal, None, False, m), 3)
+            rec["k1_lse_plain_ms"] = time_ms(
+                torch, lambda: fa.flash_attention_reference(
+                    q, k, v, causal, None, True, m), 3)
+            rec["k2_plain_ms"] = time_ms(
+                torch, lambda: fa.flash_attention_bwd_dq_reference(
+                    q, k, v, o, lse, do, causal, None, m), 3)
+            rec["k3_plain_ms"] = time_ms(
+                torch, lambda: fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, lse, rdelta, do, causal, None, m), 3)
+            for key, with_lse in (("k1", False), ("k1_lse", True)):
+                rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = bound(
+                    b, h, lq, lk, d, elt, causal, peaks[kind], peaks["bw"],
+                    with_lse, pairs, mb)
+            for kern, key in (("dq", "k2"), ("dkv", "k3")):
+                rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = bwd_bound(
+                    kern, b, h, lq, lk, d, elt, causal, peaks[kind],
+                    peaks["bw"], pairs, mb)
+            # SDPA with the same mask as a boolean attn_mask (a yardstick;
+            # the port never calls it): the forward at inference, the
+            # forward with inputs that need a gradient, and the backward
+            # alone replayed on one retained graph
+            attn = m.bool()[:, None, None, :]
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            sout = sdpa(qs, ks, vs, attn_mask=attn)
+            calls = {
+                "sdpa": lambda: sdpa(q, k, v, attn_mask=attn),
+                "sdpa_fwd": lambda: sdpa(qs, ks, vs, attn_mask=attn),
+                "sdpa_bwd": lambda: torch.autograd.grad(
+                    sout, (qs, ks, vs), do, retain_graph=True)}
+            for key, fn in calls.items():
+                rec[f"{key}_ms"] = time_ms(torch, fn, 50 if key == "sdpa"
+                                           else 20, warm=5)
+                rec[f"{key}_device_ms"] = device_ms(torch, fn)
+            del sout, qs, ks, vs
+        checks.append(rec)
+        print(f"masked {name} {dt} {[b, h, lq, lk, d]} causal={causal} "
+              f"real keys {rec['real_keys']}/{rec['keys']}, rows without "
+              f"a key {rec['rows_without_key']}; err k1="
+              f"{rec['k1_max_abs_err']:.3g} k1_lse out="
+              f"{rec['k1_lse_out_max_abs_err']:.3g} lse="
+              f"{rec['k1_lse_max_abs_err']:.3g} dq="
+              f"{rec['dq_max_abs_err']:.3g} delta="
+              f"{rec['delta_max_abs_err']:.3g} dk="
+              f"{rec['dk_max_abs_err']:.3g} dv={rec['dv_max_abs_err']:.3g}"
+              + (f"; device ms per call: K1 {rec['k1_device_ms']:.4f} "
+                 f"K1-lse {rec['k1_lse_device_ms']:.4f} K2 "
+                 f"{rec['k2_device_ms']:.4f} K3 {rec['k3_device_ms']:.4f} "
+                 f"SDPA {rec['sdpa_device_ms']:.4f} forward "
+                 f"{rec['sdpa_fwd_device_ms']:.4f} backward "
+                 f"{rec['sdpa_bwd_device_ms']:.4f}" if timed else "")
+              + (f"; K1 {rec['k1_ms']:.4f}ms plain {rec['k1_plain_ms']:.4f}"
+                 f"ms bound {rec['k1_bound_ms']:.4f}ms ({rec['k1_bound_by']})"
+                 f" SDPA {rec['sdpa_ms']:.4f}ms; K1-lse "
+                 f"{rec['k1_lse_ms']:.4f}ms plain "
+                 f"{rec['k1_lse_plain_ms']:.4f}ms bound "
+                 f"{rec['k1_lse_bound_ms']:.4f}ms SDPA forward "
+                 f"{rec['sdpa_fwd_ms']:.4f}ms; K2 {rec['k2_ms']:.4f}ms plain "
+                 f"{rec['k2_plain_ms']:.4f}ms bound {rec['k2_bound_ms']:.4f}"
+                 f"ms ({rec['k2_bound_by']}); K3 {rec['k3_ms']:.4f}ms plain "
+                 f"{rec['k3_plain_ms']:.4f}ms bound {rec['k3_bound_ms']:.4f}"
+                 f"ms ({rec['k3_bound_by']}); K2+K3 "
+                 f"{rec['k2_ms'] + rec['k3_ms']:.4f}ms vs SDPA backward "
+                 f"{rec['sdpa_bwd_ms']:.4f}ms" if timed else ""), flush=True)
+        if name == "ner_trained" and dt == "bfloat16":
+            ner = rec
+        del q, k, v, do, o, lse, dq, dk, dv, delta, rdq, rdk, rdv, rdelta
+    print(json.dumps({"masked_kernel_checks": checks}), flush=True)
+    return ner
+
+
 BERT_BASE = dict(num_classes=2, vocab=30522, hidden_size=768, n_block=12,
                  n_head=12, intermediate_size=3072, max_position_len=512,
                  dtype="bfloat16")
@@ -603,9 +905,11 @@ GRAD_PARAMS = ("squad.bert.encoder_0.attention.qkv.weight",
                "squad.head.weight")
 
 
-def step_grads(torch, module, xb, yb, impl):
+def step_grads(torch, module, xb, yb, impl, loss_fn=None,
+               names=GRAD_PARAMS):
     """(loss, {param: gradient}) of one step at ``module``'s weights with
-    ``impl`` attention (``train=False``: hidden dropout off)."""
+    ``impl`` attention (``train=False``: hidden dropout off); the loss is
+    SQuAD's span loss unless ``loss_fn`` is given."""
     from analytics_zoo_tpu_torch.common.config import get_config
     from analytics_zoo_tpu_torch.models.text.bert_squad import (
         squad_span_loss)
@@ -614,27 +918,29 @@ def step_grads(torch, module, xb, yb, impl):
     cfg.set("zoo.ops.attention_impl", impl)
     params = dict(module.named_parameters())
     module.zero_grad(set_to_none=True)
-    loss = squad_span_loss(module(xb, train=False), yb)
+    loss = (loss_fn or squad_span_loss)(module(xb, train=False), yb)
     loss.backward()
-    grads = {k: params[k].grad.float().clone() for k in GRAD_PARAMS}
+    grads = {k: params[k].grad.float().clone() for k in names}
     module.zero_grad(set_to_none=True)
     cfg.set("zoo.ops.attention_impl", "flash")
     return float(loss.detach()), grads
 
 
-def _rel(a, b, keys=GRAD_PARAMS):
-    """{param: ||a - b|| / ||b||}."""
-    return {k: float((a[k] - b[k]).norm() / b[k].norm()) for k in keys}
+def _rel(a, b, keys=None):
+    """{param: ||a - b|| / ||b||} over ``keys`` (default: all of b's)."""
+    return {k: float((a[k] - b[k]).norm() / b[k].norm())
+            for k in (keys or b)}
 
 
-def grad_check(torch, module, xb, yb, ref=None):
+def grad_check(torch, module, xb, yb, ref=None, loss_fn=None,
+               names=GRAD_PARAMS):
     """One step's gradients with flash and with einsum attention at the
     same weights and batch; with ``ref`` (loss, grads) of the same step
     in f32, each bf16 path's distance from it too. Returns the relative
     errors ||g_a - g_b|| / ||g_b||, the flash/einsum loss gap and the
     einsum gradients."""
-    loss_f, g_f = step_grads(torch, module, xb, yb, "flash")
-    loss_e, g_e = step_grads(torch, module, xb, yb, "einsum")
+    loss_f, g_f = step_grads(torch, module, xb, yb, "flash", loss_fn, names)
+    loss_e, g_e = step_grads(torch, module, xb, yb, "einsum", loss_fn, names)
     pairs = [("flash_vs_einsum", g_f, g_e)]
     if ref is not None:
         pairs += [("flash_vs_f32", g_f, ref[1]), ("einsum_vs_f32", g_e,
@@ -803,11 +1109,306 @@ def learn_phase(torch, device="cuda", base=SQUAD_BASE, seq=TRAIN_SEQ,
     return launches
 
 
+# BERT-base NER on CoNLL-2003's shape (Devlin et al. 2019, section 5.3):
+# the bert-base-cased configuration (vocab 28996), 9 BIO tags, sequences
+# of 128 tokens, bf16 encoder, f32 head. Nothing is cut
+NER_BASE = dict(num_classes=9, vocab=28996, hidden_size=768, n_block=12,
+                n_head=12, intermediate_size=3072, max_position_len=512,
+                dtype="bfloat16")
+NER_SEQ, NER_BATCH, NER_STEPS = 128, 32, 16
+NER_GRAD_PARAMS = ("bert.encoder_0.attention.qkv.weight", "head.weight")
+
+
+def ner_data(rng, n, seq, vocab, n_tags):
+    """Random token ids with per-row real lengths uniform in [2, seq]
+    (the first row full, the second of 2), their attention mask, and
+    tags in [0, n_tags) on real tokens, -1 (IGNORE_INDEX) on padding."""
+    mask = padding_mask(rng, n, seq, 2)
+    ids = rng.randint(1, vocab, (n, seq)).astype(np.int32) * mask
+    tags = np.where(mask == 1, rng.randint(0, n_tags, (n, seq)), -1)
+    return {"input_ids": ids, "attention_mask": mask}, tags.astype(np.int32)
+
+
+def _reset_launches(fa):
+    for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
+              fa.flash_attention_bwd_dkv):
+        w.launches = w.masked_launches = 0
+
+
+def _launches(fa):
+    """{kernel: (launches, launches with a mask)} since the last reset."""
+    return {name: (w.launches, w.masked_launches) for name, w in (
+        ("K1", fa.flash_attention), ("K2", fa.flash_attention_bwd_dq),
+        ("K3", fa.flash_attention_bwd_dkv))}
+
+
+def mask_fault_control(torch, module, xb, yb, g_einsum, tol, loss_fn,
+                       names):
+    """The flash step again with the key-padding mask dropped from K2 and
+    K3 (K1-lse still masked), held against the einsum gradients. Returns
+    its relative error on the layer-0 qkv weight; with ``tol``, fails
+    unless it exceeds it."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    bwd = fa.flash_attention_bwd
+
+    def unmasked(q, k, v, o, lse, do, causal=False, scale=None,
+                 key_padding_mask=None):
+        return bwd(q, k, v, o, lse, do, causal, scale, None)
+
+    fa.flash_attention_bwd = unmasked
+    try:
+        _, g = step_grads(torch, module, xb, yb, "flash", loss_fn, names)
+    finally:
+        fa.flash_attention_bwd = bwd
+    rel = _rel(g, g_einsum, names[:1])[names[0]]
+    print(f"learn-ner: planted fault (mask dropped from K2 and K3), "
+          f"{names[0]} rel_err={rel}"
+          + (f" (must exceed {tol})" if tol else " (recorded)"), flush=True)
+    if tol and not rel > tol:
+        fail(f"the gradient check misses a planted fault (mask dropped "
+             f"from K2 and K3): rel_err {rel} <= {tol}")
+    return rel
+
+
+def ner_learn_phase(torch, save_to, device="cuda", base=NER_BASE,
+                    seq=NER_SEQ, batch=NER_BATCH,
+                    steps_per_epoch=NER_STEPS, profile=False):
+    """One step's gradients with flash against einsum attention in f32
+    (with the mask-dropped fault, which it must reject) and bf16, then
+    the BERT-base NER fine-tune on padded batches through ZooModel.fit ->
+    Estimator.fit (2 epochs of ``steps_per_epoch``, the second timed),
+    evaluate and predict; saves the fitted model to ``save_to``. Returns
+    the fit's {kernel: (launches, masked launches)}."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+    from analytics_zoo_tpu_torch.learn.optim import param_tree
+    from analytics_zoo_tpu_torch.models.text.bert_estimators import (
+        BERTNER, token_cross_entropy)
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    cfg = get_config()
+    # the auto threshold (512) is the reference's TPU figure: at L = 128
+    # it would route around the kernels
+    cfg.set("zoo.ops.attention_impl", "flash")
+    cuda = device == "cuda"
+    rng = np.random.RandomState(3)
+    n = batch * steps_per_epoch
+    x, y = ner_data(rng, n, seq, base["vocab"], base["num_classes"])
+    xb = {k: torch.from_numpy(a[:batch]).to(device) for k, a in x.items()}
+    yb = torch.from_numpy(y[:batch]).to(device)
+    grad = dict(loss_fn=token_cross_entropy, names=NER_GRAD_PARAMS)
+    f32 = BERTNER(device=device, seed=0, **dict(base, dtype="float32"))
+    ref = step_grads(torch, f32.module, xb, yb, "einsum", **grad)
+    rel32 = _rel(step_grads(torch, f32.module, xb, yb, "flash",
+                            **grad)[1], ref[1])
+    print(f"learn-ner: f32 gradients flash vs einsum rel_err={rel32} (tol "
+          f"{F32_GRAD_TOL})", flush=True)
+    if not all(r <= F32_GRAD_TOL for r in rel32.values()):
+        fail(f"NER f32 gradients flash vs einsum differ: {rel32}")
+    planted = {"f32": mask_fault_control(torch, f32.module, xb, yb, ref[1],
+                                         F32_GRAD_TOL, **grad)}
+    del f32
+    if cuda:
+        torch.cuda.empty_cache()
+    model = BERTNER(device=device, seed=0, **base)
+    rel, dloss, g_einsum = grad_check(torch, model.module, xb, yb, ref,
+                                      **grad)
+    for name in ("flash_vs_einsum", "flash_vs_f32"):
+        if not all(r <= GRAD_TOL for r in rel[name].values()):
+            fail(f"NER gradients {name} differ: {rel[name]}")
+    if not dloss <= LOSS_TOL:
+        fail(f"NER flash and einsum losses differ by {dloss}")
+    planted["bf16"] = mask_fault_control(torch, model.module, xb, yb,
+                                         g_einsum, None, **grad)
+    del g_einsum
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches(fa)
+    # ---- main path: ZooModel.fit -> Estimator.fit on padded batches ----
+    t0 = time.perf_counter()
+    hist = model.fit((x, y), batch_size=batch, epochs=2)
+    if cuda:
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launches(fa)
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    steps = model.estimator.global_step
+    if steps != 2 * steps_per_epoch or len(hist) != 2:
+        fail(f"NER fit ran {steps} steps in {len(hist)} epochs")
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)):
+        fail(f"NER: non-finite training loss: {losses}")
+    need = base["n_block"] * steps if cuda else 0
+    for kname, (_, masked) in launches.items():
+        if masked < need:
+            fail(f"NER: {kname} launched {masked} times with a mask in "
+                 f"{steps} train steps (< {need})")
+    timed = hist[1]["seconds"]
+    sps = steps_per_epoch / timed
+    real_tokens = int(x["attention_mask"].sum())  # one epoch's
+    p_dense = sum(p.numel() for pname, p in param_tree(model.module).items()
+                  if "embed" not in pname.lower())
+    flops_per_token = (6 * p_dense
+                       + 12 * base["n_block"] * base["hidden_size"] * seq)
+    # bench.py's formula over every position the encoder computes
+    # (padding included), as the kernels and GEMMs do the work for it
+    mfu = sps * batch * seq * flops_per_token / BF16_PEAK
+
+    m = 2 * batch
+    xe = {k: a[:m] for k, a in x.items()}
+    ev = model.evaluate((xe, y[:m]), batch_size=batch)
+    logits = model.predict(xe, batch_size=batch)
+    if not np.isfinite(ev["loss"]):
+        fail(f"NER evaluate: non-finite loss {ev}")
+    if (logits.shape != (m, seq, base["num_classes"])
+            or not np.isfinite(logits).all()):
+        fail(f"NER predict: bad logits {logits.shape}")
+    acc = BERTNER.token_accuracy(logits, y[:m])
+    model.save_model(save_to)
+    summary = {
+        "model": "BERTNER", "config": base, "seq": seq, "batch": batch,
+        "steps": steps, "losses": losses, "fit_s": fit_s,
+        "timed_epoch_s": timed, "steps_per_s": sps,
+        "samples_per_s": sps * batch,
+        "padded_tokens_per_s": sps * batch * seq,
+        "real_tokens_per_s": real_tokens / timed,
+        "real_token_share": real_tokens / (n * seq),
+        "dense_params": p_dense, "mfu_bf16_padded_tokens": mfu,
+        "peak_mem_gib": peak / 2 ** 30 if cuda else None,
+        "eval_loss": ev["loss"], "token_accuracy": acc,
+        "launches": {k: {"all": a, "masked": mk}
+                     for k, (a, mk) in launches.items()},
+        "grad_rel_err": dict(rel, f32_flash_vs_einsum=rel32),
+        "loss_flash_vs_einsum": dloss,
+        "planted_mask_fault_rel_err": planted,
+        "device": torch.cuda.get_device_name(0) if cuda else device}
+    print("learn-ner: " + json.dumps(summary), flush=True)
+    if profile:
+        profile_train_step(torch, model.estimator, xb, yb)
+    return launches
+
+
+def _ner_input(tensors):
+    """The NER deployment's input_fn: a request's named tensors as the
+    model's input dict (``launch()`` maps several tensors to a tuple)."""
+    return {"input_ids": tensors["input_ids"],
+            "attention_mask": tensors["attention_mask"]}
+
+
+def ner_serving_phase(torch, path, device="cuda", n_requests=64,
+                      seq=NER_SEQ, batch=8, base=NER_BASE):
+    """Serves the saved NER model: InferenceModel -> ServingWorker on the
+    memory queue with ``_ner_input``, every bucket warmed with a masked
+    example, then ``n_requests`` padded requests. Checks every request is
+    answered once with finite logits, K1 ran with a mask once per
+    encoder layer of every dispatched batch, and 4 replies match the
+    einsum path at real tokens. Returns K1's (launches, masked
+    launches)."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        InferenceModel, bucket_ladder)
+    from analytics_zoo_tpu_torch.obs.metrics import get_registry
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    from analytics_zoo_tpu_torch.serving.queues import (
+        InputQueue, OutputQueue)
+    from analytics_zoo_tpu_torch.serving.worker import ServingWorker
+
+    cfg = get_config()
+    cfg.set("zoo.ops.attention_impl", "flash")
+    rng = np.random.RandomState(4)
+    x, _ = ner_data(rng, n_requests, seq, base["vocab"], base["num_classes"])
+    reqs = {f"ner{i:03d}": {k: a[i] for k, a in x.items()}
+            for i in range(n_requests)}
+    model = InferenceModel(device=device).load_zoo(path)
+    in_q, out_q = InputQueue(backend="memory"), OutputQueue(backend="memory")
+    worker = ServingWorker(model, in_q, out_q, batch_size=batch,
+                           input_fn=_ner_input)
+    cap = getattr(worker.batcher, "max_batch_size", worker.batcher.batch_size)
+    dispatch = get_registry().get(
+        "zoo_inference_dispatch_total").labels(mode="off")
+    d0 = dispatch.value
+    _reset_launches(fa)
+    # ---- main path: warm-up -> ServingWorker -> InferenceModel ----
+    t0 = time.perf_counter()
+    # a padded example (the second request: 2 real tokens)
+    model.warm_up({k: a[1:2] for k, a in x.items()},
+                  batch_sizes=bucket_ladder(cap))
+    worker.start()
+    print(f"serve-ner: warmed buckets {bucket_ladder(cap)} and started in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    try:
+        sent, got, lat = {}, {}, []
+        t_start = time.perf_counter()
+        for uri, tensors in reqs.items():
+            sent[uri] = time.perf_counter()
+            if not in_q.enqueue(uri, **tensors):
+                fail(f"enqueue refused {uri}")
+        deadline = time.perf_counter() + 300
+        while len(got) < n_requests and time.perf_counter() < deadline:
+            item = out_q.dequeue(timeout=1.0)
+            if item is None:
+                continue
+            uri, tensors = item
+            if uri in got:
+                fail(f"{uri} answered twice")
+            lat.append(time.perf_counter() - sent[uri])
+            got[uri] = tensors
+        wall = time.perf_counter() - t_start
+        k1 = _launches(fa)["K1"]
+        dispatched = int(dispatch.value - d0)
+        # ---- end of the main path ----
+        stats = worker.batcher.stats()
+    finally:
+        worker.stop()
+    if set(got) != set(reqs):
+        fail(f"NER: answered {len(got)}/{n_requests} requests")
+    for uri, tensors in got.items():
+        out = tensors.get("output")
+        if out is None or out.shape != (seq, base["num_classes"]) \
+                or not np.isfinite(out).all():
+            fail(f"NER {uri}: bad reply {tensors if out is None else out.shape}")
+    need = base["n_block"] * dispatched if device == "cuda" else 0
+    if k1[1] < need:
+        fail(f"NER serving: K1 launched {k1[1]} times with a mask < "
+             f"{base['n_block']} x {dispatched} dispatched batches")
+    check = sorted(reqs)[:4]
+    cfg.set("zoo.ops.attention_impl", "einsum")
+    ref = model.predict({k: np.stack([reqs[u][k] for u in check])
+                         for k in ("input_ids", "attention_mask")})
+    cfg.set("zoo.ops.attention_impl", "flash")
+    served = np.stack([got[u]["output"] for u in check])
+    real = np.stack([reqs[u]["attention_mask"] for u in check]) == 1
+    diff = float(np.abs(served - ref)[real].max())
+    print(f"serve-ner: flash vs einsum logits at real tokens max_abs_diff="
+          f"{diff:.4g} (tol {SERVE_TOL})", flush=True)
+    if not diff <= SERVE_TOL:
+        fail(f"NER served logits differ from the einsum path by {diff}")
+    lat_ms = np.asarray(lat) * 1e3
+    summary = {
+        "requests": n_requests, "seq": seq, "wall_s": wall,
+        "rps": n_requests / wall,
+        "real_tokens_per_s": int(x["attention_mask"].sum()) / wall,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "dispatched_batches": dispatched,
+        "k1_launches": k1[0], "k1_masked_launches": k1[1],
+        "served_batches": stats["batches"],
+        "max_batch_size": stats["max_batch_size"],
+        "einsum_max_abs_diff_real_tokens": diff,
+        "device": (torch.cuda.get_device_name(0) if device == "cuda"
+                   else device)}
+    print("serve-ner: " + json.dumps(summary), flush=True)
+    return k1
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (flash and "
-                         "einsum attention) and one train step")
+                         "einsum attention), one SQuAD and one NER train "
+                         "step")
     args = ap.parse_args()
 
     import torch
@@ -837,18 +1438,47 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
-    served = kernel_phase(torch, peaks)
-    trained = backward_phase(torch, peaks)
-    serve_k1 = serving_phase(torch, profile=args.profile)
-    learn_k1, learn_k2, learn_k3 = learn_phase(torch, profile=args.profile)
+    def timed(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        print(f"phase {name}: {time.perf_counter() - t:.1f}s", flush=True)
+        return out
+
+    served = timed("kernels", kernel_phase, torch, peaks)
+    trained = timed("backward", backward_phase, torch, peaks)
+    ner = timed("masked kernels", masked_kernel_phase, torch, peaks)
+    serve_k1 = timed("serving", serving_phase, torch, profile=args.profile)
+    learn_k1, learn_k2, learn_k3 = timed("learn", learn_phase, torch,
+                                         profile=args.profile)
+    with tempfile.TemporaryDirectory() as ner_dir:
+        ner_fit = timed("NER learn", ner_learn_phase, torch, ner_dir,
+                        profile=args.profile)
+        ner_k1 = timed("NER serving", ner_serving_phase, torch, ner_dir)
+    # the masked calls at the NER trained call ([32,12,128,64] bf16 views
+    # into the qkv projection, real lengths in [2, 128])
+    mask_call = {"shape": ner["shape"], "replaces": K5A_REPLACES,
+                 "real_keys": ner["real_keys"], "keys": ner["keys"]}
+    k1_mask_call = dict(
+        mask_call, max_abs_err=ner["k1_max_abs_err"], ms=ner["k1_ms"],
+        device_ms=ner["k1_device_ms"],
+        library_device_ms=ner["sdpa_device_ms"],
+        lse_device_ms=ner["k1_lse_device_ms"],
+        plain_ms=ner["k1_plain_ms"], bound_ms=ner["k1_bound_ms"],
+        bound_by=ner["k1_bound_by"], library_ms=ner["sdpa_ms"],
+        lse_max_abs_err=ner["k1_lse_max_abs_err"], lse_ms=ner["k1_lse_ms"],
+        lse_plain_ms=ner["k1_lse_plain_ms"],
+        lse_bound_ms=ner["k1_lse_bound_ms"],
+        lse_library_ms=ner["sdpa_fwd_ms"])
     # K1 at the served call ([32,12,512,64] bf16 views into the qkv
     # projection), with its logsumexp call at the trained shape beside
     # it; K2 and K3 at the trained call ([48,12,384,64] bf16). SDPA's
     # backward computes K2 + K3 + delta together, so neither row has a
-    # single library call of its own
+    # single library call of its own (its time is kept beside them)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": serve_k1 + learn_k1,
+        "replaces": K1_REPLACES,
+        "launches": serve_k1 + learn_k1 + ner_fit["K1"][0] + ner_k1[0],
+        "masked_launches": ner_fit["K1"][1] + ner_k1[1],
         "shape": served["shape"],
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
@@ -862,19 +1492,32 @@ def main() -> None:
             "plain_ms": trained["k1_lse_plain_ms"],
             "bound_ms": trained["k1_lse_bound_ms"],
             "bound_by": trained["k1_lse_bound_by"],
-            "library_ms": trained["sdpa_fwd_ms"]}}] + [{
+            "library_ms": trained["sdpa_fwd_ms"]},
+        "kv_mask_call": k1_mask_call}] + [{
             "name": kname, "route": "cuda", "source": BWD_SOURCE,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": launches + ner_fit[kk][0],
+            "masked_launches": ner_fit[kk][1],
             "shape": trained["shape"],
             "max_abs_err": trained[f"{key}_max_abs_err"],
             "ms": trained[f"{key}_ms"],
             "plain_ms": trained[f"{key}_plain_ms"],
             "bound_ms": trained[f"{key}_bound_ms"],
             "bound_by": trained[f"{key}_bound_by"],
-            "library_ms": None}
-            for kname, replaces, launches, key in (
-                ("flash_attn_bwd_dq", K2_REPLACES, learn_k2, "k2"),
-                ("flash_attn_bwd_dkv", K3_REPLACES, learn_k3, "k3"))]}),
+            "library_ms": None,
+            "library_backward_ms": trained["sdpa_bwd_ms"],
+            "kv_mask_call": dict(
+                mask_call, max_abs_err=ner[f"{key}_max_abs_err"],
+                ms=ner[f"{key}_ms"], device_ms=ner[f"{key}_device_ms"],
+                plain_ms=ner[f"{key}_plain_ms"],
+                bound_ms=ner[f"{key}_bound_ms"],
+                bound_by=ner[f"{key}_bound_by"], library_ms=None,
+                library_backward_ms=ner["sdpa_bwd_ms"],
+                library_backward_device_ms=ner["sdpa_bwd_device_ms"])}
+            for kname, replaces, launches, key, kk in (
+                ("flash_attn_bwd_dq", K2_REPLACES, learn_k2, "k2", "K2"),
+                ("flash_attn_bwd_dkv", K3_REPLACES, learn_k3, "k3",
+                 "K3"))]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
