@@ -274,7 +274,11 @@ class BERTModule(nn.Module):
         h = self.embed_ln(h)
         if train:
             h = dropout(h, self.hidden_dropout, rng)
-        # the padding mask stays [B, L] (no materialized 4-D mask)
+        # the padding mask stays [B, L] (no materialized 4-D mask), as
+        # bytes (nonzero = real): the form the flash kernels read, made
+        # once here instead of once per layer
+        if attn_mask is not None:
+            attn_mask = attn_mask.ne(0).view(torch.uint8)
         for i in range(self.n_block):
             h = getattr(self, f"encoder_{i}")(
                 h, key_padding_mask=attn_mask, train=train, rng=rng)

@@ -18,27 +18,27 @@ Phases:
    -- and times the kernel, the plain version and torch's
    scaled_dot_product_attention (a yardstick only; the port never calls
    it).
-3. Backward kernels: runs K1 with logsumexp (out and lse), then K2 (dQ
-   and delta) and K3 (dK/dV) on the kernel's checked out and lse, each
-   through its wrapper against its plain version on the card -- the
-   trained call ([48,12,384,64] q/k/v as views into a [48,384,3,12,64]
-   projection, random dO) in bf16 and f32, causal [8,12,512,64] bf16,
-   cross-length causal [1,2,128->384,128] in bf16 and f32 -- and times
-   each kernel, its plain version, SDPA's forward (beside K1 with
-   logsumexp) and SDPA's backward alone, replayed on one retained graph
-   (beside K2 + K3).
-4. Masked kernels: the same four (K1, K1 with logsumexp, K2, K3) with a
-   key-padding mask, each against its plain version -- the NER trained
-   call ([32,12,128,64] views into the qkv projection, real lengths in
-   [2,128], one left-padded row) in bf16 and f32, a padded SQuAD call
-   ([48,12,384,64] bf16, lengths in [64,384]), cross-length causal
-   [1,2,128->384,128] with left padding (rows that see no key) in bf16
-   and f32, and a batch row with no real token in bf16 and f32. Checks
-   that padded keys get exactly zero dK (and dV, where every row sees a
-   key) and rows that see no key exactly zero dQ; times the kernels,
-   their plain versions and SDPA with a boolean attn_mask [B,1,1,Lk]
-   (forward, forward with inputs that need a gradient, backward alone),
-   with bounds from the visible pairs.
+3. Backward kernels: runs K1 without and with logsumexp (out and lse),
+   then K2 (dQ and delta) and K3 (dK/dV) on the kernel's checked out and
+   lse, each through its wrapper against its plain version on the card
+   -- the trained call ([48,12,384,64] q/k/v as views into a
+   [48,384,3,12,64] projection, random dO) in bf16 and f32, causal
+   [8,12,512,64] bf16, cross-length causal [1,2,128->384,128] in bf16
+   and f32 -- and times each kernel (CUDA events, and profiler device
+   time), its plain version and SDPA: its forward at inference and with
+   inputs that need a gradient (beside K1 and K1 with logsumexp), and its
+   backward alone, replayed on one retained graph (beside K2 + K3).
+4. Masked kernels: the same checks and timings with a key-padding mask
+   (SDPA takes it as a boolean attn_mask [B,1,1,Lk]) -- the NER trained
+   call ([32,12,128,64] views into the qkv projection, synthetic real
+   lengths uniform in [2,128], one left-padded row) in bf16 and f32, a
+   padded SQuAD call ([48,12,384,64] bf16, lengths in [64,384]),
+   cross-length causal [1,2,128->384,128] with left padding (rows that
+   see no key) in bf16 and f32, and a batch row with no real token in
+   bf16 and f32. Also checks that padded keys get exactly zero dK (and
+   dV, where every row sees a key) and rows that see no key exactly zero
+   dQ. Bounds count the visible pairs' flops and the K/V bytes of the
+   keys some row sees.
 5. Serving: saves a seeded BERT-base BERTClassifier (bf16), serves 64
    requests of 512 tokens through the port's launch() -> ServingWorker
    -> InferenceModel with zoo.ops.attention_impl = "flash" (every batch
@@ -59,24 +59,20 @@ Phases:
    each broken step. Prints
    steps/s, samples/s, tokens/s, MFU (bench.py's formula against 989
    TFLOP/s bf16) and peak device memory.
-7. NER learn: BERT-base BERTNER on CoNLL-2003's shape (bert-base-cased,
+7. NER learn: the same code for BERT-base BERTNER (bert-base-cased,
    vocab 28996, 9 tags, seq 128, batch 32, bf16 encoder) on padded
-   batches (random ids, real lengths in [2,128], attention_mask, tags -1
-   on padding). Before the fit, one step's gradients with flash against
-   einsum attention in f32 and bf16, and the f32 check must reject the
-   step with the mask dropped from K2 and K3. Then 2 epochs of 16 steps
-   through ZooModel.fit (the second timed); checks finite losses and
-   that K1, K2 and K3 each launched with the mask at least 12 times per
-   step; runs evaluate and predict (token accuracy) and saves the model.
-   Prints steps/s, samples/s, real and padded tokens/s, MFU over padded
-   tokens and peak memory.
-8. NER serving: loads the saved NER model through InferenceModel,
-   warms every bucket with a padded example, serves 64 padded requests
-   (input_ids and attention_mask, 128 each) through a ServingWorker on
-   the memory queue whose input_fn passes both tensors; checks every
-   request is answered once with finite [128, 9] logits, K1 ran with the
-   mask for every encoder layer of every dispatched batch, and 4 replies
-   match the einsum path at real tokens.
+   batches of synthetic traffic (random ids, real lengths uniform in
+   [2,128], attention_mask, tags -1 on padding). The planted fault is
+   the mask dropped from K2 and K3, which the f32 check must reject; K1,
+   K2 and K3 must each launch with the mask at least 12 times per step;
+   predict reports token accuracy and the fitted model is saved. Prints
+   real and padded tokens/s; MFU counts padded tokens.
+8. NER serving: the same serving code for the saved NER model, loaded
+   through InferenceModel, every bucket warmed with a padded example, 64
+   padded requests (input_ids and attention_mask, 128 each) through a
+   ServingWorker on the memory queue whose input_fn passes both tensors;
+   K1 must run with the mask for every encoder layer of every dispatched
+   batch, and 4 replies match the einsum path at real tokens.
 
 Prints each phase's seconds, a {"kernels": [...]} line (K1, K2 and K3
 each with a kv_mask_call at the NER trained call), the card's name and
@@ -168,19 +164,29 @@ def device_ms(torch, fn, iters: int = 10) -> float:
     """Device time per call of ``fn``: every CUDA kernel row of a
     torch.profiler window of ``iters`` calls, summed, over ``iters``.
     Beside ``time_ms`` it tells a call bound by its kernels from one
-    bound by the host's launch work."""
+    bound by the host's launch work. A window that recorded no kernel
+    (the profiler drops one now and then) is taken again, up to three
+    times; then the reading is None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / (iters * 1e3)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+        if busy > 0:
+            return busy / (iters * 1e3)
+    return None
+
+
+def _ms(x) -> str:
+    return "n/a" if x is None else f"{x:.4f}"
 
 
 def _pairs(lq, lk, causal):
@@ -195,38 +201,49 @@ def _roof(flops, nbytes, peak_flops, bw):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(b, h, lq, lk, d, elt, causal, peak_flops, bw, with_lse=False,
-          pairs=None, mask_bytes=0):
-    """(bound_ms, bound_by) of K1: bytes = q, k, v (and a key-padding
-    mask's ``mask_bytes``) read once + o (and the f32 lse) written once;
-    flops = 4 * d per visible (query, key) pair. ``pairs`` is the number
-    of visible pairs over all batch rows and heads (by default every
-    pair under the causal diagonal: no padding)."""
-    if pairs is None:
-        pairs = b * h * _pairs(lq, lk, causal)
-    flops = 4.0 * d * pairs
-    nbytes = ((2 * lq + 2 * lk) * b * h * d * elt + with_lse * b * h * lq * 4
-              + mask_bytes)
-    return _roof(flops, nbytes, peak_flops, bw)
+KERNELS = ("k1", "k1_lse", "k2", "k3")
 
 
-def bwd_bound(kernel, b, h, lq, lk, d, elt, causal, peak_flops, bw,
-              pairs=None, mask_bytes=0):
-    """(bound_ms, bound_by) of K2 or K3. K2 reads q, k, v, dO, O (for
-    delta) and lse, writes dQ and delta: 6 * d flops per visible pair
-    (S, dP, dQ). K3 reads q, k, v, dO, lse and delta, writes dK and dV:
-    8 * d flops per pair (S, dP, dV, dK). ``pairs`` and ``mask_bytes``
-    as in ``bound``."""
-    if pairs is None:
-        pairs = b * h * _pairs(lq, lk, causal)
-    rows = 2 * b * h * lq * 4  # lse and delta, f32
-    if kernel == "dq":
-        flops = 6.0 * d * pairs
-        nbytes = (4 * lq + 2 * lk) * b * h * d * elt + rows
+def bounds(b, h, lq, lk, d, elt, causal, peak_flops, bw, keep=None):
+    """{kernel: (bound_ms, bound_by)} of K1, K1 with logsumexp, K2 and K3
+    at one call: the larger of the bytes the function must move (each
+    input read once, each output written once) over ``bw`` and its flops
+    over ``peak_flops``.
+
+    - K1 reads q, k, v, writes o (and the f32 lse): 4 * d flops per
+      visible (query, key) pair (S, P.V).
+    - K2 reads q, k, v, o, dO and lse, writes dQ and delta: 6 * d (S, dP,
+      dQ).
+    - K3 reads q, k, v, dO, lse and delta, writes dK and dV: 8 * d (S,
+      dP, dV, dK).
+
+    With a key-padding mask, ``keep`` is the ``[B, Lq, Lk]`` bool of
+    visible pairs: the flops are those pairs', the mask's bytes are read
+    once, and K and V are read only for the keys some row sees, except
+    that K1 reads a batch row's V in full where one of its rows sees no
+    key (that row is V's mean). dK and dV are written in full."""
+    if keep is None:
+        pairs, seen, v_k1, mask_bytes = (b * _pairs(lq, lk, causal),
+                                         b * lk, b * lk, 0)
     else:
-        flops = 8.0 * d * pairs
-        nbytes = (2 * lq + 4 * lk) * b * h * d * elt + rows
-    return _roof(flops, nbytes + mask_bytes, peak_flops, bw)
+        seen_b = keep.any(1).sum(1)    # [B]: keys some row sees
+        full = keep.any(2).all(1)      # [B]: every row sees a key
+        pairs, seen = int(keep.sum()), int(seen_b.sum())
+        v_k1 = int((full * seen_b + ~full * lk).sum())
+        mask_bytes = b * lk
+    rows = b * h * lq * d * elt        # one [B, H, Lq, D] tensor
+
+    def keys(n):                       # K or V rows of n keys
+        return n * h * d * elt
+
+    f32 = b * h * lq * 4               # lse or delta
+    nbytes = {"k1": 2 * rows + keys(seen + v_k1),
+              "k1_lse": 2 * rows + keys(seen + v_k1) + f32,
+              "k2": 4 * rows + keys(2 * seen) + 2 * f32,
+              "k3": 2 * rows + keys(2 * seen + 2 * b * lk) + 2 * f32}
+    flops = {"k1": 4, "k1_lse": 4, "k2": 6, "k3": 8}
+    return {k: _roof(flops[k] * d * pairs * h, nbytes[k] + mask_bytes,
+                     peak_flops, bw) for k in KERNELS}
 
 
 def _excess(got, want, tol):
@@ -300,9 +317,9 @@ def kernel_phase(torch, peaks):
                 torch, lambda: torch.nn.functional.
                 scaled_dot_product_attention(q, k, v, is_causal=causal),
                 50)
-            rec["bound_ms"], rec["bound_by"] = bound(
+            rec["bound_ms"], rec["bound_by"] = bounds(
                 b, h, lq, lk, d, q.element_size(), causal, peaks[kind],
-                peaks["bw"])
+                peaks["bw"])["k1"]
             if name == "served" and dt == "bfloat16":
                 served = rec
         checks.append(rec)
@@ -322,146 +339,6 @@ def kernel_phase(torch, peaks):
     return served
 
 
-def backward_phase(torch, peaks):
-    """K1 with logsumexp, K2 and K3 against their plain versions; times
-    and bounds. K2 and K3 read the kernel's own out and lse (the main
-    path's inputs), each checked first against K1's plain version.
-    Returns the trained call's bf16 record."""
-    from analytics_zoo_tpu_torch.ops import flash_attention as fa
-
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = [
-        # "trained" is the call one BERT-base train step makes per
-        # layer: q/k/v views into the fused qkv projection, dO laid out
-        # as the attention output ([B, L, H, D] memory)
-        ("trained", (48, 12, 384, 384, 64), "bfloat16", False),
-        ("trained", (48, 12, 384, 384, 64), "float32", False),
-        ("causal", (8, 12, 512, 512, 64), "bfloat16", True),
-        ("cross_causal", (1, 2, 128, 384, 128), "bfloat16", True),
-        ("cross_causal", (1, 2, 128, 384, 128), "float32", True),
-    ]
-    rng = np.random.RandomState(1)
-    checks, trained = [], {}
-    for name, (b, h, lq, lk, d), dt, causal in cases:
-        dtype = getattr(torch, dt)
-        kind = "bf16" if dt == "bfloat16" else "f32"
-
-        def make(*shape):
-            return torch.from_numpy(
-                rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
-
-        if name == "trained":
-            qkv = make(b, lq, 3, h, d)
-            q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
-            do = make(b, lq, h, d).transpose(1, 2)
-        else:
-            q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
-            do = make(b, h, lq, d)
-        o, lse = fa.flash_attention(q, k, v, causal, None, True)
-        torch.cuda.synchronize()
-        ro, rlse = fa.flash_attention_reference(q, k, v, causal, None, True)
-        rec = {"case": name, "shape": [b, h, lq, lk, d], "dtype": dt,
-               "causal": causal, "tol": TOL[dt], "lse_tol": LSE_TOL[dt]}
-        # K1 with logsumexp at this call, against its plain version: out
-        # within TOL * (1 + |ref|), lse within LSE_TOL; K2 and K3 below
-        # read this out and lse, as the main path's backward does
-        err, excess = _excess(o, ro, TOL[dt])
-        lerr = (lse - rlse).abs().max().item()
-        rec.update(k1_lse_out_max_abs_err=err, k1_lse_max_abs_err=lerr)
-        if not (torch.isfinite(o.float()).all() and excess <= 0):
-            fail(f"K1 with logsumexp {name} {dt}: out error above "
-                 f"{TOL[dt]} * (1 + |ref|) (max abs error {err})")
-        if not lerr <= LSE_TOL[dt]:
-            fail(f"K1 with logsumexp {name} {dt}: lse error {lerr} > "
-                 f"{LSE_TOL[dt]}")
-        del ro, rlse
-        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
-        torch.cuda.synchronize()
-        rdq, rdelta = fa.flash_attention_bwd_dq_reference(
-            q, k, v, o, lse, do, causal)
-        rdk, rdv = fa.flash_attention_bwd_dkv_reference(
-            q, k, v, lse, rdelta, do, causal)
-        for label, got, want, tol in (
-                ("dq", dq, rdq, TOL[dt]), ("delta", delta, rdelta,
-                                           TOL["float32"]),
-                ("dk", dk, rdk, TOL[dt]), ("dv", dv, rdv, TOL[dt])):
-            if not torch.isfinite(got.float()).all():
-                fail(f"backward {name} {dt}: non-finite {label}")
-            err, excess = _excess(got, want, tol)
-            rec[f"{label}_max_abs_err"] = err
-            if not excess <= 0:
-                fail(f"backward {name} {dt}: {label} error above {tol} * "
-                     f"(1 + |ref|) (max abs error {err})")
-        rec["k2_max_abs_err"] = max(rec["dq_max_abs_err"],
-                                    rec["delta_max_abs_err"])
-        rec["k3_max_abs_err"] = max(rec["dk_max_abs_err"],
-                                    rec["dv_max_abs_err"])
-        rec["k1_lse_ms"] = time_ms(torch, lambda: fa.flash_attention(
-            q, k, v, causal, None, True), 20)
-        rec["k2_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-            q, k, v, o, lse, do, causal), 20)
-        rec["k3_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
-            q, k, v, lse, delta, do, causal), 20)
-        rec["k1_lse_plain_ms"] = time_ms(
-            torch, lambda: fa.flash_attention_reference(
-                q, k, v, causal, None, True), 3)
-        rec["k2_plain_ms"] = time_ms(
-            torch, lambda: fa.flash_attention_bwd_dq_reference(
-                q, k, v, o, lse, do, causal), 3)
-        rec["k3_plain_ms"] = time_ms(
-            torch, lambda: fa.flash_attention_bwd_dkv_reference(
-                q, k, v, lse, rdelta, do, causal), 3)
-        for kern in ("dq", "dkv"):
-            key = "k2" if kern == "dq" else "k3"
-            rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = bwd_bound(
-                kern, b, h, lq, lk, d, q.element_size(), causal,
-                peaks[kind], peaks["bw"])
-        rec["k1_lse_bound_ms"], rec["k1_lse_bound_by"] = bound(
-            b, h, lq, lk, d, q.element_size(), causal, peaks[kind],
-            peaks["bw"], with_lse=True)
-        rec["sdpa_fwd_ms"] = rec["sdpa_bwd_ms"] = None
-        if lq == lk:
-            # SDPA aligns a causal diagonal top-left, so only equal
-            # lengths compute the same function
-            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-            # the forward as training runs it: inputs that need a
-            # gradient, so it keeps its logsumexp for the backward
-            rec["sdpa_fwd_ms"] = time_ms(
-                torch, lambda: sdpa(qs, ks, vs, is_causal=causal), 20)
-            out = sdpa(qs, ks, vs, is_causal=causal)
-            # the backward alone, replayed on one retained graph
-            rec["sdpa_bwd_ms"] = time_ms(
-                torch, lambda: torch.autograd.grad(
-                    out, (qs, ks, vs), do, retain_graph=True), 20, warm=5)
-            del out
-            del qs, ks, vs
-        checks.append(rec)
-        print(f"K2/K3 {name} {dt} {[b, h, lq, lk, d]} causal={causal} "
-              f"err dq={rec['dq_max_abs_err']:.3g} "
-              f"delta={rec['delta_max_abs_err']:.3g} "
-              f"dk={rec['dk_max_abs_err']:.3g} "
-              f"dv={rec['dv_max_abs_err']:.3g} "
-              f"k1_out={rec['k1_lse_out_max_abs_err']:.3g} "
-              f"k1_lse={rec['k1_lse_max_abs_err']:.3g}; K1-lse "
-              f"{rec['k1_lse_ms']:.4f}ms plain {rec['k1_lse_plain_ms']:.4f}ms"
-              f" bound {rec['k1_lse_bound_ms']:.4f}ms SDPA forward "
-              + (f"{rec['sdpa_fwd_ms']:.4f}ms" if rec["sdpa_fwd_ms"]
-                 is not None else "n/a")
-              + f"; K2 {rec['k2_ms']:.4f}ms plain {rec['k2_plain_ms']:.4f}ms "
-              f"bound {rec['k2_bound_ms']:.4f}ms ({rec['k2_bound_by']}); "
-              f"K3 {rec['k3_ms']:.4f}ms plain {rec['k3_plain_ms']:.4f}ms "
-              f"bound {rec['k3_bound_ms']:.4f}ms ({rec['k3_bound_by']}); "
-              f"K2+K3 {rec['k2_ms'] + rec['k3_ms']:.4f}ms vs SDPA backward "
-              + (f"{rec['sdpa_bwd_ms']:.4f}ms" if rec["sdpa_bwd_ms"]
-                 is not None else "n/a"), flush=True)
-        if name == "trained" and dt == "bfloat16":
-            trained = rec
-        del q, k, v, do, o, lse, dq, dk, dv, delta, rdq, rdk, rdv, rdelta
-    print(json.dumps({"backward_checks": checks}), flush=True)
-    return trained
-
-
 def padding_mask(rng, b, lk, lo, left_rows=(), zero_rows=()):
     """[B, Lk] int32 key-padding mask (1 = real token): real lengths
     uniform in [lo, lk], the first row full and the second at ``lo``;
@@ -479,48 +356,63 @@ def padding_mask(rng, b, lk, lo, left_rows=(), zero_rows=()):
     return m.astype(np.int32)
 
 
-def _visible(m, lq, causal):
-    """[B, Lq, Lk] bool: the (query, key) pairs a mask (and the
-    bottom-right causal diagonal) leaves visible."""
-    lk = m.shape[1]
-    keep = np.broadcast_to(m[:, None, :] != 0, (m.shape[0], lq, lk))
-    if causal:
-        keep = keep & np.tril(np.ones((lq, lk), bool), lk - lq)[None]
-    return keep
+def _right_100(rng, b, lk):
+    """100 real keys at the right end: under a bottom-right causal
+    diagonal at lq = 128, lk = 384, rows 0-27 see no key."""
+    return np.broadcast_to(np.arange(lk) >= lk - 100,
+                           (b, lk)).astype(np.int32)
 
 
-def masked_kernel_phase(torch, peaks):
-    """K1, K1 with logsumexp, K2 and K3 with a key-padding mask, each
-    through its wrapper against its plain version on the card, with the
-    kernel's own out and lse feeding K2 and K3 (as the main path's
-    backward does). Checks padded keys' dK (and, where every row sees a
-    key, dV) are exactly zero and rows that see no key get dQ = 0; times
-    the kernels, their plain versions and SDPA with a boolean
-    ``attn_mask [B, 1, 1, Lk]`` at the NER and padded-SQuAD calls.
-    Returns the NER trained call's bf16 record."""
+# calls whose q/k/v are views into the fused qkv projection and whose dO
+# is laid out as the attention output ([B, L, H, D] memory)
+VIEW_CASES = ("trained", "ner_trained", "squad_padded")
+# name, (b, h, lq, lk, d), dtype, causal, mask (a function of the rng,
+# b and lk; None: no mask), timed. "trained" is the call one BERT-base
+# SQuAD train step makes per layer
+BACKWARD_CASES = [
+    ("trained", (48, 12, 384, 384, 64), "bfloat16", False, None, True),
+    ("trained", (48, 12, 384, 384, 64), "float32", False, None, True),
+    ("causal", (8, 12, 512, 512, 64), "bfloat16", True, None, True),
+    ("cross_causal", (1, 2, 128, 384, 128), "bfloat16", True, None, True),
+    ("cross_causal", (1, 2, 128, 384, 128), "float32", True, None, True),
+]
+# "ner_trained" is one BERT-base NER layer's call on synthetic traffic
+# (real lengths uniform in [2, 128], one left-padded row); "squad_padded"
+# the SQuAD fine-tune's call with lengths in [64, 384];
+# "cross_causal_left" has rows that see no key (left padding past the
+# bottom-right diagonal); "all_zero_row" a batch row with no real token
+MASKED_CASES = [
+    ("ner_trained", (32, 12, 128, 128, 64), "bfloat16", False,
+     lambda rng, b, lk: padding_mask(rng, b, lk, 2, left_rows=(2,)), True),
+    ("ner_trained", (32, 12, 128, 128, 64), "float32", False,
+     lambda rng, b, lk: padding_mask(rng, b, lk, 2, left_rows=(2,)), True),
+    ("squad_padded", (48, 12, 384, 384, 64), "bfloat16", False,
+     lambda rng, b, lk: padding_mask(rng, b, lk, 64), True),
+    ("cross_causal_left", (1, 2, 128, 384, 128), "bfloat16", True,
+     _right_100, False),
+    ("cross_causal_left", (1, 2, 128, 384, 128), "float32", True,
+     _right_100, False),
+    ("all_zero_row", (4, 12, 128, 128, 64), "bfloat16", False,
+     lambda rng, b, lk: padding_mask(rng, b, lk, 2, zero_rows=(1,)), False),
+    ("all_zero_row", (4, 12, 128, 128, 64), "float32", False,
+     lambda rng, b, lk: padding_mask(rng, b, lk, 2, zero_rows=(1,)), False),
+]
+
+
+def backward_phase(torch, peaks, cases, seed, label):
+    """K1 without and with logsumexp, K2 and K3, each through its wrapper
+    against its plain version on the card, K2 and K3 reading the kernel's
+    own out and lse (as the main path's backward does). With a mask:
+    padded keys' dK (and, where every row sees a key, dV) and the dQ of
+    rows that see no key must be exactly zero. Timed cases: each kernel
+    and SDPA by CUDA events and by profiler device time, the plain
+    versions, and bounds. Returns the cases' records."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = [
-        # name, (b, h, lq, lk, d), dtype, causal, timed. "ner_trained" is
-        # one BERT-base NER layer's call (q/k/v views into the qkv
-        # projection, real lengths in [2, 128], one left-padded row);
-        # "squad_padded" the SQuAD fine-tune's call with lengths in
-        # [64, 384]; "cross_causal_left" has rows that see no key (left
-        # padding past the bottom-right diagonal); "all_zero_row" a batch
-        # row with no real token
-        ("ner_trained", (32, 12, 128, 128, 64), "bfloat16", False, True),
-        ("ner_trained", (32, 12, 128, 128, 64), "float32", False, True),
-        ("squad_padded", (48, 12, 384, 384, 64), "bfloat16", False, True),
-        ("cross_causal_left", (1, 2, 128, 384, 128), "bfloat16", True,
-         False),
-        ("cross_causal_left", (1, 2, 128, 384, 128), "float32", True, False),
-        ("all_zero_row", (4, 12, 128, 128, 64), "bfloat16", False, False),
-        ("all_zero_row", (4, 12, 128, 128, 64), "float32", False, False),
-    ]
-    rng = np.random.RandomState(2)
-    checks, ner = [], {}
-    for name, (b, h, lq, lk, d), dt, causal, timed in cases:
+    rng = np.random.RandomState(seed)
+    checks = []
+    for name, (b, h, lq, lk, d), dt, causal, mask_of, timed in cases:
         dtype = getattr(torch, dt)
         kind = "bf16" if dt == "bfloat16" else "f32"
 
@@ -528,57 +420,49 @@ def masked_kernel_phase(torch, peaks):
             return torch.from_numpy(
                 rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
 
-        if name in ("ner_trained", "squad_padded"):
+        if name in VIEW_CASES:
             qkv = make(b, lq, 3, h, d)
             q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
             do = make(b, lq, h, d).transpose(1, 2)
         else:
             q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
             do = make(b, h, lq, d)
-        if name == "ner_trained":
-            m_np = padding_mask(rng, b, lk, 2, left_rows=(2,))
-        elif name == "squad_padded":
-            m_np = padding_mask(rng, b, lk, 64)
-        elif name == "cross_causal_left":
-            # 100 real keys at the right end: rows 0-27 see no key
-            m_np = (np.arange(lk) >= lk - 100)[None].astype(np.int32)
-        else:
-            m_np = padding_mask(rng, b, lk, 2, zero_rows=(1,))
-        m = torch.from_numpy(m_np).cuda()
-        keep = _visible(m_np, lq, causal)
-        empty = torch.from_numpy(~keep.any(-1)).cuda()  # [B, Lq]
-        pairs = int(keep.sum()) * h
-        pad = torch.from_numpy(m_np == 0).cuda()        # [B, Lk]
         rec = {"case": name, "shape": [b, h, lq, lk, d], "dtype": dt,
-               "causal": causal, "tol": TOL[dt], "lse_tol": LSE_TOL[dt],
-               "real_keys": int(m_np.sum()), "keys": b * lk,
-               "rows_without_key": int(empty.sum()) * h,
-               "visible_pairs": pairs}
+               "causal": causal, "tol": TOL[dt], "lse_tol": LSE_TOL[dt]}
+        m = keep = None
+        if mask_of is not None:
+            m = torch.from_numpy(mask_of(rng, b, lk)).cuda()
+            keep = fa._visible(lq, lk, causal, m, m.device).expand(
+                b, 1, lq, lk)[:, 0]                     # [B, Lq, Lk]
+            empty = ~keep.any(-1)                       # [B, Lq]
+            rec.update(real_keys=int(m.ne(0).sum()), keys=b * lk,
+                       rows_without_key=int(empty.sum()) * h,
+                       visible_pairs=int(keep.sum()) * h)
 
-        def check(label, got, want, tol):
+        def check(key, got, want, tol):
             if not torch.isfinite(got.float()).all():
-                fail(f"masked {label} {name} {dt}: non-finite output")
+                fail(f"{label} {key} {name} {dt}: non-finite output")
             err, excess = _excess(got, want, tol)
-            rec[f"{label}_max_abs_err"] = err
+            rec[f"{key}_max_abs_err"] = err
             if not excess <= 0:
-                fail(f"masked {label} {name} {dt}: error above {tol} * "
+                fail(f"{label} {key} {name} {dt}: error above {tol} * "
                      f"(1 + |ref|) (max abs error {err})")
 
         out = fa.flash_attention(q, k, v, causal, None, False, m)
         torch.cuda.synchronize()
         check("k1", out, fa.flash_attention_reference(
             q, k, v, causal, None, False, m), TOL[dt])
+        # K1 with logsumexp: out within TOL * (1 + |ref|), lse within
+        # LSE_TOL; K2 and K3 below read this out and lse
         o, lse = fa.flash_attention(q, k, v, causal, None, True, m)
         torch.cuda.synchronize()
         ro, rlse = fa.flash_attention_reference(q, k, v, causal, None,
                                                 True, m)
         check("k1_lse_out", o, ro, TOL[dt])
-        if not torch.isfinite(lse).all():
-            fail(f"masked K1 lse {name} {dt}: non-finite lse")
         lerr = (lse - rlse).abs().max().item()
         rec["k1_lse_max_abs_err"] = lerr
-        if not lerr <= LSE_TOL[dt]:
-            fail(f"masked K1 lse {name} {dt}: error {lerr} > {LSE_TOL[dt]}")
+        if not (torch.isfinite(lse).all() and lerr <= LSE_TOL[dt]):
+            fail(f"{label} K1 lse {name} {dt}: error {lerr} > {LSE_TOL[dt]}")
         del ro, rlse
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
                                               None, m)
@@ -593,27 +477,26 @@ def masked_kernel_phase(torch, peaks):
         check("delta", delta, rdelta, TOL["float32"])
         check("dk", dk, rdk, TOL[dt])
         check("dv", dv, rdv, TOL[dt])
-        # exact zeros: padded keys' dK; their dV where every row of the
-        # batch row sees a key; dQ of rows that see no key
-        pad_k = pad[:, None, :, None].expand_as(dk)
-        if torch.count_nonzero(dk[pad_k]):
-            fail(f"masked K3 {name} {dt}: padded keys get a nonzero dK")
-        full = ~empty.any(1)
-        pad_v = (pad & full[:, None])[:, None, :, None].expand_as(dv)
-        if torch.count_nonzero(dv[pad_v]):
-            fail(f"masked K3 {name} {dt}: padded keys get a nonzero dV")
-        if torch.count_nonzero(dq[empty[:, None, :, None].expand_as(dq)]):
-            fail(f"masked K2 {name} {dt}: a row that sees no key gets a "
-                 f"nonzero dQ")
+        if m is not None:
+            # exact zeros: padded keys' dK; their dV where every row of
+            # the batch row sees a key; dQ of rows that see no key
+            pad = m == 0                                # [B, Lk]
+            if torch.count_nonzero(dk[pad[:, None, :, None].expand_as(dk)]):
+                fail(f"{label} K3 {name} {dt}: padded keys get a nonzero dK")
+            pad_v = (pad & ~empty.any(1)[:, None])[:, None, :, None]
+            if torch.count_nonzero(dv[pad_v.expand_as(dv)]):
+                fail(f"{label} K3 {name} {dt}: padded keys get a nonzero dV")
+            if torch.count_nonzero(dq[empty[:, None, :, None].expand_as(dq)]):
+                fail(f"{label} K2 {name} {dt}: a row that sees no key gets "
+                     f"a nonzero dQ")
         rec["k2_max_abs_err"] = max(rec["dq_max_abs_err"],
                                     rec["delta_max_abs_err"])
         rec["k3_max_abs_err"] = max(rec["dk_max_abs_err"],
                                     rec["dv_max_abs_err"])
         if timed:
-            elt, mb = q.element_size(), b * lk
-            # the mask as the kernels read it (FlashAttention converts it
-            # once per forward and hands the bytes to K2 and K3)
-            mk = m.ne(0).view(torch.uint8)
+            # the mask as the main path hands it over (BERTModule makes
+            # the bytes once a forward)
+            mk = fa._kernel_mask(m)
             calls = {
                 "k1": lambda: fa.flash_attention(q, k, v, causal, None,
                                                  False, mk),
@@ -623,81 +506,75 @@ def masked_kernel_phase(torch, peaks):
                     q, k, v, o, lse, do, causal, None, mk),
                 "k3": lambda: fa.flash_attention_bwd_dkv(
                     q, k, v, lse, delta, do, causal, None, mk)}
-            for key, fn in calls.items():
-                rec[f"{key}_ms"] = time_ms(torch, fn, 50 if key == "k1"
-                                           else 20)
-                rec[f"{key}_device_ms"] = device_ms(torch, fn)
-            rec["k1_plain_ms"] = time_ms(
-                torch, lambda: fa.flash_attention_reference(
-                    q, k, v, causal, None, False, m), 3)
-            rec["k1_lse_plain_ms"] = time_ms(
-                torch, lambda: fa.flash_attention_reference(
-                    q, k, v, causal, None, True, m), 3)
-            rec["k2_plain_ms"] = time_ms(
-                torch, lambda: fa.flash_attention_bwd_dq_reference(
-                    q, k, v, o, lse, do, causal, None, m), 3)
-            rec["k3_plain_ms"] = time_ms(
-                torch, lambda: fa.flash_attention_bwd_dkv_reference(
-                    q, k, v, lse, rdelta, do, causal, None, m), 3)
-            for key, with_lse in (("k1", False), ("k1_lse", True)):
-                rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = bound(
-                    b, h, lq, lk, d, elt, causal, peaks[kind], peaks["bw"],
-                    with_lse, pairs, mb)
-            for kern, key in (("dq", "k2"), ("dkv", "k3")):
-                rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = bwd_bound(
-                    kern, b, h, lq, lk, d, elt, causal, peaks[kind],
-                    peaks["bw"], pairs, mb)
-            # SDPA with the same mask as a boolean attn_mask (a yardstick;
-            # the port never calls it): the forward at inference, the
-            # forward with inputs that need a gradient, and the backward
-            # alone replayed on one retained graph
-            attn = m.bool()[:, None, None, :]
-            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-            sout = sdpa(qs, ks, vs, attn_mask=attn)
-            calls = {
-                "sdpa": lambda: sdpa(q, k, v, attn_mask=attn),
-                "sdpa_fwd": lambda: sdpa(qs, ks, vs, attn_mask=attn),
-                "sdpa_bwd": lambda: torch.autograd.grad(
-                    sout, (qs, ks, vs), do, retain_graph=True)}
-            for key, fn in calls.items():
-                rec[f"{key}_ms"] = time_ms(torch, fn, 50 if key == "sdpa"
-                                           else 20, warm=5)
-                rec[f"{key}_device_ms"] = device_ms(torch, fn)
-            del sout, qs, ks, vs
+            plain = {
+                "k1": lambda: fa.flash_attention_reference(
+                    q, k, v, causal, None, False, m),
+                "k1_lse": lambda: fa.flash_attention_reference(
+                    q, k, v, causal, None, True, m),
+                "k2": lambda: fa.flash_attention_bwd_dq_reference(
+                    q, k, v, o, lse, do, causal, None, m),
+                "k3": lambda: fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, lse, rdelta, do, causal, None, m)}
+            for key in KERNELS:
+                rec[f"{key}_ms"] = time_ms(torch, calls[key], 20)
+                rec[f"{key}_device_ms"] = device_ms(torch, calls[key])
+                rec[f"{key}_plain_ms"] = time_ms(torch, plain[key], 3)
+            for key, bnd in bounds(b, h, lq, lk, d, q.element_size(),
+                                   causal, peaks[kind], peaks["bw"],
+                                   keep).items():
+                rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = bnd
+            # SDPA (a yardstick; the port never calls it), the mask as a
+            # boolean attn_mask: the forward at inference, the forward
+            # with inputs that need a gradient (it keeps its logsumexp),
+            # and the backward alone replayed on one retained graph. It
+            # aligns a causal diagonal top-left and takes no mask beside
+            # is_causal, so only equal lengths without both compare
+            if lq == lk and not (causal and m is not None):
+                attn = None if m is None else m.bool()[:, None, None, :]
+                qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+                sout = sdpa(qs, ks, vs, attn_mask=attn, is_causal=causal)
+                calls = {
+                    "sdpa": lambda: sdpa(q, k, v, attn_mask=attn,
+                                         is_causal=causal),
+                    "sdpa_fwd": lambda: sdpa(qs, ks, vs, attn_mask=attn,
+                                             is_causal=causal),
+                    "sdpa_bwd": lambda: torch.autograd.grad(
+                        sout, (qs, ks, vs), do, retain_graph=True)}
+                for key, fn in calls.items():
+                    rec[f"{key}_ms"] = time_ms(torch, fn, 20, warm=5)
+                    rec[f"{key}_device_ms"] = device_ms(torch, fn)
+                del sout, qs, ks, vs
         checks.append(rec)
-        print(f"masked {name} {dt} {[b, h, lq, lk, d]} causal={causal} "
-              f"real keys {rec['real_keys']}/{rec['keys']}, rows without "
-              f"a key {rec['rows_without_key']}; err k1="
-              f"{rec['k1_max_abs_err']:.3g} k1_lse out="
-              f"{rec['k1_lse_out_max_abs_err']:.3g} lse="
-              f"{rec['k1_lse_max_abs_err']:.3g} dq="
-              f"{rec['dq_max_abs_err']:.3g} delta="
-              f"{rec['delta_max_abs_err']:.3g} dk="
-              f"{rec['dk_max_abs_err']:.3g} dv={rec['dv_max_abs_err']:.3g}"
-              + (f"; device ms per call: K1 {rec['k1_device_ms']:.4f} "
-                 f"K1-lse {rec['k1_lse_device_ms']:.4f} K2 "
-                 f"{rec['k2_device_ms']:.4f} K3 {rec['k3_device_ms']:.4f} "
-                 f"SDPA {rec['sdpa_device_ms']:.4f} forward "
-                 f"{rec['sdpa_fwd_device_ms']:.4f} backward "
-                 f"{rec['sdpa_bwd_device_ms']:.4f}" if timed else "")
-              + (f"; K1 {rec['k1_ms']:.4f}ms plain {rec['k1_plain_ms']:.4f}"
-                 f"ms bound {rec['k1_bound_ms']:.4f}ms ({rec['k1_bound_by']})"
-                 f" SDPA {rec['sdpa_ms']:.4f}ms; K1-lse "
-                 f"{rec['k1_lse_ms']:.4f}ms plain "
-                 f"{rec['k1_lse_plain_ms']:.4f}ms bound "
-                 f"{rec['k1_lse_bound_ms']:.4f}ms SDPA forward "
-                 f"{rec['sdpa_fwd_ms']:.4f}ms; K2 {rec['k2_ms']:.4f}ms plain "
-                 f"{rec['k2_plain_ms']:.4f}ms bound {rec['k2_bound_ms']:.4f}"
-                 f"ms ({rec['k2_bound_by']}); K3 {rec['k3_ms']:.4f}ms plain "
-                 f"{rec['k3_plain_ms']:.4f}ms bound {rec['k3_bound_ms']:.4f}"
-                 f"ms ({rec['k3_bound_by']}); K2+K3 "
-                 f"{rec['k2_ms'] + rec['k3_ms']:.4f}ms vs SDPA backward "
-                 f"{rec['sdpa_bwd_ms']:.4f}ms" if timed else ""), flush=True)
-        if name == "ner_trained" and dt == "bfloat16":
-            ner = rec
+        print(f"{label} {name} {dt} {[b, h, lq, lk, d]} causal={causal}"
+              + (f" real keys {rec['real_keys']}/{rec['keys']}, rows "
+                 f"without a key {rec['rows_without_key']}"
+                 if m is not None else "")
+              + "; err " + " ".join(
+                  f"{key}={rec[key + '_max_abs_err']:.3g}" for key in (
+                      "k1", "k1_lse_out", "k1_lse", "dq", "delta", "dk",
+                      "dv")), flush=True)
+        if timed:
+            both = (None if None in (rec["k2_device_ms"], rec["k3_device_ms"])
+                    else rec["k2_device_ms"] + rec["k3_device_ms"])
+            print(f"{label} {name} {dt} ms, (device ms): " + "; ".join(
+                f"{key} {rec[key + '_ms']:.4f} "
+                f"({_ms(rec[key + '_device_ms'])}) plain "
+                f"{rec[key + '_plain_ms']:.4f} bound "
+                f"{rec[key + '_bound_ms']:.4f} ({rec[key + '_bound_by']})"
+                for key in KERNELS) + "".join(
+                f"; {key} {rec[key + '_ms']:.4f} "
+                f"({_ms(rec[key + '_device_ms'])})"
+                for key in ("sdpa", "sdpa_fwd", "sdpa_bwd")
+                if key + "_ms" in rec)
+                + f"; K2+K3 {rec['k2_ms'] + rec['k3_ms']:.4f} ({_ms(both)})",
+                flush=True)
         del q, k, v, do, o, lse, dq, dk, dv, delta, rdq, rdk, rdv, rdelta
-    print(json.dumps({"masked_kernel_checks": checks}), flush=True)
-    return ner
+    print(json.dumps({f"{label}_checks": checks}), flush=True)
+    return checks
+
+
+def _pick(records, name, dt="bfloat16"):
+    return next(r for r in records if r["case"] == name and r["dtype"] == dt)
 
 
 BERT_BASE = dict(num_classes=2, vocab=30522, hidden_size=768, n_block=12,
@@ -728,7 +605,8 @@ def profile_batch(torch, model, x, iters=10) -> None:
         for _ in range(3):
             model.predict(x)
         torch.cuda.synchronize()
-    _print_rows(prof, 3, wall, f"batch {x.shape} predict")
+    shape = x["input_ids"].shape if isinstance(x, dict) else x.shape
+    _print_rows(prof, 3, wall, f"batch {shape} predict")
 
 
 # kernel-name marks of the groups a profile is summed into
@@ -772,113 +650,176 @@ def _print_rows(prof, n, wall, what, top=14) -> None:
         flush=True)
 
 
-def serving_phase(torch, device="cuda", base=BERT_BASE, n_requests=64,
-                  seq=512, batch=8, profile=False):
+def _reset_launches(fa):
+    for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
+              fa.flash_attention_bwd_dkv):
+        w.launches = w.masked_launches = 0
+
+
+def _launches(fa):
+    """{kernel: (launches, launches with a mask)} since the last reset."""
+    return {name: (w.launches, w.masked_launches) for name, w in (
+        ("K1", fa.flash_attention), ("K2", fa.flash_attention_bwd_dq),
+        ("K3", fa.flash_attention_bwd_dkv))}
+
+
+def serving_phase(torch, start, reqs, input_fn, out_shape, n_block,
+                  masked=False, label="serving", device="cuda",
+                  profile=False):
+    """One closed burst of ``reqs`` ({uri: {name: array}}) through the
+    deployment ``start()`` brings up (load and warm-up included); it
+    returns (input queue, output queue, InferenceModel, batcher, stop).
+    Checks that every request is answered once with finite
+    ``out_shape`` logits, that K1 ran (with the mask, where ``masked``)
+    for every encoder layer of every dispatched batch, and that 4
+    replies match the same model with einsum attention (at real tokens,
+    where requests carry an ``attention_mask``). ``input_fn`` maps named
+    tensors to the model's input, as the worker does. Returns K1's
+    (launches, masked launches)."""
     from analytics_zoo_tpu_torch.common.config import get_config
-    from analytics_zoo_tpu_torch.models.text.bert_estimators import (
-        BERTClassifier)
     from analytics_zoo_tpu_torch.obs.metrics import get_registry
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
-    from analytics_zoo_tpu_torch.serving.launcher import launch
 
     cfg = get_config()
     # the auto threshold (512) is the reference's TPU figure; serve
     # through the kernel explicitly
     cfg.set("zoo.ops.attention_impl", "flash")
+    n_requests = len(reqs)
+    dispatch = get_registry().get(
+        "zoo_inference_dispatch_total").labels(mode="off")
+    d0 = dispatch.value
+    _reset_launches(fa)
+    # ---- main path: start (load, warm-up) -> ServingWorker ->
+    # InferenceModel ----
+    t0 = time.perf_counter()
+    in_q, out_q, model, batcher, stop = start()
+    print(f"{label}: up in {time.perf_counter() - t0:.1f}s", flush=True)
+    try:
+        sent, got, lat = {}, {}, []
+        t_start = time.perf_counter()
+        for uri, tensors in reqs.items():
+            sent[uri] = time.perf_counter()
+            if not in_q.enqueue(uri, **tensors):
+                fail(f"{label}: enqueue refused {uri}")
+        deadline = time.perf_counter() + 300
+        while len(got) < n_requests and time.perf_counter() < deadline:
+            item = out_q.dequeue(timeout=1.0)
+            if item is None:
+                continue
+            uri, tensors = item
+            if uri in got:
+                fail(f"{label}: {uri} answered twice")
+            lat.append(time.perf_counter() - sent[uri])
+            got[uri] = tensors
+        wall = time.perf_counter() - t_start
+        k1 = _launches(fa)["K1"]
+        dispatched = int(dispatch.value - d0)
+        # ---- end of the main path ----
+        stats = batcher.stats()
+        if set(got) != set(reqs):
+            fail(f"{label}: answered {len(got)}/{n_requests} requests")
+        for uri, tensors in got.items():
+            out = tensors.get("output")
+            if out is None or out.shape != out_shape \
+                    or not np.isfinite(out).all():
+                fail(f"{label} {uri}: bad reply "
+                     f"{tensors if out is None else out.shape}")
+        need = n_block * dispatched if device == "cuda" else 0
+        if k1[int(masked)] < need:
+            fail(f"{label}: K1 launched {k1[int(masked)]} times"
+                 + (" with a mask" if masked else "") + f" < {n_block} x "
+                 f"{dispatched} dispatched batches")
+
+        def batch_of(uris):
+            return input_fn({k: np.stack([reqs[u][k] for u in uris])
+                             for k in reqs[uris[0]]})
+
+        # reference: the same served model, einsum attention path
+        check = sorted(reqs)[:4]
+        cfg.set("zoo.ops.attention_impl", "einsum")
+        ref = model.predict(batch_of(check))
+        cfg.set("zoo.ops.attention_impl", "flash")
+        served = np.stack([got[u]["output"] for u in check])
+        diff = np.abs(served - ref)
+        if "attention_mask" in reqs[check[0]]:
+            diff = diff[np.stack([reqs[u]["attention_mask"]
+                                  for u in check]) != 0]
+        diff = float(diff.max())
+        print(f"{label}: flash vs einsum logits max_abs_diff={diff:.4g}"
+              f" (tol {SERVE_TOL}); logits[0]={served[0].ravel()[:4]}",
+              flush=True)
+        if not diff <= SERVE_TOL:
+            fail(f"{label}: served logits differ from the einsum path by "
+                 f"{diff}")
+        if profile:
+            # a batch of the size the batcher served the burst in
+            x = batch_of(sorted(reqs)[:stats["max_batch_size"]])
+            for impl in ("flash", "einsum"):
+                cfg.set("zoo.ops.attention_impl", impl)
+                print(f"profile: attention_impl={impl}", flush=True)
+                profile_batch(torch, model, x)
+            cfg.set("zoo.ops.attention_impl", "flash")
+    finally:
+        stop()
+    lat_ms = np.asarray(lat) * 1e3
+    first = next(iter(reqs.values()))
+    seq = first["input_ids"].shape[0]
+    real = sum(int(np.count_nonzero(t["attention_mask"])) if
+               "attention_mask" in t else seq for t in reqs.values())
+    summary = {
+        "requests": n_requests, "seq": seq, "wall_s": wall,
+        "rps": n_requests / wall, "real_tokens_per_s": real / wall,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "dispatched_batches": dispatched, "k1_launches": k1[0],
+        "k1_masked_launches": k1[1], "served_batches": stats["batches"],
+        "mean_occupancy": stats["mean_occupancy"],
+        "max_batch_size": stats["max_batch_size"],
+        "einsum_max_abs_diff": diff,
+        "device": (torch.cuda.get_device_name(0) if device == "cuda"
+                   else device)}
+    print(f"{label}: " + json.dumps(summary), flush=True)
+    return k1
+
+
+def bert_serving(torch, device="cuda", base=BERT_BASE, n_requests=64,
+                 seq=512, batch=8, profile=False):
+    """A seeded BERT-base BERTClassifier saved, then served through
+    ``launch()`` (which warms every bucket up to the batcher's growth
+    cap): ``n_requests`` requests of ``input_ids [seq]``, no mask."""
+    from analytics_zoo_tpu_torch.models.text.bert_estimators import (
+        BERTClassifier)
+    from analytics_zoo_tpu_torch.serving.launcher import launch
+
+    rng = np.random.RandomState(0)
+    reqs = {f"req{i:03d}": {"input_ids": rng.randint(
+        0, base["vocab"], seq).astype(np.int32)} for i in range(n_requests)}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         BERTClassifier(device=device, seed=0, **base).save_model(tmp)
         print(f"serving: BERT-base saved in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
-        dispatch = get_registry().get(
-            "zoo_inference_dispatch_total").labels(mode="off")
-        d0 = dispatch.value
-        fa.flash_attention.launches = 0
-        # ---- main path: launch -> warm-up -> serve ----
-        # no warm_batch_sizes: launch() warms every bucket up to the
-        # batcher's growth cap, so no first use lands in the burst
-        t0 = time.perf_counter()
-        app = launch({
-            "model": {"path": tmp},
-            "params": {"batch_size": batch,
-                       "warm_example": np.zeros((1, seq), np.int32)},
-            "http": {"enabled": False}}, device=device)
-        print(f"serving: launched in {time.perf_counter() - t0:.1f}s",
-              flush=True)
-        try:
-            rng = np.random.RandomState(0)
-            reqs = {f"req{i:03d}": rng.randint(
-                0, base["vocab"], seq).astype(np.int32)
-                for i in range(n_requests)}
-            sent, got, lat = {}, {}, []
-            t_start = time.perf_counter()
-            for uri, ids in reqs.items():
-                sent[uri] = time.perf_counter()
-                if not app.input_queue.enqueue(uri, input_ids=ids):
-                    fail(f"enqueue refused {uri}")
-            deadline = time.perf_counter() + 300
-            while len(got) < n_requests and time.perf_counter() < deadline:
-                item = app.output_queue.dequeue(timeout=1.0)
-                if item is None:
-                    continue
-                uri, tensors = item
-                if uri in got:
-                    fail(f"{uri} answered twice")
-                lat.append(time.perf_counter() - sent[uri])
-                got[uri] = tensors
-            wall = time.perf_counter() - t_start
-            launches = fa.flash_attention.launches
-            dispatched = int(dispatch.value - d0)
-            # ---- end of the main path ----
-            batcher = app.worker.batcher.stats()
-            if set(got) != set(reqs):
-                fail(f"answered {len(got)}/{n_requests} requests")
-            for uri, tensors in got.items():
-                if "output" not in tensors:
-                    fail(f"{uri}: error reply {tensors}")
-                out = tensors["output"]
-                if out.shape != (2,) or not np.isfinite(out).all():
-                    fail(f"{uri}: bad output {out!r}")
-            if launches < base["n_block"] * dispatched:
-                fail(f"K1 launches {launches} < {base['n_block']} x "
-                     f"{dispatched} dispatched batches")
-            # reference: the same served model, einsum attention path
-            check = sorted(reqs)[:4]
-            cfg.set("zoo.ops.attention_impl", "einsum")
-            ref = app.model.predict(np.stack([reqs[u] for u in check]))
-            cfg.set("zoo.ops.attention_impl", "flash")
-            served = np.stack([got[u]["output"] for u in check])
-            diff = float(np.abs(served - ref).max())
-            print(f"serving: flash vs einsum logits max_abs_diff={diff:.4g}"
-                  f" (tol {SERVE_TOL}); logits[0]={served[0].tolist()}",
-                  flush=True)
-            if not diff <= SERVE_TOL:
-                fail(f"served logits differ from the einsum path by {diff}")
-            if profile:
-                # a batch of the size the batcher served the burst in
-                x = np.stack([reqs[u] for u in
-                              sorted(reqs)[:batcher["max_batch_size"]]])
-                for impl in ("flash", "einsum"):
-                    cfg.set("zoo.ops.attention_impl", impl)
-                    print(f"profile: attention_impl={impl}", flush=True)
-                    profile_batch(torch, app.model, x)
-                cfg.set("zoo.ops.attention_impl", "flash")
-        finally:
-            app.stop()
-    lat_ms = np.asarray(lat) * 1e3
-    summary = {
-        "requests": n_requests, "seq": seq, "wall_s": wall,
-        "rps": n_requests / wall,
-        "p50_ms": float(np.percentile(lat_ms, 50)),
-        "p99_ms": float(np.percentile(lat_ms, 99)),
-        "dispatched_batches": dispatched, "k1_launches": launches,
-        "served_batches": batcher["batches"],
-        "mean_occupancy": batcher["mean_occupancy"],
-        "max_batch_size": batcher["max_batch_size"],
-        "device": (torch.cuda.get_device_name(0) if device == "cuda"
-                   else device)}
-    print("serving: " + json.dumps(summary), flush=True)
-    return launches
+
+        def start():
+            app = launch({
+                "model": {"path": tmp},
+                "params": {"batch_size": batch,
+                           "warm_example": np.zeros((1, seq), np.int32)},
+                "http": {"enabled": False}}, device=device)
+            return (app.input_queue, app.output_queue, app.model,
+                    app.worker.batcher, app.stop)
+
+        return serving_phase(torch, start, reqs,
+                             lambda t: t["input_ids"],
+                             (base["num_classes"],), base["n_block"],
+                             device=device, profile=profile)
+
+
+def _ner_input(tensors):
+    """The NER deployment's input_fn: a request's named tensors as the
+    model's input dict (``launch()`` maps several tensors to a tuple)."""
+    return {"input_ids": tensors["input_ids"],
+            "attention_mask": tensors["attention_mask"]}
 
 
 def profile_train_step(torch, est, x, y, iters=5) -> None:
@@ -905,20 +846,16 @@ GRAD_PARAMS = ("squad.bert.encoder_0.attention.qkv.weight",
                "squad.head.weight")
 
 
-def step_grads(torch, module, xb, yb, impl, loss_fn=None,
-               names=GRAD_PARAMS):
+def step_grads(torch, module, xb, yb, impl, loss_fn, names):
     """(loss, {param: gradient}) of one step at ``module``'s weights with
-    ``impl`` attention (``train=False``: hidden dropout off); the loss is
-    SQuAD's span loss unless ``loss_fn`` is given."""
+    ``impl`` attention (``train=False``: hidden dropout off)."""
     from analytics_zoo_tpu_torch.common.config import get_config
-    from analytics_zoo_tpu_torch.models.text.bert_squad import (
-        squad_span_loss)
 
     cfg = get_config()
     cfg.set("zoo.ops.attention_impl", impl)
     params = dict(module.named_parameters())
     module.zero_grad(set_to_none=True)
-    loss = (loss_fn or squad_span_loss)(module(xb, train=False), yb)
+    loss = loss_fn(module(xb, train=False), yb)
     loss.backward()
     grads = {k: params[k].grad.float().clone() for k in names}
     module.zero_grad(set_to_none=True)
@@ -932,50 +869,53 @@ def _rel(a, b, keys=None):
             for k in (keys or b)}
 
 
-def grad_check(torch, module, xb, yb, ref=None, loss_fn=None,
-               names=GRAD_PARAMS):
+def grad_check(torch, module, xb, yb, ref, loss_fn, names, label):
     """One step's gradients with flash and with einsum attention at the
-    same weights and batch; with ``ref`` (loss, grads) of the same step
-    in f32, each bf16 path's distance from it too. Returns the relative
-    errors ||g_a - g_b|| / ||g_b||, the flash/einsum loss gap and the
-    einsum gradients."""
+    same weights and batch, and each bf16 path's distance from ``ref``
+    (loss, grads) of the same step in f32. Returns the relative errors
+    ||g_a - g_b|| / ||g_b||, the flash/einsum loss gap and the einsum
+    gradients."""
     loss_f, g_f = step_grads(torch, module, xb, yb, "flash", loss_fn, names)
     loss_e, g_e = step_grads(torch, module, xb, yb, "einsum", loss_fn, names)
-    pairs = [("flash_vs_einsum", g_f, g_e)]
-    if ref is not None:
-        pairs += [("flash_vs_f32", g_f, ref[1]), ("einsum_vs_f32", g_e,
-                                                  ref[1])]
-    rel = {name: _rel(a, b) for name, a, b in pairs}
-    losses = {"flash": loss_f, "einsum": loss_e}
-    if ref is not None:
-        losses["f32"] = ref[0]
-    print(f"learn: gradients rel_err={rel} (tol {GRAD_TOL}); loss "
+    rel = {name: _rel(a, b) for name, a, b in (
+        ("flash_vs_einsum", g_f, g_e), ("flash_vs_f32", g_f, ref[1]),
+        ("einsum_vs_f32", g_e, ref[1]))}
+    losses = {"flash": loss_f, "einsum": loss_e, "f32": ref[0]}
+    print(f"{label}: gradients rel_err={rel} (tol {GRAD_TOL}); loss "
           f"{losses} (tol {LOSS_TOL})", flush=True)
     return rel, abs(loss_f - loss_e), g_e
 
 
-def fault_controls(torch, module, xb, yb, g_einsum, tol):
-    """The flash step again with the backward's wiring broken on purpose
-    (dQ zeroed; dK and dV swapped), each held against the einsum
-    gradients as the gradient check holds the sound step. Returns each
-    fault's relative error on the layer-0 qkv weight; with ``tol``, fails
-    unless each exceeds it, so that check is known to tell a broken
-    backward from a sound one."""
+def fault_controls(torch, module, xb, yb, g_einsum, tol, faults, loss_fn,
+                   names, label):
+    """The flash step again with the backward broken on purpose, each
+    fault held against the einsum gradients as the gradient check holds
+    the sound step: "dq_zeroed", "dk_dv_swapped", or "mask_dropped" (K2
+    and K3 without the key-padding mask, K1-lse still masked). Returns
+    each fault's relative error on the layer-0 qkv weight; with ``tol``,
+    fails unless each exceeds it, so that check is known to tell a
+    broken backward from a sound one."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     bwd = fa.flash_attention_bwd
-    faults = {"dq_zeroed": lambda dq, dk, dv: (torch.zeros_like(dq), dk, dv),
-              "dk_dv_swapped": lambda dq, dk, dv: (dq, dv, dk)}
-    qkv = GRAD_PARAMS[:1]
+    # FlashAttention.backward passes every argument positionally: (q, k,
+    # v, o, lse, do, causal, scale, key_padding_mask)
+    broken = {
+        "dq_zeroed": lambda *a: (lambda dq, dk, dv: (
+            torch.zeros_like(dq), dk, dv))(*bwd(*a)),
+        "dk_dv_swapped": lambda *a: (lambda dq, dk, dv: (dq, dv, dk))(
+            *bwd(*a)),
+        "mask_dropped": lambda *a: bwd(*a[:8])}
+    qkv = names[:1]
     rel = {}
     try:
-        for name, fault in faults.items():
-            fa.flash_attention_bwd = lambda *a, f=fault: f(*bwd(*a))
-            _, g = step_grads(torch, module, xb, yb, "flash")
+        for name in faults:
+            fa.flash_attention_bwd = broken[name]
+            _, g = step_grads(torch, module, xb, yb, "flash", loss_fn, names)
             rel[name] = _rel(g, g_einsum, qkv)[qkv[0]]
     finally:
         fa.flash_attention_bwd = bwd
-    print(f"learn: planted faults, {qkv[0]} rel_err={rel}"
+    print(f"{label}: planted faults, {qkv[0]} rel_err={rel}"
           + (f" (each must exceed {tol})" if tol else " (recorded)"),
           flush=True)
     for name, r in rel.items():
@@ -985,247 +925,68 @@ def fault_controls(torch, module, xb, yb, g_einsum, tol):
     return rel
 
 
-def learn_phase(torch, device="cuda", base=SQUAD_BASE, seq=TRAIN_SEQ,
-                batch=TRAIN_BATCH, steps_per_epoch=TRAIN_STEPS,
+def learn_phase(torch, cls, base, x, y, batch, loss_fn, names, faults,
+                masked=False, label="learn", save_to=None, device="cuda",
                 profile=False):
     """The flash-vs-einsum gradient checks at the initial weights (f32,
-    with its planted-fault controls, and bf16), then the BERT-base SQuAD
-    fine-tune through ZooModel.fit -> Estimator.fit,
-    then evaluate and predict. Returns (K1, K2, K3) launches of the fit."""
+    with its planted ``faults``, which it must reject, and bf16), then
+    the fine-tune of ``cls`` on (``x``, ``y``) through ZooModel.fit ->
+    Estimator.fit (2 epochs, the second timed), then evaluate and
+    predict; saves the fitted model to ``save_to`` if given. K1, K2 and
+    K3 must each launch (with the mask, where ``masked``) at least once
+    per encoder layer a step. Returns the fit's {kernel: (launches,
+    masked launches)}."""
     from analytics_zoo_tpu_torch.common.config import get_config
     from analytics_zoo_tpu_torch.learn.optim import param_tree
-    from analytics_zoo_tpu_torch.models.text.bert_squad import BERTSQuAD
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     cfg = get_config()
-    # the auto threshold (512) is the reference's TPU figure: at L = 384
+    # the auto threshold (512) is the reference's TPU figure: at L <= 512
     # it would route around the kernels
     cfg.set("zoo.ops.attention_impl", "flash")
     cuda = device == "cuda"
-    rng = np.random.RandomState(0)
-    n = batch * steps_per_epoch
-    x = {"input_ids": rng.randint(0, base["vocab"], (n, seq)
-                                  ).astype(np.int32)}
-    y = np.stack([rng.randint(0, seq, n), rng.randint(0, seq, n)],
-                 axis=1).astype(np.int32)
+    n, seq = x["input_ids"].shape
+    steps_per_epoch = n // batch
+    grad = dict(loss_fn=loss_fn, names=names)
     # one step's gradients at the initial weights and the first batch,
     # hidden dropout off. In f32: flash (K1-lse, K2, K3) against einsum
     # attention, and the same with the backward broken on purpose
-    xb = {"input_ids": torch.from_numpy(x["input_ids"][:batch]).to(device)}
-    yb = torch.from_numpy(y[:batch]).to(device)
-    f32 = BERTSQuAD(device=device, seed=0, **dict(base, dtype="float32"))
-    ref = step_grads(torch, f32.module, xb, yb, "einsum")
-    rel32 = _rel(step_grads(torch, f32.module, xb, yb, "flash")[1], ref[1])
-    print(f"learn: f32 gradients flash vs einsum rel_err={rel32} (tol "
-          f"{F32_GRAD_TOL})", flush=True)
-    if not all(r <= F32_GRAD_TOL for r in rel32.values()):
-        fail(f"f32 gradients flash vs einsum differ: {rel32}")
-    planted = {"f32": fault_controls(torch, f32.module, xb, yb, ref[1],
-                                     F32_GRAD_TOL)}
-    del f32
-    if cuda:
-        torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    model = BERTSQuAD(device=device, seed=0, **base)
-    print(f"learn: BERTSQuAD built in {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    rel, dloss, g_einsum = grad_check(torch, model.module, xb, yb, ref)
-    for name in ("flash_vs_einsum", "flash_vs_f32"):
-        if not all(r <= GRAD_TOL for r in rel[name].values()):
-            fail(f"gradients {name} differ: {rel[name]}")
-    if not dloss <= LOSS_TOL:
-        fail(f"flash and einsum losses differ by {dloss}")
-    # the same faults against the bf16 check, for the record
-    planted["bf16"] = fault_controls(torch, model.module, xb, yb, g_einsum,
-                                     None)
-    del g_einsum
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0
-    fa.flash_attention_bwd_dq.launches = 0
-    fa.flash_attention_bwd_dkv.launches = 0
-    # ---- main path: ZooModel.fit -> Estimator.fit ----
-    t0 = time.perf_counter()
-    hist = model.fit((x, y), batch_size=batch, epochs=2)
-    if cuda:
-        torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = (fa.flash_attention.launches,
-                fa.flash_attention_bwd_dq.launches,
-                fa.flash_attention_bwd_dkv.launches)
-    # ---- end of the main path ----
-    peak = torch.cuda.max_memory_allocated() if cuda else None
-    est = model.estimator
-    steps = est.global_step
-    if steps != 2 * steps_per_epoch or len(hist) != 2:
-        fail(f"fit ran {steps} steps in {len(hist)} epochs")
-    losses = [h["loss"] for h in hist]
-    # an epoch's loss is the mean of its steps' losses: finite means
-    # every step's loss was finite
-    if not all(np.isfinite(losses)):
-        fail(f"non-finite training loss: {losses}")
-    need = base["n_block"] * steps if cuda else 0
-    for kname, got in zip(("K1", "K2", "K3"), launches):
-        if got < need:
-            fail(f"{kname} launched {got} times in {steps} train steps "
-                 f"(< {need})")
-    timed = hist[1]["seconds"]
-    sps = steps_per_epoch / timed
-    p_dense = sum(p.numel() for pname, p in param_tree(model.module).items()
-                  if "embed" not in pname.lower())
-    flops_per_token = (6 * p_dense
-                       + 12 * base["n_block"] * base["hidden_size"] * seq)
-    mfu = sps * batch * seq * flops_per_token / BF16_PEAK
-
-    # evaluate and predict on the same Estimator
-    m = 2 * batch
-    ev = model.evaluate(({"input_ids": x["input_ids"][:m]}, y[:m]),
-                        batch_size=batch)
-    start, end = model.predict({"input_ids": x["input_ids"][:m]},
-                               batch_size=batch)
-    if not np.isfinite(ev["loss"]):
-        fail(f"evaluate: non-finite loss {ev}")
-    for t in (start, end):
-        if t.shape != (m, seq) or not np.isfinite(t).all():
-            fail(f"predict: bad span logits {t.shape}")
-    summary = {
-        "model": "BERTSQuAD", "config": base, "seq": seq, "batch": batch,
-        "steps": steps, "losses": losses, "fit_s": fit_s,
-        "timed_epoch_s": timed, "steps_per_s": sps,
-        "samples_per_s": sps * batch, "tokens_per_s": sps * batch * seq,
-        "dense_params": p_dense, "mfu_bf16": mfu,
-        "peak_mem_gib": peak / 2 ** 30 if cuda else None,
-        "eval_loss": ev["loss"],
-        "launches": {"K1": launches[0], "K2": launches[1],
-                     "K3": launches[2]},
-        "grad_rel_err": dict(rel, f32_flash_vs_einsum=rel32),
-        "loss_flash_vs_einsum": dloss,
-        "planted_fault_rel_err": planted,
-        "device": torch.cuda.get_device_name(0) if cuda else device}
-    print("learn: " + json.dumps(summary), flush=True)
-    if profile:
-        profile_train_step(torch, est, xb, yb)
-    return launches
-
-
-# BERT-base NER on CoNLL-2003's shape (Devlin et al. 2019, section 5.3):
-# the bert-base-cased configuration (vocab 28996), 9 BIO tags, sequences
-# of 128 tokens, bf16 encoder, f32 head. Nothing is cut
-NER_BASE = dict(num_classes=9, vocab=28996, hidden_size=768, n_block=12,
-                n_head=12, intermediate_size=3072, max_position_len=512,
-                dtype="bfloat16")
-NER_SEQ, NER_BATCH, NER_STEPS = 128, 32, 16
-NER_GRAD_PARAMS = ("bert.encoder_0.attention.qkv.weight", "head.weight")
-
-
-def ner_data(rng, n, seq, vocab, n_tags):
-    """Random token ids with per-row real lengths uniform in [2, seq]
-    (the first row full, the second of 2), their attention mask, and
-    tags in [0, n_tags) on real tokens, -1 (IGNORE_INDEX) on padding."""
-    mask = padding_mask(rng, n, seq, 2)
-    ids = rng.randint(1, vocab, (n, seq)).astype(np.int32) * mask
-    tags = np.where(mask == 1, rng.randint(0, n_tags, (n, seq)), -1)
-    return {"input_ids": ids, "attention_mask": mask}, tags.astype(np.int32)
-
-
-def _reset_launches(fa):
-    for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
-              fa.flash_attention_bwd_dkv):
-        w.launches = w.masked_launches = 0
-
-
-def _launches(fa):
-    """{kernel: (launches, launches with a mask)} since the last reset."""
-    return {name: (w.launches, w.masked_launches) for name, w in (
-        ("K1", fa.flash_attention), ("K2", fa.flash_attention_bwd_dq),
-        ("K3", fa.flash_attention_bwd_dkv))}
-
-
-def mask_fault_control(torch, module, xb, yb, g_einsum, tol, loss_fn,
-                       names):
-    """The flash step again with the key-padding mask dropped from K2 and
-    K3 (K1-lse still masked), held against the einsum gradients. Returns
-    its relative error on the layer-0 qkv weight; with ``tol``, fails
-    unless it exceeds it."""
-    from analytics_zoo_tpu_torch.ops import flash_attention as fa
-
-    bwd = fa.flash_attention_bwd
-
-    def unmasked(q, k, v, o, lse, do, causal=False, scale=None,
-                 key_padding_mask=None):
-        return bwd(q, k, v, o, lse, do, causal, scale, None)
-
-    fa.flash_attention_bwd = unmasked
-    try:
-        _, g = step_grads(torch, module, xb, yb, "flash", loss_fn, names)
-    finally:
-        fa.flash_attention_bwd = bwd
-    rel = _rel(g, g_einsum, names[:1])[names[0]]
-    print(f"learn-ner: planted fault (mask dropped from K2 and K3), "
-          f"{names[0]} rel_err={rel}"
-          + (f" (must exceed {tol})" if tol else " (recorded)"), flush=True)
-    if tol and not rel > tol:
-        fail(f"the gradient check misses a planted fault (mask dropped "
-             f"from K2 and K3): rel_err {rel} <= {tol}")
-    return rel
-
-
-def ner_learn_phase(torch, save_to, device="cuda", base=NER_BASE,
-                    seq=NER_SEQ, batch=NER_BATCH,
-                    steps_per_epoch=NER_STEPS, profile=False):
-    """One step's gradients with flash against einsum attention in f32
-    (with the mask-dropped fault, which it must reject) and bf16, then
-    the BERT-base NER fine-tune on padded batches through ZooModel.fit ->
-    Estimator.fit (2 epochs of ``steps_per_epoch``, the second timed),
-    evaluate and predict; saves the fitted model to ``save_to``. Returns
-    the fit's {kernel: (launches, masked launches)}."""
-    from analytics_zoo_tpu_torch.common.config import get_config
-    from analytics_zoo_tpu_torch.learn.optim import param_tree
-    from analytics_zoo_tpu_torch.models.text.bert_estimators import (
-        BERTNER, token_cross_entropy)
-    from analytics_zoo_tpu_torch.ops import flash_attention as fa
-
-    cfg = get_config()
-    # the auto threshold (512) is the reference's TPU figure: at L = 128
-    # it would route around the kernels
-    cfg.set("zoo.ops.attention_impl", "flash")
-    cuda = device == "cuda"
-    rng = np.random.RandomState(3)
-    n = batch * steps_per_epoch
-    x, y = ner_data(rng, n, seq, base["vocab"], base["num_classes"])
     xb = {k: torch.from_numpy(a[:batch]).to(device) for k, a in x.items()}
     yb = torch.from_numpy(y[:batch]).to(device)
-    grad = dict(loss_fn=token_cross_entropy, names=NER_GRAD_PARAMS)
-    f32 = BERTNER(device=device, seed=0, **dict(base, dtype="float32"))
+    f32 = cls(device=device, seed=0, **dict(base, dtype="float32"))
     ref = step_grads(torch, f32.module, xb, yb, "einsum", **grad)
-    rel32 = _rel(step_grads(torch, f32.module, xb, yb, "flash",
-                            **grad)[1], ref[1])
-    print(f"learn-ner: f32 gradients flash vs einsum rel_err={rel32} (tol "
+    rel32 = _rel(step_grads(torch, f32.module, xb, yb, "flash", **grad)[1],
+                 ref[1])
+    print(f"{label}: f32 gradients flash vs einsum rel_err={rel32} (tol "
           f"{F32_GRAD_TOL})", flush=True)
     if not all(r <= F32_GRAD_TOL for r in rel32.values()):
-        fail(f"NER f32 gradients flash vs einsum differ: {rel32}")
-    planted = {"f32": mask_fault_control(torch, f32.module, xb, yb, ref[1],
-                                         F32_GRAD_TOL, **grad)}
+        fail(f"{label}: f32 gradients flash vs einsum differ: {rel32}")
+    planted = {"f32": fault_controls(torch, f32.module, xb, yb, ref[1],
+                                     F32_GRAD_TOL, faults, label=label,
+                                     **grad)}
     del f32
     if cuda:
         torch.cuda.empty_cache()
-    model = BERTNER(device=device, seed=0, **base)
+    t0 = time.perf_counter()
+    model = cls(device=device, seed=0, **base)
+    print(f"{label}: {cls.__name__} built in {time.perf_counter() - t0:.1f}s",
+          flush=True)
     rel, dloss, g_einsum = grad_check(torch, model.module, xb, yb, ref,
-                                      **grad)
+                                      label=label, **grad)
     for name in ("flash_vs_einsum", "flash_vs_f32"):
         if not all(r <= GRAD_TOL for r in rel[name].values()):
-            fail(f"NER gradients {name} differ: {rel[name]}")
+            fail(f"{label}: gradients {name} differ: {rel[name]}")
     if not dloss <= LOSS_TOL:
-        fail(f"NER flash and einsum losses differ by {dloss}")
-    planted["bf16"] = mask_fault_control(torch, model.module, xb, yb,
-                                         g_einsum, None, **grad)
+        fail(f"{label}: flash and einsum losses differ by {dloss}")
+    # the same faults against the bf16 check, for the record
+    planted["bf16"] = fault_controls(torch, model.module, xb, yb, g_einsum,
+                                     None, faults, label=label, **grad)
     del g_einsum
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     _reset_launches(fa)
-    # ---- main path: ZooModel.fit -> Estimator.fit on padded batches ----
+    # ---- main path: ZooModel.fit -> Estimator.fit ----
     t0 = time.perf_counter()
     hist = model.fit((x, y), batch_size=batch, epochs=2)
     if cuda:
@@ -1234,20 +995,26 @@ def ner_learn_phase(torch, save_to, device="cuda", base=NER_BASE,
     launches = _launches(fa)
     # ---- end of the main path ----
     peak = torch.cuda.max_memory_allocated() if cuda else None
-    steps = model.estimator.global_step
+    est = model.estimator
+    steps = est.global_step
     if steps != 2 * steps_per_epoch or len(hist) != 2:
-        fail(f"NER fit ran {steps} steps in {len(hist)} epochs")
+        fail(f"{label}: fit ran {steps} steps in {len(hist)} epochs")
     losses = [h["loss"] for h in hist]
+    # an epoch's loss is the mean of its steps' losses: finite means
+    # every step's loss was finite
     if not all(np.isfinite(losses)):
-        fail(f"NER: non-finite training loss: {losses}")
+        fail(f"{label}: non-finite training loss: {losses}")
     need = base["n_block"] * steps if cuda else 0
-    for kname, (_, masked) in launches.items():
-        if masked < need:
-            fail(f"NER: {kname} launched {masked} times with a mask in "
-                 f"{steps} train steps (< {need})")
+    for kname, counts in launches.items():
+        if counts[int(masked)] < need:
+            fail(f"{label}: {kname} launched {counts[int(masked)]} times"
+                 + (" with a mask" if masked else "")
+                 + f" in {steps} train steps (< {need})")
     timed = hist[1]["seconds"]
     sps = steps_per_epoch / timed
-    real_tokens = int(x["attention_mask"].sum())  # one epoch's
+    # one epoch's real tokens (the mask's ones) and padded tokens
+    real = (int(np.count_nonzero(x["attention_mask"]))
+            if "attention_mask" in x else n * seq)
     p_dense = sum(p.numel() for pname, p in param_tree(model.module).items()
                   if "embed" not in pname.lower())
     flops_per_token = (6 * p_dense
@@ -1256,151 +1023,134 @@ def ner_learn_phase(torch, save_to, device="cuda", base=NER_BASE,
     # (padding included), as the kernels and GEMMs do the work for it
     mfu = sps * batch * seq * flops_per_token / BF16_PEAK
 
+    # evaluate and predict on the same Estimator
     m = 2 * batch
     xe = {k: a[:m] for k, a in x.items()}
     ev = model.evaluate((xe, y[:m]), batch_size=batch)
-    logits = model.predict(xe, batch_size=batch)
+    pred = model.predict(xe, batch_size=batch)
     if not np.isfinite(ev["loss"]):
-        fail(f"NER evaluate: non-finite loss {ev}")
-    if (logits.shape != (m, seq, base["num_classes"])
-            or not np.isfinite(logits).all()):
-        fail(f"NER predict: bad logits {logits.shape}")
-    acc = BERTNER.token_accuracy(logits, y[:m])
-    model.save_model(save_to)
+        fail(f"{label} evaluate: non-finite loss {ev}")
+    for t in pred if isinstance(pred, (tuple, list)) else (pred,):
+        if t.shape[:2] != (m, seq) or not np.isfinite(t).all():
+            fail(f"{label} predict: bad output {t.shape}")
+    acc = (cls.token_accuracy(pred, y[:m]) if hasattr(cls, "token_accuracy")
+           else None)
+    if save_to is not None:
+        model.save_model(save_to)
     summary = {
-        "model": "BERTNER", "config": base, "seq": seq, "batch": batch,
+        "model": cls.__name__, "config": base, "seq": seq, "batch": batch,
         "steps": steps, "losses": losses, "fit_s": fit_s,
         "timed_epoch_s": timed, "steps_per_s": sps,
-        "samples_per_s": sps * batch,
-        "padded_tokens_per_s": sps * batch * seq,
-        "real_tokens_per_s": real_tokens / timed,
-        "real_token_share": real_tokens / (n * seq),
-        "dense_params": p_dense, "mfu_bf16_padded_tokens": mfu,
+        "samples_per_s": sps * batch, "tokens_per_s": sps * batch * seq,
+        "real_tokens_per_s": real / timed, "real_token_share": real / (n * seq),
+        "dense_params": p_dense, "mfu_bf16": mfu,
         "peak_mem_gib": peak / 2 ** 30 if cuda else None,
         "eval_loss": ev["loss"], "token_accuracy": acc,
         "launches": {k: {"all": a, "masked": mk}
                      for k, (a, mk) in launches.items()},
         "grad_rel_err": dict(rel, f32_flash_vs_einsum=rel32),
         "loss_flash_vs_einsum": dloss,
-        "planted_mask_fault_rel_err": planted,
+        "planted_fault_rel_err": planted,
         "device": torch.cuda.get_device_name(0) if cuda else device}
-    print("learn-ner: " + json.dumps(summary), flush=True)
+    print(f"{label}: " + json.dumps(summary), flush=True)
     if profile:
-        profile_train_step(torch, model.estimator, xb, yb)
+        profile_train_step(torch, est, xb, yb)
     return launches
 
 
-def _ner_input(tensors):
-    """The NER deployment's input_fn: a request's named tensors as the
-    model's input dict (``launch()`` maps several tensors to a tuple)."""
-    return {"input_ids": tensors["input_ids"],
-            "attention_mask": tensors["attention_mask"]}
+def squad_learn(torch, device="cuda", base=SQUAD_BASE, seq=TRAIN_SEQ,
+                batch=TRAIN_BATCH, steps_per_epoch=TRAIN_STEPS,
+                profile=False):
+    """BERT-base BERTSQuAD on random ids and spans, no mask; planted
+    faults: dQ zeroed, dK and dV swapped."""
+    from analytics_zoo_tpu_torch.models.text.bert_squad import (
+        BERTSQuAD, squad_span_loss)
+
+    rng = np.random.RandomState(0)
+    n = batch * steps_per_epoch
+    x = {"input_ids": rng.randint(0, base["vocab"], (n, seq)
+                                  ).astype(np.int32)}
+    y = np.stack([rng.randint(0, seq, n), rng.randint(0, seq, n)],
+                 axis=1).astype(np.int32)
+    return learn_phase(torch, BERTSQuAD, base, x, y, batch, squad_span_loss,
+                       GRAD_PARAMS, ("dq_zeroed", "dk_dv_swapped"),
+                       device=device, profile=profile)
 
 
-def ner_serving_phase(torch, path, device="cuda", n_requests=64,
-                      seq=NER_SEQ, batch=8, base=NER_BASE):
-    """Serves the saved NER model: InferenceModel -> ServingWorker on the
-    memory queue with ``_ner_input``, every bucket warmed with a masked
-    example, then ``n_requests`` padded requests. Checks every request is
-    answered once with finite logits, K1 ran with a mask once per
-    encoder layer of every dispatched batch, and 4 replies match the
-    einsum path at real tokens. Returns K1's (launches, masked
-    launches)."""
-    from analytics_zoo_tpu_torch.common.config import get_config
+# BERT-base NER (Devlin et al. 2019, section 5.3, CoNLL-2003): the
+# bert-base-cased configuration (vocab 28996), 9 BIO tags, sequences of
+# 128 tokens, bf16 encoder, f32 head. Nothing is cut. The traffic is
+# synthetic: real lengths uniform in [2, 128], about half the positions
+# real. CoNLL-2003's published train split (14,041 sentences, 203,621
+# tokens, 14.5 words a sentence) would leave far fewer real at 128
+NER_BASE = dict(num_classes=9, vocab=28996, hidden_size=768, n_block=12,
+                n_head=12, intermediate_size=3072, max_position_len=512,
+                dtype="bfloat16")
+NER_SEQ, NER_BATCH, NER_STEPS = 128, 32, 16
+NER_GRAD_PARAMS = ("bert.encoder_0.attention.qkv.weight", "head.weight")
+
+
+def ner_data(rng, n, seq, vocab, n_tags):
+    """Synthetic NER traffic: random token ids with per-row real lengths
+    uniform in [2, seq] (the first row full, the second of 2), their
+    attention mask, and tags in [0, n_tags) on real tokens, -1
+    (IGNORE_INDEX) on padding."""
+    mask = padding_mask(rng, n, seq, 2)
+    ids = rng.randint(1, vocab, (n, seq)).astype(np.int32) * mask
+    tags = np.where(mask == 1, rng.randint(0, n_tags, (n, seq)), -1)
+    return {"input_ids": ids, "attention_mask": mask}, tags.astype(np.int32)
+
+
+def ner_learn(torch, save_to, device="cuda", base=NER_BASE, seq=NER_SEQ,
+              batch=NER_BATCH, steps_per_epoch=NER_STEPS, profile=False):
+    """BERT-base BERTNER on padded batches; planted fault: the mask
+    dropped from K2 and K3. Saves the fitted model to ``save_to``."""
+    from analytics_zoo_tpu_torch.models.text.bert_estimators import (
+        BERTNER, token_cross_entropy)
+
+    rng = np.random.RandomState(3)
+    x, y = ner_data(rng, batch * steps_per_epoch, seq, base["vocab"],
+                    base["num_classes"])
+    return learn_phase(torch, BERTNER, base, x, y, batch,
+                       token_cross_entropy, NER_GRAD_PARAMS,
+                       ("mask_dropped",), masked=True, label="learn-ner",
+                       save_to=save_to, device=device, profile=profile)
+
+
+def ner_serving(torch, path, device="cuda", n_requests=64, seq=NER_SEQ,
+                batch=8, base=NER_BASE):
+    """The saved NER model through InferenceModel -> ServingWorker on the
+    memory queue with ``_ner_input``, every bucket warmed with a padded
+    example, then ``n_requests`` padded requests."""
     from analytics_zoo_tpu_torch.inference.inference_model import (
         InferenceModel, bucket_ladder)
-    from analytics_zoo_tpu_torch.obs.metrics import get_registry
-    from analytics_zoo_tpu_torch.ops import flash_attention as fa
     from analytics_zoo_tpu_torch.serving.queues import (
         InputQueue, OutputQueue)
     from analytics_zoo_tpu_torch.serving.worker import ServingWorker
 
-    cfg = get_config()
-    cfg.set("zoo.ops.attention_impl", "flash")
     rng = np.random.RandomState(4)
     x, _ = ner_data(rng, n_requests, seq, base["vocab"], base["num_classes"])
     reqs = {f"ner{i:03d}": {k: a[i] for k, a in x.items()}
             for i in range(n_requests)}
-    model = InferenceModel(device=device).load_zoo(path)
-    in_q, out_q = InputQueue(backend="memory"), OutputQueue(backend="memory")
-    worker = ServingWorker(model, in_q, out_q, batch_size=batch,
-                           input_fn=_ner_input)
-    cap = getattr(worker.batcher, "max_batch_size", worker.batcher.batch_size)
-    dispatch = get_registry().get(
-        "zoo_inference_dispatch_total").labels(mode="off")
-    d0 = dispatch.value
-    _reset_launches(fa)
-    # ---- main path: warm-up -> ServingWorker -> InferenceModel ----
-    t0 = time.perf_counter()
-    # a padded example (the second request: 2 real tokens)
-    model.warm_up({k: a[1:2] for k, a in x.items()},
-                  batch_sizes=bucket_ladder(cap))
-    worker.start()
-    print(f"serve-ner: warmed buckets {bucket_ladder(cap)} and started in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-    try:
-        sent, got, lat = {}, {}, []
-        t_start = time.perf_counter()
-        for uri, tensors in reqs.items():
-            sent[uri] = time.perf_counter()
-            if not in_q.enqueue(uri, **tensors):
-                fail(f"enqueue refused {uri}")
-        deadline = time.perf_counter() + 300
-        while len(got) < n_requests and time.perf_counter() < deadline:
-            item = out_q.dequeue(timeout=1.0)
-            if item is None:
-                continue
-            uri, tensors = item
-            if uri in got:
-                fail(f"{uri} answered twice")
-            lat.append(time.perf_counter() - sent[uri])
-            got[uri] = tensors
-        wall = time.perf_counter() - t_start
-        k1 = _launches(fa)["K1"]
-        dispatched = int(dispatch.value - d0)
-        # ---- end of the main path ----
-        stats = worker.batcher.stats()
-    finally:
-        worker.stop()
-    if set(got) != set(reqs):
-        fail(f"NER: answered {len(got)}/{n_requests} requests")
-    for uri, tensors in got.items():
-        out = tensors.get("output")
-        if out is None or out.shape != (seq, base["num_classes"]) \
-                or not np.isfinite(out).all():
-            fail(f"NER {uri}: bad reply {tensors if out is None else out.shape}")
-    need = base["n_block"] * dispatched if device == "cuda" else 0
-    if k1[1] < need:
-        fail(f"NER serving: K1 launched {k1[1]} times with a mask < "
-             f"{base['n_block']} x {dispatched} dispatched batches")
-    check = sorted(reqs)[:4]
-    cfg.set("zoo.ops.attention_impl", "einsum")
-    ref = model.predict({k: np.stack([reqs[u][k] for u in check])
-                         for k in ("input_ids", "attention_mask")})
-    cfg.set("zoo.ops.attention_impl", "flash")
-    served = np.stack([got[u]["output"] for u in check])
-    real = np.stack([reqs[u]["attention_mask"] for u in check]) == 1
-    diff = float(np.abs(served - ref)[real].max())
-    print(f"serve-ner: flash vs einsum logits at real tokens max_abs_diff="
-          f"{diff:.4g} (tol {SERVE_TOL})", flush=True)
-    if not diff <= SERVE_TOL:
-        fail(f"NER served logits differ from the einsum path by {diff}")
-    lat_ms = np.asarray(lat) * 1e3
-    summary = {
-        "requests": n_requests, "seq": seq, "wall_s": wall,
-        "rps": n_requests / wall,
-        "real_tokens_per_s": int(x["attention_mask"].sum()) / wall,
-        "p50_ms": float(np.percentile(lat_ms, 50)),
-        "p99_ms": float(np.percentile(lat_ms, 99)),
-        "dispatched_batches": dispatched,
-        "k1_launches": k1[0], "k1_masked_launches": k1[1],
-        "served_batches": stats["batches"],
-        "max_batch_size": stats["max_batch_size"],
-        "einsum_max_abs_diff_real_tokens": diff,
-        "device": (torch.cuda.get_device_name(0) if device == "cuda"
-                   else device)}
-    print("serve-ner: " + json.dumps(summary), flush=True)
-    return k1
+
+    def start():
+        model = InferenceModel(device=device).load_zoo(path)
+        in_q = InputQueue(backend="memory")
+        out_q = OutputQueue(backend="memory")
+        worker = ServingWorker(model, in_q, out_q, batch_size=batch,
+                               input_fn=_ner_input)
+        cap = getattr(worker.batcher, "max_batch_size",
+                      worker.batcher.batch_size)
+        # a padded example (the second request: 2 real tokens)
+        model.warm_up({k: a[1:2] for k, a in x.items()},
+                      batch_sizes=bucket_ladder(cap))
+        worker.start()
+        print(f"serve-ner: warmed buckets {bucket_ladder(cap)}", flush=True)
+        return in_q, out_q, model, worker.batcher, worker.stop
+
+    return serving_phase(torch, start, reqs, _ner_input,
+                         (seq, base["num_classes"]), base["n_block"],
+                         masked=True, label="serve-ner", device=device)
 
 
 def main() -> None:
@@ -1445,30 +1195,38 @@ def main() -> None:
         return out
 
     served = timed("kernels", kernel_phase, torch, peaks)
-    trained = timed("backward", backward_phase, torch, peaks)
-    ner = timed("masked kernels", masked_kernel_phase, torch, peaks)
-    serve_k1 = timed("serving", serving_phase, torch, profile=args.profile)
-    learn_k1, learn_k2, learn_k3 = timed("learn", learn_phase, torch,
-                                         profile=args.profile)
+    trained = _pick(timed("backward", backward_phase, torch, peaks,
+                          BACKWARD_CASES, 1, "backward"), "trained")
+    ner = _pick(timed("masked kernels", backward_phase, torch, peaks,
+                      MASKED_CASES, 2, "masked"), "ner_trained")
+    runs = [timed("serving", bert_serving, torch, profile=args.profile)]
+    squad = timed("learn", squad_learn, torch, profile=args.profile)
     with tempfile.TemporaryDirectory() as ner_dir:
-        ner_fit = timed("NER learn", ner_learn_phase, torch, ner_dir,
+        ner_fit = timed("NER learn", ner_learn, torch, ner_dir,
                         profile=args.profile)
-        ner_k1 = timed("NER serving", ner_serving_phase, torch, ner_dir)
-    # the masked calls at the NER trained call ([32,12,128,64] bf16 views
-    # into the qkv projection, real lengths in [2, 128])
-    mask_call = {"shape": ner["shape"], "replaces": K5A_REPLACES,
-                 "real_keys": ner["real_keys"], "keys": ner["keys"]}
+        runs.append(timed("NER serving", ner_serving, torch, ner_dir))
+    runs += [squad["K1"], ner_fit["K1"]]
+    k1_runs = [sum(r[i] for r in runs) for i in (0, 1)]
+
+    def mask_call(key, library_ms, library_device_ms):
+        """A kernel at the NER trained call ([32,12,128,64] bf16 views
+        into the qkv projection, synthetic lengths in [2, 128])."""
+        return {"shape": ner["shape"], "replaces": K5A_REPLACES,
+                "real_keys": ner["real_keys"], "keys": ner["keys"],
+                "max_abs_err": ner[f"{key}_max_abs_err"],
+                "ms": ner[f"{key}_ms"], "device_ms": ner[f"{key}_device_ms"],
+                "plain_ms": ner[f"{key}_plain_ms"],
+                "bound_ms": ner[f"{key}_bound_ms"],
+                "bound_by": ner[f"{key}_bound_by"],
+                "library_ms": library_ms,
+                "library_device_ms": library_device_ms}
+
     k1_mask_call = dict(
-        mask_call, max_abs_err=ner["k1_max_abs_err"], ms=ner["k1_ms"],
-        device_ms=ner["k1_device_ms"],
-        library_device_ms=ner["sdpa_device_ms"],
-        lse_device_ms=ner["k1_lse_device_ms"],
-        plain_ms=ner["k1_plain_ms"], bound_ms=ner["k1_bound_ms"],
-        bound_by=ner["k1_bound_by"], library_ms=ner["sdpa_ms"],
-        lse_max_abs_err=ner["k1_lse_max_abs_err"], lse_ms=ner["k1_lse_ms"],
-        lse_plain_ms=ner["k1_lse_plain_ms"],
-        lse_bound_ms=ner["k1_lse_bound_ms"],
-        lse_library_ms=ner["sdpa_fwd_ms"])
+        mask_call("k1", ner["sdpa_ms"], ner["sdpa_device_ms"]),
+        lse_call=dict(mask_call("k1_lse", ner["sdpa_fwd_ms"],
+                                ner["sdpa_fwd_device_ms"]),
+                      max_abs_err=ner["k1_lse_out_max_abs_err"],
+                      lse_max_abs_err=ner["k1_lse_max_abs_err"]))
     # K1 at the served call ([32,12,512,64] bf16 views into the qkv
     # projection), with its logsumexp call at the trained shape beside
     # it; K2 and K3 at the trained call ([48,12,384,64] bf16). SDPA's
@@ -1476,10 +1234,8 @@ def main() -> None:
     # single library call of its own (its time is kept beside them)
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES,
-        "launches": serve_k1 + learn_k1 + ner_fit["K1"][0] + ner_k1[0],
-        "masked_launches": ner_fit["K1"][1] + ner_k1[1],
-        "shape": served["shape"],
+        "replaces": K1_REPLACES, "launches": k1_runs[0],
+        "masked_launches": k1_runs[1], "shape": served["shape"],
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"],
@@ -1489,35 +1245,34 @@ def main() -> None:
             "max_abs_err": trained["k1_lse_out_max_abs_err"],
             "lse_max_abs_err": trained["k1_lse_max_abs_err"],
             "ms": trained["k1_lse_ms"],
+            "device_ms": trained["k1_lse_device_ms"],
             "plain_ms": trained["k1_lse_plain_ms"],
             "bound_ms": trained["k1_lse_bound_ms"],
             "bound_by": trained["k1_lse_bound_by"],
-            "library_ms": trained["sdpa_fwd_ms"]},
+            "library_ms": trained["sdpa_fwd_ms"],
+            "library_device_ms": trained["sdpa_fwd_device_ms"]},
         "kv_mask_call": k1_mask_call}] + [{
             "name": kname, "route": "cuda", "source": BWD_SOURCE,
             "replaces": replaces,
-            "launches": launches + ner_fit[kk][0],
-            "masked_launches": ner_fit[kk][1],
+            "launches": squad[kk][0] + ner_fit[kk][0],
+            "masked_launches": squad[kk][1] + ner_fit[kk][1],
             "shape": trained["shape"],
             "max_abs_err": trained[f"{key}_max_abs_err"],
             "ms": trained[f"{key}_ms"],
+            "device_ms": trained[f"{key}_device_ms"],
             "plain_ms": trained[f"{key}_plain_ms"],
             "bound_ms": trained[f"{key}_bound_ms"],
             "bound_by": trained[f"{key}_bound_by"],
             "library_ms": None,
             "library_backward_ms": trained["sdpa_bwd_ms"],
+            "library_backward_device_ms": trained["sdpa_bwd_device_ms"],
             "kv_mask_call": dict(
-                mask_call, max_abs_err=ner[f"{key}_max_abs_err"],
-                ms=ner[f"{key}_ms"], device_ms=ner[f"{key}_device_ms"],
-                plain_ms=ner[f"{key}_plain_ms"],
-                bound_ms=ner[f"{key}_bound_ms"],
-                bound_by=ner[f"{key}_bound_by"], library_ms=None,
+                mask_call(key, None, None),
                 library_backward_ms=ner["sdpa_bwd_ms"],
                 library_backward_device_ms=ner["sdpa_bwd_device_ms"])}
-            for kname, replaces, launches, key, kk in (
-                ("flash_attn_bwd_dq", K2_REPLACES, learn_k2, "k2", "K2"),
-                ("flash_attn_bwd_dkv", K3_REPLACES, learn_k3, "k3",
-                 "K3"))]}),
+            for kname, replaces, key, kk in (
+                ("flash_attn_bwd_dq", K2_REPLACES, "k2", "K2"),
+                ("flash_attn_bwd_dkv", K3_REPLACES, "k3", "K3"))]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

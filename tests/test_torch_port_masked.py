@@ -321,6 +321,33 @@ class TestDispatchRoute:
             get_config().unset("zoo.ops.attention_impl")
         assert seen["mask"] is mask
 
+    def test_bert_converts_the_mask_once(self, monkeypatch):
+        """BERTModule turns ``attention_mask`` into bytes once and hands
+        that one tensor to every layer, in the form the wrappers take as
+        it is (no conversion per layer)."""
+        from analytics_zoo_tpu_torch.keras.layers import transformer
+
+        seen = []
+        real = transformer.dot_product_attention
+
+        def spy(q, k, v, mask=None, key_padding_mask=None, **kw):
+            seen.append(key_padding_mask)
+            return real(q, k, v, mask=mask,
+                        key_padding_mask=key_padding_mask, **kw)
+
+        monkeypatch.setattr(transformer, "dot_product_attention", spy)
+        bert = transformer.BERTModule(vocab=SMALL["vocab"], hidden_size=128, n_block=2,
+                                      n_head=2, intermediate_size=256,
+                                      max_position_len=128)
+        x, _ = _ner_data(2, 13)
+        m = torch.from_numpy(x["attention_mask"]) * 3  # any nonzero = real
+        bert({"input_ids": torch.from_numpy(x["input_ids"]).long(),
+              "attention_mask": m})
+        assert len(seen) == 2 and seen[0] is seen[1]
+        assert seen[0].dtype == torch.uint8 and seen[0].is_contiguous()
+        assert torch.equal(seen[0].bool(), m != 0)
+        assert fa._kernel_mask(seen[0]) is seen[0]
+
     def test_only_k5b_raises(self, monkeypatch):
         monkeypatch.setattr(port_attention, "_flash_route", lambda *a: "k5b")
         q, k, v, _, m, _ = _case("prefix", seed=12)
