@@ -1,5 +1,5 @@
 """Weight bridge: the reference package's flax variables -> the port's
-``state_dict``.
+``state_dict``, and its TinyGenLM parameter tree -> the port's.
 
 The trees are taken as nested dicts of numpy arrays (for instance
 ``jax.tree_util.tree_map(np.asarray, variables)``), so this module needs
@@ -11,6 +11,11 @@ no JAX. Module and parameter names correspond one for one (see
   ``[H_in, 3, H]`` becomes ``[3, H, H_in]``);
 - LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
 - ``bias`` and bare parameters (``position_embed``) as they are.
+
+TinyGenLM's parameters are a plain tree in both packages (dicts and
+lists with the same keys, weights as ``[in, out]`` matrices used as
+``x @ w``), so ``gen_params_from_tree`` keeps the structure and turns
+each leaf into an f32 tensor.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from analytics_zoo_tpu_torch.common.context import resolve_device
 
 _RENAME = {"scale": "weight", "embedding": "weight"}
 
@@ -60,3 +67,20 @@ def load_flax_into(module: torch.nn.Module,
         raise KeyError(f"flax tree does not match the module: missing "
                        f"{missing}, unexpected {unexpected}")
     return module
+
+
+def gen_params_from_tree(tree: Any, device=None) -> Any:
+    """The reference's TinyGenLM parameter tree (nested dicts and lists
+    of arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) as
+    the port's: the same structure, each leaf an f32 tensor on
+    ``device`` (None = CUDA)."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return torch.tensor(np.asarray(node, np.float32), device=device)
+
+    return walk(tree)

@@ -1,5 +1,6 @@
 """Attention dispatch: the flash-attention CUDA kernels (K1 forward, K2
-and K3 backward) on the card, plain PyTorch on the CPU.
+and K3 backward, K5b forward at other head dims) on the card, plain
+PyTorch on the CPU.
 
 The counterpart of ``analytics_zoo_tpu/ops/attention.py``, with the same
 semantics: the causal diagonal is aligned bottom-right (``tril`` with
@@ -19,9 +20,15 @@ einsum path (and ``reference_attention``) lets every query row attend
 to the real keys. The two agree on real rows, which are all that BERT's
 losses and metrics read (padding is ``IGNORE_INDEX``); the port gives
 the einsum path's values at every row, including a row that sees no key
-(the mean of V, see ``flash_attention``). Where the reference takes the
-stock kernel at a head_dim that is not a multiple of 64 (K5b, TinyGenLM's
-prefill), the port has no kernel yet and raises.
+(the mean of V, see ``flash_attention``).
+
+Where the reference takes the stock kernel at a head_dim that is not a
+multiple of 64 (``d <= 128``, causal only at ``lq == lk``, with or
+without a key-padding mask; TinyGenLM's prefill), the port launches K5b,
+the same forward kernel instantiated at that head dim, through
+``flash_attention``, with the einsum path's semantics at every row as
+for K5a. K5b's backward is not ported: under autograd on CUDA such a
+call raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -76,8 +83,8 @@ def _flash_route(impl: str, on_cuda: bool, l: int, lk: int, d: int,
                  ) -> Optional[str]:
     """Where the reference would take a flash kernel on its accelerator:
     "kernels" (K1-K3, with or without a key-padding mask), "k5b" (the
-    stock kernel at head_dim % 64 != 0, not ported) or None (the einsum
-    path)."""
+    stock kernel at head_dim % 64 != 0: K5b's forward) or None (the
+    einsum path)."""
     if (impl == "einsum" or has_mask or dropout_rate != 0.0
             or not on_cuda or l % 128 or lk % 128):
         return None
@@ -95,9 +102,9 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
                           dropout_rng: Optional[torch.Generator] = None):
     """q, k, v: [B, H, L, D]. Returns [B, H, Lq, D]. ``dropout_rng`` is a
     ``torch.Generator`` on the tensors' device, required when
-    ``dropout_rate > 0``. The flash path is differentiable: under
-    autograd on CUDA it runs K1 with logsumexp forward and K2/K3
-    backward (``flash_attention.FlashAttention``), with
+    ``dropout_rate > 0``. The flash path is differentiable at head dims
+    64 and 128: under autograd on CUDA it runs K1 with logsumexp forward
+    and K2/K3 backward (``flash_attention.FlashAttention``), with
     ``key_padding_mask`` when one is given."""
     d = q.shape[-1]
     l, lk = q.shape[2], k.shape[2]
@@ -118,19 +125,14 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
         impl = "einsum"
     route = _flash_route(impl, q.is_cuda, l, lk, d, causal,
                          mask is not None, dropout_rate)
-    if route == "kernels":
+    if route is not None:
+        # "kernels": K1 (K1-lse, K2, K3 under autograd); "k5b": the same
+        # forward at this head dim, whose backward raises
         from analytics_zoo_tpu_torch.ops.flash_attention import (
             flash_attention)
 
         return flash_attention(q, k, v, causal, scale,
                                key_padding_mask=key_padding_mask)
-    if route == "k5b":
-        raise NotImplementedError(
-            f"flash attention at head_dim {d} (not a multiple of 64) needs "
-            "the stock-kernel counterpart K5b, which the PyTorch port has "
-            "not ported yet (ROADMAP queue 1 item 7, the generation "
-            "plane); set zoo.ops.attention_impl=einsum to take the plain "
-            "path")
 
     if key_padding_mask is not None:
         pm = key_padding_mask[:, None, None, :].bool()

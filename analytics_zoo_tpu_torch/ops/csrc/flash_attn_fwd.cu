@@ -1,4 +1,5 @@
-// Flash-attention forward (K1) for Hopper, sm_90a.
+// Flash-attention forward (K1; K5b at the other head dims) for Hopper,
+// sm_90a.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_fwd_kernel`
 // (:82-134), launched by `_flash_fwd` (:137-189). Computes exact
@@ -18,6 +19,19 @@
 // still walked (skipping them is later work). The mask is a template flag
 // (kMask), so a launch without one runs the unmasked kernel as it was: a
 // per-score test that is only predicated off still costs instructions.
+//
+// Head dims (K5b). Besides D in {64, 128} (K1), the same templates take
+// every D <= 128 that is a multiple of 8 and not of 64: the stock-kernel
+// branch of analytics_zoo_tpu/ops/attention.py (:116-127), which on the TPU
+// sends flash-eligible calls at head_dim % 64 != 0 to JAX's stock Pallas
+// flash_attention (TinyGenLM's prefill at D = 16, or 80 at Phi-2's widths).
+// The stock kernel aligns a causal mask top-left, but the reference takes
+// it only at Lq == Lk, where that is this kernel's bottom-right diagonal.
+// The bf16 path contracts Q K^T in k-steps of 16, so at D = 8 (mod 16) the
+// upper half of the last k-step is zero in both fragments (never read
+// from memory); P V runs in n-blocks of 8 and needs no padding. The f32
+// path gives each of 8 threads D/8 dimensions of a row. Each D is its own
+// instantiation, so the register arrays stay sized to it.
 //
 // Design. The Pallas grid (bh, q-block, kv-block) ran its kv dimension as a
 // sequential loop on one TPU core, carrying (m, l, acc) in VMEM scratch.
@@ -51,6 +65,10 @@
 // rather than wgmma, so it is latency- and issue-bound; several resident
 // blocks per SM (about 18 KB shared memory each at D = 64) are what hide
 // the load latency. wgmma, TMA and a producer warp are later work.
+// In f32 (TinyGenLM's K5b calls) the FMA path does the same 4*L*Lk*D
+// flops against 67 TFLOP/s, so a long causal prefill is bound by
+// operations. At small D the per-score softmax work (scale, mask, max,
+// exp), which no bound counts, outweighs the 4*D flops of a score.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -138,6 +156,8 @@ __device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
 template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const Params p) {
+  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
+  constexpr int kSteps = (D + 15) / 16;  // k-steps of Q K^T
   __shared__ __align__(16) uint16_t sK[kTile][D + kPad];
   __shared__ __align__(16) uint16_t sV[kTile][D + kPad];
   __shared__ uint8_t sM[kTile];  // this kv tile's key-padding mask
@@ -164,16 +184,18 @@ flash_fwd_bf16_kernel(const Params p) {
   const int rb = row0 + g + 8;
   const int offset = p.lk - p.lq;
 
-  // Q as A fragments of m16n8k16, one per 16-wide slice of D
-  uint32_t qf[D / 16][4];
+  // Q as A fragments of m16n8k16, one per 16-wide slice of D; at
+  // D = 8 (mod 16) the last slice's columns D..D+7 are zeros
+  uint32_t qf[kSteps][4];
 #pragma unroll
-  for (int c = 0; c < D / 16; ++c) {
+  for (int c = 0; c < kSteps; ++c) {
     const uint16_t* pa = q + ra * p.q_sl + c * 16 + t4 * 2;
     const uint16_t* pb = q + rb * p.q_sl + c * 16 + t4 * 2;
     qf[c][0] = *reinterpret_cast<const uint32_t*>(pa);
     qf[c][1] = *reinterpret_cast<const uint32_t*>(pb);
-    qf[c][2] = *reinterpret_cast<const uint32_t*>(pa + 8);
-    qf[c][3] = *reinterpret_cast<const uint32_t*>(pb + 8);
+    const bool upper = c * 16 + 8 < D;
+    qf[c][2] = upper ? *reinterpret_cast<const uint32_t*>(pa + 8) : 0u;
+    qf[c][3] = upper ? *reinterpret_cast<const uint32_t*>(pb + 8) : 0u;
   }
 
   float acc[D / 8][4];
@@ -213,11 +235,13 @@ flash_fwd_bf16_kernel(const Params p) {
     for (int n = 0; n < kTile / 8; ++n) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
+      for (int c = 0; c < kSteps; ++c) {
         const uint32_t b0 =
             *reinterpret_cast<const uint32_t*>(&sK[n * 8 + g][c * 16 + t4 * 2]);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(&sK[n * 8 + g][c * 16 + 8 + t4 * 2]);
+        // past D (the padding of a half k-step): zero, as Q's columns are
+        const uint32_t b1 = c * 16 + 8 < D
+            ? *reinterpret_cast<const uint32_t*>(&sK[n * 8 + g][c * 16 + 8 + t4 * 2])
+            : 0u;
         mma_16816(s[n], qf[c], b0, b1);
       }
     }
@@ -328,6 +352,7 @@ flash_fwd_bf16_kernel(const Params p) {
 template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const Params p) {
+  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
   constexpr int DP = D / 8;  // dimensions per thread
   __shared__ __align__(16) float sK[kFmaKv][D];
   __shared__ __align__(16) float sV[kFmaKv][D];
@@ -435,6 +460,20 @@ cudaError_t launch(Kernel kernel, dim3 grid, const Params& p, cudaStream_t strea
   return cudaGetLastError();
 }
 
+// the instantiation for one head dim: dtype 1 = bf16, else f32
+template <int D>
+cudaError_t launch_d(int dtype, bool masked, int batch_heads, const Params& p,
+                     cudaStream_t s) {
+  if (dtype == 1) {
+    const dim3 grid(p.lq / kTile, batch_heads);
+    return masked ? launch(flash_fwd_bf16_kernel<D, true>, grid, p, s)
+                  : launch(flash_fwd_bf16_kernel<D, false>, grid, p, s);
+  }
+  const dim3 grid(p.lq / kFmaRows, batch_heads);
+  return masked ? launch(flash_fwd_f32_kernel<D, true>, grid, p, s)
+                : launch(flash_fwd_f32_kernel<D, false>, grid, p, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. mask: [B, Lk] bytes (nonzero = real
@@ -464,31 +503,29 @@ extern "C" int zoo_flash_attn_fwd(
   if (lq % kTile || lk % kTile) return 1001;
   if (causal && lq > lk) return 1002;
   if (batch * heads > 65535) return 1003;
+  if (dtype != 0 && dtype != 1) return 1005;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool masked = mask != nullptr;  // the kMask instantiation or not
-  if (dtype == 1) {
-    const dim3 grid(lq / kTile, batch * heads);
-    if (d == 64) {
-      return masked ? launch(flash_fwd_bf16_kernel<64, true>, grid, p, s)
-                    : launch(flash_fwd_bf16_kernel<64, false>, grid, p, s);
-    }
-    if (d == 128) {
-      return masked ? launch(flash_fwd_bf16_kernel<128, true>, grid, p, s)
-                    : launch(flash_fwd_bf16_kernel<128, false>, grid, p, s);
-    }
-    return 1004;
+  const int bh = batch * heads;
+  switch (d) {
+    // K1
+    case 64: return launch_d<64>(dtype, masked, bh, p, s);
+    case 128: return launch_d<128>(dtype, masked, bh, p, s);
+    // K5b: the other multiples of 8 up to 128
+    case 8: return launch_d<8>(dtype, masked, bh, p, s);
+    case 16: return launch_d<16>(dtype, masked, bh, p, s);
+    case 24: return launch_d<24>(dtype, masked, bh, p, s);
+    case 32: return launch_d<32>(dtype, masked, bh, p, s);
+    case 40: return launch_d<40>(dtype, masked, bh, p, s);
+    case 48: return launch_d<48>(dtype, masked, bh, p, s);
+    case 56: return launch_d<56>(dtype, masked, bh, p, s);
+    case 72: return launch_d<72>(dtype, masked, bh, p, s);
+    case 80: return launch_d<80>(dtype, masked, bh, p, s);
+    case 88: return launch_d<88>(dtype, masked, bh, p, s);
+    case 96: return launch_d<96>(dtype, masked, bh, p, s);
+    case 104: return launch_d<104>(dtype, masked, bh, p, s);
+    case 112: return launch_d<112>(dtype, masked, bh, p, s);
+    case 120: return launch_d<120>(dtype, masked, bh, p, s);
+    default: return 1004;
   }
-  if (dtype == 0) {
-    const dim3 grid(lq / kFmaRows, batch * heads);
-    if (d == 64) {
-      return masked ? launch(flash_fwd_f32_kernel<64, true>, grid, p, s)
-                    : launch(flash_fwd_f32_kernel<64, false>, grid, p, s);
-    }
-    if (d == 128) {
-      return masked ? launch(flash_fwd_f32_kernel<128, true>, grid, p, s)
-                    : launch(flash_fwd_f32_kernel<128, false>, grid, p, s);
-    }
-    return 1004;
-  }
-  return 1005;
 }

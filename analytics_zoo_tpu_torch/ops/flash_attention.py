@@ -1,5 +1,6 @@
-"""Flash attention, forward (K1) and backward (K2 dQ, K3 dK/dV): hand-written
-CUDA kernels for Hopper, and their gradient (K4).
+"""Flash attention, forward (K1, and K5b at head dims that are not a
+multiple of 64) and backward (K2 dQ, K3 dK/dV): hand-written CUDA kernels
+for Hopper, and their gradient (K4).
 
 The counterpart of ``analytics_zoo_tpu/ops/pallas_attention.py``: exact
 ``softmax(scale * Q K^T) V`` on ``[B, H, L, D]``, causal mask aligned
@@ -33,14 +34,25 @@ tensor to its kernel; there is no fallback between the two.
 ``torch.autograd.Function``: K1 with logsumexp forward, K2 then K3
 backward) whenever autograd is recording and an input needs a gradient.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, and
-those given a key-padding mask in ``<wrapper>.masked_launches``.
+those given a key-padding mask in ``<wrapper>.masked_launches``;
+``flash_attention.small_d_launches`` counts the forward's launches at a
+head dim that is not a multiple of 64 (K5b).
 
-Shapes the kernels take: D in {64, 128}; L and Lk multiples of ``TILE``
-(64); f32 or bf16; the last dimension contiguous and 16-byte aligned rows
+K5b is the counterpart of the reference's stock-kernel branch at such
+head dims (``analytics_zoo_tpu/ops/attention.py:116``: JAX's stock Pallas
+``flash_attention`` for ``d <= 128``, TinyGenLM's prefill at D = 16): the
+same forward source, instantiated at every multiple of 8 up to 128. Its
+backward (the stock kernel's own dQ and dK/dV) is not ported: a call
+that needs a gradient at such D on CUDA raises ``NotImplementedError``.
+
+Shapes the kernels take: D a multiple of 8 up to 128 for the forward,
+D in {64, 128} for the backward; L and Lk multiples of ``TILE`` (64);
+f32 or bf16; the last dimension contiguous and 16-byte aligned rows
 (other strides are free, so q/k/v may be views into a fused qkv
 projection); a key-padding mask of ``[B, Lk]`` on the same device, of
 any dtype (converted once per call to contiguous bytes, ``mask != 0``).
-Anything else raises.
+Anything else raises: a head dim under 128 that is not a multiple of 8
+with ``NotImplementedError`` (no kernel covers it yet).
 """
 
 from __future__ import annotations
@@ -59,6 +71,9 @@ import numpy as np
 import torch
 
 TILE = 64
+# head dims of the backward kernels (K2, K3); the forward takes every
+# multiple of 8 up to 128
+BWD_HEAD_DIMS = (64, 128)
 # the logsumexp reported for a query row that sees no key
 EMPTY_LSE = -1e30
 
@@ -306,9 +321,28 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
                          f"(strides {tuple(t.stride())})")
 
 
+def _check_head_dim(d: int, backward: bool) -> None:
+    """Raise unless a kernel covers head dim ``d``: the forward every
+    multiple of 8 up to 128 (K1 at 64 and 128, K5b the rest), the
+    backward 64 and 128."""
+    if d > 128:
+        raise ValueError(f"flash kernel: head_dim {d} > 128")
+    if d % 8:
+        raise NotImplementedError(
+            f"flash kernel at head_dim {d}: K5b covers multiples of 8 up "
+            "to 128 (16-byte rows); other head dims have no kernel yet "
+            "(ROADMAP section 2)")
+    if backward and d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash attention backward at head_dim {d} (not 64 or 128) is "
+            "the stock kernel's backward, K5b backward, which the PyTorch "
+            "port has not ported yet (ROADMAP section 2); set "
+            "zoo.ops.attention_impl=einsum to train at this head dim")
+
+
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, mask: Optional[torch.Tensor] = None,
-                  **more: torch.Tensor) -> None:
+                  backward: bool = False, **more: torch.Tensor) -> None:
     b, h, lq, d = q.shape
     lk = k.shape[2]
     tensors = dict(q=q, k=k, v=v, **more)
@@ -326,8 +360,7 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, h, lk, d) or v.shape != k.shape:
         raise ValueError(f"flash kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in (64, 128):
-        raise ValueError(f"flash kernel: head_dim {d} not in (64, 128)")
+    _check_head_dim(d, backward)
     if lq % TILE or lk % TILE:
         raise ValueError(f"flash kernel: seq lens ({lq},{lk}) must be "
                          f"multiples of {TILE}")
@@ -375,10 +408,12 @@ def _mask_args(mask: Optional[torch.Tensor]) -> tuple:
     return (None, 0) if mask is None else (mask.data_ptr(), mask.stride(0))
 
 
-def _count(wrapper, mask) -> None:
+def _count(wrapper, mask, d: int = 64) -> None:
     wrapper.launches += 1
     if mask is not None:
         wrapper.masked_launches += 1
+    if d % 64:
+        wrapper.small_d_launches += 1
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -400,7 +435,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: code {rc}")
-    _count(flash_attention, mask)
+    _count(flash_attention, mask, d)
     return (out, lse) if with_lse else out
 
 
@@ -424,7 +459,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_bwd_dq_reference(q, k, v, o, lse, do, causal,
                                                 scale, key_padding_mask)
     fn = _entry("zoo_flash_attn_bwd_dq")
-    _check_inputs(q, k, v, causal, key_padding_mask, o=o, do=do, lse=lse)
+    _check_inputs(q, k, v, causal, key_padding_mask, backward=True, o=o,
+                  do=do, lse=lse)
     mask = _kernel_mask(key_padding_mask)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -457,8 +493,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                                                  causal, scale,
                                                  key_padding_mask)
     fn = _entry("zoo_flash_attn_bwd_dkv")
-    _check_inputs(q, k, v, causal, key_padding_mask, do=do, lse=lse,
-                  delta=delta)
+    _check_inputs(q, k, v, causal, key_padding_mask, backward=True, do=do,
+                  lse=lse, delta=delta)
     mask = _kernel_mask(key_padding_mask)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -494,7 +530,8 @@ class FlashAttention(torch.autograd.Function):
     """K4, the counterpart of ``pallas_flash_attention_fwd``'s custom_vjp:
     forward K1 with logsumexp (saving q, k, v, o, lse and the key-padding
     mask, which takes no gradient), backward K2 then K3. On CPU tensors
-    the same wiring runs the plain versions."""
+    the same wiring runs the plain versions. On CUDA at a head dim K2 and
+    K3 do not take (K5b's), it raises before the forward runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: Optional[float],
@@ -504,6 +541,8 @@ class FlashAttention(torch.autograd.Function):
             out, lse = flash_attention_reference(q, k, v, causal, scale,
                                                  True, mask)
         else:
+            # K2 and K3 must take this head dim before K1-lse runs
+            _check_head_dim(q.shape[-1], backward=True)
             out, lse = _launch(q, k, v, causal, scale, True, mask)
         ctx.save_for_backward(q, k, v, out, lse, mask)
         ctx.causal, ctx.scale = causal, scale
@@ -541,9 +580,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, causal, scale, with_lse, key_padding_mask)
 
 
-# kernel launches of each wrapper, and those of them given a mask
+# kernel launches of each wrapper, those of them given a mask, and those
+# at a head dim that is not a multiple of 64 (K5b; the forward's only)
 for _wrapper in (flash_attention, flash_attention_bwd_dq,
                  flash_attention_bwd_dkv):
     _wrapper.launches = 0
     _wrapper.masked_launches = 0
+    _wrapper.small_d_launches = 0
 del _wrapper

@@ -74,10 +74,45 @@ Phases:
    K1 must run with the mask for every encoder layer of every dispatched
    batch, and 4 replies match the einsum path at real tokens.
 
+9. K5b kernels: K1's source at head dims that are not a multiple of 64
+   (the stock-kernel branch the reference takes at such head dims),
+   through the flash_attention wrapper against its plain version on the
+   card: every instantiation once (D = 8..120 in steps of 8 but not 64,
+   bf16 and f32, with and without a key-padding mask, with logsumexp),
+   then TinyGenLM's prefill calls ([1,32,2048,80] and [1,32,512,80] f32
+   causal at Phi-2's widths, [1,2,256,16] f32 causal at the repo
+   geometry), [8,32,1024,80] bf16 causal, a masked bf16 call at
+   MiniLM-L12-H384's heads ([32,12,128,32], one left-padded row, one row
+   with no real token) and [2,4,256,40] with logsumexp in both dtypes
+   (D = 8 mod 16), each timed beside its plain version, SDPA and its
+   bound. A head dim that is not a multiple of 8, and a call that needs
+   a gradient (K5b's backward is not ported), must raise.
+10. Generation, repo geometry: TinyGenLM as the launcher documents it
+   (vocab 64, dim 32, 2 heads of 16, 2 layers, max_len 256, 8 slots,
+   page 16) served through launch() with a generation: block ->
+   GenerationWorker -> DecodeEngine -> PagedKVCache, with
+   zoo.ops.attention_impl = "flash": 500 synthetic requests (prompt
+   lengths uniform in [1, 240], __max_tokens__ 16), at most 8
+   outstanding. Every stream must get contiguous chunks and one terminal
+   chunk with in-range tokens, K5b must launch once a layer for every
+   prefill in a bucket of 128 tokens or more (warm-up included), and
+   every stream must be token-exact against reference_generate. Prints
+   TTFT and inter-token p50/p99, tokens/s, decode-step wall and device
+   time (a profile with all slots live), prefill ms by bucket, KV-pool
+   bytes and peak memory.
+11. Generation, Phi-2 widths: the same at microsoft/phi-2's published
+   widths in TinyGenLM's block (hidden 2560, 32 heads of 80, 32 layers,
+   intermediate 10240, vocab 51200, max_len 2048; f32, seeded weights):
+   32 synthetic requests (prompts uniform in [128, 2016],
+   __max_tokens__ 32); the first 16 tokens of 4 streams against
+   reference_generate, where a divergence at a top-1 - top-2 logit gap
+   under 1e-3 is reported as an f32 tie and ends that comparison.
+
 Prints each phase's seconds, a {"kernels": [...]} line (K1, K2 and K3
-each with a kv_mask_call at the NER trained call), the card's name and
-power limit, and last {"ok": true, "device": {...}}. Any failed check
-exits non-zero.
+each with a kv_mask_call at the NER trained call; K5b at the full-width
+prefill call with a kv_mask_call at the masked D = 32 call), the card's
+name and power limit, and last {"ok": true, "device": {...}}. Any failed
+check exits non-zero.
 """
 
 from __future__ import annotations
@@ -95,8 +130,10 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 K1_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd.cu"
 # the key-padding branch the masked kernels replace (JAX's stock Pallas
-# flash_attention with segment ids on the TPU)
+# flash_attention with segment ids on the TPU), and the same stock kernel
+# at head dims that are not a multiple of 64, which K5b replaces
 K5A_REPLACES = "analytics_zoo_tpu/ops/attention.py:116"
+K5B_REPLACES = "analytics_zoo_tpu/ops/attention.py:116"
 K1_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:82"
 BWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd.cu"
 K2_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:209"
@@ -573,6 +610,152 @@ def backward_phase(torch, peaks, cases, seed, label):
     return checks
 
 
+# K5b: the forward kernel at head dims that are not a multiple of 64.
+# name, (b, h, lq, lk, d), dtype, causal, mask (a function of the rng, b
+# and lk; None: no mask), with_lse. "gen_full" is TinyGenLM's prefill at
+# Phi-2's widths (32 heads of 80, f32) in its top bucket and one of 512,
+# "gen_repo" the repo geometry's top bucket (2 heads of 16, f32);
+# "minilm_masked" MiniLM-L12-H384's heads (12 of 32) on a padded NER-like
+# batch with one left-padded row and one row with no real token
+K5B_CASES = [
+    ("gen_full", (1, 32, 2048, 2048, 80), "float32", True, None, False),
+    ("gen_full", (1, 32, 512, 512, 80), "float32", True, None, False),
+    ("gen_repo", (1, 2, 256, 256, 16), "float32", True, None, False),
+    ("bf16_d80", (8, 32, 1024, 1024, 80), "bfloat16", True, None, False),
+    ("minilm_masked", (32, 12, 128, 128, 32), "bfloat16", False,
+     lambda rng, b, lk: padding_mask(rng, b, lk, 2, left_rows=(2,),
+                                     zero_rows=(3,)), False),
+    ("d40", (2, 4, 256, 256, 40), "bfloat16", True, None, True),
+    ("d40", (2, 4, 256, 256, 40), "float32", True, None, True),
+]
+# the head dims K5b is built for: multiples of 8 up to 128 but not of 64
+K5B_HEAD_DIMS = [d for d in range(8, 129, 8) if d % 64]
+
+
+def k5b_phase(torch, peaks):
+    """K5b through the ``flash_attention`` wrapper against its plain
+    version on the card: every instantiation once ([2,2,128,d], causal
+    without a mask and non-causal with one, with its logsumexp, in bf16
+    and f32), then ``K5B_CASES``, each timed (CUDA events and profiler
+    device time) beside its plain version, SDPA (a yardstick; the port
+    never calls it) and its bound. Also checks the gates: a head dim
+    that is not a multiple of 8 raises NotImplementedError, and so does
+    a call that needs a gradient (K5b's backward is not ported). Returns
+    the cases' records."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.RandomState(5)
+
+    def make(shape, dtype):
+        return torch.from_numpy(
+            rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
+
+    def check(label, b, h, lq, lk, d, dt, causal, m, with_lse):
+        dtype = getattr(torch, dt)
+        q = make((b, h, lq, d), dtype)
+        k, v = make((b, h, lk, d), dtype), make((b, h, lk, d), dtype)
+        before = fa.flash_attention.small_d_launches
+        got = fa.flash_attention(q, k, v, causal, None, with_lse, m)
+        torch.cuda.synchronize()
+        if fa.flash_attention.small_d_launches != before + 1:
+            fail(f"K5b {label}: the wrapper did not count a K5b launch")
+        ref = fa.flash_attention_reference(q, k, v, causal, None, with_lse,
+                                           m)
+        out, lse = got if with_lse else (got, None)
+        ref_out, ref_lse = ref if with_lse else (ref, None)
+        if not torch.isfinite(out.float()).all():
+            fail(f"K5b {label}: non-finite output")
+        err, excess = _excess(out, ref_out, TOL[dt])
+        if not excess <= 0:
+            fail(f"K5b {label}: error above {TOL[dt]} * (1 + |ref|) "
+                 f"(max abs error {err})")
+        rec = {"max_abs_err": err, "tol": TOL[dt]}
+        if with_lse:
+            rec["lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
+            if not rec["lse_max_abs_err"] <= LSE_TOL[dt]:
+                fail(f"K5b {label}: lse error {rec['lse_max_abs_err']} > "
+                     f"{LSE_TOL[dt]}")
+        return q, k, v, rec
+
+    sweep = []
+    for d in K5B_HEAD_DIMS:
+        for dt in ("bfloat16", "float32"):
+            for masked in (False, True):
+                m = (torch.from_numpy(padding_mask(
+                    rng, 2, 128, 2, zero_rows=(1,))).cuda()
+                    if masked else None)
+                _, _, _, rec = check(f"d={d} {dt} mask={masked}", 2, 2,
+                                     128, 128, d, dt, not masked, m, True)
+                sweep.append(max(rec["max_abs_err"] / TOL[dt],
+                                 rec["lse_max_abs_err"] / LSE_TOL[dt]))
+    print(f"K5b: all {len(K5B_HEAD_DIMS)} head dims x bf16/f32 x "
+          f"mask/none match the plain version (largest error "
+          f"{max(sweep):.3g} of its tolerance)", flush=True)
+
+    x = make((1, 1, 128, 20), torch.float32)
+    try:
+        fa.flash_attention(x, x, x)
+        fail("K5b: head_dim 20 (not a multiple of 8) did not raise")
+    except NotImplementedError as e:
+        print(f"K5b: head_dim 20 raises: {str(e)[:80]}...", flush=True)
+    x = make((1, 2, 128, 16), torch.float32).requires_grad_()
+    try:
+        fa.flash_attention(x, x, x, True)
+        fail("K5b: a call that needs a gradient did not raise")
+    except NotImplementedError as e:
+        if "K5b backward" not in str(e):
+            fail(f"K5b: the gradient call raised without naming K5b "
+                 f"backward: {e}")
+    del x
+
+    checks = []
+    for name, (b, h, lq, lk, d), dt, causal, mask_of, with_lse in K5B_CASES:
+        kind = "bf16" if dt == "bfloat16" else "f32"
+        m = keep = None
+        if mask_of is not None:
+            m = torch.from_numpy(mask_of(rng, b, lk)).cuda()
+            keep = fa._visible(lq, lk, causal, m, m.device).expand(
+                b, 1, lq, lk)[:, 0]
+        q, k, v, rec = check(f"{name} {dt}", b, h, lq, lk, d, dt, causal, m,
+                             with_lse)
+        rec.update(case=name, shape=[b, h, lq, lk, d], dtype=dt,
+                   causal=causal)
+        if m is not None:
+            rec.update(real_keys=int(m.ne(0).sum()), keys=b * lk,
+                       rows_without_key=int((~keep.any(-1)).sum()) * h)
+        mk = fa._kernel_mask(m)
+        call = lambda: fa.flash_attention(q, k, v, causal, None, with_lse,
+                                          mk)
+        attn = None if m is None else m.bool()[:, None, None, :]
+        # SDPA aligns a causal diagonal top-left: equal at lq == lk
+        lib = lambda: sdpa(q, k, v, attn_mask=attn, is_causal=causal)
+        rec["ms"] = time_ms(torch, call, 20)
+        rec["device_ms"] = device_ms(torch, call)
+        rec["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_reference(
+            q, k, v, causal, None, with_lse, m), 3)
+        rec["library_ms"] = time_ms(torch, lib, 20)
+        rec["library_device_ms"] = device_ms(torch, lib)
+        rec["bound_ms"], rec["bound_by"] = bounds(
+            b, h, lq, lk, d, q.element_size(), causal, peaks[kind],
+            peaks["bw"], keep)["k1_lse" if with_lse else "k1"]
+        checks.append(rec)
+        print(f"K5b {name} {dt} {[b, h, lq, lk, d]} causal={causal}"
+              + (f" real keys {rec['real_keys']}/{rec['keys']}, rows "
+                 f"without a key {rec['rows_without_key']}"
+                 if m is not None else "")
+              + f" err={rec['max_abs_err']:.3g}"
+              + (f" lse_err={rec['lse_max_abs_err']:.3g}" if with_lse
+                 else "")
+              + f"; kernel {rec['ms']:.4f} ({_ms(rec['device_ms'])}) ms, "
+              f"plain {rec['plain_ms']:.4f}, sdpa {rec['library_ms']:.4f} "
+              f"({_ms(rec['library_device_ms'])}), bound "
+              f"{rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
+        del q, k, v
+    print(json.dumps({"k5b_checks": checks}), flush=True)
+    return checks
+
+
 def _pick(records, name, dt="bfloat16"):
     return next(r for r in records if r["case"] == name and r["dtype"] == dt)
 
@@ -614,6 +797,7 @@ KERNEL_GROUPS = (
     ("flash (K1-K3)", ("flash_fwd", "flash_bwd")),
     ("gemm", ("nvjet", "gemm", "cutlass", "Kernel2")),
     ("layer_norm", ("layer_norm", "GammaBeta")),
+    ("indexing (KV gathers)", ("index", "gather")),
     ("optimizer", ("multi_tensor_apply",)),
     ("copies and casts", ("copy_kernel", "Memcpy", "Memset")),
 )
@@ -653,7 +837,7 @@ def _print_rows(prof, n, wall, what, top=14) -> None:
 def _reset_launches(fa):
     for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
               fa.flash_attention_bwd_dkv):
-        w.launches = w.masked_launches = 0
+        w.launches = w.masked_launches = w.small_d_launches = 0
 
 
 def _launches(fa):
@@ -1153,6 +1337,254 @@ def ner_serving(torch, path, device="cuda", n_requests=64, seq=NER_SEQ,
                          masked=True, label="serve-ner", device=device)
 
 
+# TinyGenLM geometries served through launch() with a generation: block.
+# "repo": the launcher's documented default (scripts/perf_generation.py's
+# model, GEN_r01.json's traffic shape). "full": Phi-2's published widths
+# (microsoft/phi-2 config.json: hidden 2560, 32 heads of 80, 32 layers,
+# intermediate 10240, vocab 51200, 2048 positions) in TinyGenLM's own
+# block (pre-LN, learned positions, ReLU, no biases), f32, seeded weights
+GEN_REPO = {"model": dict(vocab=64, dim=32, heads=2, head_dim=16, layers=2,
+                          max_len=256, mlp_ratio=2, seed=0),
+            "slots": 8, "page_size": 16, "max_len": 256}
+GEN_FULL = {"model": dict(vocab=51200, dim=2560, heads=32, head_dim=80,
+                          layers=32, max_len=2048, mlp_ratio=4, seed=0),
+            "slots": 8, "page_size": 16, "max_len": 2048}
+# a full-width divergence from the reference at a top-1 - top-2 logit gap
+# below this is an f32 tie (the logits spread about 50)
+TIE_GAP = 1e-3
+
+
+def _hist(name):
+    """{label value: (count, sum)} of a registry histogram's series."""
+    from analytics_zoo_tpu_torch.obs.metrics import get_registry
+
+    values = get_registry().snapshot(with_buckets=False)[name]["values"]
+    return {label.partition("=")[2]: (v["count"], v["sum"])
+            for label, v in values.items()}
+
+
+def _gen_reference_check(torch, engine, prompts, streams, n_check,
+                         n_tokens, tie_gap, label):
+    """Streams against the port's cache-free ``reference_generate`` (the
+    first ``n_tokens`` of the first ``n_check`` requests). A divergence
+    prints the reference's top-1 - top-2 logit gap at that step; with
+    ``tie_gap`` a gap below it is reported as an f32 tie and that
+    stream's comparison stops there; any other divergence fails.
+    Returns (tokens compared, ties)."""
+    model, params = engine.model, engine.params
+    compared, ties = 0, []
+    for uri in sorted(prompts)[:n_check]:
+        ref = [int(t) for t in model.reference_generate(
+            params, prompts[uri], n_tokens)]
+        got = streams[uri]["toks"][:n_tokens]
+        i = next((j for j, (a, b) in enumerate(zip(got, ref)) if a != b),
+                 None)
+        compared += len(got) if i is None else i
+        if i is None:
+            continue
+        with torch.inference_mode():
+            prefix = np.concatenate([prompts[uri], ref[:i]]).astype(np.int64)
+            logits, _, _ = model.prefill(params, torch.as_tensor(
+                prefix[None], device=engine.device))
+            top = torch.topk(logits[0, -1].float(), 2).values
+            gap = float(top[0] - top[1])
+        print(f"{label}: {uri} diverges from the reference at token {i} "
+              f"(served {got[i]}, reference {ref[i]}); the reference's "
+              f"top-1 - top-2 logit gap there is {gap:.3g}", flush=True)
+        if tie_gap is None or not gap < tie_gap:
+            fail(f"{label}: {uri} is not token-exact against "
+                 f"reference_generate (gap {gap} at token {i})")
+        ties.append({"uri": uri, "token": i, "gap": gap})
+    return compared, ties
+
+
+def generation_phase(torch, label, block, n_requests, prompt_lens,
+                     max_tokens, n_check, check_tokens, tie_gap=None,
+                     seed=0):
+    """``n_requests`` synthetic generate requests (prompt lengths uniform
+    in ``prompt_lens``, tokens uniform over the vocabulary,
+    ``__max_tokens__`` ``max_tokens``) through the port's launch() with
+    ``block`` as its generation: block -> GenerationWorker ->
+    DecodeEngine -> PagedKVCache -> TinyGenLM, at most ``slots`` streams
+    outstanding (a bounded admission window, as
+    scripts/perf_generation.py drives the JAX package). Checks that
+    every stream gets contiguous chunks and one terminal chunk with
+    in-range tokens, that K5b launched once a layer for every prefill in
+    a bucket of 128 tokens or more (warm-up included), and the streams
+    against reference_generate. Then profiles the decode step with all
+    slots live at the longest prompts. Returns the summary."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    from analytics_zoo_tpu_torch.serving.generation import prefill_ladder
+    from analytics_zoo_tpu_torch.serving.launcher import launch
+
+    get_config().set("zoo.ops.attention_impl", "flash")
+    m = block["model"]
+    slots, layers = block["slots"], m["layers"]
+    rng = np.random.RandomState(seed)
+    prompts = {f"{label}{i:03d}": rng.randint(
+        0, m["vocab"], rng.randint(prompt_lens[0], prompt_lens[1] + 1)
+    ).astype(np.int32) for i in range(n_requests)}
+    ladder = prefill_ladder(block["page_size"], block["max_len"])
+    bucket = {u: next(b for b in ladder if b >= len(p))
+              for u, p in prompts.items()}
+    want_k5b = layers * (sum(b >= 128 for b in ladder)
+                         + sum(b >= 128 for b in bucket.values()))
+    prefill0, step0 = (_hist("zoo_generation_prefill_duration_seconds"),
+                       _hist("zoo_generation_decode_step_duration_seconds"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(fa)
+    # ---- main path: launch() -> GenerationWorker -> DecodeEngine ->
+    # PagedKVCache -> TinyGenLM (prefill through K5b) ----
+    t0 = time.perf_counter()
+    app = launch({"generation": block, "http": {"enabled": False}})
+    up_s = time.perf_counter() - t0
+    print(f"{label}: up in {up_s:.1f}s (seeded weights, warm-up of "
+          f"buckets {ladder})", flush=True)
+    try:
+        engine = app.gen_worker.engine
+        streams = {u: {"toks": [], "seqs": [], "t": [], "terminal": 0}
+                   for u in prompts}
+        order, sent, finished = sorted(prompts), {}, 0
+        t_start = time.perf_counter()
+        deadline = t_start + 900
+        while finished < n_requests:
+            while len(sent) < n_requests and len(sent) - finished < slots:
+                uri = order[len(sent)]
+                sent[uri] = time.perf_counter()
+                if not app.gen_input_queue.enqueue_generation(
+                        uri, prompts[uri], max_tokens=max_tokens):
+                    fail(f"{label}: enqueue refused {uri}")
+            item = app.output_queue.dequeue(timeout=1.0)
+            if time.perf_counter() > deadline:
+                fail(f"{label}: {finished}/{n_requests} streams finished "
+                     "in 900 s")
+            if item is None:
+                continue
+            now = time.perf_counter()
+            uri, tensors = item
+            rec = streams.get(uri)
+            if rec is None:
+                fail(f"{label}: a chunk for an unknown stream {uri}")
+            if "__error__" in tensors:
+                fail(f"{label} {uri}: error terminal "
+                     f"{np.asarray(tensors['__error__'])}")
+            rec["seqs"].append(int(np.asarray(tensors["__stream__"])))
+            rec["t"].append(now)
+            rec["toks"].extend(int(t) for t in np.asarray(
+                tensors.get("token", np.zeros(0, np.int32))).reshape(-1))
+            if "finish_reason" in tensors:
+                rec["terminal"] += 1
+                rec["reason"] = str(np.asarray(tensors["finish_reason"]))
+                finished += 1
+        wall = time.perf_counter() - t_start
+        torch.cuda.synchronize()
+        k5b = fa.flash_attention.small_d_launches
+        k1 = fa.flash_attention.launches - k5b
+        # ---- end of the main path ----
+        peak = torch.cuda.max_memory_allocated()
+        prefill1, step1 = (
+            _hist("zoo_generation_prefill_duration_seconds"),
+            _hist("zoo_generation_decode_step_duration_seconds"))
+        if not app.drain(deadline_ms=60000):
+            fail(f"{label}: the generation worker did not drain")
+        time.sleep(0.2)
+        extra = app.output_queue.dequeue(timeout=0.5)
+        if extra is not None:
+            fail(f"{label}: a chunk after every stream ended: {extra[0]}")
+        for uri, rec in streams.items():
+            if rec["terminal"] != 1 or rec["reason"] != "length":
+                fail(f"{label} {uri}: {rec['terminal']} terminal chunks "
+                     f"({rec.get('reason')})")
+            if rec["seqs"] != list(range(len(rec["seqs"]))):
+                fail(f"{label} {uri}: chunk numbers {rec['seqs']}")
+            if len(rec["toks"]) != max_tokens or not all(
+                    0 <= t < m["vocab"] for t in rec["toks"]):
+                fail(f"{label} {uri}: tokens {rec['toks']}")
+        if k5b != want_k5b or k1:
+            fail(f"{label}: K5b launched {k5b} times (want {layers} layers "
+                 f"x {want_k5b // layers} prefills in buckets >= 128, "
+                 f"warm-up included), K1 {k1}")
+        compared, ties = _gen_reference_check(
+            torch, engine, prompts, streams, n_check, check_tokens, tie_gap,
+            label)
+        print(f"{label}: {compared} tokens of {min(n_check, n_requests)} "
+              f"streams token-exact against reference_generate"
+              + (f", {len(ties)} f32 ties" if ties else ""), flush=True)
+        step_wall, step_device, gather_share = _profile_decode(
+            torch, engine, prompts, label)
+    finally:
+        app.stop()
+    ttft = [(r["t"][0] - sent[u]) * 1e3 for u, r in streams.items()]
+    gaps = [g * 1e3 for r in streams.values() for g in np.diff(r["t"])]
+    by_bucket = {}
+    for key, (count, total) in prefill1.items():
+        c0, s0 = prefill0.get(key, (0, 0.0))
+        if count > c0:
+            by_bucket[key] = {"prefills": count - c0,
+                              "mean_ms": (total - s0) / (count - c0) * 1e3}
+    steps = step1[""][0] - step0.get("", (0, 0.0))[0]
+    summary = {
+        "requests": n_requests, "prompt_lens": list(prompt_lens),
+        "max_tokens": max_tokens, "slots": slots, "layers": layers,
+        "traffic": "synthetic", "up_s": up_s, "wall_s": wall,
+        "tokens": n_requests * max_tokens,
+        "tokens_per_s": n_requests * max_tokens / wall,
+        "ttft_ms": {"p50": float(np.percentile(ttft, 50)),
+                    "p99": float(np.percentile(ttft, 99))},
+        "inter_token_ms": {"p50": float(np.percentile(gaps, 50)),
+                           "p99": float(np.percentile(gaps, 99))},
+        "decode_steps": steps,
+        "decode_step_wall_ms": (step1[""][1] - step0.get("", (0, 0.0))[1])
+        / max(steps, 1) * 1e3,
+        "decode_step_full_wall_ms": step_wall,
+        "decode_step_full_device_ms": step_device,
+        "decode_gather_share": gather_share,
+        "prefill_ms_by_bucket": by_bucket,
+        "k5b_launches": k5b, "k5b_launches_wanted": want_k5b,
+        "exact_tokens_compared": compared, "f32_ties": ties,
+        "kv_pool_bytes": engine.cache.stats()["bytes"],
+        "peak_mem_gib": peak / 2 ** 30,
+        "device": torch.cuda.get_device_name(0)}
+    print(f"{label}: " + json.dumps(summary), flush=True)
+    return summary
+
+
+def _profile_decode(torch, engine, prompts, label, iters=5):
+    """The decode step with every slot live (the longest prompts, a
+    budget that outlasts the window): host wall per step, device time by
+    kernel (torch.profiler), and the share of device time in the index
+    kernels that gather each slot's whole context from the pool."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    longest = sorted(prompts.values(), key=len)[-engine.num_slots:]
+    budget = 2 * iters + 4
+    slots = [engine.admit(p[:engine.max_len - budget], budget)[0]
+             for p in longest]
+    try:
+        engine.step()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            engine.step()
+        wall = (time.perf_counter() - t0) / iters
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                engine.step()
+    finally:
+        for s in slots:
+            engine.release(s)
+    _print_rows(prof, iters, wall, f"{label} decode step, "
+                f"{engine.num_slots} live slots")
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(t for _, t in rows)
+    gather = sum(t for k, t in rows if "index" in k or "gather" in k)
+    return wall * 1e3, busy / (iters * 1e3), gather / max(busy, 1e-9)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1207,6 +1639,15 @@ def main() -> None:
         runs.append(timed("NER serving", ner_serving, torch, ner_dir))
     runs += [squad["K1"], ner_fit["K1"]]
     k1_runs = [sum(r[i] for r in runs) for i in (0, 1)]
+    torch.cuda.empty_cache()
+    k5b = timed("K5b kernels", k5b_phase, torch, peaks)
+    gens = [timed("generation, repo geometry", generation_phase, torch, "gen",
+                  GEN_REPO, 500, (1, 240), 16, 500, 16),
+            timed("generation, Phi-2 widths", generation_phase, torch,
+                  "genfull", GEN_FULL, 32, (128, 2016), 32, 4, 16,
+                  tie_gap=TIE_GAP)]
+    k5b_full, k5b_masked = _pick(k5b, "gen_full", "float32"), _pick(
+        k5b, "minilm_masked")
 
     def mask_call(key, library_ms, library_device_ms):
         """A kernel at the NER trained call ([32,12,128,64] bf16 views
@@ -1272,7 +1713,20 @@ def main() -> None:
                 library_backward_device_ms=ner["sdpa_bwd_device_ms"])}
             for kname, replaces, key, kk in (
                 ("flash_attn_bwd_dq", K2_REPLACES, "k2", "K2"),
-                ("flash_attn_bwd_dkv", K3_REPLACES, "k3", "K3"))]}),
+                ("flash_attn_bwd_dkv", K3_REPLACES, "k3", "K3"))] + [{
+            # K5b at the full-width prefill call ([1,32,2048,80] f32,
+            # causal), launched by both generation phases' prefills
+            "name": "flash_attn_fwd_k5b", "route": "cuda",
+            "source": K1_SOURCE, "replaces": K5B_REPLACES,
+            "launches": sum(g["k5b_launches"] for g in gens),
+            **{key: k5b_full[key] for key in (
+                "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms",
+                "library_device_ms")},
+            "kv_mask_call": {key: k5b_masked[key] for key in (
+                "shape", "real_keys", "keys", "max_abs_err", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")}}]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,8 @@ def test_importing_the_port_loads_no_jax():
             "import analytics_zoo_tpu_torch.data\n"
             "import analytics_zoo_tpu_torch.common.triggers\n"
             "import analytics_zoo_tpu_torch.models.text.bert_squad\n"
+            "import analytics_zoo_tpu_torch.serving.generation\n"
+            "import analytics_zoo_tpu_torch.inference.kv_cache\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]\n"
             "assert not bad, bad\n")

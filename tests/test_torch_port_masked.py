@@ -349,11 +349,44 @@ class TestDispatchRoute:
         assert fa._kernel_mask(seen[0]) is seen[0]
 
     def test_only_k5b_raises(self, monkeypatch):
+        """The "k5b" route no longer raises in the forward: it calls
+        ``flash_attention`` (K5b on the card) with the key-padding mask;
+        only K5b's backward raises (``test_k5b_backward_raises``)."""
+        from analytics_zoo_tpu_torch.common.config import get_config
+
+        seen = {}
+
+        def spy(q, k, v, causal=False, scale=None, with_lse=False,
+                key_padding_mask=None):
+            seen.update(mask=key_padding_mask, causal=causal, d=q.shape[-1])
+            return q
+
+        monkeypatch.setattr(fa, "flash_attention", spy)
         monkeypatch.setattr(port_attention, "_flash_route", lambda *a: "k5b")
-        q, k, v, _, m, _ = _case("prefix", seed=12)
-        with pytest.raises(NotImplementedError, match="K5b"):
-            port_attention.dot_product_attention(
-                *_t(q, k, v), key_padding_mask=torch.from_numpy(m))
+        rng = np.random.RandomState(12)
+        q, k, v = (torch.from_numpy(rng.randn(2, 2, 128, 32).astype(
+            np.float32)) for _ in range(3))
+        mask = torch.from_numpy(_mask("prefix", 2, 128, seed=12))
+        get_config().set("zoo.ops.attention_impl", "flash")
+        try:
+            port_attention.dot_product_attention(q, k, v,
+                                                 key_padding_mask=mask,
+                                                 causal=True)
+        finally:
+            get_config().unset("zoo.ops.attention_impl")
+        assert seen["mask"] is mask and seen["causal"] and seen["d"] == 32
+
+    @pytest.mark.parametrize("d", [16, 32, 80])
+    def test_k5b_backward_raises(self, d):
+        """``FlashAttention`` at a K5b head dim off the CPU, with an
+        input that needs a gradient, raises naming K5b's backward before
+        any kernel runs (meta tensors stand in for the card's: the CPU
+        takes the plain versions, which have a backward)."""
+        q = torch.empty(1, 2, 128, d, device="meta", requires_grad=True)
+        with pytest.raises(NotImplementedError, match="K5b backward"):
+            fa.flash_attention(q, q, q, True)
+        with pytest.raises(NotImplementedError, match="K5b backward"):
+            fa.FlashAttention.apply(q, q, q, False, None, None)
 
 
 # -------------------------------------------------------- BERT-NER slice --

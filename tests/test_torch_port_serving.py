@@ -118,7 +118,7 @@ class TestLaunchServesBridgedBERT:
     @pytest.mark.parametrize("config", [
         {"http": {"enabled": True}},
         {"http": {"enabled": False}, "data": {"queue": "tcp"}},
-        {"http": {"enabled": False}, "generation": {}},
+        {"http": {"enabled": False}, "generation": {"role": "prefill"}},
         {"http": {"enabled": False}, "shard": {"mode": "tp"}},
     ])
     def test_unported_options_raise(self, config):
