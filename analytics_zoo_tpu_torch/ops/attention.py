@@ -1,5 +1,5 @@
 """Attention dispatch: the flash-attention CUDA kernels (K1 forward, K2
-and K3 backward, K5b forward at other head dims) on the card, plain
+and K3 backward, K5b both ways at other head dims) on the card, plain
 PyTorch on the CPU.
 
 The counterpart of ``analytics_zoo_tpu/ops/attention.py``, with the same
@@ -24,11 +24,17 @@ the einsum path's values at every row, including a row that sees no key
 
 Where the reference takes the stock kernel at a head_dim that is not a
 multiple of 64 (``d <= 128``, causal only at ``lq == lk``, with or
-without a key-padding mask; TinyGenLM's prefill), the port launches K5b,
-the same forward kernel instantiated at that head dim, through
-``flash_attention``, with the einsum path's semantics at every row as
-for K5a. K5b's backward is not ported: under autograd on CUDA such a
-call raises ``NotImplementedError`` naming it.
+without a key-padding mask; TinyGenLM's prefill, a MiniLM-sized BERT's
+fine-tune), the port launches K5b, the same kernels instantiated at that
+head dim, through ``flash_attention``: K1 forward, and under autograd
+K1-lse, K2 and K3, with the einsum path's semantics at every row as for
+K5a.
+
+At a head dim above 128 the reference runs its own Pallas kernel when D
+is a multiple of 64 (192, 256), and the einsum path otherwise. The
+port's kernels stop at 128, so it takes the einsum path at every such D,
+with the same values; K1-K3 at D in {192, 256} are owed (ROADMAP
+section 2).
 """
 
 from __future__ import annotations
@@ -81,16 +87,21 @@ def _einsum_attention(q, k, v, mask=None, causal: bool = False,
 def _flash_route(impl: str, on_cuda: bool, l: int, lk: int, d: int,
                  causal: bool, has_mask: bool, dropout_rate: float
                  ) -> Optional[str]:
-    """Where the reference would take a flash kernel on its accelerator:
-    "kernels" (K1-K3, with or without a key-padding mask), "k5b" (the
-    stock kernel at head_dim % 64 != 0: K5b's forward) or None (the
-    einsum path)."""
+    """Where the reference would take a flash kernel on its accelerator
+    and the port has one: "kernels" (K1-K3, with or without a key-padding
+    mask), "k5b" (the stock kernel at head_dim % 64 != 0: K5b, forward
+    and backward) or None (the einsum path)."""
     if (impl == "einsum" or has_mask or dropout_rate != 0.0
             or not on_cuda or l % 128 or lk % 128):
         return None
+    if d > 128:
+        # the reference's Pallas kernel at D in {192, 256}: K1-K3 there
+        # are the ROADMAP section 2 row "K1-K3 at D in {192, 256}", still
+        # to port; the einsum path gives the same values until then
+        return None
     if d % 64 == 0:
         return "kernels"
-    if d <= 128 and (not causal or l == lk):
+    if not causal or l == lk:
         return "k5b"
     return None
 
@@ -102,8 +113,8 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
                           dropout_rng: Optional[torch.Generator] = None):
     """q, k, v: [B, H, L, D]. Returns [B, H, Lq, D]. ``dropout_rng`` is a
     ``torch.Generator`` on the tensors' device, required when
-    ``dropout_rate > 0``. The flash path is differentiable at head dims
-    64 and 128: under autograd on CUDA it runs K1 with logsumexp forward
+    ``dropout_rate > 0``. The flash path is differentiable at every head
+    dim it takes: under autograd on CUDA it runs K1 with logsumexp forward
     and K2/K3 backward (``flash_attention.FlashAttention``), with
     ``key_padding_mask`` when one is given."""
     d = q.shape[-1]
@@ -127,7 +138,7 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
                          mask is not None, dropout_rate)
     if route is not None:
         # "kernels": K1 (K1-lse, K2, K3 under autograd); "k5b": the same
-        # forward at this head dim, whose backward raises
+        # kernels at this head dim
         from analytics_zoo_tpu_torch.ops.flash_attention import (
             flash_attention)
 

@@ -1,4 +1,7 @@
-// Flash-attention backward (K2 dQ, K3 dK/dV) for Hopper, sm_90a.
+// Flash-attention backward (K2 dQ, K3 dK/dV; K5b backward at the other
+// head dims) for Hopper, sm_90a: the kernel templates. K2 is instantiated
+// and exported by flash_attn_bwd_dq.cu, K3 by flash_attn_bwd_dkv.cu, so the
+// two translation units build side by side.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
 // (:209-246, launched at :327) and `_flash_dkv_kernel` (:249-292, launched
@@ -22,6 +25,21 @@
 // rows of a (b, h) (n_empty follows from the first real key), so K3 adds
 // their share as one vector, E = (1/Lk) * sum of their dO rows, to every
 // key's dV; the q-tile loop gives them P = 0 like any masked pair.
+//
+// Head dims (K5b backward). Besides D in {64, 128} (K2, K3), the same
+// templates take every D <= 128 that is a multiple of 8: the backward of the
+// stock-kernel branch of analytics_zoo_tpu/ops/attention.py (:116-127),
+// which on the TPU trains through JAX's stock Pallas flash_attention (its
+// own dQ and dK/dV kernels) at head_dim % 64 != 0 (a MiniLM-sized BERT at
+// D = 32). The bf16 products that contract over D (S = Q K^T, dP = dO V^T
+// in K2, S^T = K Q^T, dP^T = V dO^T in K3) run in k-steps of 16, so at
+// D = 8 (mod 16) the last step's upper half is zero in both fragments and
+// never read: the smem rows' columns D..D+7 are padding (kPad) and hold
+// garbage, which must not meet a zero as 0 * NaN. The products whose N side
+// is D (dQ, dK, dV) run in n-blocks of 8 and need nothing. K2's delta takes
+// a row's 8-element chunks in turn over two threads, so no read passes D.
+// The f32 path gives each of 8 threads D/8 dimensions of a row. Each D is
+// its own instantiation, so the register arrays stay sized to it.
 //
 // Design. Pallas ran each kernel as a grid whose last axis was a sequential
 // accumulation in VMEM scratch. Here a thread block owns one output tile and
@@ -67,16 +85,24 @@
 // pipelining), mma.sync rather than wgmma, scalar gathers for the
 // row-contracted B fragments (ldmatrix.trans would do it in one instruction),
 // and each K/V tile (K2) or Q/dO tile (K3) is re-read from L2 by every block
-// of its (b, h). wgmma, TMA and a producer warp are later work.
+// of its (b, h). wgmma, TMA and a producer warp are later work. At small D
+// (32 for MiniLM) a pair carries the same exp, mask and rounding work for
+// 4x fewer flops than at 64, so the kernels sit further from their byte
+// bound there.
 //
-// Build (plain C interface, loaded with ctypes):
+// Build (plain C interface, loaded with ctypes), one library a source:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o libzoo_flash_attn_bwd.so flash_attn_bwd.cu
+//        -Xcompiler -fPIC -o libzoo_flash_attn_bwd_dq.so flash_attn_bwd_dq.cu
+// and the same for flash_attn_bwd_dkv.cu.
+
+#pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -170,17 +196,32 @@ __device__ void empty_rows_dv(float* e, int* s_first, const uint8_t* mrow,
   __syncthreads();
 }
 
-// A fragment (16 rows x 16 columns, slice c of D) of a row-major smem tile
-// whose row `0` is `t`
-template <int LD>
+// whether k-step c has an upper half inside D (at D = 8 mod 16 the last
+// one does not: its columns D..D+7 are smem padding, taken as zeros)
+template <int D>
+__device__ __forceinline__ bool upper_in_d(int c) { return c * 16 + 8 < D; }
+
+// A fragment (16 rows x 16 columns, k-step c of D) of a row-major smem tile
+// whose row `0` is `t`; zeros past D
+template <int LD, int D>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint16_t* t,
                                        int g, int t4, int c) {
   const uint16_t* pa = t + g * LD + c * 16 + t4 * 2;
   const uint16_t* pb = pa + 8 * LD;
   a[0] = ld32(pa);
   a[1] = ld32(pb);
-  a[2] = ld32(pa + 8);
-  a[3] = ld32(pb + 8);
+  a[2] = upper_in_d<D>(c) ? ld32(pa + 8) : 0u;
+  a[3] = upper_in_d<D>(c) ? ld32(pb + 8) : 0u;
+}
+
+// the B fragment's two registers of a product contracting over D whose B
+// rows (n) are the rows of a smem tile: `r` points at row n, column
+// c * 16 + t4 * 2; zeros past D
+template <int D>
+__device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1,
+                                            const uint16_t* r, int c) {
+  b0 = ld32(r);
+  b1 = upper_in_d<D>(c) ? ld32(r + 8) : 0u;
 }
 
 // B fragment of a product contracting down the rows of a smem tile: k runs
@@ -215,6 +256,8 @@ constexpr size_t bf16_smem_bytes() {
 template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16_kernel(const Params p) {
+  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
+  constexpr int kSteps = (D + 15) / 16;  // k-steps of the products over D
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char zoo_smem[];
   uint16_t* sQ = reinterpret_cast<uint16_t*>(zoo_smem);
@@ -250,14 +293,17 @@ flash_bwd_dq_bf16_kernel(const Params p) {
   stage<D, LD>(sDO, dout + q0 * p.do_sl, p.do_sl, kTile, tid);
   __syncthreads();
   {
-    // delta = rowsum(dO * O) in f32: two threads per row, D/2 each
+    // delta = rowsum(dO * O) in f32: two threads per row, taking its
+    // 8-element chunks in turn (at D = 8 mod 16 the second has one fewer)
     const int r = tid >> 1;
     const int half = tid & 1;
-    const uint16_t* orow = o + (q0 + r) * p.o_sl + half * (D / 2);
-    const uint16_t* drow = sDO + r * LD + half * (D / 2);
+    const uint16_t* orow = o + (q0 + r) * p.o_sl;
+    const uint16_t* drow = sDO + r * LD;
     float acc = 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 2; c += 8) {
+    for (int c0 = 0; c0 < D; c0 += 16) {
+      const int c = c0 + half * 8;
+      if (c >= D) break;
       const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
       const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
       const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -315,16 +361,18 @@ flash_bwd_dq_bf16_kernel(const Params p) {
       dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
     }
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
+    for (int c = 0; c < kSteps; ++c) {
       uint32_t qa[4], da[4];
-      load_a<LD>(qa, sQ + row0 * LD, g, t4, c);
-      load_a<LD>(da, sDO + row0 * LD, g, t4, c);
+      load_a<LD, D>(qa, sQ + row0 * LD, g, t4, c);
+      load_a<LD, D>(da, sDO + row0 * LD, g, t4, c);
 #pragma unroll
       for (int n = 0; n < kTile / 8; ++n) {
-        const uint16_t* kr = sK + (n * 8 + g) * LD + c * 16 + t4 * 2;
-        const uint16_t* vr = sV + (n * 8 + g) * LD + c * 16 + t4 * 2;
-        mma_16816(s[n], qa, ld32(kr), ld32(kr + 8));
-        mma_16816(dp[n], da, ld32(vr), ld32(vr + 8));
+        const int at = (n * 8 + g) * LD + c * 16 + t4 * 2;
+        uint32_t b0, b1;
+        load_b_cols<D>(b0, b1, sK + at, c);
+        mma_16816(s[n], qa, b0, b1);
+        load_b_cols<D>(b0, b1, sV + at, c);
+        mma_16816(dp[n], da, b0, b1);
       }
     }
 
@@ -377,6 +425,8 @@ flash_bwd_dq_bf16_kernel(const Params p) {
 template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_bf16_kernel(const Params p) {
+  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
+  constexpr int kSteps = (D + 15) / 16;  // k-steps of the products over D
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char zoo_smem[];
   uint16_t* sK = reinterpret_cast<uint16_t*>(zoo_smem);
@@ -464,16 +514,18 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
       dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
     }
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
+    for (int c = 0; c < kSteps; ++c) {
       uint32_t ka_f[4], va_f[4];
-      load_a<LD>(ka_f, sK + row0 * LD, g, t4, c);
-      load_a<LD>(va_f, sV + row0 * LD, g, t4, c);
+      load_a<LD, D>(ka_f, sK + row0 * LD, g, t4, c);
+      load_a<LD, D>(va_f, sV + row0 * LD, g, t4, c);
 #pragma unroll
       for (int n = 0; n < kTile / 8; ++n) {
-        const uint16_t* qr = sQ + (n * 8 + g) * LD + c * 16 + t4 * 2;
-        const uint16_t* dr = sDO + (n * 8 + g) * LD + c * 16 + t4 * 2;
-        mma_16816(s[n], ka_f, ld32(qr), ld32(qr + 8));
-        mma_16816(dp[n], va_f, ld32(dr), ld32(dr + 8));
+        const int at = (n * 8 + g) * LD + c * 16 + t4 * 2;
+        uint32_t b0, b1;
+        load_b_cols<D>(b0, b1, sQ + at, c);
+        mma_16816(s[n], ka_f, b0, b1);
+        load_b_cols<D>(b0, b1, sDO + at, c);
+        mma_16816(dp[n], va_f, b0, b1);
       }
     }
 
@@ -557,6 +609,7 @@ __device__ __forceinline__ void stage_f32(float (*t)[D], const float* src,
 template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32_kernel(const Params p) {
+  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
   constexpr int DP = D / 8;  // dimensions per thread
   __shared__ __align__(16) float sK[kFmaTile][D];
   __shared__ __align__(16) float sV[kFmaTile][D];
@@ -626,6 +679,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
 template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_f32_kernel(const Params p) {
+  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
   constexpr int DP = D / 8;
   __shared__ __align__(16) float sQ[kFmaTile][D];
   __shared__ __align__(16) float sDO[kFmaTile][D];
@@ -718,140 +772,38 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
   return cudaGetLastError();
 }
 
-int check(int lq, int lk, int batch, int heads, int causal) {
+// 0, or 1000 + n for an argument the kernels do not take
+int check(int dtype, int lq, int lk, int batch, int heads, int causal) {
   if (lq % kTile || lk % kTile) return 1001;
   if (causal && lq > lk) return 1002;
   if (batch * heads > 65535) return 1003;
+  if (dtype != 0 && dtype != 1) return 1005;
   return 0;
 }
 
+// fn(std::integral_constant<int, D>) for head dim d: K2/K3 at 64 and 128,
+// K5b backward at the other multiples of 8 up to 128; 1004 for any other d
+template <typename Fn>
+int with_head_dim(int d, Fn&& fn) {
+  switch (d) {
+    case 8: return fn(std::integral_constant<int, 8>{});
+    case 16: return fn(std::integral_constant<int, 16>{});
+    case 24: return fn(std::integral_constant<int, 24>{});
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 40: return fn(std::integral_constant<int, 40>{});
+    case 48: return fn(std::integral_constant<int, 48>{});
+    case 56: return fn(std::integral_constant<int, 56>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 72: return fn(std::integral_constant<int, 72>{});
+    case 80: return fn(std::integral_constant<int, 80>{});
+    case 88: return fn(std::integral_constant<int, 88>{});
+    case 96: return fn(std::integral_constant<int, 96>{});
+    case 104: return fn(std::integral_constant<int, 104>{});
+    case 112: return fn(std::integral_constant<int, 112>{});
+    case 120: return fn(std::integral_constant<int, 120>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    default: return 1004;
+  }
+}
+
 }  // namespace
-
-// K2. dtype: 0 = float32, 1 = bfloat16. Writes dq and delta ([B*H, Lq] f32,
-// contiguous). mask: [B, Lk] bytes (nonzero = real key) with batch stride
-// mask_sb, or null for none. Returns a cudaError_t (0 = launched); 1000 + n
-// flags an argument the kernel does not take.
-extern "C" int zoo_flash_attn_bwd_dq(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq,
-    int dtype, int batch, int heads, int lq, int lk, int d,
-    long long q_sb, long long q_sh, long long q_sl,
-    long long k_sb, long long k_sh, long long k_sl,
-    long long v_sb, long long v_sh, long long v_sl,
-    long long o_sb, long long o_sh, long long o_sl,
-    long long do_sb, long long do_sh, long long do_sl,
-    long long dq_sb, long long dq_sh, long long dq_sl,
-    const void* mask, long long mask_sb,
-    float scale, int causal, void* stream) {
-  const int bad = check(lq, lk, batch, heads, causal);
-  if (bad) return bad;
-  Params p = {};
-  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.mask_sb = mask_sb;
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<float*>(delta);
-  p.dq = dq;
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
-  p.do_sb = do_sb; p.do_sh = do_sh; p.do_sl = do_sl;
-  p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_sl = dq_sl;
-  p.h = heads; p.lq = lq; p.lk = lk;
-  p.scale = scale;
-  p.scale_log2 = scale * kLog2e;
-  p.causal = causal;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool masked = mask != nullptr;  // the kMask instantiation or not
-  if (dtype == 1) {
-    const dim3 grid(lq / kTile, batch * heads);
-    if (d == 64) {
-      constexpr size_t smem = bf16_smem_bytes<64>();
-      return masked ? launch(flash_bwd_dq_bf16_kernel<64, true>, grid, smem, p, s)
-                    : launch(flash_bwd_dq_bf16_kernel<64, false>, grid, smem, p, s);
-    }
-    if (d == 128) {
-      constexpr size_t smem = bf16_smem_bytes<128>();
-      return masked ? launch(flash_bwd_dq_bf16_kernel<128, true>, grid, smem, p, s)
-                    : launch(flash_bwd_dq_bf16_kernel<128, false>, grid, smem, p, s);
-    }
-    return 1004;
-  }
-  if (dtype == 0) {
-    const dim3 grid(lq / kFmaRows, batch * heads);
-    if (d == 64) {
-      return masked ? launch(flash_bwd_dq_f32_kernel<64, true>, grid, 0, p, s)
-                    : launch(flash_bwd_dq_f32_kernel<64, false>, grid, 0, p, s);
-    }
-    if (d == 128) {
-      return masked ? launch(flash_bwd_dq_f32_kernel<128, true>, grid, 0, p, s)
-                    : launch(flash_bwd_dq_f32_kernel<128, false>, grid, 0, p, s);
-    }
-    return 1004;
-  }
-  return 1005;
-}
-
-// K3. Reads the delta K2 wrote; writes dk and dv.
-extern "C" int zoo_flash_attn_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv,
-    int dtype, int batch, int heads, int lq, int lk, int d,
-    long long q_sb, long long q_sh, long long q_sl,
-    long long k_sb, long long k_sh, long long k_sl,
-    long long v_sb, long long v_sh, long long v_sl,
-    long long do_sb, long long do_sh, long long do_sl,
-    long long dk_sb, long long dk_sh, long long dk_sl,
-    long long dv_sb, long long dv_sh, long long dv_sl,
-    const void* mask, long long mask_sb,
-    float scale, int causal, void* stream) {
-  const int bad = check(lq, lk, batch, heads, causal);
-  if (bad) return bad;
-  Params p = {};
-  p.q = q; p.k = k; p.v = v; p.dout = dout;
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.mask_sb = mask_sb;
-  p.lse = static_cast<const float*>(lse);
-  p.delta = const_cast<float*>(static_cast<const float*>(delta));
-  p.dk = dk; p.dv = dv;
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
-  p.do_sb = do_sb; p.do_sh = do_sh; p.do_sl = do_sl;
-  p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_sl = dk_sl;
-  p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_sl = dv_sl;
-  p.h = heads; p.lq = lq; p.lk = lk;
-  p.scale = scale;
-  p.scale_log2 = scale * kLog2e;
-  p.causal = causal;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool masked = mask != nullptr;  // the kMask instantiation or not
-  if (dtype == 1) {
-    const dim3 grid(lk / kTile, batch * heads);
-    if (d == 64) {
-      constexpr size_t smem = bf16_smem_bytes<64>();
-      return masked ? launch(flash_bwd_dkv_bf16_kernel<64, true>, grid, smem, p, s)
-                    : launch(flash_bwd_dkv_bf16_kernel<64, false>, grid, smem, p, s);
-    }
-    if (d == 128) {
-      constexpr size_t smem = bf16_smem_bytes<128>();
-      return masked ? launch(flash_bwd_dkv_bf16_kernel<128, true>, grid, smem, p, s)
-                    : launch(flash_bwd_dkv_bf16_kernel<128, false>, grid, smem, p, s);
-    }
-    return 1004;
-  }
-  if (dtype == 0) {
-    const dim3 grid(lk / kFmaRows, batch * heads);
-    if (d == 64) {
-      return masked ? launch(flash_bwd_dkv_f32_kernel<64, true>, grid, 0, p, s)
-                    : launch(flash_bwd_dkv_f32_kernel<64, false>, grid, 0, p, s);
-    }
-    if (d == 128) {
-      return masked ? launch(flash_bwd_dkv_f32_kernel<128, true>, grid, 0, p, s)
-                    : launch(flash_bwd_dkv_f32_kernel<128, false>, grid, 0, p, s);
-    }
-    return 1004;
-  }
-  return 1005;
-}

@@ -1,15 +1,17 @@
-"""Flash attention, forward (K1, and K5b at head dims that are not a
-multiple of 64) and backward (K2 dQ, K3 dK/dV): hand-written CUDA kernels
-for Hopper, and their gradient (K4).
+"""Flash attention, forward (K1) and backward (K2 dQ, K3 dK/dV), and K5b
+(both directions at head dims that are not a multiple of 64): hand-written
+CUDA kernels for Hopper, and their gradient (K4).
 
 The counterpart of ``analytics_zoo_tpu/ops/pallas_attention.py``: exact
 ``softmax(scale * Q K^T) V`` on ``[B, H, L, D]``, causal mask aligned
 bottom-right (offset ``lk - lq``), optional per-row logsumexp, and the
 backward that rebuilds the probabilities from that logsumexp. The
-kernels live in ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
-(design notes there); they are compiled with ``nvcc`` for ``sm_90a`` at
-first use into ``build/`` at the repository root (a per-user cache for an
-installed package) and loaded through ``ctypes``.
+kernels live in ``csrc/flash_attn_fwd.cu`` and in
+``csrc/flash_attn_bwd.cuh`` (design notes there), whose K2 and K3 are
+built by ``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu``;
+each source is compiled with ``nvcc`` for ``sm_90a`` at first use into
+``build/`` at the repository root (a per-user cache for an installed
+package), side by side, and loaded through ``ctypes``.
 
 Every function also takes ``key_padding_mask`` (``[B, Lk]``, nonzero =
 real token, any pattern): the counterpart of the key-padding branch that
@@ -34,19 +36,19 @@ tensor to its kernel; there is no fallback between the two.
 ``torch.autograd.Function``: K1 with logsumexp forward, K2 then K3
 backward) whenever autograd is recording and an input needs a gradient.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, and
-those given a key-padding mask in ``<wrapper>.masked_launches``;
-``flash_attention.small_d_launches`` counts the forward's launches at a
-head dim that is not a multiple of 64 (K5b).
+those given a key-padding mask in ``<wrapper>.masked_launches``, and
+those at a head dim that is not a multiple of 64 (K5b) in
+``<wrapper>.small_d_launches``.
 
 K5b is the counterpart of the reference's stock-kernel branch at such
 head dims (``analytics_zoo_tpu/ops/attention.py:116``: JAX's stock Pallas
-``flash_attention`` for ``d <= 128``, TinyGenLM's prefill at D = 16): the
-same forward source, instantiated at every multiple of 8 up to 128. Its
-backward (the stock kernel's own dQ and dK/dV) is not ported: a call
-that needs a gradient at such D on CUDA raises ``NotImplementedError``.
+``flash_attention`` for ``d <= 128``, with its own dQ and dK/dV behind
+its custom_vjp; TinyGenLM's prefill at D = 16, a MiniLM-sized BERT's
+fine-tune at D = 32): the same sources, K1 and K2/K3 instantiated at
+every multiple of 8 up to 128.
 
-Shapes the kernels take: D a multiple of 8 up to 128 for the forward,
-D in {64, 128} for the backward; L and Lk multiples of ``TILE`` (64);
+Shapes the kernels take: D a multiple of 8 up to 128, in both
+directions; L and Lk multiples of ``TILE`` (64);
 f32 or bf16; the last dimension contiguous and 16-byte aligned rows
 (other strides are free, so q/k/v may be views into a fused qkv
 projection); a key-padding mask of ``[B, Lk]`` on the same device, of
@@ -71,15 +73,13 @@ import numpy as np
 import torch
 
 TILE = 64
-# head dims of the backward kernels (K2, K3); the forward takes every
-# multiple of 8 up to 128
-BWD_HEAD_DIMS = (64, 128)
 # the logsumexp reported for a query row that sees no key
 EMPTY_LSE = -1e30
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SRC = _CSRC / "flash_attn_fwd.cu"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
+# headers the sources include: part of what a build depends on
+_HEADERS = tuple(sorted(_CSRC.glob("*.cuh")))
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -91,9 +91,9 @@ _TAIL = [_P, _L, ctypes.c_float, _I, _P]
 _ENTRY_POINTS = {
     "zoo_flash_attn_fwd": ("flash_attn_fwd",
                            [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
-    "zoo_flash_attn_bwd_dq": ("flash_attn_bwd",
+    "zoo_flash_attn_bwd_dq": ("flash_attn_bwd_dq",
                               [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
-    "zoo_flash_attn_bwd_dkv": ("flash_attn_bwd",
+    "zoo_flash_attn_bwd_dkv": ("flash_attn_bwd_dkv",
                                [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
 }
 
@@ -257,16 +257,16 @@ def _nvcc() -> str:
 
 def build_kernels() -> Dict[str, ctypes.CDLL]:
     """Compile every ``csrc/*.cu`` for sm_90a (once per content of all the
-    sources together; one ``nvcc`` per source, run side by side) and load
-    them. Returns ``{source stem: library}``. Raises if ``nvcc`` is
-    missing or fails."""
+    sources and headers together; one ``nvcc`` per source, run side by
+    side) and load them. Returns ``{source stem: library}``. Raises if
+    ``nvcc`` is missing or fails."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
         nvcc = _nvcc()
         digest = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
-        for src in _SOURCES:
+        for src in _SOURCES + _HEADERS:
             digest.update(src.name.encode() + b"\0" + src.read_bytes())
         tag = digest.hexdigest()[:12]
         build_dir = _build_dir()
@@ -321,10 +321,9 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
                          f"(strides {tuple(t.stride())})")
 
 
-def _check_head_dim(d: int, backward: bool) -> None:
-    """Raise unless a kernel covers head dim ``d``: the forward every
-    multiple of 8 up to 128 (K1 at 64 and 128, K5b the rest), the
-    backward 64 and 128."""
+def _check_head_dim(d: int) -> None:
+    """Raise unless a kernel covers head dim ``d``, in both directions:
+    every multiple of 8 up to 128 (K1-K3 at 64 and 128, K5b the rest)."""
     if d > 128:
         raise ValueError(f"flash kernel: head_dim {d} > 128")
     if d % 8:
@@ -332,17 +331,11 @@ def _check_head_dim(d: int, backward: bool) -> None:
             f"flash kernel at head_dim {d}: K5b covers multiples of 8 up "
             "to 128 (16-byte rows); other head dims have no kernel yet "
             "(ROADMAP section 2)")
-    if backward and d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash attention backward at head_dim {d} (not 64 or 128) is "
-            "the stock kernel's backward, K5b backward, which the PyTorch "
-            "port has not ported yet (ROADMAP section 2); set "
-            "zoo.ops.attention_impl=einsum to train at this head dim")
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, mask: Optional[torch.Tensor] = None,
-                  backward: bool = False, **more: torch.Tensor) -> None:
+                  **more: torch.Tensor) -> None:
     b, h, lq, d = q.shape
     lk = k.shape[2]
     tensors = dict(q=q, k=k, v=v, **more)
@@ -360,7 +353,7 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, h, lk, d) or v.shape != k.shape:
         raise ValueError(f"flash kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    _check_head_dim(d, backward)
+    _check_head_dim(d)
     if lq % TILE or lk % TILE:
         raise ValueError(f"flash kernel: seq lens ({lq},{lk}) must be "
                          f"multiples of {TILE}")
@@ -459,8 +452,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_bwd_dq_reference(q, k, v, o, lse, do, causal,
                                                 scale, key_padding_mask)
     fn = _entry("zoo_flash_attn_bwd_dq")
-    _check_inputs(q, k, v, causal, key_padding_mask, backward=True, o=o,
-                  do=do, lse=lse)
+    _check_inputs(q, k, v, causal, key_padding_mask, o=o, do=do, lse=lse)
     mask = _kernel_mask(key_padding_mask)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -475,7 +467,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
             _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash dq kernel launch failed: code {rc}")
-    _count(flash_attention_bwd_dq, mask)
+    _count(flash_attention_bwd_dq, mask, d)
     return dq, delta
 
 
@@ -493,8 +485,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                                                  causal, scale,
                                                  key_padding_mask)
     fn = _entry("zoo_flash_attn_bwd_dkv")
-    _check_inputs(q, k, v, causal, key_padding_mask, backward=True, do=do,
-                  lse=lse, delta=delta)
+    _check_inputs(q, k, v, causal, key_padding_mask, do=do, lse=lse,
+                  delta=delta)
     mask = _kernel_mask(key_padding_mask)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -509,7 +501,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
             _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash dkv kernel launch failed: code {rc}")
-    _count(flash_attention_bwd_dkv, mask)
+    _count(flash_attention_bwd_dkv, mask, d)
     return dk, dv
 
 
@@ -529,9 +521,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
 class FlashAttention(torch.autograd.Function):
     """K4, the counterpart of ``pallas_flash_attention_fwd``'s custom_vjp:
     forward K1 with logsumexp (saving q, k, v, o, lse and the key-padding
-    mask, which takes no gradient), backward K2 then K3. On CPU tensors
-    the same wiring runs the plain versions. On CUDA at a head dim K2 and
-    K3 do not take (K5b's), it raises before the forward runs."""
+    mask, which takes no gradient), backward K2 then K3, at every head
+    dim the kernels take (K5b's included). On CPU tensors the same wiring
+    runs the plain versions. On CUDA at a head dim no kernel takes, it
+    raises before the forward runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: Optional[float],
@@ -541,8 +534,8 @@ class FlashAttention(torch.autograd.Function):
             out, lse = flash_attention_reference(q, k, v, causal, scale,
                                                  True, mask)
         else:
-            # K2 and K3 must take this head dim before K1-lse runs
-            _check_head_dim(q.shape[-1], backward=True)
+            # raise on a head dim no kernel takes before K1-lse builds
+            _check_head_dim(q.shape[-1])
             out, lse = _launch(q, k, v, causal, scale, True, mask)
         ctx.save_for_backward(q, k, v, out, lse, mask)
         ctx.causal, ctx.scale = causal, scale
@@ -581,7 +574,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # kernel launches of each wrapper, those of them given a mask, and those
-# at a head dim that is not a multiple of 64 (K5b; the forward's only)
+# at a head dim that is not a multiple of 64 (K5b, forward and backward)
 for _wrapper in (flash_attention, flash_attention_bwd_dq,
                  flash_attention_bwd_dkv):
     _wrapper.launches = 0

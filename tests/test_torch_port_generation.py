@@ -214,7 +214,7 @@ class TestK5bAttention:
     @pytest.mark.parametrize("d", [20, 100])
     def test_head_dim_not_a_multiple_of_8_raises(self, d):
         with pytest.raises(NotImplementedError, match="multiples of 8"):
-            fa._check_head_dim(d, backward=False)
+            fa._check_head_dim(d)
 
 
 # ---------------------------------------------------------------- model --

@@ -1,5 +1,6 @@
-"""PyTorch port, package rules: the port and ``chip_smoke.py`` import
-nothing of JAX or of the JAX package; entry points default to CUDA and
+"""PyTorch port, package rules: the port, ``chip_smoke.py`` and
+``scripts/compare_port_commits.py`` (both run where there is no JAX)
+import nothing of JAX or of the JAX package; entry points default to CUDA and
 raise without a GPU; K1's build raises without ``nvcc`` instead of
 handing back the plain result; both packages declare the same config
 keys."""
@@ -20,7 +21,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex",
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "scripts" / "compare_port_commits.py"]
     assert len(files) > 20
     return files
 
@@ -137,7 +139,8 @@ def test_kernel_build_dir_checkout_and_installed(monkeypatch, tmp_path):
     data = tomllib.loads((REPO / "pyproject.toml").read_text())
     globs = data["tool"]["setuptools"]["package-data"][
         "analytics_zoo_tpu_torch"]
-    names = {src.name for src in fa._SOURCES}
-    assert {"flash_attn_fwd.cu", "flash_attn_bwd.cu"} <= names
-    for src in fa._SOURCES:
+    names = {src.name for src in fa._SOURCES + fa._HEADERS}
+    assert {"flash_attn_fwd.cu", "flash_attn_bwd_dq.cu",
+            "flash_attn_bwd_dkv.cu", "flash_attn_bwd.cuh"} <= names
+    for src in fa._SOURCES + fa._HEADERS:
         assert any(src.relative_to(PORT).match(g) for g in globs), src

@@ -485,18 +485,18 @@ def _squad_data(n, seed):
     return x, y
 
 
-@pytest.fixture(scope="module")
-def squad_fit():
-    """Both packages fit 3 Adam steps (24 samples, batch 8, shuffled) from
-    the JAX package's initial weights; per-step losses recorded."""
+def fit_both(cfg, x, y):
+    """Both packages fit ``BERTSQuAD(**cfg)`` on (``x``, ``y``) for one
+    epoch of batch 8, shuffled, with Adam (epsilon 1e-5) from the JAX
+    package's initial weights; per-step losses recorded."""
     from analytics_zoo_tpu.models.text.bert_squad import (
         BERTSQuAD as RefSQuAD)
 
-    ref = RefSQuAD(**SMALL)
+    ref = RefSQuAD(**cfg)
     ref._build_for_load()
     ref.compile(optimizer=ref_optim.Adam(epsilon=1e-5))
     tree = jax.tree_util.tree_map(np.asarray, ref.estimator.variables)
-    port = BERTSQuAD(device="cpu", **SMALL)
+    port = BERTSQuAD(device="cpu", **cfg)
     load_flax_into(port.module, tree)
     port.compile(optimizer=optim.Adam(epsilon=1e-5))
 
@@ -517,12 +517,18 @@ def squad_fit():
         return loss
 
     port.estimator._train_step = port_step
-    x, y = _squad_data(24, 0)
     ref_hist = ref.fit((x, y), batch_size=BATCH, epochs=1)
     port_hist = port.fit((x, y), batch_size=BATCH, epochs=1)
     return dict(ref=ref, port=port, tree=tree, ref_losses=ref_losses,
                 port_losses=port_losses, ref_hist=ref_hist,
                 port_hist=port_hist)
+
+
+@pytest.fixture(scope="module")
+def squad_fit():
+    """Both packages fit 3 Adam steps (24 samples, batch 8, shuffled) from
+    the JAX package's initial weights; per-step losses recorded."""
+    return fit_both(SMALL, *_squad_data(24, 0))
 
 
 class TestBERTSQuADSlice:

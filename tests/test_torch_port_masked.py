@@ -291,6 +291,11 @@ class TestDispatchRoute:
         ({"has_mask": True}, None),
         ({"dropout_rate": 0.1}, None),
         ({"l": 192}, None),
+        # K1-K3 at D in {192, 256} are still to port: the einsum path
+        ({"d": 192}, None),
+        ({"d": 192, "causal": True}, None),
+        ({"d": 256}, None),
+        ({"d": 256, "causal": True}, None),
     ])
     def test_route(self, change, route):
         assert port_attention._flash_route(**dict(self.BASE, **change)) \
@@ -349,9 +354,9 @@ class TestDispatchRoute:
         assert fa._kernel_mask(seen[0]) is seen[0]
 
     def test_only_k5b_raises(self, monkeypatch):
-        """The "k5b" route no longer raises in the forward: it calls
-        ``flash_attention`` (K5b on the card) with the key-padding mask;
-        only K5b's backward raises (``test_k5b_backward_raises``)."""
+        """The "k5b" route raises in neither direction: it calls
+        ``flash_attention`` (K5b on the card, K1-lse, K2 and K3 under
+        autograd) with the key-padding mask."""
         from analytics_zoo_tpu_torch.common.config import get_config
 
         seen = {}
@@ -375,18 +380,6 @@ class TestDispatchRoute:
         finally:
             get_config().unset("zoo.ops.attention_impl")
         assert seen["mask"] is mask and seen["causal"] and seen["d"] == 32
-
-    @pytest.mark.parametrize("d", [16, 32, 80])
-    def test_k5b_backward_raises(self, d):
-        """``FlashAttention`` at a K5b head dim off the CPU, with an
-        input that needs a gradient, raises naming K5b's backward before
-        any kernel runs (meta tensors stand in for the card's: the CPU
-        takes the plain versions, which have a backward)."""
-        q = torch.empty(1, 2, 128, d, device="meta", requires_grad=True)
-        with pytest.raises(NotImplementedError, match="K5b backward"):
-            fa.flash_attention(q, q, q, True)
-        with pytest.raises(NotImplementedError, match="K5b backward"):
-            fa.FlashAttention.apply(q, q, q, False, None, None)
 
 
 # -------------------------------------------------------- BERT-NER slice --
