@@ -132,7 +132,8 @@ class InferenceModel:
     def load_zoo(self, path: str) -> "InferenceModel":
         from analytics_zoo_tpu_torch.models.common import ZooModel
 
-        model = ZooModel.load_model(path, device=self.device)
+        model = ZooModel.load_model(path, device=self.device,
+                                    with_optim=False)
         self.module = model.module.eval()
         try:  # lets deployments warm_up without knowing the model class
             self.example_input = model._example_input()

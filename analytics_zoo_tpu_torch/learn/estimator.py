@@ -35,6 +35,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from analytics_zoo_tpu_torch.bridge import (load_flax_into,
+                                            variables_from_module)
 from analytics_zoo_tpu_torch.common.config import get_config
 from analytics_zoo_tpu_torch.common.context import resolve_device
 from analytics_zoo_tpu_torch.common.log import get_logger
@@ -464,14 +466,18 @@ class Estimator:
 
     # ------------------------------------------------------- checkpoints --
     def _save(self, ckpt_dir: str, epoch: int) -> None:
-        ckpt_lib.save_checkpoint(ckpt_dir, self.model.state_dict(),
+        ckpt_lib.save_checkpoint(ckpt_dir, variables_from_module(self.model),
                                  self.opt_state, self.global_step, epoch)
 
     def _restore(self, checkpoint_dir: str) -> None:
-        model_state, opt_state, meta = ckpt_lib.load_checkpoint(
-            checkpoint_dir, map_location=self.device)
-        self.model.load_state_dict(model_state)
-        self.opt_state = opt_state
+        """Weights, optimizer state and counters from a checkpoint that
+        either package wrote (the state mapped onto this optimizer's
+        ``init``)."""
+        variables, opt_tree, meta = ckpt_lib.load_checkpoint(checkpoint_dir)
+        load_flax_into(self.model, variables)
+        self._ensure_built()
+        self.opt_state = ckpt_lib.opt_state_from_flax(self.opt_state,
+                                                      opt_tree)
         self.global_step = meta["step"]
         self.epoch = meta["epoch"]
         logger.info("restored from checkpoint: step=%d epoch=%d",
@@ -522,7 +528,6 @@ class Estimator:
 
     def load(self, ckpt_dir: str) -> None:
         """Restore weights, optimizer state and counters."""
-        self._ensure_built()
         self._restore(ckpt_dir)
 
 

@@ -17,9 +17,13 @@ and torch disagree, optax wins:
 Parameters, gradients and updates are dicts keyed by flax-style paths
 (``bert/encoder_0/ln_attn/scale``; see ``param_tree``), so
 ``AdamWeightDecay``'s name mask sees the names the reference's mask sees.
-Optimizer state is a nest of dicts, lists, ints and tensors (what
-``torch.save`` writes). Updates are computed with ``torch._foreach_*``:
-a handful of launches per step instead of several per parameter.
+Optimizer state is a nest of lists (a chain), dicts (a transformation's
+fields, or a per-parameter tree keyed by path), ints and tensors. Each
+optimizer is chained as optax chains it, ``identity`` and masked state
+included, so its state maps one for one onto the optax state the JAX
+package checkpoints (``learn/checkpoint.py``). Updates are computed with
+``torch._foreach_*``: a handful of launches per step instead of several
+per parameter.
 """
 
 from __future__ import annotations
@@ -144,6 +148,14 @@ def _zeros(params: Params, value: float = 0.0) -> Params:
 
 def _values(d: Params, keys) -> List[torch.Tensor]:
     return [d[k] for k in keys]
+
+
+class Identity(GradientTransformation):
+    """optax.identity: updates pass unchanged (the place a chain keeps
+    for an option that is off, e.g. ``sgd`` without momentum)."""
+
+    def update(self, updates, state, params):
+        return updates, state
 
 
 class Chain(GradientTransformation):
@@ -286,11 +298,15 @@ class ScaleByLearningRate(GradientTransformation):
 
 class AddDecayedWeights(GradientTransformation):
     """``updates + weight_decay * params`` on the parameters whose names
-    ``mask`` keeps (all when ``mask`` is None)."""
+    ``mask`` keeps (all when ``mask`` is None). With a mask its state is
+    optax.masked's, ``{"inner_state": {}}``."""
 
     def __init__(self, weight_decay: float,
                  mask: Optional[Callable[[str], bool]] = None):
         self.weight_decay, self.mask = weight_decay, mask
+
+    def init(self, params):
+        return {} if self.mask is None else {"inner_state": {}}
 
     def update(self, updates, state, params):
         if not self.weight_decay:
@@ -353,13 +369,12 @@ class SGD(ZooOptimizer):
         self.nesterov, self.weight_decay = nesterov, weight_decay
 
     def to_transform(self):
-        txs = []
+        tx = Chain(Trace(self.momentum, self.nesterov) if self.momentum
+                   else Identity(),
+                   ScaleByLearningRate(_as_schedule(self.lr)))
         if self.weight_decay:
-            txs.append(AddDecayedWeights(self.weight_decay))
-        if self.momentum:
-            txs.append(Trace(self.momentum, self.nesterov))
-        txs.append(ScaleByLearningRate(_as_schedule(self.lr)))
-        return Chain(*txs)
+            tx = Chain(AddDecayedWeights(self.weight_decay), tx)
+        return tx
 
 
 class Adam(ZooOptimizer):
@@ -406,7 +421,7 @@ class RMSprop(ZooOptimizer):
         self.lr, self.decay_rate, self.epsilon = lr, decay_rate, epsilon
 
     def to_transform(self):
-        return Chain(ScaleByRms(self.decay_rate, self.epsilon),
+        return Chain(ScaleByRms(self.decay_rate, self.epsilon), Identity(),
                      ScaleByLearningRate(_as_schedule(self.lr)))
 
 
@@ -425,7 +440,8 @@ class Adadelta(ZooOptimizer):
         self.lr, self.rho, self.epsilon = lr, rho, epsilon
 
     def to_transform(self):
-        return Chain(ScaleByAdadelta(self.rho, self.epsilon),
+        return Chain(AddDecayedWeights(0.0),
+                     ScaleByAdadelta(self.rho, self.epsilon),
                      ScaleByLearningRate(_as_schedule(self.lr)))
 
 

@@ -1,10 +1,14 @@
 """ZooModel: base class for the built-in model zoo.
 
-The counterpart of ``analytics_zoo_tpu/models/common.py``. A saved
-model directory holds ``config.json`` -- ``{"class": <registered class
-name>, "config": <constructor kwargs>}``, the reference's schema -- and
-``weights/state_dict.pt``, the module's torch ``state_dict``; so
-``ZooModel.load_model(path)`` rebuilds the exact model.
+The counterpart of ``analytics_zoo_tpu/models/common.py``, with its
+on-disk layout, so a directory saved by either package loads in the
+other: ``config.json`` -- ``{"class": <registered class name>, "config":
+<constructor kwargs>}`` -- and ``weights/``, an Estimator checkpoint
+(``learn/checkpoint.py``: flax msgpack ``model.<step>`` and
+``optim.<step>``, ``meta.<step>.json``, ``latest``); so
+``ZooModel.load_model(path)`` rebuilds the exact model, with its
+optimizer state and counters (``InferenceModel.load_zoo`` reads the
+weights alone).
 
 ``fit``, ``evaluate``, ``predict`` and ``compile`` go through an
 ``Estimator`` (``learn/estimator.py``) built from the subclass's
@@ -19,16 +23,16 @@ from typing import Any, Dict, Sequence, Type
 
 import torch
 
+from analytics_zoo_tpu_torch.bridge import load_flax_into
 from analytics_zoo_tpu_torch.common.context import resolve_device
 from analytics_zoo_tpu_torch.common.log import get_logger
 from analytics_zoo_tpu_torch.keras.layers.transformer import reset_parameters
+from analytics_zoo_tpu_torch.learn.checkpoint import load_checkpoint
 from analytics_zoo_tpu_torch.learn.estimator import Estimator, recompiled
 
 logger = get_logger(__name__)
 
 _MODEL_REGISTRY: Dict[str, Type["ZooModel"]] = {}
-
-WEIGHTS_FILE = "state_dict.pt"
 
 
 class ZooModel:
@@ -90,16 +94,19 @@ class ZooModel:
 
     # ------------------------------------------------------- persistence --
     def save_model(self, path: str) -> None:
-        os.makedirs(os.path.join(path, "weights"), exist_ok=True)
+        os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "config.json"), "w") as f:
             json.dump({"class": type(self).__name__,
                        "config": self._config}, f)
-        torch.save({k: v.detach().cpu()
-                    for k, v in self.module.state_dict().items()},
-                   os.path.join(path, "weights", WEIGHTS_FILE))
+        self.estimator.save(os.path.join(path, "weights"))
 
     @staticmethod
-    def load_model(path: str, device=None) -> "ZooModel":
+    def load_model(path: str, device=None,
+                   with_optim: bool = True) -> "ZooModel":
+        """The model saved at ``path`` by either package, with its
+        optimizer state and counters; with ``with_optim`` false the
+        weights alone (an inference load: no optimizer state is built
+        or read)."""
         with open(os.path.join(path, "config.json")) as f:
             meta = json.load(f)
         cls = _MODEL_REGISTRY.get(meta["class"])
@@ -107,9 +114,12 @@ class ZooModel:
             raise ValueError(f"unknown model class {meta['class']!r}; "
                              f"known: {sorted(_MODEL_REGISTRY)}")
         model = cls(device=device, **meta["config"])
-        state = torch.load(os.path.join(path, "weights", WEIGHTS_FILE),
-                           map_location=model.device, weights_only=True)
-        model.module.load_state_dict(state)
+        weights = os.path.join(path, "weights")
+        if with_optim:
+            model.estimator.load(weights)
+        else:
+            variables, _, _ = load_checkpoint(weights, with_optim=False)
+            load_flax_into(model.module, variables)
         return model
 
     def summary(self) -> str:

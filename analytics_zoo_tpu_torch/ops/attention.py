@@ -1,6 +1,6 @@
 """Attention dispatch: the flash-attention CUDA kernels (K1 forward, K2
-and K3 backward, K5b both ways at other head dims) on the card, plain
-PyTorch on the CPU.
+and K3 backward, K5b both ways at other head dims up to 128, K1 at 192
+and 256) on the card, plain PyTorch on the CPU.
 
 The counterpart of ``analytics_zoo_tpu/ops/attention.py``, with the same
 semantics: the causal diagonal is aligned bottom-right (``tril`` with
@@ -28,13 +28,16 @@ without a key-padding mask; TinyGenLM's prefill, a MiniLM-sized BERT's
 fine-tune), the port launches K5b, the same kernels instantiated at that
 head dim, through ``flash_attention``: K1 forward, and under autograd
 K1-lse, K2 and K3, with the einsum path's semantics at every row as for
-K5a.
+K5a. A head dim that is not a multiple of 8 runs zero-padded to the next
+one (``flash_attention``).
 
 At a head dim above 128 the reference runs its own Pallas kernel when D
-is a multiple of 64 (192, 256), and the einsum path otherwise. The
-port's kernels stop at 128, so it takes the einsum path at every such D,
-with the same values; K1-K3 at D in {192, 256} are owed (ROADMAP
-section 2).
+is a multiple of 64 and there is no key-padding mask (its stock-kernel
+branch stops at 128), and the einsum path otherwise. The port has K1 at
+D in {192, 256} (TinyGenLM's prefill at Gemma-2B's head dim of 256) and
+takes it for such a call that needs no gradient; K2 and K3 there are
+still to port (ROADMAP section 2), so a call under autograd takes the
+einsum path, with the same values, as does every other D above 128.
 """
 
 from __future__ import annotations
@@ -85,19 +88,24 @@ def _einsum_attention(q, k, v, mask=None, causal: bool = False,
 
 
 def _flash_route(impl: str, on_cuda: bool, l: int, lk: int, d: int,
-                 causal: bool, has_mask: bool, dropout_rate: float
-                 ) -> Optional[str]:
+                 causal: bool, has_mask: bool, dropout_rate: float,
+                 has_key_padding_mask: bool = False,
+                 needs_grad: bool = False) -> Optional[str]:
     """Where the reference would take a flash kernel on its accelerator
     and the port has one: "kernels" (K1-K3, with or without a key-padding
-    mask), "k5b" (the stock kernel at head_dim % 64 != 0: K5b, forward
-    and backward) or None (the einsum path)."""
+    mask; K1 alone above 128), "k5b" (the stock kernel at head_dim % 64
+    != 0: K5b, forward and backward) or None (the einsum path).
+    ``has_mask`` is an arbitrary ``mask``; ``needs_grad`` says autograd
+    records a gradient through the call."""
     if (impl == "einsum" or has_mask or dropout_rate != 0.0
             or not on_cuda or l % 128 or lk % 128):
         return None
     if d > 128:
-        # the reference's Pallas kernel at D in {192, 256}: K1-K3 there
-        # are the ROADMAP section 2 row "K1-K3 at D in {192, 256}", still
-        # to port; the einsum path gives the same values until then
+        # the reference's Pallas kernel at D % 64 == 0, unmasked (its
+        # stock-kernel branch stops at 128); the port has K1 at 192 and
+        # 256, and K2/K3 there are still to port (ROADMAP section 2)
+        if d in (192, 256) and not (has_key_padding_mask or needs_grad):
+            return "kernels"
         return None
     if d % 64 == 0:
         return "kernels"
@@ -134,8 +142,11 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
         # the threshold is the reference's (measured on a TPU); its
         # H100 crossover is an open question in PERF.md
         impl = "einsum"
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
     route = _flash_route(impl, q.is_cuda, l, lk, d, causal,
-                         mask is not None, dropout_rate)
+                         mask is not None, dropout_rate,
+                         key_padding_mask is not None, needs_grad)
     if route is not None:
         # "kernels": K1 (K1-lse, K2, K3 under autograd); "k5b": the same
         # kernels at this head dim

@@ -33,6 +33,26 @@
 // path gives each of 8 threads D/8 dimensions of a row. Each D is its own
 // instantiation, so the register arrays stay sized to it.
 //
+// Head dims above 128 (K1 at D in {192, 256}). The reference's Pallas kernel
+// takes any D % 64 == 0 (pallas_attention.py:150), and its dispatch sends an
+// unmasked flash call there (analytics_zoo_tpu/ops/attention.py:107-112; a
+// masked one takes its einsum path, so these instantiations are unmasked).
+// The D <= 128 templates do not stretch that far:
+//   * bf16: the 16 query rows of a warp as mma A fragments would be D/2
+//     registers a thread beside the D/2 of the f32 O accumulator (224 at
+//     D = 256 with a 64-key S), and K, V and Q tiles pass the 48 KB of
+//     static shared memory. flash_fwd_bf16_wide_kernel keeps Q in shared
+//     memory and reloads its fragments every k-step (4 registers), walks kv
+//     tiles of 32 rows (S is 16 registers), and takes its 51-68 KB of
+//     shared memory dynamically (cudaFuncSetAttribute before the launch).
+//   * f32: 8 threads own D/8 = 32 dims of a row each, which registers
+//     hold, dealt in 4-float chunks so that the 8 threads read different
+//     shared-memory banks; the kv tile shrinks to 16 rows so K and V stay
+//     in 32 KB of static shared memory.
+//   The f32 prefill at Gemma-2B's widths ([1, 8, 8192, 256], causal) is
+//   bound by its 275 GFLOP of visible pairs on the FMA units (4.1 ms at
+//   67 TFLOP/s); this kernel, like K5b's f32 path, is several times that.
+//
 // Design. The Pallas grid (bh, q-block, kv-block) ran its kv dimension as a
 // sequential loop on one TPU core, carrying (m, l, acc) in VMEM scratch.
 // Here one thread block owns one (b*h, 64-row q tile) and walks the kv
@@ -86,6 +106,8 @@ constexpr int kThreads = 128;    // 4 warps
 constexpr int kPad = 8;          // bf16 elements of smem row padding
 constexpr int kFmaKv = 32;       // kv rows per smem tile on the f32 path
 constexpr int kFmaRows = 16;     // q rows per block on the f32 path
+constexpr int kWideKv = 32;      // kv rows per smem tile, bf16 at D > 128
+constexpr int kWideFmaKv = 16;   // kv rows per smem tile, f32 at D > 128
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // logsumexp of a row that sees no key: what f32 logsumexp gives for the
@@ -349,14 +371,21 @@ flash_fwd_bf16_kernel(const Params p) {
 }
 
 // ----------------------------------------------------------------- f32 --
-template <int D, bool kMask>
+// KV: kv rows per shared-memory tile (kFmaKv; kWideFmaKv above D = 128)
+template <int D, bool kMask, int KV = kFmaKv>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const Params p) {
-  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
+  static_assert(D % 8 == 0 && (D <= 128 || D == 192 || D == 256),
+                "head_dim: a multiple of 8 up to 128, or 192 or 256");
   constexpr int DP = D / 8;  // dimensions per thread
-  __shared__ __align__(16) float sK[kFmaKv][D];
-  __shared__ __align__(16) float sV[kFmaKv][D];
-  __shared__ uint8_t sM[kFmaKv];
+  // Which DP dims of a row a thread owns. Up to 128: DP contiguous ones
+  // from d0. Above: 4-float chunks dealt round the row's 8 threads, so
+  // the 8 threads read 8 neighbouring chunks of a K or V row (32
+  // contiguous dims at D = 256 put all 8 on one shared-memory bank)
+  constexpr bool kDealt = D > 128;
+  __shared__ __align__(16) float sK[KV][D];
+  __shared__ __align__(16) float sV[KV][D];
+  __shared__ uint8_t sM[KV];
   __shared__ float sMean[D];
 
   const int qt = blockIdx.x;
@@ -368,6 +397,9 @@ flash_fwd_f32_kernel(const Params p) {
   const int row = qt * kFmaRows + (tid >> 3);
   const int d0 = part * DP;
   const int offset = p.lk - p.lq;
+  auto dim = [part, d0](int i) {
+    return kDealt ? ((i / 4) * 8 + part) * 4 + (i % 4) : d0 + i;
+  };
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
@@ -379,42 +411,42 @@ flash_fwd_f32_kernel(const Params p) {
   float acc[DP];
 #pragma unroll
   for (int i = 0; i < DP; ++i) {
-    qr[i] = q[row * p.q_sl + d0 + i] * p.scale_log2;
+    qr[i] = q[row * p.q_sl + dim(i)] * p.scale_log2;
     acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
 
-  int n_tiles = p.lk / kFmaKv;
+  int n_tiles = p.lk / KV;
   if (p.causal) {
-    const int last = (qt * kFmaRows + kFmaRows - 1 + offset) / kFmaKv + 1;
+    const int last = (qt * kFmaRows + kFmaRows - 1 + offset) / KV + 1;
     n_tiles = min(n_tiles, last);
   }
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     __syncthreads();
-    for (int i = tid; i < kFmaKv * D / 4; i += kThreads) {
+    for (int i = tid; i < KV * D / 4; i += kThreads) {
       const int r = i / (D / 4);
       const int c = (i - r * (D / 4)) * 4;
-      const long long key = static_cast<long long>(kt) * kFmaKv + r;
+      const long long key = static_cast<long long>(kt) * KV + r;
       *reinterpret_cast<float4*>(&sK[r][c]) =
           *reinterpret_cast<const float4*>(k + key * p.k_sl + c);
       *reinterpret_cast<float4*>(&sV[r][c]) =
           *reinterpret_cast<const float4*>(v + key * p.v_sl + c);
     }
-    if (kMask && tid < kFmaKv) sM[tid] = mrow[kt * kFmaKv + tid];
+    if (kMask && tid < KV) sM[tid] = mrow[kt * KV + tid];
     __syncthreads();
 
-    float s[kFmaKv];
+    float s[KV];
     float mx = m;
 #pragma unroll
-    for (int j = 0; j < kFmaKv; ++j) {
+    for (int j = 0; j < KV; ++j) {
       float part_dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < DP; ++i) part_dot = fmaf(qr[i], sK[j][d0 + i], part_dot);
+      for (int i = 0; i < DP; ++i) part_dot = fmaf(qr[i], sK[j][dim(i)], part_dot);
       part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 1);
       part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 2);
       part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 4);
-      if (p.causal && kt * kFmaKv + j > row + offset) part_dot = -INFINITY;
+      if (p.causal && kt * KV + j > row + offset) part_dot = -INFINITY;
       if (kMask && sM[j] == 0) part_dot = -INFINITY;
       s[j] = part_dot;
       mx = fmaxf(mx, part_dot);
@@ -424,7 +456,7 @@ flash_fwd_f32_kernel(const Params p) {
     m = mx;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kFmaKv; ++j) {
+    for (int j = 0; j < KV; ++j) {
       s[j] = exp2f(s[j] - base);
       sum += s[j];
     }
@@ -433,7 +465,7 @@ flash_fwd_f32_kernel(const Params p) {
     for (int i = 0; i < DP; ++i) {
       float a = acc[i] * corr;
 #pragma unroll
-      for (int j = 0; j < kFmaKv; ++j) a = fmaf(s[j], sV[j][d0 + i], a);
+      for (int j = 0; j < KV; ++j) a = fmaf(s[j], sV[j][dim(i)], a);
       acc[i] = a;
     }
   }
@@ -446,7 +478,7 @@ flash_fwd_f32_kernel(const Params p) {
   }
 #pragma unroll
   for (int i = 0; i < DP; ++i) {
-    o[row * p.o_sl + d0 + i] = empty ? sMean[d0 + i] : acc[i] * inv;
+    o[row * p.o_sl + dim(i)] = empty ? sMean[dim(i)] : acc[i] * inv;
   }
   if (p.lse != nullptr && part == 0) {
     p.lse[static_cast<long long>(bh) * p.lq + row] =
@@ -454,9 +486,205 @@ flash_fwd_f32_kernel(const Params p) {
   }
 }
 
+
+// ------------------------------------------------------- bf16, D > 128 --
+// K1 at D in {192, 256}, unmasked. One block owns 64 q rows (4 warps of
+// 16) as the D <= 128 kernel does, but Q is staged in shared memory once
+// and each k-step reloads its A fragment (4 registers) there, and kv tiles
+// are kWideKv rows. Shared memory (dynamic): Q [64][D+8], K and V
+// [32][D+8] bf16 -- 51,200 bytes at D = 192, 67,584 at D = 256.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16_wide_kernel(const Params p) {
+  static_assert(D % 16 == 0 && D > 128 && D <= 256, "head_dim: 192 or 256");
+  constexpr int kRow = D + kPad;  // shared-memory row, in bf16 elements
+  extern __shared__ __align__(16) uint16_t smem[];
+  uint16_t* sQ = smem;
+  uint16_t* sK = sQ + kTile * kRow;
+  uint16_t* sV = sK + kWideKv * kRow;
+
+  const int qt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + hh * p.q_sh;
+  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + hh * p.k_sh;
+  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + hh * p.v_sh;
+  uint16_t* o = static_cast<uint16_t*>(p.o) + b * p.o_sb + hh * p.o_sh;
+
+  const int row0 = qt * kTile + warp * 16;
+  const int ra = row0 + g;
+  const int rb = row0 + g + 8;
+  const int offset = p.lk - p.lq;
+
+  for (int i = tid; i < kTile * D / 8; i += kThreads) {
+    const int r = i / (D / 8);
+    const int c = (i - r * (D / 8)) * 8;
+    const long long row = static_cast<long long>(qt) * kTile + r;
+    *reinterpret_cast<uint4*>(&sQ[r * kRow + c]) =
+        *reinterpret_cast<const uint4*>(q + row * p.q_sl + c);
+  }
+  // this thread's A-fragment elements of rows ra and rb (k-step 0)
+  const uint16_t* qa = sQ + (warp * 16 + g) * kRow + t4 * 2;
+  const uint16_t* qb = qa + 8 * kRow;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  }
+  float m_a = -INFINITY, m_b = -INFINITY;
+  float l_a = 0.f, l_b = 0.f;
+
+  int n_tiles = p.lk / kWideKv;
+  if (p.causal) {
+    const int last = (qt * kTile + kTile - 1 + offset) / kWideKv + 1;
+    n_tiles = min(n_tiles, last);
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    __syncthreads();  // Q is staged; every warp is done with the last tile
+    for (int i = tid; i < kWideKv * D / 8; i += kThreads) {
+      const int r = i / (D / 8);
+      const int c = (i - r * (D / 8)) * 8;
+      const long long key = static_cast<long long>(kt) * kWideKv + r;
+      *reinterpret_cast<uint4*>(&sK[r * kRow + c]) =
+          *reinterpret_cast<const uint4*>(k + key * p.k_sl + c);
+      *reinterpret_cast<uint4*>(&sV[r * kRow + c]) =
+          *reinterpret_cast<const uint4*>(v + key * p.v_sl + c);
+    }
+    __syncthreads();
+
+    if (p.causal && row0 + 15 + offset < kt * kWideKv) continue;
+
+    // S = Q K^T for 16 rows x 32 keys; Q's fragment of each k-step is
+    // read once from shared memory and used for the 4 key blocks
+    float s[kWideKv / 8][4];
+#pragma unroll
+    for (int n = 0; n < kWideKv / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      uint32_t a[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(qa + c * 16);
+      a[1] = *reinterpret_cast<const uint32_t*>(qb + c * 16);
+      a[2] = *reinterpret_cast<const uint32_t*>(qa + c * 16 + 8);
+      a[3] = *reinterpret_cast<const uint32_t*>(qb + c * 16 + 8);
+#pragma unroll
+      for (int n = 0; n < kWideKv / 8; ++n) {
+        const uint16_t* kr = sK + (n * 8 + g) * kRow + c * 16 + t4 * 2;
+        mma_16816(s[n], a, *reinterpret_cast<const uint32_t*>(kr),
+                  *reinterpret_cast<const uint32_t*>(kr + 8));
+      }
+    }
+
+    float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+    for (int n = 0; n < kWideKv / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * p.scale_log2;
+        const int col = n * 8 + t4 * 2 + (e & 1);
+        if (p.causal && kt * kWideKv + col > ((e < 2) ? ra : rb) + offset) {
+          x = -INFINITY;
+        }
+        s[n][e] = x;
+      }
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    // causal rows above the whole tile (only in a warp that straddles
+    // it) keep -inf; subtract 0 there
+    const float base_a = (mx_a == -INFINITY) ? 0.f : mx_a;
+    const float base_b = (mx_b == -INFINITY) ? 0.f : mx_b;
+    const float corr_a = exp2f(m_a - base_a);
+    const float corr_b = exp2f(m_b - base_b);
+    m_a = mx_a;
+    m_b = mx_b;
+
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < kWideKv / 8; ++n) {
+      s[n][0] = exp2f(s[n][0] - base_a);
+      s[n][1] = exp2f(s[n][1] - base_a);
+      s[n][2] = exp2f(s[n][2] - base_b);
+      s[n][3] = exp2f(s[n][3] - base_b);
+      sum_a += s[n][0] + s[n][1];
+      sum_b += s[n][2] + s[n][3];
+    }
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= corr_a;
+      acc[n][1] *= corr_a;
+      acc[n][2] *= corr_b;
+      acc[n][3] *= corr_b;
+    }
+
+#pragma unroll
+    for (int j = 0; j < kWideKv / 16; ++j) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+      const uint16_t* vr = sV + (j * 16 + t4 * 2) * kRow + g;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const uint16_t* vc = vr + n * 8;
+        const uint32_t b0 = pack_raw(vc[0], vc[kRow]);
+        const uint32_t b1 = pack_raw(vc[8 * kRow], vc[9 * kRow]);
+        mma_16816(acc[n], a, b0, b1);
+      }
+    }
+  }
+
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  l_a = fmaxf(l_a, 1e-30f);
+  l_b = fmaxf(l_b, 1e-30f);
+  const float inv_a = 1.f / l_a;
+  const float inv_b = 1.f / l_b;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(o + ra * p.o_sl + col) =
+        pack_bf16(acc[n][0] * inv_a, acc[n][1] * inv_a);
+    *reinterpret_cast<uint32_t*>(o + rb * p.o_sl + col) =
+        pack_bf16(acc[n][2] * inv_b, acc[n][3] * inv_b);
+  }
+  if (p.lse != nullptr && t4 == 0) {
+    float* lse = p.lse + static_cast<long long>(bh) * p.lq;
+    lse[ra] = (m_a + log2f(l_a)) * kLn2;
+    lse[rb] = (m_b + log2f(l_b)) * kLn2;
+  }
+}
+
+// smem: dynamic shared memory in bytes; above the 48 KB a block gets by
+// default the kernel must first be allowed it
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, const Params& p, cudaStream_t stream) {
-  kernel<<<grid, kThreads, 0, stream>>>(p);
+cudaError_t launch(Kernel kernel, dim3 grid, const Params& p, cudaStream_t stream,
+                   int smem = 0) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -474,11 +702,24 @@ cudaError_t launch_d(int dtype, bool masked, int batch_heads, const Params& p,
                 : launch(flash_fwd_f32_kernel<D, false>, grid, p, s);
 }
 
+// K1 at D in {192, 256}: unmasked only (no path takes a mask there)
+template <int D>
+cudaError_t launch_wide(int dtype, int batch_heads, const Params& p, cudaStream_t s) {
+  if (dtype == 1) {
+    constexpr int smem = (kTile + 2 * kWideKv) * (D + kPad) * 2;
+    return launch(flash_fwd_bf16_wide_kernel<D>, dim3(p.lq / kTile, batch_heads),
+                  p, s, smem);
+  }
+  return launch(flash_fwd_f32_kernel<D, false, kWideFmaKv>,
+                dim3(p.lq / kFmaRows, batch_heads), p, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. mask: [B, Lk] bytes (nonzero = real
-// key) with batch stride mask_sb, or null for none. Returns a cudaError_t
-// (0 = launched); 1000 + n flags an argument the kernel does not take.
+// key) with batch stride mask_sb, or null for none (required at D > 128).
+// Returns a cudaError_t (0 = launched); 1000 + n flags an argument the
+// kernel does not take.
 extern "C" int zoo_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int batch, int heads, int lq, int lk, int d,
@@ -506,6 +747,7 @@ extern "C" int zoo_flash_attn_fwd(
   if (dtype != 0 && dtype != 1) return 1005;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool masked = mask != nullptr;  // the kMask instantiation or not
+  if (masked && d > 128) return 1006;
   const int bh = batch * heads;
   switch (d) {
     // K1
@@ -526,6 +768,9 @@ extern "C" int zoo_flash_attn_fwd(
     case 104: return launch_d<104>(dtype, masked, bh, p, s);
     case 112: return launch_d<112>(dtype, masked, bh, p, s);
     case 120: return launch_d<120>(dtype, masked, bh, p, s);
+    // K1 above 128: the reference's Pallas kernel at D % 64 == 0
+    case 192: return launch_wide<192>(dtype, bh, p, s);
+    case 256: return launch_wide<256>(dtype, bh, p, s);
     default: return 1004;
   }
 }

@@ -1,6 +1,6 @@
 """Flash attention, forward (K1) and backward (K2 dQ, K3 dK/dV), and K5b
-(both directions at head dims that are not a multiple of 64): hand-written
-CUDA kernels for Hopper, and their gradient (K4).
+(both directions at head dims up to 128 that are not a multiple of 64):
+hand-written CUDA kernels for Hopper, and their gradient (K4).
 
 The counterpart of ``analytics_zoo_tpu/ops/pallas_attention.py``: exact
 ``softmax(scale * Q K^T) V`` on ``[B, H, L, D]``, causal mask aligned
@@ -36,9 +36,10 @@ tensor to its kernel; there is no fallback between the two.
 ``torch.autograd.Function``: K1 with logsumexp forward, K2 then K3
 backward) whenever autograd is recording and an input needs a gradient.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, and
-those given a key-padding mask in ``<wrapper>.masked_launches``, and
-those at a head dim that is not a multiple of 64 (K5b) in
-``<wrapper>.small_d_launches``.
+those given a key-padding mask in ``<wrapper>.masked_launches``,
+those at a head dim up to 128 that is not a multiple of 64 (K5b) in
+``<wrapper>.small_d_launches``, and those above 128 in
+``<wrapper>.wide_d_launches``.
 
 K5b is the counterpart of the reference's stock-kernel branch at such
 head dims (``analytics_zoo_tpu/ops/attention.py:116``: JAX's stock Pallas
@@ -47,14 +48,26 @@ its custom_vjp; TinyGenLM's prefill at D = 16, a MiniLM-sized BERT's
 fine-tune at D = 32): the same sources, K1 and K2/K3 instantiated at
 every multiple of 8 up to 128.
 
-Shapes the kernels take: D a multiple of 8 up to 128, in both
-directions; L and Lk multiples of ``TILE`` (64);
-f32 or bf16; the last dimension contiguous and 16-byte aligned rows
-(other strides are free, so q/k/v may be views into a fused qkv
-projection); a key-padding mask of ``[B, Lk]`` on the same device, of
-any dtype (converted once per call to contiguous bytes, ``mask != 0``).
-Anything else raises: a head dim under 128 that is not a multiple of 8
-with ``NotImplementedError`` (no kernel covers it yet).
+Head dims. The kernels are built for every multiple of 8 up to 128 in
+both directions (``BWD_HEAD_DIMS``) and, forward only, for 192 and 256
+(``FWD_HEAD_DIMS``): the reference's Pallas kernel at D % 64 == 0 above
+128, which its dispatch takes without a key-padding mask, so those
+instantiations take no mask. A head dim below 128 that is not a multiple
+of 8 (JAX's stock kernel takes any D <= 128) runs at the next multiple
+of 8: the wrappers zero-pad Q, K, V (and O and dO) along D, keep the
+scale of the true D, and cut O, dQ, dK and dV back. Zero columns add
+nothing to Q K^T, and V's give output columns that are dropped, so this
+is the same function on one padded copy of the inputs; the launch counts
+as K5b. ``FlashAttention`` pads on the CPU too, so its wiring runs the
+same way on both devices.
+
+Other shapes the kernels take: L and Lk multiples of ``TILE`` (64); f32
+or bf16; the last dimension contiguous and 16-byte aligned rows (other
+strides are free, so q/k/v may be views into a fused qkv projection); a
+key-padding mask of ``[B, Lk]`` on the same device, of any dtype
+(converted once per call to contiguous bytes, ``mask != 0``). Anything
+else raises: a head dim no kernel covers, in the direction asked for,
+with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -75,6 +88,17 @@ import torch
 TILE = 64
 # the logsumexp reported for a query row that sees no key
 EMPTY_LSE = -1e30
+
+# The first CPU ``torch.exp`` of a process that is split across threads
+# can give one thread's share with a relative error of about 1.5e-4
+# (torch 2.13, AVX-512, a loaded host; later calls are exact to f32).
+# The plain versions below are the CPU path, so take that call here.
+torch.exp(torch.zeros(1 << 17))
+
+# head dims the kernels are built for: K2 and K3 (and K1) at every
+# multiple of 8 up to 128, K1 also at 192 and 256 (without a mask)
+BWD_HEAD_DIMS = tuple(range(8, 129, 8))
+FWD_HEAD_DIMS = BWD_HEAD_DIMS + (192, 256)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -321,21 +345,58 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
                          f"(strides {tuple(t.stride())})")
 
 
-def _check_head_dim(d: int) -> None:
-    """Raise unless a kernel covers head dim ``d``, in both directions:
-    every multiple of 8 up to 128 (K1-K3 at 64 and 128, K5b the rest)."""
-    if d > 128:
-        raise ValueError(f"flash kernel: head_dim {d} > 128")
-    if d % 8:
+def _kernel_head_dim(d: int) -> int:
+    """The head dim a kernel runs a call of head dim ``d`` at: the next
+    multiple of 8 below 128 (the kernels read 16-byte rows), else ``d``."""
+    return -(-d // 8) * 8 if d < 128 else d
+
+
+def _padded(scale: Optional[float], q: torch.Tensor, *more: torch.Tensor):
+    """``(d, scale, dp, [q, *more])``: the head dim ``d`` of ``q``, the
+    scale of that true ``d``, the head dim ``dp`` a kernel runs at
+    (``_kernel_head_dim``), and the tensors zero-padded along D to ``dp``
+    (copies; a tensor already at ``dp`` as it is)."""
+    d = q.shape[-1]
+    dp = _kernel_head_dim(d)
+    return d, _resolve_scale(scale, d), dp, [
+        t if t.shape[-1] == dp else torch.nn.functional.pad(
+            t, (0, dp - t.shape[-1])) for t in (q, *more)]
+
+
+def _cut(d: int, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``ts`` cut back to head dim ``d`` (views), the inverse of
+    ``_padded`` for O, dQ, dK and dV."""
+    return tuple(t if t.shape[-1] == d else t[..., :d] for t in ts)
+
+
+def _check_head_dim(d: int, backward: bool = False,
+                    masked: bool = False) -> None:
+    """Raise unless a kernel is built for head dim ``d``: the forward's
+    ``FWD_HEAD_DIMS``, or with ``backward`` (K1-lse, K2, K3)
+    ``BWD_HEAD_DIMS``; with a key-padding mask (``masked``) only up to
+    128. The wrappers pad other head dims below 128 to a multiple of 8
+    before they ask."""
+    if masked and d > 128:
         raise NotImplementedError(
-            f"flash kernel at head_dim {d}: K5b covers multiples of 8 up "
-            "to 128 (16-byte rows); other head dims have no kernel yet "
-            "(ROADMAP section 2)")
+            f"flash kernel at head_dim {d}: no masked kernel above 128 "
+            "(the reference takes its einsum path for such a call)")
+    if d in (BWD_HEAD_DIMS if backward else FWD_HEAD_DIMS):
+        return
+    if d < 128 and d % 8:
+        raise NotImplementedError(
+            f"flash kernel at head_dim {d}: the kernels take multiples of "
+            "8 up to 128 (16-byte rows); the wrappers pad other head dims "
+            "to one")
+    raise NotImplementedError(
+        f"flash kernel at head_dim {d}: "
+        + ("K2 and K3 take multiples of 8 up to 128; at 192 and 256 they "
+           "are still to port (ROADMAP section 2)" if backward else
+           "K1 takes multiples of 8 up to 128, 192 and 256"))
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, mask: Optional[torch.Tensor] = None,
-                  **more: torch.Tensor) -> None:
+                  backward: bool = False, **more: torch.Tensor) -> None:
     b, h, lq, d = q.shape
     lk = k.shape[2]
     tensors = dict(q=q, k=k, v=v, **more)
@@ -353,7 +414,7 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, h, lk, d) or v.shape != k.shape:
         raise ValueError(f"flash kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    _check_head_dim(d)
+    _check_head_dim(d, backward, mask is not None)
     if lq % TILE or lk % TILE:
         raise ValueError(f"flash kernel: seq lens ({lq},{lk}) must be "
                          f"multiples of {TILE}")
@@ -405,7 +466,9 @@ def _count(wrapper, mask, d: int = 64) -> None:
     wrapper.launches += 1
     if mask is not None:
         wrapper.masked_launches += 1
-    if d % 64:
+    if d > 128:
+        wrapper.wide_d_launches += 1
+    elif d % 64:
         wrapper.small_d_launches += 1
 
 
@@ -413,22 +476,24 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, scale: Optional[float], with_lse: bool,
             key_padding_mask: Optional[torch.Tensor] = None):
     fn = _entry("zoo_flash_attn_fwd")
+    d, scale, dp, (q, k, v) = _padded(scale, q, k, v)
     _check_inputs(q, k, v, causal, key_padding_mask)
     mask = _kernel_mask(key_padding_mask)
-    b, h, lq, d = q.shape
+    b, h, lq, _ = q.shape
     lk = k.shape[2]
-    out = _empty_bhld(b, h, lq, d, q)
+    out = _empty_bhld(b, h, lq, dp, q)
     lse = (torch.empty(b * h, lq, dtype=torch.float32, device=q.device)
            if with_lse else None)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            _DTYPE_CODE[q.dtype], b, h, lq, lk, d,
+            _DTYPE_CODE[q.dtype], b, h, lq, lk, dp,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], *_mask_args(mask), _resolve_scale(scale, d),
+            *out.stride()[:3], *_mask_args(mask), scale,
             int(causal), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: code {rc}")
-    _count(flash_attention, mask, d)
+    _count(flash_attention, mask, dp)
+    (out,) = _cut(d, out)
     return (out, lse) if with_lse else out
 
 
@@ -452,23 +517,24 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_bwd_dq_reference(q, k, v, o, lse, do, causal,
                                                 scale, key_padding_mask)
     fn = _entry("zoo_flash_attn_bwd_dq")
-    _check_inputs(q, k, v, causal, key_padding_mask, o=o, do=do, lse=lse)
+    d, scale, dp, (q, k, v, o, do) = _padded(scale, q, k, v, o, do)
+    _check_inputs(q, k, v, causal, key_padding_mask, backward=True,
+                  o=o, do=do, lse=lse)
     mask = _kernel_mask(key_padding_mask)
-    b, h, lq, d = q.shape
+    b, h, lq, _ = q.shape
     lk = k.shape[2]
-    dq = _empty_bhld(b, h, lq, d, q)
+    dq = _empty_bhld(b, h, lq, dp, q)
     delta = torch.empty(b * h, lq, dtype=torch.float32, device=q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _DTYPE_CODE[q.dtype], b, h, lq, lk, d,
+            _DTYPE_CODE[q.dtype], b, h, lq, lk, dp,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
-            *_mask_args(mask), _resolve_scale(scale, d), int(causal),
-            _stream(q))
+            *_mask_args(mask), scale, int(causal), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash dq kernel launch failed: code {rc}")
-    _count(flash_attention_bwd_dq, mask, d)
-    return dq, delta
+    _count(flash_attention_bwd_dq, mask, dp)
+    return _cut(d, dq)[0], delta
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
@@ -485,24 +551,24 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                                                  causal, scale,
                                                  key_padding_mask)
     fn = _entry("zoo_flash_attn_bwd_dkv")
-    _check_inputs(q, k, v, causal, key_padding_mask, do=do, lse=lse,
-                  delta=delta)
+    d, scale, dp, (q, k, v, do) = _padded(scale, q, k, v, do)
+    _check_inputs(q, k, v, causal, key_padding_mask, backward=True,
+                  do=do, lse=lse, delta=delta)
     mask = _kernel_mask(key_padding_mask)
-    b, h, lq, d = q.shape
+    b, h, lq, _ = q.shape
     lk = k.shape[2]
-    dk = _empty_bhld(b, h, lk, d, k)
-    dv = _empty_bhld(b, h, lk, d, v)
+    dk = _empty_bhld(b, h, lk, dp, k)
+    dv = _empty_bhld(b, h, lk, dp, v)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_CODE[q.dtype], b, h, lq, lk, d,
+            _DTYPE_CODE[q.dtype], b, h, lq, lk, dp,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-            *_mask_args(mask), _resolve_scale(scale, d), int(causal),
-            _stream(q))
+            *_mask_args(mask), scale, int(causal), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash dkv kernel launch failed: code {rc}")
-    _count(flash_attention_bwd_dkv, mask, d)
-    return dk, dv
+    _count(flash_attention_bwd_dkv, mask, dp)
+    return _cut(d, dk, dv)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
@@ -522,34 +588,42 @@ class FlashAttention(torch.autograd.Function):
     """K4, the counterpart of ``pallas_flash_attention_fwd``'s custom_vjp:
     forward K1 with logsumexp (saving q, k, v, o, lse and the key-padding
     mask, which takes no gradient), backward K2 then K3, at every head
-    dim the kernels take (K5b's included). On CPU tensors the same wiring
-    runs the plain versions. On CUDA at a head dim no kernel takes, it
-    raises before the forward runs."""
+    dim the backward kernels take (K5b's included). On CPU tensors the
+    same wiring runs the plain versions. On CUDA at a head dim no
+    backward kernel takes, it raises before the forward runs.
+
+    A head dim below 128 that is not a multiple of 8 is padded here, once,
+    on either device: the saved q, k, v and o stay padded, so K2 and K3
+    take them as they are (the wrappers would pad all four again each
+    backward), and the CPU runs the padded wiring the card runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: Optional[float],
                 key_padding_mask: Optional[torch.Tensor] = None):
+        d, scale, dp, (q, k, v) = _padded(scale, q, k, v)
         mask = _kernel_mask(key_padding_mask)  # once for K1, K2 and K3
         if q.device.type == "cpu":
             out, lse = flash_attention_reference(q, k, v, causal, scale,
                                                  True, mask)
         else:
             # raise on a head dim no kernel takes before K1-lse builds
-            _check_head_dim(q.shape[-1])
+            _check_head_dim(dp, backward=True)
             out, lse = _launch(q, k, v, causal, scale, True, mask)
         ctx.save_for_backward(q, k, v, out, lse, mask)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.d = causal, scale, d
         ctx.mark_non_differentiable(lse)
-        return out, lse
+        # a view of the saved out would be refused an in-place op later
+        return _cut(d, out)[0].contiguous(), lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, out, lse, mask = ctx.saved_tensors
+        (do,) = _padded(ctx.scale, do)[3]
         # positional: callers that wrap flash_attention_bwd see every
         # argument in *args
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
                                          ctx.scale, mask)
-        return dq, dk, dv, None, None, None
+        return (*_cut(ctx.d, dq, dk, dv), None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -573,11 +647,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, causal, scale, with_lse, key_padding_mask)
 
 
-# kernel launches of each wrapper, those of them given a mask, and those
-# at a head dim that is not a multiple of 64 (K5b, forward and backward)
+# kernel launches of each wrapper, those of them given a mask, those at a
+# head dim up to 128 that is not a multiple of 64 (K5b, forward and
+# backward) and those above 128 (K1 at 192 and 256)
 for _wrapper in (flash_attention, flash_attention_bwd_dq,
                  flash_attention_bwd_dkv):
     _wrapper.launches = 0
     _wrapper.masked_launches = 0
     _wrapper.small_d_launches = 0
+    _wrapper.wide_d_launches = 0
 del _wrapper

@@ -40,9 +40,11 @@ Phases:
    dV, where every row sees a key) and rows that see no key exactly zero
    dQ. Bounds count the visible pairs' flops and the K/V bytes of the
    keys some row sees.
-5. Serving: saves a seeded BERT-base BERTClassifier (bf16), serves 64
-   requests of 512 tokens through the port's launch() -> ServingWorker
-   -> InferenceModel with zoo.ops.attention_impl = "flash" (every batch
+5. Serving: saves a seeded BERT-base BERTClassifier (bf16) in the JAX
+   package's layout (config.json and an Estimator checkpoint of flax
+   msgpack, utils/flax_msgpack.py), serves 64 requests of 512 tokens
+   through the port's launch() -> ServingWorker -> InferenceModel with
+   zoo.ops.attention_impl = "flash" (every batch
    bucket the batcher can emit is warmed first), checks that
    every request is answered once with finite logits, that K1 ran for
    every encoder layer of every dispatched batch, and that 4 replies
@@ -68,14 +70,16 @@ Phases:
    padded batch); the planted fault is
    the mask dropped from K2 and K3, which the f32 check must reject; K1,
    K2 and K3 must each launch with the mask at least 12 times per step;
-   predict reports token accuracy and the fitted model is saved. Prints
-   real and padded tokens/s; MFU counts padded tokens.
+   predict reports token accuracy and the fitted model is saved (the
+   same flax msgpack layout, optimizer state included). Prints real and
+   padded tokens/s; MFU counts padded tokens.
 8. NER serving: the same serving code for the saved NER model, loaded
-   through InferenceModel, every bucket warmed with a padded example, 64
-   padded requests (input_ids and attention_mask, 128 each) through a
-   ServingWorker on the memory queue whose input_fn passes both tensors;
-   K1 must run with the mask for every encoder layer of every dispatched
-   batch, and 4 replies match the einsum path at real tokens.
+   through InferenceModel from that layout, every bucket warmed with a
+   padded example, 64 padded requests (input_ids and attention_mask,
+   128 each) through a ServingWorker on the memory queue whose input_fn
+   passes both tensors; K1 must run with the mask for every encoder
+   layer of every dispatched batch, and 4 replies match the einsum path
+   at real tokens.
 
 9. K5b kernels: K1's source at head dims that are not a multiple of 64
    (the stock-kernel branch the reference takes at such head dims),
@@ -87,8 +91,12 @@ Phases:
    geometry), [8,32,1024,80] bf16 causal, a masked bf16 call at
    MiniLM-L12-H384's heads ([32,12,128,32], one left-padded row, one row
    with no real token) and [2,4,256,40] with logsumexp in both dtypes
-   (D = 8 mod 16), each timed beside its plain version, SDPA and its
-   bound. A head dim that is not a multiple of 8 must raise.
+   (D = 8 mod 16) and [8,12,512,20] bf16 causal (zero-padded to 24),
+   each timed beside its plain version, SDPA and its bound. Head dims
+   that are not a multiple of 8 (12, 20, 100) run zero-padded to the
+   next one: K1, and K1-lse, K2 and K3 under autograd, must match their
+   plain versions at the true head dim (bf16 and f32), with every launch
+   counted as K5b.
 10. K5b backward kernels: K2 and K3 (and K1 with logsumexp) at the same
    head dims, through backward_phase: every instantiation once ([4,2,128,
    128,d], D = 8..120 but not 64, bf16 and f32, without a mask and with
@@ -128,20 +136,40 @@ Phases:
    __max_tokens__ 32); the first 16 tokens of 4 streams against
    reference_generate, where a divergence at a top-1 - top-2 logit gap
    under 1e-3 is reported as an f32 tie and ends that comparison.
+14. K1 wide kernels: K1 at head dims 192 and 256 (the reference's Pallas
+   kernel at D % 64 == 0 above 128), through the flash_attention wrapper
+   against its plain version: every instantiation once (bf16 and f32,
+   causal and not, with and without logsumexp, lq == lk and lq < lk; one
+   summary line, each launch counted in wide_d_launches), then the
+   full-width prefill call at Gemma-2B's widths ([1,8,8192,256] f32
+   causal), K1 with logsumexp at its 2048 bucket and bf16 calls at D =
+   256 and 192 ([8,8,2048,d] causal), each timed beside its plain
+   version, SDPA and its bound.
+15. Generation, Gemma-2B widths: the generation phase at google/gemma-2b's
+   published widths in TinyGenLM's block (hidden 2048, 8 heads of 256,
+   18 layers, intermediate 16384, vocab 256000, max_len 8192; f32,
+   seeded weights; not Gemma's RMSNorm, RoPE, GeGLU, tied head or single
+   KV head), after the Phi-2 phase's memory is freed: 32 synthetic
+   requests (prompts uniform in [128, 8160], __max_tokens__ 32), 4
+   streams checked as at Phi-2's widths; K1 at D = 256 must launch once
+   a layer for every prefill in a bucket of 128 or more (wide_d_launches).
 
 Prints each phase's seconds, a {"kernels": [...]} line (K1, K2 and K3
 each with a kv_mask_call at the NER trained call; K5b's forward at the
-full-width prefill call with an lse_call at the MiniLM trained call and a
-kv_mask_call at the masked D = 32 call; flash_attn_bwd_dq_k5b and
-flash_attn_bwd_dkv_k5b at the MiniLM trained call with a kv_mask_call at
-its padded call, their launches the MiniLM fit's), the card's name and
-power limit, and last {"ok": true, "device": {...}}. Any failed check
-exits non-zero.
+full-width prefill call with an lse_call at the MiniLM trained call, a
+kv_mask_call at the masked D = 32 call and a padded_call at D = 20;
+flash_attn_bwd_dq_k5b and flash_attn_bwd_dkv_k5b at the MiniLM trained
+call with a kv_mask_call at its padded call, their launches the MiniLM
+fit's; flash_attn_fwd_wide at the Gemma-width prefill call with an
+lse_call and a bf16_call, its launches the Gemma phase's), the card's
+name and power limit, and last {"ok": true, "device": {...}}. Any failed
+check exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -220,9 +248,10 @@ def ptxas_lines(log: str) -> list:
     table, kernel = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*(flash_(?:fwd|bwd_dq|"
-                      r"bwd_dkv)_(?:bf16|f32)_kernel)ILi(\d+)ELb([01])E", line)
+                      r"bwd_dkv)_(?:bf16|f32)(?:_wide)?_kernel)ILi(\d+)E"
+                      r"(?:Lb([01])E)?", line)
         if m:
-            kernel = (m.group(1), int(m.group(3)), int(m.group(2)))
+            kernel = (m.group(1), int(m.group(3) or 0), int(m.group(2)))
             spill = ""
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -702,6 +731,9 @@ K5B_CASES = [
                                      zero_rows=(3,)), False),
     ("d40", (2, 4, 256, 256, 40), "bfloat16", True, None, True),
     ("d40", (2, 4, 256, 256, 40), "float32", True, None, True),
+    # a head dim that is not a multiple of 8: K5b at 24 on a zero-padded
+    # copy of q, k, v (the bound counts the true D's work)
+    ("padded_d20", (8, 12, 512, 512, 20), "bfloat16", True, None, False),
 ]
 # the head dims K5b is built for: multiples of 8 up to 128 but not of 64
 K5B_HEAD_DIMS = [d for d in range(8, 129, 8) if d % 64]
@@ -752,84 +784,66 @@ def k5b_bwd_phase(torch, peaks):
     return backward_phase(torch, peaks, K5B_BWD_CASES, 7, "k5b-bwd")
 
 
-def k5b_phase(torch, peaks):
-    """K5b through the ``flash_attention`` wrapper against its plain
-    version on the card: every instantiation once ([2,2,128,d], causal
-    without a mask and non-causal with one, with its logsumexp, in bf16
-    and f32), then ``K5B_CASES``, each timed (CUDA events and profiler
-    device time) beside its plain version, SDPA (a yardstick; the port
-    never calls it) and its bound. Also checks the gate: a head dim that
-    is not a multiple of 8 raises NotImplementedError. Returns the cases'
-    records."""
-    from analytics_zoo_tpu_torch.ops import flash_attention as fa
-
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rng = np.random.RandomState(5)
-
+def _make(torch, rng):
     def make(shape, dtype):
         return torch.from_numpy(
             rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
+    return make
 
-    def check(label, b, h, lq, lk, d, dt, causal, m, with_lse):
-        dtype = getattr(torch, dt)
-        q = make((b, h, lq, d), dtype)
-        k, v = make((b, h, lk, d), dtype), make((b, h, lk, d), dtype)
-        before = fa.flash_attention.small_d_launches
-        got = fa.flash_attention(q, k, v, causal, None, with_lse, m)
-        torch.cuda.synchronize()
-        if fa.flash_attention.small_d_launches != before + 1:
-            fail(f"K5b {label}: the wrapper did not count a K5b launch")
-        ref = fa.flash_attention_reference(q, k, v, causal, None, with_lse,
-                                           m)
-        out, lse = got if with_lse else (got, None)
-        ref_out, ref_lse = ref if with_lse else (ref, None)
-        if not torch.isfinite(out.float()).all():
-            fail(f"K5b {label}: non-finite output")
-        err, share = _excess(out, ref_out, TOL[dt])
-        if not share <= 1:
-            fail(f"K5b {label}: error above {TOL[dt]} * (1 + |ref|) "
-                 f"(max abs error {err})")
-        rec = {"max_abs_err": err, "tol": TOL[dt]}
-        if with_lse:
-            rec["lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
-            if not rec["lse_max_abs_err"] <= LSE_TOL[dt]:
-                fail(f"K5b {label}: lse error {rec['lse_max_abs_err']} > "
-                     f"{LSE_TOL[dt]}")
-        return q, k, v, rec
 
-    sweep = []
-    for d in K5B_HEAD_DIMS:
-        for dt in ("bfloat16", "float32"):
-            for masked in (False, True):
-                m = (torch.from_numpy(padding_mask(
-                    rng, 2, 128, 2, zero_rows=(1,))).cuda()
-                    if masked else None)
-                _, _, _, rec = check(f"d={d} {dt} mask={masked}", 2, 2,
-                                     128, 128, d, dt, not masked, m, True)
-                sweep.append(max(rec["max_abs_err"] / TOL[dt],
-                                 rec["lse_max_abs_err"] / LSE_TOL[dt]))
-    print(f"K5b: all {len(K5B_HEAD_DIMS)} head dims x bf16/f32 x "
-          f"mask/none match the plain version (largest error "
-          f"{max(sweep):.3g} of its tolerance)", flush=True)
+def fwd_check(torch, make, label, b, h, lq, lk, d, dt, causal, m, with_lse,
+              counter):
+    """One ``flash_attention`` call on random inputs against its plain
+    version (``TOL``, ``LSE_TOL``); the wrapper must count it in
+    ``counter`` (``small_d_launches`` for K5b, ``wide_d_launches`` above
+    D = 128). Returns (q, k, v, record)."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
-    x = make((1, 1, 128, 20), torch.float32)
-    try:
-        fa.flash_attention(x, x, x)
-        fail("K5b: head_dim 20 (not a multiple of 8) did not raise")
-    except NotImplementedError as e:
-        print(f"K5b: head_dim 20 raises: {str(e)[:80]}...", flush=True)
-    del x
+    dtype = getattr(torch, dt)
+    q = make((b, h, lq, d), dtype)
+    k, v = make((b, h, lk, d), dtype), make((b, h, lk, d), dtype)
+    before = getattr(fa.flash_attention, counter)
+    got = fa.flash_attention(q, k, v, causal, None, with_lse, m)
+    torch.cuda.synchronize()
+    if getattr(fa.flash_attention, counter) != before + 1:
+        fail(f"{label}: the wrapper did not count the launch in {counter}")
+    ref = fa.flash_attention_reference(q, k, v, causal, None, with_lse, m)
+    out, lse = got if with_lse else (got, None)
+    ref_out, ref_lse = ref if with_lse else (ref, None)
+    if not torch.isfinite(out.float()).all():
+        fail(f"{label}: non-finite output")
+    err, share = _excess(out, ref_out, TOL[dt])
+    if not share <= 1:
+        fail(f"{label}: error above {TOL[dt]} * (1 + |ref|) "
+             f"(max abs error {err})")
+    rec = {"max_abs_err": err, "tol": TOL[dt], "share": share}
+    if with_lse:
+        rec["lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
+        if not rec["lse_max_abs_err"] <= LSE_TOL[dt]:
+            fail(f"{label}: lse error {rec['lse_max_abs_err']} > "
+                 f"{LSE_TOL[dt]}")
+        rec["share"] = max(share, rec["lse_max_abs_err"] / LSE_TOL[dt])
+    return q, k, v, rec
 
+
+def timed_fwd_cases(torch, peaks, rng, cases, counter, label, iters=20):
+    """``fwd_check`` at each case, then the call timed (CUDA events and
+    profiler device time) beside its plain version, SDPA (a yardstick;
+    the port never calls it) and its bound. Returns the records."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    make = _make(torch, rng)
     checks = []
-    for name, (b, h, lq, lk, d), dt, causal, mask_of, with_lse in K5B_CASES:
+    for name, (b, h, lq, lk, d), dt, causal, mask_of, with_lse in cases:
         kind = "bf16" if dt == "bfloat16" else "f32"
         m = keep = None
         if mask_of is not None:
             m = torch.from_numpy(mask_of(rng, b, lk)).cuda()
             keep = fa._visible(lq, lk, causal, m, m.device).expand(
                 b, 1, lq, lk)[:, 0]
-        q, k, v, rec = check(f"{name} {dt}", b, h, lq, lk, d, dt, causal, m,
-                             with_lse)
+        q, k, v, rec = fwd_check(torch, make, f"{label} {name} {dt}", b, h,
+                                 lq, lk, d, dt, causal, m, with_lse, counter)
         rec.update(case=name, shape=[b, h, lq, lk, d], dtype=dt,
                    causal=causal)
         if m is not None:
@@ -841,17 +855,17 @@ def k5b_phase(torch, peaks):
         attn = None if m is None else m.bool()[:, None, None, :]
         # SDPA aligns a causal diagonal top-left: equal at lq == lk
         lib = lambda: sdpa(q, k, v, attn_mask=attn, is_causal=causal)
-        rec["ms"] = time_ms(torch, call, 20)
+        rec["ms"] = time_ms(torch, call, iters)
         rec["device_ms"] = device_ms(torch, call)
         rec["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_reference(
             q, k, v, causal, None, with_lse, m), 3)
-        rec["library_ms"] = time_ms(torch, lib, 20)
+        rec["library_ms"] = time_ms(torch, lib, iters)
         rec["library_device_ms"] = device_ms(torch, lib)
         rec["bound_ms"], rec["bound_by"] = bounds(
             b, h, lq, lk, d, q.element_size(), causal, peaks[kind],
             peaks["bw"], keep)["k1_lse" if with_lse else "k1"]
         checks.append(rec)
-        print(f"K5b {name} {dt} {[b, h, lq, lk, d]} causal={causal}"
+        print(f"{label} {name} {dt} {[b, h, lq, lk, d]} causal={causal}"
               + (f" real keys {rec['real_keys']}/{rec['keys']}, rows "
                  f"without a key {rec['rows_without_key']}"
                  if m is not None else "")
@@ -863,7 +877,134 @@ def k5b_phase(torch, peaks):
               f"({_ms(rec['library_device_ms'])}), bound "
               f"{rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
         del q, k, v
+        torch.cuda.empty_cache()
+    return checks
+
+
+# head dims that are not a multiple of 8: the wrappers zero-pad them to
+# the next one (the kernels read 16-byte rows)
+PADDED_HEAD_DIMS = (12, 20, 100)
+
+
+def padded_check(torch, rng):
+    """K1, then K1-lse, K2 and K3 under autograd, at ``PADDED_HEAD_DIMS``
+    (causal [2,2,128,d], bf16 and f32) against their plain versions at
+    the true head dim (``TOL``): every launch counted as K5b, every
+    output and gradient of the caller's shape."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    make = _make(torch, rng)
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    worst = 0.0
+    for d in PADDED_HEAD_DIMS:
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            q, k, v = (make((2, 2, 128, d), dtype).requires_grad_()
+                       for _ in range(3))
+            do = make((2, 2, 128, d), dtype)
+            before = [w.small_d_launches for w in wrappers]
+            with torch.no_grad():
+                plain_fwd = fa.flash_attention(q, k, v, True)
+            out = fa.flash_attention(q, k, v, True)
+            grads = torch.autograd.grad(out, (q, k, v), do)
+            torch.cuda.synchronize()
+            counted = [w.small_d_launches - n
+                       for w, n in zip(wrappers, before)]
+            if counted != [2, 1, 1]:
+                fail(f"padded d={d} {dt}: K1, K2, K3 counted {counted} "
+                     "K5b launches (want 2, 1, 1)")
+            with torch.no_grad():
+                ref, lse = fa.flash_attention_reference(q, k, v, True, None,
+                                                        True)
+                ref_grads = fa.flash_attention_bwd_reference(
+                    q, k, v, ref, lse, do, True)
+            for what, got, want in zip(
+                    ("K1", "K1-lse", "dq", "dk", "dv"),
+                    (plain_fwd, out, *grads), (ref, ref, *ref_grads)):
+                if tuple(got.shape) != tuple(want.shape):
+                    fail(f"padded d={d} {dt} {what}: shape "
+                         f"{tuple(got.shape)}, want {tuple(want.shape)}")
+                err, share = _excess(got, want, TOL[dt])
+                if not share <= 1:
+                    fail(f"padded d={d} {dt} {what}: error above "
+                         f"{TOL[dt]} * (1 + |ref|) (max abs error {err})")
+                worst = max(worst, share)
+    print(f"K5b padded: head dims {list(PADDED_HEAD_DIMS)} x bf16/f32, "
+          f"forward and backward, match the plain versions (largest error "
+          f"{worst:.3g} of its tolerance)", flush=True)
+
+
+def k5b_phase(torch, peaks):
+    """K5b through the ``flash_attention`` wrapper against its plain
+    version on the card: every instantiation once ([2,2,128,d], causal
+    without a mask and non-causal with one, with its logsumexp, in bf16
+    and f32), head dims that are not a multiple of 8 through the
+    wrappers' padding, forward and backward (``padded_check``), then
+    ``K5B_CASES``, each timed (``timed_fwd_cases``). Returns the cases'
+    records."""
+    rng = np.random.RandomState(5)
+    make = _make(torch, rng)
+    sweep = []
+    for d in K5B_HEAD_DIMS:
+        for dt in ("bfloat16", "float32"):
+            for masked in (False, True):
+                m = (torch.from_numpy(padding_mask(
+                    rng, 2, 128, 2, zero_rows=(1,))).cuda()
+                    if masked else None)
+                _, _, _, rec = fwd_check(
+                    torch, make, f"K5b d={d} {dt} mask={masked}", 2, 2, 128,
+                    128, d, dt, not masked, m, True, "small_d_launches")
+                sweep.append(rec["share"])
+    print(f"K5b: all {len(K5B_HEAD_DIMS)} head dims x bf16/f32 x "
+          f"mask/none match the plain version (largest error "
+          f"{max(sweep):.3g} of its tolerance)", flush=True)
+    padded_check(torch, rng)
+    checks = timed_fwd_cases(torch, peaks, rng, K5B_CASES,
+                             "small_d_launches", "K5b")
     print(json.dumps({"k5b_checks": checks}), flush=True)
+    return checks
+
+
+# K1 above D = 128: every instantiation once (D in {192, 256}, bf16 and
+# f32, causal and not, with and without logsumexp, lq == lk and lq < lk)
+WIDE_SWEEP = [
+    (f"d{d}", shape + (d,), dt, causal, None, with_lse)
+    for d in (192, 256) for dt in ("bfloat16", "float32")
+    for shape in ((2, 2, 128, 128), (1, 3, 128, 384))
+    for causal in (False, True) for with_lse in (False, True)]
+# the calls timed: the full-width prefill at Gemma-2B's widths (8 heads
+# of 256, f32, the 8192 bucket), K1 with logsumexp at its 2048 bucket,
+# and a bf16 call
+WIDE_CASES = [
+    ("gemma_prefill", (1, 8, 8192, 8192, 256), "float32", True, None,
+     False),
+    ("gemma_lse", (1, 8, 2048, 2048, 256), "float32", True, None, True),
+    ("bf16_d256", (8, 8, 2048, 2048, 256), "bfloat16", True, None, False),
+    ("bf16_d192", (8, 8, 2048, 2048, 192), "bfloat16", True, None, False),
+]
+
+
+def wide_phase(torch, peaks):
+    """K1 at D in {192, 256} through the ``flash_attention`` wrapper
+    against its plain version on the card (``WIDE_SWEEP``, one summary
+    line), then ``WIDE_CASES`` timed. Every launch must count in
+    ``wide_d_launches``. Returns the timed records."""
+    rng = np.random.RandomState(8)
+    make = _make(torch, rng)
+    sweep = []
+    for name, (b, h, lq, lk, d), dt, causal, _, with_lse in WIDE_SWEEP:
+        _, _, _, rec = fwd_check(
+            torch, make, f"K1 wide {name} {dt} {[b, h, lq, lk]} "
+            f"causal={causal} lse={with_lse}", b, h, lq, lk, d, dt, causal,
+            None, with_lse, "wide_d_launches")
+        sweep.append(rec["share"])
+    print(f"K1 wide: all {len(WIDE_SWEEP)} cases (D 192/256 x bf16/f32 x "
+          f"causal x lse x lq == lk or lq < lk) match the plain version "
+          f"(largest error {max(sweep):.3g} of its tolerance)", flush=True)
+    checks = timed_fwd_cases(torch, peaks, rng, WIDE_CASES,
+                             "wide_d_launches", "K1 wide", iters=10)
+    print(json.dumps({"wide_checks": checks}), flush=True)
     return checks
 
 
@@ -949,6 +1090,7 @@ def _reset_launches(fa):
     for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
               fa.flash_attention_bwd_dkv):
         w.launches = w.masked_launches = w.small_d_launches = 0
+        w.wide_d_launches = 0
 
 
 def _launches(fa):
@@ -1525,6 +1667,14 @@ GEN_REPO = {"model": dict(vocab=64, dim=32, heads=2, head_dim=16, layers=2,
 GEN_FULL = {"model": dict(vocab=51200, dim=2560, heads=32, head_dim=80,
                           layers=32, max_len=2048, mlp_ratio=4, seed=0),
             "slots": 8, "page_size": 16, "max_len": 2048}
+# google/gemma-2b's published widths (config.json: hidden 2048, 8 heads
+# of 256, 18 layers, intermediate 16384, vocab 256000, 8192 positions) in
+# TinyGenLM's block (pre-LN LayerNorm, learned positions, ReLU, no
+# biases, untied head, 8 KV heads -- not Gemma's RMSNorm, RoPE, GeGLU,
+# tied head and one KV head), f32, seeded weights: K1 at D = 256
+GEN_GEMMA = {"model": dict(vocab=256000, dim=2048, heads=8, head_dim=256,
+                           layers=18, max_len=8192, mlp_ratio=8, seed=0),
+             "slots": 8, "page_size": 16, "max_len": 8192}
 # a full-width divergence from the reference at a top-1 - top-2 logit gap
 # below this is an f32 tie (the logits spread about 50)
 TIE_GAP = 1e-3
@@ -1585,10 +1735,13 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
     outstanding (a bounded admission window, as
     scripts/perf_generation.py drives the JAX package). Checks that
     every stream gets contiguous chunks and one terminal chunk with
-    in-range tokens, that K5b launched once a layer for every prefill in
-    a bucket of 128 tokens or more (warm-up included), and the streams
-    against reference_generate. Then profiles the decode step with all
-    slots live at the longest prompts. Returns the summary."""
+    in-range tokens, that the prefill's flash kernel (K5b at a head dim
+    up to 128, counted in ``small_d_launches``; K1 above 128, in
+    ``wide_d_launches``) launched once a layer for every prefill in a
+    bucket of 128 tokens or more (warm-up included) and no other flash
+    launch ran, and the streams against reference_generate. Then
+    profiles the decode step with all slots live at the longest prompts.
+    Returns the summary."""
     from analytics_zoo_tpu_torch.common.config import get_config
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
     from analytics_zoo_tpu_torch.serving.generation import prefill_ladder
@@ -1604,15 +1757,17 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
     ladder = prefill_ladder(block["page_size"], block["max_len"])
     bucket = {u: next(b for b in ladder if b >= len(p))
               for u, p in prompts.items()}
-    want_k5b = layers * (sum(b >= 128 for b in ladder)
-                         + sum(b >= 128 for b in bucket.values()))
+    counter = ("wide_d_launches" if m["head_dim"] > 128
+               else "small_d_launches")
+    want = layers * (sum(b >= 128 for b in ladder)
+                     + sum(b >= 128 for b in bucket.values()))
     prefill0, step0 = (_hist("zoo_generation_prefill_duration_seconds"),
                        _hist("zoo_generation_decode_step_duration_seconds"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(fa)
     # ---- main path: launch() -> GenerationWorker -> DecodeEngine ->
-    # PagedKVCache -> TinyGenLM (prefill through K5b) ----
+    # PagedKVCache -> TinyGenLM (prefill through K5b, or K1 above 128) ----
     t0 = time.perf_counter()
     app = launch({"generation": block, "http": {"enabled": False}})
     up_s = time.perf_counter() - t0
@@ -1656,8 +1811,8 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
                 finished += 1
         wall = time.perf_counter() - t_start
         torch.cuda.synchronize()
-        k5b = fa.flash_attention.small_d_launches
-        k1 = fa.flash_attention.launches - k5b
+        launched = getattr(fa.flash_attention, counter)
+        other = fa.flash_attention.launches - launched
         # ---- end of the main path ----
         peak = torch.cuda.max_memory_allocated()
         prefill1, step1 = (
@@ -1678,10 +1833,11 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
             if len(rec["toks"]) != max_tokens or not all(
                     0 <= t < m["vocab"] for t in rec["toks"]):
                 fail(f"{label} {uri}: tokens {rec['toks']}")
-        if k5b != want_k5b or k1:
-            fail(f"{label}: K5b launched {k5b} times (want {layers} layers "
-                 f"x {want_k5b // layers} prefills in buckets >= 128, "
-                 f"warm-up included), K1 {k1}")
+        if launched != want or other:
+            fail(f"{label}: the prefill's flash kernel launched {launched} "
+                 f"times in {counter} (want {layers} layers x "
+                 f"{want // layers} prefills in buckets >= 128, warm-up "
+                 f"included), {other} other flash launches")
         compared, ties = _gen_reference_check(
             torch, engine, prompts, streams, n_check, check_tokens, tie_gap,
             label)
@@ -1718,7 +1874,8 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
         "decode_step_full_device_ms": step_device,
         "decode_gather_share": gather_share,
         "prefill_ms_by_bucket": by_bucket,
-        "k5b_launches": k5b, "k5b_launches_wanted": want_k5b,
+        "flash_counter": counter, "flash_launches": launched,
+        "flash_launches_wanted": want,
         "exact_tokens_compared": compared, "f32_ties": ties,
         "kv_pool_bytes": engine.cache.stats()["bytes"],
         "peak_mem_gib": peak / 2 ** 30,
@@ -1824,8 +1981,16 @@ def main() -> None:
             timed("generation, Phi-2 widths", generation_phase, torch,
                   "genfull", GEN_FULL, 32, (128, 2016), 32, 4, 16,
                   tie_gap=TIE_GAP)]
-    k5b_full, k5b_masked = _pick(k5b, "gen_full", "float32"), _pick(
-        k5b, "minilm_masked")
+    # the Phi-2 phase's weights and pool (about 22 GB) go before Gemma's
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide = timed("K1 wide kernels", wide_phase, torch, peaks)
+    gemma = timed("generation, Gemma-2B widths", generation_phase, torch,
+                  "gengemma", GEN_GEMMA, 32, (128, 8160), 32, 4, 16,
+                  tie_gap=TIE_GAP)
+    k5b_full, k5b_masked, k5b_padded = (
+        _pick(k5b, "gen_full", "float32"), _pick(k5b, "minilm_masked"),
+        _pick(k5b, "padded_d20"))
     mini, mini_padded = (_pick(k5b_bwd, "minilm_trained"),
                          _pick(k5b_bwd, "minilm_padded"))
 
@@ -1867,6 +2032,13 @@ def main() -> None:
                     library_backward_device_ms=masked_rec[
                         "sdpa_bwd_device_ms"])}
 
+    def pick_keys(rec, *extra):
+        """A timed ``timed_fwd_cases`` record's numbers."""
+        return {key: rec[key] for key in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_device_ms",
+            *extra)}
+
     def fits(kk):
         """(launches, masked, K5b) of one kernel over the BERT-base fits."""
         return tuple(a + b for a, b in zip(squad[kk], ner_fit[kk]))
@@ -1899,21 +2071,29 @@ def main() -> None:
             # (with logsumexp) by the MiniLM fit
             "name": "flash_attn_fwd_k5b", "route": "cuda",
             "source": K1_SOURCE, "replaces": K5B_REPLACES,
-            "launches": (sum(g["k5b_launches"] for g in gens)
+            "launches": (sum(g["flash_launches"] for g in gens)
                          + minilm["K1"][2]),
-            **{key: k5b_full[key] for key in (
-                "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms",
-                "library_device_ms")},
+            **pick_keys(k5b_full),
             "lse_call": lse_call(mini),
             "kv_mask_call": {key: k5b_masked[key] for key in (
                 "shape", "real_keys", "keys", "max_abs_err", "ms",
                 "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "library_device_ms")}},
+                "library_ms", "library_device_ms")},
+            "padded_call": pick_keys(k5b_padded)},
         bwd_row("flash_attn_bwd_dq_k5b", K2_SOURCE, K5B_REPLACES, "k2",
                 minilm["K2"], mini, mini_padded, K5B_REPLACES),
         bwd_row("flash_attn_bwd_dkv_k5b", K3_SOURCE, K5B_REPLACES, "k3",
-                minilm["K3"], mini, mini_padded, K5B_REPLACES)]}),
+                minilm["K3"], mini, mini_padded, K5B_REPLACES), {
+            # K1 at D = 256: the full-width prefill call at Gemma-2B's
+            # widths ([1,8,8192,256] f32, causal), launched by the Gemma
+            # phase's prefills
+            "name": "flash_attn_fwd_wide", "route": "cuda",
+            "source": K1_SOURCE, "replaces": K1_REPLACES,
+            "launches": gemma["flash_launches"],
+            **pick_keys(_pick(wide, "gemma_prefill", "float32")),
+            "lse_call": pick_keys(_pick(wide, "gemma_lse", "float32"),
+                                  "lse_max_abs_err"),
+            "bf16_call": pick_keys(_pick(wide, "bf16_d256"))}]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ parent commit unpacked with ``git archive`` into a directory that
 parent, change, ... (``--pairs`` pairs, 3 by default), each in a fresh
 process that imports that checkout's own ``chip_smoke.py`` and drives
 its phases whose figures swing with the host: K1-lse, K2 and K3 at the
-BERT-base trained call (device time), BERT-base serving, the NER
-fine-tune, NER serving and TinyGenLM generation at the repo geometry.
+BERT-base trained call (device time), BERT-base serving (with the
+seconds its save and its start-up take), the NER fine-tune, NER serving
+(start-up seconds too) and TinyGenLM generation at the repo geometry.
 Each checkout builds its kernels into its own ``build/``. Prints one
 JSON line a run and, last, each metric's runs and median per side.
 Needs one card.
@@ -36,6 +37,12 @@ SUMMARIES = (
     ("gen", "tokens_per_s", "gen_tokens_per_s"),
 )
 KERNELS = ("k1_lse", "k2", "k3")
+# (line pattern, metric name): seconds the phases print as they go
+SECONDS = (
+    (r"^serving: BERT-base saved in ([0-9.]+)s", "bert_save_s"),
+    (r"^serving: up in ([0-9.]+)s", "serving_up_s"),
+    (r"^serve-ner: up in ([0-9.]+)s", "ner_serving_up_s"),
+)
 
 
 def run_phases(checkout: str) -> None:
@@ -79,6 +86,10 @@ def figures(out: str) -> dict:
             rec = json.loads(line)["backward_checks"][0]
             for k in KERNELS:
                 got[f"{k}_device_ms"] = rec[f"{k}_device_ms"]
+    for pattern, name in SECONDS:
+        found = re.search(pattern, out, re.M)
+        if found:
+            got[name] = float(found.group(1))
     return got
 
 
@@ -114,7 +125,7 @@ def main() -> None:
                           "card": card and card.group(1), **got}),
               flush=True)
     names = [name for _, _, name in SUMMARIES] + [
-        f"{k}_device_ms" for k in KERNELS]
+        f"{k}_device_ms" for k in KERNELS] + [name for _, name in SECONDS]
     print(json.dumps({name: {side: {
         "runs": [r.get(name) for r in rs],
         "median": statistics.median(r[name] for r in rs if name in r)}

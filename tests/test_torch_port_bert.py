@@ -141,8 +141,9 @@ class TestSaveLoad:
         assert meta["class"] == "BERTClassifier"
         assert meta["config"] == dict(CFG, hidden_dropout=0.1,
                                       dtype="float32")
-        assert os.path.isfile(os.path.join(path, "weights",
-                                           "state_dict.pt"))
+        # the JAX package's layout: an Estimator checkpoint at step 0
+        for name in ("model.0", "optim.0", "meta.0.json", "latest"):
+            assert os.path.isfile(os.path.join(path, "weights", name)), name
         loaded = ZooModel.load_model(path, device="cpu")
         assert isinstance(loaded, BERTClassifier)
         np.testing.assert_array_equal(loaded.predict(x, batch_size=2),

@@ -1,6 +1,7 @@
 """PyTorch port, package rules: the port, ``chip_smoke.py`` and
 ``scripts/compare_port_commits.py`` (both run where there is no JAX)
-import nothing of JAX or of the JAX package; entry points default to CUDA and
+import nothing of JAX, flax or msgpack, or of the JAX package; entry
+points default to CUDA and
 raise without a GPU; K1's build raises without ``nvcc`` instead of
 handing back the plain result; both packages declare the same config
 keys."""
@@ -16,7 +17,9 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "analytics_zoo_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex",
+# msgpack: the card's host lacks it; the port reads and writes flax's
+# checkpoint bytes itself (utils/flax_msgpack.py)
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "msgpack",
              "analytics_zoo_tpu"}
 
 
@@ -52,6 +55,7 @@ def test_importing_the_port_loads_no_jax():
             "import analytics_zoo_tpu_torch.ops.flash_attention\n"
             "import analytics_zoo_tpu_torch.learn\n"
             "import analytics_zoo_tpu_torch.learn.checkpoint\n"
+            "import analytics_zoo_tpu_torch.utils.flax_msgpack\n"
             "import analytics_zoo_tpu_torch.data\n"
             "import analytics_zoo_tpu_torch.common.triggers\n"
             "import analytics_zoo_tpu_torch.models.text.bert_squad\n"

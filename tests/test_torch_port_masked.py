@@ -291,11 +291,23 @@ class TestDispatchRoute:
         ({"has_mask": True}, None),
         ({"dropout_rate": 0.1}, None),
         ({"l": 192}, None),
-        # K1-K3 at D in {192, 256} are still to port: the einsum path
-        ({"d": 192}, None),
-        ({"d": 192, "causal": True}, None),
-        ({"d": 256}, None),
-        ({"d": 256, "causal": True}, None),
+        # K2/K3 at D in {192, 256} are still to port: under autograd the
+        # einsum path (K1 alone takes a call that needs no gradient)
+        ({"d": 192, "needs_grad": True}, None),
+        ({"d": 192, "causal": True, "needs_grad": True}, None),
+        ({"d": 256, "needs_grad": True}, None),
+        ({"d": 256, "causal": True, "needs_grad": True}, None),
+        # K1 at D in {192, 256}, unmasked; the reference takes a masked
+        # call there, and every other D above 128, to its einsum path
+        ({"d": 192}, "kernels"),
+        ({"d": 256, "causal": True}, "kernels"),
+        ({"d": 256, "lk": 384, "causal": True}, "kernels"),
+        ({"d": 256, "has_key_padding_mask": True}, None),
+        ({"d": 320}, None),
+        ({"d": 512, "causal": True}, None),
+        # a head dim the kernels reach only padded (to 24): still K5b
+        ({"d": 20, "causal": True}, "k5b"),
+        ({"d": 64, "has_key_padding_mask": True}, "kernels"),
     ])
     def test_route(self, change, route):
         assert port_attention._flash_route(**dict(self.BASE, **change)) \
