@@ -1,7 +1,8 @@
 """Transformer and BERT layers as ``nn.Module``s.
 
 The counterpart of ``analytics_zoo_tpu/keras/layers/transformer.py``
-(``MultiHeadSelfAttention``, ``TransformerBlock``, ``BERTModule``).
+(``MultiHeadSelfAttention``, ``TransformerBlock``, ``TransformerModule``,
+``BERTModule``).
 Attention goes through ``ops.attention.dot_product_attention``, which
 takes the K1 CUDA kernel on the card.
 
@@ -23,8 +24,8 @@ activations' device, which every dropout draws from (hidden and
 attention-prob dropout alike); a dropout that should run without one
 raises rather than being skipped.
 
-The sequence-parallel ring branch of the reference (``seq_axis``) and
-``TransformerModule`` are still to be ported (ROADMAP queue 1).
+The sequence-parallel ring branch of the reference (``seq_axis``) is
+still to be ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -132,12 +133,17 @@ def dropout(x: torch.Tensor, rate: float,
 
 
 def reset_parameters(module: nn.Module, seed: int = 0) -> nn.Module:
-    """Fill every parameter of ``module`` from one CPU generator seeded
-    with ``seed`` (submodules in registration order)."""
-    gen = torch.Generator().manual_seed(int(seed))
+    """Fill every parameter of ``module`` from one generator seeded with
+    ``seed`` (submodules in registration order), on the device of its
+    parameters: a module on the CPU draws from a CPU generator, one built
+    on the card fills its weights there."""
+    first = next(module.parameters(), None)
+    gen = torch.Generator(first.device if first is not None else "cpu")
+    gen.manual_seed(int(seed))
     for m in module.modules():
         fn = getattr(m, "reset_parameters", None)
         if fn is not None and isinstance(m, (Dense, LayerNorm, Embed,
+                                             TransformerModule,
                                              BERTModule)):
             fn(gen)
     return module
@@ -221,6 +227,54 @@ class TransformerBlock(nn.Module):
         if train:
             h = dropout(h, self.hidden_dropout, rng)
         return self.ln_ffn(x + h)
+
+
+class TransformerModule(nn.Module):
+    """GPT-style decoder stack over token ids: token embedding plus a
+    learned position table (``[seq_len, hidden]``), embedding dropout,
+    then ``n_block`` causal post-LN ``TransformerBlock``s (tanh GELU,
+    LayerNorm epsilon 1e-5), named ``block_{i}``.
+
+    Input: ``ids`` [B, L] with L <= ``seq_len``. Returns the last block's
+    [B, L, H], or every block's as a tuple with ``output_all_block``.
+    ``intermediate_size`` defaults to 4 * hidden. Every attention call is
+    causal with Lq == Lk and unmasked, so on the card it takes the flash
+    kernels at the head dims they are built for (``ops.attention``)."""
+
+    def __init__(self, vocab: int, seq_len: int, hidden_size: int = 768,
+                 n_head: int = 12, n_block: int = 12,
+                 intermediate_size: Optional[int] = None,
+                 hidden_dropout: float = 0.1, attn_dropout: float = 0.1,
+                 output_all_block: bool = False,
+                 dtype: Optional[torch.dtype] = None,
+                 seq_axis: Optional[str] = None):
+        super().__init__()
+        self.n_block = n_block
+        self.hidden_dropout = hidden_dropout
+        self.output_all_block = output_all_block
+        self.token_embed = Embed(vocab, hidden_size)
+        self.position_embed = nn.Parameter(torch.empty(seq_len, hidden_size))
+        inter = intermediate_size or 4 * hidden_size
+        for i in range(n_block):
+            self.add_module(f"block_{i}", TransformerBlock(
+                hidden_size, n_head, inter, hidden_dropout=hidden_dropout,
+                attn_dropout=attn_dropout, causal=True, dtype=dtype,
+                seq_axis=seq_axis))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.position_embed.normal_(0.0, 0.01, generator=gen)
+
+    def forward(self, x, train: bool = False,
+                rng: Optional[torch.Generator] = None):
+        h = self.token_embed(x) + self.position_embed[None, :x.shape[1]]
+        if train:
+            h = dropout(h, self.hidden_dropout, rng)
+        outs = []
+        for i in range(self.n_block):
+            h = getattr(self, f"block_{i}")(h, train=train, rng=rng)
+            outs.append(h)
+        return tuple(outs) if self.output_all_block else h
 
 
 class BERTModule(nn.Module):

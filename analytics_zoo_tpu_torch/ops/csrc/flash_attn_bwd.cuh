@@ -41,6 +41,36 @@
 // The f32 path gives each of 8 threads D/8 dimensions of a row. Each D is
 // its own instantiation, so the register arrays stay sized to it.
 //
+// Head dims above 128 (K2 and K3 at D in {192, 256}). The reference's
+// Pallas kernels take any D % 64 == 0 (its dispatch sends an unmasked call
+// there: analytics_zoo_tpu/ops/attention.py:107-112; a masked one takes
+// its einsum path, so these instantiations are unmasked). The D <= 128
+// designs below do not stretch that far:
+//   * K2 bf16: dQ's accumulator is D/2 registers a thread (128 at 256)
+//     beside S and dP. The same template runs with kv tiles of kWideKv = 32
+//     rows (S and dP 16 registers each, as K1's wide kernel does); Q and dO
+//     stay in shared memory, their A fragments read every k-step as at any
+//     D, and the 77-102 KB of shared memory are dynamic.
+//   * K3 bf16: dK and dV together are D registers a thread, which 255 do
+//     not hold beside S^T and dP^T at 192 or 256. So kSplit warps share
+//     each 16-key slab (flash_bwd_dkv_bf16_wide_kernel, 4 * kSplit warps a
+//     block): every warp of a slab computes the slab's S^T and dP^T over all
+//     of D, and accumulates dK and dV for its own D / kSplit of the
+//     dimensions (64 + 64 registers at D = 256, kSplit = 2), over q tiles
+//     of kWideQ = 32 rows. The price is S^T and dP^T computed kSplit times:
+//     4 * D * (kSplit + 1) flops a visible pair instead of 8 * D, +50% at
+//     kSplit = 2. Splitting dK/dV across warps, not the q loop into two
+//     passes (dV, then dK: +25% flops, Q and dO read twice), keeps one pass
+//     over the q tiles and one pair of exp and rounding work a score a
+//     warp; a head dim above 256 raises kSplit (4 at D = 512 keeps 64
+//     accumulator registers) rather than the design.
+//   * f32: 8 threads own D/8 = 32 dims of a row each (24 at 192), which
+//     registers hold, dealt in 4-float chunks round the row's 8 threads
+//     (32 contiguous dims a thread would put all 8 on one shared-memory
+//     bank at D = 256), and the staged tiles shrink to kWideFmaTile = 16
+//     rows so two of them stay in 32 KB of static shared memory. D <= 128
+//     keeps contiguous dims and 32-row tiles.
+//
 // Design. Pallas ran each kernel as a grid whose last axis was a sequential
 // accumulation in VMEM scratch. Here a thread block owns one output tile and
 // walks the other axis in a loop of its own, so neither kernel needs atomics
@@ -111,6 +141,10 @@ constexpr int kThreads = 128;    // 4 warps
 constexpr int kPad = 8;          // bf16 elements of smem row padding
 constexpr int kFmaRows = 16;     // rows a block owns on the f32 path
 constexpr int kFmaTile = 32;     // rows per staged tile on the f32 path
+constexpr int kWideKv = 32;      // K2 bf16 above D = 128: kv rows a tile
+constexpr int kWideQ = 32;       // K3 bf16 above D = 128: q rows a tile
+constexpr int kWideSplit = 2;    // K3 bf16 above D = 128: warps a key slab
+constexpr int kWideFmaTile = 16; // f32 above D = 128: rows a staged tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -234,11 +268,11 @@ __device__ __forceinline__ void load_b_rows(uint32_t& b0, uint32_t& b1,
 }
 
 // copy `rows` rows of D bf16 from device memory (row stride `sl`) into a
-// padded smem tile, 16 bytes a thread
-template <int D, int LD>
+// padded smem tile, 16 bytes a thread of the block's NT
+template <int D, int LD, int NT = kThreads>
 __device__ __forceinline__ void stage(uint16_t* t, const uint16_t* src,
                                       long long sl, int rows, int tid) {
-  for (int i = tid; i < rows * D / 8; i += kThreads) {
+  for (int i = tid; i < rows * D / 8; i += NT) {
     const int r = i / (D / 8);
     const int c = (i - r * (D / 8)) * 8;
     *reinterpret_cast<uint4*>(&t[r * LD + c]) =
@@ -246,25 +280,39 @@ __device__ __forceinline__ void stage(uint16_t* t, const uint16_t* src,
   }
 }
 
-template <int D>
+// K2 (and K3 up to D = 128): Q, dO, K, V tiles (K and V of KV rows), lse
+// and delta of 64 rows, and the kv tile's mask bytes (K2)
+template <int D, int KV = kTile>
 constexpr size_t bf16_smem_bytes() {
-  return 4 * kTile * (D + kPad) * sizeof(uint16_t) + 2 * kTile * sizeof(float)
-         + kTile;  // K2: the kv tile's mask bytes
+  return (2 * kTile + 2 * KV) * (D + kPad) * sizeof(uint16_t)
+         + 2 * kTile * sizeof(float) + KV;
+}
+
+// K3 above D = 128: K and V of 64 keys, Q and dO of kWideQ rows, their lse
+// and delta
+template <int D>
+constexpr size_t bf16_wide_dkv_smem_bytes() {
+  return (2 * kTile + 2 * kWideQ) * (D + kPad) * sizeof(uint16_t)
+         + 2 * kWideQ * sizeof(float);
 }
 
 // ------------------------------------------------------------ K2, bf16 --
-template <int D, bool kMask>
+// KV: kv rows a staged tile (kTile; kWideKv above D = 128, unmasked)
+template <int D, bool kMask, int KV = kTile>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16_kernel(const Params p) {
-  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
+  static_assert(D % 8 == 0 && (D <= 128 || (D % 64 == 0 && D <= 256
+                                            && !kMask && KV == kWideKv)),
+                "head_dim: a multiple of 8 up to 128, or 192 or 256 "
+                "unmasked with kWideKv-row kv tiles");
   constexpr int kSteps = (D + 15) / 16;  // k-steps of the products over D
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char zoo_smem[];
   uint16_t* sQ = reinterpret_cast<uint16_t*>(zoo_smem);
   uint16_t* sDO = sQ + kTile * LD;
   uint16_t* sK = sDO + kTile * LD;
-  uint16_t* sV = sK + kTile * LD;
-  float* sLse = reinterpret_cast<float*>(sV + kTile * LD);  // log2 domain
+  uint16_t* sV = sK + KV * LD;
+  float* sLse = reinterpret_cast<float*>(sV + KV * LD);  // log2 domain
   float* sDelta = sLse + kTile;
   uint8_t* sM = reinterpret_cast<uint8_t*>(sDelta + kTile);  // tile's mask
 
@@ -338,25 +386,25 @@ flash_bwd_dq_bf16_kernel(const Params p) {
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   }
 
-  int n_tiles = p.lk / kTile;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + kTile - 1 + offset) / kTile + 1);
+  int n_tiles = p.lk / KV;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kTile - 1 + offset) / KV + 1);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     __syncthreads();  // every warp is done with the previous tile
-    stage<D, LD>(sK, k + static_cast<long long>(kt) * kTile * p.k_sl, p.k_sl,
-                 kTile, tid);
-    stage<D, LD>(sV, v + static_cast<long long>(kt) * kTile * p.v_sl, p.v_sl,
-                 kTile, tid);
-    if (kMask && tid < kTile) sM[tid] = mrow[kt * kTile + tid];
+    stage<D, LD>(sK, k + static_cast<long long>(kt) * KV * p.k_sl, p.k_sl,
+                 KV, tid);
+    stage<D, LD>(sV, v + static_cast<long long>(kt) * KV * p.v_sl, p.v_sl,
+                 KV, tid);
+    if (kMask && tid < KV) sM[tid] = mrow[kt * KV + tid];
     __syncthreads();
 
     // a warp whose rows all lie above this tile has nothing to add
-    if (p.causal && q0 + row0 + 15 + offset < kt * kTile) continue;
+    if (p.causal && q0 + row0 + 15 + offset < kt * KV) continue;
 
-    // S = Q K^T and dP = dO V^T for 16 rows x 64 keys
-    float s[kTile / 8][4], dp[kTile / 8][4];
+    // S = Q K^T and dP = dO V^T for 16 rows x KV keys
+    float s[KV / 8][4], dp[KV / 8][4];
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
+    for (int n = 0; n < KV / 8; ++n) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
       dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
     }
@@ -366,7 +414,7 @@ flash_bwd_dq_bf16_kernel(const Params p) {
       load_a<LD, D>(qa, sQ + row0 * LD, g, t4, c);
       load_a<LD, D>(da, sDO + row0 * LD, g, t4, c);
 #pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
+      for (int n = 0; n < KV / 8; ++n) {
         const int at = (n * 8 + g) * LD + c * 16 + t4 * 2;
         uint32_t b0, b1;
         load_b_cols<D>(b0, b1, sK + at, c);
@@ -378,13 +426,13 @@ flash_bwd_dq_bf16_kernel(const Params p) {
 
     // dS = P * (dP - delta) * scale, P = exp(scale * S - lse); masked -> 0
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
+    for (int n = 0; n < KV / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool top = e < 2;
         float pr = exp2f(s[n][e] * p.scale_log2 - (top ? lse_a : lse_b));
         const int col = n * 8 + t4 * 2 + (e & 1);  // key within the tile
-        if (p.causal && kt * kTile + col > q0 + (top ? ra : rb) + offset) {
+        if (p.causal && kt * KV + col > q0 + (top ? ra : rb) + offset) {
           pr = 0.f;
         }
         if (kMask && sM[col] == 0) pr = 0.f;
@@ -395,7 +443,7 @@ flash_bwd_dq_bf16_kernel(const Params p) {
     // dQ += dS K, 16 keys at a time; dS's accumulator fragments of key
     // columns [16j, 16j+16) are exactly its A fragment
 #pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
+    for (int j = 0; j < KV / 16; ++j) {
       uint32_t a[4];
       a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
       a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
@@ -583,6 +631,169 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
   }
 }
 
+// ------------------------------------------------- K3, bf16, D > 128 --
+// K3 at D in {192, 256}, unmasked. One block owns 64 keys as four 16-key
+// slabs; kSplit warps share a slab (warp w: slab w % 4, dimensions
+// [part * D / kSplit, (part + 1) * D / kSplit) for part = w / 4). Every
+// warp of a slab computes the slab's S^T = K Q^T and dP^T = V dO^T over all
+// of D for a q tile of kWideQ rows, rebuilds P^T and dS^T in registers as
+// the D <= 128 kernel does, and accumulates dV += P^T dO and dK += dS^T Q
+// for its own dimensions only. Shared memory (dynamic): K and V [64][D+8],
+// Q and dO [kWideQ][D+8] bf16 -- 77,056 bytes at D = 192, 101,632 at 256.
+template <int D, int kSplit>
+__global__ void __launch_bounds__(kThreads * kSplit)
+flash_bwd_dkv_bf16_wide_kernel(const Params p) {
+  constexpr int kNT = kThreads * kSplit;  // 4 slabs x kSplit warps
+  constexpr int DW = D / kSplit;          // dK/dV dimensions a warp owns
+  static_assert(D % 64 == 0 && D > 128 && DW % 8 == 0 && DW <= 128,
+                "head_dim: a multiple of 64 above 128, split into at most "
+                "128 dimensions a warp");
+  constexpr int LD = D + kPad;
+  constexpr int QT = kWideQ;
+  extern __shared__ __align__(16) unsigned char zoo_smem[];
+  uint16_t* sK = reinterpret_cast<uint16_t*>(zoo_smem);
+  uint16_t* sV = sK + kTile * LD;
+  uint16_t* sQ = sV + kTile * LD;
+  uint16_t* sDO = sQ + QT * LD;
+  float* sLse = reinterpret_cast<float*>(sDO + QT * LD);  // log2 domain
+  float* sDelta = sLse + QT;
+
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int k0 = kt * kTile;
+  const int offset = p.lk - p.lq;
+  const int row0 = (warp & 3) * 16;    // this warp's slab in the tile
+  const int c0 = (warp >> 2) * DW;     // its first dK/dV dimension
+
+  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + hh * p.q_sh;
+  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + hh * p.k_sh;
+  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + hh * p.v_sh;
+  const uint16_t* dout =
+      static_cast<const uint16_t*>(p.dout) + b * p.do_sb + hh * p.do_sh;
+  uint16_t* dk = static_cast<uint16_t*>(p.dk) + b * p.dk_sb + hh * p.dk_sh;
+  uint16_t* dv = static_cast<uint16_t*>(p.dv) + b * p.dv_sb + hh * p.dv_sh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.lq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.lq;
+
+  stage<D, LD, kNT>(sK, k + k0 * p.k_sl, p.k_sl, kTile, tid);
+  stage<D, LD, kNT>(sV, v + k0 * p.v_sl, p.v_sl, kTile, tid);
+
+  const int ka = k0 + row0 + g;        // the two keys a thread holds
+  const int kb = ka + 8;
+
+  float acc_k[DW / 8][4], acc_v[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n) {
+    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
+    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
+  }
+
+  // the first q tile whose last row sees this block's first key
+  int first = 0;
+  if (p.causal) {
+    const int x = k0 - offset - (QT - 1);
+    first = x > 0 ? (x + QT - 1) / QT : 0;
+  }
+  const int n_tiles = p.lq / QT;
+
+  for (int qt = first; qt < n_tiles; ++qt) {
+    const int q0 = qt * QT;
+    __syncthreads();  // every warp is done with the previous tile
+    stage<D, LD, kNT>(sQ, q + static_cast<long long>(q0) * p.q_sl, p.q_sl, QT,
+                      tid);
+    stage<D, LD, kNT>(sDO, dout + static_cast<long long>(q0) * p.do_sl,
+                      p.do_sl, QT, tid);
+    if (tid < QT) {
+      sLse[tid] = lse[q0 + tid] * kLog2e;
+      sDelta[tid] = delta[q0 + tid];
+    }
+    __syncthreads();
+
+    // a warp whose first key lies after every row's view has nothing to add
+    if (p.causal && k0 + row0 > q0 + QT - 1 + offset) continue;
+
+    // S^T = K Q^T and dP^T = V dO^T for 16 keys x QT queries, over all of D
+    float s[QT / 8][4], dp[QT / 8][4];
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      uint32_t ka_f[4], va_f[4];
+      load_a<LD, D>(ka_f, sK + row0 * LD, g, t4, c);
+      load_a<LD, D>(va_f, sV + row0 * LD, g, t4, c);
+#pragma unroll
+      for (int n = 0; n < QT / 8; ++n) {
+        const int at = (n * 8 + g) * LD + c * 16 + t4 * 2;
+        uint32_t b0, b1;
+        load_b_cols<D>(b0, b1, sQ + at, c);
+        mma_16816(s[n], ka_f, b0, b1);
+        load_b_cols<D>(b0, b1, sDO + at, c);
+        mma_16816(dp[n], va_f, b0, b1);
+      }
+    }
+
+    // P^T and dS^T; the columns are queries
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = n * 8 + t4 * 2 + (e & 1);
+        float pr = exp2f(s[n][e] * p.scale_log2 - sLse[qc]);
+        if (p.causal && (e < 2 ? ka : kb) > q0 + qc + offset) pr = 0.f;
+        s[n][e] = pr;
+        dp[n][e] = pr * (dp[n][e] - sDelta[qc]) * p.scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q over this warp's dimensions, 16
+    // queries at a time
+#pragma unroll
+    for (int j = 0; j < QT / 16; ++j) {
+      uint32_t pa[4], da[4];
+      pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+      da[0] = pack_bf16(dp[2 * j][0], dp[2 * j][1]);
+      da[1] = pack_bf16(dp[2 * j][2], dp[2 * j][3]);
+      da[2] = pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]);
+      da[3] = pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3]);
+      const int qr = j * 16 + t4 * 2;
+#pragma unroll
+      for (int n = 0; n < DW / 8; ++n) {
+        uint32_t b0, b1;
+        load_b_rows<LD>(b0, b1, sDO, qr, c0 + n * 8 + g);
+        mma_16816(acc_v[n], pa, b0, b1);
+        load_b_rows<LD>(b0, b1, sQ, qr, c0 + n * 8 + g);
+        mma_16816(acc_k[n], da, b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n) {
+    const int col = c0 + n * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(dk + ka * p.dk_sl + col) =
+        pack_bf16(acc_k[n][0], acc_k[n][1]);
+    *reinterpret_cast<uint32_t*>(dk + kb * p.dk_sl + col) =
+        pack_bf16(acc_k[n][2], acc_k[n][3]);
+    *reinterpret_cast<uint32_t*>(dv + ka * p.dv_sl + col) =
+        pack_bf16(acc_v[n][0], acc_v[n][1]);
+    *reinterpret_cast<uint32_t*>(dv + kb * p.dv_sl + col) =
+        pack_bf16(acc_v[n][2], acc_v[n][3]);
+  }
+}
+
 // ------------------------------------------------------------- K2, f32 --
 template <int DP>
 __device__ __forceinline__ float row_dot(const float (&x)[DP], const float* y) {
@@ -595,10 +806,31 @@ __device__ __forceinline__ float row_dot(const float (&x)[DP], const float* y) {
   return acc;
 }
 
-template <int D>
+// Above D = 128 a row's 8 threads hold its dims in 4-float chunks dealt
+// round them (dims ((i / 4) * 8 + part) * 4 + i % 4 of thread `part`), so
+// that they read 8 neighbouring chunks of a staged row: 32 contiguous dims
+// a thread at D = 256 would put all 8 on one shared-memory bank. Up to 128
+// a thread's DP dims are contiguous from part * DP, as they always were.
+__device__ __forceinline__ int dealt_dim(int part, int i) {
+  return ((i / 4) * 8 + part) * 4 + (i % 4);
+}
+
+template <int DP>
+__device__ __forceinline__ float row_dot_dealt(const float (&x)[DP],
+                                               const float* y, int part) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < DP; ++i) acc = fmaf(x[i], y[dealt_dim(part, i)], acc);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  return acc;
+}
+
+template <int D, int KV>
 __device__ __forceinline__ void stage_f32(float (*t)[D], const float* src,
                                           long long sl, int tid) {
-  for (int i = tid; i < kFmaTile * D / 4; i += kThreads) {
+  for (int i = tid; i < KV * D / 4; i += kThreads) {
     const int r = i / (D / 4);
     const int c = (i - r * (D / 4)) * 4;
     *reinterpret_cast<float4*>(&t[r][c]) =
@@ -606,14 +838,19 @@ __device__ __forceinline__ void stage_f32(float (*t)[D], const float* src,
   }
 }
 
-template <int D, bool kMask>
+// KV: rows a staged tile (kFmaTile; kWideFmaTile above D = 128, unmasked)
+template <int D, bool kMask, int KV = kFmaTile>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32_kernel(const Params p) {
-  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
+  static_assert(D % 8 == 0 && (D <= 128 || (D % 64 == 0 && D <= 256
+                                            && !kMask && KV == kWideFmaTile)),
+                "head_dim: a multiple of 8 up to 128, or 192 or 256 "
+                "unmasked with kWideFmaTile-row tiles");
   constexpr int DP = D / 8;  // dimensions per thread
-  __shared__ __align__(16) float sK[kFmaTile][D];
-  __shared__ __align__(16) float sV[kFmaTile][D];
-  __shared__ uint8_t sM[kFmaTile];
+  constexpr bool kDealt = D > 128;
+  __shared__ __align__(16) float sK[KV][D];
+  __shared__ __align__(16) float sV[KV][D];
+  __shared__ uint8_t sM[KV];
 
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -624,6 +861,12 @@ flash_bwd_dq_f32_kernel(const Params p) {
   const int row = qt * kFmaRows + (tid >> 3);
   const int d0 = part * DP;
   const int offset = p.lk - p.lq;
+  // this thread's i-th dim: of a staged row, and in a device row whose
+  // first element is `base` (spelled base + d0 + i up to 128, as always)
+  auto dim = [part, d0](int i) { return kDealt ? dealt_dim(part, i) : d0 + i; };
+  auto elt = [part, d0](long long base, int i) {
+    return kDealt ? base + dealt_dim(part, i) : base + d0 + i;
+  };
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
@@ -637,9 +880,9 @@ flash_bwd_dq_f32_kernel(const Params p) {
   float part_delta = 0.f;
 #pragma unroll
   for (int i = 0; i < DP; ++i) {
-    qr[i] = q[row * p.q_sl + d0 + i];
-    dr[i] = dout[row * p.do_sl + d0 + i];
-    part_delta = fmaf(dr[i], o[row * p.o_sl + d0 + i], part_delta);
+    qr[i] = q[elt(row * p.q_sl, i)];
+    dr[i] = dout[elt(row * p.do_sl, i)];
+    part_delta = fmaf(dr[i], o[elt(row * p.o_sl, i)], part_delta);
     acc[i] = 0.f;
   }
   part_delta += __shfl_xor_sync(0xffffffffu, part_delta, 1);
@@ -649,42 +892,53 @@ flash_bwd_dq_f32_kernel(const Params p) {
   if (part == 0) p.delta[at] = del;
   const float lse2 = p.lse[at] * kLog2e;
 
-  int n_tiles = p.lk / kFmaTile;
+  int n_tiles = p.lk / KV;
   if (p.causal) {
-    n_tiles = min(n_tiles, (qt * kFmaRows + kFmaRows - 1 + offset) / kFmaTile + 1);
+    n_tiles = min(n_tiles, (qt * kFmaRows + kFmaRows - 1 + offset) / KV + 1);
   }
   for (int kt = 0; kt < n_tiles; ++kt) {
     __syncthreads();
-    stage_f32<D>(sK, k + static_cast<long long>(kt) * kFmaTile * p.k_sl, p.k_sl, tid);
-    stage_f32<D>(sV, v + static_cast<long long>(kt) * kFmaTile * p.v_sl, p.v_sl, tid);
-    if (kMask && tid < kFmaTile) sM[tid] = mrow[kt * kFmaTile + tid];
+    stage_f32<D, KV>(sK, k + static_cast<long long>(kt) * KV * p.k_sl, p.k_sl, tid);
+    stage_f32<D, KV>(sV, v + static_cast<long long>(kt) * KV * p.v_sl, p.v_sl, tid);
+    if (kMask && tid < KV) sM[tid] = mrow[kt * KV + tid];
     __syncthreads();
 #pragma unroll 4
-    for (int j = 0; j < kFmaTile; ++j) {
-      const float s = row_dot<DP>(qr, &sK[j][d0]);
-      const float dpv = row_dot<DP>(dr, &sV[j][d0]);
+    for (int j = 0; j < KV; ++j) {
+      float s, dpv;
+      if constexpr (kDealt) {
+        s = row_dot_dealt<DP>(qr, sK[j], part);
+        dpv = row_dot_dealt<DP>(dr, sV[j], part);
+      } else {
+        s = row_dot<DP>(qr, &sK[j][d0]);
+        dpv = row_dot<DP>(dr, &sV[j][d0]);
+      }
       float pr = exp2f(s * p.scale_log2 - lse2);
-      if (p.causal && kt * kFmaTile + j > row + offset) pr = 0.f;
+      if (p.causal && kt * KV + j > row + offset) pr = 0.f;
       if (kMask && sM[j] == 0) pr = 0.f;
       const float ds = pr * (dpv - del) * p.scale;
 #pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] = fmaf(ds, sK[j][d0 + i], acc[i]);
+      for (int i = 0; i < DP; ++i) acc[i] = fmaf(ds, sK[j][dim(i)], acc[i]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < DP; ++i) dq[row * p.dq_sl + d0 + i] = acc[i];
+  for (int i = 0; i < DP; ++i) dq[elt(row * p.dq_sl, i)] = acc[i];
 }
 
 // ------------------------------------------------------------- K3, f32 --
-template <int D, bool kMask>
+// KV: q rows a staged tile (kFmaTile; kWideFmaTile above D = 128, unmasked)
+template <int D, bool kMask, int KV = kFmaTile>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_f32_kernel(const Params p) {
-  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
+  static_assert(D % 8 == 0 && (D <= 128 || (D % 64 == 0 && D <= 256
+                                            && !kMask && KV == kWideFmaTile)),
+                "head_dim: a multiple of 8 up to 128, or 192 or 256 "
+                "unmasked with kWideFmaTile-row tiles");
   constexpr int DP = D / 8;
-  __shared__ __align__(16) float sQ[kFmaTile][D];
-  __shared__ __align__(16) float sDO[kFmaTile][D];
-  __shared__ float sLse[kFmaTile];
-  __shared__ float sDelta[kFmaTile];
+  constexpr bool kDealt = D > 128;
+  __shared__ __align__(16) float sQ[KV][D];
+  __shared__ __align__(16) float sDO[KV][D];
+  __shared__ float sLse[KV];
+  __shared__ float sDelta[KV];
   __shared__ float sE[D];        // dV share of the rows that see no key
   __shared__ int sFirst;
 
@@ -697,6 +951,12 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   const int key = kt * kFmaRows + (tid >> 3);
   const int d0 = part * DP;
   const int offset = p.lk - p.lq;
+  // this thread's i-th dim: of a staged row, and in a device row whose
+  // first element is `base` (spelled base + d0 + i up to 128, as always)
+  auto dim = [part, d0](int i) { return kDealt ? dealt_dim(part, i) : d0 + i; };
+  auto elt = [part, d0](long long base, int i) {
+    return kDealt ? base + dealt_dim(part, i) : base + d0 + i;
+  };
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
@@ -717,58 +977,64 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   float kr[DP], vr[DP], acc_k[DP], acc_v[DP];
 #pragma unroll
   for (int i = 0; i < DP; ++i) {
-    kr[i] = k[key * p.k_sl + d0 + i];
-    vr[i] = v[key * p.v_sl + d0 + i];
+    kr[i] = k[elt(key * p.k_sl, i)];
+    vr[i] = v[elt(key * p.v_sl, i)];
     acc_k[i] = acc_v[i] = 0.f;
   }
 
   int first = 0;
   if (p.causal) {
-    const int x = kt * kFmaRows - offset - (kFmaTile - 1);
-    first = x > 0 ? (x + kFmaTile - 1) / kFmaTile : 0;
+    const int x = kt * kFmaRows - offset - (KV - 1);
+    first = x > 0 ? (x + KV - 1) / KV : 0;
   }
-  const int n_tiles = p.lq / kFmaTile;
+  const int n_tiles = p.lq / KV;
   for (int qt = first; qt < n_tiles; ++qt) {
-    const int q0 = qt * kFmaTile;
+    const int q0 = qt * KV;
     __syncthreads();
-    stage_f32<D>(sQ, q + static_cast<long long>(q0) * p.q_sl, p.q_sl, tid);
-    stage_f32<D>(sDO, dout + static_cast<long long>(q0) * p.do_sl, p.do_sl, tid);
-    if (tid < kFmaTile) {
+    stage_f32<D, KV>(sQ, q + static_cast<long long>(q0) * p.q_sl, p.q_sl, tid);
+    stage_f32<D, KV>(sDO, dout + static_cast<long long>(q0) * p.do_sl, p.do_sl, tid);
+    if (tid < KV) {
       sLse[tid] = lse[q0 + tid] * kLog2e;
       sDelta[tid] = delta[q0 + tid];
     }
     __syncthreads();
 #pragma unroll 4
-    for (int i = 0; i < kFmaTile; ++i) {
-      const float s = row_dot<DP>(kr, &sQ[i][d0]);
-      const float dpv = row_dot<DP>(vr, &sDO[i][d0]);
+    for (int i = 0; i < KV; ++i) {
+      float s, dpv;
+      if constexpr (kDealt) {
+        s = row_dot_dealt<DP>(kr, sQ[i], part);
+        dpv = row_dot_dealt<DP>(vr, sDO[i], part);
+      } else {
+        s = row_dot<DP>(kr, &sQ[i][d0]);
+        dpv = row_dot<DP>(vr, &sDO[i][d0]);
+      }
       float pr = exp2f(s * p.scale_log2 - sLse[i]);
       if (p.causal && key > q0 + i + offset) pr = 0.f;
       if (kMask && !real) pr = 0.f;
       const float ds = pr * (dpv - sDelta[i]) * p.scale;
 #pragma unroll
       for (int d = 0; d < DP; ++d) {
-        acc_v[d] = fmaf(pr, sDO[i][d0 + d], acc_v[d]);
-        acc_k[d] = fmaf(ds, sQ[i][d0 + d], acc_k[d]);
+        acc_v[d] = fmaf(pr, sDO[i][dim(d)], acc_v[d]);
+        acc_k[d] = fmaf(ds, sQ[i][dim(d)], acc_k[d]);
       }
     }
   }
 #pragma unroll
   for (int d = 0; d < DP; ++d) {
-    dk[key * p.dk_sl + d0 + d] = acc_k[d];
-    dv[key * p.dv_sl + d0 + d] = kMask ? acc_v[d] + sE[d0 + d] : acc_v[d];
+    dk[elt(key * p.dk_sl, d)] = acc_k[d];
+    dv[elt(key * p.dv_sl, d)] = kMask ? acc_v[d] + sE[dim(d)] : acc_v[d];
   }
 }
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int threads = kThreads) {
   if (smem > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -782,7 +1048,8 @@ int check(int dtype, int lq, int lk, int batch, int heads, int causal) {
 }
 
 // fn(std::integral_constant<int, D>) for head dim d: K2/K3 at 64 and 128,
-// K5b backward at the other multiples of 8 up to 128; 1004 for any other d
+// K5b backward at the other multiples of 8 up to 128, K2/K3 at 192 and 256
+// (unmasked: fn returns 1006 for a mask there); 1004 for any other d
 template <typename Fn>
 int with_head_dim(int d, Fn&& fn) {
   switch (d) {
@@ -802,6 +1069,8 @@ int with_head_dim(int d, Fn&& fn) {
     case 112: return fn(std::integral_constant<int, 112>{});
     case 120: return fn(std::integral_constant<int, 120>{});
     case 128: return fn(std::integral_constant<int, 128>{});
+    case 192: return fn(std::integral_constant<int, 192>{});
+    case 256: return fn(std::integral_constant<int, 256>{});
     default: return 1004;
   }
 }

@@ -1,6 +1,7 @@
 // K2 (flash-attention dQ and delta) for Hopper, sm_90a: the exported entry
 // point and its instantiations, every multiple of 8 up to 128 (K5b backward
-// at all but 64 and 128), bf16 and f32, with and without a key-padding mask.
+// at all but 64 and 128), bf16 and f32, with and without a key-padding mask,
+// and 192 and 256, bf16 and f32, without one.
 // The kernel templates and design notes are in flash_attn_bwd.cuh.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
@@ -11,8 +12,9 @@
 
 // dtype: 0 = float32, 1 = bfloat16. Writes dq and delta ([B*H, Lq] f32,
 // contiguous). mask: [B, Lk] bytes (nonzero = real key) with batch stride
-// mask_sb, or null for none. Returns a cudaError_t (0 = launched); 1000 + n
-// flags an argument the kernel does not take.
+// mask_sb, or null for none (required above d = 128). Returns a
+// cudaError_t (0 = launched); 1000 + n flags an argument the kernel does
+// not take.
 extern "C" int zoo_flash_attn_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq,
@@ -48,14 +50,26 @@ extern "C" int zoo_flash_attn_bwd_dq(
   const bool masked = mask != nullptr;  // the kMask instantiation or not
   return with_head_dim(d, [&](auto dc) -> int {
     constexpr int D = decltype(dc)::value;
-    if (dtype == 1) {
-      const dim3 grid(lq / kTile, batch * heads);
-      constexpr size_t smem = bf16_smem_bytes<D>();
-      return masked ? launch(flash_bwd_dq_bf16_kernel<D, true>, grid, smem, p, s)
-                    : launch(flash_bwd_dq_bf16_kernel<D, false>, grid, smem, p, s);
+    if constexpr (D > 128) {
+      // 192 and 256: 32-row kv tiles (bf16), 16-row tiles (f32), unmasked
+      if (masked) return 1006;
+      if (dtype == 1) {
+        constexpr size_t smem = bf16_smem_bytes<D, kWideKv>();
+        return launch(flash_bwd_dq_bf16_kernel<D, false, kWideKv>,
+                      dim3(lq / kTile, batch * heads), smem, p, s);
+      }
+      return launch(flash_bwd_dq_f32_kernel<D, false, kWideFmaTile>,
+                    dim3(lq / kFmaRows, batch * heads), 0, p, s);
+    } else {
+      if (dtype == 1) {
+        const dim3 grid(lq / kTile, batch * heads);
+        constexpr size_t smem = bf16_smem_bytes<D>();
+        return masked ? launch(flash_bwd_dq_bf16_kernel<D, true>, grid, smem, p, s)
+                      : launch(flash_bwd_dq_bf16_kernel<D, false>, grid, smem, p, s);
+      }
+      const dim3 grid(lq / kFmaRows, batch * heads);
+      return masked ? launch(flash_bwd_dq_f32_kernel<D, true>, grid, 0, p, s)
+                    : launch(flash_bwd_dq_f32_kernel<D, false>, grid, 0, p, s);
     }
-    const dim3 grid(lq / kFmaRows, batch * heads);
-    return masked ? launch(flash_bwd_dq_f32_kernel<D, true>, grid, 0, p, s)
-                  : launch(flash_bwd_dq_f32_kernel<D, false>, grid, 0, p, s);
   });
 }

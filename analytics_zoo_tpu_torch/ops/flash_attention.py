@@ -1,6 +1,7 @@
 """Flash attention, forward (K1) and backward (K2 dQ, K3 dK/dV), and K5b
 (both directions at head dims up to 128 that are not a multiple of 64):
-hand-written CUDA kernels for Hopper, and their gradient (K4).
+hand-written CUDA kernels for Hopper, and their gradient (K4), at every
+head dim up to 128 and at 192 and 256.
 
 The counterpart of ``analytics_zoo_tpu/ops/pallas_attention.py``: exact
 ``softmax(scale * Q K^T) V`` on ``[B, H, L, D]``, causal mask aligned
@@ -48,17 +49,18 @@ its custom_vjp; TinyGenLM's prefill at D = 16, a MiniLM-sized BERT's
 fine-tune at D = 32): the same sources, K1 and K2/K3 instantiated at
 every multiple of 8 up to 128.
 
-Head dims. The kernels are built for every multiple of 8 up to 128 in
-both directions (``BWD_HEAD_DIMS``) and, forward only, for 192 and 256
-(``FWD_HEAD_DIMS``): the reference's Pallas kernel at D % 64 == 0 above
-128, which its dispatch takes without a key-padding mask, so those
-instantiations take no mask. A head dim below 128 that is not a multiple
-of 8 (JAX's stock kernel takes any D <= 128) runs at the next multiple
-of 8: the wrappers zero-pad Q, K, V (and O and dO) along D, keep the
-scale of the true D, and cut O, dQ, dK and dV back. Zero columns add
-nothing to Q K^T, and V's give output columns that are dropped, so this
-is the same function on one padded copy of the inputs; the launch counts
-as K5b. ``FlashAttention`` pads on the CPU too, so its wiring runs the
+Head dims. The kernels are built for every multiple of 8 up to 128 and
+for 192 and 256, in both directions (``BWD_HEAD_DIMS``). Above 128 they
+are the reference's Pallas kernels at D % 64 == 0, which its dispatch
+takes without a key-padding mask, so those instantiations take no mask.
+Other head dims above 128 (320, 384, 512: the same Pallas kernels) are
+still to port (ROADMAP section 2, item 2). A head dim below 128 that is
+not a multiple of 8 (JAX's stock kernel takes any D <= 128) runs at the
+next multiple of 8: the wrappers zero-pad Q, K, V (and O and dO) along
+D, keep the scale of the true D, and cut O, dQ, dK and dV back. Zero
+columns add nothing to Q K^T, and V's give output columns that are
+dropped, so this is the same function on one padded copy of the inputs;
+the launch counts as K5b. ``FlashAttention`` pads on the CPU too, so its wiring runs the
 same way on both devices.
 
 Other shapes the kernels take: L and Lk multiples of ``TILE`` (64); f32
@@ -95,10 +97,9 @@ EMPTY_LSE = -1e30
 # The plain versions below are the CPU path, so take that call here.
 torch.exp(torch.zeros(1 << 17))
 
-# head dims the kernels are built for: K2 and K3 (and K1) at every
-# multiple of 8 up to 128, K1 also at 192 and 256 (without a mask)
-BWD_HEAD_DIMS = tuple(range(8, 129, 8))
-FWD_HEAD_DIMS = BWD_HEAD_DIMS + (192, 256)
+# head dims the kernels are built for, in both directions: every
+# multiple of 8 up to 128, and 192 and 256 (without a mask)
+BWD_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -371,16 +372,16 @@ def _cut(d: int, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 def _check_head_dim(d: int, backward: bool = False,
                     masked: bool = False) -> None:
-    """Raise unless a kernel is built for head dim ``d``: the forward's
-    ``FWD_HEAD_DIMS``, or with ``backward`` (K1-lse, K2, K3)
-    ``BWD_HEAD_DIMS``; with a key-padding mask (``masked``) only up to
-    128. The wrappers pad other head dims below 128 to a multiple of 8
-    before they ask."""
+    """Raise unless a kernel is built for head dim ``d`` (``BWD_HEAD_DIMS``,
+    in either direction; ``backward`` names K1-lse, K2 and K3 in the
+    message); with a key-padding mask (``masked``) only up to 128. The
+    wrappers pad other head dims below 128 to a multiple of 8 before they
+    ask."""
     if masked and d > 128:
         raise NotImplementedError(
             f"flash kernel at head_dim {d}: no masked kernel above 128 "
             "(the reference takes its einsum path for such a call)")
-    if d in (BWD_HEAD_DIMS if backward else FWD_HEAD_DIMS):
+    if d in BWD_HEAD_DIMS:
         return
     if d < 128 and d % 8:
         raise NotImplementedError(
@@ -389,9 +390,10 @@ def _check_head_dim(d: int, backward: bool = False,
             "to one")
     raise NotImplementedError(
         f"flash kernel at head_dim {d}: "
-        + ("K2 and K3 take multiples of 8 up to 128; at 192 and 256 they "
-           "are still to port (ROADMAP section 2)" if backward else
-           "K1 takes multiples of 8 up to 128, 192 and 256"))
+        + ("K1-lse, K2 and K3" if backward else "K1")
+        + " take multiples of 8 up to 128, 192 and 256; the other head "
+        "dims the reference's Pallas kernels take above 128 (multiples "
+        "of 64) are still to port (ROADMAP section 2, item 2)")
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -649,7 +651,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # kernel launches of each wrapper, those of them given a mask, those at a
 # head dim up to 128 that is not a multiple of 64 (K5b, forward and
-# backward) and those above 128 (K1 at 192 and 256)
+# backward) and those above 128 (192 and 256, forward and backward)
 for _wrapper in (flash_attention, flash_attention_bwd_dq,
                  flash_attention_bwd_dkv):
     _wrapper.launches = 0

@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # all phases (needs one card)
     python3 chip_smoke.py --profile  # + profiles of one served batch and
-                                     #   of one SQuAD, one NER and one
-                                     #   MiniLM train step
+                                     #   of one SQuAD, one NER, one
+                                     #   MiniLM and one LM train step
 
 Phases:
 1. Build: compiles the port's CUDA sources (one nvcc per source, side by
@@ -153,6 +153,27 @@ Phases:
    requests (prompts uniform in [128, 8160], __max_tokens__ 32), 4
    streams checked as at Phi-2's widths; K1 at D = 256 must launch once
    a layer for every prefill in a bucket of 128 or more (wide_d_launches).
+16. K2/K3 wide kernels: K1, K1 with logsumexp, K2 and K3 at head dims 192
+   and 256 through backward_phase: every instantiation once (bf16 and
+   f32, causal and not, lq == lk and lq < lk; one summary line, each
+   launch counted in wide_d_launches), then the GPT-J-width LM's trained
+   call ([4,16,2048,256] bf16 causal, views into the qkv projection), its
+   f32 gradient check's call ([1,16,2048,256]) and [4,16,2048,192] bf16,
+   each timed beside its plain version, SDPA and its bound.
+17. GPT-J-width LM: TransformerModule at EleutherAI/gpt-j-6b's published
+   widths (hidden 4096, 16 heads of 256, intermediate 16384, vocab 50400,
+   2048 positions, LayerNorm epsilon 1e-5, no dropout; 8 of its 28
+   layers; bf16 blocks, f32 parameters and an untied f32 head; post-LN,
+   learned positions, seeded weights) trained as a causal LM through
+   Estimator(module, loss="sparse_categorical_crossentropy",
+   optimizer=Adam).fit on a synthetic next-token stream (lm_data, 4 x
+   2048 tokens a step, 2 epochs of 8 steps, the second timed). Before the
+   fit, one step's gradients flash against einsum at batch 1, in f32 (it
+   must reject dQ zeroed and dK and dV swapped) and bf16. K1-lse, K2 and
+   K3 must each launch at least 8 times a step, every launch a wide one
+   (D = 256), and the last logged loss must be below the first. Prints
+   steps/s, tokens/s, MFU (bench.py's formula), peak memory and the
+   logged losses.
 
 Prints each phase's seconds, a {"kernels": [...]} line (K1, K2 and K3
 each with a kv_mask_call at the NER trained call; K5b's forward at the
@@ -161,9 +182,12 @@ kv_mask_call at the masked D = 32 call and a padded_call at D = 20;
 flash_attn_bwd_dq_k5b and flash_attn_bwd_dkv_k5b at the MiniLM trained
 call with a kv_mask_call at its padded call, their launches the MiniLM
 fit's; flash_attn_fwd_wide at the Gemma-width prefill call with an
-lse_call and a bf16_call, its launches the Gemma phase's), the card's
-name and power limit, and last {"ok": true, "device": {...}}. Any failed
-check exits non-zero.
+lse_call, a bf16_call and a trained_lse_call at the LM's call, its
+launches the Gemma phase's and the LM fit's; flash_attn_bwd_dq_wide and
+flash_attn_bwd_dkv_wide at the LM's trained call with an f32_call and a
+d192_call, their launches the LM fit's), the card's name and power
+limit, and last {"ok": true, "device": {...}}. Any failed check exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -171,6 +195,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import logging
 import os
 import re
 import subprocess
@@ -494,7 +519,7 @@ def _right_100(rng, b, lk):
 # calls whose q/k/v are views into the fused qkv projection and whose dO
 # is laid out as the attention output ([B, L, H, D] memory)
 VIEW_CASES = ("trained", "ner_trained", "squad_padded", "minilm_trained",
-              "minilm_padded")
+              "minilm_padded", "gptj_trained", "gptj_f32")
 # name, (b, h, lq, lk, d), dtype, causal, mask (a function of the rng,
 # b and lk; None: no mask), timed. "trained" is the call one BERT-base
 # SQuAD train step makes per layer
@@ -1008,6 +1033,45 @@ def wide_phase(torch, peaks):
     return checks
 
 
+# K2 and K3 above D = 128 (with K1 and K1-lse beside them): every
+# instantiation once (D in {192, 256}, bf16 and f32, causal and not, lq ==
+# lk and lq < lk)
+WIDE_BWD_SWEEP = [
+    (f"d{d}", shape + (d,), dt, causal, None, False)
+    for d in (192, 256) for dt in ("bfloat16", "float32")
+    for shape in ((2, 2, 128, 128), (1, 3, 128, 384))
+    for causal in (False, True)]
+# the calls timed: the one a train step of the GPT-J-width LM makes per
+# layer (4 x 2048 tokens, 16 heads of 256, causal, views into the qkv
+# projection), its f32 gradient check's (batch 1), and bf16 at D = 192
+WIDE_BWD_CASES = [
+    ("gptj_trained", (4, 16, 2048, 2048, 256), "bfloat16", True, None, True),
+    ("gptj_f32", (1, 16, 2048, 2048, 256), "float32", True, None, True),
+    ("bf16_d192", (4, 16, 2048, 2048, 192), "bfloat16", True, None, True),
+]
+
+
+def wide_bwd_phase(torch, peaks):
+    """K2 and K3 at D in {192, 256} through ``backward_phase``: every
+    instantiation once (``WIDE_BWD_SWEEP``, one summary line; each case
+    must count K1's two launches and one of K2 and of K3 in
+    ``wide_d_launches``), then ``WIDE_BWD_CASES`` timed. Returns the
+    timed records."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    before = [w.wide_d_launches for w in wrappers]
+    backward_phase(torch, peaks, WIDE_BWD_SWEEP, 10, "wide-bwd-sweep",
+                   quiet=True)
+    counted = [w.wide_d_launches - n for w, n in zip(wrappers, before)]
+    n = len(WIDE_BWD_SWEEP)
+    if counted != [2 * n, n, n]:
+        fail(f"wide backward: K1, K2, K3 counted {counted} wide launches in "
+             f"{n} sweep cases (want {[2 * n, n, n]})")
+    return backward_phase(torch, peaks, WIDE_BWD_CASES, 12, "wide-bwd")
+
+
 def _pick(records, name, dt="bfloat16"):
     return next(r for r in records if r["case"] == name and r["dtype"] == dt)
 
@@ -1095,8 +1159,10 @@ def _reset_launches(fa):
 
 def _launches(fa):
     """{kernel: (launches, launches with a mask, launches at a head dim
-    that is not a multiple of 64)} since the last reset."""
-    return {name: (w.launches, w.masked_launches, w.small_d_launches)
+    that is not a multiple of 64, launches above D = 128)} since the last
+    reset."""
+    return {name: (w.launches, w.masked_launches, w.small_d_launches,
+                   w.wide_d_launches)
             for name, w in (
         ("K1", fa.flash_attention), ("K2", fa.flash_attention_bwd_dq),
         ("K3", fa.flash_attention_bwd_dkv))}
@@ -1364,18 +1430,39 @@ def fault_controls(torch, module, xb, yb, g_einsum, tol, faults, loss_fn,
     return rel
 
 
-def learn_phase(torch, cls, base, x, y, batch, loss_fn, names, faults,
+class _Logged(logging.Handler):
+    """The losses the Estimator logs (step 1 and every
+    ``zoo.train.log_every_n_steps``), as (step, loss)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.steps = []
+
+    def emit(self, record):
+        if record.msg.startswith("epoch %d step %d loss"):
+            self.steps.append((record.args[1], record.args[2]))
+
+
+def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
                 masked=False, label="learn", save_to=None, device="cuda",
-                profile=False):
+                profile=False, check_batch=None, infer=None,
+                loss_falls=False):
     """The flash-vs-einsum gradient checks at the initial weights (f32,
     with its planted ``faults``, which it must reject, and bf16; where
-    the batch carries an ``attention_mask``, both again without it),
-    then the fine-tune of ``cls`` on (``x``, ``y``)
-    through ZooModel.fit -> Estimator.fit (2 epochs, the second timed),
-    then evaluate and predict; saves the fitted model to ``save_to`` if
-    given. K1, K2 and K3 must each launch (with the mask, where
-    ``masked``) at least once per encoder layer a step. Returns the
-    fit's ``_launches``."""
+    the batch carries an ``attention_mask``, both again without it) on
+    the first ``check_batch`` samples (default ``batch``), then the fit
+    on (``x``, ``y``: an id array, or a dict of arrays) through
+    ``fit`` -> Estimator.fit (2 epochs, the second timed, the loss logged
+    at each epoch's end), then ``infer(model, x, y, batch, label)`` on the
+    trained model (default ``evaluate_predict``; it returns figures for
+    the summary); saves the
+    fitted model to ``save_to`` if given. ``build(**overrides)`` makes the
+    model from ``base`` with seed 0: a ZooModel (``fit`` is
+    ``ZooModel.fit``), or a bare module with its Estimator in a
+    namespace of the same attributes and a ``name``. K1, K2 and K3 must
+    each launch (with the mask, where ``masked``) at least once per layer
+    a step; with ``loss_falls`` the last logged step's loss must be below
+    the first's. Returns the fit's ``_launches``."""
     from analytics_zoo_tpu_torch.common.config import get_config
     from analytics_zoo_tpu_torch.learn.optim import param_tree
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
@@ -1385,27 +1472,38 @@ def learn_phase(torch, cls, base, x, y, batch, loss_fn, names, faults,
     # it would route around the kernels
     cfg.set("zoo.ops.attention_impl", "flash")
     cuda = device == "cuda"
-    n, seq = x["input_ids"].shape
+    ids = x["input_ids"] if isinstance(x, dict) else x
+    n, seq = ids.shape
     steps_per_epoch = n // batch
+    check_batch = check_batch or batch
     grad = dict(loss_fn=loss_fn, names=names)
+
+    def first(k):
+        """The first ``k`` samples of ``x``, as tensors on the device."""
+        def take(a):
+            return torch.from_numpy(a[:k]).to(device)
+        return ({key: take(a) for key, a in x.items()} if isinstance(x, dict)
+                else take(x))
+
     # one step's gradients at the initial weights and the first batch,
     # hidden dropout off. In f32: flash (K1-lse, K2, K3) against einsum
     # attention, and the same with the backward broken on purpose
-    xb = {k: torch.from_numpy(a[:batch]).to(device) for k, a in x.items()}
-    yb = torch.from_numpy(y[:batch]).to(device)
+    xb = first(check_batch)
+    yb = torch.from_numpy(y[:check_batch]).to(device)
     # the batches the checks run on: the first, and without its mask
     batches = {"": xb}
-    if "attention_mask" in xb:
+    if isinstance(xb, dict) and "attention_mask" in xb:
         batches[" unmasked"] = {k: t for k, t in xb.items()
                                 if k != "attention_mask"}
-    f32 = cls(device=device, seed=0, **dict(base, dtype="float32"))
+    f32 = build(dtype="float32")
     refs, rel32 = {}, {}
     for tag, xc in batches.items():
         refs[tag] = step_grads(torch, f32.module, xc, yb, "einsum", **grad)
         rel32[tag] = _rel(step_grads(torch, f32.module, xc, yb, "flash",
                                      **grad)[1], refs[tag][1])
         print(f"{label}{tag}: f32 gradients flash vs einsum rel_err="
-              f"{rel32[tag]} (tol {F32_GRAD_TOL})", flush=True)
+              f"{rel32[tag]} (tol {F32_GRAD_TOL}; batch {check_batch})",
+              flush=True)
         if not all(r <= F32_GRAD_TOL for r in rel32[tag].values()):
             fail(f"{label}{tag}: f32 gradients flash vs einsum differ: "
                  f"{rel32[tag]}")
@@ -1415,10 +1513,12 @@ def learn_phase(torch, cls, base, x, y, batch, loss_fn, names, faults,
                                      **grad)}
     del f32
     if cuda:
+        gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    model = cls(device=device, seed=0, **base)
-    print(f"{label}: {cls.__name__} built in {time.perf_counter() - t0:.1f}s",
+    model = build()
+    model_name = getattr(model, "name", type(model).__name__)
+    print(f"{label}: {model_name} built in {time.perf_counter() - t0:.1f}s",
           flush=True)
     rels, dlosses = {}, {}
     for tag, xc in batches.items():
@@ -1438,16 +1538,24 @@ def learn_phase(torch, cls, base, x, y, batch, loss_fn, names, faults,
     # the same faults against the bf16 check, for the record
     planted["bf16"] = fault_controls(torch, model.module, xb, yb, g_einsum,
                                      None, faults, label=label, **grad)
-    del g_einsum
+    del g_einsum, xb, yb
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    logged = _Logged()
+    est_logger = logging.getLogger("analytics_zoo_tpu_torch.learn.estimator")
+    est_logger.addHandler(logged)
+    cfg.set("zoo.train.log_every_n_steps", steps_per_epoch)
     _reset_launches(fa)
-    # ---- main path: ZooModel.fit -> Estimator.fit ----
+    # ---- main path: fit (ZooModel.fit) -> Estimator.fit ----
     t0 = time.perf_counter()
-    hist = model.fit((x, y), batch_size=batch, epochs=2)
-    if cuda:
-        torch.cuda.synchronize()
+    try:
+        hist = model.fit((x, y), batch_size=batch, epochs=2)
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        est_logger.removeHandler(logged)
+        cfg.unset("zoo.train.log_every_n_steps")
     fit_s = time.perf_counter() - t0
     launches = _launches(fa)
     # ---- end of the main path ----
@@ -1461,6 +1569,8 @@ def learn_phase(torch, cls, base, x, y, batch, loss_fn, names, faults,
     # every step's loss was finite
     if not all(np.isfinite(losses)):
         fail(f"{label}: non-finite training loss: {losses}")
+    if loss_falls and not logged.steps[-1][1] < logged.steps[0][1]:
+        fail(f"{label}: the loss did not fall: logged {logged.steps}")
     need = base["n_block"] * steps if cuda else 0
     for kname, counts in launches.items():
         if counts[int(masked)] < need:
@@ -1471,7 +1581,7 @@ def learn_phase(torch, cls, base, x, y, batch, loss_fn, names, faults,
     sps = steps_per_epoch / timed
     # one epoch's real tokens (the mask's ones) and padded tokens
     real = (int(np.count_nonzero(x["attention_mask"]))
-            if "attention_mask" in x else n * seq)
+            if isinstance(x, dict) and "attention_mask" in x else n * seq)
     p_dense = sum(p.numel() for pname, p in param_tree(model.module).items()
                   if "embed" not in pname.lower())
     flops_per_token = (6 * p_dense
@@ -1480,31 +1590,22 @@ def learn_phase(torch, cls, base, x, y, batch, loss_fn, names, faults,
     # (padding included), as the kernels and GEMMs do the work for it
     mfu = sps * batch * seq * flops_per_token / BF16_PEAK
 
-    # evaluate and predict on the same Estimator
-    m = 2 * batch
-    xe = {k: a[:m] for k, a in x.items()}
-    ev = model.evaluate((xe, y[:m]), batch_size=batch)
-    pred = model.predict(xe, batch_size=batch)
-    if not np.isfinite(ev["loss"]):
-        fail(f"{label} evaluate: non-finite loss {ev}")
-    for t in pred if isinstance(pred, (tuple, list)) else (pred,):
-        if t.shape[:2] != (m, seq) or not np.isfinite(t).all():
-            fail(f"{label} predict: bad output {t.shape}")
-    acc = (cls.token_accuracy(pred, y[:m]) if hasattr(cls, "token_accuracy")
-           else None)
+    inferred = (infer or evaluate_predict)(model, x, y, batch, label)
     if save_to is not None:
         model.save_model(save_to)
     summary = {
-        "model": cls.__name__, "config": base, "seq": seq, "batch": batch,
-        "steps": steps, "losses": losses, "fit_s": fit_s,
+        "model": model_name, "config": base, "seq": seq, "batch": batch,
+        "steps": steps, "losses": losses,
+        "logged_step_losses": logged.steps, "fit_s": fit_s,
         "timed_epoch_s": timed, "steps_per_s": sps,
         "samples_per_s": sps * batch, "tokens_per_s": sps * batch * seq,
         "real_tokens_per_s": real / timed, "real_token_share": real / (n * seq),
-        "dense_params": p_dense, "mfu_bf16": mfu,
-        "peak_mem_gib": peak / 2 ** 30 if cuda else None,
-        "eval_loss": ev["loss"], "token_accuracy": acc,
-        "launches": {k: {"all": a, "masked": mk, "small_d": sd}
-                     for k, (a, mk, sd) in launches.items()},
+        "dense_params": p_dense, "flops_per_token": flops_per_token,
+        "mfu_bf16": mfu, "peak_mem_gib": peak / 2 ** 30 if cuda else None,
+        **inferred,
+        "launches": {k: {"all": a, "masked": mk, "small_d": sd, "wide_d": wd}
+                     for k, (a, mk, sd, wd) in launches.items()},
+        "check_batch": check_batch,
         "grad_rel_err": {tag.strip() or "batch": dict(
             rels[tag], f32_flash_vs_einsum=rel32[tag]) for tag in rels},
         "loss_flash_vs_einsum": {tag.strip() or "batch": dlosses[tag]
@@ -1513,8 +1614,34 @@ def learn_phase(torch, cls, base, x, y, batch, loss_fn, names, faults,
         "device": torch.cuda.get_device_name(0) if cuda else device}
     print(f"{label}: " + json.dumps(summary), flush=True)
     if profile:
-        profile_train_step(torch, est, xb, yb)
+        profile_train_step(torch, est, first(batch),
+                           torch.from_numpy(y[:batch]).to(device))
     return launches
+
+
+def evaluate_predict(model, x, y, batch, label):
+    """``learn_phase``'s default ``infer``: evaluate and predict on the
+    same Estimator over two batches; every output finite, of [m, seq]
+    leading dims. Returns the eval loss and, for a model that has one,
+    its token accuracy."""
+    m = 2 * batch
+    xe = {k: a[:m] for k, a in x.items()}
+    ev = model.evaluate((xe, y[:m]), batch_size=batch)
+    pred = model.predict(xe, batch_size=batch)
+    if not np.isfinite(ev["loss"]):
+        fail(f"{label} evaluate: non-finite loss {ev}")
+    for t in pred if isinstance(pred, (tuple, list)) else (pred,):
+        if t.shape[:2] != xe["input_ids"].shape or not np.isfinite(t).all():
+            fail(f"{label} predict: bad output {t.shape}")
+    acc = (model.token_accuracy(pred, y[:m])
+           if hasattr(model, "token_accuracy") else None)
+    return {"eval_loss": ev["loss"], "token_accuracy": acc}
+
+
+def zoo_builder(cls, base, device):
+    """``learn_phase``'s ``build`` for a ZooModel subclass: ``cls`` at
+    ``base`` with overrides, seed 0."""
+    return lambda **over: cls(device=device, seed=0, **dict(base, **over))
 
 
 def squad_learn(torch, device="cuda", base=SQUAD_BASE, seq=TRAIN_SEQ,
@@ -1531,9 +1658,10 @@ def squad_learn(torch, device="cuda", base=SQUAD_BASE, seq=TRAIN_SEQ,
                                   ).astype(np.int32)}
     y = np.stack([rng.randint(0, seq, n), rng.randint(0, seq, n)],
                  axis=1).astype(np.int32)
-    return learn_phase(torch, BERTSQuAD, base, x, y, batch, squad_span_loss,
-                       GRAD_PARAMS, ("dq_zeroed", "dk_dv_swapped"),
-                       device=device, profile=profile)
+    return learn_phase(torch, zoo_builder(BERTSQuAD, base, device), base, x,
+                       y, batch, squad_span_loss, GRAD_PARAMS,
+                       ("dq_zeroed", "dk_dv_swapped"), device=device,
+                       profile=profile)
 
 
 # MiniLM-L12-H384 (Wang et al. 2020, MiniLM: Deep Self-Attention
@@ -1568,11 +1696,12 @@ def minilm_learn(torch, device="cuda", base=MINILM, seq=TRAIN_SEQ,
     end = np.minimum(start + rng.randint(0, 30, n), lens - 1)
     y = np.stack([start, end], axis=1).astype(np.int32)
     launches = learn_phase(
-        torch, BERTSQuAD, base, {"input_ids": ids, "attention_mask": mask},
+        torch, zoo_builder(BERTSQuAD, base, device), base,
+        {"input_ids": ids, "attention_mask": mask},
         y, batch, squad_span_loss, GRAD_PARAMS,
         ("dq_zeroed", "dk_dv_swapped", "mask_dropped"), masked=True,
         label="learn-minilm", device=device, profile=profile)
-    for kname, (total, _, small) in launches.items():
+    for kname, (total, _, small, _) in launches.items():
         if device == "cuda" and small != total:
             fail(f"learn-minilm: {kname} counted {small} K5b launches of "
                  f"{total}")
@@ -1613,8 +1742,8 @@ def ner_learn(torch, save_to, device="cuda", base=NER_BASE, seq=NER_SEQ,
     rng = np.random.RandomState(3)
     x, y = ner_data(rng, batch * steps_per_epoch, seq, base["vocab"],
                     base["num_classes"])
-    return learn_phase(torch, BERTNER, base, x, y, batch,
-                       token_cross_entropy, NER_GRAD_PARAMS,
+    return learn_phase(torch, zoo_builder(BERTNER, base, device), base, x, y,
+                       batch, token_cross_entropy, NER_GRAD_PARAMS,
                        ("mask_dropped",), masked=True, label="learn-ner",
                        save_to=save_to, device=device, profile=profile)
 
@@ -1653,6 +1782,126 @@ def ner_serving(torch, path, device="cuda", n_requests=64, seq=NER_SEQ,
     return serving_phase(torch, start, reqs, _ner_input,
                          (seq, base["num_classes"]), base["n_block"],
                          masked=True, label="serve-ner", device=device)
+
+
+# GPT-J-6B (EleutherAI/gpt-j-6b config.json: n_embd 4096, n_head 16, so
+# heads of 256; n_inner null, so 4 * 4096 = 16384; n_positions 2048; vocab
+# 50400; gelu_new, the tanh GELU; layer_norm_epsilon 1e-5; attn, resid and
+# embd pdrop 0.0) in the port's TransformerModule, trained as a causal LM:
+# bf16 blocks, f32 parameters and head, seeded weights, Adam at lr 1e-4.
+# Cut: 8 of its 28 layers (Adam's f32 state over the 2.03 B parameters
+# left is 32.5 GB). Departures from GPT-J: post-LN, attention then FFN
+# (not side by side), learned positions (not rotary over 64 dims), biases
+# on Q, K, V and the projection, an untied head with a bias. GPT-J's zero
+# dropout keeps every attention call on the kernels (the reference's
+# flash gate requires dropout_rate 0)
+GPTJ = dict(vocab=50400, seq_len=2048, hidden_size=4096, n_head=16,
+            n_block=8, intermediate_size=16384, hidden_dropout=0.0,
+            attn_dropout=0.0, dtype="bfloat16")
+LM_BATCH, LM_STEPS = 4, 8
+# the gradient checks' batch: f32 einsum attention at L = 2048 keeps
+# [B, 16, 2048, 2048] f32 scores and probabilities for each layer's
+# backward, about 1.5 GB a layer at B = 1 beside the f32 model's 16 GB of
+# weights and gradients
+LM_CHECK_BATCH = 1
+LM_GRAD_PARAMS = ("lm.block_0.attention.qkv.weight", "head.weight")
+
+
+def lm_data(rng, n, seq, vocab):
+    """A learnable next-token stream (the rule of
+    examples/moe/moe_transformer.py ``lm_data``): a random first token,
+    then each even token followed by token + 1 and each odd one by
+    token - 1 (mod vocab); labels are the ids shifted left by one (the
+    last wraps round to the first). Returns int32 (ids, labels)."""
+    x = np.zeros((n, seq), np.int32)
+    x[:, 0] = rng.randint(0, vocab, n)
+    for t in range(1, seq):
+        prev = x[:, t - 1]
+        x[:, t] = np.where(prev % 2 == 0, prev + 1, prev - 1) % vocab
+    return x, np.roll(x, -1, axis=1)
+
+
+def causal_lm(torch, cfg):
+    """The port's ``TransformerModule(**cfg)`` (``dtype`` a name or a
+    torch dtype) with an untied ``Dense(vocab)`` head, logits as
+    ``[B * L, vocab]`` for ``sparse_categorical_crossentropy``. The head
+    has no dtype, so beside bf16 blocks it computes in f32, as flax's
+    Dense does. The JAX package has no LM head of its own, so the port's
+    package has none either; tests/test_torch_port_wide_bwd.py writes this
+    wrapper in flax."""
+    from analytics_zoo_tpu_torch.keras.layers.transformer import (
+        Dense, TransformerModule)
+
+    dt = cfg.get("dtype")
+    cfg = dict(cfg, dtype=getattr(torch, dt) if isinstance(dt, str) else dt)
+
+    class CausalLM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lm = TransformerModule(**cfg)
+            self.head = Dense(cfg["hidden_size"], cfg["vocab"])
+
+        def forward(self, ids, train=False, rng=None):
+            logits = self.head(self.lm(ids, train=train, rng=rng))
+            return logits.reshape(-1, logits.shape[-1])
+
+    return CausalLM()
+
+
+def lm_learn(torch, device="cuda", base=GPTJ, batch=LM_BATCH,
+             steps_per_epoch=LM_STEPS, profile=False):
+    """``causal_lm`` at GPT-J-6B's widths trained through
+    ``Estimator(module, loss="sparse_categorical_crossentropy",
+    optimizer=Adam).fit`` on ``lm_data``; gradient checks at
+    ``LM_CHECK_BATCH``; planted faults: dQ zeroed, dK and dV swapped.
+    The loss must fall, and every K1, K2 and K3 launch of the fit must be
+    a wide one (D = 256)."""
+    from types import SimpleNamespace
+
+    from analytics_zoo_tpu_torch.keras.layers.transformer import (
+        reset_parameters)
+    from analytics_zoo_tpu_torch.learn.estimator import Estimator
+    from analytics_zoo_tpu_torch.learn.objectives import (
+        sparse_categorical_crossentropy)
+    from analytics_zoo_tpu_torch.learn.optim import Adam
+
+    x, y = lm_data(np.random.RandomState(9), batch * steps_per_epoch,
+                   base["seq_len"], base["vocab"])
+
+    def build(**over):
+        # the weights are drawn on the card from the seed: a CPU
+        # generator would take minutes over 2 B parameters
+        with torch.device(device):
+            module = causal_lm(torch, dict(base, **over))
+        reset_parameters(module, 0)
+        est = Estimator(module, loss="sparse_categorical_crossentropy",
+                        optimizer=Adam(lr=1e-4), seed=0, device=device)
+        return SimpleNamespace(name="CausalLM", module=module, estimator=est,
+                               fit=est.fit)
+
+    def infer(model, x, y, batch, label):
+        """One forward of the trained model over the first batch:
+        finite [B * L, vocab] logits, and their loss. (Estimator.predict
+        would cut those logits to B rows, and its Loss metric takes one
+        sample's outputs a row.)"""
+        with torch.no_grad():
+            logits = model.module(torch.from_numpy(x[:batch]).to(device))
+        if (tuple(logits.shape) != (x[:batch].size, base["vocab"])
+                or not torch.isfinite(logits).all()):
+            fail(f"{label}: bad logits {tuple(logits.shape)}")
+        return {"trained_batch_loss": float(sparse_categorical_crossentropy(
+            logits, torch.from_numpy(y[:batch]).to(device)))}
+
+    launches = learn_phase(
+        torch, build, base, x, y, batch, sparse_categorical_crossentropy,
+        LM_GRAD_PARAMS, ("dq_zeroed", "dk_dv_swapped"), label="learn-lm",
+        device=device, profile=profile, check_batch=LM_CHECK_BATCH,
+        infer=infer, loss_falls=True)
+    for kname, (total, _, _, wide) in launches.items():
+        if device == "cuda" and wide != total:
+            fail(f"learn-lm: {kname} counted {wide} wide launches of "
+                 f"{total}")
+    return launches
 
 
 # TinyGenLM geometries served through launch() with a generation: block.
@@ -1922,8 +2171,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (flash and "
-                         "einsum attention), one SQuAD, one NER and one "
-                         "MiniLM train step")
+                         "einsum attention), one SQuAD, one NER, one "
+                         "MiniLM and one GPT-J-width LM train step")
     args = ap.parse_args()
 
     import torch
@@ -1988,11 +2237,19 @@ def main() -> None:
     gemma = timed("generation, Gemma-2B widths", generation_phase, torch,
                   "gengemma", GEN_GEMMA, 32, (128, 8160), 32, 4, 16,
                   tie_gap=TIE_GAP)
+    # the Gemma phase's weights and pool (about 30 GB) go before the LM's
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide_bwd = timed("K2/K3 wide kernels", wide_bwd_phase, torch, peaks)
+    lm = timed("GPT-J-width LM learn", lm_learn, torch, profile=args.profile)
     k5b_full, k5b_masked, k5b_padded = (
         _pick(k5b, "gen_full", "float32"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))
     mini, mini_padded = (_pick(k5b_bwd, "minilm_trained"),
                          _pick(k5b_bwd, "minilm_padded"))
+    gptj, gptj_f32, wide192 = (_pick(wide_bwd, "gptj_trained"),
+                               _pick(wide_bwd, "gptj_f32", "float32"),
+                               _pick(wide_bwd, "bf16_d192"))
 
     def at(rec, key, library_ms=None, library_device_ms=None, **extra):
         """A kernel's numbers at one timed ``backward_phase`` call (with
@@ -2043,6 +2300,18 @@ def main() -> None:
         """(launches, masked, K5b) of one kernel over the BERT-base fits."""
         return tuple(a + b for a, b in zip(squad[kk], ner_fit[kk]))
 
+    def wide_row(name, source, replaces, key):
+        """K2 or K3 at D = 256: the LM's trained call, with its f32 call
+        (the gradient check's) and bf16 at D = 192; SDPA's backward
+        computes K2 + K3 + delta together (kept beside both rows)."""
+        def call(rec):
+            return at(rec, key, library_backward_ms=rec["sdpa_bwd_ms"],
+                      library_backward_device_ms=rec["sdpa_bwd_device_ms"])
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": lm[key.upper()][3],
+                **call(gptj), "f32_call": call(gptj_f32),
+                "d192_call": call(wide192)}
+
     # K1 at the served call ([32,12,512,64] bf16 views into the qkv
     # projection), with its logsumexp call at the trained shape beside
     # it; K2 and K3 at the trained call ([48,12,384,64] bf16), masked at
@@ -2089,11 +2358,19 @@ def main() -> None:
             # phase's prefills
             "name": "flash_attn_fwd_wide", "route": "cuda",
             "source": K1_SOURCE, "replaces": K1_REPLACES,
-            "launches": gemma["flash_launches"],
+            "launches": gemma["flash_launches"] + lm["K1"][3],
+            "lm_lse_launches": lm["K1"][3],
             **pick_keys(_pick(wide, "gemma_prefill", "float32")),
             "lse_call": pick_keys(_pick(wide, "gemma_lse", "float32"),
                                   "lse_max_abs_err"),
-            "bf16_call": pick_keys(_pick(wide, "bf16_d256"))}]}),
+            "bf16_call": pick_keys(_pick(wide, "bf16_d256")),
+            # K1-lse at the LM's trained call, the forward of its fit
+            "trained_lse_call": lse_call(gptj)},
+        # K2 and K3 at D = 256: the GPT-J-width LM's trained call
+        # ([4,16,2048,256] bf16, causal), launched by its fit
+        wide_row("flash_attn_bwd_dq_wide", K2_SOURCE, K2_REPLACES, "k2"),
+        wide_row("flash_attn_bwd_dkv_wide", K3_SOURCE, K3_REPLACES,
+                 "k3")]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

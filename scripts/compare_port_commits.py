@@ -14,8 +14,10 @@ BERT-base trained call (device time), BERT-base serving (with the
 seconds its save and its start-up take), the NER fine-tune, NER serving
 (start-up seconds too) and TinyGenLM generation at the repo geometry.
 Each checkout builds its kernels into its own ``build/``. Prints one
-JSON line a run and, last, each metric's runs and median per side.
-Needs one card.
+JSON line a run, then the ptxas registers and spills of every kernel
+instantiation both checkouts build that differ between them (none: the
+line says so), and last each metric's runs and median per side. Needs
+one card.
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ def run_phases(checkout: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {cs.card_line()}", flush=True)
     fa.build_kernels()
+    # registers and spills, where this process compiled the kernels
+    for line in cs.ptxas_lines(fa.build_info["log"]):
+        print(f"ptxas: {line}", flush=True)
     trained = [c for c in cs.BACKWARD_CASES
                if c[0] == "trained" and c[2] == "bfloat16"]
     cs.backward_phase(torch, cs.PEAKS["sxm"], trained, 1, "backward")
@@ -71,6 +76,20 @@ def run_phases(checkout: str) -> None:
         cs.ner_serving(torch, ner_dir)
     cs.generation_phase(torch, "gen", cs.GEN_REPO, 500, (1, 240), 16, 500,
                         16)
+
+
+def registers(out: str) -> dict:
+    """{"kernel template mask=m D": registers, and spills if any} from the
+    ``ptxas:`` lines of one run (empty where the run found its kernels
+    built)."""
+    got = {}
+    for line in out.splitlines():
+        if line.startswith("ptxas: "):
+            kernel, _, dims = line[len("ptxas: "):].partition(": ")
+            for m in re.finditer(r"(\d+):(\d+(?: \(spill \d+/\d+\))?)",
+                                 dims):
+                got[f"{kernel} {m.group(1)}"] = m.group(2)
+    return got
 
 
 def figures(out: str) -> dict:
@@ -111,6 +130,7 @@ def main() -> None:
     for i in range(args.pairs):
         order += ["parent", "change"] if i % 2 == 0 else ["change", "parent"]
     runs = {"parent": [], "change": []}
+    regs = {"parent": {}, "change": {}}
     for n, side in enumerate(order):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--run", sides[side]],
@@ -119,11 +139,17 @@ def main() -> None:
             sys.exit(f"run {n} ({side}) failed:\n{proc.stdout[-3000:]}\n"
                      f"{proc.stderr[-3000:]}")
         got = figures(proc.stdout)
+        regs[side].update(registers(proc.stdout))
         card = re.search(r"^card: (.*)$", proc.stdout, re.M)
         runs[side].append(got)
         print(json.dumps({"run": n, "side": side, "checkout": sides[side],
                           "card": card and card.group(1), **got}),
               flush=True)
+    common = sorted(set(regs["parent"]) & set(regs["change"]))
+    moved = {k: {side: regs[side][k] for side in regs} for k in common
+             if regs["parent"][k] != regs["change"][k]}
+    print(json.dumps({"ptxas_instantiations_compared": len(common),
+                      "ptxas_differ": moved}), flush=True)
     names = [name for _, _, name in SUMMARIES] + [
         f"{k}_device_ms" for k in KERNELS] + [name for _, name in SECONDS]
     print(json.dumps({name: {side: {

@@ -227,13 +227,23 @@ class TestHeadDimsAbove128:
     def test_dispatch_takes_einsum_path(self, monkeypatch, d, causal,
                                         masked):
         """The route as on the card (``on_cuda`` forced true) sends D in
-        {192, 256} under autograd (K2 and K3 there are still to port) to
-        the einsum path, with or without a key-padding mask, and its
+        {192, 256} under autograd with a key-padding mask to the einsum
+        path (the reference's masked branch stops at 128); without one,
+        since K2 and K3 were built there, to ``flash_attention`` (K1-lse,
+        K2 and K3 on the card, their plain versions here). Either way the
         values match the JAX package's ``dot_product_attention``."""
         real = port_attention._flash_route
         monkeypatch.setattr(port_attention, "_flash_route",
                             lambda impl, on_cuda, *a: real(impl, True, *a))
-        monkeypatch.setattr(fa, "flash_attention", None)  # never reached
+        calls = []
+        flash = fa.flash_attention
+
+        def spy(*args, **kwargs):
+            calls.append(args[0].shape[-1])
+            return flash(*args, **kwargs)
+
+        # a masked call never reaches the kernels' wrapper
+        monkeypatch.setattr(fa, "flash_attention", None if masked else spy)
         rng = np.random.RandomState(d + causal)
         q, k, v = (rng.randn(2, 2, 128, d).astype(np.float32)
                    for _ in range(3))
@@ -252,6 +262,7 @@ class TestHeadDimsAbove128:
             get_config().unset("zoo.ops.attention_impl")
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                    atol=1e-5)
+        assert calls == ([] if masked else [d])
 
 
 # ------------------------------------------------------ BERT-SQuAD slice --

@@ -291,14 +291,19 @@ class TestDispatchRoute:
         ({"has_mask": True}, None),
         ({"dropout_rate": 0.1}, None),
         ({"l": 192}, None),
-        # K2/K3 at D in {192, 256} are still to port: under autograd the
-        # einsum path (K1 alone takes a call that needs no gradient)
-        ({"d": 192, "needs_grad": True}, None),
-        ({"d": 192, "causal": True, "needs_grad": True}, None),
-        ({"d": 256, "needs_grad": True}, None),
-        ({"d": 256, "causal": True, "needs_grad": True}, None),
-        # K1 at D in {192, 256}, unmasked; the reference takes a masked
-        # call there, and every other D above 128, to its einsum path
+        # under autograd above 128 a key-padding mask still takes the
+        # einsum path (K1-K3 at 192 and 256 are unmasked; an unmasked
+        # call takes them with or without a gradient:
+        # test_torch_port_wide_bwd.py)
+        ({"d": 192, "needs_grad": True, "has_key_padding_mask": True}, None),
+        ({"d": 192, "causal": True, "needs_grad": True,
+          "has_key_padding_mask": True}, None),
+        ({"d": 256, "needs_grad": True, "has_key_padding_mask": True}, None),
+        ({"d": 256, "causal": True, "needs_grad": True,
+          "has_key_padding_mask": True}, None),
+        # K1-K3 at D in {192, 256}, unmasked; the reference takes a
+        # masked call there, and every other D above 128, to its einsum
+        # path
         ({"d": 192}, "kernels"),
         ({"d": 256, "causal": True}, "kernels"),
         ({"d": 256, "lk": 384, "causal": True}, "kernels"),

@@ -1,6 +1,7 @@
 """PyTorch port, head dims the kernels take only by width or by padding:
 K1 at D in {192, 256} (the reference's Pallas kernel at D % 64 == 0
-above 128), the dispatch's route to it, TinyGenLM at head_dim 256 (the
+above 128; K2 and K3 there in ``test_torch_port_wide_bwd.py``), the
+dispatch's route to it, TinyGenLM at head_dim 256 (the
 generation plane at Gemma-2B's head dim), and head dims that are not a
 multiple of 8, which the wrappers zero-pad (fault 5).
 
@@ -104,26 +105,27 @@ class TestWideRoute:
     @pytest.mark.parametrize("key_padding", [False, True])
     @pytest.mark.parametrize("d", [192, 256, 320])
     def test_route(self, d, key_padding, needs_grad):
-        """K1 at 192 and 256 for an unmasked call that needs no gradient;
-        the einsum path under autograd (K2/K3 there are still to port),
+        """The kernels at 192 and 256 for an unmasked call, with or
+        without a gradient (K1, or K1-lse, K2 and K3); the einsum path
         with a key-padding mask (the reference's stock-kernel branch
         stops at 128) and at every other D above 128."""
         got = port_attention._flash_route(
             **self.BASE, d=d, has_key_padding_mask=key_padding,
             needs_grad=needs_grad)
-        kernel = d in (192, 256) and not key_padding and not needs_grad
+        kernel = d in (192, 256) and not key_padding
         assert got == ("kernels" if kernel else None)
 
     def test_gates(self):
         for d in (192, 256):
             fa._check_head_dim(d)
-            with pytest.raises(NotImplementedError, match="still to port"):
-                fa._check_head_dim(d, backward=True)
+            fa._check_head_dim(d, backward=True)
             with pytest.raises(NotImplementedError, match="masked"):
                 fa._check_head_dim(d, masked=True)
         for d in (136, 320, 512):
             with pytest.raises(NotImplementedError, match="192 and 256"):
                 fa._check_head_dim(d)
+            with pytest.raises(NotImplementedError, match="still to port"):
+                fa._check_head_dim(d, backward=True)
 
 
 def _forced_card(monkeypatch):
@@ -147,20 +149,56 @@ def _forced_card(monkeypatch):
 
 class TestWideDispatch:
     @pytest.mark.parametrize("grad", [False, True])
-    def test_no_grad_reaches_k1_grad_takes_einsum(self, monkeypatch, grad):
-        calls = _forced_card(monkeypatch)
+    def test_no_grad_reaches_k1_grad_takes_einsum(self, monkeypatch,
+                                                  fake_card, grad):
+        """The dispatch as on the card at D = 256, causal. Without a
+        gradient the call reaches ``flash_attention`` (K1). Under autograd
+        it no longer takes the einsum path, as it did before K2 and K3
+        were built at 256: on the card (meta tensors, spied entry points)
+        it launches K1-lse, K2 and K3, each counted in
+        ``wide_d_launches``, and on the CPU the same wiring gives the JAX
+        package's output and gradients."""
         q, k, v = _qkv(7, 1, 2, 128, 128, 256)
-        want = jax_dot_product_attention(*map(jnp.asarray, (q, k, v)),
-                                         causal=True)
+        want, *want_grads = _jax_einsum_grads(
+            q, k, v, np.ones_like(q), None, True)
+        if not grad:
+            calls = _forced_card(monkeypatch)
+        else:
+            real = port_attention._flash_route
+            monkeypatch.setattr(port_attention, "_flash_route",
+                                lambda impl, on_cuda, *a: real(impl, True,
+                                                               *a))
+            get_config().set("zoo.ops.attention_impl", "flash")
+            for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
+                      fa.flash_attention_bwd_dkv):
+                monkeypatch.setattr(w, "wide_d_launches", 0)
+        tensors = [torch.from_numpy(a).requires_grad_(grad)
+                   for a in (q, k, v)]
         try:
-            got = port_attention.dot_product_attention(
-                *(torch.from_numpy(a).requires_grad_(grad)
-                  for a in (q, k, v)), causal=True)
+            got = port_attention.dot_product_attention(*tensors, causal=True)
+            if grad:
+                grads = torch.autograd.grad(got, tensors,
+                                            torch.ones_like(got))
+                meta = [torch.empty(1, 2, 128, 256, device="meta",
+                                    requires_grad=True) for _ in range(3)]
+                out = port_attention.dot_product_attention(*meta,
+                                                           causal=True)
+                torch.autograd.grad(out, meta, torch.empty_like(out))
         finally:
             get_config().unset("zoo.ops.attention_impl")
-        assert calls == ([] if grad else [((1, 2, 128, 256), True, False)])
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                    atol=ATOL)
+        if not grad:
+            assert calls == [((1, 2, 128, 256), True, False)]
+            return
+        for g, w in zip(grads, want_grads):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+        assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
+            ("zoo_flash_attn_fwd", 256), ("zoo_flash_attn_bwd_dq", 256),
+            ("zoo_flash_attn_bwd_dkv", 256)]
+        for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
+                  fa.flash_attention_bwd_dkv):
+            assert (w.launches, w.wide_d_launches) == (1, 1)
 
 
 # --------------------------------------------------- TinyGenLM at D = 256 --
