@@ -53,6 +53,41 @@
 //   bound by its 275 GFLOP of visible pairs on the FMA units (4.1 ms at
 //   67 TFLOP/s); this kernel, like K5b's f32 path, is several times that.
 //
+// Head dims 320 to 512 (K1 at D in {320, 384, 448, 512}, unmasked, as
+// above; TinyGenLM's prefill at DeepSeek-V4-Flash's head dim of 512):
+//   * bf16: a warp's O accumulator over all of D would be D/2 f32
+//     registers a thread (160-256), past the 255 a thread may hold.
+//     flash_fwd_bf16_split_kernel splits D across warps, as K3's wide
+//     kernel does: a block owns 32 q rows (2 row groups of 16) and each
+//     row group has kSplit = D/64 warps, warp j owning dims [64j, 64j+64)
+//     of Q and of O (32 f32 registers). Q is staged in shared memory and a
+//     warp reloads the A fragment of its slice every k-step (4 registers,
+//     not 16 held: ptxas keeps the kernel at 128 registers a thread at
+//     D = 448 and 512, and the first version, with Q in registers,
+//     spilled 24 bytes at 448). The
+//     scores need every dim, so each warp computes the partial S of its
+//     slice (16 rows x 32 keys, 4 k-steps) and writes it to shared memory
+//     in fragment order; after a barrier every warp of the row group sums
+//     the kSplit partials of its own fragment positions, in one fixed
+//     order, so all of them hold the same S bit for bit and run the same
+//     softmax (the exp work is repeated kSplit times; the Q K^T flops are
+//     not). This is option (a) of two: the other, one warp computing S
+//     and staging P for the rest, leaves kSplit - 1 warps idle through
+//     the whole of Q K^T, half of the tensor-core work. Three barriers a
+//     kv tile: the tile staged, the partials written, and (at the top of
+//     the next tile) every warp done reading both. A row group's split
+//     warps make the same causal decision for a tile, and every warp
+//     reaches every barrier whether or not it computes. Shared memory
+//     (dynamic): Q [32][D+8], K and V [32][D+8] bf16 plus the partials,
+//     2 x kSplit x 16 x 32 f32 -- 83,456 bytes at D = 320, 132,608 at 512.
+//   * f32: the same template as at 192 and 256 (8 threads a row, D/8 =
+//     40-64 dims each, dealt in 4-float chunks) on kv tiles of 8 rows, so
+//     that K and V (32 KB at D = 512) stay in static shared memory; a
+//     thread holds 2 x D/8 f32 of Q and O, 128 registers at 512 (234 in
+//     all there, no spill).
+//   The f32 prefill at DeepSeek-V4-Flash's widths ([1, 64, 2048, 512],
+//   causal) does the Gemma-width call's 275 GFLOP, 4.1 ms at 67 TFLOP/s.
+//
 // Design. The Pallas grid (bh, q-block, kv-block) ran its kv dimension as a
 // sequential loop on one TPU core, carrying (m, l, acc) in VMEM scratch.
 // Here one thread block owns one (b*h, 64-row q tile) and walks the kv
@@ -108,6 +143,9 @@ constexpr int kFmaKv = 32;       // kv rows per smem tile on the f32 path
 constexpr int kFmaRows = 16;     // q rows per block on the f32 path
 constexpr int kWideKv = 32;      // kv rows per smem tile, bf16 at D > 128
 constexpr int kWideFmaKv = 16;   // kv rows per smem tile, f32 at D > 128
+constexpr int kWiderFmaKv = 8;   // kv rows per smem tile, f32 at D > 256
+constexpr int kSplitRows = 32;   // q rows per block, bf16 at D > 256
+constexpr int kSlice = 64;       // dims of D a warp owns, bf16 at D > 256
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // logsumexp of a row that sees no key: what f32 logsumexp gives for the
@@ -371,12 +409,13 @@ flash_fwd_bf16_kernel(const Params p) {
 }
 
 // ----------------------------------------------------------------- f32 --
-// KV: kv rows per shared-memory tile (kFmaKv; kWideFmaKv above D = 128)
+// KV: kv rows per shared-memory tile (kFmaKv; kWideFmaKv above D = 128,
+// kWiderFmaKv above 256)
 template <int D, bool kMask, int KV = kFmaKv>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const Params p) {
-  static_assert(D % 8 == 0 && (D <= 128 || D == 192 || D == 256),
-                "head_dim: a multiple of 8 up to 128, or 192 or 256");
+  static_assert(D % 8 == 0 && (D <= 128 || (D % 64 == 0 && D <= 512)),
+                "head_dim: a multiple of 8 up to 128, or of 64 up to 512");
   constexpr int DP = D / 8;  // dimensions per thread
   // Which DP dims of a row a thread owns. Up to 128: DP contiguous ones
   // from d0. Above: 4-float chunks dealt round the row's 8 threads, so
@@ -674,17 +713,247 @@ flash_fwd_bf16_wide_kernel(const Params p) {
   }
 }
 
+// ------------------------------------------------------- bf16, D > 256 --
+// K1 at D in {320, 384, 448, 512}, unmasked: D split across warps (the
+// header's design notes). Block: kSplitRows q rows = 2 row groups of 16,
+// each of kSplit warps; D threads in all. Warp w is row group w / kSplit
+// and owns slice w % kSplit of D.
+template <int D>
+__global__ void __launch_bounds__(D)
+flash_fwd_bf16_split_kernel(const Params p) {
+  static_assert(D % kSlice == 0 && D > 256 && D <= 512,
+                "head_dim: 320, 384, 448 or 512");
+  constexpr int kSplit = D / kSlice;     // warps of a row group
+  constexpr int kRow = D + kPad;         // shared-memory row, bf16 elements
+  constexpr int kN = kWideKv / 8;        // n-blocks of 8 keys in a tile
+  extern __shared__ __align__(16) uint16_t smem[];
+  uint16_t* sQ = smem;
+  uint16_t* sK = sQ + kSplitRows * kRow;
+  uint16_t* sV = sK + kWideKv * kRow;
+  // partial scores in fragment order: [row group][slice][n-block][lane]
+  // of 4 floats, so a warp writes and reads 32 consecutive float4
+  float4* sS = reinterpret_cast<float4*>(sV + kWideKv * kRow);
+
+  const int qt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int rg = warp / kSplit;          // row group
+  const int slice = warp - rg * kSplit;  // which 64 dims of D
+  const int col0 = slice * kSlice;
+
+  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + hh * p.q_sh;
+  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + hh * p.k_sh;
+  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + hh * p.v_sh;
+  uint16_t* o = static_cast<uint16_t*>(p.o) + b * p.o_sb + hh * p.o_sh;
+
+  const int row0 = qt * kSplitRows + rg * 16;
+  const int ra = row0 + g;
+  const int rb = row0 + g + 8;
+  const int offset = p.lk - p.lq;
+
+  // Q in shared memory: a warp's A fragments of its slice are reloaded
+  // every k-step (4 registers, not 16: see the header)
+  for (int i = tid; i < kSplitRows * D / 8; i += D) {
+    const int r = i / (D / 8);
+    const int c = (i - r * (D / 8)) * 8;
+    const long long row = static_cast<long long>(qt) * kSplitRows + r;
+    *reinterpret_cast<uint4*>(&sQ[r * kRow + c]) =
+        *reinterpret_cast<const uint4*>(q + row * p.q_sl + c);
+  }
+  // this thread's A-fragment elements of rows ra and rb (k-step 0)
+  const uint16_t* qa = sQ + (rg * 16 + g) * kRow + col0 + t4 * 2;
+  const uint16_t* qb = qa + 8 * kRow;
+
+  float acc[kSlice / 8][4];
+#pragma unroll
+  for (int n = 0; n < kSlice / 8; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  }
+  float m_a = -INFINITY, m_b = -INFINITY;
+  float l_a = 0.f, l_b = 0.f;
+
+  int n_tiles = p.lk / kWideKv;
+  if (p.causal) {
+    const int last = (qt * kSplitRows + kSplitRows - 1 + offset) / kWideKv + 1;
+    n_tiles = min(n_tiles, last);
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    // Q is staged; every warp is done with the last tile and partials
+    __syncthreads();
+    for (int i = tid; i < kWideKv * D / 8; i += D) {
+      const int r = i / (D / 8);
+      const int c = (i - r * (D / 8)) * 8;
+      const long long key = static_cast<long long>(kt) * kWideKv + r;
+      *reinterpret_cast<uint4*>(&sK[r * kRow + c]) =
+          *reinterpret_cast<const uint4*>(k + key * p.k_sl + c);
+      *reinterpret_cast<uint4*>(&sV[r * kRow + c]) =
+          *reinterpret_cast<const uint4*>(v + key * p.v_sl + c);
+    }
+    __syncthreads();
+
+    // the same for every warp of the row group: rows all above the tile
+    const bool active = !(p.causal && row0 + 15 + offset < kt * kWideKv);
+    float s[kN][4];
+    if (active) {
+      // partial S over this warp's 64 dims: 16 rows x 32 keys; Q's
+      // fragment of each k-step is read once and used for the 4 key
+      // blocks
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < kSlice / 16; ++c) {
+        uint32_t a[4];
+        a[0] = *reinterpret_cast<const uint32_t*>(qa + c * 16);
+        a[1] = *reinterpret_cast<const uint32_t*>(qb + c * 16);
+        a[2] = *reinterpret_cast<const uint32_t*>(qa + c * 16 + 8);
+        a[3] = *reinterpret_cast<const uint32_t*>(qb + c * 16 + 8);
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          const uint16_t* kr = sK + (n * 8 + g) * kRow + col0 + c * 16 + t4 * 2;
+          mma_16816(s[n], a, *reinterpret_cast<const uint32_t*>(kr),
+                    *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        sS[((rg * kSplit + slice) * kN + n) * 32 + lane] =
+            make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+      }
+    }
+    __syncthreads();  // every slice's partial is written
+    if (!active) continue;
+
+    // S = the sum of the kSplit partials, slice 0 first in every warp
+    // (the slice loop rolled: unrolled, ptxas spilled 4-8 bytes at D =
+    // 320 and 448)
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      float4 t = sS[(rg * kSplit * kN + n) * 32 + lane];
+#pragma unroll 1
+      for (int j = 1; j < kSplit; ++j) {
+        const float4 u = sS[((rg * kSplit + j) * kN + n) * 32 + lane];
+        t.x += u.x;
+        t.y += u.y;
+        t.z += u.z;
+        t.w += u.w;
+      }
+      s[n][0] = t.x;
+      s[n][1] = t.y;
+      s[n][2] = t.z;
+      s[n][3] = t.w;
+    }
+
+    float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * p.scale_log2;
+        const int col = n * 8 + t4 * 2 + (e & 1);
+        if (p.causal && kt * kWideKv + col > ((e < 2) ? ra : rb) + offset) {
+          x = -INFINITY;
+        }
+        s[n][e] = x;
+      }
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    // causal rows above the whole tile (in a row group that straddles
+    // it) keep -inf; subtract 0 there
+    const float base_a = (mx_a == -INFINITY) ? 0.f : mx_a;
+    const float base_b = (mx_b == -INFINITY) ? 0.f : mx_b;
+    const float corr_a = exp2f(m_a - base_a);
+    const float corr_b = exp2f(m_b - base_b);
+    m_a = mx_a;
+    m_b = mx_b;
+
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      s[n][0] = exp2f(s[n][0] - base_a);
+      s[n][1] = exp2f(s[n][1] - base_a);
+      s[n][2] = exp2f(s[n][2] - base_b);
+      s[n][3] = exp2f(s[n][3] - base_b);
+      sum_a += s[n][0] + s[n][1];
+      sum_b += s[n][2] + s[n][3];
+    }
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < kSlice / 8; ++n) {
+      acc[n][0] *= corr_a;
+      acc[n][1] *= corr_a;
+      acc[n][2] *= corr_b;
+      acc[n][3] *= corr_b;
+    }
+
+    // O[:, slice] += P V[:, slice]
+#pragma unroll
+    for (int j = 0; j < kWideKv / 16; ++j) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+      const uint16_t* vr = sV + (j * 16 + t4 * 2) * kRow + col0 + g;
+#pragma unroll
+      for (int n = 0; n < kSlice / 8; ++n) {
+        const uint16_t* vc = vr + n * 8;
+        const uint32_t b0 = pack_raw(vc[0], vc[kRow]);
+        const uint32_t b1 = pack_raw(vc[8 * kRow], vc[9 * kRow]);
+        mma_16816(acc[n], a, b0, b1);
+      }
+    }
+  }
+
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  l_a = fmaxf(l_a, 1e-30f);
+  l_b = fmaxf(l_b, 1e-30f);
+  const float inv_a = 1.f / l_a;
+  const float inv_b = 1.f / l_b;
+#pragma unroll
+  for (int n = 0; n < kSlice / 8; ++n) {
+    const int col = col0 + n * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(o + ra * p.o_sl + col) =
+        pack_bf16(acc[n][0] * inv_a, acc[n][1] * inv_a);
+    *reinterpret_cast<uint32_t*>(o + rb * p.o_sl + col) =
+        pack_bf16(acc[n][2] * inv_b, acc[n][3] * inv_b);
+  }
+  // every slice holds the same m and l; the first writes the lse
+  if (p.lse != nullptr && slice == 0 && t4 == 0) {
+    float* lse = p.lse + static_cast<long long>(bh) * p.lq;
+    lse[ra] = (m_a + log2f(l_a)) * kLn2;
+    lse[rb] = (m_b + log2f(l_b)) * kLn2;
+  }
+}
+
 // smem: dynamic shared memory in bytes; above the 48 KB a block gets by
 // default the kernel must first be allowed it
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, const Params& p, cudaStream_t stream,
-                   int smem = 0) {
+                   int smem = 0, int threads = kThreads) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -711,6 +980,20 @@ cudaError_t launch_wide(int dtype, int batch_heads, const Params& p, cudaStream_
                   p, s, smem);
   }
   return launch(flash_fwd_f32_kernel<D, false, kWideFmaKv>,
+                dim3(p.lq / kFmaRows, batch_heads), p, s);
+}
+
+// K1 at D in {320, 384, 448, 512}: unmasked only, as at 192 and 256
+template <int D>
+cudaError_t launch_split(int dtype, int batch_heads, const Params& p,
+                         cudaStream_t s) {
+  if (dtype == 1) {
+    constexpr int smem = (kSplitRows + 2 * kWideKv) * (D + kPad) * 2
+        + 2 * (D / kSlice) * 16 * kWideKv * 4;
+    return launch(flash_fwd_bf16_split_kernel<D>,
+                  dim3(p.lq / kSplitRows, batch_heads), p, s, smem, D);
+  }
+  return launch(flash_fwd_f32_kernel<D, false, kWiderFmaKv>,
                 dim3(p.lq / kFmaRows, batch_heads), p, s);
 }
 
@@ -771,6 +1054,10 @@ extern "C" int zoo_flash_attn_fwd(
     // K1 above 128: the reference's Pallas kernel at D % 64 == 0
     case 192: return launch_wide<192>(dtype, bh, p, s);
     case 256: return launch_wide<256>(dtype, bh, p, s);
+    case 320: return launch_split<320>(dtype, bh, p, s);
+    case 384: return launch_split<384>(dtype, bh, p, s);
+    case 448: return launch_split<448>(dtype, bh, p, s);
+    case 512: return launch_split<512>(dtype, bh, p, s);
     default: return 1004;
   }
 }

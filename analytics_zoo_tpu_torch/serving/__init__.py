@@ -1,9 +1,10 @@
 """Streaming model serving: the reference's serving data plane on the
 port's ``InferenceModel``. Ported so far: the memory/dir/tcp queues, the
 batchers, the pipelined and synchronous ``ServingWorker``, the
-supervisor, chaos seams and ``launch()`` for in-process queue
-deployments. The HTTP frontend, the Redis adapter, the fleet and the
-generation plane are still to be ported (ROADMAP queue 1)."""
+supervisor, chaos seams, the generation plane (``serving.generation``),
+the HTTP frontend (``/predict``, ``/generate``, ``/metrics``) and
+``launch()`` for in-process queue deployments. The Redis adapter and
+the fleet are still to be ported (ROADMAP queue 1)."""
 
 from analytics_zoo_tpu_torch.serving.queues import (  # noqa: F401
     InputQueue,
@@ -16,6 +17,9 @@ from analytics_zoo_tpu_torch.serving.batcher import (  # noqa: F401
     MicroBatcher,
 )
 from analytics_zoo_tpu_torch.serving.worker import ServingWorker  # noqa: F401
+from analytics_zoo_tpu_torch.serving.http_frontend import (  # noqa: F401
+    HttpFrontend,
+)
 from analytics_zoo_tpu_torch.serving.launcher import (  # noqa: F401
     ServingApp,
     launch,

@@ -1,15 +1,19 @@
 """Config-driven serving launcher.
 
 The counterpart of ``analytics_zoo_tpu/serving/launcher.py``: one config
-dict (the reference's YAML schema) describes the model, the queue and
-the batching params; ``launch(config)`` assembles InferenceModel +
-ServingWorker (+ its Supervisor) and starts serving.
+dict (the reference's YAML schema) describes the model, the queue, the
+batching params and the HTTP frontend; ``launch(config)`` assembles
+InferenceModel + ServingWorker (+ its Supervisor) + HttpFrontend and
+starts serving.
 
 Ported so far: ``model.path``, ``data.queue: memory`` (the default),
-every ``params`` key, ``http.enabled: false``, and the ``generation:``
-block with ``role: unified``. Its presence enables the token-streaming
-plane (``enabled: false`` opts out); without a ``model:`` block the app
-serves generation only. It takes the reference's keys::
+every ``params`` key, the ``http:`` block (``enabled``, the default;
+``host``, ``port``, ``certfile``, ``keyfile``), the rollup reporter
+(``zoo.obs.report.interval``), and the ``generation:`` block with
+``role: unified``. The ``generation:`` block's presence enables the
+token-streaming plane (``enabled: false`` opts out); without a
+``model:`` block the app serves generation only. It takes the
+reference's keys::
 
     generation:
       model: {vocab: 64, dim: 32, heads: 2, head_dim: 16, layers: 2,
@@ -23,16 +27,21 @@ serves generation only. It takes the reference's keys::
       stream_chunk_tokens: null
       role: unified
 
-Generate requests go to ``app.gen_input_queue`` (``enqueue_generation``)
-and their chunks to ``app.output_queue``. Everything else raises
-``NotImplementedError`` naming its ROADMAP queue-1 item: encrypted
-models (inference runtime), the ``dir``/``tcp``/``redis`` queues and
-``generation.role: prefill | decode``, which needs the ``redis://``
-handoff stream (fleet), the HTTP frontend and the Redis frontend (HTTP
-frontend), and ``shard:`` (parallel and sharded inference). The
-periodic rollup reporter (``zoo.obs.report.interval``) comes with the
-HTTP frontend. Direct queue clients read ``app.output_queue``
-themselves.
+A stock config (no ``http:`` block) starts the frontend on
+``zoo.serving.fleet.bind_host`` (loopback) at ``zoo.serving.http_port``
+(0 = a free port; ``app.address`` names it): ``POST /predict``, ``POST
+/generate`` (an SSE token stream), ``/metrics``, ``/healthz`` and the
+debug routes. With ``http: {enabled: false}`` generate requests go to
+``app.gen_input_queue`` (``enqueue_generation``) and their chunks, like
+predict replies, to ``app.output_queue``, which direct queue clients
+read themselves (with the frontend on, its router drains that queue).
+Everything else raises ``NotImplementedError`` naming its ROADMAP
+queue-1 item: encrypted models (inference runtime), the
+``dir``/``tcp``/``redis`` queues, ``generation.role: prefill | decode``
+(they need the ``redis://`` handoff stream) and the Redis frontend
+(fleet), and ``shard:`` (parallel and sharded inference).
+``redis.enabled`` beside ``http.enabled`` raises the reference's
+``ValueError`` first.
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ from analytics_zoo_tpu_torch.inference.inference_model import (
     InferenceModel, bucket_ladder)
 from analytics_zoo_tpu_torch.obs.events import emit as emit_event
 from analytics_zoo_tpu_torch.obs.metrics import get_registry
+from analytics_zoo_tpu_torch.obs.reporter import maybe_start_reporter
+from analytics_zoo_tpu_torch.serving.http_frontend import HttpFrontend
 from analytics_zoo_tpu_torch.serving.queues import InputQueue, OutputQueue
 from analytics_zoo_tpu_torch.serving.worker import ServingWorker
 
@@ -64,27 +75,36 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class ServingApp:
-    """A running serving deployment: model + worker (+ supervisor).
+    """A running serving deployment: model + worker (+ supervisor) +
+    optional HTTP frontend and rollup reporter.
 
     With a ``generation:`` block the deployment also (or, when
     ``model:`` is omitted, *only*) hosts a
     :class:`~analytics_zoo_tpu_torch.serving.generation.worker.
     GenerationWorker` with its own input queue and supervisor, sharing
-    the output queue; ``worker`` and ``model`` are None for a
+    the output queue, one frontend serving both ``/predict`` and
+    ``/generate``; ``worker`` and ``model`` are None for a
     generation-only deployment."""
 
     def __init__(self, model: Any, worker: Optional[ServingWorker],
                  input_queue: InputQueue, output_queue: OutputQueue,
+                 frontend: Optional[HttpFrontend] = None, reporter=None,
                  supervisor=None, gen_worker=None, gen_supervisor=None,
                  gen_input_queue: Optional[InputQueue] = None):
         self.model = model
         self.worker = worker
         self.input_queue = input_queue
         self.output_queue = output_queue
+        self.frontend = frontend
+        self.reporter = reporter
         self.supervisor = supervisor
         self.gen_worker = gen_worker
         self.gen_supervisor = gen_supervisor
         self.gen_input_queue = gen_input_queue
+
+    @property
+    def address(self) -> Optional[str]:
+        return self.frontend.address if self.frontend else None
 
     def drain(self, deadline_ms: Optional[float] = None) -> bool:
         """Graceful drain: refuse new work, finish what is already in
@@ -101,6 +121,10 @@ class ServingApp:
         for sup in (self.supervisor, self.gen_supervisor):
             if sup is not None:
                 sup.stop()
+        if self.frontend is not None:
+            # health goes 503 "draining"; new /predict and /generate get
+            # a structured 503 + Retry-After
+            self.frontend.set_draining()
         ok = True
         for worker in (self.worker, self.gen_worker):
             # each plane gets the full budget: they drain work started
@@ -122,9 +146,13 @@ class ServingApp:
         for sup in (self.supervisor, self.gen_supervisor):
             if sup is not None:
                 sup.stop()
+        if self.frontend is not None:
+            self.frontend.stop()
         for worker in (self.worker, self.gen_worker):
             if worker is not None:
                 worker.stop()
+        if self.reporter is not None:
+            self.reporter.stop()
         emit_event("serving_stop", "serving")
         logger.info("serving stopped")
 
@@ -155,11 +183,16 @@ def _check_ported(config: Dict[str, Any]) -> None:
         raise _not_ported(f"data.queue {queue!r}", "fleet")
     if (config.get("data") or {}).get("path"):
         raise _not_ported("data.path (the dir queue)", "fleet")
-    if (config.get("http") or {}).get("enabled", True):
-        raise _not_ported("the HTTP frontend (http.enabled: true)",
-                          "HTTP frontend")
     if (config.get("redis") or {}).get("enabled"):
-        raise _not_ported("the Redis frontend", "HTTP frontend")
+        if (config.get("http") or {}).get("enabled", True):
+            # the reference's refusal (its launcher raises it once the
+            # frontend is up): both frontends drain the one result queue
+            raise ValueError(
+                "redis.enabled requires http.enabled: false -- "
+                "both frontends drain the same result queue (use "
+                "two deployments on a shared tcp broker to serve "
+                "both protocols)")
+        raise _not_ported("the Redis frontend", "fleet")
 
 
 def launch(config: Dict[str, Any], model: Any = None,
@@ -201,33 +234,57 @@ def launch(config: Dict[str, Any], model: Any = None,
 
     in_q = InputQueue(backend="memory", maxlen=data.get("maxlen", 10000))
     out_q = OutputQueue(backend="memory")
+    http = config.get("http") or {}
     supervise = bool(
         get_config().get("zoo.serving.supervisor.enabled", True))
     worker = supervisor = None
     if model is not None:
         worker, supervisor = _start_predict(model, in_q, out_q, params,
                                             supervise)
-    gen_worker = gen_supervisor = gen_in = None
-    if gen_enabled:
-        try:
+    gen_worker = gen_supervisor = gen_in = frontend = reporter = None
+    try:
+        if gen_enabled:
             gen_in, gen_worker, gen_supervisor = _start_generation(
                 gen_cfg, data, out_q, supervise, device)
-        except Exception as e:
-            emit_event("launch_failed", "serving", error=repr(e)[:500])
-            # no ServingApp handle escapes; don't leak the running
-            # predict plane (supervisor first, or it would restart the
-            # worker we stop)
-            if supervisor is not None:
-                supervisor.stop()
-            if worker is not None:
-                worker.stop()
-            raise
+        if http.get("enabled", True):
+            port = http.get("port")
+            if port is None:
+                # zoo.serving.http_port (0 = a free port); the config's
+                # http.port wins when present
+                port = int(get_config().get("zoo.serving.http_port", 0))
+            # no host -> zoo.serving.fleet.bind_host (loopback unless
+            # the deployment opts into a routable bind)
+            frontend = HttpFrontend(
+                in_q, out_q, host=http.get("host"), port=port,
+                worker=worker, certfile=http.get("certfile"),
+                keyfile=http.get("keyfile"), gen_queue=gen_in,
+                gen_worker=gen_worker).start()
+            logger.info("serving ready at %s", frontend.address)
+        # the config-gated rollup logger (zoo.obs.report.interval
+        # seconds; 0 = off), inside the guard: a malformed interval
+        # must not leak the running workers and frontend
+        reporter = maybe_start_reporter()
+    except Exception as e:
+        emit_event("launch_failed", "serving", error=repr(e)[:500])
+        # no ServingApp handle escapes; don't leak running pieces
+        # (supervisors first, or they would restart the workers we stop)
+        for sup in (supervisor, gen_supervisor):
+            if sup is not None:
+                sup.stop()
+        if frontend is not None:
+            frontend.stop()
+        for w in (worker, gen_worker):
+            if w is not None:
+                w.stop()
+        raise
     emit_event("serving_launch", "serving", queue="memory",
                pipelined=worker.pipelined if worker is not None else False,
-               http=False, shard_mode="off",
-               generation=gen_worker is not None, address=None)
-    return ServingApp(model, worker, in_q, out_q, supervisor=supervisor,
-                      gen_worker=gen_worker, gen_supervisor=gen_supervisor,
+               http=frontend is not None, shard_mode="off",
+               generation=gen_worker is not None,
+               address=frontend.address if frontend is not None else None)
+    return ServingApp(model, worker, in_q, out_q, frontend, reporter,
+                      supervisor=supervisor, gen_worker=gen_worker,
+                      gen_supervisor=gen_supervisor,
                       gen_input_queue=gen_in)
 
 

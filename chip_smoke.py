@@ -174,6 +174,35 @@ Phases:
    (D = 256), and the last logged loss must be below the first. Prints
    steps/s, tokens/s, MFU (bench.py's formula), peak memory and the
    logged losses.
+18. K1 wider kernels: K1 at head dims 320, 384, 448 and 512 (the
+   reference's Pallas kernel at D % 64 == 0 above 256; bf16 splits D
+   across warps, flash_fwd_bf16_split_kernel) through the flash_attention
+   wrapper against its plain version: every instantiation once (bf16 and
+   f32, causal and not, with and without logsumexp, lq == lk and lq < lk;
+   one summary line, each launch counted in wide_d_launches), then the
+   prefill call at DeepSeek-V4-Flash's attention widths ([1,64,2048,512]
+   f32 causal), the same call in bf16 with and without logsumexp, and
+   bf16 at D = 384, each timed beside its plain version, SDPA and its
+   bound.
+19. Generation, DeepSeek-V4-Flash widths, over HTTP: TinyGenLM at
+   deepseek-ai/DeepSeek-V4-Flash's published attention widths (hidden
+   4096, 64 heads of 512, vocab 129280; 4 of 43 layers, 2048 of its
+   positions, 64 K/V heads in place of its one shared, a dense ReLU MLP
+   at ratio 4 in place of its MoE; f32, seeded weights), launched from a
+   stock config (no http: block, so the HTTP frontend starts on loopback
+   at a free port) after the earlier phases' memory is freed: 32
+   synthetic prompts uniform in [128, 2016], 32 tokens each, as POST
+   /generate SSE streams (urllib, at most 8 outstanding), with GET
+   /metrics and /healthz answering 200 during the burst. Every stream
+   must carry one meta event, contiguous chunks, exactly one terminal
+   event and no error event; K1 at D = 512 must launch once a layer for
+   every prefill in a bucket of 128 or more (warm-up included,
+   wide_d_launches). Then 4 prompts go through the same DecodeEngine's
+   prefill and 16 decode steps, and their logits are held against the
+   plain full forward (f32 einsum attention, no cache) within LOGIT_TOL
+   of the row's largest |logit|, a bound the same logits rounded to bf16
+   must fail; and 4 streams against reference_generate as at Phi-2's
+   widths.
 
 Prints each phase's seconds, a {"kernels": [...]} line (K1, K2 and K3
 each with a kv_mask_call at the NER trained call; K5b's forward at the
@@ -185,7 +214,9 @@ fit's; flash_attn_fwd_wide at the Gemma-width prefill call with an
 lse_call, a bf16_call and a trained_lse_call at the LM's call, its
 launches the Gemma phase's and the LM fit's; flash_attn_bwd_dq_wide and
 flash_attn_bwd_dkv_wide at the LM's trained call with an f32_call and a
-d192_call, their launches the LM fit's), the card's name and power
+d192_call, their launches the LM fit's; flash_attn_fwd_wider at the
+DeepSeek-width prefill call with a bf16_call, an lse_call and a
+d384_call, its launches the DeepSeek phase's), the card's name and power
 limit, and last {"ok": true, "device": {...}}. Any failed check exits
 non-zero.
 """
@@ -273,7 +304,8 @@ def ptxas_lines(log: str) -> list:
     table, kernel = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*(flash_(?:fwd|bwd_dq|"
-                      r"bwd_dkv)_(?:bf16|f32)(?:_wide)?_kernel)ILi(\d+)E"
+                      r"bwd_dkv)_(?:bf16|f32)(?:_wide|_split)?_kernel)"
+                      r"ILi(\d+)E"
                       r"(?:Lb([01])E)?", line)
         if m:
             kernel = (m.group(1), int(m.group(3) or 0), int(m.group(2)))
@@ -335,6 +367,31 @@ def device_ms(torch, fn, iters: int = 10) -> float:
         if busy > 0:
             return busy / 1e3
     return None
+
+
+def sdpa_backend(torch, fn) -> str:
+    """Which backend PyTorch's SDPA dispatcher picks for the call ``fn``
+    makes ("flash_attention", "efficient_attention", "math", ...): the
+    first, in the dispatcher's own priority order, that runs the call
+    when it is the only backend allowed. (Read from kernel names in a
+    profiler window, the answer went missing late in a run.)"""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    order = (torch._C._get_sdp_priority_order()
+             if hasattr(torch._C, "_get_sdp_priority_order")
+             else [1, 2, 0, 3])  # flash, efficient, math, cudnn
+    for i in order:
+        backend = SDPBackend(i)
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")
+                fn()
+        except RuntimeError:
+            continue
+        return backend.name.lower()
+    return "none"
 
 
 def _ms(x) -> str:
@@ -886,6 +943,7 @@ def timed_fwd_cases(torch, peaks, rng, cases, counter, label, iters=20):
             q, k, v, causal, None, with_lse, m), 3)
         rec["library_ms"] = time_ms(torch, lib, iters)
         rec["library_device_ms"] = device_ms(torch, lib)
+        rec["library_backend"] = sdpa_backend(torch, lib)
         rec["bound_ms"], rec["bound_by"] = bounds(
             b, h, lq, lk, d, q.element_size(), causal, peaks[kind],
             peaks["bw"], keep)["k1_lse" if with_lse else "k1"]
@@ -898,7 +956,8 @@ def timed_fwd_cases(torch, peaks, rng, cases, counter, label, iters=20):
               + (f" lse_err={rec['lse_max_abs_err']:.3g}" if with_lse
                  else "")
               + f"; kernel {rec['ms']:.4f} ({_ms(rec['device_ms'])}) ms, "
-              f"plain {rec['plain_ms']:.4f}, sdpa {rec['library_ms']:.4f} "
+              f"plain {rec['plain_ms']:.4f}, sdpa "
+              f"({rec['library_backend']}) {rec['library_ms']:.4f} "
               f"({_ms(rec['library_device_ms'])}), bound "
               f"{rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
         del q, k, v
@@ -1070,6 +1129,54 @@ def wide_bwd_phase(torch, peaks):
         fail(f"wide backward: K1, K2, K3 counted {counted} wide launches in "
              f"{n} sweep cases (want {[2 * n, n, n]})")
     return backward_phase(torch, peaks, WIDE_BWD_CASES, 12, "wide-bwd")
+
+
+# K1 above D = 256: every instantiation once (D in {320, 384, 448, 512},
+# bf16 and f32, causal and not, with and without logsumexp, lq == lk and
+# lq < lk)
+WIDER_HEAD_DIMS = (320, 384, 448, 512)
+WIDER_SWEEP = [
+    (f"d{d}", shape + (d,), dt, causal, None, with_lse)
+    for d in WIDER_HEAD_DIMS for dt in ("bfloat16", "float32")
+    for shape in ((2, 4, 256, 256), (1, 2, 128, 384))
+    for causal in (False, True) for with_lse in (False, True)]
+# the calls timed: the prefill at DeepSeek-V4-Flash's attention widths
+# (64 heads of 512, f32, the 2048 bucket), the same call in bf16 without
+# and with logsumexp (the forward a training step would run), and bf16
+# at D = 384
+WIDER_CASES = [
+    ("deepseek_prefill", (1, 64, 2048, 2048, 512), "float32", True, None,
+     False),
+    ("deepseek_bf16", (1, 64, 2048, 2048, 512), "bfloat16", True, None,
+     False),
+    ("deepseek_bf16_lse", (1, 64, 2048, 2048, 512), "bfloat16", True, None,
+     True),
+    ("bf16_d384", (2, 32, 2048, 2048, 384), "bfloat16", True, None, False),
+]
+
+
+def wider_phase(torch, peaks):
+    """K1 at D in {320, 384, 448, 512} through the ``flash_attention``
+    wrapper against its plain version on the card (``WIDER_SWEEP``, one
+    summary line), then ``WIDER_CASES`` timed. Every launch must count in
+    ``wide_d_launches``. Returns the timed records."""
+    rng = np.random.RandomState(18)
+    make = _make(torch, rng)
+    sweep = []
+    for name, (b, h, lq, lk, d), dt, causal, _, with_lse in WIDER_SWEEP:
+        _, _, _, rec = fwd_check(
+            torch, make, f"K1 wider {name} {dt} {[b, h, lq, lk]} "
+            f"causal={causal} lse={with_lse}", b, h, lq, lk, d, dt, causal,
+            None, with_lse, "wide_d_launches")
+        sweep.append(rec["share"])
+    print(f"K1 wider: all {len(WIDER_SWEEP)} cases (D 320/384/448/512 x "
+          f"bf16/f32 x causal x lse x lq == lk or lq < lk) match the plain "
+          f"version (largest error {max(sweep):.3g} of its tolerance)",
+          flush=True)
+    checks = timed_fwd_cases(torch, peaks, rng, WIDER_CASES,
+                             "wide_d_launches", "K1 wider", iters=10)
+    print(json.dumps({"wider_checks": checks}), flush=True)
+    return checks
 
 
 def _pick(records, name, dt="bfloat16"):
@@ -1924,6 +2031,21 @@ GEN_FULL = {"model": dict(vocab=51200, dim=2560, heads=32, head_dim=80,
 GEN_GEMMA = {"model": dict(vocab=256000, dim=2048, heads=8, head_dim=256,
                            layers=18, max_len=8192, mlp_ratio=8, seed=0),
              "slots": 8, "page_size": 16, "max_len": 8192}
+# deepseek-ai/DeepSeek-V4-Flash's published attention widths (config.json:
+# hidden_size 4096, num_attention_heads 64, head_dim 512, vocab_size
+# 129280) in TinyGenLM's block, f32, seeded weights: K1 at D = 512. Cut:
+# 4 of its 43 layers, 2048 of its 1,048,576 positions, 64 K/V heads in
+# place of its one shared K=V head (TinyGenLM takes one H for Q, K and
+# V), a dense ReLU MLP at ratio 4 (16384) in place of its MoE (6 of 256
+# routed experts of 2048 and 1 shared: 14,336 active columns), and none
+# of its low-rank Q and O, compressed or sparse attention, sliding
+# window, mHC residual streams or MTP. The KV pool holds 1024 pages of 16
+# (8 slots at the full 2048), 17.18 GB
+GEN_DEEPSEEK = {"model": dict(vocab=129280, dim=4096, heads=64,
+                              head_dim=512, layers=4, max_len=2048,
+                              mlp_ratio=4, seed=0),
+                "slots": 8, "page_size": 16, "num_pages": 1024,
+                "max_len": 2048}
 # a full-width divergence from the reference at a top-1 - top-2 logit gap
 # below this is an f32 tie (the logits spread about 50)
 TIE_GAP = 1e-3
@@ -1973,24 +2095,149 @@ def _gen_reference_check(torch, engine, prompts, streams, n_check,
     return compared, ties
 
 
+def _drive_queue(app, prompts, max_tokens, slots, label):
+    """The generate requests through ``app.gen_input_queue``, at most
+    ``slots`` outstanding, chunks read from ``app.output_queue``.
+    Returns ({uri: {"toks", "seqs", "t", "terminal", "reason"}}, {uri:
+    send time})."""
+    streams = {u: {"toks": [], "seqs": [], "t": [], "terminal": 0}
+               for u in prompts}
+    order, sent, finished = sorted(prompts), {}, 0
+    deadline = time.perf_counter() + 900
+    while finished < len(prompts):
+        while len(sent) < len(prompts) and len(sent) - finished < slots:
+            uri = order[len(sent)]
+            sent[uri] = time.perf_counter()
+            if not app.gen_input_queue.enqueue_generation(
+                    uri, prompts[uri], max_tokens=max_tokens):
+                fail(f"{label}: enqueue refused {uri}")
+        item = app.output_queue.dequeue(timeout=1.0)
+        if time.perf_counter() > deadline:
+            fail(f"{label}: {finished}/{len(prompts)} streams finished in "
+                 "900 s")
+        if item is None:
+            continue
+        now = time.perf_counter()
+        uri, tensors = item
+        rec = streams.get(uri)
+        if rec is None:
+            fail(f"{label}: a chunk for an unknown stream {uri}")
+        if "__error__" in tensors:
+            fail(f"{label} {uri}: error terminal "
+                 f"{np.asarray(tensors['__error__'])}")
+        rec["seqs"].append(int(np.asarray(tensors["__stream__"])))
+        rec["t"].append(now)
+        rec["toks"].extend(int(t) for t in np.asarray(
+            tensors.get("token", np.zeros(0, np.int32))).reshape(-1))
+        if "finish_reason" in tensors:
+            rec["terminal"] += 1
+            rec["reason"] = str(np.asarray(tensors["finish_reason"]))
+            finished += 1
+    return streams, sent
+
+
+def _sse_stream(address, prompt, max_tokens, label):
+    """One ``POST /generate`` read as its SSE stream: every event must be
+    one ``data: <json>`` line and a blank line, the first the meta event
+    ({"uri"}), no event an error. Returns (send time, the stream's
+    record as ``_drive_queue`` makes it)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        address + "/generate", data=json.dumps(
+            {"prompt": [int(t) for t in prompt],
+             "max_tokens": max_tokens}).encode(),
+        headers={"Content-Type": "application/json"})
+    rec = {"toks": [], "seqs": [], "t": [], "terminal": 0, "events": 0}
+    t_sent = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        if (resp.status != 200
+                or resp.headers["Content-Type"] != "text/event-stream"):
+            fail(f"{label}: /generate answered {resp.status} "
+                 f"{resp.headers['Content-Type']}")
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            now = time.perf_counter()
+            if not line.startswith(b"data: ") or not line.endswith(b"\n"):
+                fail(f"{label}: not an SSE data line: {line[:200]!r}")
+            if resp.readline() != b"\n":
+                fail(f"{label}: an SSE event not ended by a blank line")
+            ev = json.loads(line[len(b"data: "):])
+            rec["events"] += 1
+            if "error" in ev:
+                fail(f"{label}: an error event reached the client: {ev}")
+            if rec["events"] == 1:
+                if set(ev) - {"uri", "trace_id"} or "uri" not in ev:
+                    fail(f"{label}: the first event is not the meta event: "
+                         f"{ev}")
+                continue
+            rec["seqs"].append(ev["seq"])
+            rec["t"].append(now)
+            rec["toks"].extend(ev.get("token", ()))
+            if "finish_reason" in ev:
+                rec["terminal"] += 1
+                rec["reason"] = ev["finish_reason"]
+    return t_sent, rec
+
+
+def _drive_http(app, prompts, max_tokens, slots, label):
+    """The generate requests as ``POST /generate`` SSE streams from
+    ``slots`` client threads (at most ``slots`` outstanding), with ``GET
+    /metrics`` and ``/healthz`` asked every second meanwhile; each must
+    answer 200. Returns what ``_drive_queue`` does."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    def get(route):
+        with urllib.request.urlopen(app.address + route, timeout=60) as r:
+            r.read()
+            return r.status
+
+    polled = []
+    with ThreadPoolExecutor(max_workers=slots) as pool:
+        futures = {u: pool.submit(_sse_stream, app.address, prompts[u],
+                                  max_tokens, f"{label} {u}")
+                   for u in sorted(prompts)}
+        deadline = time.perf_counter() + 900
+        while not all(f.done() for f in futures.values()):
+            if time.perf_counter() > deadline:
+                fail(f"{label}: the streams did not finish in 900 s")
+            polled += [(route, get(route)) for route in ("/metrics",
+                                                         "/healthz")]
+            time.sleep(1.0)
+        done = {u: f.result() for u, f in futures.items()}
+    bad = [p for p in polled if p[1] != 200]
+    if not polled or bad:
+        fail(f"{label}: /metrics and /healthz during the run: {bad or 'none'}")
+    print(f"{label}: /metrics and /healthz answered 200 to all "
+          f"{len(polled)} polls during the burst", flush=True)
+    return ({u: rec for u, (_, rec) in done.items()},
+            {u: t for u, (t, _) in done.items()})
+
+
 def generation_phase(torch, label, block, n_requests, prompt_lens,
                      max_tokens, n_check, check_tokens, tie_gap=None,
-                     seed=0):
+                     seed=0, http=False, n_logits=0):
     """``n_requests`` synthetic generate requests (prompt lengths uniform
     in ``prompt_lens``, tokens uniform over the vocabulary,
     ``__max_tokens__`` ``max_tokens``) through the port's launch() with
     ``block`` as its generation: block -> GenerationWorker ->
     DecodeEngine -> PagedKVCache -> TinyGenLM, at most ``slots`` streams
     outstanding (a bounded admission window, as
-    scripts/perf_generation.py drives the JAX package). Checks that
-    every stream gets contiguous chunks and one terminal chunk with
-    in-range tokens, that the prefill's flash kernel (K5b at a head dim
-    up to 128, counted in ``small_d_launches``; K1 above 128, in
-    ``wide_d_launches``) launched once a layer for every prefill in a
-    bucket of 128 tokens or more (warm-up included) and no other flash
-    launch ran, and the streams against reference_generate. Then
-    profiles the decode step with all slots live at the longest prompts.
-    Returns the summary."""
+    scripts/perf_generation.py drives the JAX package): on the memory
+    queue with ``http: {enabled: false}``, or with ``http`` from a stock
+    config (no http: block) as ``POST /generate`` SSE streams through
+    the HTTP frontend (``_drive_http``). Checks that every stream gets
+    contiguous chunks and one terminal chunk with in-range tokens, that
+    the prefill's flash kernel (K5b at a head dim up to 128, counted in
+    ``small_d_launches``; K1 above 128 in ``wide_d_launches``) launched once a layer for every
+    prefill in a bucket of 128 tokens or more (warm-up included) and no
+    other flash launch ran, ``n_logits`` prompts' logits against the
+    plain full forward (``_logits_check``), and the streams against
+    reference_generate. Then profiles the decode step with all slots
+    live at the longest prompts. Returns the summary."""
     from analytics_zoo_tpu_torch.common.config import get_config
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
     from analytics_zoo_tpu_torch.serving.generation import prefill_ladder
@@ -2012,52 +2259,25 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
                      + sum(b >= 128 for b in bucket.values()))
     prefill0, step0 = (_hist("zoo_generation_prefill_duration_seconds"),
                        _hist("zoo_generation_decode_step_duration_seconds"))
+    config = ({"generation": block} if http
+              else {"generation": block, "http": {"enabled": False}})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(fa)
-    # ---- main path: launch() -> GenerationWorker -> DecodeEngine ->
-    # PagedKVCache -> TinyGenLM (prefill through K5b, or K1 above 128) ----
+    # ---- main path: launch() (-> HttpFrontend) -> GenerationWorker ->
+    # DecodeEngine -> PagedKVCache -> TinyGenLM (prefill through K5b, or
+    # K1 above 128) ----
     t0 = time.perf_counter()
-    app = launch({"generation": block, "http": {"enabled": False}})
+    app = launch(config)
     up_s = time.perf_counter() - t0
     print(f"{label}: up in {up_s:.1f}s (seeded weights, warm-up of "
-          f"buckets {ladder})", flush=True)
+          f"buckets {ladder})"
+          + (f", serving at {app.address}" if http else ""), flush=True)
     try:
         engine = app.gen_worker.engine
-        streams = {u: {"toks": [], "seqs": [], "t": [], "terminal": 0}
-                   for u in prompts}
-        order, sent, finished = sorted(prompts), {}, 0
         t_start = time.perf_counter()
-        deadline = t_start + 900
-        while finished < n_requests:
-            while len(sent) < n_requests and len(sent) - finished < slots:
-                uri = order[len(sent)]
-                sent[uri] = time.perf_counter()
-                if not app.gen_input_queue.enqueue_generation(
-                        uri, prompts[uri], max_tokens=max_tokens):
-                    fail(f"{label}: enqueue refused {uri}")
-            item = app.output_queue.dequeue(timeout=1.0)
-            if time.perf_counter() > deadline:
-                fail(f"{label}: {finished}/{n_requests} streams finished "
-                     "in 900 s")
-            if item is None:
-                continue
-            now = time.perf_counter()
-            uri, tensors = item
-            rec = streams.get(uri)
-            if rec is None:
-                fail(f"{label}: a chunk for an unknown stream {uri}")
-            if "__error__" in tensors:
-                fail(f"{label} {uri}: error terminal "
-                     f"{np.asarray(tensors['__error__'])}")
-            rec["seqs"].append(int(np.asarray(tensors["__stream__"])))
-            rec["t"].append(now)
-            rec["toks"].extend(int(t) for t in np.asarray(
-                tensors.get("token", np.zeros(0, np.int32))).reshape(-1))
-            if "finish_reason" in tensors:
-                rec["terminal"] += 1
-                rec["reason"] = str(np.asarray(tensors["finish_reason"]))
-                finished += 1
+        streams, sent = (_drive_http if http else _drive_queue)(
+            app, prompts, max_tokens, slots, label)
         wall = time.perf_counter() - t_start
         torch.cuda.synchronize()
         launched = getattr(fa.flash_attention, counter)
@@ -2069,10 +2289,12 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
             _hist("zoo_generation_decode_step_duration_seconds"))
         if not app.drain(deadline_ms=60000):
             fail(f"{label}: the generation worker did not drain")
-        time.sleep(0.2)
-        extra = app.output_queue.dequeue(timeout=0.5)
-        if extra is not None:
-            fail(f"{label}: a chunk after every stream ended: {extra[0]}")
+        if not http:
+            time.sleep(0.2)
+            extra = app.output_queue.dequeue(timeout=0.5)
+            if extra is not None:
+                fail(f"{label}: a chunk after every stream ended: "
+                     f"{extra[0]}")
         for uri, rec in streams.items():
             if rec["terminal"] != 1 or rec["reason"] != "length":
                 fail(f"{label} {uri}: {rec['terminal']} terminal chunks "
@@ -2087,6 +2309,8 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
                  f"times in {counter} (want {layers} layers x "
                  f"{want // layers} prefills in buckets >= 128, warm-up "
                  f"included), {other} other flash launches")
+        logits = (_logits_check(torch, engine, prompts, n_logits,
+                                check_tokens, label) if n_logits else None)
         compared, ties = _gen_reference_check(
             torch, engine, prompts, streams, n_check, check_tokens, tie_gap,
             label)
@@ -2109,7 +2333,8 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
     summary = {
         "requests": n_requests, "prompt_lens": list(prompt_lens),
         "max_tokens": max_tokens, "slots": slots, "layers": layers,
-        "traffic": "synthetic", "up_s": up_s, "wall_s": wall,
+        "traffic": "synthetic", "client": "http" if http else "queue",
+        "up_s": up_s, "wall_s": wall,
         "tokens": n_requests * max_tokens,
         "tokens_per_s": n_requests * max_tokens / wall,
         "ttft_ms": {"p50": float(np.percentile(ttft, 50)),
@@ -2126,11 +2351,96 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
         "flash_counter": counter, "flash_launches": launched,
         "flash_launches_wanted": want,
         "exact_tokens_compared": compared, "f32_ties": ties,
+        "logits_check": logits,
         "kv_pool_bytes": engine.cache.stats()["bytes"],
         "peak_mem_gib": peak / 2 ** 30,
         "device": torch.cuda.get_device_name(0)}
     print(f"{label}: " + json.dumps(summary), flush=True)
     return summary
+
+
+# The DeepSeek-width phase's logits against the plain full forward: the
+# largest |served - plain| of a row, as a share of the row's largest
+# |plain logit|. f32 on both sides (the served path through K1, the paged
+# pool and the decode step; the plain one through the einsum path over
+# the whole sequence), so the two differ by the order of f32 sums, which
+# 4 layers leave far below this. Rounding the plain logits to bf16 alone
+# moves the row's top logit by up to 2^-9 (1.95e-3) of itself, so a bf16
+# result fails this bound nearly 20 times over (and the check proves it
+# on its own rows).
+LOGIT_TOL = 1e-4
+
+
+def _logits_check(torch, engine, prompts, n_check, n_steps, label):
+    """The first ``n_check`` prompts (after the burst, the worker
+    drained) through the engine's own prefill and ``n_steps`` decode
+    steps, their logits taken from the model's calls; each prompt's plain
+    full forward over the prompt and the tokens the engine chose (f32,
+    einsum attention, no cache) gives the rows they must match within
+    ``LOGIT_TOL``. Fails unless the same rows rounded to bf16 fail it.
+    Returns the largest share and the bf16 control's."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+
+    model, params = engine.model, engine.params
+    uris = sorted(prompts)[:n_check]
+    row, pre, steps = [0], [], []
+    real_prefill, real_step = model.prefill, model.decode_step
+
+    def prefill(p, tokens):
+        out = real_prefill(p, tokens)
+        pre.append(out[0][0, row[0]].float().clone())
+        return out
+
+    def decode_step(*args):
+        steps.append(real_step(*args).float().clone())
+        return steps[-1]
+
+    model.prefill, model.decode_step = prefill, decode_step
+    slots, toks = {}, {}
+    try:
+        for u in uris:
+            row[0] = len(prompts[u]) - 1
+            slots[u], tok0 = engine.admit(prompts[u], n_steps + 1)
+            toks[u] = [tok0]
+        for _ in range(n_steps):
+            out = dict(engine.step())
+            for u in uris:
+                toks[u].append(out[slots[u]])
+    finally:
+        del model.prefill, model.decode_step
+        for s in slots.values():
+            engine.release(s)
+    worst = control = 0.0
+    get_config().set("zoo.ops.attention_impl", "einsum")
+    try:
+        for i, u in enumerate(uris):
+            seq = np.concatenate([prompts[u], toks[u][:n_steps]])
+            with torch.inference_mode():
+                plain, _, _ = model.prefill(params, torch.as_tensor(
+                    seq.astype(np.int64)[None], device=engine.device))
+            lp = len(prompts[u])
+            want = plain[0, lp - 1:lp + n_steps].float()
+            got = torch.stack([pre[i]] + [s[slots[u]] for s in steps])
+            scale = want.abs().amax(-1)
+            share = ((got - want).abs().amax(-1) / scale).max().item()
+            bf16 = ((want.bfloat16().float() - want).abs().amax(-1)
+                    / scale).max().item()
+            worst, control = max(worst, share), max(control, bf16)
+            del plain, want, got
+    finally:
+        get_config().set("zoo.ops.attention_impl", "flash")
+    print(f"{label}: logits of {len(uris)} prompts x (prefill + {n_steps} "
+          f"decode steps) against the plain full forward: largest error "
+          f"{worst:.3g} of the row's largest |logit| (limit {LOGIT_TOL}); "
+          f"the same rows rounded to bf16: {control:.3g}", flush=True)
+    if not worst <= LOGIT_TOL:
+        fail(f"{label}: logits {worst} of the row's largest |logit| from "
+             f"the plain full forward (limit {LOGIT_TOL})")
+    if not control > LOGIT_TOL:
+        fail(f"{label}: bf16 rounding of the plain logits passes the "
+             f"logits check ({control} <= {LOGIT_TOL}): the bound is loose")
+    return {"max_share": worst, "bf16_control_share": control,
+            "tol": LOGIT_TOL, "prompts": len(uris), "steps": n_steps}
 
 
 def _profile_decode(torch, engine, prompts, label, iters=5):
@@ -2230,7 +2540,7 @@ def main() -> None:
             timed("generation, Phi-2 widths", generation_phase, torch,
                   "genfull", GEN_FULL, 32, (128, 2016), 32, 4, 16,
                   tie_gap=TIE_GAP)]
-    # the Phi-2 phase's weights and pool (about 22 GB) go before Gemma's
+    # the Phi-2 phase's weights and pool (about 11 GB) go before Gemma's
     gc.collect()
     torch.cuda.empty_cache()
     wide = timed("K1 wide kernels", wide_phase, torch, peaks)
@@ -2242,6 +2552,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     wide_bwd = timed("K2/K3 wide kernels", wide_bwd_phase, torch, peaks)
     lm = timed("GPT-J-width LM learn", lm_learn, torch, profile=args.profile)
+    # the LM's weights, gradients and Adam state (about 33 GB) go before
+    # the DeepSeek-width phase's
+    gc.collect()
+    torch.cuda.empty_cache()
+    wider = timed("K1 wider kernels", wider_phase, torch, peaks)
+    deepseek = timed("generation, DeepSeek-V4-Flash widths, over HTTP",
+                     generation_phase, torch, "gendeepseek", GEN_DEEPSEEK,
+                     32, (128, 2016), 32, 4, 16, tie_gap=TIE_GAP, http=True,
+                     n_logits=4)
     k5b_full, k5b_masked, k5b_padded = (
         _pick(k5b, "gen_full", "float32"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))
@@ -2370,7 +2689,23 @@ def main() -> None:
         # ([4,16,2048,256] bf16, causal), launched by its fit
         wide_row("flash_attn_bwd_dq_wide", K2_SOURCE, K2_REPLACES, "k2"),
         wide_row("flash_attn_bwd_dkv_wide", K3_SOURCE, K3_REPLACES,
-                 "k3")]}),
+                 "k3"), {
+            # K1 at D = 512: the prefill call at DeepSeek-V4-Flash's
+            # attention widths ([1,64,2048,512] f32, causal), launched by
+            # the DeepSeek phase's prefills over HTTP
+            "name": "flash_attn_fwd_wider", "route": "cuda",
+            "source": K1_SOURCE, "replaces": K1_REPLACES,
+            "launches": deepseek["flash_launches"],
+            **pick_keys(_pick(wider, "deepseek_prefill", "float32"),
+                        "library_backend"),
+            "bf16_call": pick_keys(_pick(wider, "deepseek_bf16"),
+                                   "library_backend"),
+            # K1-lse at D = 512: instantiated and checked; no main path
+            # takes it until K2 and K3 exist there
+            "lse_call": pick_keys(_pick(wider, "deepseek_bf16_lse"),
+                                  "library_backend", "lse_max_abs_err"),
+            "d384_call": pick_keys(_pick(wider, "bf16_d384"),
+                                   "library_backend")}]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,14 +10,15 @@ parent commit unpacked with ``git archive`` into a directory that
 parent, change, ... (``--pairs`` pairs, 3 by default), each in a fresh
 process that imports that checkout's own ``chip_smoke.py`` and drives
 its phases whose figures swing with the host: K1-lse, K2 and K3 at the
-BERT-base trained call (device time), BERT-base serving (with the
-seconds its save and its start-up take), the NER fine-tune, NER serving
-(start-up seconds too) and TinyGenLM generation at the repo geometry.
-Each checkout builds its kernels into its own ``build/``. Prints one
-JSON line a run, then the ptxas registers and spills of every kernel
-instantiation both checkouts build that differ between them (none: the
-line says so), and last each metric's runs and median per side. Needs
-one card.
+BERT-base trained call (device time), K1 and K1-lse at the served shape
+[32,12,512,64] and at [8,8,2048,256] causal, bf16 (device time),
+BERT-base serving (with the seconds its save and its start-up take), the
+NER fine-tune, NER serving (start-up seconds too) and TinyGenLM
+generation at the repo geometry. Each checkout builds its kernels into
+its own ``build/``. Prints one JSON line a run, then the ptxas registers
+and spills of every kernel instantiation both checkouts build that
+differ between them (none: the line says so), and last each metric's
+runs and median per side. Needs one card.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import statistics
 import subprocess
 import sys
 
+import numpy as np
+
 # (summary-line label, key in its JSON, metric name)
 SUMMARIES = (
     ("serving", "rps", "serving_rps"),
@@ -39,6 +42,14 @@ SUMMARIES = (
     ("gen", "tokens_per_s", "gen_tokens_per_s"),
 )
 KERNELS = ("k1_lse", "k2", "k3")
+# K1 and K1-lse timed through chip_smoke.timed_fwd_cases: the served
+# shape and the widest head dim the backward also takes
+FWD_CASES = (
+    ("served_k1", (32, 12, 512, 512, 64), "bfloat16", False, None, False),
+    ("served_k1_lse", (32, 12, 512, 512, 64), "bfloat16", False, None, True),
+    ("d256_k1", (8, 8, 2048, 2048, 256), "bfloat16", True, None, False),
+    ("d256_k1_lse", (8, 8, 2048, 2048, 256), "bfloat16", True, None, True),
+)
 # (line pattern, metric name): seconds the phases print as they go
 SECONDS = (
     (r"^serving: BERT-base saved in ([0-9.]+)s", "bert_save_s"),
@@ -70,6 +81,9 @@ def run_phases(checkout: str) -> None:
     trained = [c for c in cs.BACKWARD_CASES
                if c[0] == "trained" and c[2] == "bfloat16"]
     cs.backward_phase(torch, cs.PEAKS["sxm"], trained, 1, "backward")
+    fwd = cs.timed_fwd_cases(torch, cs.PEAKS["sxm"], np.random.RandomState(0),
+                             list(FWD_CASES), "launches", "fwd", iters=20)
+    print(json.dumps({"fwd_checks": fwd}), flush=True)
     cs.bert_serving(torch)
     with tempfile.TemporaryDirectory() as ner_dir:
         cs.ner_learn(torch, ner_dir)
@@ -105,6 +119,9 @@ def figures(out: str) -> dict:
             rec = json.loads(line)["backward_checks"][0]
             for k in KERNELS:
                 got[f"{k}_device_ms"] = rec[f"{k}_device_ms"]
+        if line.startswith('{"fwd_checks"'):
+            for rec in json.loads(line)["fwd_checks"]:
+                got[f"{rec['case']}_device_ms"] = rec["device_ms"]
     for pattern, name in SECONDS:
         found = re.search(pattern, out, re.M)
         if found:
@@ -151,7 +168,9 @@ def main() -> None:
     print(json.dumps({"ptxas_instantiations_compared": len(common),
                       "ptxas_differ": moved}), flush=True)
     names = [name for _, _, name in SUMMARIES] + [
-        f"{k}_device_ms" for k in KERNELS] + [name for _, name in SECONDS]
+        f"{k}_device_ms" for k in KERNELS] + [
+        f"{c[0]}_device_ms" for c in FWD_CASES] + [
+        name for _, name in SECONDS]
     print(json.dumps({name: {side: {
         "runs": [r.get(name) for r in rs],
         "median": statistics.median(r[name] for r in rs if name in r)}

@@ -782,8 +782,10 @@ class TestLaunchGeneration:
          "ROADMAP queue 1: fleet"),
         ({"generation": dict(GEN_BLOCK, role="decode")},
          "ROADMAP queue 1: fleet"),
-        ({"generation": dict(GEN_BLOCK), "http": {"enabled": True}},
-         "ROADMAP queue 1: HTTP frontend"),
+        # the HTTP frontend is ported; the Redis frontend (queue 1's
+        # HTTP-frontend item until then) goes with the fleet
+        ({"generation": dict(GEN_BLOCK), "redis": {"enabled": True}},
+         "ROADMAP queue 1: fleet"),
     ], ids=["prefill", "decode", "http"])
     def test_unported_roles_raise(self, config, match):
         config = dict({"http": {"enabled": False}}, **config)

@@ -27,6 +27,10 @@ def _sources():
     files = sorted(PORT.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "compare_port_commits.py"]
     assert len(files) > 20
+    # the HTTP frontend and the rollup reporter, carried with the serving
+    # launcher, are held to the same rule
+    assert {PORT / "serving" / "http_frontend.py",
+            PORT / "obs" / "reporter.py"} <= set(files)
     return files
 
 
@@ -61,6 +65,8 @@ def test_importing_the_port_loads_no_jax():
             "import analytics_zoo_tpu_torch.models.text.bert_squad\n"
             "import analytics_zoo_tpu_torch.serving.generation\n"
             "import analytics_zoo_tpu_torch.inference.kv_cache\n"
+            "import analytics_zoo_tpu_torch.serving.http_frontend\n"
+            "import analytics_zoo_tpu_torch.obs.reporter\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]\n"
             "assert not bad, bad\n")

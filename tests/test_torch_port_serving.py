@@ -116,7 +116,8 @@ class TestLaunchServesBridgedBERT:
                     "http": {"enabled": False}})
 
     @pytest.mark.parametrize("config", [
-        {"http": {"enabled": True}},
+        # the Redis frontend (the HTTP frontend is ported)
+        {"http": {"enabled": False}, "redis": {"enabled": True}},
         {"http": {"enabled": False}, "data": {"queue": "tcp"}},
         {"http": {"enabled": False}, "generation": {"role": "prefill"}},
         {"http": {"enabled": False}, "shard": {"mode": "tp"}},

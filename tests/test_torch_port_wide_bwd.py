@@ -140,13 +140,14 @@ class TestWideRouteAndGates:
                                           (320, False), (320, True),
                                           (512, False)])
     def test_einsum_path_as_in_the_reference(self, d, masked, needs_grad):
-        """A key-padding mask above 128, and a head dim above 128 other
-        than 192 and 256, take the einsum path (the reference's
-        stock-kernel branch stops at 128; K1-K3 at 320 and up are still
-        to port)."""
-        assert port_attention._flash_route(
+        """A key-padding mask above 128 takes the einsum path (the
+        reference's stock-kernel branch stops at 128), and so does a call
+        under a gradient at 320 and up (K2 and K3 are still to port
+        there). Without either, K1 takes the call at 320 and 512."""
+        got = port_attention._flash_route(
             **self.BASE, d=d, causal=True, has_key_padding_mask=masked,
-            needs_grad=needs_grad) is None
+            needs_grad=needs_grad)
+        assert got == (None if masked or needs_grad else "kernels")
 
     @pytest.mark.parametrize("d", [192, 256])
     def test_backward_gate_passes(self, d):
@@ -158,9 +159,17 @@ class TestWideRouteAndGates:
     @pytest.mark.parametrize("backward", [False, True])
     @pytest.mark.parametrize("d", [320, 384, 512])
     def test_wider_head_dims_point_at_the_roadmap(self, d, backward):
+        """K2 and K3 at 320 to 512, and K1 above 512, raise with the
+        ROADMAP item that ports them; K1 at 320 to 512 passes."""
+        if backward:
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP section 2, item 2"):
+                fa._check_head_dim(d, backward=True)
+            return
+        fa._check_head_dim(d)
         with pytest.raises(NotImplementedError,
                            match="ROADMAP section 2, item 2"):
-            fa._check_head_dim(d, backward=backward)
+            fa._check_head_dim(d + 256)
 
     @pytest.mark.parametrize("d", [192, 256])
     def test_card_trained_call_launches_k1_lse_k2_k3(self, fake_card,

@@ -106,13 +106,14 @@ class TestWideRoute:
     @pytest.mark.parametrize("d", [192, 256, 320])
     def test_route(self, d, key_padding, needs_grad):
         """The kernels at 192 and 256 for an unmasked call, with or
-        without a gradient (K1, or K1-lse, K2 and K3); the einsum path
-        with a key-padding mask (the reference's stock-kernel branch
-        stops at 128) and at every other D above 128."""
+        without a gradient (K1, or K1-lse, K2 and K3), and at 320 without
+        one (K1 alone); the einsum path with a key-padding mask (the
+        reference's stock-kernel branch stops at 128) and at 320 under a
+        gradient (no K2 or K3 there yet)."""
         got = port_attention._flash_route(
             **self.BASE, d=d, has_key_padding_mask=key_padding,
             needs_grad=needs_grad)
-        kernel = d in (192, 256) and not key_padding
+        kernel = not key_padding and (d in (192, 256) or not needs_grad)
         assert got == ("kernels" if kernel else None)
 
     def test_gates(self):
@@ -121,9 +122,12 @@ class TestWideRoute:
             fa._check_head_dim(d, backward=True)
             with pytest.raises(NotImplementedError, match="masked"):
                 fa._check_head_dim(d, masked=True)
-        for d in (136, 320, 512):
-            with pytest.raises(NotImplementedError, match="192 and 256"):
-                fa._check_head_dim(d)
+        for d in (136, 320, 512, 576):
+            if d in (320, 512):
+                fa._check_head_dim(d)  # K1 alone
+            else:
+                with pytest.raises(NotImplementedError, match="192 and 256"):
+                    fa._check_head_dim(d)
             with pytest.raises(NotImplementedError, match="still to port"):
                 fa._check_head_dim(d, backward=True)
 
