@@ -1,6 +1,6 @@
 """Attention dispatch: the flash-attention CUDA kernels (K1 forward, K2
 and K3 backward, K5b both ways at other head dims up to 128, K1-K3 at
-192 and 256, K1 at 320 to 512) on the card, plain PyTorch on the CPU.
+192, 256, 320, 384, 448 and 512) on the card, plain PyTorch on the CPU.
 
 The counterpart of ``analytics_zoo_tpu/ops/attention.py``, with the same
 semantics: the causal diagonal is aligned bottom-right (``tril`` with
@@ -34,16 +34,13 @@ one (``flash_attention``).
 At a head dim above 128 the reference runs its own Pallas kernels when D
 is a multiple of 64 and there is no key-padding mask (its stock-kernel
 branch stops at 128), and the einsum path otherwise. The port has K1,
-K1-lse, K2 and K3 at D in {192, 256} (TinyGenLM's prefill at Gemma-2B's
-head dim of 256, a causal LM trained at GPT-J-6B's) and takes them for
-such a call, with or without a gradient. At D in {320, 384, 448, 512}
-it has K1 alone (TinyGenLM's prefill at DeepSeek-V4-Flash's head dim of
-512) and takes it for a call without a gradient; under a gradient such
-a call takes the einsum path until K2 and K3 exist there (ROADMAP
-section 2, item 2): the reference's values on another path, a coverage
-gap and not a fault in the result. A masked call above 128 takes the
-einsum path, as in the reference; so does every D above 512, with the
-reference's values.
+K1-lse, K2 and K3 at D in {192, 256, 320, 384, 448, 512} (TinyGenLM's
+prefill at Gemma-2B's head dim of 256 and DeepSeek-V4-Flash's of 512,
+causal LMs trained at GPT-J-6B's 256 and at 512) and takes them for
+such a call, with or without a gradient. A masked call above 128 takes
+the einsum path, as in the reference; so does every D above 512 (the
+reference's Pallas kernels, still to port there: ROADMAP section 2,
+item 2), with the reference's values.
 """
 
 from __future__ import annotations
@@ -99,25 +96,22 @@ def _flash_route(impl: str, on_cuda: bool, l: int, lk: int, d: int,
                  needs_grad: bool = False) -> Optional[str]:
     """Where the reference would take a flash kernel on its accelerator
     and the port has one: "kernels" (K1-K3, with or without a key-padding
-    mask up to D = 128, without one at 192 and 256; K1 alone, without a
-    mask, at 320 to 512), "k5b" (the stock kernel at head_dim % 64 != 0:
-    K5b, forward and backward) or None (the einsum path). ``has_mask`` is
-    an arbitrary ``mask``; ``needs_grad`` says autograd records a
-    gradient through the call, which at 320 to 512 (no K2 or K3 yet)
-    takes the einsum path."""
+    mask up to D = 128, without one at 192 to 512), "k5b" (the stock
+    kernel at head_dim % 64 != 0: K5b, forward and backward) or None (the
+    einsum path). ``has_mask`` is an arbitrary ``mask``; ``needs_grad``
+    says autograd records a gradient through the call. Every route has
+    both directions (K1, or K1-lse, K2 and K3), so a gradient no longer
+    changes it."""
     if (impl == "einsum" or has_mask or dropout_rate != 0.0
             or not on_cuda or l % 128 or lk % 128):
         return None
     if d > 128:
         # the reference's Pallas kernels at D % 64 == 0, unmasked (its
-        # stock-kernel branch stops at 128); the port has K1-K3 at 192 and
-        # 256 and K1 at 320 to 512, the rest are still to port (ROADMAP
-        # section 2, item 2)
-        if has_key_padding_mask:
+        # stock-kernel branch stops at 128); the port has K1-K3 up to 512,
+        # the rest are still to port (ROADMAP section 2, item 2)
+        if has_key_padding_mask or d % 64 or d > 512:
             return None
-        if d in (192, 256) or (d in (320, 384, 448, 512) and not needs_grad):
-            return "kernels"
-        return None
+        return "kernels"
     if d % 64 == 0:
         return "kernels"
     if not causal or l == lk:

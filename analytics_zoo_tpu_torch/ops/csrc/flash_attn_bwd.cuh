@@ -41,35 +41,59 @@
 // The f32 path gives each of 8 threads D/8 dimensions of a row. Each D is
 // its own instantiation, so the register arrays stay sized to it.
 //
-// Head dims above 128 (K2 and K3 at D in {192, 256}). The reference's
-// Pallas kernels take any D % 64 == 0 (its dispatch sends an unmasked call
-// there: analytics_zoo_tpu/ops/attention.py:107-112; a masked one takes
-// its einsum path, so these instantiations are unmasked). The D <= 128
-// designs below do not stretch that far:
-//   * K2 bf16: dQ's accumulator is D/2 registers a thread (128 at 256)
-//     beside S and dP. The same template runs with kv tiles of kWideKv = 32
-//     rows (S and dP 16 registers each, as K1's wide kernel does); Q and dO
-//     stay in shared memory, their A fragments read every k-step as at any
-//     D, and the 77-102 KB of shared memory are dynamic.
-//   * K3 bf16: dK and dV together are D registers a thread, which 255 do
-//     not hold beside S^T and dP^T at 192 or 256. So kSplit warps share
-//     each 16-key slab (flash_bwd_dkv_bf16_wide_kernel, 4 * kSplit warps a
-//     block): every warp of a slab computes the slab's S^T and dP^T over all
-//     of D, and accumulates dK and dV for its own D / kSplit of the
-//     dimensions (64 + 64 registers at D = 256, kSplit = 2), over q tiles
-//     of kWideQ = 32 rows. The price is S^T and dP^T computed kSplit times:
-//     4 * D * (kSplit + 1) flops a visible pair instead of 8 * D, +50% at
-//     kSplit = 2. Splitting dK/dV across warps, not the q loop into two
-//     passes (dV, then dK: +25% flops, Q and dO read twice), keeps one pass
-//     over the q tiles and one pair of exp and rounding work a score a
-//     warp; a head dim above 256 raises kSplit (4 at D = 512 keeps 64
-//     accumulator registers) rather than the design.
-//   * f32: 8 threads own D/8 = 32 dims of a row each (24 at 192), which
-//     registers hold, dealt in 4-float chunks round the row's 8 threads
-//     (32 contiguous dims a thread would put all 8 on one shared-memory
-//     bank at D = 256), and the staged tiles shrink to kWideFmaTile = 16
-//     rows so two of them stay in 32 KB of static shared memory. D <= 128
-//     keeps contiguous dims and 32-row tiles.
+// Head dims above 128 (K2 and K3 at D in {192, 256, 320, 384, 448, 512}).
+// The reference's Pallas kernels take any D % 64 == 0 (its dispatch sends
+// an unmasked call there: analytics_zoo_tpu/ops/attention.py:107-112; a
+// masked one takes its einsum path, so these instantiations are unmasked).
+// The D <= 128 designs below do not stretch that far:
+//   * K2 bf16 at 192 and 256: dQ's accumulator is D/2 registers a thread
+//     (128 at 256) beside S and dP. The same template runs with kv tiles
+//     of kWideKv = 32 rows (S and dP 16 registers each, as K1's wide
+//     kernel does); Q and dO stay in shared memory, their A fragments read
+//     every k-step as at any D, and the 77-102 KB of shared memory are
+//     dynamic.
+//   * K3 bf16 at 192 and 256: dK and dV together are D registers a
+//     thread, which 255 do not hold beside S^T and dP^T. So kWideSplit = 2
+//     warps share each 16-key slab (flash_bwd_dkv_bf16_wide_kernel, 8
+//     warps a block of 64 keys): every warp of a slab computes the slab's
+//     S^T and dP^T over all of D and accumulates dK and dV for its own
+//     half of the dimensions (64 + 64 registers at D = 256), over q tiles
+//     of kWideQ = 32 rows. The price is S^T and dP^T computed twice: 12 * D
+//     flops a visible pair instead of 8 * D. Splitting dK/dV across warps,
+//     not the q loop into two passes (dV, then dK: +25% flops, Q and dO
+//     read twice), keeps one pass over the q tiles.
+//   * bf16 at 320 to 512, K2 and K3 alike: D split across warps, as K1's
+//     flash_fwd_bf16_split_kernel does (flash_bwd_dq_bf16_split_kernel,
+//     flash_bwd_dkv_bf16_split_kernel). The wide K3 does not stretch by
+//     its split count: at D = 512 four warps a slab keep 64 + 64
+//     accumulators, but 16 warps a block of 64 keys leave ptxas 65,536 /
+//     512 = 128 registers a thread, which those 128 accumulators and S^T
+//     and dP^T pass. Here a block owns kSplitRows = 32 rows (K2: queries;
+//     K3: keys) as 2 groups of 16, each of kSplit = D / 64 warps (D
+//     threads in all), warp j of a group owning dims [64j, 64j + 64) of dQ
+//     (32 registers), or of dK and dV (64). Each warp computes the partial
+//     S and dP (K3: S^T and dP^T) over its own 64 dims and writes them to
+//     shared memory in fragment order; after a barrier every warp of the
+//     group sums the kSplit partials in one fixed order, so all of them
+//     build bit-identical P and dS. No flop is repeated (6 * D and 8 * D a
+//     visible pair, as at D <= 128; recomputing S and dP in every warp
+//     would cost 4 * D * kSplit); the exp and rounding work is, once a
+//     warp. At 128 registers a thread (D = 512) K2 walks kv tiles of
+//     kWideKv = 32 keys (S and dP 16 registers each) and K3, beside its 64
+//     accumulators, q tiles of kSplitQ = 16 rows (8 each). Three barriers a
+//     tile: staged, partials written, and (the next tile's first) every
+//     warp done reading both. Shared memory (dynamic): K2 Q, dO, K and V
+//     [32][D+8] bf16 and the partials, 125,184-198,912 bytes; K3 K and V
+//     [32][D+8], Q and dO [16][D+8] and the partials, 83,584-132,736.
+//   * f32: at 192 and 256, 8 threads own D/8 dims of a row (32 at 256),
+//     dealt in 4-float chunks round the row's threads (32 contiguous dims
+//     a thread would put all 8 on one shared-memory bank), on staged tiles
+//     of kWideFmaTile = 16 rows, so two of them stay in 32 KB of static
+//     shared memory. Above 256, D/8 dims a thread would double K3's
+//     registers from the 246-255 it holds at 256: kWiderTpr = 16 threads
+//     own D/16 dims each (32 at 512; blocks of 16 rows, 256 threads), and
+//     the tiles shrink to kWiderFmaTile = 8 rows (two of 16 KB at 512).
+//     D <= 128 keeps 8 threads of contiguous dims and 32-row tiles.
 //
 // Design. Pallas ran each kernel as a grid whose last axis was a sequential
 // accumulation in VMEM scratch. Here a thread block owns one output tile and
@@ -145,6 +169,12 @@ constexpr int kWideKv = 32;      // K2 bf16 above D = 128: kv rows a tile
 constexpr int kWideQ = 32;       // K3 bf16 above D = 128: q rows a tile
 constexpr int kWideSplit = 2;    // K3 bf16 above D = 128: warps a key slab
 constexpr int kWideFmaTile = 16; // f32 above D = 128: rows a staged tile
+constexpr int kWiderFmaTile = 8; // f32 above D = 256: rows a staged tile
+constexpr int kWiderTpr = 16;    // f32 above D = 256: threads a row
+constexpr int kSlice = 64;       // bf16 above D = 256: dims of D a warp owns
+constexpr int kSplitRows = 32;   // bf16 above D = 256: q rows (K2) or keys
+                                 // (K3) a block, 2 groups of 16
+constexpr int kSplitQ = 16;      // K3 bf16 above D = 256: q rows a tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -294,6 +324,31 @@ template <int D>
 constexpr size_t bf16_wide_dkv_smem_bytes() {
   return (2 * kTile + 2 * kWideQ) * (D + kPad) * sizeof(uint16_t)
          + 2 * kWideQ * sizeof(float);
+}
+
+// Above D = 256, a split block's partial products: two of [D / 32 warps]
+// [n-blocks of the tile][32 lanes] float4
+template <int D, int kN>
+constexpr size_t split_partials_bytes() {
+  return 2 * (D / 32) * kN * 32 * sizeof(float4);
+}
+
+// K2 above D = 256: Q and dO of kSplitRows rows, K and V of kWideKv, the
+// partials, lse and delta
+template <int D>
+constexpr size_t bf16_split_dq_smem_bytes() {
+  return (2 * kSplitRows + 2 * kWideKv) * (D + kPad) * sizeof(uint16_t)
+         + split_partials_bytes<D, kWideKv / 8>()
+         + 2 * kSplitRows * sizeof(float);
+}
+
+// K3 above D = 256: K and V of kSplitRows keys, Q and dO of kSplitQ rows,
+// the partials, lse and delta
+template <int D>
+constexpr size_t bf16_split_dkv_smem_bytes() {
+  return (2 * kSplitRows + 2 * kSplitQ) * (D + kPad) * sizeof(uint16_t)
+         + split_partials_bytes<D, kSplitQ / 8>()
+         + 2 * kSplitQ * sizeof(float);
 }
 
 // ------------------------------------------------------------ K2, bf16 --
@@ -794,6 +849,403 @@ flash_bwd_dkv_bf16_wide_kernel(const Params p) {
   }
 }
 
+// -------------------------------------------- K2 and K3, bf16, D > 256 --
+// the sum over the kSplit warps of a group of their partial fragments of
+// n-block n, slice 0 first in every warp: `at0` is the group's slice 0
+__device__ __forceinline__ void sum_partials(float (&x)[4], const float4* t,
+                                             int at0, int stride, int n_split) {
+  float4 a = t[at0];
+#pragma unroll 1
+  for (int j = 1; j < n_split; ++j) {
+    const float4 u = t[at0 + j * stride];
+    a.x += u.x;
+    a.y += u.y;
+    a.z += u.z;
+    a.w += u.w;
+  }
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = a.z;
+  x[3] = a.w;
+}
+
+// A fragment of k-step c (16 rows from `r`, which points at row g, column
+// t4 * 2 of the warp's slice)
+template <int LD>
+__device__ __forceinline__ void load_a_slice(uint32_t (&a)[4],
+                                             const uint16_t* r, int c) {
+  a[0] = ld32(r + c * 16);
+  a[1] = ld32(r + 8 * LD + c * 16);
+  a[2] = ld32(r + c * 16 + 8);
+  a[3] = ld32(r + 8 * LD + c * 16 + 8);
+}
+
+// K2 at D in {320, 384, 448, 512}, unmasked: D split across warps (the
+// header's design notes). Block: kSplitRows q rows = 2 row groups of 16,
+// each of kSplit warps; D threads in all. Warp w is row group w / kSplit
+// and owns slice w % kSplit of D.
+template <int D>
+__global__ void __launch_bounds__(D)
+flash_bwd_dq_bf16_split_kernel(const Params p) {
+  static_assert(D % kSlice == 0 && D > 256 && D <= 512,
+                "head_dim: 320, 384, 448 or 512");
+  constexpr int kSplit = D / kSlice;     // warps of a row group
+  constexpr int kWarps = D / 32;
+  constexpr int LD = D + kPad;
+  constexpr int KV = kWideKv;
+  constexpr int kN = KV / 8;             // n-blocks of 8 keys in a tile
+  extern __shared__ __align__(16) unsigned char zoo_smem[];
+  uint16_t* sQ = reinterpret_cast<uint16_t*>(zoo_smem);
+  uint16_t* sDO = sQ + kSplitRows * LD;
+  uint16_t* sK = sDO + kSplitRows * LD;
+  uint16_t* sV = sK + KV * LD;
+  // partial S and dP in fragment order: [warp][n-block][lane]
+  float4* sS = reinterpret_cast<float4*>(sV + KV * LD);
+  float4* sP = sS + kWarps * kN * 32;
+  float* sLse = reinterpret_cast<float*>(sP + kWarps * kN * 32);  // log2
+  float* sDelta = sLse + kSplitRows;
+
+  const int qt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int rg = warp / kSplit;          // row group
+  const int slice = warp - rg * kSplit;  // which 64 dims of D
+  const int col0 = slice * kSlice;
+  const int q0 = qt * kSplitRows;
+  const int offset = p.lk - p.lq;
+
+  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + hh * p.q_sh;
+  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + hh * p.k_sh;
+  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + hh * p.v_sh;
+  const uint16_t* o = static_cast<const uint16_t*>(p.o) + b * p.o_sb + hh * p.o_sh;
+  const uint16_t* dout =
+      static_cast<const uint16_t*>(p.dout) + b * p.do_sb + hh * p.do_sh;
+  uint16_t* dq = static_cast<uint16_t*>(p.dq) + b * p.dq_sb + hh * p.dq_sh;
+
+  stage<D, LD, D>(sQ, q + q0 * p.q_sl, p.q_sl, kSplitRows, tid);
+  stage<D, LD, D>(sDO, dout + q0 * p.do_sl, p.do_sl, kSplitRows, tid);
+  __syncthreads();
+  // delta = rowsum(dO * O) in f32: a warp takes a row at a time, each
+  // lane its 8-element chunks 32 chunks apart, summed by shuffles
+  for (int r = warp; r < kSplitRows; r += kWarps) {
+    const uint16_t* orow = o + (q0 + r) * p.o_sl;
+    const uint16_t* drow = sDO + r * LD;
+    float acc = 0.f;
+    for (int c = lane * 8; c < D; c += 32 * 8) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 a = __bfloat1622float2(o2[j]);
+        const float2 e = __bfloat1622float2(d2[j]);
+        acc = fmaf(a.x, e.x, acc);
+        acc = fmaf(a.y, e.y, acc);
+      }
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+    if (lane == 0) {
+      const long long at = static_cast<long long>(bh) * p.lq + q0 + r;
+      sDelta[r] = acc;
+      p.delta[at] = acc;
+      sLse[r] = p.lse[at] * kLog2e;
+    }
+  }
+  __syncthreads();
+
+  const int row0 = rg * 16;              // the row group's first row
+  const int ra = row0 + g;               // a thread's two rows in the block
+  const int rb = ra + 8;
+  const float lse_a = sLse[ra], lse_b = sLse[rb];
+  const float del_a = sDelta[ra], del_b = sDelta[rb];
+  // this thread's A-fragment elements of its slice, rows ra and rb
+  const uint16_t* qa = sQ + ra * LD + col0 + t4 * 2;
+  const uint16_t* da = sDO + ra * LD + col0 + t4 * 2;
+
+  float acc[kSlice / 8][4];
+#pragma unroll
+  for (int n = 0; n < kSlice / 8; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  }
+
+  int n_tiles = p.lk / KV;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kSplitRows - 1 + offset) / KV + 1);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    __syncthreads();  // every warp is done with the last tile and partials
+    stage<D, LD, D>(sK, k + static_cast<long long>(kt) * KV * p.k_sl, p.k_sl,
+                    KV, tid);
+    stage<D, LD, D>(sV, v + static_cast<long long>(kt) * KV * p.v_sl, p.v_sl,
+                    KV, tid);
+    __syncthreads();
+
+    // the same for every warp of the row group: rows all above the tile
+    const bool active = !(p.causal && q0 + row0 + 15 + offset < kt * KV);
+    float s[kN][4];
+    if (active) {
+      // partial S = Q K^T and dP = dO V^T over this warp's 64 dims
+      float dp[kN][4];
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < kSlice / 16; ++c) {
+        uint32_t a[4], e[4];
+        load_a_slice<LD>(a, qa, c);
+        load_a_slice<LD>(e, da, c);
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          const int at = (n * 8 + g) * LD + col0 + c * 16 + t4 * 2;
+          mma_16816(s[n], a, ld32(sK + at), ld32(sK + at + 8));
+          mma_16816(dp[n], e, ld32(sV + at), ld32(sV + at + 8));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const int at = (warp * kN + n) * 32 + lane;
+        sS[at] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        sP[at] = make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+      }
+    }
+    __syncthreads();  // every slice's partials are written
+    if (!active) continue;
+
+    // S and dP, the sums of the row group's partials (an n-block at a
+    // time, so that dP is never held whole), and dS = P * (dP - delta) *
+    // scale with P = exp(scale * S - lse)
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int at0 = (rg * kSplit * kN + n) * 32 + lane;
+      float dp[4];
+      sum_partials(s[n], sS, at0, kN * 32, kSplit);
+      sum_partials(dp, sP, at0, kN * 32, kSplit);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool top = e < 2;
+        float pr = exp2f(s[n][e] * p.scale_log2 - (top ? lse_a : lse_b));
+        const int col = n * 8 + t4 * 2 + (e & 1);  // key within the tile
+        if (p.causal && kt * KV + col > q0 + (top ? ra : rb) + offset) {
+          pr = 0.f;
+        }
+        s[n][e] = pr * (dp[e] - (top ? del_a : del_b)) * p.scale;
+      }
+    }
+
+    // dQ[:, slice] += dS K[:, slice], 16 keys at a time
+#pragma unroll
+    for (int j = 0; j < KV / 16; ++j) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+      const int kr = j * 16 + t4 * 2;
+#pragma unroll
+      for (int n = 0; n < kSlice / 8; ++n) {
+        uint32_t b0, b1;
+        load_b_rows<LD>(b0, b1, sK, kr, col0 + n * 8 + g);
+        mma_16816(acc[n], a, b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int n = 0; n < kSlice / 8; ++n) {
+    const int col = col0 + n * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(dq + (q0 + ra) * p.dq_sl + col) =
+        pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(dq + (q0 + rb) * p.dq_sl + col) =
+        pack_bf16(acc[n][2], acc[n][3]);
+  }
+}
+
+// K3 at D in {320, 384, 448, 512}, unmasked: the same split. Block:
+// kSplitRows keys = 2 slabs of 16, each of kSplit warps; D threads in
+// all. Warp w is slab w / kSplit and owns slice w % kSplit of dK and dV.
+// q tiles of kSplitQ rows: one k-step of dV += P^T dO and dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(D)
+flash_bwd_dkv_bf16_split_kernel(const Params p) {
+  static_assert(D % kSlice == 0 && D > 256 && D <= 512 && kSplitQ == 16,
+                "head_dim: 320, 384, 448 or 512; q tiles of 16 rows");
+  constexpr int kSplit = D / kSlice;     // warps of a slab
+  constexpr int kWarps = D / 32;
+  constexpr int LD = D + kPad;
+  constexpr int QT = kSplitQ;
+  constexpr int kN = QT / 8;             // n-blocks of 8 queries in a tile
+  extern __shared__ __align__(16) unsigned char zoo_smem[];
+  uint16_t* sK = reinterpret_cast<uint16_t*>(zoo_smem);
+  uint16_t* sV = sK + kSplitRows * LD;
+  uint16_t* sQ = sV + kSplitRows * LD;
+  uint16_t* sDO = sQ + QT * LD;
+  // partial S^T and dP^T in fragment order: [warp][n-block][lane]
+  float4* sS = reinterpret_cast<float4*>(sDO + QT * LD);
+  float4* sP = sS + kWarps * kN * 32;
+  float* sLse = reinterpret_cast<float*>(sP + kWarps * kN * 32);  // log2
+  float* sDelta = sLse + QT;
+
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int slab = warp / kSplit;
+  const int slice = warp - slab * kSplit;  // which 64 dims of dK and dV
+  const int col0 = slice * kSlice;
+  const int k0 = kt * kSplitRows;
+  const int offset = p.lk - p.lq;
+
+  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + hh * p.q_sh;
+  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + hh * p.k_sh;
+  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + hh * p.v_sh;
+  const uint16_t* dout =
+      static_cast<const uint16_t*>(p.dout) + b * p.do_sb + hh * p.do_sh;
+  uint16_t* dk = static_cast<uint16_t*>(p.dk) + b * p.dk_sb + hh * p.dk_sh;
+  uint16_t* dv = static_cast<uint16_t*>(p.dv) + b * p.dv_sb + hh * p.dv_sh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.lq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.lq;
+
+  // K and V of the block's keys (seen after the first q tile's barrier)
+  stage<D, LD, D>(sK, k + k0 * p.k_sl, p.k_sl, kSplitRows, tid);
+  stage<D, LD, D>(sV, v + k0 * p.v_sl, p.v_sl, kSplitRows, tid);
+
+  const int row0 = slab * 16;            // the slab's first key in the block
+  const int ka = k0 + row0 + g;          // the two keys a thread holds
+  const int kb = ka + 8;
+  // this thread's A-fragment elements of its slice, keys ka and kb
+  const uint16_t* kfa = sK + (row0 + g) * LD + col0 + t4 * 2;
+  const uint16_t* vfa = sV + (row0 + g) * LD + col0 + t4 * 2;
+
+  float acc_k[kSlice / 8][4], acc_v[kSlice / 8][4];
+#pragma unroll
+  for (int n = 0; n < kSlice / 8; ++n) {
+    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
+    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
+  }
+
+  // the first q tile whose last row sees this block's first key
+  int first = 0;
+  if (p.causal) {
+    const int x = k0 - offset - (QT - 1);
+    first = x > 0 ? (x + QT - 1) / QT : 0;
+  }
+  const int n_tiles = p.lq / QT;
+
+  for (int qt = first; qt < n_tiles; ++qt) {
+    const int q0 = qt * QT;
+    __syncthreads();  // every warp is done with the last tile and partials
+    stage<D, LD, D>(sQ, q + static_cast<long long>(q0) * p.q_sl, p.q_sl, QT,
+                    tid);
+    stage<D, LD, D>(sDO, dout + static_cast<long long>(q0) * p.do_sl,
+                    p.do_sl, QT, tid);
+    if (tid < QT) {
+      sLse[tid] = lse[q0 + tid] * kLog2e;
+      sDelta[tid] = delta[q0 + tid];
+    }
+    __syncthreads();
+
+    // the same for every warp of the slab: its first key lies after
+    // every row's view
+    const bool active = !(p.causal && k0 + row0 > q0 + QT - 1 + offset);
+    float s[kN][4], dp[kN][4];
+    if (active) {
+      // partial S^T = K Q^T and dP^T = V dO^T over this warp's 64 dims
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < kSlice / 16; ++c) {
+        uint32_t a[4], e[4];
+        load_a_slice<LD>(a, kfa, c);
+        load_a_slice<LD>(e, vfa, c);
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          const int at = (n * 8 + g) * LD + col0 + c * 16 + t4 * 2;
+          mma_16816(s[n], a, ld32(sQ + at), ld32(sQ + at + 8));
+          mma_16816(dp[n], e, ld32(sDO + at), ld32(sDO + at + 8));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const int at = (warp * kN + n) * 32 + lane;
+        sS[at] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        sP[at] = make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+      }
+    }
+    __syncthreads();  // every slice's partials are written
+    if (!active) continue;
+
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int at0 = (slab * kSplit * kN + n) * 32 + lane;
+      sum_partials(s[n], sS, at0, kN * 32, kSplit);
+      sum_partials(dp[n], sP, at0, kN * 32, kSplit);
+    }
+
+    // P^T and dS^T; the columns are queries
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = n * 8 + t4 * 2 + (e & 1);
+        float pr = exp2f(s[n][e] * p.scale_log2 - sLse[qc]);
+        if (p.causal && (e < 2 ? ka : kb) > q0 + qc + offset) pr = 0.f;
+        s[n][e] = pr;
+        dp[n][e] = pr * (dp[n][e] - sDelta[qc]) * p.scale;
+      }
+    }
+
+    // dV[:, slice] += P^T dO[:, slice] and dK[:, slice] += dS^T Q[:, slice]
+    uint32_t pa[4], da[4];
+    pa[0] = pack_bf16(s[0][0], s[0][1]);
+    pa[1] = pack_bf16(s[0][2], s[0][3]);
+    pa[2] = pack_bf16(s[1][0], s[1][1]);
+    pa[3] = pack_bf16(s[1][2], s[1][3]);
+    da[0] = pack_bf16(dp[0][0], dp[0][1]);
+    da[1] = pack_bf16(dp[0][2], dp[0][3]);
+    da[2] = pack_bf16(dp[1][0], dp[1][1]);
+    da[3] = pack_bf16(dp[1][2], dp[1][3]);
+    const int qr = t4 * 2;
+#pragma unroll
+    for (int n = 0; n < kSlice / 8; ++n) {
+      uint32_t b0, b1;
+      load_b_rows<LD>(b0, b1, sDO, qr, col0 + n * 8 + g);
+      mma_16816(acc_v[n], pa, b0, b1);
+      load_b_rows<LD>(b0, b1, sQ, qr, col0 + n * 8 + g);
+      mma_16816(acc_k[n], da, b0, b1);
+    }
+  }
+
+#pragma unroll
+  for (int n = 0; n < kSlice / 8; ++n) {
+    const int col = col0 + n * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(dk + ka * p.dk_sl + col) =
+        pack_bf16(acc_k[n][0], acc_k[n][1]);
+    *reinterpret_cast<uint32_t*>(dk + kb * p.dk_sl + col) =
+        pack_bf16(acc_k[n][2], acc_k[n][3]);
+    *reinterpret_cast<uint32_t*>(dv + ka * p.dv_sl + col) =
+        pack_bf16(acc_v[n][0], acc_v[n][1]);
+    *reinterpret_cast<uint32_t*>(dv + kb * p.dv_sl + col) =
+        pack_bf16(acc_v[n][2], acc_v[n][3]);
+  }
+}
+
 // ------------------------------------------------------------- K2, f32 --
 template <int DP>
 __device__ __forceinline__ float row_dot(const float (&x)[DP], const float* y) {
@@ -806,31 +1258,41 @@ __device__ __forceinline__ float row_dot(const float (&x)[DP], const float* y) {
   return acc;
 }
 
-// Above D = 128 a row's 8 threads hold its dims in 4-float chunks dealt
-// round them (dims ((i / 4) * 8 + part) * 4 + i % 4 of thread `part`), so
-// that they read 8 neighbouring chunks of a staged row: 32 contiguous dims
-// a thread at D = 256 would put all 8 on one shared-memory bank. Up to 128
-// a thread's DP dims are contiguous from part * DP, as they always were.
-__device__ __forceinline__ int dealt_dim(int part, int i) {
-  return ((i / 4) * 8 + part) * 4 + (i % 4);
+// the sum of x over a row's TPR threads (consecutive lanes)
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int m = 1; m < TPR; m <<= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
+  return x;
 }
 
-template <int DP>
+// Above D = 128 a row's TPR threads hold its dims in 4-float chunks dealt
+// round them (dims ((i / 4) * TPR + part) * 4 + i % 4 of thread `part`),
+// so that they read TPR neighbouring chunks of a staged row: 32 contiguous
+// dims a thread at D = 256 would put all 8 on one shared-memory bank. Up
+// to 128 a thread's DP dims are contiguous from part * DP, as they always
+// were.
+template <int TPR>
+__device__ __forceinline__ int dealt_dim(int part, int i) {
+  return ((i / 4) * TPR + part) * 4 + (i % 4);
+}
+
+template <int DP, int TPR>
 __device__ __forceinline__ float row_dot_dealt(const float (&x)[DP],
                                                const float* y, int part) {
   float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < DP; ++i) acc = fmaf(x[i], y[dealt_dim(part, i)], acc);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-  return acc;
+  for (int i = 0; i < DP; ++i) {
+    acc = fmaf(x[i], y[dealt_dim<TPR>(part, i)], acc);
+  }
+  return row_sum<TPR>(acc);
 }
 
-template <int D, int KV>
+// NT: threads of the block
+template <int D, int KV, int NT = kThreads>
 __device__ __forceinline__ void stage_f32(float (*t)[D], const float* src,
                                           long long sl, int tid) {
-  for (int i = tid; i < KV * D / 4; i += kThreads) {
+  for (int i = tid; i < KV * D / 4; i += NT) {
     const int r = i / (D / 4);
     const int c = (i - r * (D / 4)) * 4;
     *reinterpret_cast<float4*>(&t[r][c]) =
@@ -838,15 +1300,30 @@ __device__ __forceinline__ void stage_f32(float (*t)[D], const float* src,
   }
 }
 
-// KV: rows a staged tile (kFmaTile; kWideFmaTile above D = 128, unmasked)
-template <int D, bool kMask, int KV = kFmaTile>
-__global__ void __launch_bounds__(kThreads)
+// the f32 templates' tiles and threads a row: up to D = 128, kFmaTile
+// rows and 8 threads; at 192 and 256 (unmasked) kWideFmaTile rows and 8;
+// above 256 (unmasked) kWiderFmaTile rows and kWiderTpr threads
+template <int D, bool kMask, int KV, int TPR>
+__host__ __device__ constexpr bool f32_shape_ok() {
+  return D % 8 == 0
+         && (D <= 128 ? KV == kFmaTile && TPR == 8
+             : D % 64 == 0 && !kMask
+               && (D <= 256 ? KV == kWideFmaTile && TPR == 8
+                            : D <= 512 && KV == kWiderFmaTile
+                              && TPR == kWiderTpr));
+}
+
+// KV: rows a staged tile; TPR: threads a row (f32_shape_ok). A block owns
+// kFmaRows rows: kFmaRows * TPR threads
+template <int D, bool kMask, int KV = kFmaTile, int TPR = 8>
+__global__ void __launch_bounds__(kFmaRows * TPR)
 flash_bwd_dq_f32_kernel(const Params p) {
-  static_assert(D % 8 == 0 && (D <= 128 || (D % 64 == 0 && D <= 256
-                                            && !kMask && KV == kWideFmaTile)),
-                "head_dim: a multiple of 8 up to 128, or 192 or 256 "
-                "unmasked with kWideFmaTile-row tiles");
-  constexpr int DP = D / 8;  // dimensions per thread
+  static_assert(f32_shape_ok<D, kMask, KV, TPR>(),
+                "head_dim: a multiple of 8 up to 128, or 192 to 512 "
+                "(multiples of 64) unmasked on their tiles");
+  constexpr int DP = D / TPR;  // dimensions per thread
+  constexpr int kShift = TPR == 16 ? 4 : 3;  // log2(TPR)
+  constexpr int NT = kFmaRows * TPR;
   constexpr bool kDealt = D > 128;
   __shared__ __align__(16) float sK[KV][D];
   __shared__ __align__(16) float sV[KV][D];
@@ -857,15 +1334,17 @@ flash_bwd_dq_f32_kernel(const Params p) {
   const int b = bh / p.h;
   const int hh = bh - b * p.h;
   const int tid = threadIdx.x;
-  const int part = tid & 7;                  // 8 consecutive lanes per row
-  const int row = qt * kFmaRows + (tid >> 3);
+  const int part = tid & (TPR - 1);          // TPR consecutive lanes a row
+  const int row = qt * kFmaRows + (tid >> kShift);
   const int d0 = part * DP;
   const int offset = p.lk - p.lq;
   // this thread's i-th dim: of a staged row, and in a device row whose
   // first element is `base` (spelled base + d0 + i up to 128, as always)
-  auto dim = [part, d0](int i) { return kDealt ? dealt_dim(part, i) : d0 + i; };
+  auto dim = [part, d0](int i) {
+    return kDealt ? dealt_dim<TPR>(part, i) : d0 + i;
+  };
   auto elt = [part, d0](long long base, int i) {
-    return kDealt ? base + dealt_dim(part, i) : base + d0 + i;
+    return kDealt ? base + dealt_dim<TPR>(part, i) : base + d0 + i;
   };
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
@@ -885,9 +1364,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
     part_delta = fmaf(dr[i], o[elt(row * p.o_sl, i)], part_delta);
     acc[i] = 0.f;
   }
-  part_delta += __shfl_xor_sync(0xffffffffu, part_delta, 1);
-  part_delta += __shfl_xor_sync(0xffffffffu, part_delta, 2);
-  const float del = part_delta + __shfl_xor_sync(0xffffffffu, part_delta, 4);
+  const float del = row_sum<TPR>(part_delta);
   const long long at = static_cast<long long>(bh) * p.lq + row;
   if (part == 0) p.delta[at] = del;
   const float lse2 = p.lse[at] * kLog2e;
@@ -898,16 +1375,18 @@ flash_bwd_dq_f32_kernel(const Params p) {
   }
   for (int kt = 0; kt < n_tiles; ++kt) {
     __syncthreads();
-    stage_f32<D, KV>(sK, k + static_cast<long long>(kt) * KV * p.k_sl, p.k_sl, tid);
-    stage_f32<D, KV>(sV, v + static_cast<long long>(kt) * KV * p.v_sl, p.v_sl, tid);
+    stage_f32<D, KV, NT>(sK, k + static_cast<long long>(kt) * KV * p.k_sl,
+                         p.k_sl, tid);
+    stage_f32<D, KV, NT>(sV, v + static_cast<long long>(kt) * KV * p.v_sl,
+                         p.v_sl, tid);
     if (kMask && tid < KV) sM[tid] = mrow[kt * KV + tid];
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < KV; ++j) {
       float s, dpv;
       if constexpr (kDealt) {
-        s = row_dot_dealt<DP>(qr, sK[j], part);
-        dpv = row_dot_dealt<DP>(dr, sV[j], part);
+        s = row_dot_dealt<DP, TPR>(qr, sK[j], part);
+        dpv = row_dot_dealt<DP, TPR>(dr, sV[j], part);
       } else {
         s = row_dot<DP>(qr, &sK[j][d0]);
         dpv = row_dot<DP>(dr, &sV[j][d0]);
@@ -925,15 +1404,17 @@ flash_bwd_dq_f32_kernel(const Params p) {
 }
 
 // ------------------------------------------------------------- K3, f32 --
-// KV: q rows a staged tile (kFmaTile; kWideFmaTile above D = 128, unmasked)
-template <int D, bool kMask, int KV = kFmaTile>
-__global__ void __launch_bounds__(kThreads)
+// KV: q rows a staged tile; TPR: threads a key (f32_shape_ok). A block
+// owns kFmaRows keys: kFmaRows * TPR threads
+template <int D, bool kMask, int KV = kFmaTile, int TPR = 8>
+__global__ void __launch_bounds__(kFmaRows * TPR)
 flash_bwd_dkv_f32_kernel(const Params p) {
-  static_assert(D % 8 == 0 && (D <= 128 || (D % 64 == 0 && D <= 256
-                                            && !kMask && KV == kWideFmaTile)),
-                "head_dim: a multiple of 8 up to 128, or 192 or 256 "
-                "unmasked with kWideFmaTile-row tiles");
-  constexpr int DP = D / 8;
+  static_assert(f32_shape_ok<D, kMask, KV, TPR>(),
+                "head_dim: a multiple of 8 up to 128, or 192 to 512 "
+                "(multiples of 64) unmasked on their tiles");
+  constexpr int DP = D / TPR;
+  constexpr int kShift = TPR == 16 ? 4 : 3;  // log2(TPR)
+  constexpr int NT = kFmaRows * TPR;
   constexpr bool kDealt = D > 128;
   __shared__ __align__(16) float sQ[KV][D];
   __shared__ __align__(16) float sDO[KV][D];
@@ -947,15 +1428,17 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   const int b = bh / p.h;
   const int hh = bh - b * p.h;
   const int tid = threadIdx.x;
-  const int part = tid & 7;
-  const int key = kt * kFmaRows + (tid >> 3);
+  const int part = tid & (TPR - 1);
+  const int key = kt * kFmaRows + (tid >> kShift);
   const int d0 = part * DP;
   const int offset = p.lk - p.lq;
   // this thread's i-th dim: of a staged row, and in a device row whose
   // first element is `base` (spelled base + d0 + i up to 128, as always)
-  auto dim = [part, d0](int i) { return kDealt ? dealt_dim(part, i) : d0 + i; };
+  auto dim = [part, d0](int i) {
+    return kDealt ? dealt_dim<TPR>(part, i) : d0 + i;
+  };
   auto elt = [part, d0](long long base, int i) {
-    return kDealt ? base + dealt_dim(part, i) : base + d0 + i;
+    return kDealt ? base + dealt_dim<TPR>(part, i) : base + d0 + i;
   };
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
@@ -991,8 +1474,10 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   for (int qt = first; qt < n_tiles; ++qt) {
     const int q0 = qt * KV;
     __syncthreads();
-    stage_f32<D, KV>(sQ, q + static_cast<long long>(q0) * p.q_sl, p.q_sl, tid);
-    stage_f32<D, KV>(sDO, dout + static_cast<long long>(q0) * p.do_sl, p.do_sl, tid);
+    stage_f32<D, KV, NT>(sQ, q + static_cast<long long>(q0) * p.q_sl, p.q_sl,
+                         tid);
+    stage_f32<D, KV, NT>(sDO, dout + static_cast<long long>(q0) * p.do_sl,
+                         p.do_sl, tid);
     if (tid < KV) {
       sLse[tid] = lse[q0 + tid] * kLog2e;
       sDelta[tid] = delta[q0 + tid];
@@ -1002,8 +1487,8 @@ flash_bwd_dkv_f32_kernel(const Params p) {
     for (int i = 0; i < KV; ++i) {
       float s, dpv;
       if constexpr (kDealt) {
-        s = row_dot_dealt<DP>(kr, sQ[i], part);
-        dpv = row_dot_dealt<DP>(vr, sDO[i], part);
+        s = row_dot_dealt<DP, TPR>(kr, sQ[i], part);
+        dpv = row_dot_dealt<DP, TPR>(vr, sDO[i], part);
       } else {
         s = row_dot<DP>(kr, &sQ[i][d0]);
         dpv = row_dot<DP>(vr, &sDO[i][d0]);
@@ -1048,8 +1533,9 @@ int check(int dtype, int lq, int lk, int batch, int heads, int causal) {
 }
 
 // fn(std::integral_constant<int, D>) for head dim d: K2/K3 at 64 and 128,
-// K5b backward at the other multiples of 8 up to 128, K2/K3 at 192 and 256
-// (unmasked: fn returns 1006 for a mask there); 1004 for any other d
+// K5b backward at the other multiples of 8 up to 128, K2/K3 at 192, 256,
+// 320, 384, 448 and 512 (unmasked: fn returns 1006 for a mask there); 1004
+// for any other d
 template <typename Fn>
 int with_head_dim(int d, Fn&& fn) {
   switch (d) {
@@ -1071,6 +1557,10 @@ int with_head_dim(int d, Fn&& fn) {
     case 128: return fn(std::integral_constant<int, 128>{});
     case 192: return fn(std::integral_constant<int, 192>{});
     case 256: return fn(std::integral_constant<int, 256>{});
+    case 320: return fn(std::integral_constant<int, 320>{});
+    case 384: return fn(std::integral_constant<int, 384>{});
+    case 448: return fn(std::integral_constant<int, 448>{});
+    case 512: return fn(std::integral_constant<int, 512>{});
     default: return 1004;
   }
 }

@@ -1,8 +1,8 @@
 // K3 (flash-attention dK and dV) for Hopper, sm_90a: the exported entry
 // point and its instantiations, every multiple of 8 up to 128 (K5b backward
 // at all but 64 and 128), bf16 and f32, with and without a key-padding mask,
-// and 192 and 256, bf16 and f32, without one. The kernel templates and
-// design notes are in flash_attn_bwd.cuh.
+// and 192, 256, 320, 384, 448 and 512, bf16 and f32, without one. The
+// kernel templates and design notes are in flash_attn_bwd.cuh.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dkv_kernel`
 // (:249-292, launched at :345), and the stock Pallas kernel's dK/dV where
@@ -47,7 +47,19 @@ extern "C" int zoo_flash_attn_bwd_dkv(
   const bool masked = mask != nullptr;  // the kMask instantiation or not
   return with_head_dim(d, [&](auto dc) -> int {
     constexpr int D = decltype(dc)::value;
-    if constexpr (D > 128) {
+    if constexpr (D > 256) {
+      // 320 to 512: D split across warps (bf16), 16 threads a key on 8-row
+      // q tiles (f32), unmasked
+      if (masked) return 1006;
+      if (dtype == 1) {
+        return launch(flash_bwd_dkv_bf16_split_kernel<D>,
+                      dim3(lk / kSplitRows, batch * heads),
+                      bf16_split_dkv_smem_bytes<D>(), p, s, D);
+      }
+      return launch(flash_bwd_dkv_f32_kernel<D, false, kWiderFmaTile, kWiderTpr>,
+                    dim3(lk / kFmaRows, batch * heads), 0, p, s,
+                    kFmaRows * kWiderTpr);
+    } else if constexpr (D > 128) {
       // 192 and 256: dK/dV split across kWideSplit warps a key slab (bf16),
       // 16-row q tiles (f32), unmasked
       if (masked) return 1006;

@@ -1,7 +1,7 @@
 // K2 (flash-attention dQ and delta) for Hopper, sm_90a: the exported entry
 // point and its instantiations, every multiple of 8 up to 128 (K5b backward
 // at all but 64 and 128), bf16 and f32, with and without a key-padding mask,
-// and 192 and 256, bf16 and f32, without one.
+// and 192, 256, 320, 384, 448 and 512, bf16 and f32, without one.
 // The kernel templates and design notes are in flash_attn_bwd.cuh.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
@@ -50,7 +50,19 @@ extern "C" int zoo_flash_attn_bwd_dq(
   const bool masked = mask != nullptr;  // the kMask instantiation or not
   return with_head_dim(d, [&](auto dc) -> int {
     constexpr int D = decltype(dc)::value;
-    if constexpr (D > 128) {
+    if constexpr (D > 256) {
+      // 320 to 512: D split across warps (bf16), 16 threads a row on 8-row
+      // tiles (f32), unmasked
+      if (masked) return 1006;
+      if (dtype == 1) {
+        return launch(flash_bwd_dq_bf16_split_kernel<D>,
+                      dim3(lq / kSplitRows, batch * heads),
+                      bf16_split_dq_smem_bytes<D>(), p, s, D);
+      }
+      return launch(flash_bwd_dq_f32_kernel<D, false, kWiderFmaTile, kWiderTpr>,
+                    dim3(lq / kFmaRows, batch * heads), 0, p, s,
+                    kFmaRows * kWiderTpr);
+    } else if constexpr (D > 128) {
       // 192 and 256: 32-row kv tiles (bf16), 16-row tiles (f32), unmasked
       if (masked) return 1006;
       if (dtype == 1) {

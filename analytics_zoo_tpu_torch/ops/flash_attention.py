@@ -1,8 +1,7 @@
 """Flash attention, forward (K1) and backward (K2 dQ, K3 dK/dV), and K5b
 (both directions at head dims up to 128 that are not a multiple of 64):
 hand-written CUDA kernels for Hopper, and their gradient (K4), at every
-head dim up to 128 and at 192 and 256; K1 alone also at 320, 384, 448
-and 512.
+head dim up to 128 and at 192, 256, 320, 384, 448 and 512.
 
 The counterpart of ``analytics_zoo_tpu/ops/pallas_attention.py``: exact
 ``softmax(scale * Q K^T) V`` on ``[B, H, L, D]``, causal mask aligned
@@ -41,8 +40,8 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``, and
 those given a key-padding mask in ``<wrapper>.masked_launches``,
 those at a head dim up to 128 that is not a multiple of 64 (K5b) in
 ``<wrapper>.small_d_launches``, and those above 128 in
-``<wrapper>.wide_d_launches`` (192 and 256 both ways, 320 to 512 K1
-only; the head dim tells which of K1's designs ran).
+``<wrapper>.wide_d_launches`` (the head dim tells which design ran:
+192 and 256, or D split across warps at 320 to 512).
 
 K5b is the counterpart of the reference's stock-kernel branch at such
 head dims (``analytics_zoo_tpu/ops/attention.py:116``: JAX's stock Pallas
@@ -52,15 +51,14 @@ fine-tune at D = 32): the same sources, K1 and K2/K3 instantiated at
 every multiple of 8 up to 128.
 
 Head dims. The kernels are built for every multiple of 8 up to 128 and
-for 192 and 256, in both directions (``BWD_HEAD_DIMS``), and K1 (with
-or without logsumexp) also for 320, 384, 448 and 512 (``FWD_HEAD_DIMS``;
-TinyGenLM's prefill at DeepSeek-V4-Flash's head dim of 512). Above 128
-they are the reference's Pallas kernels at D % 64 == 0, which its
-dispatch takes without a key-padding mask, so those instantiations take
-no mask. K2 and K3 above 256, and every kernel above 512, are still to
-port (ROADMAP section 2, item 2). A head dim below 128 that is
-not a multiple of 8 (JAX's stock kernel takes any D <= 128) runs at the
-next multiple of 8: the wrappers zero-pad Q, K, V (and O and dO) along
+for 192, 256, 320, 384, 448 and 512, in both directions
+(``HEAD_DIMS``; TinyGenLM's prefill and ``TransformerModule``'s training
+at DeepSeek-V4-Flash's head dim of 512 among them). Above 128 they are
+the reference's Pallas kernels at D % 64 == 0, which its dispatch takes
+without a key-padding mask, so those instantiations take no mask. Every
+kernel above 512 is still to port (ROADMAP section 2, item 2). A head
+dim below 128 that is not a multiple of 8 (JAX's stock kernel takes any
+D <= 128) runs at the next multiple of 8: the wrappers zero-pad Q, K, V (and O and dO) along
 D, keep the scale of the true D, and cut O, dQ, dK and dV back. Zero
 columns add nothing to Q K^T, and V's give output columns that are
 dropped, so this is the same function on one padded copy of the inputs;
@@ -102,10 +100,9 @@ EMPTY_LSE = -1e30
 torch.exp(torch.zeros(1 << 17))
 
 # head dims the kernels are built for, in both directions: every
-# multiple of 8 up to 128, and 192 and 256 (without a mask)
-BWD_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256)
-# and those K1 is built for: the same, and 320 to 512 (without a mask)
-FWD_HEAD_DIMS = BWD_HEAD_DIMS + (320, 384, 448, 512)
+# multiple of 8 up to 128, and the multiples of 64 from 192 to 512
+# (without a mask)
+HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448, 512)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -378,33 +375,29 @@ def _cut(d: int, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 def _check_head_dim(d: int, backward: bool = False,
                     masked: bool = False) -> None:
-    """Raise unless a kernel is built for head dim ``d``: K1 at
-    ``FWD_HEAD_DIMS``, and with ``backward`` (K1-lse, K2 and K3 for a
-    gradient) at ``BWD_HEAD_DIMS``; with a key-padding mask (``masked``)
-    only up to 128. The wrappers pad other head dims below 128 to a
-    multiple of 8 before they ask."""
+    """Raise unless a kernel is built for head dim ``d`` (``HEAD_DIMS``):
+    K1, or with ``backward`` K1-lse, K2 and K3 for a gradient (which the
+    message names); with a key-padding mask (``masked``) only up to 128.
+    The wrappers pad other head dims below 128 to a multiple of 8 before
+    they ask."""
     if masked and d > 128:
         raise NotImplementedError(
             f"flash kernel at head_dim {d}: no masked kernel above 128 "
             "(the reference takes its einsum path for such a call)")
-    if d in (BWD_HEAD_DIMS if backward else FWD_HEAD_DIMS):
+    if d in HEAD_DIMS:
         return
     if d < 128 and d % 8:
         raise NotImplementedError(
             f"flash kernel at head_dim {d}: the kernels take multiples of "
             "8 up to 128 (16-byte rows); the wrappers pad other head dims "
             "to one")
-    if backward:
-        raise NotImplementedError(
-            f"flash kernel at head_dim {d}: K1-lse, K2 and K3 take "
-            "multiples of 8 up to 128, 192 and 256; K2 and K3 above 256 "
-            "(320 to 512, where K1 runs) and every kernel above 512 are "
-            "still to port (ROADMAP section 2, item 2)")
     raise NotImplementedError(
-        f"flash kernel at head_dim {d}: K1 takes multiples of 8 up to "
-        "128, 192 and 256, and 320, 384, 448 and 512; the other head dims "
-        "the reference's Pallas kernels take (multiples of 64 above 512) "
-        "are still to port (ROADMAP section 2, item 2)")
+        f"flash kernel at head_dim {d}: "
+        + ("K1-lse, K2 and K3 take" if backward else "K1 takes")
+        + " multiples of 8 up to 128, 192 and 256, and 320, 384, 448 and "
+        "512; the other head dims the reference's Pallas kernels take "
+        "(multiples of 64 above 512) are still to port (ROADMAP section "
+        "2, item 2)")
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -662,8 +655,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # kernel launches of each wrapper, those of them given a mask, those at a
 # head dim up to 128 that is not a multiple of 64 (K5b, forward and
-# backward) and those above 128 (192 and 256 forward and backward, 320 to
-# 512 K1 only)
+# backward) and those above 128 (192 to 512, forward and backward)
 for _wrapper in (flash_attention, flash_attention_bwd_dq,
                  flash_attention_bwd_dkv):
     _wrapper.launches = 0

@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases (needs one card)
     python3 chip_smoke.py --profile  # + profiles of one served batch and
                                      #   of one SQuAD, one NER, one
-                                     #   MiniLM and one LM train step
+                                     #   MiniLM and each LM's train step
 
 Phases:
 1. Build: compiles the port's CUDA sources (one nvcc per source, side by
@@ -170,7 +170,8 @@ Phases:
    2048 tokens a step, 2 epochs of 8 steps, the second timed). Before the
    fit, one step's gradients flash against einsum at batch 1, in f32 (it
    must reject dQ zeroed and dK and dV swapped) and bf16. K1-lse, K2 and
-   K3 must each launch at least 8 times a step, every launch a wide one
+   K3 must each launch exactly 8 times a step (once a layer), every launch
+   a wide one
    (D = 256), and the last logged loss must be below the first. Prints
    steps/s, tokens/s, MFU (bench.py's formula), peak memory and the
    logged losses.
@@ -203,6 +204,23 @@ Phases:
    of the row's largest |logit|, a bound the same logits rounded to bf16
    must fail; and 4 streams against reference_generate as at Phi-2's
    widths.
+20. K2/K3 wider kernels: K1, K1 with logsumexp, K2 and K3 at head dims
+   320, 384, 448 and 512 through backward_phase, as phase 16 at 192 and
+   256 (K2 and K3 bf16 split D across warps): every instantiation once
+   (32 sweep cases, one summary line, each launch counted in
+   wide_d_launches), then the 512-head LM's trained call ([4,8,2048,512]
+   bf16 causal, views into the qkv projection), its f32 gradient check's
+   call ([1,8,2048,512]) and [4,8,2048,384] bf16, each timed beside its
+   plain version, SDPA (with the backend SDPA took for its backward) and
+   its bound.
+21. 512-head LM: the same TransformerModule and causal-LM code as phase
+   17 at deepseek-ai/DeepSeek-V4-Flash's hidden size 4096 and head dim
+   512 (8 heads of 512, intermediate 16384, vocab 129280, 4 of its 43
+   layers; LM512 lists the cuts), after the DeepSeek-width phase's memory
+   is freed: 4 x 2048 tokens a step, 2 epochs of 8 steps, gradient checks
+   at batch 1 (the f32 one must reject dQ zeroed and dK and dV swapped);
+   K1-lse, K2 and K3 must each launch exactly once a layer a step, every
+   launch at D = 512, and the loss must fall.
 
 Prints each phase's seconds, a {"kernels": [...]} line (K1, K2 and K3
 each with a kv_mask_call at the NER trained call; K5b's forward at the
@@ -215,10 +233,13 @@ lse_call, a bf16_call and a trained_lse_call at the LM's call, its
 launches the Gemma phase's and the LM fit's; flash_attn_bwd_dq_wide and
 flash_attn_bwd_dkv_wide at the LM's trained call with an f32_call and a
 d192_call, their launches the LM fit's; flash_attn_fwd_wider at the
-DeepSeek-width prefill call with a bf16_call, an lse_call and a
-d384_call, its launches the DeepSeek phase's), the card's name and power
-limit, and last {"ok": true, "device": {...}}. Any failed check exits
-non-zero.
+DeepSeek-width prefill call with a bf16_call, an lse_call, a d384_call
+and a trained_lse_call at the 512-head LM's call, its launches the
+DeepSeek phase's and the 512-head LM fit's; flash_attn_bwd_dq_wider and
+flash_attn_bwd_dkv_wider at the 512-head LM's trained call with an
+f32_call and a d384_call, their launches that fit's; each backward row
+names SDPA's backend), the card's name and power limit, and last {"ok":
+true, "device": {...}}. Any failed check exits non-zero.
 """
 
 from __future__ import annotations
@@ -576,7 +597,8 @@ def _right_100(rng, b, lk):
 # calls whose q/k/v are views into the fused qkv projection and whose dO
 # is laid out as the attention output ([B, L, H, D] memory)
 VIEW_CASES = ("trained", "ner_trained", "squad_padded", "minilm_trained",
-              "minilm_padded", "gptj_trained", "gptj_f32")
+              "minilm_padded", "gptj_trained", "gptj_f32", "lm512_trained",
+              "lm512_f32")
 # name, (b, h, lq, lk, d), dtype, causal, mask (a function of the rng,
 # b and lk; None: no mask), timed. "trained" is the call one BERT-base
 # SQuAD train step makes per layer
@@ -745,6 +767,11 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
             if lq == lk and not (causal and m is not None):
                 attn = None if m is None else m.bool()[:, None, None, :]
                 qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+                # the backend that takes the forward and its backward
+                rec["sdpa_backend"] = sdpa_backend(
+                    torch, lambda: torch.autograd.grad(
+                        sdpa(qs, ks, vs, attn_mask=attn, is_causal=causal),
+                        (qs, ks, vs), do))
                 sout = sdpa(qs, ks, vs, attn_mask=attn, is_causal=causal)
                 calls = {
                     "sdpa": lambda: sdpa(q, k, v, attn_mask=attn,
@@ -782,6 +809,8 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
                 f"({_ms(rec[key + '_device_ms'])})"
                 for key in ("sdpa", "sdpa_fwd", "sdpa_bwd")
                 if key + "_ms" in rec)
+                + (f" [{rec['sdpa_backend']}]" if "sdpa_backend" in rec
+                   else "")
                 + f"; K2+K3 {rec['k2_ms'] + rec['k3_ms']:.4f} ({_ms(both)})",
                 flush=True)
         del q, k, v, do, o, lse, dq, dk, dv, delta, rdq, rdk, rdv, rdelta
@@ -1110,31 +1139,53 @@ WIDE_BWD_CASES = [
 ]
 
 
-def wide_bwd_phase(torch, peaks):
-    """K2 and K3 at D in {192, 256} through ``backward_phase``: every
-    instantiation once (``WIDE_BWD_SWEEP``, one summary line; each case
-    must count K1's two launches and one of K2 and of K3 in
-    ``wide_d_launches``), then ``WIDE_BWD_CASES`` timed. Returns the
-    timed records."""
+# the head dims above 256 the kernels are built for
+WIDER_HEAD_DIMS = (320, 384, 448, 512)
+# K2 and K3 above D = 256 (with K1 and K1-lse beside them): every
+# instantiation once (D in {320, 384, 448, 512}, bf16 and f32, causal and
+# not, lq == lk and lq < lk)
+WIDER_BWD_SWEEP = [
+    (f"d{d}", shape + (d,), dt, causal, None, False)
+    for d in WIDER_HEAD_DIMS for dt in ("bfloat16", "float32")
+    for shape in ((2, 2, 128, 128), (1, 3, 128, 384))
+    for causal in (False, True)]
+# the calls timed: the one a train step of the LM at DeepSeek-V4-Flash's
+# hidden size and head dim makes per layer (4 x 2048 tokens, 8 heads of
+# 512, causal, views into the qkv projection), its f32 gradient check's
+# (batch 1), and bf16 at D = 384
+WIDER_BWD_CASES = [
+    ("lm512_trained", (4, 8, 2048, 2048, 512), "bfloat16", True, None, True),
+    ("lm512_f32", (1, 8, 2048, 2048, 512), "float32", True, None, True),
+    ("bf16_d384", (4, 8, 2048, 2048, 384), "bfloat16", True, None, True),
+]
+
+
+def wide_bwd_phase(torch, peaks, sweep=WIDE_BWD_SWEEP, cases=WIDE_BWD_CASES,
+                   seeds=(10, 12), label="wide-bwd"):
+    """K2 and K3 above D = 128 through ``backward_phase``: every
+    instantiation once (``sweep``, one summary line; each case must count
+    K1's two launches and one of K2 and of K3 in ``wide_d_launches``),
+    then ``cases`` timed. The defaults are D in {192, 256}; the
+    ``WIDER_BWD_*`` lists are D in {320, 384, 448, 512}. Returns the timed
+    records."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv)
     before = [w.wide_d_launches for w in wrappers]
-    backward_phase(torch, peaks, WIDE_BWD_SWEEP, 10, "wide-bwd-sweep",
+    backward_phase(torch, peaks, sweep, seeds[0], f"{label}-sweep",
                    quiet=True)
     counted = [w.wide_d_launches - n for w, n in zip(wrappers, before)]
-    n = len(WIDE_BWD_SWEEP)
+    n = len(sweep)
     if counted != [2 * n, n, n]:
-        fail(f"wide backward: K1, K2, K3 counted {counted} wide launches in "
+        fail(f"{label}: K1, K2, K3 counted {counted} wide launches in "
              f"{n} sweep cases (want {[2 * n, n, n]})")
-    return backward_phase(torch, peaks, WIDE_BWD_CASES, 12, "wide-bwd")
+    return backward_phase(torch, peaks, cases, seeds[1], label)
 
 
-# K1 above D = 256: every instantiation once (D in {320, 384, 448, 512},
-# bf16 and f32, causal and not, with and without logsumexp, lq == lk and
-# lq < lk)
-WIDER_HEAD_DIMS = (320, 384, 448, 512)
+# K1 above D = 256: every instantiation once (D in WIDER_HEAD_DIMS, bf16
+# and f32, causal and not, with and without logsumexp, lq == lk and lq <
+# lk)
 WIDER_SWEEP = [
     (f"d{d}", shape + (d,), dt, causal, None, with_lse)
     for d in WIDER_HEAD_DIMS for dt in ("bfloat16", "float32")
@@ -1905,6 +1956,20 @@ def ner_serving(torch, path, device="cuda", n_requests=64, seq=NER_SEQ,
 GPTJ = dict(vocab=50400, seq_len=2048, hidden_size=4096, n_head=16,
             n_block=8, intermediate_size=16384, hidden_dropout=0.0,
             attn_dropout=0.0, dtype="bfloat16")
+# deepseek-ai/DeepSeek-V4-Flash's published hidden_size (4096) and
+# head_dim (512) in the same TransformerModule, which ties the head dim
+# to hidden / n_head, so 8 heads of 512; its vocab_size 129280; an MLP of
+# 16384, as the DeepSeek-width generation phase has it. Cut: 4 of its 43
+# layers; 8 query heads, not 64; K and V heads equal to the query heads,
+# not one shared K=V head; no low-rank Q or grouped low-rank O, CSA/HCA,
+# sliding window, mHC or MTP; a dense MLP of 16384 in place of its MoE;
+# post-LN, learned positions (2048 of them) and biases, which are
+# TransformerModule's. bf16 blocks, f32 parameters and an untied f32
+# head: 1.87 B parameters. Every layer's attention runs K1-lse, K2 and K3
+# at D = 512 (bf16 in the fit, f32 in the gradient check)
+LM512 = dict(vocab=129280, seq_len=2048, hidden_size=4096, n_head=8,
+             n_block=4, intermediate_size=16384, hidden_dropout=0.0,
+             attn_dropout=0.0, dtype="bfloat16")
 LM_BATCH, LM_STEPS = 4, 8
 # the gradient checks' batch: f32 einsum attention at L = 2048 keeps
 # [B, 16, 2048, 2048] f32 scores and probabilities for each layer's
@@ -1956,13 +2021,15 @@ def causal_lm(torch, cfg):
 
 
 def lm_learn(torch, device="cuda", base=GPTJ, batch=LM_BATCH,
-             steps_per_epoch=LM_STEPS, profile=False):
-    """``causal_lm`` at GPT-J-6B's widths trained through
-    ``Estimator(module, loss="sparse_categorical_crossentropy",
-    optimizer=Adam).fit`` on ``lm_data``; gradient checks at
-    ``LM_CHECK_BATCH``; planted faults: dQ zeroed, dK and dV swapped.
-    The loss must fall, and every K1, K2 and K3 launch of the fit must be
-    a wide one (D = 256)."""
+             steps_per_epoch=LM_STEPS, profile=False, label="learn-lm"):
+    """``causal_lm`` at ``base`` (GPT-J-6B's widths, or ``LM512``)
+    trained through ``Estimator(module,
+    loss="sparse_categorical_crossentropy", optimizer=Adam).fit`` on
+    ``lm_data``; gradient checks at ``LM_CHECK_BATCH``; planted faults: dQ
+    zeroed, dK and dV swapped. The loss must fall, and K1 (with
+    logsumexp), K2 and K3 must each launch once a layer a step of the
+    fit, every launch a wide one (the model's one head dim, hidden /
+    n_head: 256 or 512)."""
     from types import SimpleNamespace
 
     from analytics_zoo_tpu_torch.keras.layers.transformer import (
@@ -2001,13 +2068,15 @@ def lm_learn(torch, device="cuda", base=GPTJ, batch=LM_BATCH,
 
     launches = learn_phase(
         torch, build, base, x, y, batch, sparse_categorical_crossentropy,
-        LM_GRAD_PARAMS, ("dq_zeroed", "dk_dv_swapped"), label="learn-lm",
+        LM_GRAD_PARAMS, ("dq_zeroed", "dk_dv_swapped"), label=label,
         device=device, profile=profile, check_batch=LM_CHECK_BATCH,
         infer=infer, loss_falls=True)
+    head_dim = base["hidden_size"] // base["n_head"]
+    want = base["n_block"] * 2 * steps_per_epoch
     for kname, (total, _, _, wide) in launches.items():
-        if device == "cuda" and wide != total:
-            fail(f"learn-lm: {kname} counted {wide} wide launches of "
-                 f"{total}")
+        if device == "cuda" and not wide == total == want:
+            fail(f"{label}: {kname} launched {total} times, {wide} of them "
+                 f"wide (want {want}, every one at D = {head_dim})")
     return launches
 
 
@@ -2482,7 +2551,8 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (flash and "
                          "einsum attention), one SQuAD, one NER, one "
-                         "MiniLM and one GPT-J-width LM train step")
+                         "MiniLM, one GPT-J-width LM and one 512-head LM "
+                         "train step")
     args = ap.parse_args()
 
     import torch
@@ -2561,6 +2631,14 @@ def main() -> None:
                      generation_phase, torch, "gendeepseek", GEN_DEEPSEEK,
                      32, (128, 2016), 32, 4, 16, tie_gap=TIE_GAP, http=True,
                      n_logits=4)
+    # the DeepSeek phase's weights and pool (about 32 GB) go before the
+    # 512-head LM's
+    gc.collect()
+    torch.cuda.empty_cache()
+    wider_bwd = timed("K2/K3 wider kernels", wide_bwd_phase, torch, peaks,
+                      WIDER_BWD_SWEEP, WIDER_BWD_CASES, (20, 21), "wider-bwd")
+    lm512 = timed("512-head LM learn", lm_learn, torch, base=LM512,
+                  profile=args.profile, label="learn-lm512")
     k5b_full, k5b_masked, k5b_padded = (
         _pick(k5b, "gen_full", "float32"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))
@@ -2569,6 +2647,10 @@ def main() -> None:
     gptj, gptj_f32, wide192 = (_pick(wide_bwd, "gptj_trained"),
                                _pick(wide_bwd, "gptj_f32", "float32"),
                                _pick(wide_bwd, "bf16_d192"))
+    lm512_rec, lm512_f32, wider384 = (
+        _pick(wider_bwd, "lm512_trained"),
+        _pick(wider_bwd, "lm512_f32", "float32"),
+        _pick(wider_bwd, "bf16_d384"))
 
     def at(rec, key, library_ms=None, library_device_ms=None, **extra):
         """A kernel's numbers at one timed ``backward_phase`` call (with
@@ -2619,17 +2701,21 @@ def main() -> None:
         """(launches, masked, K5b) of one kernel over the BERT-base fits."""
         return tuple(a + b for a, b in zip(squad[kk], ner_fit[kk]))
 
-    def wide_row(name, source, replaces, key):
-        """K2 or K3 at D = 256: the LM's trained call, with its f32 call
-        (the gradient check's) and bf16 at D = 192; SDPA's backward
-        computes K2 + K3 + delta together (kept beside both rows)."""
+    def wide_row(name, source, replaces, key, fit, trained, f32_call,
+                 other):
+        """K2 or K3 above D = 128 at an LM's trained call, launched by
+        ``fit``, with its f32 call (the gradient check's) and ``other``
+        ({key: record}: bf16 at another head dim); SDPA's backward
+        computes K2 + K3 + delta together (kept beside both rows, with the
+        backend SDPA took)."""
         def call(rec):
             return at(rec, key, library_backward_ms=rec["sdpa_bwd_ms"],
-                      library_backward_device_ms=rec["sdpa_bwd_device_ms"])
+                      library_backward_device_ms=rec["sdpa_bwd_device_ms"],
+                      library_backend=rec["sdpa_backend"])
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": lm[key.upper()][3],
-                **call(gptj), "f32_call": call(gptj_f32),
-                "d192_call": call(wide192)}
+                "replaces": replaces, "launches": fit[key.upper()][3],
+                **call(trained), "f32_call": call(f32_call),
+                **{k: call(rec) for k, rec in other.items()}}
 
     # K1 at the served call ([32,12,512,64] bf16 views into the qkv
     # projection), with its logsumexp call at the trained shape beside
@@ -2687,25 +2773,35 @@ def main() -> None:
             "trained_lse_call": lse_call(gptj)},
         # K2 and K3 at D = 256: the GPT-J-width LM's trained call
         # ([4,16,2048,256] bf16, causal), launched by its fit
-        wide_row("flash_attn_bwd_dq_wide", K2_SOURCE, K2_REPLACES, "k2"),
-        wide_row("flash_attn_bwd_dkv_wide", K3_SOURCE, K3_REPLACES,
-                 "k3"), {
+        wide_row("flash_attn_bwd_dq_wide", K2_SOURCE, K2_REPLACES, "k2", lm,
+                 gptj, gptj_f32, {"d192_call": wide192}),
+        wide_row("flash_attn_bwd_dkv_wide", K3_SOURCE, K3_REPLACES, "k3", lm,
+                 gptj, gptj_f32, {"d192_call": wide192}), {
             # K1 at D = 512: the prefill call at DeepSeek-V4-Flash's
             # attention widths ([1,64,2048,512] f32, causal), launched by
-            # the DeepSeek phase's prefills over HTTP
+            # the DeepSeek phase's prefills over HTTP and (with
+            # logsumexp) by the 512-head LM's fit
             "name": "flash_attn_fwd_wider", "route": "cuda",
             "source": K1_SOURCE, "replaces": K1_REPLACES,
-            "launches": deepseek["flash_launches"],
+            "launches": deepseek["flash_launches"] + lm512["K1"][3],
+            "lm_lse_launches": lm512["K1"][3],
             **pick_keys(_pick(wider, "deepseek_prefill", "float32"),
                         "library_backend"),
             "bf16_call": pick_keys(_pick(wider, "deepseek_bf16"),
                                    "library_backend"),
-            # K1-lse at D = 512: instantiated and checked; no main path
-            # takes it until K2 and K3 exist there
             "lse_call": pick_keys(_pick(wider, "deepseek_bf16_lse"),
                                   "library_backend", "lse_max_abs_err"),
             "d384_call": pick_keys(_pick(wider, "bf16_d384"),
-                                   "library_backend")}]}),
+                                   "library_backend"),
+            # K1-lse at the 512-head LM's trained call, the forward of its
+            # fit
+            "trained_lse_call": lse_call(lm512_rec)},
+        # K2 and K3 at D = 512: the 512-head LM's trained call
+        # ([4,8,2048,512] bf16, causal), launched by its fit
+        wide_row("flash_attn_bwd_dq_wider", K2_SOURCE, K2_REPLACES, "k2",
+                 lm512, lm512_rec, lm512_f32, {"d384_call": wider384}),
+        wide_row("flash_attn_bwd_dkv_wider", K3_SOURCE, K3_REPLACES, "k3",
+                 lm512, lm512_rec, lm512_f32, {"d384_call": wider384})]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

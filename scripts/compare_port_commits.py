@@ -9,8 +9,9 @@ parent commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists). Runs alternate parent, change, change, parent,
 parent, change, ... (``--pairs`` pairs, 3 by default), each in a fresh
 process that imports that checkout's own ``chip_smoke.py`` and drives
-its phases whose figures swing with the host: K1-lse, K2 and K3 at the
-BERT-base trained call (device time), K1 and K1-lse at the served shape
+its phases whose figures swing with the host: K1, K1-lse, K2 and K3 at
+the BERT-base trained call and at the GPT-J-width LM's [4,16,2048,256]
+causal call (device time), K1 and K1-lse at the served shape
 [32,12,512,64] and at [8,8,2048,256] causal, bf16 (device time),
 BERT-base serving (with the seconds its save and its start-up take), the
 NER fine-tune, NER serving (start-up seconds too) and TinyGenLM
@@ -41,7 +42,15 @@ SUMMARIES = (
     ("serve-ner", "rps", "ner_serving_rps"),
     ("gen", "tokens_per_s", "gen_tokens_per_s"),
 )
-KERNELS = ("k1_lse", "k2", "k3")
+KERNELS = ("k1", "k1_lse", "k2", "k3")
+# (backward_phase label, case): the BERT-base trained call and K2/K3's
+# widest call both commits take (D = 256)
+BACKWARD = (
+    ("backward", ("trained", (48, 12, 384, 384, 64), "bfloat16", False, None,
+                  True)),
+    ("d256-bwd", ("gptj_trained", (4, 16, 2048, 2048, 256), "bfloat16",
+                  True, None, True)),
+)
 # K1 and K1-lse timed through chip_smoke.timed_fwd_cases: the served
 # shape and the widest head dim the backward also takes
 FWD_CASES = (
@@ -78,9 +87,8 @@ def run_phases(checkout: str) -> None:
     # registers and spills, where this process compiled the kernels
     for line in cs.ptxas_lines(fa.build_info["log"]):
         print(f"ptxas: {line}", flush=True)
-    trained = [c for c in cs.BACKWARD_CASES
-               if c[0] == "trained" and c[2] == "bfloat16"]
-    cs.backward_phase(torch, cs.PEAKS["sxm"], trained, 1, "backward")
+    for label, case in BACKWARD:
+        cs.backward_phase(torch, cs.PEAKS["sxm"], [case], 1, label)
     fwd = cs.timed_fwd_cases(torch, cs.PEAKS["sxm"], np.random.RandomState(0),
                              list(FWD_CASES), "launches", "fwd", iters=20)
     print(json.dumps({"fwd_checks": fwd}), flush=True)
@@ -115,10 +123,12 @@ def figures(out: str) -> dict:
             for want, key, name in SUMMARIES:
                 if label == want:
                     got[name] = json.loads(rest)[key]
-        if line.startswith('{"backward_checks"'):
-            rec = json.loads(line)["backward_checks"][0]
-            for k in KERNELS:
-                got[f"{k}_device_ms"] = rec[f"{k}_device_ms"]
+        for label, _ in BACKWARD:
+            if line.startswith(f'{{"{label}_checks"'):
+                rec = json.loads(line)[f"{label}_checks"][0]
+                prefix = "" if label == "backward" else "d256_"
+                for k in KERNELS:
+                    got[f"{prefix}{k}_device_ms"] = rec[f"{k}_device_ms"]
         if line.startswith('{"fwd_checks"'):
             for rec in json.loads(line)["fwd_checks"]:
                 got[f"{rec['case']}_device_ms"] = rec["device_ms"]
@@ -168,7 +178,7 @@ def main() -> None:
     print(json.dumps({"ptxas_instantiations_compared": len(common),
                       "ptxas_differ": moved}), flush=True)
     names = [name for _, _, name in SUMMARIES] + [
-        f"{k}_device_ms" for k in KERNELS] + [
+        f"{p}{k}_device_ms" for p in ("", "d256_") for k in KERNELS] + [
         f"{c[0]}_device_ms" for c in FWD_CASES] + [
         name for _, name in SECONDS]
     print(json.dumps({name: {side: {

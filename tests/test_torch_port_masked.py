@@ -303,14 +303,14 @@ class TestDispatchRoute:
           "has_key_padding_mask": True}, None),
         # K1-K3 at D in {192, 256}, unmasked; the reference takes a
         # masked call there, and every other D above 128, to its einsum
-        # path. At 320 to 512 the port has K1 alone, so a call under a
-        # gradient still takes the einsum path (no-gradient calls below)
+        # path. At 320 to 512 the port has K1-K3 too, so a call under a
+        # gradient takes them (no-gradient calls below)
         ({"d": 192}, "kernels"),
         ({"d": 256, "causal": True}, "kernels"),
         ({"d": 256, "lk": 384, "causal": True}, "kernels"),
         ({"d": 256, "has_key_padding_mask": True}, None),
-        ({"d": 320, "needs_grad": True}, None),
-        ({"d": 512, "causal": True, "needs_grad": True}, None),
+        ({"d": 320, "needs_grad": True}, "kernels"),
+        ({"d": 512, "causal": True, "needs_grad": True}, "kernels"),
         # a head dim the kernels reach only padded (to 24): still K5b
         ({"d": 20, "causal": True}, "k5b"),
         ({"d": 64, "has_key_padding_mask": True}, "kernels"),

@@ -141,13 +141,13 @@ class TestWideRouteAndGates:
                                           (512, False)])
     def test_einsum_path_as_in_the_reference(self, d, masked, needs_grad):
         """A key-padding mask above 128 takes the einsum path (the
-        reference's stock-kernel branch stops at 128), and so does a call
-        under a gradient at 320 and up (K2 and K3 are still to port
-        there). Without either, K1 takes the call at 320 and 512."""
+        reference's stock-kernel branch stops at 128). Without one the
+        kernels take the call at 192 to 512, with or without a gradient
+        (K1, or K1-lse, K2 and K3)."""
         got = port_attention._flash_route(
             **self.BASE, d=d, causal=True, has_key_padding_mask=masked,
             needs_grad=needs_grad)
-        assert got == (None if masked or needs_grad else "kernels")
+        assert got == (None if masked else "kernels")
 
     @pytest.mark.parametrize("d", [192, 256])
     def test_backward_gate_passes(self, d):
@@ -159,17 +159,12 @@ class TestWideRouteAndGates:
     @pytest.mark.parametrize("backward", [False, True])
     @pytest.mark.parametrize("d", [320, 384, 512])
     def test_wider_head_dims_point_at_the_roadmap(self, d, backward):
-        """K2 and K3 at 320 to 512, and K1 above 512, raise with the
-        ROADMAP item that ports them; K1 at 320 to 512 passes."""
-        if backward:
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP section 2, item 2"):
-                fa._check_head_dim(d, backward=True)
-            return
-        fa._check_head_dim(d)
+        """K1, and K1-lse, K2 and K3 for a gradient, pass at 320 to 512;
+        above 512 both raise with the ROADMAP item that ports them."""
+        fa._check_head_dim(d, backward=backward)
         with pytest.raises(NotImplementedError,
                            match="ROADMAP section 2, item 2"):
-            fa._check_head_dim(d + 256)
+            fa._check_head_dim(d + 256, backward=backward)
 
     @pytest.mark.parametrize("d", [192, 256])
     def test_card_trained_call_launches_k1_lse_k2_k3(self, fake_card,
@@ -298,24 +293,24 @@ class TestTransformerModule:
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def _fit_both(n):
-    """Both packages' ``Estimator.fit`` of the causal LM wrapper on
-    ``lm_data`` (``n`` samples, batch 8, shuffled) with Adam (epsilon
+def _fit_both(n, lm=LM):
+    """Both packages' ``Estimator.fit`` of the causal LM wrapper at ``lm``
+    on ``lm_data`` (``n`` samples, batch 8, shuffled) with Adam (epsilon
     1e-5: the key bias's gradient is zero up to rounding, since softmax
     ignores a constant added to every key's score, and at 1e-8 Adam
     turns that rounding noise, which differs between the frameworks,
     into full steps of size lr) from the JAX package's initial weights.
     The port's dispatch takes the kernels' route, as on the card; every
     backward through ``FlashAttention`` is recorded."""
-    x, y = lm_data(np.random.RandomState(7), n, SEQ, LM["vocab"])
-    flax_lm = FlaxCausalLM(**LM)
+    x, y = lm_data(np.random.RandomState(7), n, SEQ, lm["vocab"])
+    flax_lm = FlaxCausalLM(**lm)
     variables = jax.tree_util.tree_map(np.asarray, flax_lm.init(
         jax.random.PRNGKey(0), jnp.asarray(x[:1])))
     ref = RefEstimator(flax_lm, loss="sparse_categorical_crossentropy",
                        optimizer=ref_optim.Adam(epsilon=1e-5),
                        variables=jax.tree_util.tree_map(jnp.asarray,
                                                         variables))
-    module = causal_lm(torch, dict(LM, hidden_dropout=0.0, attn_dropout=0.0))
+    module = causal_lm(torch, dict(lm, hidden_dropout=0.0, attn_dropout=0.0))
     load_flax_into(module, variables)
     port = Estimator(module, loss="sparse_categorical_crossentropy",
                      optimizer=optim.Adam(epsilon=1e-5), device="cpu")

@@ -105,16 +105,14 @@ class TestWideRoute:
     @pytest.mark.parametrize("key_padding", [False, True])
     @pytest.mark.parametrize("d", [192, 256, 320])
     def test_route(self, d, key_padding, needs_grad):
-        """The kernels at 192 and 256 for an unmasked call, with or
-        without a gradient (K1, or K1-lse, K2 and K3), and at 320 without
-        one (K1 alone); the einsum path with a key-padding mask (the
-        reference's stock-kernel branch stops at 128) and at 320 under a
-        gradient (no K2 or K3 there yet)."""
+        """The kernels at 192, 256 and 320 for an unmasked call, with or
+        without a gradient (K1, or K1-lse, K2 and K3); the einsum path
+        with a key-padding mask (the reference's stock-kernel branch stops
+        at 128)."""
         got = port_attention._flash_route(
             **self.BASE, d=d, has_key_padding_mask=key_padding,
             needs_grad=needs_grad)
-        kernel = not key_padding and (d in (192, 256) or not needs_grad)
-        assert got == ("kernels" if kernel else None)
+        assert got == (None if key_padding else "kernels")
 
     def test_gates(self):
         for d in (192, 256):
@@ -124,10 +122,11 @@ class TestWideRoute:
                 fa._check_head_dim(d, masked=True)
         for d in (136, 320, 512, 576):
             if d in (320, 512):
-                fa._check_head_dim(d)  # K1 alone
-            else:
-                with pytest.raises(NotImplementedError, match="192 and 256"):
-                    fa._check_head_dim(d)
+                fa._check_head_dim(d)  # K1, and K1-lse, K2 and K3
+                fa._check_head_dim(d, backward=True)
+                continue
+            with pytest.raises(NotImplementedError, match="192 and 256"):
+                fa._check_head_dim(d)
             with pytest.raises(NotImplementedError, match="still to port"):
                 fa._check_head_dim(d, backward=True)
 

@@ -1,10 +1,10 @@
 """PyTorch port, K1 at head dims 320 to 512 (the reference's Pallas
-kernel at D % 64 == 0 above 256; K2 and K3 there are still to port):
-K1's plain version against ``_flash_fwd`` in Pallas interpret mode, the
-dispatch's route and the head-dim gates, the wrapper's launch off the
-CPU, and TinyGenLM at head dims 512 (DeepSeek-V4-Flash's) and 320
-against the JAX package, through to a stock config streaming tokens over
-HTTP.
+kernel at D % 64 == 0 above 256; K2 and K3 there are held to the Pallas
+backward in test_torch_port_wider_bwd.py): K1's plain version against
+``_flash_fwd`` in Pallas interpret mode, the dispatch's route and the
+head-dim gates, the wrappers' launches off the CPU, and TinyGenLM at head
+dims 512 (DeepSeek-V4-Flash's) and 320 against the JAX package, through
+to a stock config streaming tokens over HTTP.
 
 Inputs are made with numpy and fed to both packages, in f32. Where a
 test stands in for the card, the route is asked with ``on_cuda`` forced
@@ -102,10 +102,14 @@ class TestWiderRouteAndGates:
         {"needs_grad": True, "has_key_padding_mask": True}])
     @pytest.mark.parametrize("d", WIDER)
     def test_einsum_with_a_gradient_or_a_mask(self, d, change):
-        """No K2 or K3 at these head dims yet, and no masked kernel above
-        128 (the reference's einsum path)."""
-        assert port_attention._flash_route(
-            **dict(self.BASE, d=d, causal=True, **change)) is None
+        """A key-padding mask takes the einsum path (no masked kernel
+        above 128; the reference's einsum path), with or without a
+        gradient; a gradient alone takes the kernels (K1-lse, K2 and K3
+        at these head dims)."""
+        got = port_attention._flash_route(
+            **dict(self.BASE, d=d, causal=True, **change))
+        assert got == (None if change.get("has_key_padding_mask")
+                       else "kernels")
 
     @pytest.mark.parametrize("d", [576, 640])
     def test_einsum_above_512(self, d):
@@ -115,8 +119,7 @@ class TestWiderRouteAndGates:
     @pytest.mark.parametrize("d", WIDER)
     def test_gates(self, d):
         fa._check_head_dim(d)
-        with pytest.raises(NotImplementedError, match="K2 and K3 above 256"):
-            fa._check_head_dim(d, backward=True)
+        fa._check_head_dim(d, backward=True)
         with pytest.raises(NotImplementedError, match="masked"):
             fa._check_head_dim(d, masked=True)
 
@@ -145,14 +148,24 @@ class TestWiderRouteAndGates:
         assert (w.launches, w.small_d_launches,
                 w.wide_d_launches) == (1, 0, 1)
 
-    def test_card_gradient_raises_before_k1(self, fake_card):
-        """``FlashAttention`` at D = 512 raises before K1-lse launches:
-        no backward kernel takes that head dim (the dispatch sends such a
-        call to the einsum path instead)."""
+    def test_card_gradient_raises_before_k1(self, fake_card, monkeypatch):
+        """``FlashAttention`` at D = 512 no longer raises: off the CPU
+        (meta tensors, spied entry points) a gradient launches K1-lse,
+        then K2, then K3 at that head dim, each counted in
+        ``wide_d_launches``."""
+        for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
+                  fa.flash_attention_bwd_dkv):
+            monkeypatch.setattr(w, "wide_d_launches", 0)
         q = torch.empty(1, 2, 128, 512, device="meta", requires_grad=True)
-        with pytest.raises(NotImplementedError, match="K2 and K3 above 256"):
-            fa.flash_attention(q, q, q, True)
-        assert fake_card == []
+        out = fa.flash_attention(q, q, q, True)
+        (grad,) = torch.autograd.grad(out, q, torch.empty_like(out))
+        assert grad.shape == q.shape
+        assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
+            ("zoo_flash_attn_fwd", 512), ("zoo_flash_attn_bwd_dq", 512),
+            ("zoo_flash_attn_bwd_dkv", 512)]
+        for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
+                  fa.flash_attention_bwd_dkv):
+            assert (w.launches, w.wide_d_launches) == (1, 1)
 
 
 # ----------------------------------------------- TinyGenLM at D = 512/320 --
