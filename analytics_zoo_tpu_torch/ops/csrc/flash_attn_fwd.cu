@@ -1,5 +1,7 @@
 // Flash-attention forward (K1; K5b at the other head dims) for Hopper,
-// sm_90a.
+// sm_90a: every call but bf16 without a key-padding mask at D in {64,
+// 128, 192, 256}, which flash_attn_fwd_sm90.cu (TMA, a producer
+// warpgroup, wgmma) takes; its entry point returns 1004 for those.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_fwd_kernel`
 // (:82-134), launched by `_flash_fwd` (:137-189). Computes exact
@@ -37,14 +39,8 @@
 // takes any D % 64 == 0 (pallas_attention.py:150), and its dispatch sends an
 // unmasked flash call there (analytics_zoo_tpu/ops/attention.py:107-112; a
 // masked one takes its einsum path, so these instantiations are unmasked).
-// The D <= 128 templates do not stretch that far:
-//   * bf16: the 16 query rows of a warp as mma A fragments would be D/2
-//     registers a thread beside the D/2 of the f32 O accumulator (224 at
-//     D = 256 with a 64-key S), and K, V and Q tiles pass the 48 KB of
-//     static shared memory. flash_fwd_bf16_wide_kernel keeps Q in shared
-//     memory and reloads its fragments every k-step (4 registers), walks kv
-//     tiles of 32 rows (S is 16 registers), and takes its 51-68 KB of
-//     shared memory dynamically (cudaFuncSetAttribute before the launch).
+// bf16 there is flash_attn_fwd_sm90.cu's (it retired the mma.sync kernel
+// flash_fwd_bf16_wide_kernel); f32 is this source's:
 //   * f32: 8 threads own D/8 = 32 dims of a row each, which registers
 //     hold, dealt in 4-float chunks so that the 8 threads read different
 //     shared-memory banks; the kv tile shrinks to 16 rows so K and V stay
@@ -92,7 +88,9 @@
 // sequential loop on one TPU core, carrying (m, l, acc) in VMEM scratch.
 // Here one thread block owns one (b*h, 64-row q tile) and walks the kv
 // tiles in a loop of its own; blocks run in parallel over the SMs.
-//   * bf16: 4 warps, 16 query rows each. Q stays in registers as mma.sync
+//   * bf16 (masked calls, and K5b's head dims; the unmasked instantiations
+//     at 64 and 128 moved to flash_attn_fwd_sm90.cu): 4 warps, 16 query
+//     rows each. Q stays in registers as mma.sync
 //     A fragments for the whole kernel; each 64-row K/V tile is staged in
 //     shared memory (rows padded by 16 bytes so fragment reads hit distinct
 //     banks); S = Q K^T and O += P V run on the tensor cores as
@@ -119,7 +117,9 @@
 // issues synchronous tile loads (no cp.async/TMA pipelining) and mma.sync
 // rather than wgmma, so it is latency- and issue-bound; several resident
 // blocks per SM (about 18 KB shared memory each at D = 64) are what hide
-// the load latency. wgmma, TMA and a producer warp are later work.
+// the load latency. wgmma, TMA and a producer warpgroup are
+// flash_attn_fwd_sm90.cu's, for the unmasked bf16 calls; the masked ones
+// here are later work.
 // In f32 (TinyGenLM's K5b calls) the FMA path does the same 4*L*Lk*D
 // flops against 67 TFLOP/s, so a long causal prefill is bound by
 // operations. At small D the per-score softmax work (scale, mask, max,
@@ -526,193 +526,6 @@ flash_fwd_f32_kernel(const Params p) {
 }
 
 
-// ------------------------------------------------------- bf16, D > 128 --
-// K1 at D in {192, 256}, unmasked. One block owns 64 q rows (4 warps of
-// 16) as the D <= 128 kernel does, but Q is staged in shared memory once
-// and each k-step reloads its A fragment (4 registers) there, and kv tiles
-// are kWideKv rows. Shared memory (dynamic): Q [64][D+8], K and V
-// [32][D+8] bf16 -- 51,200 bytes at D = 192, 67,584 at D = 256.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_wide_kernel(const Params p) {
-  static_assert(D % 16 == 0 && D > 128 && D <= 256, "head_dim: 192 or 256");
-  constexpr int kRow = D + kPad;  // shared-memory row, in bf16 elements
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sQ = smem;
-  uint16_t* sK = sQ + kTile * kRow;
-  uint16_t* sV = sK + kWideKv * kRow;
-
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.h;
-  const int hh = bh - b * p.h;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-
-  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + hh * p.q_sh;
-  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + hh * p.k_sh;
-  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + hh * p.v_sh;
-  uint16_t* o = static_cast<uint16_t*>(p.o) + b * p.o_sb + hh * p.o_sh;
-
-  const int row0 = qt * kTile + warp * 16;
-  const int ra = row0 + g;
-  const int rb = row0 + g + 8;
-  const int offset = p.lk - p.lq;
-
-  for (int i = tid; i < kTile * D / 8; i += kThreads) {
-    const int r = i / (D / 8);
-    const int c = (i - r * (D / 8)) * 8;
-    const long long row = static_cast<long long>(qt) * kTile + r;
-    *reinterpret_cast<uint4*>(&sQ[r * kRow + c]) =
-        *reinterpret_cast<const uint4*>(q + row * p.q_sl + c);
-  }
-  // this thread's A-fragment elements of rows ra and rb (k-step 0)
-  const uint16_t* qa = sQ + (warp * 16 + g) * kRow + t4 * 2;
-  const uint16_t* qb = qa + 8 * kRow;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-  float m_a = -INFINITY, m_b = -INFINITY;
-  float l_a = 0.f, l_b = 0.f;
-
-  int n_tiles = p.lk / kWideKv;
-  if (p.causal) {
-    const int last = (qt * kTile + kTile - 1 + offset) / kWideKv + 1;
-    n_tiles = min(n_tiles, last);
-  }
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();  // Q is staged; every warp is done with the last tile
-    for (int i = tid; i < kWideKv * D / 8; i += kThreads) {
-      const int r = i / (D / 8);
-      const int c = (i - r * (D / 8)) * 8;
-      const long long key = static_cast<long long>(kt) * kWideKv + r;
-      *reinterpret_cast<uint4*>(&sK[r * kRow + c]) =
-          *reinterpret_cast<const uint4*>(k + key * p.k_sl + c);
-      *reinterpret_cast<uint4*>(&sV[r * kRow + c]) =
-          *reinterpret_cast<const uint4*>(v + key * p.v_sl + c);
-    }
-    __syncthreads();
-
-    if (p.causal && row0 + 15 + offset < kt * kWideKv) continue;
-
-    // S = Q K^T for 16 rows x 32 keys; Q's fragment of each k-step is
-    // read once from shared memory and used for the 4 key blocks
-    float s[kWideKv / 8][4];
-#pragma unroll
-    for (int n = 0; n < kWideKv / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qa + c * 16);
-      a[1] = *reinterpret_cast<const uint32_t*>(qb + c * 16);
-      a[2] = *reinterpret_cast<const uint32_t*>(qa + c * 16 + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(qb + c * 16 + 8);
-#pragma unroll
-      for (int n = 0; n < kWideKv / 8; ++n) {
-        const uint16_t* kr = sK + (n * 8 + g) * kRow + c * 16 + t4 * 2;
-        mma_16816(s[n], a, *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    float mx_a = m_a, mx_b = m_b;
-#pragma unroll
-    for (int n = 0; n < kWideKv / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * p.scale_log2;
-        const int col = n * 8 + t4 * 2 + (e & 1);
-        if (p.causal && kt * kWideKv + col > ((e < 2) ? ra : rb) + offset) {
-          x = -INFINITY;
-        }
-        s[n][e] = x;
-      }
-      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
-    }
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-    // causal rows above the whole tile (only in a warp that straddles
-    // it) keep -inf; subtract 0 there
-    const float base_a = (mx_a == -INFINITY) ? 0.f : mx_a;
-    const float base_b = (mx_b == -INFINITY) ? 0.f : mx_b;
-    const float corr_a = exp2f(m_a - base_a);
-    const float corr_b = exp2f(m_b - base_b);
-    m_a = mx_a;
-    m_b = mx_b;
-
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int n = 0; n < kWideKv / 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - base_a);
-      s[n][1] = exp2f(s[n][1] - base_a);
-      s[n][2] = exp2f(s[n][2] - base_b);
-      s[n][3] = exp2f(s[n][3] - base_b);
-      sum_a += s[n][0] + s[n][1];
-      sum_b += s[n][2] + s[n][3];
-    }
-    l_a = l_a * corr_a + sum_a;
-    l_b = l_b * corr_b + sum_b;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr_a;
-      acc[n][1] *= corr_a;
-      acc[n][2] *= corr_b;
-      acc[n][3] *= corr_b;
-    }
-
-#pragma unroll
-    for (int j = 0; j < kWideKv / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const uint16_t* vr = sV + (j * 16 + t4 * 2) * kRow + g;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const uint16_t* vc = vr + n * 8;
-        const uint32_t b0 = pack_raw(vc[0], vc[kRow]);
-        const uint32_t b1 = pack_raw(vc[8 * kRow], vc[9 * kRow]);
-        mma_16816(acc[n], a, b0, b1);
-      }
-    }
-  }
-
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  l_a = fmaxf(l_a, 1e-30f);
-  l_b = fmaxf(l_b, 1e-30f);
-  const float inv_a = 1.f / l_a;
-  const float inv_b = 1.f / l_b;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + t4 * 2;
-    *reinterpret_cast<uint32_t*>(o + ra * p.o_sl + col) =
-        pack_bf16(acc[n][0] * inv_a, acc[n][1] * inv_a);
-    *reinterpret_cast<uint32_t*>(o + rb * p.o_sl + col) =
-        pack_bf16(acc[n][2] * inv_b, acc[n][3] * inv_b);
-  }
-  if (p.lse != nullptr && t4 == 0) {
-    float* lse = p.lse + static_cast<long long>(bh) * p.lq;
-    lse[ra] = (m_a + log2f(l_a)) * kLn2;
-    lse[rb] = (m_b + log2f(l_b)) * kLn2;
-  }
-}
-
 // ------------------------------------------------------- bf16, D > 256 --
 // K1 at D in {320, 384, 448, 512}, unmasked: D split across warps (the
 // header's design notes). Block: kSplitRows q rows = 2 row groups of 16,
@@ -957,28 +770,30 @@ cudaError_t launch(Kernel kernel, dim3 grid, const Params& p, cudaStream_t strea
   return cudaGetLastError();
 }
 
-// the instantiation for one head dim: dtype 1 = bf16, else f32
+// the instantiation for one head dim: dtype 1 = bf16, else f32 (bf16
+// without a mask at 64 and 128 is flash_attn_fwd_sm90.cu's; the entry
+// point returns 1004 for it)
 template <int D>
 cudaError_t launch_d(int dtype, bool masked, int batch_heads, const Params& p,
                      cudaStream_t s) {
   if (dtype == 1) {
     const dim3 grid(p.lq / kTile, batch_heads);
-    return masked ? launch(flash_fwd_bf16_kernel<D, true>, grid, p, s)
-                  : launch(flash_fwd_bf16_kernel<D, false>, grid, p, s);
+    if constexpr (D % 64 == 0) {
+      return launch(flash_fwd_bf16_kernel<D, true>, grid, p, s);
+    } else {
+      return masked ? launch(flash_fwd_bf16_kernel<D, true>, grid, p, s)
+                    : launch(flash_fwd_bf16_kernel<D, false>, grid, p, s);
+    }
   }
   const dim3 grid(p.lq / kFmaRows, batch_heads);
   return masked ? launch(flash_fwd_f32_kernel<D, true>, grid, p, s)
                 : launch(flash_fwd_f32_kernel<D, false>, grid, p, s);
 }
 
-// K1 at D in {192, 256}: unmasked only (no path takes a mask there)
+// K1 f32 at D in {192, 256}: unmasked only (no path takes a mask
+// there; bf16 is flash_attn_fwd_sm90.cu's)
 template <int D>
-cudaError_t launch_wide(int dtype, int batch_heads, const Params& p, cudaStream_t s) {
-  if (dtype == 1) {
-    constexpr int smem = (kTile + 2 * kWideKv) * (D + kPad) * 2;
-    return launch(flash_fwd_bf16_wide_kernel<D>, dim3(p.lq / kTile, batch_heads),
-                  p, s, smem);
-  }
+cudaError_t launch_wide(int batch_heads, const Params& p, cudaStream_t s) {
   return launch(flash_fwd_f32_kernel<D, false, kWideFmaKv>,
                 dim3(p.lq / kFmaRows, batch_heads), p, s);
 }
@@ -1002,7 +817,8 @@ cudaError_t launch_split(int dtype, int batch_heads, const Params& p,
 // dtype: 0 = float32, 1 = bfloat16. mask: [B, Lk] bytes (nonzero = real
 // key) with batch stride mask_sb, or null for none (required at D > 128).
 // Returns a cudaError_t (0 = launched); 1000 + n flags an argument the
-// kernel does not take.
+// kernel does not take (1004: a head dim it has no kernel for, bf16
+// without a mask at 64, 128, 192 and 256 among them).
 extern "C" int zoo_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int batch, int heads, int lq, int lk, int d,
@@ -1031,6 +847,10 @@ extern "C" int zoo_flash_attn_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool masked = mask != nullptr;  // the kMask instantiation or not
   if (masked && d > 128) return 1006;
+  // bf16 without a mask at these head dims: flash_attn_fwd_sm90.cu
+  if (dtype == 1 && !masked && (d == 64 || d == 128 || d == 192 || d == 256)) {
+    return 1004;
+  }
   const int bh = batch * heads;
   switch (d) {
     // K1
@@ -1052,8 +872,8 @@ extern "C" int zoo_flash_attn_fwd(
     case 112: return launch_d<112>(dtype, masked, bh, p, s);
     case 120: return launch_d<120>(dtype, masked, bh, p, s);
     // K1 above 128: the reference's Pallas kernel at D % 64 == 0
-    case 192: return launch_wide<192>(dtype, bh, p, s);
-    case 256: return launch_wide<256>(dtype, bh, p, s);
+    case 192: return launch_wide<192>(bh, p, s);
+    case 256: return launch_wide<256>(bh, p, s);
     case 320: return launch_split<320>(dtype, bh, p, s);
     case 384: return launch_split<384>(dtype, bh, p, s);
     case 448: return launch_split<448>(dtype, bh, p, s);

@@ -7,9 +7,12 @@ The counterpart of ``analytics_zoo_tpu/ops/pallas_attention.py``: exact
 ``softmax(scale * Q K^T) V`` on ``[B, H, L, D]``, causal mask aligned
 bottom-right (offset ``lk - lq``), optional per-row logsumexp, and the
 backward that rebuilds the probabilities from that logsumexp. The
-kernels live in ``csrc/flash_attn_fwd.cu`` and in
-``csrc/flash_attn_bwd.cuh`` (design notes there), whose K2 and K3 are
-built by ``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu``;
+kernels live in ``csrc/flash_attn_fwd_sm90.cu`` (K1's bf16 forward
+without a mask at D in ``SM90_HEAD_DIMS``: TMA, a producer warpgroup,
+wgmma; ``_fwd_entry`` picks it), ``csrc/flash_attn_fwd.cu`` (every
+other forward) and ``csrc/flash_attn_bwd.cuh`` (design notes there),
+whose K2 and K3 are built by ``csrc/flash_attn_bwd_dq.cu`` and
+``csrc/flash_attn_bwd_dkv.cu``;
 each source is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` at the repository root (a per-user cache for an installed
 package), side by side, and loaded through ``ctypes``.
@@ -41,7 +44,9 @@ those given a key-padding mask in ``<wrapper>.masked_launches``,
 those at a head dim up to 128 that is not a multiple of 64 (K5b) in
 ``<wrapper>.small_d_launches``, and those above 128 in
 ``<wrapper>.wide_d_launches`` (the head dim tells which design ran:
-192 and 256, or D split across warps at 320 to 512).
+192 and 256, or D split across warps at 320 to 512);
+``flash_attention.sm90_launches`` counts the forward's launches of the
+Hopper kernel.
 
 K5b is the counterpart of the reference's stock-kernel branch at such
 head dims (``analytics_zoo_tpu/ops/attention.py:116``: JAX's stock Pallas
@@ -103,6 +108,8 @@ torch.exp(torch.zeros(1 << 17))
 # multiple of 8 up to 128, and the multiples of 64 from 192 to 512
 # (without a mask)
 HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448, 512)
+# head dims of the Hopper forward kernel (bf16, no mask; _fwd_entry)
+SM90_HEAD_DIMS = (64, 128, 192, 256)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -119,6 +126,9 @@ _TAIL = [_P, _L, ctypes.c_float, _I, _P]
 _ENTRY_POINTS = {
     "zoo_flash_attn_fwd": ("flash_attn_fwd",
                            [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
+    # the same arguments without the mask's two
+    "zoo_flash_attn_fwd_sm90": ("flash_attn_fwd_sm90",
+                                [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL[2:]),
     "zoo_flash_attn_bwd_dq": ("flash_attn_bwd_dq",
                               [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
     "zoo_flash_attn_bwd_dkv": ("flash_attn_bwd_dkv",
@@ -478,11 +488,22 @@ def _count(wrapper, mask, d: int = 64) -> None:
         wrapper.small_d_launches += 1
 
 
+def _fwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> str:
+    """The forward entry point a call takes: the Hopper kernel of
+    ``flash_attn_fwd_sm90.cu`` (TMA, a producer warpgroup, wgmma) for
+    bf16 without a mask at ``SM90_HEAD_DIMS``; ``flash_attn_fwd.cu``
+    for every other call (f32, a mask, K5b, D above 256)."""
+    if dtype == torch.bfloat16 and not masked and dp in SM90_HEAD_DIMS:
+        return "zoo_flash_attn_fwd_sm90"
+    return "zoo_flash_attn_fwd"
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, scale: Optional[float], with_lse: bool,
             key_padding_mask: Optional[torch.Tensor] = None):
-    fn = _entry("zoo_flash_attn_fwd")
     d, scale, dp, (q, k, v) = _padded(scale, q, k, v)
+    name = _fwd_entry(q.dtype, dp, key_padding_mask is not None)
+    fn = _entry(name)
     _check_inputs(q, k, v, causal, key_padding_mask)
     mask = _kernel_mask(key_padding_mask)
     b, h, lq, _ = q.shape
@@ -490,15 +511,17 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _empty_bhld(b, h, lq, dp, q)
     lse = (torch.empty(b * h, lq, dtype=torch.float32, device=q.device)
            if with_lse else None)
+    sm90 = name == "zoo_flash_attn_fwd_sm90"
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             _DTYPE_CODE[q.dtype], b, h, lq, lk, dp,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], *_mask_args(mask), scale,
+            *out.stride()[:3], *(() if sm90 else _mask_args(mask)), scale,
             int(causal), _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash kernel launch failed: code {rc}")
+        raise RuntimeError(f"flash kernel launch failed ({name}): code {rc}")
     _count(flash_attention, mask, dp)
+    flash_attention.sm90_launches += sm90
     (out,) = _cut(d, out)
     return (out, lse) if with_lse else out
 
@@ -663,3 +686,6 @@ for _wrapper in (flash_attention, flash_attention_bwd_dq,
     _wrapper.small_d_launches = 0
     _wrapper.wide_d_launches = 0
 del _wrapper
+# forward launches of the Hopper kernel (flash_attn_fwd_sm90.cu), among
+# flash_attention.launches
+flash_attention.sm90_launches = 0

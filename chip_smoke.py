@@ -47,13 +47,16 @@ Phases:
    zoo.ops.attention_impl = "flash" (every batch
    bucket the batcher can emit is warmed first), checks that
    every request is answered once with finite logits, that K1 ran for
-   every encoder layer of every dispatched batch, and that 4 replies
-   match the same model run with the einsum attention path.
+   every encoder layer of every dispatched batch, every launch on the
+   Hopper kernel (flash_attn_fwd_sm90.cu, counted in sm90_launches) and
+   none on the older one, and that 4 replies match the same model run
+   with the einsum attention path.
 6. Learn: fine-tunes a seeded BERT-base BERTSQuAD (bf16 encoder, seq 384,
    batch 48, random token ids and spans) through ZooModel.fit ->
    Estimator.fit for 2 epochs of 16 steps (the first warms up, the second
    is timed) with zoo.ops.attention_impl = "flash"; checks finite losses
-   and that K1, K2 and K3 each launched at least 12 times per step; runs
+   and that K1, K2 and K3 each launched at least 12 times per step (every
+   K1-lse on the Hopper kernel); runs
    evaluate and predict on the same Estimator; and, before the fit, holds
    one step's gradients (hidden dropout off) with flash attention against
    the same step with einsum attention, in f32 and in bf16; it repeats
@@ -172,7 +175,8 @@ Phases:
    must reject dQ zeroed and dK and dV swapped) and bf16. K1-lse, K2 and
    K3 must each launch exactly 8 times a step (once a layer), every launch
    a wide one
-   (D = 256), and the last logged loss must be below the first. Prints
+   (D = 256), every K1-lse on the Hopper kernel, and the last logged loss
+   must be below the first. Prints
    steps/s, tokens/s, MFU (bench.py's formula), peak memory and the
    logged losses.
 18. K1 wider kernels: K1 at head dims 320, 384, 448 and 512 (the
@@ -221,16 +225,36 @@ Phases:
    at batch 1 (the f32 one must reject dQ zeroed and dK and dV swapped);
    K1-lse, K2 and K3 must each launch exactly once a layer a step, every
    launch at D = 512, and the loss must fall.
+22. K1 sm90: K1's Hopper kernel (flash_attn_fwd_sm90.cu: TMA into a
+   ring of shared-memory stages, a producer warpgroup, wgmma) through the
+   flash_attention wrapper against its plain version on the card: every
+   instantiation once (D = 64, 128, 192, 256, causal and not, with and
+   without logsumexp, q/k/v views into a fused projection; then lq 192,
+   an odd number of 64-row blocks, lq < lk causal, and lk past the last
+   whole kv tile; 32 cases, one summary line, each launch counted in
+   sm90_launches), then the served call [32,12,512,64], the SQuAD fit's
+   K1-lse [48,12,384,64] (both views), [8,8,2048,256] and
+   [8,8,2048,192] causal and the LM fit's K1-lse [4,16,2048,256] causal
+   (views), each timed (events and device time) beside its plain
+   version, SDPA and its bound, and the host time of encoding a call's
+   three tensor maps.
 
-Prints each phase's seconds, a {"kernels": [...]} line (K1, K2 and K3
+The three full-width generation phases (13, 15, 19) draw their seeded
+weights on the card (device_draws): every check there holds the port to
+its own plain paths on the same weights.
+
+Prints each phase's seconds, a {"kernels": [...]} line
+(flash_attn_fwd_sm90 at the served call with an lse_call at the SQuAD
+fit's, a d256_call, a d192_call and a trained_lse_call at the LM fit's,
+its launches those of phases 5, 6 and 17; K1's older source at the f32
+served call; K1, K2 and K3
 each with a kv_mask_call at the NER trained call; K5b's forward at the
 full-width prefill call with an lse_call at the MiniLM trained call, a
 kv_mask_call at the masked D = 32 call and a padded_call at D = 20;
 flash_attn_bwd_dq_k5b and flash_attn_bwd_dkv_k5b at the MiniLM trained
 call with a kv_mask_call at its padded call, their launches the MiniLM
-fit's; flash_attn_fwd_wide at the Gemma-width prefill call with an
-lse_call, a bf16_call and a trained_lse_call at the LM's call, its
-launches the Gemma phase's and the LM fit's; flash_attn_bwd_dq_wide and
+fit's; flash_attn_fwd_wide at the Gemma-width prefill call (f32) with an
+lse_call, its launches the Gemma phase's; flash_attn_bwd_dq_wide and
 flash_attn_bwd_dkv_wide at the LM's trained call with an f32_call and a
 d192_call, their launches the LM fit's; flash_attn_fwd_wider at the
 DeepSeek-width prefill call with a bf16_call, an lse_call, a d384_call
@@ -245,6 +269,7 @@ true, "device": {...}}. Any failed check exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import logging
@@ -265,6 +290,8 @@ K1_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd.cu"
 K5A_REPLACES = "analytics_zoo_tpu/ops/attention.py:116"
 K5B_REPLACES = "analytics_zoo_tpu/ops/attention.py:116"
 K1_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:82"
+# K1's bf16 forward without a mask at D in {64, 128, 192, 256} on Hopper
+SM90_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu"
 # K2 and K3 (and K5b's backward): templates in flash_attn_bwd.cuh, built
 # and exported by one source each
 K2_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_dq.cu"
@@ -325,7 +352,7 @@ def ptxas_lines(log: str) -> list:
     table, kernel = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*(flash_(?:fwd|bwd_dq|"
-                      r"bwd_dkv)_(?:bf16|f32)(?:_wide|_split)?_kernel)"
+                      r"bwd_dkv)_(?:bf16|f32|sm90)(?:_wide|_split)?_kernel)"
                       r"ILi(\d+)E"
                       r"(?:Lb([01])E)?", line)
         if m:
@@ -551,8 +578,8 @@ def kernel_phase(torch, peaks):
             rec["bound_ms"], rec["bound_by"] = bounds(
                 b, h, lq, lk, d, q.element_size(), causal, peaks[kind],
                 peaks["bw"])["k1"]
-            if name == "served" and dt == "bfloat16":
-                served = rec
+            if name == "served":
+                served[dt] = rec
         checks.append(rec)
         print(f"K1 {name} {dt} {[b, h, lq, lk, d]} causal={causal} "
               f"max_abs_err={err:.3g}"
@@ -903,16 +930,23 @@ def _make(torch, rng):
 
 
 def fwd_check(torch, make, label, b, h, lq, lk, d, dt, causal, m, with_lse,
-              counter):
+              counter, views=False):
     """One ``flash_attention`` call on random inputs against its plain
     version (``TOL``, ``LSE_TOL``); the wrapper must count it in
     ``counter`` (``small_d_launches`` for K5b, ``wide_d_launches`` above
-    D = 128). Returns (q, k, v, record)."""
+    D = 128, ``sm90_launches`` for the Hopper kernel). With ``views`` (and
+    lq == lk) q, k and v are strided views into one fused [B, L, 3, H, D]
+    projection, as the models' attention makes them. Returns (q, k, v,
+    record)."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     dtype = getattr(torch, dt)
-    q = make((b, h, lq, d), dtype)
-    k, v = make((b, h, lk, d), dtype), make((b, h, lk, d), dtype)
+    if views and lq == lk:
+        q, k, v = (t.transpose(1, 2)
+                   for t in make((b, lq, 3, h, d), dtype).unbind(2))
+    else:
+        q = make((b, h, lq, d), dtype)
+        k, v = make((b, h, lk, d), dtype), make((b, h, lk, d), dtype)
     before = getattr(fa.flash_attention, counter)
     got = fa.flash_attention(q, k, v, causal, None, with_lse, m)
     torch.cuda.synchronize()
@@ -937,10 +971,13 @@ def fwd_check(torch, make, label, b, h, lq, lk, d, dt, causal, m, with_lse,
     return q, k, v, rec
 
 
-def timed_fwd_cases(torch, peaks, rng, cases, counter, label, iters=20):
-    """``fwd_check`` at each case, then the call timed (CUDA events and
-    profiler device time) beside its plain version, SDPA (a yardstick;
-    the port never calls it) and its bound. Returns the records."""
+def timed_fwd_cases(torch, peaks, rng, cases, counter, label, iters=20,
+                    views=()):
+    """``fwd_check`` at each case (q/k/v views into a fused projection
+    for the case names in ``views``), then the call timed (CUDA events
+    and profiler device time) beside its plain version, SDPA (a
+    yardstick; the port never calls it) and its bound. Returns the
+    records."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -954,7 +991,8 @@ def timed_fwd_cases(torch, peaks, rng, cases, counter, label, iters=20):
             keep = fa._visible(lq, lk, causal, m, m.device).expand(
                 b, 1, lq, lk)[:, 0]
         q, k, v, rec = fwd_check(torch, make, f"{label} {name} {dt}", b, h,
-                                 lq, lk, d, dt, causal, m, with_lse, counter)
+                                 lq, lk, d, dt, causal, m, with_lse, counter,
+                                 views=name in views)
         rec.update(case=name, shape=[b, h, lq, lk, d], dtype=dt,
                    causal=causal)
         if m is not None:
@@ -1230,6 +1268,89 @@ def wider_phase(torch, peaks):
     return checks
 
 
+# K1's Hopper kernel (flash_attn_fwd_sm90.cu): every instantiation once
+# (D 64/128/192/256, causal and not, with and without logsumexp, q/k/v
+# views into a fused projection at lq == lk), then an odd number of
+# 64-row q blocks (lq 192: the last 128-row block half empty), lq < lk
+# causal, and lk past the last whole kv tile
+SM90_SWEEP = [
+    (f"d{d}", shape + (d,), "bfloat16", causal, with_lse, views)
+    for d in (64, 128, 192, 256)
+    for shape, causal, with_lse, views in (
+        [((2, 3, 256, 256), c, w, True) for c in (False, True)
+         for w in (False, True)]
+        + [((1, 2, 192, 192), True, True, True),
+           ((1, 2, 192, 192), False, False, False),
+           ((1, 2, 128, 384), True, True, False),
+           ((1, 2, 64, 320), False, True, False)])]
+# the calls timed: the served call and the SQuAD fit's K1-lse (BERT-base,
+# D = 64), [8,8,2048,d] causal at 256 and 192, and the GPT-J-width LM
+# fit's K1-lse
+SM90_CASES = [
+    ("served", (32, 12, 512, 512, 64), "bfloat16", False, None, False),
+    ("trained_lse", (48, 12, 384, 384, 64), "bfloat16", False, None, True),
+    ("bf16_d256", (8, 8, 2048, 2048, 256), "bfloat16", True, None, False),
+    ("bf16_d192", (8, 8, 2048, 2048, 192), "bfloat16", True, None, False),
+    ("gptj_lse", (4, 16, 2048, 2048, 256), "bfloat16", True, None, True),
+]
+SM90_VIEWS = ("served", "trained_lse", "gptj_lse")
+
+
+def map_encode_us(torch, fa, b, h, l, d, iters=1000):
+    """Host microseconds to encode one call's three tensor maps (the
+    kernel's own helper, ``zoo_flash_attn_fwd_sm90_map_ns``, on views
+    into a fused projection)."""
+    import ctypes
+
+    lib = fa.build_kernels()["flash_attn_fwd_sm90"]
+    fn = lib.zoo_flash_attn_fwd_sm90_map_ns
+    fn.restype = ctypes.c_double
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int])
+    qkv = torch.empty(b, l, 3, h, d, dtype=torch.bfloat16, device="cuda")
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    ns = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, h, l, l, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], iters)
+    if ns < 0:
+        fail(f"map encoding refused [{b},{h},{l},{d}]: code {-ns}")
+    return ns / 1e3
+
+
+def sm90_phase(torch, peaks):
+    """K1's Hopper kernel through the ``flash_attention`` wrapper against
+    its plain version on the card (``SM90_SWEEP``, one summary line; each
+    launch must count in ``sm90_launches``), then ``SM90_CASES`` timed,
+    and the host time of encoding a call's tensor maps. Returns the timed
+    records."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(22)
+    make = _make(torch, rng)
+    sweep = []
+    for name, (b, h, lq, lk, d), dt, causal, with_lse, views in SM90_SWEEP:
+        _, _, _, rec = fwd_check(
+            torch, make, f"K1 sm90 {name} {[b, h, lq, lk]} causal={causal} "
+            f"lse={with_lse} views={views}", b, h, lq, lk, d, dt, causal,
+            None, with_lse, "sm90_launches", views=views)
+        sweep.append(rec["share"])
+    print(f"K1 sm90: all {len(SM90_SWEEP)} cases (D 64/128/192/256 x causal "
+          f"x lse, views, lq 192, lq < lk, lk past a whole kv tile) match "
+          f"the plain version (largest error {max(sweep):.3g} of its "
+          f"tolerance)", flush=True)
+    checks = timed_fwd_cases(torch, peaks, rng, SM90_CASES, "sm90_launches",
+                             "K1 sm90", views=SM90_VIEWS)
+    encode = {"served": map_encode_us(torch, fa, 32, 12, 512, 64),
+              "gptj": map_encode_us(torch, fa, 4, 16, 2048, 256)}
+    for rec in checks:
+        rec["map_encode_us"] = encode["gptj" if rec["shape"][-1] == 256
+                                      else "served"]
+    print(f"K1 sm90: encoding a call's three tensor maps takes "
+          f"{encode['served']:.3f} us on the host (served call), "
+          f"{encode['gptj']:.3f} us (the LM's)", flush=True)
+    print(json.dumps({"sm90_checks": checks}), flush=True)
+    return checks
+
+
 def _pick(records, name, dt="bfloat16"):
     return next(r for r in records if r["case"] == name and r["dtype"] == dt)
 
@@ -1313,21 +1434,31 @@ def _reset_launches(fa):
               fa.flash_attention_bwd_dkv):
         w.launches = w.masked_launches = w.small_d_launches = 0
         w.wide_d_launches = 0
+    fa.flash_attention.sm90_launches = 0
 
 
 def _launches(fa):
     """{kernel: (launches, launches with a mask, launches at a head dim
-    that is not a multiple of 64, launches above D = 128)} since the last
-    reset."""
+    that is not a multiple of 64, launches above D = 128, launches of
+    the Hopper forward kernel)} since the last reset (the last is K1's
+    alone: 0 for K2 and K3)."""
     return {name: (w.launches, w.masked_launches, w.small_d_launches,
-                   w.wide_d_launches)
+                   w.wide_d_launches, getattr(w, "sm90_launches", 0))
             for name, w in (
         ("K1", fa.flash_attention), ("K2", fa.flash_attention_bwd_dq),
         ("K3", fa.flash_attention_bwd_dkv))}
 
 
+def _sm90_expected(torch, fa, dtype, head_dim, masked, k1_launches):
+    """How many of ``k1_launches`` must have run on the Hopper forward
+    kernel (``flash_attn_fwd_sm90.cu``): all of a bf16 call without a
+    mask at its head dims, none of any other."""
+    name = fa._fwd_entry(getattr(torch, dtype), head_dim, masked)
+    return k1_launches if name == "zoo_flash_attn_fwd_sm90" else 0
+
+
 def serving_phase(torch, start, reqs, input_fn, out_shape, n_block,
-                  masked=False, label="serving", device="cuda",
+                  head_dim, masked=False, label="serving", device="cuda",
                   profile=False):
     """One closed burst of ``reqs`` ({uri: {name: array}}) through the
     deployment ``start()`` brings up (load and warm-up included); it
@@ -1336,9 +1467,10 @@ def serving_phase(torch, start, reqs, input_fn, out_shape, n_block,
     ``out_shape`` logits, that K1 ran (with the mask, where ``masked``)
     for every encoder layer of every dispatched batch, and that 4
     replies match the same model with einsum attention (at real tokens,
-    where requests carry an ``attention_mask``). ``input_fn`` maps named
-    tensors to the model's input, as the worker does. Returns K1's
-    (launches, masked launches)."""
+    where requests carry an ``attention_mask``), and that K1 ran on the
+    Hopper kernel exactly where ``_sm90_expected`` says (a bf16 model of
+    ``head_dim``). ``input_fn`` maps named tensors to the model's input,
+    as the worker does. Returns K1's ``_launches`` tuple."""
     from analytics_zoo_tpu_torch.common.config import get_config
     from analytics_zoo_tpu_torch.obs.metrics import get_registry
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
@@ -1392,6 +1524,13 @@ def serving_phase(torch, start, reqs, input_fn, out_shape, n_block,
             fail(f"{label}: K1 launched {k1[int(masked)]} times"
                  + (" with a mask" if masked else "") + f" < {n_block} x "
                  f"{dispatched} dispatched batches")
+        # every launch of a bf16 model without a mask on the Hopper
+        # kernel, none of a masked one
+        want_sm90 = _sm90_expected(torch, fa, "bfloat16", head_dim, masked,
+                                   k1[0])
+        if device == "cuda" and k1[4] != want_sm90:
+            fail(f"{label}: {k1[4]} of {k1[0]} K1 launches on the Hopper "
+                 f"kernel (want {want_sm90})")
 
         def batch_of(uris):
             return input_fn({k: np.stack([reqs[u][k] for u in uris])
@@ -1435,7 +1574,8 @@ def serving_phase(torch, start, reqs, input_fn, out_shape, n_block,
         "p50_ms": float(np.percentile(lat_ms, 50)),
         "p99_ms": float(np.percentile(lat_ms, 99)),
         "dispatched_batches": dispatched, "k1_launches": k1[0],
-        "k1_masked_launches": k1[1], "served_batches": stats["batches"],
+        "k1_masked_launches": k1[1], "k1_sm90_launches": k1[4],
+        "served_batches": stats["batches"],
         "mean_occupancy": stats["mean_occupancy"],
         "max_batch_size": stats["max_batch_size"],
         "einsum_max_abs_diff": diff,
@@ -1475,6 +1615,7 @@ def bert_serving(torch, device="cuda", base=BERT_BASE, n_requests=64,
         return serving_phase(torch, start, reqs,
                              lambda t: t["input_ids"],
                              (base["num_classes"],), base["n_block"],
+                             base["hidden_size"] // base["n_head"],
                              device=device, profile=profile)
 
 
@@ -1619,7 +1760,8 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
     ``ZooModel.fit``), or a bare module with its Estimator in a
     namespace of the same attributes and a ``name``. K1, K2 and K3 must
     each launch (with the mask, where ``masked``) at least once per layer
-    a step; with ``loss_falls`` the last logged step's loss must be below
+    a step, K1 on the Hopper kernel exactly where ``_sm90_expected``
+    says; with ``loss_falls`` the last logged step's loss must be below
     the first's. Returns the fit's ``_launches``."""
     from analytics_zoo_tpu_torch.common.config import get_config
     from analytics_zoo_tpu_torch.learn.optim import param_tree
@@ -1735,6 +1877,14 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
             fail(f"{label}: {kname} launched {counts[int(masked)]} times"
                  + (" with a mask" if masked else "")
                  + f" in {steps} train steps (< {need})")
+    # K1-lse of a bf16 encoder without a mask all on the Hopper kernel
+    k1 = launches["K1"]
+    want_sm90 = _sm90_expected(torch, fa, base["dtype"],
+                               base["hidden_size"] // base["n_head"], masked,
+                               k1[0])
+    if cuda and k1[4] != want_sm90:
+        fail(f"{label}: {k1[4]} of {k1[0]} K1 launches on the Hopper kernel "
+             f"(want {want_sm90})")
     timed = hist[1]["seconds"]
     sps = steps_per_epoch / timed
     # one epoch's real tokens (the mask's ones) and padded tokens
@@ -1761,8 +1911,9 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
         "dense_params": p_dense, "flops_per_token": flops_per_token,
         "mfu_bf16": mfu, "peak_mem_gib": peak / 2 ** 30 if cuda else None,
         **inferred,
-        "launches": {k: {"all": a, "masked": mk, "small_d": sd, "wide_d": wd}
-                     for k, (a, mk, sd, wd) in launches.items()},
+        "launches": {k: {"all": a, "masked": mk, "small_d": sd, "wide_d": wd,
+                         "sm90": h}
+                     for k, (a, mk, sd, wd, h) in launches.items()},
         "check_batch": check_batch,
         "grad_rel_err": {tag.strip() or "batch": dict(
             rels[tag], f32_flash_vs_einsum=rel32[tag]) for tag in rels},
@@ -1859,7 +2010,7 @@ def minilm_learn(torch, device="cuda", base=MINILM, seq=TRAIN_SEQ,
         y, batch, squad_span_loss, GRAD_PARAMS,
         ("dq_zeroed", "dk_dv_swapped", "mask_dropped"), masked=True,
         label="learn-minilm", device=device, profile=profile)
-    for kname, (total, _, small, _) in launches.items():
+    for kname, (total, _, small, _, _) in launches.items():
         if device == "cuda" and small != total:
             fail(f"learn-minilm: {kname} counted {small} K5b launches of "
                  f"{total}")
@@ -1939,7 +2090,8 @@ def ner_serving(torch, path, device="cuda", n_requests=64, seq=NER_SEQ,
 
     return serving_phase(torch, start, reqs, _ner_input,
                          (seq, base["num_classes"]), base["n_block"],
-                         masked=True, label="serve-ner", device=device)
+                         base["hidden_size"] // base["n_head"], masked=True,
+                         label="serve-ner", device=device)
 
 
 # GPT-J-6B (EleutherAI/gpt-j-6b config.json: n_embd 4096, n_head 16, so
@@ -2073,7 +2225,7 @@ def lm_learn(torch, device="cuda", base=GPTJ, batch=LM_BATCH,
         infer=infer, loss_falls=True)
     head_dim = base["hidden_size"] // base["n_head"]
     want = base["n_block"] * 2 * steps_per_epoch
-    for kname, (total, _, _, wide) in launches.items():
+    for kname, (total, _, _, wide, _) in launches.items():
         if device == "cuda" and not wide == total == want:
             fail(f"{label}: {kname} launched {total} times, {wide} of them "
                  f"wide (want {want}, every one at D = {head_dim})")
@@ -2118,6 +2270,66 @@ GEN_DEEPSEEK = {"model": dict(vocab=129280, dim=4096, heads=64,
 # a full-width divergence from the reference at a top-1 - top-2 logit gap
 # below this is an f32 tie (the logits spread about 50)
 TIE_GAP = 1e-3
+
+
+@contextlib.contextmanager
+def device_draws(torch):
+    """``TinyGenLM.init_params`` with its seeded normal draws made on the
+    card by a ``torch.Generator`` there, while the context lasts: the
+    same parameter tree, shapes and scales as the port's (checked on a
+    small geometry against the original first), other numbers. Drawn
+    with numpy on the host, the full-width geometries' billions of
+    weights took minutes. Every check of a generation phase compares the
+    port with its own plain paths on the same parameters, so the draws'
+    source does not change what they show."""
+    from analytics_zoo_tpu_torch.serving.generation.model import (
+        GenModelConfig, TinyGenLM)
+
+    host = TinyGenLM.init_params
+
+    def init_params(self, pos_len=None, device=None):
+        c = self.config
+        device = torch.device(device or "cuda")
+        gen = torch.Generator(device=device)
+        gen.manual_seed(c.seed)
+
+        def mat(*shape, scale=None):
+            scale = scale if scale is not None else 1.0 / np.sqrt(shape[0])
+            return torch.empty(shape, device=device).normal_(
+                0.0, scale, generator=gen)
+
+        def full(value):
+            return torch.full((c.dim,), value, dtype=torch.float32,
+                              device=device)
+
+        inner = c.heads * c.head_dim
+        return {
+            "blocks": [{
+                "ln1_s": full(1.0), "ln1_b": full(0.0),
+                "wq": mat(c.dim, inner), "wk": mat(c.dim, inner),
+                "wv": mat(c.dim, inner), "wo": mat(inner, c.dim),
+                "ln2_s": full(1.0), "ln2_b": full(0.0),
+                "w1": mat(c.dim, c.dim * c.mlp_ratio),
+                "w2": mat(c.dim * c.mlp_ratio, c.dim),
+            } for _ in range(c.layers)],
+            "embed": mat(c.vocab, c.dim, scale=1.0),
+            "pos": mat(int(pos_len or c.max_len), c.dim, scale=1.0),
+            "lnf_s": full(1.0), "lnf_b": full(0.0),
+            "head": mat(c.dim, c.vocab, scale=1.0)}
+
+    def layout(tree):
+        return {k: (layout(v) if isinstance(v, dict) else
+                    [layout(b) for b in v] if isinstance(v, list) else
+                    tuple(v.shape)) for k, v in tree.items()}
+
+    small = TinyGenLM(GenModelConfig(**GEN_REPO["model"]))
+    if layout(init_params(small, 48)) != layout(host(small, 48, "cuda")):
+        fail("device_draws: the parameter tree differs from TinyGenLM's")
+    TinyGenLM.init_params = init_params
+    try:
+        yield
+    finally:
+        TinyGenLM.init_params = host
 
 
 def _hist(name):
@@ -2288,7 +2500,7 @@ def _drive_http(app, prompts, max_tokens, slots, label):
 
 def generation_phase(torch, label, block, n_requests, prompt_lens,
                      max_tokens, n_check, check_tokens, tie_gap=None,
-                     seed=0, http=False, n_logits=0):
+                     seed=0, http=False, n_logits=0, on_card=False):
     """``n_requests`` synthetic generate requests (prompt lengths uniform
     in ``prompt_lens``, tokens uniform over the vocabulary,
     ``__max_tokens__`` ``max_tokens``) through the port's launch() with
@@ -2306,7 +2518,8 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
     other flash launch ran, ``n_logits`` prompts' logits against the
     plain full forward (``_logits_check``), and the streams against
     reference_generate. Then profiles the decode step with all slots
-    live at the longest prompts. Returns the summary."""
+    live at the longest prompts. ``on_card`` draws the seeded weights on
+    the card (``device_draws``). Returns the summary."""
     from analytics_zoo_tpu_torch.common.config import get_config
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
     from analytics_zoo_tpu_torch.serving.generation import prefill_ladder
@@ -2337,7 +2550,8 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
     # DecodeEngine -> PagedKVCache -> TinyGenLM (prefill through K5b, or
     # K1 above 128) ----
     t0 = time.perf_counter()
-    app = launch(config)
+    with (device_draws(torch) if on_card else contextlib.nullcontext()):
+        app = launch(config)
     up_s = time.perf_counter() - t0
     print(f"{label}: up in {up_s:.1f}s (seeded weights, warm-up of "
           f"buckets {ladder})"
@@ -2599,7 +2813,8 @@ def main() -> None:
                         profile=args.profile)
         runs.append(timed("NER serving", ner_serving, torch, ner_dir))
     runs += [squad["K1"], ner_fit["K1"]]
-    k1_runs = [sum(r[i] for r in runs) for i in (0, 1)]
+    # K1's launches over the BERT-base paths: all, masked, Hopper kernel
+    k1_runs = [sum(r[i] for r in runs) for i in (0, 1, 4)]
     torch.cuda.empty_cache()
     k5b = timed("K5b kernels", k5b_phase, torch, peaks)
     k5b_bwd = timed("K5b backward kernels", k5b_bwd_phase, torch, peaks)
@@ -2609,14 +2824,14 @@ def main() -> None:
                   GEN_REPO, 500, (1, 240), 16, 500, 16),
             timed("generation, Phi-2 widths", generation_phase, torch,
                   "genfull", GEN_FULL, 32, (128, 2016), 32, 4, 16,
-                  tie_gap=TIE_GAP)]
+                  tie_gap=TIE_GAP, on_card=True)]
     # the Phi-2 phase's weights and pool (about 11 GB) go before Gemma's
     gc.collect()
     torch.cuda.empty_cache()
     wide = timed("K1 wide kernels", wide_phase, torch, peaks)
     gemma = timed("generation, Gemma-2B widths", generation_phase, torch,
                   "gengemma", GEN_GEMMA, 32, (128, 8160), 32, 4, 16,
-                  tie_gap=TIE_GAP)
+                  tie_gap=TIE_GAP, on_card=True)
     # the Gemma phase's weights and pool (about 30 GB) go before the LM's
     gc.collect()
     torch.cuda.empty_cache()
@@ -2630,7 +2845,7 @@ def main() -> None:
     deepseek = timed("generation, DeepSeek-V4-Flash widths, over HTTP",
                      generation_phase, torch, "gendeepseek", GEN_DEEPSEEK,
                      32, (128, 2016), 32, 4, 16, tie_gap=TIE_GAP, http=True,
-                     n_logits=4)
+                     n_logits=4, on_card=True)
     # the DeepSeek phase's weights and pool (about 32 GB) go before the
     # 512-head LM's
     gc.collect()
@@ -2639,6 +2854,9 @@ def main() -> None:
                       WIDER_BWD_SWEEP, WIDER_BWD_CASES, (20, 21), "wider-bwd")
     lm512 = timed("512-head LM learn", lm_learn, torch, base=LM512,
                   profile=args.profile, label="learn-lm512")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sm90 = timed("K1 sm90", sm90_phase, torch, peaks)
     k5b_full, k5b_masked, k5b_padded = (
         _pick(k5b, "gen_full", "float32"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))
@@ -2717,21 +2935,40 @@ def main() -> None:
                 **call(trained), "f32_call": call(f32_call),
                 **{k: call(rec) for k, rec in other.items()}}
 
-    # K1 at the served call ([32,12,512,64] bf16 views into the qkv
-    # projection), with its logsumexp call at the trained shape beside
-    # it; K2 and K3 at the trained call ([48,12,384,64] bf16), masked at
-    # the NER trained call ([32,12,128,64], synthetic lengths in [2,
-    # 128]); K5b's backward at the MiniLM trained call ([48,12,384,32]
-    # bf16), masked at its padded call (lengths in [64, 384])
+    # K1's Hopper kernel at the served call ([32,12,512,64] bf16 views
+    # into the qkv projection), with its logsumexp call at the SQuAD
+    # fit's shape, [8,8,2048,d] causal at 256 and 192 and the LM fit's
+    # K1-lse ([4,16,2048,256] causal); launched by BERT-base serving, the
+    # SQuAD fit and the GPT-J-width LM's fit. K1's older source keeps the
+    # f32 call (the served shape at batch 8) and the masked ones (the NER
+    # trained call, [32,12,128,64], synthetic lengths in [2, 128]); K2
+    # and K3 at the trained call ([48,12,384,64] bf16), masked at the NER
+    # trained call; K5b's backward at the MiniLM trained call
+    # ([48,12,384,32] bf16), masked at its padded call (lengths in [64,
+    # 384])
+    f32_served = served["float32"]
+    sm90_launches = {"serving": runs[0][4], "squad_fit": squad["K1"][4],
+                     "lm_fit": lm["K1"][4]}
     print(json.dumps({"kernels": [{
+        "name": "flash_attn_fwd_sm90", "route": "cuda",
+        "source": SM90_SOURCE, "replaces": K1_REPLACES,
+        "launches": sum(sm90_launches.values()),
+        "launches_by_phase": sm90_launches,
+        **pick_keys(_pick(sm90, "served"), "map_encode_us"),
+        "lse_call": pick_keys(_pick(sm90, "trained_lse"), "lse_max_abs_err"),
+        "d256_call": pick_keys(_pick(sm90, "bf16_d256")),
+        "d192_call": pick_keys(_pick(sm90, "bf16_d192")),
+        "trained_lse_call": pick_keys(_pick(sm90, "gptj_lse"),
+                                      "lse_max_abs_err", "map_encode_us")}, {
         "name": "flash_attn_fwd", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": k1_runs[0],
-        "masked_launches": k1_runs[1], "shape": served["shape"],
-        "max_abs_err": served["max_abs_err"], "ms": served["ms"],
-        "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
-        "bound_by": served["bound_by"],
-        "library_ms": served["library_ms"],
-        "lse_call": lse_call(trained),
+        "replaces": K1_REPLACES,
+        "launches": k1_runs[0] - k1_runs[2],
+        "masked_launches": k1_runs[1], "shape": f32_served["shape"],
+        "max_abs_err": f32_served["max_abs_err"], "ms": f32_served["ms"],
+        "plain_ms": f32_served["plain_ms"],
+        "bound_ms": f32_served["bound_ms"],
+        "bound_by": f32_served["bound_by"],
+        "library_ms": f32_served["library_ms"],
         "kv_mask_call": at(
             ner, "k1", ner["sdpa_ms"], ner["sdpa_device_ms"],
             replaces=K5A_REPLACES,
@@ -2758,19 +2995,15 @@ def main() -> None:
                 minilm["K2"], mini, mini_padded, K5B_REPLACES),
         bwd_row("flash_attn_bwd_dkv_k5b", K3_SOURCE, K5B_REPLACES, "k3",
                 minilm["K3"], mini, mini_padded, K5B_REPLACES), {
-            # K1 at D = 256: the full-width prefill call at Gemma-2B's
+            # K1 f32 at D = 256: the full-width prefill call at Gemma-2B's
             # widths ([1,8,8192,256] f32, causal), launched by the Gemma
-            # phase's prefills
+            # phase's prefills (bf16 there is flash_attn_fwd_sm90's)
             "name": "flash_attn_fwd_wide", "route": "cuda",
             "source": K1_SOURCE, "replaces": K1_REPLACES,
-            "launches": gemma["flash_launches"] + lm["K1"][3],
-            "lm_lse_launches": lm["K1"][3],
+            "launches": gemma["flash_launches"],
             **pick_keys(_pick(wide, "gemma_prefill", "float32")),
             "lse_call": pick_keys(_pick(wide, "gemma_lse", "float32"),
-                                  "lse_max_abs_err"),
-            "bf16_call": pick_keys(_pick(wide, "bf16_d256")),
-            # K1-lse at the LM's trained call, the forward of its fit
-            "trained_lse_call": lse_call(gptj)},
+                                  "lse_max_abs_err")},
         # K2 and K3 at D = 256: the GPT-J-width LM's trained call
         # ([4,16,2048,256] bf16, causal), launched by its fit
         wide_row("flash_attn_bwd_dq_wide", K2_SOURCE, K2_REPLACES, "k2", lm,

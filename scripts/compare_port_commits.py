@@ -18,8 +18,10 @@ NER fine-tune, NER serving (start-up seconds too) and TinyGenLM
 generation at the repo geometry. Each checkout builds its kernels into
 its own ``build/``. Prints one JSON line a run, then the ptxas registers
 and spills of every kernel instantiation both checkouts build that
-differ between them (none: the line says so), and last each metric's
-runs and median per side. Needs one card.
+differ between them (none: the line says so), those only the parent
+builds ("retired") and those only the change builds ("new"), each with
+its registers, and last each metric's runs and median per side. Needs
+one card.
 """
 
 from __future__ import annotations
@@ -126,7 +128,8 @@ def figures(out: str) -> dict:
         for label, _ in BACKWARD:
             if line.startswith(f'{{"{label}_checks"'):
                 rec = json.loads(line)[f"{label}_checks"][0]
-                prefix = "" if label == "backward" else "d256_"
+                # the LM's call: not the d256_ names FWD_CASES take
+                prefix = "" if label == "backward" else "lm_"
                 for k in KERNELS:
                     got[f"{prefix}{k}_device_ms"] = rec[f"{k}_device_ms"]
         if line.startswith('{"fwd_checks"'):
@@ -175,10 +178,14 @@ def main() -> None:
     common = sorted(set(regs["parent"]) & set(regs["change"]))
     moved = {k: {side: regs[side][k] for side in regs} for k in common
              if regs["parent"][k] != regs["change"][k]}
-    print(json.dumps({"ptxas_instantiations_compared": len(common),
-                      "ptxas_differ": moved}), flush=True)
+    print(json.dumps({
+        "ptxas_instantiations_compared": len(common), "ptxas_differ": moved,
+        "ptxas_retired": {k: regs["parent"][k] for k in sorted(
+            set(regs["parent"]) - set(regs["change"]))},
+        "ptxas_new": {k: regs["change"][k] for k in sorted(
+            set(regs["change"]) - set(regs["parent"]))}}), flush=True)
     names = [name for _, _, name in SUMMARIES] + [
-        f"{p}{k}_device_ms" for p in ("", "d256_") for k in KERNELS] + [
+        f"{p}{k}_device_ms" for p in ("", "lm_") for k in KERNELS] + [
         f"{c[0]}_device_ms" for c in FWD_CASES] + [
         name for _, name in SECONDS]
     print(json.dumps({name: {side: {
