@@ -1,7 +1,13 @@
 // Flash-attention backward (K2 dQ, K3 dK/dV; K5b backward at the other
-// head dims) for Hopper, sm_90a: the kernel templates. K2 is instantiated
-// and exported by flash_attn_bwd_dq.cu, K3 by flash_attn_bwd_dkv.cu, so the
-// two translation units build side by side.
+// head dims) for Hopper, sm_90a: the mma.sync and FMA kernel templates. K2
+// is instantiated and exported by flash_attn_bwd_dq.cu, K3 by
+// flash_attn_bwd_dkv.cu, so the two translation units build side by side.
+// They take every call but one kind: bf16 without a key-padding mask at
+// D in {64, 128, 192, 256} runs flash_attn_bwd_sm90.cu (TMA, a producer
+// warpgroup, wgmma), and the entries here return 1004 for it. What is
+// left here: bf16 with a mask at 64 and 128, K5b (bf16 and f32, masked or
+// not, at the other multiples of 8 up to 128), f32 at every head dim, and
+// bf16 at 320 to 512.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
 // (:209-246, launched at :327) and `_flash_dkv_kernel` (:249-292, launched
@@ -26,8 +32,9 @@
 // their share as one vector, E = (1/Lk) * sum of their dO rows, to every
 // key's dV; the q-tile loop gives them P = 0 like any masked pair.
 //
-// Head dims (K5b backward). Besides D in {64, 128} (K2, K3), the same
-// templates take every D <= 128 that is a multiple of 8: the backward of the
+// Head dims (K5b backward). Besides D in {64, 128} (K2, K3: f32, and bf16
+// with a mask), the same templates take every D <= 128 that is a multiple
+// of 8: the backward of the
 // stock-kernel branch of analytics_zoo_tpu/ops/attention.py (:116-127),
 // which on the TPU trains through JAX's stock Pallas flash_attention (its
 // own dQ and dK/dV kernels) at head_dim % 64 != 0 (a MiniLM-sized BERT at
@@ -45,30 +52,14 @@
 // The reference's Pallas kernels take any D % 64 == 0 (its dispatch sends
 // an unmasked call there: analytics_zoo_tpu/ops/attention.py:107-112; a
 // masked one takes its einsum path, so these instantiations are unmasked).
-// The D <= 128 designs below do not stretch that far:
-//   * K2 bf16 at 192 and 256: dQ's accumulator is D/2 registers a thread
-//     (128 at 256) beside S and dP. The same template runs with kv tiles
-//     of kWideKv = 32 rows (S and dP 16 registers each, as K1's wide
-//     kernel does); Q and dO stay in shared memory, their A fragments read
-//     every k-step as at any D, and the 77-102 KB of shared memory are
-//     dynamic.
-//   * K3 bf16 at 192 and 256: dK and dV together are D registers a
-//     thread, which 255 do not hold beside S^T and dP^T. So kWideSplit = 2
-//     warps share each 16-key slab (flash_bwd_dkv_bf16_wide_kernel, 8
-//     warps a block of 64 keys): every warp of a slab computes the slab's
-//     S^T and dP^T over all of D and accumulates dK and dV for its own
-//     half of the dimensions (64 + 64 registers at D = 256), over q tiles
-//     of kWideQ = 32 rows. The price is S^T and dP^T computed twice: 12 * D
-//     flops a visible pair instead of 8 * D. Splitting dK/dV across warps,
-//     not the q loop into two passes (dV, then dK: +25% flops, Q and dO
-//     read twice), keeps one pass over the q tiles.
+// The D <= 128 designs below do not stretch that far (bf16 at 192 and 256
+// is flash_attn_bwd_sm90.cu's):
 //   * bf16 at 320 to 512, K2 and K3 alike: D split across warps, as K1's
 //     flash_fwd_bf16_split_kernel does (flash_bwd_dq_bf16_split_kernel,
-//     flash_bwd_dkv_bf16_split_kernel). The wide K3 does not stretch by
-//     its split count: at D = 512 four warps a slab keep 64 + 64
-//     accumulators, but 16 warps a block of 64 keys leave ptxas 65,536 /
-//     512 = 128 registers a thread, which those 128 accumulators and S^T
-//     and dP^T pass. Here a block owns kSplitRows = 32 rows (K2: queries;
+//     flash_bwd_dkv_bf16_split_kernel). 64 + 64 accumulators a warp of K3
+//     at D = 512 would leave ptxas 65,536 / 512 = 128 registers a thread
+//     for 16 warps a block of 64 keys, which those 128 accumulators and
+//     S^T and dP^T pass. Here a block owns kSplitRows = 32 rows (K2: queries;
 //     K3: keys) as 2 groups of 16, each of kSplit = D / 64 warps (D
 //     threads in all), warp j of a group owning dims [64j, 64j + 64) of dQ
 //     (32 registers), or of dK and dV (64). Each warp computes the partial
@@ -108,11 +99,12 @@
 //     out in mma accumulator layout and are re-packed in registers as the A
 //     fragments of dV += P^T dO and dK += dS^T Q (P never touches memory,
 //     as in K1). dK and dV live in registers.
-//   * bf16: 4 warps, 16 rows each, mma.sync.m16n8k16 (bf16 in, f32
-//     accumulate). Every operand tile sits in shared memory (rows padded by
-//     16 bytes) and fragments are read per 16-wide slice of D, so at most one
-//     A fragment is live at a time: K3 at D = 128 holds its two 16x128 f32
-//     accumulators (128 registers a thread) plus S and dP (64). Where a
+//   * bf16 (masked at 64 and 128, K5b): 4 warps, 16 rows each,
+//     mma.sync.m16n8k16 (bf16 in, f32 accumulate). Every operand tile sits
+//     in shared memory (rows padded by 16 bytes) and fragments are read per
+//     16-wide slice of D, so at most one A fragment is live at a time: K3
+//     at D = 128 holds its two 16x128 f32 accumulators (128 registers a
+//     thread) plus S and dP (64). Where a
 //     product contracts down the rows of a tile (dS K, P^T dO, dS^T Q) the B
 //     fragment is gathered from two rows. 4 tiles of 64 x (D + 8) bf16 exceed
 //     48 KB at D = 128, so the shared memory is dynamic.
@@ -139,7 +131,9 @@
 // pipelining), mma.sync rather than wgmma, scalar gathers for the
 // row-contracted B fragments (ldmatrix.trans would do it in one instruction),
 // and each K/V tile (K2) or Q/dO tile (K3) is re-read from L2 by every block
-// of its (b, h). wgmma, TMA and a producer warp are later work. At small D
+// of its (b, h). flash_attn_bwd_sm90.cu does the unmasked bf16 calls at
+// 64-256 with TMA, a producer warpgroup and wgmma; the rest here are later
+// work. At small D
 // (32 for MiniLM) a pair carries the same exp, mask and rounding work for
 // 4x fewer flops than at 64, so the kernels sit further from their byte
 // bound there.
@@ -165,9 +159,7 @@ constexpr int kThreads = 128;    // 4 warps
 constexpr int kPad = 8;          // bf16 elements of smem row padding
 constexpr int kFmaRows = 16;     // rows a block owns on the f32 path
 constexpr int kFmaTile = 32;     // rows per staged tile on the f32 path
-constexpr int kWideKv = 32;      // K2 bf16 above D = 128: kv rows a tile
-constexpr int kWideQ = 32;       // K3 bf16 above D = 128: q rows a tile
-constexpr int kWideSplit = 2;    // K3 bf16 above D = 128: warps a key slab
+constexpr int kWideKv = 32;      // K2 bf16 above D = 256: kv rows a tile
 constexpr int kWideFmaTile = 16; // f32 above D = 128: rows a staged tile
 constexpr int kWiderFmaTile = 8; // f32 above D = 256: rows a staged tile
 constexpr int kWiderTpr = 16;    // f32 above D = 256: threads a row
@@ -310,20 +302,12 @@ __device__ __forceinline__ void stage(uint16_t* t, const uint16_t* src,
   }
 }
 
-// K2 (and K3 up to D = 128): Q, dO, K, V tiles (K and V of KV rows), lse
-// and delta of 64 rows, and the kv tile's mask bytes (K2)
-template <int D, int KV = kTile>
-constexpr size_t bf16_smem_bytes() {
-  return (2 * kTile + 2 * KV) * (D + kPad) * sizeof(uint16_t)
-         + 2 * kTile * sizeof(float) + KV;
-}
-
-// K3 above D = 128: K and V of 64 keys, Q and dO of kWideQ rows, their lse
-// and delta
+// K2 and K3 up to D = 128: Q, dO, K, V tiles, lse and delta of 64 rows,
+// and the kv tile's mask bytes (K2)
 template <int D>
-constexpr size_t bf16_wide_dkv_smem_bytes() {
-  return (2 * kTile + 2 * kWideQ) * (D + kPad) * sizeof(uint16_t)
-         + 2 * kWideQ * sizeof(float);
+constexpr size_t bf16_smem_bytes() {
+  return 4 * kTile * (D + kPad) * sizeof(uint16_t)
+         + 2 * kTile * sizeof(float) + kTile;
 }
 
 // Above D = 256, a split block's partial products: two of [D / 32 warps]
@@ -352,14 +336,11 @@ constexpr size_t bf16_split_dkv_smem_bytes() {
 }
 
 // ------------------------------------------------------------ K2, bf16 --
-// KV: kv rows a staged tile (kTile; kWideKv above D = 128, unmasked)
-template <int D, bool kMask, int KV = kTile>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16_kernel(const Params p) {
-  static_assert(D % 8 == 0 && (D <= 128 || (D % 64 == 0 && D <= 256
-                                            && !kMask && KV == kWideKv)),
-                "head_dim: a multiple of 8 up to 128, or 192 or 256 "
-                "unmasked with kWideKv-row kv tiles");
+  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
+  constexpr int KV = kTile;              // kv rows a staged tile
   constexpr int kSteps = (D + 15) / 16;  // k-steps of the products over D
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char zoo_smem[];
@@ -683,169 +664,6 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
         pack_bf16(acc_v[n][0] + e0, acc_v[n][1] + e1);
     *reinterpret_cast<uint32_t*>(dv + kb * p.dv_sl + col) =
         pack_bf16(acc_v[n][2] + e0, acc_v[n][3] + e1);
-  }
-}
-
-// ------------------------------------------------- K3, bf16, D > 128 --
-// K3 at D in {192, 256}, unmasked. One block owns 64 keys as four 16-key
-// slabs; kSplit warps share a slab (warp w: slab w % 4, dimensions
-// [part * D / kSplit, (part + 1) * D / kSplit) for part = w / 4). Every
-// warp of a slab computes the slab's S^T = K Q^T and dP^T = V dO^T over all
-// of D for a q tile of kWideQ rows, rebuilds P^T and dS^T in registers as
-// the D <= 128 kernel does, and accumulates dV += P^T dO and dK += dS^T Q
-// for its own dimensions only. Shared memory (dynamic): K and V [64][D+8],
-// Q and dO [kWideQ][D+8] bf16 -- 77,056 bytes at D = 192, 101,632 at 256.
-template <int D, int kSplit>
-__global__ void __launch_bounds__(kThreads * kSplit)
-flash_bwd_dkv_bf16_wide_kernel(const Params p) {
-  constexpr int kNT = kThreads * kSplit;  // 4 slabs x kSplit warps
-  constexpr int DW = D / kSplit;          // dK/dV dimensions a warp owns
-  static_assert(D % 64 == 0 && D > 128 && DW % 8 == 0 && DW <= 128,
-                "head_dim: a multiple of 64 above 128, split into at most "
-                "128 dimensions a warp");
-  constexpr int LD = D + kPad;
-  constexpr int QT = kWideQ;
-  extern __shared__ __align__(16) unsigned char zoo_smem[];
-  uint16_t* sK = reinterpret_cast<uint16_t*>(zoo_smem);
-  uint16_t* sV = sK + kTile * LD;
-  uint16_t* sQ = sV + kTile * LD;
-  uint16_t* sDO = sQ + QT * LD;
-  float* sLse = reinterpret_cast<float*>(sDO + QT * LD);  // log2 domain
-  float* sDelta = sLse + QT;
-
-  const int kt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.h;
-  const int hh = bh - b * p.h;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int k0 = kt * kTile;
-  const int offset = p.lk - p.lq;
-  const int row0 = (warp & 3) * 16;    // this warp's slab in the tile
-  const int c0 = (warp >> 2) * DW;     // its first dK/dV dimension
-
-  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + hh * p.q_sh;
-  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + hh * p.k_sh;
-  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + hh * p.v_sh;
-  const uint16_t* dout =
-      static_cast<const uint16_t*>(p.dout) + b * p.do_sb + hh * p.do_sh;
-  uint16_t* dk = static_cast<uint16_t*>(p.dk) + b * p.dk_sb + hh * p.dk_sh;
-  uint16_t* dv = static_cast<uint16_t*>(p.dv) + b * p.dv_sb + hh * p.dv_sh;
-  const float* lse = p.lse + static_cast<long long>(bh) * p.lq;
-  const float* delta = p.delta + static_cast<long long>(bh) * p.lq;
-
-  stage<D, LD, kNT>(sK, k + k0 * p.k_sl, p.k_sl, kTile, tid);
-  stage<D, LD, kNT>(sV, v + k0 * p.v_sl, p.v_sl, kTile, tid);
-
-  const int ka = k0 + row0 + g;        // the two keys a thread holds
-  const int kb = ka + 8;
-
-  float acc_k[DW / 8][4], acc_v[DW / 8][4];
-#pragma unroll
-  for (int n = 0; n < DW / 8; ++n) {
-    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
-    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
-  }
-
-  // the first q tile whose last row sees this block's first key
-  int first = 0;
-  if (p.causal) {
-    const int x = k0 - offset - (QT - 1);
-    first = x > 0 ? (x + QT - 1) / QT : 0;
-  }
-  const int n_tiles = p.lq / QT;
-
-  for (int qt = first; qt < n_tiles; ++qt) {
-    const int q0 = qt * QT;
-    __syncthreads();  // every warp is done with the previous tile
-    stage<D, LD, kNT>(sQ, q + static_cast<long long>(q0) * p.q_sl, p.q_sl, QT,
-                      tid);
-    stage<D, LD, kNT>(sDO, dout + static_cast<long long>(q0) * p.do_sl,
-                      p.do_sl, QT, tid);
-    if (tid < QT) {
-      sLse[tid] = lse[q0 + tid] * kLog2e;
-      sDelta[tid] = delta[q0 + tid];
-    }
-    __syncthreads();
-
-    // a warp whose first key lies after every row's view has nothing to add
-    if (p.causal && k0 + row0 > q0 + QT - 1 + offset) continue;
-
-    // S^T = K Q^T and dP^T = V dO^T for 16 keys x QT queries, over all of D
-    float s[QT / 8][4], dp[QT / 8][4];
-#pragma unroll
-    for (int n = 0; n < QT / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      uint32_t ka_f[4], va_f[4];
-      load_a<LD, D>(ka_f, sK + row0 * LD, g, t4, c);
-      load_a<LD, D>(va_f, sV + row0 * LD, g, t4, c);
-#pragma unroll
-      for (int n = 0; n < QT / 8; ++n) {
-        const int at = (n * 8 + g) * LD + c * 16 + t4 * 2;
-        uint32_t b0, b1;
-        load_b_cols<D>(b0, b1, sQ + at, c);
-        mma_16816(s[n], ka_f, b0, b1);
-        load_b_cols<D>(b0, b1, sDO + at, c);
-        mma_16816(dp[n], va_f, b0, b1);
-      }
-    }
-
-    // P^T and dS^T; the columns are queries
-#pragma unroll
-    for (int n = 0; n < QT / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = n * 8 + t4 * 2 + (e & 1);
-        float pr = exp2f(s[n][e] * p.scale_log2 - sLse[qc]);
-        if (p.causal && (e < 2 ? ka : kb) > q0 + qc + offset) pr = 0.f;
-        s[n][e] = pr;
-        dp[n][e] = pr * (dp[n][e] - sDelta[qc]) * p.scale;
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q over this warp's dimensions, 16
-    // queries at a time
-#pragma unroll
-    for (int j = 0; j < QT / 16; ++j) {
-      uint32_t pa[4], da[4];
-      pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      da[0] = pack_bf16(dp[2 * j][0], dp[2 * j][1]);
-      da[1] = pack_bf16(dp[2 * j][2], dp[2 * j][3]);
-      da[2] = pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]);
-      da[3] = pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3]);
-      const int qr = j * 16 + t4 * 2;
-#pragma unroll
-      for (int n = 0; n < DW / 8; ++n) {
-        uint32_t b0, b1;
-        load_b_rows<LD>(b0, b1, sDO, qr, c0 + n * 8 + g);
-        mma_16816(acc_v[n], pa, b0, b1);
-        load_b_rows<LD>(b0, b1, sQ, qr, c0 + n * 8 + g);
-        mma_16816(acc_k[n], da, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < DW / 8; ++n) {
-    const int col = c0 + n * 8 + t4 * 2;
-    *reinterpret_cast<uint32_t*>(dk + ka * p.dk_sl + col) =
-        pack_bf16(acc_k[n][0], acc_k[n][1]);
-    *reinterpret_cast<uint32_t*>(dk + kb * p.dk_sl + col) =
-        pack_bf16(acc_k[n][2], acc_k[n][3]);
-    *reinterpret_cast<uint32_t*>(dv + ka * p.dv_sl + col) =
-        pack_bf16(acc_v[n][0], acc_v[n][1]);
-    *reinterpret_cast<uint32_t*>(dv + kb * p.dv_sl + col) =
-        pack_bf16(acc_v[n][2], acc_v[n][3]);
   }
 }
 
@@ -1534,7 +1352,8 @@ int check(int dtype, int lq, int lk, int batch, int heads, int causal) {
 
 // fn(std::integral_constant<int, D>) for head dim d: K2/K3 at 64 and 128,
 // K5b backward at the other multiples of 8 up to 128, K2/K3 at 192, 256,
-// 320, 384, 448 and 512 (unmasked: fn returns 1006 for a mask there); 1004
+// 320, 384, 448 and 512 (unmasked: fn returns 1006 for a mask there; and
+// 1004 for bf16 without a mask at 64-256, flash_attn_bwd_sm90.cu's); 1004
 // for any other d
 template <typename Fn>
 int with_head_dim(int d, Fn&& fn) {

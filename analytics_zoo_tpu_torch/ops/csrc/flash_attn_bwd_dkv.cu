@@ -1,8 +1,10 @@
 // K3 (flash-attention dK and dV) for Hopper, sm_90a: the exported entry
 // point and its instantiations, every multiple of 8 up to 128 (K5b backward
-// at all but 64 and 128), bf16 and f32, with and without a key-padding mask,
-// and 192, 256, 320, 384, 448 and 512, bf16 and f32, without one. The
-// kernel templates and design notes are in flash_attn_bwd.cuh.
+// at all but 64 and 128), bf16 and f32, with and without a key-padding mask
+// (bf16 at 64 and 128 with one only), f32 at 192 and 256, and 320, 384,
+// 448 and 512, bf16 and f32, without one. bf16 without a mask at 64, 128,
+// 192 and 256 is flash_attn_bwd_sm90.cu's (1004 here). The kernel
+// templates and design notes are in flash_attn_bwd.cuh.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dkv_kernel`
 // (:249-292, launched at :345), and the stock Pallas kernel's dK/dV where
@@ -60,23 +62,25 @@ extern "C" int zoo_flash_attn_bwd_dkv(
                     dim3(lk / kFmaRows, batch * heads), 0, p, s,
                     kFmaRows * kWiderTpr);
     } else if constexpr (D > 128) {
-      // 192 and 256: dK/dV split across kWideSplit warps a key slab (bf16),
-      // 16-row q tiles (f32), unmasked
+      // 192 and 256: 16-row q tiles (f32), unmasked; bf16 is
+      // flash_attn_bwd_sm90.cu's
       if (masked) return 1006;
-      if (dtype == 1) {
-        constexpr size_t smem = bf16_wide_dkv_smem_bytes<D>();
-        return launch(flash_bwd_dkv_bf16_wide_kernel<D, kWideSplit>,
-                      dim3(lk / kTile, batch * heads), smem, p, s,
-                      kThreads * kWideSplit);
-      }
+      if (dtype == 1) return 1004;
       return launch(flash_bwd_dkv_f32_kernel<D, false, kWideFmaTile>,
                     dim3(lk / kFmaRows, batch * heads), 0, p, s);
     } else {
       if (dtype == 1) {
         const dim3 grid(lk / kTile, batch * heads);
         constexpr size_t smem = bf16_smem_bytes<D>();
-        return masked ? launch(flash_bwd_dkv_bf16_kernel<D, true>, grid, smem, p, s)
-                      : launch(flash_bwd_dkv_bf16_kernel<D, false>, grid, smem, p, s);
+        if constexpr (D % 64 == 0) {
+          // 64 and 128 without a mask: flash_attn_bwd_sm90.cu's
+          if (!masked) return 1004;
+          return launch(flash_bwd_dkv_bf16_kernel<D, true>, grid, smem, p, s);
+        } else {
+          return masked
+              ? launch(flash_bwd_dkv_bf16_kernel<D, true>, grid, smem, p, s)
+              : launch(flash_bwd_dkv_bf16_kernel<D, false>, grid, smem, p, s);
+        }
       }
       const dim3 grid(lk / kFmaRows, batch * heads);
       return masked ? launch(flash_bwd_dkv_f32_kernel<D, true>, grid, 0, p, s)

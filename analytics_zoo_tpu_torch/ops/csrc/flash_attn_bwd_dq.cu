@@ -1,8 +1,10 @@
 // K2 (flash-attention dQ and delta) for Hopper, sm_90a: the exported entry
 // point and its instantiations, every multiple of 8 up to 128 (K5b backward
-// at all but 64 and 128), bf16 and f32, with and without a key-padding mask,
-// and 192, 256, 320, 384, 448 and 512, bf16 and f32, without one.
-// The kernel templates and design notes are in flash_attn_bwd.cuh.
+// at all but 64 and 128), bf16 and f32, with and without a key-padding mask
+// (bf16 at 64 and 128 with one only), f32 at 192 and 256, and 320, 384,
+// 448 and 512, bf16 and f32, without one. bf16 without a mask at 64, 128,
+// 192 and 256 is flash_attn_bwd_sm90.cu's (1004 here). The kernel
+// templates and design notes are in flash_attn_bwd.cuh.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
 // (:209-246, launched at :327), and the stock Pallas kernel's dQ where
@@ -63,21 +65,25 @@ extern "C" int zoo_flash_attn_bwd_dq(
                     dim3(lq / kFmaRows, batch * heads), 0, p, s,
                     kFmaRows * kWiderTpr);
     } else if constexpr (D > 128) {
-      // 192 and 256: 32-row kv tiles (bf16), 16-row tiles (f32), unmasked
+      // 192 and 256: 16-row tiles (f32), unmasked; bf16 is
+      // flash_attn_bwd_sm90.cu's
       if (masked) return 1006;
-      if (dtype == 1) {
-        constexpr size_t smem = bf16_smem_bytes<D, kWideKv>();
-        return launch(flash_bwd_dq_bf16_kernel<D, false, kWideKv>,
-                      dim3(lq / kTile, batch * heads), smem, p, s);
-      }
+      if (dtype == 1) return 1004;
       return launch(flash_bwd_dq_f32_kernel<D, false, kWideFmaTile>,
                     dim3(lq / kFmaRows, batch * heads), 0, p, s);
     } else {
       if (dtype == 1) {
         const dim3 grid(lq / kTile, batch * heads);
         constexpr size_t smem = bf16_smem_bytes<D>();
-        return masked ? launch(flash_bwd_dq_bf16_kernel<D, true>, grid, smem, p, s)
-                      : launch(flash_bwd_dq_bf16_kernel<D, false>, grid, smem, p, s);
+        if constexpr (D % 64 == 0) {
+          // 64 and 128 without a mask: flash_attn_bwd_sm90.cu's
+          if (!masked) return 1004;
+          return launch(flash_bwd_dq_bf16_kernel<D, true>, grid, smem, p, s);
+        } else {
+          return masked
+              ? launch(flash_bwd_dq_bf16_kernel<D, true>, grid, smem, p, s)
+              : launch(flash_bwd_dq_bf16_kernel<D, false>, grid, smem, p, s);
+        }
       }
       const dim3 grid(lq / kFmaRows, batch * heads);
       return masked ? launch(flash_bwd_dq_f32_kernel<D, true>, grid, 0, p, s)

@@ -9,10 +9,12 @@ bottom-right (offset ``lk - lq``), optional per-row logsumexp, and the
 backward that rebuilds the probabilities from that logsumexp. The
 kernels live in ``csrc/flash_attn_fwd_sm90.cu`` (K1's bf16 forward
 without a mask at D in ``SM90_HEAD_DIMS``: TMA, a producer warpgroup,
-wgmma; ``_fwd_entry`` picks it), ``csrc/flash_attn_fwd.cu`` (every
+wgmma; ``_fwd_entry`` picks it), ``csrc/flash_attn_bwd_sm90.cu`` (K2 and
+K3 for the same calls, the same design; ``_bwd_entry`` picks them; both
+share ``csrc/flash_attn_sm90.cuh``), ``csrc/flash_attn_fwd.cu`` (every
 other forward) and ``csrc/flash_attn_bwd.cuh`` (design notes there),
-whose K2 and K3 are built by ``csrc/flash_attn_bwd_dq.cu`` and
-``csrc/flash_attn_bwd_dkv.cu``;
+whose K2 and K3 for every other call are built by
+``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu``;
 each source is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` at the repository root (a per-user cache for an installed
 package), side by side, and loaded through ``ctypes``.
@@ -44,9 +46,8 @@ those given a key-padding mask in ``<wrapper>.masked_launches``,
 those at a head dim up to 128 that is not a multiple of 64 (K5b) in
 ``<wrapper>.small_d_launches``, and those above 128 in
 ``<wrapper>.wide_d_launches`` (the head dim tells which design ran:
-192 and 256, or D split across warps at 320 to 512);
-``flash_attention.sm90_launches`` counts the forward's launches of the
-Hopper kernel.
+192 and 256, or D split across warps at 320 to 512); each wrapper's
+``sm90_launches`` counts its launches of the Hopper kernels.
 
 K5b is the counterpart of the reference's stock-kernel branch at such
 head dims (``analytics_zoo_tpu/ops/attention.py:116``: JAX's stock Pallas
@@ -108,7 +109,7 @@ torch.exp(torch.zeros(1 << 17))
 # multiple of 8 up to 128, and the multiples of 64 from 192 to 512
 # (without a mask)
 HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448, 512)
-# head dims of the Hopper forward kernel (bf16, no mask; _fwd_entry)
+# head dims of the Hopper kernels (bf16, no mask; _fwd_entry, _bwd_entry)
 SM90_HEAD_DIMS = (64, 128, 192, 256)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -133,6 +134,13 @@ _ENTRY_POINTS = {
                               [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
     "zoo_flash_attn_bwd_dkv": ("flash_attn_bwd_dkv",
                                [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
+    # the same arguments without the mask's two
+    "zoo_flash_attn_bwd_dq_sm90": ("flash_attn_bwd_sm90",
+                                   [_P] * 8 + [_I] * 6 + [_L] * 18
+                                   + _TAIL[2:]),
+    "zoo_flash_attn_bwd_dkv_sm90": ("flash_attn_bwd_sm90",
+                                    [_P] * 8 + [_I] * 6 + [_L] * 18
+                                    + _TAIL[2:]),
 }
 
 _lib: Optional[Dict[str, ctypes.CDLL]] = None
@@ -498,6 +506,17 @@ def _fwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> str:
     return "zoo_flash_attn_fwd"
 
 
+def _bwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> Tuple[str, str]:
+    """The backward entry points a call takes, K2's and K3's: the Hopper
+    kernels of ``flash_attn_bwd_sm90.cu`` (TMA, a producer warpgroup,
+    wgmma) for bf16 without a mask at ``SM90_HEAD_DIMS``;
+    ``flash_attn_bwd_dq.cu`` and ``flash_attn_bwd_dkv.cu`` for every other
+    call (f32, a mask, K5b, D above 256)."""
+    if dtype == torch.bfloat16 and not masked and dp in SM90_HEAD_DIMS:
+        return "zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90"
+    return "zoo_flash_attn_bwd_dq", "zoo_flash_attn_bwd_dkv"
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, scale: Optional[float], with_lse: bool,
             key_padding_mask: Optional[torch.Tensor] = None):
@@ -545,8 +564,9 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, o, lse, do, causal,
                                                 scale, key_padding_mask)
-    fn = _entry("zoo_flash_attn_bwd_dq")
     d, scale, dp, (q, k, v, o, do) = _padded(scale, q, k, v, o, do)
+    name = _bwd_entry(q.dtype, dp, key_padding_mask is not None)[0]
+    fn = _entry(name)
     _check_inputs(q, k, v, causal, key_padding_mask, backward=True,
                   o=o, do=do, lse=lse)
     mask = _kernel_mask(key_padding_mask)
@@ -554,15 +574,19 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     lk = k.shape[2]
     dq = _empty_bhld(b, h, lq, dp, q)
     delta = torch.empty(b * h, lq, dtype=torch.float32, device=q.device)
+    sm90 = name == "zoo_flash_attn_bwd_dq_sm90"
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             _DTYPE_CODE[q.dtype], b, h, lq, lk, dp,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
-            *_mask_args(mask), scale, int(causal), _stream(q))
+            *(() if sm90 else _mask_args(mask)), scale, int(causal),
+            _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash dq kernel launch failed: code {rc}")
+        raise RuntimeError(f"flash dq kernel launch failed ({name}): "
+                           f"code {rc}")
     _count(flash_attention_bwd_dq, mask, dp)
+    flash_attention_bwd_dq.sm90_launches += sm90
     return _cut(d, dq)[0], delta
 
 
@@ -579,8 +603,9 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_bwd_dkv_reference(q, k, v, lse, delta, do,
                                                  causal, scale,
                                                  key_padding_mask)
-    fn = _entry("zoo_flash_attn_bwd_dkv")
     d, scale, dp, (q, k, v, do) = _padded(scale, q, k, v, do)
+    name = _bwd_entry(q.dtype, dp, key_padding_mask is not None)[1]
+    fn = _entry(name)
     _check_inputs(q, k, v, causal, key_padding_mask, backward=True,
                   do=do, lse=lse, delta=delta)
     mask = _kernel_mask(key_padding_mask)
@@ -588,15 +613,19 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     lk = k.shape[2]
     dk = _empty_bhld(b, h, lk, dp, k)
     dv = _empty_bhld(b, h, lk, dp, v)
+    sm90 = name == "zoo_flash_attn_bwd_dkv_sm90"
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPE_CODE[q.dtype], b, h, lq, lk, dp,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-            *_mask_args(mask), scale, int(causal), _stream(q))
+            *(() if sm90 else _mask_args(mask)), scale, int(causal),
+            _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash dkv kernel launch failed: code {rc}")
+        raise RuntimeError(f"flash dkv kernel launch failed ({name}): "
+                           f"code {rc}")
     _count(flash_attention_bwd_dkv, mask, dp)
+    flash_attention_bwd_dkv.sm90_launches += sm90
     return _cut(d, dk, dv)
 
 
@@ -678,14 +707,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # kernel launches of each wrapper, those of them given a mask, those at a
 # head dim up to 128 that is not a multiple of 64 (K5b, forward and
-# backward) and those above 128 (192 to 512, forward and backward)
+# backward), those above 128 (192 to 512, forward and backward) and those
+# of the Hopper kernels (flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu)
 for _wrapper in (flash_attention, flash_attention_bwd_dq,
                  flash_attention_bwd_dkv):
     _wrapper.launches = 0
     _wrapper.masked_launches = 0
     _wrapper.small_d_launches = 0
     _wrapper.wide_d_launches = 0
+    _wrapper.sm90_launches = 0
 del _wrapper
-# forward launches of the Hopper kernel (flash_attn_fwd_sm90.cu), among
-# flash_attention.launches
-flash_attention.sm90_launches = 0

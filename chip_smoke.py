@@ -9,7 +9,8 @@
 Phases:
 1. Build: compiles the port's CUDA sources (one nvcc per source, side by
    side) for sm_90a into build/ and prints the card, the versions, the
-   build time and ptxas' registers and spills per kernel.
+   build time, ptxas' registers and spills per kernel and the kernels
+   whose wgmmas ptxas serialized.
 2. Forward kernel: runs K1 (flash-attention forward) through its wrapper
    against its plain PyTorch version on the card -- [8,12,512,64] in
    bf16 and f32, causal and not, the served call itself (q/k/v as
@@ -22,7 +23,8 @@ Phases:
 3. Backward kernels: runs K1 without and with logsumexp (out and lse),
    then K2 (dQ and delta) and K3 (dK/dV) on the kernel's checked out and
    lse, each through its wrapper against its plain version on the card
-   -- the trained call ([48,12,384,64] q/k/v as views into a
+   (bf16 runs the Hopper kernels of phases 22 and 23) -- the trained
+   call ([48,12,384,64] q/k/v as views into a
    [48,384,3,12,64] projection, random dO) in bf16 and f32, causal
    [8,12,512,64] bf16, cross-length causal [1,2,128->384,128] in bf16
    and f32 -- and times each kernel (CUDA events, and profiler device
@@ -56,7 +58,7 @@ Phases:
    Estimator.fit for 2 epochs of 16 steps (the first warms up, the second
    is timed) with zoo.ops.attention_impl = "flash"; checks finite losses
    and that K1, K2 and K3 each launched at least 12 times per step (every
-   K1-lse on the Hopper kernel); runs
+   K1-lse, K2 and K3 launch on the Hopper kernels: 384 each); runs
    evaluate and predict on the same Estimator; and, before the fit, holds
    one step's gradients (hidden dropout off) with flash attention against
    the same step with einsum attention, in f32 and in bf16; it repeats
@@ -162,7 +164,8 @@ Phases:
    launch counted in wide_d_launches), then the GPT-J-width LM's trained
    call ([4,16,2048,256] bf16 causal, views into the qkv projection), its
    f32 gradient check's call ([1,16,2048,256]) and [4,16,2048,192] bf16,
-   each timed beside its plain version, SDPA and its bound.
+   the f32 one timed beside its plain version, SDPA and its bound (bf16
+   there runs the Hopper kernels, which phase 23 times).
 17. GPT-J-width LM: TransformerModule at EleutherAI/gpt-j-6b's published
    widths (hidden 4096, 16 heads of 256, intermediate 16384, vocab 50400,
    2048 positions, LayerNorm epsilon 1e-5, no dropout; 8 of its 28
@@ -175,8 +178,8 @@ Phases:
    must reject dQ zeroed and dK and dV swapped) and bf16. K1-lse, K2 and
    K3 must each launch exactly 8 times a step (once a layer), every launch
    a wide one
-   (D = 256), every K1-lse on the Hopper kernel, and the last logged loss
-   must be below the first. Prints
+   (D = 256), every K1-lse, K2 and K3 launch on the Hopper kernels (128
+   each), and the last logged loss must be below the first. Prints
    steps/s, tokens/s, MFU (bench.py's formula), peak memory and the
    logged losses.
 18. K1 wider kernels: K1 at head dims 320, 384, 448 and 512 (the
@@ -238,6 +241,19 @@ Phases:
    (views), each timed (events and device time) beside its plain
    version, SDPA and its bound, and the host time of encoding a call's
    three tensor maps.
+23. K2/K3 sm90: K2 and K3's Hopper kernels (flash_attn_bwd_sm90.cu: TMA,
+   a producer warpgroup, wgmma; K3 at D = 64, 192 and 256 splits its
+   products between its two consumers) through backward_phase, with K1
+   and K1-lse beside them: every instantiation once (D = 64, 128, 192,
+   256, causal and not, q/k/v views into a fused projection, lq 192 (an
+   odd number of 64-row tiles), lq < lk causal, lk past the last whole
+   128-key block; 28 cases, one summary line, each case counting K1
+   twice and K2 and K3 once in sm90_launches), then the SQuAD fit's call
+   [48,12,384,64] (views), [8,8,2048,128] and [4,16,2048,192] causal and
+   the LM fit's [4,16,2048,256] causal (views), each timed (events and
+   device time) beside its plain version, SDPA's backward and its bound.
+   The masked NER fit's K2 and K3 stay on the older sources (phase 7
+   says so).
 
 The three full-width generation phases (13, 15, 19) draw their seeded
 weights on the card (device_draws): every check there holds the port to
@@ -246,17 +262,20 @@ its own plain paths on the same weights.
 Prints each phase's seconds, a {"kernels": [...]} line
 (flash_attn_fwd_sm90 at the served call with an lse_call at the SQuAD
 fit's, a d256_call, a d192_call and a trained_lse_call at the LM fit's,
-its launches those of phases 5, 6 and 17; K1's older source at the f32
-served call; K1, K2 and K3
-each with a kv_mask_call at the NER trained call; K5b's forward at the
+its launches those of phases 5, 6 and 17; flash_attn_bwd_dq_sm90 and
+flash_attn_bwd_dkv_sm90 at the SQuAD fit's call with a d128_call, a
+d192_call and an lm_call at the LM fit's, their launches those of phases
+6 and 17; K1's older source at the f32 served call; K2 and K3's older
+sources at the f32 trained call, their launches the NER fit's; K1, K2
+and K3 each with a kv_mask_call at the NER trained call; K5b's forward at the
 full-width prefill call with an lse_call at the MiniLM trained call, a
 kv_mask_call at the masked D = 32 call and a padded_call at D = 20;
 flash_attn_bwd_dq_k5b and flash_attn_bwd_dkv_k5b at the MiniLM trained
 call with a kv_mask_call at its padded call, their launches the MiniLM
 fit's; flash_attn_fwd_wide at the Gemma-width prefill call (f32) with an
 lse_call, its launches the Gemma phase's; flash_attn_bwd_dq_wide and
-flash_attn_bwd_dkv_wide at the LM's trained call with an f32_call and a
-d192_call, their launches the LM fit's; flash_attn_fwd_wider at the
+flash_attn_bwd_dkv_wide at the LM's f32 gradient check's call, with no
+launch in a fit (the LM fit's are the Hopper kernels'); flash_attn_fwd_wider at the
 DeepSeek-width prefill call with a bf16_call, an lse_call, a d384_call
 and a trained_lse_call at the 512-head LM's call, its launches the
 DeepSeek phase's and the 512-head LM fit's; flash_attn_bwd_dq_wider and
@@ -290,8 +309,10 @@ K1_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd.cu"
 K5A_REPLACES = "analytics_zoo_tpu/ops/attention.py:116"
 K5B_REPLACES = "analytics_zoo_tpu/ops/attention.py:116"
 K1_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:82"
-# K1's bf16 forward without a mask at D in {64, 128, 192, 256} on Hopper
+# K1's bf16 forward without a mask at D in {64, 128, 192, 256} on Hopper,
+# and K2's and K3's for the same calls
 SM90_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu"
+SM90_BWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_sm90.cu"
 # K2 and K3 (and K5b's backward): templates in flash_attn_bwd.cuh, built
 # and exported by one source each
 K2_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_dq.cu"
@@ -625,7 +646,7 @@ def _right_100(rng, b, lk):
 # is laid out as the attention output ([B, L, H, D] memory)
 VIEW_CASES = ("trained", "ner_trained", "squad_padded", "minilm_trained",
               "minilm_padded", "gptj_trained", "gptj_f32", "lm512_trained",
-              "lm512_f32")
+              "lm512_f32", "sm90_views")
 # name, (b, h, lq, lk, d), dtype, causal, mask (a function of the rng,
 # b and lk; None: no mask), timed. "trained" is the call one BERT-base
 # SQuAD train step makes per layer
@@ -1167,13 +1188,15 @@ WIDE_BWD_SWEEP = [
     for d in (192, 256) for dt in ("bfloat16", "float32")
     for shape in ((2, 2, 128, 128), (1, 3, 128, 384))
     for causal in (False, True)]
-# the calls timed: the one a train step of the GPT-J-width LM makes per
+# the calls checked: the one a train step of the GPT-J-width LM makes per
 # layer (4 x 2048 tokens, 16 heads of 256, causal, views into the qkv
-# projection), its f32 gradient check's (batch 1), and bf16 at D = 192
+# projection), its f32 gradient check's (batch 1), and bf16 at D = 192;
+# the f32 call timed (the bf16 ones run the Hopper kernels, which
+# sm90_bwd_phase times)
 WIDE_BWD_CASES = [
-    ("gptj_trained", (4, 16, 2048, 2048, 256), "bfloat16", True, None, True),
+    ("gptj_trained", (4, 16, 2048, 2048, 256), "bfloat16", True, None, False),
     ("gptj_f32", (1, 16, 2048, 2048, 256), "float32", True, None, True),
-    ("bf16_d192", (4, 16, 2048, 2048, 192), "bfloat16", True, None, True),
+    ("bf16_d192", (4, 16, 2048, 2048, 192), "bfloat16", True, None, False),
 ]
 
 
@@ -1351,6 +1374,53 @@ def sm90_phase(torch, peaks):
     return checks
 
 
+# K2 and K3's Hopper kernels (flash_attn_bwd_sm90.cu), with K1 and K1-lse
+# beside them: every instantiation once (D 64/128/192/256, causal and not,
+# q/k/v views into a fused projection at lq == lk), then an odd number of
+# 64-row q tiles (lq 192: K2's last 128-row block half empty), lq < lk
+# causal (the bottom-right diagonal; K3's first q tile mid-diagonal), and
+# lk past the last whole 128-key block (K3's second consumer without keys
+# at D = 128)
+SM90_BWD_SWEEP = [
+    (name, shape + (d,), "bfloat16", causal, None, False)
+    for d in (64, 128, 192, 256) for name, shape, causal in (
+        [("sm90_views", (2, 3, 256, 256), c) for c in (False, True)]
+        + [("sm90_views", (1, 2, 192, 192), True),
+           ("odd_tiles", (1, 2, 192, 192), False),
+           ("cross", (1, 2, 128, 384), True),
+           ("past_tile", (1, 2, 64, 320), False),
+           ("past_tile", (1, 2, 192, 320), True)])]
+# the calls timed: the BERT-base SQuAD fit's (views), [8,8,2048,128]
+# causal, [4,16,2048,192] causal and the GPT-J-width LM fit's (views)
+SM90_BWD_CASES = [
+    ("trained", (48, 12, 384, 384, 64), "bfloat16", False, None, True),
+    ("bf16_d128", (8, 8, 2048, 2048, 128), "bfloat16", True, None, True),
+    ("bf16_d192", (4, 16, 2048, 2048, 192), "bfloat16", True, None, True),
+    ("gptj_trained", (4, 16, 2048, 2048, 256), "bfloat16", True, None, True),
+]
+
+
+def sm90_bwd_phase(torch, peaks):
+    """K2 and K3's Hopper kernels through ``backward_phase``: every
+    instantiation once (``SM90_BWD_SWEEP``, one summary line; each case
+    must count its two K1 launches and one of K2 and of K3 in
+    ``sm90_launches``), then ``SM90_BWD_CASES`` timed. Returns the timed
+    records."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    before = [w.sm90_launches for w in wrappers]
+    backward_phase(torch, peaks, SM90_BWD_SWEEP, 23, "sm90-bwd-sweep",
+                   quiet=True)
+    counted = [w.sm90_launches - n for w, n in zip(wrappers, before)]
+    n = len(SM90_BWD_SWEEP)
+    if counted != [2 * n, n, n]:
+        fail(f"K2/K3 sm90: K1, K2, K3 counted {counted} Hopper launches in "
+             f"{n} sweep cases (want {[2 * n, n, n]})")
+    return backward_phase(torch, peaks, SM90_BWD_CASES, 24, "sm90-bwd")
+
+
 def _pick(records, name, dt="bfloat16"):
     return next(r for r in records if r["case"] == name and r["dtype"] == dt)
 
@@ -1433,28 +1503,47 @@ def _reset_launches(fa):
     for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
               fa.flash_attention_bwd_dkv):
         w.launches = w.masked_launches = w.small_d_launches = 0
-        w.wide_d_launches = 0
-    fa.flash_attention.sm90_launches = 0
+        w.wide_d_launches = w.sm90_launches = 0
 
 
 def _launches(fa):
     """{kernel: (launches, launches with a mask, launches at a head dim
     that is not a multiple of 64, launches above D = 128, launches of
-    the Hopper forward kernel)} since the last reset (the last is K1's
-    alone: 0 for K2 and K3)."""
+    the Hopper kernels: K1's flash_attn_fwd_sm90.cu, K2's and K3's
+    flash_attn_bwd_sm90.cu)} since the last reset."""
     return {name: (w.launches, w.masked_launches, w.small_d_launches,
-                   w.wide_d_launches, getattr(w, "sm90_launches", 0))
+                   w.wide_d_launches, w.sm90_launches)
             for name, w in (
         ("K1", fa.flash_attention), ("K2", fa.flash_attention_bwd_dq),
         ("K3", fa.flash_attention_bwd_dkv))}
 
 
-def _sm90_expected(torch, fa, dtype, head_dim, masked, k1_launches):
-    """How many of ``k1_launches`` must have run on the Hopper forward
-    kernel (``flash_attn_fwd_sm90.cu``): all of a bf16 call without a
-    mask at its head dims, none of any other."""
-    name = fa._fwd_entry(getattr(torch, dtype), head_dim, masked)
-    return k1_launches if name == "zoo_flash_attn_fwd_sm90" else 0
+def _sm90_expected(torch, fa, dtype, head_dim, masked, launches):
+    """{kernel: how many of its launches in ``launches`` (``_launches``'s
+    form) must have run on the Hopper kernels}: all of a bf16 call
+    without a mask at their head dims (K1 ``flash_attn_fwd_sm90.cu``, K2
+    and K3 ``flash_attn_bwd_sm90.cu``), none of any other."""
+    dt = getattr(torch, dtype)
+    hopper = dict(zip(("K1", "K2", "K3"), (
+        fa._fwd_entry(dt, head_dim, masked),
+        *fa._bwd_entry(dt, head_dim, masked))))
+    return {name: counts[0] if hopper[name].endswith("_sm90") else 0
+            for name, counts in launches.items()}
+
+
+def _check_sm90(label, launches, want):
+    """Fail unless each kernel's Hopper launches in ``launches`` are what
+    ``want`` (``_sm90_expected``) says; returns a line that says where
+    they ran."""
+    for name, n in want.items():
+        got, total = launches[name][4], launches[name][0]
+        if got != n:
+            fail(f"{label}: {got} of {total} {name} launches on the Hopper "
+                 f"kernel (want {n})")
+    return f"{label}: Hopper kernels " + ", ".join(
+        f"{name} {launches[name][4]} of {launches[name][0]}"
+        + ("" if launches[name][4] else " (older sources)")
+        for name in want)
 
 
 def serving_phase(torch, start, reqs, input_fn, out_shape, n_block,
@@ -1526,11 +1615,9 @@ def serving_phase(torch, start, reqs, input_fn, out_shape, n_block,
                  f"{dispatched} dispatched batches")
         # every launch of a bf16 model without a mask on the Hopper
         # kernel, none of a masked one
-        want_sm90 = _sm90_expected(torch, fa, "bfloat16", head_dim, masked,
-                                   k1[0])
-        if device == "cuda" and k1[4] != want_sm90:
-            fail(f"{label}: {k1[4]} of {k1[0]} K1 launches on the Hopper "
-                 f"kernel (want {want_sm90})")
+        if device == "cuda":
+            _check_sm90(label, {"K1": k1}, _sm90_expected(
+                torch, fa, "bfloat16", head_dim, masked, {"K1": k1}))
 
         def batch_of(uris):
             return input_fn({k: np.stack([reqs[u][k] for u in uris])
@@ -1760,8 +1847,8 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
     ``ZooModel.fit``), or a bare module with its Estimator in a
     namespace of the same attributes and a ``name``. K1, K2 and K3 must
     each launch (with the mask, where ``masked``) at least once per layer
-    a step, K1 on the Hopper kernel exactly where ``_sm90_expected``
-    says; with ``loss_falls`` the last logged step's loss must be below
+    a step, K1, K2 and K3 on the Hopper kernels exactly where
+    ``_sm90_expected`` says; with ``loss_falls`` the last logged step's loss must be below
     the first's. Returns the fit's ``_launches``."""
     from analytics_zoo_tpu_torch.common.config import get_config
     from analytics_zoo_tpu_torch.learn.optim import param_tree
@@ -1877,14 +1964,13 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
             fail(f"{label}: {kname} launched {counts[int(masked)]} times"
                  + (" with a mask" if masked else "")
                  + f" in {steps} train steps (< {need})")
-    # K1-lse of a bf16 encoder without a mask all on the Hopper kernel
-    k1 = launches["K1"]
-    want_sm90 = _sm90_expected(torch, fa, base["dtype"],
-                               base["hidden_size"] // base["n_head"], masked,
-                               k1[0])
-    if cuda and k1[4] != want_sm90:
-        fail(f"{label}: {k1[4]} of {k1[0]} K1 launches on the Hopper kernel "
-             f"(want {want_sm90})")
+    # K1-lse, K2 and K3 of a bf16 model without a mask all on the Hopper
+    # kernels; of a masked (or f32, or K5b, or D > 256) one all on the
+    # older sources
+    if cuda:
+        print(_check_sm90(label, launches, _sm90_expected(
+            torch, fa, base["dtype"], base["hidden_size"] // base["n_head"],
+            masked, launches)), flush=True)
     timed = hist[1]["seconds"]
     sps = steps_per_epoch / timed
     # one epoch's real tokens (the mask's ones) and padded tokens
@@ -2794,6 +2880,11 @@ def main() -> None:
           f"({fa.build_info['path']})", flush=True)
     for line in ptxas_lines(fa.build_info["log"]):
         print(f"  ptxas: {line}", flush=True)
+    # ptxas' remark where it had to serialize a kernel's wgmmas
+    serialized = [re.sub(r".*function '(\S+)'.*", r"\1", line) for line in
+                  fa.build_info["log"].splitlines() if "serialized" in line]
+    print(f"  ptxas: wgmma serialized in {len(serialized)} kernels"
+          + "".join(f" {k[:90]}" for k in serialized), flush=True)
 
     def timed(name, fn, *args, **kwargs):
         t = time.perf_counter()
@@ -2802,8 +2893,9 @@ def main() -> None:
         return out
 
     served = timed("kernels", kernel_phase, torch, peaks)
-    trained = _pick(timed("backward", backward_phase, torch, peaks,
-                          BACKWARD_CASES, 1, "backward"), "trained")
+    backward = timed("backward", backward_phase, torch, peaks,
+                     BACKWARD_CASES, 1, "backward")
+    trained32 = _pick(backward, "trained", "float32")
     ner = _pick(timed("masked kernels", backward_phase, torch, peaks,
                       MASKED_CASES, 2, "masked"), "ner_trained")
     runs = [timed("serving", bert_serving, torch, profile=args.profile)]
@@ -2857,14 +2949,13 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     sm90 = timed("K1 sm90", sm90_phase, torch, peaks)
+    sm90_bwd = timed("K2/K3 sm90", sm90_bwd_phase, torch, peaks)
     k5b_full, k5b_masked, k5b_padded = (
         _pick(k5b, "gen_full", "float32"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))
     mini, mini_padded = (_pick(k5b_bwd, "minilm_trained"),
                          _pick(k5b_bwd, "minilm_padded"))
-    gptj, gptj_f32, wide192 = (_pick(wide_bwd, "gptj_trained"),
-                               _pick(wide_bwd, "gptj_f32", "float32"),
-                               _pick(wide_bwd, "bf16_d192"))
+    gptj_f32 = _pick(wide_bwd, "gptj_f32", "float32")
     lm512_rec, lm512_f32, wider384 = (
         _pick(wider_bwd, "lm512_trained"),
         _pick(wider_bwd, "lm512_f32", "float32"),
@@ -2893,11 +2984,12 @@ def main() -> None:
 
     def bwd_row(name, source, replaces, key, launches, rec, masked_rec,
                 mask_replaces):
-        """K2 or K3 at a trained call, with its masked call. SDPA's
-        backward computes K2 + K3 + delta together, so neither row has a
-        single library call of its own (its time is kept beside them)."""
+        """K2 or K3 at a trained call, with its masked call, launched as
+        ``launches`` counts less its Hopper launches. SDPA's backward
+        computes K2 + K3 + delta together, so neither row has a single
+        library call of its own (its time is kept beside them)."""
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[0],
+                "replaces": replaces, "launches": launches[0] - launches[4],
                 "masked_launches": launches[1],
                 "small_d_launches": launches[2], **at(rec, key),
                 "library_backward_ms": rec["sdpa_bwd_ms"],
@@ -2919,21 +3011,37 @@ def main() -> None:
         """(launches, masked, K5b) of one kernel over the BERT-base fits."""
         return tuple(a + b for a, b in zip(squad[kk], ner_fit[kk]))
 
-    def wide_row(name, source, replaces, key, fit, trained, f32_call,
-                 other):
-        """K2 or K3 above D = 128 at an LM's trained call, launched by
-        ``fit``, with its f32 call (the gradient check's) and ``other``
-        ({key: record}: bf16 at another head dim); SDPA's backward
-        computes K2 + K3 + delta together (kept beside both rows, with the
-        backend SDPA took)."""
-        def call(rec):
-            return at(rec, key, library_backward_ms=rec["sdpa_bwd_ms"],
-                      library_backward_device_ms=rec["sdpa_bwd_device_ms"],
-                      library_backend=rec["sdpa_backend"])
+    def bwd_call(rec, key):
+        """K2 or K3 at one timed call; SDPA's backward computes K2 + K3 +
+        delta together (kept beside both rows, with the backend SDPA
+        took)."""
+        return at(rec, key, library_backward_ms=rec["sdpa_bwd_ms"],
+                  library_backward_device_ms=rec["sdpa_bwd_device_ms"],
+                  library_backend=rec["sdpa_backend"])
+
+    def wide_row(name, source, replaces, key, fit, first, **calls):
+        """K2 or K3 above D = 128 at the call ``first``, with ``calls``
+        ({key: record}), launched by ``fit`` above D = 128 apart from its
+        Hopper launches."""
+        counts = fit[key.upper()]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": fit[key.upper()][3],
-                **call(trained), "f32_call": call(f32_call),
-                **{k: call(rec) for k, rec in other.items()}}
+                "replaces": replaces, "launches": counts[3] - counts[4],
+                **bwd_call(first, key),
+                **{k: bwd_call(rec, key) for k, rec in calls.items()}}
+
+    def sm90_bwd_row(name, replaces, key):
+        """K2 or K3's Hopper kernel at the SQuAD fit's call, with
+        [8,8,2048,128] and [4,16,2048,192] causal and the LM fit's call,
+        launched by those two fits."""
+        by_phase = {"squad_fit": squad[key.upper()][4],
+                    "lm_fit": lm[key.upper()][4]}
+        return {"name": name, "route": "cuda", "source": SM90_BWD_SOURCE,
+                "replaces": replaces, "launches": sum(by_phase.values()),
+                "launches_by_phase": by_phase,
+                **bwd_call(_pick(sm90_bwd, "trained"), key),
+                "d128_call": bwd_call(_pick(sm90_bwd, "bf16_d128"), key),
+                "d192_call": bwd_call(_pick(sm90_bwd, "bf16_d192"), key),
+                "lm_call": bwd_call(_pick(sm90_bwd, "gptj_trained"), key)}
 
     # K1's Hopper kernel at the served call ([32,12,512,64] bf16 views
     # into the qkv projection), with its logsumexp call at the SQuAD
@@ -2973,10 +3081,12 @@ def main() -> None:
             ner, "k1", ner["sdpa_ms"], ner["sdpa_device_ms"],
             replaces=K5A_REPLACES,
             lse_call=lse_call(ner, replaces=K5A_REPLACES))},
+        sm90_bwd_row("flash_attn_bwd_dq_sm90", K2_REPLACES, "k2"),
+        sm90_bwd_row("flash_attn_bwd_dkv_sm90", K3_REPLACES, "k3"),
         bwd_row("flash_attn_bwd_dq", K2_SOURCE, K2_REPLACES, "k2",
-                fits("K2"), trained, ner, K5A_REPLACES),
+                fits("K2"), trained32, ner, K5A_REPLACES),
         bwd_row("flash_attn_bwd_dkv", K3_SOURCE, K3_REPLACES, "k3",
-                fits("K3"), trained, ner, K5A_REPLACES), {
+                fits("K3"), trained32, ner, K5A_REPLACES), {
             # K5b at the full-width prefill call ([1,32,2048,80] f32,
             # causal), launched by both generation phases' prefills and
             # (with logsumexp) by the MiniLM fit
@@ -3004,12 +3114,13 @@ def main() -> None:
             **pick_keys(_pick(wide, "gemma_prefill", "float32")),
             "lse_call": pick_keys(_pick(wide, "gemma_lse", "float32"),
                                   "lse_max_abs_err")},
-        # K2 and K3 at D = 256: the GPT-J-width LM's trained call
-        # ([4,16,2048,256] bf16, causal), launched by its fit
+        # K2 and K3 f32 at D = 256: the GPT-J-width LM's gradient check's
+        # call ([1,16,2048,256] f32, causal); its fit's bf16 launches are
+        # the Hopper kernels'
         wide_row("flash_attn_bwd_dq_wide", K2_SOURCE, K2_REPLACES, "k2", lm,
-                 gptj, gptj_f32, {"d192_call": wide192}),
+                 gptj_f32),
         wide_row("flash_attn_bwd_dkv_wide", K3_SOURCE, K3_REPLACES, "k3", lm,
-                 gptj, gptj_f32, {"d192_call": wide192}), {
+                 gptj_f32), {
             # K1 at D = 512: the prefill call at DeepSeek-V4-Flash's
             # attention widths ([1,64,2048,512] f32, causal), launched by
             # the DeepSeek phase's prefills over HTTP and (with
@@ -3032,9 +3143,10 @@ def main() -> None:
         # K2 and K3 at D = 512: the 512-head LM's trained call
         # ([4,8,2048,512] bf16, causal), launched by its fit
         wide_row("flash_attn_bwd_dq_wider", K2_SOURCE, K2_REPLACES, "k2",
-                 lm512, lm512_rec, lm512_f32, {"d384_call": wider384}),
+                 lm512, lm512_rec, f32_call=lm512_f32, d384_call=wider384),
         wide_row("flash_attn_bwd_dkv_wider", K3_SOURCE, K3_REPLACES, "k3",
-                 lm512, lm512_rec, lm512_f32, {"d384_call": wider384})]}),
+                 lm512, lm512_rec, f32_call=lm512_f32,
+                 d384_call=wider384)]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

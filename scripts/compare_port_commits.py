@@ -10,8 +10,9 @@ parent commit unpacked with ``git archive`` into a directory that
 parent, change, ... (``--pairs`` pairs, 3 by default), each in a fresh
 process that imports that checkout's own ``chip_smoke.py`` and drives
 its phases whose figures swing with the host: K1, K1-lse, K2 and K3 at
-the BERT-base trained call and at the GPT-J-width LM's [4,16,2048,256]
-causal call (device time), K1 and K1-lse at the served shape
+the BERT-base trained call, at the GPT-J-width LM's [4,16,2048,256]
+causal call, at [4,16,2048,192] and at [8,8,2048,128] causal, bf16
+(device time), K1 and K1-lse at the served shape
 [32,12,512,64] and at [8,8,2048,256] causal, bf16 (device time),
 BERT-base serving (with the seconds its save and its start-up take), the
 NER fine-tune, NER serving (start-up seconds too) and TinyGenLM
@@ -45,13 +46,17 @@ SUMMARIES = (
     ("gen", "tokens_per_s", "gen_tokens_per_s"),
 )
 KERNELS = ("k1", "k1_lse", "k2", "k3")
-# (backward_phase label, case): the BERT-base trained call and K2/K3's
-# widest call both commits take (D = 256)
+# (backward_phase label, case, metric prefix): the BERT-base trained
+# call, the LM's call (D = 256), and causal calls at D = 192 and 128
 BACKWARD = (
     ("backward", ("trained", (48, 12, 384, 384, 64), "bfloat16", False, None,
-                  True)),
+                  True), ""),
     ("d256-bwd", ("gptj_trained", (4, 16, 2048, 2048, 256), "bfloat16",
-                  True, None, True)),
+                  True, None, True), "lm_"),
+    ("d192-bwd", ("bf16_d192", (4, 16, 2048, 2048, 192), "bfloat16", True,
+                  None, True), "d192_"),
+    ("d128-bwd", ("bf16_d128", (8, 8, 2048, 2048, 128), "bfloat16", True,
+                  None, True), "d128_"),
 )
 # K1 and K1-lse timed through chip_smoke.timed_fwd_cases: the served
 # shape and the widest head dim the backward also takes
@@ -89,7 +94,7 @@ def run_phases(checkout: str) -> None:
     # registers and spills, where this process compiled the kernels
     for line in cs.ptxas_lines(fa.build_info["log"]):
         print(f"ptxas: {line}", flush=True)
-    for label, case in BACKWARD:
+    for label, case, _ in BACKWARD:
         cs.backward_phase(torch, cs.PEAKS["sxm"], [case], 1, label)
     fwd = cs.timed_fwd_cases(torch, cs.PEAKS["sxm"], np.random.RandomState(0),
                              list(FWD_CASES), "launches", "fwd", iters=20)
@@ -125,11 +130,9 @@ def figures(out: str) -> dict:
             for want, key, name in SUMMARIES:
                 if label == want:
                     got[name] = json.loads(rest)[key]
-        for label, _ in BACKWARD:
+        for label, _, prefix in BACKWARD:
             if line.startswith(f'{{"{label}_checks"'):
                 rec = json.loads(line)[f"{label}_checks"][0]
-                # the LM's call: not the d256_ names FWD_CASES take
-                prefix = "" if label == "backward" else "lm_"
                 for k in KERNELS:
                     got[f"{prefix}{k}_device_ms"] = rec[f"{k}_device_ms"]
         if line.startswith('{"fwd_checks"'):
@@ -185,7 +188,7 @@ def main() -> None:
         "ptxas_new": {k: regs["change"][k] for k in sorted(
             set(regs["change"]) - set(regs["parent"]))}}), flush=True)
     names = [name for _, _, name in SUMMARIES] + [
-        f"{p}{k}_device_ms" for p in ("", "lm_") for k in KERNELS] + [
+        f"{p}{k}_device_ms" for _, _, p in BACKWARD for k in KERNELS] + [
         f"{c[0]}_device_ms" for c in FWD_CASES] + [
         name for _, name in SECONDS]
     print(json.dumps({name: {side: {

@@ -25,7 +25,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "msgpack",
 
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "scripts" / "compare_port_commits.py"]
+        REPO / "chip_smoke.py", REPO / "scripts" / "compare_port_commits.py",
+        REPO / "scripts" / "compare_serving.py"]
     assert len(files) > 20
     # the HTTP frontend and the rollup reporter, carried with the serving
     # launcher, are held to the same rule

@@ -100,13 +100,14 @@ class TestLaunches:
     @pytest.mark.parametrize("d", [64, 128, 192, 256])
     def test_gradient_runs_sm90_then_k2_k3(self, sm90_count, d):
         """Under ``FlashAttention`` the forward is K1-lse on the Hopper
-        kernel (with an lse), the backward K2 then K3 as before."""
+        kernel (with an lse), the backward K2 then K3 (on their Hopper
+        kernels since ``flash_attn_bwd_sm90.cu``)."""
         q, k, v = _meta(d, grad=True)
         out = fa.flash_attention(q, k, v, True)
         grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
         assert all(g.shape == q.shape for g in grads)
         assert [name for name, _ in sm90_count] == [
-            SM90, "zoo_flash_attn_bwd_dq", "zoo_flash_attn_bwd_dkv"]
+            SM90, "zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90"]
         assert sm90_count[0][1][LSE_ARG] is not None
         assert fa.flash_attention.sm90_launches == 1
 
