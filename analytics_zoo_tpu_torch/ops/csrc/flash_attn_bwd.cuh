@@ -2,12 +2,13 @@
 // head dims) for Hopper, sm_90a: the mma.sync and FMA kernel templates. K2
 // is instantiated and exported by flash_attn_bwd_dq.cu, K3 by
 // flash_attn_bwd_dkv.cu, so the two translation units build side by side.
-// They take every call but one kind: bf16 without a key-padding mask at
-// D in {64, 128, 192, 256} runs flash_attn_bwd_sm90.cu (TMA, a producer
-// warpgroup, wgmma), and the entries here return 1004 for it. What is
-// left here: bf16 with a mask at 64 and 128, K5b (bf16 and f32, masked or
-// not, at the other multiples of 8 up to 128), f32 at every head dim, and
-// bf16 at 320 to 512.
+// They take every call but two kinds, for which the entries here return
+// 1004: bf16 without a key-padding mask at D in {64, 128, 192, 256} runs
+// flash_attn_bwd_sm90.cu (TMA, a producer warpgroup, wgmma), and f32 at
+// every D up to 128, masked or not, flash_attn_bwd_f32tc.cu (3xTF32
+// mma.sync, cp.async). What is left here: bf16 with a mask at 64 and 128,
+// bf16 K5b (masked or not, at the other multiples of 8 up to 128), f32 at
+// 192 to 512, and bf16 at 320 to 512.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
 // (:209-246, launched at :327) and `_flash_dkv_kernel` (:249-292, launched
@@ -32,8 +33,8 @@
 // their share as one vector, E = (1/Lk) * sum of their dO rows, to every
 // key's dV; the q-tile loop gives them P = 0 like any masked pair.
 //
-// Head dims (K5b backward). Besides D in {64, 128} (K2, K3: f32, and bf16
-// with a mask), the same templates take every D <= 128 that is a multiple
+// Head dims (K5b backward). Besides D in {64, 128} (K2, K3: bf16 with a
+// mask), the same bf16 templates take every D <= 128 that is a multiple
 // of 8: the backward of the
 // stock-kernel branch of analytics_zoo_tpu/ops/attention.py (:116-127),
 // which on the TPU trains through JAX's stock Pallas flash_attention (its
@@ -45,8 +46,8 @@
 // garbage, which must not meet a zero as 0 * NaN. The products whose N side
 // is D (dQ, dK, dV) run in n-blocks of 8 and need nothing. K2's delta takes
 // a row's 8-element chunks in turn over two threads, so no read passes D.
-// The f32 path gives each of 8 threads D/8 dimensions of a row. Each D is
-// its own instantiation, so the register arrays stay sized to it.
+// Each D is its own instantiation, so the register arrays stay sized to
+// it.
 //
 // Head dims above 128 (K2 and K3 at D in {192, 256, 320, 384, 448, 512}).
 // The reference's Pallas kernels take any D % 64 == 0 (its dispatch sends
@@ -84,7 +85,9 @@
 //     registers from the 246-255 it holds at 256: kWiderTpr = 16 threads
 //     own D/16 dims each (32 at 512; blocks of 16 rows, 256 threads), and
 //     the tiles shrink to kWiderFmaTile = 8 rows (two of 16 KB at 512).
-//     D <= 128 keeps 8 threads of contiguous dims and 32-row tiles.
+//     (f32 up to D = 128 is flash_attn_bwd_f32tc.cu's, on the tensor
+//     cores at f32 accuracy by three TF32 products; these FMA templates
+//     took it until then.)
 //
 // Design. Pallas ran each kernel as a grid whose last axis was a sequential
 // accumulation in VMEM scratch. Here a thread block owns one output tile and
@@ -108,9 +111,11 @@
 //     product contracts down the rows of a tile (dS K, P^T dO, dS^T Q) the B
 //     fragment is gathered from two rows. 4 tiles of 64 x (D + 8) bf16 exceed
 //     48 KB at D = 128, so the shared memory is dynamic.
-//   * f32: plain FMA (the tensor cores' f32 path is TF32, which would not
-//     hold f32 accuracy): 8 threads share one row of the block's 16, each
-//     owning D/8 of its dimensions; dot products are reduced with shuffles.
+//   * f32 (above D = 128): plain FMA, 8 or 16 threads share one row of the
+//     block's 16, each owning dealt dims; dot products are reduced with
+//     shuffles. One TF32 pass on the tensor cores would not hold f32
+//     accuracy; three do, which is flash_attn_bwd_f32tc.cu's design at
+//     D <= 128, still to be carried above it.
 //   * causal: K2 never loads kv tiles wholly above the diagonal; K3 starts at
 //     the first q tile whose last row sees its first key. A warp whose rows
 //     see nothing of a tile skips its arithmetic; a masked pair gets P = 0
@@ -157,8 +162,7 @@ namespace {
 constexpr int kTile = 64;        // rows per block and per staged tile (bf16)
 constexpr int kThreads = 128;    // 4 warps
 constexpr int kPad = 8;          // bf16 elements of smem row padding
-constexpr int kFmaRows = 16;     // rows a block owns on the f32 path
-constexpr int kFmaTile = 32;     // rows per staged tile on the f32 path
+constexpr int kFmaRows = 16;     // rows a block owns on the f32 FMA path
 constexpr int kWideKv = 32;      // K2 bf16 above D = 256: kv rows a tile
 constexpr int kWideFmaTile = 16; // f32 above D = 128: rows a staged tile
 constexpr int kWiderFmaTile = 8; // f32 above D = 256: rows a staged tile
@@ -1064,18 +1068,7 @@ flash_bwd_dkv_bf16_split_kernel(const Params p) {
   }
 }
 
-// ------------------------------------------------------------- K2, f32 --
-template <int DP>
-__device__ __forceinline__ float row_dot(const float (&x)[DP], const float* y) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < DP; ++i) acc = fmaf(x[i], y[i], acc);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-  return acc;
-}
-
+// ------------------------------------------------------- K2, f32, D > 128 --
 // the sum of x over a row's TPR threads (consecutive lanes)
 template <int TPR>
 __device__ __forceinline__ float row_sum(float x) {
@@ -1084,12 +1077,10 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Above D = 128 a row's TPR threads hold its dims in 4-float chunks dealt
-// round them (dims ((i / 4) * TPR + part) * 4 + i % 4 of thread `part`),
-// so that they read TPR neighbouring chunks of a staged row: 32 contiguous
-// dims a thread at D = 256 would put all 8 on one shared-memory bank. Up
-// to 128 a thread's DP dims are contiguous from part * DP, as they always
-// were.
+// A row's TPR threads hold its dims in 4-float chunks dealt round them
+// (dims ((i / 4) * TPR + part) * 4 + i % 4 of thread `part`), so that they
+// read TPR neighbouring chunks of a staged row: 32 contiguous dims a thread
+// at D = 256 would put all 8 on one shared-memory bank.
 template <int TPR>
 __device__ __forceinline__ int dealt_dim(int part, int i) {
   return ((i / 4) * TPR + part) * 4 + (i % 4);
@@ -1118,34 +1109,28 @@ __device__ __forceinline__ void stage_f32(float (*t)[D], const float* src,
   }
 }
 
-// the f32 templates' tiles and threads a row: up to D = 128, kFmaTile
-// rows and 8 threads; at 192 and 256 (unmasked) kWideFmaTile rows and 8;
-// above 256 (unmasked) kWiderFmaTile rows and kWiderTpr threads
-template <int D, bool kMask, int KV, int TPR>
+// the FMA templates' tiles and threads a row (unmasked; f32 up to D = 128
+// is flash_attn_bwd_f32tc.cu's): at 192 and 256 kWideFmaTile rows and 8;
+// above 256 kWiderFmaTile rows and kWiderTpr threads
+template <int D, int KV, int TPR>
 __host__ __device__ constexpr bool f32_shape_ok() {
-  return D % 8 == 0
-         && (D <= 128 ? KV == kFmaTile && TPR == 8
-             : D % 64 == 0 && !kMask
-               && (D <= 256 ? KV == kWideFmaTile && TPR == 8
-                            : D <= 512 && KV == kWiderFmaTile
-                              && TPR == kWiderTpr));
+  return D % 64 == 0 && D > 128
+         && (D <= 256 ? KV == kWideFmaTile && TPR == 8
+                      : D <= 512 && KV == kWiderFmaTile && TPR == kWiderTpr);
 }
 
 // KV: rows a staged tile; TPR: threads a row (f32_shape_ok). A block owns
 // kFmaRows rows: kFmaRows * TPR threads
-template <int D, bool kMask, int KV = kFmaTile, int TPR = 8>
+template <int D, int KV, int TPR = 8>
 __global__ void __launch_bounds__(kFmaRows * TPR)
 flash_bwd_dq_f32_kernel(const Params p) {
-  static_assert(f32_shape_ok<D, kMask, KV, TPR>(),
-                "head_dim: a multiple of 8 up to 128, or 192 to 512 "
-                "(multiples of 64) unmasked on their tiles");
+  static_assert(f32_shape_ok<D, KV, TPR>(),
+                "head_dim: 192 to 512 (multiples of 64) on their tiles");
   constexpr int DP = D / TPR;  // dimensions per thread
   constexpr int kShift = TPR == 16 ? 4 : 3;  // log2(TPR)
   constexpr int NT = kFmaRows * TPR;
-  constexpr bool kDealt = D > 128;
   __shared__ __align__(16) float sK[KV][D];
   __shared__ __align__(16) float sV[KV][D];
-  __shared__ uint8_t sM[KV];
 
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -1154,16 +1139,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int part = tid & (TPR - 1);          // TPR consecutive lanes a row
   const int row = qt * kFmaRows + (tid >> kShift);
-  const int d0 = part * DP;
   const int offset = p.lk - p.lq;
-  // this thread's i-th dim: of a staged row, and in a device row whose
-  // first element is `base` (spelled base + d0 + i up to 128, as always)
-  auto dim = [part, d0](int i) {
-    return kDealt ? dealt_dim<TPR>(part, i) : d0 + i;
-  };
-  auto elt = [part, d0](long long base, int i) {
-    return kDealt ? base + dealt_dim<TPR>(part, i) : base + d0 + i;
-  };
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
@@ -1171,15 +1147,15 @@ flash_bwd_dq_f32_kernel(const Params p) {
   const float* o = static_cast<const float*>(p.o) + b * p.o_sb + hh * p.o_sh;
   const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + hh * p.do_sh;
   float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + hh * p.dq_sh;
-  const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
 
   float qr[DP], dr[DP], acc[DP];
   float part_delta = 0.f;
 #pragma unroll
   for (int i = 0; i < DP; ++i) {
-    qr[i] = q[elt(row * p.q_sl, i)];
-    dr[i] = dout[elt(row * p.do_sl, i)];
-    part_delta = fmaf(dr[i], o[elt(row * p.o_sl, i)], part_delta);
+    const int c = dealt_dim<TPR>(part, i);
+    qr[i] = q[row * p.q_sl + c];
+    dr[i] = dout[row * p.do_sl + c];
+    part_delta = fmaf(dr[i], o[row * p.o_sl + c], part_delta);
     acc[i] = 0.f;
   }
   const float del = row_sum<TPR>(part_delta);
@@ -1197,49 +1173,41 @@ flash_bwd_dq_f32_kernel(const Params p) {
                          p.k_sl, tid);
     stage_f32<D, KV, NT>(sV, v + static_cast<long long>(kt) * KV * p.v_sl,
                          p.v_sl, tid);
-    if (kMask && tid < KV) sM[tid] = mrow[kt * KV + tid];
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < KV; ++j) {
-      float s, dpv;
-      if constexpr (kDealt) {
-        s = row_dot_dealt<DP, TPR>(qr, sK[j], part);
-        dpv = row_dot_dealt<DP, TPR>(dr, sV[j], part);
-      } else {
-        s = row_dot<DP>(qr, &sK[j][d0]);
-        dpv = row_dot<DP>(dr, &sV[j][d0]);
-      }
+      const float s = row_dot_dealt<DP, TPR>(qr, sK[j], part);
+      const float dpv = row_dot_dealt<DP, TPR>(dr, sV[j], part);
       float pr = exp2f(s * p.scale_log2 - lse2);
       if (p.causal && kt * KV + j > row + offset) pr = 0.f;
-      if (kMask && sM[j] == 0) pr = 0.f;
       const float ds = pr * (dpv - del) * p.scale;
 #pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] = fmaf(ds, sK[j][dim(i)], acc[i]);
+      for (int i = 0; i < DP; ++i) {
+        acc[i] = fmaf(ds, sK[j][dealt_dim<TPR>(part, i)], acc[i]);
+      }
     }
   }
 #pragma unroll
-  for (int i = 0; i < DP; ++i) dq[elt(row * p.dq_sl, i)] = acc[i];
+  for (int i = 0; i < DP; ++i) {
+    dq[row * p.dq_sl + dealt_dim<TPR>(part, i)] = acc[i];
+  }
 }
 
-// ------------------------------------------------------------- K3, f32 --
+// ------------------------------------------------------- K3, f32, D > 128 --
 // KV: q rows a staged tile; TPR: threads a key (f32_shape_ok). A block
 // owns kFmaRows keys: kFmaRows * TPR threads
-template <int D, bool kMask, int KV = kFmaTile, int TPR = 8>
+template <int D, int KV, int TPR = 8>
 __global__ void __launch_bounds__(kFmaRows * TPR)
 flash_bwd_dkv_f32_kernel(const Params p) {
-  static_assert(f32_shape_ok<D, kMask, KV, TPR>(),
-                "head_dim: a multiple of 8 up to 128, or 192 to 512 "
-                "(multiples of 64) unmasked on their tiles");
+  static_assert(f32_shape_ok<D, KV, TPR>(),
+                "head_dim: 192 to 512 (multiples of 64) on their tiles");
   constexpr int DP = D / TPR;
   constexpr int kShift = TPR == 16 ? 4 : 3;  // log2(TPR)
   constexpr int NT = kFmaRows * TPR;
-  constexpr bool kDealt = D > 128;
   __shared__ __align__(16) float sQ[KV][D];
   __shared__ __align__(16) float sDO[KV][D];
   __shared__ float sLse[KV];
   __shared__ float sDelta[KV];
-  __shared__ float sE[D];        // dV share of the rows that see no key
-  __shared__ int sFirst;
 
   const int kt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -1248,16 +1216,7 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int part = tid & (TPR - 1);
   const int key = kt * kFmaRows + (tid >> kShift);
-  const int d0 = part * DP;
   const int offset = p.lk - p.lq;
-  // this thread's i-th dim: of a staged row, and in a device row whose
-  // first element is `base` (spelled base + d0 + i up to 128, as always)
-  auto dim = [part, d0](int i) {
-    return kDealt ? dealt_dim<TPR>(part, i) : d0 + i;
-  };
-  auto elt = [part, d0](long long base, int i) {
-    return kDealt ? base + dealt_dim<TPR>(part, i) : base + d0 + i;
-  };
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
@@ -1268,18 +1227,12 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   const float* lse = p.lse + static_cast<long long>(bh) * p.lq;
   const float* delta = p.delta + static_cast<long long>(bh) * p.lq;
 
-  const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
-  const bool real = !kMask || mrow[key] != 0;
-  if (kMask) {
-    empty_rows_dv<D>(sE, &sFirst, mrow, dout, p.do_sl, p.lq, p.lk, p.causal,
-                     1.f / p.lk, tid);
-  }
-
   float kr[DP], vr[DP], acc_k[DP], acc_v[DP];
 #pragma unroll
   for (int i = 0; i < DP; ++i) {
-    kr[i] = k[elt(key * p.k_sl, i)];
-    vr[i] = v[elt(key * p.v_sl, i)];
+    const int c = dealt_dim<TPR>(part, i);
+    kr[i] = k[key * p.k_sl + c];
+    vr[i] = v[key * p.v_sl + c];
     acc_k[i] = acc_v[i] = 0.f;
   }
 
@@ -1303,29 +1256,24 @@ flash_bwd_dkv_f32_kernel(const Params p) {
     __syncthreads();
 #pragma unroll 4
     for (int i = 0; i < KV; ++i) {
-      float s, dpv;
-      if constexpr (kDealt) {
-        s = row_dot_dealt<DP, TPR>(kr, sQ[i], part);
-        dpv = row_dot_dealt<DP, TPR>(vr, sDO[i], part);
-      } else {
-        s = row_dot<DP>(kr, &sQ[i][d0]);
-        dpv = row_dot<DP>(vr, &sDO[i][d0]);
-      }
+      const float s = row_dot_dealt<DP, TPR>(kr, sQ[i], part);
+      const float dpv = row_dot_dealt<DP, TPR>(vr, sDO[i], part);
       float pr = exp2f(s * p.scale_log2 - sLse[i]);
       if (p.causal && key > q0 + i + offset) pr = 0.f;
-      if (kMask && !real) pr = 0.f;
       const float ds = pr * (dpv - sDelta[i]) * p.scale;
 #pragma unroll
       for (int d = 0; d < DP; ++d) {
-        acc_v[d] = fmaf(pr, sDO[i][dim(d)], acc_v[d]);
-        acc_k[d] = fmaf(ds, sQ[i][dim(d)], acc_k[d]);
+        const int c = dealt_dim<TPR>(part, d);
+        acc_v[d] = fmaf(pr, sDO[i][c], acc_v[d]);
+        acc_k[d] = fmaf(ds, sQ[i][c], acc_k[d]);
       }
     }
   }
 #pragma unroll
   for (int d = 0; d < DP; ++d) {
-    dk[elt(key * p.dk_sl, d)] = acc_k[d];
-    dv[elt(key * p.dv_sl, d)] = kMask ? acc_v[d] + sE[dim(d)] : acc_v[d];
+    const int c = dealt_dim<TPR>(part, d);
+    dk[key * p.dk_sl + c] = acc_k[d];
+    dv[key * p.dv_sl + c] = acc_v[d];
   }
 }
 
@@ -1353,8 +1301,8 @@ int check(int dtype, int lq, int lk, int batch, int heads, int causal) {
 // fn(std::integral_constant<int, D>) for head dim d: K2/K3 at 64 and 128,
 // K5b backward at the other multiples of 8 up to 128, K2/K3 at 192, 256,
 // 320, 384, 448 and 512 (unmasked: fn returns 1006 for a mask there; and
-// 1004 for bf16 without a mask at 64-256, flash_attn_bwd_sm90.cu's); 1004
-// for any other d
+// 1004 for bf16 without a mask at 64-256, flash_attn_bwd_sm90.cu's, and
+// for f32 up to 128, flash_attn_bwd_f32tc.cu's); 1004 for any other d
 template <typename Fn>
 int with_head_dim(int d, Fn&& fn) {
   switch (d) {

@@ -1,10 +1,11 @@
 // K2 (flash-attention dQ and delta) for Hopper, sm_90a: the exported entry
-// point and its instantiations, every multiple of 8 up to 128 (K5b backward
-// at all but 64 and 128), bf16 and f32, with and without a key-padding mask
-// (bf16 at 64 and 128 with one only), f32 at 192 and 256, and 320, 384,
-// 448 and 512, bf16 and f32, without one. bf16 without a mask at 64, 128,
-// 192 and 256 is flash_attn_bwd_sm90.cu's (1004 here). The kernel
-// templates and design notes are in flash_attn_bwd.cuh.
+// point and its instantiations: bf16 at every multiple of 8 up to 128 (K5b
+// backward at all but 64 and 128), with and without a key-padding mask
+// (at 64 and 128 with one only), f32 at 192 and 256, and 320, 384, 448
+// and 512, bf16 and f32, without one. bf16 without a mask at 64, 128, 192
+// and 256 is flash_attn_bwd_sm90.cu's, f32 up to 128 (masked or not)
+// flash_attn_bwd_f32tc.cu's (1004 here for both). The kernel templates
+// and design notes are in flash_attn_bwd.cuh.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
 // (:209-246, launched at :327), and the stock Pallas kernel's dQ where
@@ -61,7 +62,7 @@ extern "C" int zoo_flash_attn_bwd_dq(
                       dim3(lq / kSplitRows, batch * heads),
                       bf16_split_dq_smem_bytes<D>(), p, s, D);
       }
-      return launch(flash_bwd_dq_f32_kernel<D, false, kWiderFmaTile, kWiderTpr>,
+      return launch(flash_bwd_dq_f32_kernel<D, kWiderFmaTile, kWiderTpr>,
                     dim3(lq / kFmaRows, batch * heads), 0, p, s,
                     kFmaRows * kWiderTpr);
     } else if constexpr (D > 128) {
@@ -69,7 +70,7 @@ extern "C" int zoo_flash_attn_bwd_dq(
       // flash_attn_bwd_sm90.cu's
       if (masked) return 1006;
       if (dtype == 1) return 1004;
-      return launch(flash_bwd_dq_f32_kernel<D, false, kWideFmaTile>,
+      return launch(flash_bwd_dq_f32_kernel<D, kWideFmaTile>,
                     dim3(lq / kFmaRows, batch * heads), 0, p, s);
     } else {
       if (dtype == 1) {
@@ -85,9 +86,8 @@ extern "C" int zoo_flash_attn_bwd_dq(
               : launch(flash_bwd_dq_bf16_kernel<D, false>, grid, smem, p, s);
         }
       }
-      const dim3 grid(lq / kFmaRows, batch * heads);
-      return masked ? launch(flash_bwd_dq_f32_kernel<D, true>, grid, 0, p, s)
-                    : launch(flash_bwd_dq_f32_kernel<D, false>, grid, 0, p, s);
+      // f32 up to 128: flash_attn_bwd_f32tc.cu's
+      return 1004;
     }
   });
 }

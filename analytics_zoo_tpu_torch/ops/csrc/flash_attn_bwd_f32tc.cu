@@ -1,0 +1,863 @@
+// Flash-attention backward (K2 dQ and delta, K3 dK/dV) for Hopper, sm_90a:
+// the float32 kernels at every head dim up to 128 that is a multiple of 8
+// (K2/K3 at 64 and 128, K5b's backward at the others), with or without a
+// key-padding mask, on the tensor cores at f32 accuracy (3xTF32 mma.sync)
+// with asynchronous tile copies (cp.async).
+//
+// Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
+// (:209, launched at :327) and `_flash_dkv_kernel` (:249, launched at :345),
+// both driven by `_flash_bwd` (:305), plus the rowsum delta = rowsum(dO * O)
+// that `_flash_bwd` takes in plain jnp (:316-320); with a key-padding mask,
+// or at a head dim that is not a multiple of 64, the backward of the stock
+// Pallas kernel that analytics_zoo_tpu/ops/attention.py (:116-127) reaches.
+// The semantics are flash_attn_bwd.cuh's f32 path, which these kernels
+// retire at D <= 128: P = exp(scale * Q K^T - lse), dS = P * (dO V^T -
+// delta) * scale, dQ = dS K, dK = dS^T Q, dV = P^T dO, all in f32; the
+// causal mask aligned bottom-right (key j visible to query i when
+// j <= i + Lk - Lq); masked pairs take P = 0; a row that sees no key gives
+// nothing to dQ or dK and dO / Lk to the dV of every key (flash_attn_bwd.cuh
+// :23-33, the same empty_rows_dv).
+//
+// What bounds them. K2 does 6 * D flops a visible (query, key) pair (S, dP,
+// dQ), K3 8 * D (S^T, dP^T, dV, dK). In f32 on plain FMA that is 67
+// TFLOP/s of work; the tensor cores take f32 only as TF32 (a 10-bit
+// mantissa, about 1e-3 relative a product), which is outside the port's
+// f32 tolerance of 1e-4 * (1 + |ref|). Three TF32 products hold it: each
+// operand x splits into hi = tf32(x) and lo = tf32(x - hi), rounded to
+// nearest with ties away from zero (cvt.rna's rounding), and
+// a b = hi_a hi_b + hi_a lo_b + lo_a hi_b + O(2^-21 |a b|), the two small
+// terms accumulated first. So a pair costs 3 * 6 * D (K2) or 3 * 8 * D (K3)
+// tensor-core flops at 494.7 TFLOP/s dense TF32: at the BERT-base trained
+// call [48,12,384,64] 0.198 and 0.264 ms against 0.102 ms of bytes, so the
+// kernels are bound by operations (chip_smoke.py `bounds`, f32 rows).
+//
+// What the design does about it. The FMA kernels they retire gave a row 8
+// threads and reduced every S and dP element with shuffles, owned 16 rows a
+// block and staged 32-row tiles synchronously, so each (b, h)'s K and V (K2)
+// or Q and dO (K3) were read from L2 by 24 blocks at the trained call.
+// Here:
+//   * mma.sync.m16n8k8 (tf32 in, f32 accumulate), three a product. Not
+//     wgmma: with tf32 it takes both shared-memory operands K-major only,
+//     and dQ = dS K, dK = dS^T Q and dV = P^T dO contract over the
+//     sequence, so their B (K, Q, dO) is MN-major in the tiles: wgmma would
+//     need transposed copies of them. mma.sync takes any layout, since each
+//     thread loads its own fragments.
+//   * A block owns 64 rows (K2: queries; K3: keys up to D = 64), 4 warps
+//     of 16, so a (b, h)'s streamed tiles are read by 6 blocks at the
+//     trained call.
+//     Rows are padded by 4 floats (16 bytes). The A fragments of the
+//     products over D (the block's own Q and dO in K2, K and V in K3) are
+//     read with ldmatrix on the b16 view (thread `lane` gets row lane / 4,
+//     f32 column lane % 4 of each 8 x 4 matrix) and split in registers,
+//     once for all the n-blocks of a k-step.
+//   * The streamed tiles (K2: K and V of 32 keys; K3: Q and dO of 32 q
+//     rows) are split once a block: cp.async.cg copies a
+//     tile in, the block splits it in place into a hi plane and a lo plane
+//     (same pitch), and every warp then reads its B fragments of both,
+//     K-major with ldmatrix (S, dP) or two rows at a time (dQ += dS K,
+//     dV += P^T dO, dK += dS^T Q), without splitting again. (Split in the
+//     warps, each element of K was split 8 times a block, and the splits
+//     took most of the issue slots.) No bank conflicts at a pitch of D + 4.
+//     The mask's bytes (K2) and lse and delta (K3) come with the tile, by
+//     4-byte cp.async. The rounding is an integer add and mask, the same
+//     bits as cvt.rna.tf32.f32 gives, which measured slower on the card.
+//   * P and dS never leave registers. The m16n8k8 accumulator gives a
+//     thread columns 2t and 2t + 1 of an 8-wide block, where the A fragment
+//     wants t and t + 4; so the contraction index of dQ += dS K (and of
+//     dV += P^T dO, dK += dS^T Q) is relabelled within each block of 8
+//     (k = t -> 2t, k = t + 4 -> 2t + 1): A = {c0, c2, c1, c3} of the
+//     accumulator, and B is gathered from rows 2t and 2t + 1 to match.
+//   * Occupancy over overlap (TcCfg): f32 tiles are twice bf16's bytes, and
+//     on the card more blocks an SM beat a second stage within a block. At
+//     D <= 64 one stage, 69,632 bytes of tiles (3 blocks an SM if the
+//     registers allow): the other blocks' arithmetic hides a block's copy.
+//     K2 above 64 keeps two stages (one block an SM, 202,752 bytes). The
+//     three TF32 products are issued pass by pass over independent
+//     accumulators (every lo_a hi_b, then hi_a lo_b, then hi_a hi_b), so no
+//     mma waits on the one before it.
+//   * Long sums leave the accumulators. The tensor cores' f32 accumulation
+//     truncates, so dQ, dK and dV summed in them over a long sequence
+//     drift one way, by about 2^-23 of the running sum a step: where P is
+//     near 1/2 (a row of 2 real keys) that passed the f32 tolerance at
+//     L = 1024 on the card. Every kFlushRows = 256 rows of the sequence
+//     each thread adds its partial sums into dq (dk, dv) in device memory
+//     and starts again from zero.
+//   * Registers: K2 holds dQ (D / 2 a thread) beside S and dP of a 32-key
+//     tile (16 each); K3 up to D = 64 holds dK and dV (D) beside S^T and
+//     dP^T of a 32-row q tile. Above 64 that and the flushes would pass
+//     255, so two warps share 16 keys there, each computing their S^T and
+//     dP^T and owning half of the n-blocks of dK and dV (12 * D flops a
+//     pair, not 8 * D; 32 keys a block, 101,376 bytes, two blocks an SM).
+//     ptxas reports no spill at any instantiation.
+//   * Causal: K2 never loads kv tiles above its last row, K3 starts at the
+//     first q tile whose last row sees its first key, and a warp whose rows
+//     see nothing of a tile skips its arithmetic.
+//   * Rows that see no key: their lse is EMPTY_LSE (-1e30), so exp gives
+//     inf, but every pair of such a row is masked and takes P = 0 before
+//     dS is formed: no inf reaches a split.
+//   * Head dims 8 to 128 in steps of 8: the k-steps of the products over D
+//     are 8 wide, so none reads a padding column; the n-blocks of dQ, dK
+//     and dV are 8 wide. Each D is its own instantiation.
+//
+// Build (plain C interface, loaded with ctypes):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -o libzoo_flash_attn_bwd_f32tc.so \
+//        flash_attn_bwd_f32tc.cu
+
+#include "flash_attn_bwd.cuh"
+
+namespace {
+
+constexpr int kTcPad = 4;  // f32 of row padding (16 bytes)
+constexpr int kFlushRows = 256;  // rows of the sequence a partial sum
+                                 // takes in the accumulators
+
+// Tiles by head dim, chosen on the card (NVIDIA H100 80GB HBM3): f32 tiles
+// are twice bf16's bytes, so blocks an SM are scarce, and more of them beat
+// double-buffering within a block.
+template <int D>
+struct TcCfg {
+  // K2: keys a streamed tile, its stages, and the blocks an SM ptxas
+  // budgets registers for (__launch_bounds__). Shared memory: Q and dO
+  // (64 rows) and K and V with their lo planes (4 x kKv rows a stage),
+  // rows of D + 4 floats: 69,632 bytes at D = 64 (3 blocks an SM if the
+  // registers allow), 202,752 at D = 128 (one)
+  static constexpr int kKv = 32;
+  static constexpr int kKvStages = D <= 64 ? 1 : 2;
+  static constexpr int kDqBlocks = D <= 64 ? 2 : 1;
+  // K3: keys a block, q rows a streamed tile (also the q columns of S^T
+  // and dP^T), one stage, two blocks an SM. Up to D = 64 a warp owns 16
+  // keys and all of dK and dV (D registers a thread): 69,632 bytes of
+  // tiles. Above 64, where dK and dV with the flushes would need more
+  // than 255 registers, two warps share 16 keys, each owning half of the
+  // n-blocks of dK and dV (both compute the keys' S^T and dP^T: 12 * D
+  // flops a pair, not 8 * D), so a block owns 32 keys: 101,376 bytes at
+  // D = 128
+  static constexpr bool kSplitD = D > 64;
+  static constexpr int kKeys = kSplitD ? 32 : 64;
+  static constexpr int kQt = 32;
+  static constexpr int kDkvBlocks = 2;
+};
+
+// x rounded to tf32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero, 13 low bits zero), by an integer add and mask: the same bits
+// for every finite x, and on the card faster than the cvt instruction
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo up to 2^-22 |x|, both tf32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 4 f32 matrices (8 x 8 b16), one row address a lane
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// offset of a lane's row address for the A fragment of 16 rows, k-step 0
+// (add 8 * c for k-step c): matrices (rows 0-7, cols 0-3), (8-15, 0-3),
+// (0-7, 4-7), (8-15, 4-7) give a0..a3
+template <int LD>
+__device__ __forceinline__ int a_frag_off(int lane) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 4;
+}
+
+// the same for the B fragments of two n-blocks of 8 rows (K-major): (rows
+// 0-7, cols 0-3), (0-7, 4-7), (8-15, 0-3), (8-15, 4-7) give b0 and b1 of
+// the first, then of the second
+template <int LD>
+__device__ __forceinline__ int b_frag_off(int lane) {
+  return ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(a), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(a), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// start copying `rows` rows of D floats (row stride `sl`) into a tile of
+// row pitch LD, 16 bytes a copy
+template <int D, int LD>
+__device__ __forceinline__ void copy_tile(float* t, const float* src,
+                                          long long sl, int rows, int tid) {
+  constexpr int kChunks = D / 4;
+  for (int i = tid; i < rows * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = (i - r * kChunks) * 4;
+    cp_async16(t + r * LD + c, src + r * sl + c);
+  }
+}
+
+// the A fragment {c0, c2, c1, c3} of accumulator block x (the contraction
+// index relabelled within the block of 8), split
+__device__ __forceinline__ void acc_as_a(const float (&x)[4], uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[2], hi[1], lo[1]);
+  split_tf32(x[1], hi[2], lo[2]);
+  split_tf32(x[3], hi[3], lo[3]);
+}
+
+// c[n] += A B[:, n-block n] for NB n-blocks (the first `nb` of them) of a
+// row-major tile whose rows are the contraction index, split into hi and
+// lo planes: B's k = t and t + 4 are rows 2t and 2t + 1 from `rh` and `rl`
+// (row kr + 2t, column g of the first n-block) of the relabelled block;
+// 4 n-blocks at a time, each pass of the three over all of them before
+// the next
+template <int NB, int LD>
+__device__ __forceinline__ void mma_rows(float (&c)[NB][4],
+                                         const uint32_t (&ahi)[4],
+                                         const uint32_t (&alo)[4],
+                                         const float* rh, const float* rl,
+                                         int nb = NB) {
+  constexpr int kG = 4;
+#pragma unroll
+  for (int n0 = 0; n0 < NB; n0 += kG) {
+    uint32_t bh[kG][2], bl[kG][2];
+#pragma unroll
+    for (int i = 0; i < kG; ++i) {
+      if (n0 + i < NB && n0 + i < nb) {
+        bh[i][0] = __float_as_uint(rh[(n0 + i) * 8]);
+        bh[i][1] = __float_as_uint(rh[LD + (n0 + i) * 8]);
+        bl[i][0] = __float_as_uint(rl[(n0 + i) * 8]);
+        bl[i][1] = __float_as_uint(rl[LD + (n0 + i) * 8]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kG; ++i) {
+      if (n0 + i < NB && n0 + i < nb) {
+        mma_tf32(c[n0 + i], alo, bh[i][0], bh[i][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kG; ++i) {
+      if (n0 + i < NB && n0 + i < nb) {
+        mma_tf32(c[n0 + i], ahi, bl[i][0], bl[i][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kG; ++i) {
+      if (n0 + i < NB && n0 + i < nb) {
+        mma_tf32(c[n0 + i], ahi, bh[i][0], bh[i][1]);
+      }
+    }
+  }
+}
+
+// S (or S^T) and dP (dP^T) += A B^T over D for NB n-blocks of 8 rows of two
+// K-major tiles: A split here from `a_s` and `a_d`, B from the hi and lo
+// planes `b_sh`, `b_sl`, `b_dh`, `b_dl`, each pointing at the lane's
+// fragment rows (a_frag_off, b_frag_off)
+template <int D, int NB, int LD>
+__device__ __forceinline__ void mma_over_d(float (&s)[NB][4],
+                                           float (&dp)[NB][4],
+                                           const float* a_s, const float* a_d,
+                                           const float* b_sh,
+                                           const float* b_sl,
+                                           const float* b_dh,
+                                           const float* b_dl) {
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    uint32_t x[4], shi[4], slo[4], dhi[4], dlo[4];
+    ldsm_x4(x, a_s + 8 * c);
+    split_tf32(x, shi, slo);
+    ldsm_x4(x, a_d + 8 * c);
+    split_tf32(x, dhi, dlo);
+#pragma unroll
+    for (int n = 0; n < NB; n += 2) {
+      const int at = n * 8 * LD + 8 * c;
+      uint32_t hi[2][4], lo[2][4];
+      ldsm_x4(hi[0], b_sh + at);
+      ldsm_x4(lo[0], b_sl + at);
+      ldsm_x4(hi[1], b_dh + at);
+      ldsm_x4(lo[1], b_dl + at);
+      // the four products' lo_a hi_b, then hi_a lo_b, then hi_a hi_b: no
+      // mma waits on the one before it
+      mma_tf32(s[n], slo, hi[0][0], hi[0][1]);
+      mma_tf32(s[n + 1], slo, hi[0][2], hi[0][3]);
+      mma_tf32(dp[n], dlo, hi[1][0], hi[1][1]);
+      mma_tf32(dp[n + 1], dlo, hi[1][2], hi[1][3]);
+      mma_tf32(s[n], shi, lo[0][0], lo[0][1]);
+      mma_tf32(s[n + 1], shi, lo[0][2], lo[0][3]);
+      mma_tf32(dp[n], dhi, lo[1][0], lo[1][1]);
+      mma_tf32(dp[n + 1], dhi, lo[1][2], lo[1][3]);
+      mma_tf32(s[n], shi, hi[0][0], hi[0][1]);
+      mma_tf32(s[n + 1], shi, hi[0][2], hi[0][3]);
+      mma_tf32(dp[n], dhi, hi[1][0], hi[1][1]);
+      mma_tf32(dp[n + 1], dhi, hi[1][2], hi[1][3]);
+    }
+  }
+}
+
+// split `rows` rows of D floats of a tile in place: the tile keeps hi,
+// `lo` (same pitch) gets lo
+template <int D, int LD>
+__device__ __forceinline__ void split_tile(float* t, float* lo, int rows,
+                                           int tid) {
+  constexpr int kChunks = D / 4;
+  for (int i = tid; i < rows * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int at = r * LD + (i - r * kChunks) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(t + at);
+    uint32_t h[4], l[4];
+    split_tf32(x.x, h[0], l[0]);
+    split_tf32(x.y, h[1], l[1]);
+    split_tf32(x.z, h[2], l[2]);
+    split_tf32(x.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(t + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// K2: Q and dO, the K and V stages (hi and lo), delta, the stages' mask
+// bytes
+template <int D>
+constexpr size_t dq_f32tc_smem_bytes() {
+  using C = TcCfg<D>;
+  return (2 * kTile + 4 * C::kKvStages * C::kKv) * (D + kTcPad)
+             * sizeof(float)
+         + kTile * sizeof(float) + C::kKvStages * C::kKv;
+}
+
+// K3: K and V of the block's keys, a Q and a dO tile (hi and lo), their
+// lse and delta, the dV share of the rows that see no key, the first real
+// key
+template <int D>
+constexpr size_t dkv_f32tc_smem_bytes() {
+  using C = TcCfg<D>;
+  return (2 * C::kKeys + 4 * C::kQt) * (D + kTcPad) * sizeof(float)
+         + 2 * C::kQt * sizeof(float) + D * sizeof(float) + 16;
+}
+
+// a thread's accumulator fragments of 16 rows x NB n-blocks (the first
+// `nb` of them; rows ra and rb of `out`, row stride sl) stored, or with
+// `add` added to what is there; `e` (or null) adds one vector to every row
+template <int NB>
+__device__ __forceinline__ void store_rows(float* out, long long sl, int ra,
+                                           int rb, int t4,
+                                           const float (&c)[NB][4],
+                                           bool add, const float* e,
+                                           int nb = NB) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    if (n >= nb) break;
+    const int col = n * 8 + t4 * 2;
+    float2* pa = reinterpret_cast<float2*>(out + ra * sl + col);
+    float2* pb = reinterpret_cast<float2*>(out + rb * sl + col);
+    float2 xa = make_float2(c[n][0], c[n][1]);
+    float2 xb = make_float2(c[n][2], c[n][3]);
+    if (e != nullptr) {
+      xa.x += e[col];
+      xa.y += e[col + 1];
+      xb.x += e[col];
+      xb.y += e[col + 1];
+    }
+    if (add) {
+      const float2 oa = *pa, ob = *pb;
+      xa.x += oa.x;
+      xa.y += oa.y;
+      xb.x += ob.x;
+      xb.y += ob.y;
+    }
+    *pa = xa;
+    *pb = xb;
+  }
+}
+
+// ----------------------------------------------------------------- K2 --
+template <int D, bool kMask>
+__global__ void __launch_bounds__(kThreads, TcCfg<D>::kDqBlocks)
+flash_bwd_dq_f32tc_kernel(const Params p) {
+  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
+  constexpr int LD = D + kTcPad;
+  constexpr int KV = TcCfg<D>::kKv;          // keys a tile
+  constexpr int ST = TcCfg<D>::kKvStages;
+  constexpr int kN = KV / 8;                 // n-blocks of S and dP
+  static_assert(kTile % KV == 0 && kN % 2 == 0, "kv tiles");
+  extern __shared__ __align__(16) unsigned char zoo_smem[];
+  float* sQ = reinterpret_cast<float*>(zoo_smem);
+  float* sDO = sQ + kTile * LD;
+  // stage s: K (hi after the split), its lo, V, its lo, KV rows each
+  float* sKV = sDO + kTile * LD;
+  float* sDelta = sKV + 4 * ST * KV * LD;
+  uint8_t* sM = reinterpret_cast<uint8_t*>(sDelta + kTile);  // ST x KV
+
+  const int qt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int q0 = qt * kTile;
+  const int offset = p.lk - p.lq;
+
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hh * p.v_sh;
+  const float* o = static_cast<const float*>(p.o) + b * p.o_sb + hh * p.o_sh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.do_sb + hh * p.do_sh;
+  float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + hh * p.dq_sh;
+  const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
+
+  int n_tiles = p.lk / KV;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kTile - 1 + offset) / KV + 1);
+
+  // tile kt into stage s, and one copy group for it (an empty one past
+  // the last tile, so that every iteration waits for the same count)
+  auto load_kv = [&](int kt, int s) {
+    if (kt < n_tiles) {
+      const long long r0 = static_cast<long long>(kt) * KV;
+      float* st = sKV + 4 * s * KV * LD;
+      copy_tile<D, LD>(st, k + r0 * p.k_sl, p.k_sl, KV, tid);
+      copy_tile<D, LD>(st + 2 * KV * LD, v + r0 * p.v_sl, p.v_sl, KV, tid);
+      if (kMask && tid < KV / 4) {
+        cp_async4(sM + s * KV + 4 * tid, mrow + r0 + 4 * tid);
+      }
+    }
+    cp_async_commit();
+  };
+  copy_tile<D, LD>(sQ, q + q0 * p.q_sl, p.q_sl, kTile, tid);
+  copy_tile<D, LD>(sDO, dout + q0 * p.do_sl, p.do_sl, kTile, tid);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < ST; ++s) load_kv(s, s);
+  cp_async_wait<ST>();  // Q and dO
+  __syncthreads();
+  {
+    // delta = rowsum(dO * O) in f32: two threads a row, taking its
+    // 4-float chunks in turn
+    const int r = tid >> 1;
+    const int half = tid & 1;
+    const float* orow = o + (q0 + r) * p.o_sl;
+    const float* drow = sDO + r * LD;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = half * 4; c < D; c += 8) {
+      const float4 a = *reinterpret_cast<const float4*>(orow + c);
+      const float4 e = *reinterpret_cast<const float4*>(drow + c);
+      acc = fmaf(a.x, e.x, acc);
+      acc = fmaf(a.y, e.y, acc);
+      acc = fmaf(a.z, e.z, acc);
+      acc = fmaf(a.w, e.w, acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      sDelta[r] = acc;
+      p.delta[static_cast<long long>(bh) * p.lq + q0 + r] = acc;
+    }
+  }
+
+  const int row0 = warp * 16;          // this warp's first row in the block
+  const int ra = row0 + g;             // a thread's two rows
+  const int rb = ra + 8;
+  const long long at = static_cast<long long>(bh) * p.lq + q0;
+  const float lse_a = p.lse[at + ra] * kLog2e;
+  const float lse_b = p.lse[at + rb] * kLog2e;
+  const float* qa = sQ + row0 * LD + a_frag_off<LD>(lane);
+  const float* da = sDO + row0 * LD + a_frag_off<LD>(lane);
+  const int boff = b_frag_off<LD>(lane);
+  __syncthreads();  // delta
+  const float del_a = sDelta[ra], del_b = sDelta[rb];
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  }
+
+  bool flushed = false;  // dq holds a partial sum
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int s = kt % ST;
+    cp_async_wait<ST - 1>();
+    __syncthreads();  // tile kt (and its mask bytes) in stage s
+    float* tK = sKV + 4 * s * KV * LD;
+    float* tKl = tK + KV * LD;
+    float* tV = tKl + KV * LD;
+    float* tVl = tV + KV * LD;
+    split_tile<D, LD>(tK, tKl, KV, tid);
+    split_tile<D, LD>(tV, tVl, KV, tid);
+    const uint8_t* tM = sM + s * KV;
+    __syncthreads();  // split
+
+    // a warp whose rows all lie above this tile has nothing to add
+    if (!(p.causal && q0 + row0 + 15 + offset < kt * KV)) {
+      // S = Q K^T and dP = dO V^T for 16 rows x KV keys
+      float sc[kN][4], dp[kN][4];
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+      }
+      mma_over_d<D, kN, LD>(sc, dp, qa, da, tK + boff, tKl + boff,
+                            tV + boff, tVl + boff);
+
+      // dS = P * (dP - delta) * scale, P = exp(scale * S - lse); masked
+      // pairs (and so every pair of a row that sees no key) take P = 0
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool top = e < 2;
+          const int col = n * 8 + t4 * 2 + (e & 1);  // key within the tile
+          float pr = exp2f(sc[n][e] * p.scale_log2 - (top ? lse_a : lse_b));
+          if (p.causal && kt * KV + col > q0 + (top ? ra : rb) + offset) {
+            pr = 0.f;
+          }
+          if (kMask && tM[col] == 0) pr = 0.f;
+          sc[n][e] = pr * (dp[n][e] - (top ? del_a : del_b)) * p.scale;
+        }
+      }
+
+      // dQ += dS K, a block of 8 keys at a time
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        uint32_t ahi[4], alo[4];
+        acc_as_a(sc[j], ahi, alo);
+        const int at = (j * 8 + 2 * t4) * LD + g;
+        mma_rows<D / 8, LD>(acc, ahi, alo, tK + at, tKl + at);
+      }
+    }
+    __syncthreads();  // every warp is done with stage s
+    load_kv(kt + ST, s);
+    // every kFlushRows keys dQ leaves the accumulators for dq in device
+    // memory, as K3's dK and dV do (the truncating accumulation)
+    if ((kt + 1) % (kFlushRows / KV) == 0 && kt + 1 < n_tiles) {
+      store_rows<D / 8>(dq, p.dq_sl, q0 + ra, q0 + rb, t4, acc, flushed,
+                        nullptr);
+      flushed = true;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+      }
+    }
+  }
+
+  store_rows<D / 8>(dq, p.dq_sl, q0 + ra, q0 + rb, t4, acc, flushed,
+                    nullptr);
+}
+
+// ----------------------------------------------------------------- K3 --
+template <int D, bool kMask>
+__global__ void __launch_bounds__(kThreads, TcCfg<D>::kDkvBlocks)
+flash_bwd_dkv_f32tc_kernel(const Params p) {
+  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
+  constexpr int LD = D + kTcPad;
+  constexpr int KB = TcCfg<D>::kKeys;    // keys a block
+  constexpr int QT = TcCfg<D>::kQt;      // q rows a tile, columns of S^T
+  constexpr int kN = QT / 8;
+  constexpr bool kSplitD = TcCfg<D>::kSplitD;
+  // n-blocks of dK and dV a warp owns: all, or the first or second half
+  constexpr int kNbAll = D / 8;
+  constexpr int kNbOwn = kSplitD ? (kNbAll + 1) / 2 : kNbAll;
+  static_assert(kTile % QT == 0 && kN % 2 == 0 && 2 * QT <= kThreads
+                && KB == (kSplitD ? 2 : 4) * 16, "tiles");
+  extern __shared__ __align__(16) unsigned char zoo_smem[];
+  float* sK = reinterpret_cast<float*>(zoo_smem);
+  float* sV = sK + KB * LD;
+  // Q (hi after the split), its lo, dO, its lo, QT rows each
+  float* sQ = sV + KB * LD;
+  float* sQl = sQ + QT * LD;
+  float* sDO = sQl + QT * LD;
+  float* sDOl = sDO + QT * LD;
+  float* sLse = sDOl + QT * LD;          // QT, then delta's QT
+  float* sDelta = sLse + QT;
+  float* sE = sDelta + QT;               // D: dV share of rows without a key
+  int* sFirst = reinterpret_cast<int*>(sE + D);
+
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int k0 = kt * KB;
+  const int offset = p.lk - p.lq;
+
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hh * p.v_sh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.do_sb + hh * p.do_sh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.lq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.lq;
+  const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
+
+  // the first q tile whose last row sees this block's first key
+  int first = 0;
+  if (p.causal) {
+    const int x = k0 - offset - (QT - 1);
+    first = x > 0 ? (x + QT - 1) / QT : 0;
+  }
+  const int n_tiles = p.lq / QT;
+
+  // start copying q tile qt with its lse and delta (one copy group)
+  auto load_q = [&](int qt) {
+    const long long r0 = static_cast<long long>(qt) * QT;
+    copy_tile<D, LD>(sQ, q + r0 * p.q_sl, p.q_sl, QT, tid);
+    copy_tile<D, LD>(sDO, dout + r0 * p.do_sl, p.do_sl, QT, tid);
+    if (tid < 2 * QT) {
+      cp_async4(sLse + tid, tid < QT ? lse + r0 + tid : delta + r0 + tid - QT);
+    }
+    cp_async_commit();
+  };
+
+  copy_tile<D, LD>(sK, k + k0 * p.k_sl, p.k_sl, KB, tid);
+  copy_tile<D, LD>(sV, v + k0 * p.v_sl, p.v_sl, KB, tid);
+  load_q(first);
+  if (kMask) {
+    // P^T dO for the rows that see no key (P = 1/Lk)
+    empty_rows_dv<D>(sE, sFirst, mrow, dout, p.do_sl, p.lq, p.lk, p.causal,
+                     1.f / p.lk, tid);
+  }
+
+  // this warp's 16 keys, and the n-blocks of dK and dV it owns: the
+  // warps of a pair (split D) take the first kNbOwn and the rest
+  const int row0 = (kSplitD ? warp >> 1 : warp) * 16;
+  const int nb0 = kSplitD ? (warp & 1) * kNbOwn : 0;
+  const int nb = kSplitD && (warp & 1) ? kNbAll - kNbOwn : kNbOwn;
+  const int ka = k0 + row0 + g;        // the two keys a thread holds
+  const int kb = ka + 8;
+  const bool real_a = !kMask || mrow[ka] != 0;
+  const bool real_b = !kMask || mrow[kb] != 0;
+  const float* kf = sK + row0 * LD + a_frag_off<LD>(lane);
+  const float* vf = sV + row0 * LD + a_frag_off<LD>(lane);
+  const int boff = b_frag_off<LD>(lane);
+  float* dk = static_cast<float*>(p.dk) + b * p.dk_sb + hh * p.dk_sh
+              + nb0 * 8;
+  float* dv = static_cast<float*>(p.dv) + b * p.dv_sb + hh * p.dv_sh
+              + nb0 * 8;
+
+  float acc_k[kNbOwn][4], acc_v[kNbOwn][4];
+#pragma unroll
+  for (int n = 0; n < kNbOwn; ++n) {
+    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
+    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
+  }
+
+  bool flushed = false;  // dk and dv hold a partial sum
+  for (int qt = first; qt < n_tiles; ++qt) {
+    const int q0 = qt * QT;
+    cp_async_wait<0>();
+    __syncthreads();  // q tile qt (and K, V the first time)
+    split_tile<D, LD>(sQ, sQl, QT, tid);
+    split_tile<D, LD>(sDO, sDOl, QT, tid);
+    __syncthreads();  // split
+
+    // nothing to add where the warp's first key lies after every view
+    if (!(p.causal && k0 + row0 > q0 + QT - 1 + offset)) {
+      // S^T = K Q^T and dP^T = V dO^T for 16 keys x QT queries
+      float sc[kN][4], dp[kN][4];
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+      }
+      mma_over_d<D, kN, LD>(sc, dp, kf, vf, sQ + boff, sQl + boff,
+                            sDO + boff, sDOl + boff);
+
+      // P^T and dS^T; the columns are queries
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool top = e < 2;
+          const int qc = n * 8 + t4 * 2 + (e & 1);
+          float pr = exp2f(sc[n][e] * p.scale_log2 - sLse[qc] * kLog2e);
+          if (p.causal && (top ? ka : kb) > q0 + qc + offset) pr = 0.f;
+          if (kMask && !(top ? real_a : real_b)) pr = 0.f;
+          sc[n][e] = pr;
+          dp[n][e] = pr * (dp[n][e] - sDelta[qc]) * p.scale;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q over the owned n-blocks, a block of
+      // 8 queries at a time
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        const int at = (j * 8 + 2 * t4) * LD + g + nb0 * 8;
+        uint32_t ahi[4], alo[4];
+        acc_as_a(sc[j], ahi, alo);
+        mma_rows<kNbOwn, LD>(acc_v, ahi, alo, sDO + at, sDOl + at, nb);
+        acc_as_a(dp[j], ahi, alo);
+        mma_rows<kNbOwn, LD>(acc_k, ahi, alo, sQ + at, sQl + at, nb);
+      }
+    }
+    __syncthreads();  // every warp is done with the tile
+    if (qt + 1 < n_tiles) {
+      load_q(qt + 1);
+      // every kFlushRows q rows dK and dV leave the accumulators for dk
+      // and dv in device memory (each thread adds to its own elements):
+      // the tensor cores' accumulation truncates, so a sum run in them
+      // over a long sequence drifts one way, about 2^-23 of the running
+      // sum a step (past the f32 tolerance at Lq = 1024 where P is near
+      // 1/2)
+      if ((qt - first + 1) % (kFlushRows / QT) == 0) {
+        store_rows<kNbOwn>(dk, p.dk_sl, ka, kb, t4, acc_k, flushed,
+                           nullptr, nb);
+        store_rows<kNbOwn>(dv, p.dv_sl, ka, kb, t4, acc_v, flushed,
+                           nullptr, nb);
+        flushed = true;
+#pragma unroll
+        for (int n = 0; n < kNbOwn; ++n) {
+          acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
+          acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
+        }
+      }
+    }
+  }
+
+  store_rows<kNbOwn>(dk, p.dk_sl, ka, kb, t4, acc_k, flushed, nullptr, nb);
+  store_rows<kNbOwn>(dv, p.dv_sl, ka, kb, t4, acc_v, flushed,
+                     kMask ? sE + nb0 * 8 : nullptr, nb);
+}
+
+}  // namespace
+
+// K2 in f32 at a head dim up to 128 (a multiple of 8). Arguments and return
+// codes as zoo_flash_attn_bwd_dq's (flash_attn_bwd_dq.cu); 1004 for bf16 or
+// a head dim above 128, which other sources take.
+extern "C" int zoo_flash_attn_bwd_dq_f32tc(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq,
+    int dtype, int batch, int heads, int lq, int lk, int d,
+    long long q_sb, long long q_sh, long long q_sl,
+    long long k_sb, long long k_sh, long long k_sl,
+    long long v_sb, long long v_sh, long long v_sl,
+    long long o_sb, long long o_sh, long long o_sl,
+    long long do_sb, long long do_sh, long long do_sl,
+    long long dq_sb, long long dq_sh, long long dq_sl,
+    const void* mask, long long mask_sb,
+    float scale, int causal, void* stream) {
+  const int bad = check(dtype, lq, lk, batch, heads, causal);
+  if (bad) return bad;
+  if (dtype != 0) return 1004;
+  Params p = {};
+  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.mask_sb = mask_sb;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.dq = dq;
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
+  p.do_sb = do_sb; p.do_sh = do_sh; p.do_sl = do_sl;
+  p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_sl = dq_sl;
+  p.h = heads; p.lq = lq; p.lk = lk;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  p.causal = causal;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool masked = mask != nullptr;
+  return with_head_dim(d, [&](auto dc) -> int {
+    constexpr int D = decltype(dc)::value;
+    if constexpr (D > 128) {
+      return 1004;
+    } else {
+      const dim3 grid(lq / kTile, batch * heads);
+      constexpr size_t smem = dq_f32tc_smem_bytes<D>();
+      return masked
+          ? launch(flash_bwd_dq_f32tc_kernel<D, true>, grid, smem, p, s)
+          : launch(flash_bwd_dq_f32tc_kernel<D, false>, grid, smem, p, s);
+    }
+  });
+}
+
+// K3 in f32 at a head dim up to 128: reads the delta K2 wrote; writes dk
+// and dv. Arguments and return codes as zoo_flash_attn_bwd_dkv's.
+extern "C" int zoo_flash_attn_bwd_dkv_f32tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    int dtype, int batch, int heads, int lq, int lk, int d,
+    long long q_sb, long long q_sh, long long q_sl,
+    long long k_sb, long long k_sh, long long k_sl,
+    long long v_sb, long long v_sh, long long v_sl,
+    long long do_sb, long long do_sh, long long do_sl,
+    long long dk_sb, long long dk_sh, long long dk_sl,
+    long long dv_sb, long long dv_sh, long long dv_sl,
+    const void* mask, long long mask_sb,
+    float scale, int causal, void* stream) {
+  const int bad = check(dtype, lq, lk, batch, heads, causal);
+  if (bad) return bad;
+  if (dtype != 0) return 1004;
+  Params p = {};
+  p.q = q; p.k = k; p.v = v; p.dout = dout;
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.mask_sb = mask_sb;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = const_cast<float*>(static_cast<const float*>(delta));
+  p.dk = dk; p.dv = dv;
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
+  p.do_sb = do_sb; p.do_sh = do_sh; p.do_sl = do_sl;
+  p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_sl = dk_sl;
+  p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_sl = dv_sl;
+  p.h = heads; p.lq = lq; p.lk = lk;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  p.causal = causal;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool masked = mask != nullptr;
+  return with_head_dim(d, [&](auto dc) -> int {
+    constexpr int D = decltype(dc)::value;
+    if constexpr (D > 128) {
+      return 1004;
+    } else {
+      const dim3 grid(lk / TcCfg<D>::kKeys, batch * heads);
+      constexpr size_t smem = dkv_f32tc_smem_bytes<D>();
+      return masked
+          ? launch(flash_bwd_dkv_f32tc_kernel<D, true>, grid, smem, p, s)
+          : launch(flash_bwd_dkv_f32tc_kernel<D, false>, grid, smem, p, s);
+    }
+  });
+}

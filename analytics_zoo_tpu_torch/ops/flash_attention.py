@@ -14,7 +14,10 @@ K3 for the same calls, the same design; ``_bwd_entry`` picks them; both
 share ``csrc/flash_attn_sm90.cuh``), ``csrc/flash_attn_fwd.cu`` (every
 other forward) and ``csrc/flash_attn_bwd.cuh`` (design notes there),
 whose K2 and K3 for every other call are built by
-``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu``;
+``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu``, except
+f32 at head dims up to 128, masked or not, which
+``csrc/flash_attn_bwd_f32tc.cu`` takes (3xTF32 ``mma.sync`` on the tensor
+cores at f32 accuracy, ``cp.async`` tile copies; ``_bwd_entry`` picks it);
 each source is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` at the repository root (a per-user cache for an installed
 package), side by side, and loaded through ``ctypes``.
@@ -47,7 +50,8 @@ those at a head dim up to 128 that is not a multiple of 64 (K5b) in
 ``<wrapper>.small_d_launches``, and those above 128 in
 ``<wrapper>.wide_d_launches`` (the head dim tells which design ran:
 192 and 256, or D split across warps at 320 to 512); each wrapper's
-``sm90_launches`` counts its launches of the Hopper kernels.
+``sm90_launches`` counts its launches of the Hopper kernels, and K2's
+and K3's ``f32tc_launches`` those of the f32 tensor-core kernels.
 
 K5b is the counterpart of the reference's stock-kernel branch at such
 head dims (``analytics_zoo_tpu/ops/attention.py:116``: JAX's stock Pallas
@@ -111,6 +115,9 @@ torch.exp(torch.zeros(1 << 17))
 HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448, 512)
 # head dims of the Hopper kernels (bf16, no mask; _fwd_entry, _bwd_entry)
 SM90_HEAD_DIMS = (64, 128, 192, 256)
+# the largest head dim of K2's and K3's f32 tensor-core kernels (f32,
+# masked or not; _bwd_entry)
+F32TC_MAX_D = 128
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -141,6 +148,12 @@ _ENTRY_POINTS = {
     "zoo_flash_attn_bwd_dkv_sm90": ("flash_attn_bwd_sm90",
                                     [_P] * 8 + [_I] * 6 + [_L] * 18
                                     + _TAIL[2:]),
+    # the old entries' arguments, mask included
+    "zoo_flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_f32tc",
+                                    [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
+    "zoo_flash_attn_bwd_dkv_f32tc": ("flash_attn_bwd_f32tc",
+                                     [_P] * 8 + [_I] * 6 + [_L] * 18
+                                     + _TAIL),
 }
 
 _lib: Optional[Dict[str, ctypes.CDLL]] = None
@@ -474,9 +487,11 @@ def _stream(t: torch.Tensor) -> int:
 
 def _kernel_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """The key-padding mask as the kernels read it: contiguous bytes,
-    nonzero = real. A contiguous uint8 mask is taken as it is; any
-    other is converted once (``mask != 0``)."""
-    if mask is None or (mask.dtype == torch.uint8 and mask.is_contiguous()):
+    nonzero = real, starting on a 16-byte boundary (the f32 tensor-core
+    K2 copies it 4 bytes at a time). A contiguous uint8 mask so placed is
+    taken as it is; any other is converted once (``mask != 0``)."""
+    if mask is None or (mask.dtype == torch.uint8 and mask.is_contiguous()
+                        and mask.data_ptr() % 16 == 0):
         return mask
     return mask.ne(0).contiguous().view(torch.uint8)
 
@@ -509,11 +524,15 @@ def _fwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> str:
 def _bwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> Tuple[str, str]:
     """The backward entry points a call takes, K2's and K3's: the Hopper
     kernels of ``flash_attn_bwd_sm90.cu`` (TMA, a producer warpgroup,
-    wgmma) for bf16 without a mask at ``SM90_HEAD_DIMS``;
+    wgmma) for bf16 without a mask at ``SM90_HEAD_DIMS``; those of
+    ``flash_attn_bwd_f32tc.cu`` (3xTF32 mma.sync, cp.async) for f32 at
+    every head dim up to ``F32TC_MAX_D``, masked or not;
     ``flash_attn_bwd_dq.cu`` and ``flash_attn_bwd_dkv.cu`` for every other
-    call (f32, a mask, K5b, D above 256)."""
+    call (bf16 with a mask, bf16 K5b, D above 256, f32 above 128)."""
     if dtype == torch.bfloat16 and not masked and dp in SM90_HEAD_DIMS:
         return "zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90"
+    if dtype == torch.float32 and dp <= F32TC_MAX_D:
+        return "zoo_flash_attn_bwd_dq_f32tc", "zoo_flash_attn_bwd_dkv_f32tc"
     return "zoo_flash_attn_bwd_dq", "zoo_flash_attn_bwd_dkv"
 
 
@@ -574,7 +593,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     lk = k.shape[2]
     dq = _empty_bhld(b, h, lq, dp, q)
     delta = torch.empty(b * h, lq, dtype=torch.float32, device=q.device)
-    sm90 = name == "zoo_flash_attn_bwd_dq_sm90"
+    sm90 = name.endswith("_sm90")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             _DTYPE_CODE[q.dtype], b, h, lq, lk, dp,
@@ -587,6 +606,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
                            f"code {rc}")
     _count(flash_attention_bwd_dq, mask, dp)
     flash_attention_bwd_dq.sm90_launches += sm90
+    flash_attention_bwd_dq.f32tc_launches += name.endswith("_f32tc")
     return _cut(d, dq)[0], delta
 
 
@@ -613,7 +633,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     lk = k.shape[2]
     dk = _empty_bhld(b, h, lk, dp, k)
     dv = _empty_bhld(b, h, lk, dp, v)
-    sm90 = name == "zoo_flash_attn_bwd_dkv_sm90"
+    sm90 = name.endswith("_sm90")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPE_CODE[q.dtype], b, h, lq, lk, dp,
@@ -626,6 +646,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                            f"code {rc}")
     _count(flash_attention_bwd_dkv, mask, dp)
     flash_attention_bwd_dkv.sm90_launches += sm90
+    flash_attention_bwd_dkv.f32tc_launches += name.endswith("_f32tc")
     return _cut(d, dk, dv)
 
 
@@ -707,8 +728,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # kernel launches of each wrapper, those of them given a mask, those at a
 # head dim up to 128 that is not a multiple of 64 (K5b, forward and
-# backward), those above 128 (192 to 512, forward and backward) and those
+# backward), those above 128 (192 to 512, forward and backward), those
 # of the Hopper kernels (flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu)
+# and, for K2 and K3, those of the f32 tensor-core kernels
+# (flash_attn_bwd_f32tc.cu)
 for _wrapper in (flash_attention, flash_attention_bwd_dq,
                  flash_attention_bwd_dkv):
     _wrapper.launches = 0
@@ -716,4 +739,6 @@ for _wrapper in (flash_attention, flash_attention_bwd_dq,
     _wrapper.small_d_launches = 0
     _wrapper.wide_d_launches = 0
     _wrapper.sm90_launches = 0
+for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    _wrapper.f32tc_launches = 0
 del _wrapper

@@ -23,7 +23,9 @@ Phases:
 3. Backward kernels: runs K1 without and with logsumexp (out and lse),
    then K2 (dQ and delta) and K3 (dK/dV) on the kernel's checked out and
    lse, each through its wrapper against its plain version on the card
-   (bf16 runs the Hopper kernels of phases 22 and 23) -- the trained
+   (bf16 runs the Hopper kernels of phases 22 and 23, f32 K2 and K3 the
+   tensor-core kernels of phase 24; every case fails unless K2 and K3
+   ran where _bwd_entry sends it) -- the trained
    call ([48,12,384,64] q/k/v as views into a
    [48,384,3,12,64] projection, random dO) in bf16 and f32, causal
    [8,12,512,64] bf16, cross-length causal [1,2,128->384,128] in bf16
@@ -254,6 +256,27 @@ Phases:
    device time) beside its plain version, SDPA's backward and its bound.
    The masked NER fit's K2 and K3 stay on the older sources (phase 7
    says so).
+24. K2/K3 f32 tensor cores: K2 and K3 in f32 at every head dim up to 128
+   (flash_attn_bwd_f32tc.cu: 3xTF32 mma.sync, cp.async tile copies,
+   streamed tiles split once a block into hi and lo planes, partial sums
+   flushed to device memory every 256 rows) through
+   backward_phase, with K1 and K1-lse beside them: every instantiation
+   once (D = 8..128 in steps of 8; q/k/v views into a fused projection
+   causal and not; _k5b_mask's rows, one with no real key, causal and
+   not; lq < lk causal, unmasked and with rows that see no key; then
+   the same masks at L = 1024, D = 32, 64 and 128, where rows of 2 real
+   keys would show a sum run in the tensor cores' accumulators drifting;
+   99 cases, one summary line, each counting one K2 and one K3 launch in
+   f32tc_launches), then the BERT-base trained call [48,12,384,64], the
+   NER trained call (masked), MiniLM's [48,12,384,32] without and with a
+   mask, cross-length causal [1,2,128->384,128] and [8,8,2048,128] causal,
+   each timed (events and device time) beside its plain version (TF32
+   off: no_tf32), SDPA's backward and its backend (and, at the trained
+   call, the names of the kernels it runs), and both bounds: at f32
+   accuracy (3 TF32 products a product) and on FMA. Every learn
+   phase's f32 gradient check (one f32 train step, flash attention) must
+   run each layer's K2 and K3 once, all on these kernels at D <= 128
+   (_check_f32tc).
 
 The three full-width generation phases (13, 15, 19) draw their seeded
 weights on the card (device_draws): every check there holds the port to
@@ -265,9 +288,13 @@ fit's, a d256_call, a d192_call and a trained_lse_call at the LM fit's,
 its launches those of phases 5, 6 and 17; flash_attn_bwd_dq_sm90 and
 flash_attn_bwd_dkv_sm90 at the SQuAD fit's call with a d128_call, a
 d192_call and an lm_call at the LM fit's, their launches those of phases
-6 and 17; K1's older source at the f32 served call; K2 and K3's older
-sources at the f32 trained call, their launches the NER fit's; K1, K2
-and K3 each with a kv_mask_call at the NER trained call; K5b's forward at the
+6 and 17; flash_attn_bwd_dq_f32tc and flash_attn_bwd_dkv_f32tc at the
+f32 trained call with a kv_mask_call (NER), a k5b_call and a
+k5b_mask_call (MiniLM), a cross_call and a d128_call, their launches
+those of the learn phases' f32 gradient checks; K1's older source at
+the f32 served call; K2 and K3's older sources at the bf16 masked NER
+trained call, their launches the NER fit's; K1, K2 and K3 each with a
+kv_mask_call at the NER trained call; K5b's forward at the
 full-width prefill call with an lse_call at the MiniLM trained call, a
 kv_mask_call at the masked D = 32 call and a padded_call at D = 20;
 flash_attn_bwd_dq_k5b and flash_attn_bwd_dkv_k5b at the MiniLM trained
@@ -281,7 +308,8 @@ and a trained_lse_call at the 512-head LM's call, its launches the
 DeepSeek phase's and the 512-head LM fit's; flash_attn_bwd_dq_wider and
 flash_attn_bwd_dkv_wider at the 512-head LM's trained call with an
 f32_call and a d384_call, their launches that fit's; each backward row
-names SDPA's backend), the card's name and power limit, and last {"ok":
+names SDPA's backend; every f32 row carries fma_bound_ms beside its
+bound at f32 accuracy), the card's name and power limit, and last {"ok":
 true, "device": {...}}. Any failed check exits non-zero.
 """
 
@@ -313,6 +341,8 @@ K1_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:82"
 # and K2's and K3's for the same calls
 SM90_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu"
 SM90_BWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_sm90.cu"
+# K2's and K3's f32 kernels up to D = 128, on the tensor cores (3xTF32)
+F32TC_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_f32tc.cu"
 # K2 and K3 (and K5b's backward): templates in flash_attn_bwd.cuh, built
 # and exported by one source each
 K2_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_dq.cu"
@@ -338,16 +368,17 @@ SERVE_TOL = 5e-2
 # 1.2-2.2% (head) apart, with and without the mask
 GRAD_TOL = 5e-2
 LOSS_TOL = 1e-2
-# the same step in f32 (GEMMs without TF32, K1-K3 on FMA): flash and
-# einsum attention differ only in the order of exact f32 sums, so a
-# broken backward (dQ dropped, dK and dV swapped) shows far above this
+# the same step in f32 (GEMMs without TF32; K1 on FMA, K2 and K3 at
+# D <= 128 as three TF32 products, about 2^-21 relative a product): flash
+# and einsum attention differ only in the order of f32 sums, so a broken
+# backward (dQ dropped, dK and dV swapped) shows far above this
 F32_GRAD_TOL = 1e-3
 
-# published dense peaks (NVIDIA data sheets): bf16 tensor-core and f32
-# CUDA-core FLOP/s, HBM bytes/s
+# published dense peaks (NVIDIA data sheets): bf16 and TF32 tensor-core
+# and f32 CUDA-core FLOP/s, HBM bytes/s
 PEAKS = {
-    "sxm": {"bf16": 989e12, "f32": 67e12, "bw": 3.35e12},
-    "pcie": {"bf16": 756e12, "f32": 51e12, "bw": 2.0e12},
+    "sxm": {"bf16": 989e12, "tf32": 494.7e12, "f32": 67e12, "bw": 3.35e12},
+    "pcie": {"bf16": 756e12, "tf32": 378e12, "f32": 51e12, "bw": 2.0e12},
 }
 
 
@@ -373,7 +404,8 @@ def ptxas_lines(log: str) -> list:
     table, kernel = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*(flash_(?:fwd|bwd_dq|"
-                      r"bwd_dkv)_(?:bf16|f32|sm90)(?:_wide|_split)?_kernel)"
+                      r"bwd_dkv)_(?:bf16|f32tc|f32|sm90)(?:_wide|_split)?"
+                      r"_kernel)"
                       r"ILi(\d+)E"
                       r"(?:Lb([01])E)?", line)
         if m:
@@ -524,6 +556,24 @@ def bounds(b, h, lq, lk, d, elt, causal, peak_flops, bw, keep=None):
                      peak_flops, bw) for k in KERNELS}
 
 
+def kernel_bounds(b, h, lq, lk, d, elt, causal, peaks, keep=None):
+    """``bounds`` at the card's peaks for the dtype of ``elt``-byte
+    elements: {kernel: (bound_ms, bound_by, fma_bound_ms)}. bf16: flops at
+    the bf16 tensor-core peak (fma_bound_ms None). f32: the least time at
+    f32 accuracy, max(bytes / bw, 3 * flops / the TF32 tensor-core peak)
+    (three TF32 products make one f32 one: flash_attn_bwd_f32tc.cu), and
+    beside it the FMA figure, flops at the f32 CUDA-core peak."""
+    if elt == 2:
+        return {k: (*v, None) for k, v in bounds(
+            b, h, lq, lk, d, elt, causal, peaks["bf16"], peaks["bw"],
+            keep).items()}
+    acc = bounds(b, h, lq, lk, d, elt, causal, peaks["tf32"] / 3,
+                 peaks["bw"], keep)
+    fma = bounds(b, h, lq, lk, d, elt, causal, peaks["f32"], peaks["bw"],
+                 keep)
+    return {k: (*acc[k], fma[k][0]) for k in acc}
+
+
 def _excess(got, want, tol):
     """(max |got - want|, the largest share of tol * (1 + |want|) that an
     element's error takes: above 1 fails)."""
@@ -532,9 +582,19 @@ def _excess(got, want, tol):
             (diff / (tol * (1 + want.float().abs()))).max().item())
 
 
+def no_tf32(torch, label):
+    """Fail unless f32 matmuls and convolutions run in full f32: the
+    plain versions are the yardstick of the f32 kernels, and a TF32
+    yardstick would be off by about 1e-3."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail(f"{label}: TF32 is on for f32 matmuls or convolutions; the "
+             "plain versions must run in f32")
+
+
 def kernel_phase(torch, peaks):
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
+    no_tf32(torch, "K1")
     cases = [
         # name, (b, h, lq, lk, d), dtype, causal, with_lse. "served" is
         # the call serving makes: the batcher's grown batch of 32, q/k/v
@@ -586,7 +646,6 @@ def kernel_phase(torch, peaks):
             if not lerr <= LSE_TOL[dt]:
                 fail(f"K1 {name} {dt}: lse error {lerr} > {LSE_TOL[dt]}")
         if name.startswith("serve"):
-            kind = "bf16" if dt == "bfloat16" else "f32"
             rec["ms"] = time_ms(torch, lambda: fa.flash_attention(
                 q, k, v, causal), 50)
             rec["plain_ms"] = time_ms(
@@ -596,9 +655,9 @@ def kernel_phase(torch, peaks):
                 torch, lambda: torch.nn.functional.
                 scaled_dot_product_attention(q, k, v, is_causal=causal),
                 50)
-            rec["bound_ms"], rec["bound_by"] = bounds(
-                b, h, lq, lk, d, q.element_size(), causal, peaks[kind],
-                peaks["bw"])["k1"]
+            (rec["bound_ms"], rec["bound_by"],
+             rec["fma_bound_ms"]) = kernel_bounds(
+                b, h, lq, lk, d, q.element_size(), causal, peaks)["k1"]
             if name == "served":
                 served[dt] = rec
         checks.append(rec)
@@ -646,7 +705,7 @@ def _right_100(rng, b, lk):
 # is laid out as the attention output ([B, L, H, D] memory)
 VIEW_CASES = ("trained", "ner_trained", "squad_padded", "minilm_trained",
               "minilm_padded", "gptj_trained", "gptj_f32", "lm512_trained",
-              "lm512_f32", "sm90_views")
+              "lm512_f32", "sm90_views", "f32tc_views")
 # name, (b, h, lq, lk, d), dtype, causal, mask (a function of the rng,
 # b and lk; None: no mask), timed. "trained" is the call one BERT-base
 # SQuAD train step makes per layer
@@ -691,12 +750,13 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
     instead of one a case. Returns the cases' records."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
+    no_tf32(torch, label)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.RandomState(seed)
     checks = []
+    bwd_wrappers = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
     for name, (b, h, lq, lk, d), dt, causal, mask_of, timed in cases:
         dtype = getattr(torch, dt)
-        kind = "bf16" if dt == "bfloat16" else "f32"
 
         def make(*shape):
             return torch.from_numpy(
@@ -747,11 +807,21 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
         if not (torch.isfinite(lse).all() and lerr <= LSE_TOL[dt]):
             fail(f"{label} K1 lse {name} {dt}: error {lerr} > {LSE_TOL[dt]}")
         del ro, rlse
+        before = [(w.launches, w.f32tc_launches) for w in bwd_wrappers]
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
                                               None, m)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal,
                                             None, m)
         torch.cuda.synchronize()
+        # f32 up to D = 128 on the tensor-core kernels, every other call
+        # elsewhere
+        tc = fa._bwd_entry(dtype, fa._kernel_head_dim(d),
+                           m is not None)[0].endswith("_f32tc")
+        for w, (n, n_tc) in zip(bwd_wrappers, before):
+            if (w.launches - n, w.f32tc_launches - n_tc) != (1, int(tc)):
+                fail(f"{label} {name} {dt} D={d}: {w.__name__} launched "
+                     f"{w.launches - n}, {w.f32tc_launches - n_tc} of them on "
+                     f"flash_attn_bwd_f32tc.cu (want 1, {int(tc)})")
         rdq, rdelta = fa.flash_attention_bwd_dq_reference(
             q, k, v, o, lse, do, causal, None, m)
         rdk, rdv = fa.flash_attention_bwd_dkv_reference(
@@ -802,10 +872,11 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
                 rec[f"{key}_ms"] = time_ms(torch, calls[key], 20)
                 rec[f"{key}_device_ms"] = device_ms(torch, calls[key])
                 rec[f"{key}_plain_ms"] = time_ms(torch, plain[key], 3)
-            for key, bnd in bounds(b, h, lq, lk, d, q.element_size(),
-                                   causal, peaks[kind], peaks["bw"],
-                                   keep).items():
-                rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = bnd
+            for key, bnd in kernel_bounds(b, h, lq, lk, d,
+                                          q.element_size(), causal, peaks,
+                                          keep).items():
+                (rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"],
+                 rec[f"{key}_fma_bound_ms"]) = bnd
             # SDPA (a yardstick; the port never calls it), the mask as a
             # boolean attn_mask: the forward at inference, the forward
             # with inputs that need a gradient (it keeps its logsumexp),
@@ -851,7 +922,9 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
                 f"{key} {rec[key + '_ms']:.4f} "
                 f"({_ms(rec[key + '_device_ms'])}) plain "
                 f"{rec[key + '_plain_ms']:.4f} bound "
-                f"{rec[key + '_bound_ms']:.4f} ({rec[key + '_bound_by']})"
+                f"{rec[key + '_bound_ms']:.4f} ({rec[key + '_bound_by']}"
+                + ("" if rec[key + "_fma_bound_ms"] is None else
+                   f"; FMA {rec[key + '_fma_bound_ms']:.4f}") + ")"
                 for key in KERNELS) + "".join(
                 f"; {key} {rec[key + '_ms']:.4f} "
                 f"({_ms(rec[key + '_device_ms'])})"
@@ -1001,11 +1074,11 @@ def timed_fwd_cases(torch, peaks, rng, cases, counter, label, iters=20,
     records."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
+    no_tf32(torch, label)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     make = _make(torch, rng)
     checks = []
     for name, (b, h, lq, lk, d), dt, causal, mask_of, with_lse in cases:
-        kind = "bf16" if dt == "bfloat16" else "f32"
         m = keep = None
         if mask_of is not None:
             m = torch.from_numpy(mask_of(rng, b, lk)).cuda()
@@ -1032,9 +1105,10 @@ def timed_fwd_cases(torch, peaks, rng, cases, counter, label, iters=20,
         rec["library_ms"] = time_ms(torch, lib, iters)
         rec["library_device_ms"] = device_ms(torch, lib)
         rec["library_backend"] = sdpa_backend(torch, lib)
-        rec["bound_ms"], rec["bound_by"] = bounds(
-            b, h, lq, lk, d, q.element_size(), causal, peaks[kind],
-            peaks["bw"], keep)["k1_lse" if with_lse else "k1"]
+        (rec["bound_ms"], rec["bound_by"],
+         rec["fma_bound_ms"]) = kernel_bounds(
+            b, h, lq, lk, d, q.element_size(), causal, peaks,
+            keep)["k1_lse" if with_lse else "k1"]
         checks.append(rec)
         print(f"{label} {name} {dt} {[b, h, lq, lk, d]} causal={causal}"
               + (f" real keys {rec['real_keys']}/{rec['keys']}, rows "
@@ -1421,6 +1495,88 @@ def sm90_bwd_phase(torch, peaks):
     return backward_phase(torch, peaks, SM90_BWD_CASES, 24, "sm90-bwd")
 
 
+# K2 and K3 in f32 on the tensor cores (flash_attn_bwd_f32tc.cu), with K1
+# and K1-lse beside them: every instantiation once, D = 8..128 in steps
+# of 8, each without a mask and with _k5b_mask (a full row, one of 2 real
+# keys, one left-padded, one with no real key), causal and not, q/k/v as
+# views into a fused projection (unmasked), and lq < lk causal both ways
+# (the masked one with _right_100's rows that see no key); then
+# _k5b_mask's rows at L = 1024, D = 32, 64 and 128
+F32TC_SWEEP = [
+    (name, shape + (d,), "float32", causal, mask_of, False)
+    for d in range(8, 129, 8) for name, shape, causal, mask_of in (
+        [("f32tc_views", (2, 3, 128, 128), c, None) for c in (False, True)]
+        + [("f32tc_masked", (4, 2, 128, 128), c, _k5b_mask)
+           for c in (False, True)]
+        + [("f32tc_cross", (1, 2, 64, 192), True, None),
+           ("f32tc_cross_left", (1, 2, 128, 384), True, _right_100)])] + [
+    # a row of 2 real keys over a long sequence: P near 1/2 for 1024 q
+    # rows, where sums run in the tensor cores' accumulators would drift
+    ("f32tc_long_masked", (4, 2, 1024, 1024, d), "float32", False, _k5b_mask,
+     False) for d in (32, 64, 128)]
+# the calls timed: the BERT-base trained call (views), the NER trained
+# call (masked, views), MiniLM's trained call without and with a mask
+# (K5b at D = 32, views), cross-length causal [1,2,128->384,128] and
+# [8,8,2048,128] causal
+F32TC_CASES = [
+    ("trained", (48, 12, 384, 384, 64), "float32", False, None, True),
+    ("ner_trained", (32, 12, 128, 128, 64), "float32", False,
+     lambda rng, b, lk: padding_mask(rng, b, lk, 2, left_rows=(2,)), True),
+    ("minilm_trained", (48, 12, 384, 384, 32), "float32", False, None,
+     True),
+    ("minilm_padded", (48, 12, 384, 384, 32), "float32", False,
+     lambda rng, b, lk: padding_mask(rng, b, lk, 64), True),
+    ("cross_causal", (1, 2, 128, 384, 128), "float32", True, None, True),
+    ("f32_d128", (8, 8, 2048, 2048, 128), "float32", True, None, True),
+]
+
+
+def sdpa_bwd_kernels(torch, b, h, l, d):
+    """The CUDA kernels SDPA's backward runs at an f32 call [b, h, l, d]
+    (random q, k, v and dO; one profiler window): a yardstick's names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = [torch.randn(b, h, l, d, device="cuda", requires_grad=True)
+         for _ in range(3)]
+    out = torch.nn.functional.scaled_dot_product_attention(*x)
+    grad = torch.randn_like(out)
+    torch.cuda.synchronize()
+    # CPU and CUDA activity, as device_ms takes them; late in a run a
+    # window can still lose its records (an empty list)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, x, grad)
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count > 0})
+
+
+def f32tc_phase(torch, peaks):
+    """K2 and K3's f32 tensor-core kernels through ``backward_phase``:
+    every instantiation once (``F32TC_SWEEP``, one summary line; each case
+    must count one K2 and one K3 launch in ``f32tc_launches``, which
+    ``backward_phase`` checks), then ``F32TC_CASES`` timed. Returns the
+    timed records."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    wrappers = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [w.f32tc_launches for w in wrappers]
+    backward_phase(torch, peaks, F32TC_SWEEP, 25, "f32tc-bwd-sweep",
+                   quiet=True)
+    counted = [w.f32tc_launches - n for w, n in zip(wrappers, before)]
+    n = len(F32TC_SWEEP)
+    if counted != [n, n]:
+        fail(f"K2/K3 f32tc: K2, K3 counted {counted} f32 tensor-core "
+             f"launches in {n} sweep cases (want {[n, n]})")
+    checks = backward_phase(torch, peaks, F32TC_CASES, 26, "f32tc-bwd")
+    trained = _pick(checks, "trained", "float32")
+    trained["sdpa_bwd_kernels"] = sdpa_bwd_kernels(torch, 48, 12, 384, 64)
+    print(f"f32tc-bwd: SDPA's f32 backward ({trained['sdpa_backend']}) at "
+          f"the trained call runs {trained['sdpa_bwd_kernels']}", flush=True)
+    return checks
+
+
 def _pick(records, name, dt="bfloat16"):
     return next(r for r in records if r["case"] == name and r["dtype"] == dt)
 
@@ -1504,15 +1660,20 @@ def _reset_launches(fa):
               fa.flash_attention_bwd_dkv):
         w.launches = w.masked_launches = w.small_d_launches = 0
         w.wide_d_launches = w.sm90_launches = 0
+    fa.flash_attention_bwd_dq.f32tc_launches = 0
+    fa.flash_attention_bwd_dkv.f32tc_launches = 0
 
 
 def _launches(fa):
     """{kernel: (launches, launches with a mask, launches at a head dim
     that is not a multiple of 64, launches above D = 128, launches of
     the Hopper kernels: K1's flash_attn_fwd_sm90.cu, K2's and K3's
-    flash_attn_bwd_sm90.cu)} since the last reset."""
+    flash_attn_bwd_sm90.cu, and launches of K2's and K3's f32
+    tensor-core kernels, flash_attn_bwd_f32tc.cu; 0 for K1)} since the
+    last reset."""
     return {name: (w.launches, w.masked_launches, w.small_d_launches,
-                   w.wide_d_launches, w.sm90_launches)
+                   w.wide_d_launches, w.sm90_launches,
+                   getattr(w, "f32tc_launches", 0))
             for name, w in (
         ("K1", fa.flash_attention), ("K2", fa.flash_attention_bwd_dq),
         ("K3", fa.flash_attention_bwd_dkv))}
@@ -1544,6 +1705,36 @@ def _check_sm90(label, launches, want):
         f"{name} {launches[name][4]} of {launches[name][0]}"
         + ("" if launches[name][4] else " (older sources)")
         for name in want)
+
+
+def _f32tc_expected(torch, fa, dtype, head_dim, masked, launches):
+    """{kernel: how many of its launches in ``launches`` must have run on
+    the f32 tensor-core kernels (flash_attn_bwd_f32tc.cu)}: every K2 and
+    K3 launch of an f32 call up to D = 128, masked or not; none of any
+    other, and none of K1's."""
+    tc = fa._bwd_entry(getattr(torch, dtype), fa._kernel_head_dim(head_dim),
+                       masked)[0].endswith("_f32tc")
+    return {name: counts[0] if tc and name != "K1" else 0
+            for name, counts in launches.items()}
+
+
+def _check_f32tc(label, launches, want):
+    """Fail unless each kernel's f32 tensor-core launches in ``launches``
+    are what ``want`` (``_f32tc_expected``) says; returns a line that
+    says where K2 and K3 ran."""
+    for name, n in want.items():
+        got, total = launches[name][5], launches[name][0]
+        if got != n:
+            fail(f"{label}: {got} of {total} {name} launches on "
+                 f"flash_attn_bwd_f32tc.cu (want {n})")
+    return f"{label}: f32 tensor-core kernels " + ", ".join(
+        f"{name} {launches[name][5]} of {launches[name][0]}"
+        for name in ("K2", "K3"))
+
+
+# K2's and K3's launches in the learn phases' f32 gradient checks (one
+# train step of the f32 model, flash attention): {label: _launches}
+F32_CHECK_LAUNCHES = {}
 
 
 def serving_phase(torch, start, reqs, input_fn, out_shape, n_block,
@@ -1884,10 +2075,26 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
                                 if k != "attention_mask"}
     f32 = build(dtype="float32")
     refs, rel32 = {}, {}
+    head_dim = base["hidden_size"] // base["n_head"]
     for tag, xc in batches.items():
         refs[tag] = step_grads(torch, f32.module, xc, yb, "einsum", **grad)
+        _reset_launches(fa)
         rel32[tag] = _rel(step_grads(torch, f32.module, xc, yb, "flash",
                                      **grad)[1], refs[tag][1])
+        if cuda:
+            # the f32 step's K2 and K3: once a layer, and at D <= 128 all
+            # on the f32 tensor-core kernels
+            counts = _launches(fa)
+            want = _f32tc_expected(
+                torch, fa, "float32", head_dim,
+                isinstance(xc, dict) and "attention_mask" in xc, counts)
+            print(_check_f32tc(f"{label}{tag} f32 check", counts, want),
+                  flush=True)
+            if min(counts["K2"][0], counts["K3"][0]) < base["n_block"]:
+                fail(f"{label}{tag}: the f32 step launched K2 and K3 "
+                     f"{counts['K2'][0]} and {counts['K3'][0]} times "
+                     f"(< {base['n_block']} layers)")
+            F32_CHECK_LAUNCHES[label + tag] = counts
         print(f"{label}{tag}: f32 gradients flash vs einsum rel_err="
               f"{rel32[tag]} (tol {F32_GRAD_TOL}; batch {check_batch})",
               flush=True)
@@ -1998,8 +2205,8 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
         "mfu_bf16": mfu, "peak_mem_gib": peak / 2 ** 30 if cuda else None,
         **inferred,
         "launches": {k: {"all": a, "masked": mk, "small_d": sd, "wide_d": wd,
-                         "sm90": h}
-                     for k, (a, mk, sd, wd, h) in launches.items()},
+                         "sm90": h, "f32tc": tc}
+                     for k, (a, mk, sd, wd, h, tc) in launches.items()},
         "check_batch": check_batch,
         "grad_rel_err": {tag.strip() or "batch": dict(
             rels[tag], f32_flash_vs_einsum=rel32[tag]) for tag in rels},
@@ -2096,7 +2303,7 @@ def minilm_learn(torch, device="cuda", base=MINILM, seq=TRAIN_SEQ,
         y, batch, squad_span_loss, GRAD_PARAMS,
         ("dq_zeroed", "dk_dv_swapped", "mask_dropped"), masked=True,
         label="learn-minilm", device=device, profile=profile)
-    for kname, (total, _, small, _, _) in launches.items():
+    for kname, (total, _, small, *_) in launches.items():
         if device == "cuda" and small != total:
             fail(f"learn-minilm: {kname} counted {small} K5b launches of "
                  f"{total}")
@@ -2311,7 +2518,7 @@ def lm_learn(torch, device="cuda", base=GPTJ, batch=LM_BATCH,
         infer=infer, loss_falls=True)
     head_dim = base["hidden_size"] // base["n_head"]
     want = base["n_block"] * 2 * steps_per_epoch
-    for kname, (total, _, _, wide, _) in launches.items():
+    for kname, (total, _, _, wide, *_) in launches.items():
         if device == "cuda" and not wide == total == want:
             fail(f"{label}: {kname} launched {total} times, {wide} of them "
                  f"wide (want {want}, every one at D = {head_dim})")
@@ -2895,7 +3102,6 @@ def main() -> None:
     served = timed("kernels", kernel_phase, torch, peaks)
     backward = timed("backward", backward_phase, torch, peaks,
                      BACKWARD_CASES, 1, "backward")
-    trained32 = _pick(backward, "trained", "float32")
     ner = _pick(timed("masked kernels", backward_phase, torch, peaks,
                       MASKED_CASES, 2, "masked"), "ner_trained")
     runs = [timed("serving", bert_serving, torch, profile=args.profile)]
@@ -2950,6 +3156,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     sm90 = timed("K1 sm90", sm90_phase, torch, peaks)
     sm90_bwd = timed("K2/K3 sm90", sm90_bwd_phase, torch, peaks)
+    f32tc = timed("K2/K3 f32 tensor cores", f32tc_phase, torch, peaks)
     k5b_full, k5b_masked, k5b_padded = (
         _pick(k5b, "gen_full", "float32"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))
@@ -2967,7 +3174,7 @@ def main() -> None:
         out = {"shape": rec["shape"],
                **{k: rec[f"{key}_{k}"] for k in (
                    "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                   "bound_by")},
+                   "bound_by", "fma_bound_ms")},
                "library_ms": library_ms,
                "library_device_ms": library_device_ms}
         if "real_keys" in rec:
@@ -2985,11 +3192,13 @@ def main() -> None:
     def bwd_row(name, source, replaces, key, launches, rec, masked_rec,
                 mask_replaces):
         """K2 or K3 at a trained call, with its masked call, launched as
-        ``launches`` counts less its Hopper launches. SDPA's backward
-        computes K2 + K3 + delta together, so neither row has a single
-        library call of its own (its time is kept beside them)."""
+        ``launches`` counts less its Hopper and f32 tensor-core launches.
+        SDPA's backward computes K2 + K3 + delta together, so neither row
+        has a single library call of its own (its time is kept beside
+        them)."""
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[0] - launches[4],
+                "replaces": replaces,
+                "launches": launches[0] - launches[4] - launches[5],
                 "masked_launches": launches[1],
                 "small_d_launches": launches[2], **at(rec, key),
                 "library_backward_ms": rec["sdpa_bwd_ms"],
@@ -3004,20 +3213,20 @@ def main() -> None:
         """A timed ``timed_fwd_cases`` record's numbers."""
         return {key: rec[key] for key in (
             "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "library_device_ms",
-            *extra)}
+            "bound_ms", "bound_by", "fma_bound_ms", "library_ms",
+            "library_device_ms", *extra)}
 
     def fits(kk):
         """(launches, masked, K5b) of one kernel over the BERT-base fits."""
         return tuple(a + b for a, b in zip(squad[kk], ner_fit[kk]))
 
-    def bwd_call(rec, key):
+    def bwd_call(rec, key, **extra):
         """K2 or K3 at one timed call; SDPA's backward computes K2 + K3 +
         delta together (kept beside both rows, with the backend SDPA
         took)."""
         return at(rec, key, library_backward_ms=rec["sdpa_bwd_ms"],
                   library_backward_device_ms=rec["sdpa_bwd_device_ms"],
-                  library_backend=rec["sdpa_backend"])
+                  library_backend=rec["sdpa_backend"], **extra)
 
     def wide_row(name, source, replaces, key, fit, first, **calls):
         """K2 or K3 above D = 128 at the call ``first``, with ``calls``
@@ -3028,6 +3237,35 @@ def main() -> None:
                 "replaces": replaces, "launches": counts[3] - counts[4],
                 **bwd_call(first, key),
                 **{k: bwd_call(rec, key) for k, rec in calls.items()}}
+
+    def f32tc_row(name, replaces, key):
+        """K2 or K3's f32 tensor-core kernel at the BERT-base trained call
+        (f32), with the NER trained call (masked) and MiniLM's (K5b at
+        D = 32), launched by the learn phases' f32 gradient checks (one
+        f32 train step each, with and without the mask)."""
+        by_phase = {lbl: c[key.upper()][5]
+                    for lbl, c in F32_CHECK_LAUNCHES.items()
+                    if c[key.upper()][5]}
+        trained = _pick(f32tc, "trained", "float32")
+        return {"name": name, "route": "cuda", "source": F32TC_SOURCE,
+                "replaces": replaces, "launches": sum(by_phase.values()),
+                "launches_by_phase": by_phase,
+                **bwd_call(trained, key,
+                           library_backward_kernels=trained[
+                               "sdpa_bwd_kernels"]),
+                "kv_mask_call": bwd_call(
+                    _pick(f32tc, "ner_trained", "float32"), key,
+                    replaces=K5A_REPLACES),
+                "k5b_call": bwd_call(
+                    _pick(f32tc, "minilm_trained", "float32"), key,
+                    replaces=K5B_REPLACES),
+                "k5b_mask_call": bwd_call(
+                    _pick(f32tc, "minilm_padded", "float32"), key,
+                    replaces=K5B_REPLACES),
+                "cross_call": at(_pick(f32tc, "cross_causal", "float32"),
+                                 key),
+                "d128_call": bwd_call(_pick(f32tc, "f32_d128", "float32"),
+                                      key)}
 
     def sm90_bwd_row(name, replaces, key):
         """K2 or K3's Hopper kernel at the SQuAD fit's call, with
@@ -3076,6 +3314,7 @@ def main() -> None:
         "plain_ms": f32_served["plain_ms"],
         "bound_ms": f32_served["bound_ms"],
         "bound_by": f32_served["bound_by"],
+        "fma_bound_ms": f32_served["fma_bound_ms"],
         "library_ms": f32_served["library_ms"],
         "kv_mask_call": at(
             ner, "k1", ner["sdpa_ms"], ner["sdpa_device_ms"],
@@ -3083,10 +3322,14 @@ def main() -> None:
             lse_call=lse_call(ner, replaces=K5A_REPLACES))},
         sm90_bwd_row("flash_attn_bwd_dq_sm90", K2_REPLACES, "k2"),
         sm90_bwd_row("flash_attn_bwd_dkv_sm90", K3_REPLACES, "k3"),
+        f32tc_row("flash_attn_bwd_dq_f32tc", K2_REPLACES, "k2"),
+        f32tc_row("flash_attn_bwd_dkv_f32tc", K3_REPLACES, "k3"),
+        # the older sources' K2 and K3 up to D = 128 now run bf16 with a
+        # mask (and K5b): the NER trained call, launched by the NER fit
         bwd_row("flash_attn_bwd_dq", K2_SOURCE, K2_REPLACES, "k2",
-                fits("K2"), trained32, ner, K5A_REPLACES),
+                fits("K2"), ner, ner, K5A_REPLACES),
         bwd_row("flash_attn_bwd_dkv", K3_SOURCE, K3_REPLACES, "k3",
-                fits("K3"), trained32, ner, K5A_REPLACES), {
+                fits("K3"), ner, ner, K5A_REPLACES), {
             # K5b at the full-width prefill call ([1,32,2048,80] f32,
             # causal), launched by both generation phases' prefills and
             # (with logsumexp) by the MiniLM fit

@@ -12,7 +12,10 @@ process that imports that checkout's own ``chip_smoke.py`` and drives
 its phases whose figures swing with the host: K1, K1-lse, K2 and K3 at
 the BERT-base trained call, at the GPT-J-width LM's [4,16,2048,256]
 causal call, at [4,16,2048,192] and at [8,8,2048,128] causal, bf16
-(device time), K1 and K1-lse at the served shape
+(device time), the same in f32 at every call up to D = 128 that
+chip_smoke.py times (the trained call, the NER trained call with its
+mask, MiniLM's [48,12,384,32] without and with a mask, cross-length
+causal [1,2,128->384,128] and [8,8,2048,128] causal), K1 and K1-lse at the served shape
 [32,12,512,64] and at [8,8,2048,256] causal, bf16 (device time),
 BERT-base serving (with the seconds its save and its start-up take), the
 NER fine-tune, NER serving (start-up seconds too) and TinyGenLM
@@ -46,8 +49,26 @@ SUMMARIES = (
     ("gen", "tokens_per_s", "gen_tokens_per_s"),
 )
 KERNELS = ("k1", "k1_lse", "k2", "k3")
+
+
+def _ner_mask(rng, b, lk):
+    """The NER trained call's mask (chip_smoke.py's MASKED_CASES), made by
+    the checkout's own chip_smoke.py."""
+    return sys.modules["chip_smoke"].padding_mask(rng, b, lk, 2,
+                                                  left_rows=(2,))
+
+
+def _squad_mask(rng, b, lk):
+    """Real lengths uniform in [64, Lk] (the padded fine-tunes' traffic)."""
+    return sys.modules["chip_smoke"].padding_mask(rng, b, lk, 64)
+
+
 # (backward_phase label, case, metric prefix): the BERT-base trained
-# call, the LM's call (D = 256), and causal calls at D = 192 and 128
+# call, the LM's call (D = 256), and causal calls at D = 192 and 128,
+# bf16; then every f32 call up to D = 128 that chip_smoke.py times: the
+# trained call, the NER trained call (masked), MiniLM's trained call
+# (D = 32) without and with a mask, cross-length causal and
+# [8,8,2048,128] causal
 BACKWARD = (
     ("backward", ("trained", (48, 12, 384, 384, 64), "bfloat16", False, None,
                   True), ""),
@@ -57,6 +78,19 @@ BACKWARD = (
                   None, True), "d192_"),
     ("d128-bwd", ("bf16_d128", (8, 8, 2048, 2048, 128), "bfloat16", True,
                   None, True), "d128_"),
+    ("f32-bwd", ("trained", (48, 12, 384, 384, 64), "float32", False, None,
+                 True), "f32_"),
+    ("f32-ner-bwd", ("ner_trained", (32, 12, 128, 128, 64), "float32",
+                     False, _ner_mask, True), "f32_ner_"),
+    ("f32-minilm-bwd", ("minilm_trained", (48, 12, 384, 384, 32),
+                        "float32", False, None, True), "f32_minilm_"),
+    ("f32-minilm-masked-bwd", ("minilm_padded", (48, 12, 384, 384, 32),
+                               "float32", False, _squad_mask, True),
+     "f32_minilm_masked_"),
+    ("f32-cross-bwd", ("cross_causal", (1, 2, 128, 384, 128), "float32",
+                       True, None, True), "f32_cross_"),
+    ("f32-d128-bwd", ("f32_d128", (8, 8, 2048, 2048, 128), "float32", True,
+                      None, True), "f32_d128_"),
 )
 # K1 and K1-lse timed through chip_smoke.timed_fwd_cases: the served
 # shape and the widest head dim the backward also takes

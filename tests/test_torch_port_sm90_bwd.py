@@ -28,6 +28,8 @@ torch.set_num_threads(2)
 
 DQ, DKV = "zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90"
 OLD_DQ, OLD_DKV = "zoo_flash_attn_bwd_dq", "zoo_flash_attn_bwd_dkv"
+F32TC_DQ, F32TC_DKV = ("zoo_flash_attn_bwd_dq_f32tc",
+                       "zoo_flash_attn_bwd_dkv_f32tc")
 FWD_SM90 = "zoo_flash_attn_fwd_sm90"
 # where the new entries take their scale and causal flag (the old ones'
 # positions less the mask's two), and where the old ones take the mask
@@ -46,10 +48,16 @@ class TestRoute:
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_bwd_entry(self, d, dtype, masked):
         """bf16 without a mask at 64, 128, 192 and 256 takes the Hopper
-        kernels; f32, a mask, the K5b head dims and D above 256 keep
+        kernels; f32 up to 128 the f32 tensor-core kernels; f32 above 128,
+        a mask, the K5b head dims and D above 256 keep
         ``flash_attn_bwd_dq.cu`` and ``flash_attn_bwd_dkv.cu``."""
-        want = ((DQ, DKV) if dtype == torch.bfloat16 and not masked
-                and d in (64, 128, 192, 256) else (OLD_DQ, OLD_DKV))
+        if dtype == torch.bfloat16 and not masked and d in (64, 128, 192,
+                                                             256):
+            want = (DQ, DKV)
+        elif dtype == torch.float32 and d <= 128:
+            want = (F32TC_DQ, F32TC_DKV)
+        else:
+            want = (OLD_DQ, OLD_DKV)
         assert fa._bwd_entry(dtype, d, masked) == want
 
     @pytest.mark.parametrize("new,old", [(DQ, OLD_DQ), (DKV, OLD_DKV)])
@@ -132,10 +140,11 @@ class TestLaunches:
     ])
     def test_other_calls_keep_the_old_entries(self, sm90_count, kind, d,
                                               dtype, masked):
-        """A masked call, f32, K5b (D = 80, and 20 padded to 24) and
-        D = 512 still reach ``zoo_flash_attn_bwd_dq`` and
-        ``zoo_flash_attn_bwd_dkv``, the mask's pointer with them, and
-        none counts in ``sm90_launches``."""
+        """A masked call, f32 above 128, K5b (D = 80, and 20 padded to 24)
+        and D = 512 still reach ``zoo_flash_attn_bwd_dq`` and
+        ``zoo_flash_attn_bwd_dkv``, and f32 up to 128 the f32
+        tensor-core entries, which take the same arguments; the mask's
+        pointer goes with them, and none counts in ``sm90_launches``."""
         q, k, v, do = _meta(d, dtype, lq=128, lk=128)
         m = (torch.ones(2, 128, dtype=torch.uint8, device="meta")
              if masked else None)
@@ -144,8 +153,11 @@ class TestLaunches:
                                              key_padding_mask=m)
         fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, False,
                                    key_padding_mask=m)
-        assert [name for name, _ in sm90_count] == [OLD_DQ, OLD_DKV]
+        f32tc = dtype == torch.float32 and d <= 128
+        assert [name for name, _ in sm90_count] == (
+            [F32TC_DQ, F32TC_DKV] if f32tc else [OLD_DQ, OLD_DKV])
         for name, args in sm90_count:
+            name = name.removesuffix("_f32tc")
             assert args[D_ARG[name]] == fa._kernel_head_dim(d)
             assert (args[MASK_ARG] is not None) == masked
         for w in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):

@@ -357,8 +357,8 @@ class TestPaddedHeadDims:
     @pytest.mark.parametrize("d", [12, 20, 100])
     def test_card_launches_at_the_padded_dim(self, fake_card, d):
         """On the card (meta tensors, spied entry points) K1-lse, K2 and
-        K3 launch at the next multiple of 8, count as K5b, and hand back
-        the caller's head dim."""
+        K3 (f32: the f32 tensor-core entries) launch at the next multiple
+        of 8, count as K5b, and hand back the caller's head dim."""
         q, k, v = (torch.empty(1, 2, 128, d, device="meta",
                                requires_grad=True) for _ in range(3))
         out = fa.flash_attention(q, k, v, True)
@@ -367,8 +367,9 @@ class TestPaddedHeadDims:
         assert all(g.shape == (1, 2, 128, d) for g in grads)
         padded = -(-d // 8) * 8
         assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
-            ("zoo_flash_attn_fwd", padded), ("zoo_flash_attn_bwd_dq", padded),
-            ("zoo_flash_attn_bwd_dkv", padded)]
+            ("zoo_flash_attn_fwd", padded),
+            ("zoo_flash_attn_bwd_dq_f32tc", padded),
+            ("zoo_flash_attn_bwd_dkv_f32tc", padded)]
         # the true D's scale (the argument after the mask's two)
         for name, args in fake_card:
             assert args[D_ARG[name] + {"zoo_flash_attn_fwd": 15}.get(
