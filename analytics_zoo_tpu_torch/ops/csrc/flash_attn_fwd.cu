@@ -1,7 +1,10 @@
 // Flash-attention forward (K1; K5b at the other head dims) for Hopper,
-// sm_90a: every call but bf16 without a key-padding mask at D in {64,
-// 128, 192, 256}, which flash_attn_fwd_sm90.cu (TMA, a producer
-// warpgroup, wgmma) takes; its entry point returns 1004 for those.
+// sm_90a: bf16 with a key-padding mask (D <= 128), bf16 K5b, and every
+// call above D = 256. Two kinds of call run elsewhere, and the entry
+// point returns 1004 for them: bf16 without a mask at D in {64, 128, 192,
+// 256} (flash_attn_fwd_sm90.cu: TMA, a producer warpgroup, wgmma) and f32
+// at every D up to 256, masked or not (flash_attn_fwd_f32tc.cu: 3xTF32
+// mma.sync on the tensor cores, cp.async).
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_fwd_kernel`
 // (:82-134), launched by `_flash_fwd` (:137-189). Computes exact
@@ -31,8 +34,8 @@
 // it only at Lq == Lk, where that is this kernel's bottom-right diagonal.
 // The bf16 path contracts Q K^T in k-steps of 16, so at D = 8 (mod 16) the
 // upper half of the last k-step is zero in both fragments (never read
-// from memory); P V runs in n-blocks of 8 and needs no padding. The f32
-// path gives each of 8 threads D/8 dimensions of a row. Each D is its own
+// from memory); P V runs in n-blocks of 8 and needs no padding. (f32 at
+// these head dims is flash_attn_fwd_f32tc.cu's.) Each D is its own
 // instantiation, so the register arrays stay sized to it.
 //
 // Head dims above 128 (K1 at D in {192, 256}). The reference's Pallas kernel
@@ -40,14 +43,8 @@
 // unmasked flash call there (analytics_zoo_tpu/ops/attention.py:107-112; a
 // masked one takes its einsum path, so these instantiations are unmasked).
 // bf16 there is flash_attn_fwd_sm90.cu's (it retired the mma.sync kernel
-// flash_fwd_bf16_wide_kernel); f32 is this source's:
-//   * f32: 8 threads own D/8 = 32 dims of a row each, which registers
-//     hold, dealt in 4-float chunks so that the 8 threads read different
-//     shared-memory banks; the kv tile shrinks to 16 rows so K and V stay
-//     in 32 KB of static shared memory.
-//   The f32 prefill at Gemma-2B's widths ([1, 8, 8192, 256], causal) is
-//   bound by its 275 GFLOP of visible pairs on the FMA units (4.1 ms at
-//   67 TFLOP/s); this kernel, like K5b's f32 path, is several times that.
+// flash_fwd_bf16_wide_kernel), f32 flash_attn_fwd_f32tc.cu's (it retired
+// this source's FMA kernel there, 8 threads a row on 16-row kv tiles).
 //
 // Head dims 320 to 512 (K1 at D in {320, 384, 448, 512}, unmasked, as
 // above; TinyGenLM's prefill at DeepSeek-V4-Flash's head dim of 512):
@@ -76,11 +73,16 @@
 //     reaches every barrier whether or not it computes. Shared memory
 //     (dynamic): Q [32][D+8], K and V [32][D+8] bf16 plus the partials,
 //     2 x kSplit x 16 x 32 f32 -- 83,456 bytes at D = 320, 132,608 at 512.
-//   * f32: the same template as at 192 and 256 (8 threads a row, D/8 =
-//     40-64 dims each, dealt in 4-float chunks) on kv tiles of 8 rows, so
-//     that K and V (32 KB at D = 512) stay in static shared memory; a
-//     thread holds 2 x D/8 f32 of Q and O, 128 registers at 512 (234 in
-//     all there, no spill).
+//   * f32: plain FMA on the CUDA cores (flash_fwd_f32_kernel): 8 threads
+//     share one query row, each owning D/8 = 40-64 of its dims, dealt in
+//     4-float chunks round the row's threads (contiguous ones would put
+//     all 8 on one shared-memory bank); scores are reduced with shuffles,
+//     on kv tiles of 8 rows, so that K and V (32 KB at D = 512) stay in
+//     static shared memory; a thread holds 2 x D/8 f32 of Q and O, 128
+//     registers at 512 (234 in all there, no spill). (Up to D = 256 this
+//     template took every f32 call until flash_attn_fwd_f32tc.cu; a
+//     warp's O over all of D above 256 would need D split across warps on
+//     the tensor cores too, which is later work.)
 //   The f32 prefill at DeepSeek-V4-Flash's widths ([1, 64, 2048, 512],
 //   causal) does the Gemma-width call's 275 GFLOP, 4.1 ms at 67 TFLOP/s.
 //
@@ -98,9 +100,9 @@
 //     fragment is re-packed in registers as the A fragment of P V, so the
 //     probabilities never touch shared or device memory. P is rounded to
 //     bf16 before P V, as the Pallas kernel casts p to v.dtype.
-//   * f32: plain FMA on the CUDA cores (the tensor cores' f32 path is TF32,
-//     which would not hold f32 accuracy). 8 threads share one query row,
-//     each owning D/8 of its dimensions; scores are reduced with shuffles.
+//   * f32 (D above 256): the FMA template above. One TF32 pass on the
+//     tensor cores would not hold f32 accuracy; three do, which is
+//     flash_attn_fwd_f32tc.cu's design up to D = 256.
 //   * causal: kv tiles wholly above the diagonal are never loaded, and a
 //     warp whose rows all lie above a tile skips its arithmetic for it.
 //   * rows that see no key: masked scores are -inf, so such a row ends the
@@ -120,10 +122,8 @@
 // the load latency. wgmma, TMA and a producer warpgroup are
 // flash_attn_fwd_sm90.cu's, for the unmasked bf16 calls; the masked ones
 // here are later work.
-// In f32 (TinyGenLM's K5b calls) the FMA path does the same 4*L*Lk*D
-// flops against 67 TFLOP/s, so a long causal prefill is bound by
-// operations. At small D the per-score softmax work (scale, mask, max,
-// exp), which no bound counts, outweighs the 4*D flops of a score.
+// In f32 (D above 256) the FMA path does the same 4*L*Lk*D flops against
+// 67 TFLOP/s, so a long causal prefill is bound by operations.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -139,10 +139,8 @@ namespace {
 constexpr int kTile = 64;        // q rows per block == kv rows per tile (bf16)
 constexpr int kThreads = 128;    // 4 warps
 constexpr int kPad = 8;          // bf16 elements of smem row padding
-constexpr int kFmaKv = 32;       // kv rows per smem tile on the f32 path
 constexpr int kFmaRows = 16;     // q rows per block on the f32 path
-constexpr int kWideKv = 32;      // kv rows per smem tile, bf16 at D > 128
-constexpr int kWideFmaKv = 16;   // kv rows per smem tile, f32 at D > 128
+constexpr int kWideKv = 32;      // kv rows per smem tile, bf16 at D > 256
 constexpr int kWiderFmaKv = 8;   // kv rows per smem tile, f32 at D > 256
 constexpr int kSplitRows = 32;   // q rows per block, bf16 at D > 256
 constexpr int kSlice = 64;       // dims of D a warp owns, bf16 at D > 256
@@ -173,20 +171,14 @@ __device__ __forceinline__ float bf16_to_f32(uint16_t x) {
   return __uint_as_float(static_cast<uint32_t>(x) << 16);
 }
 
-// column means of V over all Lk keys into `mean` (threads tid < D, one
-// column each); the output of a row that sees no key
-template <int D, typename T>
-__device__ __forceinline__ void v_column_means(float* mean, const T* v,
+// column means of bf16 V over all Lk keys into `mean` (threads tid < D,
+// one column each); the output of a row that sees no key
+template <int D>
+__device__ __forceinline__ void v_column_means(float* mean, const uint16_t* v,
                                                long long sl, int lk, int tid) {
   if (tid < D) {
     float acc = 0.f;
-    for (int j = 0; j < lk; ++j) {
-      if constexpr (sizeof(T) == 2) {
-        acc += bf16_to_f32(v[j * sl + tid]);
-      } else {
-        acc += v[j * sl + tid];
-      }
-    }
+    for (int j = 0; j < lk; ++j) acc += bf16_to_f32(v[j * sl + tid]);
     mean[tid] = acc / static_cast<float>(lk);
   }
   __syncthreads();
@@ -409,23 +401,19 @@ flash_fwd_bf16_kernel(const Params p) {
 }
 
 // ----------------------------------------------------------------- f32 --
-// KV: kv rows per shared-memory tile (kFmaKv; kWideFmaKv above D = 128,
-// kWiderFmaKv above 256)
-template <int D, bool kMask, int KV = kFmaKv>
+// K1 f32 at D in {320, 384, 448, 512}, unmasked (up to 256 f32 is
+// flash_attn_fwd_f32tc.cu's): 8 threads a row, D/8 dims each dealt in
+// 4-float chunks round the row's threads (the header's notes), on kv
+// tiles of kWiderFmaKv rows
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const Params p) {
-  static_assert(D % 8 == 0 && (D <= 128 || (D % 64 == 0 && D <= 512)),
-                "head_dim: a multiple of 8 up to 128, or of 64 up to 512");
+  static_assert(D % 64 == 0 && D > 256 && D <= 512,
+                "head_dim: 320, 384, 448 or 512");
+  constexpr int KV = kWiderFmaKv;
   constexpr int DP = D / 8;  // dimensions per thread
-  // Which DP dims of a row a thread owns. Up to 128: DP contiguous ones
-  // from d0. Above: 4-float chunks dealt round the row's 8 threads, so
-  // the 8 threads read 8 neighbouring chunks of a K or V row (32
-  // contiguous dims at D = 256 put all 8 on one shared-memory bank)
-  constexpr bool kDealt = D > 128;
   __shared__ __align__(16) float sK[KV][D];
   __shared__ __align__(16) float sV[KV][D];
-  __shared__ uint8_t sM[KV];
-  __shared__ float sMean[D];
 
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -434,17 +422,15 @@ flash_fwd_f32_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int part = tid & 7;                  // 8 consecutive lanes per row
   const int row = qt * kFmaRows + (tid >> 3);
-  const int d0 = part * DP;
   const int offset = p.lk - p.lq;
-  auto dim = [part, d0](int i) {
-    return kDealt ? ((i / 4) * 8 + part) * 4 + (i % 4) : d0 + i;
-  };
+  // the i-th of a thread's dims: 4-float chunks dealt round the row's 8
+  // threads, so the 8 read 8 neighbouring chunks of a K or V row
+  auto dim = [part](int i) { return ((i / 4) * 8 + part) * 4 + (i % 4); };
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hh * p.v_sh;
   float* o = static_cast<float*>(p.o) + b * p.o_sb + hh * p.o_sh;
-  const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
 
   float qr[DP];
   float acc[DP];
@@ -472,7 +458,6 @@ flash_fwd_f32_kernel(const Params p) {
       *reinterpret_cast<float4*>(&sV[r][c]) =
           *reinterpret_cast<const float4*>(v + key * p.v_sl + c);
     }
-    if (kMask && tid < KV) sM[tid] = mrow[kt * KV + tid];
     __syncthreads();
 
     float s[KV];
@@ -486,7 +471,6 @@ flash_fwd_f32_kernel(const Params p) {
       part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 2);
       part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 4);
       if (p.causal && kt * KV + j > row + offset) part_dot = -INFINITY;
-      if (kMask && sM[j] == 0) part_dot = -INFINITY;
       s[j] = part_dot;
       mx = fmaxf(mx, part_dot);
     }
@@ -511,20 +495,12 @@ flash_fwd_f32_kernel(const Params p) {
 
   l = fmaxf(l, 1e-30f);
   const float inv = 1.f / l;
-  const bool empty = kMask && m == -INFINITY;  // this row saw no key
-  if (kMask && __syncthreads_or(empty)) {
-    v_column_means<D>(sMean, v, p.v_sl, p.lk, tid);
-  }
 #pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    o[row * p.o_sl + dim(i)] = empty ? sMean[dim(i)] : acc[i] * inv;
-  }
+  for (int i = 0; i < DP; ++i) o[row * p.o_sl + dim(i)] = acc[i] * inv;
   if (p.lse != nullptr && part == 0) {
-    p.lse[static_cast<long long>(bh) * p.lq + row] =
-        empty ? kEmptyLse : (m + log2f(l)) * kLn2;
+    p.lse[static_cast<long long>(bh) * p.lq + row] = (m + log2f(l)) * kLn2;
   }
 }
-
 
 // ------------------------------------------------------- bf16, D > 256 --
 // K1 at D in {320, 384, 448, 512}, unmasked: D split across warps (the
@@ -770,35 +746,23 @@ cudaError_t launch(Kernel kernel, dim3 grid, const Params& p, cudaStream_t strea
   return cudaGetLastError();
 }
 
-// the instantiation for one head dim: dtype 1 = bf16, else f32 (bf16
-// without a mask at 64 and 128 is flash_attn_fwd_sm90.cu's; the entry
-// point returns 1004 for it)
+// the bf16 instantiation for one head dim up to 128 (without a mask at
+// 64 and 128 it is flash_attn_fwd_sm90.cu's, and f32
+// flash_attn_fwd_f32tc.cu's; the entry point returns 1004 for those)
 template <int D>
-cudaError_t launch_d(int dtype, bool masked, int batch_heads, const Params& p,
+cudaError_t launch_d(bool masked, int batch_heads, const Params& p,
                      cudaStream_t s) {
-  if (dtype == 1) {
-    const dim3 grid(p.lq / kTile, batch_heads);
-    if constexpr (D % 64 == 0) {
-      return launch(flash_fwd_bf16_kernel<D, true>, grid, p, s);
-    } else {
-      return masked ? launch(flash_fwd_bf16_kernel<D, true>, grid, p, s)
-                    : launch(flash_fwd_bf16_kernel<D, false>, grid, p, s);
-    }
+  const dim3 grid(p.lq / kTile, batch_heads);
+  if constexpr (D % 64 == 0) {
+    return launch(flash_fwd_bf16_kernel<D, true>, grid, p, s);
+  } else {
+    return masked ? launch(flash_fwd_bf16_kernel<D, true>, grid, p, s)
+                  : launch(flash_fwd_bf16_kernel<D, false>, grid, p, s);
   }
-  const dim3 grid(p.lq / kFmaRows, batch_heads);
-  return masked ? launch(flash_fwd_f32_kernel<D, true>, grid, p, s)
-                : launch(flash_fwd_f32_kernel<D, false>, grid, p, s);
 }
 
-// K1 f32 at D in {192, 256}: unmasked only (no path takes a mask
-// there; bf16 is flash_attn_fwd_sm90.cu's)
-template <int D>
-cudaError_t launch_wide(int batch_heads, const Params& p, cudaStream_t s) {
-  return launch(flash_fwd_f32_kernel<D, false, kWideFmaKv>,
-                dim3(p.lq / kFmaRows, batch_heads), p, s);
-}
-
-// K1 at D in {320, 384, 448, 512}: unmasked only, as at 192 and 256
+// K1 at D in {320, 384, 448, 512}: unmasked only (no path takes a mask
+// above 128)
 template <int D>
 cudaError_t launch_split(int dtype, int batch_heads, const Params& p,
                          cudaStream_t s) {
@@ -808,8 +772,8 @@ cudaError_t launch_split(int dtype, int batch_heads, const Params& p,
     return launch(flash_fwd_bf16_split_kernel<D>,
                   dim3(p.lq / kSplitRows, batch_heads), p, s, smem, D);
   }
-  return launch(flash_fwd_f32_kernel<D, false, kWiderFmaKv>,
-                dim3(p.lq / kFmaRows, batch_heads), p, s);
+  return launch(flash_fwd_f32_kernel<D>, dim3(p.lq / kFmaRows, batch_heads),
+                p, s);
 }
 
 }  // namespace
@@ -818,7 +782,8 @@ cudaError_t launch_split(int dtype, int batch_heads, const Params& p,
 // key) with batch stride mask_sb, or null for none (required at D > 128).
 // Returns a cudaError_t (0 = launched); 1000 + n flags an argument the
 // kernel does not take (1004: a head dim it has no kernel for, bf16
-// without a mask at 64, 128, 192 and 256 among them).
+// without a mask at 64, 128, 192 and 256 and f32 at every D up to 256
+// among them).
 extern "C" int zoo_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int batch, int heads, int lq, int lk, int d,
@@ -851,29 +816,29 @@ extern "C" int zoo_flash_attn_fwd(
   if (dtype == 1 && !masked && (d == 64 || d == 128 || d == 192 || d == 256)) {
     return 1004;
   }
+  // f32 up to D = 256, masked or not: flash_attn_fwd_f32tc.cu
+  if (dtype == 0 && d <= 256) return 1004;
   const int bh = batch * heads;
   switch (d) {
-    // K1
-    case 64: return launch_d<64>(dtype, masked, bh, p, s);
-    case 128: return launch_d<128>(dtype, masked, bh, p, s);
-    // K5b: the other multiples of 8 up to 128
-    case 8: return launch_d<8>(dtype, masked, bh, p, s);
-    case 16: return launch_d<16>(dtype, masked, bh, p, s);
-    case 24: return launch_d<24>(dtype, masked, bh, p, s);
-    case 32: return launch_d<32>(dtype, masked, bh, p, s);
-    case 40: return launch_d<40>(dtype, masked, bh, p, s);
-    case 48: return launch_d<48>(dtype, masked, bh, p, s);
-    case 56: return launch_d<56>(dtype, masked, bh, p, s);
-    case 72: return launch_d<72>(dtype, masked, bh, p, s);
-    case 80: return launch_d<80>(dtype, masked, bh, p, s);
-    case 88: return launch_d<88>(dtype, masked, bh, p, s);
-    case 96: return launch_d<96>(dtype, masked, bh, p, s);
-    case 104: return launch_d<104>(dtype, masked, bh, p, s);
-    case 112: return launch_d<112>(dtype, masked, bh, p, s);
-    case 120: return launch_d<120>(dtype, masked, bh, p, s);
-    // K1 above 128: the reference's Pallas kernel at D % 64 == 0
-    case 192: return launch_wide<192>(bh, p, s);
-    case 256: return launch_wide<256>(bh, p, s);
+    // K1 (bf16 with a mask)
+    case 64: return launch_d<64>(masked, bh, p, s);
+    case 128: return launch_d<128>(masked, bh, p, s);
+    // K5b (bf16): the other multiples of 8 up to 128
+    case 8: return launch_d<8>(masked, bh, p, s);
+    case 16: return launch_d<16>(masked, bh, p, s);
+    case 24: return launch_d<24>(masked, bh, p, s);
+    case 32: return launch_d<32>(masked, bh, p, s);
+    case 40: return launch_d<40>(masked, bh, p, s);
+    case 48: return launch_d<48>(masked, bh, p, s);
+    case 56: return launch_d<56>(masked, bh, p, s);
+    case 72: return launch_d<72>(masked, bh, p, s);
+    case 80: return launch_d<80>(masked, bh, p, s);
+    case 88: return launch_d<88>(masked, bh, p, s);
+    case 96: return launch_d<96>(masked, bh, p, s);
+    case 104: return launch_d<104>(masked, bh, p, s);
+    case 112: return launch_d<112>(masked, bh, p, s);
+    case 120: return launch_d<120>(masked, bh, p, s);
+    // K1 above 256: the reference's Pallas kernel at D % 64 == 0
     case 320: return launch_split<320>(dtype, bh, p, s);
     case 384: return launch_split<384>(dtype, bh, p, s);
     case 448: return launch_split<448>(dtype, bh, p, s);

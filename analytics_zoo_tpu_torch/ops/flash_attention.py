@@ -11,16 +11,21 @@ kernels live in ``csrc/flash_attn_fwd_sm90.cu`` (K1's bf16 forward
 without a mask at D in ``SM90_HEAD_DIMS``: TMA, a producer warpgroup,
 wgmma; ``_fwd_entry`` picks it), ``csrc/flash_attn_bwd_sm90.cu`` (K2 and
 K3 for the same calls, the same design; ``_bwd_entry`` picks them; both
-share ``csrc/flash_attn_sm90.cuh``), ``csrc/flash_attn_fwd.cu`` (every
-other forward) and ``csrc/flash_attn_bwd.cuh`` (design notes there),
+share ``csrc/flash_attn_sm90.cuh``), ``csrc/flash_attn_fwd_f32tc.cu``
+(K1's f32 forward at head dims up to ``F32TC_FWD_MAX_D``, masked or
+not: 3xTF32 ``mma.sync`` on the tensor cores at f32 accuracy,
+``cp.async`` tile copies; ``_fwd_entry`` picks it),
+``csrc/flash_attn_fwd.cu`` (every other forward: bf16 with a mask, bf16
+K5b, D above 256) and ``csrc/flash_attn_bwd.cuh`` (design notes there),
 whose K2 and K3 for every other call are built by
 ``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu``, except
 f32 at head dims up to 128, masked or not, which
-``csrc/flash_attn_bwd_f32tc.cu`` takes (3xTF32 ``mma.sync`` on the tensor
-cores at f32 accuracy, ``cp.async`` tile copies; ``_bwd_entry`` picks it);
-each source is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/`` at the repository root (a per-user cache for an installed
-package), side by side, and loaded through ``ctypes``.
+``csrc/flash_attn_bwd_f32tc.cu`` takes (the same design as K1's f32
+kernel; ``_bwd_entry`` picks it; both share
+``csrc/flash_attn_f32tc.cuh``); each source is compiled with ``nvcc``
+for ``sm_90a`` at first use into ``build/`` at the repository root (a
+per-user cache for an installed package), side by side, and loaded
+through ``ctypes``.
 
 Every function also takes ``key_padding_mask`` (``[B, Lk]``, nonzero =
 real token, any pattern): the counterpart of the key-padding branch that
@@ -50,8 +55,8 @@ those at a head dim up to 128 that is not a multiple of 64 (K5b) in
 ``<wrapper>.small_d_launches``, and those above 128 in
 ``<wrapper>.wide_d_launches`` (the head dim tells which design ran:
 192 and 256, or D split across warps at 320 to 512); each wrapper's
-``sm90_launches`` counts its launches of the Hopper kernels, and K2's
-and K3's ``f32tc_launches`` those of the f32 tensor-core kernels.
+``sm90_launches`` counts its launches of the Hopper kernels, and its
+``f32tc_launches`` those of the f32 tensor-core kernels.
 
 K5b is the counterpart of the reference's stock-kernel branch at such
 head dims (``analytics_zoo_tpu/ops/attention.py:116``: JAX's stock Pallas
@@ -118,6 +123,9 @@ SM90_HEAD_DIMS = (64, 128, 192, 256)
 # the largest head dim of K2's and K3's f32 tensor-core kernels (f32,
 # masked or not; _bwd_entry)
 F32TC_MAX_D = 128
+# the largest head dim of K1's f32 tensor-core kernel (f32; masked up to
+# 128, as every kernel; _fwd_entry)
+F32TC_FWD_MAX_D = 256
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -137,6 +145,9 @@ _ENTRY_POINTS = {
     # the same arguments without the mask's two
     "zoo_flash_attn_fwd_sm90": ("flash_attn_fwd_sm90",
                                 [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL[2:]),
+    # the old entry's arguments, mask included
+    "zoo_flash_attn_fwd_f32tc": ("flash_attn_fwd_f32tc",
+                                 [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
     "zoo_flash_attn_bwd_dq": ("flash_attn_bwd_dq",
                               [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
     "zoo_flash_attn_bwd_dkv": ("flash_attn_bwd_dkv",
@@ -514,10 +525,15 @@ def _count(wrapper, mask, d: int = 64) -> None:
 def _fwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> str:
     """The forward entry point a call takes: the Hopper kernel of
     ``flash_attn_fwd_sm90.cu`` (TMA, a producer warpgroup, wgmma) for
-    bf16 without a mask at ``SM90_HEAD_DIMS``; ``flash_attn_fwd.cu``
-    for every other call (f32, a mask, K5b, D above 256)."""
+    bf16 without a mask at ``SM90_HEAD_DIMS``; that of
+    ``flash_attn_fwd_f32tc.cu`` (3xTF32 mma.sync, cp.async) for f32 at
+    every head dim up to ``F32TC_FWD_MAX_D``, masked or not;
+    ``flash_attn_fwd.cu`` for every other call (bf16 with a mask, bf16
+    K5b, D above 256)."""
     if dtype == torch.bfloat16 and not masked and dp in SM90_HEAD_DIMS:
         return "zoo_flash_attn_fwd_sm90"
+    if dtype == torch.float32 and dp <= F32TC_FWD_MAX_D:
+        return "zoo_flash_attn_fwd_f32tc"
     return "zoo_flash_attn_fwd"
 
 
@@ -560,6 +576,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash kernel launch failed ({name}): code {rc}")
     _count(flash_attention, mask, dp)
     flash_attention.sm90_launches += sm90
+    flash_attention.f32tc_launches += name.endswith("_f32tc")
     (out,) = _cut(d, out)
     return (out, lse) if with_lse else out
 
@@ -730,8 +747,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # head dim up to 128 that is not a multiple of 64 (K5b, forward and
 # backward), those above 128 (192 to 512, forward and backward), those
 # of the Hopper kernels (flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu)
-# and, for K2 and K3, those of the f32 tensor-core kernels
-# (flash_attn_bwd_f32tc.cu)
+# and those of the f32 tensor-core kernels (K1's flash_attn_fwd_f32tc.cu,
+# K2's and K3's flash_attn_bwd_f32tc.cu)
 for _wrapper in (flash_attention, flash_attention_bwd_dq,
                  flash_attention_bwd_dkv):
     _wrapper.launches = 0
@@ -739,6 +756,5 @@ for _wrapper in (flash_attention, flash_attention_bwd_dq,
     _wrapper.small_d_launches = 0
     _wrapper.wide_d_launches = 0
     _wrapper.sm90_launches = 0
-for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
     _wrapper.f32tc_launches = 0
 del _wrapper

@@ -19,20 +19,24 @@ Phases:
    causal [1,2,128->384,128], and the logsumexp output at [2,4,256,64]
    -- and times the kernel, the plain version and torch's
    scaled_dot_product_attention (a yardstick only; the port never calls
-   it).
+   it). Every f32 case must run K1's f32 tensor-core kernel (phase 25;
+   counted in f32tc_launches).
 3. Backward kernels: runs K1 without and with logsumexp (out and lse),
    then K2 (dQ and delta) and K3 (dK/dV) on the kernel's checked out and
    lse, each through its wrapper against its plain version on the card
    (bf16 runs the Hopper kernels of phases 22 and 23, f32 K2 and K3 the
-   tensor-core kernels of phase 24; every case fails unless K2 and K3
-   ran where _bwd_entry sends it) -- the trained
+   tensor-core kernels of phase 24 and f32 K1 and K1-lse that of phase
+   25; every case fails unless K1, K2 and K3 ran where _fwd_entry and
+   _bwd_entry send it) -- the trained
    call ([48,12,384,64] q/k/v as views into a
    [48,384,3,12,64] projection, random dO) in bf16 and f32, causal
    [8,12,512,64] bf16, cross-length causal [1,2,128->384,128] in bf16
    and f32 -- and times each kernel (CUDA events, and profiler device
    time), its plain version and SDPA: its forward at inference and with
    inputs that need a gradient (beside K1 and K1 with logsumexp), and its
-   backward alone, replayed on one retained graph (beside K2 + K3).
+   backward alone, replayed on one retained graph (beside K2 + K3); where
+   the lengths differ under causal, or a mask stands beside it, SDPA
+   takes the bottom-right diagonal as an explicit boolean mask.
 4. Masked kernels: the same checks and timings with a key-padding mask
    (SDPA takes it as a boolean attn_mask [B,1,1,Lk]) -- the NER trained
    call ([32,12,128,64] views into the qkv projection, synthetic real
@@ -103,7 +107,9 @@ Phases:
    that are not a multiple of 8 (12, 20, 100) run zero-padded to the
    next one: K1, and K1-lse, K2 and K3 under autograd, must match their
    plain versions at the true head dim (bf16 and f32), with every launch
-   counted as K5b.
+   counted as K5b. Every f32 K1 launch here must be K1's f32 tensor-core
+   kernel's (phase 25), and every f32 K2 and K3 launch K2's and K3's
+   (phase 24).
 10. K5b backward kernels: K2 and K3 (and K1 with logsumexp) at the same
    head dims, through backward_phase: every instantiation once ([4,2,128,
    128,d], D = 8..120 but not 64, bf16 and f32, without a mask and with
@@ -131,8 +137,10 @@ Phases:
    lengths uniform in [1, 240], __max_tokens__ 16), at most 8
    outstanding. Every stream must get contiguous chunks and one terminal
    chunk with in-range tokens, K5b must launch once a layer for every
-   prefill in a bucket of 128 tokens or more (warm-up included), and
-   every stream must be token-exact against reference_generate. Prints
+   prefill in a bucket of 128 tokens or more (warm-up included), every
+   launch on K1's f32 tensor-core kernel (phase 25; the model is f32, as
+   at every width up to Gemma-2B's), and every stream must be
+   token-exact against reference_generate. Prints
    TTFT and inter-token p50/p99, tokens/s, decode-step wall and device
    time (a profile with all slots live), prefill ms by bucket, KV-pool
    bytes and peak memory.
@@ -151,7 +159,8 @@ Phases:
    full-width prefill call at Gemma-2B's widths ([1,8,8192,256] f32
    causal), K1 with logsumexp at its 2048 bucket and bf16 calls at D =
    256 and 192 ([8,8,2048,d] causal), each timed beside its plain
-   version, SDPA and its bound.
+   version, SDPA and its bound. f32 here runs K1's f32 tensor-core
+   kernel (phase 25), bf16 the Hopper kernel (phase 22).
 15. Generation, Gemma-2B widths: the generation phase at google/gemma-2b's
    published widths in TinyGenLM's block (hidden 2048, 8 heads of 256,
    18 layers, intermediate 16384, vocab 256000, max_len 8192; f32,
@@ -159,7 +168,8 @@ Phases:
    KV head), after the Phi-2 phase's memory is freed: 32 synthetic
    requests (prompts uniform in [128, 8160], __max_tokens__ 32), 4
    streams checked as at Phi-2's widths; K1 at D = 256 must launch once
-   a layer for every prefill in a bucket of 128 or more (wide_d_launches).
+   a layer for every prefill in a bucket of 128 or more (wide_d_launches),
+   every launch on K1's f32 tensor-core kernel.
 16. K2/K3 wide kernels: K1, K1 with logsumexp, K2 and K3 at head dims 192
    and 256 through backward_phase: every instantiation once (bf16 and
    f32, causal and not, lq == lk and lq < lk; one summary line, each
@@ -277,6 +287,31 @@ Phases:
    phase's f32 gradient check (one f32 train step, flash attention) must
    run each layer's K2 and K3 once, all on these kernels at D <= 128
    (_check_f32tc).
+25. K1 f32 tensor cores: K1 and K1-lse in f32 at every head dim up to 256
+   (flash_attn_fwd_f32tc.cu: 3xTF32 mma.sync, cp.async tile copies, the
+   streamed K and V tiles split once a block into hi and lo planes, each
+   tile's P V in a fresh accumulator; above D = 128 the warps of a row
+   group each take a slice of D) through the flash_attention wrapper
+   against its plain version (TF32 off): every instantiation once (D =
+   8..128 in steps of 8, without a mask (q/k/v views into a fused
+   projection) and with _k5b_mask's rows, causal and not, with and
+   without logsumexp; D = 192 and 256 causal and not, with and without
+   logsumexp; lq < lk causal, unmasked and with rows that see no key; a
+   causal call at L = 4096; masked calls at L = 1024 with a row of 2 real
+   keys; 150 cases, one summary line, each counting one launch in
+   f32tc_launches), then the calls timed: the f32 served shape
+   [8,12,512,64], the BERT-base trained K1-lse [48,12,384,64], the NER
+   trained K1-lse (masked), MiniLM's K1-lse [48,12,384,32] without and
+   with a mask, cross-length causal [1,2,128->384,128], [8,8,2048,128]
+   causal, the generation phases' prefills [1,32,2048,80],
+   [1,2,256,16] and [1,8,8192,256] and the Gemma-width K1-lse
+   [1,8,2048,256], each (events and device time) beside its plain
+   version, SDPA's f32 forward (and, beside K1-lse, SDPA's forward on
+   inputs that need a gradient) with its backend, and both bounds. Every
+   phase that runs an f32 K1 call up to D = 256 (phases 2, 3, 4, 9, 10,
+   14, 16, 24, the generation phases at the repo's, Phi-2's and
+   Gemma-2B's widths, and every learn phase's f32 gradient check) fails
+   unless it ran on this kernel.
 
 The three full-width generation phases (13, 15, 19) draw their seeded
 weights on the card (device_draws): every check there holds the port to
@@ -291,15 +326,23 @@ d192_call and an lm_call at the LM fit's, their launches those of phases
 6 and 17; flash_attn_bwd_dq_f32tc and flash_attn_bwd_dkv_f32tc at the
 f32 trained call with a kv_mask_call (NER), a k5b_call and a
 k5b_mask_call (MiniLM), a cross_call and a d128_call, their launches
-those of the learn phases' f32 gradient checks; K1's older source at
-the f32 served call; K2 and K3's older sources at the bf16 masked NER
-trained call, their launches the NER fit's; K1, K2 and K3 each with a
-kv_mask_call at the NER trained call; K5b's forward at the
-full-width prefill call with an lse_call at the MiniLM trained call, a
-kv_mask_call at the masked D = 32 call and a padded_call at D = 20;
+those of the learn phases' f32 gradient checks; flash_attn_fwd_f32tc
+at the f32 trained K1-lse call with a served_call, a kv_mask_call (NER),
+a k5b_call (the Phi-2-width prefill), a k5b_lse_call and a
+k5b_mask_call (MiniLM), a repo_call (the repo geometry's prefill), a
+cross_call, a d128_call, a d256_call (the Gemma-width prefill) and a
+d256_lse_call, its launches those of the three f32 generation phases'
+prefills and of the learn phases' f32 gradient checks, by phase; K1's
+older source at the masked bf16 NER trained call with its lse_call; K2
+and K3's older sources at the bf16 masked NER trained call, their
+launches the NER fit's, each with a kv_mask_call there; K5b's forward
+at [8,32,1024,80] bf16 causal with an lse_call at the MiniLM trained
+call, a kv_mask_call at the masked D = 32 call and a padded_call at D =
+20, its launches the MiniLM fit's;
 flash_attn_bwd_dq_k5b and flash_attn_bwd_dkv_k5b at the MiniLM trained
 call with a kv_mask_call at its padded call, their launches the MiniLM
-fit's; flash_attn_fwd_wide at the Gemma-width prefill call (f32) with an
+fit's; flash_attn_fwd_wide at the Gemma-width prefill call (f32, on
+flash_attn_fwd_f32tc.cu since it retired the FMA kernel there) with an
 lse_call, its launches the Gemma phase's; flash_attn_bwd_dq_wide and
 flash_attn_bwd_dkv_wide at the LM's f32 gradient check's call, with no
 launch in a fit (the LM fit's are the Hopper kernels'); flash_attn_fwd_wider at the
@@ -341,8 +384,10 @@ K1_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:82"
 # and K2's and K3's for the same calls
 SM90_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu"
 SM90_BWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_sm90.cu"
-# K2's and K3's f32 kernels up to D = 128, on the tensor cores (3xTF32)
+# K2's and K3's f32 kernels up to D = 128, and K1's up to D = 256, on the
+# tensor cores (3xTF32)
 F32TC_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_f32tc.cu"
+F32TC_FWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd_f32tc.cu"
 # K2 and K3 (and K5b's backward): templates in flash_attn_bwd.cuh, built
 # and exported by one source each
 K2_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_dq.cu"
@@ -368,8 +413,9 @@ SERVE_TOL = 5e-2
 # 1.2-2.2% (head) apart, with and without the mask
 GRAD_TOL = 5e-2
 LOSS_TOL = 1e-2
-# the same step in f32 (GEMMs without TF32; K1 on FMA, K2 and K3 at
-# D <= 128 as three TF32 products, about 2^-21 relative a product): flash
+# the same step in f32 (GEMMs without TF32; K1 at D <= 256 and K2 and K3
+# at D <= 128 as three TF32 products, about 2^-21 to 2^-20 relative a
+# product; K1 above 256 and K2, K3 above 128 on FMA): flash
 # and einsum attention differ only in the order of f32 sums, so a broken
 # backward (dQ dropped, dK and dV swapped) shows far above this
 F32_GRAD_TOL = 1e-3
@@ -561,7 +607,8 @@ def kernel_bounds(b, h, lq, lk, d, elt, causal, peaks, keep=None):
     elements: {kernel: (bound_ms, bound_by, fma_bound_ms)}. bf16: flops at
     the bf16 tensor-core peak (fma_bound_ms None). f32: the least time at
     f32 accuracy, max(bytes / bw, 3 * flops / the TF32 tensor-core peak)
-    (three TF32 products make one f32 one: flash_attn_bwd_f32tc.cu), and
+    (three TF32 products make one f32 one: flash_attn_fwd_f32tc.cu,
+    flash_attn_bwd_f32tc.cu), and
     beside it the FMA figure, flops at the f32 CUDA-core peak."""
     if elt == 2:
         return {k: (*v, None) for k, v in bounds(
@@ -627,8 +674,15 @@ def kernel_phase(torch, peaks):
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         else:
             q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
+        tc_before = fa.flash_attention.f32tc_launches
         got = fa.flash_attention(q, k, v, causal, None, with_lse)
         torch.cuda.synchronize()
+        # f32 on the f32 tensor-core kernel, bf16 elsewhere
+        if (fa.flash_attention.f32tc_launches - tc_before
+                != _k1_f32tc(fa, dtype, d, False)):
+            fail(f"K1 {name} {dt}: launched "
+                 f"{fa.flash_attention.f32tc_launches - tc_before} times on "
+                 "flash_attn_fwd_f32tc.cu")
         ref = fa.flash_attention_reference(q, k, v, causal, None,
                                            with_lse)
         out, lse = got if with_lse else (got, None)
@@ -739,6 +793,20 @@ MASKED_CASES = [
 ]
 
 
+def _sdpa_args(fa, lq, lk, causal, m):
+    """(attn_mask, is_causal) for SDPA to compute the port's function: the
+    key-padding mask as a boolean [B, 1, 1, Lk] mask, and a causal
+    diagonal as is_causal where that means the same (SDPA aligns it
+    top-left: equal at lq == lk without a mask beside it), else as an
+    explicit bottom-right boolean mask (``_visible``). One PyTorch call
+    either way; rows that see no key come out NaN there, which a timing
+    does not read."""
+    if causal and (lq != lk or m is not None):
+        return fa._visible(lq, lk, True, m, m.device if m is not None
+                           else "cuda"), False
+    return (None if m is None else m.bool()[:, None, None, :]), causal
+
+
 def backward_phase(torch, peaks, cases, seed, label, quiet=False):
     """K1 without and with logsumexp, K2 and K3, each through its wrapper
     against its plain version on the card, K2 and K3 reading the kernel's
@@ -791,6 +859,7 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
                 fail(f"{label} {key} {name} {dt}: error above {tol} * "
                      f"(1 + |ref|) (max abs error {err})")
 
+        k1_tc = fa.flash_attention.f32tc_launches
         out = fa.flash_attention(q, k, v, causal, None, False, m)
         torch.cuda.synchronize()
         check("k1", out, fa.flash_attention_reference(
@@ -807,6 +876,12 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
         if not (torch.isfinite(lse).all() and lerr <= LSE_TOL[dt]):
             fail(f"{label} K1 lse {name} {dt}: error {lerr} > {LSE_TOL[dt]}")
         del ro, rlse
+        # K1 and K1-lse: f32 up to D = 256 on the f32 tensor-core kernel
+        k1_tc = fa.flash_attention.f32tc_launches - k1_tc
+        if k1_tc != 2 * _k1_f32tc(fa, dtype, d, m is not None):
+            fail(f"{label} {name} {dt} D={d}: K1 and K1-lse launched "
+                 f"{k1_tc} times on flash_attn_fwd_f32tc.cu (want "
+                 f"{2 * _k1_f32tc(fa, dtype, d, m is not None)})")
         before = [(w.launches, w.f32tc_launches) for w in bwd_wrappers]
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
                                               None, m)
@@ -877,32 +952,29 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
                                           keep).items():
                 (rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"],
                  rec[f"{key}_fma_bound_ms"]) = bnd
-            # SDPA (a yardstick; the port never calls it), the mask as a
-            # boolean attn_mask: the forward at inference, the forward
+            # SDPA (a yardstick; the port never calls it) on the same
+            # function (_sdpa_args): the forward at inference, the forward
             # with inputs that need a gradient (it keeps its logsumexp),
-            # and the backward alone replayed on one retained graph. It
-            # aligns a causal diagonal top-left and takes no mask beside
-            # is_causal, so only equal lengths without both compare
-            if lq == lk and not (causal and m is not None):
-                attn = None if m is None else m.bool()[:, None, None, :]
-                qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-                # the backend that takes the forward and its backward
-                rec["sdpa_backend"] = sdpa_backend(
-                    torch, lambda: torch.autograd.grad(
-                        sdpa(qs, ks, vs, attn_mask=attn, is_causal=causal),
-                        (qs, ks, vs), do))
-                sout = sdpa(qs, ks, vs, attn_mask=attn, is_causal=causal)
-                calls = {
-                    "sdpa": lambda: sdpa(q, k, v, attn_mask=attn,
-                                         is_causal=causal),
-                    "sdpa_fwd": lambda: sdpa(qs, ks, vs, attn_mask=attn,
-                                             is_causal=causal),
-                    "sdpa_bwd": lambda: torch.autograd.grad(
-                        sout, (qs, ks, vs), do, retain_graph=True)}
-                for key, fn in calls.items():
-                    rec[f"{key}_ms"] = time_ms(torch, fn, 20, warm=5)
-                    rec[f"{key}_device_ms"] = device_ms(torch, fn)
-                del sout, qs, ks, vs
+            # and the backward alone replayed on one retained graph
+            attn, flag = _sdpa_args(fa, lq, lk, causal, m)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            # the backend that takes the forward and its backward
+            rec["sdpa_backend"] = sdpa_backend(
+                torch, lambda: torch.autograd.grad(
+                    sdpa(qs, ks, vs, attn_mask=attn, is_causal=flag),
+                    (qs, ks, vs), do))
+            sout = sdpa(qs, ks, vs, attn_mask=attn, is_causal=flag)
+            calls = {
+                "sdpa": lambda: sdpa(q, k, v, attn_mask=attn,
+                                     is_causal=flag),
+                "sdpa_fwd": lambda: sdpa(qs, ks, vs, attn_mask=attn,
+                                         is_causal=flag),
+                "sdpa_bwd": lambda: torch.autograd.grad(
+                    sout, (qs, ks, vs), do, retain_graph=True)}
+            for key, fn in calls.items():
+                rec[f"{key}_ms"] = time_ms(torch, fn, 20, warm=5)
+                rec[f"{key}_device_ms"] = device_ms(torch, fn)
+            del sout, qs, ks, vs
         checks.append(rec)
         if quiet:
             del q, k, v, do, o, lse, dq, dk, dv, delta, rdq, rdk, rdv, rdelta
@@ -1023,15 +1095,23 @@ def _make(torch, rng):
     return make
 
 
+def _k1_f32tc(fa, dtype, d, masked):
+    """1 where ``_fwd_entry`` sends a K1 call to the f32 tensor-core
+    kernel (flash_attn_fwd_f32tc.cu: f32 up to D = 256), else 0."""
+    return int(fa._fwd_entry(dtype, fa._kernel_head_dim(d),
+                             masked).endswith("_f32tc"))
+
+
 def fwd_check(torch, make, label, b, h, lq, lk, d, dt, causal, m, with_lse,
               counter, views=False):
     """One ``flash_attention`` call on random inputs against its plain
     version (``TOL``, ``LSE_TOL``); the wrapper must count it in
     ``counter`` (``small_d_launches`` for K5b, ``wide_d_launches`` above
-    D = 128, ``sm90_launches`` for the Hopper kernel). With ``views`` (and
-    lq == lk) q, k and v are strided views into one fused [B, L, 3, H, D]
-    projection, as the models' attention makes them. Returns (q, k, v,
-    record)."""
+    D = 128, ``sm90_launches`` for the Hopper kernel, ``f32tc_launches``
+    for the f32 tensor-core kernel), and every f32 call up to D = 256 in
+    ``f32tc_launches``. With ``views`` (and lq == lk) q, k and v are
+    strided views into one fused [B, L, 3, H, D] projection, as the
+    models' attention makes them. Returns (q, k, v, record)."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     dtype = getattr(torch, dt)
@@ -1042,10 +1122,15 @@ def fwd_check(torch, make, label, b, h, lq, lk, d, dt, causal, m, with_lse,
         q = make((b, h, lq, d), dtype)
         k, v = make((b, h, lk, d), dtype), make((b, h, lk, d), dtype)
     before = getattr(fa.flash_attention, counter)
+    tc_before = fa.flash_attention.f32tc_launches
     got = fa.flash_attention(q, k, v, causal, None, with_lse, m)
     torch.cuda.synchronize()
     if getattr(fa.flash_attention, counter) != before + 1:
         fail(f"{label}: the wrapper did not count the launch in {counter}")
+    tc = _k1_f32tc(fa, dtype, d, m is not None)
+    if fa.flash_attention.f32tc_launches - tc_before != tc:
+        fail(f"{label}: {fa.flash_attention.f32tc_launches - tc_before} "
+             f"launches on flash_attn_fwd_f32tc.cu (want {tc})")
     ref = fa.flash_attention_reference(q, k, v, causal, None, with_lse, m)
     out, lse = got if with_lse else (got, None)
     ref_out, ref_lse = ref if with_lse else (ref, None)
@@ -1095,9 +1180,8 @@ def timed_fwd_cases(torch, peaks, rng, cases, counter, label, iters=20,
         mk = fa._kernel_mask(m)
         call = lambda: fa.flash_attention(q, k, v, causal, None, with_lse,
                                           mk)
-        attn = None if m is None else m.bool()[:, None, None, :]
-        # SDPA aligns a causal diagonal top-left: equal at lq == lk
-        lib = lambda: sdpa(q, k, v, attn_mask=attn, is_causal=causal)
+        attn, flag = _sdpa_args(fa, lq, lk, causal, m)
+        lib = lambda: sdpa(q, k, v, attn_mask=attn, is_causal=flag)
         rec["ms"] = time_ms(torch, call, iters)
         rec["device_ms"] = device_ms(torch, call)
         rec["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_reference(
@@ -1105,6 +1189,15 @@ def timed_fwd_cases(torch, peaks, rng, cases, counter, label, iters=20,
         rec["library_ms"] = time_ms(torch, lib, iters)
         rec["library_device_ms"] = device_ms(torch, lib)
         rec["library_backend"] = sdpa_backend(torch, lib)
+        if with_lse:
+            # beside K1-lse: SDPA's forward on inputs that need a gradient
+            # (it keeps its logsumexp for the backward)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            lib_grad = lambda: sdpa(qs, ks, vs, attn_mask=attn,
+                                    is_causal=flag)
+            rec["library_grad_ms"] = time_ms(torch, lib_grad, iters)
+            rec["library_grad_device_ms"] = device_ms(torch, lib_grad)
+            del qs, ks, vs
         (rec["bound_ms"], rec["bound_by"],
          rec["fma_bound_ms"]) = kernel_bounds(
             b, h, lq, lk, d, q.element_size(), causal, peaks,
@@ -1150,6 +1243,7 @@ def padded_check(torch, rng):
                        for _ in range(3))
             do = make((2, 2, 128, d), dtype)
             before = [w.small_d_launches for w in wrappers]
+            before_tc = [w.f32tc_launches for w in wrappers]
             with torch.no_grad():
                 plain_fwd = fa.flash_attention(q, k, v, True)
             out = fa.flash_attention(q, k, v, True)
@@ -1160,6 +1254,11 @@ def padded_check(torch, rng):
             if counted != [2, 1, 1]:
                 fail(f"padded d={d} {dt}: K1, K2, K3 counted {counted} "
                      "K5b launches (want 2, 1, 1)")
+            # f32: all four on the f32 tensor-core kernels
+            tc = [w.f32tc_launches - n for w, n in zip(wrappers, before_tc)]
+            if tc != ([2, 1, 1] if dt == "float32" else [0, 0, 0]):
+                fail(f"padded d={d} {dt}: K1, K2, K3 counted {tc} f32 "
+                     "tensor-core launches")
             with torch.no_grad():
                 ref, lse = fa.flash_attention_reference(q, k, v, True, None,
                                                         True)
@@ -1577,6 +1676,94 @@ def f32tc_phase(torch, peaks):
     return checks
 
 
+# K1 in f32 on the tensor cores (flash_attn_fwd_f32tc.cu): every
+# instantiation once -- D = 8..128 in steps of 8, each without a mask (q/k/v
+# views into a fused projection) and with _k5b_mask (a full row, one of 2
+# real keys, one left-padded, one with no real key), causal and not, with
+# and without logsumexp; D = 192 and 256 (views, no mask), causal and not,
+# with and without logsumexp -- then lq < lk causal (unmasked, and with
+# _right_100's rows that see no key), one long causal call (L = 4096,
+# where O sums 4096 keys) and masked calls at L = 1024 with a row of 2
+# real keys. name, (b, h, lq, lk, d), causal, mask, with_lse, views
+F32TC_FWD_SWEEP = [
+    (f"d{d}", shape + (d,), causal, mask_of, with_lse, views)
+    for d in range(8, 129, 8)
+    for shape, mask_of, views in (((2, 3, 128, 128), None, True),
+                                  ((4, 2, 128, 128), _k5b_mask, False))
+    for causal in (False, True) for with_lse in (False, True)] + [
+    (f"d{d}", (2, 3, 128, 128, d), causal, None, with_lse, True)
+    for d in (192, 256) for causal in (False, True)
+    for with_lse in (False, True)] + [
+    ("cross", (1, 2, 64, 192, d), True, None, True, False)
+    for d in (8, 64, 80, 128, 192, 256)] + [
+    ("cross_left", (1, 2, 128, 384, d), True, _right_100, True, False)
+    for d in (16, 64, 128)] + [
+    ("long_causal", (1, 4, 4096, 4096, d), True, None, True, False)
+    for d in (64, 256)] + [
+    ("long_masked", (4, 2, 1024, 1024, d), False, _k5b_mask, True, False)
+    for d in (32, 64, 128)]
+# the calls timed: the served shape at the f32 kernel phase's batch
+# (views), the BERT-base trained K1-lse (views), the NER trained K1-lse
+# (masked, views), MiniLM's trained K1-lse without and with a mask (K5b at
+# D = 32, views), cross-length causal [1,2,128->384,128], [8,8,2048,128]
+# causal, the prefills of the three f32 generation phases at their
+# widths (Phi-2's [1,32,2048,80] and the repo geometry's [1,2,256,16] in
+# their top buckets, Gemma-2B's [1,8,8192,256]) and the Gemma-width
+# K1-lse at its 2048 bucket. name, shape, dtype, causal, mask, with_lse
+F32TC_FWD_CASES = [
+    ("served", (8, 12, 512, 512, 64), "float32", False, None, False),
+    ("trained_lse", (48, 12, 384, 384, 64), "float32", False, None, True),
+    ("ner_lse", (32, 12, 128, 128, 64), "float32", False,
+     lambda rng, b, lk: padding_mask(rng, b, lk, 2, left_rows=(2,)), True),
+    ("minilm_lse", (48, 12, 384, 384, 32), "float32", False, None, True),
+    ("minilm_padded_lse", (48, 12, 384, 384, 32), "float32", False,
+     lambda rng, b, lk: padding_mask(rng, b, lk, 64), True),
+    ("cross_causal", (1, 2, 128, 384, 128), "float32", True, None, False),
+    ("f32_d128", (8, 8, 2048, 2048, 128), "float32", True, None, False),
+    ("phi2_prefill", (1, 32, 2048, 2048, 80), "float32", True, None, False),
+    ("repo_prefill", (1, 2, 256, 256, 16), "float32", True, None, False),
+    ("gemma_prefill", (1, 8, 8192, 8192, 256), "float32", True, None,
+     False),
+    ("gemma_lse", (1, 8, 2048, 2048, 256), "float32", True, None, True),
+]
+F32TC_FWD_VIEWS = ("served", "trained_lse", "ner_lse", "minilm_lse",
+                   "minilm_padded_lse")
+
+
+def f32tc_fwd_phase(torch, peaks):
+    """K1's f32 tensor-core kernel through the ``flash_attention``
+    wrapper against its plain version on the card (TF32 off:
+    ``no_tf32``): ``F32TC_FWD_SWEEP`` (seed 27, one summary line; each
+    case must count one launch in ``f32tc_launches``), then
+    ``F32TC_FWD_CASES`` timed (seed 28), each beside its plain version,
+    SDPA's f32 forward and its backend, the bound at f32 accuracy and on
+    FMA. Returns the timed records."""
+    no_tf32(torch, "K1 f32tc")
+    rng = np.random.RandomState(27)
+    make = _make(torch, rng)
+    sweep = []
+    for name, (b, h, lq, lk, d), causal, mask_of, with_lse, views in (
+            F32TC_FWD_SWEEP):
+        m = (None if mask_of is None
+             else torch.from_numpy(mask_of(rng, b, lk)).cuda())
+        _, _, _, rec = fwd_check(
+            torch, make, f"K1 f32tc {name} {[b, h, lq, lk, d]} "
+            f"causal={causal} mask={m is not None} lse={with_lse}", b, h, lq,
+            lk, d, "float32", causal, m, with_lse, "f32tc_launches",
+            views=views)
+        sweep.append(rec["share"])
+    print(f"K1 f32tc: all {len(F32TC_FWD_SWEEP)} cases (D 8..128 x mask x "
+          f"causal x lse, views; 192/256 x causal x lse; lq < lk, rows "
+          f"that see no key, L = 4096 causal, L = 1024 with a row of 2 "
+          f"real keys) match the plain version (largest error "
+          f"{max(sweep):.3g} of its tolerance)", flush=True)
+    checks = timed_fwd_cases(torch, peaks, np.random.RandomState(28),
+                             F32TC_FWD_CASES, "f32tc_launches", "K1 f32tc",
+                             views=F32TC_FWD_VIEWS)
+    print(json.dumps({"f32tc_fwd_checks": checks}), flush=True)
+    return checks
+
+
 def _pick(records, name, dt="bfloat16"):
     return next(r for r in records if r["case"] == name and r["dtype"] == dt)
 
@@ -1659,21 +1846,18 @@ def _reset_launches(fa):
     for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
               fa.flash_attention_bwd_dkv):
         w.launches = w.masked_launches = w.small_d_launches = 0
-        w.wide_d_launches = w.sm90_launches = 0
-    fa.flash_attention_bwd_dq.f32tc_launches = 0
-    fa.flash_attention_bwd_dkv.f32tc_launches = 0
+        w.wide_d_launches = w.sm90_launches = w.f32tc_launches = 0
 
 
 def _launches(fa):
     """{kernel: (launches, launches with a mask, launches at a head dim
     that is not a multiple of 64, launches above D = 128, launches of
     the Hopper kernels: K1's flash_attn_fwd_sm90.cu, K2's and K3's
-    flash_attn_bwd_sm90.cu, and launches of K2's and K3's f32
-    tensor-core kernels, flash_attn_bwd_f32tc.cu; 0 for K1)} since the
-    last reset."""
+    flash_attn_bwd_sm90.cu, and launches of the f32 tensor-core kernels:
+    K1's flash_attn_fwd_f32tc.cu, K2's and K3's
+    flash_attn_bwd_f32tc.cu)} since the last reset."""
     return {name: (w.launches, w.masked_launches, w.small_d_launches,
-                   w.wide_d_launches, w.sm90_launches,
-                   getattr(w, "f32tc_launches", 0))
+                   w.wide_d_launches, w.sm90_launches, w.f32tc_launches)
             for name, w in (
         ("K1", fa.flash_attention), ("K2", fa.flash_attention_bwd_dq),
         ("K3", fa.flash_attention_bwd_dkv))}
@@ -1709,27 +1893,29 @@ def _check_sm90(label, launches, want):
 
 def _f32tc_expected(torch, fa, dtype, head_dim, masked, launches):
     """{kernel: how many of its launches in ``launches`` must have run on
-    the f32 tensor-core kernels (flash_attn_bwd_f32tc.cu)}: every K2 and
-    K3 launch of an f32 call up to D = 128, masked or not; none of any
-    other, and none of K1's."""
-    tc = fa._bwd_entry(getattr(torch, dtype), fa._kernel_head_dim(head_dim),
-                       masked)[0].endswith("_f32tc")
-    return {name: counts[0] if tc and name != "K1" else 0
+    the f32 tensor-core kernels}: every K1 launch of an f32 call up to
+    D = 256 (flash_attn_fwd_f32tc.cu) and every K2 and K3 launch of one up
+    to D = 128 (flash_attn_bwd_f32tc.cu), masked or not; none of any
+    other."""
+    dt, dp = getattr(torch, dtype), fa._kernel_head_dim(head_dim)
+    tc = dict(zip(("K1", "K2", "K3"), (
+        fa._fwd_entry(dt, dp, masked), *fa._bwd_entry(dt, dp, masked))))
+    return {name: counts[0] if tc[name].endswith("_f32tc") else 0
             for name, counts in launches.items()}
 
 
 def _check_f32tc(label, launches, want):
     """Fail unless each kernel's f32 tensor-core launches in ``launches``
     are what ``want`` (``_f32tc_expected``) says; returns a line that
-    says where K2 and K3 ran."""
+    says where K1, K2 and K3 ran."""
     for name, n in want.items():
         got, total = launches[name][5], launches[name][0]
         if got != n:
-            fail(f"{label}: {got} of {total} {name} launches on "
-                 f"flash_attn_bwd_f32tc.cu (want {n})")
+            fail(f"{label}: {got} of {total} {name} launches on the f32 "
+                 f"tensor-core kernels (want {n})")
     return f"{label}: f32 tensor-core kernels " + ", ".join(
         f"{name} {launches[name][5]} of {launches[name][0]}"
-        for name in ("K2", "K3"))
+        for name in ("K1", "K2", "K3"))
 
 
 # K2's and K3's launches in the learn phases' f32 gradient checks (one
@@ -2082,8 +2268,8 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
         rel32[tag] = _rel(step_grads(torch, f32.module, xc, yb, "flash",
                                      **grad)[1], refs[tag][1])
         if cuda:
-            # the f32 step's K2 and K3: once a layer, and at D <= 128 all
-            # on the f32 tensor-core kernels
+            # the f32 step's K1-lse (at D <= 256), K2 and K3 (at D <= 128)
+            # all on the f32 tensor-core kernels; K2 and K3 once a layer
             counts = _launches(fa)
             want = _f32tc_expected(
                 torch, fa, "float32", head_dim,
@@ -2858,6 +3044,7 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
         torch.cuda.synchronize()
         launched = getattr(fa.flash_attention, counter)
         other = fa.flash_attention.launches - launched
+        f32tc = fa.flash_attention.f32tc_launches
         # ---- end of the main path ----
         peak = torch.cuda.max_memory_allocated()
         prefill1, step1 = (
@@ -2885,6 +3072,13 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
                  f"times in {counter} (want {layers} layers x "
                  f"{want // layers} prefills in buckets >= 128, warm-up "
                  f"included), {other} other flash launches")
+        # TinyGenLM is f32: up to D = 256 every prefill on K1's f32
+        # tensor-core kernel
+        tc_want = launched * _k1_f32tc(fa, torch.float32, m["head_dim"],
+                                       False)
+        if f32tc != tc_want:
+            fail(f"{label}: {f32tc} of the prefill's {launched} flash "
+                 f"launches on flash_attn_fwd_f32tc.cu (want {tc_want})")
         logits = (_logits_check(torch, engine, prompts, n_logits,
                                 check_tokens, label) if n_logits else None)
         compared, ties = _gen_reference_check(
@@ -2925,7 +3119,7 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
         "decode_gather_share": gather_share,
         "prefill_ms_by_bucket": by_bucket,
         "flash_counter": counter, "flash_launches": launched,
-        "flash_launches_wanted": want,
+        "flash_launches_wanted": want, "flash_f32tc_launches": f32tc,
         "exact_tokens_compared": compared, "f32_ties": ties,
         "logits_check": logits,
         "kv_pool_bytes": engine.cache.stats()["bytes"],
@@ -3099,7 +3293,7 @@ def main() -> None:
         print(f"phase {name}: {time.perf_counter() - t:.1f}s", flush=True)
         return out
 
-    served = timed("kernels", kernel_phase, torch, peaks)
+    timed("kernels", kernel_phase, torch, peaks)
     backward = timed("backward", backward_phase, torch, peaks,
                      BACKWARD_CASES, 1, "backward")
     ner = _pick(timed("masked kernels", backward_phase, torch, peaks,
@@ -3157,8 +3351,9 @@ def main() -> None:
     sm90 = timed("K1 sm90", sm90_phase, torch, peaks)
     sm90_bwd = timed("K2/K3 sm90", sm90_bwd_phase, torch, peaks)
     f32tc = timed("K2/K3 f32 tensor cores", f32tc_phase, torch, peaks)
-    k5b_full, k5b_masked, k5b_padded = (
-        _pick(k5b, "gen_full", "float32"), _pick(k5b, "minilm_masked"),
+    f32tc_fwd = timed("K1 f32 tensor cores", f32tc_fwd_phase, torch, peaks)
+    k5b_bf16, k5b_masked, k5b_padded = (
+        _pick(k5b, "bf16_d80"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))
     mini, mini_padded = (_pick(k5b_bwd, "minilm_trained"),
                          _pick(k5b_bwd, "minilm_padded"))
@@ -3267,6 +3462,49 @@ def main() -> None:
                 "d128_call": bwd_call(_pick(f32tc, "f32_d128", "float32"),
                                       key)}
 
+    def f32tc_fwd_row():
+        """K1's f32 tensor-core kernel at the BERT-base trained K1-lse
+        call, with the served shape, the NER trained call (masked), the
+        MiniLM calls (K5b at D = 32), cross-length causal,
+        [8,8,2048,128] causal and the three f32 generation phases'
+        prefill calls (the Gemma-width one with its K1-lse); launched by
+        those generation phases' prefills and the learn phases' f32
+        gradient checks."""
+        by_phase = {lbl: g["flash_f32tc_launches"] for lbl, g in zip(
+            ("gen", "genfull", "gengemma"), (*gens, gemma))}
+        by_phase.update({lbl: c["K1"][5]
+                         for lbl, c in F32_CHECK_LAUNCHES.items()
+                         if c["K1"][5]})
+        lse_keys = ("lse_max_abs_err", "library_grad_ms",
+                    "library_grad_device_ms", "library_backend")
+        rec = {name: _pick(f32tc_fwd, name, "float32")
+               for name, *_ in F32TC_FWD_CASES}
+        return {"name": "flash_attn_fwd_f32tc", "route": "cuda",
+                "source": F32TC_FWD_SOURCE, "replaces": K1_REPLACES,
+                "launches": sum(by_phase.values()),
+                "launches_by_phase": by_phase,
+                **pick_keys(rec["trained_lse"], *lse_keys),
+                "served_call": pick_keys(rec["served"], "library_backend"),
+                "kv_mask_call": dict(pick_keys(rec["ner_lse"], *lse_keys),
+                                     replaces=K5A_REPLACES),
+                "k5b_call": dict(pick_keys(rec["phi2_prefill"],
+                                           "library_backend"),
+                                 replaces=K5B_REPLACES),
+                "k5b_lse_call": dict(pick_keys(rec["minilm_lse"], *lse_keys),
+                                     replaces=K5B_REPLACES),
+                "k5b_mask_call": dict(pick_keys(rec["minilm_padded_lse"],
+                                                *lse_keys),
+                                      replaces=K5B_REPLACES),
+                "repo_call": dict(pick_keys(rec["repo_prefill"],
+                                            "library_backend"),
+                                  replaces=K5B_REPLACES),
+                "cross_call": pick_keys(rec["cross_causal"],
+                                        "library_backend"),
+                "d128_call": pick_keys(rec["f32_d128"], "library_backend"),
+                "d256_call": pick_keys(rec["gemma_prefill"],
+                                       "library_backend"),
+                "d256_lse_call": pick_keys(rec["gemma_lse"], *lse_keys)}
+
     def sm90_bwd_row(name, replaces, key):
         """K2 or K3's Hopper kernel at the SQuAD fit's call, with
         [8,8,2048,128] and [4,16,2048,192] causal and the LM fit's call,
@@ -3286,13 +3524,11 @@ def main() -> None:
     # fit's shape, [8,8,2048,d] causal at 256 and 192 and the LM fit's
     # K1-lse ([4,16,2048,256] causal); launched by BERT-base serving, the
     # SQuAD fit and the GPT-J-width LM's fit. K1's older source keeps the
-    # f32 call (the served shape at batch 8) and the masked ones (the NER
-    # trained call, [32,12,128,64], synthetic lengths in [2, 128]); K2
-    # and K3 at the trained call ([48,12,384,64] bf16), masked at the NER
-    # trained call; K5b's backward at the MiniLM trained call
-    # ([48,12,384,32] bf16), masked at its padded call (lengths in [64,
-    # 384])
-    f32_served = served["float32"]
+    # masked bf16 calls (the NER trained call, [32,12,128,64], synthetic
+    # lengths in [2, 128]); K2 and K3 at the trained call ([48,12,384,64]
+    # bf16), masked at the NER trained call; K5b's backward at the MiniLM
+    # trained call ([48,12,384,32] bf16), masked at its padded call
+    # (lengths in [64, 384])
     sm90_launches = {"serving": runs[0][4], "squad_fit": squad["K1"][4],
                      "lm_fit": lm["K1"][4]}
     print(json.dumps({"kernels": [{
@@ -3306,20 +3542,15 @@ def main() -> None:
         "d192_call": pick_keys(_pick(sm90, "bf16_d192")),
         "trained_lse_call": pick_keys(_pick(sm90, "gptj_lse"),
                                       "lse_max_abs_err", "map_encode_us")}, {
+        # the masked bf16 NER trained call, launched by the BERT-base
+        # paths' masked K1 (the NER fit and NER serving)
         "name": "flash_attn_fwd", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES,
+        "replaces": K5A_REPLACES,
         "launches": k1_runs[0] - k1_runs[2],
-        "masked_launches": k1_runs[1], "shape": f32_served["shape"],
-        "max_abs_err": f32_served["max_abs_err"], "ms": f32_served["ms"],
-        "plain_ms": f32_served["plain_ms"],
-        "bound_ms": f32_served["bound_ms"],
-        "bound_by": f32_served["bound_by"],
-        "fma_bound_ms": f32_served["fma_bound_ms"],
-        "library_ms": f32_served["library_ms"],
-        "kv_mask_call": at(
-            ner, "k1", ner["sdpa_ms"], ner["sdpa_device_ms"],
-            replaces=K5A_REPLACES,
-            lse_call=lse_call(ner, replaces=K5A_REPLACES))},
+        "masked_launches": k1_runs[1],
+        **at(ner, "k1", ner["sdpa_ms"], ner["sdpa_device_ms"]),
+        "lse_call": lse_call(ner, replaces=K5A_REPLACES)},
+        f32tc_fwd_row(),
         sm90_bwd_row("flash_attn_bwd_dq_sm90", K2_REPLACES, "k2"),
         sm90_bwd_row("flash_attn_bwd_dkv_sm90", K3_REPLACES, "k3"),
         f32tc_row("flash_attn_bwd_dq_f32tc", K2_REPLACES, "k2"),
@@ -3330,14 +3561,13 @@ def main() -> None:
                 fits("K2"), ner, ner, K5A_REPLACES),
         bwd_row("flash_attn_bwd_dkv", K3_SOURCE, K3_REPLACES, "k3",
                 fits("K3"), ner, ner, K5A_REPLACES), {
-            # K5b at the full-width prefill call ([1,32,2048,80] f32,
-            # causal), launched by both generation phases' prefills and
-            # (with logsumexp) by the MiniLM fit
+            # K5b in bf16 at [8,32,1024,80] causal (f32, the generation
+            # phases' prefills among them, is flash_attn_fwd_f32tc's),
+            # launched (with logsumexp) by the MiniLM fit
             "name": "flash_attn_fwd_k5b", "route": "cuda",
             "source": K1_SOURCE, "replaces": K5B_REPLACES,
-            "launches": (sum(g["flash_launches"] for g in gens)
-                         + minilm["K1"][2]),
-            **pick_keys(k5b_full),
+            "launches": minilm["K1"][2],
+            **pick_keys(k5b_bf16),
             "lse_call": lse_call(mini),
             "kv_mask_call": {key: k5b_masked[key] for key in (
                 "shape", "real_keys", "keys", "max_abs_err", "ms",
@@ -3350,9 +3580,10 @@ def main() -> None:
                 minilm["K3"], mini, mini_padded, K5B_REPLACES), {
             # K1 f32 at D = 256: the full-width prefill call at Gemma-2B's
             # widths ([1,8,8192,256] f32, causal), launched by the Gemma
-            # phase's prefills (bf16 there is flash_attn_fwd_sm90's)
+            # phase's prefills, on flash_attn_fwd_f32tc.cu (bf16 there is
+            # flash_attn_fwd_sm90's)
             "name": "flash_attn_fwd_wide", "route": "cuda",
-            "source": K1_SOURCE, "replaces": K1_REPLACES,
+            "source": F32TC_FWD_SOURCE, "replaces": K1_REPLACES,
             "launches": gemma["flash_launches"],
             **pick_keys(_pick(wide, "gemma_prefill", "float32")),
             "lse_call": pick_keys(_pick(wide, "gemma_lse", "float32"),

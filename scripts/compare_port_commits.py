@@ -16,7 +16,12 @@ causal call, at [4,16,2048,192] and at [8,8,2048,128] causal, bf16
 chip_smoke.py times (the trained call, the NER trained call with its
 mask, MiniLM's [48,12,384,32] without and with a mask, cross-length
 causal [1,2,128->384,128] and [8,8,2048,128] causal), K1 and K1-lse at the served shape
-[32,12,512,64] and at [8,8,2048,256] causal, bf16 (device time),
+[32,12,512,64] and at [8,8,2048,256] causal, bf16 (device time), K1 in
+f32 at the served shape [8,12,512,64], at the prefills of the f32
+generation phases (Phi-2's [1,32,2048,80], the repo geometry's
+[1,2,256,16], Gemma-2B's [1,8,8192,256] with its K1-lse at
+[1,8,2048,256]) and at DeepSeek-V4-Flash's [1,64,2048,512] (device
+time),
 BERT-base serving (with the seconds its save and its start-up take), the
 NER fine-tune, NER serving (start-up seconds too) and TinyGenLM
 generation at the repo geometry. Each checkout builds its kernels into
@@ -93,12 +98,23 @@ BACKWARD = (
                       None, True), "f32_d128_"),
 )
 # K1 and K1-lse timed through chip_smoke.timed_fwd_cases: the served
-# shape and the widest head dim the backward also takes
+# shape and the widest head dim the backward also takes, bf16; then f32
+# (the K1 f32 calls of BACKWARD aside): the served shape, the f32
+# generation phases' prefills at their widths and top buckets (with the
+# Gemma width's K1-lse at its 2048 bucket), and K1 at D = 512
 FWD_CASES = (
     ("served_k1", (32, 12, 512, 512, 64), "bfloat16", False, None, False),
     ("served_k1_lse", (32, 12, 512, 512, 64), "bfloat16", False, None, True),
     ("d256_k1", (8, 8, 2048, 2048, 256), "bfloat16", True, None, False),
     ("d256_k1_lse", (8, 8, 2048, 2048, 256), "bfloat16", True, None, True),
+    ("f32_served_k1", (8, 12, 512, 512, 64), "float32", False, None, False),
+    ("f32_phi2_k1", (1, 32, 2048, 2048, 80), "float32", True, None, False),
+    ("f32_repo_k1", (1, 2, 256, 256, 16), "float32", True, None, False),
+    ("f32_gemma_k1", (1, 8, 8192, 8192, 256), "float32", True, None,
+     False),
+    ("f32_gemma_k1_lse", (1, 8, 2048, 2048, 256), "float32", True, None,
+     True),
+    ("f32_d512_k1", (1, 64, 2048, 2048, 512), "float32", True, None, False),
 )
 # (line pattern, metric name): seconds the phases print as they go
 SECONDS = (

@@ -130,14 +130,14 @@ class TestLaunches:
 
     @pytest.mark.parametrize("d", [32, 64, 128])
     def test_gradient_runs_f32tc(self, f32tc_count, d):
-        """Under ``FlashAttention`` an f32 call runs K1-lse on the older
-        forward source, then K2 and K3 on the f32 tensor-core kernels."""
+        """Under ``FlashAttention`` an f32 call runs K1-lse on K1's f32
+        tensor-core kernel, then K2 and K3 on theirs."""
         q, k, v, _ = _meta(d, grad=True, lq=192)
         out = fa.flash_attention(q, k, v, True)
         grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
         assert all(g.shape == q.shape for g in grads)
         assert [name for name, _ in f32tc_count] == [
-            "zoo_flash_attn_fwd", DQ, DKV]
+            "zoo_flash_attn_fwd_f32tc", DQ, DKV]
         for w in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
             assert (w.launches, w.f32tc_launches) == (1, 1)
 
@@ -212,18 +212,20 @@ def mma(c, a, b):
     return prod[..., C_RC[0], C_RC[1]].astype(np.float32)
 
 
-def mma3(c, a, b, passes=3):
+def mma3(c, a, b, passes=3, split_fn=split):
     """c += a b as the kernels take it: lo_a hi_b, hi_a lo_b, hi_a hi_b;
-    ``passes=1`` is one TF32 product (hi_a hi_b)."""
-    ahi, alo = split(a)
-    bhi, blo = split(b)
+    ``passes=1`` is one TF32 product (hi_a hi_b). ``split_fn`` gives
+    (hi, lo) as the tensor cores read them (the kernels' rounded split
+    by default)."""
+    ahi, alo = split_fn(a)
+    bhi, blo = split_fn(b)
     if passes == 3:
         c = mma(c, alo, bhi)
         c = mma(c, ahi, blo)
     return mma(c, ahi, bhi)
 
 
-def _over_d(rows, cols, passes):
+def _over_d(rows, cols, passes, split_fn=split):
     """rows [..., R, D] (R a multiple of 16) times cols^T [..., N, D]:
     the accumulator fragments [..., R/16, N/8, 32, 4] of the products
     over D, in k-steps of 8, A from rows and B from cols (K-major)."""
@@ -236,11 +238,11 @@ def _over_d(rows, cols, passes):
         af = a[..., A_RC[0], 8 * c + A_RC[1]]
         # B[k][n] = cols[n][8c + k]
         bf = b[..., B_RC[1], 8 * c + B_RC[0]]
-        acc = mma3(acc, af, bf, passes)
+        acc = mma3(acc, af, bf, passes, split_fn)
     return acc
 
 
-def _over_rows(acc, frag, tile, passes):
+def _over_rows(acc, frag, tile, passes, split_fn=split):
     """acc [..., W, D/8, 32, 4] += frag^T-contracted product: ``frag``
     [..., W, N/8, 32, 4] holds a 16 x N accumulator (S, dS, P^T or dS^T)
     whose columns are the rows of ``tile`` [..., N, D]; block j of 8
@@ -257,7 +259,8 @@ def _over_rows(acc, frag, tile, passes):
         for m in range(d // 8):
             b = np.stack([r0[..., LANE, 8 * m + G],
                           r1[..., LANE, 8 * m + G]], -1)
-            part[..., m, :, :] = mma3(part[..., m, :, :], a, b, passes)
+            part[..., m, :, :] = mma3(part[..., m, :, :], a, b, passes,
+                                      split_fn)
         if (j + 1) % (FLUSH_ROWS // 8) == 0:
             acc += part
             part[...] = 0

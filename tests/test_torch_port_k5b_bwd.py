@@ -177,11 +177,13 @@ def fake_card(monkeypatch):
 
 
 # where each entry point takes its head dim and its mask pointer
-D_ARG = {"zoo_flash_attn_fwd": 10, "zoo_flash_attn_bwd_dq": 13,
-         "zoo_flash_attn_bwd_dkv": 13, "zoo_flash_attn_bwd_dq_f32tc": 13,
+D_ARG = {"zoo_flash_attn_fwd": 10, "zoo_flash_attn_fwd_f32tc": 10,
+         "zoo_flash_attn_bwd_dq": 13, "zoo_flash_attn_bwd_dkv": 13,
+         "zoo_flash_attn_bwd_dq_f32tc": 13,
          "zoo_flash_attn_bwd_dkv_f32tc": 13}
-MASK_ARG = {"zoo_flash_attn_fwd": 23, "zoo_flash_attn_bwd_dq": 32,
-            "zoo_flash_attn_bwd_dkv": 32, "zoo_flash_attn_bwd_dq_f32tc": 32,
+MASK_ARG = {"zoo_flash_attn_fwd": 23, "zoo_flash_attn_fwd_f32tc": 23,
+            "zoo_flash_attn_bwd_dq": 32, "zoo_flash_attn_bwd_dkv": 32,
+            "zoo_flash_attn_bwd_dq_f32tc": 32,
             "zoo_flash_attn_bwd_dkv_f32tc": 32}
 
 
@@ -192,7 +194,7 @@ class TestLaunches:
                                                        masked):
         """Off the CPU, ``FlashAttention`` at a K5b head dim launches
         K1-lse, then K2, then K3 at that head dim (with the mask, when
-        given; f32, so K2 and K3 on the f32 tensor-core entries), and each
+        given; f32, so all three on the f32 tensor-core entries), and each
         wrapper counts its launch in ``launches``, ``masked_launches`` and
         ``small_d_launches``."""
         q, k, v = (torch.empty(2, 2, 128, d, device="meta",
@@ -202,7 +204,7 @@ class TestLaunches:
         out = fa.flash_attention(q, k, v, True, key_padding_mask=m)
         torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
         assert [name for name, _ in fake_card] == [
-            "zoo_flash_attn_fwd", "zoo_flash_attn_bwd_dq_f32tc",
+            "zoo_flash_attn_fwd_f32tc", "zoo_flash_attn_bwd_dq_f32tc",
             "zoo_flash_attn_bwd_dkv_f32tc"]
         for name, args in fake_card:
             assert args[D_ARG[name]] == d, name

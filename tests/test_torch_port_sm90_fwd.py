@@ -26,6 +26,7 @@ from tests.test_torch_port_k5b_bwd import D_ARG, fake_card  # noqa: F401
 torch.set_num_threads(2)
 
 SM90 = "zoo_flash_attn_fwd_sm90"
+F32TC = "zoo_flash_attn_fwd_f32tc"
 OLD = "zoo_flash_attn_fwd"
 # where the new entry point takes its lse pointer, causal flag and scale
 LSE_ARG, CAUSAL_ARG, SCALE_ARG = 4, 24, 23
@@ -43,10 +44,16 @@ class TestRoute:
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_fwd_entry(self, d, dtype, masked):
         """bf16 without a mask at 64, 128, 192 and 256 takes the Hopper
-        kernel; f32, a mask, the K5b head dims and D above 256 keep
+        kernel; f32 up to 256, masked or not, the f32 tensor-core kernel;
+        bf16 with a mask, bf16 K5b and D above 256 keep
         ``flash_attn_fwd.cu``."""
-        want = (SM90 if dtype == torch.bfloat16 and not masked
-                and d in (64, 128, 192, 256) else OLD)
+        if dtype == torch.bfloat16 and not masked and d in (64, 128, 192,
+                                                            256):
+            want = SM90
+        elif dtype == torch.float32 and d <= 256:
+            want = F32TC
+        else:
+            want = OLD
         assert fa._fwd_entry(dtype, d, masked) == want
 
     def test_entry_points_are_registered(self):
@@ -121,16 +128,18 @@ class TestLaunches:
     ])
     def test_other_calls_keep_the_old_entry(self, sm90_count, kind, d,
                                             dtype, masked):
-        """A masked call, f32, K5b (D = 80, and 20 padded to 24) and
-        D = 512 still reach ``zoo_flash_attn_fwd``, the mask's pointer
-        with them, and none counts in ``sm90_launches``."""
+        """A masked call, K5b (D = 80, and 20 padded to 24) and D = 512
+        still reach ``zoo_flash_attn_fwd``, f32 (D = 64 and 256) the f32
+        tensor-core entry, which takes the same arguments, the mask's
+        pointer with them, and none counts in ``sm90_launches``."""
         q, k, v = _meta(d, dtype)
         m = (torch.ones(2, 128, dtype=torch.uint8, device="meta")
              if masked else None)
         fa.flash_attention(q, k, v, False, key_padding_mask=m)
-        assert [name for name, _ in sm90_count] == [OLD]
+        want = F32TC if dtype == torch.float32 else OLD
+        assert [name for name, _ in sm90_count] == [want]
         args = sm90_count[0][1]
-        assert args[D_ARG[OLD]] == fa._kernel_head_dim(d)
+        assert args[D_ARG[want]] == fa._kernel_head_dim(d)
         assert (args[23] is not None) == masked
         assert fa.flash_attention.sm90_launches == 0
         assert fa.flash_attention.launches == 1

@@ -197,7 +197,7 @@ class TestWideDispatch:
         for g, w in zip(grads, want_grads):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
         assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
-            ("zoo_flash_attn_fwd", 256), ("zoo_flash_attn_bwd_dq", 256),
+            ("zoo_flash_attn_fwd_f32tc", 256), ("zoo_flash_attn_bwd_dq", 256),
             ("zoo_flash_attn_bwd_dkv", 256)]
         for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
                   fa.flash_attention_bwd_dkv):
@@ -367,12 +367,12 @@ class TestPaddedHeadDims:
         assert all(g.shape == (1, 2, 128, d) for g in grads)
         padded = -(-d // 8) * 8
         assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
-            ("zoo_flash_attn_fwd", padded),
+            ("zoo_flash_attn_fwd_f32tc", padded),
             ("zoo_flash_attn_bwd_dq_f32tc", padded),
             ("zoo_flash_attn_bwd_dkv_f32tc", padded)]
         # the true D's scale (the argument after the mask's two)
         for name, args in fake_card:
-            assert args[D_ARG[name] + {"zoo_flash_attn_fwd": 15}.get(
+            assert args[D_ARG[name] + {"zoo_flash_attn_fwd_f32tc": 15}.get(
                 name, 21)] == pytest.approx(1 / np.sqrt(d))
         for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
                   fa.flash_attention_bwd_dkv):
