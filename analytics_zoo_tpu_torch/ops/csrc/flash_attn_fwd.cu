@@ -1,10 +1,10 @@
 // Flash-attention forward (K1; K5b at the other head dims) for Hopper,
-// sm_90a: bf16 with a key-padding mask (D <= 128), bf16 K5b, and every
-// call above D = 256. Two kinds of call run elsewhere, and the entry
-// point returns 1004 for them: bf16 without a mask at D in {64, 128, 192,
-// 256} (flash_attn_fwd_sm90.cu: TMA, a producer warpgroup, wgmma) and f32
-// at every D up to 256, masked or not (flash_attn_fwd_f32tc.cu: 3xTF32
-// mma.sync on the tensor cores, cp.async).
+// sm_90a: bf16 with a key-padding mask (D <= 128), bf16 K5b, and bf16
+// above D = 256. Two kinds of call run elsewhere, and the entry point
+// returns 1004 for them: bf16 without a mask at D in {64, 128, 192, 256}
+// (flash_attn_fwd_sm90.cu: TMA, a producer warpgroup, wgmma) and every
+// f32 call, masked or not (flash_attn_fwd_f32tc.cu: 3xTF32 mma.sync on
+// the tensor cores, cp.async).
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_fwd_kernel`
 // (:82-134), launched by `_flash_fwd` (:137-189). Computes exact
@@ -47,8 +47,10 @@
 // this source's FMA kernel there, 8 threads a row on 16-row kv tiles).
 //
 // Head dims 320 to 512 (K1 at D in {320, 384, 448, 512}, unmasked, as
-// above; TinyGenLM's prefill at DeepSeek-V4-Flash's head dim of 512):
-//   * bf16: a warp's O accumulator over all of D would be D/2 f32
+// above; bf16: the 512-head LM's fit; f32 there, TinyGenLM's prefill at
+// DeepSeek-V4-Flash's head dim of 512 among it, is
+// flash_attn_fwd_f32tc.cu's, which retired this source's FMA kernel):
+//   * a warp's O accumulator over all of D would be D/2 f32
 //     registers a thread (160-256), past the 255 a thread may hold.
 //     flash_fwd_bf16_split_kernel splits D across warps, as K3's wide
 //     kernel does: a block owns 32 q rows (2 row groups of 16) and each
@@ -73,18 +75,6 @@
 //     reaches every barrier whether or not it computes. Shared memory
 //     (dynamic): Q [32][D+8], K and V [32][D+8] bf16 plus the partials,
 //     2 x kSplit x 16 x 32 f32 -- 83,456 bytes at D = 320, 132,608 at 512.
-//   * f32: plain FMA on the CUDA cores (flash_fwd_f32_kernel): 8 threads
-//     share one query row, each owning D/8 = 40-64 of its dims, dealt in
-//     4-float chunks round the row's threads (contiguous ones would put
-//     all 8 on one shared-memory bank); scores are reduced with shuffles,
-//     on kv tiles of 8 rows, so that K and V (32 KB at D = 512) stay in
-//     static shared memory; a thread holds 2 x D/8 f32 of Q and O, 128
-//     registers at 512 (234 in all there, no spill). (Up to D = 256 this
-//     template took every f32 call until flash_attn_fwd_f32tc.cu; a
-//     warp's O over all of D above 256 would need D split across warps on
-//     the tensor cores too, which is later work.)
-//   The f32 prefill at DeepSeek-V4-Flash's widths ([1, 64, 2048, 512],
-//   causal) does the Gemma-width call's 275 GFLOP, 4.1 ms at 67 TFLOP/s.
 //
 // Design. The Pallas grid (bh, q-block, kv-block) ran its kv dimension as a
 // sequential loop on one TPU core, carrying (m, l, acc) in VMEM scratch.
@@ -100,9 +90,6 @@
 //     fragment is re-packed in registers as the A fragment of P V, so the
 //     probabilities never touch shared or device memory. P is rounded to
 //     bf16 before P V, as the Pallas kernel casts p to v.dtype.
-//   * f32 (D above 256): the FMA template above. One TF32 pass on the
-//     tensor cores would not hold f32 accuracy; three do, which is
-//     flash_attn_fwd_f32tc.cu's design up to D = 256.
 //   * causal: kv tiles wholly above the diagonal are never loaded, and a
 //     warp whose rows all lie above a tile skips its arithmetic for it.
 //   * rows that see no key: masked scores are -inf, so such a row ends the
@@ -122,8 +109,6 @@
 // the load latency. wgmma, TMA and a producer warpgroup are
 // flash_attn_fwd_sm90.cu's, for the unmasked bf16 calls; the masked ones
 // here are later work.
-// In f32 (D above 256) the FMA path does the same 4*L*Lk*D flops against
-// 67 TFLOP/s, so a long causal prefill is bound by operations.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -139,9 +124,7 @@ namespace {
 constexpr int kTile = 64;        // q rows per block == kv rows per tile (bf16)
 constexpr int kThreads = 128;    // 4 warps
 constexpr int kPad = 8;          // bf16 elements of smem row padding
-constexpr int kFmaRows = 16;     // q rows per block on the f32 path
 constexpr int kWideKv = 32;      // kv rows per smem tile, bf16 at D > 256
-constexpr int kWiderFmaKv = 8;   // kv rows per smem tile, f32 at D > 256
 constexpr int kSplitRows = 32;   // q rows per block, bf16 at D > 256
 constexpr int kSlice = 64;       // dims of D a warp owns, bf16 at D > 256
 constexpr float kLog2e = 1.4426950408889634f;
@@ -397,108 +380,6 @@ flash_fwd_bf16_kernel(const Params p) {
     float* lse = p.lse + static_cast<long long>(bh) * p.lq;
     lse[ra] = empty_a ? kEmptyLse : (m_a + log2f(l_a)) * kLn2;
     lse[rb] = empty_b ? kEmptyLse : (m_b + log2f(l_b)) * kLn2;
-  }
-}
-
-// ----------------------------------------------------------------- f32 --
-// K1 f32 at D in {320, 384, 448, 512}, unmasked (up to 256 f32 is
-// flash_attn_fwd_f32tc.cu's): 8 threads a row, D/8 dims each dealt in
-// 4-float chunks round the row's threads (the header's notes), on kv
-// tiles of kWiderFmaKv rows
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const Params p) {
-  static_assert(D % 64 == 0 && D > 256 && D <= 512,
-                "head_dim: 320, 384, 448 or 512");
-  constexpr int KV = kWiderFmaKv;
-  constexpr int DP = D / 8;  // dimensions per thread
-  __shared__ __align__(16) float sK[KV][D];
-  __shared__ __align__(16) float sV[KV][D];
-
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.h;
-  const int hh = bh - b * p.h;
-  const int tid = threadIdx.x;
-  const int part = tid & 7;                  // 8 consecutive lanes per row
-  const int row = qt * kFmaRows + (tid >> 3);
-  const int offset = p.lk - p.lq;
-  // the i-th of a thread's dims: 4-float chunks dealt round the row's 8
-  // threads, so the 8 read 8 neighbouring chunks of a K or V row
-  auto dim = [part](int i) { return ((i / 4) * 8 + part) * 4 + (i % 4); };
-
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hh * p.v_sh;
-  float* o = static_cast<float*>(p.o) + b * p.o_sb + hh * p.o_sh;
-
-  float qr[DP];
-  float acc[DP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    qr[i] = q[row * p.q_sl + dim(i)] * p.scale_log2;
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  int n_tiles = p.lk / KV;
-  if (p.causal) {
-    const int last = (qt * kFmaRows + kFmaRows - 1 + offset) / KV + 1;
-    n_tiles = min(n_tiles, last);
-  }
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();
-    for (int i = tid; i < KV * D / 4; i += kThreads) {
-      const int r = i / (D / 4);
-      const int c = (i - r * (D / 4)) * 4;
-      const long long key = static_cast<long long>(kt) * KV + r;
-      *reinterpret_cast<float4*>(&sK[r][c]) =
-          *reinterpret_cast<const float4*>(k + key * p.k_sl + c);
-      *reinterpret_cast<float4*>(&sV[r][c]) =
-          *reinterpret_cast<const float4*>(v + key * p.v_sl + c);
-    }
-    __syncthreads();
-
-    float s[KV];
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < KV; ++j) {
-      float part_dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) part_dot = fmaf(qr[i], sK[j][dim(i)], part_dot);
-      part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 1);
-      part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 2);
-      part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 4);
-      if (p.causal && kt * KV + j > row + offset) part_dot = -INFINITY;
-      s[j] = part_dot;
-      mx = fmaxf(mx, part_dot);
-    }
-    const float base = (mx == -INFINITY) ? 0.f : mx;
-    const float corr = exp2f(m - base);
-    m = mx;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < KV; ++j) {
-      s[j] = exp2f(s[j] - base);
-      sum += s[j];
-    }
-    l = l * corr + sum;
-#pragma unroll
-    for (int i = 0; i < DP; ++i) {
-      float a = acc[i] * corr;
-#pragma unroll
-      for (int j = 0; j < KV; ++j) a = fmaf(s[j], sV[j][dim(i)], a);
-      acc[i] = a;
-    }
-  }
-
-  l = fmaxf(l, 1e-30f);
-  const float inv = 1.f / l;
-#pragma unroll
-  for (int i = 0; i < DP; ++i) o[row * p.o_sl + dim(i)] = acc[i] * inv;
-  if (p.lse != nullptr && part == 0) {
-    p.lse[static_cast<long long>(bh) * p.lq + row] = (m + log2f(l)) * kLn2;
   }
 }
 
@@ -761,19 +642,14 @@ cudaError_t launch_d(bool masked, int batch_heads, const Params& p,
   }
 }
 
-// K1 at D in {320, 384, 448, 512}: unmasked only (no path takes a mask
-// above 128)
+// K1 bf16 at D in {320, 384, 448, 512}: unmasked only (no path takes a
+// mask above 128)
 template <int D>
-cudaError_t launch_split(int dtype, int batch_heads, const Params& p,
-                         cudaStream_t s) {
-  if (dtype == 1) {
-    constexpr int smem = (kSplitRows + 2 * kWideKv) * (D + kPad) * 2
-        + 2 * (D / kSlice) * 16 * kWideKv * 4;
-    return launch(flash_fwd_bf16_split_kernel<D>,
-                  dim3(p.lq / kSplitRows, batch_heads), p, s, smem, D);
-  }
-  return launch(flash_fwd_f32_kernel<D>, dim3(p.lq / kFmaRows, batch_heads),
-                p, s);
+cudaError_t launch_split(int batch_heads, const Params& p, cudaStream_t s) {
+  constexpr int smem = (kSplitRows + 2 * kWideKv) * (D + kPad) * 2
+      + 2 * (D / kSlice) * 16 * kWideKv * 4;
+  return launch(flash_fwd_bf16_split_kernel<D>,
+                dim3(p.lq / kSplitRows, batch_heads), p, s, smem, D);
 }
 
 }  // namespace
@@ -782,8 +658,8 @@ cudaError_t launch_split(int dtype, int batch_heads, const Params& p,
 // key) with batch stride mask_sb, or null for none (required at D > 128).
 // Returns a cudaError_t (0 = launched); 1000 + n flags an argument the
 // kernel does not take (1004: a head dim it has no kernel for, bf16
-// without a mask at 64, 128, 192 and 256 and f32 at every D up to 256
-// among them).
+// without a mask at 64, 128, 192 and 256 and every f32 call among
+// them).
 extern "C" int zoo_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int batch, int heads, int lq, int lk, int d,
@@ -816,8 +692,8 @@ extern "C" int zoo_flash_attn_fwd(
   if (dtype == 1 && !masked && (d == 64 || d == 128 || d == 192 || d == 256)) {
     return 1004;
   }
-  // f32 up to D = 256, masked or not: flash_attn_fwd_f32tc.cu
-  if (dtype == 0 && d <= 256) return 1004;
+  // f32, masked or not: flash_attn_fwd_f32tc.cu
+  if (dtype == 0) return 1004;
   const int bh = batch * heads;
   switch (d) {
     // K1 (bf16 with a mask)
@@ -839,10 +715,10 @@ extern "C" int zoo_flash_attn_fwd(
     case 112: return launch_d<112>(masked, bh, p, s);
     case 120: return launch_d<120>(masked, bh, p, s);
     // K1 above 256: the reference's Pallas kernel at D % 64 == 0
-    case 320: return launch_split<320>(dtype, bh, p, s);
-    case 384: return launch_split<384>(dtype, bh, p, s);
-    case 448: return launch_split<448>(dtype, bh, p, s);
-    case 512: return launch_split<512>(dtype, bh, p, s);
+    case 320: return launch_split<320>(bh, p, s);
+    case 384: return launch_split<384>(bh, p, s);
+    case 448: return launch_split<448>(bh, p, s);
+    case 512: return launch_split<512>(bh, p, s);
     default: return 1004;
   }
 }

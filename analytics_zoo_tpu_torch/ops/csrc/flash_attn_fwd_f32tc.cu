@@ -1,16 +1,16 @@
 // Flash-attention forward (K1, K1 with logsumexp; K5b's forward at the
 // head dims that are not a multiple of 64) for Hopper, sm_90a: the float32
 // kernel at every head dim up to 128 that is a multiple of 8, with or
-// without a key-padding mask, and at 192 and 256 without one, on the
-// tensor cores at f32 accuracy (3xTF32 mma.sync) with asynchronous tile
-// copies (cp.async).
+// without a key-padding mask, and at 192, 256, 320, 384, 448 and 512
+// without one, on the tensor cores at f32 accuracy (3xTF32 mma.sync) with
+// asynchronous tile copies (cp.async; above 256 1-D bulk copies).
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_fwd_kernel`
 // (:82, launched at :167 by `_flash_fwd` :137; with its logsumexp through
 // `_vjp_fwd` :384), and, with a key-padding mask or at a head dim that is
 // not a multiple of 64, the forward of the stock Pallas kernel that
 // analytics_zoo_tpu/ops/attention.py (:116-127) reaches. The semantics are
-// flash_attn_fwd.cu's f32 path, which this kernel retires at D <= 256:
+// those of flash_attn_fwd.cu's f32 path, which this kernel retired:
 // softmax(scale * Q K^T) V on [B, H, L, D] in f32, the optional per-row
 // logsumexp ([B*H, Lq] f32, natural log), the causal mask aligned
 // bottom-right (key j visible to query i when j <= i + Lk - Lq); padded
@@ -26,8 +26,9 @@
 // flash_attn_bwd_f32tc.cu's notes). So a pair costs 3 * 4 * D tensor-core
 // flops at 494.7 TFLOP/s dense TF32: the trained call [48,12,384,64]
 // 0.132 ms against 0.068 ms of bytes, [8,8,2048,128] causal 0.417 ms, the
-// Gemma-width prefill [1,8,8192,256] causal 1.667 ms: bound by operations
-// (chip_smoke.py `kernel_bounds`, f32 rows). The instruction this kernel
+// Gemma-width prefill [1,8,8192,256] causal and the DeepSeek-width one
+// [1,64,2048,512] 1.668 ms each: bound by operations (chip_smoke.py
+// `kernel_bounds`, f32 rows). The instruction this kernel
 // issues, mma.sync.m16n8k8 with tf32 operands, reaches about two thirds of
 // that peak (scripts/mma_rate.py), so its own ceiling is 1.5 times those
 // bounds.
@@ -42,8 +43,9 @@
 //     MN-major in the tile: wgmma would need a transposed copy of every V
 //     tile. mma.sync takes any layout, since each thread loads its own
 //     fragments.
-//   * A block owns 64 q rows, 4 row groups of 16, so a (b, h)'s K and V
-//     are read by Lq / 64 blocks. Q is copied in once (cp.async) and scaled
+//   * A block owns 64 q rows, 4 row groups of 16 (32 at 448 and 512:
+//     below), so a (b, h)'s K and V are read by Lq / 64 blocks. Q is
+//     copied in once (cp.async) and scaled
 //     by scale * log2(e) in place, so that S comes out in the log2 domain;
 //     its A fragments are read with ldmatrix and split per k-step, once for
 //     all the n-blocks of the step.
@@ -93,6 +95,29 @@
 //     bound by operations; the exchange costs 2 KB of shared memory a warp
 //     and one pair barrier a tile. (Four warps a row group, a quarter of D
 //     each, measured slower.)
+//   * Head dims 320 to 512: a warp keeps at most 128 dims (the register
+//     shape of D = 256: O is 64 registers a thread), so 4 warps share 16
+//     rows (80, 112 and 128 dims at 320, 448 and 512) and 3 at 384. With
+//     three or more partials the sum's order matters (float addition is
+//     not associative), so every warp of a group adds all kSplit partials,
+//     its own read back from shared memory, in one order, slice 0 first:
+//     all of them hold S bit for bit. A block owns 64 q rows at 320 (16
+//     warps at 128 registers a thread, P V in two groups of 5 n-blocks)
+//     and 384 (12 warps, 168 registers), but 32 (2 row groups, 8 warps)
+//     at 448 and 512, where 16 warps spill. Shared memory: Q and one
+//     stage of K and V at 32 keys, rows of D + 4 floats, is 198 KB at
+//     512, so the tiles stream through a ring of that one stage whose K
+//     and V are refilled in
+//     turns: V of tile t is copied while S of t runs, K of t + 1 while
+//     P V of t runs. Two block barriers a tile free the slots (every warp
+//     done with K, then with V), besides the group's barrier of the
+//     exchange. The copies are 1-D bulk copies (cp.async.bulk, one a
+//     row, issued by warp 0's lanes) that complete on an mbarrier each
+//     for Q, K and V: cp.async at 16 bytes a thread took 32 instructions
+//     a thread a tile at 512 and was slower at 448 and 512. On the card
+//     this ring beat two stages of 16-key tiles, and block barriers beat
+//     a version without them (the last warp done with a slot refilling
+//     it, the others spinning on the mbarriers).
 //   * Causal: kv tiles above a block's last row are never loaded, a warp
 //     whose rows see nothing of a tile skips its arithmetic, the per-pair
 //     test runs only on tiles that cross the warp's diagonal, and the
@@ -106,8 +131,8 @@
 //     are 8 wide, so none reads a padding column; the n-blocks of P V are
 //     8 wide. Each D is its own instantiation.
 //   * Tiles, stages and blocks an SM by head dim (FwdCfg), chosen on the
-//     card (NVIDIA H100 80GB HBM3): two stages beat one, and 64-key tiles
-//     beat 32 at D <= 64, where registers allow them.
+//     card (NVIDIA H100 80GB HBM3): up to 256 two stages beat one, and
+//     64-key tiles beat 32 at D <= 64, where registers allow them.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -117,14 +142,16 @@
 #include <math.h>
 
 #include "flash_attn_f32tc.cuh"
+// mbarriers, 1-D bulk copies, named barriers, fast_exp2, kLog2e, kLn2
+#include "flash_attn_sm90.cuh"
 
 namespace {
 
-constexpr int kRows = 64;  // q rows a block: 4 row groups of 16
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 // logsumexp of a row that sees no key (flash_attn_fwd.cu's kEmptyLse)
 constexpr float kEmptyLse = -1e30f;
+// q rows a block up to D = 256 (the entry point takes Lq and Lk in
+// multiples of it)
+constexpr int kRowTile = 64;
 
 struct Params {
   const float* q;
@@ -143,26 +170,35 @@ struct Params {
   int causal;
 };
 
-// Tiles by head dim. Shared memory: Q (64 rows) and kStages stages of K
-// and V (kKv rows each), rows of D + 4 floats, plus (kSplit = 2) the
-// partial scores: 87,168 bytes at D = 64 and 101,440 at D = 128 (two
-// blocks an SM), 166,976 at 192 and 216,128 at 256 (one)
+// Tiles by head dim, chosen on the card (NVIDIA H100 80GB HBM3). Shared
+// memory: Q (kRows rows) and kStages stages of K and V (kKv rows each),
+// rows of D + 4 floats, plus (kSplit > 1) the partial scores: 87,168
+// bytes at D = 64 and 101,440 at D = 128 (two blocks an SM), 166,976 at
+// 192, 216,128 at 256, 198,688 at 320, 223,264 at 384, 189,984 at 448
+// and 214,560 at 512 (one)
 template <int D>
 struct FwdCfg {
+  // q rows a block: 4 row groups of 16; 2 at 448 and 512, where 16 warps
+  // (128 registers a thread) would spill with O at 56 and 64 registers
+  static constexpr int kRows = D == 448 || D == 512 ? 32 : 64;
   // warps that share 16 q rows, each owning D / kSplit of the head dim
-  static constexpr int kSplit = D > 128 ? 2 : 1;
-  static constexpr int kThreads = 4 * 32 * kSplit;
+  // (at most 128 dims, a multiple of 8)
+  static constexpr int kSplit = D <= 128 ? 1 : D <= 256 ? 2 : D == 384 ? 3 : 4;
+  static constexpr int kThreads = kRows / 16 * 32 * kSplit;
   static constexpr int kKv = D > 64 ? 32 : 64;     // keys a streamed tile
-  static constexpr int kStages = 2;
+  // 1: one stage, whose K and V are refilled in turns (the ring)
+  static constexpr int kStages = D > 256 ? 1 : 2;
   static constexpr int kBlocks = D > 128 ? 1 : 2;  // __launch_bounds__
-  static constexpr int kPvGroup = 8;  // n-blocks of a fresh P V accumulator
+  // n-blocks of a fresh P V accumulator (at 320, two groups of a warp's 10)
+  static constexpr int kPvGroup = D == 320 ? 5 : 8;
 };
 
 template <int D>
 constexpr size_t fwd_f32tc_smem_bytes() {
   using C = FwdCfg<D>;
-  return (kRows + 2 * C::kStages * C::kKv) * (D + kTcPad) * sizeof(float)
-         + (C::kSplit > 1 ? 4 * C::kSplit * 16 * C::kKv * sizeof(float) : 0)
+  return (C::kRows + 2 * C::kStages * C::kKv) * (D + kTcPad) * sizeof(float)
+         + (C::kSplit > 1 ? C::kRows * C::kSplit * C::kKv * sizeof(float)
+                          : 0)
          + C::kStages * C::kKv;
 }
 
@@ -179,46 +215,38 @@ __device__ void v_column_means(float* mean, const float* v, long long sl,
   __syncthreads();
 }
 
-// 2^x by the special-function unit (ex2.approx.ftz: about 2^-22
-// relative; -inf gives 0), one instruction where exp2f takes several
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// wait at named barrier `id` for `n` threads (a multiple of 32)
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
 template <int D, bool kMask>
 __global__ void __launch_bounds__(FwdCfg<D>::kThreads, FwdCfg<D>::kBlocks)
 flash_fwd_f32tc_kernel(const Params p) {
   using C = FwdCfg<D>;
-  static_assert(D % 8 == 0 && (D <= 128 || D == 192 || D == 256),
-                "head_dim: a multiple of 8 up to 128, 192 or 256");
+  static_assert(D % 8 == 0 && (D <= 128 || D % 64 == 0) && D <= 512,
+                "head_dim: a multiple of 8 up to 128, or of 64 up to 512");
   static_assert(!kMask || D <= 128, "a key-padding mask up to D = 128");
   constexpr int LD = D + kTcPad;
   constexpr int NT = C::kThreads;
+  constexpr int ROWS = C::kRows;
   constexpr int KV = C::kKv;
   constexpr int ST = C::kStages;
+  constexpr bool kRing = ST == 1;      // K and V refilled in turns
   constexpr int kN = KV / 8;           // n-blocks of S
   constexpr int kSplit = C::kSplit;
   constexpr int DW = D / kSplit;       // dims of D a warp owns
   constexpr int kNb = DW / 8;          // n-blocks of O a warp owns
   constexpr int kG = kNb < C::kPvGroup ? kNb : C::kPvGroup;
-  static_assert(kRows % KV == 0 && kN % 2 == 0 && DW % 8 == 0
-                && kSplit <= 2, "tiles");
+  static_assert(ROWS % KV == 0 && kRowTile % ROWS == 0 && kN % 2 == 0
+                && DW % 8 == 0 && DW <= 128 && !(kRing && kMask)
+                && (kRing || kSplit <= 2), "tiles");
   extern __shared__ __align__(16) unsigned char zoo_smem[];
   float* sQ = reinterpret_cast<float*>(zoo_smem);
   // stage s: K, then V, KV rows each
-  float* sKV = sQ + kRows * LD;
-  // kSplit = 2: each warp's partial S, [warp][n-block][lane] of 4 floats
+  float* sKV = sQ + ROWS * LD;
+  // kSplit > 1: each warp's partial S, [warp][n-block][lane] of 4 floats
   float4* sS = reinterpret_cast<float4*>(sKV + 2 * ST * KV * LD);
   uint8_t* sM = reinterpret_cast<uint8_t*>(
-      sKV + 2 * ST * KV * LD + (kSplit > 1 ? 4 * kSplit * 16 * KV : 0));
+      sKV + 2 * ST * KV * LD + (kSplit > 1 ? ROWS * kSplit * KV : 0));
   __shared__ float sMean[kMask ? D : 1];
+  // the ring's mbarriers: Q, K and V landed
+  __shared__ __align__(8) uint64_t sBar[kRing ? 3 : 1];
 
   // causal: the blocks of the last q rows walk the most tiles; start them
   // first
@@ -233,7 +261,7 @@ flash_fwd_f32tc_kernel(const Params p) {
   const int t4 = lane & 3;
   const int rg = warp / kSplit;        // row group of 16 q rows
   const int sl = warp - rg * kSplit;   // slice of D
-  const int q0 = qt * kRows;
+  const int q0 = qt * ROWS;
   const int offset = p.lk - p.lq;
   const int row0 = rg * 16;            // the row group's first row in the block
   const int ra = q0 + row0 + g;        // a thread's two rows
@@ -247,7 +275,7 @@ flash_fwd_f32tc_kernel(const Params p) {
   const uint8_t* mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
 
   int n_tiles = p.lk / KV;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + kRows - 1 + offset) / KV + 1);
+  if (p.causal) n_tiles = min(n_tiles, (q0 + ROWS - 1 + offset) / KV + 1);
 
   // tile kt into stage s, and one copy group for it (an empty one past
   // the last tile, so that every iteration waits for the same count)
@@ -263,15 +291,45 @@ flash_fwd_f32tc_kernel(const Params p) {
     }
     cp_async_commit();
   };
-  copy_tile<D, LD, NT>(sQ, q + q0 * p.q_sl, p.q_sl, kRows, tid);
-  cp_async_commit();
+  // the ring: `n` rows of an operand (row stride `stride`) into a tile of
+  // pitch LD, one bulk copy a row issued by warp 0, counted by `bar`
+  const uint32_t barQ = smem_addr(&sBar[0]);
+  const uint32_t barK = barQ + 8, barV = barQ + 16;
+  auto bulk_rows = [&](float* t, const float* src, long long stride, int n,
+                       uint32_t bar) {
+    if (warp == 0) {
+      if (lane == 0) mbar_expect_tx(bar, n * D * sizeof(float));
+      __syncwarp();
+      for (int r = lane; r < n; r += 32) {
+        bulk_load(smem_addr(t + r * LD), src + r * stride,
+                  D * sizeof(float), bar);
+      }
+    }
+  };
+  if constexpr (kRing) {
+    if (tid == 0) {
+      mbar_init(barQ, 1);
+      mbar_init(barK, 1);
+      mbar_init(barV, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    __syncthreads();
+    bulk_rows(sQ, q + q0 * p.q_sl, p.q_sl, ROWS, barQ);
+    bulk_rows(sKV, k, p.k_sl, KV, barK);
+    mbar_wait(barQ, 0);
+  } else {
+    copy_tile<D, LD, NT>(sQ, q + q0 * p.q_sl, p.q_sl, ROWS, tid);
+    cp_async_commit();
 #pragma unroll
-  for (int s = 0; s < ST; ++s) load_kv(s, s);
+    for (int s = 0; s < ST; ++s) load_kv(s, s);
+    cp_async_wait<ST>();
+  }
   // Q times scale * log2(e), so that S comes out in the log2 domain: each
-  // thread scales the chunks it copied (copy_tile's order) once they are
-  // in; the first tile's barrier shows them to the other warps
-  cp_async_wait<ST>();
-  for (int i = tid; i < kRows * D / 4; i += NT) {
+  // thread scales the chunks it copied (copy_tile's order; in the ring
+  // the same chunks, once Q is in); the first tile's barrier shows them
+  // to the other warps
+  for (int i = tid; i < ROWS * D / 4; i += NT) {
     const int r = i / (D / 4);
     float4* x = reinterpret_cast<float4*>(sQ + r * LD + (i - r * (D / 4)) * 4);
     float4 y = *x;
@@ -295,119 +353,250 @@ flash_fwd_f32tc_kernel(const Params p) {
   float m_a = -INFINITY, m_b = -INFINITY;  // running max (log2 domain)
   float l_a = 0.f, l_b = 0.f;              // this thread's part of the sum
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int s = kt % ST;
-    cp_async_wait<ST - 1>();
-    __syncthreads();  // Q (the first time), tile kt and its mask bytes
-    const float* tK = sKV + 2 * s * KV * LD;
-    const float* tV = tK + KV * LD;
-    const uint8_t* tM = sM + s * KV;
-    const int k0 = kt * KV;
-
-    // a row group whose rows all lie above this tile has nothing to add
-    // (the same for both warps of a pair)
-    if (!(p.causal && q0 + row0 + 15 + offset < k0)) {
-      // S = Q K^T for 16 rows x KV keys (kSplit = 2: over this warp's
-      // half of D, then the pair's two halves summed)
-      float sc[kN][4];
-#pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-      }
-      mma_over_d1<DW / 8, kN, LD, true>(sc, qa, tK + boff);
-      if constexpr (kSplit > 1) {
-        float4* mine = sS + warp * kN * 32 + lane;
+  if constexpr (kRing) {
+    // D above 256: 3 or 4 warps a row group, no mask. Each tile's V is
+    // copied while its S runs, the next tile's K while its P V runs
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int k0 = kt * KV;
+      // a row group whose rows all lie above this tile has nothing to add
+      // (the same for every warp of the group)
+      const bool active = !(p.causal && q0 + row0 + 15 + offset < k0);
+      // every warp is done with the V of tile kt - 1 (and Q is scaled, the
+      // first time): its slot takes the V of tile kt; then wait for the K
+      __syncthreads();
+      bulk_rows(sKV + KV * LD, v + static_cast<long long>(kt) * KV * p.v_sl,
+                p.v_sl, KV, barV);
+      mbar_wait(barK, kt & 1);
+      float corr_a = 1.f, corr_b = 1.f;
+      uint32_t phi[kN][4], plo[kN][4];  // P as split A fragments
+      if (active) {
+        // S = Q K^T for 16 rows x KV keys over this warp's slice of D,
+        // then the group's kSplit partials summed
+        float sc[kN][4];
 #pragma unroll
         for (int n = 0; n < kN; ++n) {
-          mine[n * 32] = make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
+          sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
         }
-        bar_sync(1 + rg, 32 * kSplit);
-        const float4* other = sS + (warp ^ 1) * kN * 32 + lane;
+        mma_over_d1<DW / 8, kN, LD, true>(sc, qa, sKV + boff);
+        // the row group's partials, [slice][n-block][lane]
+        float4* part = sS + rg * kSplit * kN * 32 + lane;
 #pragma unroll
         for (int n = 0; n < kN; ++n) {
-          const float4 u = other[n * 32];
-          sc[n][0] += u.x;
-          sc[n][1] += u.y;
-          sc[n][2] += u.z;
-          sc[n][3] += u.w;
+          part[(sl * kN + n) * 32] =
+              make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
         }
-      }
-
-      // mask, and take the row max (S is in the log2 domain: Q was
-      // scaled); the causal test only where the tile crosses the row
-      // group's diagonal
-      const bool diag = p.causal && k0 + KV - 1 > q0 + row0 + offset;
-      float mx_a = m_a, mx_b = m_b;
+        named_sync(1 + rg, 32 * kSplit);
+        // three or more terms: float addition is not associative, so every
+        // warp of the group adds the partials in one order, slice 0 first,
+        // and all of them hold S bit for bit and run the same softmax
 #pragma unroll
-      for (int n = 0; n < kN; ++n) {
+        for (int n = 0; n < kN; ++n) {
+          float4 x = part[n * 32];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n * 8 + t4 * 2 + (e & 1);  // key within the tile
-          if (diag && k0 + col > (e < 2 ? ra : rb) + offset) {
-            sc[n][e] = -INFINITY;
+          for (int j = 1; j < kSplit; ++j) {
+            const float4 u = part[(j * kN + n) * 32];
+            x.x += u.x;
+            x.y += u.y;
+            x.z += u.z;
+            x.w += u.w;
           }
-          if (kMask && tM[col] == 0) sc[n][e] = -INFINITY;
+          sc[n][0] = x.x;
+          sc[n][1] = x.y;
+          sc[n][2] = x.z;
+          sc[n][3] = x.w;
         }
-        mx_a = fmaxf(mx_a, fmaxf(sc[n][0], sc[n][1]));
-        mx_b = fmaxf(mx_b, fmaxf(sc[n][2], sc[n][3]));
-      }
-      // the four threads of a group hold the same two rows
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-      // a row with no visible key yet keeps -inf; subtract 0 there, so its
-      // P is exp2(-inf) = 0 and no inf - inf is formed
-      const float base_a = mx_a == -INFINITY ? 0.f : mx_a;
-      const float base_b = mx_b == -INFINITY ? 0.f : mx_b;
-      const float corr_a = fast_exp2(m_a - base_a);
-      const float corr_b = fast_exp2(m_b - base_b);
-      m_a = mx_a;
-      m_b = mx_b;
 
-      // P, its row sums, and P as split A fragments (relabelled)
-      float sum_a = 0.f, sum_b = 0.f;
-      uint32_t phi[kN][4], plo[kN][4];
+        // the causal mask where the tile crosses the row group's
+        // diagonal, the row max and the online softmax, as below
+        const bool diag = p.causal && k0 + KV - 1 > q0 + row0 + offset;
+        float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        sc[n][0] = fast_exp2(sc[n][0] - base_a);
-        sc[n][1] = fast_exp2(sc[n][1] - base_a);
-        sc[n][2] = fast_exp2(sc[n][2] - base_b);
-        sc[n][3] = fast_exp2(sc[n][3] - base_b);
-        sum_a += sc[n][0] + sc[n][1];
-        sum_b += sc[n][2] + sc[n][3];
-        acc_as_a<true>(sc[n], phi[n], plo[n]);
+        for (int n = 0; n < kN; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = n * 8 + t4 * 2 + (e & 1);
+            if (diag && k0 + col > (e < 2 ? ra : rb) + offset) {
+              sc[n][e] = -INFINITY;
+            }
+          }
+          mx_a = fmaxf(mx_a, fmaxf(sc[n][0], sc[n][1]));
+          mx_b = fmaxf(mx_b, fmaxf(sc[n][2], sc[n][3]));
+        }
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+        const float base_a = mx_a == -INFINITY ? 0.f : mx_a;
+        const float base_b = mx_b == -INFINITY ? 0.f : mx_b;
+        corr_a = fast_exp2(m_a - base_a);
+        corr_b = fast_exp2(m_b - base_b);
+        m_a = mx_a;
+        m_b = mx_b;
+        float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          sc[n][0] = fast_exp2(sc[n][0] - base_a);
+          sc[n][1] = fast_exp2(sc[n][1] - base_a);
+          sc[n][2] = fast_exp2(sc[n][2] - base_b);
+          sc[n][3] = fast_exp2(sc[n][3] - base_b);
+          sum_a += sc[n][0] + sc[n][1];
+          sum_b += sc[n][2] + sc[n][3];
+          acc_as_a<true>(sc[n], phi[n], plo[n]);
+        }
+        l_a = l_a * corr_a + sum_a;
+        l_b = l_b * corr_b + sum_b;
       }
-      l_a = l_a * corr_a + sum_a;
-      l_b = l_b * corr_b + sum_b;
-
-      // O = O * corr + P V over this warp's n-blocks, kG at a time, each
-      // tile's P V in a fresh accumulator (the truncating accumulation)
+      // every warp is done with the K of tile kt: that slot takes the K of
+      // tile kt + 1 while P V runs; then wait for the V
+      __syncthreads();
+      if (kt + 1 < n_tiles) {
+        bulk_rows(sKV, k + static_cast<long long>(kt + 1) * KV * p.k_sl,
+                  p.k_sl, KV, barK);
+      }
+      mbar_wait(barV, kt & 1);
+      if (active) {
+        // O = O * corr + P V, as below
 #pragma unroll
-      for (int n0 = 0; n0 < kNb; n0 += kG) {
-        float pv[kG][4];
+        for (int n0 = 0; n0 < kNb; n0 += kG) {
+          float pv[kG][4];
 #pragma unroll
-        for (int n = 0; n < kG; ++n) {
-          pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
-        }
+          for (int n = 0; n < kG; ++n) {
+            pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+          }
 #pragma unroll
-        for (int j = 0; j < kN; ++j) {
-          mma_rows_split<kG, LD, kG, true>(
-              pv, phi[j], plo[j], tV + j * 8 * LD + voff + n0 * 8, kNb - n0);
-        }
+          for (int j = 0; j < kN; ++j) {
+            mma_rows_split<kG, LD, kG, true>(
+                pv, phi[j], plo[j], sKV + KV * LD + j * 8 * LD + voff + n0 * 8,
+                kNb - n0);
+          }
 #pragma unroll
-        for (int n = 0; n < kG; ++n) {
-          if (n0 + n < kNb) {
-            acc[n0 + n][0] = fmaf(acc[n0 + n][0], corr_a, pv[n][0]);
-            acc[n0 + n][1] = fmaf(acc[n0 + n][1], corr_a, pv[n][1]);
-            acc[n0 + n][2] = fmaf(acc[n0 + n][2], corr_b, pv[n][2]);
-            acc[n0 + n][3] = fmaf(acc[n0 + n][3], corr_b, pv[n][3]);
+          for (int n = 0; n < kG; ++n) {
+            if (n0 + n < kNb) {
+              acc[n0 + n][0] = fmaf(acc[n0 + n][0], corr_a, pv[n][0]);
+              acc[n0 + n][1] = fmaf(acc[n0 + n][1], corr_a, pv[n][1]);
+              acc[n0 + n][2] = fmaf(acc[n0 + n][2], corr_b, pv[n][2]);
+              acc[n0 + n][3] = fmaf(acc[n0 + n][3], corr_b, pv[n][3]);
+            }
           }
         }
       }
     }
-    __syncthreads();  // every warp is done with stage s (and sS)
-    load_kv(kt + ST, s);
+  } else {
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int s = kt % ST;
+      cp_async_wait<ST - 1>();
+      __syncthreads();  // Q (the first time), tile kt and its mask bytes
+      const float* tK = sKV + 2 * s * KV * LD;
+      const float* tV = tK + KV * LD;
+      const uint8_t* tM = sM + s * KV;
+      const int k0 = kt * KV;
+
+      // a row group whose rows all lie above this tile has nothing to add
+      // (the same for both warps of a pair)
+      if (!(p.causal && q0 + row0 + 15 + offset < k0)) {
+        // S = Q K^T for 16 rows x KV keys (kSplit = 2: over this warp's
+        // half of D, then the pair's two halves summed)
+        float sc[kN][4];
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+        }
+        mma_over_d1<DW / 8, kN, LD, true>(sc, qa, tK + boff);
+        if constexpr (kSplit > 1) {
+          float4* mine = sS + warp * kN * 32 + lane;
+#pragma unroll
+          for (int n = 0; n < kN; ++n) {
+            mine[n * 32] = make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
+          }
+          named_sync(1 + rg, 32 * kSplit);
+          const float4* other = sS + (warp ^ 1) * kN * 32 + lane;
+#pragma unroll
+          for (int n = 0; n < kN; ++n) {
+            const float4 u = other[n * 32];
+            sc[n][0] += u.x;
+            sc[n][1] += u.y;
+            sc[n][2] += u.z;
+            sc[n][3] += u.w;
+          }
+        }
+
+        // mask, and take the row max (S is in the log2 domain: Q was
+        // scaled); the causal test only where the tile crosses the row
+        // group's diagonal
+        const bool diag = p.causal && k0 + KV - 1 > q0 + row0 + offset;
+        float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = n * 8 + t4 * 2 + (e & 1);  // key within the tile
+            if (diag && k0 + col > (e < 2 ? ra : rb) + offset) {
+              sc[n][e] = -INFINITY;
+            }
+            if (kMask && tM[col] == 0) sc[n][e] = -INFINITY;
+          }
+          mx_a = fmaxf(mx_a, fmaxf(sc[n][0], sc[n][1]));
+          mx_b = fmaxf(mx_b, fmaxf(sc[n][2], sc[n][3]));
+        }
+        // the four threads of a group hold the same two rows
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+        // a row with no visible key yet keeps -inf; subtract 0 there, so its
+        // P is exp2(-inf) = 0 and no inf - inf is formed
+        const float base_a = mx_a == -INFINITY ? 0.f : mx_a;
+        const float base_b = mx_b == -INFINITY ? 0.f : mx_b;
+        const float corr_a = fast_exp2(m_a - base_a);
+        const float corr_b = fast_exp2(m_b - base_b);
+        m_a = mx_a;
+        m_b = mx_b;
+
+        // P, its row sums, and P as split A fragments (relabelled)
+        float sum_a = 0.f, sum_b = 0.f;
+        uint32_t phi[kN][4], plo[kN][4];
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          sc[n][0] = fast_exp2(sc[n][0] - base_a);
+          sc[n][1] = fast_exp2(sc[n][1] - base_a);
+          sc[n][2] = fast_exp2(sc[n][2] - base_b);
+          sc[n][3] = fast_exp2(sc[n][3] - base_b);
+          sum_a += sc[n][0] + sc[n][1];
+          sum_b += sc[n][2] + sc[n][3];
+          acc_as_a<true>(sc[n], phi[n], plo[n]);
+        }
+        l_a = l_a * corr_a + sum_a;
+        l_b = l_b * corr_b + sum_b;
+
+        // O = O * corr + P V over this warp's n-blocks, kG at a time, each
+        // tile's P V in a fresh accumulator (the truncating accumulation)
+#pragma unroll
+        for (int n0 = 0; n0 < kNb; n0 += kG) {
+          float pv[kG][4];
+#pragma unroll
+          for (int n = 0; n < kG; ++n) {
+            pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < kN; ++j) {
+            mma_rows_split<kG, LD, kG, true>(
+                pv, phi[j], plo[j], tV + j * 8 * LD + voff + n0 * 8, kNb - n0);
+          }
+#pragma unroll
+          for (int n = 0; n < kG; ++n) {
+            if (n0 + n < kNb) {
+              acc[n0 + n][0] = fmaf(acc[n0 + n][0], corr_a, pv[n][0]);
+              acc[n0 + n][1] = fmaf(acc[n0 + n][1], corr_a, pv[n][1]);
+              acc[n0 + n][2] = fmaf(acc[n0 + n][2], corr_b, pv[n][2]);
+              acc[n0 + n][3] = fmaf(acc[n0 + n][3], corr_b, pv[n][3]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // every warp is done with stage s (and sS)
+      load_kv(kt + ST, s);
+    }
+
   }
 
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
@@ -439,7 +628,8 @@ flash_fwd_f32tc_kernel(const Params p) {
     *reinterpret_cast<float2*>(o + ra * p.o_sl + col) = xa;
     *reinterpret_cast<float2*>(o + rb * p.o_sl + col) = xb;
   }
-  // both warps of a pair hold the same m and l; the first writes the lse
+  // every warp of a row group holds the same m and l; the first writes
+  // the lse
   if (p.lse != nullptr && sl == 0 && t4 == 0) {
     float* lse = p.lse + static_cast<long long>(bh) * p.lq;
     lse[ra] = empty_a ? kEmptyLse : (m_a + log2f(l_a)) * kLn2;
@@ -461,7 +651,7 @@ int launch(Kernel kernel, dim3 grid, size_t smem, int threads,
 template <int D>
 int launch_d(bool masked, int batch_heads, const Params& p, cudaStream_t s) {
   using C = FwdCfg<D>;
-  const dim3 grid(p.lq / kRows, batch_heads);
+  const dim3 grid(p.lq / C::kRows, batch_heads);
   constexpr size_t smem = fwd_f32tc_smem_bytes<D>();
   if constexpr (D > 128) {
     return launch(flash_fwd_f32tc_kernel<D, false>, grid, smem, C::kThreads,
@@ -477,7 +667,8 @@ int launch_d(bool masked, int batch_heads, const Params& p, cudaStream_t s) {
 }  // namespace
 
 // K1 (with or without logsumexp) in f32 at a head dim up to 128 (a
-// multiple of 8; with or without a mask) or at 192 and 256 (without).
+// multiple of 8; with or without a mask) or at 192, 256, 320, 384, 448 and
+// 512 (without).
 // Arguments as zoo_flash_attn_fwd's (flash_attn_fwd.cu): dtype 0 =
 // float32; mask [B, Lk] bytes (nonzero = real key) with batch stride
 // mask_sb, or null. Returns a cudaError_t (0 = launched), or 1000 + n for
@@ -492,7 +683,7 @@ extern "C" int zoo_flash_attn_fwd_f32tc(
     long long o_sb, long long o_sh, long long o_sl,
     const void* mask, long long mask_sb,
     float scale, int causal, void* stream) {
-  if (lq % kRows || lk % kRows) return 1001;
+  if (lq % kRowTile || lk % kRowTile) return 1001;
   if (causal && lq > lk) return 1002;
   if (batch * heads > 65535) return 1003;
   if (dtype != 0 && dtype != 1) return 1005;
@@ -535,6 +726,10 @@ extern "C" int zoo_flash_attn_fwd_f32tc(
     case 128: return launch_d<128>(masked, bh, p, s);
     case 192: return launch_d<192>(masked, bh, p, s);
     case 256: return launch_d<256>(masked, bh, p, s);
+    case 320: return launch_d<320>(masked, bh, p, s);
+    case 384: return launch_d<384>(masked, bh, p, s);
+    case 448: return launch_d<448>(masked, bh, p, s);
+    case 512: return launch_d<512>(masked, bh, p, s);
     default: return 1004;
   }
 }

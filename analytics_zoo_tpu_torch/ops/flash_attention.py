@@ -16,7 +16,7 @@ share ``csrc/flash_attn_sm90.cuh``), ``csrc/flash_attn_fwd_f32tc.cu``
 not: 3xTF32 ``mma.sync`` on the tensor cores at f32 accuracy,
 ``cp.async`` tile copies; ``_fwd_entry`` picks it),
 ``csrc/flash_attn_fwd.cu`` (every other forward: bf16 with a mask, bf16
-K5b, D above 256) and ``csrc/flash_attn_bwd.cuh`` (design notes there),
+K5b, bf16 above 256) and ``csrc/flash_attn_bwd.cuh`` (design notes there),
 whose K2 and K3 for every other call are built by
 ``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu``, except
 f32 at head dims up to 128, masked or not, which
@@ -124,8 +124,8 @@ SM90_HEAD_DIMS = (64, 128, 192, 256)
 # masked or not; _bwd_entry)
 F32TC_MAX_D = 128
 # the largest head dim of K1's f32 tensor-core kernel (f32; masked up to
-# 128, as every kernel; _fwd_entry)
-F32TC_FWD_MAX_D = 256
+# 128, as every kernel; _fwd_entry): every f32 forward
+F32TC_FWD_MAX_D = 512
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -527,9 +527,9 @@ def _fwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> str:
     ``flash_attn_fwd_sm90.cu`` (TMA, a producer warpgroup, wgmma) for
     bf16 without a mask at ``SM90_HEAD_DIMS``; that of
     ``flash_attn_fwd_f32tc.cu`` (3xTF32 mma.sync, cp.async) for f32 at
-    every head dim up to ``F32TC_FWD_MAX_D``, masked or not;
-    ``flash_attn_fwd.cu`` for every other call (bf16 with a mask, bf16
-    K5b, D above 256)."""
+    every head dim up to ``F32TC_FWD_MAX_D`` (512), masked or not (a
+    mask only up to 128, as every kernel); ``flash_attn_fwd.cu`` for
+    every other call (bf16 with a mask, bf16 K5b, bf16 above 256)."""
     if dtype == torch.bfloat16 and not masked and dp in SM90_HEAD_DIMS:
         return "zoo_flash_attn_fwd_sm90"
     if dtype == torch.float32 and dp <= F32TC_FWD_MAX_D:

@@ -199,11 +199,12 @@ Phases:
    across warps, flash_fwd_bf16_split_kernel) through the flash_attention
    wrapper against its plain version: every instantiation once (bf16 and
    f32, causal and not, with and without logsumexp, lq == lk and lq < lk;
-   one summary line, each launch counted in wide_d_launches), then the
-   prefill call at DeepSeek-V4-Flash's attention widths ([1,64,2048,512]
-   f32 causal), the same call in bf16 with and without logsumexp, and
-   bf16 at D = 384, each timed beside its plain version, SDPA and its
-   bound.
+   one summary line, each launch counted in wide_d_launches, every f32
+   one on K1's f32 tensor-core kernel, phase 25), then the prefill call
+   at DeepSeek-V4-Flash's attention widths ([1,64,2048,512] causal) in
+   bf16 with and without logsumexp, and bf16 at D = 384, each timed
+   beside its plain version, SDPA and its bound (phase 25 times the f32
+   call).
 19. Generation, DeepSeek-V4-Flash widths, over HTTP: TinyGenLM at
    deepseek-ai/DeepSeek-V4-Flash's published attention widths (hidden
    4096, 64 heads of 512, vocab 129280; 4 of 43 layers, 2048 of its
@@ -217,7 +218,8 @@ Phases:
    must carry one meta event, contiguous chunks, exactly one terminal
    event and no error event; K1 at D = 512 must launch once a layer for
    every prefill in a bucket of 128 or more (warm-up included,
-   wide_d_launches). Then 4 prompts go through the same DecodeEngine's
+   wide_d_launches), every launch on K1's f32 tensor-core kernel. Then 4
+   prompts go through the same DecodeEngine's
    prefill and 16 decode steps, and their logits are held against the
    plain full forward (f32 einsum attention, no cache) within LOGIT_TOL
    of the row's largest |logit|, a bound the same logits rounded to bf16
@@ -237,9 +239,10 @@ Phases:
    512 (8 heads of 512, intermediate 16384, vocab 129280, 4 of its 43
    layers; LM512 lists the cuts), after the DeepSeek-width phase's memory
    is freed: 4 x 2048 tokens a step, 2 epochs of 8 steps, gradient checks
-   at batch 1 (the f32 one must reject dQ zeroed and dK and dV swapped);
-   K1-lse, K2 and K3 must each launch exactly once a layer a step, every
-   launch at D = 512, and the loss must fall.
+   at batch 1 (the f32 one must reject dQ zeroed and dK and dV swapped,
+   and its K1-lse must run on K1's f32 tensor-core kernel); K1-lse, K2
+   and K3 must each launch exactly once a layer a step, every launch at
+   D = 512, and the loss must fall.
 22. K1 sm90: K1's Hopper kernel (flash_attn_fwd_sm90.cu: TMA into a
    ring of shared-memory stages, a producer warpgroup, wgmma) through the
    flash_attention wrapper against its plain version on the card: every
@@ -287,31 +290,34 @@ Phases:
    phase's f32 gradient check (one f32 train step, flash attention) must
    run each layer's K2 and K3 once, all on these kernels at D <= 128
    (_check_f32tc).
-25. K1 f32 tensor cores: K1 and K1-lse in f32 at every head dim up to 256
+25. K1 f32 tensor cores: K1 and K1-lse in f32 at every head dim
    (flash_attn_fwd_f32tc.cu: 3xTF32 mma.sync, cp.async tile copies, the
-   streamed K and V tiles split once a block into hi and lo planes, each
-   tile's P V in a fresh accumulator; above D = 128 the warps of a row
-   group each take a slice of D) through the flash_attention wrapper
+   streamed K and V tiles split in registers, each tile's P V in a fresh
+   accumulator; above D = 128 the warps of a row group each take a slice
+   of D and add their partial S in one order) through the
+   flash_attention wrapper
    against its plain version (TF32 off): every instantiation once (D =
    8..128 in steps of 8, without a mask (q/k/v views into a fused
    projection) and with _k5b_mask's rows, causal and not, with and
-   without logsumexp; D = 192 and 256 causal and not, with and without
-   logsumexp; lq < lk causal, unmasked and with rows that see no key; a
-   causal call at L = 4096; masked calls at L = 1024 with a row of 2 real
-   keys; 150 cases, one summary line, each counting one launch in
+   without logsumexp; D = 192, 256, 320, 384, 448 and 512 causal and
+   not, with and without logsumexp; lq < lk causal, unmasked and with
+   rows that see no key; causal calls at L = 4096 (D = 64, 256, 512);
+   masked calls at L = 1024 with a row of 2 real keys; 171 cases, one
+   summary line, each counting one launch in
    f32tc_launches), then the calls timed: the f32 served shape
    [8,12,512,64], the BERT-base trained K1-lse [48,12,384,64], the NER
    trained K1-lse (masked), MiniLM's K1-lse [48,12,384,32] without and
    with a mask, cross-length causal [1,2,128->384,128], [8,8,2048,128]
    causal, the generation phases' prefills [1,32,2048,80],
-   [1,2,256,16] and [1,8,8192,256] and the Gemma-width K1-lse
-   [1,8,2048,256], each (events and device time) beside its plain
+   [1,2,256,16], [1,8,8192,256] and [1,64,2048,512], the Gemma-width
+   K1-lse [1,8,2048,256], the 512-head LM's f32 K1-lse [1,8,2048,512]
+   and [2,32,2048,384] causal, each (events and device time) beside its
+   plain
    version, SDPA's f32 forward (and, beside K1-lse, SDPA's forward on
    inputs that need a gradient) with its backend, and both bounds. Every
-   phase that runs an f32 K1 call up to D = 256 (phases 2, 3, 4, 9, 10,
-   14, 16, 24, the generation phases at the repo's, Phi-2's and
-   Gemma-2B's widths, and every learn phase's f32 gradient check) fails
-   unless it ran on this kernel.
+   phase that runs an f32 K1 call (phases 2, 3, 4, 9, 10, 14, 16, 18,
+   20, 24, the four generation phases, and every learn phase's f32
+   gradient check) fails unless it ran on this kernel.
 
 The three full-width generation phases (13, 15, 19) draw their seeded
 weights on the card (device_draws): every check there holds the port to
@@ -330,8 +336,10 @@ those of the learn phases' f32 gradient checks; flash_attn_fwd_f32tc
 at the f32 trained K1-lse call with a served_call, a kv_mask_call (NER),
 a k5b_call (the Phi-2-width prefill), a k5b_lse_call and a
 k5b_mask_call (MiniLM), a repo_call (the repo geometry's prefill), a
-cross_call, a d128_call, a d256_call (the Gemma-width prefill) and a
-d256_lse_call, its launches those of the three f32 generation phases'
+cross_call, a d128_call, a d256_call (the Gemma-width prefill), a
+d256_lse_call, a d512_call (the DeepSeek-width prefill), a d512_lse_call
+(the 512-head LM's f32 K1-lse) and a d384_call, and the head dims it is
+built for, its launches those of the four f32 generation phases'
 prefills and of the learn phases' f32 gradient checks, by phase; K1's
 older source at the masked bf16 NER trained call with its lse_call; K2
 and K3's older sources at the bf16 masked NER trained call, their
@@ -345,10 +353,10 @@ fit's; flash_attn_fwd_wide at the Gemma-width prefill call (f32, on
 flash_attn_fwd_f32tc.cu since it retired the FMA kernel there) with an
 lse_call, its launches the Gemma phase's; flash_attn_bwd_dq_wide and
 flash_attn_bwd_dkv_wide at the LM's f32 gradient check's call, with no
-launch in a fit (the LM fit's are the Hopper kernels'); flash_attn_fwd_wider at the
-DeepSeek-width prefill call with a bf16_call, an lse_call, a d384_call
-and a trained_lse_call at the 512-head LM's call, its launches the
-DeepSeek phase's and the 512-head LM fit's; flash_attn_bwd_dq_wider and
+launch in a fit (the LM fit's are the Hopper kernels'); flash_attn_fwd_wider
+(bf16 at D = 320-512) at the DeepSeek-width prefill call with an
+lse_call, a d384_call and a trained_lse_call at the 512-head LM's call,
+its launches the 512-head LM fit's; flash_attn_bwd_dq_wider and
 flash_attn_bwd_dkv_wider at the 512-head LM's trained call with an
 f32_call and a d384_call, their launches that fit's; each backward row
 names SDPA's backend; every f32 row carries fma_bound_ms beside its
@@ -413,9 +421,9 @@ SERVE_TOL = 5e-2
 # 1.2-2.2% (head) apart, with and without the mask
 GRAD_TOL = 5e-2
 LOSS_TOL = 1e-2
-# the same step in f32 (GEMMs without TF32; K1 at D <= 256 and K2 and K3
+# the same step in f32 (GEMMs without TF32; K1 at every D and K2 and K3
 # at D <= 128 as three TF32 products, about 2^-21 to 2^-20 relative a
-# product; K1 above 256 and K2, K3 above 128 on FMA): flash
+# product; K2, K3 above 128 on FMA): flash
 # and einsum attention differ only in the order of f32 sums, so a broken
 # backward (dQ dropped, dK and dV swapped) shows far above this
 F32_GRAD_TOL = 1e-3
@@ -1097,7 +1105,7 @@ def _make(torch, rng):
 
 def _k1_f32tc(fa, dtype, d, masked):
     """1 where ``_fwd_entry`` sends a K1 call to the f32 tensor-core
-    kernel (flash_attn_fwd_f32tc.cu: f32 up to D = 256), else 0."""
+    kernel (flash_attn_fwd_f32tc.cu: f32 up to D = 512), else 0."""
     return int(fa._fwd_entry(dtype, fa._kernel_head_dim(d),
                              masked).endswith("_f32tc"))
 
@@ -1108,7 +1116,7 @@ def fwd_check(torch, make, label, b, h, lq, lk, d, dt, causal, m, with_lse,
     version (``TOL``, ``LSE_TOL``); the wrapper must count it in
     ``counter`` (``small_d_launches`` for K5b, ``wide_d_launches`` above
     D = 128, ``sm90_launches`` for the Hopper kernel, ``f32tc_launches``
-    for the f32 tensor-core kernel), and every f32 call up to D = 256 in
+    for the f32 tensor-core kernel), and every f32 call (up to D = 512) in
     ``f32tc_launches``. With ``views`` (and lq == lk) q, k and v are
     strided views into one fused [B, L, 3, H, D] projection, as the
     models' attention makes them. Returns (q, k, v, record)."""
@@ -1425,13 +1433,12 @@ WIDER_SWEEP = [
     for d in WIDER_HEAD_DIMS for dt in ("bfloat16", "float32")
     for shape in ((2, 4, 256, 256), (1, 2, 128, 384))
     for causal in (False, True) for with_lse in (False, True)]
-# the calls timed: the prefill at DeepSeek-V4-Flash's attention widths
-# (64 heads of 512, f32, the 2048 bucket), the same call in bf16 without
-# and with logsumexp (the forward a training step would run), and bf16
-# at D = 384
+# the calls timed: the prefill call at DeepSeek-V4-Flash's attention
+# widths (64 heads of 512, the 2048 bucket) in bf16 without and with
+# logsumexp (the forward a training step would run), and bf16 at D =
+# 384 (f32 at these head dims runs K1's f32 tensor-core kernel, whose
+# phase times the f32 prefill: F32TC_FWD_CASES)
 WIDER_CASES = [
-    ("deepseek_prefill", (1, 64, 2048, 2048, 512), "float32", True, None,
-     False),
     ("deepseek_bf16", (1, 64, 2048, 2048, 512), "bfloat16", True, None,
      False),
     ("deepseek_bf16_lse", (1, 64, 2048, 2048, 512), "bfloat16", True, None,
@@ -1444,7 +1451,8 @@ def wider_phase(torch, peaks):
     """K1 at D in {320, 384, 448, 512} through the ``flash_attention``
     wrapper against its plain version on the card (``WIDER_SWEEP``, one
     summary line), then ``WIDER_CASES`` timed. Every launch must count in
-    ``wide_d_launches``. Returns the timed records."""
+    ``wide_d_launches``, and every f32 one in ``f32tc_launches``
+    (``fwd_check``). Returns the timed records."""
     rng = np.random.RandomState(18)
     make = _make(torch, rng)
     sweep = []
@@ -1680,11 +1688,11 @@ def f32tc_phase(torch, peaks):
 # instantiation once -- D = 8..128 in steps of 8, each without a mask (q/k/v
 # views into a fused projection) and with _k5b_mask (a full row, one of 2
 # real keys, one left-padded, one with no real key), causal and not, with
-# and without logsumexp; D = 192 and 256 (views, no mask), causal and not,
+# and without logsumexp; D = 192 to 512 (views, no mask), causal and not,
 # with and without logsumexp -- then lq < lk causal (unmasked, and with
-# _right_100's rows that see no key), one long causal call (L = 4096,
-# where O sums 4096 keys) and masked calls at L = 1024 with a row of 2
-# real keys. name, (b, h, lq, lk, d), causal, mask, with_lse, views
+# _right_100's rows that see no key), long causal calls (L = 4096, where
+# O sums 4096 keys) and masked calls at L = 1024 with a row of 2 real
+# keys. name, (b, h, lq, lk, d), causal, mask, with_lse, views
 F32TC_FWD_SWEEP = [
     (f"d{d}", shape + (d,), causal, mask_of, with_lse, views)
     for d in range(8, 129, 8)
@@ -1692,14 +1700,14 @@ F32TC_FWD_SWEEP = [
                                   ((4, 2, 128, 128), _k5b_mask, False))
     for causal in (False, True) for with_lse in (False, True)] + [
     (f"d{d}", (2, 3, 128, 128, d), causal, None, with_lse, True)
-    for d in (192, 256) for causal in (False, True)
+    for d in (192, 256) + WIDER_HEAD_DIMS for causal in (False, True)
     for with_lse in (False, True)] + [
     ("cross", (1, 2, 64, 192, d), True, None, True, False)
-    for d in (8, 64, 80, 128, 192, 256)] + [
+    for d in (8, 64, 80, 128, 192, 256) + WIDER_HEAD_DIMS] + [
     ("cross_left", (1, 2, 128, 384, d), True, _right_100, True, False)
     for d in (16, 64, 128)] + [
     ("long_causal", (1, 4, 4096, 4096, d), True, None, True, False)
-    for d in (64, 256)] + [
+    for d in (64, 256, 512)] + [
     ("long_masked", (4, 2, 1024, 1024, d), False, _k5b_mask, True, False)
     for d in (32, 64, 128)]
 # the calls timed: the served shape at the f32 kernel phase's batch
@@ -1708,8 +1716,10 @@ F32TC_FWD_SWEEP = [
 # D = 32, views), cross-length causal [1,2,128->384,128], [8,8,2048,128]
 # causal, the prefills of the three f32 generation phases at their
 # widths (Phi-2's [1,32,2048,80] and the repo geometry's [1,2,256,16] in
-# their top buckets, Gemma-2B's [1,8,8192,256]) and the Gemma-width
-# K1-lse at its 2048 bucket. name, shape, dtype, causal, mask, with_lse
+# their top buckets, Gemma-2B's [1,8,8192,256]), the Gemma-width K1-lse
+# at its 2048 bucket, the DeepSeek-width prefill [1,64,2048,512], the
+# 512-head LM's f32 gradient check's K1-lse [1,8,2048,512] and
+# [2,32,2048,384] causal. name, shape, dtype, causal, mask, with_lse
 F32TC_FWD_CASES = [
     ("served", (8, 12, 512, 512, 64), "float32", False, None, False),
     ("trained_lse", (48, 12, 384, 384, 64), "float32", False, None, True),
@@ -1725,6 +1735,10 @@ F32TC_FWD_CASES = [
     ("gemma_prefill", (1, 8, 8192, 8192, 256), "float32", True, None,
      False),
     ("gemma_lse", (1, 8, 2048, 2048, 256), "float32", True, None, True),
+    ("deepseek_prefill", (1, 64, 2048, 2048, 512), "float32", True, None,
+     False),
+    ("lm512_lse", (1, 8, 2048, 2048, 512), "float32", True, None, True),
+    ("f32_d384", (2, 32, 2048, 2048, 384), "float32", True, None, False),
 ]
 F32TC_FWD_VIEWS = ("served", "trained_lse", "ner_lse", "minilm_lse",
                    "minilm_padded_lse")
@@ -1753,7 +1767,7 @@ def f32tc_fwd_phase(torch, peaks):
             views=views)
         sweep.append(rec["share"])
     print(f"K1 f32tc: all {len(F32TC_FWD_SWEEP)} cases (D 8..128 x mask x "
-          f"causal x lse, views; 192/256 x causal x lse; lq < lk, rows "
+          f"causal x lse, views; 192..512 x causal x lse; lq < lk, rows "
           f"that see no key, L = 4096 causal, L = 1024 with a row of 2 "
           f"real keys) match the plain version (largest error "
           f"{max(sweep):.3g} of its tolerance)", flush=True)
@@ -1893,8 +1907,8 @@ def _check_sm90(label, launches, want):
 
 def _f32tc_expected(torch, fa, dtype, head_dim, masked, launches):
     """{kernel: how many of its launches in ``launches`` must have run on
-    the f32 tensor-core kernels}: every K1 launch of an f32 call up to
-    D = 256 (flash_attn_fwd_f32tc.cu) and every K2 and K3 launch of one up
+    the f32 tensor-core kernels}: every K1 launch of an f32 call (up to
+    D = 512, flash_attn_fwd_f32tc.cu) and every K2 and K3 launch of one up
     to D = 128 (flash_attn_bwd_f32tc.cu), masked or not; none of any
     other."""
     dt, dp = getattr(torch, dtype), fa._kernel_head_dim(head_dim)
@@ -2268,7 +2282,7 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
         rel32[tag] = _rel(step_grads(torch, f32.module, xc, yb, "flash",
                                      **grad)[1], refs[tag][1])
         if cuda:
-            # the f32 step's K1-lse (at D <= 256), K2 and K3 (at D <= 128)
+            # the f32 step's K1-lse (at every D), K2 and K3 (at D <= 128)
             # all on the f32 tensor-core kernels; K2 and K3 once a layer
             counts = _launches(fa)
             want = _f32tc_expected(
@@ -3072,8 +3086,7 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
                  f"times in {counter} (want {layers} layers x "
                  f"{want // layers} prefills in buckets >= 128, warm-up "
                  f"included), {other} other flash launches")
-        # TinyGenLM is f32: up to D = 256 every prefill on K1's f32
-        # tensor-core kernel
+        # TinyGenLM is f32: every prefill on K1's f32 tensor-core kernel
         tc_want = launched * _k1_f32tc(fa, torch.float32, m["head_dim"],
                                        False)
         if f32tc != tc_want:
@@ -3466,12 +3479,13 @@ def main() -> None:
         """K1's f32 tensor-core kernel at the BERT-base trained K1-lse
         call, with the served shape, the NER trained call (masked), the
         MiniLM calls (K5b at D = 32), cross-length causal,
-        [8,8,2048,128] causal and the three f32 generation phases'
-        prefill calls (the Gemma-width one with its K1-lse); launched by
-        those generation phases' prefills and the learn phases' f32
-        gradient checks."""
+        [8,8,2048,128] causal, the four f32 generation phases' prefill
+        calls (the Gemma-width one with its K1-lse), the 512-head LM's
+        K1-lse and [2,32,2048,384] causal; launched by those generation
+        phases' prefills and the learn phases' f32 gradient checks."""
         by_phase = {lbl: g["flash_f32tc_launches"] for lbl, g in zip(
-            ("gen", "genfull", "gengemma"), (*gens, gemma))}
+            ("gen", "genfull", "gengemma", "gendeepseek"),
+            (*gens, gemma, deepseek))}
         by_phase.update({lbl: c["K1"][5]
                          for lbl, c in F32_CHECK_LAUNCHES.items()
                          if c["K1"][5]})
@@ -3481,6 +3495,8 @@ def main() -> None:
                for name, *_ in F32TC_FWD_CASES}
         return {"name": "flash_attn_fwd_f32tc", "route": "cuda",
                 "source": F32TC_FWD_SOURCE, "replaces": K1_REPLACES,
+                "head_dims": [d for d in fa.HEAD_DIMS
+                              if d <= fa.F32TC_FWD_MAX_D],
                 "launches": sum(by_phase.values()),
                 "launches_by_phase": by_phase,
                 **pick_keys(rec["trained_lse"], *lse_keys),
@@ -3503,7 +3519,11 @@ def main() -> None:
                 "d128_call": pick_keys(rec["f32_d128"], "library_backend"),
                 "d256_call": pick_keys(rec["gemma_prefill"],
                                        "library_backend"),
-                "d256_lse_call": pick_keys(rec["gemma_lse"], *lse_keys)}
+                "d256_lse_call": pick_keys(rec["gemma_lse"], *lse_keys),
+                "d512_call": pick_keys(rec["deepseek_prefill"],
+                                       "library_backend"),
+                "d512_lse_call": pick_keys(rec["lm512_lse"], *lse_keys),
+                "d384_call": pick_keys(rec["f32_d384"], "library_backend")}
 
     def sm90_bwd_row(name, replaces, key):
         """K2 or K3's Hopper kernel at the SQuAD fit's call, with
@@ -3595,18 +3615,16 @@ def main() -> None:
                  gptj_f32),
         wide_row("flash_attn_bwd_dkv_wide", K3_SOURCE, K3_REPLACES, "k3", lm,
                  gptj_f32), {
-            # K1 at D = 512: the prefill call at DeepSeek-V4-Flash's
-            # attention widths ([1,64,2048,512] f32, causal), launched by
-            # the DeepSeek phase's prefills over HTTP and (with
-            # logsumexp) by the 512-head LM's fit
+            # K1 bf16 at D = 512 (flash_fwd_bf16_split_kernel): the
+            # prefill call at DeepSeek-V4-Flash's attention widths
+            # ([1,64,2048,512], causal), launched (with logsumexp) by the
+            # 512-head LM's fit; f32 there (the DeepSeek phase's prefills)
+            # is flash_attn_fwd_f32tc's
             "name": "flash_attn_fwd_wider", "route": "cuda",
             "source": K1_SOURCE, "replaces": K1_REPLACES,
-            "launches": deepseek["flash_launches"] + lm512["K1"][3],
+            "launches": lm512["K1"][3],
             "lm_lse_launches": lm512["K1"][3],
-            **pick_keys(_pick(wider, "deepseek_prefill", "float32"),
-                        "library_backend"),
-            "bf16_call": pick_keys(_pick(wider, "deepseek_bf16"),
-                                   "library_backend"),
+            **pick_keys(_pick(wider, "deepseek_bf16"), "library_backend"),
             "lse_call": pick_keys(_pick(wider, "deepseek_bf16_lse"),
                                   "library_backend", "lse_max_abs_err"),
             "d384_call": pick_keys(_pick(wider, "bf16_d384"),

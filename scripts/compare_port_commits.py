@@ -20,8 +20,9 @@ causal [1,2,128->384,128] and [8,8,2048,128] causal), K1 and K1-lse at the serve
 f32 at the served shape [8,12,512,64], at the prefills of the f32
 generation phases (Phi-2's [1,32,2048,80], the repo geometry's
 [1,2,256,16], Gemma-2B's [1,8,8192,256] with its K1-lse at
-[1,8,2048,256]) and at DeepSeek-V4-Flash's [1,64,2048,512] (device
-time),
+[1,8,2048,256]), at DeepSeek-V4-Flash's [1,64,2048,512], the 512-head
+LM's f32 gradient check's K1-lse [1,8,2048,512] and [2,32,2048,384]
+causal (device time),
 BERT-base serving (with the seconds its save and its start-up take), the
 NER fine-tune, NER serving (start-up seconds too) and TinyGenLM
 generation at the repo geometry. Each checkout builds its kernels into
@@ -101,7 +102,9 @@ BACKWARD = (
 # shape and the widest head dim the backward also takes, bf16; then f32
 # (the K1 f32 calls of BACKWARD aside): the served shape, the f32
 # generation phases' prefills at their widths and top buckets (with the
-# Gemma width's K1-lse at its 2048 bucket), and K1 at D = 512
+# Gemma width's K1-lse at its 2048 bucket), K1 at D = 512 (the
+# DeepSeek-width prefill), K1-lse at D = 512 (the 512-head LM's f32
+# gradient check) and K1 at D = 384
 FWD_CASES = (
     ("served_k1", (32, 12, 512, 512, 64), "bfloat16", False, None, False),
     ("served_k1_lse", (32, 12, 512, 512, 64), "bfloat16", False, None, True),
@@ -115,6 +118,9 @@ FWD_CASES = (
     ("f32_gemma_k1_lse", (1, 8, 2048, 2048, 256), "float32", True, None,
      True),
     ("f32_d512_k1", (1, 64, 2048, 2048, 512), "float32", True, None, False),
+    ("f32_d512_k1_lse", (1, 8, 2048, 2048, 512), "float32", True, None,
+     True),
+    ("f32_d384_k1", (2, 32, 2048, 2048, 384), "float32", True, None, False),
 )
 # (line pattern, metric name): seconds the phases print as they go
 SECONDS = (

@@ -1,6 +1,6 @@
 """PyTorch port, K1 in f32 on the tensor cores
 (``csrc/flash_attn_fwd_f32tc.cu``): the route that sends every float32
-forward at a head dim up to 256, masked or not, to it (``_fwd_entry``),
+forward at a head dim up to 512, masked or not, to it (``_fwd_entry``),
 what the wrapper hands its entry point and counts in ``f32tc_launches``,
 and the kernel's arithmetic, emulated here, against the JAX package.
 
@@ -15,8 +15,10 @@ read it truncated (the kernel's raw split). Q is scaled by ``scale *
 log2(e)`` first. S = Q K^T is three ``mma.sync.m16n8k8`` a k-step (lo·hi,
 hi·lo, then hi·hi) on the PTX fragment layouts, the even and the odd
 k-steps in two accumulators added at the end, over kv tiles of 64 keys
-(32 above D = 64; above D = 128 two warps each take half of D and add
-their partial S). The online softmax runs on the accumulator fragments
+(32 above D = 64; above D = 128 the warps of a row group each take a
+slice of D, two up to 256, then four (three at 384), and every warp adds
+the slices' partial S in one fixed order, slice 0 first). The online
+softmax runs on the accumulator fragments
 (row max over the tile, ``corr = exp2(m_old - base)`` with base 0 for a
 row that has seen no key yet, each thread's partial row sums). P becomes
 the A fragments of P V by the relabelling ``{c0, c2, c1, c3}``, with B
@@ -27,7 +29,7 @@ gets the mean of V over all keys and ``EMPTY_LSE``.
 
 That emulation is held against the JAX package within 1e-4 * (1 + |ref|)
 (chip_smoke.py's f32 tolerance), and its lse within 1e-4, at D in {8, 16,
-64, 80, 128, 256}: against ``_flash_fwd`` (the Pallas kernel in interpret
+64, 80, 128, 256, 320, 512}: against ``_flash_fwd`` (the Pallas kernel in interpret
 mode, out and lse) where it takes the head dim (D % 64 == 0) and the call
 has no mask; otherwise against the JAX package's einsum path, the one its
 own tests run on the CPU for the stock kernel's calls (and its lse from
@@ -35,7 +37,9 @@ the same scores, with the einsum path's finite -1e30 fill). Cases:
 without a mask, causal with Lq < Lk, and with a key-padding mask that
 leaves one batch row with no real key and one with 2 (up to D = 128, the
 masked kernels' range). One TF32 pass, emulated the same way, fails that
-tolerance. Inputs are made with numpy and fed to both packages.
+tolerance (at D = 128 and 512), and the partial S of four slices summed
+in another order differ in some bits. Inputs are made with numpy and fed
+to both packages.
 """
 
 import jax
@@ -68,9 +72,9 @@ class TestRoute:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_fwd_entry(self, d, dtype, masked):
-        """f32 at every head dim up to 256, masked or not, takes the f32
+        """f32 at every head dim up to 512, masked or not, takes the f32
         tensor-core kernel; bf16 without a mask at 64-256 the Hopper
-        kernel; the rest (bf16 masked or K5b, D above 256) the older
+        kernel; the rest (bf16 masked or K5b, bf16 above 256) the older
         source."""
         if dtype == torch.float32 and d <= fa.F32TC_FWD_MAX_D:
             want = F32TC
@@ -82,8 +86,10 @@ class TestRoute:
         assert fa._fwd_entry(dtype, d, masked) == want
 
     def test_limit(self):
-        """The f32 forward reaches 256, twice the backward's limit."""
-        assert (fa.F32TC_FWD_MAX_D, fa.F32TC_MAX_D) == (256, 128)
+        """The f32 forward reaches 512, every head dim it is built for;
+        the backward stops at 128."""
+        assert (fa.F32TC_FWD_MAX_D, fa.F32TC_MAX_D) == (512, 128)
+        assert fa.F32TC_FWD_MAX_D == max(fa.HEAD_DIMS)
 
     def test_entry_point_is_registered(self):
         """The new entry takes the old one's arguments, mask included."""
@@ -117,11 +123,11 @@ def _meta(d, dtype=torch.float32, grad=False, b=2, h=3, lq=128, lk=192):
 class TestLaunches:
     @pytest.mark.parametrize("with_lse", [False, True])
     @pytest.mark.parametrize("d,masked", [
-        (d, masked) for d in (8, 20, 64, 80, 128, 192, 256)
+        (d, masked) for d in (8, 20, 64, 80, 128, 192, 256, 320, 512)
         for masked in (False, True) if not (masked and d > 128)])
     def test_f32_calls_reach_f32tc(self, f32tc_count, d, masked, with_lse):
         """Off the CPU (meta tensors, spied entry points) an f32 call up
-        to D = 256 (masked up to 128) launches the f32 tensor-core kernel
+        to D = 512 (masked up to 128) launches the f32 tensor-core kernel
         once, at the head dim the kernel runs (20 padded to 24), with the
         mask's pointer where there is one and the lse pointer where it is
         asked for, and counts in ``f32tc_launches`` (and ``launches``),
@@ -143,10 +149,11 @@ class TestLaunches:
         assert (w.launches, w.f32tc_launches, w.sm90_launches,
                 w.masked_launches) == (1, 1, 0, int(masked))
 
-    @pytest.mark.parametrize("d", [16, 64, 256])
+    @pytest.mark.parametrize("d", [16, 64, 256, 320, 512])
     def test_gradient_runs_k1_lse_on_f32tc(self, f32tc_count, d):
         """Under ``FlashAttention`` an f32 call's K1-lse runs the f32
-        tensor-core kernel (with an lse pointer), then K2 and K3."""
+        tensor-core kernel (with an lse pointer), then K2 and K3 (above
+        D = 128 on ``flash_attn_bwd_{dq,dkv}.cu``)."""
         q, k, v = _meta(d, grad=True, lq=192)
         out = fa.flash_attention(q, k, v, True)
         torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
@@ -155,8 +162,6 @@ class TestLaunches:
         assert fa.flash_attention.f32tc_launches == 1
 
     @pytest.mark.parametrize("kind,d,dtype,masked", [
-        ("f32_wider", 320, torch.float32, False),
-        ("f32_widest", 512, torch.float32, False),
         ("bf16_masked", 64, torch.bfloat16, True),
         ("bf16_k5b", 32, torch.bfloat16, False),
         ("bf16_sm90", 128, torch.bfloat16, False),
@@ -164,8 +169,8 @@ class TestLaunches:
     ])
     def test_other_calls_count_no_f32tc(self, f32tc_count, kind, d, dtype,
                                         masked):
-        """f32 above 256 and every bf16 call keep their entries and count
-        nothing in ``f32tc_launches``."""
+        """Every bf16 call keeps its entry and counts nothing in
+        ``f32tc_launches``."""
         q, k, v = _meta(d, dtype)
         m = (torch.ones(2, 192, dtype=torch.uint8, device="meta")
              if masked else None)
@@ -192,24 +197,43 @@ def split_raw(x):
     return hi, _trunc(np.float32(x) - hi)
 
 
-def _scores(q, k, passes):
-    """S = Q K^T as the kernel sums it: above D = 128 each warp of a pair
-    over its half of D, the halves then added; within a warp the even and
-    the odd k-steps in two accumulators added at the end."""
+def _split(d):
+    """Warps that share 16 rows, each over a slice of D (``FwdCfg::kSplit``):
+    one up to D = 128, two up to 256, then four (three at 384), so that a
+    slice is at most 128 dims."""
+    return 1 if d <= 128 else 2 if d <= 256 else 3 if d == 384 else 4
+
+
+def _partials(q, k, passes):
+    """Each warp's partial S = Q K^T over its slice of D; within a warp the
+    even and the odd k-steps in two accumulators added at the end."""
     d = q.shape[-1]
-    split = 1 if d <= 128 else 2
-    ds = d // split
+    ds = d // _split(d)
     steps = np.arange(ds).reshape(-1, 8)
     even, odd = steps[0::2].ravel(), steps[1::2].ravel()
-    s = None
-    for i in range(split):
+    parts = []
+    for i in range(_split(d)):
         qs, ks = q[..., i * ds:(i + 1) * ds], k[..., i * ds:(i + 1) * ds]
         part = _over_d(qs[..., even], ks[..., even], passes, split_raw)
         if odd.size:
             part = part + _over_d(qs[..., odd], ks[..., odd], passes,
                                   split_raw)
-        s = part if s is None else s + part
+        parts.append(part)
+    return parts
+
+
+def _sum_in_order(parts, order):
+    s = parts[order[0]]
+    for i in order[1:]:
+        s = s + parts[i]
     return s
+
+
+def _scores(q, k, passes):
+    """S = Q K^T as the kernel sums it: the slices' partials added in the
+    kernel's order, slice 0 first."""
+    parts = _partials(q, k, passes)
+    return _sum_in_order(parts, range(len(parts)))
 
 
 def _fma(a, b, c):
@@ -295,7 +319,7 @@ KINDS = {
     # batch row 1 has 2 real keys, row 2 none: its rows see nothing
     "masked": (3, 128, 128, False, "two_and_empty"),
 }
-EMU_HEAD_DIMS = [8, 16, 64, 80, 128, 256]
+EMU_HEAD_DIMS = [8, 16, 64, 80, 128, 256, 320, 512]
 
 
 def _inputs(kind, d, seed):
@@ -391,3 +415,33 @@ class TestEmulation:
         one, _ = emulate_fwd(q, k, v, causal, scale, m, passes=1)
         assert _excess(three, want) <= 1
         assert _excess(one, want) > 1
+
+    def test_one_tf32_pass_fails_the_tolerance_at_512(self):
+        """The same at D = 512, where four warps each take 128 dims of S."""
+        (q, k, v, m, causal, scale), want, _ = _reference("causal_cross",
+                                                          512, seed=1)
+        three, _ = emulate_fwd(q, k, v, causal, scale, m)
+        one, _ = emulate_fwd(q, k, v, causal, scale, m, passes=1)
+        assert _excess(three, want) <= 1
+        assert _excess(one, want) > 1
+
+    @pytest.mark.parametrize("d", [320, 384, 512])
+    def test_partials_sum_in_one_order(self, d):
+        """Above D = 256 three or four warps add their partial S. Float
+        addition is not associative: summed in another order some scores
+        differ in their last bits, so warps that each took their own
+        first would hold different S, then m, l and P, and their slices of
+        O would disagree. Every warp adds them in one order, slice 0 first.
+        Two partials (D = 192, 256) commute, so a pair never needed it."""
+        rng = np.random.RandomState(d)
+        q = 1.5 * rng.randn(1, 1, 64, d).astype(np.float32)
+        k = rng.randn(1, 1, 32, d).astype(np.float32)
+        parts = _partials(q, k, 3)
+        assert len(parts) == _split(d) > 2
+        fixed = _sum_in_order(parts, range(len(parts)))
+        np.testing.assert_array_equal(fixed, _scores(q, k, 3))
+        others = [_sum_in_order(parts, order) for order in (
+            range(len(parts) - 1, -1, -1), [0, 2, 1, 3][:len(parts)])]
+        assert all((fixed != other).any() for other in others)
+        pair = _partials(q[..., :256], k[..., :256], 3)
+        np.testing.assert_array_equal(pair[0] + pair[1], pair[1] + pair[0])

@@ -44,13 +44,13 @@ class TestRoute:
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_fwd_entry(self, d, dtype, masked):
         """bf16 without a mask at 64, 128, 192 and 256 takes the Hopper
-        kernel; f32 up to 256, masked or not, the f32 tensor-core kernel;
-        bf16 with a mask, bf16 K5b and D above 256 keep
+        kernel; f32 at every head dim, masked or not, the f32 tensor-core
+        kernel; bf16 with a mask, bf16 K5b and bf16 above 256 keep
         ``flash_attn_fwd.cu``."""
         if dtype == torch.bfloat16 and not masked and d in (64, 128, 192,
                                                             256):
             want = SM90
-        elif dtype == torch.float32 and d <= 256:
+        elif dtype == torch.float32:
             want = F32TC
         else:
             want = OLD

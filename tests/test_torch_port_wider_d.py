@@ -134,7 +134,8 @@ class TestWiderRouteAndGates:
                                       with_lse):
         """Off the CPU (meta tensors, spied entry points) K1 launches at
         the caller's head dim, with or without a logsumexp, and counts in
-        ``wide_d_launches``, as K1 at 192 and 256 does."""
+        ``wide_d_launches``, as K1 at 192 and 256 does; f32 there runs the
+        f32 tensor-core kernel."""
         monkeypatch.setattr(fa.flash_attention, "small_d_launches", 0)
         monkeypatch.setattr(fa.flash_attention, "wide_d_launches", 0)
         q = torch.empty(1, 64, 256, d, device="meta")
@@ -142,7 +143,7 @@ class TestWiderRouteAndGates:
         out = got[0] if with_lse else got
         assert out.shape == q.shape
         assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
-            ("zoo_flash_attn_fwd", d)]
+            ("zoo_flash_attn_fwd_f32tc", d)]
         assert (fake_card[0][1][4] is not None) == with_lse
         w = fa.flash_attention
         assert (w.launches, w.small_d_launches,
@@ -152,7 +153,7 @@ class TestWiderRouteAndGates:
         """``FlashAttention`` at D = 512 no longer raises: off the CPU
         (meta tensors, spied entry points) a gradient launches K1-lse,
         then K2, then K3 at that head dim, each counted in
-        ``wide_d_launches``."""
+        ``wide_d_launches`` (f32: K1-lse on the f32 tensor-core kernel)."""
         for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
                   fa.flash_attention_bwd_dkv):
             monkeypatch.setattr(w, "wide_d_launches", 0)
@@ -161,7 +162,7 @@ class TestWiderRouteAndGates:
         (grad,) = torch.autograd.grad(out, q, torch.empty_like(out))
         assert grad.shape == q.shape
         assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
-            ("zoo_flash_attn_fwd", 512), ("zoo_flash_attn_bwd_dq", 512),
+            ("zoo_flash_attn_fwd_f32tc", 512), ("zoo_flash_attn_bwd_dq", 512),
             ("zoo_flash_attn_bwd_dkv", 512)]
         for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
                   fa.flash_attention_bwd_dkv):
