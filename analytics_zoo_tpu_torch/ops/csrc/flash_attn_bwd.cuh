@@ -1,14 +1,14 @@
 // Flash-attention backward (K2 dQ, K3 dK/dV; K5b backward at the other
-// head dims) for Hopper, sm_90a: the mma.sync and FMA kernel templates. K2
+// head dims) for Hopper, sm_90a: the bf16 mma.sync kernel templates. K2
 // is instantiated and exported by flash_attn_bwd_dq.cu, K3 by
 // flash_attn_bwd_dkv.cu, so the two translation units build side by side.
-// They take every call but two kinds, for which the entries here return
-// 1004: bf16 without a key-padding mask at D in {64, 128, 192, 256} runs
-// flash_attn_bwd_sm90.cu (TMA, a producer warpgroup, wgmma), and f32 at
-// every D up to 128, masked or not, flash_attn_bwd_f32tc.cu (3xTF32
-// mma.sync, cp.async). What is left here: bf16 with a mask at 64 and 128,
-// bf16 K5b (masked or not, at the other multiples of 8 up to 128), f32 at
-// 192 to 512, and bf16 at 320 to 512.
+// They take every bf16 call but one kind, for which the entries here
+// return 1004, as they do for every f32 call: bf16 without a key-padding
+// mask at D in {64, 128, 192, 256} runs flash_attn_bwd_sm90.cu (TMA, a
+// producer warpgroup, wgmma), and f32 at every D, masked or not (up to
+// 128), flash_attn_bwd_f32tc.cu (3xTF32 mma.sync). What is left here:
+// bf16 with a mask at 64 and 128, bf16 K5b (masked or not, at the other
+// multiples of 8 up to 128), and bf16 at 320 to 512.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
 // (:209-246, launched at :327) and `_flash_dkv_kernel` (:249-292, launched
@@ -49,13 +49,13 @@
 // Each D is its own instantiation, so the register arrays stay sized to
 // it.
 //
-// Head dims above 128 (K2 and K3 at D in {192, 256, 320, 384, 448, 512}).
-// The reference's Pallas kernels take any D % 64 == 0 (its dispatch sends
-// an unmasked call there: analytics_zoo_tpu/ops/attention.py:107-112; a
+// Head dims above 256 (K2 and K3 at D in {320, 384, 448, 512}, bf16). The
+// reference's Pallas kernels take any D % 64 == 0 (its dispatch sends an
+// unmasked call there: analytics_zoo_tpu/ops/attention.py:107-112; a
 // masked one takes its einsum path, so these instantiations are unmasked).
 // The D <= 128 designs below do not stretch that far (bf16 at 192 and 256
-// is flash_attn_bwd_sm90.cu's):
-//   * bf16 at 320 to 512, K2 and K3 alike: D split across warps, as K1's
+// is flash_attn_bwd_sm90.cu's, f32 at every D flash_attn_bwd_f32tc.cu's):
+//   * K2 and K3 alike: D split across warps, as K1's
 //     flash_fwd_bf16_split_kernel does (flash_bwd_dq_bf16_split_kernel,
 //     flash_bwd_dkv_bf16_split_kernel). 64 + 64 accumulators a warp of K3
 //     at D = 512 would leave ptxas 65,536 / 512 = 128 registers a thread
@@ -77,17 +77,6 @@
 //     warp done reading both. Shared memory (dynamic): K2 Q, dO, K and V
 //     [32][D+8] bf16 and the partials, 125,184-198,912 bytes; K3 K and V
 //     [32][D+8], Q and dO [16][D+8] and the partials, 83,584-132,736.
-//   * f32: at 192 and 256, 8 threads own D/8 dims of a row (32 at 256),
-//     dealt in 4-float chunks round the row's threads (32 contiguous dims
-//     a thread would put all 8 on one shared-memory bank), on staged tiles
-//     of kWideFmaTile = 16 rows, so two of them stay in 32 KB of static
-//     shared memory. Above 256, D/8 dims a thread would double K3's
-//     registers from the 246-255 it holds at 256: kWiderTpr = 16 threads
-//     own D/16 dims each (32 at 512; blocks of 16 rows, 256 threads), and
-//     the tiles shrink to kWiderFmaTile = 8 rows (two of 16 KB at 512).
-//     (f32 up to D = 128 is flash_attn_bwd_f32tc.cu's, on the tensor
-//     cores at f32 accuracy by three TF32 products; these FMA templates
-//     took it until then.)
 //
 // Design. Pallas ran each kernel as a grid whose last axis was a sequential
 // accumulation in VMEM scratch. Here a thread block owns one output tile and
@@ -111,11 +100,6 @@
 //     product contracts down the rows of a tile (dS K, P^T dO, dS^T Q) the B
 //     fragment is gathered from two rows. 4 tiles of 64 x (D + 8) bf16 exceed
 //     48 KB at D = 128, so the shared memory is dynamic.
-//   * f32 (above D = 128): plain FMA, 8 or 16 threads share one row of the
-//     block's 16, each owning dealt dims; dot products are reduced with
-//     shuffles. One TF32 pass on the tensor cores would not hold f32
-//     accuracy; three do, which is flash_attn_bwd_f32tc.cu's design at
-//     D <= 128, still to be carried above it.
 //   * causal: K2 never loads kv tiles wholly above the diagonal; K3 starts at
 //     the first q tile whose last row sees its first key. A warp whose rows
 //     see nothing of a tile skips its arithmetic; a masked pair gets P = 0
@@ -162,11 +146,7 @@ namespace {
 constexpr int kTile = 64;        // rows per block and per staged tile (bf16)
 constexpr int kThreads = 128;    // 4 warps
 constexpr int kPad = 8;          // bf16 elements of smem row padding
-constexpr int kFmaRows = 16;     // rows a block owns on the f32 FMA path
 constexpr int kWideKv = 32;      // K2 bf16 above D = 256: kv rows a tile
-constexpr int kWideFmaTile = 16; // f32 above D = 128: rows a staged tile
-constexpr int kWiderFmaTile = 8; // f32 above D = 256: rows a staged tile
-constexpr int kWiderTpr = 16;    // f32 above D = 256: threads a row
 constexpr int kSlice = 64;       // bf16 above D = 256: dims of D a warp owns
 constexpr int kSplitRows = 32;   // bf16 above D = 256: q rows (K2) or keys
                                  // (K3) a block, 2 groups of 16
@@ -1068,215 +1048,6 @@ flash_bwd_dkv_bf16_split_kernel(const Params p) {
   }
 }
 
-// ------------------------------------------------------- K2, f32, D > 128 --
-// the sum of x over a row's TPR threads (consecutive lanes)
-template <int TPR>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int m = 1; m < TPR; m <<= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
-
-// A row's TPR threads hold its dims in 4-float chunks dealt round them
-// (dims ((i / 4) * TPR + part) * 4 + i % 4 of thread `part`), so that they
-// read TPR neighbouring chunks of a staged row: 32 contiguous dims a thread
-// at D = 256 would put all 8 on one shared-memory bank.
-template <int TPR>
-__device__ __forceinline__ int dealt_dim(int part, int i) {
-  return ((i / 4) * TPR + part) * 4 + (i % 4);
-}
-
-template <int DP, int TPR>
-__device__ __forceinline__ float row_dot_dealt(const float (&x)[DP],
-                                               const float* y, int part) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    acc = fmaf(x[i], y[dealt_dim<TPR>(part, i)], acc);
-  }
-  return row_sum<TPR>(acc);
-}
-
-// NT: threads of the block
-template <int D, int KV, int NT = kThreads>
-__device__ __forceinline__ void stage_f32(float (*t)[D], const float* src,
-                                          long long sl, int tid) {
-  for (int i = tid; i < KV * D / 4; i += NT) {
-    const int r = i / (D / 4);
-    const int c = (i - r * (D / 4)) * 4;
-    *reinterpret_cast<float4*>(&t[r][c]) =
-        *reinterpret_cast<const float4*>(src + r * sl + c);
-  }
-}
-
-// the FMA templates' tiles and threads a row (unmasked; f32 up to D = 128
-// is flash_attn_bwd_f32tc.cu's): at 192 and 256 kWideFmaTile rows and 8;
-// above 256 kWiderFmaTile rows and kWiderTpr threads
-template <int D, int KV, int TPR>
-__host__ __device__ constexpr bool f32_shape_ok() {
-  return D % 64 == 0 && D > 128
-         && (D <= 256 ? KV == kWideFmaTile && TPR == 8
-                      : D <= 512 && KV == kWiderFmaTile && TPR == kWiderTpr);
-}
-
-// KV: rows a staged tile; TPR: threads a row (f32_shape_ok). A block owns
-// kFmaRows rows: kFmaRows * TPR threads
-template <int D, int KV, int TPR = 8>
-__global__ void __launch_bounds__(kFmaRows * TPR)
-flash_bwd_dq_f32_kernel(const Params p) {
-  static_assert(f32_shape_ok<D, KV, TPR>(),
-                "head_dim: 192 to 512 (multiples of 64) on their tiles");
-  constexpr int DP = D / TPR;  // dimensions per thread
-  constexpr int kShift = TPR == 16 ? 4 : 3;  // log2(TPR)
-  constexpr int NT = kFmaRows * TPR;
-  __shared__ __align__(16) float sK[KV][D];
-  __shared__ __align__(16) float sV[KV][D];
-
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.h;
-  const int hh = bh - b * p.h;
-  const int tid = threadIdx.x;
-  const int part = tid & (TPR - 1);          // TPR consecutive lanes a row
-  const int row = qt * kFmaRows + (tid >> kShift);
-  const int offset = p.lk - p.lq;
-
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hh * p.v_sh;
-  const float* o = static_cast<const float*>(p.o) + b * p.o_sb + hh * p.o_sh;
-  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + hh * p.do_sh;
-  float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + hh * p.dq_sh;
-
-  float qr[DP], dr[DP], acc[DP];
-  float part_delta = 0.f;
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    const int c = dealt_dim<TPR>(part, i);
-    qr[i] = q[row * p.q_sl + c];
-    dr[i] = dout[row * p.do_sl + c];
-    part_delta = fmaf(dr[i], o[row * p.o_sl + c], part_delta);
-    acc[i] = 0.f;
-  }
-  const float del = row_sum<TPR>(part_delta);
-  const long long at = static_cast<long long>(bh) * p.lq + row;
-  if (part == 0) p.delta[at] = del;
-  const float lse2 = p.lse[at] * kLog2e;
-
-  int n_tiles = p.lk / KV;
-  if (p.causal) {
-    n_tiles = min(n_tiles, (qt * kFmaRows + kFmaRows - 1 + offset) / KV + 1);
-  }
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();
-    stage_f32<D, KV, NT>(sK, k + static_cast<long long>(kt) * KV * p.k_sl,
-                         p.k_sl, tid);
-    stage_f32<D, KV, NT>(sV, v + static_cast<long long>(kt) * KV * p.v_sl,
-                         p.v_sl, tid);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < KV; ++j) {
-      const float s = row_dot_dealt<DP, TPR>(qr, sK[j], part);
-      const float dpv = row_dot_dealt<DP, TPR>(dr, sV[j], part);
-      float pr = exp2f(s * p.scale_log2 - lse2);
-      if (p.causal && kt * KV + j > row + offset) pr = 0.f;
-      const float ds = pr * (dpv - del) * p.scale;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        acc[i] = fmaf(ds, sK[j][dealt_dim<TPR>(part, i)], acc[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    dq[row * p.dq_sl + dealt_dim<TPR>(part, i)] = acc[i];
-  }
-}
-
-// ------------------------------------------------------- K3, f32, D > 128 --
-// KV: q rows a staged tile; TPR: threads a key (f32_shape_ok). A block
-// owns kFmaRows keys: kFmaRows * TPR threads
-template <int D, int KV, int TPR = 8>
-__global__ void __launch_bounds__(kFmaRows * TPR)
-flash_bwd_dkv_f32_kernel(const Params p) {
-  static_assert(f32_shape_ok<D, KV, TPR>(),
-                "head_dim: 192 to 512 (multiples of 64) on their tiles");
-  constexpr int DP = D / TPR;
-  constexpr int kShift = TPR == 16 ? 4 : 3;  // log2(TPR)
-  constexpr int NT = kFmaRows * TPR;
-  __shared__ __align__(16) float sQ[KV][D];
-  __shared__ __align__(16) float sDO[KV][D];
-  __shared__ float sLse[KV];
-  __shared__ float sDelta[KV];
-
-  const int kt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.h;
-  const int hh = bh - b * p.h;
-  const int tid = threadIdx.x;
-  const int part = tid & (TPR - 1);
-  const int key = kt * kFmaRows + (tid >> kShift);
-  const int offset = p.lk - p.lq;
-
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hh * p.v_sh;
-  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + hh * p.do_sh;
-  float* dk = static_cast<float*>(p.dk) + b * p.dk_sb + hh * p.dk_sh;
-  float* dv = static_cast<float*>(p.dv) + b * p.dv_sb + hh * p.dv_sh;
-  const float* lse = p.lse + static_cast<long long>(bh) * p.lq;
-  const float* delta = p.delta + static_cast<long long>(bh) * p.lq;
-
-  float kr[DP], vr[DP], acc_k[DP], acc_v[DP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    const int c = dealt_dim<TPR>(part, i);
-    kr[i] = k[key * p.k_sl + c];
-    vr[i] = v[key * p.v_sl + c];
-    acc_k[i] = acc_v[i] = 0.f;
-  }
-
-  int first = 0;
-  if (p.causal) {
-    const int x = kt * kFmaRows - offset - (KV - 1);
-    first = x > 0 ? (x + KV - 1) / KV : 0;
-  }
-  const int n_tiles = p.lq / KV;
-  for (int qt = first; qt < n_tiles; ++qt) {
-    const int q0 = qt * KV;
-    __syncthreads();
-    stage_f32<D, KV, NT>(sQ, q + static_cast<long long>(q0) * p.q_sl, p.q_sl,
-                         tid);
-    stage_f32<D, KV, NT>(sDO, dout + static_cast<long long>(q0) * p.do_sl,
-                         p.do_sl, tid);
-    if (tid < KV) {
-      sLse[tid] = lse[q0 + tid] * kLog2e;
-      sDelta[tid] = delta[q0 + tid];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < KV; ++i) {
-      const float s = row_dot_dealt<DP, TPR>(kr, sQ[i], part);
-      const float dpv = row_dot_dealt<DP, TPR>(vr, sDO[i], part);
-      float pr = exp2f(s * p.scale_log2 - sLse[i]);
-      if (p.causal && key > q0 + i + offset) pr = 0.f;
-      const float ds = pr * (dpv - sDelta[i]) * p.scale;
-#pragma unroll
-      for (int d = 0; d < DP; ++d) {
-        const int c = dealt_dim<TPR>(part, d);
-        acc_v[d] = fmaf(pr, sDO[i][c], acc_v[d]);
-        acc_k[d] = fmaf(ds, sQ[i][c], acc_k[d]);
-      }
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    const int c = dealt_dim<TPR>(part, d);
-    dk[key * p.dk_sl + c] = acc_k[d];
-    dv[key * p.dv_sl + c] = acc_v[d];
-  }
-}
-
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
                    cudaStream_t stream, int threads = kThreads) {
@@ -1300,9 +1071,10 @@ int check(int dtype, int lq, int lk, int batch, int heads, int causal) {
 
 // fn(std::integral_constant<int, D>) for head dim d: K2/K3 at 64 and 128,
 // K5b backward at the other multiples of 8 up to 128, K2/K3 at 192, 256,
-// 320, 384, 448 and 512 (unmasked: fn returns 1006 for a mask there; and
-// 1004 for bf16 without a mask at 64-256, flash_attn_bwd_sm90.cu's, and
-// for f32 up to 128, flash_attn_bwd_f32tc.cu's); 1004 for any other d
+// 320, 384, 448 and 512 (unmasked: fn returns 1006 for a mask there; the
+// older entries return 1004 for bf16 without a mask at 64-256,
+// flash_attn_bwd_sm90.cu's, and for every f32 call,
+// flash_attn_bwd_f32tc.cu's); 1004 for any other d
 template <typename Fn>
 int with_head_dim(int d, Fn&& fn) {
   switch (d) {

@@ -1,11 +1,10 @@
 // K3 (flash-attention dK and dV) for Hopper, sm_90a: the exported entry
-// point and its instantiations: bf16 at every multiple of 8 up to 128 (K5b
+// point and its bf16 instantiations: every multiple of 8 up to 128 (K5b
 // backward at all but 64 and 128), with and without a key-padding mask
-// (at 64 and 128 with one only), f32 at 192 and 256, and 320, 384, 448
-// and 512, bf16 and f32, without one. bf16 without a mask at 64, 128, 192
-// and 256 is flash_attn_bwd_sm90.cu's, f32 up to 128 (masked or not)
-// flash_attn_bwd_f32tc.cu's (1004 here for both). The kernel templates
-// and design notes are in flash_attn_bwd.cuh.
+// (at 64 and 128 with one only), and 320, 384, 448 and 512 without one.
+// bf16 without a mask at 64, 128, 192 and 256 is flash_attn_bwd_sm90.cu's,
+// every f32 call flash_attn_bwd_f32tc.cu's (1004 here for both). The
+// kernel templates and design notes are in flash_attn_bwd.cuh.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dkv_kernel`
 // (:249-292, launched at :345), and the stock Pallas kernel's dK/dV where
@@ -48,43 +47,31 @@ extern "C" int zoo_flash_attn_bwd_dkv(
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool masked = mask != nullptr;  // the kMask instantiation or not
+  // f32 at every head dim: flash_attn_bwd_f32tc.cu's
+  if (dtype == 0) return 1004;
   return with_head_dim(d, [&](auto dc) -> int {
     constexpr int D = decltype(dc)::value;
     if constexpr (D > 256) {
-      // 320 to 512: D split across warps (bf16), 16 threads a key on 8-row
-      // q tiles (f32), unmasked
+      // 320 to 512: D split across warps, unmasked
       if (masked) return 1006;
-      if (dtype == 1) {
-        return launch(flash_bwd_dkv_bf16_split_kernel<D>,
-                      dim3(lk / kSplitRows, batch * heads),
-                      bf16_split_dkv_smem_bytes<D>(), p, s, D);
-      }
-      return launch(flash_bwd_dkv_f32_kernel<D, kWiderFmaTile, kWiderTpr>,
-                    dim3(lk / kFmaRows, batch * heads), 0, p, s,
-                    kFmaRows * kWiderTpr);
+      return launch(flash_bwd_dkv_bf16_split_kernel<D>,
+                    dim3(lk / kSplitRows, batch * heads),
+                    bf16_split_dkv_smem_bytes<D>(), p, s, D);
     } else if constexpr (D > 128) {
-      // 192 and 256: 16-row q tiles (f32), unmasked; bf16 is
-      // flash_attn_bwd_sm90.cu's
-      if (masked) return 1006;
-      if (dtype == 1) return 1004;
-      return launch(flash_bwd_dkv_f32_kernel<D, kWideFmaTile>,
-                    dim3(lk / kFmaRows, batch * heads), 0, p, s);
+      // 192 and 256: flash_attn_bwd_sm90.cu's (unmasked)
+      return masked ? 1006 : 1004;
     } else {
-      if (dtype == 1) {
-        const dim3 grid(lk / kTile, batch * heads);
-        constexpr size_t smem = bf16_smem_bytes<D>();
-        if constexpr (D % 64 == 0) {
-          // 64 and 128 without a mask: flash_attn_bwd_sm90.cu's
-          if (!masked) return 1004;
-          return launch(flash_bwd_dkv_bf16_kernel<D, true>, grid, smem, p, s);
-        } else {
-          return masked
-              ? launch(flash_bwd_dkv_bf16_kernel<D, true>, grid, smem, p, s)
-              : launch(flash_bwd_dkv_bf16_kernel<D, false>, grid, smem, p, s);
-        }
+      const dim3 grid(lk / kTile, batch * heads);
+      constexpr size_t smem = bf16_smem_bytes<D>();
+      if constexpr (D % 64 == 0) {
+        // 64 and 128 without a mask: flash_attn_bwd_sm90.cu's
+        if (!masked) return 1004;
+        return launch(flash_bwd_dkv_bf16_kernel<D, true>, grid, smem, p, s);
+      } else {
+        return masked
+            ? launch(flash_bwd_dkv_bf16_kernel<D, true>, grid, smem, p, s)
+            : launch(flash_bwd_dkv_bf16_kernel<D, false>, grid, smem, p, s);
       }
-      // f32 up to 128: flash_attn_bwd_f32tc.cu's
-      return 1004;
     }
   });
 }

@@ -1,11 +1,10 @@
 // K2 (flash-attention dQ and delta) for Hopper, sm_90a: the exported entry
-// point and its instantiations: bf16 at every multiple of 8 up to 128 (K5b
+// point and its bf16 instantiations: every multiple of 8 up to 128 (K5b
 // backward at all but 64 and 128), with and without a key-padding mask
-// (at 64 and 128 with one only), f32 at 192 and 256, and 320, 384, 448
-// and 512, bf16 and f32, without one. bf16 without a mask at 64, 128, 192
-// and 256 is flash_attn_bwd_sm90.cu's, f32 up to 128 (masked or not)
-// flash_attn_bwd_f32tc.cu's (1004 here for both). The kernel templates
-// and design notes are in flash_attn_bwd.cuh.
+// (at 64 and 128 with one only), and 320, 384, 448 and 512 without one.
+// bf16 without a mask at 64, 128, 192 and 256 is flash_attn_bwd_sm90.cu's,
+// every f32 call flash_attn_bwd_f32tc.cu's (1004 here for both). The
+// kernel templates and design notes are in flash_attn_bwd.cuh.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
 // (:209-246, launched at :327), and the stock Pallas kernel's dQ where
@@ -13,7 +12,8 @@
 
 #include "flash_attn_bwd.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16. Writes dq and delta ([B*H, Lq] f32,
+// dtype: 1 = bfloat16 (0 = float32 returns 1004: flash_attn_bwd_f32tc.cu's
+// entries take it). Writes dq and delta ([B*H, Lq] f32,
 // contiguous). mask: [B, Lk] bytes (nonzero = real key) with batch stride
 // mask_sb, or null for none (required above d = 128). Returns a
 // cudaError_t (0 = launched); 1000 + n flags an argument the kernel does
@@ -51,43 +51,31 @@ extern "C" int zoo_flash_attn_bwd_dq(
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool masked = mask != nullptr;  // the kMask instantiation or not
+  // f32 at every head dim: flash_attn_bwd_f32tc.cu's
+  if (dtype == 0) return 1004;
   return with_head_dim(d, [&](auto dc) -> int {
     constexpr int D = decltype(dc)::value;
     if constexpr (D > 256) {
-      // 320 to 512: D split across warps (bf16), 16 threads a row on 8-row
-      // tiles (f32), unmasked
+      // 320 to 512: D split across warps, unmasked
       if (masked) return 1006;
-      if (dtype == 1) {
-        return launch(flash_bwd_dq_bf16_split_kernel<D>,
-                      dim3(lq / kSplitRows, batch * heads),
-                      bf16_split_dq_smem_bytes<D>(), p, s, D);
-      }
-      return launch(flash_bwd_dq_f32_kernel<D, kWiderFmaTile, kWiderTpr>,
-                    dim3(lq / kFmaRows, batch * heads), 0, p, s,
-                    kFmaRows * kWiderTpr);
+      return launch(flash_bwd_dq_bf16_split_kernel<D>,
+                    dim3(lq / kSplitRows, batch * heads),
+                    bf16_split_dq_smem_bytes<D>(), p, s, D);
     } else if constexpr (D > 128) {
-      // 192 and 256: 16-row tiles (f32), unmasked; bf16 is
-      // flash_attn_bwd_sm90.cu's
-      if (masked) return 1006;
-      if (dtype == 1) return 1004;
-      return launch(flash_bwd_dq_f32_kernel<D, kWideFmaTile>,
-                    dim3(lq / kFmaRows, batch * heads), 0, p, s);
+      // 192 and 256: flash_attn_bwd_sm90.cu's (unmasked)
+      return masked ? 1006 : 1004;
     } else {
-      if (dtype == 1) {
-        const dim3 grid(lq / kTile, batch * heads);
-        constexpr size_t smem = bf16_smem_bytes<D>();
-        if constexpr (D % 64 == 0) {
-          // 64 and 128 without a mask: flash_attn_bwd_sm90.cu's
-          if (!masked) return 1004;
-          return launch(flash_bwd_dq_bf16_kernel<D, true>, grid, smem, p, s);
-        } else {
-          return masked
-              ? launch(flash_bwd_dq_bf16_kernel<D, true>, grid, smem, p, s)
-              : launch(flash_bwd_dq_bf16_kernel<D, false>, grid, smem, p, s);
-        }
+      const dim3 grid(lq / kTile, batch * heads);
+      constexpr size_t smem = bf16_smem_bytes<D>();
+      if constexpr (D % 64 == 0) {
+        // 64 and 128 without a mask: flash_attn_bwd_sm90.cu's
+        if (!masked) return 1004;
+        return launch(flash_bwd_dq_bf16_kernel<D, true>, grid, smem, p, s);
+      } else {
+        return masked
+            ? launch(flash_bwd_dq_bf16_kernel<D, true>, grid, smem, p, s)
+            : launch(flash_bwd_dq_bf16_kernel<D, false>, grid, smem, p, s);
       }
-      // f32 up to 128: flash_attn_bwd_f32tc.cu's
-      return 1004;
     }
   });
 }

@@ -1,8 +1,9 @@
 // Flash-attention backward (K2 dQ and delta, K3 dK/dV) for Hopper, sm_90a:
 // the float32 kernels at every head dim up to 128 that is a multiple of 8
 // (K2/K3 at 64 and 128, K5b's backward at the others), with or without a
-// key-padding mask, on the tensor cores at f32 accuracy (3xTF32 mma.sync)
-// with asynchronous tile copies (cp.async).
+// key-padding mask, and at 192, 256, 320, 384, 448 and 512 without one,
+// on the tensor cores at f32 accuracy (3xTF32 mma.sync) with asynchronous
+// tile copies (cp.async; above 128 1-D bulk copies).
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
 // (:209, launched at :327) and `_flash_dkv_kernel` (:249, launched at :345),
@@ -10,13 +11,13 @@
 // that `_flash_bwd` takes in plain jnp (:316-320); with a key-padding mask,
 // or at a head dim that is not a multiple of 64, the backward of the stock
 // Pallas kernel that analytics_zoo_tpu/ops/attention.py (:116-127) reaches.
-// The semantics are flash_attn_bwd.cuh's f32 path, which these kernels
-// retire at D <= 128: P = exp(scale * Q K^T - lse), dS = P * (dO V^T -
-// delta) * scale, dQ = dS K, dK = dS^T Q, dV = P^T dO, all in f32; the
-// causal mask aligned bottom-right (key j visible to query i when
-// j <= i + Lk - Lq); masked pairs take P = 0; a row that sees no key gives
-// nothing to dQ or dK and dO / Lk to the dV of every key (flash_attn_bwd.cuh
-// :23-33, the same empty_rows_dv).
+// The semantics are those of the FMA templates in flash_attn_bwd.cuh that
+// these kernels retired (at D <= 128, then above): P = exp(scale * Q K^T -
+// lse), dS = P * (dO V^T - delta) * scale, dQ = dS K, dK = dS^T Q,
+// dV = P^T dO, all in f32; the causal mask aligned bottom-right (key j
+// visible to query i when j <= i + Lk - Lq); masked pairs take P = 0; a
+// row that sees no key gives nothing to dQ or dK and dO / Lk to the dV of
+// every key (flash_attn_bwd.cuh :23-33, the same empty_rows_dv).
 //
 // What bounds them. K2 does 6 * D flops a visible (query, key) pair (S, dP,
 // dQ), K3 8 * D (S^T, dP^T, dV, dK). In f32 on plain FMA that is 67
@@ -98,6 +99,39 @@
 //   * Head dims 8 to 128 in steps of 8: the k-steps of the products over D
 //     are 8 wide, so none reads a padding column; the n-blocks of dQ, dK
 //     and dV are 8 wide. Each D is its own instantiation.
+//   * Head dims 192 to 512 (flash_bwd_dq_f32tc_wide_kernel and
+//     flash_bwd_dkv_f32tc_wide_kernel, unmasked, as the reference's
+//     dispatch sends such calls). dQ over 16 rows would be D / 2 registers
+//     a thread (256 at 512), dK and dV over 16 keys D, so D is split over
+//     the warps that share 16 q rows (K2) or 16 keys (K3), as K1's f32
+//     kernel splits it: each warp owns a slice of at most 128 dims, two
+//     warps up to 256 and four above (WideCfg). Each warp computes the
+//     partial S and dP (K3: S^T and dP^T) over its slice, writes them to
+//     shared memory in fragment order, and after a named barrier of its
+//     group adds all the group's partials in one order, slice 0 first:
+//     with three or more, float addition is not associative, and so every
+//     warp of a group holds S and dP, so P and dS, bit for bit. No product
+//     is repeated (6 * D flops a visible pair in K2, 8 * D in K3, where
+//     K3's kSplitD above costs 12 * D). Each warp then adds dS K (K2), or
+//     P^T dO and dS^T Q (K3), over its own slice.
+//     Shared memory holds the block's resident rows (K2: Q and dO of 64
+//     or 32 q rows; K3: K and V of 32 keys) and one stage of the streamed
+//     operands (K2: K and V of 16 or 32 keys; K3: Q and dO of 16 or 32 q
+//     rows with their lse and delta). Tiles are raw: each warp splits the
+//     fragments of its own slice in registers (K1's raw split), once a row
+//     group, where hi and lo planes would double the tiles' bytes. The
+//     stage's two operands are refilled in turns, as in K1's ring above
+//     256: K2 takes dP from V first, so V's slot takes the next tile while
+//     S, dS and dQ run, and K's while the next dP runs; K3 takes dP^T from
+//     dO and adds P^T dO before dS^T Q, so dO's slot refills while dK
+//     runs and Q's while the next dP^T runs. The copies are 1-D bulk
+//     copies on mbarriers, one a row, issued by warp 0; two block barriers
+//     a tile free the slots and the partials, beside the group's barrier.
+//     On the card (NVIDIA H100 80GB HBM3) K3's slices of up to 128 dims
+//     beat slices of 64 (D / 64 warps a slab) at every head dim, and at
+//     192 and 256 two blocks of 4 warps an SM beat one of 8 for K3 (not
+//     for K2); K2 with slices of 64 at 192 and 256 (16 warps a block)
+//     lost.
 //
 // The device helpers (the tf32 split, mma.sync, ldmatrix, cp.async, the
 // tile copy and split, the relabelled A fragments and the two products)
@@ -553,11 +587,537 @@ flash_bwd_dkv_f32tc_kernel(const Params p) {
                      kMask ? sE + nb0 * 8 : nullptr, nb);
 }
 
+// ------------------------------------------------ K2 and K3 above 128 --
+// Tiles by head dim above 128, chosen on the card (NVIDIA H100 80GB HBM3).
+// Both kernels split D over the warps that share 16 rows (K2: q rows; K3:
+// keys) and stream their tiles through one stage whose two operands are
+// refilled in turns by 1-D bulk copies; one block an SM.
+template <int D>
+struct WideCfg {
+  // warps that share 16 rows (K2: q rows; K3: keys), each owning D / kSplit
+  // dims (at most 128: dQ is at most 64 registers a thread, dK and dV 128)
+  static constexpr int kSplit = D <= 256 ? 2 : 4;
+  // K2: q rows a block; keys a tile (16 where 32 would pass the shared
+  // memory)
+  static constexpr int kDqRows = D <= 256 ? 64 : 32;
+  static constexpr int kKv = D == 192 || D == 320 || D == 384 ? 32 : 16;
+  static constexpr int kDqThreads = kDqRows / 16 * kSplit * 32;
+  // K3: keys a block; q rows a tile; blocks an SM
+  static constexpr int kKeys = 32;
+  static constexpr int kQt = D == 320 || D == 384 ? 32 : 16;
+  static constexpr int kDkvBlocks = D <= 256 ? 2 : 1;
+  static constexpr int kDkvThreads = kKeys / 16 * kSplit * 32;
+};
+
+// shared memory of an SM (228 KB), and what a block takes besides its
+// dynamic shared memory: 1 KB CUDA reserves for each block, and the
+// mbarriers
+constexpr size_t kSmemPerSm = 233472;
+constexpr size_t kSmemPerBlock = 1024 + 64;
+
+// K2 above 128: Q and dO, K and V (one stage), the partial S and dP,
+// delta
+template <int D>
+__host__ __device__ constexpr size_t dq_wide_smem_bytes() {
+  using C = WideCfg<D>;
+  return (2 * C::kDqRows + 2 * C::kKv) * (D + kTcPad) * sizeof(float)
+         + 2 * C::kDqRows * C::kSplit * C::kKv * sizeof(float)
+         + C::kDqRows * sizeof(float);
+}
+
+// K3 above 128: K and V of the block's keys, a Q and a dO tile (one
+// stage), the partial S^T and dP^T, the tile's lse and delta
+template <int D>
+__host__ __device__ constexpr size_t dkv_wide_smem_bytes() {
+  using C = WideCfg<D>;
+  return (2 * C::kKeys + 2 * C::kQt) * (D + kTcPad) * sizeof(float)
+         + 2 * C::kKeys * C::kSplit * C::kQt * sizeof(float)
+         + 2 * C::kQt * sizeof(float);
+}
+
+// warp 0's lanes start copying `n` rows of D floats (row stride `stride`)
+// into a tile of row pitch LD, one 1-D bulk copy a row, counted by the
+// mbarrier `bar` (whose bytes lane 0 has announced)
+template <int D, int LD>
+__device__ __forceinline__ void bulk_rows(float* t, const float* src,
+                                          long long stride, int n,
+                                          uint32_t bar, int lane) {
+  for (int r = lane; r < n; r += 32) {
+    bulk_load(smem_addr(t + r * LD), src + r * stride, D * sizeof(float),
+              bar);
+  }
+}
+
+// three mbarriers, each awaiting one arrival (and its bytes)
+__device__ __forceinline__ void init_bars(uint32_t bar0, int tid) {
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    mbar_init(bar0 + 16, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// each warp's partial fragments of S and dP (or S^T and dP^T) into its
+// slots `mine` of the two buffers ([row group][slice][n-block][lane])
+template <int NB>
+__device__ __forceinline__ void put_partials(float4* s_buf, float4* p_buf,
+                                             int mine, const float (&s)[NB][4],
+                                             const float (&p)[NB][4]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    s_buf[mine + n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+    p_buf[mine + n * 32] = make_float4(p[n][0], p[n][1], p[n][2], p[n][3]);
+  }
+}
+
+// the sum over a group's N warps of their partial fragments of one
+// n-block, slice 0 first in every warp (`at0` is slice 0's, `stride` the
+// distance between slices): unrolled, so that every load is in flight
+// before the first add (bf16's sum_partials keeps a loop)
+template <int N>
+__device__ __forceinline__ void sum_slices(float (&x)[4], const float4* t,
+                                           int at0, int stride) {
+  float4 a = t[at0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) {
+    const float4 u = t[at0 + j * stride];
+    a.x += u.x;
+    a.y += u.y;
+    a.z += u.z;
+    a.w += u.w;
+  }
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = a.z;
+  x[3] = a.w;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WideCfg<D>::kDqThreads, 1)
+flash_bwd_dq_f32tc_wide_kernel(const Params p) {
+  using C = WideCfg<D>;
+  constexpr int LD = D + kTcPad;
+  constexpr int NT = C::kDqThreads;
+  constexpr int ROWS = C::kDqRows;
+  constexpr int KV = C::kKv;
+  constexpr int kN = KV / 8;             // n-blocks of S and dP
+  constexpr int kSplit = C::kSplit;
+  constexpr int DW = D / kSplit;         // dims of D a warp owns
+  constexpr int kNb = DW / 8;            // n-blocks of dQ a warp owns
+  constexpr int kParts = ROWS / 16 * kSplit * kN * 32;  // float4s a buffer
+  static_assert(D % 64 == 0 && D > 128 && D <= 512 && DW % 8 == 0
+                && DW <= 128 && kTile % ROWS == 0 && kN % 2 == 0
+                && kFlushRows % KV == 0
+                && dq_wide_smem_bytes<D>() + kSmemPerBlock <= kSmemPerSm,
+                "tiles");
+  extern __shared__ __align__(16) unsigned char zoo_smem[];
+  float* sQ = reinterpret_cast<float*>(zoo_smem);
+  float* sDO = sQ + ROWS * LD;
+  float* sK = sDO + ROWS * LD;
+  float* sV = sK + KV * LD;
+  float4* sS = reinterpret_cast<float4*>(sV + KV * LD);
+  float4* sP = sS + kParts;
+  float* sDelta = reinterpret_cast<float*>(sP + kParts);
+  __shared__ __align__(8) uint64_t sBar[3];  // Q and dO, K, V landed
+
+  // causal: the blocks of the last q rows walk the most tiles; start them
+  // first
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int rg = warp / kSplit;          // row group of 16 q rows
+  const int sl = warp - rg * kSplit;     // slice of D
+  const int q0 = qt * ROWS;
+  const int offset = p.lk - p.lq;
+  const int row0 = rg * 16;              // the row group's first row
+  const int ra = row0 + g;               // a thread's two rows in the block
+  const int rb = ra + 8;
+  const int col0 = sl * DW;              // the slice's first dim
+
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hh * p.v_sh;
+  const float* o = static_cast<const float*>(p.o) + b * p.o_sb + hh * p.o_sh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.do_sb + hh * p.do_sh;
+  float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + hh * p.dq_sh + col0;
+
+  int n_tiles = p.lk / KV;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + ROWS - 1 + offset) / KV + 1);
+
+  const uint32_t barQ = smem_addr(&sBar[0]);
+  const uint32_t barK = barQ + 8, barV = barQ + 16;
+  constexpr uint32_t kTileBytes = KV * D * sizeof(float);
+  init_bars(barQ, tid);
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_expect_tx(barQ, 2 * ROWS * D * sizeof(float));
+      mbar_expect_tx(barV, kTileBytes);
+      mbar_expect_tx(barK, kTileBytes);
+    }
+    __syncwarp();
+    bulk_rows<D, LD>(sQ, q + q0 * p.q_sl, p.q_sl, ROWS, barQ, lane);
+    bulk_rows<D, LD>(sDO, dout + q0 * p.do_sl, p.do_sl, ROWS, barQ, lane);
+    bulk_rows<D, LD>(sV, v, p.v_sl, KV, barV, lane);
+    bulk_rows<D, LD>(sK, k, p.k_sl, KV, barK, lane);
+  }
+  // the next tile's V or K into its slot (warp 0)
+  auto refill = [&](float* t, const float* src, long long stride,
+                    uint32_t bar) {
+    if (warp == 0) {
+      if (lane == 0) mbar_expect_tx(bar, kTileBytes);
+      __syncwarp();
+      bulk_rows<D, LD>(t, src, stride, KV, bar, lane);
+    }
+  };
+
+  mbar_wait(barQ, 0);
+  // delta = rowsum(dO * O) over the whole D in f32: a warp a row at a
+  // time, each lane its 4-float chunks 32 chunks apart, summed by shuffles
+  for (int r = warp; r < ROWS; r += NT / 32) {
+    const float* orow = o + (q0 + r) * p.o_sl;
+    const float* drow = sDO + r * LD;
+    float acc = 0.f;
+    for (int c = lane * 4; c < D; c += 128) {
+      const float4 a = *reinterpret_cast<const float4*>(orow + c);
+      const float4 e = *reinterpret_cast<const float4*>(drow + c);
+      acc = fmaf(a.x, e.x, acc);
+      acc = fmaf(a.y, e.y, acc);
+      acc = fmaf(a.z, e.z, acc);
+      acc = fmaf(a.w, e.w, acc);
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      acc += __shfl_xor_sync(0xffffffffu, acc, m);
+    }
+    if (lane == 0) {
+      sDelta[r] = acc;
+      p.delta[static_cast<long long>(bh) * p.lq + q0 + r] = acc;
+    }
+  }
+  const long long at = static_cast<long long>(bh) * p.lq + q0;
+  const float lse_a = p.lse[at + ra] * kLog2e;
+  const float lse_b = p.lse[at + rb] * kLog2e;
+  const float* qa = sQ + row0 * LD + a_frag_off<LD>(lane) + col0;
+  const float* da = sDO + row0 * LD + a_frag_off<LD>(lane) + col0;
+  const int boff = b_frag_off<LD>(lane) + col0;
+  // B of dQ += dS K: rows 2t and 2t + 1 of each block of 8 keys, column g
+  const int koff = 2 * t4 * LD + g + col0;
+  const int mine = (rg * kSplit + sl) * kN * 32 + lane;  // partials' slot
+  const int group = rg * kSplit * kN * 32 + lane;        // slice 0's
+  __syncthreads();  // delta
+  const float del_a = sDelta[ra], del_b = sDelta[rb];
+
+  float acc[kNb][4];
+#pragma unroll
+  for (int n = 0; n < kNb; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  }
+
+  bool flushed = false;  // dq holds a partial sum
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * KV;
+    // a row group whose rows all lie above this tile has nothing to add
+    // (the same for every warp of the group)
+    const bool active = !(p.causal && q0 + row0 + 15 + offset < k0);
+    // dP = dO V^T for 16 rows x KV keys over this warp's slice of D
+    float dp[kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    }
+    mbar_wait(barV, kt & 1);
+    if (active) mma_over_d1<DW / 8, kN, LD, true>(dp, da, sV + boff);
+    // every warp is done with the V of tile kt: its slot takes tile
+    // kt + 1's while S, dS and dQ run
+    __syncthreads();
+    if (kt + 1 < n_tiles) {
+      refill(sV, v + static_cast<long long>(k0 + KV) * p.v_sl, p.v_sl, barV);
+    }
+    mbar_wait(barK, kt & 1);
+    if (active) {
+      // S = Q K^T over the slice; then the group's partials of S and dP
+      // summed. Three or more terms: float addition is not associative,
+      // so every warp of the group adds them in one order, slice 0
+      // first, and all of them hold S and dP, so P and dS, bit for bit
+      float sc[kN][4];
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+      }
+      mma_over_d1<DW / 8, kN, LD, true>(sc, qa, sK + boff);
+      put_partials<kN>(sS, sP, mine, sc, dp);
+      named_sync(1 + rg, 32 * kSplit);
+
+      // dS = P * (dP - delta) * scale, P = exp(scale * S - lse); the
+      // causal mask where the tile crosses the row group's diagonal
+      const bool diag = p.causal && k0 + KV - 1 > q0 + row0 + offset;
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        float x[4];
+        sum_slices<kSplit>(sc[n], sS, group + n * 32, kN * 32);
+        sum_slices<kSplit>(x, sP, group + n * 32, kN * 32);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool top = e < 2;
+          const int col = n * 8 + t4 * 2 + (e & 1);  // key within the tile
+          float pr = fast_exp2(sc[n][e] * p.scale_log2
+                               - (top ? lse_a : lse_b));
+          if (diag && k0 + col > q0 + (top ? ra : rb) + offset) pr = 0.f;
+          sc[n][e] = pr * (x[e] - (top ? del_a : del_b)) * p.scale;
+        }
+      }
+
+      // dQ += dS K over this warp's n-blocks, a block of 8 keys at a time
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        uint32_t ahi[4], alo[4];
+        acc_as_a<true>(sc[j], ahi, alo);
+        mma_rows_split<kNb, LD, 4, true>(acc, ahi, alo,
+                                         sK + j * 8 * LD + koff);
+      }
+    }
+    // every warp is done with the K of tile kt and with the partials
+    __syncthreads();
+    if (kt + 1 < n_tiles) {
+      refill(sK, k + static_cast<long long>(k0 + KV) * p.k_sl, p.k_sl, barK);
+    }
+    // every kFlushRows keys dQ leaves the accumulators (the truncating
+    // accumulation)
+    if ((kt + 1) % (kFlushRows / KV) == 0 && kt + 1 < n_tiles) {
+      store_rows<kNb>(dq, p.dq_sl, q0 + ra, q0 + rb, t4, acc, flushed,
+                      nullptr);
+      flushed = true;
+#pragma unroll
+      for (int n = 0; n < kNb; ++n) {
+        acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+      }
+    }
+  }
+
+  store_rows<kNb>(dq, p.dq_sl, q0 + ra, q0 + rb, t4, acc, flushed, nullptr);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WideCfg<D>::kDkvThreads,
+                                  WideCfg<D>::kDkvBlocks)
+flash_bwd_dkv_f32tc_wide_kernel(const Params p) {
+  using C = WideCfg<D>;
+  constexpr int LD = D + kTcPad;
+  constexpr int KB = C::kKeys;           // keys a block
+  constexpr int QT = C::kQt;             // q rows a tile, columns of S^T
+  constexpr int kN = QT / 8;
+  constexpr int kSplit = C::kSplit;
+  constexpr int DW = D / kSplit;         // dims of D a warp owns
+  constexpr int kNb = DW / 8;            // n-blocks of dK and dV it owns
+  constexpr int kParts = KB / 16 * kSplit * kN * 32;  // float4s a buffer
+  static_assert(D % 64 == 0 && D > 128 && D <= 512 && DW % 8 == 0
+                && kTile % KB == 0 && kTile % QT == 0 && kN % 2 == 0
+                && kFlushRows % QT == 0
+                && (dkv_wide_smem_bytes<D>() + kSmemPerBlock) * C::kDkvBlocks
+                       <= kSmemPerSm, "tiles");
+  extern __shared__ __align__(16) unsigned char zoo_smem[];
+  float* sK = reinterpret_cast<float*>(zoo_smem);
+  float* sV = sK + KB * LD;
+  float* sQ = sV + KB * LD;
+  float* sDO = sQ + QT * LD;
+  float4* sS = reinterpret_cast<float4*>(sDO + QT * LD);
+  float4* sP = sS + kParts;
+  float* sLse = reinterpret_cast<float*>(sP + kParts);  // QT, then delta's
+  float* sDelta = sLse + QT;
+  __shared__ __align__(8) uint64_t sBar[3];  // K and V, Q (lse, delta), dO
+
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int slab = warp / kSplit;        // 16 keys
+  const int sl = warp - slab * kSplit;   // slice of D
+  const int k0 = kt * KB;
+  const int offset = p.lk - p.lq;
+  const int row0 = slab * 16;            // the slab's first key in the block
+  const int ka = k0 + row0 + g;          // the two keys a thread holds
+  const int kb = ka + 8;
+  const int col0 = sl * DW;              // the slice's first dim
+
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hh * p.v_sh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.do_sb + hh * p.do_sh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.lq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.lq;
+  float* dk = static_cast<float*>(p.dk) + b * p.dk_sb + hh * p.dk_sh + col0;
+  float* dv = static_cast<float*>(p.dv) + b * p.dv_sb + hh * p.dv_sh + col0;
+
+  // the first q tile whose last row sees this block's first key
+  int first = 0;
+  if (p.causal) {
+    const int x = k0 - offset - (QT - 1);
+    first = x > 0 ? (x + QT - 1) / QT : 0;
+  }
+  const int n_tiles = p.lq / QT;
+
+  const uint32_t barKV = smem_addr(&sBar[0]);
+  const uint32_t barQ = barKV + 8, barDO = barKV + 16;
+  constexpr uint32_t kTileBytes = QT * D * sizeof(float);
+  init_bars(barKV, tid);
+  // q tile qt's Q with its lse and delta, or its dO, into its slot (warp 0)
+  auto load_q = [&](int qt) {
+    if (warp == 0) {
+      const long long r0 = static_cast<long long>(qt) * QT;
+      if (lane == 0) {
+        mbar_expect_tx(barQ, kTileBytes + 2 * QT * sizeof(float));
+        bulk_load(smem_addr(sLse), lse + r0, QT * sizeof(float), barQ);
+        bulk_load(smem_addr(sDelta), delta + r0, QT * sizeof(float), barQ);
+      }
+      __syncwarp();
+      bulk_rows<D, LD>(sQ, q + r0 * p.q_sl, p.q_sl, QT, barQ, lane);
+    }
+  };
+  auto load_do = [&](int qt) {
+    if (warp == 0) {
+      if (lane == 0) mbar_expect_tx(barDO, kTileBytes);
+      __syncwarp();
+      bulk_rows<D, LD>(sDO, dout + static_cast<long long>(qt) * QT * p.do_sl,
+                       p.do_sl, QT, barDO, lane);
+    }
+  };
+  if (warp == 0) {
+    if (lane == 0) mbar_expect_tx(barKV, 2 * KB * D * sizeof(float));
+    __syncwarp();
+    bulk_rows<D, LD>(sK, k + k0 * p.k_sl, p.k_sl, KB, barKV, lane);
+    bulk_rows<D, LD>(sV, v + k0 * p.v_sl, p.v_sl, KB, barKV, lane);
+  }
+  load_do(first);
+  load_q(first);
+
+  const float* kf = sK + row0 * LD + a_frag_off<LD>(lane) + col0;
+  const float* vf = sV + row0 * LD + a_frag_off<LD>(lane) + col0;
+  const int boff = b_frag_off<LD>(lane) + col0;
+  // B of dV += P^T dO and dK += dS^T Q: rows 2t and 2t + 1 of each block
+  // of 8 q rows, column g
+  const int roff = 2 * t4 * LD + g + col0;
+  const int mine = (slab * kSplit + sl) * kN * 32 + lane;  // partials' slot
+  const int group = slab * kSplit * kN * 32 + lane;        // slice 0's
+
+  float acc_k[kNb][4], acc_v[kNb][4];
+#pragma unroll
+  for (int n = 0; n < kNb; ++n) {
+    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
+    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
+  }
+  mbar_wait(barKV, 0);
+
+  bool flushed = false;  // dk and dv hold a partial sum
+  for (int qt = first; qt < n_tiles; ++qt) {
+    const int i = qt - first;            // tiles walked before this one
+    const int q0 = qt * QT;
+    // nothing to add where the slab's first key lies after every view (the
+    // same for every warp of the slab)
+    const bool active = !(p.causal && k0 + row0 > q0 + QT - 1 + offset);
+    // dP^T = V dO^T for 16 keys x QT queries over this warp's slice
+    float dp[kN][4], sc[kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    }
+    mbar_wait(barDO, i & 1);
+    if (active) mma_over_d1<DW / 8, kN, LD, true>(dp, vf, sDO + boff);
+    mbar_wait(barQ, i & 1);
+    if (active) {
+      // S^T = K Q^T over the slice; then the slab's partials of S^T and
+      // dP^T summed in one order, slice 0 first (as in K2)
+      mma_over_d1<DW / 8, kN, LD, true>(sc, kf, sQ + boff);
+      put_partials<kN>(sS, sP, mine, sc, dp);
+      named_sync(1 + slab, 32 * kSplit);
+
+      // P^T and dS^T; the columns are queries. The causal mask where the
+      // tile crosses the slab's diagonal
+      const bool diag = p.causal && k0 + row0 + 15 > q0 + offset;
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        sum_slices<kSplit>(sc[n], sS, group + n * 32, kN * 32);
+        sum_slices<kSplit>(dp[n], sP, group + n * 32, kN * 32);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool top = e < 2;
+          const int qc = n * 8 + t4 * 2 + (e & 1);
+          float pr = fast_exp2(sc[n][e] * p.scale_log2 - sLse[qc] * kLog2e);
+          if (diag && (top ? ka : kb) > q0 + qc + offset) pr = 0.f;
+          sc[n][e] = pr;
+          dp[n][e] = pr * (dp[n][e] - sDelta[qc]) * p.scale;
+        }
+      }
+
+      // dV += P^T dO over this warp's n-blocks, a block of 8 queries at a
+      // time
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        uint32_t ahi[4], alo[4];
+        acc_as_a<true>(sc[j], ahi, alo);
+        mma_rows_split<kNb, LD, 4, true>(acc_v, ahi, alo,
+                                         sDO + j * 8 * LD + roff);
+      }
+    }
+    // every warp is done with the dO of tile qt: its slot takes tile
+    // qt + 1's while dK runs
+    __syncthreads();
+    if (qt + 1 < n_tiles) load_do(qt + 1);
+    if (active) {
+      // dK += dS^T Q
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        uint32_t ahi[4], alo[4];
+        acc_as_a<true>(dp[j], ahi, alo);
+        mma_rows_split<kNb, LD, 4, true>(acc_k, ahi, alo,
+                                         sQ + j * 8 * LD + roff);
+      }
+    }
+    // every warp is done with the Q of tile qt, its lse and delta, and
+    // the partials
+    __syncthreads();
+    if (qt + 1 < n_tiles) {
+      load_q(qt + 1);
+      // every kFlushRows q rows dK and dV leave the accumulators
+      if ((i + 1) % (kFlushRows / QT) == 0) {
+        store_rows<kNb>(dk, p.dk_sl, ka, kb, t4, acc_k, flushed, nullptr);
+        store_rows<kNb>(dv, p.dv_sl, ka, kb, t4, acc_v, flushed, nullptr);
+        flushed = true;
+#pragma unroll
+        for (int n = 0; n < kNb; ++n) {
+          acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
+          acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
+        }
+      }
+    }
+  }
+
+  store_rows<kNb>(dk, p.dk_sl, ka, kb, t4, acc_k, flushed, nullptr);
+  store_rows<kNb>(dv, p.dv_sl, ka, kb, t4, acc_v, flushed, nullptr);
+}
+
 }  // namespace
 
-// K2 in f32 at a head dim up to 128 (a multiple of 8). Arguments and return
-// codes as zoo_flash_attn_bwd_dq's (flash_attn_bwd_dq.cu); 1004 for bf16 or
-// a head dim above 128, which other sources take.
+// K2 in f32 at a head dim up to 128 (a multiple of 8; with or without a
+// mask) or at 192, 256, 320, 384, 448 and 512 (without). Arguments and
+// return codes as zoo_flash_attn_bwd_dq's (flash_attn_bwd_dq.cu); 1004 for
+// bf16, which other sources take; 1006 for a mask above 128.
 extern "C" int zoo_flash_attn_bwd_dq_f32tc(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq,
@@ -595,7 +1155,12 @@ extern "C" int zoo_flash_attn_bwd_dq_f32tc(
   return with_head_dim(d, [&](auto dc) -> int {
     constexpr int D = decltype(dc)::value;
     if constexpr (D > 128) {
-      return 1004;
+      // unmasked above 128 (the reference's dispatch sends no masked call
+      // there)
+      if (masked) return 1006;
+      return launch(flash_bwd_dq_f32tc_wide_kernel<D>,
+                    dim3(lq / WideCfg<D>::kDqRows, batch * heads),
+                    dq_wide_smem_bytes<D>(), p, s, WideCfg<D>::kDqThreads);
     } else {
       const dim3 grid(lq / kTile, batch * heads);
       constexpr size_t smem = dq_f32tc_smem_bytes<D>();
@@ -606,7 +1171,7 @@ extern "C" int zoo_flash_attn_bwd_dq_f32tc(
   });
 }
 
-// K3 in f32 at a head dim up to 128: reads the delta K2 wrote; writes dk
+// K3 in f32 at the same head dims: reads the delta K2 wrote; writes dk
 // and dv. Arguments and return codes as zoo_flash_attn_bwd_dkv's.
 extern "C" int zoo_flash_attn_bwd_dkv_f32tc(
     const void* q, const void* k, const void* v, const void* dout,
@@ -645,7 +1210,10 @@ extern "C" int zoo_flash_attn_bwd_dkv_f32tc(
   return with_head_dim(d, [&](auto dc) -> int {
     constexpr int D = decltype(dc)::value;
     if constexpr (D > 128) {
-      return 1004;
+      if (masked) return 1006;
+      return launch(flash_bwd_dkv_f32tc_wide_kernel<D>,
+                    dim3(lk / WideCfg<D>::kKeys, batch * heads),
+                    dkv_wide_smem_bytes<D>(), p, s, WideCfg<D>::kDkvThreads);
     } else {
       const dim3 grid(lk / TcCfg<D>::kKeys, batch * heads);
       constexpr size_t smem = dkv_f32tc_smem_bytes<D>();

@@ -10,6 +10,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// mbarriers, 1-D bulk copies, named barriers, fast_exp2
+#include "flash_attn_mbar.cuh"
+
 namespace {
 
 constexpr int kTcPad = 4;       // f32 of row padding (16 bytes)

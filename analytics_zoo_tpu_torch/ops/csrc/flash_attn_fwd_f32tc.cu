@@ -142,7 +142,8 @@
 #include <math.h>
 
 #include "flash_attn_f32tc.cuh"
-// mbarriers, 1-D bulk copies, named barriers, fast_exp2, kLog2e, kLn2
+// kLog2e, kLn2 (mbarriers, 1-D bulk copies, named barriers and fast_exp2
+// come through flash_attn_f32tc.cuh)
 #include "flash_attn_sm90.cuh"
 
 namespace {

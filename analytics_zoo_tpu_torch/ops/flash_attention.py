@@ -16,13 +16,13 @@ share ``csrc/flash_attn_sm90.cuh``), ``csrc/flash_attn_fwd_f32tc.cu``
 not: 3xTF32 ``mma.sync`` on the tensor cores at f32 accuracy,
 ``cp.async`` tile copies; ``_fwd_entry`` picks it),
 ``csrc/flash_attn_fwd.cu`` (every other forward: bf16 with a mask, bf16
-K5b, bf16 above 256) and ``csrc/flash_attn_bwd.cuh`` (design notes there),
-whose K2 and K3 for every other call are built by
-``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu``, except
-f32 at head dims up to 128, masked or not, which
-``csrc/flash_attn_bwd_f32tc.cu`` takes (the same design as K1's f32
-kernel; ``_bwd_entry`` picks it; both share
-``csrc/flash_attn_f32tc.cuh``); each source is compiled with ``nvcc``
+K5b, bf16 above 256), ``csrc/flash_attn_bwd_f32tc.cu`` (K2's and K3's
+f32 backward at every head dim up to ``F32TC_MAX_D``, masked or not, on
+the same products as K1's f32 kernel; ``_bwd_entry`` picks it; both
+share ``csrc/flash_attn_f32tc.cuh``) and ``csrc/flash_attn_bwd.cuh``
+(design notes there), whose K2 and K3 for every other bf16 call are
+built by ``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu``;
+each source is compiled with ``nvcc``
 for ``sm_90a`` at first use into ``build/`` at the repository root (a
 per-user cache for an installed package), side by side, and loaded
 through ``ctypes``.
@@ -120,9 +120,9 @@ torch.exp(torch.zeros(1 << 17))
 HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448, 512)
 # head dims of the Hopper kernels (bf16, no mask; _fwd_entry, _bwd_entry)
 SM90_HEAD_DIMS = (64, 128, 192, 256)
-# the largest head dim of K2's and K3's f32 tensor-core kernels (f32,
-# masked or not; _bwd_entry)
-F32TC_MAX_D = 128
+# the largest head dim of K2's and K3's f32 tensor-core kernels (f32;
+# masked up to 128, as every kernel; _bwd_entry): every f32 backward
+F32TC_MAX_D = 512
 # the largest head dim of K1's f32 tensor-core kernel (f32; masked up to
 # 128, as every kernel; _fwd_entry): every f32 forward
 F32TC_FWD_MAX_D = 512
@@ -541,10 +541,11 @@ def _bwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> Tuple[str, str]:
     """The backward entry points a call takes, K2's and K3's: the Hopper
     kernels of ``flash_attn_bwd_sm90.cu`` (TMA, a producer warpgroup,
     wgmma) for bf16 without a mask at ``SM90_HEAD_DIMS``; those of
-    ``flash_attn_bwd_f32tc.cu`` (3xTF32 mma.sync, cp.async) for f32 at
-    every head dim up to ``F32TC_MAX_D``, masked or not;
-    ``flash_attn_bwd_dq.cu`` and ``flash_attn_bwd_dkv.cu`` for every other
-    call (bf16 with a mask, bf16 K5b, D above 256, f32 above 128)."""
+    ``flash_attn_bwd_f32tc.cu`` (3xTF32 mma.sync) for f32 at every head
+    dim up to ``F32TC_MAX_D`` (512), masked or not (a mask only up to
+    128, as every kernel); ``flash_attn_bwd_dq.cu`` and
+    ``flash_attn_bwd_dkv.cu`` for every other call (bf16 with a mask,
+    bf16 K5b, bf16 above 256)."""
     if dtype == torch.bfloat16 and not masked and dp in SM90_HEAD_DIMS:
         return "zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90"
     if dtype == torch.float32 and dp <= F32TC_MAX_D:

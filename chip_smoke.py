@@ -177,7 +177,9 @@ Phases:
    call ([4,16,2048,256] bf16 causal, views into the qkv projection), its
    f32 gradient check's call ([1,16,2048,256]) and [4,16,2048,192] bf16,
    the f32 one timed beside its plain version, SDPA and its bound (bf16
-   there runs the Hopper kernels, which phase 23 times).
+   there runs the Hopper kernels, which phase 23 times; f32 K2 and K3
+   the tensor-core kernels of phase 24, each launch counted in
+   f32tc_launches).
 17. GPT-J-width LM: TransformerModule at EleutherAI/gpt-j-6b's published
    widths (hidden 4096, 16 heads of 256, intermediate 16384, vocab 50400,
    2048 positions, LayerNorm epsilon 1e-5, no dropout; 8 of its 28
@@ -227,8 +229,9 @@ Phases:
    widths.
 20. K2/K3 wider kernels: K1, K1 with logsumexp, K2 and K3 at head dims
    320, 384, 448 and 512 through backward_phase, as phase 16 at 192 and
-   256 (K2 and K3 bf16 split D across warps): every instantiation once
-   (32 sweep cases, one summary line, each launch counted in
+   256 (K2 and K3 bf16 split D across warps; f32 runs the tensor-core
+   kernels of phase 24, counted in f32tc_launches): every instantiation
+   once (32 sweep cases, one summary line, each launch counted in
    wide_d_launches), then the 512-head LM's trained call ([4,8,2048,512]
    bf16 causal, views into the qkv projection), its f32 gradient check's
    call ([1,8,2048,512]) and [4,8,2048,384] bf16, each timed beside its
@@ -240,7 +243,8 @@ Phases:
    layers; LM512 lists the cuts), after the DeepSeek-width phase's memory
    is freed: 4 x 2048 tokens a step, 2 epochs of 8 steps, gradient checks
    at batch 1 (the f32 one must reject dQ zeroed and dK and dV swapped,
-   and its K1-lse must run on K1's f32 tensor-core kernel); K1-lse, K2
+   and its K1-lse, K2 and K3 must run on the f32 tensor-core kernels);
+   K1-lse, K2
    and K3 must each launch exactly once a layer a step, every launch at
    D = 512, and the loss must fall.
 22. K1 sm90: K1's Hopper kernel (flash_attn_fwd_sm90.cu: TMA into a
@@ -269,27 +273,34 @@ Phases:
    device time) beside its plain version, SDPA's backward and its bound.
    The masked NER fit's K2 and K3 stay on the older sources (phase 7
    says so).
-24. K2/K3 f32 tensor cores: K2 and K3 in f32 at every head dim up to 128
-   (flash_attn_bwd_f32tc.cu: 3xTF32 mma.sync, cp.async tile copies,
-   streamed tiles split once a block into hi and lo planes, partial sums
-   flushed to device memory every 256 rows) through
+24. K2/K3 f32 tensor cores: K2 and K3 in f32 at every head dim
+   (flash_attn_bwd_f32tc.cu: 3xTF32 mma.sync, partial sums flushed to
+   device memory every 256 rows; up to D = 128 cp.async tile copies,
+   streamed tiles split once a block into hi and lo planes; above 128 D
+   split over the warps that share 16 rows, their partial S and dP summed
+   in one order, one stage refilled in turns by 1-D bulk copies) through
    backward_phase, with K1 and K1-lse beside them: every instantiation
    once (D = 8..128 in steps of 8; q/k/v views into a fused projection
    causal and not; _k5b_mask's rows, one with no real key, causal and
    not; lq < lk causal, unmasked and with rows that see no key; then
    the same masks at L = 1024, D = 32, 64 and 128, where rows of 2 real
    keys would show a sum run in the tensor cores' accumulators drifting;
-   99 cases, one summary line, each counting one K2 and one K3 launch in
-   f32tc_launches), then the BERT-base trained call [48,12,384,64], the
-   NER trained call (masked), MiniLM's [48,12,384,32] without and with a
-   mask, cross-length causal [1,2,128->384,128] and [8,8,2048,128] causal,
-   each timed (events and device time) beside its plain version (TF32
-   off: no_tf32), SDPA's backward and its backend (and, at the trained
-   call, the names of the kernels it runs), and both bounds: at f32
-   accuracy (3 TF32 products a product) and on FMA. Every learn
-   phase's f32 gradient check (one f32 train step, flash attention) must
-   run each layer's K2 and K3 once, all on these kernels at D <= 128
-   (_check_f32tc).
+   D = 192, 256, 320, 384, 448 and 512 without a mask as views causal
+   and not, lq < lk causal, and causal at L = 2048, where the flushes
+   matter; 123 cases, one summary line, each counting one K2 and one K3
+   launch in f32tc_launches), then the BERT-base trained call
+   [48,12,384,64], the NER trained call (masked), MiniLM's
+   [48,12,384,32] without and with a mask, cross-length causal
+   [1,2,128->384,128], [8,8,2048,128] causal, and causal at
+   [1,16,2048,256] (the GPT-J-width LM's f32 gradient check's call),
+   [1,8,2048,512] (the 512-head LM's), [1,16,2048,192] and
+   [1,8,2048,384], each timed (events and device time) beside its plain
+   version (TF32 off: no_tf32), SDPA's backward and its backend (and,
+   at the trained call, the names of the kernels it runs), and both
+   bounds: at f32 accuracy (3 TF32 products a product) and on FMA. Every
+   learn phase's f32 gradient check (one f32 train step, flash
+   attention) must run each layer's K2 and K3 once, all on these kernels
+   (_check_f32tc), as must phases 16 and 20's f32 cases.
 25. K1 f32 tensor cores: K1 and K1-lse in f32 at every head dim
    (flash_attn_fwd_f32tc.cu: 3xTF32 mma.sync, cp.async tile copies, the
    streamed K and V tiles split in registers, each tile's P V in a fresh
@@ -331,8 +342,10 @@ flash_attn_bwd_dkv_sm90 at the SQuAD fit's call with a d128_call, a
 d192_call and an lm_call at the LM fit's, their launches those of phases
 6 and 17; flash_attn_bwd_dq_f32tc and flash_attn_bwd_dkv_f32tc at the
 f32 trained call with a kv_mask_call (NER), a k5b_call and a
-k5b_mask_call (MiniLM), a cross_call and a d128_call, their launches
-those of the learn phases' f32 gradient checks; flash_attn_fwd_f32tc
+k5b_mask_call (MiniLM), a cross_call, a d128_call, a d192_call, a
+d256_call (the GPT-J-width LM's f32 gradient check's call), a d384_call
+and a d512_call (the 512-head LM's), and the head dims they are built
+for, their launches those of the learn phases' f32 gradient checks; flash_attn_fwd_f32tc
 at the f32 trained K1-lse call with a served_call, a kv_mask_call (NER),
 a k5b_call (the Phi-2-width prefill), a k5b_lse_call and a
 k5b_mask_call (MiniLM), a repo_call (the repo geometry's prefill), a
@@ -351,14 +364,12 @@ flash_attn_bwd_dq_k5b and flash_attn_bwd_dkv_k5b at the MiniLM trained
 call with a kv_mask_call at its padded call, their launches the MiniLM
 fit's; flash_attn_fwd_wide at the Gemma-width prefill call (f32, on
 flash_attn_fwd_f32tc.cu since it retired the FMA kernel there) with an
-lse_call, its launches the Gemma phase's; flash_attn_bwd_dq_wide and
-flash_attn_bwd_dkv_wide at the LM's f32 gradient check's call, with no
-launch in a fit (the LM fit's are the Hopper kernels'); flash_attn_fwd_wider
+lse_call, its launches the Gemma phase's; flash_attn_fwd_wider
 (bf16 at D = 320-512) at the DeepSeek-width prefill call with an
 lse_call, a d384_call and a trained_lse_call at the 512-head LM's call,
 its launches the 512-head LM fit's; flash_attn_bwd_dq_wider and
-flash_attn_bwd_dkv_wider at the 512-head LM's trained call with an
-f32_call and a d384_call, their launches that fit's; each backward row
+flash_attn_bwd_dkv_wider at the 512-head LM's trained call with a
+d384_call, their launches that fit's; each backward row
 names SDPA's backend; every f32 row carries fma_bound_ms beside its
 bound at f32 accuracy), the card's name and power limit, and last {"ok":
 true, "device": {...}}. Any failed check exits non-zero.
@@ -392,8 +403,8 @@ K1_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:82"
 # and K2's and K3's for the same calls
 SM90_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu"
 SM90_BWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_sm90.cu"
-# K2's and K3's f32 kernels up to D = 128, and K1's up to D = 256, on the
-# tensor cores (3xTF32)
+# K2's, K3's and K1's f32 kernels at every head dim, on the tensor cores
+# (3xTF32)
 F32TC_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_f32tc.cu"
 F32TC_FWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd_f32tc.cu"
 # K2 and K3 (and K5b's backward): templates in flash_attn_bwd.cuh, built
@@ -421,9 +432,8 @@ SERVE_TOL = 5e-2
 # 1.2-2.2% (head) apart, with and without the mask
 GRAD_TOL = 5e-2
 LOSS_TOL = 1e-2
-# the same step in f32 (GEMMs without TF32; K1 at every D and K2 and K3
-# at D <= 128 as three TF32 products, about 2^-21 to 2^-20 relative a
-# product; K2, K3 above 128 on FMA): flash
+# the same step in f32 (GEMMs without TF32; K1, K2 and K3 at every D as
+# three TF32 products, about 2^-21 to 2^-20 relative a product): flash
 # and einsum attention differ only in the order of f32 sums, so a broken
 # backward (dQ dropped, dK and dV swapped) shows far above this
 F32_GRAD_TOL = 1e-3
@@ -1608,7 +1618,9 @@ def sm90_bwd_phase(torch, peaks):
 # keys, one left-padded, one with no real key), causal and not, q/k/v as
 # views into a fused projection (unmasked), and lq < lk causal both ways
 # (the masked one with _right_100's rows that see no key); then
-# _k5b_mask's rows at L = 1024, D = 32, 64 and 128
+# _k5b_mask's rows at L = 1024, D = 32, 64 and 128; then D = 192 to 512
+# without a mask (views, causal and not; lq < lk causal; causal at L =
+# 2048, where dQ, dK and dV pass seven flushes)
 F32TC_SWEEP = [
     (name, shape + (d,), "float32", causal, mask_of, False)
     for d in range(8, 129, 8) for name, shape, causal, mask_of in (
@@ -1620,11 +1632,18 @@ F32TC_SWEEP = [
     # a row of 2 real keys over a long sequence: P near 1/2 for 1024 q
     # rows, where sums run in the tensor cores' accumulators would drift
     ("f32tc_long_masked", (4, 2, 1024, 1024, d), "float32", False, _k5b_mask,
-     False) for d in (32, 64, 128)]
+     False) for d in (32, 64, 128)] + [
+    (name, shape + (d,), "float32", causal, None, False)
+    for d in (192, 256, 320, 384, 448, 512) for name, shape, causal in (
+        [("f32tc_views", (2, 3, 128, 128), c) for c in (False, True)]
+        + [("f32tc_cross", (1, 2, 64, 192), True),
+           ("f32tc_long", (1, 2, 2048, 2048), True)])]
 # the calls timed: the BERT-base trained call (views), the NER trained
 # call (masked, views), MiniLM's trained call without and with a mask
-# (K5b at D = 32, views), cross-length causal [1,2,128->384,128] and
-# [8,8,2048,128] causal
+# (K5b at D = 32, views), cross-length causal [1,2,128->384,128],
+# [8,8,2048,128] causal, and causal above 128: the GPT-J-width LM's f32
+# gradient check's call [1,16,2048,256], the 512-head LM's
+# [1,8,2048,512], [1,16,2048,192] and [1,8,2048,384]
 F32TC_CASES = [
     ("trained", (48, 12, 384, 384, 64), "float32", False, None, True),
     ("ner_trained", (32, 12, 128, 128, 64), "float32", False,
@@ -1635,6 +1654,10 @@ F32TC_CASES = [
      lambda rng, b, lk: padding_mask(rng, b, lk, 64), True),
     ("cross_causal", (1, 2, 128, 384, 128), "float32", True, None, True),
     ("f32_d128", (8, 8, 2048, 2048, 128), "float32", True, None, True),
+    ("f32_d256", (1, 16, 2048, 2048, 256), "float32", True, None, True),
+    ("f32_d512", (1, 8, 2048, 2048, 512), "float32", True, None, True),
+    ("f32_d192", (1, 16, 2048, 2048, 192), "float32", True, None, True),
+    ("f32_d384", (1, 8, 2048, 2048, 384), "float32", True, None, True),
 ]
 
 
@@ -1907,10 +1930,9 @@ def _check_sm90(label, launches, want):
 
 def _f32tc_expected(torch, fa, dtype, head_dim, masked, launches):
     """{kernel: how many of its launches in ``launches`` must have run on
-    the f32 tensor-core kernels}: every K1 launch of an f32 call (up to
-    D = 512, flash_attn_fwd_f32tc.cu) and every K2 and K3 launch of one up
-    to D = 128 (flash_attn_bwd_f32tc.cu), masked or not; none of any
-    other."""
+    the f32 tensor-core kernels}: every K1, K2 and K3 launch of an f32
+    call (flash_attn_fwd_f32tc.cu and flash_attn_bwd_f32tc.cu, up to D =
+    512), masked or not; none of any other."""
     dt, dp = getattr(torch, dtype), fa._kernel_head_dim(head_dim)
     tc = dict(zip(("K1", "K2", "K3"), (
         fa._fwd_entry(dt, dp, masked), *fa._bwd_entry(dt, dp, masked))))
@@ -2282,8 +2304,8 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
         rel32[tag] = _rel(step_grads(torch, f32.module, xc, yb, "flash",
                                      **grad)[1], refs[tag][1])
         if cuda:
-            # the f32 step's K1-lse (at every D), K2 and K3 (at D <= 128)
-            # all on the f32 tensor-core kernels; K2 and K3 once a layer
+            # the f32 step's K1-lse, K2 and K3 all on the f32 tensor-core
+            # kernels; K2 and K3 once a layer
             counts = _launches(fa)
             want = _f32tc_expected(
                 torch, fa, "float32", head_dim,
@@ -3340,7 +3362,7 @@ def main() -> None:
     # the Gemma phase's weights and pool (about 30 GB) go before the LM's
     gc.collect()
     torch.cuda.empty_cache()
-    wide_bwd = timed("K2/K3 wide kernels", wide_bwd_phase, torch, peaks)
+    timed("K2/K3 wide kernels", wide_bwd_phase, torch, peaks)
     lm = timed("GPT-J-width LM learn", lm_learn, torch, profile=args.profile)
     # the LM's weights, gradients and Adam state (about 33 GB) go before
     # the DeepSeek-width phase's
@@ -3370,11 +3392,8 @@ def main() -> None:
         _pick(k5b, "padded_d20"))
     mini, mini_padded = (_pick(k5b_bwd, "minilm_trained"),
                          _pick(k5b_bwd, "minilm_padded"))
-    gptj_f32 = _pick(wide_bwd, "gptj_f32", "float32")
-    lm512_rec, lm512_f32, wider384 = (
-        _pick(wider_bwd, "lm512_trained"),
-        _pick(wider_bwd, "lm512_f32", "float32"),
-        _pick(wider_bwd, "bf16_d384"))
+    lm512_rec, wider384 = (_pick(wider_bwd, "lm512_trained"),
+                           _pick(wider_bwd, "bf16_d384"))
 
     def at(rec, key, library_ms=None, library_device_ms=None, **extra):
         """A kernel's numbers at one timed ``backward_phase`` call (with
@@ -3448,15 +3467,19 @@ def main() -> None:
 
     def f32tc_row(name, replaces, key):
         """K2 or K3's f32 tensor-core kernel at the BERT-base trained call
-        (f32), with the NER trained call (masked) and MiniLM's (K5b at
-        D = 32), launched by the learn phases' f32 gradient checks (one
-        f32 train step each, with and without the mask)."""
+        (f32), with the NER trained call (masked), MiniLM's (K5b at
+        D = 32) and the causal calls above 128, launched by the learn
+        phases' f32 gradient checks (one f32 train step each, with and
+        without the mask)."""
         by_phase = {lbl: c[key.upper()][5]
                     for lbl, c in F32_CHECK_LAUNCHES.items()
                     if c[key.upper()][5]}
         trained = _pick(f32tc, "trained", "float32")
         return {"name": name, "route": "cuda", "source": F32TC_SOURCE,
-                "replaces": replaces, "launches": sum(by_phase.values()),
+                "replaces": replaces,
+                "head_dims": [d for d in fa.HEAD_DIMS
+                              if d <= fa.F32TC_MAX_D],
+                "launches": sum(by_phase.values()),
                 "launches_by_phase": by_phase,
                 **bwd_call(trained, key,
                            library_backward_kernels=trained[
@@ -3472,8 +3495,9 @@ def main() -> None:
                     replaces=K5B_REPLACES),
                 "cross_call": at(_pick(f32tc, "cross_causal", "float32"),
                                  key),
-                "d128_call": bwd_call(_pick(f32tc, "f32_d128", "float32"),
-                                      key)}
+                **{f"d{d}_call": bwd_call(
+                    _pick(f32tc, f"f32_d{d}", "float32"), key)
+                   for d in (128, 192, 256, 384, 512)}}
 
     def f32tc_fwd_row():
         """K1's f32 tensor-core kernel at the BERT-base trained K1-lse
@@ -3608,13 +3632,7 @@ def main() -> None:
             **pick_keys(_pick(wide, "gemma_prefill", "float32")),
             "lse_call": pick_keys(_pick(wide, "gemma_lse", "float32"),
                                   "lse_max_abs_err")},
-        # K2 and K3 f32 at D = 256: the GPT-J-width LM's gradient check's
-        # call ([1,16,2048,256] f32, causal); its fit's bf16 launches are
-        # the Hopper kernels'
-        wide_row("flash_attn_bwd_dq_wide", K2_SOURCE, K2_REPLACES, "k2", lm,
-                 gptj_f32),
-        wide_row("flash_attn_bwd_dkv_wide", K3_SOURCE, K3_REPLACES, "k3", lm,
-                 gptj_f32), {
+        {
             # K1 bf16 at D = 512 (flash_fwd_bf16_split_kernel): the
             # prefill call at DeepSeek-V4-Flash's attention widths
             # ([1,64,2048,512], causal), launched (with logsumexp) by the
@@ -3635,10 +3653,9 @@ def main() -> None:
         # K2 and K3 at D = 512: the 512-head LM's trained call
         # ([4,8,2048,512] bf16, causal), launched by its fit
         wide_row("flash_attn_bwd_dq_wider", K2_SOURCE, K2_REPLACES, "k2",
-                 lm512, lm512_rec, f32_call=lm512_f32, d384_call=wider384),
+                 lm512, lm512_rec, d384_call=wider384),
         wide_row("flash_attn_bwd_dkv_wider", K3_SOURCE, K3_REPLACES, "k3",
-                 lm512, lm512_rec, f32_call=lm512_f32,
-                 d384_call=wider384)]}),
+                 lm512, lm512_rec, d384_call=wider384)]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,9 @@ causal call, at [4,16,2048,192] and at [8,8,2048,128] causal, bf16
 (device time), the same in f32 at every call up to D = 128 that
 chip_smoke.py times (the trained call, the NER trained call with its
 mask, MiniLM's [48,12,384,32] without and with a mask, cross-length
-causal [1,2,128->384,128] and [8,8,2048,128] causal), K1 and K1-lse at the served shape
+causal [1,2,128->384,128] and [8,8,2048,128] causal) and at the f32
+gradient checks' calls of the GPT-J-width LM ([1,16,2048,256] causal)
+and of the 512-head LM ([1,8,2048,512] causal), K1 and K1-lse at the served shape
 [32,12,512,64] and at [8,8,2048,256] causal, bf16 (device time), K1 in
 f32 at the served shape [8,12,512,64], at the prefills of the f32
 generation phases (Phi-2's [1,32,2048,80], the repo geometry's
@@ -74,7 +76,8 @@ def _squad_mask(rng, b, lk):
 # bf16; then every f32 call up to D = 128 that chip_smoke.py times: the
 # trained call, the NER trained call (masked), MiniLM's trained call
 # (D = 32) without and with a mask, cross-length causal and
-# [8,8,2048,128] causal
+# [8,8,2048,128] causal; and the f32 gradient checks' calls above 128,
+# the GPT-J-width LM's (D = 256) and the 512-head LM's (D = 512)
 BACKWARD = (
     ("backward", ("trained", (48, 12, 384, 384, 64), "bfloat16", False, None,
                   True), ""),
@@ -97,6 +100,10 @@ BACKWARD = (
                        True, None, True), "f32_cross_"),
     ("f32-d128-bwd", ("f32_d128", (8, 8, 2048, 2048, 128), "float32", True,
                       None, True), "f32_d128_"),
+    ("f32-d256-bwd", ("gptj_f32", (1, 16, 2048, 2048, 256), "float32", True,
+                      None, True), "f32_d256_"),
+    ("f32-d512-bwd", ("lm512_f32", (1, 8, 2048, 2048, 512), "float32", True,
+                      None, True), "f32_d512_"),
 )
 # K1 and K1-lse timed through chip_smoke.timed_fwd_cases: the served
 # shape and the widest head dim the backward also takes, bf16; then f32

@@ -1,9 +1,8 @@
 """PyTorch port, K2 and K3 in f32 on the tensor cores
 (``csrc/flash_attn_bwd_f32tc.cu``): the route that sends every float32
-call at a head dim up to 128, masked or not, to them (``_bwd_entry``),
-what the wrappers hand their entry points and count in
-``f32tc_launches``, and the kernels' arithmetic, emulated here, against
-the JAX package.
+call to them (``_bwd_entry``; masked up to 128), what the wrappers hand
+their entry points and count in ``f32tc_launches``, and the kernels'
+arithmetic, emulated here, against the JAX package.
 
 The CUDA kernels cannot run here (no card, no nvcc). Where a test stands
 in for the card, the wrappers' CUDA branch runs on meta tensors with
@@ -24,8 +23,14 @@ mask that leaves a batch row with no real key (or, at L = 320, one with 2
 real keys), against ``jax.grad`` of
 the JAX package's einsum path (the reference's masked branch; the Pallas
 backward takes no mask), within 1e-4 * (1 + |ref|), chip_smoke.py's f32
-tolerance. One TF32 pass, emulated the same way, fails that tolerance:
-that is why the kernels take three.
+tolerance. Above D = 128 (192, 320 and 512 here; no mask, causal or not,
+and causal with Lq < Lk) the kernels split D over the warps that share 16
+rows: each warp takes its partial S and dP (S^T and dP^T) over its slice
+with the raw split (hi = x truncated to tf32, lo = x - hi read truncated),
+the even and the odd k-steps in two accumulators, and every warp adds the
+slices' partials in one order, slice 0 first; summed in another order
+some bits of S or dS differ. One TF32 pass, emulated the same way, fails
+the tolerance (at D = 128 and 512): that is why the kernels take three.
 
 Inputs are made with numpy and fed to both packages.
 """
@@ -55,11 +60,11 @@ class TestRoute:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_bwd_entry(self, d, dtype, masked):
-        """f32 at every head dim up to 128, masked or not, takes the f32
+        """f32 at every head dim, masked or not, takes the f32
         tensor-core kernels; bf16 without a mask at 64-256 the Hopper
-        kernels; the rest (bf16 masked or K5b, D above 256, f32 above
-        128) the older sources."""
-        if dtype == torch.float32 and d <= 128:
+        kernels; the rest (bf16 masked, K5b or above 256) the older
+        sources."""
+        if dtype == torch.float32:
             want = (DQ, DKV)
         elif dtype == torch.bfloat16 and not masked and d in (64, 128,
                                                               192, 256):
@@ -97,16 +102,17 @@ def _lse(b=2, h=3, lq=128):
 
 
 class TestLaunches:
-    @pytest.mark.parametrize("masked", [False, True])
-    @pytest.mark.parametrize("d", [8, 20, 32, 64, 120, 128])
+    @pytest.mark.parametrize("d,masked", [
+        (d, masked) for masked in (False, True)
+        for d in (8, 20, 32, 64, 120, 128)] + [(256, False), (512, False)])
     def test_f32_calls_reach_f32tc(self, f32tc_count, d, masked):
         """Off the CPU (meta tensors, spied entry points) K2 and K3 of an
-        f32 call up to D = 128 launch the f32 tensor-core kernels once
-        each, with the mask's pointer where there is one, at the head dim
+        f32 call launch the f32 tensor-core kernels once each, with the
+        mask's pointer where there is one (up to D = 128), at the head dim
         the kernels run (20 padded to 24), and count in
         ``f32tc_launches`` (and ``launches``, ``masked_launches`` and, at
         K5b's head dims, ``small_d_launches``), never in
-        ``sm90_launches``."""
+        ``sm90_launches``; at 256 and 512 as at 128."""
         q, k, v, do = _meta(d)
         m = (torch.ones(2, 192, dtype=torch.uint8, device="meta")
              if masked else None)
@@ -142,16 +148,14 @@ class TestLaunches:
             assert (w.launches, w.f32tc_launches) == (1, 1)
 
     @pytest.mark.parametrize("kind,d,dtype,masked", [
-        ("f32_wide", 256, torch.float32, False),
-        ("f32_wider", 512, torch.float32, False),
         ("bf16_masked", 64, torch.bfloat16, True),
         ("bf16_k5b", 32, torch.bfloat16, False),
         ("bf16_sm90", 128, torch.bfloat16, False),
     ])
     def test_other_calls_count_no_f32tc(self, f32tc_count, kind, d, dtype,
                                         masked):
-        """f32 above 128 and every bf16 call keep their entries and count
-        nothing in ``f32tc_launches``."""
+        """Every bf16 call keeps its entries and counts nothing in
+        ``f32tc_launches``."""
         q, k, v, do = _meta(d, dtype)
         m = (torch.ones(2, 192, dtype=torch.uint8, device="meta")
              if masked else None)
@@ -195,6 +199,21 @@ def tf32(x):
 def split(x):
     hi = tf32(x)
     return hi, tf32(np.float32(x) - hi)
+
+
+def _trunc(x):
+    """x with its 13 low bits cleared: tf32 by truncation, what the
+    tensor cores read of an f32 register."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_raw(x):
+    """The raw split (split_tf32<true>) of the kernels above D = 128 and
+    of K1's: hi = x truncated to tf32, lo = x - hi (exact in f32) handed
+    over as it is, so the tensor cores read it truncated."""
+    hi = _trunc(x)
+    return hi, _trunc(np.float32(x) - hi)
 
 
 def _frags_to(frag, rc, shape):
@@ -288,11 +307,55 @@ def _rows(frag):
     return 16 * np.arange(w)[:, None, None, None] + C_RC[0][None, None]
 
 
+def wide_split(d):
+    """Warps that share 16 rows above D = 128, each over a slice of D
+    (``WideCfg::kDqSplit`` and ``kDkvSplit``): two up to 256, four above,
+    so that a slice is at most 128 dims."""
+    return 2 if d <= 256 else 4
+
+
+def partials(rows, cols, passes):
+    """Each warp's partial product over its slice of D above D = 128
+    (``mma_over_d1`` with the raw split): within a warp the even and the
+    odd k-steps in two accumulators, added at the end."""
+    d = rows.shape[-1]
+    ds = d // wide_split(d)
+    steps = np.arange(ds).reshape(-1, 8)
+    even, odd = steps[0::2].ravel(), steps[1::2].ravel()
+    out = []
+    for i in range(wide_split(d)):
+        r = rows[..., i * ds:(i + 1) * ds]
+        c = cols[..., i * ds:(i + 1) * ds]
+        out.append(_over_d(r[..., even], c[..., even], passes, split_raw)
+                   + _over_d(r[..., odd], c[..., odd], passes, split_raw))
+    return out
+
+
+def in_order(parts, order=None):
+    """The partials added one at a time in ``order`` (the kernels' order,
+    slice 0 first, by default)."""
+    order = list(range(len(parts)) if order is None else order)
+    total = parts[order[0]]
+    for i in order[1:]:
+        total = total + parts[i]
+    return total
+
+
 def emulate_bwd(q, k, v, o, lse, do, causal, scale, mask=None, passes=3):
     """K2 then K3 as flash_attn_bwd_f32tc.cu computes them, on [B, H, L,
-    D] f32 arrays, lse [B*H, Lq]; mask [B, Lk] or None. Returns dq, dk,
-    dv (as [B, H, L, D]) and delta."""
+    D] f32 arrays, lse [B*H, Lq]; mask [B, Lk] or None. Above D = 128 the
+    products over D are the slices' partials summed in order, and every
+    operand takes the raw split. Returns dq, dk, dv (as [B, H, L, D]) and
+    delta."""
     b, h, lq, d = q.shape
+    if d > 128:
+        def over_d(rows, cols):
+            return in_order(partials(rows, cols, passes))
+        split_fn = split_raw
+    else:
+        def over_d(rows, cols):
+            return _over_d(rows, cols, passes)
+        split_fn = split
     lk = k.shape[2]
     log2e = np.float32(1.4426950408889634)
     scale = np.float32(scale)
@@ -311,28 +374,28 @@ def emulate_bwd(q, k, v, o, lse, do, causal, scale, mask=None, passes=3):
 
     # K2: rows are queries in warp tiles of 16; S and dP over all keys
     with np.errstate(over="ignore"):
-        s = _over_d(q, k, passes)                       # [B,H,W,Lk/8,32,4]
-        dp = _over_d(do, v, passes)
+        s = over_d(q, k)                                # [B,H,W,Lk/8,32,4]
+        dp = over_d(do, v)
         r, c = _rows(s), _cols(s)                       # query, key
         ok = vis[:, :, r, c]
         pr = np.exp2(s * scale_log2 - lse2[:, :, r]).astype(np.float32)
         pr = np.where(ok, pr, np.float32(0))
         ds = (pr * (dp - delta[:, :, r]) * scale).astype(np.float32)
     dq = _over_rows(np.zeros((b, h, lq // 16, d // 8, 32, 4), np.float32),
-                    ds, k, passes)
+                    ds, k, passes, split_fn)
 
     # K3: rows are keys; S^T and dP^T over all queries
     with np.errstate(over="ignore"):
-        st = _over_d(k, q, passes)                      # [B,H,Wk,Lq/8,32,4]
-        dpt = _over_d(v, do, passes)
+        st = over_d(k, q)                               # [B,H,Wk,Lq/8,32,4]
+        dpt = over_d(v, do)
         r, c = _rows(st), _cols(st)                     # key, query
         ok = vis[:, :, c, r]
         pt = np.exp2(st * scale_log2 - lse2[:, :, c]).astype(np.float32)
         pt = np.where(ok, pt, np.float32(0))
         dst = (pt * (dpt - delta[:, :, c]) * scale).astype(np.float32)
     acc = np.zeros((b, h, lk // 16, d // 8, 32, 4), np.float32)
-    dv = _over_rows(acc, pt, do, passes)
-    dk = _over_rows(np.zeros_like(acc), dst, q, passes)
+    dv = _over_rows(acc, pt, do, passes, split_fn)
+    dk = _over_rows(np.zeros_like(acc), dst, q, passes, split_fn)
     dk, dv = _to_matrix(dk), _to_matrix(dv)
     if mask is not None:
         # rows that see no key give dO / Lk to every key's dV (a prefix
@@ -356,10 +419,16 @@ KINDS = {
     # sums over the sequence pass a flush
     "long_prefix": (3, 320, 320, False, "prefix"),
 }
+# above D = 128, where no call takes a mask
+WIDE_KINDS = {
+    "plain": (1, 64, 64, False, None),
+    "causal": (1, 128, 128, True, None),
+    "causal_cross": (1, 64, 128, True, None),
+}
 
 
 def _inputs(kind, d, seed):
-    b, lq, lk, causal, mask_kind = KINDS[kind]
+    b, lq, lk, causal, mask_kind = (WIDE_KINDS if d > 128 else KINDS)[kind]
     rng = np.random.RandomState(seed)
     # not symmetric: q, k, v and dO differ in scale and offset
     q = 1.5 * rng.randn(b, 2, lq, d).astype(np.float32)
@@ -449,6 +518,72 @@ class TestEmulation:
                           passes=1)[:3]
         assert max(_excess(g, w) for g, w in zip(three, want)) <= 1
         assert max(_excess(g, w) for g, w in zip(one, want)) > 1
+
+    @pytest.mark.parametrize("kind", sorted(WIDE_KINDS))
+    @pytest.mark.parametrize("d", [192, 320, 512])
+    def test_wide_3xtf32_matches_the_reference(self, d, kind):
+        """Above D = 128 (two warps a row group at 192, four at 320 and
+        512): the slices' partial S and dP (S^T and dP^T) summed in
+        order, the raw split, the relabelled A fragments, the flushes;
+        within 1e-4 * (1 + |ref|) of ``_flash_bwd`` (Pallas, interpret
+        mode), causal or not and causal with Lq < Lk, and delta within
+        that of rowsum(dO * O)."""
+        (q, k, v, do, m, causal, scale), o, lse, want = _reference(
+            kind, d, seed=d + len(kind))
+        dq, dk, dv, delta = emulate_bwd(q, k, v, o, lse, do, causal, scale)
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            assert got.shape == w.shape and np.isfinite(got).all(), name
+            assert _excess(got, w) <= 1, (name, np.abs(got - w).max())
+        assert _excess(delta, (do.astype(np.float64)
+                               * o.astype(np.float64)).sum(-1)) <= 1
+
+    def test_one_tf32_pass_fails_the_tolerance_at_512(self):
+        """The same at D = 512, where four warps each take 128 dims: a
+        single TF32 product misses the tolerance that three hold."""
+        (q, k, v, do, m, causal, scale), o, lse, want = _reference(
+            "causal", 512, seed=1)
+        three = emulate_bwd(q, k, v, o, lse, do, causal, scale)[:3]
+        one = emulate_bwd(q, k, v, o, lse, do, causal, scale,
+                          passes=1)[:3]
+        assert max(_excess(g, w) for g, w in zip(three, want)) <= 1
+        assert max(_excess(g, w) for g, w in zip(one, want)) > 1
+
+    @pytest.mark.parametrize("d", [320, 512])
+    def test_partials_sum_in_one_order(self, d):
+        """Above D = 256 four warps add their partial S and dP. Float
+        addition is not associative: summed in another order some bits of
+        S and of dS = P * (dP - delta) * scale differ, so warps that each
+        took their own first would add different dS to their slices of
+        dQ (or dK and dV). Every warp adds them in one order, slice 0
+        first. Two partials (D = 192, 256) commute, so a pair never
+        needed it."""
+        rng = np.random.RandomState(d)
+        q = 1.5 * rng.randn(1, 1, 16, d).astype(np.float32)
+        k = rng.randn(1, 1, 64, d).astype(np.float32)
+        v = rng.randn(1, 1, 64, d).astype(np.float32) + 0.25
+        do = 0.5 * rng.randn(1, 1, 16, d).astype(np.float32)
+        s_parts, dp_parts = partials(q, k, 3), partials(do, v, 3)
+        assert len(s_parts) == len(dp_parts) == wide_split(d) == 4
+        scale = np.float32(1 / np.sqrt(d))
+        scale_log2 = np.float32(scale * 1.4426950408889634)
+        # a row's log2-sum-exp and a delta, as K2 reads them
+        exact = np.einsum("bhid,bhjd->bhij", q.astype(np.float64),
+                          k.astype(np.float64)) * scale
+        lse2 = np.float32(np.log2(np.exp(exact).sum(-1)).max())
+        delta = np.float32(0.125)
+
+        def s_and_ds(order=None):
+            sc = in_order(s_parts, order)
+            dp = in_order(dp_parts, order)
+            pr = np.exp2(sc * scale_log2 - lse2).astype(np.float32)
+            return sc, (pr * (dp - delta) * scale).astype(np.float32)
+
+        fixed_s, fixed_ds = s_and_ds()
+        for order in ([3, 2, 1, 0], [0, 2, 1, 3]):
+            other_s, other_ds = s_and_ds(order)
+            assert (fixed_s != other_s).any() and (fixed_ds != other_ds).any()
+        pair = partials(q[..., :256], k[..., :256], 3)
+        np.testing.assert_array_equal(pair[0] + pair[1], pair[1] + pair[0])
 
     def test_relabelled_fragments_contract_the_right_columns(self):
         """The relabelling alone, on one block of 8 columns: the A

@@ -53,7 +53,8 @@ from analytics_zoo_tpu.ops.attention import (
 from analytics_zoo_tpu.ops.pallas_attention import _flash_fwd
 from analytics_zoo_tpu_torch.ops import flash_attention as fa
 from tests.test_torch_port_f32tc_bwd import (C_RC, _cols, _excess, _over_d,
-                                             _over_rows, _rows, _to_matrix)
+                                             _over_rows, _rows, _to_matrix,
+                                             split_raw)
 from tests.test_torch_port_k5b_bwd import D_ARG, MASK_ARG, fake_card  # noqa: F401
 from tests.test_torch_port_masked import _mask
 
@@ -86,9 +87,9 @@ class TestRoute:
         assert fa._fwd_entry(dtype, d, masked) == want
 
     def test_limit(self):
-        """The f32 forward reaches 512, every head dim it is built for;
-        the backward stops at 128."""
-        assert (fa.F32TC_FWD_MAX_D, fa.F32TC_MAX_D) == (512, 128)
+        """The f32 forward and backward both reach 512, every head dim
+        they are built for."""
+        assert (fa.F32TC_FWD_MAX_D, fa.F32TC_MAX_D) == (512, 512)
         assert fa.F32TC_FWD_MAX_D == max(fa.HEAD_DIMS)
 
     def test_entry_point_is_registered(self):
@@ -182,21 +183,6 @@ class TestLaunches:
 
 
 # ---------------------------------------------------- the emulation --
-def _trunc(x):
-    """x with its 13 low bits cleared: tf32 by truncation, what the
-    tensor cores read of an f32 register."""
-    bits = np.asarray(x, np.float32).view(np.uint32)
-    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def split_raw(x):
-    """The kernel's split (split_tf32<true>): hi = x truncated to tf32,
-    lo = x - hi (exact in f32) handed over as it is, so the tensor cores
-    read it truncated."""
-    hi = _trunc(x)
-    return hi, _trunc(np.float32(x) - hi)
-
-
 def _split(d):
     """Warps that share 16 rows, each over a slice of D (``FwdCfg::kSplit``):
     one up to D = 128, two up to 256, then four (three at 384), so that a

@@ -48,13 +48,13 @@ class TestRoute:
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_bwd_entry(self, d, dtype, masked):
         """bf16 without a mask at 64, 128, 192 and 256 takes the Hopper
-        kernels; f32 up to 128 the f32 tensor-core kernels; f32 above 128,
-        a mask, the K5b head dims and D above 256 keep
+        kernels; f32 at every head dim the f32 tensor-core kernels; bf16
+        with a mask, at the K5b head dims and above 256 keeps
         ``flash_attn_bwd_dq.cu`` and ``flash_attn_bwd_dkv.cu``."""
         if dtype == torch.bfloat16 and not masked and d in (64, 128, 192,
                                                              256):
             want = (DQ, DKV)
-        elif dtype == torch.float32 and d <= 128:
+        elif dtype == torch.float32:
             want = (F32TC_DQ, F32TC_DKV)
         else:
             want = (OLD_DQ, OLD_DKV)
@@ -140,9 +140,9 @@ class TestLaunches:
     ])
     def test_other_calls_keep_the_old_entries(self, sm90_count, kind, d,
                                               dtype, masked):
-        """A masked call, f32 above 128, K5b (D = 80, and 20 padded to 24)
-        and D = 512 still reach ``zoo_flash_attn_bwd_dq`` and
-        ``zoo_flash_attn_bwd_dkv``, and f32 up to 128 the f32
+        """A masked call, K5b (D = 80, and 20 padded to 24) and D = 512
+        in bf16 still reach ``zoo_flash_attn_bwd_dq`` and
+        ``zoo_flash_attn_bwd_dkv``, and f32 (at 64 and at 256) the f32
         tensor-core entries, which take the same arguments; the mask's
         pointer goes with them, and none counts in ``sm90_launches``."""
         q, k, v, do = _meta(d, dtype, lq=128, lk=128)
@@ -153,7 +153,7 @@ class TestLaunches:
                                              key_padding_mask=m)
         fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, False,
                                    key_padding_mask=m)
-        f32tc = dtype == torch.float32 and d <= 128
+        f32tc = dtype == torch.float32
         assert [name for name, _ in sm90_count] == (
             [F32TC_DQ, F32TC_DKV] if f32tc else [OLD_DQ, OLD_DKV])
         for name, args in sm90_count:

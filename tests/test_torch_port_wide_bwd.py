@@ -170,9 +170,9 @@ class TestWideRouteAndGates:
     def test_card_trained_call_launches_k1_lse_k2_k3(self, fake_card,
                                                      monkeypatch, d):
         """Off the CPU (meta tensors, spied entry points) a trained call
-        at D = 192 or 256 launches K1-lse (f32: on K1's f32 tensor-core
-        entry), then K2, then K3 at that head dim without a mask, each
-        counted in ``wide_d_launches``."""
+        at D = 192 or 256 launches K1-lse, then K2, then K3 at that head
+        dim without a mask (f32: all three on the f32 tensor-core
+        entries), each counted in ``wide_d_launches``."""
         for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
                   fa.flash_attention_bwd_dkv):
             monkeypatch.setattr(w, "wide_d_launches", 0)
@@ -182,8 +182,9 @@ class TestWideRouteAndGates:
         grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
         assert all(g.shape == (4, 2, 128, d) for g in grads)
         assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
-            ("zoo_flash_attn_fwd_f32tc", d), ("zoo_flash_attn_bwd_dq", d),
-            ("zoo_flash_attn_bwd_dkv", d)]
+            ("zoo_flash_attn_fwd_f32tc", d),
+            ("zoo_flash_attn_bwd_dq_f32tc", d),
+            ("zoo_flash_attn_bwd_dkv_f32tc", d)]
         # K1 wrote a logsumexp (its fifth argument is not null)
         assert fake_card[0][1][4] is not None
         for w in (fa.flash_attention, fa.flash_attention_bwd_dq,

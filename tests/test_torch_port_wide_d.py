@@ -197,8 +197,9 @@ class TestWideDispatch:
         for g, w in zip(grads, want_grads):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
         assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
-            ("zoo_flash_attn_fwd_f32tc", 256), ("zoo_flash_attn_bwd_dq", 256),
-            ("zoo_flash_attn_bwd_dkv", 256)]
+            ("zoo_flash_attn_fwd_f32tc", 256),
+            ("zoo_flash_attn_bwd_dq_f32tc", 256),
+            ("zoo_flash_attn_bwd_dkv_f32tc", 256)]
         for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
                   fa.flash_attention_bwd_dkv):
             assert (w.launches, w.wide_d_launches) == (1, 1)

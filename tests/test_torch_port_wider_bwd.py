@@ -121,7 +121,7 @@ class TestWiderBackwardRouteAndGates:
         """Off the CPU (meta tensors, spied entry points) a trained call
         at D = 320 to 512 launches K1-lse, then K2, then K3 at that head
         dim without a mask, each counted once in ``wide_d_launches``
-        (f32: K1-lse on the f32 tensor-core kernel)."""
+        (f32: all three on the f32 tensor-core entries)."""
         for w in WRAPPERS:
             monkeypatch.setattr(w, "wide_d_launches", 0)
         q, k, v = (torch.empty(4, 2, 128, d, device="meta",
@@ -130,8 +130,9 @@ class TestWiderBackwardRouteAndGates:
         grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
         assert all(g.shape == (4, 2, 128, d) for g in grads)
         assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
-            ("zoo_flash_attn_fwd_f32tc", d), ("zoo_flash_attn_bwd_dq", d),
-            ("zoo_flash_attn_bwd_dkv", d)]
+            ("zoo_flash_attn_fwd_f32tc", d),
+            ("zoo_flash_attn_bwd_dq_f32tc", d),
+            ("zoo_flash_attn_bwd_dkv_f32tc", d)]
         # K1 wrote a logsumexp (its fifth argument is not null)
         assert fake_card[0][1][4] is not None
         for w in WRAPPERS:

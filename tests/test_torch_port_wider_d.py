@@ -153,7 +153,8 @@ class TestWiderRouteAndGates:
         """``FlashAttention`` at D = 512 no longer raises: off the CPU
         (meta tensors, spied entry points) a gradient launches K1-lse,
         then K2, then K3 at that head dim, each counted in
-        ``wide_d_launches`` (f32: K1-lse on the f32 tensor-core kernel)."""
+        ``wide_d_launches`` (f32: all three on the f32 tensor-core
+        entries)."""
         for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
                   fa.flash_attention_bwd_dkv):
             monkeypatch.setattr(w, "wide_d_launches", 0)
@@ -162,8 +163,9 @@ class TestWiderRouteAndGates:
         (grad,) = torch.autograd.grad(out, q, torch.empty_like(out))
         assert grad.shape == q.shape
         assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
-            ("zoo_flash_attn_fwd_f32tc", 512), ("zoo_flash_attn_bwd_dq", 512),
-            ("zoo_flash_attn_bwd_dkv", 512)]
+            ("zoo_flash_attn_fwd_f32tc", 512),
+            ("zoo_flash_attn_bwd_dq_f32tc", 512),
+            ("zoo_flash_attn_bwd_dkv_f32tc", 512)]
         for w in (fa.flash_attention, fa.flash_attention_bwd_dq,
                   fa.flash_attention_bwd_dkv):
             assert (w.launches, w.wide_d_launches) == (1, 1)
