@@ -1,16 +1,26 @@
-// Flash-attention forward (K1, K1-lse) for Hopper, sm_90a: the bf16
-// kernel without a key-padding mask at head dims 64, 128, 192 and 256,
-// built on TMA, mbarriers, a producer warpgroup and wgmma.
+// Flash-attention forward (K1, K1-lse) for Hopper, sm_90a: every bf16
+// call at a head dim up to 128 (each multiple of 8; the wrappers pad
+// other head dims to one), with or without a key-padding mask, and the
+// bf16 calls without a mask at head dims 192 and 256, built on TMA,
+// mbarriers, a producer warpgroup and wgmma.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_fwd_kernel`
-// (:82), launched by `_flash_fwd` (:137), for those calls. It computes
-// what that kernel computes: softmax(scale * Q K^T) V on [B, H, L, D]
-// with f32 softmax statistics and f32 accumulation, P rounded to bf16
-// before P V (the Pallas kernel casts p to v.dtype), O in bf16, with
-// `with_lse` the natural-log logsumexp in [B*H, Lq] f32 that K2 and K3
-// read, and a causal mask aligned bottom-right (key j is visible to row
-// i when j <= i + Lk - Lq). Without a mask and with Lq <= Lk every row
-// sees key 0, so no row is empty and no empty-row pass is needed.
+// (:82), launched by `_flash_fwd` (:137), and JAX's stock Pallas
+// flash_attention that analytics_zoo_tpu/ops/attention.py (:116-127)
+// reaches with segment ids (a key-padding mask) or at head_dim % 64 != 0
+// (K5b), for those calls. It computes what those kernels compute:
+// softmax(scale * Q K^T) V on [B, H, L, D] with f32 softmax statistics
+// and f32 accumulation, P rounded to bf16 before P V (the Pallas kernel
+// casts p to v.dtype), O in bf16, with `with_lse` the natural-log
+// logsumexp in [B*H, Lq] f32 that K2 and K3 read, and a causal mask
+// aligned bottom-right (key j is visible to row i when j <= i + Lk - Lq;
+// the stock kernel aligns it top-left, but the reference takes it only
+// at Lq == Lk, where the two agree). The key-padding mask ([B, Lk] bytes,
+// nonzero = real key) hides padded keys from every row; a row that then
+// sees no key (an all-zero mask row, or causal with left padding) gets
+// what the reference's einsum path gives with its finite -1e30 fill: the
+// mean of V over all Lk keys, and logsumexp kEmptyLse. Padded query rows
+// are computed like any other (the einsum path's values).
 //
 // What bounds it. Per (b, h) it reads Q, K, V once and writes O once,
 // against 4 * D flops per visible (query, key) pair. Causal at D = 256
@@ -18,14 +28,16 @@
 // tensor cores (0.139 ms at 989 TFLOP/s, 0.010 ms of bytes). At D = 64
 // (the served [32, 12, 512, 64] call) the flops per byte are 256, just
 // under the card's ridge of about 295: bound by bytes (0.030 ms), with
-// the operations' bound (0.026 ms) close.
+// the operations' bound (0.026 ms) close. Below 64 the bytes bound alone
+// is not the floor: every score takes one ex2 on the special-function
+// units (16 a clock an SM), about 0.022 ms for MiniLM's 85 M scores
+// ([48, 12, 384, 32]) against 0.017 ms of bytes.
 //
 // What the design does about it. The kernels it retires
-// (flash_fwd_bf16_kernel<64|128, false> and flash_fwd_bf16_wide_kernel
-// in flash_attn_fwd.cu) loaded tiles synchronously with every thread and
-// a __syncthreads() pair a kv tile, ran mma.sync.m16n8k16 and, at D =
-// 256, reloaded Q's fragments every k-step, gathered V one scalar at a
-// time and held 254 registers. Here:
+// (flash_fwd_bf16_kernel<D, kMask> and flash_fwd_bf16_wide_kernel in
+// flash_attn_fwd.cu) loaded tiles synchronously with every thread and a
+// __syncthreads() pair a kv tile, ran mma.sync.m16n8k16 and gathered V
+// one scalar at a time. Here:
 //   * A block owns 128 q rows and has three warpgroups (384 threads).
 //     Warpgroup 0 is the producer: it gives back its registers
 //     (setmaxnreg.dec to 24) and one thread issues every load as a TMA
@@ -40,26 +52,66 @@
 //     "empty" one (an arrival from each consumer warp) for K and for V
 //     apart. The producer loads K of tile kt before V of tile kt - 1, the
 //     order the consumers use them in, and refills a K stage as soon as
-//     its Q K^T is done. Tiles are D/64 slabs of [rows][64] bf16 with the
-//     128-byte swizzle, what TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and
-//     the wgmma descriptors' 128B layout reads (slabs 1024-byte aligned).
+//     its Q K^T is done. Tiles are ceil(D/64) slabs of [rows][64] bf16
+//     with the 128-byte swizzle, what TMA's CU_TENSOR_MAP_SWIZZLE_128B
+//     writes and the wgmma descriptors' 128B layout reads (slabs
+//     1024-byte aligned).
 //   * S = Q K^T is wgmma.m64n{kKv}k16 with A (Q) and B (K, K-major) read
 //     from shared memory through descriptors, D/16 k-steps (each wgmma
 //     advances one base descriptor inside its asm, so the compiler keeps
 //     no descriptor a k-step in registers). The online softmax runs in
 //     registers in the accumulator layout (a row's values in the 4
 //     threads of a quad, reduced with two shfl_xor; ex2.approx.ftz for
-//     the exponentials). O += P V is one wgmma.m64n{D}k16 a k-step of
-//     16 keys, with A (P) from registers, the S accumulator re-packed as
-//     bf16 A fragments, and B (V) MN-major from shared memory (the
-//     transpose flag; the slabs of D are its leading byte offset apart),
-//     so P never leaves registers and V is never gathered by hand.
+//     the exponentials). O += P V runs at N = D a k-step of 16 keys:
+//     one wgmma.m64n{64 x whole slabs}k16 and, at a head dim that is not
+//     a multiple of 64, one m64n{D mod 64}k16 over the first columns of
+//     the last slab, with A (P) from registers, the S accumulator
+//     re-packed as bf16 A fragments, and B (V) MN-major from shared
+//     memory (the transpose flag; the slabs of D are its leading byte
+//     offset apart), so P never leaves registers and V is never gathered
+//     by hand.
+//   * Head dims that are not a multiple of 64 (K5b). The tensor maps'
+//     global width is the call's D and their boxes 64 columns, so TMA
+//     fills the columns of the last slab past D with zeros in Q, K and
+//     V; no host copy is made. An instantiation is built for each
+//     multiple of 16 up to 128 and runs D/16 k-steps of Q K^T; a call at
+//     D = 8 (mod 16) takes the next one up, whose last k-step reads
+//     zeros in its upper half in both operands, and stores only its D
+//     columns of O. P V at N = D (above) keeps O at D/2 registers: of
+//     the designs weighed on an H100 (PERF.md), P V at the slab width
+//     (N = 64 or 128, O at 32 or 64 registers) was 3-9% slower at every
+//     such D and left no room for two blocks an SM at D = 80, which took
+//     [8, 32, 1024, 80] from 0.188 to 0.145 device ms; a 64- or 32-byte
+//     swizzle for D <= 32 was not built, since time moved little with D
+//     there (0.056 ms at D = 16, 0.066 at 32, 0.072 at 48 on MiniLM's
+//     [48, 12, 384, d]): the scores' exponentials and the waits, not the
+//     tensor cores, bound those calls.
 //   * Within a consumer, Q K^T of tile kt is issued before P V of tile
 //     kt - 1, and tile kt's softmax runs while that P V is still on the
-//     tensor cores. That needs S, P and O in registers at once; at D = 64
-//     the kernel instead runs two blocks an SM (kv tiles of 64, 104
-//     registers a consumer), which hides one block's load latency behind
-//     the other's arithmetic, and its consumers take tile by tile.
+//     tensor cores. That needs S, P and O in registers at once; up to
+//     D = 64, and at 80, the kernel instead runs two blocks an SM (kv
+//     tiles of 64, 104 registers a consumer), which hides one block's
+//     load latency behind the other's arithmetic, and its consumers take
+//     tile by tile (pipelined there, D = 32 gained 2% and 48 lost 3%).
+//   * The key-padding mask is a template flag (kMask), so the unmasked
+//     instantiations are the kernel as it was. Before the loop, the
+//     producer's first warp copies the batch row's mask (the keys of the
+//     tiles the block may walk) into shared memory, under Q's load, and
+//     lists the kv tiles that hold a real key; the producer and both
+//     consumers walk that list, so wholly padded tiles are never loaded
+//     and every barrier sees the same tiles. The staged row is written
+//     once and only read afterwards (a first version brought each tile's
+//     mask bytes into its K stage by a bulk copy, and a consumer's reads
+//     of them raced the copy of a later tile into the same stage); a
+//     consumer reads its keys' bytes of a tile into one register of bits
+//     and sets masked scores to -inf before the row max.
+//   * Rows that see no key: their running max is still -inf after the
+//     walk (only a mask can do that: under causal alone, with Lq <= Lk,
+//     every row sees key 0). A warp holding one computes the column
+//     means of V over all Lk keys (two columns a lane, read from device
+//     memory) and hands each thread its columns with shuffles; such a
+//     row stores them and logsumexp kEmptyLse. The loop itself never
+//     divides 0 by 0.
 //   * Causal: kv tiles above a block's last row are never loaded; a
 //     consumer whose 64 rows all lie above a tile skips its arithmetic
 //     but still waits and arrives on that tile's barriers; only tiles
@@ -79,8 +131,8 @@
 // grid, and the epilogue through shared memory and a TMA store (O is
 // written from registers, 4 bytes a thread a row).
 //
-// flash_attn_fwd.cu keeps the masked bf16 calls, the other head dims
-// up to 128 (K5b), every f32 call and bf16 above 256.
+// flash_attn_fwd_f32tc.cu takes every f32 call; flash_attn_fwd.cu keeps
+// bf16 at head dims 320 to 512.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -95,6 +147,9 @@ namespace {
 
 constexpr int kRows = 128;      // q rows a block: two consumers of 64
 constexpr int kEmptyArrivals = 8;  // one a consumer warp
+// logsumexp of a row that sees no key: what f32 logsumexp gives for the
+// einsum path's row of -1e30 fills (log(Lk) is absorbed)
+constexpr float kEmptyLse = -1e30f;
 
 template <int KV, int STAGES, int BLOCKS, int PRODUCER, int CONSUMER>
 struct Tiles {
@@ -106,21 +161,45 @@ struct Tiles {
                 "registers");
 };
 // kv rows a tile, ring stages, blocks an SM and the registers a
-// producer and a consumer thread keep after setmaxnreg, by head dim (at
-// D = 256: Q 64 KB + 2 x (32 + 32) KB of K and V, 193 KB of the 227)
-template <int D> struct Cfg;
-template <> struct Cfg<64> : Tiles<64, 3, 2, 24, 104> {};
-template <> struct Cfg<128> : Tiles<128, 2, 1, 24, 240> {};
+// producer and a consumer thread keep after setmaxnreg: up to D = 128 by
+// the slabs of D (one up to 64, two above), at D = 80 two blocks an SM
+// (O is 40 registers; at 96 and 112 the consumers spilled at 104), and
+// at 192 and 256 (at D = 256: Q 64 KB + 2 x (32 + 32) KB of K and V,
+// 193 KB of the 227)
+template <int SLABS> struct SlabCfg;
+template <> struct SlabCfg<1> : Tiles<64, 3, 2, 24, 104> {};
+template <> struct SlabCfg<2> : Tiles<128, 2, 1, 24, 240> {};
+template <int D> struct Cfg : SlabCfg<(D + kSlab - 1) / kSlab> {};
+template <> struct Cfg<80> : Tiles<64, 2, 2, 24, 104> {};
 template <> struct Cfg<192> : Tiles<64, 3, 1, 24, 240> {};
 template <> struct Cfg<256> : Tiles<64, 2, 1, 24, 240> {};
 
+// the head dim an instantiation is built for, for a call at head dim d:
+// the next multiple of 16 up to 128 (TMA reads the columns past d as
+// zeros), else d
+constexpr int inst_dim(int d) { return d <= 128 ? (d + 15) / 16 * 16 : d; }
+
+// bytes of the barriers (Q, and K full, V full, K empty, V empty a
+// stage), rounded up to 16
+__host__ __device__ constexpr int bar_bytes(int stages) {
+  return (8 * (1 + 4 * stages) + 15) & ~15;
+}
+
 // dynamic shared memory: 1024 bytes of alignment slack, Q, the K and V
-// stages, then the barriers (Q, and K full, V full, K empty, V empty a
-// stage)
+// stages (ceil(D/64) slabs a row), the barriers, and with a mask the
+// count of listed kv tiles (16 bytes), the list (4 bytes a kv tile of the
+// call, rounded up to 16) and the batch row's mask (Lk bytes): the last
+// two depend on Lk (mask_bytes)
 template <int D>
 constexpr int smem_bytes() {
-  return 1024 + (kRows + 2 * Cfg<D>::kStages * Cfg<D>::kKv) * D * 2
-      + 8 * (1 + 4 * Cfg<D>::kStages);
+  constexpr int width = (D + kSlab - 1) / kSlab * kSlab;
+  return 1024 + (kRows + 2 * Cfg<D>::kStages * Cfg<D>::kKv) * width * 2
+      + bar_bytes(Cfg<D>::kStages);
+}
+
+// bytes of the list of kv tiles (4 a tile, rounded up to 16)
+__host__ __device__ constexpr int list_bytes(int lk, int kv) {
+  return ((lk + kv - 1) / kv * 4 + 15) & ~15;
 }
 
 struct Params {
@@ -128,11 +207,18 @@ struct Params {
   float* lse;                    // nullptr unless with_lse
   long long o_sb, o_sh, o_sl;    // element strides of O: batch, head, seq
   int h, lq, lk;
+  int d;                         // head dim: O's columns stored
   float scale_log2;              // softmax scale * log2(e)
   int causal;
+  // kMask: the key-padding mask ([B, Lk] bytes, nonzero = real key, rows
+  // 16-byte aligned) and V (the means of rows that see no key)
+  const uint8_t* mask;
+  long long mask_sb;
+  const uint16_t* v;
+  long long v_sb, v_sh, v_sl;
 };
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads, Cfg<D>::kBlocks)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -140,10 +226,17 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const Params p) {
   constexpr int kKv = Cfg<D>::kKv;
   constexpr int kStages = Cfg<D>::kStages;
-  constexpr int kSlabs = D / kSlab;
-  constexpr int kQBytes = kRows * D * 2;
-  constexpr int kKvBytes = kKv * D * 2;   // one K (or V) tile
+  constexpr int kSlabs = (D + kSlab - 1) / kSlab;
+  constexpr int kWidth = kSlabs * kSlab;    // columns of a staged row
+  // P V runs at N = D: one wgmma over the whole slabs of V, and one over
+  // the first kRem columns of a last, partial one
+  constexpr int kFull = D / kSlab;
+  constexpr int kRem = D % kSlab;
+  constexpr int kQBytes = kRows * kWidth * 2;
+  constexpr int kKvBytes = kKv * kWidth * 2;  // one K (or V) tile
+  static_assert(D % 16 == 0, "head dim: a multiple of 16 (k-steps)");
   static_assert(kKv == 64 || kKv == 128, "kv tile: 64 or 128 keys");
+  static_assert(!kMask || D <= 128, "a mask only up to D = 128");
   // room for S, P and O of a tile at once (see the consumers' loops):
   // one block an SM
   constexpr bool kPipelined = Cfg<D>::kBlocks == 1;
@@ -159,6 +252,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t fullV = fullK + 8 * kStages;
   const uint32_t emptyK = fullV + 8 * kStages;
   const uint32_t emptyV = emptyK + 8 * kStages;
+  // kMask: the count and list of the kv tiles that hold a real key, and
+  // the batch row's mask, written once before the walk and only read in
+  // it (generic pointers)
+  uint8_t* const after_bars = smem_raw + (barQ + bar_bytes(kStages) - raw);
+  int* const n_live = reinterpret_cast<int*>(after_bars);
+  int* const live = n_live + 4;
+  uint8_t* const row_mask = after_bars + 16 + list_bytes(p.lk, kKv);
 
   const int n_qt = gridDim.x;
   const int qt = n_qt - 1 - blockIdx.x;  // longest causal tiles first
@@ -167,13 +267,23 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int hh = bh - b * p.h;
   const int q0 = qt * kRows;
   const int offset = p.lk - p.lq;
+  const uint8_t* const mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
 
-  // kv tiles this block walks: up to its last real row's last key
+  // kv tiles this block may walk: up to its last real row's last key
   int n_tiles = (p.lk + kKv - 1) / kKv;
   if (p.causal) {
     const int last_row = min(q0 + kRows, p.lq) - 1;
     n_tiles = min(n_tiles, (last_row + offset) / kKv + 1);
   }
+
+  // Q's load: one TMA box a slab on barQ
+  auto load_q = [&]() {
+    mbar_expect_tx(barQ, kQBytes);
+#pragma unroll
+    for (int s = 0; s < kSlabs; ++s) {
+      tma_load(sQ + s * kRows * kSlabRow, &tq, barQ, s * kSlab, q0, hh, b);
+    }
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(barQ, 1);
@@ -185,8 +295,47 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // with a mask Q's load goes first, so the list below is made under it
+    if constexpr (kMask) load_q();
+  }
+  if constexpr (kMask) {
+    // the first warp stages the batch row's mask (the keys of the tiles
+    // this block may walk) and lists, in order, the kv tiles with a real
+    // key: 32 tiles a round, one a lane, compacted by a ballot
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int n = 0;
+      for (int base = 0; base < n_tiles; base += 32) {
+        const int kt = base + lane;
+        bool real = false;
+        if (kt < n_tiles) {
+          const uint4* src = reinterpret_cast<const uint4*>(mrow + kt * kKv);
+          uint4* dst = reinterpret_cast<uint4*>(row_mask + kt * kKv);
+          const int chunks = min(kKv, p.lk - kt * kKv) / 16;
+          for (int i = 0; i < chunks; ++i) {
+            const uint4 x = src[i];
+            dst[i] = x;
+            real |= (x.x | x.y | x.z | x.w) != 0u;
+          }
+        }
+        const uint32_t ballot = __ballot_sync(0xffffffffu, real);
+        if (real) live[n + __popc(ballot & ((1u << lane) - 1u))] = kt;
+        n += __popc(ballot);
+      }
+      if (lane == 0) *n_live = n;
+    }
   }
   __syncthreads();
+  // the kv tiles every warpgroup walks, in order: with a mask the listed
+  // ones, else all of the block's; tile(i) is the i-th one's index
+  const int n_walk = kMask ? *n_live : n_tiles;
+  auto tile = [&](int i) {
+    if constexpr (kMask) {
+      return live[i];
+    } else {
+      return i;
+    }
+  };
 
   // warpgroup index, uniform across each warp to the compiler
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -195,28 +344,24 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(Cfg<D>::kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(barQ, kQBytes);
-#pragma unroll
-      for (int s = 0; s < kSlabs; ++s) {
-        tma_load(sQ + s * kRows * kSlabRow, &tq, barQ, s * kSlab, q0, hh, b);
-      }
-      // K of tile kt, then V of tile kt - 1: the order the consumers
-      // use them in; each waits for its stage's previous tile to be
-      // released (the first round finds every stage empty)
+      if constexpr (!kMask) load_q();
+      // K of walked tile i, then V of walked tile i - 1: the order the
+      // consumers use them in; each waits for its stage's previous tile
+      // to be released (the first round finds every stage empty)
       auto load = [&](const CUtensorMap* map, uint32_t full, uint32_t empty,
-                      uint32_t base, int kt) {
-        const int stage = kt % kStages;
-        mbar_wait(empty + 8 * stage, ((kt / kStages) & 1) ^ 1);
+                      uint32_t base, int i) {
+        const int stage = i % kStages;
+        mbar_wait(empty + 8 * stage, ((i / kStages) & 1) ^ 1);
         mbar_expect_tx(full + 8 * stage, kKvBytes);
 #pragma unroll
         for (int s = 0; s < kSlabs; ++s) {
           tma_load(base + stage * kKvBytes + s * kKv * kSlabRow, map,
-                   full + 8 * stage, s * kSlab, kt * kKv, hh, b);
+                   full + 8 * stage, s * kSlab, tile(i) * kKv, hh, b);
         }
       };
-      for (int kt = 0; kt < n_tiles + 1; ++kt) {
-        if (kt < n_tiles) load(&tk, fullK, emptyK, sK, kt);
-        if (kt >= 1) load(&tv, fullV, emptyV, sV, kt - 1);
+      for (int i = 0; i < n_walk + 1; ++i) {
+        if (i < n_walk) load(&tk, fullK, emptyK, sK, i);
+        if (i >= 1) load(&tv, fullV, emptyV, sV, i - 1);
       }
     }
     return;
@@ -235,22 +380,31 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int ra = r0 + warp * 16 + g;     // the two rows a thread holds
   const int rb = ra + 8;
   const bool active = r0 < p.lq;
-  // tiles this consumer computes on: all of the block's, or, causal,
-  // up to its own last row's last key; none past Lq
-  int n_mine = active ? n_tiles : 0;
-  if (active && p.causal) n_mine = min(n_tiles, (r0 + 63 + offset) / kKv + 1);
+  // walked tiles this consumer computes on, a prefix of the walk: all
+  // of them, or, causal, those up to its own last row's last key; none
+  // past Lq
+  int n_mine = 0;
+  if (active) {
+    n_mine = n_walk;
+    if (p.causal) {
+      const int last = (r0 + 63 + offset) / kKv;
+      if constexpr (kMask) {
+        while (n_mine > 0 && live[n_mine - 1] > last) --n_mine;
+      } else {
+        n_mine = min(n_walk, last + 1);
+      }
+    }
+  }
   // the last visible key of each of the two rows
   const int lim_a = p.causal ? min(ra + offset, p.lk - 1) : p.lk - 1;
   const int lim_b = p.causal ? min(rb + offset, p.lk - 1) : p.lk - 1;
   // and of this consumer's first row, the one that sees fewest
   const int lim_first = p.causal ? min(r0 + offset, p.lk - 1) : p.lk - 1;
 
-  float o[kSlabs][32];
+  // O in the accumulator layout: 4 registers for each 8 columns
+  float o[D / 2];
 #pragma unroll
-  for (int n = 0; n < kSlabs; ++n) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
-  }
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY;  // running max (log2 domain)
   float l_a = 0.f, l_b = 0.f;              // this thread's part of the sum
   float s[kKv / 2];          // S of one tile, then its probabilities
@@ -260,10 +414,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   // this consumer's 64 rows of Q, slab 0, k-step 0
   const uint32_t q_base = sQ + c * 64 * kSlabRow;
 
-  // issue S = Q K^T of tile kt (D/16 k-steps of 32 bytes within a
+  // issue S = Q K^T of walked tile i (D/16 k-steps of 32 bytes within a
   // 128-byte slab row) and commit it as one wgmma group
-  auto issue_qk = [&](int kt) {
-    const uint32_t k_base = sK + (kt % kStages) * kKvBytes;
+  auto issue_qk = [&](int i) {
+    const uint32_t k_base = sK + (i % kStages) * kKvBytes;
     wgmma_fence();
     const uint64_t da = sw128_desc(q_base, 16, 1024);
     const uint64_t db = sw128_desc(k_base, 16, 1024);
@@ -282,30 +436,63 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_commit();
   };
 
-  // issue O += P V of tile kt and commit it: one wgmma of N = D a k-step
-  // of 16 keys; V's 128-byte rows are the K dimension (MN-major B), 8 of
-  // them 1024 bytes apart in each core group, and its slabs of D kKv
-  // rows apart (the leading byte offset)
-  auto issue_pv = [&](int kt) {
-    const uint32_t v_base = sV + (kt % kStages) * kKvBytes;
-#pragma unroll
-    for (int n = 0; n < kSlabs; ++n) fence_regs(o[n]);
+  // issue O += P V of walked tile i and commit it: a k-step of 16 keys
+  // is one wgmma of N = 64 x kFull over the whole slabs of V and, at a
+  // head dim that is not a multiple of 64, one of N = kRem over the
+  // first columns of the last slab; V's 128-byte rows are the K
+  // dimension (MN-major B), 8 of them 1024 bytes apart in each core
+  // group, and its slabs kKv rows apart (the leading byte offset)
+  auto issue_pv = [&](int i) {
+    const uint32_t v_base = sV + (i % kStages) * kKvBytes;
+    fence_regs(o);
     fence_regs(pf);
     wgmma_fence();
     const uint64_t dv = sw128_desc(v_base, kKv * kSlabRow, 1024);
-    float (&acc)[D / 2] = reinterpret_cast<float (&)[D / 2]>(o);
+    const uint64_t dv_rem =
+        sw128_desc(v_base + kFull * kKv * kSlabRow, kKv * kSlabRow, 1024);
 #pragma unroll
     for (int kk = 0; kk < kKv / 16; ++kk) {
-      wgmma_rs<D>(acc, pf[kk], dv, kk * 16 * (kSlabRow / 16));
+      const uint32_t off = kk * 16 * (kSlabRow / 16);
+      if constexpr (kFull > 0) {
+        wgmma_rs<kFull * kSlab>(
+            reinterpret_cast<float (&)[kFull * kSlab / 2]>(o[0]), pf[kk],
+            dv, off);
+      }
+      if constexpr (kRem > 0) {
+        wgmma_rs<kRem>(
+            reinterpret_cast<float (&)[kRem / 2]>(o[kFull * kSlab / 2]),
+            pf[kk], dv_rem, off);
+      }
     }
     wgmma_commit();
   };
 
+  // kMask: kv tile kt's mask for this thread's keys as bits (key
+  // j * 8 + t4 * 2 + e of the tile at bit 2j + e), from the staged row;
+  // keys past Lk stay 0 (masked)
+  auto mask_bits = [&](int kt) {
+    uint32_t bits = 0;
+    if constexpr (kMask) {
+      const uint8_t* m = row_mask + kt * kKv + t4 * 2;
+      const int keys = p.lk - kt * kKv;
+#pragma unroll
+      for (int j = 0; j < kKv / 8; ++j) {
+        if (j * 8 < keys) {
+          const uint32_t w = *reinterpret_cast<const uint16_t*>(m + j * 8);
+          bits |= static_cast<uint32_t>((w & 0xffu) != 0u) << (2 * j);
+          bits |= static_cast<uint32_t>((w >> 8) != 0u) << (2 * j + 1);
+        }
+      }
+    }
+    return bits;
+  };
+
   // the online softmax of tile kt's S, in place (s becomes unnormalised
   // probabilities); returns the rescale of the rows' old O and sum
-  auto softmax = [&](int kt, float& corr_a, float& corr_b) {
-    // scale into the log2 domain, mask, and take the row max; only a
-    // tile that crosses the diagonal or Lk's end is masked
+  auto softmax = [&](int kt, uint32_t bits, float& corr_a, float& corr_b) {
+    // scale into the log2 domain, mask, and take the row max; padded
+    // keys are masked in every tile, the diagonal and Lk's end only in a
+    // tile that crosses them
     const int key0 = kt * kKv;
     const bool edge = key0 + kKv - 1 > lim_first;
     float mx_a = m_a, mx_b = m_b;
@@ -314,6 +501,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j * 4 + e] * p.scale_log2;
+        if constexpr (kMask) {
+          if (!((bits >> (2 * j + (e & 1))) & 1u)) x = -INFINITY;
+        }
         if (edge) {
           const int key = key0 + j * 8 + t4 * 2 + (e & 1);
           if (key > ((e < 2) ? lim_a : lim_b)) x = -INFINITY;
@@ -354,14 +544,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   // exactly P's A fragment for k-step j); only once no P V is in flight
   auto rescale_and_pack = [&](float corr_a, float corr_b) {
 #pragma unroll
-    for (int n = 0; n < kSlabs; ++n) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        o[n][j * 4] *= corr_a;
-        o[n][j * 4 + 1] *= corr_a;
-        o[n][j * 4 + 2] *= corr_b;
-        o[n][j * 4 + 3] *= corr_b;
-      }
+    for (int c = 0; c < D / 8; ++c) {
+      o[c * 4] *= corr_a;
+      o[c * 4 + 1] *= corr_a;
+      o[c * 4 + 2] *= corr_b;
+      o[c * 4 + 3] *= corr_b;
     }
 #pragma unroll
     for (int j = 0; j < kKv / 16; ++j) {
@@ -372,50 +559,52 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
   };
 
-  // this warp is done reading tile kt's K (or V): its stage may refill
-  auto release = [&](uint32_t empty, int kt) {
+  // this warp is done reading walked tile i's K (or V): its stage may
+  // refill
+  auto release = [&](uint32_t empty, int i) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * (kt % kStages));
+    if (lane == 0) mbar_arrive(empty + 8 * (i % kStages));
   };
 
-  auto parity = [](int kt) {
-    return static_cast<uint32_t>((kt / kStages) & 1);
+  auto parity = [](int i) {
+    return static_cast<uint32_t>((i / kStages) & 1);
   };
 
-  // Software pipeline within the warpgroup: Q K^T of tile kt is issued,
-  // then P V of tile kt - 1, and tile kt's softmax runs while that P V
-  // is still on the tensor cores; O is rescaled and P repacked once it
-  // is done. That holds S, P and O in registers at once; where a
-  // consumer has too few for that (two blocks an SM at D = 64), the
-  // tiles run one after the other. The tiles a consumer computes on are
-  // a prefix of the block's (kt < n_mine), so the loops over them issue
-  // their products unconditionally (ptxas serializes every wgmma where
-  // it cannot tell how many groups a wait leaves in flight); past it,
-  // the consumer only waits for each tile and releases it.
+  // Software pipeline within the warpgroup: Q K^T of tile i is issued,
+  // then P V of tile i - 1, and tile i's softmax runs while that P V is
+  // still on the tensor cores; O is rescaled and P repacked once it is
+  // done. That holds S, P and O in registers at once; where a consumer
+  // has too few for that (two blocks an SM up to D = 64 and at 80), the
+  // tiles run one after the other. The tiles a consumer computes on are a
+  // prefix of the walk (i < n_mine), so the loops over them issue their
+  // products unconditionally (ptxas serializes every wgmma where it
+  // cannot tell how many groups a wait leaves in flight); past it, the
+  // consumer only waits for each tile and releases it.
   if constexpr (kPipelined) {
     if (n_mine > 0) {
       float corr_a, corr_b;
       mbar_wait(fullK, 0);
       issue_qk(0);
       wgmma_wait<0>();
+      uint32_t bits = mask_bits(tile(0));
       release(emptyK, 0);
       fence_regs(s);
-      softmax(0, corr_a, corr_b);
+      softmax(tile(0), bits, corr_a, corr_b);
       rescale_and_pack(corr_a, corr_b);
-      for (int kt = 1; kt < n_mine; ++kt) {
-        mbar_wait(fullK + 8 * (kt % kStages), parity(kt));
-        issue_qk(kt);
-        mbar_wait(fullV + 8 * ((kt - 1) % kStages), parity(kt - 1));
-        issue_pv(kt - 1);
-        // Q K^T of tile kt done; P V of tile kt - 1 may still run
+      for (int i = 1; i < n_mine; ++i) {
+        mbar_wait(fullK + 8 * (i % kStages), parity(i));
+        issue_qk(i);
+        mbar_wait(fullV + 8 * ((i - 1) % kStages), parity(i - 1));
+        issue_pv(i - 1);
+        // Q K^T of tile i done; P V of tile i - 1 may still run
         wgmma_wait<1>();
-        release(emptyK, kt);
+        bits = mask_bits(tile(i));
+        release(emptyK, i);
         fence_regs(s);
-        softmax(kt, corr_a, corr_b);
+        softmax(tile(i), bits, corr_a, corr_b);
         wgmma_wait<0>();
-        release(emptyV, kt - 1);
-#pragma unroll
-        for (int n = 0; n < kSlabs; ++n) fence_regs(o[n]);
+        release(emptyV, i - 1);
+        fence_regs(o);
         fence_regs(pf);
         rescale_and_pack(corr_a, corr_b);
       }
@@ -423,32 +612,31 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       issue_pv(n_mine - 1);
       wgmma_wait<0>();
       release(emptyV, n_mine - 1);
-#pragma unroll
-      for (int n = 0; n < kSlabs; ++n) fence_regs(o[n]);
+      fence_regs(o);
     }
   } else {
-    for (int kt = 0; kt < n_mine; ++kt) {
+    for (int i = 0; i < n_mine; ++i) {
       float corr_a, corr_b;
-      mbar_wait(fullK + 8 * (kt % kStages), parity(kt));
-      issue_qk(kt);
+      mbar_wait(fullK + 8 * (i % kStages), parity(i));
+      issue_qk(i);
       wgmma_wait<0>();
-      release(emptyK, kt);
+      const uint32_t bits = mask_bits(tile(i));
+      release(emptyK, i);
       fence_regs(s);
-      softmax(kt, corr_a, corr_b);
+      softmax(tile(i), bits, corr_a, corr_b);
       rescale_and_pack(corr_a, corr_b);
-      mbar_wait(fullV + 8 * (kt % kStages), parity(kt));
-      issue_pv(kt);
+      mbar_wait(fullV + 8 * (i % kStages), parity(i));
+      issue_pv(i);
       wgmma_wait<0>();
-      release(emptyV, kt);
-#pragma unroll
-      for (int n = 0; n < kSlabs; ++n) fence_regs(o[n]);
+      release(emptyV, i);
+      fence_regs(o);
     }
   }
-  for (int kt = n_mine; kt < n_tiles; ++kt) {
-    mbar_wait(fullK + 8 * (kt % kStages), parity(kt));
-    release(emptyK, kt);
-    mbar_wait(fullV + 8 * (kt % kStages), parity(kt));
-    release(emptyV, kt);
+  for (int i = n_mine; i < n_walk; ++i) {
+    mbar_wait(fullK + 8 * (i % kStages), parity(i));
+    release(emptyK, i);
+    mbar_wait(fullV + 8 * (i % kStages), parity(i));
+    release(emptyV, i);
   }
 
   if (!active) return;
@@ -460,24 +648,61 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   l_b = fmaxf(l_b, 1e-30f);
   const float inv_a = 1.f / l_a;
   const float inv_b = 1.f / l_b;
+  // a row whose running max is still -inf saw no key (only a mask can do
+  // that); a warp holding one takes V's column means over all Lk keys,
+  // lane l columns 64n + 2l and 64n + 2l + 1
+  const bool empty_a = kMask && m_a == -INFINITY;
+  const bool empty_b = kMask && m_b == -INFINITY;
+  const bool warp_empty = kMask && __any_sync(0xffffffffu, empty_a || empty_b);
+  float mean[kSlabs][2];
+#pragma unroll
+  for (int n = 0; n < kSlabs; ++n) mean[n][0] = mean[n][1] = 0.f;
+  if (warp_empty) {
+    const uint16_t* vb = p.v + b * p.v_sb + hh * p.v_sh;
+#pragma unroll
+    for (int n = 0; n < kSlabs; ++n) {
+      const int col = n * kSlab + 2 * lane;
+      if (col < p.d) {
+        for (int j = 0; j < p.lk; ++j) {
+          const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+              vb + j * p.v_sl + col);
+          mean[n][0] += __low2float(x);
+          mean[n][1] += __high2float(x);
+        }
+      }
+      mean[n][0] /= static_cast<float>(p.lk);
+      mean[n][1] /= static_cast<float>(p.lk);
+    }
+  }
   uint16_t* out = static_cast<uint16_t*>(p.o) + b * p.o_sb + hh * p.o_sh;
   uint16_t* oa = out + static_cast<long long>(ra) * p.o_sl + t4 * 2;
   uint16_t* ob = out + static_cast<long long>(rb) * p.o_sl + t4 * 2;
 #pragma unroll
-  for (int n = 0; n < kSlabs; ++n) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n * kSlab + j * 8;
-      *reinterpret_cast<uint32_t*>(oa + col) =
-          pack_bf16(o[n][j * 4] * inv_a, o[n][j * 4 + 1] * inv_a);
-      *reinterpret_cast<uint32_t*>(ob + col) =
-          pack_bf16(o[n][j * 4 + 2] * inv_b, o[n][j * 4 + 3] * inv_b);
+  for (int c = 0; c < D / 8; ++c) {
+    // this thread's two columns of the 8 from col: the means' lane
+    // (c % 8) * 4 + t4 of slab c / 8 holds them
+    float mean0 = 0.f, mean1 = 0.f;
+    if (warp_empty) {
+      mean0 = __shfl_sync(0xffffffffu, mean[c / 8][0], (c % 8) * 4 + t4);
+      mean1 = __shfl_sync(0xffffffffu, mean[c / 8][1], (c % 8) * 4 + t4);
+    }
+    // the call's D columns: D, or D - 8 (D rounds a multiple of 8 up to
+    // 16), so only the last 8 can be past it (a branch a chunk cost the
+    // unmasked D = 64 call 3%)
+    const int col = c * 8;
+    if (D > 128 || c + 1 < D / 8 || col < p.d) {
+      *reinterpret_cast<uint32_t*>(oa + col) = empty_a
+          ? pack_bf16(mean0, mean1)
+          : pack_bf16(o[c * 4] * inv_a, o[c * 4 + 1] * inv_a);
+      *reinterpret_cast<uint32_t*>(ob + col) = empty_b
+          ? pack_bf16(mean0, mean1)
+          : pack_bf16(o[c * 4 + 2] * inv_b, o[c * 4 + 3] * inv_b);
     }
   }
   if (p.lse != nullptr && t4 == 0) {
     float* lse = p.lse + static_cast<long long>(bh) * p.lq;
-    lse[ra] = (m_a + log2f(l_a)) * kLn2;
-    lse[rb] = (m_b + log2f(l_b)) * kLn2;
+    lse[ra] = empty_a ? kEmptyLse : (m_a + log2f(l_a)) * kLn2;
+    lse[rb] = empty_b ? kEmptyLse : (m_b + log2f(l_b)) * kLn2;
   }
 }
 
@@ -486,7 +711,24 @@ struct Maps {
   CUtensorMap q, k, v;
 };
 
-// 0, or the 1000 + n code of what the kernel does not take
+// kv rows a tile of the instantiation for head dim d
+int kv_rows(int d) {
+  switch (inst_dim(d)) {
+    case 16: return Cfg<16>::kKv;
+    case 32: return Cfg<32>::kKv;
+    case 48: return Cfg<48>::kKv;
+    case 64: return Cfg<64>::kKv;
+    case 80: return Cfg<80>::kKv;
+    case 96: return Cfg<96>::kKv;
+    case 112: return Cfg<112>::kKv;
+    case 128: return Cfg<128>::kKv;
+    case 192: return Cfg<192>::kKv;
+    default: return Cfg<256>::kKv;
+  }
+}
+
+// 0, or the 1000 + n code of what the kernel does not take; the maps'
+// global width is the call's head dim d (columns past it read as zeros)
 int encode_maps(Maps* maps, const void* q, const void* k, const void* v,
                 int batch, int heads, int lq, int lk, int d,
                 const long long* strides /* q, k, v: sb, sh, sl */) {
@@ -497,8 +739,7 @@ int encode_maps(Maps* maps, const void* q, const void* k, const void* v,
   }
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return 1008;
-  const int kv = d == 64 ? Cfg<64>::kKv : d == 128 ? Cfg<128>::kKv
-      : d == 192 ? Cfg<192>::kKv : Cfg<256>::kKv;
+  const int kv = kv_rows(d);
   const bool ok =
       encode(fn, &maps->q, q, batch, heads, lq, d, strides[0], strides[1],
              strides[2], kRows)
@@ -509,28 +750,47 @@ int encode_maps(Maps* maps, const void* q, const void* k, const void* v,
   return ok ? 0 : 1008;
 }
 
-template <int D>
+template <int D, bool kMask>
 cudaError_t launch(const Maps& maps, const Params& p, int batch_heads,
                    cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
+  // with a mask: the count, the list of kv tiles and the batch row's
+  // mask
+  const int smem = smem_bytes<D>()
+      + (kMask ? 16 + list_bytes(p.lk, Cfg<D>::kKv) + p.lk : 0);
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_sm90_kernel<D, kMask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.lq + kRows - 1) / kRows, batch_heads);
-  flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_sm90_kernel<D, kMask><<<grid, kThreads, smem, stream>>>(
       maps.q, maps.k, maps.v, p);
   return cudaGetLastError();
 }
 
+// the instantiation for head dim D, with or without the mask (none
+// above 128)
+template <int D>
+cudaError_t launch_d(bool masked, const Maps& maps, const Params& p,
+                     int batch_heads, cudaStream_t stream) {
+  if constexpr (D > 128) {
+    return launch<D, false>(maps, p, batch_heads, stream);
+  } else {
+    return masked ? launch<D, true>(maps, p, batch_heads, stream)
+                  : launch<D, false>(maps, p, batch_heads, stream);
+  }
+}
+
 }  // namespace
 
-// zoo_flash_attn_fwd's interface without the mask: dtype must be 1
-// (bfloat16) and d one of 64, 128, 192, 256. Returns a cudaError_t (0 =
-// launched); 1000 + n flags a call the kernel does not take (1001 Lq or
-// Lk not a multiple of 64, 1002 causal with Lq > Lk, 1003 B*H above
-// 65535, 1004 the head dim, 1005 the dtype, 1007 an address or stride
-// TMA cannot take, 1008 no tensor map).
+// zoo_flash_attn_fwd's interface: dtype must be 1 (bfloat16), d a
+// multiple of 8 up to 128, or 192 or 256 without a mask; mask is [B, Lk]
+// bytes (nonzero = real key) with batch stride mask_sb, both 16-byte
+// aligned, or null for none. Returns a cudaError_t (0 = launched);
+// 1000 + n flags a call the kernel does not take (1001 Lq or Lk not a
+// multiple of 64, 1002 causal with Lq > Lk, 1003 B*H above 65535, 1004
+// the head dim, 1005 the dtype, 1006 a mask above D = 128, 1007 an
+// address or stride TMA or the mask's copies cannot take, 1008 no tensor
+// map).
 extern "C" int zoo_flash_attn_fwd_sm90(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int batch, int heads, int lq, int lk, int d,
@@ -538,12 +798,18 @@ extern "C" int zoo_flash_attn_fwd_sm90(
     long long k_sb, long long k_sh, long long k_sl,
     long long v_sb, long long v_sh, long long v_sl,
     long long o_sb, long long o_sh, long long o_sl,
+    const void* mask, long long mask_sb,
     float scale, int causal, void* stream) {
   if (lq % 64 || lk % 64) return 1001;
   if (causal && lq > lk) return 1002;
   if (batch * heads > 65535) return 1003;
-  if (d != 64 && d != 128 && d != 192 && d != 256) return 1004;
+  if (d < 8 || d % 8 || (d > 128 && d != 192 && d != 256)) return 1004;
   if (dtype != 1) return 1005;
+  const bool masked = mask != nullptr;
+  if (masked && d > 128) return 1006;
+  if (masked && (reinterpret_cast<uintptr_t>(mask) % 16 || mask_sb % 16)) {
+    return 1007;
+  }
   const long long strides[9] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl,
                                 v_sb, v_sh, v_sl};
   Maps maps;
@@ -553,16 +819,26 @@ extern "C" int zoo_flash_attn_fwd_sm90(
   p.o = o;
   p.lse = static_cast<float*>(lse);
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
-  p.h = heads; p.lq = lq; p.lk = lk;
+  p.h = heads; p.lq = lq; p.lk = lk; p.d = d;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.mask_sb = mask_sb;
+  p.v = static_cast<const uint16_t*>(v);
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
-  switch (d) {
-    case 64: return launch<64>(maps, p, bh, s);
-    case 128: return launch<128>(maps, p, bh, s);
-    case 192: return launch<192>(maps, p, bh, s);
-    default: return launch<256>(maps, p, bh, s);
+  switch (inst_dim(d)) {
+    case 16: return launch_d<16>(masked, maps, p, bh, s);
+    case 32: return launch_d<32>(masked, maps, p, bh, s);
+    case 48: return launch_d<48>(masked, maps, p, bh, s);
+    case 64: return launch_d<64>(masked, maps, p, bh, s);
+    case 80: return launch_d<80>(masked, maps, p, bh, s);
+    case 96: return launch_d<96>(masked, maps, p, bh, s);
+    case 112: return launch_d<112>(masked, maps, p, bh, s);
+    case 128: return launch_d<128>(masked, maps, p, bh, s);
+    case 192: return launch_d<192>(masked, maps, p, bh, s);
+    default: return launch_d<256>(masked, maps, p, bh, s);
   }
 }
 

@@ -6,9 +6,11 @@
 // on the host the encoding of a [B, H, L, D] bf16 operand as a 4-D tensor
 // map (cuTensorMapEncodeTiled, reached through the runtime: no -lcuda).
 //
-// Tiles are D/64 slabs of [rows][64] bf16 with the 128-byte swizzle, what
-// TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and the descriptors' 128B layout
-// reads (slabs 1024-byte aligned).
+// Tiles are ceil(D/64) slabs of [rows][64] bf16 with the 128-byte swizzle,
+// what TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and the descriptors' 128B
+// layout reads (slabs 1024-byte aligned). A map's global width is the
+// head dim, so at a head dim that is not a multiple of 64 the last slab's
+// columns past it arrive as zeros.
 
 #pragma once
 
@@ -162,6 +164,73 @@ __device__ __forceinline__ void wgmma_ss_n128(
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "r"(a_off), "l"(b), "r"(b_off), "r"(scale_d));
+}
+
+// D[64 x 16] += A[64 x 16] B[16 x 16], A in registers, B MN-major in
+// shared memory: descriptor b advanced by b_off (16-byte units); the
+// first 16 columns of a 64-column slab
+__device__ __forceinline__ void wgmma_rs_n16(
+    float (&d)[8], const uint32_t (&a)[4], uint64_t b, uint32_t b_off) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 lo, hi;\n.reg .b64 db;\n"
+      "mov.b64 {lo, hi}, %12;\n"
+      "add.u32 lo, lo, %13;\n"
+      "mov.b64 db, {lo, hi};\n"
+      "setp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, db, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(b_off),
+        "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] B[16 x 32], A in registers, B MN-major in
+// shared memory: descriptor b advanced by b_off (16-byte units); the
+// first 32 columns of a 64-column slab
+__device__ __forceinline__ void wgmma_rs_n32(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t b, uint32_t b_off) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 lo, hi;\n.reg .b64 db;\n"
+      "mov.b64 {lo, hi}, %20;\n"
+      "add.u32 lo, lo, %21;\n"
+      "mov.b64 db, {lo, hi};\n"
+      "setp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, db, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(b_off),
+        "r"(1));
+}
+
+// D[64 x 48] += A[64 x 16] B[16 x 48], A in registers, B MN-major in
+// shared memory: descriptor b advanced by b_off (16-byte units); the
+// first 48 columns of a 64-column slab
+__device__ __forceinline__ void wgmma_rs_n48(
+    float (&d)[24], const uint32_t (&a)[4], uint64_t b, uint32_t b_off) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 lo, hi;\n.reg .b64 db;\n"
+      "mov.b64 {lo, hi}, %28;\n"
+      "add.u32 lo, lo, %29;\n"
+      "mov.b64 db, {lo, hi};\n"
+      "setp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, db, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(b_off),
+        "r"(1));
 }
 
 // D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in
@@ -320,14 +389,21 @@ __device__ __forceinline__ void wgmma_rs_n256(
         "r"(1));
 }
 
-// D[64 x N] += A[64 x 16] B[16 x N] for N in {64, 128, 192, 256}, A in
-// registers, B MN-major in shared memory (the shapes above)
+// D[64 x N] += A[64 x 16] B[16 x N] for N in {16, 32, 48, 64, 128, 192,
+// 256}, A in registers, B MN-major in shared memory (the shapes above)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          uint32_t b_off) {
-  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "wgmma N");
-  if constexpr (N == 64) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 128
+                || N == 192 || N == 256, "wgmma N");
+  if constexpr (N == 16) {
+    wgmma_rs_n16(d, a, b, b_off);
+  } else if constexpr (N == 32) {
+    wgmma_rs_n32(d, a, b, b_off);
+  } else if constexpr (N == 48) {
+    wgmma_rs_n48(d, a, b, b_off);
+  } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a, b, b_off);
   } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, b, b_off);
@@ -368,7 +444,7 @@ EncodeTiled encode_tiled() {
 
 // a [B, H, L, D] bf16 operand as a 4-D map (D, L, H, B) with its element
 // strides, read in boxes of 64 columns x `rows` rows with the 128-byte
-// swizzle; out of bounds reads as zeros
+// swizzle; out of bounds (rows past L, columns past D) reads as zeros
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
             int heads, int len, int d, long long sb, long long sh,
             long long sl, int rows) {

@@ -7,16 +7,18 @@ The counterpart of ``analytics_zoo_tpu/ops/pallas_attention.py``: exact
 ``softmax(scale * Q K^T) V`` on ``[B, H, L, D]``, causal mask aligned
 bottom-right (offset ``lk - lq``), optional per-row logsumexp, and the
 backward that rebuilds the probabilities from that logsumexp. The
-kernels live in ``csrc/flash_attn_fwd_sm90.cu`` (K1's bf16 forward
-without a mask at D in ``SM90_HEAD_DIMS``: TMA, a producer warpgroup,
-wgmma; ``_fwd_entry`` picks it), ``csrc/flash_attn_bwd_sm90.cu`` (K2 and
-K3 for the same calls, the same design; ``_bwd_entry`` picks them; both
-share ``csrc/flash_attn_sm90.cuh``), ``csrc/flash_attn_fwd_f32tc.cu``
+kernels live in ``csrc/flash_attn_fwd_sm90.cu`` (K1's bf16 forward at
+D in ``SM90_FWD_HEAD_DIMS``: every multiple of 8 up to 128, masked or
+not, and 192 and 256 without a mask; TMA, a producer warpgroup, wgmma;
+``_fwd_entry`` picks it), ``csrc/flash_attn_bwd_sm90.cu`` (K2 and K3
+for the bf16 calls without a mask at D in ``SM90_HEAD_DIMS``, the same
+design; ``_bwd_entry`` picks them; both share
+``csrc/flash_attn_sm90.cuh``), ``csrc/flash_attn_fwd_f32tc.cu``
 (K1's f32 forward at head dims up to ``F32TC_FWD_MAX_D``, masked or
 not: 3xTF32 ``mma.sync`` on the tensor cores at f32 accuracy,
 ``cp.async`` tile copies; ``_fwd_entry`` picks it),
-``csrc/flash_attn_fwd.cu`` (every other forward: bf16 with a mask, bf16
-K5b, bf16 above 256), ``csrc/flash_attn_bwd_f32tc.cu`` (K2's and K3's
+``csrc/flash_attn_fwd.cu`` (the other forward: bf16 above 256),
+``csrc/flash_attn_bwd_f32tc.cu`` (K2's and K3's
 f32 backward at every head dim up to ``F32TC_MAX_D``, masked or not, on
 the same products as K1's f32 kernel; ``_bwd_entry`` picks it; both
 share ``csrc/flash_attn_f32tc.cuh``) and ``csrc/flash_attn_bwd.cuh``
@@ -62,8 +64,11 @@ K5b is the counterpart of the reference's stock-kernel branch at such
 head dims (``analytics_zoo_tpu/ops/attention.py:116``: JAX's stock Pallas
 ``flash_attention`` for ``d <= 128``, with its own dQ and dK/dV behind
 its custom_vjp; TinyGenLM's prefill at D = 16, a MiniLM-sized BERT's
-fine-tune at D = 32): the same sources, K1 and K2/K3 instantiated at
-every multiple of 8 up to 128.
+fine-tune at D = 32): K1's Hopper kernel in bf16 (built at each
+multiple of 16 up to 128; a call at D = 8 mod 16 runs the next one up,
+whose tensor maps read the columns past D as zeros), the f32
+tensor-core kernels in f32, and bf16 K2/K3 templates at every multiple
+of 8 up to 128.
 
 Head dims. The kernels are built for every multiple of 8 up to 128 and
 for 192, 256, 320, 384, 448 and 512, in both directions
@@ -118,8 +123,11 @@ torch.exp(torch.zeros(1 << 17))
 # multiple of 8 up to 128, and the multiples of 64 from 192 to 512
 # (without a mask)
 HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448, 512)
-# head dims of the Hopper kernels (bf16, no mask; _fwd_entry, _bwd_entry)
+# head dims of the Hopper backward kernels (bf16, no mask; _bwd_entry)
 SM90_HEAD_DIMS = (64, 128, 192, 256)
+# head dims of K1's Hopper kernel (bf16; _fwd_entry): every multiple of 8
+# up to 128, masked or not, and 192 and 256 without a mask
+SM90_FWD_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256)
 # the largest head dim of K2's and K3's f32 tensor-core kernels (f32;
 # masked up to 128, as every kernel; _bwd_entry): every f32 backward
 F32TC_MAX_D = 512
@@ -142,9 +150,9 @@ _TAIL = [_P, _L, ctypes.c_float, _I, _P]
 _ENTRY_POINTS = {
     "zoo_flash_attn_fwd": ("flash_attn_fwd",
                            [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
-    # the same arguments without the mask's two
+    # the old entry's arguments, mask included
     "zoo_flash_attn_fwd_sm90": ("flash_attn_fwd_sm90",
-                                [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL[2:]),
+                                [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
     # the old entry's arguments, mask included
     "zoo_flash_attn_fwd_f32tc": ("flash_attn_fwd_f32tc",
                                  [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
@@ -499,8 +507,9 @@ def _stream(t: torch.Tensor) -> int:
 def _kernel_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """The key-padding mask as the kernels read it: contiguous bytes,
     nonzero = real, starting on a 16-byte boundary (the f32 tensor-core
-    K2 copies it 4 bytes at a time). A contiguous uint8 mask so placed is
-    taken as it is; any other is converted once (``mask != 0``)."""
+    K2 copies it 4 bytes at a time, K1's Hopper kernel 16; with Lk a
+    multiple of 64 every batch row stays so aligned). A contiguous uint8 mask so placed is taken as it is; any
+    other is converted once (``mask != 0``)."""
     if mask is None or (mask.dtype == torch.uint8 and mask.is_contiguous()
                         and mask.data_ptr() % 16 == 0):
         return mask
@@ -525,12 +534,13 @@ def _count(wrapper, mask, d: int = 64) -> None:
 def _fwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> str:
     """The forward entry point a call takes: the Hopper kernel of
     ``flash_attn_fwd_sm90.cu`` (TMA, a producer warpgroup, wgmma) for
-    bf16 without a mask at ``SM90_HEAD_DIMS``; that of
-    ``flash_attn_fwd_f32tc.cu`` (3xTF32 mma.sync, cp.async) for f32 at
-    every head dim up to ``F32TC_FWD_MAX_D`` (512), masked or not (a
-    mask only up to 128, as every kernel); ``flash_attn_fwd.cu`` for
-    every other call (bf16 with a mask, bf16 K5b, bf16 above 256)."""
-    if dtype == torch.bfloat16 and not masked and dp in SM90_HEAD_DIMS:
+    bf16 at ``SM90_FWD_HEAD_DIMS`` (a mask only up to 128, as every
+    kernel); that of ``flash_attn_fwd_f32tc.cu`` (3xTF32 mma.sync,
+    cp.async) for f32 at every head dim up to ``F32TC_FWD_MAX_D`` (512),
+    masked or not; ``flash_attn_fwd.cu`` for every other call (bf16 above
+    256)."""
+    if (dtype == torch.bfloat16 and dp in SM90_FWD_HEAD_DIMS
+            and (dp <= 128 or not masked)):
         return "zoo_flash_attn_fwd_sm90"
     if dtype == torch.float32 and dp <= F32TC_FWD_MAX_D:
         return "zoo_flash_attn_fwd_f32tc"
@@ -566,17 +576,16 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _empty_bhld(b, h, lq, dp, q)
     lse = (torch.empty(b * h, lq, dtype=torch.float32, device=q.device)
            if with_lse else None)
-    sm90 = name == "zoo_flash_attn_fwd_sm90"
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             _DTYPE_CODE[q.dtype], b, h, lq, lk, dp,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], *(() if sm90 else _mask_args(mask)), scale,
-            int(causal), _stream(q))
+            *out.stride()[:3], *_mask_args(mask), scale, int(causal),
+            _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed ({name}): code {rc}")
     _count(flash_attention, mask, dp)
-    flash_attention.sm90_launches += sm90
+    flash_attention.sm90_launches += name.endswith("_sm90")
     flash_attention.f32tc_launches += name.endswith("_f32tc")
     (out,) = _cut(d, out)
     return (out, lse) if with_lse else out

@@ -44,7 +44,10 @@ Phases:
    padded SQuAD call ([48,12,384,64] bf16, lengths in [64,384]),
    cross-length causal [1,2,128->384,128] with left padding (rows that
    see no key) in bf16 and f32, and a batch row with no real token in
-   bf16 and f32. Also checks that padded keys get exactly zero dK (and
+   bf16 and f32; every bf16 K1 and K1-lse launch must run K1's Hopper
+   kernel (phase 22; counted in sm90_launches), while K2 and K3 stay on
+   the older bf16 templates. Also checks that padded keys get exactly
+   zero dK (and
    dV, where every row sees a key) and rows that see no key exactly zero
    dQ. Bounds count the visible pairs' flops and the K/V bytes of the
    keys some row sees.
@@ -80,7 +83,9 @@ Phases:
    run with the mask and without it (the learn phase does so for any
    padded batch); the planted fault is
    the mask dropped from K2 and K3, which the f32 check must reject; K1,
-   K2 and K3 must each launch with the mask at least 12 times per step;
+   K2 and K3 must each launch with the mask at least 12 times per step,
+   every K1-lse launch on K1's Hopper kernel (384) and every K2 and K3
+   launch on the older bf16 templates;
    predict reports token accuracy and the fitted model is saved (the
    same flax msgpack layout, optimizer state included). Prints real and
    padded tokens/s; MFU counts padded tokens.
@@ -89,11 +94,13 @@ Phases:
    padded example, 64 padded requests (input_ids and attention_mask,
    128 each) through a ServingWorker on the memory queue whose input_fn
    passes both tensors; K1 must run with the mask for every encoder
-   layer of every dispatched batch, and 4 replies match the einsum path
-   at real tokens.
+   layer of every dispatched batch, every launch on K1's Hopper kernel
+   (sm90_launches), and 4 replies match the einsum path at real tokens.
 
-9. K5b kernels: K1's source at head dims that are not a multiple of 64
-   (the stock-kernel branch the reference takes at such head dims),
+9. K5b kernels: K1 at head dims that are not a multiple of 64 (the
+   stock-kernel branch the reference takes at such head dims; bf16 on
+   K1's Hopper kernel, every launch counted in sm90_launches, f32 on its
+   f32 tensor-core kernel),
    through the flash_attention wrapper against its plain version on the
    card: every instantiation once (D = 8..120 in steps of 8 but not 64,
    bf16 and f32, with and without a key-padding mask, with logsumexp),
@@ -127,7 +134,9 @@ Phases:
    run with the mask and without it; the f32 check must reject dQ
    zeroed, dK and dV swapped and the mask dropped from K2 and K3. K1, K2
    and K3 must each launch with the mask at least 12 times a step, every
-   launch a K5b one (small_d_launches). Prints real and padded tokens/s,
+   launch a K5b one (small_d_launches), every K1-lse launch on K1's
+   Hopper kernel (384) and every K2 and K3 launch on the older bf16
+   templates. Prints real and padded tokens/s,
    MFU (padded tokens) and peak memory.
 12. Generation, repo geometry: TinyGenLM as the launcher documents it
    (vocab 64, dim 32, 2 heads of 16, 2 layers, max_len 256, 8 slots,
@@ -250,11 +259,18 @@ Phases:
 22. K1 sm90: K1's Hopper kernel (flash_attn_fwd_sm90.cu: TMA into a
    ring of shared-memory stages, a producer warpgroup, wgmma) through the
    flash_attention wrapper against its plain version on the card: every
-   instantiation once (D = 64, 128, 192, 256, causal and not, with and
-   without logsumexp, q/k/v views into a fused projection; then lq 192,
-   an odd number of 64-row blocks, lq < lk causal, and lk past the last
-   whole kv tile; 32 cases, one summary line, each launch counted in
-   sm90_launches), then the served call [32,12,512,64], the SQuAD fit's
+   unmasked instantiation once at D = 64, 128, 192, 256 (causal and not,
+   with and without logsumexp, q/k/v views into a fused projection; then
+   lq 192, an odd number of 64-row blocks, lq < lk causal, and lk past
+   the last whole kv tile; 32 cases, one summary line), then every head
+   dim up to 128 in steps of 8 without a mask and with one (a full row,
+   a row of 2 keys, a left-padded row, a row with no real token), with
+   and without logsumexp, at lq 192 (the last 128-row block half empty),
+   causal lq < lk with left padding (rows that see no key), masks with
+   wholly padded kv tiles between real ones, and random masks over 1024
+   keys (80 cases, one summary line; each launch counted in
+   sm90_launches), then the served call
+   [32,12,512,64], the SQuAD fit's
    K1-lse [48,12,384,64] (both views), [8,8,2048,256] and
    [8,8,2048,192] causal and the LM fit's K1-lse [4,16,2048,256] causal
    (views), each timed (events and device time) beside its plain
@@ -272,7 +288,7 @@ Phases:
    the LM fit's [4,16,2048,256] causal (views), each timed (events and
    device time) beside its plain version, SDPA's backward and its bound.
    The masked NER fit's K2 and K3 stay on the older sources (phase 7
-   says so).
+   says so); its K1-lse is K1's Hopper kernel's.
 24. K2/K3 f32 tensor cores: K2 and K3 in f32 at every head dim
    (flash_attn_bwd_f32tc.cu: 3xTF32 mma.sync, partial sums flushed to
    device memory every 256 rows; up to D = 128 cp.async tile copies,
@@ -336,8 +352,13 @@ its own plain paths on the same weights.
 
 Prints each phase's seconds, a {"kernels": [...]} line
 (flash_attn_fwd_sm90 at the served call with an lse_call at the SQuAD
-fit's, a d256_call, a d192_call and a trained_lse_call at the LM fit's,
-its launches those of phases 5, 6 and 17; flash_attn_bwd_dq_sm90 and
+fit's, a d256_call, a d192_call, a trained_lse_call at the LM fit's, a
+kv_mask_call and a kv_mask_lse_call at the masked bf16 NER trained call,
+a k5b_call at [8,32,1024,80] bf16 causal, a k5b_lse_call and a
+k5b_mask_lse_call at the MiniLM trained call unmasked and padded, a
+k5b_mask_call at the masked D = 32 call and a padded_call at D = 20,
+its launches those of phases 5, 6, 7, 8, 11 and 17;
+flash_attn_bwd_dq_sm90 and
 flash_attn_bwd_dkv_sm90 at the SQuAD fit's call with a d128_call, a
 d192_call and an lm_call at the LM fit's, their launches those of phases
 6 and 17; flash_attn_bwd_dq_f32tc and flash_attn_bwd_dkv_f32tc at the
@@ -353,13 +374,9 @@ cross_call, a d128_call, a d256_call (the Gemma-width prefill), a
 d256_lse_call, a d512_call (the DeepSeek-width prefill), a d512_lse_call
 (the 512-head LM's f32 K1-lse) and a d384_call, and the head dims it is
 built for, its launches those of the four f32 generation phases'
-prefills and of the learn phases' f32 gradient checks, by phase; K1's
-older source at the masked bf16 NER trained call with its lse_call; K2
+prefills and of the learn phases' f32 gradient checks, by phase; K2
 and K3's older sources at the bf16 masked NER trained call, their
-launches the NER fit's, each with a kv_mask_call there; K5b's forward
-at [8,32,1024,80] bf16 causal with an lse_call at the MiniLM trained
-call, a kv_mask_call at the masked D = 32 call and a padded_call at D =
-20, its launches the MiniLM fit's;
+launches the NER fit's, each with a kv_mask_call there;
 flash_attn_bwd_dq_k5b and flash_attn_bwd_dkv_k5b at the MiniLM trained
 call with a kv_mask_call at its padded call, their launches the MiniLM
 fit's; flash_attn_fwd_wide at the Gemma-width prefill call (f32, on
@@ -392,6 +409,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# K1 bf16 at D = 320-512 (flash_fwd_bf16_split_kernel)
 K1_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd.cu"
 # the key-padding branch the masked kernels replace (JAX's stock Pallas
 # flash_attention with segment ids on the TPU), and the same stock kernel
@@ -399,8 +417,9 @@ K1_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd.cu"
 K5A_REPLACES = "analytics_zoo_tpu/ops/attention.py:116"
 K5B_REPLACES = "analytics_zoo_tpu/ops/attention.py:116"
 K1_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:82"
-# K1's bf16 forward without a mask at D in {64, 128, 192, 256} on Hopper,
-# and K2's and K3's for the same calls
+# K1's bf16 forward on Hopper (every D up to 128, masked or not, and 192
+# and 256 without a mask), and K2's and K3's for the unmasked bf16 calls
+# at D in {64, 128, 192, 256}
 SM90_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu"
 SM90_BWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_sm90.cu"
 # K2's, K3's and K1's f32 kernels at every head dim, on the tensor cores
@@ -692,15 +711,11 @@ def kernel_phase(torch, peaks):
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         else:
             q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
-        tc_before = fa.flash_attention.f32tc_launches
+        before = _k1_counts(fa)
         got = fa.flash_attention(q, k, v, causal, None, with_lse)
         torch.cuda.synchronize()
-        # f32 on the f32 tensor-core kernel, bf16 elsewhere
-        if (fa.flash_attention.f32tc_launches - tc_before
-                != _k1_f32tc(fa, dtype, d, False)):
-            fail(f"K1 {name} {dt}: launched "
-                 f"{fa.flash_attention.f32tc_launches - tc_before} times on "
-                 "flash_attn_fwd_f32tc.cu")
+        # f32 on the f32 tensor-core kernel, bf16 on the Hopper kernel
+        _k1_check(fa, f"K1 {name} {dt}", before, dtype, d, False)
         ref = fa.flash_attention_reference(q, k, v, causal, None,
                                            with_lse)
         out, lse = got if with_lse else (got, None)
@@ -877,7 +892,7 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
                 fail(f"{label} {key} {name} {dt}: error above {tol} * "
                      f"(1 + |ref|) (max abs error {err})")
 
-        k1_tc = fa.flash_attention.f32tc_launches
+        k1_before = _k1_counts(fa)
         out = fa.flash_attention(q, k, v, causal, None, False, m)
         torch.cuda.synchronize()
         check("k1", out, fa.flash_attention_reference(
@@ -894,12 +909,10 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
         if not (torch.isfinite(lse).all() and lerr <= LSE_TOL[dt]):
             fail(f"{label} K1 lse {name} {dt}: error {lerr} > {LSE_TOL[dt]}")
         del ro, rlse
-        # K1 and K1-lse: f32 up to D = 256 on the f32 tensor-core kernel
-        k1_tc = fa.flash_attention.f32tc_launches - k1_tc
-        if k1_tc != 2 * _k1_f32tc(fa, dtype, d, m is not None):
-            fail(f"{label} {name} {dt} D={d}: K1 and K1-lse launched "
-                 f"{k1_tc} times on flash_attn_fwd_f32tc.cu (want "
-                 f"{2 * _k1_f32tc(fa, dtype, d, m is not None)})")
+        # K1 and K1-lse: f32 on the f32 tensor-core kernel, bf16 up to
+        # D = 256 (masked up to 128) on the Hopper kernel
+        _k1_check(fa, f"{label} {name} {dt} D={d}", k1_before, dtype, d,
+                  m is not None, calls=2)
         before = [(w.launches, w.f32tc_launches) for w in bwd_wrappers]
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
                                               None, m)
@@ -1113,11 +1126,30 @@ def _make(torch, rng):
     return make
 
 
-def _k1_f32tc(fa, dtype, d, masked):
-    """1 where ``_fwd_entry`` sends a K1 call to the f32 tensor-core
-    kernel (flash_attn_fwd_f32tc.cu: f32 up to D = 512), else 0."""
-    return int(fa._fwd_entry(dtype, fa._kernel_head_dim(d),
-                             masked).endswith("_f32tc"))
+def _k1_kernels(fa, dtype, d, masked):
+    """(Hopper, f32 tensor-core): 1 where ``_fwd_entry`` sends a K1 call
+    to that kernel (flash_attn_fwd_sm90.cu: bf16 up to D = 128, masked
+    or not, and at 192 and 256 without a mask; flash_attn_fwd_f32tc.cu:
+    f32 up to D = 512), else 0."""
+    name = fa._fwd_entry(dtype, fa._kernel_head_dim(d), masked)
+    return int(name.endswith("_sm90")), int(name.endswith("_f32tc"))
+
+
+def _k1_counts(fa):
+    """K1's launches so far on the Hopper and the f32 tensor-core
+    kernels."""
+    return fa.flash_attention.sm90_launches, fa.flash_attention.f32tc_launches
+
+
+def _k1_check(fa, label, before, dtype, d, masked, calls=1):
+    """Fail unless the K1 launches since ``before`` (``_k1_counts``),
+    ``calls`` calls of one kind, ran where ``_fwd_entry`` sends them."""
+    got = tuple(a - b for a, b in zip(_k1_counts(fa), before))
+    want = tuple(calls * n for n in _k1_kernels(fa, dtype, d, masked))
+    if got != want:
+        fail(f"{label}: K1 launched {got[0]} times on "
+             f"flash_attn_fwd_sm90.cu and {got[1]} on "
+             f"flash_attn_fwd_f32tc.cu (want {want[0]} and {want[1]})")
 
 
 def fwd_check(torch, make, label, b, h, lq, lk, d, dt, causal, m, with_lse,
@@ -1126,8 +1158,10 @@ def fwd_check(torch, make, label, b, h, lq, lk, d, dt, causal, m, with_lse,
     version (``TOL``, ``LSE_TOL``); the wrapper must count it in
     ``counter`` (``small_d_launches`` for K5b, ``wide_d_launches`` above
     D = 128, ``sm90_launches`` for the Hopper kernel, ``f32tc_launches``
-    for the f32 tensor-core kernel), and every f32 call (up to D = 512) in
-    ``f32tc_launches``. With ``views`` (and lq == lk) q, k and v are
+    for the f32 tensor-core kernel), every f32 call (up to D = 512) in
+    ``f32tc_launches`` and every bf16 call up to D = 128 (and at 192 and
+    256 without a mask) in ``sm90_launches`` (``_k1_check``). With
+    ``views`` (and lq == lk) q, k and v are
     strided views into one fused [B, L, 3, H, D] projection, as the
     models' attention makes them. Returns (q, k, v, record)."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
@@ -1140,15 +1174,12 @@ def fwd_check(torch, make, label, b, h, lq, lk, d, dt, causal, m, with_lse,
         q = make((b, h, lq, d), dtype)
         k, v = make((b, h, lk, d), dtype), make((b, h, lk, d), dtype)
     before = getattr(fa.flash_attention, counter)
-    tc_before = fa.flash_attention.f32tc_launches
+    k1_before = _k1_counts(fa)
     got = fa.flash_attention(q, k, v, causal, None, with_lse, m)
     torch.cuda.synchronize()
     if getattr(fa.flash_attention, counter) != before + 1:
         fail(f"{label}: the wrapper did not count the launch in {counter}")
-    tc = _k1_f32tc(fa, dtype, d, m is not None)
-    if fa.flash_attention.f32tc_launches - tc_before != tc:
-        fail(f"{label}: {fa.flash_attention.f32tc_launches - tc_before} "
-             f"launches on flash_attn_fwd_f32tc.cu (want {tc})")
+    _k1_check(fa, label, k1_before, dtype, d, m is not None)
     ref = fa.flash_attention_reference(q, k, v, causal, None, with_lse, m)
     out, lse = got if with_lse else (got, None)
     ref_out, ref_lse = ref if with_lse else (ref, None)
@@ -1497,9 +1528,65 @@ SM90_SWEEP = [
            ((1, 2, 192, 192), False, False, False),
            ((1, 2, 128, 384), True, True, False),
            ((1, 2, 64, 320), False, True, False)])]
+
+
+def _tail_mask(rng, b, lk):
+    """Batch row 0 full, the others' real keys the last 40 (left padding:
+    causal at lq < lk, their first rows see no key)."""
+    m = np.zeros((b, lk), np.int32)
+    m[0] = 1
+    m[1:, lk - 40:] = 1
+    return m
+
+
+def _gap_mask(rng, b, lk):
+    """Batch row 0 real in every third 64-key block, the others in a
+    random few keys of the first block and in the last block: whole kv
+    tiles of padding between real ones."""
+    m = np.zeros((b, lk), np.int32)
+    m[0] = (np.arange(lk) // 64) % 3 == 0
+    m[1:, rng.randint(0, 64, 3)] = 1
+    m[1:, lk - 64:] = 1
+    return m
+
+
+def _pattern_mask(rng, b, lk):
+    """Each key real with probability 0.6 (key 0 always): every kv tile
+    walked, each with its own mask, over many refills of each stage."""
+    m = (rng.rand(b, lk) < 0.6).astype(np.int32)
+    m[:, 0] = 1
+    return m
+
+
+# K1's Hopper kernel at the K5b head dims and with a key-padding mask:
+# every head dim a call runs at up to 128 (each multiple of 16 is an
+# instantiation; 8 mod 16 runs the next one up), without a mask and with
+# _k5b_mask (a full row, one of 2 keys, one left-padded, one with no
+# real key), with and without logsumexp, all at lq 192 (the last 128-row
+# block half empty), causal for the unmasked ones at D = 8 (mod 16) and
+# the masked ones at 0 (mod 16); then causal lq < lk with left padding
+# (rows that see no key; lk 320 ends a 128-key tile half-way, so its
+# mask copy is 64 bytes), masks with wholly padded kv tiles between real
+# ones (the list of tiles walked; at lk 4224 more tiles than one round of
+# 32), the same causal at lq == lk, and random masks over 1024 keys (each
+# stage refilled with tiles whose masks differ)
+SM90_MASKED_SWEEP = [
+    (f"d{d}", (4, 2, 192, 192, d), "bfloat16", causal, mask_of, with_lse)
+    for d in range(8, 129, 8)
+    for causal, mask_of in ((d % 16 == 8, None), (d % 16 == 0, _k5b_mask))
+    for with_lse in (False, True)] + [
+    (f"cross_d{d}", (2, 2, 64, 320, d), "bfloat16", True, _tail_mask, True)
+    for d in (24, 64, 80, 128)] + [
+    (f"gaps_d{d}", (2, 2, 128, 4224, d), "bfloat16", False, _gap_mask, True)
+    for d in (32, 128)] + [
+    (f"gaps_causal_d{d}", (2, 2, 384, 384, d), "bfloat16", True, _gap_mask,
+     False) for d in (40, 80)] + [
+    (f"pattern_d{d}", (2, 2, 128, 1024, d), "bfloat16", causal,
+     _pattern_mask, True) for d in (32, 64, 80, 128)
+    for causal in (False, True)]
 # the calls timed: the served call and the SQuAD fit's K1-lse (BERT-base,
 # D = 64), [8,8,2048,d] causal at 256 and 192, and the GPT-J-width LM
-# fit's K1-lse
+# fit's K1-lse (the K5b and masked calls are timed in phases 4, 9 and 10)
 SM90_CASES = [
     ("served", (32, 12, 512, 512, 64), "bfloat16", False, None, False),
     ("trained_lse", (48, 12, 384, 384, 64), "bfloat16", False, None, True),
@@ -1532,8 +1619,9 @@ def map_encode_us(torch, fa, b, h, l, d, iters=1000):
 
 def sm90_phase(torch, peaks):
     """K1's Hopper kernel through the ``flash_attention`` wrapper against
-    its plain version on the card (``SM90_SWEEP``, one summary line; each
-    launch must count in ``sm90_launches``), then ``SM90_CASES`` timed,
+    its plain version on the card (``SM90_SWEEP``, then
+    ``SM90_MASKED_SWEEP``, one summary line each; each launch must count
+    in ``sm90_launches``), then ``SM90_CASES`` timed,
     and the host time of encoding a call's tensor maps. Returns the timed
     records."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
@@ -1551,6 +1639,21 @@ def sm90_phase(torch, peaks):
           f"x lse, views, lq 192, lq < lk, lk past a whole kv tile) match "
           f"the plain version (largest error {max(sweep):.3g} of its "
           f"tolerance)", flush=True)
+    sweep = []
+    for name, (b, h, lq, lk, d), dt, causal, mask_of, with_lse in (
+            SM90_MASKED_SWEEP):
+        m = (None if mask_of is None
+             else torch.from_numpy(mask_of(rng, b, lk)).cuda())
+        _, _, _, rec = fwd_check(
+            torch, make, f"K1 sm90 {name} {[b, h, lq, lk]} causal={causal} "
+            f"mask={m is not None} lse={with_lse}", b, h, lq, lk, d, dt,
+            causal, m, with_lse, "sm90_launches")
+        sweep.append(rec["share"])
+    print(f"K1 sm90: all {len(SM90_MASKED_SWEEP)} K5b and masked cases (D "
+          f"8..128 x mask/none x lse/none at lq 192, rows that see no key, "
+          f"lq < lk causal, wholly padded kv tiles, random masks) match the "
+          f"plain version "
+          f"(largest error {max(sweep):.3g} of its tolerance)", flush=True)
     checks = timed_fwd_cases(torch, peaks, rng, SM90_CASES, "sm90_launches",
                              "K1 sm90", views=SM90_VIEWS)
     encode = {"served": map_encode_us(torch, fa, 32, 12, 512, 64),
@@ -1902,9 +2005,11 @@ def _launches(fa):
 
 def _sm90_expected(torch, fa, dtype, head_dim, masked, launches):
     """{kernel: how many of its launches in ``launches`` (``_launches``'s
-    form) must have run on the Hopper kernels}: all of a bf16 call
-    without a mask at their head dims (K1 ``flash_attn_fwd_sm90.cu``, K2
-    and K3 ``flash_attn_bwd_sm90.cu``), none of any other."""
+    form) must have run on the Hopper kernels}: all of a call that
+    ``_fwd_entry`` (K1: ``flash_attn_fwd_sm90.cu``, bf16 up to D = 128,
+    masked or not, and 192 and 256 without a mask) or ``_bwd_entry`` (K2
+    and K3: ``flash_attn_bwd_sm90.cu``, bf16 without a mask at 64-256)
+    sends there, none of any other."""
     dt = getattr(torch, dtype)
     hopper = dict(zip(("K1", "K2", "K3"), (
         fa._fwd_entry(dt, head_dim, masked),
@@ -2393,9 +2498,9 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
             fail(f"{label}: {kname} launched {counts[int(masked)]} times"
                  + (" with a mask" if masked else "")
                  + f" in {steps} train steps (< {need})")
-    # K1-lse, K2 and K3 of a bf16 model without a mask all on the Hopper
-    # kernels; of a masked (or f32, or K5b, or D > 256) one all on the
-    # older sources
+    # K1-lse, K2 and K3 of a bf16 model without a mask at D 64-256 all on
+    # the Hopper kernels; of a masked or K5b one K1-lse there, K2 and K3
+    # on the older sources; f32 and D > 256 none (_sm90_expected)
     if cuda:
         print(_check_sm90(label, launches, _sm90_expected(
             torch, fa, base["dtype"], base["hidden_size"] // base["n_head"],
@@ -3109,8 +3214,8 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
                  f"{want // layers} prefills in buckets >= 128, warm-up "
                  f"included), {other} other flash launches")
         # TinyGenLM is f32: every prefill on K1's f32 tensor-core kernel
-        tc_want = launched * _k1_f32tc(fa, torch.float32, m["head_dim"],
-                                       False)
+        tc_want = launched * _k1_kernels(fa, torch.float32, m["head_dim"],
+                                         False)[1]
         if f32tc != tc_want:
             fail(f"{label}: {f32tc} of the prefill's {launched} flash "
                  f"launches on flash_attn_fwd_f32tc.cu (want {tc_want})")
@@ -3339,9 +3444,6 @@ def main() -> None:
         ner_fit = timed("NER learn", ner_learn, torch, ner_dir,
                         profile=args.profile)
         runs.append(timed("NER serving", ner_serving, torch, ner_dir))
-    runs += [squad["K1"], ner_fit["K1"]]
-    # K1's launches over the BERT-base paths: all, masked, Hopper kernel
-    k1_runs = [sum(r[i] for r in runs) for i in (0, 1, 4)]
     torch.cuda.empty_cache()
     k5b = timed("K5b kernels", k5b_phase, torch, peaks)
     k5b_bwd = timed("K5b backward kernels", k5b_bwd_phase, torch, peaks)
@@ -3565,16 +3667,20 @@ def main() -> None:
 
     # K1's Hopper kernel at the served call ([32,12,512,64] bf16 views
     # into the qkv projection), with its logsumexp call at the SQuAD
-    # fit's shape, [8,8,2048,d] causal at 256 and 192 and the LM fit's
-    # K1-lse ([4,16,2048,256] causal); launched by BERT-base serving, the
-    # SQuAD fit and the GPT-J-width LM's fit. K1's older source keeps the
-    # masked bf16 calls (the NER trained call, [32,12,128,64], synthetic
-    # lengths in [2, 128]); K2 and K3 at the trained call ([48,12,384,64]
-    # bf16), masked at the NER trained call; K5b's backward at the MiniLM
-    # trained call ([48,12,384,32] bf16), masked at its padded call
-    # (lengths in [64, 384])
-    sm90_launches = {"serving": runs[0][4], "squad_fit": squad["K1"][4],
-                     "lm_fit": lm["K1"][4]}
+    # fit's shape, [8,8,2048,d] causal at 256 and 192, the LM fit's
+    # K1-lse ([4,16,2048,256] causal), the masked NER trained call
+    # ([32,12,128,64], synthetic lengths in [2, 128]) with and without
+    # logsumexp, K5b at [8,32,1024,80] causal, the MiniLM trained call's
+    # K1-lse ([48,12,384,32]) unmasked and padded (lengths in [64, 384]),
+    # the masked D = 32 call and the padded head dim 20; launched by
+    # BERT-base and NER serving and the SQuAD, NER, MiniLM and LM fits.
+    # K2 and K3 at the trained call ([48,12,384,64] bf16), masked at the
+    # NER trained call; K5b's backward at the MiniLM trained call, masked
+    # at its padded call
+    sm90_launches = {"serving": runs[0][4], "ner_serving": runs[1][4],
+                     "squad_fit": squad["K1"][4],
+                     "ner_fit": ner_fit["K1"][4],
+                     "minilm_fit": minilm["K1"][4], "lm_fit": lm["K1"][4]}
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd_sm90", "route": "cuda",
         "source": SM90_SOURCE, "replaces": K1_REPLACES,
@@ -3585,15 +3691,18 @@ def main() -> None:
         "d256_call": pick_keys(_pick(sm90, "bf16_d256")),
         "d192_call": pick_keys(_pick(sm90, "bf16_d192")),
         "trained_lse_call": pick_keys(_pick(sm90, "gptj_lse"),
-                                      "lse_max_abs_err", "map_encode_us")}, {
-        # the masked bf16 NER trained call, launched by the BERT-base
-        # paths' masked K1 (the NER fit and NER serving)
-        "name": "flash_attn_fwd", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K5A_REPLACES,
-        "launches": k1_runs[0] - k1_runs[2],
-        "masked_launches": k1_runs[1],
-        **at(ner, "k1", ner["sdpa_ms"], ner["sdpa_device_ms"]),
-        "lse_call": lse_call(ner, replaces=K5A_REPLACES)},
+                                      "lse_max_abs_err", "map_encode_us"),
+        "kv_mask_call": at(ner, "k1", ner["sdpa_ms"], ner["sdpa_device_ms"],
+                           replaces=K5A_REPLACES),
+        "kv_mask_lse_call": lse_call(ner, replaces=K5A_REPLACES),
+        "k5b_call": dict(pick_keys(k5b_bf16), replaces=K5B_REPLACES),
+        "k5b_lse_call": lse_call(mini, replaces=K5B_REPLACES),
+        "k5b_mask_lse_call": lse_call(mini_padded, replaces=K5B_REPLACES),
+        "k5b_mask_call": {key: k5b_masked[key] for key in (
+            "shape", "real_keys", "keys", "max_abs_err", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")} | {"replaces": K5B_REPLACES},
+        "padded_call": dict(pick_keys(k5b_padded), replaces=K5B_REPLACES)},
         f32tc_fwd_row(),
         sm90_bwd_row("flash_attn_bwd_dq_sm90", K2_REPLACES, "k2"),
         sm90_bwd_row("flash_attn_bwd_dkv_sm90", K3_REPLACES, "k3"),
@@ -3604,20 +3713,7 @@ def main() -> None:
         bwd_row("flash_attn_bwd_dq", K2_SOURCE, K2_REPLACES, "k2",
                 fits("K2"), ner, ner, K5A_REPLACES),
         bwd_row("flash_attn_bwd_dkv", K3_SOURCE, K3_REPLACES, "k3",
-                fits("K3"), ner, ner, K5A_REPLACES), {
-            # K5b in bf16 at [8,32,1024,80] causal (f32, the generation
-            # phases' prefills among them, is flash_attn_fwd_f32tc's),
-            # launched (with logsumexp) by the MiniLM fit
-            "name": "flash_attn_fwd_k5b", "route": "cuda",
-            "source": K1_SOURCE, "replaces": K5B_REPLACES,
-            "launches": minilm["K1"][2],
-            **pick_keys(k5b_bf16),
-            "lse_call": lse_call(mini),
-            "kv_mask_call": {key: k5b_masked[key] for key in (
-                "shape", "real_keys", "keys", "max_abs_err", "ms",
-                "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "library_device_ms")},
-            "padded_call": pick_keys(k5b_padded)},
+                fits("K3"), ner, ner, K5A_REPLACES),
         bwd_row("flash_attn_bwd_dq_k5b", K2_SOURCE, K5B_REPLACES, "k2",
                 minilm["K2"], mini, mini_padded, K5B_REPLACES),
         bwd_row("flash_attn_bwd_dkv_k5b", K3_SOURCE, K5B_REPLACES, "k3",

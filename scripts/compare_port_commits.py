@@ -18,7 +18,11 @@ mask, MiniLM's [48,12,384,32] without and with a mask, cross-length
 causal [1,2,128->384,128] and [8,8,2048,128] causal) and at the f32
 gradient checks' calls of the GPT-J-width LM ([1,16,2048,256] causal)
 and of the 512-head LM ([1,8,2048,512] causal), K1 and K1-lse at the served shape
-[32,12,512,64] and at [8,8,2048,256] causal, bf16 (device time), K1 in
+[32,12,512,64] and at [8,8,2048,256] causal, bf16 (device time), K1 and
+K1-lse in bf16 at the calls that run K1's Hopper kernel at K5b head dims
+or with a key-padding mask (the NER trained call [32,12,128,64] with its
+mask, MiniLM's K1-lse [48,12,384,32] without and with a mask,
+[8,32,1024,80] causal and [8,12,512,20] causal; device time), K1 in
 f32 at the served shape [8,12,512,64], at the prefills of the f32
 generation phases (Phi-2's [1,32,2048,80], the repo geometry's
 [1,2,256,16], Gemma-2B's [1,8,8192,256] with its K1-lse at
@@ -26,9 +30,10 @@ generation phases (Phi-2's [1,32,2048,80], the repo geometry's
 LM's f32 gradient check's K1-lse [1,8,2048,512] and [2,32,2048,384]
 causal (device time),
 BERT-base serving (with the seconds its save and its start-up take), the
-NER fine-tune, NER serving (start-up seconds too) and TinyGenLM
-generation at the repo geometry. Each checkout builds its kernels into
-its own ``build/``. Prints one JSON line a run, then the ptxas registers
+NER fine-tune, NER serving (start-up seconds too), the MiniLM fine-tune
+(its steps/s, and one profiled train step's wall and device-busy ms) and
+TinyGenLM generation at the repo geometry. Each checkout builds its
+kernels into its own ``build/``. Prints one JSON line a run, then the ptxas registers
 and spills of every kernel instantiation both checkouts build that
 differ between them (none: the line says so), those only the parent
 builds ("retired") and those only the change builds ("new"), each with
@@ -54,6 +59,7 @@ SUMMARIES = (
     ("serving", "p50_ms", "serving_p50_ms"),
     ("learn-ner", "steps_per_s", "ner_fit_steps_per_s"),
     ("serve-ner", "rps", "ner_serving_rps"),
+    ("learn-minilm", "steps_per_s", "minilm_fit_steps_per_s"),
     ("gen", "tokens_per_s", "gen_tokens_per_s"),
 )
 KERNELS = ("k1", "k1_lse", "k2", "k3")
@@ -106,7 +112,10 @@ BACKWARD = (
                       None, True), "f32_d512_"),
 )
 # K1 and K1-lse timed through chip_smoke.timed_fwd_cases: the served
-# shape and the widest head dim the backward also takes, bf16; then f32
+# shape and the widest head dim the backward also takes, bf16; the bf16
+# calls at K5b head dims and with a mask (the NER trained call, MiniLM's
+# K1-lse unmasked and padded, [8,32,1024,80] causal and the padded head
+# dim 20); then f32
 # (the K1 f32 calls of BACKWARD aside): the served shape, the f32
 # generation phases' prefills at their widths and top buckets (with the
 # Gemma width's K1-lse at its 2048 bucket), K1 at D = 512 (the
@@ -117,6 +126,15 @@ FWD_CASES = (
     ("served_k1_lse", (32, 12, 512, 512, 64), "bfloat16", False, None, True),
     ("d256_k1", (8, 8, 2048, 2048, 256), "bfloat16", True, None, False),
     ("d256_k1_lse", (8, 8, 2048, 2048, 256), "bfloat16", True, None, True),
+    ("ner_k1", (32, 12, 128, 128, 64), "bfloat16", False, _ner_mask, False),
+    ("ner_k1_lse", (32, 12, 128, 128, 64), "bfloat16", False, _ner_mask,
+     True),
+    ("minilm_k1_lse", (48, 12, 384, 384, 32), "bfloat16", False, None,
+     True),
+    ("minilm_masked_k1_lse", (48, 12, 384, 384, 32), "bfloat16", False,
+     _squad_mask, True),
+    ("k5b_d80_k1", (8, 32, 1024, 1024, 80), "bfloat16", True, None, False),
+    ("padded_d20_k1", (8, 12, 512, 512, 20), "bfloat16", True, None, False),
     ("f32_served_k1", (8, 12, 512, 512, 64), "float32", False, None, False),
     ("f32_phi2_k1", (1, 32, 2048, 2048, 80), "float32", True, None, False),
     ("f32_repo_k1", (1, 2, 256, 256, 16), "float32", True, None, False),
@@ -134,6 +152,9 @@ SECONDS = (
     (r"^serving: BERT-base saved in ([0-9.]+)s", "bert_save_s"),
     (r"^serving: up in ([0-9.]+)s", "serving_up_s"),
     (r"^serve-ner: up in ([0-9.]+)s", "ner_serving_up_s"),
+    (r"^profile: train step \(48,\) wall ([0-9.]+) ms", "minilm_step_wall_ms"),
+    (r"^profile: train step \(48,\) wall [0-9.]+ ms; device busy ([0-9.]+) ms",
+     "minilm_step_busy_ms"),
 )
 
 
@@ -166,6 +187,7 @@ def run_phases(checkout: str) -> None:
     with tempfile.TemporaryDirectory() as ner_dir:
         cs.ner_learn(torch, ner_dir)
         cs.ner_serving(torch, ner_dir)
+    cs.minilm_learn(torch, profile=True)
     cs.generation_phase(torch, "gen", cs.GEN_REPO, 500, (1, 240), 16, 500,
                         16)
 

@@ -74,13 +74,13 @@ class TestRoute:
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_fwd_entry(self, d, dtype, masked):
         """f32 at every head dim up to 512, masked or not, takes the f32
-        tensor-core kernel; bf16 without a mask at 64-256 the Hopper
-        kernel; the rest (bf16 masked or K5b, bf16 above 256) the older
-        source."""
+        tensor-core kernel; bf16 up to 128 (masked or not, K5b among
+        them) and without a mask at 192 and 256 the Hopper kernel; bf16
+        above 256 the older source."""
         if dtype == torch.float32 and d <= fa.F32TC_FWD_MAX_D:
             want = F32TC
-        elif dtype == torch.bfloat16 and not masked and d in (64, 128,
-                                                              192, 256):
+        elif dtype == torch.bfloat16 and (d <= 128 or (
+                not masked and d in (192, 256))):
             want = SM90
         else:
             want = OLD

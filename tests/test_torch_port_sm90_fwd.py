@@ -1,6 +1,8 @@
 """PyTorch port, K1's Hopper forward (``csrc/flash_attn_fwd_sm90.cu``):
-the route that sends bf16 calls without a key-padding mask at head dims
-64, 128, 192 and 256 to it (``_fwd_entry``), what the wrapper hands its
+the route that sends bf16 calls at every head dim up to 128 (masked or
+not) and without a key-padding mask at 192 and 256 to it
+(``_fwd_entry``; the K5b and masked calls in detail in
+``test_torch_port_sm90_masked_fwd.py``), what the wrapper hands its
 entry point and counts, and K1's plain version (what the kernel is held
 to on the card by ``chip_smoke.py``) against the JAX package's Pallas
 kernel ``_flash_fwd`` in interpret mode at the shapes the new kernel
@@ -28,8 +30,9 @@ torch.set_num_threads(2)
 SM90 = "zoo_flash_attn_fwd_sm90"
 F32TC = "zoo_flash_attn_fwd_f32tc"
 OLD = "zoo_flash_attn_fwd"
-# where the new entry point takes its lse pointer, causal flag and scale
-LSE_ARG, CAUSAL_ARG, SCALE_ARG = 4, 24, 23
+# where the entry point takes its lse pointer, mask pointer, causal flag
+# and scale
+LSE_ARG, MASK_ARG, CAUSAL_ARG, SCALE_ARG = 4, 23, 26, 25
 # f32 on both sides: exact arithmetic in another order (the tolerances
 # test_torch_port_wide_d.py holds the plain version to); bf16 on both
 # sides: the Pallas kernel rounds P to bf16 before P V, the plain version
@@ -43,12 +46,12 @@ class TestRoute:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_fwd_entry(self, d, dtype, masked):
-        """bf16 without a mask at 64, 128, 192 and 256 takes the Hopper
-        kernel; f32 at every head dim, masked or not, the f32 tensor-core
-        kernel; bf16 with a mask, bf16 K5b and bf16 above 256 keep
+        """bf16 up to 128, masked or not, and without a mask at 192 and
+        256 takes the Hopper kernel; f32 at every head dim, masked or
+        not, the f32 tensor-core kernel; bf16 above 256 keeps
         ``flash_attn_fwd.cu``."""
-        if dtype == torch.bfloat16 and not masked and d in (64, 128, 192,
-                                                            256):
+        if dtype == torch.bfloat16 and (d <= 128 or (not masked
+                                                     and d in (192, 256))):
             want = SM90
         elif dtype == torch.float32:
             want = F32TC
@@ -60,9 +63,8 @@ class TestRoute:
         stem, argtypes = fa._ENTRY_POINTS[SM90]
         assert stem == "flash_attn_fwd_sm90"
         assert (fa._CSRC / f"{stem}.cu").is_file()
-        # the old entry's arguments without the mask pointer and stride
-        old = fa._ENTRY_POINTS[OLD][1]
-        assert argtypes == old[:23] + old[25:]
+        # the old entry's arguments, the mask pointer and stride with them
+        assert argtypes == fa._ENTRY_POINTS[OLD][1]
 
 
 def _meta(d, dtype=torch.bfloat16, grad=False, b=2, h=3, lq=128, lk=128):
@@ -96,6 +98,7 @@ class TestLaunches:
         assert args[D_ARG[OLD]] == d
         assert args[8:10] == (192, 256)  # lq, lk
         assert (args[LSE_ARG] is not None) == with_lse
+        assert args[MASK_ARG] is None
         assert args[CAUSAL_ARG] == int(causal)
         assert args[SCALE_ARG] == pytest.approx(1 / np.sqrt(d))
         assert len(args) == len(fa._ENTRY_POINTS[SM90][1])
@@ -128,20 +131,23 @@ class TestLaunches:
     ])
     def test_other_calls_keep_the_old_entry(self, sm90_count, kind, d,
                                             dtype, masked):
-        """A masked call, K5b (D = 80, and 20 padded to 24) and D = 512
-        still reach ``zoo_flash_attn_fwd``, f32 (D = 64 and 256) the f32
-        tensor-core entry, which takes the same arguments, the mask's
-        pointer with them, and none counts in ``sm90_launches``."""
+        """A masked bf16 call and bf16 K5b (D = 80, and 20 padded to 24)
+        now reach the Hopper entry too, the mask's pointer with them, and
+        count in ``sm90_launches``; D = 512 still reaches
+        ``zoo_flash_attn_fwd`` and f32 (D = 64 and 256) the f32
+        tensor-core entry, all three taking the same arguments, and
+        neither counts there."""
         q, k, v = _meta(d, dtype)
         m = (torch.ones(2, 128, dtype=torch.uint8, device="meta")
              if masked else None)
         fa.flash_attention(q, k, v, False, key_padding_mask=m)
-        want = F32TC if dtype == torch.float32 else OLD
+        want = (F32TC if dtype == torch.float32 else
+                SM90 if fa._kernel_head_dim(d) <= 128 else OLD)
         assert [name for name, _ in sm90_count] == [want]
         args = sm90_count[0][1]
-        assert args[D_ARG[want]] == fa._kernel_head_dim(d)
-        assert (args[23] is not None) == masked
-        assert fa.flash_attention.sm90_launches == 0
+        assert args[D_ARG[OLD]] == fa._kernel_head_dim(d)
+        assert (args[MASK_ARG] is not None) == masked
+        assert fa.flash_attention.sm90_launches == int(want == SM90)
         assert fa.flash_attention.launches == 1
 
 
