@@ -10,7 +10,7 @@
 // `_vjp_fwd` :384), and, with a key-padding mask or at a head dim that is
 // not a multiple of 64, the forward of the stock Pallas kernel that
 // analytics_zoo_tpu/ops/attention.py (:116-127) reaches. The semantics are
-// those of flash_attn_fwd.cu's f32 path, which this kernel retired:
+// those of K1's bf16 kernel (flash_attn_fwd_sm90.cu), in f32:
 // softmax(scale * Q K^T) V on [B, H, L, D] in f32, the optional per-row
 // logsumexp ([B*H, Lq] f32, natural log), the causal mask aligned
 // bottom-right (key j visible to query i when j <= i + Lk - Lq); padded
@@ -148,7 +148,7 @@
 
 namespace {
 
-// logsumexp of a row that sees no key (flash_attn_fwd.cu's kEmptyLse)
+// logsumexp of a row that sees no key (flash_attn_fwd_sm90.cu's kEmptyLse)
 constexpr float kEmptyLse = -1e30f;
 // q rows a block up to D = 256 (the entry point takes Lq and Lk in
 // multiples of it)
@@ -670,7 +670,7 @@ int launch_d(bool masked, int batch_heads, const Params& p, cudaStream_t s) {
 // K1 (with or without logsumexp) in f32 at a head dim up to 128 (a
 // multiple of 8; with or without a mask) or at 192, 256, 320, 384, 448 and
 // 512 (without).
-// Arguments as zoo_flash_attn_fwd's (flash_attn_fwd.cu): dtype 0 =
+// Arguments as zoo_flash_attn_fwd_sm90's (flash_attn_fwd_sm90.cu): dtype 0 =
 // float32; mask [B, Lk] bytes (nonzero = real key) with batch stride
 // mask_sb, or null. Returns a cudaError_t (0 = launched), or 1000 + n for
 // an argument the kernel does not take (1004: bf16, or a head dim it has

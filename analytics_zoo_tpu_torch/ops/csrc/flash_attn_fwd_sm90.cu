@@ -1,8 +1,8 @@
 // Flash-attention forward (K1, K1-lse) for Hopper, sm_90a: every bf16
 // call at a head dim up to 128 (each multiple of 8; the wrappers pad
 // other head dims to one), with or without a key-padding mask, and the
-// bf16 calls without a mask at head dims 192 and 256, built on TMA,
-// mbarriers, a producer warpgroup and wgmma.
+// bf16 calls without a mask at head dims 192, 256, 320, 384, 448 and 512,
+// built on TMA, mbarriers, a producer warpgroup and wgmma.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_fwd_kernel`
 // (:82), launched by `_flash_fwd` (:137), and JAX's stock Pallas
@@ -33,11 +33,11 @@
 // units (16 a clock an SM), about 0.022 ms for MiniLM's 85 M scores
 // ([48, 12, 384, 32]) against 0.017 ms of bytes.
 //
-// What the design does about it. The kernels it retires
-// (flash_fwd_bf16_kernel<D, kMask> and flash_fwd_bf16_wide_kernel in
-// flash_attn_fwd.cu) loaded tiles synchronously with every thread and a
-// __syncthreads() pair a kv tile, ran mma.sync.m16n8k16 and gathered V
-// one scalar at a time. Here:
+// What the design does about it. The mma.sync kernels it retired
+// loaded tiles synchronously with every thread and a __syncthreads()
+// pair (above 256 three) a kv tile, ran mma.sync.m16n8k16 and gathered V
+// one scalar at a time. Here (up to D = 256; above, the split kernel
+// below):
 //   * A block owns 128 q rows and has three warpgroups (384 threads).
 //     Warpgroup 0 is the producer: it gives back its registers
 //     (setmaxnreg.dec to 24) and one thread issues every load as a TMA
@@ -131,8 +131,45 @@
 // grid, and the epilogue through shared memory and a TMA store (O is
 // written from registers, 4 bytes a thread a row).
 //
-// flash_attn_fwd_f32tc.cu takes every f32 call; flash_attn_fwd.cu keeps
-// bf16 at head dims 320 to 512.
+// Head dims 320 to 512 (flash_fwd_sm90_split_kernel<D>). The layout above
+// cannot just be widened: a consumer holding O for 64 rows over all of
+// D = 512 would need 256 f32 registers a thread (a thread may hold 255),
+// and Q for 128 rows would be 128 KB of the 227. So:
+//   * A block owns 64 q rows, and both consumers hold all 64 of them.
+//     Consumer c owns a run of whole 64-column slabs of O: the first
+//     ceil(D/128) slabs and the rest (N = 256 + 256 at D = 512, 256 + 192
+//     at 448, 192 + 192 at 384, 192 + 128 at 320; O is at most 128
+//     registers a thread), its P V one wgmma_rs<N> a k-step whose B
+//     descriptor starts at its first slab of V.
+//   * Each consumer computes the whole 64 x kKv S over all of D itself
+//     (wgmma_ss from Q and K in shared memory, D/16 k-steps) and runs the
+//     online softmax on it. Q K^T so runs twice, 1.5x the tensor-core
+//     work of the call, but the consumers share no barrier and no shared
+//     memory beyond the ring, and the softmax runs twice, not D/64 times
+//     as in the mma.sync kernel this replaced, whose warps each summed
+//     the partial S of every slice of D. The two compute the same S from
+//     the same shared memory with the same instructions, so their m, l
+//     and logsumexp agree bit for bit; the first alone stores the
+//     logsumexp.
+//   * Shared memory: Q (64 KB at D = 512) and a ring of K and V tiles
+//     (SplitCfg: at 512 one 64-key stage each, 192 KB in all); the
+//     producer's order (K of tile i before V of tile i - 1) overlaps one
+//     tile's P V with the next tile's K load. Registers as at D = 256
+//     (Tiles<..., 1, 24, 240>: O 128 + S 32 + P 16 at D = 512), so Q K^T
+//     of tile i is still issued before P V of tile i - 1.
+//   * Causal as above: kv tiles past a block's last row are never loaded,
+//     only tiles that cross the diagonal are masked element by element,
+//     blocks run longest first; with 64-row blocks no consumer is ever
+//     without rows.
+//   * What bounds it next: a block reads each visible kv tile of K and V
+//     once per 64 q rows (64 flops a byte; 4.4 GB at [1, 64, 2048, 512]
+//     causal, read from L2, where a head's K and V stay), and the tensor
+//     cores at 1.5x the work. Later work: a 2-CTA cluster multicasting K
+//     and V to two q blocks of a head (half the L2 feed), and a key split
+//     of S between the consumers with the row max and P exchanged through
+//     shared memory (no 1.5x).
+//
+// flash_attn_fwd_f32tc.cu takes every f32 call.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -706,6 +743,344 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------ head dims 320 to 512 --
+// The split kernel (the header's notes): a block owns 64 q rows, which
+// both consumers hold; consumer c keeps O's columns [64 * kSlab0,
+// 64 * kSlab0 + kN) and computes S over all of D itself.
+
+constexpr int kSplitRows = 64;  // q rows a block above D = 256
+
+// consumer 0's whole slabs of O (the first ceil(D/128)); consumer 1 has
+// the rest
+__host__ __device__ constexpr int split_slabs0(int d) {
+  return (d / kSlab + 1) / 2;
+}
+
+// kv rows a tile and ring stages above D = 256, one block an SM. At
+// D = 512, Q (64 KB) and one stage of K and of V (64 KB each) fill 192 KB
+// of the 227; at 320 two stages fit. 32-key tiles in twice the stages
+// (m64n32 products) were 3-18% slower at 320, 384 and 512 and level at
+// 448 (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+template <int D> struct SplitCfg;
+template <> struct SplitCfg<320> : Tiles<64, 2, 1, 24, 240> {};
+template <> struct SplitCfg<384> : Tiles<64, 1, 1, 24, 240> {};
+template <> struct SplitCfg<448> : Tiles<64, 1, 1, 24, 240> {};
+template <> struct SplitCfg<512> : Tiles<64, 1, 1, 24, 240> {};
+
+template <int D>
+__host__ __device__ constexpr int split_smem_bytes() {
+  return 1024 + (kSplitRows + 2 * SplitCfg<D>::kStages * SplitCfg<D>::kKv)
+      * D * 2 + bar_bytes(SplitCfg<D>::kStages);
+}
+
+// One consumer warpgroup of flash_fwd_sm90_split_kernel<D>: the block's
+// 64 rows, S = Q K^T over all of D, the online softmax, and O += P V over
+// the kN columns of V from slab kSlab0 on; it stores those columns of O
+// and, with kSlab0 == 0, the logsumexp. The barriers and the smem
+// layout are the kernel's.
+template <int D, int kSlab0, int kN>
+__device__ __forceinline__ void split_consumer(
+    const Params& p, uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t barQ,
+    uint32_t fullK, uint32_t fullV, uint32_t emptyK, uint32_t emptyV,
+    int n_tiles, int q0, int b, int hh, int bh) {
+  constexpr int kKv = SplitCfg<D>::kKv;
+  constexpr int kStages = SplitCfg<D>::kStages;
+  constexpr int kKvBytes = kKv * D * 2;  // one K (or V) tile
+  const int t = threadIdx.x % 128;       // thread within the warpgroup
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;               // accumulator row within 8
+  const int t4 = lane & 3;               // thread within the quad
+  const int ra = q0 + warp * 16 + g;     // the two rows a thread holds
+  const int rb = ra + 8;
+  const int offset = p.lk - p.lq;
+  // the last visible key of each of the two rows, and of the block's
+  // first row, the one that sees fewest
+  const int lim_a = p.causal ? min(ra + offset, p.lk - 1) : p.lk - 1;
+  const int lim_b = p.causal ? min(rb + offset, p.lk - 1) : p.lk - 1;
+  const int lim_first = p.causal ? min(q0 + offset, p.lk - 1) : p.lk - 1;
+
+  // this consumer's columns of O in the accumulator layout
+  float o[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY;  // running max (log2 domain)
+  float l_a = 0.f, l_b = 0.f;              // this thread's part of the sum
+  float s[kKv / 2];          // S of one tile, then its probabilities
+  uint32_t pf[kKv / 16][4];  // P as bf16 A fragments, 16 keys a k-step
+
+  mbar_wait(barQ, 0);
+
+  // S = Q K^T of tile i over all of D (D/16 k-steps of 32 bytes within a
+  // 128-byte slab row), committed as one wgmma group
+  auto issue_qk = [&](int i) {
+    const uint32_t k_base = sK + (i % kStages) * kKvBytes;
+    wgmma_fence();
+    const uint64_t da = sw128_desc(sQ, 16, 1024);
+    const uint64_t db = sw128_desc(k_base, 16, 1024);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t step = (kk & 3) * 2;
+      const uint32_t a_off = (kk >> 2) * (kSplitRows * kSlabRow / 16) + step;
+      const uint32_t b_off = (kk >> 2) * (kKv * kSlabRow / 16) + step;
+      wgmma_ss_n64(s, da, a_off, db, b_off, kk > 0);
+    }
+    wgmma_commit();
+  };
+
+  // O += P V of tile i over this consumer's slabs of V (MN-major B, its
+  // slabs kKv rows apart: the leading byte offset), committed
+  auto issue_pv = [&](int i) {
+    const uint32_t v_base =
+        sV + (i % kStages) * kKvBytes + kSlab0 * kKv * kSlabRow;
+    fence_regs(o);
+    fence_regs(pf);
+    wgmma_fence();
+    const uint64_t dv = sw128_desc(v_base, kKv * kSlabRow, 1024);
+#pragma unroll
+    for (int kk = 0; kk < kKv / 16; ++kk) {
+      wgmma_rs<kN>(o, pf[kk], dv, kk * 16 * (kSlabRow / 16));
+    }
+    wgmma_commit();
+  };
+
+  // the online softmax of tile kt's S, in place; returns the rescale of
+  // the rows' old O and sum. Both consumers run it on the same S with the
+  // same instructions, so their m and l agree bit for bit
+  auto softmax = [&](int kt, float& corr_a, float& corr_b) {
+    const int key0 = kt * kKv;
+    const bool edge = key0 + kKv - 1 > lim_first;
+    float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+    for (int j = 0; j < kKv / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j * 4 + e] * p.scale_log2;
+        if (edge) {
+          const int key = key0 + j * 8 + t4 * 2 + (e & 1);
+          if (key > ((e < 2) ? lim_a : lim_b)) x = -INFINITY;
+        }
+        s[j * 4 + e] = x;
+      }
+      mx_a = fmaxf(mx_a, fmaxf(s[j * 4], s[j * 4 + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[j * 4 + 2], s[j * 4 + 3]));
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    // a row with no visible key yet keeps -inf; subtract 0 there
+    const float base_a = (mx_a == -INFINITY) ? 0.f : mx_a;
+    const float base_b = (mx_b == -INFINITY) ? 0.f : mx_b;
+    corr_a = fast_exp2(m_a - base_a);
+    corr_b = fast_exp2(m_b - base_b);
+    m_a = mx_a;
+    m_b = mx_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKv / 8; ++j) {
+      s[j * 4] = fast_exp2(s[j * 4] - base_a);
+      s[j * 4 + 1] = fast_exp2(s[j * 4 + 1] - base_a);
+      s[j * 4 + 2] = fast_exp2(s[j * 4 + 2] - base_b);
+      s[j * 4 + 3] = fast_exp2(s[j * 4 + 3] - base_b);
+      sum_a += s[j * 4] + s[j * 4 + 1];
+      sum_b += s[j * 4 + 2] + s[j * 4 + 3];
+    }
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+  };
+
+  // O's rows rescaled and the probabilities packed as P's A fragments;
+  // only once no P V is in flight
+  auto rescale_and_pack = [&](float corr_a, float corr_b) {
+#pragma unroll
+    for (int c = 0; c < kN / 8; ++c) {
+      o[c * 4] *= corr_a;
+      o[c * 4 + 1] *= corr_a;
+      o[c * 4 + 2] *= corr_b;
+      o[c * 4 + 3] *= corr_b;
+    }
+#pragma unroll
+    for (int j = 0; j < kKv / 16; ++j) {
+      pf[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+      pf[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+      pf[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+      pf[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+    }
+  };
+
+  auto release = [&](uint32_t empty, int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (i % kStages));
+  };
+  auto parity = [](int i) {
+    return static_cast<uint32_t>((i / kStages) & 1);
+  };
+
+  // Q K^T of tile i is issued before P V of tile i - 1, and tile i's
+  // softmax runs while that P V is on the tensor cores (the D <= 256
+  // kernel's pipeline). Every consumer computes on every tile its block
+  // walks: the two hold the same rows
+  if (n_tiles > 0) {
+    float corr_a, corr_b;
+    mbar_wait(fullK, 0);
+    issue_qk(0);
+    wgmma_wait<0>();
+    release(emptyK, 0);
+    fence_regs(s);
+    softmax(0, corr_a, corr_b);
+    rescale_and_pack(corr_a, corr_b);
+    for (int i = 1; i < n_tiles; ++i) {
+      mbar_wait(fullK + 8 * (i % kStages), parity(i));
+      issue_qk(i);
+      mbar_wait(fullV + 8 * ((i - 1) % kStages), parity(i - 1));
+      issue_pv(i - 1);
+      // Q K^T of tile i done; P V of tile i - 1 may still run
+      wgmma_wait<1>();
+      release(emptyK, i);
+      fence_regs(s);
+      softmax(i, corr_a, corr_b);
+      wgmma_wait<0>();
+      release(emptyV, i - 1);
+      fence_regs(o);
+      fence_regs(pf);
+      rescale_and_pack(corr_a, corr_b);
+    }
+    mbar_wait(fullV + 8 * ((n_tiles - 1) % kStages), parity(n_tiles - 1));
+    issue_pv(n_tiles - 1);
+    wgmma_wait<0>();
+    release(emptyV, n_tiles - 1);
+    fence_regs(o);
+  }
+
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  l_a = fmaxf(l_a, 1e-30f);
+  l_b = fmaxf(l_b, 1e-30f);
+  const float inv_a = 1.f / l_a;
+  const float inv_b = 1.f / l_b;
+  uint16_t* out = static_cast<uint16_t*>(p.o) + b * p.o_sb + hh * p.o_sh
+      + kSlab0 * kSlab + t4 * 2;
+  uint16_t* oa = out + static_cast<long long>(ra) * p.o_sl;
+  uint16_t* ob = out + static_cast<long long>(rb) * p.o_sl;
+#pragma unroll
+  for (int c = 0; c < kN / 8; ++c) {
+    *reinterpret_cast<uint32_t*>(oa + c * 8) =
+        pack_bf16(o[c * 4] * inv_a, o[c * 4 + 1] * inv_a);
+    *reinterpret_cast<uint32_t*>(ob + c * 8) =
+        pack_bf16(o[c * 4 + 2] * inv_b, o[c * 4 + 3] * inv_b);
+  }
+  if (kSlab0 == 0 && p.lse != nullptr && t4 == 0) {
+    float* lse = p.lse + static_cast<long long>(bh) * p.lq;
+    lse[ra] = (m_a + log2f(l_a)) * kLn2;
+    lse[rb] = (m_b + log2f(l_b)) * kLn2;
+  }
+}
+
+// K1 and K1-lse bf16 at D in {320, 384, 448, 512}, without a mask: 64 q
+// rows a block, a producer warpgroup and two consumers that split O's
+// columns between them (split_consumer)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90_split_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const Params p) {
+  constexpr int kKv = SplitCfg<D>::kKv;
+  constexpr int kStages = SplitCfg<D>::kStages;
+  constexpr int kSlabs = D / kSlab;
+  constexpr int kQBytes = kSplitRows * D * 2;
+  constexpr int kKvBytes = kKv * D * 2;
+  constexpr int kSlabs0 = split_slabs0(D);
+  static_assert(D % kSlab == 0 && D > 256 && D <= 512, "head dim");
+  static_assert(kKv == 64, "kv tile: 64 keys (Q K^T is wgmma m64n64)");
+  static_assert(split_smem_bytes<D>() <= 232448, "shared memory");
+
+  extern __shared__ uint8_t smem_raw[];
+  // slabs start on 1024-byte boundaries, where the 128B swizzle repeats
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  const uint32_t sK = sQ + kQBytes;                  // kStages K tiles
+  const uint32_t sV = sK + kStages * kKvBytes;       // kStages V tiles
+  const uint32_t barQ = sV + kStages * kKvBytes;
+  const uint32_t fullK = barQ + 8;                   // 8 bytes a barrier
+  const uint32_t fullV = fullK + 8 * kStages;
+  const uint32_t emptyK = fullV + 8 * kStages;
+  const uint32_t emptyV = emptyK + 8 * kStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int q0 = qt * kSplitRows;
+  // kv tiles this block walks: up to its last row's last key
+  int n_tiles = (p.lk + kKv - 1) / kKv;
+  if (p.causal) {
+    n_tiles = min(n_tiles, (q0 + kSplitRows - 1 + p.lk - p.lq) / kKv + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(barQ, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(fullK + 8 * s, 1);
+      mbar_init(fullV + 8 * s, 1);
+      mbar_init(emptyK + 8 * s, kEmptyArrivals);
+      mbar_init(emptyV + 8 * s, kEmptyArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---------------------------------------------------- producer --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(SplitCfg<D>::kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(barQ, kQBytes);
+#pragma unroll
+      for (int s = 0; s < kSlabs; ++s) {
+        tma_load(sQ + s * kSplitRows * kSlabRow, &tq, barQ, s * kSlab, q0,
+                 hh, b);
+      }
+      // K of tile i, then V of tile i - 1, each once its stage's
+      // previous tile is released by both consumers
+      auto load = [&](const CUtensorMap* map, uint32_t full, uint32_t empty,
+                      uint32_t base, int i) {
+        const int stage = i % kStages;
+        mbar_wait(empty + 8 * stage, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * stage, kKvBytes);
+#pragma unroll
+        for (int s = 0; s < kSlabs; ++s) {
+          tma_load(base + stage * kKvBytes + s * kKv * kSlabRow, map,
+                   full + 8 * stage, s * kSlab, i * kKv, hh, b);
+        }
+      };
+      for (int i = 0; i < n_tiles + 1; ++i) {
+        if (i < n_tiles) load(&tk, fullK, emptyK, sK, i);
+        if (i >= 1) load(&tv, fullV, emptyV, sV, i - 1);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumers --
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(SplitCfg<D>::kConsumerRegs));
+  if (wg == 1) {
+    split_consumer<D, 0, kSlabs0 * kSlab>(p, sQ, sK, sV, barQ, fullK, fullV,
+                                          emptyK, emptyV, n_tiles, q0, b, hh,
+                                          bh);
+  } else {
+    split_consumer<D, kSlabs0, (kSlabs - kSlabs0) * kSlab>(
+        p, sQ, sK, sV, barQ, fullK, fullV, emptyK, emptyV, n_tiles, q0, b,
+        hh, bh);
+  }
+}
+
 // ------------------------------------------------------------- host --
 struct Maps {
   CUtensorMap q, k, v;
@@ -723,7 +1098,11 @@ int kv_rows(int d) {
     case 112: return Cfg<112>::kKv;
     case 128: return Cfg<128>::kKv;
     case 192: return Cfg<192>::kKv;
-    default: return Cfg<256>::kKv;
+    case 256: return Cfg<256>::kKv;
+    case 320: return SplitCfg<320>::kKv;
+    case 384: return SplitCfg<384>::kKv;
+    case 448: return SplitCfg<448>::kKv;
+    default: return SplitCfg<512>::kKv;
   }
 }
 
@@ -742,7 +1121,7 @@ int encode_maps(Maps* maps, const void* q, const void* k, const void* v,
   const int kv = kv_rows(d);
   const bool ok =
       encode(fn, &maps->q, q, batch, heads, lq, d, strides[0], strides[1],
-             strides[2], kRows)
+             strides[2], d > 256 ? kSplitRows : kRows)
       && encode(fn, &maps->k, k, batch, heads, lk, d, strides[3], strides[4],
                 strides[5], kv)
       && encode(fn, &maps->v, v, batch, heads, lk, d, strides[6], strides[7],
@@ -767,12 +1146,29 @@ cudaError_t launch(const Maps& maps, const Params& p, int batch_heads,
   return cudaGetLastError();
 }
 
+// the split kernel at D = 320 to 512: 64-row q blocks
+template <int D>
+cudaError_t launch_split(const Maps& maps, const Params& p, int batch_heads,
+                         cudaStream_t stream) {
+  const int smem = split_smem_bytes<D>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_sm90_split_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.lq + kSplitRows - 1) / kSplitRows, batch_heads);
+  flash_fwd_sm90_split_kernel<D><<<grid, kThreads, smem, stream>>>(
+      maps.q, maps.k, maps.v, p);
+  return cudaGetLastError();
+}
+
 // the instantiation for head dim D, with or without the mask (none
 // above 128)
 template <int D>
 cudaError_t launch_d(bool masked, const Maps& maps, const Params& p,
                      int batch_heads, cudaStream_t stream) {
-  if constexpr (D > 128) {
+  if constexpr (D > 256) {
+    return launch_split<D>(maps, p, batch_heads, stream);
+  } else if constexpr (D > 128) {
     return launch<D, false>(maps, p, batch_heads, stream);
   } else {
     return masked ? launch<D, true>(maps, p, batch_heads, stream)
@@ -782,8 +1178,10 @@ cudaError_t launch_d(bool masked, const Maps& maps, const Params& p,
 
 }  // namespace
 
-// zoo_flash_attn_fwd's interface: dtype must be 1 (bfloat16), d a
-// multiple of 8 up to 128, or 192 or 256 without a mask; mask is [B, Lk]
+// K1 and K1-lse: q, k, v and o are [B, H, L, D] with element strides
+// (batch, head, seq; the last dimension contiguous), lse is null or
+// [B*H, Lq] f32; dtype must be 1 (bfloat16), d a multiple of 8 up to
+// 128, or 192, 256, 320, 384, 448 or 512 without a mask; mask is [B, Lk]
 // bytes (nonzero = real key) with batch stride mask_sb, both 16-byte
 // aligned, or null for none. Returns a cudaError_t (0 = launched);
 // 1000 + n flags a call the kernel does not take (1001 Lq or Lk not a
@@ -803,7 +1201,7 @@ extern "C" int zoo_flash_attn_fwd_sm90(
   if (lq % 64 || lk % 64) return 1001;
   if (causal && lq > lk) return 1002;
   if (batch * heads > 65535) return 1003;
-  if (d < 8 || d % 8 || (d > 128 && d != 192 && d != 256)) return 1004;
+  if (d < 8 || d % 8 || d > 512 || (d > 128 && d % 64)) return 1004;
   if (dtype != 1) return 1005;
   const bool masked = mask != nullptr;
   if (masked && d > 128) return 1006;
@@ -838,7 +1236,11 @@ extern "C" int zoo_flash_attn_fwd_sm90(
     case 112: return launch_d<112>(masked, maps, p, bh, s);
     case 128: return launch_d<128>(masked, maps, p, bh, s);
     case 192: return launch_d<192>(masked, maps, p, bh, s);
-    default: return launch_d<256>(masked, maps, p, bh, s);
+    case 256: return launch_d<256>(masked, maps, p, bh, s);
+    case 320: return launch_d<320>(masked, maps, p, bh, s);
+    case 384: return launch_d<384>(masked, maps, p, bh, s);
+    case 448: return launch_d<448>(masked, maps, p, bh, s);
+    default: return launch_d<512>(masked, maps, p, bh, s);
   }
 }
 

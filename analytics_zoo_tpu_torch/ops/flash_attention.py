@@ -9,7 +9,8 @@ bottom-right (offset ``lk - lq``), optional per-row logsumexp, and the
 backward that rebuilds the probabilities from that logsumexp. The
 kernels live in ``csrc/flash_attn_fwd_sm90.cu`` (K1's bf16 forward at
 D in ``SM90_FWD_HEAD_DIMS``: every multiple of 8 up to 128, masked or
-not, and 192 and 256 without a mask; TMA, a producer warpgroup, wgmma;
+not, and 192 to 512 without a mask; TMA, a producer warpgroup, wgmma,
+above 256 O's head dim split between two consumer warpgroups;
 ``_fwd_entry`` picks it), ``csrc/flash_attn_bwd_sm90.cu`` (K2 and K3
 for the bf16 calls without a mask at D in ``SM90_HEAD_DIMS``, the same
 design; ``_bwd_entry`` picks them; both share
@@ -17,7 +18,6 @@ design; ``_bwd_entry`` picks them; both share
 (K1's f32 forward at head dims up to ``F32TC_FWD_MAX_D``, masked or
 not: 3xTF32 ``mma.sync`` on the tensor cores at f32 accuracy,
 ``cp.async`` tile copies; ``_fwd_entry`` picks it),
-``csrc/flash_attn_fwd.cu`` (the other forward: bf16 above 256),
 ``csrc/flash_attn_bwd_f32tc.cu`` (K2's and K3's
 f32 backward at every head dim up to ``F32TC_MAX_D``, masked or not, on
 the same products as K1's f32 kernel; ``_bwd_entry`` picks it; both
@@ -56,7 +56,7 @@ those given a key-padding mask in ``<wrapper>.masked_launches``,
 those at a head dim up to 128 that is not a multiple of 64 (K5b) in
 ``<wrapper>.small_d_launches``, and those above 128 in
 ``<wrapper>.wide_d_launches`` (the head dim tells which design ran:
-192 and 256, or D split across warps at 320 to 512); each wrapper's
+192 and 256, or D split at 320 to 512); each wrapper's
 ``sm90_launches`` counts its launches of the Hopper kernels, and its
 ``f32tc_launches`` those of the f32 tensor-core kernels.
 
@@ -126,8 +126,9 @@ HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448, 512)
 # head dims of the Hopper backward kernels (bf16, no mask; _bwd_entry)
 SM90_HEAD_DIMS = (64, 128, 192, 256)
 # head dims of K1's Hopper kernel (bf16; _fwd_entry): every multiple of 8
-# up to 128, masked or not, and 192 and 256 without a mask
-SM90_FWD_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256)
+# up to 128, masked or not, and 192 to 512 without a mask
+SM90_FWD_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448,
+                                                512)
 # the largest head dim of K2's and K3's f32 tensor-core kernels (f32;
 # masked up to 128, as every kernel; _bwd_entry): every f32 backward
 F32TC_MAX_D = 512
@@ -148,12 +149,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _TAIL = [_P, _L, ctypes.c_float, _I, _P]
 # C entry point -> (source stem, argtypes)
 _ENTRY_POINTS = {
-    "zoo_flash_attn_fwd": ("flash_attn_fwd",
-                           [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
-    # the old entry's arguments, mask included
     "zoo_flash_attn_fwd_sm90": ("flash_attn_fwd_sm90",
                                 [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
-    # the old entry's arguments, mask included
+    # the same arguments, mask included
     "zoo_flash_attn_fwd_f32tc": ("flash_attn_fwd_f32tc",
                                  [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
     "zoo_flash_attn_bwd_dq": ("flash_attn_bwd_dq",
@@ -531,20 +529,16 @@ def _count(wrapper, mask, d: int = 64) -> None:
         wrapper.small_d_launches += 1
 
 
-def _fwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> str:
+def _fwd_entry(dtype: torch.dtype) -> str:
     """The forward entry point a call takes: the Hopper kernel of
     ``flash_attn_fwd_sm90.cu`` (TMA, a producer warpgroup, wgmma) for
-    bf16 at ``SM90_FWD_HEAD_DIMS`` (a mask only up to 128, as every
-    kernel); that of ``flash_attn_fwd_f32tc.cu`` (3xTF32 mma.sync,
-    cp.async) for f32 at every head dim up to ``F32TC_FWD_MAX_D`` (512),
-    masked or not; ``flash_attn_fwd.cu`` for every other call (bf16 above
-    256)."""
-    if (dtype == torch.bfloat16 and dp in SM90_FWD_HEAD_DIMS
-            and (dp <= 128 or not masked)):
-        return "zoo_flash_attn_fwd_sm90"
-    if dtype == torch.float32 and dp <= F32TC_FWD_MAX_D:
-        return "zoo_flash_attn_fwd_f32tc"
-    return "zoo_flash_attn_fwd"
+    every bf16 call (``SM90_FWD_HEAD_DIMS``), that of
+    ``flash_attn_fwd_f32tc.cu`` (3xTF32 mma.sync, cp.async) for every f32
+    one (up to ``F32TC_FWD_MAX_D``). Each takes every head dim a kernel is
+    built for (``HEAD_DIMS``; a mask only up to 128): ``_check_inputs``
+    refuses the rest before a launch."""
+    return ("zoo_flash_attn_fwd_sm90" if dtype == torch.bfloat16
+            else "zoo_flash_attn_fwd_f32tc")
 
 
 def _bwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> Tuple[str, str]:
@@ -567,7 +561,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, scale: Optional[float], with_lse: bool,
             key_padding_mask: Optional[torch.Tensor] = None):
     d, scale, dp, (q, k, v) = _padded(scale, q, k, v)
-    name = _fwd_entry(q.dtype, dp, key_padding_mask is not None)
+    name = _fwd_entry(q.dtype)
     fn = _entry(name)
     _check_inputs(q, k, v, causal, key_padding_mask)
     mask = _kernel_mask(key_padding_mask)

@@ -206,15 +206,21 @@ Phases:
    steps/s, tokens/s, MFU (bench.py's formula), peak memory and the
    logged losses.
 18. K1 wider kernels: K1 at head dims 320, 384, 448 and 512 (the
-   reference's Pallas kernel at D % 64 == 0 above 256; bf16 splits D
-   across warps, flash_fwd_bf16_split_kernel) through the flash_attention
-   wrapper against its plain version: every instantiation once (bf16 and
-   f32, causal and not, with and without logsumexp, lq == lk and lq < lk;
-   one summary line, each launch counted in wide_d_launches, every f32
-   one on K1's f32 tensor-core kernel, phase 25), then the prefill call
-   at DeepSeek-V4-Flash's attention widths ([1,64,2048,512] causal) in
-   bf16 with and without logsumexp, and bf16 at D = 384, each timed
-   beside its plain version, SDPA and its bound (phase 25 times the f32
+   reference's Pallas kernel at D % 64 == 0 above 256; bf16 on K1's
+   Hopper kernel, flash_fwd_sm90_split_kernel: 64-row q blocks, O's head
+   dim split between two consumer warpgroups) through the
+   flash_attention wrapper against its plain version: every
+   instantiation once (bf16 and f32, causal and not, with and without
+   logsumexp, lq == lk and lq < lk; in bf16 also q/k/v views into a fused
+   projection, lq 192 (three 64-row blocks) and lk 320; one summary
+   line, each launch counted in wide_d_launches, every bf16 one in
+   sm90_launches and every f32 one on K1's f32 tensor-core kernel, phase
+   25), then 30 identical launches each of a causal [2,4,512,512] K1-lse
+   and a [1,2,192,448] K1-lse call, whose O and logsumexp must be bit
+   for bit the same every time, then the prefill call at
+   DeepSeek-V4-Flash's attention widths ([1,64,2048,512] causal) in bf16
+   with and without logsumexp, and bf16 at D = 384, each timed beside
+   its plain version, SDPA and its bound (phase 25 times the f32
    call).
 19. Generation, DeepSeek-V4-Flash widths, over HTTP: TinyGenLM at
    deepseek-ai/DeepSeek-V4-Flash's published attention widths (hidden
@@ -255,7 +261,8 @@ Phases:
    and its K1-lse, K2 and K3 must run on the f32 tensor-core kernels);
    K1-lse, K2
    and K3 must each launch exactly once a layer a step, every launch at
-   D = 512, and the loss must fall.
+   D = 512, every K1-lse launch (64) on K1's Hopper kernel, and the loss
+   must fall.
 22. K1 sm90: K1's Hopper kernel (flash_attn_fwd_sm90.cu: TMA into a
    ring of shared-memory stages, a producer warpgroup, wgmma) through the
    flash_attention wrapper against its plain version on the card: every
@@ -357,7 +364,7 @@ kv_mask_call and a kv_mask_lse_call at the masked bf16 NER trained call,
 a k5b_call at [8,32,1024,80] bf16 causal, a k5b_lse_call and a
 k5b_mask_lse_call at the MiniLM trained call unmasked and padded, a
 k5b_mask_call at the masked D = 32 call and a padded_call at D = 20,
-its launches those of phases 5, 6, 7, 8, 11 and 17;
+its launches those of phases 5, 6, 7, 8, 11, 17 and 21;
 flash_attn_bwd_dq_sm90 and
 flash_attn_bwd_dkv_sm90 at the SQuAD fit's call with a d128_call, a
 d192_call and an lm_call at the LM fit's, their launches those of phases
@@ -382,7 +389,8 @@ call with a kv_mask_call at its padded call, their launches the MiniLM
 fit's; flash_attn_fwd_wide at the Gemma-width prefill call (f32, on
 flash_attn_fwd_f32tc.cu since it retired the FMA kernel there) with an
 lse_call, its launches the Gemma phase's; flash_attn_fwd_wider
-(bf16 at D = 320-512) at the DeepSeek-width prefill call with an
+(bf16 at D = 320-512, flash_attn_fwd_sm90.cu's split kernel) at the
+DeepSeek-width prefill call with an
 lse_call, a d384_call and a trained_lse_call at the 512-head LM's call,
 its launches the 512-head LM fit's; flash_attn_bwd_dq_wider and
 flash_attn_bwd_dkv_wider at the 512-head LM's trained call with a
@@ -409,8 +417,6 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-# K1 bf16 at D = 320-512 (flash_fwd_bf16_split_kernel)
-K1_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd.cu"
 # the key-padding branch the masked kernels replace (JAX's stock Pallas
 # flash_attention with segment ids on the TPU), and the same stock kernel
 # at head dims that are not a multiple of 64, which K5b replaces
@@ -418,7 +424,7 @@ K5A_REPLACES = "analytics_zoo_tpu/ops/attention.py:116"
 K5B_REPLACES = "analytics_zoo_tpu/ops/attention.py:116"
 K1_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:82"
 # K1's bf16 forward on Hopper (every D up to 128, masked or not, and 192
-# and 256 without a mask), and K2's and K3's for the unmasked bf16 calls
+# to 512 without a mask), and K2's and K3's for the unmasked bf16 calls
 # at D in {64, 128, 192, 256}
 SM90_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu"
 SM90_BWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_sm90.cu"
@@ -715,7 +721,7 @@ def kernel_phase(torch, peaks):
         got = fa.flash_attention(q, k, v, causal, None, with_lse)
         torch.cuda.synchronize()
         # f32 on the f32 tensor-core kernel, bf16 on the Hopper kernel
-        _k1_check(fa, f"K1 {name} {dt}", before, dtype, d, False)
+        _k1_check(fa, f"K1 {name} {dt}", before, dtype)
         ref = fa.flash_attention_reference(q, k, v, causal, None,
                                            with_lse)
         out, lse = got if with_lse else (got, None)
@@ -909,10 +915,10 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
         if not (torch.isfinite(lse).all() and lerr <= LSE_TOL[dt]):
             fail(f"{label} K1 lse {name} {dt}: error {lerr} > {LSE_TOL[dt]}")
         del ro, rlse
-        # K1 and K1-lse: f32 on the f32 tensor-core kernel, bf16 up to
-        # D = 256 (masked up to 128) on the Hopper kernel
-        _k1_check(fa, f"{label} {name} {dt} D={d}", k1_before, dtype, d,
-                  m is not None, calls=2)
+        # K1 and K1-lse: f32 on the f32 tensor-core kernel, bf16 on the
+        # Hopper kernel
+        _k1_check(fa, f"{label} {name} {dt} D={d}", k1_before, dtype,
+                  calls=2)
         before = [(w.launches, w.f32tc_launches) for w in bwd_wrappers]
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
                                               None, m)
@@ -1126,12 +1132,11 @@ def _make(torch, rng):
     return make
 
 
-def _k1_kernels(fa, dtype, d, masked):
+def _k1_kernels(fa, dtype):
     """(Hopper, f32 tensor-core): 1 where ``_fwd_entry`` sends a K1 call
-    to that kernel (flash_attn_fwd_sm90.cu: bf16 up to D = 128, masked
-    or not, and at 192 and 256 without a mask; flash_attn_fwd_f32tc.cu:
-    f32 up to D = 512), else 0."""
-    name = fa._fwd_entry(dtype, fa._kernel_head_dim(d), masked)
+    to that kernel (flash_attn_fwd_sm90.cu: every bf16 call;
+    flash_attn_fwd_f32tc.cu: every f32 one), else 0."""
+    name = fa._fwd_entry(dtype)
     return int(name.endswith("_sm90")), int(name.endswith("_f32tc"))
 
 
@@ -1141,11 +1146,11 @@ def _k1_counts(fa):
     return fa.flash_attention.sm90_launches, fa.flash_attention.f32tc_launches
 
 
-def _k1_check(fa, label, before, dtype, d, masked, calls=1):
+def _k1_check(fa, label, before, dtype, calls=1):
     """Fail unless the K1 launches since ``before`` (``_k1_counts``),
     ``calls`` calls of one kind, ran where ``_fwd_entry`` sends them."""
     got = tuple(a - b for a, b in zip(_k1_counts(fa), before))
-    want = tuple(calls * n for n in _k1_kernels(fa, dtype, d, masked))
+    want = tuple(calls * n for n in _k1_kernels(fa, dtype))
     if got != want:
         fail(f"{label}: K1 launched {got[0]} times on "
              f"flash_attn_fwd_sm90.cu and {got[1]} on "
@@ -1158,9 +1163,9 @@ def fwd_check(torch, make, label, b, h, lq, lk, d, dt, causal, m, with_lse,
     version (``TOL``, ``LSE_TOL``); the wrapper must count it in
     ``counter`` (``small_d_launches`` for K5b, ``wide_d_launches`` above
     D = 128, ``sm90_launches`` for the Hopper kernel, ``f32tc_launches``
-    for the f32 tensor-core kernel), every f32 call (up to D = 512) in
-    ``f32tc_launches`` and every bf16 call up to D = 128 (and at 192 and
-    256 without a mask) in ``sm90_launches`` (``_k1_check``). With
+    for the f32 tensor-core kernel), every f32 call in
+    ``f32tc_launches`` and every bf16 call in ``sm90_launches``
+    (``_k1_check``). With
     ``views`` (and lq == lk) q, k and v are
     strided views into one fused [B, L, 3, H, D] projection, as the
     models' attention makes them. Returns (q, k, v, record)."""
@@ -1179,7 +1184,7 @@ def fwd_check(torch, make, label, b, h, lq, lk, d, dt, causal, m, with_lse,
     torch.cuda.synchronize()
     if getattr(fa.flash_attention, counter) != before + 1:
         fail(f"{label}: the wrapper did not count the launch in {counter}")
-    _k1_check(fa, label, k1_before, dtype, d, m is not None)
+    _k1_check(fa, label, k1_before, dtype)
     ref = fa.flash_attention_reference(q, k, v, causal, None, with_lse, m)
     out, lse = got if with_lse else (got, None)
     ref_out, ref_lse = ref if with_lse else (ref, None)
@@ -1468,12 +1473,27 @@ def wide_bwd_phase(torch, peaks, sweep=WIDE_BWD_SWEEP, cases=WIDE_BWD_CASES,
 
 # K1 above D = 256: every instantiation once (D in WIDER_HEAD_DIMS, bf16
 # and f32, causal and not, with and without logsumexp, lq == lk and lq <
-# lk)
+# lk), then in bf16 (the split kernel's 64-row q blocks) q/k/v views into
+# a fused projection, lq 192 (three blocks, an odd count) and lk 320
+# (not a multiple of 128); (name, shape, dtype, causal, with_lse, views)
 WIDER_SWEEP = [
-    (f"d{d}", shape + (d,), dt, causal, None, with_lse)
+    (f"d{d}", shape + (d,), dt, causal, with_lse, False)
     for d in WIDER_HEAD_DIMS for dt in ("bfloat16", "float32")
     for shape in ((2, 4, 256, 256), (1, 2, 128, 384))
-    for causal in (False, True) for with_lse in (False, True)]
+    for causal in (False, True) for with_lse in (False, True)] + [
+    (f"{name}_d{d}", shape + (d,), "bfloat16", causal, with_lse, views)
+    for d in WIDER_HEAD_DIMS for name, shape, causal, with_lse, views in (
+        ("views", (2, 3, 256, 256), False, True, True),
+        ("views", (2, 3, 256, 256), True, False, True),
+        ("odd_blocks", (1, 2, 192, 192), True, True, False),
+        ("odd_blocks", (1, 2, 192, 192), False, False, False),
+        ("lk320", (1, 2, 192, 320), True, True, False),
+        ("lk320", (1, 2, 64, 320), False, False, False))]
+# identical bf16 K1-lse launches whose O and logsumexp must agree bit for
+# bit every time (a race between the consumers and the ring shows so):
+# (b, h, lq, lk, d, causal)
+WIDER_REPEAT = ((2, 4, 512, 512, 512, True), (1, 2, 192, 192, 448, False))
+REPEATS = 30
 # the calls timed: the prefill call at DeepSeek-V4-Flash's attention
 # widths (64 heads of 512, the 2048 bucket) in bf16 without and with
 # logsumexp (the forward a training step would run), and bf16 at D =
@@ -1488,25 +1508,61 @@ WIDER_CASES = [
 ]
 
 
+def repeat_check(torch, make, b, h, lq, lk, d, causal, n=REPEATS):
+    """``n`` identical bf16 K1-lse calls (the first against its plain
+    version, ``fwd_check``): fail unless every O and logsumexp is bit for
+    bit the first's."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    label = f"K1 wider repeat {[b, h, lq, lk, d]} causal={causal}"
+    q, k, v, _ = fwd_check(torch, make, label, b, h, lq, lk, d, "bfloat16",
+                           causal, None, True, "sm90_launches")
+    first = fa.flash_attention(q, k, v, causal, None, True)
+    differ = 0
+    for _ in range(n - 2):
+        out, lse = fa.flash_attention(q, k, v, causal, None, True)
+        differ += not (torch.equal(out, first[0])
+                       and torch.equal(lse, first[1]))
+    if differ:
+        fail(f"{label}: {differ} of {n - 2} repeated launches differ from "
+             f"the second in O or logsumexp")
+
+
 def wider_phase(torch, peaks):
     """K1 at D in {320, 384, 448, 512} through the ``flash_attention``
     wrapper against its plain version on the card (``WIDER_SWEEP``, one
-    summary line), then ``WIDER_CASES`` timed. Every launch must count in
-    ``wide_d_launches``, and every f32 one in ``f32tc_launches``
-    (``fwd_check``). Returns the timed records."""
+    summary line), ``WIDER_REPEAT`` (``REPEATS`` launches each, bit for
+    bit the same), then ``WIDER_CASES`` timed. Every launch must count in
+    ``wide_d_launches``, every bf16 one in ``sm90_launches`` and every
+    f32 one in ``f32tc_launches`` (``fwd_check``). Returns the timed
+    records."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
     rng = np.random.RandomState(18)
     make = _make(torch, rng)
+    sm90_before = fa.flash_attention.sm90_launches
     sweep = []
-    for name, (b, h, lq, lk, d), dt, causal, _, with_lse in WIDER_SWEEP:
+    for name, (b, h, lq, lk, d), dt, causal, with_lse, views in WIDER_SWEEP:
         _, _, _, rec = fwd_check(
             torch, make, f"K1 wider {name} {dt} {[b, h, lq, lk]} "
-            f"causal={causal} lse={with_lse}", b, h, lq, lk, d, dt, causal,
-            None, with_lse, "wide_d_launches")
+            f"causal={causal} lse={with_lse} views={views}", b, h, lq, lk,
+            d, dt, causal, None, with_lse, "wide_d_launches", views=views)
         sweep.append(rec["share"])
     print(f"K1 wider: all {len(WIDER_SWEEP)} cases (D 320/384/448/512 x "
-          f"bf16/f32 x causal x lse x lq == lk or lq < lk) match the plain "
-          f"version (largest error {max(sweep):.3g} of its tolerance)",
-          flush=True)
+          f"bf16/f32 x causal x lse x lq == lk or lq < lk; bf16 views, lq "
+          f"192, lk 320) match the plain version (largest error "
+          f"{max(sweep):.3g} of its tolerance)", flush=True)
+    for b, h, lq, lk, d, causal in WIDER_REPEAT:
+        repeat_check(torch, make, b, h, lq, lk, d, causal)
+    print(f"K1 wider: {REPEATS} launches each of "
+          + " and ".join(f"{list(c[:5])} causal={c[5]}" for c in WIDER_REPEAT)
+          + " gave the same O and logsumexp bit for bit", flush=True)
+    want = (sum(c[2] == "bfloat16" for c in WIDER_SWEEP)
+            + len(WIDER_REPEAT) * REPEATS)
+    sm90 = fa.flash_attention.sm90_launches - sm90_before
+    if sm90 != want:
+        fail(f"K1 wider: {sm90} launches on K1's Hopper kernel (want every "
+             f"bf16 call's: {want})")
     checks = timed_fwd_cases(torch, peaks, rng, WIDER_CASES,
                              "wide_d_launches", "K1 wider", iters=10)
     print(json.dumps({"wider_checks": checks}), flush=True)
@@ -2006,14 +2062,13 @@ def _launches(fa):
 def _sm90_expected(torch, fa, dtype, head_dim, masked, launches):
     """{kernel: how many of its launches in ``launches`` (``_launches``'s
     form) must have run on the Hopper kernels}: all of a call that
-    ``_fwd_entry`` (K1: ``flash_attn_fwd_sm90.cu``, bf16 up to D = 128,
-    masked or not, and 192 and 256 without a mask) or ``_bwd_entry`` (K2
+    ``_fwd_entry`` (K1: ``flash_attn_fwd_sm90.cu``, every bf16 call) or
+    ``_bwd_entry`` (K2
     and K3: ``flash_attn_bwd_sm90.cu``, bf16 without a mask at 64-256)
     sends there, none of any other."""
     dt = getattr(torch, dtype)
     hopper = dict(zip(("K1", "K2", "K3"), (
-        fa._fwd_entry(dt, head_dim, masked),
-        *fa._bwd_entry(dt, head_dim, masked))))
+        fa._fwd_entry(dt), *fa._bwd_entry(dt, head_dim, masked))))
     return {name: counts[0] if hopper[name].endswith("_sm90") else 0
             for name, counts in launches.items()}
 
@@ -2040,7 +2095,7 @@ def _f32tc_expected(torch, fa, dtype, head_dim, masked, launches):
     512), masked or not; none of any other."""
     dt, dp = getattr(torch, dtype), fa._kernel_head_dim(head_dim)
     tc = dict(zip(("K1", "K2", "K3"), (
-        fa._fwd_entry(dt, dp, masked), *fa._bwd_entry(dt, dp, masked))))
+        fa._fwd_entry(dt), *fa._bwd_entry(dt, dp, masked))))
     return {name: counts[0] if tc[name].endswith("_f32tc") else 0
             for name, counts in launches.items()}
 
@@ -2498,9 +2553,9 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
             fail(f"{label}: {kname} launched {counts[int(masked)]} times"
                  + (" with a mask" if masked else "")
                  + f" in {steps} train steps (< {need})")
-    # K1-lse, K2 and K3 of a bf16 model without a mask at D 64-256 all on
-    # the Hopper kernels; of a masked or K5b one K1-lse there, K2 and K3
-    # on the older sources; f32 and D > 256 none (_sm90_expected)
+    # K1-lse of every bf16 model on K1's Hopper kernel; K2 and K3 without
+    # a mask at D 64-256 on theirs, masked, K5b or above 256 on the older
+    # sources; f32 none (_sm90_expected)
     if cuda:
         print(_check_sm90(label, launches, _sm90_expected(
             torch, fa, base["dtype"], base["hidden_size"] // base["n_head"],
@@ -2849,6 +2904,10 @@ def lm_learn(torch, device="cuda", base=GPTJ, batch=LM_BATCH,
         if device == "cuda" and not wide == total == want:
             fail(f"{label}: {kname} launched {total} times, {wide} of them "
                  f"wide (want {want}, every one at D = {head_dim})")
+    # the bf16 blocks' K1-lse, at 256 and at 512, on K1's Hopper kernel
+    if device == "cuda" and launches["K1"][4] != want:
+        fail(f"{label}: {launches['K1'][4]} of K1-lse's {want} launches on "
+             f"K1's Hopper kernel")
     return launches
 
 
@@ -3214,8 +3273,7 @@ def generation_phase(torch, label, block, n_requests, prompt_lens,
                  f"{want // layers} prefills in buckets >= 128, warm-up "
                  f"included), {other} other flash launches")
         # TinyGenLM is f32: every prefill on K1's f32 tensor-core kernel
-        tc_want = launched * _k1_kernels(fa, torch.float32, m["head_dim"],
-                                         False)[1]
+        tc_want = launched * _k1_kernels(fa, torch.float32)[1]
         if f32tc != tc_want:
             fail(f"{label}: {f32tc} of the prefill's {launched} flash "
                  f"launches on flash_attn_fwd_f32tc.cu (want {tc_want})")
@@ -3680,7 +3738,8 @@ def main() -> None:
     sm90_launches = {"serving": runs[0][4], "ner_serving": runs[1][4],
                      "squad_fit": squad["K1"][4],
                      "ner_fit": ner_fit["K1"][4],
-                     "minilm_fit": minilm["K1"][4], "lm_fit": lm["K1"][4]}
+                     "minilm_fit": minilm["K1"][4], "lm_fit": lm["K1"][4],
+                     "lm512_fit": lm512["K1"][4]}
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd_sm90", "route": "cuda",
         "source": SM90_SOURCE, "replaces": K1_REPLACES,
@@ -3729,13 +3788,13 @@ def main() -> None:
             "lse_call": pick_keys(_pick(wide, "gemma_lse", "float32"),
                                   "lse_max_abs_err")},
         {
-            # K1 bf16 at D = 512 (flash_fwd_bf16_split_kernel): the
+            # K1 bf16 at D = 512 (flash_fwd_sm90_split_kernel): the
             # prefill call at DeepSeek-V4-Flash's attention widths
             # ([1,64,2048,512], causal), launched (with logsumexp) by the
             # 512-head LM's fit; f32 there (the DeepSeek phase's prefills)
             # is flash_attn_fwd_f32tc's
             "name": "flash_attn_fwd_wider", "route": "cuda",
-            "source": K1_SOURCE, "replaces": K1_REPLACES,
+            "source": SM90_SOURCE, "replaces": K1_REPLACES,
             "launches": lm512["K1"][3],
             "lm_lse_launches": lm512["K1"][3],
             **pick_keys(_pick(wider, "deepseek_bf16"), "library_backend"),

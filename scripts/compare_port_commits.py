@@ -22,7 +22,11 @@ and of the 512-head LM ([1,8,2048,512] causal), K1 and K1-lse at the served shap
 K1-lse in bf16 at the calls that run K1's Hopper kernel at K5b head dims
 or with a key-padding mask (the NER trained call [32,12,128,64] with its
 mask, MiniLM's K1-lse [48,12,384,32] without and with a mask,
-[8,32,1024,80] causal and [8,12,512,20] causal; device time), K1 in
+[8,32,1024,80] causal and [8,12,512,20] causal; device time), K1 and
+K1-lse in bf16 at head dims 320-512 (K1 at DeepSeek-V4-Flash's
+[1,64,2048,512] and at [2,32,2048,384], K1-lse at the 512-head LM's
+[4,8,2048,512] as views into the qkv projection, all causal; device
+time), K1 in
 f32 at the served shape [8,12,512,64], at the prefills of the f32
 generation phases (Phi-2's [1,32,2048,80], the repo geometry's
 [1,2,256,16], Gemma-2B's [1,8,8192,256] with its K1-lse at
@@ -115,7 +119,8 @@ BACKWARD = (
 # shape and the widest head dim the backward also takes, bf16; the bf16
 # calls at K5b head dims and with a mask (the NER trained call, MiniLM's
 # K1-lse unmasked and padded, [8,32,1024,80] causal and the padded head
-# dim 20); then f32
+# dim 20), bf16 above 256 (K1 at [1,64,2048,512] and [2,32,2048,384],
+# the 512-head LM's K1-lse as views into its qkv projection); then f32
 # (the K1 f32 calls of BACKWARD aside): the served shape, the f32
 # generation phases' prefills at their widths and top buckets (with the
 # Gemma width's K1-lse at its 2048 bucket), K1 at D = 512 (the
@@ -135,6 +140,9 @@ FWD_CASES = (
      _squad_mask, True),
     ("k5b_d80_k1", (8, 32, 1024, 1024, 80), "bfloat16", True, None, False),
     ("padded_d20_k1", (8, 12, 512, 512, 20), "bfloat16", True, None, False),
+    ("d512_k1", (1, 64, 2048, 2048, 512), "bfloat16", True, None, False),
+    ("lm512_k1_lse", (4, 8, 2048, 2048, 512), "bfloat16", True, None, True),
+    ("d384_k1", (2, 32, 2048, 2048, 384), "bfloat16", True, None, False),
     ("f32_served_k1", (8, 12, 512, 512, 64), "float32", False, None, False),
     ("f32_phi2_k1", (1, 32, 2048, 2048, 80), "float32", True, None, False),
     ("f32_repo_k1", (1, 2, 256, 256, 16), "float32", True, None, False),
@@ -147,6 +155,7 @@ FWD_CASES = (
      True),
     ("f32_d384_k1", (2, 32, 2048, 2048, 384), "float32", True, None, False),
 )
+FWD_VIEWS = ("lm512_k1_lse",)
 # (line pattern, metric name): seconds the phases print as they go
 SECONDS = (
     (r"^serving: BERT-base saved in ([0-9.]+)s", "bert_save_s"),
@@ -181,7 +190,8 @@ def run_phases(checkout: str) -> None:
     for label, case, _ in BACKWARD:
         cs.backward_phase(torch, cs.PEAKS["sxm"], [case], 1, label)
     fwd = cs.timed_fwd_cases(torch, cs.PEAKS["sxm"], np.random.RandomState(0),
-                             list(FWD_CASES), "launches", "fwd", iters=20)
+                             list(FWD_CASES), "launches", "fwd", iters=20,
+                             views=FWD_VIEWS)
     print(json.dumps({"fwd_checks": fwd}), flush=True)
     cs.bert_serving(torch)
     with tempfile.TemporaryDirectory() as ner_dir:
@@ -278,7 +288,8 @@ def main() -> None:
         name for _, name in SECONDS]
     print(json.dumps({name: {side: {
         "runs": [r.get(name) for r in rs],
-        "median": statistics.median(r[name] for r in rs if name in r)}
+        "median": statistics.median(
+            r[name] for r in rs if r.get(name) is not None)}
         for side, rs in runs.items()} for name in names}), flush=True)
 
 

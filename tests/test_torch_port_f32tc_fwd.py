@@ -60,8 +60,7 @@ from tests.test_torch_port_masked import _mask
 
 torch.set_num_threads(2)
 
-F32TC, OLD, SM90 = ("zoo_flash_attn_fwd_f32tc", "zoo_flash_attn_fwd",
-                    "zoo_flash_attn_fwd_sm90")
+F32TC, SM90 = "zoo_flash_attn_fwd_f32tc", "zoo_flash_attn_fwd_sm90"
 # chip_smoke.py's LSE_TOL["float32"]: |lse - ref| <= LSE_TOL
 LSE_TOL = 1e-4
 # where the entry point takes its lse pointer
@@ -74,17 +73,13 @@ class TestRoute:
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_fwd_entry(self, d, dtype, masked):
         """f32 at every head dim up to 512, masked or not, takes the f32
-        tensor-core kernel; bf16 up to 128 (masked or not, K5b among
-        them) and without a mask at 192 and 256 the Hopper kernel; bf16
-        above 256 the older source."""
-        if dtype == torch.float32 and d <= fa.F32TC_FWD_MAX_D:
-            want = F32TC
-        elif dtype == torch.bfloat16 and (d <= 128 or (
-                not masked and d in (192, 256))):
-            want = SM90
-        else:
-            want = OLD
-        assert fa._fwd_entry(dtype, d, masked) == want
+        tensor-core kernel; bf16 at every head dim (up to 128 masked or
+        not, K5b among them, 192 to 512 without a mask) the Hopper
+        kernel. Both cover every head dim a kernel is built for."""
+        want = F32TC if dtype == torch.float32 else SM90
+        assert d <= fa.F32TC_FWD_MAX_D
+        assert d in fa.SM90_FWD_HEAD_DIMS
+        assert fa._fwd_entry(dtype) == want
 
     def test_limit(self):
         """The f32 forward and backward both reach 512, every head dim
@@ -93,11 +88,12 @@ class TestRoute:
         assert fa.F32TC_FWD_MAX_D == max(fa.HEAD_DIMS)
 
     def test_entry_point_is_registered(self):
-        """The new entry takes the old one's arguments, mask included."""
+        """The f32 entry takes the Hopper entry's arguments, mask
+        included."""
         stem, argtypes = fa._ENTRY_POINTS[F32TC]
         assert stem == "flash_attn_fwd_f32tc"
         assert (fa._CSRC / f"{stem}.cu").is_file()
-        assert argtypes == fa._ENTRY_POINTS[OLD][1]
+        assert argtypes == fa._ENTRY_POINTS[SM90][1]
 
     def test_shared_header_is_part_of_the_build(self):
         """Both f32 sources include the helpers' header, which the
@@ -167,6 +163,7 @@ class TestLaunches:
         ("bf16_k5b", 32, torch.bfloat16, False),
         ("bf16_sm90", 128, torch.bfloat16, False),
         ("bf16_wide", 256, torch.bfloat16, False),
+        ("bf16_wider", 512, torch.bfloat16, False),
     ])
     def test_other_calls_count_no_f32tc(self, f32tc_count, kind, d, dtype,
                                         masked):
@@ -176,8 +173,7 @@ class TestLaunches:
         m = (torch.ones(2, 192, dtype=torch.uint8, device="meta")
              if masked else None)
         fa.flash_attention(q, k, v, False, key_padding_mask=m)
-        assert [name for name, _ in f32tc_count] == [
-            fa._fwd_entry(dtype, d, masked)]
+        assert [name for name, _ in f32tc_count] == [fa._fwd_entry(dtype)]
         assert (fa.flash_attention.launches,
                 fa.flash_attention.f32tc_launches) == (1, 0)
 

@@ -156,14 +156,15 @@ class TestGates:
 def fake_card(monkeypatch):
     """The wrappers' CUDA branch on meta tensors: each entry point is a
     spy that records (name, arguments) and returns 0 (launched); the
-    input checks keep only the head-dim gate (meta is not CUDA)."""
+    input checks keep only the head-dim gate, a mask's with it (meta is
+    not CUDA)."""
     calls = []
 
     def entry(name):
         return lambda *args: calls.append((name, args)) or 0
 
     def check_inputs(q, k, v, causal, mask=None, **more):
-        fa._check_head_dim(q.shape[-1])
+        fa._check_head_dim(q.shape[-1], masked=mask is not None)
 
     monkeypatch.setattr(fa, "_entry", entry)
     monkeypatch.setattr(fa, "_check_inputs", check_inputs)
@@ -177,11 +178,11 @@ def fake_card(monkeypatch):
 
 
 # where each entry point takes its head dim and its mask pointer
-D_ARG = {"zoo_flash_attn_fwd": 10, "zoo_flash_attn_fwd_f32tc": 10,
+D_ARG = {"zoo_flash_attn_fwd_sm90": 10, "zoo_flash_attn_fwd_f32tc": 10,
          "zoo_flash_attn_bwd_dq": 13, "zoo_flash_attn_bwd_dkv": 13,
          "zoo_flash_attn_bwd_dq_f32tc": 13,
          "zoo_flash_attn_bwd_dkv_f32tc": 13}
-MASK_ARG = {"zoo_flash_attn_fwd": 23, "zoo_flash_attn_fwd_f32tc": 23,
+MASK_ARG = {"zoo_flash_attn_fwd_sm90": 23, "zoo_flash_attn_fwd_f32tc": 23,
             "zoo_flash_attn_bwd_dq": 32, "zoo_flash_attn_bwd_dkv": 32,
             "zoo_flash_attn_bwd_dq_f32tc": 32,
             "zoo_flash_attn_bwd_dkv_f32tc": 32}

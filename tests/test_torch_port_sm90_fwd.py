@@ -1,14 +1,15 @@
 """PyTorch port, K1's Hopper forward (``csrc/flash_attn_fwd_sm90.cu``):
-the route that sends bf16 calls at every head dim up to 128 (masked or
-not) and without a key-padding mask at 192 and 256 to it
-(``_fwd_entry``; the K5b and masked calls in detail in
+the route that sends every bf16 call to it (``_fwd_entry``: every head
+dim up to 128, masked or not, and without a key-padding mask 192 to 512;
+the K5b and masked calls in detail in
 ``test_torch_port_sm90_masked_fwd.py``), what the wrapper hands its
 entry point and counts, and K1's plain version (what the kernel is held
 to on the card by ``chip_smoke.py``) against the JAX package's Pallas
-kernel ``_flash_fwd`` in interpret mode at the shapes the new kernel
-must get right: an odd number of 64-row q blocks (its 128-row blocks
-end on a half one), Lq < Lk causal (the bottom-right diagonal), and the
-logsumexp at 192 and 256.
+kernel ``_flash_fwd`` in interpret mode at the shapes the kernel must
+get right: an odd number of 64-row q blocks (its 128-row blocks end on a
+half one; above 256 three 64-row blocks), Lq < Lk causal (the
+bottom-right diagonal), Lk past the last whole 128-key tile, and the
+logsumexp at 192 to 512.
 
 The CUDA kernel itself cannot run here (no card, no nvcc). Where a test
 stands in for the card, the wrappers' CUDA branch runs on meta tensors
@@ -29,7 +30,6 @@ torch.set_num_threads(2)
 
 SM90 = "zoo_flash_attn_fwd_sm90"
 F32TC = "zoo_flash_attn_fwd_f32tc"
-OLD = "zoo_flash_attn_fwd"
 # where the entry point takes its lse pointer, mask pointer, causal flag
 # and scale
 LSE_ARG, MASK_ARG, CAUSAL_ARG, SCALE_ARG = 4, 23, 26, 25
@@ -45,26 +45,41 @@ class TestRoute:
     @pytest.mark.parametrize("masked", [False, True])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-    def test_fwd_entry(self, d, dtype, masked):
-        """bf16 up to 128, masked or not, and without a mask at 192 and
-        256 takes the Hopper kernel; f32 at every head dim, masked or
-        not, the f32 tensor-core kernel; bf16 above 256 keeps
-        ``flash_attn_fwd.cu``."""
-        if dtype == torch.bfloat16 and (d <= 128 or (not masked
-                                                     and d in (192, 256))):
-            want = SM90
-        elif dtype == torch.float32:
-            want = F32TC
-        else:
-            want = OLD
-        assert fa._fwd_entry(dtype, d, masked) == want
+    def test_fwd_entry(self, fake_card, d, dtype, masked):
+        """Every bf16 call takes the Hopper kernel, 320 to 512 among
+        them; every f32 call the f32 tensor-core kernel (``_fwd_entry``),
+        and a call through the wrapper (meta tensors, spied entry points)
+        launches there at its head dim. A mask above 128 reaches no
+        kernel: the call raises first."""
+        want = SM90 if dtype == torch.bfloat16 else F32TC
+        assert fa._fwd_entry(dtype) == want
+        q, k, v = _meta(d, dtype)
+        m = (torch.ones(2, 128, dtype=torch.uint8, device="meta")
+             if masked else None)
+        if masked and d > 128:
+            with pytest.raises(NotImplementedError, match="masked"):
+                fa.flash_attention(q, k, v, key_padding_mask=m)
+            assert fake_card == []
+            return
+        fa.flash_attention(q, k, v, key_padding_mask=m)
+        assert [(name, args[D_ARG[name]]) for name, args in fake_card] == [
+            (want, d)]
 
     def test_entry_points_are_registered(self):
+        """The Hopper entry takes q, k, v, o and lse, the dtype, the
+        shape and head dim, the strides of q, k, v and o, the mask
+        pointer and its batch stride, the scale, the causal flag and the
+        stream: the f32 entry's arguments."""
         stem, argtypes = fa._ENTRY_POINTS[SM90]
         assert stem == "flash_attn_fwd_sm90"
         assert (fa._CSRC / f"{stem}.cu").is_file()
-        # the old entry's arguments, the mask pointer and stride with them
-        assert argtypes == fa._ENTRY_POINTS[OLD][1]
+        P, I, L = fa._P, fa._I, fa._L
+        assert argtypes == ([P] * 5 + [I] * 6 + [L] * 12
+                            + [P, L, fa.ctypes.c_float, I, P])
+        assert argtypes == fa._ENTRY_POINTS[F32TC][1]
+        # the source the Hopper kernel retired is gone
+        assert not (fa._CSRC / "flash_attn_fwd.cu").exists()
+        assert "zoo_flash_attn_fwd" not in fa._ENTRY_POINTS
 
 
 def _meta(d, dtype=torch.bfloat16, grad=False, b=2, h=3, lq=128, lk=128):
@@ -82,20 +97,20 @@ def sm90_count(monkeypatch, fake_card):
 class TestLaunches:
     @pytest.mark.parametrize("causal", [False, True])
     @pytest.mark.parametrize("with_lse", [False, True])
-    @pytest.mark.parametrize("d", [64, 128, 192, 256])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 448, 512])
     def test_bf16_call_reaches_sm90(self, sm90_count, d, with_lse, causal):
         """Off the CPU (meta tensors, spied entry points) a bf16 call
         without a mask launches the Hopper kernel once, with its head
         dim, lse pointer, scale and causal flag, and counts in
         ``sm90_launches`` (and ``launches``, and above 128 in
-        ``wide_d_launches``)."""
+        ``wide_d_launches``): at 320 to 512 too."""
         q, k, v = _meta(d, lq=192, lk=256)
         got = fa.flash_attention(q, k, v, causal, None, with_lse)
         out = got[0] if with_lse else got
         assert out.shape == q.shape and out.dtype == torch.bfloat16
         assert [name for name, _ in sm90_count] == [SM90]
         args = sm90_count[0][1]
-        assert args[D_ARG[OLD]] == d
+        assert args[D_ARG[SM90]] == d
         assert args[8:10] == (192, 256)  # lq, lk
         assert (args[LSE_ARG] is not None) == with_lse
         assert args[MASK_ARG] is None
@@ -121,6 +136,44 @@ class TestLaunches:
         assert sm90_count[0][1][LSE_ARG] is not None
         assert fa.flash_attention.sm90_launches == 1
 
+    @pytest.mark.parametrize("d", [320, 384, 448, 512])
+    def test_gradient_above_256_runs_sm90_then_older_k2_k3(
+            self, monkeypatch, sm90_count, d):
+        """Above 256 ``FlashAttention``'s K1-lse runs on the Hopper kernel
+        (with an lse, at the head dim), then K2 and K3 on
+        ``flash_attn_bwd_{dq,dkv}.cu``'s split templates; every launch is
+        a wide one, and only K1's counts in ``sm90_launches``."""
+        for w in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+            for name in ("sm90_launches", "wide_d_launches"):
+                monkeypatch.setattr(w, name, 0)
+        q, k, v = _meta(d, grad=True)
+        out = fa.flash_attention(q, k, v, True)
+        grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
+        assert all(g.shape == q.shape for g in grads)
+        assert [(name, args[D_ARG[name]]) for name, args in sm90_count] == [
+            (SM90, d), ("zoo_flash_attn_bwd_dq", d),
+            ("zoo_flash_attn_bwd_dkv", d)]
+        assert sm90_count[0][1][LSE_ARG] is not None
+        assert sm90_count[0][1][CAUSAL_ARG] == 1
+        wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                    fa.flash_attention_bwd_dkv)
+        assert [w.sm90_launches for w in wrappers] == [1, 0, 0]
+        assert [w.wide_d_launches for w in wrappers] == [1, 1, 1]
+
+    @pytest.mark.parametrize("with_lse", [False, True])
+    @pytest.mark.parametrize("d", [192, 320, 384, 448, 512])
+    def test_mask_above_128_reaches_no_kernel(self, sm90_count, d, with_lse):
+        """A bf16 call with a key-padding mask above 128 raises before
+        any launch and counts nothing (the dispatch takes the einsum path
+        for such a call)."""
+        q, k, v = _meta(d)
+        m = torch.ones(2, 128, dtype=torch.uint8, device="meta")
+        with pytest.raises(NotImplementedError, match="masked"):
+            fa.flash_attention(q, k, v, True, None, with_lse, m)
+        assert sm90_count == []
+        assert (fa.flash_attention.launches,
+                fa.flash_attention.sm90_launches) == (0, 0)
+
     @pytest.mark.parametrize("kind,d,dtype,masked", [
         ("masked", 64, torch.bfloat16, True),
         ("f32", 64, torch.float32, False),
@@ -131,21 +184,19 @@ class TestLaunches:
     ])
     def test_other_calls_keep_the_old_entry(self, sm90_count, kind, d,
                                             dtype, masked):
-        """A masked bf16 call and bf16 K5b (D = 80, and 20 padded to 24)
-        now reach the Hopper entry too, the mask's pointer with them, and
-        count in ``sm90_launches``; D = 512 still reaches
-        ``zoo_flash_attn_fwd`` and f32 (D = 64 and 256) the f32
-        tensor-core entry, all three taking the same arguments, and
-        neither counts there."""
+        """A masked bf16 call, bf16 K5b (D = 80, and 20 padded to 24) and
+        bf16 at D = 512 reach the Hopper entry too, the mask's pointer
+        with them, and count in ``sm90_launches``; f32 (D = 64 and 256)
+        keeps the f32 tensor-core entry, which takes the same arguments,
+        and does not count there."""
         q, k, v = _meta(d, dtype)
         m = (torch.ones(2, 128, dtype=torch.uint8, device="meta")
              if masked else None)
         fa.flash_attention(q, k, v, False, key_padding_mask=m)
-        want = (F32TC if dtype == torch.float32 else
-                SM90 if fa._kernel_head_dim(d) <= 128 else OLD)
+        want = F32TC if dtype == torch.float32 else SM90
         assert [name for name, _ in sm90_count] == [want]
         args = sm90_count[0][1]
-        assert args[D_ARG[OLD]] == fa._kernel_head_dim(d)
+        assert args[D_ARG[want]] == fa._kernel_head_dim(d)
         assert (args[MASK_ARG] is not None) == masked
         assert fa.flash_attention.sm90_launches == int(want == SM90)
         assert fa.flash_attention.launches == 1
@@ -193,3 +244,31 @@ class TestPlainAgainstPallas:
                                        atol=BF16_TOL, rtol=BF16_TOL)
             np.testing.assert_allclose(got_lse.numpy(), want_lse,
                                        atol=BF16_LSE_TOL)
+
+    @pytest.mark.parametrize("causal,lq,lk", [
+        (False, 192, 192),   # three 64-row q blocks, an odd count
+        (True, 192, 192),
+        (True, 128, 384),    # Lq < Lk, the diagonal at offset 256
+        (True, 192, 320),    # Lk not a multiple of 128
+        (False, 64, 320),
+    ])
+    @pytest.mark.parametrize("d", [320, 384, 448, 512])
+    def test_wider_bf16_matches_pallas_kernel(self, d, causal, lq, lk):
+        """K1's plain version against ``_flash_fwd`` with its logsumexp
+        in bf16 on both sides at the split kernel's head dims, at the
+        shapes its 64-row q blocks must get right."""
+        q, k, v = _qkv(d + lq + lk + causal, 1, 2, lq, lk, d)
+        out, lse = _flash_fwd(*(jnp.asarray(a, jnp.bfloat16)
+                                for a in (q, k, v)),
+                              causal, 1.0 / np.sqrt(d), 64, 64,
+                              with_lse=True)
+        got, got_lse = fa.flash_attention(
+            *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+            causal=causal, with_lse=True)
+        assert got.dtype == torch.bfloat16 and got.shape == (1, 2, lq, d)
+        assert got_lse.shape == (2, lq) and got_lse.dtype == torch.float32
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(out.astype(jnp.float32)),
+                                   atol=BF16_TOL, rtol=BF16_TOL)
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse)[..., 0],
+                                   atol=BF16_LSE_TOL)

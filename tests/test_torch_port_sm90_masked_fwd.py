@@ -34,10 +34,9 @@ from tests.test_torch_port_k5b_bwd import fake_card  # noqa: F401
 torch.set_num_threads(2)
 
 SM90 = "zoo_flash_attn_fwd_sm90"
-OLD = "zoo_flash_attn_fwd"
 BWD_SM90 = ("zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90")
 BWD_OLD = ("zoo_flash_attn_bwd_dq", "zoo_flash_attn_bwd_dkv")
-# where the entry point takes each argument (zoo_flash_attn_fwd's order)
+# where the entry point takes each argument
 LSE_ARG, D_ARG, MASK_ARG, MASK_SB_ARG, SCALE_ARG, CAUSAL_ARG = (
     4, 10, 23, 24, 25, 26)
 BF16 = torch.bfloat16
@@ -57,11 +56,15 @@ class TestRoute:
         the others to a multiple of 8), with a mask or without, takes
         ``flash_attn_fwd_sm90.cu``."""
         assert dp in fa.SM90_FWD_HEAD_DIMS
-        assert fa._fwd_entry(BF16, dp, masked) == SM90
+        assert fa._fwd_entry(BF16) == SM90
 
     @pytest.mark.parametrize("dp", [320, 384, 448, 512])
     def test_bf16_above_256_keeps_the_older_source(self, dp):
-        assert fa._fwd_entry(BF16, dp, False) == OLD
+        """bf16 above 256 (no mask) takes the Hopper kernel too, the
+        source that kept it before (``flash_attn_fwd.cu``) being gone."""
+        assert dp in fa.SM90_FWD_HEAD_DIMS
+        assert fa._fwd_entry(BF16) == SM90
+        assert not (fa._CSRC / "flash_attn_fwd.cu").exists()
 
     @pytest.mark.parametrize("masked", [False, True])
     @pytest.mark.parametrize("dp", range(8, 129, 8))
@@ -73,12 +76,17 @@ class TestRoute:
 
     def test_backward_set_is_not_widened(self):
         assert fa.SM90_HEAD_DIMS == (64, 128, 192, 256)
-        assert fa.SM90_FWD_HEAD_DIMS == tuple(range(8, 129, 8)) + (192, 256)
+        assert fa.SM90_FWD_HEAD_DIMS == tuple(range(8, 129, 8)) + (
+            192, 256, 320, 384, 448, 512)
 
     def test_entry_takes_the_old_arguments(self):
-        """The Hopper entry takes the older entry's arguments, the mask's
-        pointer and batch stride among them."""
-        assert fa._ENTRY_POINTS[SM90][1] == fa._ENTRY_POINTS[OLD][1]
+        """The Hopper entry takes the f32 entry's arguments, the mask's
+        pointer and batch stride among them (at MASK_ARG and
+        MASK_SB_ARG)."""
+        argtypes = fa._ENTRY_POINTS[SM90][1]
+        assert argtypes == fa._ENTRY_POINTS["zoo_flash_attn_fwd_f32tc"][1]
+        assert (argtypes[MASK_ARG], argtypes[MASK_SB_ARG]) == (fa._P, fa._L)
+        assert argtypes[D_ARG] == fa._I
 
 
 def _meta(d, b=2, h=3, lq=192, lk=256, grad=False):
