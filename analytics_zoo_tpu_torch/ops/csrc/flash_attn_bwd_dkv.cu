@@ -1,14 +1,13 @@
 // K3 (flash-attention dK and dV) for Hopper, sm_90a: the exported entry
-// point and its bf16 instantiations: every multiple of 8 up to 128 (K5b
-// backward at all but 64 and 128), with and without a key-padding mask
-// (at 64 and 128 with one only), and 320, 384, 448 and 512 without one.
-// bf16 without a mask at 64, 128, 192 and 256 is flash_attn_bwd_sm90.cu's,
-// every f32 call flash_attn_bwd_f32tc.cu's (1004 here for both). The
-// kernel templates and design notes are in flash_attn_bwd.cuh.
+// point and its bf16 instantiations at head dims 320, 384, 448 and 512
+// without a key-padding mask (flash_attn_bwd.cuh's split template). Every
+// other call returns 1004 here: bf16 up to 128, masked or not, and at 192
+// and 256 is flash_attn_bwd_sm90.cu's, every f32 call
+// flash_attn_bwd_f32tc.cu's. The kernel template and design notes are in
+// flash_attn_bwd.cuh.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dkv_kernel`
-// (:249-292, launched at :345), and the stock Pallas kernel's dK/dV where
-// analytics_zoo_tpu/ops/attention.py (:116-127) trains through it.
+// (:249-292, launched at :345) at those head dims.
 
 #include "flash_attn_bwd.cuh"
 
@@ -26,12 +25,14 @@ extern "C" int zoo_flash_attn_bwd_dkv(
     long long dv_sb, long long dv_sh, long long dv_sl,
     const void* mask, long long mask_sb,
     float scale, int causal, void* stream) {
+  (void)mask_sb;
   const int bad = check(dtype, lq, lk, batch, heads, causal);
   if (bad) return bad;
+  // bf16 at 320 to 512 only; the rest is the other sources'
+  if (dtype != 1 || d < 320 || d > 512 || d % 64) return 1004;
+  if (mask != nullptr) return 1006;
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dout = dout;
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.mask_sb = mask_sb;
   p.lse = static_cast<const float*>(lse);
   p.delta = const_cast<float*>(static_cast<const float*>(delta));
   p.dk = dk; p.dv = dv;
@@ -46,32 +47,14 @@ extern "C" int zoo_flash_attn_bwd_dkv(
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool masked = mask != nullptr;  // the kMask instantiation or not
-  // f32 at every head dim: flash_attn_bwd_f32tc.cu's
-  if (dtype == 0) return 1004;
   return with_head_dim(d, [&](auto dc) -> int {
     constexpr int D = decltype(dc)::value;
     if constexpr (D > 256) {
-      // 320 to 512: D split across warps, unmasked
-      if (masked) return 1006;
       return launch(flash_bwd_dkv_bf16_split_kernel<D>,
                     dim3(lk / kSplitRows, batch * heads),
                     bf16_split_dkv_smem_bytes<D>(), p, s, D);
-    } else if constexpr (D > 128) {
-      // 192 and 256: flash_attn_bwd_sm90.cu's (unmasked)
-      return masked ? 1006 : 1004;
     } else {
-      const dim3 grid(lk / kTile, batch * heads);
-      constexpr size_t smem = bf16_smem_bytes<D>();
-      if constexpr (D % 64 == 0) {
-        // 64 and 128 without a mask: flash_attn_bwd_sm90.cu's
-        if (!masked) return 1004;
-        return launch(flash_bwd_dkv_bf16_kernel<D, true>, grid, smem, p, s);
-      } else {
-        return masked
-            ? launch(flash_bwd_dkv_bf16_kernel<D, true>, grid, smem, p, s)
-            : launch(flash_bwd_dkv_bf16_kernel<D, false>, grid, smem, p, s);
-      }
+      return 1004;
     }
   });
 }

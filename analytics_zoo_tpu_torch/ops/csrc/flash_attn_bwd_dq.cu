@@ -1,23 +1,21 @@
 // K2 (flash-attention dQ and delta) for Hopper, sm_90a: the exported entry
-// point and its bf16 instantiations: every multiple of 8 up to 128 (K5b
-// backward at all but 64 and 128), with and without a key-padding mask
-// (at 64 and 128 with one only), and 320, 384, 448 and 512 without one.
-// bf16 without a mask at 64, 128, 192 and 256 is flash_attn_bwd_sm90.cu's,
-// every f32 call flash_attn_bwd_f32tc.cu's (1004 here for both). The
-// kernel templates and design notes are in flash_attn_bwd.cuh.
+// point and its bf16 instantiations at head dims 320, 384, 448 and 512
+// without a key-padding mask (flash_attn_bwd.cuh's split template). Every
+// other call returns 1004 here: bf16 up to 128, masked or not, and at 192
+// and 256 is flash_attn_bwd_sm90.cu's, every f32 call
+// flash_attn_bwd_f32tc.cu's. The kernel template and design notes are in
+// flash_attn_bwd.cuh.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
-// (:209-246, launched at :327), and the stock Pallas kernel's dQ where
-// analytics_zoo_tpu/ops/attention.py (:116-127) trains through it.
+// (:209-246, launched at :327) at those head dims.
 
 #include "flash_attn_bwd.cuh"
 
 // dtype: 1 = bfloat16 (0 = float32 returns 1004: flash_attn_bwd_f32tc.cu's
-// entries take it). Writes dq and delta ([B*H, Lq] f32,
-// contiguous). mask: [B, Lk] bytes (nonzero = real key) with batch stride
-// mask_sb, or null for none (required above d = 128). Returns a
-// cudaError_t (0 = launched); 1000 + n flags an argument the kernel does
-// not take.
+// entries take it). Writes dq and delta ([B*H, Lq] f32, contiguous). mask:
+// [B, Lk] bytes with batch stride mask_sb, which these head dims do not
+// take (1006), or null. Returns a cudaError_t (0 = launched); 1000 + n
+// flags an argument the kernel does not take.
 extern "C" int zoo_flash_attn_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq,
@@ -30,12 +28,14 @@ extern "C" int zoo_flash_attn_bwd_dq(
     long long dq_sb, long long dq_sh, long long dq_sl,
     const void* mask, long long mask_sb,
     float scale, int causal, void* stream) {
+  (void)mask_sb;
   const int bad = check(dtype, lq, lk, batch, heads, causal);
   if (bad) return bad;
+  // bf16 at 320 to 512 only; the rest is the other sources'
+  if (dtype != 1 || d < 320 || d > 512 || d % 64) return 1004;
+  if (mask != nullptr) return 1006;
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.mask_sb = mask_sb;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
   p.dq = dq;
@@ -50,32 +50,14 @@ extern "C" int zoo_flash_attn_bwd_dq(
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool masked = mask != nullptr;  // the kMask instantiation or not
-  // f32 at every head dim: flash_attn_bwd_f32tc.cu's
-  if (dtype == 0) return 1004;
   return with_head_dim(d, [&](auto dc) -> int {
     constexpr int D = decltype(dc)::value;
     if constexpr (D > 256) {
-      // 320 to 512: D split across warps, unmasked
-      if (masked) return 1006;
       return launch(flash_bwd_dq_bf16_split_kernel<D>,
                     dim3(lq / kSplitRows, batch * heads),
                     bf16_split_dq_smem_bytes<D>(), p, s, D);
-    } else if constexpr (D > 128) {
-      // 192 and 256: flash_attn_bwd_sm90.cu's (unmasked)
-      return masked ? 1006 : 1004;
     } else {
-      const dim3 grid(lq / kTile, batch * heads);
-      constexpr size_t smem = bf16_smem_bytes<D>();
-      if constexpr (D % 64 == 0) {
-        // 64 and 128 without a mask: flash_attn_bwd_sm90.cu's
-        if (!masked) return 1004;
-        return launch(flash_bwd_dq_bf16_kernel<D, true>, grid, smem, p, s);
-      } else {
-        return masked
-            ? launch(flash_bwd_dq_bf16_kernel<D, true>, grid, smem, p, s)
-            : launch(flash_bwd_dq_bf16_kernel<D, false>, grid, smem, p, s);
-      }
+      return 1004;
     }
   });
 }

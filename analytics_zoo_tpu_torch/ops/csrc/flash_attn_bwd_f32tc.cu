@@ -17,7 +17,7 @@
 // dV = P^T dO, all in f32; the causal mask aligned bottom-right (key j
 // visible to query i when j <= i + Lk - Lq); masked pairs take P = 0; a
 // row that sees no key gives nothing to dQ or dK and dO / Lk to the dV of
-// every key (flash_attn_bwd.cuh :23-33, the same empty_rows_dv).
+// every key (empty_rows_dv, flash_attn_bwd.cuh).
 //
 // What bounds them. K2 does 6 * D flops a visible (query, key) pair (S, dP,
 // dQ), K3 8 * D (S^T, dP^T, dV, dK). In f32 on plain FMA that is 67

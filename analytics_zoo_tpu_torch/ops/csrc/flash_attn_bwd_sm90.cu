@@ -1,20 +1,31 @@
 // Flash-attention backward (K2 dQ and delta, K3 dK/dV) for Hopper, sm_90a:
-// the bf16 kernels without a key-padding mask at head dims 64, 128, 192 and
-// 256, built on TMA, mbarriers, a producer warpgroup and wgmma (the parts
-// of flash_attn_fwd_sm90.cu, shared through flash_attn_sm90.cuh).
+// every bf16 call at a head dim up to 128 (each multiple of 8; the
+// wrappers pad other head dims to one), with or without a key-padding
+// mask, and the bf16 calls without a mask at head dims 192 and 256, built
+// on TMA, mbarriers, a producer warpgroup and wgmma (the parts of
+// flash_attn_fwd_sm90.cu, shared through flash_attn_sm90.cuh).
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
 // (:209, launched at :327) and `_flash_dkv_kernel` (:249, launched at :345),
 // both driven by `_flash_bwd` (:305), plus the rowsum delta = rowsum(dO * O)
-// that `_flash_bwd` takes in plain jnp (:316-319), for those calls. Given the
-// forward's Q, K, V, O, its per-row logsumexp and dO on [B, H, L, D]:
+// that `_flash_bwd` takes in plain jnp (:316-319), for those calls; and the
+// dQ and dK/dV kernels behind the custom_vjp of JAX's stock Pallas
+// flash_attention, which analytics_zoo_tpu/ops/attention.py (:116-127)
+// reaches with segment ids (a key-padding mask, K5a) or at head_dim % 64
+// != 0 (K5b). Given the forward's Q, K, V, O, its per-row logsumexp and dO
+// on [B, H, L, D]:
 //   P = exp(scale * Q K^T - lse),  dS = P * (dO V^T - delta) * scale (bf16)
 //   dQ = dS K,  dK = dS^T Q,  dV = P~^T dO  (P~ = P rounded to bf16)
 // f32 accumulation, bf16 outputs, a causal mask aligned bottom-right (key j
 // is visible to query i when j <= i + Lk - Lq), q/k/v/dO with the caller's
 // strides (views into a fused projection), lse and delta [B*H, Lq] f32.
-// Two kernels, K2 then K3 on one stream (K3 reads the delta K2 wrote), as
-// the reference and the older port run them: no atomics, deterministic.
+// The key-padding mask ([B, Lk] bytes, nonzero = real key) gives masked
+// pairs P = 0 and dS = 0, so padded keys get exactly zero dK; a row that
+// sees no key (an all-zero mask row, or causal with left padding; its lse
+// is -1e30) took the mean of V in the forward: it gives nothing to dQ or
+// dK and dO / Lk to the dV of every key (the reference einsum path's
+// gradients). Two kernels, K2 then K3 on one stream (K3 reads the delta K2
+// wrote), as the reference runs them: no atomics, deterministic.
 //
 // What bounds them. Per (b, h) K2 reads Q, K, V, O, dO once and writes dQ
 // and delta against 6 * D flops per visible (query, key) pair (S, dP, dQ);
@@ -23,15 +34,18 @@
 // 190 and 250 flops a byte, under the card's ridge of about 295: bound by
 // bytes, 0.0512 ms each (chip_smoke.py `bounds`). At the GPT-J-width LM's
 // call [4,16,2048,256] causal: bound by the tensor cores, 0.2086 ms (K2)
-// and 0.2781 ms (K3) at 989 TFLOP/s.
+// and 0.2781 ms (K3) at 989 TFLOP/s. Below D = 64 the bytes bound alone is
+// not the floor: every score takes one ex2 on the special-function units
+// (16 a clock an SM), and K2 and K3 each rebuild P, about 0.022 ms each for
+// MiniLM's 85 M scores ([48, 12, 384, 32]) against 0.026 of bytes.
 //
 // What the design does about it. The kernels it retires (the mma.sync
-// templates of flash_attn_bwd.cuh at these calls) loaded every tile with
-// every thread and a __syncthreads() pair, multiplied with
-// mma.sync.m16n8k16, re-read fragments for each 16-wide slice of D,
-// gathered the row-contracted B fragments two rows at a time, held 254
-// registers at D = 256, and K3 there computed S^T and dP^T twice (12 * D
-// flops a pair). Here:
+// templates of flash_attn_bwd.cuh) loaded every tile with every thread and
+// a __syncthreads() pair, multiplied with mma.sync.m16n8k16, re-read
+// fragments for each 16-wide slice of D, gathered the row-contracted B
+// fragments two rows at a time, walked wholly padded kv tiles, held 254
+// registers at D = 256 (K3 255 at D = 120, a few masked ones spilling),
+// and K3 above 128 computed S^T and dP^T twice (12 * D flops a pair). Here:
 //   * A block has three warpgroups (384 threads). Warpgroup 0 is the
 //     producer: it gives back its registers (setmaxnreg.dec) and one thread
 //     issues every load as a TMA copy (cp.async.bulk.tensor, 4-D tensor maps
@@ -43,8 +57,9 @@
 //     DkvTiles keep the three warpgroups inside what the block started with.
 //   * K2: a consumer owns 64 q rows (128 a block). Its Q and dO arrive once;
 //     it computes delta for its rows from O and dO in device memory (the
-//     four threads of a quad share a row) before the loop and writes it for
-//     K3. The ring carries the kv tiles of 64 keys, K and V apart (separate
+//     four threads of a quad share a row, taking its 16-byte chunks in
+//     turn up to the call's D) before the loop and writes it for K3. The
+//     ring carries the kv tiles of 64 keys, K and V apart (separate
 //     barriers: V is released after dP, K only after dQ; K's ring is the
 //     deeper). A tile: S = Q K^T and dP = dO V^T are SS wgmmas (A and B
 //     K-major from shared memory) committed as two groups, so P's
@@ -59,45 +74,86 @@
 //     SS wgmmas; P~^T and dS^T come out in the accumulator layout and are
 //     the A operands of dV += P~^T dO and dK += dS^T Q, with dO and Q read
 //     MN-major from the same tiles that were K-major B a moment before.
-//     At D = 128 a consumer owns 64 keys (128 a block) and holds dK and
-//     dV, D f32 registers a thread, beside S^T and dP^T (64).
-//   * K3 at D = 192 and 256: dK and dV together (D registers) and S^T and
-//     dP^T (64) pass the 240 a consumer gets. The two consumers share the
+//     From D = 80 to 128 a consumer owns 64 keys (128 a block) and holds dK
+//     and dV, D f32 registers a thread, beside S^T and dP^T (64).
+//   * K3 up to D = 64 and at 192 and 256: the two consumers share the
 //     block's 64 keys and split the work by product: consumer 0 computes
 //     S^T, forms P^T (f32) and accumulates dV += P~^T dO; consumer 1
 //     computes dP^T, takes P^T from consumer 0 through shared memory (two
 //     16 KB buffers, in the accumulator layout, float4 a thread; named
 //     barriers in both directions), forms dS^T and accumulates dK += dS^T Q.
 //     Each holds D/2 accumulator registers beside 32, and each pair costs
-//     8 * D flops, as at D = 128. Splitting the q columns of S^T and dP^T
-//     and then D between the consumers with SS wgmmas of N = D/2 would
+//     8 * D flops. Above 128 dK and dV together (D registers) and S^T and
+//     dP^T (64) would pass the 240 a consumer gets; up to 64 the split runs
+//     two blocks an SM (104 registers a consumer), which hides one block's
+//     loads behind the other's work. Splitting the q columns of S^T and
+//     dP^T and then D between the consumers with SS wgmmas of N = D/2 would
 //     give each 96 columns at D = 192, not a whole number of the 64-column
-//     atoms an MN-major B is read in under the 128-byte swizzle (128 + 64
-//     would leave one consumer a third idle). Both consumers computing all
-//     of S^T and dP^T, each accumulating dK and dV for half of D (12 * D
-//     flops a pair), took 0.71 ms at [4,16,2048,256] against this split's
-//     0.53 (H100 80GB HBM3, 700 W), so it went. At D = 64 the same split
-//     runs two blocks an SM (DkvCfg).
+//     atoms an MN-major B is read in under the 128-byte swizzle. Both
+//     consumers computing all of S^T and dP^T, each accumulating dK and dV
+//     for half of D (12 * D flops a pair), took 0.71 ms at [4,16,2048,256]
+//     against this split's 0.53 (H100 80GB HBM3, 700 W), so it went. Two
+//     blocks of K2 an SM at D = 64 (dQ, S and dP in 104 registers) spilled
+//     and serialized its wgmmas, so K2 runs one block an SM at every D.
+//   * Head dims that are not a multiple of 64 (K5b), as K1's Hopper kernel
+//     takes them: the tensor maps' global width is the call's D and their
+//     boxes 64 columns, so TMA fills the columns of the last slab past D
+//     with zeros in Q, K, V and dO; no host copy is made. An instantiation
+//     is built for each multiple of 16 up to 128 and runs D/16 k-steps of
+//     the products over D; a call at D = 8 (mod 16) takes the next one up,
+//     whose last k-step reads zeros in its upper half in both operands, and
+//     stores only its D columns of dQ, dK and dV. The products whose N side
+//     is D (dQ += dS K, dV += P~^T dO, dK += dS^T Q) read their B MN-major:
+//     one wgmma of N = 64 x the whole slabs and, at a head dim that is not a
+//     multiple of 64, one of N = D mod 64 over the first columns of the last
+//     slab, so the accumulators stay D/2 registers.
+//   * The key-padding mask is a template flag (kMask), so the unmasked
+//     instantiations are the kernels as they were.
+//     - K2: before the loop, the producer's first warp copies the batch
+//       row's mask (the keys of the tiles the block may walk) into shared
+//       memory, under Q's and dO's load, and lists the kv tiles that hold a
+//       real key; the producer and both consumers walk that list, so wholly
+//       padded tiles are never loaded and every barrier sees the same tiles
+//       (K1's design; the staged row is written once and only read after).
+//       A consumer reads its keys' bytes of a tile into one register of
+//       bits and gives a masked pair P = 0 (so dS = 0) after the
+//       exponential: a row that sees no key has lse -1e30, its exponentials
+//       overflow, and every one of them is masked. Its dQ is 0; its delta is
+//       written for K3 like any other.
+//     - K3: a block owns keys, and padded query rows are computed like any
+//       other, so no q tile is skipped for the mask. Before the loop the
+//       producer's first warp finds the batch row's first real key, hence
+//       the rows that see no key (the first n_empty rows of a (b, h): all
+//       Lq where the row has no real key, else, causal, those above the
+//       first real key's diagonal), sums their dO rows into E = bf16(1/Lk)
+//       * sum dO (the probability 1/Lk rounded as P~ is), and marks which
+//       64 keys of the block hold a real key. A block whose keys are all
+//       padding walks no q tile and loads nothing (dK = 0, dV = E); a
+//       consumer whose 64 keys are all padding only waits for each tile and
+//       releases it; every other gives P = 0 to its padded keys element by
+//       element. Every key's dV gets E added.
 //   * Causal: K2 never loads kv tiles above a block's last row and K3 never
 //     loads q tiles whose rows all lie above its first key; a consumer's
-//     tiles are a prefix (K2) or suffix (K3) of the block's, so its loops
-//     issue their wgmmas unconditionally (ptxas serializes every wgmma
-//     issued under an `if`); past them it only waits for each tile and
-//     releases it. Only tiles that cross the diagonal are masked element by
-//     element. K2's blocks run longest first (q blocks in reverse order);
+//     tiles are a prefix (K2) or suffix (K3) of the block's walk, so its
+//     loops issue their wgmmas unconditionally (ptxas serializes every
+//     wgmma issued under an `if`); past them it only waits for each tile
+//     and releases it. Only tiles that cross the diagonal are masked
+//     element by element. Under the mask with left padding (rows that see
+//     no key) both hold: the padded keys by their bits, the rest by the
+//     diagonal. K2's blocks run longest first (q blocks in reverse order);
 //     K3's do by their order (key blocks from the first).
-//   * Lq % 128 == 64 (K2) or Lk % 128 == 64 (K3 at D = 128): the last
-//     block's second consumer has no rows. It reaches every barrier and
-//     stores nothing; TMA zero-fills what it reads past Lq and Lk.
+//   * Lq % 128 == 64 (K2) or Lk % 128 == 64 (K3 with 128 keys a block): the
+//     last block's second consumer has no rows. It reaches every barrier
+//     and stores nothing; TMA zero-fills what it reads past Lq and Lk.
 //   * No wait traps on a timeout (a trap made ptxas serialize every wgmma
 //     of K1 and spill).
 // Later work: one fused kernel with dQ accumulated across key blocks, the
 // next tile's S and dP issued while this tile's dQ (or dK, dV) runs, a
 // persistent grid, and the outputs stored through shared memory and TMA.
 //
-// flash_attn_bwd_dq.cu and flash_attn_bwd_dkv.cu keep the masked bf16
-// calls, the other head dims up to 128 (K5b), every f32 call and bf16 above
-// 256.
+// flash_attn_bwd_f32tc.cu takes every f32 call; flash_attn_bwd_dq.cu and
+// flash_attn_bwd_dkv.cu (the split templates of flash_attn_bwd.cuh) bf16
+// at 320 to 512.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -106,16 +162,30 @@
 
 #include "flash_attn_sm90.cuh"
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kDqRows = 128;       // K2: q rows a block, two consumers of 64
 constexpr int kKvTile = 64;        // K2: keys a tile of the ring
 constexpr int kQTile = 64;         // K3: q rows a tile of the ring
 constexpr int kEmptyArrivals = 8;  // one a consumer warp
-// K3 at D > 128: named barriers of the P^T exchange between the two
-// consumers, one a buffer ("full": consumer 0 wrote it; "empty": consumer 1
-// read it), over both consumer warpgroups
+// K3 split: named barriers of the P^T exchange between the two consumers,
+// one a buffer ("full": consumer 0 wrote it; "empty": consumer 1 read it),
+// over both consumer warpgroups
 constexpr uint32_t kXFull = 1, kXEmpty = 3, kPair = 256;
+
+// the head dim an instantiation is built for, for a call at head dim d:
+// the next multiple of 16 up to 128 (TMA reads the columns past d as
+// zeros), else d
+__host__ __device__ constexpr int inst_dim(int d) {
+  return d <= 128 ? (d + 15) / 16 * 16 : d;
+}
+
+// columns of a staged row: whole 64-column slabs
+__host__ __device__ constexpr int width(int d) {
+  return (d + kSlab - 1) / kSlab * kSlab;
+}
 
 // K2 by head dim: K and V stages of the ring, blocks an SM, and the
 // registers a producer and a consumer thread keep after setmaxnreg
@@ -128,29 +198,44 @@ struct DqTiles {
   static_assert(PRODUCER + 2 * CONSUMER <= 3 * launch_regs(BLOCKS),
                 "registers");
 };
-// at D = 256: Q and dO 2 x 64 KB, K 2 x 32 KB, V 32 KB: 225 KB of the 227
-template <int D> struct DqCfg;
-template <> struct DqCfg<64> : DqTiles<3, 3, 1, 24, 240> {};
-template <> struct DqCfg<128> : DqTiles<3, 2, 1, 24, 240> {};
+// up to D = 128 by the slabs of D (the rings of D = 64 and 128), and at
+// 192 and 256 (at D = 256: Q and dO 2 x 64 KB, K 2 x 32 KB, V 32 KB: 225 KB
+// of the 227)
+template <int SLABS> struct DqSlabCfg;
+template <> struct DqSlabCfg<1> : DqTiles<3, 3, 1, 24, 240> {};
+template <> struct DqSlabCfg<2> : DqTiles<3, 2, 1, 24, 240> {};
+template <int D> struct DqCfg : DqSlabCfg<width(D) / kSlab> {};
 template <> struct DqCfg<192> : DqTiles<2, 2, 1, 24, 240> {};
 template <> struct DqCfg<256> : DqTiles<2, 1, 1, 24, 240> {};
 
-// dynamic shared memory of K2: 1024 bytes of alignment slack, Q, dO, the K
-// and V stages, the barriers (Q, then K full, V full, K empty, V empty)
+// bytes of K2's barriers (Q, then K full, V full, K empty, V empty),
+// rounded up to 16
 template <int D>
-constexpr int dq_smem_bytes() {
+__host__ __device__ constexpr int dq_bar_bytes() {
+  return (8 * (1 + 2 * (DqCfg<D>::kStagesK + DqCfg<D>::kStagesV)) + 15)
+      & ~15;
+}
+
+// dynamic shared memory of K2: 1024 bytes of alignment slack, Q, dO, the K
+// and V stages, the barriers; with a mask launch_dq adds the count of
+// listed kv tiles (16 bytes), the list and the batch row's mask
+template <int D>
+__host__ __device__ constexpr int dq_smem_bytes() {
   return 1024
       + (2 * kDqRows + (DqCfg<D>::kStagesK + DqCfg<D>::kStagesV) * kKvTile)
-          * D * 2
-      + 8 * (1 + 2 * (DqCfg<D>::kStagesK + DqCfg<D>::kStagesV));
+          * width(D) * 2
+      + dq_bar_bytes<D>();
+}
+
+// bytes of the list of kv tiles (4 a tile, rounded up to 16)
+__host__ __device__ constexpr int list_bytes(int lk) {
+  return ((lk + kKvTile - 1) / kKvTile * 4 + 15) & ~15;
 }
 
 // K3 by head dim: keys a block (two consumers of 64 each, or 64 shared by
 // both, which then split the work by product), q-tile stages, blocks an SM
-// and registers as DqTiles'. At D = 64 the split runs two blocks an SM
-// (104 registers a consumer: D/2 accumulators beside S^T and P^T), which
-// hides one block's loads behind the other's work; two blocks of K2 there
-// (dQ, S and dP in 104) spilled and serialized its wgmmas.
+// and registers as DqTiles'. Up to D = 64 the split runs two blocks an SM
+// (104 registers a consumer: D/2 accumulators beside S^T and P^T).
 template <int KEYS, int STAGES, int BLOCKS, int PRODUCER, int CONSUMER>
 struct DkvTiles {
   static constexpr int kKeys = KEYS, kStages = STAGES, kBlocks = BLOCKS;
@@ -160,28 +245,39 @@ struct DkvTiles {
   static_assert(PRODUCER + 2 * CONSUMER <= 3 * launch_regs(BLOCKS),
                 "registers");
 };
-// at D = 256: K and V 2 x 32 KB, 2 stages of Q and dO (2 x 32 KB), the
-// exchange 2 x 16 KB: 226 KB of the 227
-template <int D> struct DkvCfg;
-template <> struct DkvCfg<64> : DkvTiles<64, 3, 2, 24, 104> {};
-template <> struct DkvCfg<128> : DkvTiles<128, 3, 1, 24, 240> {};
+// up to D = 128 by the slabs of D, and at 192 and 256 (at D = 256: K and V
+// 2 x 32 KB, 2 stages of Q and dO (2 x 32 KB), the exchange 2 x 16 KB:
+// 226 KB of the 227)
+template <int SLABS> struct DkvSlabCfg;
+template <> struct DkvSlabCfg<1> : DkvTiles<64, 3, 2, 24, 104> {};
+template <> struct DkvSlabCfg<2> : DkvTiles<128, 3, 1, 24, 240> {};
+template <int D> struct DkvCfg : DkvSlabCfg<width(D) / kSlab> {};
 template <> struct DkvCfg<192> : DkvTiles<64, 2, 1, 24, 240> {};
 template <> struct DkvCfg<256> : DkvTiles<64, 2, 1, 24, 240> {};
 
+// bytes of K3's barriers (K and V, then full and empty a stage), rounded
+// up to 16
+template <int D>
+__host__ __device__ constexpr int dkv_bar_bytes() {
+  return (8 * (1 + 2 * DkvCfg<D>::kStages) + 15) & ~15;
+}
+
 // dynamic shared memory of K3: alignment slack, K, V, the stages of Q and
 // dO, the exchange buffers (split), each stage's lse and delta, the
-// barriers (K and V, then full and empty a stage)
+// barriers; with a mask launch_dkv adds 16 bytes of what the first warp
+// found and E (4 bytes a column)
 template <int D>
-constexpr int dkv_smem_bytes() {
+__host__ __device__ constexpr int dkv_smem_bytes() {
   using C = DkvCfg<D>;
-  return 1024 + 2 * C::kKeys * D * 2 + C::kStages * 2 * kQTile * D * 2
+  return 1024 + 2 * C::kKeys * width(D) * 2
+      + C::kStages * 2 * kQTile * width(D) * 2
       + (C::kSplit ? 2 * 64 * kQTile * 4 : 0) + C::kStages * 2 * kQTile * 4
-      + 8 * (1 + 2 * C::kStages);
+      + dkv_bar_bytes<D>();
 }
 
 struct Params {
   const void* o;                 // K2: O and dO, read for delta
-  const void* dout;
+  const void* dout;              // (K3 with a mask: dO of rows with no key)
   const float* lse;              // [B*H, Lq], natural log
   float* delta;                  // [B*H, Lq]: written by K2, read by K3
   void* dq;
@@ -193,22 +289,34 @@ struct Params {
   long long dk_sb, dk_sh, dk_sl;
   long long dv_sb, dv_sh, dv_sl;
   int h, lq, lk;
+  int d;                         // the call's head dim: columns stored
   float scale;                   // softmax scale
   float scale_log2;              // scale * log2(e)
   int causal;
+  // kMask: the key-padding mask ([B, Lk] bytes, nonzero = real key, rows
+  // 16-byte aligned)
+  const uint8_t* mask;
+  long long mask_sb;
 };
 
-// this thread's share of rowsum(x * y) over a bf16 row of D: the 16-byte
-// chunks part, part + 4, ... (a quad's four threads take one row)
+// this thread's share of rowsum(x * y) over a bf16 row of the call's
+// `chunks` 16-byte chunks (D/8 or D/8 - 1): the chunks part, part + 4, ...
+// (a quad's four threads take one row). Only the last round can pass the
+// call's chunks, and only up to D = 128; a chunk past them reads chunk 0
+// and counts as zeros, so the loads stay unconditional (a branch around
+// them slowed K2 at [48, 12, 384, 64], where the prologue weighs)
 template <int D>
 __device__ __forceinline__ float row_dot(const uint16_t* x, const uint16_t* y,
-                                         int part) {
+                                         int part, int chunks) {
+  constexpr int kRounds = (D / 8 + 3) / 4;
   float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) {
-    const int at = (i * 4 + part) * 8;
-    const uint4 xv = *reinterpret_cast<const uint4*>(x + at);
-    const uint4 yv = *reinterpret_cast<const uint4*>(y + at);
+  for (int i = 0; i < kRounds; ++i) {
+    const int c = i * 4 + part;
+    const bool in = D > 128 || i + 1 < kRounds || c < chunks;
+    uint4 xv = *reinterpret_cast<const uint4*>(x + (in ? c : 0) * 8);
+    const uint4 yv = *reinterpret_cast<const uint4*>(y + (in ? c : 0) * 8);
+    if (!in) xv = make_uint4(0u, 0u, 0u, 0u);
     const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xv);
     const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&yv);
 #pragma unroll
@@ -235,8 +343,9 @@ __device__ __forceinline__ void pack_a(uint32_t (&f)[4][4],
   }
 }
 
-// D[64 x 64] = A[64 x D] B[64 x D]^T, A and B K-major tiles of D/64 slabs in
-// shared memory (A's slabs A_ROWS rows apart, B's 64), as one commit group
+// D[64 x 64] = A[64 x D] B[64 x D]^T, A and B K-major tiles of ceil(D/64)
+// slabs in shared memory (A's slabs A_ROWS rows apart, B's 64), D/16
+// k-steps, as one commit group
 template <int D, int A_ROWS>
 __device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a_base,
                                          uint32_t b_base) {
@@ -254,20 +363,37 @@ __device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a_base,
   wgmma_commit();
 }
 
-// D[64 x N] += A[64 x 64] B[64 x N], A as bf16 fragments in registers, B
+// D[64 x D] += A[64 x 64] B[64 x D], A as bf16 fragments in registers, B
 // a tile of 64 rows (the K dimension) in slabs of 64 columns, MN-major
-// (the slabs are the leading byte offset apart), as one commit group
-template <int N>
-__device__ __forceinline__ void issue_rs(float (&d)[N / 2],
+// (the slabs are the leading byte offset apart), as one commit group: a
+// k-step of 16 is one wgmma of N = 64 x the whole slabs and, at a head dim
+// that is not a multiple of 64, one of N = D mod 64 over the first columns
+// of the last slab
+template <int D>
+__device__ __forceinline__ void issue_rs(float (&d)[D / 2],
                                          uint32_t (&a)[4][4],
                                          uint32_t b_base) {
+  constexpr int kFull = D / kSlab;
+  constexpr int kRem = D % kSlab;
   fence_regs(d);
   fence_regs(a);
   wgmma_fence();
   const uint64_t db = sw128_desc(b_base, 64 * kSlabRow, 1024);
+  const uint64_t db_rem =
+      sw128_desc(b_base + kFull * 64 * kSlabRow, 64 * kSlabRow, 1024);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    wgmma_rs<N>(d, a[kk], db, kk * 16 * (kSlabRow / 16));
+    const uint32_t off = kk * 16 * (kSlabRow / 16);
+    if constexpr (kFull > 0) {
+      wgmma_rs<kFull * kSlab>(
+          reinterpret_cast<float (&)[kFull * kSlab / 2]>(d[0]), a[kk], db,
+          off);
+    }
+    if constexpr (kRem > 0) {
+      wgmma_rs<kRem>(
+          reinterpret_cast<float (&)[kRem / 2]>(d[kFull * kSlab / 2]), a[kk],
+          db_rem, off);
+    }
   }
   wgmma_commit();
 }
@@ -279,8 +405,37 @@ __device__ __forceinline__ void release(uint32_t empty, int stage,
   if (lane == 0) mbar_arrive(empty + 8 * stage);
 }
 
+// the accumulator rows (rows ra, rb) of 64 x N values, as bf16 into a
+// [L, D] row-major output of row stride sl, the call's d columns only
+// (d is N or N - 8, so only the last 8 can be past it); with kAddE plus
+// e[col] on each column
+template <int N, bool kAddE>
+__device__ __forceinline__ void store_rows(uint16_t* out, long long sl,
+                                           int ra, int rb, int d, int t4,
+                                           const float (&x)[N / 2],
+                                           const float* e) {
+  uint16_t* pa = out + static_cast<long long>(ra) * sl + t4 * 2;
+  uint16_t* pb = out + static_cast<long long>(rb) * sl + t4 * 2;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    if (N > 128 || j + 1 < N / 8 || j * 8 < d) {
+      float x0 = x[j * 4], x1 = x[j * 4 + 1];
+      float x2 = x[j * 4 + 2], x3 = x[j * 4 + 3];
+      if constexpr (kAddE) {
+        const float e0 = e[j * 8 + t4 * 2], e1 = e[j * 8 + t4 * 2 + 1];
+        x0 += e0;
+        x1 += e1;
+        x2 += e0;
+        x3 += e1;
+      }
+      *reinterpret_cast<uint32_t*>(pa + j * 8) = pack_bf16(x0, x1);
+      *reinterpret_cast<uint32_t*>(pb + j * 8) = pack_bf16(x2, x3);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ K2 --
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads, DqCfg<D>::kBlocks)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -290,9 +445,11 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   using C = DqCfg<D>;
   constexpr int kSK = C::kStagesK;
   constexpr int kSV = C::kStagesV;
-  constexpr int kSlabs = D / kSlab;
-  constexpr int kRowBytes = kDqRows * D * 2;  // Q (or dO) of the block
-  constexpr int kKvBytes = kKvTile * D * 2;   // one K (or V) tile
+  constexpr int kSlabs = width(D) / kSlab;
+  constexpr int kRowBytes = kDqRows * width(D) * 2;  // Q (or dO) of a block
+  constexpr int kKvBytes = kKvTile * width(D) * 2;   // one K (or V) tile
+  static_assert(D % 16 == 0, "head dim: a multiple of 16 (k-steps)");
+  static_assert(!kMask || D <= 128, "a mask only up to D = 128");
 
   extern __shared__ uint8_t smem_raw[];
   // slabs start on 1024-byte boundaries, where the 128B swizzle repeats
@@ -306,6 +463,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t fullV = fullK + 8 * kSK;
   const uint32_t emptyK = fullV + 8 * kSV;
   const uint32_t emptyV = emptyK + 8 * kSK;
+  // kMask: the count and list of the kv tiles that hold a real key, and
+  // the batch row's mask, written once before the walk and only read in
+  // it (generic pointers)
+  uint8_t* const after_bars = smem_raw + (barQ + dq_bar_bytes<D>() - raw);
+  int* const n_live = reinterpret_cast<int*>(after_bars);
+  int* const live = n_live + 4;
+  uint8_t* const row_mask = after_bars + 16 + list_bytes(p.lk);
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal blocks first
   const int bh = blockIdx.y;
@@ -314,12 +478,23 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = qt * kDqRows;
   const int offset = p.lk - p.lq;
 
-  // kv tiles this block walks: up to its last real row's last key
+  // kv tiles this block may walk: up to its last real row's last key
   int n_tiles = p.lk / kKvTile;
   if (p.causal) {
     const int last_row = min(q0 + kDqRows, p.lq) - 1;
     n_tiles = min(n_tiles, (last_row + offset) / kKvTile + 1);
   }
+
+  // Q's and dO's load: one TMA box a slab of each on barQ
+  auto load_rows = [&]() {
+    mbar_expect_tx(barQ, 2 * kRowBytes);
+#pragma unroll
+    for (int s = 0; s < kSlabs; ++s) {
+      tma_load(sQ + s * kDqRows * kSlabRow, &tq, barQ, s * kSlab, q0, hh, b);
+      tma_load(sDO + s * kDqRows * kSlabRow, &tdo, barQ, s * kSlab, q0, hh,
+               b);
+    }
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(barQ, 1);
@@ -333,8 +508,50 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // with a mask Q's and dO's load go first, so the list below is made
+    // under them
+    if constexpr (kMask) load_rows();
+  }
+  if constexpr (kMask) {
+    // the first warp stages the batch row's mask (the keys of the tiles
+    // this block may walk) and lists, in order, the kv tiles with a real
+    // key: 32 tiles a round, one a lane, compacted by a ballot
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const uint8_t* mrow = p.mask + b * p.mask_sb;
+      int n = 0;
+      for (int base = 0; base < n_tiles; base += 32) {
+        const int kt = base + lane;
+        bool real = false;
+        if (kt < n_tiles) {
+          const uint4* src = reinterpret_cast<const uint4*>(mrow
+                                                            + kt * kKvTile);
+          uint4* dst = reinterpret_cast<uint4*>(row_mask + kt * kKvTile);
+#pragma unroll
+          for (int i = 0; i < kKvTile / 16; ++i) {
+            const uint4 x = src[i];
+            dst[i] = x;
+            real |= (x.x | x.y | x.z | x.w) != 0u;
+          }
+        }
+        const uint32_t ballot = __ballot_sync(0xffffffffu, real);
+        if (real) live[n + __popc(ballot & ((1u << lane) - 1u))] = kt;
+        n += __popc(ballot);
+      }
+      if (lane == 0) *n_live = n;
+    }
   }
   __syncthreads();
+  // the kv tiles every warpgroup walks, in order: with a mask the listed
+  // ones, else all of the block's; tile(i) is the i-th one's index
+  const int n_walk = kMask ? *n_live : n_tiles;
+  auto tile = [&](int i) {
+    if constexpr (kMask) {
+      return live[i];
+    } else {
+      return i;
+    }
+  };
 
   // warpgroup index, uniform across each warp to the compiler
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -343,30 +560,24 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(C::kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(barQ, 2 * kRowBytes);
-#pragma unroll
-      for (int s = 0; s < kSlabs; ++s) {
-        tma_load(sQ + s * kDqRows * kSlabRow, &tq, barQ, s * kSlab, q0, hh, b);
-        tma_load(sDO + s * kDqRows * kSlabRow, &tdo, barQ, s * kSlab, q0, hh,
-                 b);
-      }
-      // K, then V of each tile, the order the consumers use them in; each
-      // waits for its stage's previous tile to be released (the first
-      // round finds every stage empty)
+      if constexpr (!kMask) load_rows();
+      // K, then V of each walked tile, the order the consumers use them
+      // in; each waits for its stage's previous tile to be released (the
+      // first round finds every stage empty)
       auto load = [&](const CUtensorMap* map, uint32_t full, uint32_t empty,
-                      uint32_t base, int stages, int kt) {
-        const int stage = kt % stages;
-        mbar_wait(empty + 8 * stage, ((kt / stages) & 1) ^ 1);
+                      uint32_t base, int stages, int i) {
+        const int stage = i % stages;
+        mbar_wait(empty + 8 * stage, ((i / stages) & 1) ^ 1);
         mbar_expect_tx(full + 8 * stage, kKvBytes);
 #pragma unroll
         for (int s = 0; s < kSlabs; ++s) {
           tma_load(base + stage * kKvBytes + s * kKvTile * kSlabRow, map,
-                   full + 8 * stage, s * kSlab, kt * kKvTile, hh, b);
+                   full + 8 * stage, s * kSlab, tile(i) * kKvTile, hh, b);
         }
       };
-      for (int kt = 0; kt < n_tiles; ++kt) {
-        load(&tk, fullK, emptyK, sK, kSK, kt);
-        load(&tv, fullV, emptyV, sV, kSV, kt);
+      for (int i = 0; i < n_walk; ++i) {
+        load(&tk, fullK, emptyK, sK, kSK, i);
+        load(&tv, fullV, emptyV, sV, kSV, i);
       }
     }
     return;
@@ -385,11 +596,20 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int ra = r0 + warp * 16 + g;     // the two rows a thread holds
   const int rb = ra + 8;
   const bool active = r0 < p.lq;
-  // tiles this consumer computes on: all of the block's, or, causal, up
-  // to its own last row's last key; none past Lq
-  int n_mine = active ? n_tiles : 0;
-  if (active && p.causal) {
-    n_mine = min(n_tiles, (r0 + 63 + offset) / kKvTile + 1);
+  // walked tiles this consumer computes on, a prefix of the walk: all of
+  // them, or, causal, those up to its own last row's last key; none past
+  // Lq
+  int n_mine = 0;
+  if (active) {
+    n_mine = n_walk;
+    if (p.causal) {
+      const int last = (r0 + 63 + offset) / kKvTile;
+      if constexpr (kMask) {
+        while (n_mine > 0 && live[n_mine - 1] > last) --n_mine;
+      } else {
+        n_mine = min(n_walk, last + 1);
+      }
+    }
   }
   // the last visible key of each of the two rows, and of the consumer's
   // first row (the one that sees fewest)
@@ -405,8 +625,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         static_cast<const uint16_t*>(p.o) + b * p.o_sb + hh * p.o_sh;
     const uint16_t* dout =
         static_cast<const uint16_t*>(p.dout) + b * p.do_sb + hh * p.do_sh;
-    del_a = row_dot<D>(o + ra * p.o_sl, dout + ra * p.do_sl, t4);
-    del_b = row_dot<D>(o + rb * p.o_sl, dout + rb * p.do_sl, t4);
+    const int chunks = p.d / 8;
+    del_a = row_dot<D>(o + ra * p.o_sl, dout + ra * p.do_sl, t4, chunks);
+    del_b = row_dot<D>(o + rb * p.o_sl, dout + rb * p.do_sl, t4, chunks);
     del_a += __shfl_xor_sync(0xffffffffu, del_a, 1);
     del_a += __shfl_xor_sync(0xffffffffu, del_a, 2);
     del_b += __shfl_xor_sync(0xffffffffu, del_b, 1);
@@ -431,23 +652,43 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t q_base = sQ + c * 64 * kSlabRow;
   const uint32_t do_base = sDO + c * 64 * kSlabRow;
 
-  // The tiles a consumer computes on are a prefix of the block's (kt <
+  // kMask: kv tile kt's mask for this thread's keys as bits (key
+  // j * 8 + t4 * 2 + e of the tile at bit 2j + e), from the staged row
+  auto mask_bits = [&](int kt) {
+    uint32_t bits = 0;
+    if constexpr (kMask) {
+      const uint8_t* m = row_mask + kt * kKvTile + t4 * 2;
+#pragma unroll
+      for (int j = 0; j < kKvTile / 8; ++j) {
+        const uint32_t w = *reinterpret_cast<const uint16_t*>(m + j * 8);
+        bits |= static_cast<uint32_t>((w & 0xffu) != 0u) << (2 * j);
+        bits |= static_cast<uint32_t>((w >> 8) != 0u) << (2 * j + 1);
+      }
+    }
+    return bits;
+  };
+
+  // The tiles a consumer computes on are a prefix of the walk (i <
   // n_mine), so the loop issues its products unconditionally (ptxas
   // serializes every wgmma where it cannot tell how many groups a wait
   // leaves in flight); past it, the consumer only waits and releases.
-  for (int kt = 0; kt < n_mine; ++kt) {
-    const int sk = kt % kSK;
-    const int sv = kt % kSV;
+  for (int i = 0; i < n_mine; ++i) {
+    const int sk = i % kSK;
+    const int sv = i % kSV;
     const uint32_t k_base = sK + sk * kKvBytes;
-    mbar_wait(fullK + 8 * sk, (kt / kSK) & 1);
+    mbar_wait(fullK + 8 * sk, (i / kSK) & 1);
     issue_ss<D, kDqRows>(s, q_base, k_base);
-    mbar_wait(fullV + 8 * sv, (kt / kSV) & 1);
+    mbar_wait(fullV + 8 * sv, (i / kSV) & 1);
     issue_ss<D, kDqRows>(dp, do_base, sV + sv * kKvBytes);
     // S done; dP may still run
     wgmma_wait<1>();
     fence_regs(s);
-    // P = 2^(scale * log2(e) * S - lse * log2(e)); only a tile that
-    // crosses the diagonal is masked
+    // P = 2^(scale * log2(e) * S - lse * log2(e)); padded keys are masked
+    // in every tile, the diagonal only in a tile that crosses it (a row
+    // that sees no key overflows here, and every one of its pairs is
+    // masked)
+    const int kt = tile(i);
+    const uint32_t bits = mask_bits(kt);
     const int key0 = kt * kKvTile;
     const bool edge = key0 + kKvTile - 1 > lim_first;
 #pragma unroll
@@ -460,6 +701,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                                               : lim_b)) {
           pr = 0.f;
         }
+        if constexpr (kMask) {
+          if (!((bits >> (2 * j + (e & 1))) & 1u)) pr = 0.f;
+        }
         s[j * 4 + e] = pr;
       }
     }
@@ -468,8 +712,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     release(emptyV, sv, lane);
     // dS = P (dP - delta) scale
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] = s[i] * (dp[i] - ((i & 2) ? del_b : del_a)) * p.scale;
+    for (int k = 0; k < 32; ++k) {
+      s[k] = s[k] * (dp[k] - ((k & 2) ? del_b : del_a)) * p.scale;
     }
     pack_a(df, s);
     issue_rs<D>(acc, df, k_base);
@@ -477,45 +721,21 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(acc);
     release(emptyK, sk, lane);
   }
-  for (int kt = n_mine; kt < n_tiles; ++kt) {
-    mbar_wait(fullK + 8 * (kt % kSK), (kt / kSK) & 1);
-    release(emptyK, kt % kSK, lane);
-    mbar_wait(fullV + 8 * (kt % kSV), (kt / kSV) & 1);
-    release(emptyV, kt % kSV, lane);
+  for (int i = n_mine; i < n_walk; ++i) {
+    mbar_wait(fullK + 8 * (i % kSK), (i / kSK) & 1);
+    release(emptyK, i % kSK, lane);
+    mbar_wait(fullV + 8 * (i % kSV), (i / kSV) & 1);
+    release(emptyV, i % kSV, lane);
   }
 
   if (!active) return;
-  uint16_t* dq = static_cast<uint16_t*>(p.dq) + b * p.dq_sb + hh * p.dq_sh;
-  uint16_t* qa = dq + static_cast<long long>(ra) * p.dq_sl + t4 * 2;
-  uint16_t* qb = dq + static_cast<long long>(rb) * p.dq_sl + t4 * 2;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(qa + j * 8) =
-        pack_bf16(acc[j * 4], acc[j * 4 + 1]);
-    *reinterpret_cast<uint32_t*>(qb + j * 8) =
-        pack_bf16(acc[j * 4 + 2], acc[j * 4 + 3]);
-  }
+  store_rows<D, false>(
+      static_cast<uint16_t*>(p.dq) + b * p.dq_sb + hh * p.dq_sh, p.dq_sl, ra,
+      rb, p.d, t4, acc, nullptr);
 }
 
 // ------------------------------------------------------------------ K3 --
-// the accumulator rows (keys ka, kb) of 64 x D values from column col0, as
-// bf16 into a [L, D] row-major output of row stride sl
-template <int N>
-__device__ __forceinline__ void store_rows(uint16_t* out, long long sl,
-                                           int ka, int kb, int col0, int t4,
-                                           const float (&x)[N / 2]) {
-  uint16_t* ra = out + static_cast<long long>(ka) * sl + col0 + t4 * 2;
-  uint16_t* rb = out + static_cast<long long>(kb) * sl + col0 + t4 * 2;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(ra + j * 8) =
-        pack_bf16(x[j * 4], x[j * 4 + 1]);
-    *reinterpret_cast<uint32_t*>(rb + j * 8) =
-        pack_bf16(x[j * 4 + 2], x[j * 4 + 3]);
-  }
-}
-
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads, DkvCfg<D>::kBlocks)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -526,11 +746,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int kKeys = C::kKeys;
   constexpr int kStages = C::kStages;
   constexpr bool kSplit = C::kSplit;
-  constexpr int kSlabs = D / kSlab;
-  constexpr int kKeyBytes = kKeys * D * 2;   // K (or V) of the block
-  constexpr int kQBytes = kQTile * D * 2;    // one Q (or dO) tile
-  constexpr int kXBytes = 64 * kQTile * 4;   // one P^T exchange buffer
-  constexpr int kRowF32 = kQTile * 4;        // one tile's lse (or delta)
+  constexpr int kSlabs = width(D) / kSlab;
+  constexpr int kKeyBytes = kKeys * width(D) * 2;  // K (or V) of the block
+  constexpr int kQBytes = kQTile * width(D) * 2;   // one Q (or dO) tile
+  constexpr int kXBytes = 64 * kQTile * 4;         // one P^T exchange buffer
+  constexpr int kRowF32 = kQTile * 4;              // a tile's lse (or delta)
+  static_assert(D % 16 == 0, "head dim: a multiple of 16 (k-steps)");
+  static_assert(!kMask || D <= 128, "a mask only up to D = 128");
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -544,6 +766,12 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t empty = full + 8 * kStages;
   // the generic address of shared-memory address a
   auto at = [&](uint32_t a) { return smem_raw + (a - raw); };
+  // kMask: what the first warp found (the ballot of the block's 16-key
+  // chunks that hold a real key), then E, the dV share of the rows that
+  // see no key (a float a column); written once before the walk
+  uint32_t* const found = reinterpret_cast<uint32_t*>(
+      at(barKV + dkv_bar_bytes<D>()));
+  float* const e_vec = reinterpret_cast<float*>(found + 4);
 
   const int k0 = blockIdx.x * kKeys;
   const int bh = blockIdx.y;
@@ -556,6 +784,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int first = p.causal ? min(n_qt - 1, max(0, k0 - offset) / kQTile)
                              : 0;
   const int n_tiles = n_qt - first;
+  const uint8_t* const mrow = kMask ? p.mask + b * p.mask_sb : nullptr;
 
   if (threadIdx.x == 0) {
     mbar_init(barKV, 1);
@@ -566,14 +795,78 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
+  if constexpr (kMask) {
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      // the batch row's first real key (Lk if it has none): 16 keys a lane,
+      // 512 a round
+      int first_real = p.lk;
+      for (int base = 0; base < p.lk; base += 32 * 16) {
+        const int key = base + lane * 16;
+        int at_key = p.lk;
+        if (key < p.lk) {
+          const uint4 x = *reinterpret_cast<const uint4*>(mrow + key);
+          const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int j = 3; j >= 0; --j) {
+            if (w[j] != 0u) at_key = key + 4 * j + (__ffs(w[j]) - 1) / 8;
+          }
+        }
+        at_key = __reduce_min_sync(0xffffffffu, at_key);
+        if (at_key < p.lk) {
+          first_real = at_key;
+          break;
+        }
+      }
+      // which 16-key chunks of the block's keys hold a real key
+      const int key = k0 + lane * 16;
+      bool real = false;
+      if (lane < kKeys / 16 && key < p.lk) {
+        const uint4 x = *reinterpret_cast<const uint4*>(mrow + key);
+        real = (x.x | x.y | x.z | x.w) != 0u;
+      }
+      const uint32_t ballot = __ballot_sync(0xffffffffu, real);
+      // the rows that see no key are the first n_empty of the (b, h): E =
+      // bf16(1/Lk) * the sum of their dO rows, lane l taking columns
+      // 64n + 2l and 64n + 2l + 1
+      const int n_empty = p.causal
+          ? min(max(first_real - offset, 0), p.lq)
+          : (first_real == p.lk ? p.lq : 0);
+      const float inv_lk = __bfloat162float(__float2bfloat16(1.f / p.lk));
+      const uint16_t* dout = static_cast<const uint16_t*>(p.dout)
+          + b * p.do_sb + hh * p.do_sh;
+#pragma unroll
+      for (int n = 0; n < kSlabs; ++n) {
+        const int col = n * kSlab + 2 * lane;
+        float e0 = 0.f, e1 = 0.f;
+        if (col < p.d) {
+          for (int i = 0; i < n_empty; ++i) {
+            const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+                dout + static_cast<long long>(i) * p.do_sl + col);
+            e0 += __low2float(x);
+            e1 += __high2float(x);
+          }
+        }
+        e_vec[col] = e0 * inv_lk;
+        e_vec[col + 1] = e1 * inv_lk;
+      }
+      if (lane == 0) *found = ballot;
+    }
+  }
   __syncthreads();
+  // kMask: whether each 64 keys of the block hold a real key; a block
+  // whose keys are all padding walks no q tile
+  const uint32_t chunks = kMask ? *found : 0xffffffffu;
+  const bool live0 = (chunks & 0xfu) != 0u;
+  const bool live1 = (chunks & 0xf0u) != 0u;
+  const int n_walk = (live0 || (!kSplit && live1)) ? n_tiles : 0;
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 0) {
     // ---------------------------------------------------- producer --
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(C::kProducerRegs));
-    if (threadIdx.x == 0) {
+    if (threadIdx.x == 0 && n_walk > 0) {
       mbar_expect_tx(barKV, 2 * kKeyBytes);
 #pragma unroll
       for (int s = 0; s < kSlabs; ++s) {
@@ -581,7 +874,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         tma_load(sV + s * kKeys * kSlabRow, &tv, barKV, s * kSlab, k0, hh, b);
       }
       const long long row0 = static_cast<long long>(bh) * p.lq;
-      for (int i = 0; i < n_tiles; ++i) {
+      for (int i = 0; i < n_walk; ++i) {
         const int stage = i % kStages;
         const int q0 = (first + i) * kQTile;
         const uint32_t bar = full + 8 * stage;
@@ -616,13 +909,20 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int ka = kc0 + warp * 16 + g;    // the two keys a thread holds
   const int kb = ka + 8;
   const bool active = kc0 < p.lk;
-  // the tiles it computes on are a suffix of the block's: from the first
-  // whose rows see its first key; none past Lk
-  int first_mine = active ? first : n_qt;
-  if (active && p.causal) {
+  // whether it computes: it has keys, and with a mask a real one among
+  // them (else it only waits for each tile and releases it)
+  const bool computes = active && n_walk > 0
+      && (kSplit || (c == 0 ? live0 : live1));
+  // the tiles it computes on are a suffix of the walk: from the first whose
+  // rows see its first key
+  int first_mine = computes ? first : n_qt;
+  if (computes && p.causal) {
     first_mine = max(first, min(n_qt, max(0, kc0 - offset) / kQTile));
   }
-  const int n_skip = first_mine - first;   // waited for and released only
+  const int n_skip = min(first_mine - first, n_walk);
+  // kMask: whether each of its two keys is real (padded keys get P = 0)
+  const bool real_a = !kMask || !active || mrow[ka] != 0;
+  const bool real_b = !kMask || !active || mrow[kb] != 0;
 
   // A operand rows: this consumer's 64 keys of K and V (slabs kKeys rows
   // apart)
@@ -635,7 +935,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(full + 8 * (i % kStages), (i / kStages) & 1);
     release(empty, i % kStages, lane);
   }
-  if (active) mbar_wait(barKV, 0);
+  if (computes) mbar_wait(barKV, 0);
 
   float s[32];             // S^T (then P^T; or dP^T, then dS^T)
   uint32_t pf[4][4];       // as bf16 A fragments
@@ -646,7 +946,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
-    for (int i = n_skip; i < n_tiles; ++i) {
+    for (int i = n_skip; i < n_walk; ++i) {
       const int stage = i % kStages;
       const int q0 = (first + i) * kQTile;
       const uint32_t qs = sQ + stage * 2 * kQBytes;
@@ -661,7 +961,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(s);
       fence_regs(dp);
       // P^T and dS^T; the columns are queries. Only a tile whose first
-      // row does not see the consumer's last key is masked
+      // row does not see the consumer's last key is masked on the
+      // diagonal
       const bool edge = p.causal && kc0 + 63 > q0 + offset;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -675,6 +976,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           float pr = fast_exp2(fmaf(s[j * 4 + e], scale_log2, -lv));
           if (edge && ((e < 2) ? ka : kb) > q0 + col + (e & 1) + offset) {
             pr = 0.f;
+          }
+          if constexpr (kMask) {
+            if (!((e < 2) ? real_a : real_b)) pr = 0.f;
           }
           s[j * 4 + e] = pr;
           dp[j * 4 + e] = pr * (dp[j * 4 + e] - dv) * scale;
@@ -690,10 +994,12 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       release(empty, stage, lane);
     }
     if (!active) return;
-    store_rows<D>(static_cast<uint16_t*>(p.dk) + b * p.dk_sb + hh * p.dk_sh,
-                  p.dk_sl, ka, kb, 0, t4, acc_k);
-    store_rows<D>(static_cast<uint16_t*>(p.dv) + b * p.dv_sb + hh * p.dv_sh,
-                  p.dv_sl, ka, kb, 0, t4, acc_v);
+    store_rows<D, false>(
+        static_cast<uint16_t*>(p.dk) + b * p.dk_sb + hh * p.dk_sh, p.dk_sl,
+        ka, kb, p.d, t4, acc_k, nullptr);
+    store_rows<D, kMask>(
+        static_cast<uint16_t*>(p.dv) + b * p.dv_sb + hh * p.dv_sh, p.dv_sl,
+        ka, kb, p.d, t4, acc_v, e_vec);
   } else {
     // consumer 0: S^T, P^T, dV += P~^T dO; consumer 1: dP^T, dS^T (with
     // consumer 0's P^T), dK += dS^T Q. The same products, so the same
@@ -702,7 +1008,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     const uint32_t a_rows = c == 0 ? k_rows : v_rows;
-    for (int i = 0; i < n_tiles; ++i) {
+    for (int i = 0; i < n_walk; ++i) {
       const int stage = i % kStages;
       const int q0 = (first + i) * kQTile;
       const uint32_t qs = sQ + stage * 2 * kQBytes;
@@ -729,6 +1035,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
             if (edge && ((e < 2) ? ka : kb) > q0 + col + (e & 1) + offset) {
               pr = 0.f;
             }
+            if constexpr (kMask) {
+              if (!((e < 2) ? real_a : real_b)) pr = 0.f;
+            }
             s[j * 4 + e] = pr;
           }
         }
@@ -753,7 +1062,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           s[j * 4 + 3] = pv.w * (s[j * 4 + 3] - d2.y) * scale;
         }
         // consumer 0 writes this buffer again two tiles on, if any
-        if (i + 2 < n_tiles) named_arrive(kXEmpty + xb, kPair);
+        if (i + 2 < n_walk) named_arrive(kXEmpty + xb, kPair);
       }
       pack_a(pf, s);
       issue_rs<D>(acc, pf, c == 0 ? ds : qs);
@@ -762,11 +1071,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       release(empty, stage, lane);
     }
     if (c == 0) {
-      store_rows<D>(static_cast<uint16_t*>(p.dv) + b * p.dv_sb + hh * p.dv_sh,
-                    p.dv_sl, ka, kb, 0, t4, acc);
+      store_rows<D, kMask>(
+          static_cast<uint16_t*>(p.dv) + b * p.dv_sb + hh * p.dv_sh, p.dv_sl,
+          ka, kb, p.d, t4, acc, e_vec);
     } else {
-      store_rows<D>(static_cast<uint16_t*>(p.dk) + b * p.dk_sb + hh * p.dk_sh,
-                    p.dk_sl, ka, kb, 0, t4, acc);
+      store_rows<D, false>(
+          static_cast<uint16_t*>(p.dk) + b * p.dk_sb + hh * p.dk_sh, p.dk_sl,
+          ka, kb, p.d, t4, acc, nullptr);
     }
   }
 }
@@ -777,17 +1088,24 @@ struct Maps {
 };
 
 // 0, or the 1000 + n code of what the kernels do not take
-int check(int dtype, int batch, int heads, int lq, int lk, int d, int causal) {
+int check(int dtype, int batch, int heads, int lq, int lk, int d, int causal,
+          const void* mask, long long mask_sb) {
   if (lq % 64 || lk % 64) return 1001;
   if (causal && lq > lk) return 1002;
   if (batch * heads > 65535) return 1003;
-  if (d != 64 && d != 128 && d != 192 && d != 256) return 1004;
+  if (d < 8 || d % 8 || (d > 128 && d != 192 && d != 256)) return 1004;
   if (dtype != 1) return 1005;
+  if (mask != nullptr && d > 128) return 1006;
+  if (mask != nullptr
+      && (reinterpret_cast<uintptr_t>(mask) % 16 || mask_sb % 16)) {
+    return 1007;
+  }
   return 0;
 }
 
 // the four tensor maps, Q and dO read in boxes of q_rows rows, K and V of
-// kv_rows; strides: q, k, v, dO (sb, sh, sl each)
+// kv_rows; their global width is the call's head dim d (columns past it
+// read as zeros); strides: q, k, v, dO (sb, sh, sl each)
 int encode_maps(Maps* maps, const void* q, const void* k, const void* v,
                 const void* dout, int batch, int heads, int lq, int lk, int d,
                 const long long* st, int q_rows, int kv_rows) {
@@ -820,33 +1138,61 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, const Maps& m,
   return cudaGetLastError();
 }
 
-template <int D>
+// fn(std::integral_constant<int, D>) for the instantiation of a call at
+// head dim d (check() took d)
+template <typename Fn>
+int with_inst_dim(int d, Fn&& fn) {
+  switch (inst_dim(d)) {
+    case 16: return fn(std::integral_constant<int, 16>{});
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 48: return fn(std::integral_constant<int, 48>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 80: return fn(std::integral_constant<int, 80>{});
+    case 96: return fn(std::integral_constant<int, 96>{});
+    case 112: return fn(std::integral_constant<int, 112>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    case 192: return fn(std::integral_constant<int, 192>{});
+    default: return fn(std::integral_constant<int, 256>{});
+  }
+}
+
+template <int D, bool kMask>
 int launch_dq(const Maps& m, const Params& p, int bh, cudaStream_t s) {
-  return launch(flash_bwd_dq_sm90_kernel<D>, dq_smem_bytes<D>(),
+  // with a mask: the count, the list of kv tiles and the batch row's mask
+  const int smem = dq_smem_bytes<D>()
+      + (kMask ? 16 + list_bytes(p.lk) + p.lk : 0);
+  return launch(flash_bwd_dq_sm90_kernel<D, kMask>, smem,
                 dim3((p.lq + kDqRows - 1) / kDqRows, bh), m, p, s);
 }
 
-template <int D>
+template <int D, bool kMask>
 int launch_dkv(const Maps& m, const Params& p, int bh, cudaStream_t s) {
   constexpr int keys = DkvCfg<D>::kKeys;
-  return launch(flash_bwd_dkv_sm90_kernel<D>, dkv_smem_bytes<D>(),
+  // with a mask: what the first warp found, and E
+  const int smem = dkv_smem_bytes<D>() + (kMask ? 16 + width(D) * 4 : 0);
+  return launch(flash_bwd_dkv_sm90_kernel<D, kMask>, smem,
                 dim3((p.lk + keys - 1) / keys, bh), m, p, s);
 }
 
+// K3's keys a block at head dim d
 int dkv_keys(int d) {
-  return d == 64 ? DkvCfg<64>::kKeys : d == 128 ? DkvCfg<128>::kKeys
-      : d == 192 ? DkvCfg<192>::kKeys : DkvCfg<256>::kKeys;
+  return with_inst_dim(d, [](auto dc) {
+    return DkvCfg<decltype(dc)::value>::kKeys;
+  });
 }
 
 }  // namespace
 
-// zoo_flash_attn_bwd_dq's interface without the mask: dtype must be 1
-// (bfloat16) and d one of 64, 128, 192, 256. Writes dq and delta ([B*H,
-// Lq] f32, contiguous). Returns a cudaError_t (0 = launched); 1000 + n
-// flags a call the kernel does not take (1001 Lq or Lk not a multiple of
-// 64, 1002 causal with Lq > Lk, 1003 B*H above 65535, 1004 the head dim,
-// 1005 the dtype, 1007 an address or stride TMA cannot take, 1008 no
-// tensor map).
+// K2: q, k, v, o, dout and dq are [B, H, L, D] with element strides
+// (batch, head, seq; the last dimension contiguous); dtype must be 1
+// (bfloat16), d a multiple of 8 up to 128, or 192 or 256 without a mask;
+// mask is [B, Lk] bytes (nonzero = real key) with batch stride mask_sb,
+// both 16-byte aligned, or null for none. Writes dq and delta ([B*H, Lq]
+// f32, contiguous). Returns a cudaError_t (0 = launched); 1000 + n flags a
+// call the kernel does not take (1001 Lq or Lk not a multiple of 64, 1002
+// causal with Lq > Lk, 1003 B*H above 65535, 1004 the head dim, 1005 the
+// dtype, 1006 a mask above D = 128, 1007 an address or stride TMA or the
+// mask's copies cannot take, 1008 no tensor map).
 extern "C" int zoo_flash_attn_bwd_dq_sm90(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq,
@@ -857,8 +1203,9 @@ extern "C" int zoo_flash_attn_bwd_dq_sm90(
     long long o_sb, long long o_sh, long long o_sl,
     long long do_sb, long long do_sh, long long do_sl,
     long long dq_sb, long long dq_sh, long long dq_sl,
+    const void* mask, long long mask_sb,
     float scale, int causal, void* stream) {
-  int rc = check(dtype, batch, heads, lq, lk, d, causal);
+  int rc = check(dtype, batch, heads, lq, lk, d, causal, mask, mask_sb);
   if (rc != 0) return rc;
   // O is read 16 bytes at a time, as TMA reads the others
   if (tma_layout(o, o_sb, o_sh, o_sl)) return 1007;
@@ -877,23 +1224,28 @@ extern "C" int zoo_flash_attn_bwd_dq_sm90(
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
   p.do_sb = do_sb; p.do_sh = do_sh; p.do_sl = do_sl;
   p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_sl = dq_sl;
-  p.h = heads; p.lq = lq; p.lk = lk;
+  p.h = heads; p.lq = lq; p.lk = lk; p.d = d;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.mask_sb = mask_sb;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
-  switch (d) {
-    case 64: return launch_dq<64>(maps, p, bh, s);
-    case 128: return launch_dq<128>(maps, p, bh, s);
-    case 192: return launch_dq<192>(maps, p, bh, s);
-    default: return launch_dq<256>(maps, p, bh, s);
-  }
+  const bool masked = mask != nullptr;
+  return with_inst_dim(d, [&](auto dc) -> int {
+    constexpr int D = decltype(dc)::value;
+    if constexpr (D > 128) {
+      return launch_dq<D, false>(maps, p, bh, s);
+    } else {
+      return masked ? launch_dq<D, true>(maps, p, bh, s)
+                    : launch_dq<D, false>(maps, p, bh, s);
+    }
+  });
 }
 
-// zoo_flash_attn_bwd_dkv's interface without the mask: reads the delta K2
-// wrote (and lse; both 16-byte aligned), writes dk and dv. Return codes as
-// zoo_flash_attn_bwd_dq_sm90's.
+// K3: reads the delta K2 wrote (and lse; both 16-byte aligned), writes dk
+// and dv. Arguments and return codes as zoo_flash_attn_bwd_dq_sm90's.
 extern "C" int zoo_flash_attn_bwd_dkv_sm90(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
@@ -904,8 +1256,9 @@ extern "C" int zoo_flash_attn_bwd_dkv_sm90(
     long long do_sb, long long do_sh, long long do_sl,
     long long dk_sb, long long dk_sh, long long dk_sl,
     long long dv_sb, long long dv_sh, long long dv_sl,
+    const void* mask, long long mask_sb,
     float scale, int causal, void* stream) {
-  int rc = check(dtype, batch, heads, lq, lk, d, causal);
+  int rc = check(dtype, batch, heads, lq, lk, d, causal, mask, mask_sb);
   if (rc != 0) return rc;
   if (reinterpret_cast<uintptr_t>(lse) % 16
       || reinterpret_cast<uintptr_t>(delta) % 16) {
@@ -918,22 +1271,30 @@ extern "C" int zoo_flash_attn_bwd_dkv_sm90(
                    kQTile, dkv_keys(d));
   if (rc != 0) return rc;
   Params p = {};
+  p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = const_cast<float*>(static_cast<const float*>(delta));
   p.dk = dk;
   p.dv = dv;
+  p.do_sb = do_sb; p.do_sh = do_sh; p.do_sl = do_sl;
   p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_sl = dk_sl;
   p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_sl = dv_sl;
-  p.h = heads; p.lq = lq; p.lk = lk;
+  p.h = heads; p.lq = lq; p.lk = lk; p.d = d;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.mask_sb = mask_sb;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
-  switch (d) {
-    case 64: return launch_dkv<64>(maps, p, bh, s);
-    case 128: return launch_dkv<128>(maps, p, bh, s);
-    case 192: return launch_dkv<192>(maps, p, bh, s);
-    default: return launch_dkv<256>(maps, p, bh, s);
-  }
+  const bool masked = mask != nullptr;
+  return with_inst_dim(d, [&](auto dc) -> int {
+    constexpr int D = decltype(dc)::value;
+    if constexpr (D > 128) {
+      return launch_dkv<D, false>(maps, p, bh, s);
+    } else {
+      return masked ? launch_dkv<D, true>(maps, p, bh, s)
+                    : launch_dkv<D, false>(maps, p, bh, s);
+    }
+  });
 }

@@ -12,8 +12,10 @@ D in ``SM90_FWD_HEAD_DIMS``: every multiple of 8 up to 128, masked or
 not, and 192 to 512 without a mask; TMA, a producer warpgroup, wgmma,
 above 256 O's head dim split between two consumer warpgroups;
 ``_fwd_entry`` picks it), ``csrc/flash_attn_bwd_sm90.cu`` (K2 and K3
-for the bf16 calls without a mask at D in ``SM90_HEAD_DIMS``, the same
-design; ``_bwd_entry`` picks them; both share
+for the bf16 calls at D in ``SM90_HEAD_DIMS``: every multiple of 8 up
+to 128, masked or not, and 192 and 256 without a mask; the same design,
+with a mask only the kv tiles holding a real key walked by K2;
+``_bwd_entry`` picks them; both share
 ``csrc/flash_attn_sm90.cuh``), ``csrc/flash_attn_fwd_f32tc.cu``
 (K1's f32 forward at head dims up to ``F32TC_FWD_MAX_D``, masked or
 not: 3xTF32 ``mma.sync`` on the tensor cores at f32 accuracy,
@@ -22,7 +24,7 @@ not: 3xTF32 ``mma.sync`` on the tensor cores at f32 accuracy,
 f32 backward at every head dim up to ``F32TC_MAX_D``, masked or not, on
 the same products as K1's f32 kernel; ``_bwd_entry`` picks it; both
 share ``csrc/flash_attn_f32tc.cuh``) and ``csrc/flash_attn_bwd.cuh``
-(design notes there), whose K2 and K3 for every other bf16 call are
+(design notes there), whose K2 and K3 for bf16 at 320 to 512 are
 built by ``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu``;
 each source is compiled with ``nvcc``
 for ``sm_90a`` at first use into ``build/`` at the repository root (a
@@ -66,9 +68,9 @@ head dims (``analytics_zoo_tpu/ops/attention.py:116``: JAX's stock Pallas
 its custom_vjp; TinyGenLM's prefill at D = 16, a MiniLM-sized BERT's
 fine-tune at D = 32): K1's Hopper kernel in bf16 (built at each
 multiple of 16 up to 128; a call at D = 8 mod 16 runs the next one up,
-whose tensor maps read the columns past D as zeros), the f32
-tensor-core kernels in f32, and bf16 K2/K3 templates at every multiple
-of 8 up to 128.
+whose tensor maps read the columns past D as zeros), K2's and K3's
+Hopper kernels in bf16 (the same instantiations and zero fill), and the
+f32 tensor-core kernels in f32.
 
 Head dims. The kernels are built for every multiple of 8 up to 128 and
 for 192, 256, 320, 384, 448 and 512, in both directions
@@ -123,8 +125,9 @@ torch.exp(torch.zeros(1 << 17))
 # multiple of 8 up to 128, and the multiples of 64 from 192 to 512
 # (without a mask)
 HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448, 512)
-# head dims of the Hopper backward kernels (bf16, no mask; _bwd_entry)
-SM90_HEAD_DIMS = (64, 128, 192, 256)
+# head dims of the Hopper backward kernels (bf16; _bwd_entry): every
+# multiple of 8 up to 128, masked or not, and 192 and 256 without a mask
+SM90_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256)
 # head dims of K1's Hopper kernel (bf16; _fwd_entry): every multiple of 8
 # up to 128, masked or not, and 192 to 512 without a mask
 SM90_FWD_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448,
@@ -147,30 +150,20 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # key-padding mask and its batch stride, scale, causal, stream
 _TAIL = [_P, _L, ctypes.c_float, _I, _P]
+# the forward entries' arguments and the backward entries' (K2's and K3's
+# alike), mask included
+_FWD_ARGS = [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL
+_BWD_ARGS = [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL
 # C entry point -> (source stem, argtypes)
 _ENTRY_POINTS = {
-    "zoo_flash_attn_fwd_sm90": ("flash_attn_fwd_sm90",
-                                [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
-    # the same arguments, mask included
-    "zoo_flash_attn_fwd_f32tc": ("flash_attn_fwd_f32tc",
-                                 [_P] * 5 + [_I] * 6 + [_L] * 12 + _TAIL),
-    "zoo_flash_attn_bwd_dq": ("flash_attn_bwd_dq",
-                              [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
-    "zoo_flash_attn_bwd_dkv": ("flash_attn_bwd_dkv",
-                               [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
-    # the same arguments without the mask's two
-    "zoo_flash_attn_bwd_dq_sm90": ("flash_attn_bwd_sm90",
-                                   [_P] * 8 + [_I] * 6 + [_L] * 18
-                                   + _TAIL[2:]),
-    "zoo_flash_attn_bwd_dkv_sm90": ("flash_attn_bwd_sm90",
-                                    [_P] * 8 + [_I] * 6 + [_L] * 18
-                                    + _TAIL[2:]),
-    # the old entries' arguments, mask included
-    "zoo_flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_f32tc",
-                                    [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL),
-    "zoo_flash_attn_bwd_dkv_f32tc": ("flash_attn_bwd_f32tc",
-                                     [_P] * 8 + [_I] * 6 + [_L] * 18
-                                     + _TAIL),
+    "zoo_flash_attn_fwd_sm90": ("flash_attn_fwd_sm90", _FWD_ARGS),
+    "zoo_flash_attn_fwd_f32tc": ("flash_attn_fwd_f32tc", _FWD_ARGS),
+    "zoo_flash_attn_bwd_dq": ("flash_attn_bwd_dq", _BWD_ARGS),
+    "zoo_flash_attn_bwd_dkv": ("flash_attn_bwd_dkv", _BWD_ARGS),
+    "zoo_flash_attn_bwd_dq_sm90": ("flash_attn_bwd_sm90", _BWD_ARGS),
+    "zoo_flash_attn_bwd_dkv_sm90": ("flash_attn_bwd_sm90", _BWD_ARGS),
+    "zoo_flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_f32tc", _BWD_ARGS),
+    "zoo_flash_attn_bwd_dkv_f32tc": ("flash_attn_bwd_f32tc", _BWD_ARGS),
 }
 
 _lib: Optional[Dict[str, ctypes.CDLL]] = None
@@ -426,8 +419,11 @@ def _check_head_dim(d: int, backward: bool = False,
     """Raise unless a kernel is built for head dim ``d`` (``HEAD_DIMS``):
     K1, or with ``backward`` K1-lse, K2 and K3 for a gradient (which the
     message names); with a key-padding mask (``masked``) only up to 128.
-    The wrappers pad other head dims below 128 to a multiple of 8 before
-    they ask."""
+    In bf16 K1 and K1-lse run ``flash_attn_fwd_sm90.cu`` at every such
+    head dim, K2 and K3 ``flash_attn_bwd_sm90.cu`` up to 256 and
+    ``flash_attn_bwd_{dq,dkv}.cu`` above; in f32 all of them run the f32
+    tensor-core sources (``_fwd_entry``, ``_bwd_entry``). The wrappers
+    pad other head dims below 128 to a multiple of 8 before they ask."""
     if masked and d > 128:
         raise NotImplementedError(
             f"flash kernel at head_dim {d}: no masked kernel above 128 "
@@ -505,9 +501,10 @@ def _stream(t: torch.Tensor) -> int:
 def _kernel_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """The key-padding mask as the kernels read it: contiguous bytes,
     nonzero = real, starting on a 16-byte boundary (the f32 tensor-core
-    K2 copies it 4 bytes at a time, K1's Hopper kernel 16; with Lk a
-    multiple of 64 every batch row stays so aligned). A contiguous uint8 mask so placed is taken as it is; any
-    other is converted once (``mask != 0``)."""
+    K2 copies it 4 bytes at a time, the Hopper kernels 16; with Lk a
+    multiple of 64 every batch row stays so aligned). A contiguous uint8
+    mask so placed is taken as it is; any other is converted once
+    (``mask != 0``)."""
     if mask is None or (mask.dtype == torch.uint8 and mask.is_contiguous()
                         and mask.data_ptr() % 16 == 0):
         return mask
@@ -544,13 +541,14 @@ def _fwd_entry(dtype: torch.dtype) -> str:
 def _bwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> Tuple[str, str]:
     """The backward entry points a call takes, K2's and K3's: the Hopper
     kernels of ``flash_attn_bwd_sm90.cu`` (TMA, a producer warpgroup,
-    wgmma) for bf16 without a mask at ``SM90_HEAD_DIMS``; those of
+    wgmma) for bf16 at ``SM90_HEAD_DIMS`` (every head dim up to 128,
+    masked or not, K5b among them, and 192 and 256); those of
     ``flash_attn_bwd_f32tc.cu`` (3xTF32 mma.sync) for f32 at every head
-    dim up to ``F32TC_MAX_D`` (512), masked or not (a mask only up to
-    128, as every kernel); ``flash_attn_bwd_dq.cu`` and
-    ``flash_attn_bwd_dkv.cu`` for every other call (bf16 with a mask,
-    bf16 K5b, bf16 above 256)."""
-    if dtype == torch.bfloat16 and not masked and dp in SM90_HEAD_DIMS:
+    dim up to ``F32TC_MAX_D`` (512), masked or not; ``flash_attn_bwd_dq.cu``
+    and ``flash_attn_bwd_dkv.cu`` for bf16 at 320 to 512. A mask goes with
+    every entry (a mask only up to 128, as every kernel: ``_check_inputs``
+    refuses the rest before a launch)."""
+    if dtype == torch.bfloat16 and dp in SM90_HEAD_DIMS:
         return "zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90"
     if dtype == torch.float32 and dp <= F32TC_MAX_D:
         return "zoo_flash_attn_bwd_dq_f32tc", "zoo_flash_attn_bwd_dkv_f32tc"
@@ -614,19 +612,17 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     lk = k.shape[2]
     dq = _empty_bhld(b, h, lq, dp, q)
     delta = torch.empty(b * h, lq, dtype=torch.float32, device=q.device)
-    sm90 = name.endswith("_sm90")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             _DTYPE_CODE[q.dtype], b, h, lq, lk, dp,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
-            *(() if sm90 else _mask_args(mask)), scale, int(causal),
-            _stream(q))
+            *_mask_args(mask), scale, int(causal), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash dq kernel launch failed ({name}): "
                            f"code {rc}")
     _count(flash_attention_bwd_dq, mask, dp)
-    flash_attention_bwd_dq.sm90_launches += sm90
+    flash_attention_bwd_dq.sm90_launches += name.endswith("_sm90")
     flash_attention_bwd_dq.f32tc_launches += name.endswith("_f32tc")
     return _cut(d, dq)[0], delta
 
@@ -654,19 +650,17 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     lk = k.shape[2]
     dk = _empty_bhld(b, h, lk, dp, k)
     dv = _empty_bhld(b, h, lk, dp, v)
-    sm90 = name.endswith("_sm90")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPE_CODE[q.dtype], b, h, lq, lk, dp,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-            *(() if sm90 else _mask_args(mask)), scale, int(causal),
-            _stream(q))
+            *_mask_args(mask), scale, int(causal), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash dkv kernel launch failed ({name}): "
                            f"code {rc}")
     _count(flash_attention_bwd_dkv, mask, dp)
-    flash_attention_bwd_dkv.sm90_launches += sm90
+    flash_attention_bwd_dkv.sm90_launches += name.endswith("_sm90")
     flash_attention_bwd_dkv.f32tc_launches += name.endswith("_f32tc")
     return _cut(d, dk, dv)
 

@@ -44,9 +44,9 @@ Phases:
    padded SQuAD call ([48,12,384,64] bf16, lengths in [64,384]),
    cross-length causal [1,2,128->384,128] with left padding (rows that
    see no key) in bf16 and f32, and a batch row with no real token in
-   bf16 and f32; every bf16 K1 and K1-lse launch must run K1's Hopper
-   kernel (phase 22; counted in sm90_launches), while K2 and K3 stay on
-   the older bf16 templates. Also checks that padded keys get exactly
+   bf16 and f32; every bf16 K1, K1-lse, K2 and K3 launch must run the
+   Hopper kernels (phases 22 and 23; counted in sm90_launches,
+   _check_sm90). Also checks that padded keys get exactly
    zero dK (and
    dV, where every row sees a key) and rows that see no key exactly zero
    dQ. Bounds count the visible pairs' flops and the K/V bytes of the
@@ -84,8 +84,8 @@ Phases:
    padded batch); the planted fault is
    the mask dropped from K2 and K3, which the f32 check must reject; K1,
    K2 and K3 must each launch with the mask at least 12 times per step,
-   every K1-lse launch on K1's Hopper kernel (384) and every K2 and K3
-   launch on the older bf16 templates;
+   every K1-lse, K2 and K3 launch on the Hopper kernels (384 each,
+   counted in sm90_launches);
    predict reports token accuracy and the fitted model is saved (the
    same flax msgpack layout, optimizer state included). Prints real and
    padded tokens/s; MFU counts padded tokens.
@@ -122,7 +122,8 @@ Phases:
    128,d], D = 8..120 but not 64, bf16 and f32, without a mask and with
    one holding a full row, a row of 2, a left-padded row and a row with
    no real token, causal at lq == lk and not; one summary line, and each
-   case must count one K2 and one K3 launch in small_d_launches), then
+   case must count one K2 and one K3 launch in small_d_launches, every
+   bf16 one on K2's and K3's Hopper kernels, phase 23), then
    MiniLM-L12-H384's trained call ([48,12,384,32] bf16 views into the
    qkv projection) without a mask and padded (lengths uniform in [64,
    384]), timed as phase 3 times the BERT-base call.
@@ -134,9 +135,9 @@ Phases:
    run with the mask and without it; the f32 check must reject dQ
    zeroed, dK and dV swapped and the mask dropped from K2 and K3. K1, K2
    and K3 must each launch with the mask at least 12 times a step, every
-   launch a K5b one (small_d_launches), every K1-lse launch on K1's
-   Hopper kernel (384) and every K2 and K3 launch on the older bf16
-   templates. Prints real and padded tokens/s,
+   launch a K5b one (small_d_launches), every K1-lse, K2 and K3 launch
+   on the Hopper kernels (384 each, sm90_launches). Prints real and
+   padded tokens/s,
    MFU (padded tokens) and peak memory.
 12. Generation, repo geometry: TinyGenLM as the launcher documents it
    (vocab 64, dim 32, 2 heads of 16, 2 layers, max_len 256, 8 slots,
@@ -284,18 +285,27 @@ Phases:
    version, SDPA and its bound, and the host time of encoding a call's
    three tensor maps.
 23. K2/K3 sm90: K2 and K3's Hopper kernels (flash_attn_bwd_sm90.cu: TMA,
-   a producer warpgroup, wgmma; K3 at D = 64, 192 and 256 splits its
-   products between its two consumers) through backward_phase, with K1
-   and K1-lse beside them: every instantiation once (D = 64, 128, 192,
-   256, causal and not, q/k/v views into a fused projection, lq 192 (an
-   odd number of 64-row tiles), lq < lk causal, lk past the last whole
-   128-key block; 28 cases, one summary line, each case counting K1
-   twice and K2 and K3 once in sm90_launches), then the SQuAD fit's call
+   a producer warpgroup, wgmma; K3 up to D = 64 and at 192 and 256
+   splits its products between its two consumers; with a key-padding
+   mask K2 walks only the kv tiles with a real key and K3 skips key
+   blocks of padding) through backward_phase, with K1 and K1-lse beside
+   them: every unmasked instantiation at 64-256 once (causal and not,
+   q/k/v views into a fused projection, lq 192 (an odd number of 64-row
+   tiles), lq < lk causal, lk past the last whole 128-key block; 28
+   cases), then every head dim up to 128 (D = 8..128 in steps of 8,
+   causal and not, without a mask and with _k5b_mask's rows, one with no
+   real key, at lq 192), causal lq < lk with left padding (rows that see
+   no key), _gap_mask's wholly padded kv tiles (lk 4224, and causal) and
+   _pattern_mask's random masks over 1024 keys (80 cases); one summary
+   line a sweep, each case counting K1 twice and K2 and K3 once in
+   sm90_launches; then 30 identical K2 and K3 launches on each of three
+   calls with a random mask, whose dQ, delta, dK and dV must agree bit
+   for bit (SM90_BWD_REPEAT); then the SQuAD fit's call
    [48,12,384,64] (views), [8,8,2048,128] and [4,16,2048,192] causal and
    the LM fit's [4,16,2048,256] causal (views), each timed (events and
-   device time) beside its plain version, SDPA's backward and its bound.
-   The masked NER fit's K2 and K3 stay on the older sources (phase 7
-   says so); its K1-lse is K1's Hopper kernel's.
+   device time) beside its plain version, SDPA's backward and its bound
+   (the masked NER call and the MiniLM calls are timed in phases 4 and
+   10).
 24. K2/K3 f32 tensor cores: K2 and K3 in f32 at every head dim
    (flash_attn_bwd_f32tc.cu: 3xTF32 mma.sync, partial sums flushed to
    device memory every 256 rows; up to D = 128 cp.async tile copies,
@@ -367,8 +377,12 @@ k5b_mask_call at the masked D = 32 call and a padded_call at D = 20,
 its launches those of phases 5, 6, 7, 8, 11, 17 and 21;
 flash_attn_bwd_dq_sm90 and
 flash_attn_bwd_dkv_sm90 at the SQuAD fit's call with a d128_call, a
-d192_call and an lm_call at the LM fit's, their launches those of phases
-6 and 17; flash_attn_bwd_dq_f32tc and flash_attn_bwd_dkv_f32tc at the
+d192_call, an lm_call at the LM fit's, a kv_mask_call at the masked bf16
+NER trained call, and a k5b_call and a k5b_mask_call at the MiniLM
+trained call unmasked and padded, and the head dims they are built for,
+their launches those of phases 6, 7, 11 and 17 (these rows took the
+places of the older sources' rows at the NER call and of
+flash_attn_bwd_{dq,dkv}_k5b); flash_attn_bwd_dq_f32tc and flash_attn_bwd_dkv_f32tc at the
 f32 trained call with a kv_mask_call (NER), a k5b_call and a
 k5b_mask_call (MiniLM), a cross_call, a d128_call, a d192_call, a
 d256_call (the GPT-J-width LM's f32 gradient check's call), a d384_call
@@ -381,12 +395,8 @@ cross_call, a d128_call, a d256_call (the Gemma-width prefill), a
 d256_lse_call, a d512_call (the DeepSeek-width prefill), a d512_lse_call
 (the 512-head LM's f32 K1-lse) and a d384_call, and the head dims it is
 built for, its launches those of the four f32 generation phases'
-prefills and of the learn phases' f32 gradient checks, by phase; K2
-and K3's older sources at the bf16 masked NER trained call, their
-launches the NER fit's, each with a kv_mask_call there;
-flash_attn_bwd_dq_k5b and flash_attn_bwd_dkv_k5b at the MiniLM trained
-call with a kv_mask_call at its padded call, their launches the MiniLM
-fit's; flash_attn_fwd_wide at the Gemma-width prefill call (f32, on
+prefills and of the learn phases' f32 gradient checks, by phase;
+flash_attn_fwd_wide at the Gemma-width prefill call (f32, on
 flash_attn_fwd_f32tc.cu since it retired the FMA kernel there) with an
 lse_call, its launches the Gemma phase's; flash_attn_fwd_wider
 (bf16 at D = 320-512, flash_attn_fwd_sm90.cu's split kernel) at the
@@ -849,7 +859,9 @@ def _sdpa_args(fa, lq, lk, causal, m):
 def backward_phase(torch, peaks, cases, seed, label, quiet=False):
     """K1 without and with logsumexp, K2 and K3, each through its wrapper
     against its plain version on the card, K2 and K3 reading the kernel's
-    own out and lse (as the main path's backward does). With a mask:
+    own out and lse (as the main path's backward does), each launched once
+    where ``_bwd_entry`` sends it (counted in ``sm90_launches`` or
+    ``f32tc_launches``). With a mask:
     padded keys' dK (and, where every row sees a key, dV) and the dQ of
     rows that see no key must be exactly zero. Timed cases: each kernel
     and SDPA by CUDA events and by profiler device time, the plain
@@ -919,21 +931,24 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
         # Hopper kernel
         _k1_check(fa, f"{label} {name} {dt} D={d}", k1_before, dtype,
                   calls=2)
-        before = [(w.launches, w.f32tc_launches) for w in bwd_wrappers]
+        before = [(w.launches, w.f32tc_launches, w.sm90_launches)
+                  for w in bwd_wrappers]
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
                                               None, m)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal,
                                             None, m)
         torch.cuda.synchronize()
-        # f32 up to D = 128 on the tensor-core kernels, every other call
-        # elsewhere
-        tc = fa._bwd_entry(dtype, fa._kernel_head_dim(d),
-                           m is not None)[0].endswith("_f32tc")
-        for w, (n, n_tc) in zip(bwd_wrappers, before):
-            if (w.launches - n, w.f32tc_launches - n_tc) != (1, int(tc)):
+        # f32 on the tensor-core kernels, bf16 up to D = 256 on the Hopper
+        # kernels, bf16 above on flash_attn_bwd_{dq,dkv}.cu
+        entry = fa._bwd_entry(dtype, fa._kernel_head_dim(d), m is not None)[0]
+        want = (1, int(entry.endswith("_f32tc")), int(entry.endswith("_sm90")))
+        for w, counts in zip(bwd_wrappers, before):
+            got = tuple(now - was for now, was in zip(
+                (w.launches, w.f32tc_launches, w.sm90_launches), counts))
+            if got != want:
                 fail(f"{label} {name} {dt} D={d}: {w.__name__} launched "
-                     f"{w.launches - n}, {w.f32tc_launches - n_tc} of them on "
-                     f"flash_attn_bwd_f32tc.cu (want 1, {int(tc)})")
+                     f"{got[0]}, {got[1]} of them on flash_attn_bwd_f32tc.cu "
+                     f"and {got[2]} on flash_attn_bwd_sm90.cu (want {want})")
         rdq, rdelta = fa.flash_attention_bwd_dq_reference(
             q, k, v, o, lse, do, causal, None, m)
         rdk, rdv = fa.flash_attention_bwd_dkv_reference(
@@ -1740,8 +1755,38 @@ SM90_BWD_SWEEP = [
            ("cross", (1, 2, 128, 384), True),
            ("past_tile", (1, 2, 64, 320), False),
            ("past_tile", (1, 2, 192, 320), True)])]
+# the same kernels at the K5b head dims and with a key-padding mask: every
+# head dim a call runs at up to 128 (each multiple of 16 is an
+# instantiation; 8 mod 16 runs the next one up), causal and not, without
+# a mask and with _k5b_mask (a full row, one of 2 keys, one left-padded,
+# one with no real key), all at lq 192 (K2's last 128-row block half
+# empty); then causal lq < lk with left padding (rows that see no key; lk
+# 320 ends K3's last 128-key block half-way), masks with wholly padded kv
+# tiles between real ones (K2's list of tiles walked, K3's key blocks of
+# padding; at lk 4224 more tiles than one round of 32), the same causal at
+# lq == lk, and random masks over 1024 keys (each stage refilled with
+# tiles whose masks differ)
+SM90_BWD_MASKED_SWEEP = [
+    (f"d{d}", (4, 2, 192, 192, d), "bfloat16", causal, mask_of, False)
+    for d in range(8, 129, 8) for causal in (False, True)
+    for mask_of in (None, _k5b_mask)] + [
+    (f"cross_d{d}", (2, 2, 64, 320, d), "bfloat16", True, _tail_mask, False)
+    for d in (24, 64, 80, 128)] + [
+    (f"gaps_d{d}", (2, 2, 128, 4224, d), "bfloat16", False, _gap_mask,
+     False) for d in (32, 128)] + [
+    (f"gaps_causal_d{d}", (2, 2, 384, 384, d), "bfloat16", True, _gap_mask,
+     False) for d in (40, 80)] + [
+    (f"pattern_d{d}", (2, 2, 128, 1024, d), "bfloat16", causal,
+     _pattern_mask, False) for d in (32, 64, 80, 128)
+    for causal in (False, True)]
+# calls whose K2 and K3 launch REPEATS times with one random mask (K3's
+# two blocks an SM at D = 32, its 128-key blocks at 80 and 128, K2's list
+# at lq < lk causal): (b, h, lq, lk, d, causal)
+SM90_BWD_REPEAT = ((4, 4, 256, 256, 32, False), (4, 4, 256, 256, 80, True),
+                   (2, 4, 256, 512, 128, True))
 # the calls timed: the BERT-base SQuAD fit's (views), [8,8,2048,128]
-# causal, [4,16,2048,192] causal and the GPT-J-width LM fit's (views)
+# causal, [4,16,2048,192] causal and the GPT-J-width LM fit's (views); the
+# masked NER call and the MiniLM calls are timed in phases 4 and 10
 SM90_BWD_CASES = [
     ("trained", (48, 12, 384, 384, 64), "bfloat16", False, None, True),
     ("bf16_d128", (8, 8, 2048, 2048, 128), "bfloat16", True, None, True),
@@ -1750,24 +1795,66 @@ SM90_BWD_CASES = [
 ]
 
 
+def bwd_repeat_check(torch, b, h, lq, lk, d, causal, n=REPEATS):
+    """``n`` identical bf16 K2 and K3 launches on one call with a random
+    key-padding mask (``_pattern_mask``): fail unless every dQ, delta, dK
+    and dV is bit for bit the first's."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(b + h + lq + lk + d)
+
+    def make(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+
+    q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
+    do = make(b, h, lq, d)
+    m = fa._kernel_mask(torch.from_numpy(_pattern_mask(rng, b, lk)).cuda())
+    o, lse = fa.flash_attention(q, k, v, causal, None, True, m)
+    first, differ = None, 0
+    for _ in range(n):
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
+                                              None, m)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal,
+                                            None, m)
+        got = (dq, delta, dk, dv)
+        if first is None:
+            first = got
+        else:
+            differ += not all(torch.equal(x, y) for x, y in zip(got, first))
+    if differ:
+        fail(f"K2/K3 sm90 repeat {[b, h, lq, lk, d]} causal={causal}: "
+             f"{differ} of {n - 1} repeated launches differ from the first "
+             "in dQ, delta, dK or dV")
+
+
 def sm90_bwd_phase(torch, peaks):
     """K2 and K3's Hopper kernels through ``backward_phase``: every
-    instantiation once (``SM90_BWD_SWEEP``, one summary line; each case
-    must count its two K1 launches and one of K2 and of K3 in
-    ``sm90_launches``), then ``SM90_BWD_CASES`` timed. Returns the timed
-    records."""
+    instantiation once, unmasked at 64-256 (``SM90_BWD_SWEEP``), then at
+    every head dim up to 128 with and without a mask
+    (``SM90_BWD_MASKED_SWEEP``), one summary line each (each case must
+    count its two K1 launches and one of K2 and of K3 in
+    ``sm90_launches``); ``SM90_BWD_REPEAT`` (``REPEATS`` launches each,
+    bit for bit the same); then ``SM90_BWD_CASES`` timed. Returns the
+    timed records."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv)
-    before = [w.sm90_launches for w in wrappers]
-    backward_phase(torch, peaks, SM90_BWD_SWEEP, 23, "sm90-bwd-sweep",
-                   quiet=True)
-    counted = [w.sm90_launches - n for w, n in zip(wrappers, before)]
-    n = len(SM90_BWD_SWEEP)
-    if counted != [2 * n, n, n]:
-        fail(f"K2/K3 sm90: K1, K2, K3 counted {counted} Hopper launches in "
-             f"{n} sweep cases (want {[2 * n, n, n]})")
+    for sweep, seed, label in ((SM90_BWD_SWEEP, 23, "sm90-bwd-sweep"),
+                               (SM90_BWD_MASKED_SWEEP, 27,
+                                "sm90-bwd-masked-sweep")):
+        before = [w.sm90_launches for w in wrappers]
+        backward_phase(torch, peaks, sweep, seed, label, quiet=True)
+        counted = [w.sm90_launches - n for w, n in zip(wrappers, before)]
+        n = len(sweep)
+        if counted != [2 * n, n, n]:
+            fail(f"{label}: K1, K2, K3 counted {counted} Hopper launches in "
+                 f"{n} sweep cases (want {[2 * n, n, n]})")
+    for args in SM90_BWD_REPEAT:
+        bwd_repeat_check(torch, *args)
+    print(f"K2/K3 sm90: {REPEATS} launches each of {len(SM90_BWD_REPEAT)} "
+          f"masked calls agree bit for bit", flush=True)
     return backward_phase(torch, peaks, SM90_BWD_CASES, 24, "sm90-bwd")
 
 
@@ -2064,8 +2151,9 @@ def _sm90_expected(torch, fa, dtype, head_dim, masked, launches):
     form) must have run on the Hopper kernels}: all of a call that
     ``_fwd_entry`` (K1: ``flash_attn_fwd_sm90.cu``, every bf16 call) or
     ``_bwd_entry`` (K2
-    and K3: ``flash_attn_bwd_sm90.cu``, bf16 without a mask at 64-256)
-    sends there, none of any other."""
+    and K3: ``flash_attn_bwd_sm90.cu``, every bf16 call up to 128, masked
+    or not, and unmasked at 192 and 256) sends there, none of any
+    other."""
     dt = getattr(torch, dtype)
     hopper = dict(zip(("K1", "K2", "K3"), (
         fa._fwd_entry(dt), *fa._bwd_entry(dt, head_dim, masked))))
@@ -2086,6 +2174,14 @@ def _check_sm90(label, launches, want):
         f"{name} {launches[name][4]} of {launches[name][0]}"
         + ("" if launches[name][4] else " (older sources)")
         for name in want)
+
+
+def _check_bf16_on_sm90(label, launches):
+    """``_check_sm90`` for a phase of bf16 calls at head dims up to 256
+    beside f32 ones: every K1, K2 and K3 launch in ``launches`` that is
+    not an f32 tensor-core one must have run on the Hopper kernels."""
+    return _check_sm90(label, launches, {
+        name: counts[0] - counts[5] for name, counts in launches.items()})
 
 
 def _f32tc_expected(torch, fa, dtype, head_dim, masked, launches):
@@ -2553,8 +2649,8 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
             fail(f"{label}: {kname} launched {counts[int(masked)]} times"
                  + (" with a mask" if masked else "")
                  + f" in {steps} train steps (< {need})")
-    # K1-lse of every bf16 model on K1's Hopper kernel; K2 and K3 without
-    # a mask at D 64-256 on theirs, masked, K5b or above 256 on the older
+    # K1-lse, K2 and K3 of every bf16 model up to D = 256 (masked up to
+    # 128) on the Hopper kernels, K2 and K3 above 256 on the older
     # sources; f32 none (_sm90_expected)
     if cuda:
         print(_check_sm90(label, launches, _sm90_expected(
@@ -3494,8 +3590,10 @@ def main() -> None:
     timed("kernels", kernel_phase, torch, peaks)
     backward = timed("backward", backward_phase, torch, peaks,
                      BACKWARD_CASES, 1, "backward")
+    _reset_launches(fa)
     ner = _pick(timed("masked kernels", backward_phase, torch, peaks,
                       MASKED_CASES, 2, "masked"), "ner_trained")
+    print(_check_bf16_on_sm90("masked kernels", _launches(fa)), flush=True)
     runs = [timed("serving", bert_serving, torch, profile=args.profile)]
     squad = timed("learn", squad_learn, torch, profile=args.profile)
     with tempfile.TemporaryDirectory() as ner_dir:
@@ -3504,7 +3602,10 @@ def main() -> None:
         runs.append(timed("NER serving", ner_serving, torch, ner_dir))
     torch.cuda.empty_cache()
     k5b = timed("K5b kernels", k5b_phase, torch, peaks)
+    _reset_launches(fa)
     k5b_bwd = timed("K5b backward kernels", k5b_bwd_phase, torch, peaks)
+    print(_check_bf16_on_sm90("K5b backward kernels", _launches(fa)),
+          flush=True)
     minilm = timed("MiniLM learn", minilm_learn, torch, profile=args.profile)
     torch.cuda.empty_cache()
     gens = [timed("generation, repo geometry", generation_phase, torch, "gen",
@@ -3576,36 +3677,12 @@ def main() -> None:
                   max_abs_err=rec["k1_lse_out_max_abs_err"],
                   lse_max_abs_err=rec["k1_lse_max_abs_err"], **extra)
 
-    def bwd_row(name, source, replaces, key, launches, rec, masked_rec,
-                mask_replaces):
-        """K2 or K3 at a trained call, with its masked call, launched as
-        ``launches`` counts less its Hopper and f32 tensor-core launches.
-        SDPA's backward computes K2 + K3 + delta together, so neither row
-        has a single library call of its own (its time is kept beside
-        them)."""
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": launches[0] - launches[4] - launches[5],
-                "masked_launches": launches[1],
-                "small_d_launches": launches[2], **at(rec, key),
-                "library_backward_ms": rec["sdpa_bwd_ms"],
-                "library_backward_device_ms": rec["sdpa_bwd_device_ms"],
-                "kv_mask_call": at(
-                    masked_rec, key, replaces=mask_replaces,
-                    library_backward_ms=masked_rec["sdpa_bwd_ms"],
-                    library_backward_device_ms=masked_rec[
-                        "sdpa_bwd_device_ms"])}
-
     def pick_keys(rec, *extra):
         """A timed ``timed_fwd_cases`` record's numbers."""
         return {key: rec[key] for key in (
             "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "fma_bound_ms", "library_ms",
             "library_device_ms", *extra)}
-
-    def fits(kk):
-        """(launches, masked, K5b) of one kernel over the BERT-base fits."""
-        return tuple(a + b for a, b in zip(squad[kk], ner_fit[kk]))
 
     def bwd_call(rec, key, **extra):
         """K2 or K3 at one timed call; SDPA's backward computes K2 + K3 +
@@ -3711,17 +3788,25 @@ def main() -> None:
 
     def sm90_bwd_row(name, replaces, key):
         """K2 or K3's Hopper kernel at the SQuAD fit's call, with
-        [8,8,2048,128] and [4,16,2048,192] causal and the LM fit's call,
-        launched by those two fits."""
+        [8,8,2048,128] and [4,16,2048,192] causal, the LM fit's call, the
+        masked NER call (K5a) and the MiniLM calls (K5b, unmasked and
+        padded), launched by the SQuAD, NER, MiniLM and LM fits."""
         by_phase = {"squad_fit": squad[key.upper()][4],
+                    "ner_fit": ner_fit[key.upper()][4],
+                    "minilm_fit": minilm[key.upper()][4],
                     "lm_fit": lm[key.upper()][4]}
         return {"name": name, "route": "cuda", "source": SM90_BWD_SOURCE,
-                "replaces": replaces, "launches": sum(by_phase.values()),
+                "replaces": replaces, "head_dims": list(fa.SM90_HEAD_DIMS),
+                "launches": sum(by_phase.values()),
                 "launches_by_phase": by_phase,
                 **bwd_call(_pick(sm90_bwd, "trained"), key),
                 "d128_call": bwd_call(_pick(sm90_bwd, "bf16_d128"), key),
                 "d192_call": bwd_call(_pick(sm90_bwd, "bf16_d192"), key),
-                "lm_call": bwd_call(_pick(sm90_bwd, "gptj_trained"), key)}
+                "lm_call": bwd_call(_pick(sm90_bwd, "gptj_trained"), key),
+                "kv_mask_call": bwd_call(ner, key, replaces=K5A_REPLACES),
+                "k5b_call": bwd_call(mini, key, replaces=K5B_REPLACES),
+                "k5b_mask_call": bwd_call(mini_padded, key,
+                                          replaces=K5B_REPLACES)}
 
     # K1's Hopper kernel at the served call ([32,12,512,64] bf16 views
     # into the qkv projection), with its logsumexp call at the SQuAD
@@ -3732,9 +3817,9 @@ def main() -> None:
     # K1-lse ([48,12,384,32]) unmasked and padded (lengths in [64, 384]),
     # the masked D = 32 call and the padded head dim 20; launched by
     # BERT-base and NER serving and the SQuAD, NER, MiniLM and LM fits.
-    # K2 and K3 at the trained call ([48,12,384,64] bf16), masked at the
-    # NER trained call; K5b's backward at the MiniLM trained call, masked
-    # at its padded call
+    # K2 and K3's Hopper kernels at the trained call ([48,12,384,64]
+    # bf16), with the masked NER trained call and K5b's backward at the
+    # MiniLM trained call, unmasked and padded (sm90_bwd_row)
     sm90_launches = {"serving": runs[0][4], "ner_serving": runs[1][4],
                      "squad_fit": squad["K1"][4],
                      "ner_fit": ner_fit["K1"][4],
@@ -3767,16 +3852,7 @@ def main() -> None:
         sm90_bwd_row("flash_attn_bwd_dkv_sm90", K3_REPLACES, "k3"),
         f32tc_row("flash_attn_bwd_dq_f32tc", K2_REPLACES, "k2"),
         f32tc_row("flash_attn_bwd_dkv_f32tc", K3_REPLACES, "k3"),
-        # the older sources' K2 and K3 up to D = 128 now run bf16 with a
-        # mask (and K5b): the NER trained call, launched by the NER fit
-        bwd_row("flash_attn_bwd_dq", K2_SOURCE, K2_REPLACES, "k2",
-                fits("K2"), ner, ner, K5A_REPLACES),
-        bwd_row("flash_attn_bwd_dkv", K3_SOURCE, K3_REPLACES, "k3",
-                fits("K3"), ner, ner, K5A_REPLACES),
-        bwd_row("flash_attn_bwd_dq_k5b", K2_SOURCE, K5B_REPLACES, "k2",
-                minilm["K2"], mini, mini_padded, K5B_REPLACES),
-        bwd_row("flash_attn_bwd_dkv_k5b", K3_SOURCE, K5B_REPLACES, "k3",
-                minilm["K3"], mini, mini_padded, K5B_REPLACES), {
+        {
             # K1 f32 at D = 256: the full-width prefill call at Gemma-2B's
             # widths ([1,8,8192,256] f32, causal), launched by the Gemma
             # phase's prefills, on flash_attn_fwd_f32tc.cu (bf16 there is

@@ -11,8 +11,10 @@ parent, change, ... (``--pairs`` pairs, 3 by default), each in a fresh
 process that imports that checkout's own ``chip_smoke.py`` and drives
 its phases whose figures swing with the host: K1, K1-lse, K2 and K3 at
 the BERT-base trained call, at the GPT-J-width LM's [4,16,2048,256]
-causal call, at [4,16,2048,192] and at [8,8,2048,128] causal, bf16
-(device time), the same in f32 at every call up to D = 128 that
+causal call, at [4,16,2048,192] and at [8,8,2048,128] causal, at the NER
+trained call [32,12,128,64] with its mask and at MiniLM's
+[48,12,384,32] without and with a mask, bf16 (device time), the same in
+f32 at every call up to D = 128 that
 chip_smoke.py times (the trained call, the NER trained call with its
 mask, MiniLM's [48,12,384,32] without and with a mask, cross-length
 causal [1,2,128->384,128] and [8,8,2048,128] causal) and at the f32
@@ -82,10 +84,11 @@ def _squad_mask(rng, b, lk):
 
 
 # (backward_phase label, case, metric prefix): the BERT-base trained
-# call, the LM's call (D = 256), and causal calls at D = 192 and 128,
-# bf16; then every f32 call up to D = 128 that chip_smoke.py times: the
-# trained call, the NER trained call (masked), MiniLM's trained call
-# (D = 32) without and with a mask, cross-length causal and
+# call, the LM's call (D = 256), causal calls at D = 192 and 128, the NER
+# trained call (masked) and MiniLM's trained call (D = 32) without and
+# with a mask, bf16; then every f32 call up to D = 128 that chip_smoke.py
+# times: the trained call, the NER trained call (masked), MiniLM's trained
+# call (D = 32) without and with a mask, cross-length causal and
 # [8,8,2048,128] causal; and the f32 gradient checks' calls above 128,
 # the GPT-J-width LM's (D = 256) and the 512-head LM's (D = 512)
 BACKWARD = (
@@ -97,6 +100,13 @@ BACKWARD = (
                   None, True), "d192_"),
     ("d128-bwd", ("bf16_d128", (8, 8, 2048, 2048, 128), "bfloat16", True,
                   None, True), "d128_"),
+    ("ner-bwd", ("ner_trained", (32, 12, 128, 128, 64), "bfloat16", False,
+                 _ner_mask, True), "ner_bwd_"),
+    ("minilm-bwd", ("minilm_trained", (48, 12, 384, 384, 32), "bfloat16",
+                    False, None, True), "minilm_bwd_"),
+    ("minilm-masked-bwd", ("minilm_padded", (48, 12, 384, 384, 32),
+                           "bfloat16", False, _squad_mask, True),
+     "minilm_masked_bwd_"),
     ("f32-bwd", ("trained", (48, 12, 384, 384, 64), "float32", False, None,
                  True), "f32_"),
     ("f32-ner-bwd", ("ner_trained", (32, 12, 128, 128, 64), "float32",

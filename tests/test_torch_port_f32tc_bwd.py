@@ -61,13 +61,12 @@ class TestRoute:
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_bwd_entry(self, d, dtype, masked):
         """f32 at every head dim, masked or not, takes the f32
-        tensor-core kernels; bf16 without a mask at 64-256 the Hopper
-        kernels; the rest (bf16 masked, K5b or above 256) the older
+        tensor-core kernels; bf16 up to 256 (masked or not, K5b among
+        them) the Hopper kernels; the rest (bf16 above 256) the older
         sources."""
         if dtype == torch.float32:
             want = (DQ, DKV)
-        elif dtype == torch.bfloat16 and not masked and d in (64, 128,
-                                                              192, 256):
+        elif dtype == torch.bfloat16 and d <= 256:
             want = (SM90_DQ, SM90_DKV)
         else:
             want = (OLD_DQ, OLD_DKV)

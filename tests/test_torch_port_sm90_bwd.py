@@ -1,7 +1,9 @@
 """PyTorch port, K2 and K3's Hopper kernels (``csrc/flash_attn_bwd_sm90.cu``):
-the route that sends bf16 calls without a key-padding mask at head dims
-64, 128, 192 and 256 to them (``_bwd_entry``), what the wrappers hand
-their entry points and count, and K2's and K3's plain versions (what the
+the route that sends bf16 calls at head dims 64, 128, 192 and 256 to them
+(``_bwd_entry``; every head dim up to 128, masked or not, since the K5b
+and masked slice: ``tests/test_torch_port_sm90_masked_bwd.py``), what the
+wrappers hand their entry points and count, and K2's and K3's plain
+versions (what the
 kernels are held to on the card by ``chip_smoke.py``) against the JAX
 package's ``_flash_bwd`` (the dQ and dK/dV Pallas kernels in interpret
 mode, and its jnp delta) at the shapes the new kernels must get right:
@@ -31,9 +33,10 @@ OLD_DQ, OLD_DKV = "zoo_flash_attn_bwd_dq", "zoo_flash_attn_bwd_dkv"
 F32TC_DQ, F32TC_DKV = ("zoo_flash_attn_bwd_dq_f32tc",
                        "zoo_flash_attn_bwd_dkv_f32tc")
 FWD_SM90 = "zoo_flash_attn_fwd_sm90"
-# where the new entries take their scale and causal flag (the old ones'
-# positions less the mask's two), and where the old ones take the mask
-SCALE_ARG, CAUSAL_ARG, MASK_ARG = 32, 33, 32
+# where the entries take their scale and causal flag, and the mask (the
+# Hopper entries take the older ones' arguments, the mask's two among
+# them)
+SCALE_ARG, CAUSAL_ARG, MASK_ARG = 34, 35, 32
 # |port - jax|: f32 on both sides is exact arithmetic in another order,
 # within 2e-5; in bf16 both round dS and P to bf16 before their products
 # and round the gradients (one bf16 ulp is 2^-7 relative), within
@@ -47,12 +50,12 @@ class TestRoute:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_bwd_entry(self, d, dtype, masked):
-        """bf16 without a mask at 64, 128, 192 and 256 takes the Hopper
+        """bf16 at every head dim up to 256 (masked or not; a mask only
+        up to 128, which ``_check_inputs`` enforces) takes the Hopper
         kernels; f32 at every head dim the f32 tensor-core kernels; bf16
-        with a mask, at the K5b head dims and above 256 keeps
-        ``flash_attn_bwd_dq.cu`` and ``flash_attn_bwd_dkv.cu``."""
-        if dtype == torch.bfloat16 and not masked and d in (64, 128, 192,
-                                                             256):
+        above 256 keeps ``flash_attn_bwd_dq.cu`` and
+        ``flash_attn_bwd_dkv.cu``."""
+        if dtype == torch.bfloat16 and d <= 256:
             want = (DQ, DKV)
         elif dtype == torch.float32:
             want = (F32TC_DQ, F32TC_DKV)
@@ -65,9 +68,8 @@ class TestRoute:
         stem, argtypes = fa._ENTRY_POINTS[new]
         assert stem == "flash_attn_bwd_sm90"
         assert (fa._CSRC / f"{stem}.cu").is_file()
-        # the old entry's arguments without the mask pointer and stride
-        before = fa._ENTRY_POINTS[old][1]
-        assert argtypes == before[:MASK_ARG] + before[MASK_ARG + 2:]
+        # the old entry's arguments, the mask pointer and stride included
+        assert argtypes == fa._ENTRY_POINTS[old][1]
 
 
 def _meta(d, dtype=torch.bfloat16, grad=False, b=2, h=3, lq=192, lk=256):
@@ -108,6 +110,7 @@ class TestLaunches:
         for name, args in sm90_count:
             assert args[D_ARG[name[:-5]]] == d
             assert args[11:13] == (192, 256)  # lq, lk
+            assert args[MASK_ARG] is None
             assert args[SCALE_ARG] == pytest.approx(1 / np.sqrt(d))
             assert args[CAUSAL_ARG] == int(causal)
             assert len(args) == len(fa._ENTRY_POINTS[name][1])
@@ -140,11 +143,12 @@ class TestLaunches:
     ])
     def test_other_calls_keep_the_old_entries(self, sm90_count, kind, d,
                                               dtype, masked):
-        """A masked call, K5b (D = 80, and 20 padded to 24) and D = 512
-        in bf16 still reach ``zoo_flash_attn_bwd_dq`` and
+        """A masked bf16 call (64 and 128) and K5b (D = 80, and 20 padded
+        to 24) reach the Hopper entries too, counted in ``sm90_launches``;
+        bf16 at D = 512 still reaches ``zoo_flash_attn_bwd_dq`` and
         ``zoo_flash_attn_bwd_dkv``, and f32 (at 64 and at 256) the f32
-        tensor-core entries, which take the same arguments; the mask's
-        pointer goes with them, and none counts in ``sm90_launches``."""
+        tensor-core entries; all take the same arguments, and the mask's
+        pointer goes with each."""
         q, k, v, do = _meta(d, dtype, lq=128, lk=128)
         m = (torch.ones(2, 128, dtype=torch.uint8, device="meta")
              if masked else None)
@@ -153,15 +157,15 @@ class TestLaunches:
                                              key_padding_mask=m)
         fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, False,
                                    key_padding_mask=m)
-        f32tc = dtype == torch.float32
-        assert [name for name, _ in sm90_count] == (
-            [F32TC_DQ, F32TC_DKV] if f32tc else [OLD_DQ, OLD_DKV])
+        want = ([F32TC_DQ, F32TC_DKV] if dtype == torch.float32
+                else [OLD_DQ, OLD_DKV] if d > 256 else [DQ, DKV])
+        assert [name for name, _ in sm90_count] == want
         for name, args in sm90_count:
-            name = name.removesuffix("_f32tc")
+            name = name.removesuffix("_f32tc").removesuffix("_sm90")
             assert args[D_ARG[name]] == fa._kernel_head_dim(d)
             assert (args[MASK_ARG] is not None) == masked
         for w in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
-            assert (w.launches, w.sm90_launches) == (1, 0)
+            assert (w.launches, w.sm90_launches) == (1, int(want[0] == DQ))
 
 
 def _case(seed, lq, lk, d):

@@ -1,7 +1,7 @@
 """PyTorch port, K1's Hopper forward at the K5b head dims and under the
 key-padding mask (``csrc/flash_attn_fwd_sm90.cu``): the route that sends
 every bf16 call at a head dim up to 128, masked or not, to it
-(``_fwd_entry``) while K2 and K3 keep theirs (``_bwd_entry``), what the
+(``_fwd_entry``), K2's and K3's route beside it (``_bwd_entry``), what the
 wrapper hands its entry point (the mask's pointer and batch stride, the
 head dim it runs at, the lse pointer, the scale and the causal flag) and
 counts, and K1's plain version (what the kernel is held to on the card
@@ -69,13 +69,15 @@ class TestRoute:
     @pytest.mark.parametrize("masked", [False, True])
     @pytest.mark.parametrize("dp", range(8, 129, 8))
     def test_bwd_entry_is_unchanged(self, dp, masked):
-        """K2 and K3 keep the older templates for bf16 K5b and masked
-        calls: only unmasked 64 and 128 take their Hopper kernels."""
-        want = BWD_SM90 if not masked and dp in (64, 128) else BWD_OLD
-        assert fa._bwd_entry(BF16, dp, masked) == want
+        """K2 and K3 take their Hopper kernels at every head dim K1 takes
+        its own up to 128, masked or not (the older bf16 templates there
+        are retired)."""
+        assert fa._bwd_entry(BF16, dp, masked) == BWD_SM90
 
     def test_backward_set_is_not_widened(self):
-        assert fa.SM90_HEAD_DIMS == (64, 128, 192, 256)
+        """The backward's Hopper head dims: the forward's up to 256 (no
+        split template above)."""
+        assert fa.SM90_HEAD_DIMS == tuple(range(8, 129, 8)) + (192, 256)
         assert fa.SM90_FWD_HEAD_DIMS == tuple(range(8, 129, 8)) + (
             192, 256, 320, 384, 448, 512)
 
@@ -160,20 +162,22 @@ class TestLaunches:
     @pytest.mark.parametrize("d", [32, 64])
     def test_gradient_runs_hopper_k1_lse_then_older_k2_k3(self, counts, d):
         """Under ``FlashAttention`` a masked bf16 call runs K1-lse on the
-        Hopper kernel (with the lse and the mask) and K2 then K3 on the
-        older templates (with the mask); only K1 counts in
-        ``sm90_launches``."""
+        Hopper kernel (with the lse and the mask) and K2 then K3 on
+        theirs (with the mask, the older templates being retired); each
+        counts in ``sm90_launches``."""
         q, k, v = _meta(d, lq=256, grad=True)
         m = torch.ones(2, 256, dtype=torch.uint8, device="meta")
         out = fa.flash_attention(q, k, v, False, key_padding_mask=m)
         grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
         assert all(g.shape == q.shape for g in grads)
-        assert [name for name, _ in counts] == [SM90, *BWD_OLD]
+        assert [name for name, _ in counts] == [SM90, *BWD_SM90]
         args = counts[0][1]
         assert args[LSE_ARG] is not None and args[MASK_ARG] is not None
+        # the backward entries take the mask at 32
+        assert all(a[32] is not None for _, a in counts[1:])
         assert [w.sm90_launches for w in (
             fa.flash_attention, fa.flash_attention_bwd_dq,
-            fa.flash_attention_bwd_dkv)] == [1, 0, 0]
+            fa.flash_attention_bwd_dkv)] == [1, 1, 1]
 
 
 def _mask(kind, b, lk, seed):
