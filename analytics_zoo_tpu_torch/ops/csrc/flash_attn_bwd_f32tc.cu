@@ -11,13 +11,13 @@
 // that `_flash_bwd` takes in plain jnp (:316-320); with a key-padding mask,
 // or at a head dim that is not a multiple of 64, the backward of the stock
 // Pallas kernel that analytics_zoo_tpu/ops/attention.py (:116-127) reaches.
-// The semantics are those of the FMA templates in flash_attn_bwd.cuh that
-// these kernels retired (at D <= 128, then above): P = exp(scale * Q K^T -
+// The semantics are those of the FMA templates that these kernels
+// retired (at D <= 128, then above): P = exp(scale * Q K^T -
 // lse), dS = P * (dO V^T - delta) * scale, dQ = dS K, dK = dS^T Q,
 // dV = P^T dO, all in f32; the causal mask aligned bottom-right (key j
 // visible to query i when j <= i + Lk - Lq); masked pairs take P = 0; a
 // row that sees no key gives nothing to dQ or dK and dO / Lk to the dV of
-// every key (empty_rows_dv, flash_attn_bwd.cuh).
+// every key (empty_rows_dv).
 //
 // What bounds them. K2 does 6 * D flops a visible (query, key) pair (S, dP,
 // dQ), K3 8 * D (S^T, dP^T, dV, dK). In f32 on plain FMA that is 67
@@ -136,17 +136,87 @@
 // The device helpers (the tf32 split, mma.sync, ldmatrix, cp.async, the
 // tile copy and split, the relabelled A fragments and the two products)
 // are in flash_attn_f32tc.cuh, shared with K1's f32 kernel
-// (flash_attn_fwd_f32tc.cu).
+// (flash_attn_fwd_f32tc.cu). Params, the launch, the argument checks, the
+// head-dim dispatch and empty_rows_dv are this source's own (they came
+// from flash_attn_bwd.cuh, retired with the bf16 mma.sync templates it
+// held). Every bf16 call takes flash_attn_bwd_sm90.cu.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libzoo_flash_attn_bwd_f32tc.so \
 //        flash_attn_bwd_f32tc.cu
 
-#include "flash_attn_bwd.cuh"
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
 #include "flash_attn_f32tc.cuh"
 
 namespace {
+
+constexpr int kTile = 64;        // Lq and Lk: multiples of it
+constexpr int kThreads = 128;    // the f32 tensor-core kernels' block
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;                 // K2 only (delta)
+  const void* dout;
+  const float* lse;              // [B*H, Lq], natural log
+  float* delta;                  // [B*H, Lq]: written by K2, read by K3
+  const uint8_t* mask;           // [B, Lk] key-padding mask, or nullptr
+  long long mask_sb;             // its batch stride
+  void* dq;
+  void* dk;
+  void* dv;
+  long long q_sb, q_sh, q_sl;    // element strides: batch, head, seq
+  long long k_sb, k_sh, k_sl;
+  long long v_sb, v_sh, v_sl;
+  long long o_sb, o_sh, o_sl;
+  long long do_sb, do_sh, do_sl;
+  long long dq_sb, dq_sh, dq_sl;
+  long long dk_sb, dk_sh, dk_sl;
+  long long dv_sb, dv_sh, dv_sl;
+  int h, lq, lk;
+  float scale;                   // softmax scale
+  float scale_log2;              // scale * log2(e)
+  int causal;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+// K3's share of the rows that see no key (the masked K3): e[c] = inv_lk * sum of dO[i][c] over the first n_empty rows,
+// for c < D. Those rows are a prefix: row i sees no key when the first
+// real key lies beyond i + Lk - Lq under causal, or when there is no real
+// key at all.
+template <int D, typename T>
+__device__ void empty_rows_dv(float* e, int* s_first, const uint8_t* mrow,
+                              const T* dout, long long do_sl, int lq, int lk,
+                              int causal, float inv_lk, int tid) {
+  if (tid == 0) *s_first = lk;
+  __syncthreads();
+  for (int j = tid; j < lk; j += kThreads) {
+    if (mrow[j] != 0) {
+      atomicMin(s_first, j);
+      break;
+    }
+  }
+  __syncthreads();
+  const int first = *s_first;
+  const int n_empty = causal ? min(max(first - (lk - lq), 0), lq)
+                             : (first == lk ? lq : 0);
+  if (tid < D) {
+    float acc = 0.f;
+    for (int i = 0; i < n_empty; ++i) acc += to_f32(dout[i * do_sl + tid]);
+    e[tid] = acc * inv_lk;
+  }
+  __syncthreads();
+}
+
 
 constexpr int kFlushRows = 256;  // rows of the sequence a partial sum
                                  // takes in the accumulators
@@ -676,7 +746,7 @@ __device__ __forceinline__ void put_partials(float4* s_buf, float4* p_buf,
 // the sum over a group's N warps of their partial fragments of one
 // n-block, slice 0 first in every warp (`at0` is slice 0's, `stride` the
 // distance between slices): unrolled, so that every load is in flight
-// before the first add (bf16's sum_partials keeps a loop)
+// before the first add
 template <int N>
 __device__ __forceinline__ void sum_slices(float (&x)[4], const float4* t,
                                            int at0, int stride) {
@@ -1112,12 +1182,71 @@ flash_bwd_dkv_f32tc_wide_kernel(const Params p) {
   store_rows<kNb>(dv, p.dv_sl, ka, kb, t4, acc_v, flushed, nullptr);
 }
 
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
+                   cudaStream_t stream, int threads = kThreads) {
+  if (smem > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// 0, or 1000 + n for an argument the kernels do not take
+int check(int dtype, int lq, int lk, int batch, int heads, int causal) {
+  if (lq % kTile || lk % kTile) return 1001;
+  if (causal && lq > lk) return 1002;
+  if (batch * heads > 65535) return 1003;
+  if (dtype != 0 && dtype != 1) return 1005;
+  return 0;
+}
+
+// fn(std::integral_constant<int, D>) for head dim d: every multiple of 8
+// up to 128, and 192, 256, 320, 384, 448 and 512; 1004 for any other d
+template <typename Fn>
+int with_head_dim(int d, Fn&& fn) {
+  switch (d) {
+    case 8: return fn(std::integral_constant<int, 8>{});
+    case 16: return fn(std::integral_constant<int, 16>{});
+    case 24: return fn(std::integral_constant<int, 24>{});
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 40: return fn(std::integral_constant<int, 40>{});
+    case 48: return fn(std::integral_constant<int, 48>{});
+    case 56: return fn(std::integral_constant<int, 56>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 72: return fn(std::integral_constant<int, 72>{});
+    case 80: return fn(std::integral_constant<int, 80>{});
+    case 88: return fn(std::integral_constant<int, 88>{});
+    case 96: return fn(std::integral_constant<int, 96>{});
+    case 104: return fn(std::integral_constant<int, 104>{});
+    case 112: return fn(std::integral_constant<int, 112>{});
+    case 120: return fn(std::integral_constant<int, 120>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    case 192: return fn(std::integral_constant<int, 192>{});
+    case 256: return fn(std::integral_constant<int, 256>{});
+    case 320: return fn(std::integral_constant<int, 320>{});
+    case 384: return fn(std::integral_constant<int, 384>{});
+    case 448: return fn(std::integral_constant<int, 448>{});
+    case 512: return fn(std::integral_constant<int, 512>{});
+    default: return 1004;
+  }
+}
+
 }  // namespace
 
 // K2 in f32 at a head dim up to 128 (a multiple of 8; with or without a
-// mask) or at 192, 256, 320, 384, 448 and 512 (without). Arguments and
-// return codes as zoo_flash_attn_bwd_dq's (flash_attn_bwd_dq.cu); 1004 for
-// bf16, which other sources take; 1006 for a mask above 128.
+// mask) or at 192, 256, 320, 384, 448 and 512 (without): q, k, v, o, dout
+// and dq are [B, H, L, D] with element strides (batch, head, seq; the last
+// dimension contiguous); mask is [B, Lk] bytes (nonzero = real key) with
+// batch stride mask_sb, or null for none. Writes dq and delta ([B*H, Lq]
+// f32, contiguous). Arguments as zoo_flash_attn_bwd_dq_sm90's
+// (flash_attn_bwd_sm90.cu). Returns a cudaError_t (0 = launched); 1000 + n
+// flags a call the kernels do not take (1001 Lq or Lk not a multiple of
+// 64, 1002 causal with Lq > Lk, 1003 B*H above 65535, 1004 the head dim,
+// or bf16, which flash_attn_bwd_sm90.cu takes, 1005 the dtype, 1006 a mask
+// above 128).
 extern "C" int zoo_flash_attn_bwd_dq_f32tc(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq,
@@ -1172,7 +1301,8 @@ extern "C" int zoo_flash_attn_bwd_dq_f32tc(
 }
 
 // K3 in f32 at the same head dims: reads the delta K2 wrote; writes dk
-// and dv. Arguments and return codes as zoo_flash_attn_bwd_dkv's.
+// and dv. Arguments as zoo_flash_attn_bwd_dkv_sm90's, return codes as
+// zoo_flash_attn_bwd_dq_f32tc's.
 extern "C" int zoo_flash_attn_bwd_dkv_f32tc(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,

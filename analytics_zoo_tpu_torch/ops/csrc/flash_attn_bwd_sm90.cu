@@ -1,9 +1,10 @@
 // Flash-attention backward (K2 dQ and delta, K3 dK/dV) for Hopper, sm_90a:
 // every bf16 call at a head dim up to 128 (each multiple of 8; the
 // wrappers pad other head dims to one), with or without a key-padding
-// mask, and the bf16 calls without a mask at head dims 192 and 256, built
-// on TMA, mbarriers, a producer warpgroup and wgmma (the parts of
-// flash_attn_fwd_sm90.cu, shared through flash_attn_sm90.cuh).
+// mask, and the bf16 calls without a mask at head dims 192, 256, 320, 384,
+// 448 and 512, built on TMA, mbarriers, a producer warpgroup and wgmma
+// (the parts of flash_attn_fwd_sm90.cu, shared through
+// flash_attn_sm90.cuh).
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py `_flash_dq_kernel`
 // (:209, launched at :327) and `_flash_dkv_kernel` (:249, launched at :345),
@@ -39,9 +40,10 @@
 // (16 a clock an SM), and K2 and K3 each rebuild P, about 0.022 ms each for
 // MiniLM's 85 M scores ([48, 12, 384, 32]) against 0.026 of bytes.
 //
-// What the design does about it. The kernels it retires (the mma.sync
-// templates of flash_attn_bwd.cuh) loaded every tile with every thread and
-// a __syncthreads() pair, multiplied with mma.sync.m16n8k16, re-read
+// What the design does about it. The kernels it retired (the mma.sync
+// templates of flash_attn_bwd.cuh, retired with them) loaded every tile
+// with every thread and a __syncthreads() pair, multiplied with
+// mma.sync.m16n8k16, re-read
 // fragments for each 16-wide slice of D, gathered the row-contracted B
 // fragments two rows at a time, walked wholly padded kv tiles, held 254
 // registers at D = 256 (K3 255 at D = 120, a few masked ones spilling),
@@ -151,9 +153,70 @@
 // next tile's S and dP issued while this tile's dQ (or dK, dV) runs, a
 // persistent grid, and the outputs stored through shared memory and TMA.
 //
-// flash_attn_bwd_f32tc.cu takes every f32 call; flash_attn_bwd_dq.cu and
-// flash_attn_bwd_dkv.cu (the split templates of flash_attn_bwd.cuh) bf16
-// at 320 to 512.
+// Head dims 320 to 512 (flash_bwd_dq_sm90_split_kernel<D> and
+// flash_bwd_dkv_sm90_split_kernel<D>, unmasked: the reference's dispatch
+// sends a masked call there to its einsum path). The layout above cannot
+// just be widened: dQ over 64 rows and all of D = 512 is 256 f32
+// registers a thread (a thread may hold 255), and dK and dV over 64 keys
+// and all of D are 2 x 64 x 512 f32, 256 KB, the whole register file of
+// an SM. Shared memory holds 227 KB a block: Q and dO of 64 rows take 128
+// KB at D = 512, K and V of 64 keys another 128. So:
+//   * K2: a block owns 64 q rows, and both consumers hold all of them.
+//     Each computes S and dP over all of D itself (SS wgmmas from the same
+//     shared memory with the same instructions, so the two rebuild P bit
+//     for bit) and accumulates dQ over its own run of whole 64-column
+//     slabs (consumer 0 the first ceil(D/128), consumer 1 the rest: 256 +
+//     256 at 512, 256 + 192 at 448, 192 + 192 at 384, 192 + 128 at 320;
+//     at most 128 accumulator registers a thread) with one RS wgmma of
+//     N = its columns a k-step, whose B descriptor starts at its first
+//     slab of K. delta: each consumer sums dO * O over its own columns of
+//     its two rows, and the two parts meet in shared memory, added in one
+//     order, after a named barrier; consumer 0 writes delta for K3. 10 * D
+//     flops a visible pair against 6 * D. The ring (DqSplitCfg): kv tiles
+//     of 64 keys, and of 32 at D = 512, where Q, dO and a 64-key K and V
+//     would pass the 227 KB.
+//   * K3: a block owns 64 keys and one part of D (blockIdx.x = 2 x key
+//     block + part; the first part's slabs are the first ceil(D/128)).
+//     Its consumers split the products as at 192 and 256 (consumer 0
+//     S^T, P^T and dV += P~^T dO, consumer 1 dP^T, dS^T with consumer 0's
+//     P^T and dK += dS^T Q), S^T and dP^T over all of D, dK and dV over
+//     the block's part. Both parts' blocks compute S^T and dP^T: 12 * D
+//     flops a visible pair against 8 * D, and each reads Q and dO. K and
+//     V of 64 keys take 128 KB at 512, so the ring holds one stage
+//     (DkvSplitCfg: q tiles of 64 rows at 320 and 384, of 32 at 448 and
+//     512). A q tile's slabs arrive in two groups, each on its own full
+//     and empty barriers: the other part's slabs (read only by S^T and
+//     dP^T) early, the block's own (read again by dV and dK) late with
+//     the tile's lse and delta. The next tile's early group then loads
+//     while this tile's P^T, dS^T, dV and dK run, and its late group
+//     while its own S^T and dP^T run over the early slabs: at
+//     [4,8,2048,512] that took K3 from 1.28 to 0.96 ms against the whole
+//     tile on one barrier pair (NVIDIA H100 80GB HBM3, 700 W). The two
+//     parts' blocks of a key block must build the same P^T and dS^T, or
+//     dK's and dV's columns would come from two slightly different dS: so
+//     each sums S^T (and dP^T) over the first part's slabs and over the
+//     second's into two register tiles, each from zero in ascending
+//     k-steps, and then adds the two, which gives the same bits in either
+//     part whichever group arrived early.
+//   * Causal: K2 never loads kv tiles above a block's last row and K3
+//     never loads q tiles whose rows all lie above its first key; every
+//     consumer computes on every tile its block walks, so the loops issue
+//     their wgmmas unconditionally; only tiles that cross the diagonal are
+//     masked element by element.
+//   * Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): at the 512-head
+//     LM's [4,8,2048,512] causal call K2 0.68 and K3 0.96 ms, 3.3 and 3.5
+//     times their bounds and 4.7 and 4.5 times faster than the mma.sync
+//     split templates these replaced; K3's two tiles for S^T and dP^T,
+//     which make its parts agree, cost it 2 to 7% (most at 384, where q
+//     tiles are 64 rows). What holds them: the repeated
+//     products (10 * D and 12 * D flops a pair for 6 * D and 8 * D), the
+//     N = 32 products at 512 (about 192 bytes of shared memory a clock
+//     at the tensor cores' rate, against 128 at N = 64) and K3's single
+//     stage at 448 and 512. A 2-CTA cluster whose CTAs add each other's
+//     partial S^T and dP^T (no repeated flop) came out 1.5 to 2.3 times
+//     slower: every q tile waited on a round trip to the peer.
+//
+// flash_attn_bwd_f32tc.cu takes every f32 call.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -330,12 +393,13 @@ __device__ __forceinline__ float row_dot(const uint16_t* x, const uint16_t* y,
   return acc;
 }
 
-// an accumulator of 64 rows x 64 columns packed as the bf16 A fragments of
-// four k-steps of 16 (columns [16j, 16j + 16) are k-step j's fragment)
-__device__ __forceinline__ void pack_a(uint32_t (&f)[4][4],
-                                       const float (&x)[32]) {
+// an accumulator of 64 rows x 16K columns packed as the bf16 A fragments
+// of K k-steps of 16 (columns [16j, 16j + 16) are k-step j's fragment)
+template <int K>
+__device__ __forceinline__ void pack_a(uint32_t (&f)[K][4],
+                                       const float (&x)[8 * K]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < K; ++j) {
     f[j][0] = pack_bf16(x[8 * j], x[8 * j + 1]);
     f[j][1] = pack_bf16(x[8 * j + 2], x[8 * j + 3]);
     f[j][2] = pack_bf16(x[8 * j + 4], x[8 * j + 5]);
@@ -393,6 +457,52 @@ __device__ __forceinline__ void issue_rs(float (&d)[D / 2],
       wgmma_rs<kRem>(
           reinterpret_cast<float (&)[kRem / 2]>(d[kFull * kSlab / 2]), a[kk],
           db_rem, off);
+    }
+  }
+  wgmma_commit();
+}
+
+// D[64 x N] += A[64 x K] B[K x N], A as the bf16 fragments of K/16
+// k-steps in registers, B whole 64-column slabs of a tile of K rows in
+// shared memory, MN-major (its slabs K rows apart: the leading byte
+// offset), from b_base on, as one commit group: one wgmma of N a k-step
+template <int N, int K>
+__device__ __forceinline__ void issue_rs_slabs(float (&d)[N / 2],
+                                               uint32_t (&a)[K / 16][4],
+                                               uint32_t b_base) {
+  fence_regs(d);
+  fence_regs(a);
+  wgmma_fence();
+  const uint64_t db = sw128_desc(b_base, K * kSlabRow, 1024);
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    wgmma_rs<N>(d, a[kk], db, kk * 16 * (kSlabRow / 16));
+  }
+  wgmma_commit();
+}
+
+// D[64 x N] (+)= A[64 x 64 S] B[N x 64 S]^T over the slabs [S0, S0 + S)
+// of K-major tiles in shared memory (A's slabs A_ROWS rows apart, B's N),
+// 4 S k-steps, as one commit group; kAcc adds to D, else the first k-step
+// overwrites it
+template <int A_ROWS, int N, int S0, int S, bool kAcc>
+__device__ __forceinline__ void issue_ss_slabs(float (&d)[N / 2],
+                                               uint32_t a_base,
+                                               uint32_t b_base) {
+  static_assert(N == 32 || N == 64, "wgmma N");
+  wgmma_fence();
+  const uint64_t da = sw128_desc(a_base, 16, 1024);
+  const uint64_t db = sw128_desc(b_base, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4 * S; ++kk) {
+    const int slab = S0 + kk / 4;
+    const uint32_t step = (kk & 3) * 2;
+    const uint32_t a_off = slab * (A_ROWS * kSlabRow / 16) + step;
+    const uint32_t b_off = slab * (N * kSlabRow / 16) + step;
+    if constexpr (N == 64) {
+      wgmma_ss_n64(d, da, a_off, db, b_off, kAcc || kk > 0);
+    } else {
+      wgmma_ss_n32(d, da, a_off, db, b_off, kAcc || kk > 0);
     }
   }
   wgmma_commit();
@@ -1082,6 +1192,601 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------ head dims 320 to 512 --
+// The split kernels (the header's notes): K2 a block of 64 q rows that
+// both consumers hold, each computing S and dP over all of D and dQ over
+// its own run of slabs; K3 a block of 64 keys and one part of D (two
+// blocks a key block), its consumers splitting the products as at 192
+// and 256.
+
+constexpr int kSplitRows = 64;     // K2: q rows a block; K3: keys a block
+constexpr uint32_t kDeltaBar = 1;  // K2: the two consumers' delta parts
+// registers a producer and a consumer thread keep after setmaxnreg, one
+// block an SM; setmaxnreg.inc draws on the block's own pool
+constexpr int kSplitProducerRegs = 24, kSplitConsumerRegs = 240;
+static_assert(kSplitProducerRegs + 2 * kSplitConsumerRegs
+                  <= 3 * launch_regs(1), "registers");
+
+// the first part's whole slabs of D (K2: consumer 0's of dQ; K3: block
+// part 0's of dK and dV), ceil(D/128) of them; the second part has the rest
+__host__ __device__ constexpr int split_slabs0(int d) {
+  return (d / kSlab + 1) / 2;
+}
+
+// K2 above 256: keys a kv tile and the K and V stages of the ring. Q and
+// dO of 64 rows take 128 KB at D = 512, so its tiles are 32 keys there;
+// at 320 tiles of 64 keys beat 32-key tiles in deeper rings (4 K and 3 V
+// stages) by a fifth, and were level at 384 and 448 (NVIDIA H100 80GB
+// HBM3, 700 W)
+template <int KV, int SK, int SV>
+struct DqSplitTiles {
+  static constexpr int kKv = KV, kStagesK = SK, kStagesV = SV;
+};
+template <int D> struct DqSplitCfg;
+template <> struct DqSplitCfg<320> : DqSplitTiles<64, 2, 1> {};
+template <> struct DqSplitCfg<384> : DqSplitTiles<64, 1, 1> {};
+template <> struct DqSplitCfg<448> : DqSplitTiles<64, 1, 1> {};
+template <> struct DqSplitCfg<512> : DqSplitTiles<32, 2, 1> {};
+
+// bytes of K2's barriers above 256 (Q, then K full, V full, K empty, V
+// empty), rounded up to 16
+template <int D>
+__host__ __device__ constexpr int dq_split_bar_bytes() {
+  using C = DqSplitCfg<D>;
+  return (8 * (1 + 2 * (C::kStagesK + C::kStagesV)) + 15) & ~15;
+}
+
+// dynamic shared memory of K2 above 256: alignment slack, Q, dO, the K
+// and V stages, the barriers, the delta parts (two of 64 floats)
+template <int D>
+__host__ __device__ constexpr int dq_split_smem_bytes() {
+  using C = DqSplitCfg<D>;
+  return 1024
+      + (2 * kSplitRows + (C::kStagesK + C::kStagesV) * C::kKv) * D * 2
+      + dq_split_bar_bytes<D>() + 2 * kSplitRows * 4;
+}
+
+// K3 above 256: q rows a tile and the stages of the ring. K and V of 64
+// keys take 128 KB at D = 512, so its q tiles are 32 rows at 448 and 512;
+// at 320 and 384 one stage of 64-row tiles was faster than two of 32
+// rows on an H100 (the products over D then run at N = 64)
+template <int QT, int STAGES>
+struct DkvSplitTiles {
+  static constexpr int kQt = QT, kStages = STAGES;
+};
+template <int D> struct DkvSplitCfg;
+template <> struct DkvSplitCfg<320> : DkvSplitTiles<64, 1> {};
+template <> struct DkvSplitCfg<384> : DkvSplitTiles<64, 1> {};
+template <> struct DkvSplitCfg<448> : DkvSplitTiles<32, 1> {};
+template <> struct DkvSplitCfg<512> : DkvSplitTiles<32, 1> {};
+
+// bytes of K3's barriers above 256 (K and V, then a stage's early and
+// late slabs: full early, full late, empty early, empty late), rounded up
+// to 16
+template <int D>
+__host__ __device__ constexpr int dkv_split_bar_bytes() {
+  return (8 * (1 + 4 * DkvSplitCfg<D>::kStages) + 15) & ~15;
+}
+
+// dynamic shared memory of K3 above 256: alignment slack, K and V of 64
+// keys, the stages of Q and dO, the two P^T exchange buffers, each
+// stage's lse and delta, the barriers
+template <int D>
+__host__ __device__ constexpr int dkv_split_smem_bytes() {
+  using C = DkvSplitCfg<D>;
+  return 1024 + 2 * kSplitRows * D * 2 + C::kStages * 2 * C::kQt * D * 2
+      + 2 * kSplitRows * C::kQt * 4 + C::kStages * 2 * C::kQt * 4
+      + dkv_split_bar_bytes<D>();
+}
+
+// One consumer warpgroup (c) of flash_bwd_dq_sm90_split_kernel<D>: the
+// block's 64 rows, delta (its part over its own columns, then both parts
+// added through shared memory), S and dP over all of D, and dQ over the
+// kN columns from slab kSlab0 on, which it stores. The barriers and the
+// shared-memory layout are the kernel's.
+template <int D, int kSlab0, int kN>
+__device__ __forceinline__ void dq_split_consumer(
+    const Params& p, uint32_t sQ, uint32_t sDO, uint32_t sK, uint32_t sV,
+    uint32_t barQ, uint32_t fullK, uint32_t fullV, uint32_t emptyK,
+    uint32_t emptyV, float* xdel, int c, int n_tiles, int q0, int b, int hh,
+    int bh) {
+  using C = DqSplitCfg<D>;
+  constexpr int kKv = C::kKv;
+  constexpr int kSK = C::kStagesK;
+  constexpr int kSV = C::kStagesV;
+  constexpr int kKvBytes = kKv * D * 2;  // one K (or V) tile
+  const int t = threadIdx.x % 128;       // thread within the warpgroup
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;               // accumulator row within 8
+  const int t4 = lane & 3;               // thread within the quad
+  const int ia = warp * 16 + g;          // the thread's two rows in the
+  const int ra = q0 + ia;                // block, and in the call
+  const int rb = ra + 8;
+  const int offset = p.lk - p.lq;
+  // the last visible key of each of the two rows, and of the block's
+  // first row (the one that sees fewest)
+  const int lim_a = p.causal ? min(ra + offset, p.lk - 1) : p.lk - 1;
+  const int lim_b = p.causal ? min(rb + offset, p.lk - 1) : p.lk - 1;
+  const int lim_first = p.causal ? min(q0 + offset, p.lk - 1) : p.lk - 1;
+
+  // delta = rowsum(dO * O) of the thread's two rows: this consumer's kN
+  // columns here, then the two parts added in one order through shared
+  // memory, so both consumers hold the same delta; the first writes it
+  // out for K3
+  const uint16_t* o = static_cast<const uint16_t*>(p.o) + b * p.o_sb
+      + hh * p.o_sh + kSlab0 * kSlab;
+  const uint16_t* dout = static_cast<const uint16_t*>(p.dout) + b * p.do_sb
+      + hh * p.do_sh + kSlab0 * kSlab;
+  float part_a = row_dot<kN>(o + ra * p.o_sl, dout + ra * p.do_sl, t4,
+                             kN / 8);
+  float part_b = row_dot<kN>(o + rb * p.o_sl, dout + rb * p.do_sl, t4,
+                             kN / 8);
+  part_a += __shfl_xor_sync(0xffffffffu, part_a, 1);
+  part_a += __shfl_xor_sync(0xffffffffu, part_a, 2);
+  part_b += __shfl_xor_sync(0xffffffffu, part_b, 1);
+  part_b += __shfl_xor_sync(0xffffffffu, part_b, 2);
+  if (t4 == 0) {
+    xdel[c * kSplitRows + ia] = part_a;
+    xdel[c * kSplitRows + ia + 8] = part_b;
+  }
+  named_sync(kDeltaBar, kPair);
+  const float del_a = xdel[ia] + xdel[kSplitRows + ia];
+  const float del_b = xdel[ia + 8] + xdel[kSplitRows + ia + 8];
+  const long long at = static_cast<long long>(bh) * p.lq;
+  if (c == 0 && t4 == 0) {
+    p.delta[at + ra] = del_a;
+    p.delta[at + rb] = del_b;
+  }
+  const float lse_a = p.lse[at + ra] * kLog2e;
+  const float lse_b = p.lse[at + rb] * kLog2e;
+
+  float acc[kN / 2];       // this consumer's columns of dQ
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+  float s[kKv / 2], dp[kKv / 2];  // S (then P, then dS), dP of one tile
+  uint32_t df[kKv / 16][4];       // dS as bf16 A fragments
+
+  mbar_wait(barQ, 0);
+  // both consumers compute on every tile the block walks (they hold the
+  // same rows), so the loop issues its products unconditionally
+  for (int i = 0; i < n_tiles; ++i) {
+    const int sk = i % kSK;
+    const int sv = i % kSV;
+    const uint32_t k_base = sK + sk * kKvBytes;
+    mbar_wait(fullK + 8 * sk, (i / kSK) & 1);
+    issue_ss_slabs<kSplitRows, kKv, 0, D / kSlab, false>(s, sQ, k_base);
+    mbar_wait(fullV + 8 * sv, (i / kSV) & 1);
+    issue_ss_slabs<kSplitRows, kKv, 0, D / kSlab, false>(dp, sDO,
+                                                         sV + sv * kKvBytes);
+    // S done; dP may still run
+    wgmma_wait<1>();
+    fence_regs(s);
+    // P = 2^(scale * log2(e) * S - lse * log2(e)), the diagonal masked
+    // only in a tile that crosses it. Both consumers compute the same S
+    // from the same shared memory with the same instructions, so their P
+    // agree bit for bit
+    const int key0 = i * kKv;
+    const bool edge = key0 + kKv - 1 > lim_first;
+#pragma unroll
+    for (int j = 0; j < kKv / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pr = fast_exp2(
+            fmaf(s[j * 4 + e], p.scale_log2, -((e < 2) ? lse_a : lse_b)));
+        if (edge && key0 + j * 8 + t4 * 2 + (e & 1) > ((e < 2) ? lim_a
+                                                              : lim_b)) {
+          pr = 0.f;
+        }
+        s[j * 4 + e] = pr;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    release(emptyV, sv, lane);
+    // dS = P (dP - delta) scale
+#pragma unroll
+    for (int k = 0; k < kKv / 2; ++k) {
+      s[k] = s[k] * (dp[k] - ((k & 2) ? del_b : del_a)) * p.scale;
+    }
+    pack_a(df, s);
+    // dQ += dS K over this consumer's slabs of K (read MN-major)
+    issue_rs_slabs<kN, kKv>(acc, df, k_base + kSlab0 * kKv * kSlabRow);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(emptyK, sk, lane);
+  }
+
+  store_rows<kN, false>(
+      static_cast<uint16_t*>(p.dq) + b * p.dq_sb + hh * p.dq_sh
+          + kSlab0 * kSlab,
+      p.dq_sl, ra, rb, kN, t4, acc, nullptr);
+}
+
+// K2 bf16 at D in {320, 384, 448, 512}, without a mask: 64 q rows a
+// block, a producer warpgroup and two consumers that split dQ's columns
+// between them (dq_split_consumer)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_sm90_split_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const Params p) {
+  using C = DqSplitCfg<D>;
+  constexpr int kKv = C::kKv;
+  constexpr int kSK = C::kStagesK;
+  constexpr int kSV = C::kStagesV;
+  constexpr int kSlabs = D / kSlab;
+  constexpr int kSlabs0 = split_slabs0(D);
+  constexpr int kRowBytes = kSplitRows * D * 2;  // Q (or dO) of a block
+  constexpr int kKvBytes = kKv * D * 2;          // one K (or V) tile
+  static_assert(D % kSlab == 0 && D > 256 && D <= 512, "head dim");
+  static_assert(dq_split_smem_bytes<D>() <= 232448, "shared memory");
+
+  extern __shared__ uint8_t smem_raw[];
+  // slabs start on 1024-byte boundaries, where the 128B swizzle repeats
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  const uint32_t sDO = sQ + kRowBytes;
+  const uint32_t sK = sDO + kRowBytes;              // kSK K tiles
+  const uint32_t sV = sK + kSK * kKvBytes;          // kSV V tiles
+  const uint32_t barQ = sV + kSV * kKvBytes;        // 8 bytes a barrier
+  const uint32_t fullK = barQ + 8;
+  const uint32_t fullV = fullK + 8 * kSK;
+  const uint32_t emptyK = fullV + 8 * kSV;
+  const uint32_t emptyV = emptyK + 8 * kSK;
+  float* const xdel = reinterpret_cast<float*>(
+      smem_raw + (barQ + dq_split_bar_bytes<D>() - raw));
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal blocks first
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int q0 = qt * kSplitRows;
+  // kv tiles this block walks: up to its last row's last key
+  int n_tiles = p.lk / kKv;
+  if (p.causal) {
+    n_tiles = min(n_tiles, (q0 + kSplitRows - 1 + p.lk - p.lq) / kKv + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(barQ, 1);
+    for (int s = 0; s < kSK; ++s) {
+      mbar_init(fullK + 8 * s, 1);
+      mbar_init(emptyK + 8 * s, kEmptyArrivals);
+    }
+    for (int s = 0; s < kSV; ++s) {
+      mbar_init(fullV + 8 * s, 1);
+      mbar_init(emptyV + 8 * s, kEmptyArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---------------------------------------------------- producer --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kSplitProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(barQ, 2 * kRowBytes);
+#pragma unroll
+      for (int s = 0; s < kSlabs; ++s) {
+        tma_load(sQ + s * kSplitRows * kSlabRow, &tq, barQ, s * kSlab, q0,
+                 hh, b);
+        tma_load(sDO + s * kSplitRows * kSlabRow, &tdo, barQ, s * kSlab, q0,
+                 hh, b);
+      }
+      // K, then V of each tile, the order the consumers use them in;
+      // each waits for its stage's previous tile to be released by both
+      // consumers
+      auto load = [&](const CUtensorMap* map, uint32_t full, uint32_t empty,
+                      uint32_t base, int stages, int i) {
+        const int stage = i % stages;
+        mbar_wait(empty + 8 * stage, ((i / stages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * stage, kKvBytes);
+#pragma unroll
+        for (int s = 0; s < kSlabs; ++s) {
+          tma_load(base + stage * kKvBytes + s * kKv * kSlabRow, map,
+                   full + 8 * stage, s * kSlab, i * kKv, hh, b);
+        }
+      };
+      for (int i = 0; i < n_tiles; ++i) {
+        load(&tk, fullK, emptyK, sK, kSK, i);
+        load(&tv, fullV, emptyV, sV, kSV, i);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumers --
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kSplitConsumerRegs));
+  const int c = wg - 1;
+  if (c == 0) {
+    dq_split_consumer<D, 0, kSlabs0 * kSlab>(
+        p, sQ, sDO, sK, sV, barQ, fullK, fullV, emptyK, emptyV, xdel, c,
+        n_tiles, q0, b, hh, bh);
+  } else {
+    dq_split_consumer<D, kSlabs0, (kSlabs - kSlabs0) * kSlab>(
+        p, sQ, sDO, sK, sV, barQ, fullK, fullV, emptyK, emptyV, xdel, c,
+        n_tiles, q0, b, hh, bh);
+  }
+}
+
+// One consumer warpgroup (c) of flash_bwd_dkv_sm90_split_kernel<D>, for
+// the block's 64 keys and the kN columns of D from slab kSlab0 on:
+// consumer 0 computes S^T over all of D, forms P^T and accumulates
+// dV += P~^T dO over those columns; consumer 1 computes dP^T over all of
+// D, takes P^T from consumer 0 through shared memory, forms dS^T and
+// accumulates dK += dS^T Q over them. A q tile's slabs arrive in two
+// groups: the early ones (the other part's columns, read only by S^T and
+// dP^T) and the late ones (these columns, read again by dV and dK, with
+// the tile's lse and delta), each with its full and empty barriers, so
+// the early group of the next tile loads while this tile's dV and dK run.
+// The barriers and the shared-memory layout are the kernel's.
+template <int D, int kSlab0, int kN>
+__device__ __forceinline__ void dkv_split_consumer(
+    const Params& p, uint32_t sK, uint32_t sV, uint32_t sQ, uint32_t sX,
+    uint32_t sRow, uint32_t barKV, uint32_t fullE, uint32_t fullL,
+    uint32_t emptyE, uint32_t emptyL, uint8_t* smem_raw, uint32_t raw, int c,
+    int n_walk, int first, int k0, int b, int hh) {
+  using C = DkvSplitCfg<D>;
+  constexpr int kQt = C::kQt;
+  constexpr int kStages = C::kStages;
+  constexpr int kOwn = kN / kSlab;                        // late slabs
+  constexpr int kEarly0 = kSlab0 == 0 ? kOwn : 0;         // early slabs
+  constexpr int kEarly = D / kSlab - kOwn;
+  constexpr int kQBytes = kQt * D * 2;          // one Q (or dO) tile
+  constexpr int kXBytes = kSplitRows * kQt * 4;  // one P^T exchange buffer
+  constexpr int kRowF32 = kQt * 4;               // a tile's lse (or delta)
+  const int t = threadIdx.x % 128;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int ka = k0 + warp * 16 + g;    // the two keys a thread holds
+  const int kb = ka + 8;
+  const int offset = p.lk - p.lq;
+  const float scale = p.scale;
+  const float scale_log2 = p.scale_log2;
+  // the generic address of shared-memory address a
+  auto at = [&](uint32_t a) { return smem_raw + (a - raw); };
+
+  float acc[kN / 2];       // dV (consumer 0) or dK (consumer 1), kN columns
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+  float s[kQt / 2];        // S^T (then P^T), or dP^T (then dS^T)
+  float se[kQt / 2];       // its part over the early slabs
+  uint32_t pf[kQt / 16][4];  // as bf16 A fragments
+  // A operand: the block's 64 keys of K (consumer 0) or V (consumer 1)
+  const uint32_t a_rows = c == 0 ? sK : sV;
+
+  mbar_wait(barKV, 0);
+  // both consumers compute on every q tile the block walks (the same
+  // keys), so the loop issues its products unconditionally
+  for (int i = 0; i < n_walk; ++i) {
+    const int stage = i % kStages;
+    const int q0 = (first + i) * kQt;
+    const uint32_t qs = sQ + stage * 2 * kQBytes;
+    const uint32_t ds = qs + kQBytes;
+    const float* lse = reinterpret_cast<const float*>(
+        at(sRow + stage * 2 * kRowF32));
+    const float* del = lse + kQt;
+    const uint32_t xb = i & 1;
+    float4* x = reinterpret_cast<float4*>(at(sX + xb * kXBytes));
+    const uint32_t parity = (i / kStages) & 1;
+    // S^T = K Q^T (consumer 0) or dP^T = V dO^T (consumer 1), over all
+    // of D: the early slabs into se and the late ones into s, each from
+    // zero, then s += se. Both parts' blocks build the same two tiles
+    // (the first part's slabs, and the second's; only which of them
+    // comes early differs) with the same k-steps, and a sum of two is
+    // the same either way round, so their P^T and dS^T agree bit for bit
+    const uint32_t b_tile = c == 0 ? qs : ds;
+    mbar_wait(fullE + 8 * stage, parity);
+    issue_ss_slabs<kSplitRows, kQt, kEarly0, kEarly, false>(se, a_rows,
+                                                            b_tile);
+    mbar_wait(fullL + 8 * stage, parity);
+    issue_ss_slabs<kSplitRows, kQt, kSlab0, kOwn, false>(s, a_rows, b_tile);
+    wgmma_wait<0>();
+    fence_regs(se);
+    fence_regs(s);
+    release(emptyE, stage, lane);
+#pragma unroll
+    for (int j = 0; j < kQt / 2; ++j) s[j] += se[j];
+    if (c == 0) {
+      // P^T; the columns are queries. Only a tile whose first row does
+      // not see the block's last key is masked on the diagonal
+      const bool edge = p.causal && k0 + kSplitRows - 1 > q0 + offset;
+#pragma unroll
+      for (int j = 0; j < kQt / 8; ++j) {
+        const int col = j * 8 + t4 * 2;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lv = ((e & 1) ? l2.y : l2.x) * kLog2e;
+          float pr = fast_exp2(fmaf(s[j * 4 + e], scale_log2, -lv));
+          if (edge && ((e < 2) ? ka : kb) > q0 + col + (e & 1) + offset) {
+            pr = 0.f;
+          }
+          s[j * 4 + e] = pr;
+        }
+      }
+      // the buffer is free once consumer 1 read it two tiles ago
+      if (i >= 2) named_sync(kXEmpty + xb, kPair);
+#pragma unroll
+      for (int j = 0; j < kQt / 8; ++j) {
+        x[j * 128 + t] = make_float4(s[j * 4], s[j * 4 + 1], s[j * 4 + 2],
+                                     s[j * 4 + 3]);
+      }
+      named_arrive(kXFull + xb, kPair);
+    } else {
+      named_sync(kXFull + xb, kPair);
+#pragma unroll
+      for (int j = 0; j < kQt / 8; ++j) {
+        const int col = j * 8 + t4 * 2;
+        const float2 d2 = *reinterpret_cast<const float2*>(del + col);
+        const float4 pv = x[j * 128 + t];
+        s[j * 4] = pv.x * (s[j * 4] - d2.x) * scale;
+        s[j * 4 + 1] = pv.y * (s[j * 4 + 1] - d2.y) * scale;
+        s[j * 4 + 2] = pv.z * (s[j * 4 + 2] - d2.x) * scale;
+        s[j * 4 + 3] = pv.w * (s[j * 4 + 3] - d2.y) * scale;
+      }
+      // consumer 0 writes this buffer again two tiles on, if any
+      if (i + 2 < n_walk) named_arrive(kXEmpty + xb, kPair);
+    }
+    pack_a(pf, s);
+    // dV += P~^T dO (consumer 0) or dK += dS^T Q (consumer 1) over the
+    // kN columns from slab kSlab0 on (read MN-major)
+    issue_rs_slabs<kN, kQt>(acc, pf,
+                            (c == 0 ? ds : qs) + kSlab0 * kQt * kSlabRow);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(emptyL, stage, lane);
+  }
+
+  if (c == 0) {
+    store_rows<kN, false>(
+        static_cast<uint16_t*>(p.dv) + b * p.dv_sb + hh * p.dv_sh
+            + kSlab0 * kSlab,
+        p.dv_sl, ka, kb, kN, t4, acc, nullptr);
+  } else {
+    store_rows<kN, false>(
+        static_cast<uint16_t*>(p.dk) + b * p.dk_sb + hh * p.dk_sh
+            + kSlab0 * kSlab,
+        p.dk_sl, ka, kb, kN, t4, acc, nullptr);
+  }
+}
+
+// K3 bf16 at D in {320, 384, 448, 512}, without a mask: a block owns 64
+// keys and one part of D (blockIdx.x = 2 x key block + part), a producer
+// warpgroup and two consumers that split the products
+// (dkv_split_consumer)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_sm90_split_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const Params p) {
+  using C = DkvSplitCfg<D>;
+  constexpr int kQt = C::kQt;
+  constexpr int kStages = C::kStages;
+  constexpr int kSlabs = D / kSlab;
+  constexpr int kSlabs0 = split_slabs0(D);
+  constexpr int kKeyBytes = kSplitRows * D * 2;  // K (or V) of the block
+  constexpr int kQBytes = kQt * D * 2;           // one Q (or dO) tile
+  constexpr int kXBytes = kSplitRows * kQt * 4;  // one P^T exchange buffer
+  constexpr int kRowF32 = kQt * 4;               // a tile's lse (or delta)
+  static_assert(D % kSlab == 0 && D > 256 && D <= 512, "head dim");
+  static_assert(dkv_split_smem_bytes<D>() <= 232448, "shared memory");
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sK = (raw + 1023) & ~1023u;
+  const uint32_t sV = sK + kKeyBytes;
+  const uint32_t sQ = sV + kKeyBytes;       // stage s: Q, then dO
+  const uint32_t sX = sQ + kStages * 2 * kQBytes;
+  const uint32_t sRow = sX + 2 * kXBytes;   // stage s: lse, then delta
+  const uint32_t barKV = sRow + kStages * 2 * kRowF32;
+  const uint32_t fullE = barKV + 8;           // 8 bytes a barrier
+  const uint32_t fullL = fullE + 8 * kStages;
+  const uint32_t emptyE = fullL + 8 * kStages;
+  const uint32_t emptyL = emptyE + 8 * kStages;
+
+  const int part = blockIdx.x & 1;
+  const int k0 = (blockIdx.x >> 1) * kSplitRows;
+  const int bh = blockIdx.y;
+  const int b = bh / p.h;
+  const int hh = bh - b * p.h;
+  const int offset = p.lk - p.lq;
+  const int n_qt = p.lq / kQt;
+  // the first q tile with a row that sees the block's first key (the last
+  // row sees every key, so there is one)
+  const int first = p.causal ? min(n_qt - 1, max(0, k0 - offset) / kQt)
+                             : 0;
+  const int n_walk = n_qt - first;
+
+  if (threadIdx.x == 0) {
+    mbar_init(barKV, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(fullE + 8 * s, 1);
+      mbar_init(fullL + 8 * s, 1);
+      mbar_init(emptyE + 8 * s, kEmptyArrivals);
+      mbar_init(emptyL + 8 * s, kEmptyArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---------------------------------------------------- producer --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kSplitProducerRegs));
+    if (threadIdx.x == 0) {
+      // this part's slabs [own0, own0 + n_own) arrive late; the others
+      // early
+      const int own0 = part == 0 ? 0 : kSlabs0;
+      const int n_own = part == 0 ? kSlabs0 : kSlabs - kSlabs0;
+      mbar_expect_tx(barKV, 2 * kKeyBytes);
+#pragma unroll
+      for (int s = 0; s < kSlabs; ++s) {
+        tma_load(sK + s * kSplitRows * kSlabRow, &tk, barKV, s * kSlab, k0,
+                 hh, b);
+        tma_load(sV + s * kSplitRows * kSlabRow, &tv, barKV, s * kSlab, k0,
+                 hh, b);
+      }
+      const long long row0 = static_cast<long long>(bh) * p.lq;
+      // Q's and dO's slabs s of q tile q0 into a stage, on barrier bar
+      auto load_slab = [&](uint32_t qs, uint32_t bar, int s, int q0) {
+        tma_load(qs + s * kQt * kSlabRow, &tq, bar, s * kSlab, q0, hh, b);
+        tma_load(qs + kQBytes + s * kQt * kSlabRow, &tdo, bar, s * kSlab,
+                 q0, hh, b);
+      };
+      for (int i = 0; i < n_walk; ++i) {
+        const int stage = i % kStages;
+        const uint32_t parity = ((i / kStages) & 1) ^ 1;
+        const int q0 = (first + i) * kQt;
+        const uint32_t qs = sQ + stage * 2 * kQBytes;
+        const uint32_t rs = sRow + stage * 2 * kRowF32;
+        // each group waits for its own slabs of the stage's previous
+        // tile to be released
+        const uint32_t bar_e = fullE + 8 * stage;
+        mbar_wait(emptyE + 8 * stage, parity);
+        mbar_expect_tx(bar_e, 2 * (kSlabs - n_own) * kQt * kSlabRow);
+        for (int s = 0; s < kSlabs; ++s) {
+          if (s < own0 || s >= own0 + n_own) load_slab(qs, bar_e, s, q0);
+        }
+        const uint32_t bar_l = fullL + 8 * stage;
+        mbar_wait(emptyL + 8 * stage, parity);
+        mbar_expect_tx(bar_l, 2 * n_own * kQt * kSlabRow + 2 * kRowF32);
+        for (int s = own0; s < own0 + n_own; ++s) load_slab(qs, bar_l, s, q0);
+        bulk_load(rs, p.lse + row0 + q0, kRowF32, bar_l);
+        bulk_load(rs + kRowF32, p.delta + row0 + q0, kRowF32, bar_l);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumers --
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kSplitConsumerRegs));
+  const int c = wg - 1;
+  if (part == 0) {
+    dkv_split_consumer<D, 0, kSlabs0 * kSlab>(
+        p, sK, sV, sQ, sX, sRow, barKV, fullE, fullL, emptyE, emptyL,
+        smem_raw, raw, c, n_walk, first, k0, b, hh);
+  } else {
+    dkv_split_consumer<D, kSlabs0, (kSlabs - kSlabs0) * kSlab>(
+        p, sK, sV, sQ, sX, sRow, barKV, fullE, fullL, emptyE, emptyL,
+        smem_raw, raw, c, n_walk, first, k0, b, hh);
+  }
+}
+
 // ------------------------------------------------------------- host --
 struct Maps {
   CUtensorMap q, k, v, dout;
@@ -1093,7 +1798,7 @@ int check(int dtype, int batch, int heads, int lq, int lk, int d, int causal,
   if (lq % 64 || lk % 64) return 1001;
   if (causal && lq > lk) return 1002;
   if (batch * heads > 65535) return 1003;
-  if (d < 8 || d % 8 || (d > 128 && d != 192 && d != 256)) return 1004;
+  if (d < 8 || d % 8 || (d > 128 && (d % 64 || d > 512))) return 1004;
   if (dtype != 1) return 1005;
   if (mask != nullptr && d > 128) return 1006;
   if (mask != nullptr
@@ -1152,7 +1857,11 @@ int with_inst_dim(int d, Fn&& fn) {
     case 112: return fn(std::integral_constant<int, 112>{});
     case 128: return fn(std::integral_constant<int, 128>{});
     case 192: return fn(std::integral_constant<int, 192>{});
-    default: return fn(std::integral_constant<int, 256>{});
+    case 256: return fn(std::integral_constant<int, 256>{});
+    case 320: return fn(std::integral_constant<int, 320>{});
+    case 384: return fn(std::integral_constant<int, 384>{});
+    case 448: return fn(std::integral_constant<int, 448>{});
+    default: return fn(std::integral_constant<int, 512>{});
   }
 }
 
@@ -1174,10 +1883,57 @@ int launch_dkv(const Maps& m, const Params& p, int bh, cudaStream_t s) {
                 dim3((p.lk + keys - 1) / keys, bh), m, p, s);
 }
 
-// K3's keys a block at head dim d
+// above 256: 64-row q blocks (K2) and 64-key blocks of one part of D
+// each (K3, two blocks a key block)
+template <int D>
+int launch_dq_split(const Maps& m, const Params& p, int bh, cudaStream_t s) {
+  return launch(flash_bwd_dq_sm90_split_kernel<D>, dq_split_smem_bytes<D>(),
+                dim3(p.lq / kSplitRows, bh), m, p, s);
+}
+
+template <int D>
+int launch_dkv_split(const Maps& m, const Params& p, int bh,
+                     cudaStream_t s) {
+  return launch(flash_bwd_dkv_sm90_split_kernel<D>,
+                dkv_split_smem_bytes<D>(), dim3(2 * (p.lk / kSplitRows), bh),
+                m, p, s);
+}
+
+// the rows of the tensor maps' boxes at head dim d: K2's q rows a block
+// and keys a kv tile
+int dq_q_rows(int d) { return d > 256 ? kSplitRows : kDqRows; }
+
+int dq_kv_rows(int d) {
+  return with_inst_dim(d, [](auto dc) -> int {
+    constexpr int D = decltype(dc)::value;
+    if constexpr (D > 256) {
+      return DqSplitCfg<D>::kKv;
+    } else {
+      return kKvTile;
+    }
+  });
+}
+
+// K3's q rows a tile and keys a block
+int dkv_q_rows(int d) {
+  return with_inst_dim(d, [](auto dc) -> int {
+    constexpr int D = decltype(dc)::value;
+    if constexpr (D > 256) {
+      return DkvSplitCfg<D>::kQt;
+    } else {
+      return kQTile;
+    }
+  });
+}
+
 int dkv_keys(int d) {
-  return with_inst_dim(d, [](auto dc) {
-    return DkvCfg<decltype(dc)::value>::kKeys;
+  return with_inst_dim(d, [](auto dc) -> int {
+    constexpr int D = decltype(dc)::value;
+    if constexpr (D > 256) {
+      return kSplitRows;
+    } else {
+      return DkvCfg<D>::kKeys;
+    }
   });
 }
 
@@ -1185,7 +1941,8 @@ int dkv_keys(int d) {
 
 // K2: q, k, v, o, dout and dq are [B, H, L, D] with element strides
 // (batch, head, seq; the last dimension contiguous); dtype must be 1
-// (bfloat16), d a multiple of 8 up to 128, or 192 or 256 without a mask;
+// (bfloat16), d a multiple of 8 up to 128, or 192, 256, 320, 384, 448 or
+// 512 without a mask;
 // mask is [B, Lk] bytes (nonzero = real key) with batch stride mask_sb,
 // both 16-byte aligned, or null for none. Writes dq and delta ([B*H, Lq]
 // f32, contiguous). Returns a cudaError_t (0 = launched); 1000 + n flags a
@@ -1213,7 +1970,7 @@ extern "C" int zoo_flash_attn_bwd_dq_sm90(
                             v_sb, v_sh, v_sl, do_sb, do_sh, do_sl};
   Maps maps;
   rc = encode_maps(&maps, q, k, v, dout, batch, heads, lq, lk, d, st,
-                   kDqRows, kKvTile);
+                   dq_q_rows(d), dq_kv_rows(d));
   if (rc != 0) return rc;
   Params p = {};
   p.o = o;
@@ -1235,7 +1992,9 @@ extern "C" int zoo_flash_attn_bwd_dq_sm90(
   const bool masked = mask != nullptr;
   return with_inst_dim(d, [&](auto dc) -> int {
     constexpr int D = decltype(dc)::value;
-    if constexpr (D > 128) {
+    if constexpr (D > 256) {
+      return launch_dq_split<D>(maps, p, bh, s);
+    } else if constexpr (D > 128) {
       return launch_dq<D, false>(maps, p, bh, s);
     } else {
       return masked ? launch_dq<D, true>(maps, p, bh, s)
@@ -1268,7 +2027,7 @@ extern "C" int zoo_flash_attn_bwd_dkv_sm90(
                             v_sb, v_sh, v_sl, do_sb, do_sh, do_sl};
   Maps maps;
   rc = encode_maps(&maps, q, k, v, dout, batch, heads, lq, lk, d, st,
-                   kQTile, dkv_keys(d));
+                   dkv_q_rows(d), dkv_keys(d));
   if (rc != 0) return rc;
   Params p = {};
   p.dout = dout;
@@ -1290,7 +2049,9 @@ extern "C" int zoo_flash_attn_bwd_dkv_sm90(
   const bool masked = mask != nullptr;
   return with_inst_dim(d, [&](auto dc) -> int {
     constexpr int D = decltype(dc)::value;
-    if constexpr (D > 128) {
+    if constexpr (D > 256) {
+      return launch_dkv_split<D>(maps, p, bh, s);
+    } else if constexpr (D > 128) {
       return launch_dkv<D, false>(maps, p, bh, s);
     } else {
       return masked ? launch_dkv<D, true>(maps, p, bh, s)

@@ -98,6 +98,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// D[64 x 32] (+)= A[64 x 16] B[32 x 16]^T, A and B K-major in shared
+// memory: descriptors a and b advanced by a_off and b_off (16-byte
+// units); scale_d 0 overwrites D, 1 adds to it
+__device__ __forceinline__ void wgmma_ss_n32(
+    float (&d)[16], uint64_t a, uint32_t a_off, uint64_t b, uint32_t b_off,
+    uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 lo, hi;\n.reg .b64 da, db;\n"
+      "mov.b64 {lo, hi}, %16;\n"
+      "add.u32 lo, lo, %17;\n"
+      "mov.b64 da, {lo, hi};\n"
+      "mov.b64 {lo, hi}, %18;\n"
+      "add.u32 lo, lo, %19;\n"
+      "mov.b64 db, {lo, hi};\n"
+      "setp.ne.b32 p, %20, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15"
+      "}, da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "r"(a_off), "l"(b), "r"(b_off), "r"(scale_d));
+}
+
 // D[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared
 // memory: descriptors a and b advanced by a_off and b_off (16-byte
 // units); scale_d 0 overwrites D, 1 adds to it

@@ -13,23 +13,21 @@ not, and 192 to 512 without a mask; TMA, a producer warpgroup, wgmma,
 above 256 O's head dim split between two consumer warpgroups;
 ``_fwd_entry`` picks it), ``csrc/flash_attn_bwd_sm90.cu`` (K2 and K3
 for the bf16 calls at D in ``SM90_HEAD_DIMS``: every multiple of 8 up
-to 128, masked or not, and 192 and 256 without a mask; the same design,
-with a mask only the kv tiles holding a real key walked by K2;
-``_bwd_entry`` picks them; both share
-``csrc/flash_attn_sm90.cuh``), ``csrc/flash_attn_fwd_f32tc.cu``
+to 128, masked or not, and 192 to 512 without a mask; the same design,
+with a mask only the kv tiles holding a real key walked by K2, above
+256 K2's dQ split between its two consumer warpgroups and K3's dK and
+dV between two blocks a key block; ``_bwd_entry`` picks them; both
+share ``csrc/flash_attn_sm90.cuh``), ``csrc/flash_attn_fwd_f32tc.cu``
 (K1's f32 forward at head dims up to ``F32TC_FWD_MAX_D``, masked or
 not: 3xTF32 ``mma.sync`` on the tensor cores at f32 accuracy,
 ``cp.async`` tile copies; ``_fwd_entry`` picks it),
 ``csrc/flash_attn_bwd_f32tc.cu`` (K2's and K3's
 f32 backward at every head dim up to ``F32TC_MAX_D``, masked or not, on
 the same products as K1's f32 kernel; ``_bwd_entry`` picks it; both
-share ``csrc/flash_attn_f32tc.cuh``) and ``csrc/flash_attn_bwd.cuh``
-(design notes there), whose K2 and K3 for bf16 at 320 to 512 are
-built by ``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu``;
-each source is compiled with ``nvcc``
-for ``sm_90a`` at first use into ``build/`` at the repository root (a
-per-user cache for an installed package), side by side, and loaded
-through ``ctypes``.
+share ``csrc/flash_attn_f32tc.cuh``); each source is compiled with
+``nvcc`` for ``sm_90a`` at first use into ``build/`` at the repository
+root (a per-user cache for an installed package), side by side, and
+loaded through ``ctypes``.
 
 Every function also takes ``key_padding_mask`` (``[B, Lk]``, nonzero =
 real token, any pattern): the counterpart of the key-padding branch that
@@ -58,7 +56,7 @@ those given a key-padding mask in ``<wrapper>.masked_launches``,
 those at a head dim up to 128 that is not a multiple of 64 (K5b) in
 ``<wrapper>.small_d_launches``, and those above 128 in
 ``<wrapper>.wide_d_launches`` (the head dim tells which design ran:
-192 and 256, or D split at 320 to 512); each wrapper's
+192 and 256, or the split templates at 320 to 512); each wrapper's
 ``sm90_launches`` counts its launches of the Hopper kernels, and its
 ``f32tc_launches`` those of the f32 tensor-core kernels.
 
@@ -126,8 +124,8 @@ torch.exp(torch.zeros(1 << 17))
 # (without a mask)
 HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448, 512)
 # head dims of the Hopper backward kernels (bf16; _bwd_entry): every
-# multiple of 8 up to 128, masked or not, and 192 and 256 without a mask
-SM90_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256)
+# multiple of 8 up to 128, masked or not, and 192 to 512 without a mask
+SM90_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448, 512)
 # head dims of K1's Hopper kernel (bf16; _fwd_entry): every multiple of 8
 # up to 128, masked or not, and 192 to 512 without a mask
 SM90_FWD_HEAD_DIMS = tuple(range(8, 129, 8)) + (192, 256, 320, 384, 448,
@@ -158,8 +156,6 @@ _BWD_ARGS = [_P] * 8 + [_I] * 6 + [_L] * 18 + _TAIL
 _ENTRY_POINTS = {
     "zoo_flash_attn_fwd_sm90": ("flash_attn_fwd_sm90", _FWD_ARGS),
     "zoo_flash_attn_fwd_f32tc": ("flash_attn_fwd_f32tc", _FWD_ARGS),
-    "zoo_flash_attn_bwd_dq": ("flash_attn_bwd_dq", _BWD_ARGS),
-    "zoo_flash_attn_bwd_dkv": ("flash_attn_bwd_dkv", _BWD_ARGS),
     "zoo_flash_attn_bwd_dq_sm90": ("flash_attn_bwd_sm90", _BWD_ARGS),
     "zoo_flash_attn_bwd_dkv_sm90": ("flash_attn_bwd_sm90", _BWD_ARGS),
     "zoo_flash_attn_bwd_dq_f32tc": ("flash_attn_bwd_f32tc", _BWD_ARGS),
@@ -419,11 +415,11 @@ def _check_head_dim(d: int, backward: bool = False,
     """Raise unless a kernel is built for head dim ``d`` (``HEAD_DIMS``):
     K1, or with ``backward`` K1-lse, K2 and K3 for a gradient (which the
     message names); with a key-padding mask (``masked``) only up to 128.
-    In bf16 K1 and K1-lse run ``flash_attn_fwd_sm90.cu`` at every such
-    head dim, K2 and K3 ``flash_attn_bwd_sm90.cu`` up to 256 and
-    ``flash_attn_bwd_{dq,dkv}.cu`` above; in f32 all of them run the f32
-    tensor-core sources (``_fwd_entry``, ``_bwd_entry``). The wrappers
-    pad other head dims below 128 to a multiple of 8 before they ask."""
+    In bf16 K1 and K1-lse run ``flash_attn_fwd_sm90.cu`` and K2 and K3
+    ``flash_attn_bwd_sm90.cu`` at every such head dim; in f32 all of them
+    run the f32 tensor-core sources (``_fwd_entry``, ``_bwd_entry``). The
+    wrappers pad other head dims below 128 to a multiple of 8 before they
+    ask."""
     if masked and d > 128:
         raise NotImplementedError(
             f"flash kernel at head_dim {d}: no masked kernel above 128 "
@@ -538,21 +534,19 @@ def _fwd_entry(dtype: torch.dtype) -> str:
             else "zoo_flash_attn_fwd_f32tc")
 
 
-def _bwd_entry(dtype: torch.dtype, dp: int, masked: bool) -> Tuple[str, str]:
+def _bwd_entry(dtype: torch.dtype) -> Tuple[str, str]:
     """The backward entry points a call takes, K2's and K3's: the Hopper
     kernels of ``flash_attn_bwd_sm90.cu`` (TMA, a producer warpgroup,
-    wgmma) for bf16 at ``SM90_HEAD_DIMS`` (every head dim up to 128,
-    masked or not, K5b among them, and 192 and 256); those of
-    ``flash_attn_bwd_f32tc.cu`` (3xTF32 mma.sync) for f32 at every head
-    dim up to ``F32TC_MAX_D`` (512), masked or not; ``flash_attn_bwd_dq.cu``
-    and ``flash_attn_bwd_dkv.cu`` for bf16 at 320 to 512. A mask goes with
-    every entry (a mask only up to 128, as every kernel: ``_check_inputs``
-    refuses the rest before a launch)."""
-    if dtype == torch.bfloat16 and dp in SM90_HEAD_DIMS:
-        return "zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90"
-    if dtype == torch.float32 and dp <= F32TC_MAX_D:
-        return "zoo_flash_attn_bwd_dq_f32tc", "zoo_flash_attn_bwd_dkv_f32tc"
-    return "zoo_flash_attn_bwd_dq", "zoo_flash_attn_bwd_dkv"
+    wgmma) for every bf16 call (``SM90_HEAD_DIMS``: every head dim up to
+    128, masked or not, K5b among them, and 192 to 512; above 256 the
+    split templates), those of ``flash_attn_bwd_f32tc.cu`` (3xTF32
+    mma.sync) for every f32 one (up to ``F32TC_MAX_D``). Each takes every
+    head dim a kernel is built for (``HEAD_DIMS``; a mask only up to 128),
+    and the mask goes with it: ``_check_inputs`` refuses the rest before a
+    launch."""
+    return (("zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90")
+            if dtype == torch.bfloat16 else
+            ("zoo_flash_attn_bwd_dq_f32tc", "zoo_flash_attn_bwd_dkv_f32tc"))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -603,7 +597,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_bwd_dq_reference(q, k, v, o, lse, do, causal,
                                                 scale, key_padding_mask)
     d, scale, dp, (q, k, v, o, do) = _padded(scale, q, k, v, o, do)
-    name = _bwd_entry(q.dtype, dp, key_padding_mask is not None)[0]
+    name = _bwd_entry(q.dtype)[0]
     fn = _entry(name)
     _check_inputs(q, k, v, causal, key_padding_mask, backward=True,
                   o=o, do=do, lse=lse)
@@ -641,7 +635,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                                                  causal, scale,
                                                  key_padding_mask)
     d, scale, dp, (q, k, v, do) = _padded(scale, q, k, v, do)
-    name = _bwd_entry(q.dtype, dp, key_padding_mask is not None)[1]
+    name = _bwd_entry(q.dtype)[1]
     fn = _entry(name)
     _check_inputs(q, k, v, causal, key_padding_mask, backward=True,
                   do=do, lse=lse, delta=delta)

@@ -245,14 +245,23 @@ Phases:
    widths.
 20. K2/K3 wider kernels: K1, K1 with logsumexp, K2 and K3 at head dims
    320, 384, 448 and 512 through backward_phase, as phase 16 at 192 and
-   256 (K2 and K3 bf16 split D across warps; f32 runs the tensor-core
-   kernels of phase 24, counted in f32tc_launches): every instantiation
-   once (32 sweep cases, one summary line, each launch counted in
-   wide_d_launches), then the 512-head LM's trained call ([4,8,2048,512]
-   bf16 causal, views into the qkv projection), its f32 gradient check's
-   call ([1,8,2048,512]) and [4,8,2048,384] bf16, each timed beside its
-   plain version, SDPA (with the backend SDPA took for its backward) and
-   its bound.
+   256 (K2 and K3 bf16 on the Hopper kernels' split templates of
+   flash_attn_bwd_sm90.cu, counted in sm90_launches; f32 runs the
+   tensor-core kernels of phase 24, counted in f32tc_launches): every
+   instantiation once, bf16 and f32, causal and not, lq == lk and lq <
+   lk, then in bf16 q/k/v views into a fused projection, lq 192 (three
+   64-row q blocks), causal lq < lk and lk 320 (five 64-key blocks) at
+   every head dim (56 sweep cases, one summary line, each launch counted
+   in wide_d_launches); then 30 identical bf16 K2 and K3 launches each at
+   [1,8,2048,512] and [1,8,2048,384] causal that must agree bit for bit
+   (WIDER_BWD_REPEAT), and at the same calls, with Q and dO (then K)
+   whose two halves of D are the same, dK's and dV's (then dQ's) halves
+   must be bit for bit the same (bwd_parts_check: the two K3 blocks, and
+   the two K2 consumers, of a tile build the same P); then the 512-head LM's trained call
+   ([4,8,2048,512] bf16 causal, views into the qkv projection), its f32
+   gradient check's call ([1,8,2048,512]) and [4,8,2048,384] bf16, each
+   timed beside its plain version, SDPA (with the backend SDPA took for
+   its backward) and its bound.
 21. 512-head LM: the same TransformerModule and causal-LM code as phase
    17 at deepseek-ai/DeepSeek-V4-Flash's hidden size 4096 and head dim
    512 (8 heads of 512, intermediate 16384, vocab 129280, 4 of its 43
@@ -262,8 +271,8 @@ Phases:
    and its K1-lse, K2 and K3 must run on the f32 tensor-core kernels);
    K1-lse, K2
    and K3 must each launch exactly once a layer a step, every launch at
-   D = 512, every K1-lse launch (64) on K1's Hopper kernel, and the loss
-   must fall.
+   D = 512, every K1-lse, K2 and K3 launch (64 each) on the Hopper
+   kernels, and the loss must fall.
 22. K1 sm90: K1's Hopper kernel (flash_attn_fwd_sm90.cu: TMA into a
    ring of shared-memory stages, a producer warpgroup, wgmma) through the
    flash_attention wrapper against its plain version on the card: every
@@ -403,8 +412,9 @@ lse_call, its launches the Gemma phase's; flash_attn_fwd_wider
 DeepSeek-width prefill call with an
 lse_call, a d384_call and a trained_lse_call at the 512-head LM's call,
 its launches the 512-head LM fit's; flash_attn_bwd_dq_wider and
-flash_attn_bwd_dkv_wider at the 512-head LM's trained call with a
-d384_call, their launches that fit's; each backward row
+flash_attn_bwd_dkv_wider (bf16 at D = 320-512, flash_attn_bwd_sm90.cu's
+split templates) at the 512-head LM's trained call with a d384_call,
+their launches that fit's; each backward row
 names SDPA's backend; every f32 row carries fma_bound_ms beside its
 bound at f32 accuracy), the card's name and power limit, and last {"ok":
 true, "device": {...}}. Any failed check exits non-zero.
@@ -442,10 +452,6 @@ SM90_BWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_sm90.cu"
 # (3xTF32)
 F32TC_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_f32tc.cu"
 F32TC_FWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_fwd_f32tc.cu"
-# K2 and K3 (and K5b's backward): templates in flash_attn_bwd.cuh, built
-# and exported by one source each
-K2_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_dq.cu"
-K3_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attn_bwd_dkv.cu"
 K2_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:209"
 K3_REPLACES = "analytics_zoo_tpu/ops/pallas_attention.py:249"
 # |kernel - plain| <= TOL * (1 + |plain|): f32 is exact arithmetic in
@@ -808,7 +814,7 @@ def _right_100(rng, b, lk):
 # is laid out as the attention output ([B, L, H, D] memory)
 VIEW_CASES = ("trained", "ner_trained", "squad_padded", "minilm_trained",
               "minilm_padded", "gptj_trained", "gptj_f32", "lm512_trained",
-              "lm512_f32", "sm90_views", "f32tc_views")
+              "lm512_f32", "sm90_views", "f32tc_views", "wider_views")
 # name, (b, h, lq, lk, d), dtype, causal, mask (a function of the rng,
 # b and lk; None: no mask), timed. "trained" is the call one BERT-base
 # SQuAD train step makes per layer
@@ -938,9 +944,8 @@ def backward_phase(torch, peaks, cases, seed, label, quiet=False):
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal,
                                             None, m)
         torch.cuda.synchronize()
-        # f32 on the tensor-core kernels, bf16 up to D = 256 on the Hopper
-        # kernels, bf16 above on flash_attn_bwd_{dq,dkv}.cu
-        entry = fa._bwd_entry(dtype, fa._kernel_head_dim(d), m is not None)[0]
+        # f32 on the tensor-core kernels, bf16 on the Hopper kernels
+        entry = fa._bwd_entry(dtype)[0]
         want = (1, int(entry.endswith("_f32tc")), int(entry.endswith("_sm90")))
         for w, counts in zip(bwd_wrappers, before):
             got = tuple(now - was for now, was in zip(
@@ -1446,12 +1451,30 @@ WIDE_BWD_CASES = [
 WIDER_HEAD_DIMS = (320, 384, 448, 512)
 # K2 and K3 above D = 256 (with K1 and K1-lse beside them): every
 # instantiation once (D in {320, 384, 448, 512}, bf16 and f32, causal and
-# not, lq == lk and lq < lk)
+# not, lq == lk and lq < lk), then in bf16 (the Hopper split templates:
+# K2's 64-row q blocks, K3's 64-key blocks of one part of D each) q/k/v
+# views into a fused projection, lq 192 (three q blocks, K3's q tiles of
+# 32 rows), causal lq < lk with lk 320 (five key blocks), and lq 64
+# against lk 320
 WIDER_BWD_SWEEP = [
     (f"d{d}", shape + (d,), dt, causal, None, False)
     for d in WIDER_HEAD_DIMS for dt in ("bfloat16", "float32")
     for shape in ((2, 2, 128, 128), (1, 3, 128, 384))
-    for causal in (False, True)]
+    for causal in (False, True)] + [
+    (name, shape + (d,), "bfloat16", causal, None, False)
+    for d in WIDER_HEAD_DIMS for name, shape, causal in (
+        ("wider_views", (2, 3, 256, 256), False),
+        ("wider_views", (2, 3, 256, 256), True),
+        ("odd_blocks", (1, 2, 192, 192), True),
+        ("odd_blocks", (1, 2, 192, 192), False),
+        ("lk320", (1, 2, 192, 320), True),
+        ("lk320", (1, 2, 64, 320), False))]
+# unmasked bf16 calls whose K2 and K3 launch REPEATS times and must agree
+# bit for bit (both K2 consumers rebuild P; K3's consumers exchange P^T),
+# and whose two parts of D must build the same P (bwd_parts_check):
+# (b, h, lq, lk, d, causal)
+WIDER_BWD_REPEAT = ((1, 8, 2048, 2048, 512, True),
+                    (1, 8, 2048, 2048, 384, True))
 # the calls timed: the one a train step of the LM at DeepSeek-V4-Flash's
 # hidden size and head dim makes per layer (4 x 2048 tokens, 8 heads of
 # 512, causal, views into the qkv projection), its f32 gradient check's
@@ -1464,11 +1487,12 @@ WIDER_BWD_CASES = [
 
 
 def wide_bwd_phase(torch, peaks, sweep=WIDE_BWD_SWEEP, cases=WIDE_BWD_CASES,
-                   seeds=(10, 12), label="wide-bwd"):
+                   seeds=(10, 12), label="wide-bwd", repeat=()):
     """K2 and K3 above D = 128 through ``backward_phase``: every
     instantiation once (``sweep``, one summary line; each case must count
     K1's two launches and one of K2 and of K3 in ``wide_d_launches``),
-    then ``cases`` timed. The defaults are D in {192, 256}; the
+    ``repeat`` (unmasked calls, ``REPEATS`` launches each, bit for bit the
+    same, and ``bwd_parts_check``), then ``cases`` timed. The defaults are D in {192, 256}; the
     ``WIDER_BWD_*`` lists are D in {320, 384, 448, 512}. Returns the timed
     records."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
@@ -1483,6 +1507,13 @@ def wide_bwd_phase(torch, peaks, sweep=WIDE_BWD_SWEEP, cases=WIDE_BWD_CASES,
     if counted != [2 * n, n, n]:
         fail(f"{label}: K1, K2, K3 counted {counted} wide launches in "
              f"{n} sweep cases (want {[2 * n, n, n]})")
+    for args in repeat:
+        bwd_repeat_check(torch, *args, masked=False)
+        bwd_parts_check(torch, *args)
+    if repeat:
+        print(f"{label}: {REPEATS} launches each of K2 and K3 at "
+              f"{len(repeat)} unmasked calls agree bit for bit, and so do "
+              "the halves of D their two parts compute", flush=True)
     return backward_phase(torch, peaks, cases, seeds[1], label)
 
 
@@ -1795,10 +1826,11 @@ SM90_BWD_CASES = [
 ]
 
 
-def bwd_repeat_check(torch, b, h, lq, lk, d, causal, n=REPEATS):
-    """``n`` identical bf16 K2 and K3 launches on one call with a random
-    key-padding mask (``_pattern_mask``): fail unless every dQ, delta, dK
-    and dV is bit for bit the first's."""
+def bwd_repeat_check(torch, b, h, lq, lk, d, causal, n=REPEATS,
+                     masked=True):
+    """``n`` identical bf16 K2 and K3 launches on one call, with a random
+    key-padding mask (``_pattern_mask``) where ``masked``: fail unless
+    every dQ, delta, dK and dV is bit for bit the first's."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.RandomState(b + h + lq + lk + d)
@@ -1809,7 +1841,8 @@ def bwd_repeat_check(torch, b, h, lq, lk, d, causal, n=REPEATS):
 
     q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
     do = make(b, h, lq, d)
-    m = fa._kernel_mask(torch.from_numpy(_pattern_mask(rng, b, lk)).cuda())
+    m = (fa._kernel_mask(torch.from_numpy(_pattern_mask(rng, b, lk)).cuda())
+         if masked else None)
     o, lse = fa.flash_attention(q, k, v, causal, None, True, m)
     first, differ = None, 0
     for _ in range(n):
@@ -1826,6 +1859,48 @@ def bwd_repeat_check(torch, b, h, lq, lk, d, causal, n=REPEATS):
         fail(f"K2/K3 sm90 repeat {[b, h, lq, lk, d]} causal={causal}: "
              f"{differ} of {n - 1} repeated launches differ from the first "
              "in dQ, delta, dK or dV")
+
+
+def bwd_parts_check(torch, b, h, lq, lk, d, causal):
+    """K2 and K3 bf16 at D = 384 or 512 split D's columns in halves: K2's
+    two consumers own one half of dQ each and K3's two blocks of a key
+    block one half of dK and dV each, and each of them rebuilds P (and
+    dS) itself. With Q and dO whose two halves are the same, dK's and
+    dV's halves must be bit for bit the same, and with K's two halves the
+    same, dQ's: fail unless they are (two builds of P that differ in
+    their last bits show so)."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    if d not in (384, 512):
+        fail(f"K2/K3 parts check at D = {d}: its halves are not the parts")
+    rng = np.random.RandomState(b + h + lq + lk + d + 1)
+    half = d // 2
+
+    def make(*shape, twin=False):
+        x = rng.randn(*shape[:-1], half if twin else d).astype(np.float32)
+        if twin:
+            x = np.concatenate([x, x], -1)
+        return torch.from_numpy(x).to("cuda", torch.bfloat16)
+
+    differ = {}
+    for twins in ("q_do", "k"):
+        q = make(b, h, lq, d, twin=twins == "q_do")
+        k = make(b, h, lk, d, twin=twins == "k")
+        v = make(b, h, lk, d)
+        do = make(b, h, lq, d, twin=twins == "q_do")
+        o, lse = fa.flash_attention(q, k, v, causal, None, True)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+        if twins == "k":
+            outs = {"dQ": dq}
+        else:
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                                causal)
+            outs = {"dK": dk, "dV": dv}
+        for name, x in outs.items():
+            differ[name] = int(x[..., :half].ne(x[..., half:]).sum())
+    if any(differ.values()):
+        fail(f"K2/K3 sm90 parts {[b, h, lq, lk, d]} causal={causal}: the "
+             f"two halves of an output differ in {differ} entries")
 
 
 def sm90_bwd_phase(torch, peaks):
@@ -2146,17 +2221,15 @@ def _launches(fa):
         ("K3", fa.flash_attention_bwd_dkv))}
 
 
-def _sm90_expected(torch, fa, dtype, head_dim, masked, launches):
+def _sm90_expected(torch, fa, dtype, launches):
     """{kernel: how many of its launches in ``launches`` (``_launches``'s
     form) must have run on the Hopper kernels}: all of a call that
-    ``_fwd_entry`` (K1: ``flash_attn_fwd_sm90.cu``, every bf16 call) or
-    ``_bwd_entry`` (K2
-    and K3: ``flash_attn_bwd_sm90.cu``, every bf16 call up to 128, masked
-    or not, and unmasked at 192 and 256) sends there, none of any
-    other."""
+    ``_fwd_entry`` (K1: ``flash_attn_fwd_sm90.cu``) or ``_bwd_entry`` (K2
+    and K3: ``flash_attn_bwd_sm90.cu``) sends there, every bf16 call;
+    none of any other."""
     dt = getattr(torch, dtype)
     hopper = dict(zip(("K1", "K2", "K3"), (
-        fa._fwd_entry(dt), *fa._bwd_entry(dt, head_dim, masked))))
+        fa._fwd_entry(dt), *fa._bwd_entry(dt))))
     return {name: counts[0] if hopper[name].endswith("_sm90") else 0
             for name, counts in launches.items()}
 
@@ -2172,26 +2245,26 @@ def _check_sm90(label, launches, want):
                  f"kernel (want {n})")
     return f"{label}: Hopper kernels " + ", ".join(
         f"{name} {launches[name][4]} of {launches[name][0]}"
-        + ("" if launches[name][4] else " (older sources)")
+        + ("" if launches[name][4] else " (f32 tensor-core kernels)")
         for name in want)
 
 
 def _check_bf16_on_sm90(label, launches):
-    """``_check_sm90`` for a phase of bf16 calls at head dims up to 256
-    beside f32 ones: every K1, K2 and K3 launch in ``launches`` that is
-    not an f32 tensor-core one must have run on the Hopper kernels."""
+    """``_check_sm90`` for a phase of bf16 calls beside f32 ones: every
+    K1, K2 and K3 launch in ``launches`` that is not an f32 tensor-core
+    one must have run on the Hopper kernels."""
     return _check_sm90(label, launches, {
         name: counts[0] - counts[5] for name, counts in launches.items()})
 
 
-def _f32tc_expected(torch, fa, dtype, head_dim, masked, launches):
+def _f32tc_expected(torch, fa, dtype, launches):
     """{kernel: how many of its launches in ``launches`` must have run on
     the f32 tensor-core kernels}: every K1, K2 and K3 launch of an f32
     call (flash_attn_fwd_f32tc.cu and flash_attn_bwd_f32tc.cu, up to D =
     512), masked or not; none of any other."""
-    dt, dp = getattr(torch, dtype), fa._kernel_head_dim(head_dim)
+    dt = getattr(torch, dtype)
     tc = dict(zip(("K1", "K2", "K3"), (
-        fa._fwd_entry(dt), *fa._bwd_entry(dt, dp, masked))))
+        fa._fwd_entry(dt), *fa._bwd_entry(dt))))
     return {name: counts[0] if tc[name].endswith("_f32tc") else 0
             for name, counts in launches.items()}
 
@@ -2216,7 +2289,7 @@ F32_CHECK_LAUNCHES = {}
 
 
 def serving_phase(torch, start, reqs, input_fn, out_shape, n_block,
-                  head_dim, masked=False, label="serving", device="cuda",
+                  masked=False, label="serving", device="cuda",
                   profile=False):
     """One closed burst of ``reqs`` ({uri: {name: array}}) through the
     deployment ``start()`` brings up (load and warm-up included); it
@@ -2226,8 +2299,8 @@ def serving_phase(torch, start, reqs, input_fn, out_shape, n_block,
     for every encoder layer of every dispatched batch, and that 4
     replies match the same model with einsum attention (at real tokens,
     where requests carry an ``attention_mask``), and that K1 ran on the
-    Hopper kernel exactly where ``_sm90_expected`` says (a bf16 model of
-    ``head_dim``). ``input_fn`` maps named tensors to the model's input,
+    Hopper kernel exactly where ``_sm90_expected`` says (a bf16
+    model). ``input_fn`` maps named tensors to the model's input,
     as the worker does. Returns K1's ``_launches`` tuple."""
     from analytics_zoo_tpu_torch.common.config import get_config
     from analytics_zoo_tpu_torch.obs.metrics import get_registry
@@ -2282,11 +2355,11 @@ def serving_phase(torch, start, reqs, input_fn, out_shape, n_block,
             fail(f"{label}: K1 launched {k1[int(masked)]} times"
                  + (" with a mask" if masked else "") + f" < {n_block} x "
                  f"{dispatched} dispatched batches")
-        # every launch of a bf16 model without a mask on the Hopper
-        # kernel, none of a masked one
+        # every launch of a bf16 model, masked or not, on the Hopper
+        # kernel
         if device == "cuda":
             _check_sm90(label, {"K1": k1}, _sm90_expected(
-                torch, fa, "bfloat16", head_dim, masked, {"K1": k1}))
+                torch, fa, "bfloat16", {"K1": k1}))
 
         def batch_of(uris):
             return input_fn({k: np.stack([reqs[u][k] for u in uris])
@@ -2371,7 +2444,6 @@ def bert_serving(torch, device="cuda", base=BERT_BASE, n_requests=64,
         return serving_phase(torch, start, reqs,
                              lambda t: t["input_ids"],
                              (base["num_classes"],), base["n_block"],
-                             base["hidden_size"] // base["n_head"],
                              device=device, profile=profile)
 
 
@@ -2553,7 +2625,6 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
                                 if k != "attention_mask"}
     f32 = build(dtype="float32")
     refs, rel32 = {}, {}
-    head_dim = base["hidden_size"] // base["n_head"]
     for tag, xc in batches.items():
         refs[tag] = step_grads(torch, f32.module, xc, yb, "einsum", **grad)
         _reset_launches(fa)
@@ -2563,9 +2634,7 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
             # the f32 step's K1-lse, K2 and K3 all on the f32 tensor-core
             # kernels; K2 and K3 once a layer
             counts = _launches(fa)
-            want = _f32tc_expected(
-                torch, fa, "float32", head_dim,
-                isinstance(xc, dict) and "attention_mask" in xc, counts)
+            want = _f32tc_expected(torch, fa, "float32", counts)
             print(_check_f32tc(f"{label}{tag} f32 check", counts, want),
                   flush=True)
             if min(counts["K2"][0], counts["K3"][0]) < base["n_block"]:
@@ -2649,13 +2718,11 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
             fail(f"{label}: {kname} launched {counts[int(masked)]} times"
                  + (" with a mask" if masked else "")
                  + f" in {steps} train steps (< {need})")
-    # K1-lse, K2 and K3 of every bf16 model up to D = 256 (masked up to
-    # 128) on the Hopper kernels, K2 and K3 above 256 on the older
-    # sources; f32 none (_sm90_expected)
+    # K1-lse, K2 and K3 of every bf16 model on the Hopper kernels; f32
+    # none (_sm90_expected)
     if cuda:
         print(_check_sm90(label, launches, _sm90_expected(
-            torch, fa, base["dtype"], base["hidden_size"] // base["n_head"],
-            masked, launches)), flush=True)
+            torch, fa, base["dtype"], launches)), flush=True)
     timed = hist[1]["seconds"]
     sps = steps_per_epoch / timed
     # one epoch's real tokens (the mask's ones) and padded tokens
@@ -2861,7 +2928,7 @@ def ner_serving(torch, path, device="cuda", n_requests=64, seq=NER_SEQ,
 
     return serving_phase(torch, start, reqs, _ner_input,
                          (seq, base["num_classes"]), base["n_block"],
-                         base["hidden_size"] // base["n_head"], masked=True,
+                         masked=True,
                          label="serve-ner", device=device)
 
 
@@ -3000,10 +3067,12 @@ def lm_learn(torch, device="cuda", base=GPTJ, batch=LM_BATCH,
         if device == "cuda" and not wide == total == want:
             fail(f"{label}: {kname} launched {total} times, {wide} of them "
                  f"wide (want {want}, every one at D = {head_dim})")
-    # the bf16 blocks' K1-lse, at 256 and at 512, on K1's Hopper kernel
-    if device == "cuda" and launches["K1"][4] != want:
-        fail(f"{label}: {launches['K1'][4]} of K1-lse's {want} launches on "
-             f"K1's Hopper kernel")
+    # the bf16 blocks' K1-lse, K2 and K3, at 256 and at 512, on the
+    # Hopper kernels
+    for kname, counts in launches.items():
+        if device == "cuda" and counts[4] != want:
+            fail(f"{label}: {counts[4]} of {kname}'s {want} launches on "
+                 f"the Hopper kernels")
     return launches
 
 
@@ -3639,7 +3708,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     wider_bwd = timed("K2/K3 wider kernels", wide_bwd_phase, torch, peaks,
-                      WIDER_BWD_SWEEP, WIDER_BWD_CASES, (20, 21), "wider-bwd")
+                      WIDER_BWD_SWEEP, WIDER_BWD_CASES, (20, 21), "wider-bwd",
+                      WIDER_BWD_REPEAT)
     lm512 = timed("512-head LM learn", lm_learn, torch, base=LM512,
                   profile=args.profile, label="learn-lm512")
     gc.collect()
@@ -3692,13 +3762,13 @@ def main() -> None:
                   library_backward_device_ms=rec["sdpa_bwd_device_ms"],
                   library_backend=rec["sdpa_backend"], **extra)
 
-    def wide_row(name, source, replaces, key, fit, first, **calls):
-        """K2 or K3 above D = 128 at the call ``first``, with ``calls``
-        ({key: record}), launched by ``fit`` above D = 128 apart from its
-        Hopper launches."""
+    def wide_row(name, replaces, key, fit, first, **calls):
+        """K2's or K3's Hopper split template (bf16 above D = 256) at the
+        call ``first``, with ``calls`` ({key: record}), launched by
+        ``fit`` (its Hopper launches, every one at D = 512)."""
         counts = fit[key.upper()]
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": counts[3] - counts[4],
+        return {"name": name, "route": "cuda", "source": SM90_BWD_SOURCE,
+                "replaces": replaces, "launches": counts[4],
                 **bwd_call(first, key),
                 **{k: bwd_call(rec, key) for k, rec in calls.items()}}
 
@@ -3881,12 +3951,13 @@ def main() -> None:
             # K1-lse at the 512-head LM's trained call, the forward of its
             # fit
             "trained_lse_call": lse_call(lm512_rec)},
-        # K2 and K3 at D = 512: the 512-head LM's trained call
-        # ([4,8,2048,512] bf16, causal), launched by its fit
-        wide_row("flash_attn_bwd_dq_wider", K2_SOURCE, K2_REPLACES, "k2",
-                 lm512, lm512_rec, d384_call=wider384),
-        wide_row("flash_attn_bwd_dkv_wider", K3_SOURCE, K3_REPLACES, "k3",
-                 lm512, lm512_rec, d384_call=wider384)]}),
+        # K2 and K3 bf16 at D = 512 (flash_bwd_{dq,dkv}_sm90_split_kernel):
+        # the 512-head LM's trained call ([4,8,2048,512], causal, views),
+        # launched by its fit
+        wide_row("flash_attn_bwd_dq_wider", K2_REPLACES, "k2", lm512,
+                 lm512_rec, d384_call=wider384),
+        wide_row("flash_attn_bwd_dkv_wider", K3_REPLACES, "k3", lm512,
+                 lm512_rec, d384_call=wider384)]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

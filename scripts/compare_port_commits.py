@@ -3,6 +3,7 @@
 GPU, in turns.
 
     python3 scripts/compare_port_commits.py PARENT CHANGE [--pairs N]
+        [--only LABEL,...]
 
 PARENT and CHANGE are checkouts of the repository (for example the
 parent commit unpacked with ``git archive`` into a directory that
@@ -19,7 +20,10 @@ chip_smoke.py times (the trained call, the NER trained call with its
 mask, MiniLM's [48,12,384,32] without and with a mask, cross-length
 causal [1,2,128->384,128] and [8,8,2048,128] causal) and at the f32
 gradient checks' calls of the GPT-J-width LM ([1,16,2048,256] causal)
-and of the 512-head LM ([1,8,2048,512] causal), K1 and K1-lse at the served shape
+and of the 512-head LM ([1,8,2048,512] causal), the same in bf16 at the
+512-head LM's trained call ([4,8,2048,512] causal, views into the qkv
+projection) and at [4,8,2048,384], [4,8,2048,448] and [4,8,2048,320]
+causal, K1 and K1-lse at the served shape
 [32,12,512,64] and at [8,8,2048,256] causal, bf16 (device time), K1 and
 K1-lse in bf16 at the calls that run K1's Hopper kernel at K5b head dims
 or with a key-padding mask (the NER trained call [32,12,128,64] with its
@@ -38,7 +42,11 @@ causal (device time),
 BERT-base serving (with the seconds its save and its start-up take), the
 NER fine-tune, NER serving (start-up seconds too), the MiniLM fine-tune
 (its steps/s, and one profiled train step's wall and device-busy ms) and
-TinyGenLM generation at the repo geometry. Each checkout builds its
+TinyGenLM generation at the repo geometry, and one profiled train step
+of the 512-head LM (``chip_smoke.LM512``, 4 x 2048 tokens: its wall and
+device-busy ms). ``--only`` keeps the phases named (a BACKWARD label,
+``fwd``, ``serving``, ``ner``, ``minilm``, ``gen``, ``lm512``). Each
+checkout builds its
 kernels into its own ``build/``. Prints one JSON line a run, then the ptxas registers
 and spills of every kernel instantiation both checkouts build that
 differ between them (none: the line says so), those only the parent
@@ -90,7 +98,8 @@ def _squad_mask(rng, b, lk):
 # times: the trained call, the NER trained call (masked), MiniLM's trained
 # call (D = 32) without and with a mask, cross-length causal and
 # [8,8,2048,128] causal; and the f32 gradient checks' calls above 128,
-# the GPT-J-width LM's (D = 256) and the 512-head LM's (D = 512)
+# the GPT-J-width LM's (D = 256) and the 512-head LM's (D = 512); then
+# bf16 above 256: the 512-head LM's trained call and D = 384, 448 and 320
 BACKWARD = (
     ("backward", ("trained", (48, 12, 384, 384, 64), "bfloat16", False, None,
                   True), ""),
@@ -124,6 +133,14 @@ BACKWARD = (
                       None, True), "f32_d256_"),
     ("f32-d512-bwd", ("lm512_f32", (1, 8, 2048, 2048, 512), "float32", True,
                       None, True), "f32_d512_"),
+    ("d512-bwd", ("lm512_trained", (4, 8, 2048, 2048, 512), "bfloat16",
+                  True, None, True), "lm512_"),
+    ("d384-bwd", ("bf16_d384", (4, 8, 2048, 2048, 384), "bfloat16", True,
+                  None, True), "d384_"),
+    ("d448-bwd", ("bf16_d448", (4, 8, 2048, 2048, 448), "bfloat16", True,
+                  None, True), "d448_"),
+    ("d320-bwd", ("bf16_d320", (4, 8, 2048, 2048, 320), "bfloat16", True,
+                  None, True), "d320_"),
 )
 # K1 and K1-lse timed through chip_smoke.timed_fwd_cases: the served
 # shape and the widest head dim the backward also takes, bf16; the bf16
@@ -174,11 +191,41 @@ SECONDS = (
     (r"^profile: train step \(48,\) wall ([0-9.]+) ms", "minilm_step_wall_ms"),
     (r"^profile: train step \(48,\) wall [0-9.]+ ms; device busy ([0-9.]+) ms",
      "minilm_step_busy_ms"),
+    (r"^profile: train step \(4,\) wall ([0-9.]+) ms", "lm512_step_wall_ms"),
+    (r"^profile: train step \(4,\) wall [0-9.]+ ms; device busy ([0-9.]+) ms",
+     "lm512_step_busy_ms"),
 )
+PHASES = tuple(label for label, _, _ in BACKWARD) + (
+    "fwd", "serving", "ner", "minilm", "gen", "lm512")
 
 
-def run_phases(checkout: str) -> None:
-    """The phases of ``checkout``'s chip_smoke.py, in this process."""
+def lm512_step(torch, cs) -> None:
+    """One profiled train step of the 512-head LM (``cs.causal_lm`` at
+    ``cs.LM512``, weights drawn on the card from seed 0, Adam), as
+    ``chip_smoke.py --profile`` profiles its fit's."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+    from analytics_zoo_tpu_torch.keras.layers.transformer import (
+        reset_parameters)
+    from analytics_zoo_tpu_torch.learn.estimator import Estimator
+    from analytics_zoo_tpu_torch.learn.optim import Adam
+
+    get_config().set("zoo.ops.attention_impl", "flash")
+    base, batch = cs.LM512, cs.LM_BATCH
+    x, y = cs.lm_data(np.random.RandomState(9), batch, base["seq_len"],
+                      base["vocab"])
+    with torch.device("cuda"):
+        module = cs.causal_lm(torch, base)
+    reset_parameters(module, 0)
+    est = Estimator(module, loss="sparse_categorical_crossentropy",
+                    optimizer=Adam(lr=1e-4), seed=0, device="cuda")
+    est._ensure_built()  # the optimizer state fit would make first
+    cs.profile_train_step(torch, est, torch.from_numpy(x).cuda(),
+                          torch.from_numpy(y).cuda())
+
+
+def run_phases(checkout: str, only) -> None:
+    """The phases of ``checkout``'s chip_smoke.py named in ``only``, in
+    this process."""
     import tempfile
 
     os.chdir(checkout)
@@ -198,18 +245,28 @@ def run_phases(checkout: str) -> None:
     for line in cs.ptxas_lines(fa.build_info["log"]):
         print(f"ptxas: {line}", flush=True)
     for label, case, _ in BACKWARD:
-        cs.backward_phase(torch, cs.PEAKS["sxm"], [case], 1, label)
-    fwd = cs.timed_fwd_cases(torch, cs.PEAKS["sxm"], np.random.RandomState(0),
-                             list(FWD_CASES), "launches", "fwd", iters=20,
-                             views=FWD_VIEWS)
-    print(json.dumps({"fwd_checks": fwd}), flush=True)
-    cs.bert_serving(torch)
-    with tempfile.TemporaryDirectory() as ner_dir:
-        cs.ner_learn(torch, ner_dir)
-        cs.ner_serving(torch, ner_dir)
-    cs.minilm_learn(torch, profile=True)
-    cs.generation_phase(torch, "gen", cs.GEN_REPO, 500, (1, 240), 16, 500,
-                        16)
+        if label in only:
+            cs.backward_phase(torch, cs.PEAKS["sxm"], [case], 1, label)
+    if "fwd" in only:
+        fwd = cs.timed_fwd_cases(torch, cs.PEAKS["sxm"],
+                                 np.random.RandomState(0), list(FWD_CASES),
+                                 "launches", "fwd", iters=20,
+                                 views=FWD_VIEWS)
+        print(json.dumps({"fwd_checks": fwd}), flush=True)
+    if "serving" in only:
+        cs.bert_serving(torch)
+    if "ner" in only:
+        with tempfile.TemporaryDirectory() as ner_dir:
+            cs.ner_learn(torch, ner_dir)
+            cs.ner_serving(torch, ner_dir)
+    if "minilm" in only:
+        cs.minilm_learn(torch, profile=True)
+    if "gen" in only:
+        cs.generation_phase(torch, "gen", cs.GEN_REPO, 500, (1, 240), 16,
+                            500, 16)
+    if "lm512" in only:
+        torch.cuda.empty_cache()
+        lm512_step(torch, cs)
 
 
 def registers(out: str) -> dict:
@@ -255,10 +312,17 @@ def main() -> None:
     ap.add_argument("parent", nargs="?")
     ap.add_argument("change", nargs="?")
     ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phases to run (default: all of "
+                         + ", ".join(PHASES) + ")")
     ap.add_argument("--run", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    only = args.only.split(",")
+    unknown = sorted(set(only) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; choose from {list(PHASES)}")
     if args.run:
-        run_phases(os.path.abspath(args.run))
+        run_phases(os.path.abspath(args.run), only)
         return
     if not (args.parent and args.change):
         ap.error("give the parent and the change checkouts")
@@ -271,7 +335,8 @@ def main() -> None:
     regs = {"parent": {}, "change": {}}
     for n, side in enumerate(order):
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--run", sides[side]],
+            [sys.executable, os.path.abspath(__file__), "--run", sides[side],
+             "--only", args.only],
             capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             sys.exit(f"run {n} ({side}) failed:\n{proc.stdout[-3000:]}\n"
@@ -299,8 +364,10 @@ def main() -> None:
     print(json.dumps({name: {side: {
         "runs": [r.get(name) for r in rs],
         "median": statistics.median(
-            r[name] for r in rs if r.get(name) is not None)}
-        for side, rs in runs.items()} for name in names}), flush=True)
+            [r[name] for r in rs if r.get(name) is not None] or [None])}
+        for side, rs in runs.items()} for name in names
+        if any(r.get(name) is not None for rs in runs.values() for r in rs)}),
+        flush=True)
 
 
 if __name__ == "__main__":

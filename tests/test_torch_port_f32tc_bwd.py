@@ -49,7 +49,6 @@ from tests.test_torch_port_masked import _jax_einsum, _mask
 torch.set_num_threads(2)
 
 DQ, DKV = "zoo_flash_attn_bwd_dq_f32tc", "zoo_flash_attn_bwd_dkv_f32tc"
-OLD_DQ, OLD_DKV = "zoo_flash_attn_bwd_dq", "zoo_flash_attn_bwd_dkv"
 SM90_DQ, SM90_DKV = "zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90"
 # chip_smoke.py's f32 tolerance: |got - ref| <= TOL * (1 + |ref|)
 TOL = 1e-4
@@ -61,20 +60,15 @@ class TestRoute:
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_bwd_entry(self, d, dtype, masked):
         """f32 at every head dim, masked or not, takes the f32
-        tensor-core kernels; bf16 up to 256 (masked or not, K5b among
-        them) the Hopper kernels; the rest (bf16 above 256) the older
-        sources."""
-        if dtype == torch.float32:
-            want = (DQ, DKV)
-        elif dtype == torch.bfloat16 and d <= 256:
-            want = (SM90_DQ, SM90_DKV)
-        else:
-            want = (OLD_DQ, OLD_DKV)
-        assert fa._bwd_entry(dtype, d, masked) == want
+        tensor-core kernels; bf16 at every head dim (masked or not, K5b
+        among them, 320 to 512 too) the Hopper kernels."""
+        want = (DQ, DKV) if dtype == torch.float32 else (SM90_DQ, SM90_DKV)
+        assert fa._bwd_entry(dtype) == want
 
-    @pytest.mark.parametrize("new,old", [(DQ, OLD_DQ), (DKV, OLD_DKV)])
+    @pytest.mark.parametrize("new,old", [(DQ, SM90_DQ), (DKV, SM90_DKV)])
     def test_entry_points_are_registered(self, new, old):
-        """The new entries take the old ones' arguments, mask included."""
+        """The f32 entries take the Hopper entries' arguments, mask
+        included."""
         stem, argtypes = fa._ENTRY_POINTS[new]
         assert stem == "flash_attn_bwd_f32tc"
         assert (fa._CSRC / f"{stem}.cu").is_file()
@@ -123,10 +117,9 @@ class TestLaunches:
         assert dk.shape == dv.shape == k.shape
         assert [name for name, _ in f32tc_count] == [DQ, DKV]
         for name, args in f32tc_count:
-            old = name[:-len("_f32tc")]
-            assert args[D_ARG[old]] == fa._kernel_head_dim(d)
+            assert args[D_ARG[name]] == fa._kernel_head_dim(d)
             assert args[11:13] == (128, 192)  # lq, lk
-            assert (args[MASK_ARG[old]] is not None) == masked
+            assert (args[MASK_ARG[name]] is not None) == masked
             assert len(args) == len(fa._ENTRY_POINTS[name][1])
         for w in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
             assert (w.launches, w.f32tc_launches, w.sm90_launches,
@@ -163,7 +156,7 @@ class TestLaunches:
         fa.flash_attention_bwd_dkv(q, k, v, _lse(), delta, do, False,
                                    key_padding_mask=m)
         assert [name for name, _ in f32tc_count] == list(
-            fa._bwd_entry(dtype, d, masked))
+            fa._bwd_entry(dtype))
         for w in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
             assert (w.launches, w.f32tc_launches) == (1, 0)
 

@@ -151,7 +151,10 @@ def test_kernel_build_dir_checkout_and_installed(monkeypatch, tmp_path):
     globs = data["tool"]["setuptools"]["package-data"][
         "analytics_zoo_tpu_torch"]
     names = {src.name for src in fa._SOURCES + fa._HEADERS}
-    assert {"flash_attn_fwd_sm90.cu", "flash_attn_bwd_dq.cu",
-            "flash_attn_bwd_dkv.cu", "flash_attn_bwd.cuh"} <= names
+    assert {"flash_attn_fwd_sm90.cu", "flash_attn_bwd_sm90.cu",
+            "flash_attn_bwd_f32tc.cu", "flash_attn_sm90.cuh"} <= names
+    # the retired mma.sync bf16 backward's sources
+    assert not {"flash_attn_bwd_dq.cu", "flash_attn_bwd_dkv.cu",
+                "flash_attn_bwd.cuh"} & names
     for src in fa._SOURCES + fa._HEADERS:
         assert any(src.relative_to(PORT).match(g) for g in globs), src

@@ -179,11 +179,12 @@ def fake_card(monkeypatch):
 
 # where each entry point takes its head dim and its mask pointer
 D_ARG = {"zoo_flash_attn_fwd_sm90": 10, "zoo_flash_attn_fwd_f32tc": 10,
-         "zoo_flash_attn_bwd_dq": 13, "zoo_flash_attn_bwd_dkv": 13,
+         "zoo_flash_attn_bwd_dq_sm90": 13, "zoo_flash_attn_bwd_dkv_sm90": 13,
          "zoo_flash_attn_bwd_dq_f32tc": 13,
          "zoo_flash_attn_bwd_dkv_f32tc": 13}
 MASK_ARG = {"zoo_flash_attn_fwd_sm90": 23, "zoo_flash_attn_fwd_f32tc": 23,
-            "zoo_flash_attn_bwd_dq": 32, "zoo_flash_attn_bwd_dkv": 32,
+            "zoo_flash_attn_bwd_dq_sm90": 32,
+            "zoo_flash_attn_bwd_dkv_sm90": 32,
             "zoo_flash_attn_bwd_dq_f32tc": 32,
             "zoo_flash_attn_bwd_dkv_f32tc": 32}
 

@@ -1,7 +1,8 @@
 """PyTorch port, K2 and K3's Hopper kernels (``csrc/flash_attn_bwd_sm90.cu``):
 the route that sends bf16 calls at head dims 64, 128, 192 and 256 to them
-(``_bwd_entry``; every head dim up to 128, masked or not, since the K5b
-and masked slice: ``tests/test_torch_port_sm90_masked_bwd.py``), what the
+(``_bwd_entry``; every bf16 call: up to 128 masked or not, since the K5b
+and masked slice, ``tests/test_torch_port_sm90_masked_bwd.py``, and at
+320 to 512, ``tests/test_torch_port_sm90_wider_bwd.py``), what the
 wrappers hand their entry points and count, and K2's and K3's plain
 versions (what the
 kernels are held to on the card by ``chip_smoke.py``) against the JAX
@@ -29,7 +30,6 @@ from tests.test_torch_port_k5b_bwd import D_ARG, fake_card  # noqa: F401
 torch.set_num_threads(2)
 
 DQ, DKV = "zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90"
-OLD_DQ, OLD_DKV = "zoo_flash_attn_bwd_dq", "zoo_flash_attn_bwd_dkv"
 F32TC_DQ, F32TC_DKV = ("zoo_flash_attn_bwd_dq_f32tc",
                        "zoo_flash_attn_bwd_dkv_f32tc")
 FWD_SM90 = "zoo_flash_attn_fwd_sm90"
@@ -50,25 +50,21 @@ class TestRoute:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("d", fa.HEAD_DIMS)
     def test_bwd_entry(self, d, dtype, masked):
-        """bf16 at every head dim up to 256 (masked or not; a mask only
-        up to 128, which ``_check_inputs`` enforces) takes the Hopper
-        kernels; f32 at every head dim the f32 tensor-core kernels; bf16
-        above 256 keeps ``flash_attn_bwd_dq.cu`` and
-        ``flash_attn_bwd_dkv.cu``."""
-        if dtype == torch.bfloat16 and d <= 256:
-            want = (DQ, DKV)
-        elif dtype == torch.float32:
-            want = (F32TC_DQ, F32TC_DKV)
-        else:
-            want = (OLD_DQ, OLD_DKV)
-        assert fa._bwd_entry(dtype, d, masked) == want
+        """bf16 at every head dim (masked or not; a mask only up to 128,
+        which ``_check_inputs`` enforces) takes the Hopper kernels, 320 to
+        512 among them; f32 at every head dim the f32 tensor-core
+        kernels. The route follows the dtype alone."""
+        want = ((DQ, DKV) if dtype == torch.bfloat16
+                else (F32TC_DQ, F32TC_DKV))
+        assert d in fa.SM90_HEAD_DIMS
+        assert fa._bwd_entry(dtype) == want
 
-    @pytest.mark.parametrize("new,old", [(DQ, OLD_DQ), (DKV, OLD_DKV)])
+    @pytest.mark.parametrize("new,old", [(DQ, F32TC_DQ), (DKV, F32TC_DKV)])
     def test_entry_points_are_registered(self, new, old):
         stem, argtypes = fa._ENTRY_POINTS[new]
         assert stem == "flash_attn_bwd_sm90"
         assert (fa._CSRC / f"{stem}.cu").is_file()
-        # the old entry's arguments, the mask pointer and stride included
+        # the f32 entry's arguments, the mask pointer and stride included
         assert argtypes == fa._ENTRY_POINTS[old][1]
 
 
@@ -108,7 +104,7 @@ class TestLaunches:
         assert delta.shape == (6, 192) and delta.dtype == torch.float32
         assert [name for name, _ in sm90_count] == [DQ, DKV]
         for name, args in sm90_count:
-            assert args[D_ARG[name[:-5]]] == d
+            assert args[D_ARG[name]] == d
             assert args[11:13] == (192, 256)  # lq, lk
             assert args[MASK_ARG] is None
             assert args[SCALE_ARG] == pytest.approx(1 / np.sqrt(d))
@@ -143,12 +139,11 @@ class TestLaunches:
     ])
     def test_other_calls_keep_the_old_entries(self, sm90_count, kind, d,
                                               dtype, masked):
-        """A masked bf16 call (64 and 128) and K5b (D = 80, and 20 padded
-        to 24) reach the Hopper entries too, counted in ``sm90_launches``;
-        bf16 at D = 512 still reaches ``zoo_flash_attn_bwd_dq`` and
-        ``zoo_flash_attn_bwd_dkv``, and f32 (at 64 and at 256) the f32
-        tensor-core entries; all take the same arguments, and the mask's
-        pointer goes with each."""
+        """A masked bf16 call (64 and 128), K5b (D = 80, and 20 padded
+        to 24) and bf16 at D = 512 (the split templates) reach the Hopper
+        entries too, counted in ``sm90_launches``; f32 (at 64 and at 256)
+        the f32 tensor-core entries; all take the same arguments, and the
+        mask's pointer goes with each."""
         q, k, v, do = _meta(d, dtype, lq=128, lk=128)
         m = (torch.ones(2, 128, dtype=torch.uint8, device="meta")
              if masked else None)
@@ -158,10 +153,9 @@ class TestLaunches:
         fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, False,
                                    key_padding_mask=m)
         want = ([F32TC_DQ, F32TC_DKV] if dtype == torch.float32
-                else [OLD_DQ, OLD_DKV] if d > 256 else [DQ, DKV])
+                else [DQ, DKV])
         assert [name for name, _ in sm90_count] == want
         for name, args in sm90_count:
-            name = name.removesuffix("_f32tc").removesuffix("_sm90")
             assert args[D_ARG[name]] == fa._kernel_head_dim(d)
             assert (args[MASK_ARG] is not None) == masked
         for w in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):

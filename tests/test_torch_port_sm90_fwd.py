@@ -140,9 +140,10 @@ class TestLaunches:
     def test_gradient_above_256_runs_sm90_then_older_k2_k3(
             self, monkeypatch, sm90_count, d):
         """Above 256 ``FlashAttention``'s K1-lse runs on the Hopper kernel
-        (with an lse, at the head dim), then K2 and K3 on
-        ``flash_attn_bwd_{dq,dkv}.cu``'s split templates; every launch is
-        a wide one, and only K1's counts in ``sm90_launches``."""
+        (with an lse, at the head dim), then K2 and K3 on the Hopper
+        kernels' split templates (``flash_attn_bwd_sm90.cu``, which took
+        them from the retired ``mma.sync`` ones); every launch is a wide
+        one and counts in ``sm90_launches``."""
         for w in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
             for name in ("sm90_launches", "wide_d_launches"):
                 monkeypatch.setattr(w, name, 0)
@@ -151,13 +152,13 @@ class TestLaunches:
         grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
         assert all(g.shape == q.shape for g in grads)
         assert [(name, args[D_ARG[name]]) for name, args in sm90_count] == [
-            (SM90, d), ("zoo_flash_attn_bwd_dq", d),
-            ("zoo_flash_attn_bwd_dkv", d)]
+            (SM90, d), ("zoo_flash_attn_bwd_dq_sm90", d),
+            ("zoo_flash_attn_bwd_dkv_sm90", d)]
         assert sm90_count[0][1][LSE_ARG] is not None
         assert sm90_count[0][1][CAUSAL_ARG] == 1
         wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
                     fa.flash_attention_bwd_dkv)
-        assert [w.sm90_launches for w in wrappers] == [1, 0, 0]
+        assert [w.sm90_launches for w in wrappers] == [1, 1, 1]
         assert [w.wide_d_launches for w in wrappers] == [1, 1, 1]
 
     @pytest.mark.parametrize("with_lse", [False, True])

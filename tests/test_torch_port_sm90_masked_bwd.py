@@ -47,7 +47,8 @@ from tests.test_torch_port_k5b_bwd import fake_card  # noqa: F401
 torch.set_num_threads(2)
 
 DQ, DKV = "zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90"
-OLD_DQ, OLD_DKV = "zoo_flash_attn_bwd_dq", "zoo_flash_attn_bwd_dkv"
+F32TC_DQ, F32TC_DKV = ("zoo_flash_attn_bwd_dq_f32tc",
+                       "zoo_flash_attn_bwd_dkv_f32tc")
 FWD_SM90 = "zoo_flash_attn_fwd_sm90"
 # where the backward entries take each argument
 D_ARG, MASK_ARG, MASK_SB_ARG, SCALE_ARG, CAUSAL_ARG = 13, 32, 33, 34, 35
@@ -65,27 +66,31 @@ class TestRoute:
         the others to a multiple of 8), with a mask or without, takes
         ``flash_attn_bwd_sm90.cu``'s K2 and K3."""
         assert dp in fa.SM90_HEAD_DIMS
-        assert fa._bwd_entry(BF16, dp, masked) == (DQ, DKV)
+        assert fa._bwd_entry(BF16) == (DQ, DKV)
 
-    @pytest.mark.parametrize("new,old", [(DQ, OLD_DQ), (DKV, OLD_DKV)])
+    @pytest.mark.parametrize("new,old", [(DQ, F32TC_DQ), (DKV, F32TC_DKV)])
     def test_entries_take_the_old_arguments(self, new, old):
-        """The Hopper entries take the older entries' arguments exactly,
-        the mask's pointer and batch stride among them, so all six
-        backward entries share one argument list."""
+        """The Hopper entries take the f32 tensor-core entries' arguments
+        exactly, the mask's pointer and batch stride among them, so all
+        four backward entries share one argument list."""
         argtypes = fa._ENTRY_POINTS[new][1]
         assert fa._ENTRY_POINTS[new][0] == "flash_attn_bwd_sm90"
         assert argtypes == fa._ENTRY_POINTS[old][1]
-        assert argtypes == fa._ENTRY_POINTS[f"{old}_f32tc"][1]
+        assert argtypes == fa._BWD_ARGS
         assert (argtypes[MASK_ARG], argtypes[MASK_SB_ARG]) == (fa._P, fa._L)
         assert argtypes[D_ARG] == fa._I
 
     def test_older_bf16_templates_up_to_128_are_retired(self):
-        """``flash_attn_bwd.cuh`` keeps only the split templates (320 to
-        512); the Hopper source holds K2 and K3 with the mask flag."""
-        cuh = (CSRC / "flash_attn_bwd.cuh").read_text()
-        assert "flash_bwd_dq_bf16_kernel" not in cuh
-        assert "flash_bwd_dkv_bf16_kernel" not in cuh
-        assert "flash_bwd_dq_bf16_split_kernel" in cuh
+        """No ``mma.sync`` bf16 backward template is left (the split
+        templates at 320 to 512 went with ``flash_attn_bwd.cuh``); the
+        Hopper source holds K2 and K3 with the mask flag."""
+        assert not (CSRC / "flash_attn_bwd.cuh").exists()
+        for src in fa._SOURCES + fa._HEADERS:
+            text = src.read_text()
+            for kernel in ("flash_bwd_dq_bf16_kernel",
+                           "flash_bwd_dkv_bf16_kernel",
+                           "flash_bwd_dq_bf16_split_kernel"):
+                assert kernel not in text, (src.name, kernel)
         sm90 = (CSRC / "flash_attn_bwd_sm90.cu").read_text()
         for kernel in ("flash_bwd_dq_sm90_kernel",
                        "flash_bwd_dkv_sm90_kernel"):

@@ -35,7 +35,6 @@ torch.set_num_threads(2)
 
 SM90 = "zoo_flash_attn_fwd_sm90"
 BWD_SM90 = ("zoo_flash_attn_bwd_dq_sm90", "zoo_flash_attn_bwd_dkv_sm90")
-BWD_OLD = ("zoo_flash_attn_bwd_dq", "zoo_flash_attn_bwd_dkv")
 # where the entry point takes each argument
 LSE_ARG, D_ARG, MASK_ARG, MASK_SB_ARG, SCALE_ARG, CAUSAL_ARG = (
     4, 10, 23, 24, 25, 26)
@@ -72,12 +71,13 @@ class TestRoute:
         """K2 and K3 take their Hopper kernels at every head dim K1 takes
         its own up to 128, masked or not (the older bf16 templates there
         are retired)."""
-        assert fa._bwd_entry(BF16, dp, masked) == BWD_SM90
+        assert fa._bwd_entry(BF16) == BWD_SM90
 
     def test_backward_set_is_not_widened(self):
-        """The backward's Hopper head dims: the forward's up to 256 (no
-        split template above)."""
-        assert fa.SM90_HEAD_DIMS == tuple(range(8, 129, 8)) + (192, 256)
+        """The backward's Hopper head dims are the forward's, no wider:
+        every multiple of 8 up to 128 and 192 to 512 (the split templates
+        above 256 in both directions)."""
+        assert fa.SM90_HEAD_DIMS == fa.SM90_FWD_HEAD_DIMS
         assert fa.SM90_FWD_HEAD_DIMS == tuple(range(8, 129, 8)) + (
             192, 256, 320, 384, 448, 512)
 
