@@ -9,15 +9,24 @@ no JAX. Module and parameter names correspond one for one (see
 - Dense ``kernel`` ``[in, *out]`` -> ``weight`` ``[*out, in]`` (the input
   axis moves last: a transpose for ``[in, out]``, and the fused qkv
   ``[H_in, 3, H]`` becomes ``[3, H, H_in]``);
-- LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
-- ``bias`` and bare parameters (``position_embed``) as they are.
+- a 4-D ``kernel`` is a 2-D convolution's: flax ``[kh, kw, in, out]``
+  -> torch ``[out, in, kh, kw]`` (no Dense of the port has a 4-D
+  weight);
+- LayerNorm and BatchNorm ``scale`` -> ``weight``; Embed ``embedding``
+  -> ``weight``;
+- ``bias`` and bare parameters (``position_embed``) as they are;
+- the ``batch_stats`` collection (a BatchNorm's running ``mean`` and
+  ``var``) -> the BatchNorm's buffers of those names.
 
 ``variables_from_module`` goes the other way, for the checkpoints both
 packages read (``learn/checkpoint.py``): each parameter under its
 flax-style path from ``learn.optim.param_tree``, which names a leaf by
-the module's type (a Dense or Linear ``weight`` is ``kernel``, a
-LayerNorm's ``scale``, an Embed's ``embedding``), a kernel's input axis
-moved back to the front, nested as ``{"params": {...}}``.
+the module's type (a Dense, Linear or Conv ``weight`` is ``kernel``, a
+LayerNorm's or BatchNorm's ``scale``, an Embed's ``embedding``), a
+kernel in flax's axes, nested as ``{"params": {...}}``, plus
+``"batch_stats"`` where the module has BatchNorms. The layout rules
+(``to_flax_layout``, ``from_flax_layout``) also carry the optimizer's
+per-parameter state.
 
 TinyGenLM's parameters are a plain tree in both packages (dicts and
 lists with the same keys, weights as ``[in, out]`` matrices used as
@@ -35,13 +44,17 @@ import torch
 from analytics_zoo_tpu_torch.common.context import resolve_device
 
 _RENAME = {"scale": "weight", "embedding": "weight"}
+_COLLECTIONS = ("params", "batch_stats")
 
 
 def state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map a flax variables tree (``{"params": {...}}`` or the params
-    dict itself) onto the port's ``state_dict`` keys."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    """Map a flax variables tree (``{"params": {...}}``, with
+    ``"batch_stats"`` beside it for a model with BatchNorm, or the
+    params dict itself) onto the port's ``state_dict`` keys."""
+    if "params" in tree and set(tree) <= set(_COLLECTIONS):
+        collections = [tree[c] for c in _COLLECTIONS if c in tree]
+    else:
+        collections = [tree]
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -52,14 +65,15 @@ def state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = (child.float().numpy() if isinstance(child, torch.Tensor)
                    else np.asarray(child))
             if name == "kernel":
-                arr = np.moveaxis(arr, 0, -1)
+                arr = from_flax_layout("/".join(path + [name]), arr)
                 name = "weight"
             else:
                 name = _RENAME.get(name, name)
             out[".".join(path + [name])] = torch.tensor(
                 arr, dtype=torch.float32)
 
-    walk(tree, [])
+    for node in collections:
+        walk(node, [])
     return out
 
 
@@ -108,26 +122,43 @@ def _is_kernel(path: str) -> bool:
 
 def to_flax_layout(path: str, arr: np.ndarray) -> np.ndarray:
     """A parameter-shaped array at flax-style ``path`` in flax's axes: a
-    kernel's input axis moved back to the front."""
-    return (np.ascontiguousarray(np.moveaxis(arr, -1, 0))
-            if _is_kernel(path) else arr)
+    Dense kernel's input axis moved back to the front, a convolution's
+    ``[out, in, kh, kw]`` as ``[kh, kw, in, out]``."""
+    if not _is_kernel(path):
+        return arr
+    if arr.ndim == 4:
+        return np.ascontiguousarray(np.transpose(arr, (2, 3, 1, 0)))
+    return np.ascontiguousarray(np.moveaxis(arr, -1, 0))
 
 
 def from_flax_layout(path: str, arr: np.ndarray) -> np.ndarray:
     """The inverse of ``to_flax_layout``: the port's axes."""
-    return (np.ascontiguousarray(np.moveaxis(arr, 0, -1))
-            if _is_kernel(path) else arr)
+    if not _is_kernel(path):
+        return arr
+    if arr.ndim == 4:
+        return np.ascontiguousarray(np.transpose(arr, (3, 2, 0, 1)))
+    return np.ascontiguousarray(np.moveaxis(arr, 0, -1))
 
 
 def variables_from_module(module: torch.nn.Module) -> Dict[str, Any]:
     """The inverse of ``state_dict_from_flax``: ``module``'s parameters
     as a flax variables tree ``{"params": {...}}`` of f32 numpy arrays,
-    which ``load_flax_into`` (and the JAX package) read back."""
-    from analytics_zoo_tpu_torch.learn.optim import param_tree
+    with ``"batch_stats"`` (every BatchNorm's running ``mean`` and
+    ``var``) where the module has any, which ``load_flax_into`` (and
+    the JAX package) read back."""
+    from analytics_zoo_tpu_torch.learn.optim import (batch_stats_tree,
+                                                     param_tree)
 
-    return {"params": nest({
-        path: to_flax_layout(path, p.detach().float().cpu().numpy())
-        for path, p in param_tree(module).items()})}
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    out = {"params": nest({path: to_flax_layout(path, host(p))
+                           for path, p in param_tree(module).items()})}
+    stats = batch_stats_tree(module)
+    if stats:
+        out["batch_stats"] = nest({path: host(b)
+                                   for path, b in stats.items()})
+    return out
 
 
 def gen_params_from_tree(tree: Any, device=None) -> Any:

@@ -136,15 +136,18 @@ def reset_parameters(module: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter of ``module`` from one generator seeded with
     ``seed`` (submodules in registration order), on the device of its
     parameters: a module on the CPU draws from a CPU generator, one built
-    on the card fills its weights there."""
+    on the card fills its weights there. Layers of other files whose
+    ``reset_parameters`` takes the generator (the convolutions and
+    BatchNorms of the image backbones) say so with ``seeded_init``."""
     first = next(module.parameters(), None)
     gen = torch.Generator(first.device if first is not None else "cpu")
     gen.manual_seed(int(seed))
     for m in module.modules():
         fn = getattr(m, "reset_parameters", None)
-        if fn is not None and isinstance(m, (Dense, LayerNorm, Embed,
-                                             TransformerModule,
-                                             BERTModule)):
+        if fn is not None and (
+                isinstance(m, (Dense, LayerNorm, Embed, TransformerModule,
+                               BERTModule))
+                or getattr(m, "seeded_init", False)):
             fn(gen)
     return module
 

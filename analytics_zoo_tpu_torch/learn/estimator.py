@@ -18,7 +18,13 @@ gather per step).
 
 The model is an ``nn.Module`` whose ``forward(x, train=False, rng=None)``
 follows the port's layers (a module without those keywords is called
-without them). Meshes, ``param_spec_fn`` and MoE
+without them). A model with BatchNorm (``keras/layers/normalization.py``)
+updates its running statistics in each training forward and reads them
+in ``evaluate`` and ``predict``; under ``grad_accum_steps`` k > 1 each
+microbatch normalizes with its own statistics and updates the running
+ones from the pre-step values, the last microbatch's update kept, as
+the reference's ``_accum_grads`` does. Checkpoints carry the statistics
+as flax's ``batch_stats`` collection. Meshes, ``param_spec_fn`` and MoE
 ``aux_loss_collections`` wait for the parallel and sharded item of
 ROADMAP queue 1 and raise.
 """
@@ -47,7 +53,7 @@ from analytics_zoo_tpu_torch.learn import checkpoint as ckpt_lib
 from analytics_zoo_tpu_torch.learn.metrics import Loss, Metric, resolve_metric
 from analytics_zoo_tpu_torch.learn.objectives import resolve_loss
 from analytics_zoo_tpu_torch.learn.optim import (
-    param_tree, resolve_optimizer, with_clipping)
+    batch_stats_tree, param_tree, resolve_optimizer, with_clipping)
 from analytics_zoo_tpu_torch.obs.events import emit
 from analytics_zoo_tpu_torch.obs.metrics import get_registry
 from analytics_zoo_tpu_torch.utils.tree import tree_map
@@ -144,6 +150,7 @@ class Estimator:
         self.device = resolve_device(device)
         self.model.to(self.device)
         self.params = param_tree(model)
+        self.batch_stats = batch_stats_tree(model)
         self.opt_state = None
         self.global_step = 0
         self.epoch = 0
@@ -190,8 +197,15 @@ class Estimator:
             return a.reshape(k, a.shape[0] // k, *a.shape[1:])
 
         xs, ys = tree_map(split, x), tree_map(split, y)
+        # as the reference's _accum_grads: every microbatch updates the
+        # running statistics from the pre-step ones, and the last one's
+        # update is kept (not k compounded updates)
+        stats = list(self.batch_stats.values())
+        pre = [b.clone() for b in stats]
         loss_sum = torch.zeros((), device=self.device)
         for j in range(k):
+            if j and stats:
+                torch._foreach_copy_(stats, pre)
             loss = self.loss_fn(
                 self._apply(tree_map(lambda a: a[j], xs), training=True),
                 tree_map(lambda a: a[j], ys))

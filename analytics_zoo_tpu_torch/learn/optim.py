@@ -480,6 +480,10 @@ def _flax_leaf(module: nn.Module, name: str) -> str:
         Dense, Embed, LayerNorm)
 
     if name == "weight":
+        # a layer of another file names its own (Conv, BatchNorm)
+        own = getattr(module, "flax_weight_name", None)
+        if own is not None:
+            return own
         if isinstance(module, (Dense, nn.Linear)):
             return "kernel"
         if isinstance(module, (LayerNorm, nn.LayerNorm)):
@@ -489,15 +493,30 @@ def _flax_leaf(module: nn.Module, name: str) -> str:
     return name
 
 
+def _path(mname: str, leaf: str) -> str:
+    return "/".join(([*mname.split(".")] if mname else []) + [leaf])
+
+
 def param_tree(module: nn.Module) -> Dict[str, nn.Parameter]:
     """The module's parameters keyed by flax-style paths: module names
-    joined by ``/``, with a Dense ``weight`` named ``kernel``, a
-    LayerNorm ``weight`` ``scale`` and an Embed ``weight`` ``embedding``
-    (the reverse of ``bridge.state_dict_from_flax``'s renaming)."""
+    joined by ``/``, with a Dense or Conv ``weight`` named ``kernel``, a
+    LayerNorm or BatchNorm ``weight`` ``scale`` and an Embed ``weight``
+    ``embedding`` (the reverse of ``bridge.state_dict_from_flax``'s
+    renaming)."""
     out: Dict[str, nn.Parameter] = {}
     for mname, m in module.named_modules():
         for pname, p in m.named_parameters(recurse=False):
-            path = ([*mname.split(".")] if mname else []) + [
-                _flax_leaf(m, pname)]
-            out["/".join(path)] = p
+            out[_path(mname, _flax_leaf(m, pname))] = p
     return out
+
+
+def batch_stats_tree(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The running statistics of the module's BatchNorms (their
+    ``mean`` and ``var`` buffers) keyed by their paths in flax's
+    ``batch_stats`` collection; empty for a model without BatchNorm."""
+    from analytics_zoo_tpu_torch.keras.layers.normalization import BatchNorm
+
+    return {_path(mname, bname): b
+            for mname, m in module.named_modules()
+            if isinstance(m, BatchNorm)
+            for bname, b in m.named_buffers(recurse=False)}

@@ -13,6 +13,8 @@ weights alone).
 ``fit``, ``evaluate``, ``predict`` and ``compile`` go through an
 ``Estimator`` (``learn/estimator.py``) built from the subclass's
 ``default_loss``, ``default_optimizer`` and ``default_metrics``.
+``softmax_probs`` and ``topk_with_probs`` are the host-side helpers the
+recommenders and ``ImageClassifier.predict_classes`` score with.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import json
 import os
 from typing import Any, Dict, Sequence, Type
 
+import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.bridge import load_flax_into
@@ -132,6 +135,30 @@ class ZooModel:
         return "\n".join(lines)
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's dtype name ("float32", "bfloat16", ...) as a torch
+    dtype."""
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
 def register_model(cls: Type[ZooModel]) -> Type[ZooModel]:
     _MODEL_REGISTRY[cls.__name__] = cls
     return cls
+
+
+def softmax_probs(logits: np.ndarray) -> np.ndarray:
+    """Numerically-stable softmax over the last axis (host-side)."""
+    logits = np.asarray(logits, np.float32)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+def topk_with_probs(probs: np.ndarray, k: int):
+    """Per-row top-k: [[(index, prob), ...], ...]."""
+    probs = np.asarray(probs)
+    top = np.argsort(-probs, axis=-1)[:, :k]
+    return [[(int(c), float(probs[i, c])) for c in row]
+            for i, row in enumerate(top)]

@@ -23,7 +23,8 @@ from torch import nn
 
 from analytics_zoo_tpu_torch.keras.layers.transformer import (
     BERTModule, Dense, dropout)
-from analytics_zoo_tpu_torch.models.common import ZooModel, register_model
+from analytics_zoo_tpu_torch.models.common import (
+    ZooModel, register_model, torch_dtype as _torch_dtype)
 
 
 class _BERTHeadModule(nn.Module):
@@ -52,13 +53,6 @@ class _BERTHeadModule(nn.Module):
         if train:
             h = dropout(h, self.hidden_dropout, rng)
         return self.head(h.float())
-
-
-def _torch_dtype(name: str) -> torch.dtype:
-    dt = getattr(torch, str(name), None)
-    if not isinstance(dt, torch.dtype):
-        raise ValueError(f"unknown dtype {name!r}")
-    return dt
 
 
 class _BERTEstimatorBase(ZooModel):

@@ -371,6 +371,41 @@ Phases:
    phase that runs an f32 K1 call (phases 2, 3, 4, 9, 10, 14, 16, 18,
    20, 24, the four generation phases, and every learn phase's f32
    gradient check) fails unless it ran on this kernel.
+26. NCF learn: bench.py's measure_ncf through the port's entry points:
+   NeuralCF(6040, 3706, class_num=5) (MovieLens-1M's counts, default
+   widths) through ZooModel.fit(device_cache=True) ->
+   Estimator._fit_device_cached, batch 65536, 65536 x 64 seeded random
+   (user, item, rating) triples, 5 epochs; the last epoch's loss must be
+   finite. Prints samples/s (best and median of epochs 2-5), MFU by the
+   bench's 6 * P_dense formula (parameters whose path holds no "embed")
+   against 989 TFLOP/s, peak memory, and one profiled train step's wall
+   and device time, idle share and device time by group.
+27. ResNet-50 learn: bench.py's measure_resnet: ImageClassifier(1000,
+   "resnet50", dtype="bfloat16") through ZooModel.fit(device_cache=True),
+   batch 256, 8 steps an epoch, 5 epochs, seeded f32 images 224 x 224
+   (NHWC; cuDNN convolutions on channels_last views, the port's
+   flax-semantics BatchNorm); finite losses. Prints images/s (best and
+   median of epochs 2-5), the first epoch's seconds, MFU by 3 x 4.1
+   GFLOP an image against 989 TFLOP/s, peak memory, and one profiled
+   train step's device time by group (convolution, BatchNorm,
+   elementwise, copies, pooling, optimizer) and idle share.
+28. ResNet-18 serving: bench.py's measure_serving deployment: a seeded
+   ImageClassifier(1000, "resnet18", dtype="bfloat16") saved, then
+   launch() with batch_size = max_batch_size = 128, timeout 2 ms,
+   pipeline depth 3, a uint8 [1,224,224,3] warm example and the HTTP
+   frontend off; a closed burst of 512 raw uint8 [224,224,3] requests
+   (no image decoder on the path), each answered once, with the top
+   class of an eval-mode forward of the same model on the same image and
+   logits within 2e-2 (1 + |ref|) of it. Prints requests/s, p50 and p99.
+29. Card against CPU: ResNet-18 (f32, batch 8, 64 x 64 images, 10
+   classes, every BatchNorm's parameters and statistics drawn) and NCF
+   (50 users, 40 items, 5 classes, batch 256) with the same seeded
+   weights on the card and on the CPU, TF32 off: one train step's loss,
+   every gradient and the BatchNorm statistics after it, then an
+   eval-mode forward, each within 1e-4 (1 + |cpu|). The CPU side is what
+   the tier-1 tests hold against the JAX package.
+Phases 26-29 launch none of the port's kernels (no attention); every
+figure they print carries the card's name and power limit.
 
 The three full-width generation phases (13, 15, 19) draw their seeded
 weights on the card (device_draws): every check there holds the port to
@@ -2169,12 +2204,12 @@ KERNEL_GROUPS = (
 )
 
 
-def _print_rows(prof, n, wall, what, top=14) -> None:
+def _print_rows(prof, n, wall, what, top=14, kernel_groups=KERNEL_GROUPS):
     """Device time by kernel per iteration (``n`` profiled iterations),
     and the idle share against ``wall`` (seconds per iteration, measured
     without the profiler, whose host-side cost would stretch the
     window). Kernel rows only: an operator row repeats its kernels'
-    device time."""
+    device time. Returns (wall ms, busy ms, {group: ms})."""
     from torch.autograd import DeviceType
 
     rows = [(e.self_device_time_total / (n * 1e3), e.count / n, e.key)
@@ -2191,13 +2226,14 @@ def _print_rows(prof, n, wall, what, top=14) -> None:
               f"x{calls:g} {name[:90]}", flush=True)
     groups = {}
     for ms, calls, name in rows:
-        key = next((g for g, marks in KERNEL_GROUPS if any(
+        key = next((g for g, marks in kernel_groups if any(
             m in name for m in marks)), "other")
         groups[key] = groups.get(key, 0.0) + ms
     print("profile:   by group " + ", ".join(
         f"{g} {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)"
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
         flush=True)
+    return wall * 1e3, busy, groups
 
 
 def _reset_launches(fa):
@@ -2454,9 +2490,11 @@ def _ner_input(tensors):
             "attention_mask": tensors["attention_mask"]}
 
 
-def profile_train_step(torch, est, x, y, iters=5) -> None:
+def profile_train_step(torch, est, x, y, iters=5,
+                       kernel_groups=KERNEL_GROUPS):
     """Where one train step's time goes: host wall time per step and
-    device time by kernel (torch.profiler), kernel rows only."""
+    device time by kernel (torch.profiler), kernel rows only. Returns
+    ``_print_rows``'s (wall ms, busy ms, {group: ms})."""
     from torch.profiler import ProfilerActivity, profile
 
     est._train_step(x, y)
@@ -2471,7 +2509,8 @@ def profile_train_step(torch, est, x, y, iters=5) -> None:
         for _ in range(3):
             est._train_step(x, y)
         torch.cuda.synchronize()
-    _print_rows(prof, 3, wall, f"train step {tuple(y.shape[:1])}", top=20)
+    return _print_rows(prof, 3, wall, f"train step {tuple(y.shape[:1])}",
+                       top=20, kernel_groups=kernel_groups)
 
 
 GRAD_PARAMS = ("squad.bert.encoder_0.attention.qkv.weight",
@@ -3610,6 +3649,343 @@ def _profile_decode(torch, engine, prompts, label, iters=5):
     return wall * 1e3, busy / (iters * 1e3), gather / max(busy, 1e-9)
 
 
+# ----------------------------------------------- NCF and ResNet (bench) --
+# bench.py's configurations: NCF at MovieLens-1M's counts (:43-45, :97),
+# ResNet-50 bf16 on synthetic ImageNet shapes (:59-62, :180), ResNet-18
+# bf16 served on uint8 images (:213-253)
+NCF_USERS, NCF_ITEMS, NCF_CLASSES = 6040, 3706, 5
+NCF_BATCH, NCF_EPOCHS = 65536, 5
+RESNET_BATCH, RESNET_STEPS, RESNET_EPOCHS = 256, 8, 5
+IMAGE_SIZE = 224
+# ResNet-50's forward at 224 x 224 (MAC = 2 FLOPs), 3x for a train step
+RESNET50_TRAIN_FLOPS = 3 * 4.1e9
+IMAGE_SERVING_BATCH, IMAGE_SERVING_DEPTH = 128, 3
+IMAGE_SERVING_REQUESTS = 512
+# served bf16 logits against an eval-mode forward of the same model
+IMAGE_SERVE_TOL = 2e-2
+# the card against the CPU: f32, TF32 off, the same seeded weights
+CARD_CPU_TOL = 1e-4
+# a ResNet train step's kernels by group (the first group a kernel's
+# name matches): cuDNN runs 1x1 convolutions as GEMMs (nvjet, cutlass),
+# so the convolution group holds those and the head's product; the
+# BatchNorm group holds its statistics' reductions
+RESNET_GROUPS = (
+    ("convolution", ("xmma", "implicit_gemm", "conv", "dgrad", "wgrad",
+                     "fprop", "cudnn", "nvjet", "gemm", "cutlass",
+                     "Kernel2")),
+    ("batch norm", ("batch_norm", "reduce_kernel")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("copies and casts", ("copy_kernel", "Memcpy", "Memset")),
+    ("pooling", ("max_pool", "avg_pool")),
+    ("elementwise", ("elementwise_kernel",)),
+)
+
+
+def _epoch_rates(history, samples):
+    """bench.py's rates: ``samples`` an epoch over the best and the
+    median of the epochs after the first."""
+    secs = sorted(h["seconds"] for h in (history[1:] or history))
+    return samples / secs[0], samples / secs[len(secs) // 2]
+
+
+def _dense_params(module) -> int:
+    """bench.py's ``_dense_params``: parameters whose path holds no
+    "embed" (embedding tables are gathers, not products)."""
+    from analytics_zoo_tpu_torch.learn.optim import param_tree
+
+    return sum(p.numel() for k, p in param_tree(module).items()
+               if "embed" not in k.lower())
+
+
+def _finite_losses(history, label):
+    losses = [h["loss"] for h in history]
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: non-finite epoch loss {losses}")
+    return losses
+
+
+def ncf_learn(torch, card, peaks):
+    """bench.py's measure_ncf on the card: NeuralCF at MovieLens-1M's
+    counts through ZooModel.fit(device_cache=True), 65536 x 64 seeded
+    pairs, 5 epochs; then one profiled train step (device time by
+    group, idle share)."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+    from analytics_zoo_tpu_torch.models import NeuralCF
+
+    # every log line is a host sync, as in the bench
+    get_config().set("zoo.train.log_every_n_steps", 100000)
+    rng = np.random.RandomState(0)
+    n = NCF_BATCH * 64
+    x = np.stack([rng.randint(1, NCF_USERS + 1, n),
+                  rng.randint(1, NCF_ITEMS + 1, n)], axis=1).astype(np.int32)
+    y = rng.randint(1, NCF_CLASSES + 1, n).astype(np.int32)
+    model = NeuralCF(NCF_USERS, NCF_ITEMS, class_num=NCF_CLASSES,
+                     device="cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    # ---- main path: ZooModel.fit -> Estimator._fit_device_cached ----
+    history = model.fit((x, y), batch_size=NCF_BATCH, epochs=NCF_EPOCHS,
+                        device_cache=True)
+    torch.cuda.synchronize()
+    # ---- end of the main path ----
+    losses = _finite_losses(history, "ncf")
+    best, median = _epoch_rates(history, (n // NCF_BATCH) * NCF_BATCH)
+    p_dense = _dense_params(model.module)
+    flops = 6 * p_dense
+    summary = {
+        "samples_per_s": best, "median_samples_per_s": median,
+        "mfu": best * flops / peaks["bf16"],
+        "median_mfu": median * flops / peaks["bf16"],
+        "p_dense": p_dense, "steps_per_epoch": n // NCF_BATCH,
+        "epoch_seconds": [h["seconds"] for h in history],
+        "losses": losses,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "card": card}
+    print(f"ncf fit: {json.dumps(summary)}", flush=True)
+    xb = torch.from_numpy(x[:NCF_BATCH]).cuda()
+    yb = torch.from_numpy(y[:NCF_BATCH]).cuda()
+    wall, busy, groups = profile_train_step(torch, model.estimator, xb, yb,
+                                            iters=20)
+    print(f"ncf step: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"share {1 - busy / wall:.3f}; by group " + json.dumps(
+              {g: round(ms, 4) for g, ms in groups.items()})
+          + f" ({card})", flush=True)
+    return summary
+
+
+def resnet_learn(torch, card, peaks):
+    """bench.py's measure_resnet on the card: ImageClassifier(1000,
+    "resnet50", dtype="bfloat16") through ZooModel.fit(device_cache=True),
+    batch 256, 8 steps an epoch, 5 epochs, seeded f32 images; then one
+    profiled train step by kernel group."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+
+    get_config().set("zoo.train.log_every_n_steps", 100000)
+    rng = np.random.RandomState(0)
+    n = RESNET_BATCH * RESNET_STEPS
+    x = rng.rand(n, IMAGE_SIZE, IMAGE_SIZE, 3).astype(np.float32)
+    y = rng.randint(0, 1000, n).astype(np.int32)
+    model = ImageClassifier(class_num=1000, backbone="resnet50",
+                            dtype="bfloat16", device="cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    # ---- main path: ZooModel.fit -> Estimator._fit_device_cached ----
+    history = model.fit((x, y), batch_size=RESNET_BATCH,
+                        epochs=RESNET_EPOCHS, device_cache=True)
+    torch.cuda.synchronize()
+    # ---- end of the main path ----
+    losses = _finite_losses(history, "resnet50")
+    best, median = _epoch_rates(history, n)
+    summary = {
+        "images_per_s": best, "median_images_per_s": median,
+        "first_epoch_s": history[0]["seconds"],
+        "mfu": best * RESNET50_TRAIN_FLOPS / peaks["bf16"],
+        "median_mfu": median * RESNET50_TRAIN_FLOPS / peaks["bf16"],
+        "epoch_seconds": [h["seconds"] for h in history],
+        "losses": losses,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "card": card}
+    print(f"resnet50 fit: {json.dumps(summary)}", flush=True)
+    xb = torch.from_numpy(x[:RESNET_BATCH]).cuda()
+    yb = torch.from_numpy(y[:RESNET_BATCH]).cuda()
+    del x
+    wall, busy, groups = profile_train_step(torch, model.estimator, xb, yb,
+                                            kernel_groups=RESNET_GROUPS)
+    print(f"resnet50 step: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+          f"idle share {1 - busy / wall:.3f}; by group " + json.dumps(
+              {g: round(ms, 4) for g, ms in groups.items()})
+          + f" ({card})", flush=True)
+    summary.update(step_wall_ms=wall, step_busy_ms=busy,
+                   step_groups_ms=groups)
+    return summary
+
+
+def image_serving(torch, card):
+    """bench.py's measure_serving deployment on the card: a seeded
+    ImageClassifier(1000, "resnet18", dtype="bfloat16") saved and served
+    through launch() (batch 128, pipeline depth 3, every bucket warmed
+    with a uint8 example); a closed burst of 512 raw uint8 [224,224,3]
+    requests (no image decoder on the path). Every request is answered
+    once, with the top class of an eval-mode forward of the same model
+    on the same image and logits within 2e-2 (1 + |ref|) of it."""
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    from analytics_zoo_tpu_torch.serving.launcher import launch
+
+    rng = np.random.RandomState(1)
+    images = rng.randint(0, 256, (IMAGE_SERVING_REQUESTS, IMAGE_SIZE,
+                                  IMAGE_SIZE, 3), dtype=np.uint8)
+    model = ImageClassifier(class_num=1000, backbone="resnet18",
+                            dtype="bfloat16", device="cuda", seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save_model(tmp)
+        # ---- main path: launch -> ServingWorker -> InferenceModel ----
+        t0 = time.perf_counter()
+        app = launch({
+            "model": {"path": tmp},
+            "params": {"batch_size": IMAGE_SERVING_BATCH,
+                       "max_batch_size": IMAGE_SERVING_BATCH,
+                       "timeout_ms": 2.0,
+                       "pipeline_depth": IMAGE_SERVING_DEPTH,
+                       "warm_example": np.zeros(
+                           (1, IMAGE_SIZE, IMAGE_SIZE, 3), np.uint8)},
+            "http": {"enabled": False}})
+        up = time.perf_counter() - t0
+        try:
+            sent, got, lat = {}, {}, []
+            t_start = time.perf_counter()
+            for i in range(IMAGE_SERVING_REQUESTS):
+                uri = f"img{i:03d}"
+                sent[uri] = time.perf_counter()
+                if not app.input_queue.enqueue(uri, image=images[i]):
+                    fail(f"image serving: enqueue refused {uri}")
+            deadline = time.perf_counter() + 300
+            while len(got) < IMAGE_SERVING_REQUESTS and \
+                    time.perf_counter() < deadline:
+                item = app.output_queue.dequeue(timeout=1.0)
+                if item is None:
+                    continue
+                uri, tensors = item
+                if uri in got:
+                    fail(f"image serving: {uri} answered twice")
+                lat.append(time.perf_counter() - sent[uri])
+                got[uri] = tensors
+            wall = time.perf_counter() - t_start
+            stats = app.worker.batcher.stats()
+        finally:
+            app.stop()
+        # ---- end of the main path ----
+    if len(got) != IMAGE_SERVING_REQUESTS:
+        fail(f"image serving: answered {len(got)}/{IMAGE_SERVING_REQUESTS}")
+    served = np.stack([got[f"img{i:03d}"]["output"]
+                       for i in range(IMAGE_SERVING_REQUESTS)])
+    if served.shape != (IMAGE_SERVING_REQUESTS, 1000) or \
+            not np.isfinite(served).all():
+        fail(f"image serving: bad replies {served.shape}")
+    ref = []
+    with torch.inference_mode():
+        for i in range(0, IMAGE_SERVING_REQUESTS, IMAGE_SERVING_BATCH):
+            xb = torch.from_numpy(images[i:i + IMAGE_SERVING_BATCH]).cuda()
+            ref.append(model.module(xb).float().cpu().numpy())
+    ref = np.concatenate(ref)
+    excess = float((np.abs(served - ref)
+                    - IMAGE_SERVE_TOL * (1 + np.abs(ref))).max())
+    top_diff = int((served.argmax(-1) != ref.argmax(-1)).sum())
+    lat_ms = np.asarray(lat) * 1e3
+    summary = {
+        "requests": IMAGE_SERVING_REQUESTS, "up_s": up, "wall_s": wall,
+        "rps": IMAGE_SERVING_REQUESTS / wall,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "served_batches": stats["batches"],
+        "mean_occupancy": stats["mean_occupancy"],
+        "max_batch_size": stats["max_batch_size"],
+        "max_abs_diff": float(np.abs(served - ref).max()),
+        "top1_differ": top_diff, "card": card}
+    print(f"image serving: {json.dumps(summary)}", flush=True)
+    if top_diff:
+        fail(f"image serving: {top_diff} answers' top class differs from "
+             "the eval-mode forward")
+    if excess > 0:
+        fail(f"image serving: logits beyond {IMAGE_SERVE_TOL} (1 + |ref|) "
+             f"of the eval-mode forward by {excess:.3g}")
+    return summary
+
+
+def _card_cpu(torch, build, x, y, label, card, draw_norms=False):
+    """One train step (the loss's gradients, the BatchNorm statistics it
+    leaves) and then an eval-mode forward of the same seeded module on
+    the CPU and on the card, f32 with TF32 off; every value within
+    1e-4 (1 + |cpu|)."""
+    from analytics_zoo_tpu_torch.keras.layers.normalization import (
+        BatchNorm)
+    from analytics_zoo_tpu_torch.keras.layers.transformer import (
+        reset_parameters)
+    from analytics_zoo_tpu_torch.learn.objectives import (
+        sparse_categorical_crossentropy)
+    from analytics_zoo_tpu_torch.learn.optim import (batch_stats_tree,
+                                                     param_tree)
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail(f"{label}: TF32 is on")
+    cpu = build()
+    reset_parameters(cpu, 0)
+    if draw_norms:
+        # every norm's scale, bias and running statistics drawn too, so
+        # that no residual branch starts at scale 0 (and gradient 0)
+        rng = np.random.RandomState(1)
+        with torch.no_grad():
+            for m in cpu.modules():
+                if isinstance(m, BatchNorm):
+                    c = m.weight.numel()
+                    m.weight.copy_(torch.from_numpy(rng.rand(c) + 0.5))
+                    m.bias.copy_(torch.from_numpy(rng.randn(c) * 0.2))
+                    m.mean.copy_(torch.from_numpy(rng.randn(c) * 0.2))
+                    m.var.copy_(torch.from_numpy(rng.rand(c) + 0.5))
+    gpu = build().cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    out = {}
+    for dev, m in (("cpu", cpu), ("cuda", gpu)):
+        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        loss = sparse_categorical_crossentropy(m(xt, train=True), yt)
+        loss.backward()
+        with torch.no_grad():
+            ev = m(xt, train=False).cpu().numpy()
+        out[dev] = {"loss": np.asarray(loss.item()),
+                    **{f"grad {k}": p.grad.cpu().numpy()
+                       for k, p in param_tree(m).items()},
+                    **{f"stats {k}": b.cpu().numpy()
+                       for k, b in batch_stats_tree(m).items()},
+                    "eval": ev}
+    worst = {}
+    for k, want in out["cpu"].items():
+        got = out["cuda"][k]
+        excess = float((np.abs(got - want)
+                        - CARD_CPU_TOL * (1 + np.abs(want))).max())
+        group = k.split(" ")[0]
+        if group not in worst or excess > worst[group][0]:
+            worst[group] = (excess, k)
+    summary = {"loss_cuda": float(out["cuda"]["loss"]),
+               "loss_cpu": float(out["cpu"]["loss"]),
+               "values": len(out["cpu"]),
+               "max_excess": {g: [round(e, 9), k] for g, (e, k)
+                              in worst.items()}, "card": card}
+    print(f"{label}: {json.dumps(summary)}", flush=True)
+    bad = {g: k for g, (e, k) in worst.items() if e > 0}
+    if bad:
+        fail(f"{label}: the card differs from the CPU beyond "
+             f"{CARD_CPU_TOL} (1 + |cpu|) at {bad}")
+    return summary
+
+
+def card_cpu_check(torch, card):
+    """ResNet-18 (f32, batch 8, 64 x 64 images, 10 classes) and NCF (50
+    users, 40 items, 5 classes, batch 256) on the card against the CPU,
+    which the tier-1 tests hold against the JAX package: one train
+    step's loss, gradients and BatchNorm statistics, then an eval-mode
+    forward."""
+    from analytics_zoo_tpu_torch.models.image.resnet import ResNet18
+    from analytics_zoo_tpu_torch.models.recommendation.ncf import (
+        NeuralCFNet)
+
+    rng = np.random.RandomState(2)
+    resnet = _card_cpu(
+        torch, lambda: ResNet18(num_classes=10),
+        rng.randn(8, 64, 64, 3).astype(np.float32),
+        rng.randint(0, 10, 8).astype(np.int64), "card vs cpu, resnet18",
+        card, draw_norms=True)
+
+    class NCF(NeuralCFNet):
+        def forward(self, x, train=False):
+            return super().forward(x)
+
+    x = np.stack([rng.randint(1, 51, 256), rng.randint(1, 41, 256)],
+                 axis=1).astype(np.int32)
+    ncf = _card_cpu(torch, lambda: NCF(50, 40, class_num=5), x,
+                    rng.randint(0, 5, 256).astype(np.int64),
+                    "card vs cpu, ncf", card)
+    return resnet, ncf
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3653,7 +4029,8 @@ def main() -> None:
     def timed(name, fn, *args, **kwargs):
         t = time.perf_counter()
         out = fn(*args, **kwargs)
-        print(f"phase {name}: {time.perf_counter() - t:.1f}s", flush=True)
+        print(f"phase {name}: {time.perf_counter() - t:.1f}s ({card})",
+              flush=True)
         return out
 
     timed("kernels", kernel_phase, torch, peaks)
@@ -3718,6 +4095,16 @@ def main() -> None:
     sm90_bwd = timed("K2/K3 sm90", sm90_bwd_phase, torch, peaks)
     f32tc = timed("K2/K3 f32 tensor cores", f32tc_phase, torch, peaks)
     f32tc_fwd = timed("K1 f32 tensor cores", f32tc_fwd_phase, torch, peaks)
+    # bench.py's other three workloads: no attention, no kernel of the
+    # port's own (cuDNN convolutions, cuBLAS products, stock ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("NCF learn", ncf_learn, torch, card, peaks)
+    timed("ResNet-50 learn", resnet_learn, torch, card, peaks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("ResNet-18 serving", image_serving, torch, card)
+    timed("card against CPU", card_cpu_check, torch, card)
     k5b_bf16, k5b_masked, k5b_padded = (
         _pick(k5b, "bf16_d80"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))
