@@ -77,14 +77,32 @@ def state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _aliases(module: torch.nn.Module) -> Dict[str, str]:
+    """{state_dict key: the first key naming the same tensor}, for the
+    keys of a submodule registered under two names (a Keras layer
+    called twice in one graph: flax keeps its parameters under the
+    first name alone)."""
+    first: Dict[int, str] = {}
+    out: Dict[str, str] = {}
+    for key, t in module.state_dict(keep_vars=True).items():
+        out_key = first.setdefault(id(t), key)
+        if out_key != key:
+            out[key] = out_key
+    return out
+
+
 def load_flax_into(module: torch.nn.Module,
                    tree: Mapping[str, Any]) -> torch.nn.Module:
-    """Load a flax tree into ``module``. The one key the flax tree may
-    lack is a BERT ``segment_embed`` (flax creates it only when the init
-    batch had ``token_type_ids``); every other difference raises."""
+    """Load a flax tree into ``module``. The keys the flax tree may lack
+    are a BERT ``segment_embed`` (flax creates it only when the init
+    batch had ``token_type_ids``) and the second names of a shared
+    submodule's tensors, loaded under their first; every other
+    difference raises."""
     sd = state_dict_from_flax(tree)
     missing, unexpected = module.load_state_dict(sd, strict=False)
-    missing = [k for k in missing if not k.endswith("segment_embed.weight")]
+    aliases = _aliases(module)
+    missing = [k for k in missing if not k.endswith("segment_embed.weight")
+               and aliases.get(k) not in sd]
     if missing or unexpected:
         raise KeyError(f"flax tree does not match the module: missing "
                        f"{missing}, unexpected {unexpected}")

@@ -137,8 +137,11 @@ class GradientTransformation:
         raise NotImplementedError
 
 
-def _f32_pow_correction(decay: float, count: int) -> float:
-    # optax computes 1 - decay**count in float32
+def _pow_correction(decay: float, count: int, moments) -> float:
+    """1 - decay**count as optax computes it: in float32, or in float64
+    for float64 moments (optax under x64)."""
+    if moments and moments[0].dtype == torch.float64:
+        return 1.0 - decay ** count
     return float(np.float32(1) - np.float32(decay) ** np.float32(count))
 
 
@@ -190,8 +193,8 @@ class ScaleByAdam(GradientTransformation):
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1 - self.b2)
         count = state["count"] + 1
-        mu_hat = torch._foreach_div(mu, _f32_pow_correction(self.b1, count))
-        den = torch._foreach_div(nu, _f32_pow_correction(self.b2, count))
+        mu_hat = torch._foreach_div(mu, _pow_correction(self.b1, count, mu))
+        den = torch._foreach_div(nu, _pow_correction(self.b2, count, nu))
         if self.eps_root:
             torch._foreach_add_(den, self.eps_root)
         torch._foreach_sqrt_(den)

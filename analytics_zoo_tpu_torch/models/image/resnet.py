@@ -29,7 +29,6 @@ epsilon 1e-5), with the residual branch's last norm's scale starting at
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -37,7 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.keras.layers.normalization import batch_norm
-from analytics_zoo_tpu_torch.keras.layers.transformer import Dense
+from analytics_zoo_tpu_torch.keras.layers.transformer import (
+    Dense, lecun_normal_)
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -88,11 +88,7 @@ class Conv(nn.Module):
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         # lecun_normal over the fan-in, flax's Conv default
-        fan_in = self.weight[0].numel()
-        std = 1.0 / math.sqrt(fan_in)
-        with torch.no_grad():
-            nn.init.trunc_normal_(self.weight, std=std, a=-2 * std,
-                                  b=2 * std, generator=gen)
+        lecun_normal_(self.weight, self.weight[0].numel(), gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = (self.dtype if self.dtype is not None

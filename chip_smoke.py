@@ -406,6 +406,27 @@ Phases:
    the tier-1 tests hold against the JAX package.
 Phases 26-29 launch none of the port's kernels (no attention); every
 figure they print carries the card's name and power limit.
+30. Keras BERT: the Keras engine's main path at BERT-base's full width,
+   through the port's public imports: ids = Input((512,)), BERT(vocab
+   30522, hidden 768, 12 blocks of 12 heads, intermediate 3072, 512
+   positions; f32, as the reference's Keras BERT, attention-prob dropout
+   0 as the repo's BERT fine-tunes set it, so that training takes the
+   kernels), SelectTable(1), Dropout(0.1), Dense(2), Model(ids, out) on
+   the card compiled with "adam" and sparse_categorical_crossentropy;
+   materialized on a one-row probe, then one step's f32 gradients with
+   flash attention held against einsum attention within F32_GRAD_TOL
+   (and a planted fault, dQ zeroed, that the check must reject), then
+   fit on seeded synthetic ids and labels, batch 16, 2 epochs of 16
+   steps, with zoo.ops.attention_impl = "flash": every K1-lse, K2 and K3
+   launch of the fit (12 a step each) and every K1 launch of predict
+   (12 a batch) on the f32 tensor-core kernels; evaluate; save_weights,
+   load_weights into a fresh Model, whose predict must agree bit for
+   bit; then a Sequential MLP of core, merge and activation layers
+   (Dense, PReLU, Highway, SplitTensor, Merge, MaxoutDense, SReLU,
+   LeakyReLU, ELU) with the same seeded weights on the card and on the
+   CPU, TF32 off, within 1e-4 (1 + |cpu|) as phase 29. Prints samples/s
+   (the second epoch) and one profiled train step's device time by
+   kernel group, with the card's name and power limit.
 
 The three full-width generation phases (13, 15, 19) draw their seeded
 weights on the card (device_draws): every check there holds the port to
@@ -431,7 +452,8 @@ f32 trained call with a kv_mask_call (NER), a k5b_call and a
 k5b_mask_call (MiniLM), a cross_call, a d128_call, a d192_call, a
 d256_call (the GPT-J-width LM's f32 gradient check's call), a d384_call
 and a d512_call (the 512-head LM's), and the head dims they are built
-for, their launches those of the learn phases' f32 gradient checks; flash_attn_fwd_f32tc
+for, their launches those of the learn phases' f32 gradient checks and
+of phase 30's fit; flash_attn_fwd_f32tc
 at the f32 trained K1-lse call with a served_call, a kv_mask_call (NER),
 a k5b_call (the Phi-2-width prefill), a k5b_lse_call and a
 k5b_mask_call (MiniLM), a repo_call (the repo geometry's prefill), a
@@ -439,7 +461,8 @@ cross_call, a d128_call, a d256_call (the Gemma-width prefill), a
 d256_lse_call, a d512_call (the DeepSeek-width prefill), a d512_lse_call
 (the 512-head LM's f32 K1-lse) and a d384_call, and the head dims it is
 built for, its launches those of the four f32 generation phases'
-prefills and of the learn phases' f32 gradient checks, by phase;
+prefills, of the learn phases' f32 gradient checks and of phase 30's
+fit and predict, by phase;
 flash_attn_fwd_wide at the Gemma-width prefill call (f32, on
 flash_attn_fwd_f32tc.cu since it retired the FMA kernel there) with an
 lse_call, its launches the Gemma phase's; flash_attn_fwd_wider
@@ -3986,6 +4009,170 @@ def card_cpu_check(torch, card):
     return resnet, ncf
 
 
+# the Keras functional Model around BERT-base (f32: the reference's
+# Keras BERT takes no dtype); attention-prob dropout 0, as BERTSQuAD and
+# BERTNER set it, since the kernels (as the reference's) have none
+KERAS_BERT = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
+                  intermediate_size=3072, max_position_len=512,
+                  attn_dropout=0.0)
+KERAS_SEQ, KERAS_BATCH, KERAS_STEPS = 512, 16, 16
+KERAS_GRAD_PARAMS = ("modules_0.encoder_0.attention.qkv.weight",
+                     "modules_3.Dense_0.weight")
+
+
+def keras_bert_model(device="cuda"):
+    """The Keras functional Model of phase 30, compiled, seed 0."""
+    from analytics_zoo_tpu_torch.keras import Input, Model
+    from analytics_zoo_tpu_torch.keras.layers import (BERT, Dense, Dropout,
+                                                      SelectTable)
+
+    ids = Input((KERAS_SEQ,))
+    h = BERT(**KERAS_BERT)(ids)
+    out = Dense(2)(Dropout(0.1)(SelectTable(1)(h)))
+    model = Model(ids, out, device=device, seed=0)
+    return model.compile(optimizer="adam",
+                         loss="sparse_categorical_crossentropy")
+
+
+def keras_mlp(device):
+    """Phase 30's Sequential of core, merge and activation layers,
+    materialized on ``device`` (its module, for ``_card_cpu``)."""
+    from analytics_zoo_tpu_torch.keras import Sequential
+    from analytics_zoo_tpu_torch.keras import layers as L
+
+    model = Sequential([
+        L.Dense(32, activation="relu"), L.PReLU(), L.Highway(),
+        L.SplitTensor(0, 2), L.Merge(mode="ave"),
+        L.MaxoutDense(16, nb_feature=3), L.SReLU(), L.LeakyReLU(0.1),
+        L.Dense(16, activation="tanh"), L.ELU(0.5), L.Dense(4)],
+        device=device)
+    return model.materialize(np.zeros((1, 24), np.float32)).module
+
+
+def keras_bert_learn(torch, card, peaks):
+    """Phase 30 (see the module docstring). Returns the summary."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+    from analytics_zoo_tpu_torch.learn.objectives import (
+        sparse_categorical_crossentropy)
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    label = "keras BERT"
+    cfg = get_config()
+    cfg.set("zoo.ops.attention_impl", "flash")
+    rng = np.random.RandomState(0)
+    n = KERAS_BATCH * KERAS_STEPS
+    x = rng.randint(0, KERAS_BERT["vocab"], (n, KERAS_SEQ)).astype(np.int32)
+    y = rng.randint(0, 2, n).astype(np.int32)
+    blocks = KERAS_BERT["n_block"]
+    t0 = time.perf_counter()
+    model = keras_bert_model()
+    model.materialize(x)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # one step's f32 gradients at the seeded weights (hidden dropout
+    # off): flash (K1-lse, K2, K3) against einsum attention
+    xb = torch.from_numpy(x[:KERAS_BATCH]).cuda()
+    yb = torch.from_numpy(y[:KERAS_BATCH]).cuda()
+    grad = dict(loss_fn=sparse_categorical_crossentropy,
+                names=KERAS_GRAD_PARAMS)
+    ref = step_grads(torch, model.module, xb, yb, "einsum", **grad)
+    _reset_launches(fa)
+    rel = _rel(step_grads(torch, model.module, xb, yb, "flash",
+                          **grad)[1], ref[1])
+    counts = _launches(fa)
+    print(_check_f32tc(f"{label} f32 check", counts, _f32tc_expected(
+        torch, fa, "float32", counts)), flush=True)
+    F32_CHECK_LAUNCHES["keras_bert"] = counts
+    print(f"{label}: f32 gradients flash vs einsum rel_err={rel} (tol "
+          f"{F32_GRAD_TOL}; batch {KERAS_BATCH})", flush=True)
+    if not all(r <= F32_GRAD_TOL for r in rel.values()):
+        fail(f"{label}: f32 gradients flash vs einsum differ: {rel}")
+    planted = fault_controls(torch, model.module, xb, yb, ref[1],
+                             F32_GRAD_TOL, ("dq_zeroed",), label=label,
+                             **grad)
+    cfg.set("zoo.train.log_every_n_steps", KERAS_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(fa)
+    # ---- main path: Model.fit -> Estimator.fit ----
+    try:
+        hist = model.fit(x, y, batch_size=KERAS_BATCH, nb_epoch=2)
+        torch.cuda.synchronize()
+    finally:
+        cfg.unset("zoo.train.log_every_n_steps")
+    fit = _launches(fa)
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    steps = model.estimator.global_step
+    losses = _finite_losses(hist, label)
+    if steps != 2 * KERAS_STEPS:
+        fail(f"{label}: fit ran {steps} steps")
+    print(_check_f32tc(f"{label} fit", fit, _f32tc_expected(
+        torch, fa, "float32", fit)), flush=True)
+    for k in ("K1", "K2", "K3"):
+        if fit[k][0] != blocks * steps:
+            fail(f"{label}: {k} launched {fit[k][0]} times in {steps} "
+                 f"train steps (want {blocks * steps})")
+    m = 4 * KERAS_BATCH
+    _reset_launches(fa)
+    # ---- main path: Model.predict -> Estimator.predict ----
+    pred = model.predict(x[:m], batch_size=KERAS_BATCH)
+    torch.cuda.synchronize()
+    inferred = _launches(fa)
+    # ---- end of the main path ----
+    print(_check_f32tc(f"{label} predict", inferred, _f32tc_expected(
+        torch, fa, "float32", inferred)), flush=True)
+    want = {"K1": blocks * m // KERAS_BATCH, "K2": 0, "K3": 0}
+    if {k: c[0] for k, c in inferred.items()} != want:
+        fail(f"{label}: predict launched {inferred} (want {want})")
+    if pred.shape != (m, 2) or not np.isfinite(pred).all():
+        fail(f"{label} predict: bad output {pred.shape}")
+    ev = model.evaluate(x[:m], y[:m], batch_size=KERAS_BATCH)
+    if not np.isfinite(ev["loss"]):
+        fail(f"{label} evaluate: non-finite loss {ev}")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        model.save_weights(d)
+        save_s = time.perf_counter() - t0
+        fresh = keras_bert_model()
+        fresh.load_weights(d)
+        again = fresh.predict(x[:m], batch_size=KERAS_BATCH)
+    if not np.array_equal(again, pred):
+        fail(f"{label}: predict after load_weights differs by "
+             f"{float(np.abs(again - pred).max())}")
+    if fresh.estimator.global_step != steps:
+        fail(f"{label}: load_weights restored step "
+             f"{fresh.estimator.global_step}, not {steps}")
+    del fresh
+    timed = hist[1]["seconds"]
+    sps = KERAS_STEPS * KERAS_BATCH / timed
+    p_dense = _dense_params(model.module)
+    flops_per_token = 6 * p_dense + 12 * blocks * 768 * KERAS_SEQ
+    wall, busy, groups = profile_train_step(torch, model.estimator, xb, yb)
+    summary = {
+        "config": KERAS_BERT, "seq": KERAS_SEQ, "batch": KERAS_BATCH,
+        "steps": steps, "losses": losses, "build_s": build_s,
+        "timed_epoch_s": timed, "samples_per_s": sps,
+        "tokens_per_s": sps * KERAS_SEQ, "dense_params": p_dense,
+        "mfu_f32": sps * KERAS_SEQ * flops_per_token / peaks["f32"],
+        "peak_mem_gib": peak / 2 ** 30, "eval_loss": ev["loss"],
+        "save_s": save_s, "grad_rel_err": rel,
+        "planted_fault_rel_err": planted,
+        "launches": {"fit": fit, "predict": inferred},
+        "step_wall_ms": wall, "step_busy_ms": busy,
+        "idle_share": 1 - busy / wall,
+        "step_ms_by_group": {g: round(v, 4) for g, v in groups.items()},
+        "card": card}
+    print(f"{label}: {json.dumps(summary)}", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    xs = rng.randn(64, 24).astype(np.float32)
+    ys = rng.randint(0, 4, 64).astype(np.int64)
+    _card_cpu(torch, lambda: keras_mlp("cpu"), xs, ys,
+              "card vs cpu, keras mlp", card)
+    return summary
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4105,6 +4292,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     timed("ResNet-18 serving", image_serving, torch, card)
     timed("card against CPU", card_cpu_check, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    keras = timed("Keras BERT learn", keras_bert_learn, torch, card, peaks)
     k5b_bf16, k5b_masked, k5b_padded = (
         _pick(k5b, "bf16_d80"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))
@@ -4164,10 +4354,11 @@ def main() -> None:
         (f32), with the NER trained call (masked), MiniLM's (K5b at
         D = 32) and the causal calls above 128, launched by the learn
         phases' f32 gradient checks (one f32 train step each, with and
-        without the mask)."""
+        without the mask) and by the Keras BERT fit (phase 30)."""
         by_phase = {lbl: c[key.upper()][5]
                     for lbl, c in F32_CHECK_LAUNCHES.items()
                     if c[key.upper()][5]}
+        by_phase["keras_bert_fit"] = keras["launches"]["fit"][key.upper()][5]
         trained = _pick(f32tc, "trained", "float32")
         return {"name": name, "route": "cuda", "source": F32TC_SOURCE,
                 "replaces": replaces,
@@ -4200,13 +4391,16 @@ def main() -> None:
         [8,8,2048,128] causal, the four f32 generation phases' prefill
         calls (the Gemma-width one with its K1-lse), the 512-head LM's
         K1-lse and [2,32,2048,384] causal; launched by those generation
-        phases' prefills and the learn phases' f32 gradient checks."""
+        phases' prefills, the learn phases' f32 gradient checks and the
+        Keras BERT fit and predict (phase 30)."""
         by_phase = {lbl: g["flash_f32tc_launches"] for lbl, g in zip(
             ("gen", "genfull", "gengemma", "gendeepseek"),
             (*gens, gemma, deepseek))}
         by_phase.update({lbl: c["K1"][5]
                          for lbl, c in F32_CHECK_LAUNCHES.items()
                          if c["K1"][5]})
+        by_phase.update({f"keras_bert_{k}": c["K1"][5]
+                         for k, c in keras["launches"].items()})
         lse_keys = ("lse_max_abs_err", "library_grad_ms",
                     "library_grad_device_ms", "library_backend")
         rec = {name: _pick(f32tc_fwd, name, "float32")

@@ -218,9 +218,8 @@ def _f64(tree):
 # without that rounding), the narrow bottleneck net in f32.
 FIT_DTYPE = {"resnet18_even": "float64", "resnet18_odd": "float64",
              "bottleneck": "float32"}
-# f64: the port's Adam takes its bias corrections in f32, as optax does
-# without x64, while the reference under x64 takes them in f64 (about
-# 2e-7 of relative difference in the parameters after 3 steps)
+# f64: both take Adam's bias corrections in f64 (optax under x64, the
+# port for f64 moments)
 FIT_TOL = {"float32": F32, "float64": 1e-5}
 
 
