@@ -12,6 +12,14 @@ no JAX. Module and parameter names correspond one for one (see
 - a 4-D ``kernel`` is a 2-D convolution's: flax ``[kh, kw, in, out]``
   -> torch ``[out, in, kh, kw]`` (no Dense of the port has a 4-D
   weight);
+- these two rules go by the kernel's rank, for a module that declares
+  nothing. A module whose kernel breaks them names its layout in
+  ``flax_layout`` (``kernel_layouts`` collects them by path):
+  ``"conv"``, a convolution of any rank (flax ``[*k, in, out]`` ->
+  torch ``[out, in, *k]``: the Keras ``Convolution1D/3D``, the
+  ``ConvLSTM`` cells' ``ih`` and ``hh``), or ``"flax"``, a kernel kept
+  in flax's own axes (``LocallyConnected``'s ``[positions, patch,
+  out]``);
 - LayerNorm and BatchNorm ``scale`` -> ``weight``; Embed ``embedding``
   -> ``weight``;
 - ``bias`` and bare parameters (``position_embed``) as they are;
@@ -36,7 +44,7 @@ each leaf into an f32 tensor.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -47,10 +55,13 @@ _RENAME = {"scale": "weight", "embedding": "weight"}
 _COLLECTIONS = ("params", "batch_stats")
 
 
-def state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(tree: Mapping[str, Any],
+                         layouts: Optional[Mapping[str, str]] = None
+                         ) -> Dict[str, torch.Tensor]:
     """Map a flax variables tree (``{"params": {...}}``, with
     ``"batch_stats"`` beside it for a model with BatchNorm, or the
-    params dict itself) onto the port's ``state_dict`` keys."""
+    params dict itself) onto the port's ``state_dict`` keys;
+    ``layouts`` is the target module's ``kernel_layouts``."""
     if "params" in tree and set(tree) <= set(_COLLECTIONS):
         collections = [tree[c] for c in _COLLECTIONS if c in tree]
     else:
@@ -65,7 +76,8 @@ def state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = (child.float().numpy() if isinstance(child, torch.Tensor)
                    else np.asarray(child))
             if name == "kernel":
-                arr = from_flax_layout("/".join(path + [name]), arr)
+                arr = from_flax_layout("/".join(path + [name]), arr,
+                                       layouts)
                 name = "weight"
             else:
                 name = _RENAME.get(name, name)
@@ -98,7 +110,7 @@ def load_flax_into(module: torch.nn.Module,
     batch had ``token_type_ids``) and the second names of a shared
     submodule's tensors, loaded under their first; every other
     difference raises."""
-    sd = state_dict_from_flax(tree)
+    sd = state_dict_from_flax(tree, kernel_layouts(module))
     missing, unexpected = module.load_state_dict(sd, strict=False)
     aliases = _aliases(module)
     missing = [k for k in missing if not k.endswith("segment_embed.weight")
@@ -138,23 +150,55 @@ def _is_kernel(path: str) -> bool:
     return path == "kernel" or path.endswith("/kernel")
 
 
-def to_flax_layout(path: str, arr: np.ndarray) -> np.ndarray:
+def kernel_layouts(module: torch.nn.Module) -> Dict[str, str]:
+    """{flax-style path of a kernel: its layout} for the submodules of
+    ``module`` that declare ``flax_layout`` (see the module docstring);
+    every other kernel goes by its rank."""
+    from analytics_zoo_tpu_torch.learn.optim import flax_path
+
+    return {flax_path(name, "kernel"): m.flax_layout
+            for name, m in module.named_modules()
+            if getattr(m, "flax_layout", None)}
+
+
+def _layout(path: str, arr: np.ndarray,
+            layouts: Optional[Mapping[str, str]]) -> Optional[str]:
+    if not _is_kernel(path):
+        return "flax"
+    layout = (layouts or {}).get(path)
+    if layout is not None:
+        return layout
+    return "conv" if arr.ndim == 4 else None
+
+
+def to_flax_layout(path: str, arr: np.ndarray,
+                   layouts: Optional[Mapping[str, str]] = None
+                   ) -> np.ndarray:
     """A parameter-shaped array at flax-style ``path`` in flax's axes: a
     Dense kernel's input axis moved back to the front, a convolution's
-    ``[out, in, kh, kw]`` as ``[kh, kw, in, out]``."""
-    if not _is_kernel(path):
+    ``[out, in, *k]`` as ``[*k, in, out]``. ``layouts``: the module's
+    ``kernel_layouts``."""
+    layout = _layout(path, arr, layouts)
+    if layout == "flax":
         return arr
-    if arr.ndim == 4:
-        return np.ascontiguousarray(np.transpose(arr, (2, 3, 1, 0)))
+    if layout == "conv":
+        n = arr.ndim
+        return np.ascontiguousarray(
+            np.transpose(arr, tuple(range(2, n)) + (1, 0)))
     return np.ascontiguousarray(np.moveaxis(arr, -1, 0))
 
 
-def from_flax_layout(path: str, arr: np.ndarray) -> np.ndarray:
+def from_flax_layout(path: str, arr: np.ndarray,
+                     layouts: Optional[Mapping[str, str]] = None
+                     ) -> np.ndarray:
     """The inverse of ``to_flax_layout``: the port's axes."""
-    if not _is_kernel(path):
+    layout = _layout(path, arr, layouts)
+    if layout == "flax":
         return arr
-    if arr.ndim == 4:
-        return np.ascontiguousarray(np.transpose(arr, (3, 2, 0, 1)))
+    if layout == "conv":
+        n = arr.ndim
+        return np.ascontiguousarray(
+            np.transpose(arr, (n - 1, n - 2) + tuple(range(n - 2))))
     return np.ascontiguousarray(np.moveaxis(arr, 0, -1))
 
 
@@ -170,7 +214,8 @@ def variables_from_module(module: torch.nn.Module) -> Dict[str, Any]:
     def host(t):
         return t.detach().float().cpu().numpy()
 
-    out = {"params": nest({path: to_flax_layout(path, host(p))
+    layouts = kernel_layouts(module)
+    out = {"params": nest({path: to_flax_layout(path, host(p), layouts)
                            for path, p in param_tree(module).items()})}
     stats = batch_stats_tree(module)
     if stats:

@@ -1,9 +1,12 @@
-"""Batch normalization with flax's semantics, for the image backbones.
+"""Normalization with flax's semantics: the counterpart of
+``analytics_zoo_tpu/keras/layers/normalization.py``.
 
-The counterpart of ``SampledBatchNorm`` and ``batch_norm`` in
-``analytics_zoo_tpu/keras/layers/normalization.py`` (the rest of that
-file, the Keras layers, is still to be ported), plus ``BatchNorm``, the
-port's flax ``nn.BatchNorm``. Both normalize over the last axis (NHWC
+``SampledBatchNorm`` and ``batch_norm`` are the image backbones',
+``BatchNorm`` is the port's flax ``nn.BatchNorm``, and the Keras layers
+``BatchNormalization`` (momentum 0.99, epsilon 1e-3: a ``BatchNorm``
+named ``BatchNorm_0``, made at the first forward from the input's last
+axis), ``LayerNormalization`` (epsilon 1e-5, a ``LayerNorm_0``) and
+``LRN2D`` wrap them. The two batch norms normalize over the last axis (NHWC
 images), keep their parameters f32 (``weight`` is flax's ``scale``) and
 their running statistics as the f32 buffers ``mean`` and ``var``,
 which ``bridge.py`` maps onto the ``batch_stats`` collection.
@@ -36,6 +39,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from analytics_zoo_tpu_torch.keras.layers.base import (FnModule, KerasLayer,
+                                                       lazy_child)
+from analytics_zoo_tpu_torch.keras.layers.transformer import LayerNorm
 
 
 class BatchNorm(nn.Module):
@@ -172,3 +179,78 @@ def batch_norm(dtype: Optional[torch.dtype], momentum: float = 0.9,
                                  stat_rows=rows)
     return functools.partial(BatchNorm, momentum=momentum, epsilon=epsilon,
                              dtype=dtype)
+
+
+class _BatchNormModule(nn.Module):
+    def __init__(self, momentum: float, epsilon: float):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+
+    def forward(self, x, train: bool = False,
+                rng: Optional[torch.Generator] = None):
+        bn = lazy_child(self, "BatchNorm_0", lambda: BatchNorm(
+            x.shape[-1], momentum=self.momentum, epsilon=self.epsilon), x)
+        return bn(x, train=train)
+
+
+class BatchNormalization(KerasLayer):
+    """(ref: keras/layers/BatchNormalization.scala; the running
+    statistics are flax's ``batch_stats``, which the Estimator keeps)."""
+
+    def __init__(self, momentum: float = 0.99, epsilon: float = 1e-3,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.epsilon = epsilon
+
+    def _make_module(self):
+        return _BatchNormModule(self.momentum, self.epsilon)
+
+
+class _LayerNormModule(nn.Module):
+    def __init__(self, epsilon: float):
+        super().__init__()
+        self.epsilon = epsilon
+
+    def forward(self, x, train: bool = False,
+                rng: Optional[torch.Generator] = None):
+        ln = lazy_child(self, "LayerNorm_0",
+                        lambda: LayerNorm(x.shape[-1], eps=self.epsilon), x)
+        return ln(x)
+
+
+class LayerNormalization(KerasLayer):
+    """(ref: TransformerLayer.scala's internal LayerNorm)."""
+
+    def __init__(self, epsilon: float = 1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.epsilon = epsilon
+
+    def _make_module(self):
+        return _LayerNormModule(self.epsilon)
+
+
+class LRN2D(KerasLayer):
+    """Local response normalization across channels on [B, H, W, C]
+    (ref: keras/layers/LRN2D.scala):
+    ``x / (k + alpha/n * sum_{local n channels} x^2)^beta``."""
+
+    def __init__(self, alpha: float = 1e-4, k: float = 1.0,
+                 beta: float = 0.75, n: int = 5, **kwargs):
+        super().__init__(**kwargs)
+        self.alpha, self.k, self.beta, self.n = alpha, k, beta, n
+
+    def _make_module(self):
+        alpha, k, beta, n = self.alpha, self.k, self.beta, self.n
+
+        def fn(x):
+            c = x.shape[-1]
+            half = n // 2
+            padded = F.pad(x * x, (half, half))
+            acc = torch.zeros_like(x)
+            for i in range(n):
+                acc = acc + padded[..., i:i + c]
+            return x / torch.pow(k + (alpha / n) * acc, beta)
+
+        return FnModule(fn)

@@ -83,13 +83,8 @@ class Dense(nn.Module):
                      if use_bias else None)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        # still the narrower draw (a normal of std 1/sqrt(fan_in)
-        # truncated at +-2 std, 0.88x the spread of flax's lecun_normal):
-        # ROADMAP section 3, fault 7 says why the repair waits
-        std = 1.0 / math.sqrt(self.in_features)
-        with torch.no_grad():
-            nn.init.trunc_normal_(self.weight, std=std, a=-2 * std,
-                                  b=2 * std, generator=gen)
+        # flax's default kernel_init
+        lecun_normal_(self.weight, self.in_features, gen)
         if self.bias is not None:
             with torch.no_grad():
                 self.bias.fill_(self.bias_init)

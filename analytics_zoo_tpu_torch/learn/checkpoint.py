@@ -44,25 +44,30 @@ def _is_param_dict(node: Any) -> bool:
             and all(isinstance(v, torch.Tensor) for v in node.values()))
 
 
-def opt_state_to_flax(state: Any) -> Any:
+def opt_state_to_flax(state: Any,
+                      layouts: Optional[Dict[str, str]] = None) -> Any:
     """The port's optimizer state as flax's state dict of the optax
-    chain's state (see the module docstring)."""
+    chain's state (see the module docstring); ``layouts`` is the
+    model's ``bridge.kernel_layouts``."""
     if isinstance(state, (list, tuple)):
-        return {str(i): opt_state_to_flax(s) for i, s in enumerate(state)}
+        return {str(i): opt_state_to_flax(s, layouts)
+                for i, s in enumerate(state)}
     if _is_param_dict(state):
-        return nest({k: to_flax_layout(k, v.detach().cpu().numpy())
+        return nest({k: to_flax_layout(k, v.detach().cpu().numpy(), layouts)
                      for k, v in state.items()})
     if isinstance(state, dict):
-        return {k: opt_state_to_flax(v) for k, v in state.items()}
+        return {k: opt_state_to_flax(v, layouts) for k, v in state.items()}
     if isinstance(state, int) and not isinstance(state, bool):
         return np.asarray(state, np.int32)
     return state
 
 
-def opt_state_from_flax(template: Any, tree: Any, path: str = "") -> Any:
+def opt_state_from_flax(template: Any, tree: Any, path: str = "",
+                        layouts: Optional[Dict[str, str]] = None) -> Any:
     """``tree`` (flax's state dict of an optax state) as the port's
     optimizer state shaped like ``template`` (this optimizer's
-    ``init``), on the template's devices. A parameter the checkpoint
+    ``init``), on the template's devices (``layouts``: the model's
+    ``bridge.kernel_layouts``). A parameter the checkpoint
     lacks keeps its template entry: the JAX package creates a BERT
     ``segment_embed`` only when its first batch has ``token_type_ids``.
     Any other difference raises ``ValueError``."""
@@ -76,7 +81,8 @@ def opt_state_from_flax(template: Any, tree: Any, path: str = "") -> Any:
         if not isinstance(tree, dict) or set(tree) != {
                 str(i) for i in range(len(template))}:
             raise mismatch(f"a chain of {len(template)}")
-        return [opt_state_from_flax(t, tree[str(i)], f"{path}/{i}")
+        return [opt_state_from_flax(t, tree[str(i)], f"{path}/{i}",
+                                    layouts)
                 for i, t in enumerate(template)]
     if _is_param_dict(template):
         flat = flatten(tree) if isinstance(tree, dict) else {}
@@ -85,7 +91,8 @@ def opt_state_from_flax(template: Any, tree: Any, path: str = "") -> Any:
             if key not in flat:
                 out[key] = t
                 continue
-            arr = torch.from_numpy(from_flax_layout(key, np.array(flat[key])))
+            arr = torch.from_numpy(from_flax_layout(
+                key, np.array(flat[key]), layouts))
             if tuple(arr.shape) != tuple(t.shape):
                 raise mismatch(f"{key} of shape {tuple(arr.shape)}, not "
                                f"{tuple(t.shape)}")
@@ -94,7 +101,7 @@ def opt_state_from_flax(template: Any, tree: Any, path: str = "") -> Any:
     if isinstance(template, dict):
         if not isinstance(tree, dict) or set(template) - set(tree):
             raise mismatch(f"fields {sorted(template)}")
-        return {k: opt_state_from_flax(v, tree[k], f"{path}/{k}")
+        return {k: opt_state_from_flax(v, tree[k], f"{path}/{k}", layouts)
                 for k, v in template.items()}
     if isinstance(template, int) and not isinstance(template, bool):
         return int(np.asarray(tree))
@@ -102,15 +109,18 @@ def opt_state_from_flax(template: Any, tree: Any, path: str = "") -> Any:
 
 
 def save_checkpoint(ckpt_dir: str, variables: Dict[str, Any],
-                    opt_state: Any, step: int, epoch: int) -> str:
+                    opt_state: Any, step: int, epoch: int,
+                    layouts: Optional[Dict[str, str]] = None) -> str:
     """Write a snapshot of ``variables`` (a flax variables tree, e.g.
     ``bridge.variables_from_module(model)``) and the port's
-    ``opt_state``; returns the checkpoint path prefix."""
+    ``opt_state`` (``layouts``: the model's ``bridge.kernel_layouts``);
+    returns the checkpoint path prefix."""
     os.makedirs(ckpt_dir, exist_ok=True)
     _atomic_write(os.path.join(ckpt_dir, f"model.{step}"),
                   flax_msgpack.serialize(variables))
     _atomic_write(os.path.join(ckpt_dir, f"optim.{step}"),
-                  flax_msgpack.serialize(opt_state_to_flax(opt_state)))
+                  flax_msgpack.serialize(opt_state_to_flax(opt_state,
+                                                           layouts)))
     meta = {"step": int(step), "epoch": int(epoch)}
     _atomic_write(os.path.join(ckpt_dir, f"meta.{step}.json"),
                   json.dumps(meta).encode())

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from analytics_zoo_tpu_torch.bridge import (load_flax_into,
+from analytics_zoo_tpu_torch.bridge import (kernel_layouts, load_flax_into,
                                             variables_from_module)
 from analytics_zoo_tpu_torch.common.config import get_config
 from analytics_zoo_tpu_torch.common.context import resolve_device
@@ -481,7 +481,8 @@ class Estimator:
     # ------------------------------------------------------- checkpoints --
     def _save(self, ckpt_dir: str, epoch: int) -> None:
         ckpt_lib.save_checkpoint(ckpt_dir, variables_from_module(self.model),
-                                 self.opt_state, self.global_step, epoch)
+                                 self.opt_state, self.global_step, epoch,
+                                 kernel_layouts(self.model))
 
     def _restore(self, checkpoint_dir: str) -> None:
         """Weights, optimizer state and counters from a checkpoint that
@@ -490,8 +491,8 @@ class Estimator:
         variables, opt_tree, meta = ckpt_lib.load_checkpoint(checkpoint_dir)
         load_flax_into(self.model, variables)
         self._ensure_built()
-        self.opt_state = ckpt_lib.opt_state_from_flax(self.opt_state,
-                                                      opt_tree)
+        self.opt_state = ckpt_lib.opt_state_from_flax(
+            self.opt_state, opt_tree, layouts=kernel_layouts(self.model))
         self.global_step = meta["step"]
         self.epoch = meta["epoch"]
         logger.info("restored from checkpoint: step=%d epoch=%d",

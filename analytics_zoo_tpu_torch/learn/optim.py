@@ -496,7 +496,8 @@ def _flax_leaf(module: nn.Module, name: str) -> str:
     return name
 
 
-def _path(mname: str, leaf: str) -> str:
+def flax_path(mname: str, leaf: str) -> str:
+    """The flax-style path of ``leaf`` in the module named ``mname``."""
     return "/".join(([*mname.split(".")] if mname else []) + [leaf])
 
 
@@ -509,7 +510,7 @@ def param_tree(module: nn.Module) -> Dict[str, nn.Parameter]:
     out: Dict[str, nn.Parameter] = {}
     for mname, m in module.named_modules():
         for pname, p in m.named_parameters(recurse=False):
-            out[_path(mname, _flax_leaf(m, pname))] = p
+            out[flax_path(mname, _flax_leaf(m, pname))] = p
     return out
 
 
@@ -519,7 +520,7 @@ def batch_stats_tree(module: nn.Module) -> Dict[str, torch.Tensor]:
     ``batch_stats`` collection; empty for a model without BatchNorm."""
     from analytics_zoo_tpu_torch.keras.layers.normalization import BatchNorm
 
-    return {_path(mname, bname): b
+    return {flax_path(mname, bname): b
             for mname, m in module.named_modules()
             if isinstance(m, BatchNorm)
             for bname, b in m.named_buffers(recurse=False)}

@@ -6,18 +6,20 @@ The counterpart of ``analytics_zoo_tpu/models/image/resnet.py``:
 ``stage0_block0/conv1``, ``proj_bn``, ``head``, ...), so ``bridge.py``
 maps the flax tree onto them with no rename table.
 
-Images are NHWC, as in the reference. ``Conv`` runs ``F.conv2d`` on
-``x.permute(0, 3, 1, 2)``, which is already a ``channels_last`` tensor,
-with its weight kept ``channels_last`` too, so bf16 convolutions reach
-cuDNN's NHWC kernels without a transpose; every activation stays NHWC
-in memory.
+Images are NHWC, as in the reference. The convolutions are the Keras
+layers' ``Conv`` (``keras/layers/convolutional.py``) without a bias:
+``F.conv2d`` on ``x.permute(0, 3, 1, 2)``, which is already a
+``channels_last`` tensor, with its weight kept ``channels_last`` too,
+so bf16 convolutions reach cuDNN's NHWC kernels without a transpose;
+every activation stays NHWC in memory.
 
 flax's ``"SAME"`` padding is asymmetric where the window does not fit
 evenly: a 3x3 window at stride 2 over an even size pads (0, 1), not
 torch's (1, 1) (``padding=1`` would shift every window by a pixel).
-``same_pads`` gives flax's pads and ``Conv`` and ``max_pool_same`` pad
-explicitly where they differ, the pool with -inf, as
-``nn.max_pool(..., padding="SAME")`` does.
+``same_pads`` gives flax's pads, and ``Conv`` and the stem's max pool
+(``keras/layers/pooling.py`` ``pool``) pad explicitly where they
+differ, the pool with -inf, as ``nn.max_pool(..., padding="SAME")``
+does.
 
 Numerics follow flax's: parameters stay f32; a layer given ``dtype``
 computes in it (``F.conv2d`` and the head in bf16 under
@@ -29,91 +31,17 @@ epsilon 1e-5), with the residual branch's last norm's scale starting at
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from analytics_zoo_tpu_torch.keras.layers.convolutional import (  # noqa: F401
+    Conv, same_pads)
 from analytics_zoo_tpu_torch.keras.layers.normalization import batch_norm
-from analytics_zoo_tpu_torch.keras.layers.transformer import (
-    Dense, lecun_normal_)
-
-Pads = Tuple[Tuple[int, int], Tuple[int, int]]
-
-
-def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
-    """flax's (``lax.padtype_to_pads``) "SAME" pads of one spatial axis:
-    ``ceil(size / s)`` outputs, the extra pad at the end."""
-    out = -(-size // s)
-    total = max((out - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)
-
-
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1)
-
-
-def _pad_nhwc(x: torch.Tensor, pads: Pads, value: float = 0.0):
-    (top, bottom), (left, right) = pads
-    return F.pad(x, (0, 0, left, right, top, bottom), value=value)
-
-
-class Conv(nn.Module):
-    """flax ``nn.Conv`` without a bias over NHWC input: weight
-    ``[out, in, kh, kw]`` (``channels_last`` in memory; flax's kernel is
-    ``[kh, kw, in, out]``), ``padding`` "SAME" or explicit
-    ``((top, bottom), (left, right))``."""
-
-    seeded_init = True  # keras.layers.transformer.reset_parameters
-    flax_weight_name = "kernel"  # learn.optim.param_tree
-
-    def __init__(self, in_features: int, features: int,
-                 kernel_size: Tuple[int, int],
-                 strides: Tuple[int, int] = (1, 1),
-                 padding: Union[str, Pads] = "SAME",
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__()
-        self.kernel_size = tuple(kernel_size)
-        self.strides = tuple(strides)
-        self.padding = padding
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(
-            features, in_features, *self.kernel_size).contiguous(
-                memory_format=torch.channels_last))
-
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        # lecun_normal over the fan-in, flax's Conv default
-        lecun_normal_(self.weight, self.weight[0].numel(), gen)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = (self.dtype if self.dtype is not None
-              else torch.promote_types(x.dtype, torch.float32))
-        if self.padding == "SAME":
-            pads = tuple(same_pads(x.shape[1 + i], self.kernel_size[i],
-                                   self.strides[i]) for i in range(2))
-        else:
-            pads = tuple(tuple(p) for p in self.padding)
-        x = x.to(dt)
-        if all(lo == hi for lo, hi in pads):
-            sym = (pads[0][0], pads[1][0])
-        else:
-            x, sym = _pad_nhwc(x, pads), (0, 0)
-        return _nhwc(F.conv2d(_nchw(x), self.weight.to(dt), None,
-                              self.strides, sym))
-
-
-def max_pool_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
-    """``nn.max_pool(x, (k, k), strides=(s, s), padding="SAME")`` over
-    NHWC: -inf pads at flax's sides."""
-    pads = tuple(same_pads(x.shape[1 + i], k, s) for i in range(2))
-    if any(pads[0] + pads[1]):
-        x = _pad_nhwc(x, pads, float("-inf"))
-    return _nhwc(F.max_pool2d(_nchw(x), k, s))
+from analytics_zoo_tpu_torch.keras.layers.pooling import pool
+from analytics_zoo_tpu_torch.keras.layers.transformer import Dense
 
 
 class BottleneckBlock(nn.Module):
@@ -126,16 +54,19 @@ class BottleneckBlock(nn.Module):
         super().__init__()
         norm = batch_norm(dtype, momentum=0.9, epsilon=1e-5)
         out = 4 * filters
-        self.conv1 = Conv(in_features, filters, (1, 1), dtype=dtype)
+        self.conv1 = Conv(in_features, filters, (1, 1), use_bias=False,
+                          dtype=dtype)
         self.bn1 = norm(filters)
-        self.conv2 = Conv(filters, filters, (3, 3), strides, dtype=dtype)
+        self.conv2 = Conv(filters, filters, (3, 3), strides, use_bias=False,
+                          dtype=dtype)
         self.bn2 = norm(filters)
-        self.conv3 = Conv(filters, out, (1, 1), dtype=dtype)
+        self.conv3 = Conv(filters, out, (1, 1), use_bias=False,
+                          dtype=dtype)
         self.bn3 = norm(out, scale_init=0.0)
         self.projection = projection
         if projection:
             self.proj_conv = Conv(in_features, out, (1, 1), strides,
-                                  dtype=dtype)
+                                  use_bias=False, dtype=dtype)
             self.proj_bn = norm(out)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -156,14 +87,16 @@ class BasicBlock(nn.Module):
                  dtype: Optional[torch.dtype] = torch.float32):
         super().__init__()
         norm = batch_norm(dtype, momentum=0.9, epsilon=1e-5)
-        self.conv1 = Conv(in_features, filters, (3, 3), strides, dtype=dtype)
+        self.conv1 = Conv(in_features, filters, (3, 3), strides,
+                          use_bias=False, dtype=dtype)
         self.bn1 = norm(filters)
-        self.conv2 = Conv(filters, filters, (3, 3), dtype=dtype)
+        self.conv2 = Conv(filters, filters, (3, 3), use_bias=False,
+                          dtype=dtype)
         self.bn2 = norm(filters, scale_init=0.0)
         self.projection = projection
         if projection:
             self.proj_conv = Conv(in_features, filters, (1, 1), strides,
-                                  dtype=dtype)
+                                  use_bias=False, dtype=dtype)
             self.proj_bn = norm(filters)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -185,7 +118,8 @@ class ResNet(nn.Module):
                  in_features: int = 3):
         super().__init__()
         self.stem_conv = Conv(in_features, num_filters, (7, 7), (2, 2),
-                              padding=((3, 3), (3, 3)), dtype=dtype)
+                              padding=((3, 3), (3, 3)), use_bias=False,
+                              dtype=dtype)
         self.stem_bn = batch_norm(dtype, momentum=0.9,
                                   epsilon=1e-5)(num_filters)
         self.block_names = []
@@ -204,7 +138,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = F.relu(self.stem_bn(self.stem_conv(x), train))
-        x = max_pool_same(x, 3, 2)
+        x = pool(x, "max", (3, 3), (2, 2), "SAME")
         for name in self.block_names:
             x = getattr(self, name)(x, train)
         return self.head(x.mean(dim=(1, 2)))

@@ -70,10 +70,12 @@ Phases:
    K1-lse, K2 and K3 launch on the Hopper kernels: 384 each); runs
    evaluate and predict on the same Estimator; and, before the fit, holds
    one step's gradients (hidden dropout off) with flash attention against
-   the same step with einsum attention, in f32 and in bf16; it repeats
-   the flash step with the backward's wiring broken on purpose (dQ
-   zeroed; dK and dV swapped) and fails unless the f32 check rejects
-   each broken step. Prints
+   the same step with einsum attention in f32 (F32_GRAD_TOL), and in
+   bf16 each path's distance from the f32 step (flash's within
+   BF16_GRAD_RATIO x einsum's + BF16_GRAD_SLACK); it repeats the flash
+   step with the backward's wiring broken on purpose (dQ zeroed; dK and
+   dV swapped) and fails unless the f32 check and the bf16 bound each
+   reject each broken step. Prints
    steps/s, samples/s, tokens/s, MFU (bench.py's formula against 989
    TFLOP/s bf16) and peak device memory.
 7. NER learn: the same code for BERT-base BERTNER (bert-base-cased,
@@ -82,7 +84,8 @@ Phases:
    [2,128], attention_mask, tags -1 on padding). The gradient checks
    run with the mask and without it (the learn phase does so for any
    padded batch); the planted fault is
-   the mask dropped from K2 and K3, which the f32 check must reject; K1,
+   the mask dropped from K2 and K3, which the f32 check and the bf16
+   bound must reject; K1,
    K2 and K3 must each launch with the mask at least 12 times per step,
    every K1-lse, K2 and K3 launch on the Hopper kernels (384 each,
    counted in sm90_launches);
@@ -132,8 +135,9 @@ Phases:
    layers, 12 heads of 32, intermediate 1536, bf16 encoder; 48 x 384, 2
    epochs of 16 steps) on padded batches of synthetic traffic (real
    lengths uniform in [64, 384], spans inside them). The gradient checks
-   run with the mask and without it; the f32 check must reject dQ
-   zeroed, dK and dV swapped and the mask dropped from K2 and K3. K1, K2
+   run with the mask and without it; the f32 check and the bf16 bound
+   must each reject dQ zeroed, dK and dV swapped and the mask dropped
+   from K2 and K3. K1, K2
    and K3 must each launch with the mask at least 12 times a step, every
    launch a K5b one (small_d_launches), every K1-lse, K2 and K3 launch
    on the Hopper kernels (384 each, sm90_launches). Prints real and
@@ -428,6 +432,31 @@ figure they print carries the card's name and power limit.
    (the second epoch) and one profiled train step's device time by
    kernel group, with the card's name and power limit.
 
+31. Keras text: the Keras layers of slice 3b on their main path at
+   TextClassifier's default widths (vocab 20000 + 1, embedding 200,
+   sequence 500, encoder 256) with 20 classes, through the port's public
+   imports: a CNN Sequential (Embedding, Convolution1D(256, 5, relu),
+   GlobalMaxPooling1D, Dropout(0.2), Dense(128, relu), Dense(20)) and a
+   BiLSTM one (Embedding, Bidirectional(LSTM(256)), Dropout(0.2),
+   Dense(128, relu), Dense(20)), f32, compiled with "adam" and
+   sparse_categorical_crossentropy. For each: one step's gradients
+   (dropout off) and predict on 8 rows on the card against the CPU at
+   the same seeded weights, TF32 off (gradients within 1e-3 relative per
+   parameter, predictions within 1e-4 (1 + |cpu|)); fit on seeded
+   synthetic documents (each class's own id planted 5 times), batch
+   128 x 500, 2 epochs of 16 steps; evaluate and predict on 512 rows;
+   save_weights, load_weights into a fresh model, whose predict must
+   agree bit for bit; one profiled train step by kernel group
+   (embedding gather and backward, cuDNN RNN, convolution, GEMMs, Adam).
+   Then a functional Model holding every layer of slice 3b at least
+   once (seven inputs: ids, id bags, images, volumes, image and volume
+   sequences, vectors) on the card and on the CPU at the same seeded
+   weights, TF32 off: the eval-mode output, its loss's gradients and a
+   train-mode forward's BatchNormalization statistics within 1e-4 (1 +
+   |cpu|). Launches none of the port's kernels. Prints samples/s (the
+   second epoch), predict samples/s, the idle share and peak memory,
+   with the card's name and power limit.
+
 The three full-width generation phases (13, 15, 19) draw their seeded
 weights on the card (device_draws): every check there holds the port to
 its own plain paths on the same weights.
@@ -519,17 +548,28 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # BERT-base logits, bf16 encoder: flash vs einsum attention on the card
 SERVE_TOL = 5e-2
-# one BERT-base train step (48 x 384) at the initial weights, bf16
-# encoder: ||g_a - g_b|| / ||g_b|| per checked parameter for flash vs
-# einsum attention and for flash vs the same step in f32, and the bf16
-# losses' absolute difference. The bf16 paths round at other points (the
-# flash backward rounds dS to bf16 as _flash_bwd does; einsum's autograd
-# keeps the softmax backward in f32), and 12 post-LN layers compound
-# that: on an H100 the two bf16 paths came out 3.1% (layer-0 qkv) and
-# 3.6% (head) apart with the losses 6e-4 apart, so 2e-2 was too tight.
-# MiniLM's step (head dim 32) keeps the same limit: 1.8-2.2% (qkv) and
-# 1.2-2.2% (head) apart, with and without the mask
-GRAD_TOL = 5e-2
+# one BERT-base train step (48 x 384) at the seeded weights, bf16
+# encoder: per checked parameter, the kernels' bf16 gradient (flash
+# attention) may lie no farther from the same step in f32 than the plain
+# einsum path's bf16 gradient does, within a factor and a slack:
+#   flash_vs_f32 <= BF16_GRAD_RATIO * einsum_vs_f32 + BF16_GRAD_SLACK,
+# each ||g_a - g_b|| / ||g_b||. The two bf16 paths round at other points
+# (the flash backward rounds dS to bf16 as _flash_bwd does; einsum's
+# autograd keeps the softmax backward in f32), and 12 post-LN layers
+# compound that in proportion to the weights' spread. At flax's
+# lecun_normal Dense draw (scripts/bf16_grad_spread.py, NVIDIA H100 80GB
+# HBM3, 700 W) each bf16 path lay 6.5-6.9% from the f32 step for
+# BERT-base SQuAD (flash against einsum 6.0% at the layer-0 qkv, 8.5% at
+# the head) and 5.2-9.0% for MiniLM (5.7% and 11.3% apart); the JAX
+# package's own bf16 gradients lie 5.5% and 6.1% from its f32 ones at
+# the same init (CPU). At the narrower draw the port had before, all
+# were 2.5-3.5%, which this bound turns into 5.8-7.3%. flash_vs_einsum
+# stays printed: by the triangle inequality the bound caps it. Each
+# planted fault (dQ zeroed, dK and dV swapped, the mask dropped) must
+# exceed the bound on the layer-0 qkv weight. The bf16 losses' absolute
+# difference is held to LOSS_TOL
+BF16_GRAD_RATIO = 1.5
+BF16_GRAD_SLACK = 2e-2
 LOSS_TOL = 1e-2
 # the same step in f32 (GEMMs without TF32; K1, K2 and K3 at every D as
 # three TF32 products, about 2^-21 to 2^-20 relative a product): flash
@@ -2563,32 +2603,41 @@ def _rel(a, b, keys=None):
             for k in (keys or b)}
 
 
+def bf16_bound(einsum_vs_f32):
+    """{param: the bound on flash_vs_f32} (see BF16_GRAD_RATIO)."""
+    return {k: BF16_GRAD_RATIO * r + BF16_GRAD_SLACK
+            for k, r in einsum_vs_f32.items()}
+
+
 def grad_check(torch, module, xb, yb, ref, loss_fn, names, label):
     """One step's gradients with flash and with einsum attention at the
     same weights and batch, and each bf16 path's distance from ``ref``
     (loss, grads) of the same step in f32. Returns the relative errors
-    ||g_a - g_b|| / ||g_b||, the flash/einsum loss gap and the einsum
-    gradients."""
+    ||g_a - g_b|| / ||g_b||, the bound on flash_vs_f32 and the
+    flash/einsum loss gap."""
     loss_f, g_f = step_grads(torch, module, xb, yb, "flash", loss_fn, names)
     loss_e, g_e = step_grads(torch, module, xb, yb, "einsum", loss_fn, names)
     rel = {name: _rel(a, b) for name, a, b in (
         ("flash_vs_einsum", g_f, g_e), ("flash_vs_f32", g_f, ref[1]),
         ("einsum_vs_f32", g_e, ref[1]))}
+    bound = bf16_bound(rel["einsum_vs_f32"])
     losses = {"flash": loss_f, "einsum": loss_e, "f32": ref[0]}
-    print(f"{label}: gradients rel_err={rel} (tol {GRAD_TOL}); loss "
-          f"{losses} (tol {LOSS_TOL})", flush=True)
-    return rel, abs(loss_f - loss_e), g_e
+    print(f"{label}: gradients rel_err={rel} (flash_vs_f32 bound "
+          f"{BF16_GRAD_RATIO} x einsum_vs_f32 + {BF16_GRAD_SLACK} = "
+          f"{bound}); loss {losses} (tol {LOSS_TOL})", flush=True)
+    return rel, bound, abs(loss_f - loss_e)
 
 
-def fault_controls(torch, module, xb, yb, g_einsum, tol, faults, loss_fn,
+def fault_controls(torch, module, xb, yb, g_ref, tol, faults, loss_fn,
                    names, label):
     """The flash step again with the backward broken on purpose, each
-    fault held against the einsum gradients as the gradient check holds
-    the sound step: "dq_zeroed", "dk_dv_swapped", or "mask_dropped" (K2
-    and K3 without the key-padding mask, K1-lse still masked). Returns
-    each fault's relative error on the layer-0 qkv weight; with ``tol``,
-    fails unless each exceeds it, so that check is known to tell a
-    broken backward from a sound one."""
+    fault held against ``g_ref`` as the gradient check holds the sound
+    step (f32: the einsum step's gradients, bf16: the f32 step's):
+    "dq_zeroed", "dk_dv_swapped", or "mask_dropped" (K2 and K3 without
+    the key-padding mask, K1-lse still masked). Returns each fault's
+    relative error on the layer-0 qkv weight and fails unless each
+    exceeds ``tol``, so that check is known to tell a broken backward
+    from a sound one."""
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     bwd = fa.flash_attention_bwd
@@ -2606,14 +2655,13 @@ def fault_controls(torch, module, xb, yb, g_einsum, tol, faults, loss_fn,
         for name in faults:
             fa.flash_attention_bwd = broken[name]
             _, g = step_grads(torch, module, xb, yb, "flash", loss_fn, names)
-            rel[name] = _rel(g, g_einsum, qkv)[qkv[0]]
+            rel[name] = _rel(g, g_ref, qkv)[qkv[0]]
     finally:
         fa.flash_attention_bwd = bwd
-    print(f"{label}: planted faults, {qkv[0]} rel_err={rel}"
-          + (f" (each must exceed {tol})" if tol else " (recorded)"),
-          flush=True)
+    print(f"{label}: planted faults, {qkv[0]} rel_err={rel} (each must "
+          f"exceed {tol})", flush=True)
     for name, r in rel.items():
-        if tol and not r > tol:
+        if not r > tol:
             fail(f"the gradient check misses a planted fault ({name}): "
                  f"rel_err {r} <= {tol}")
     return rel
@@ -2723,25 +2771,24 @@ def learn_phase(torch, build, base, x, y, batch, loss_fn, names, faults,
     model_name = getattr(model, "name", type(model).__name__)
     print(f"{label}: {model_name} built in {time.perf_counter() - t0:.1f}s",
           flush=True)
-    rels, dlosses = {}, {}
+    rels, bounds, dlosses = {}, {}, {}
     for tag, xc in batches.items():
-        rels[tag], dlosses[tag], g = grad_check(
+        rels[tag], bounds[tag], dlosses[tag] = grad_check(
             torch, model.module, xc, yb, refs[tag], label=label + tag,
             **grad)
-        if tag == "":
-            g_einsum = g
-        for name in ("flash_vs_einsum", "flash_vs_f32"):
-            if not all(r <= GRAD_TOL for r in rels[tag][name].values()):
-                fail(f"{label}{tag}: gradients {name} differ: "
-                     f"{rels[tag][name]}")
+        over = {k: r for k, r in rels[tag]["flash_vs_f32"].items()
+                if not r <= bounds[tag][k]}
+        if over:
+            fail(f"{label}{tag}: bf16 gradients flash vs f32 {over} above "
+                 f"the bound {bounds[tag]}")
         if not dlosses[tag] <= LOSS_TOL:
             fail(f"{label}{tag}: flash and einsum losses differ by "
                  f"{dlosses[tag]}")
-    del g
-    # the same faults against the bf16 check, for the record
-    planted["bf16"] = fault_controls(torch, model.module, xb, yb, g_einsum,
-                                     None, faults, label=label, **grad)
-    del g_einsum, xb, yb
+    # the same faults must fail the bf16 bound on the layer-0 qkv weight
+    planted["bf16"] = fault_controls(torch, model.module, xb, yb, ref[1],
+                                     bounds[""][names[0]], faults,
+                                     label=label, **grad)
+    del xb, yb
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3959,6 +4006,18 @@ def _card_cpu(torch, build, x, y, label, card, draw_norms=False):
                     **{f"stats {k}": b.cpu().numpy()
                        for k, b in batch_stats_tree(m).items()},
                     "eval": ev}
+    return _compare_card_cpu(out, label, card, {
+        "loss_cuda": float(out["cuda"]["loss"]),
+        "loss_cpu": float(out["cpu"]["loss"])})
+
+
+def _compare_card_cpu(out, label, card, summary):
+    """Holds ``out["cuda"]`` against ``out["cpu"]`` (the same named
+    values, "group name" keys) within CARD_CPU_TOL (1 + |cpu|); prints
+    and returns ``summary`` with each group's largest excess."""
+    if sorted(out["cuda"]) != sorted(out["cpu"]):
+        fail(f"{label}: the card's values are not the CPU's: "
+             f"{sorted(set(out['cuda']) ^ set(out['cpu']))}")
     worst = {}
     for k, want in out["cpu"].items():
         got = out["cuda"][k]
@@ -3967,9 +4026,7 @@ def _card_cpu(torch, build, x, y, label, card, draw_norms=False):
         group = k.split(" ")[0]
         if group not in worst or excess > worst[group][0]:
             worst[group] = (excess, k)
-    summary = {"loss_cuda": float(out["cuda"]["loss"]),
-               "loss_cpu": float(out["cpu"]["loss"]),
-               "values": len(out["cpu"]),
+    summary = {**summary, "values": len(out["cpu"]),
                "max_excess": {g: [round(e, 9), k] for g, (e, k)
                               in worst.items()}, "card": card}
     print(f"{label}: {json.dumps(summary)}", flush=True)
@@ -4173,6 +4230,310 @@ def keras_bert_learn(torch, card, peaks):
     return summary
 
 
+# the Keras text classifiers at TextClassifier's default widths
+# (analytics_zoo_tpu/models/text/classifier.py: vocab 20000 + 1, embed
+# 200, sequence 500, encoder 256) and the 20 classes of the reference's
+# 20 Newsgroups app, f32, Adam and sparse categorical cross-entropy
+TEXT = dict(vocab=20001, embed=200, seq=500, encoder=256, classes=20)
+TEXT_BATCH, TEXT_STEPS, TEXT_CHECK_BATCH = 128, 16, 8
+# the card against the CPU, f32 with TF32 off: one step's gradients,
+# ||g_cuda - g_cpu|| / ||g_cpu|| per parameter (cuDNN's and the CPU's
+# convolutions and recurrences sum in other orders)
+TEXT_GRAD_TOL = 1e-3
+# a text train step's kernels by group (the first group a kernel's name
+# matches): the embedding's gather and its backward (a sort of the ids,
+# then a segmented sum), cuDNN's recurrence (its per-step cell kernels;
+# its per-step products are GEMMs), the convolution, the products (the
+# LSTM's input projections and recurrent steps among them), Adam
+TEXT_GROUPS = (
+    ("embedding", ("embedding", "indexSelect", "index_select", "gather",
+                   "segment", "RadixSort", "radix_sort", "unique",
+                   "scatter", "index_add", "indexFunc", "index_elementwise",
+                   "compute_grad_weight")),
+    ("convolution", ("conv", "implicit", "dgrad", "wgrad", "fprop")),
+    ("cuDNN RNN", ("RNN", "LSTM", "lstm", "rnn", "elemWise")),
+    ("gemm", ("nvjet", "gemm", "cutlass", "Kernel2", "splitKreduce")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("reductions", ("reduce_kernel", "max_pool", "amax")),
+    ("copies and casts", ("copy_kernel", "Memcpy", "Memset")),
+    ("elementwise", ("elementwise_kernel",)),
+)
+
+
+def text_model(kind, device, widths=TEXT):
+    """Phase 31's Keras text classifier, compiled, seed 0: "cnn"
+    (Embedding, Convolution1D(encoder, 5, relu), GlobalMaxPooling1D,
+    Dropout, Dense(128, relu), Dense(classes)) or "bilstm" (Embedding,
+    Bidirectional(LSTM(encoder)), Dropout, Dense(128, relu),
+    Dense(classes)), through the port's public imports."""
+    from analytics_zoo_tpu_torch.keras import Sequential
+    from analytics_zoo_tpu_torch.keras import layers as L
+
+    w = widths
+    if kind == "cnn":
+        encoder = [L.Convolution1D(w["encoder"], 5, activation="relu"),
+                   L.GlobalMaxPooling1D()]
+    else:
+        encoder = [L.Bidirectional(L.LSTM(w["encoder"]))]
+    model = Sequential(
+        [L.Embedding(w["vocab"], w["embed"]), *encoder, L.Dropout(0.2),
+         L.Dense(128, activation="relu"), L.Dense(w["classes"])],
+        device=device, seed=0)
+    return model.compile(optimizer="adam",
+                         loss="sparse_categorical_crossentropy",
+                         metrics=["accuracy"])
+
+
+def text_data(rng, n, widths=TEXT):
+    """Seeded synthetic documents a classifier can learn: random ids in
+    [classes + 1, vocab), and the class's own id (class + 1) at 5
+    random positions."""
+    w = widths
+    y = rng.randint(0, w["classes"], n).astype(np.int32)
+    x = rng.randint(w["classes"] + 1, w["vocab"],
+                    (n, w["seq"])).astype(np.int32)
+    pos = rng.randint(0, w["seq"], (n, 5))
+    x[np.arange(n)[:, None], pos] = (y + 1)[:, None]
+    return x, y
+
+
+def _text_card_cpu(torch, kind, x, y, label, card):
+    """One step's gradients (dropout off) and ``predict`` of the same
+    seeded model on the CPU and on the card, f32 with TF32 off:
+    gradients within TEXT_GRAD_TOL relative per parameter, predictions
+    within CARD_CPU_TOL (1 + |cpu|)."""
+    from analytics_zoo_tpu_torch.learn.objectives import (
+        sparse_categorical_crossentropy)
+    from analytics_zoo_tpu_torch.learn.optim import param_tree
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail(f"{label}: TF32 is on")
+    models = {"cpu": text_model(kind, "cpu").materialize(x),
+              "cuda": text_model(kind, "cuda").materialize(x)}
+    models["cuda"].module.load_state_dict(models["cpu"].module.state_dict())
+    grads, preds = {}, {}
+    for dev, m in models.items():
+        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        loss = sparse_categorical_crossentropy(m.module(xt, train=False),
+                                               yt)
+        loss.backward()
+        grads[dev] = {k: p.grad.double().cpu()
+                      for k, p in param_tree(m.module).items()}
+        preds[dev] = m.predict(x, batch_size=len(x))
+    rel = {k: float((grads["cuda"][k] - g).norm() / g.norm())
+           for k, g in grads["cpu"].items()}
+    excess = float((np.abs(preds["cuda"] - preds["cpu"])
+                    - CARD_CPU_TOL * (1 + np.abs(preds["cpu"]))).max())
+    print(f"{label}: card vs cpu gradients rel_err={rel} (tol "
+          f"{TEXT_GRAD_TOL}); predict max excess {excess:.3g} (tol "
+          f"{CARD_CPU_TOL} (1 + |cpu|)); batch {len(x)} ({card})",
+          flush=True)
+    bad = {k: r for k, r in rel.items() if not r <= TEXT_GRAD_TOL}
+    if bad:
+        fail(f"{label}: card and CPU gradients differ: {bad}")
+    if not excess <= 0:
+        fail(f"{label}: card and CPU predictions differ (excess {excess})")
+    return rel, excess
+
+
+def keras_text_learn(torch, card, peaks):
+    """Phase 31 (see the module docstring). Returns the summary."""
+    rng = np.random.RandomState(31)
+    n = TEXT_BATCH * TEXT_STEPS
+    x, y = text_data(rng, n)
+    out = {}
+    for kind in ("cnn", "bilstm"):
+        label = f"keras text {kind}"
+        check = _text_card_cpu(torch, kind, x[:TEXT_CHECK_BATCH],
+                               y[:TEXT_CHECK_BATCH], label, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = text_model(kind, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        # ---- main path: Sequential.fit -> Estimator.fit ----
+        hist = model.fit(x, y, batch_size=TEXT_BATCH, nb_epoch=2)
+        torch.cuda.synchronize()
+        # ---- end of the main path ----
+        peak = torch.cuda.max_memory_allocated()
+        losses = _finite_losses(hist, label)
+        steps = model.estimator.global_step
+        if steps != 2 * TEXT_STEPS:
+            fail(f"{label}: fit ran {steps} steps")
+        m = 4 * TEXT_BATCH
+        ev = model.evaluate(x[:m], y[:m], batch_size=TEXT_BATCH)
+        t0 = time.perf_counter()
+        pred = model.predict(x[:m], batch_size=TEXT_BATCH)
+        pred_s = time.perf_counter() - t0
+        if pred.shape != (m, TEXT["classes"]) or \
+                not np.isfinite(pred).all():
+            fail(f"{label} predict: bad output {pred.shape}")
+        if not np.isfinite(ev["loss"]):
+            fail(f"{label} evaluate: non-finite loss {ev}")
+        with tempfile.TemporaryDirectory() as d:
+            model.save_weights(d)
+            fresh = text_model(kind, "cuda")
+            fresh.load_weights(d)
+            again = fresh.predict(x[:m], batch_size=TEXT_BATCH)
+        if not np.array_equal(again, pred):
+            fail(f"{label}: predict after load_weights differs by "
+                 f"{float(np.abs(again - pred).max())}")
+        del fresh
+        xb = torch.from_numpy(x[:TEXT_BATCH]).cuda()
+        yb = torch.from_numpy(y[:TEXT_BATCH]).cuda()
+        wall, busy, groups = profile_train_step(
+            torch, model.estimator, xb, yb, kernel_groups=TEXT_GROUPS)
+        params = sum(p.numel() for p in model.module.parameters())
+        out[kind] = {
+            "widths": TEXT, "batch": TEXT_BATCH, "steps": steps,
+            "params": params, "losses": losses,
+            "samples_per_s": TEXT_STEPS * TEXT_BATCH / hist[1]["seconds"],
+            "predict_samples_per_s": m / pred_s,
+            "eval_loss": ev["loss"], "eval_accuracy": ev.get("accuracy"),
+            "peak_mem_gib": peak / 2 ** 30,
+            "card_cpu_grad_rel_err": check[0],
+            "card_cpu_predict_excess": check[1],
+            "step_wall_ms": wall, "step_busy_ms": busy,
+            "idle_share": 1 - busy / wall,
+            "step_ms_by_group": {g: round(v, 4) for g, v in groups.items()},
+            "card": card}
+        print(f"{label}: {json.dumps(out[kind])}", flush=True)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["all_layers"] = all_layers_check(torch, card)
+    return out
+
+
+ALL_LAYERS_BATCH = 8
+
+
+def keras_all_layers(device):
+    """A functional Model holding every layer of the Keras slice 3b
+    (embedding, convolutional, pooling, normalization, recurrent and
+    torch-style) at least once, over seven inputs; compiled, seed 0."""
+    from analytics_zoo_tpu_torch.keras import Input, Model
+    from analytics_zoo_tpu_torch.keras import layers as L
+
+    ids, bags = Input((12,)), Input((5,))
+    img, vol = Input((8, 8, 3)), Input((4, 6, 6, 2))
+    seq_img, seq_vol = Input((3, 6, 6, 2)), Input((2, 4, 4, 4, 2))
+    vec = Input((6,))
+    table = np.random.RandomState(5).randn(30, 6).astype(np.float32)
+    feats = []
+    # text: embeddings, 1-D convolutions and pooling, recurrences
+    t = L.merge_add([L.Embedding(30, 6)(ids),
+                     L.WordEmbedding(30, 6, weights=table)(ids)])
+    t = L.Cropping1D((1, 1))(L.ZeroPadding1D((1, 2))(t))
+    t = L.Convolution1D(8, 3, border_mode="same", activation="relu")(t)
+    t = L.UpSampling1D(2)(L.AtrousConvolution1D(8, 2, atrous_rate=2)(t))
+    t = L.AveragePooling1D(2, border_mode="same")(L.MaxPooling1D(2)(t))
+    r1 = L.SimpleRNN(5, return_sequences=True)(L.LocallyConnected1D(6, 2)(t))
+    r2 = L.GRU(5, return_sequences=True, go_backwards=True)(r1)
+    feats += [L.Bidirectional(L.LSTM(4))(r2), L.GlobalMaxPooling1D()(r2),
+              L.GlobalAveragePooling1D()(r1),
+              L.Flatten()(L.TimeDistributed(L.Dense(3))(r1)),
+              L.SparseEmbedding(30, 4, combiner="mean")(bags)]
+    # images: 2-D convolutions, normalization and pooling
+    h = L.Convolution2D(6, 3, 3, border_mode="same")(
+        L.BatchNormalization()(img))
+    h = L.SeparableConvolution2D(6, 2, 2, depth_multiplier=2,
+                                 border_mode="same")(h)
+    h = L.AtrousConvolution2D(4, 2, 2, atrous_rate=(2, 2))(h)
+    h = L.Deconvolution2D(4, 2, 2, subsample=(2, 2))(h)
+    h = L.WithinChannelLRN2D(size=3)(L.LRN2D(n=3)(h))
+    h = L.Cropping2D(((1, 0), (0, 1)))(L.ZeroPadding2D(1)(h))
+    h = L.MaxPooling2D((3, 3), strides=(2, 2), border_mode="same")(h)
+    h = L.UpSampling2D(2)(L.AveragePooling2D(border_mode="same")(h))
+    h = L.ShareConvolution2D(3, 2, 2)(L.ResizeBilinear(5, 6)(h))
+    h = L.LayerNormalization()(L.LocallyConnected2D(2, 2, 2)(h))
+    feats += [L.GlobalMaxPooling2D()(h), L.GlobalAveragePooling2D()(h)]
+    # volumes: 3-D convolution and pooling
+    v = L.ZeroPadding3D(1)(L.Convolution3D(3, 2, 2, 2,
+                                          border_mode="same")(vol))
+    v = L.UpSampling3D(2)(L.Cropping3D()(v))
+    v = L.AveragePooling3D(2)(L.MaxPooling3D(2)(v))
+    feats += [L.GlobalMaxPooling3D()(v), L.GlobalAveragePooling3D()(v)]
+    # sequences of images and of volumes
+    feats += [L.GlobalAveragePooling2D()(L.ConvLSTM2D(3, 3)(seq_img)),
+              L.Flatten()(L.TimeDistributed(L.Convolution2D(2, 3, 3))(
+                  seq_img)),
+              L.Flatten()(L.ConvLSTM3D(2, 2)(seq_vol))]
+    # the torch-style layers
+    u = L.SparseDense(6, activation="tanh")(vec)
+    u = L.Scale((6,))(L.Mul()(L.CMul((1, 6))(L.CAdd((6,))(u))))
+    u = L.MulConstant(0.8)(L.AddConstant(0.5)(u))
+    a = L.Exp()(L.Negative()(L.Square()(u)))
+    a = L.Sqrt()(L.AddConstant(0.1)(L.Log()(L.AddConstant(1.0)(a))))
+    feats.append(L.Identity()(L.Power(1.5, scale=2.0, shift=0.5)(a)))
+    feats += [layer(u) for layer in (
+        L.Threshold(0.1, -0.5), L.BinaryThreshold(0.0), L.HardShrink(0.2),
+        L.SoftShrink(0.2), L.HardTanh(-0.3, 0.3), L.RReLU(), L.Softmax(),
+        L.LayerNorm())]
+    wide = L.Expand((3, 6))(L.ExpandDim(0)(u))
+    feats += [L.Select(0, 1)(L.Narrow(0, 1, 2)(wide)), L.Max(0)(wide),
+              L.Squeeze(0)(L.ExpandDim(0)(u)),
+              L.Lambda(lambda s: s.float() * 0.1)(L.GetShape()(wide))]
+    out = L.Dense(4)(L.concatenate(feats))
+    model = Model([ids, bags, img, vol, seq_img, seq_vol, vec], out,
+                  device=device, seed=0)
+    return model.compile(optimizer="adam",
+                         loss="sparse_categorical_crossentropy")
+
+
+def all_layers_inputs(rng, n=ALL_LAYERS_BATCH):
+    ids = rng.randint(0, 30, (n, 12)).astype(np.int32)
+    bags = rng.randint(0, 30, (n, 5)).astype(np.int32)
+    bags[:, 3:] = 0
+    shapes = ((8, 8, 3), (4, 6, 6, 2), (3, 6, 6, 2), (2, 4, 4, 4, 2), (6,))
+    dense = [(1.5 * rng.randn(n, *s) + 0.5).astype(np.float32)
+             for s in shapes]
+    return (ids, bags, *dense)
+
+
+def all_layers_check(torch, card):
+    """Phase 31's all-layers Model on the card and on the CPU at the same
+    seeded weights, f32 with TF32 off: the eval-mode output and its
+    loss's gradients, then one train-mode forward's BatchNormalization
+    statistics, each within CARD_CPU_TOL (1 + |cpu|)."""
+    from analytics_zoo_tpu_torch.learn.objectives import (
+        sparse_categorical_crossentropy)
+    from analytics_zoo_tpu_torch.learn.optim import (batch_stats_tree,
+                                                     param_tree)
+
+    label = "card vs cpu, keras all layers"
+    rng = np.random.RandomState(7)
+    x = all_layers_inputs(rng)
+    y = rng.randint(0, 4, ALL_LAYERS_BATCH).astype(np.int64)
+    models = {"cpu": keras_all_layers("cpu").materialize(x),
+              "cuda": keras_all_layers("cuda").materialize(x)}
+    models["cuda"].module.load_state_dict(models["cpu"].module.state_dict())
+    out = {}
+    for dev, m in models.items():
+        xt = [torch.from_numpy(a).to(dev) for a in x]
+        yt = torch.from_numpy(y).to(dev)
+        ev = m.module(*xt, train=False)
+        loss = sparse_categorical_crossentropy(ev, yt)
+        loss.backward()
+        with torch.no_grad():
+            # the train-mode forward updates the running statistics;
+            # RReLU's training slopes (each device's own generator)
+            # reach no BatchNormalization
+            m.module(*xt, train=True,
+                     rng=torch.Generator(dev).manual_seed(0))
+        out[dev] = {"eval": ev.detach().cpu().numpy(),
+                    "loss": np.asarray(loss.item()),
+                    **{f"grad {k}": p.grad.cpu().numpy()
+                       for k, p in param_tree(m.module).items()
+                       if p.grad is not None},
+                    **{f"stats {k}": b.cpu().numpy()
+                       for k, b in batch_stats_tree(m.module).items()}}
+    if not any(k.startswith("stats ") for k in out["cpu"]):
+        fail(f"{label}: no BatchNormalization statistics")
+    return _compare_card_cpu(out, label, card, {"parameters": sum(
+        k.startswith("grad ") for k in out["cpu"])})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4295,6 +4656,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     keras = timed("Keras BERT learn", keras_bert_learn, torch, card, peaks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("Keras text learn", keras_text_learn, torch, card, peaks)
     k5b_bf16, k5b_masked, k5b_padded = (
         _pick(k5b, "bf16_d80"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))

@@ -1,11 +1,10 @@
 """PyTorch port, default initializers: the spread and the extremes of
-the seeded weights of the port's ``Conv`` and ``Embed`` against flax's
-``lecun_normal`` and ``default_embed_init`` over one large draw each
-(the seeds cannot match, so the distributions are compared: std x
-sqrt(fan_in) within 2%, the largest |w| x sqrt(fan_in) at flax's
-truncation point, or beyond 4 for the untruncated embedding). The
-port's ``Dense`` still draws 0.88x flax's spread (ROADMAP section 3,
-fault 7, says why); its bias options are held here.
+the seeded weights of the port's ``Dense``, ``Conv`` and ``Embed``
+against flax's ``lecun_normal`` and ``default_embed_init`` over one
+large draw each (the seeds cannot match, so the distributions are
+compared: std x sqrt(fan_in) within 2%, the largest |w| x sqrt(fan_in)
+at flax's truncation point, or beyond 4 for the untruncated embedding).
+``Dense``'s bias options are held here too.
 """
 
 import math
@@ -40,6 +39,8 @@ def _port(module, fan_in):
 # (case, the port's module, flax's initializer, the flax kernel's shape,
 # fan_in, truncated)
 CASES = [
+    ("dense", lambda: Dense(1024, 512), nn.initializers.lecun_normal(),
+     (1024, 512), 1024, True),
     ("conv", lambda: Conv(64, 512, (3, 3)), nn.initializers.lecun_normal(),
      (3, 3, 64, 512), 576, True),
     ("embed", lambda: Embed(4096, 256), nn.linear.default_embed_init,
