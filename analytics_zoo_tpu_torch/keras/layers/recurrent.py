@@ -14,7 +14,9 @@ The recurrence is torch's fused RNN (cuDNN's on the card), handed flat
 weights assembled from those at each forward: torch's gate order (i, f,
 g, o for the LSTM; r, z, n for the GRU) with the hidden biases as
 ``b_ih`` and zeros as ``b_hh``, except the GRU's ``hn`` bias, which sits
-inside r * (W_hn h + b_hn) in both. The carry starts at zeros.
+inside r * (W_hn h + b_hn) in both. The Keras layers' carry starts at
+zeros; ``run_fused`` also takes an initial carry and returns the final
+one (the zoo's Seq2seq hands its encoder's carries to its decoder).
 ``go_backwards`` runs the reversed sequence and flips the outputs back
 (flax's ``nn.RNN(reverse=True, keep_order=True)``), so without
 ``return_sequences`` the last state is at position 0. ``Bidirectional``
@@ -114,20 +116,40 @@ _CELLS = {"lstm": ("OptimizedLSTMCell_0", LSTMCell),
           "simple": ("SimpleCell_0", SimpleCell)}
 
 
-def run_fused(cells: List[_Cell], x: torch.Tensor) -> torch.Tensor:
+def run_fused(cells: List[_Cell], x: torch.Tensor, initial_carry=None,
+              return_carry: bool = False):
     """Every step's output ``[B, T, H * len(cells)]`` of torch's fused
     RNN over ``x`` ``[B, T, C]``: one cell forward, or two (forward,
-    backward) run as one bidirectional call."""
+    backward) run as one bidirectional call.
+
+    With one cell, ``initial_carry`` is a carry in flax's form (the
+    LSTM's ``(c, h)``, the GRU's and SimpleRNN's ``h``, each ``[B, H]``;
+    default zeros), and ``return_carry`` returns ``(final carry,
+    outputs)`` as flax's ``nn.RNN(..., return_carry=True)``. torch's
+    LSTM state is ``(h, c)``: the two are swapped here and nowhere
+    else."""
     x = x.to(torch.promote_types(x.dtype, torch.float32))
     kind = cells[0].fused
+    if (initial_carry is not None or return_carry) and len(cells) > 1:
+        raise ValueError("an initial or final carry needs one cell")
     weights = [w for c in cells for w in c.flat_weights()]
-    h0 = x.new_zeros(len(cells), x.shape[0], cells[0].units)
-    hx = (h0, h0) if kind == "lstm" else h0
+    if initial_carry is None:
+        h0 = x.new_zeros(len(cells), x.shape[0], cells[0].units)
+        hx = (h0, h0) if kind == "lstm" else h0
+    elif kind == "lstm":
+        c0, h0 = initial_carry
+        hx = (h0.to(x.dtype)[None].contiguous(),
+              c0.to(x.dtype)[None].contiguous())
+    else:
+        hx = initial_carry.to(x.dtype)[None].contiguous()
     # cuDNN keeps what its backward needs only in training mode
     out = getattr(torch._VF, kind)(x, hx, weights, True, 1, 0.0,
                                    torch.is_grad_enabled(), len(cells) > 1,
                                    True)
-    return out[0]
+    if not return_carry:
+        return out[0]
+    carry = (out[2][0], out[1][0]) if kind == "lstm" else out[1][0]
+    return carry, out[0]
 
 
 class ConvLSTMCell(nn.Module):

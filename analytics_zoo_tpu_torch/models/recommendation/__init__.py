@@ -1,4 +1,5 @@
-"""Recommendation models: the recommender base and NCF."""
+"""Recommendation models: the recommender base, NCF, Wide & Deep and
+the session recommender."""
 
 from analytics_zoo_tpu_torch.models.recommendation.base import (  # noqa: F401
     Recommender,
@@ -7,4 +8,11 @@ from analytics_zoo_tpu_torch.models.recommendation.base import (  # noqa: F401
 )
 from analytics_zoo_tpu_torch.models.recommendation.ncf import (  # noqa: F401
     NeuralCF,
+)
+from analytics_zoo_tpu_torch.models.recommendation.wide_and_deep import (  # noqa: F401
+    ColumnFeatureInfo,
+    WideAndDeep,
+)
+from analytics_zoo_tpu_torch.models.recommendation.session_recommender import (  # noqa: F401
+    SessionRecommender,
 )

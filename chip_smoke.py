@@ -457,6 +457,41 @@ figure they print carries the card's name and power limit.
    second epoch), predict samples/s, the idle share and peak memory,
    with the card's name and power limit.
 
+32. Zoo models learn: the zoo's sequence and tabular models (slice 4a)
+   on their main path, each built with device="cuda" (a parameter off
+   the card fails the phase) and fit through ZooModel.fit -> Estimator,
+   2 epochs of 16 steps, f32 with TF32 off, on seeded synthetic data at
+   their published or default widths, nothing cut: TextClassifier
+   (vocab 20000 + 1, embedding 200, sequence 500, encoder 256, 20
+   classes, batch 128) with each of its cnn, lstm and gru encoders;
+   KNRM (vocab 20000, embedding 300, question 10 and answer 40 tokens,
+   21 kernels) on 256 (pos, neg) pairs with rank_hinge, then
+   evaluate_ndcg and evaluate_map over 128 queries of 10 docs;
+   WideAndDeep at wide_n_deep.ipynb's MovieLens-1M column info (wide
+   occupation 21, gender 3, the age-gender cross 100; indicators genres
+   19, gender 3; userId 6040 and itemId 3952 embedded to 64; age; 5
+   classes, hidden (40, 20, 10)), batch 8192, then recommend_for_user
+   over every item through a feature assembler; SessionRecommender at
+   37483 items with the history MLP, batch 1024, then
+   recommend_for_session; Seq2seq (vocab 20000, embedding 128, one
+   LSTM of 128, max_len 32), batch 256, then infer on 64 sources, whose
+   tokens must be the CPU's at the same weights except from a step
+   where the CPU's top-two logit gap is below 1e-5 (printed);
+   AnomalyDetector (unroll 50 over 3 features of a 10320-point series,
+   LSTMs 8, 32, 15, dropouts 0.2, RMSprop), batch 1024 (10 steps an
+   epoch), then detect_anomalies on every window's forecast. Before
+   each fit, one step's gradients (dropout off) and the eval-mode
+   forward of the same seeded module on 8 rows, on the card and on the
+   CPU, within 1e-4 (1 + |cpu|). After it, evaluate and predict
+   (finite, of the expected shape) and one profiled train step by
+   kernel group. Then a CNN TextClassifier saved by the port and served
+   through launch() on the memory queue (batch 32) answers 256 requests
+   of 500 ids, each within 1e-4 (1 + |x|) of predict's. Launches none
+   of the port's kernels. Prints each model's samples/s, the step's
+   wall and busy ms, idle share and kernel groups, peak memory and
+   losses, and the served requests/s, p50 and p99, with the card's
+   name and power limit.
+
 The three full-width generation phases (13, 15, 19) draw their seeded
 weights on the card (device_draws): every check there holds the port to
 its own plain paths on the same weights.
@@ -512,6 +547,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import inspect
 import json
 import logging
 import os
@@ -3960,11 +3996,16 @@ def image_serving(torch, card):
     return summary
 
 
-def _card_cpu(torch, build, x, y, label, card, draw_norms=False):
+def _card_cpu(torch, build, x, y, label, card, draw_norms=False,
+              loss_fn=None, train=True):
     """One train step (the loss's gradients, the BatchNorm statistics it
     leaves) and then an eval-mode forward of the same seeded module on
     the CPU and on the card, f32 with TF32 off; every value within
-    1e-4 (1 + |cpu|)."""
+    1e-4 (1 + |cpu|). ``x`` is an array or a dict of arrays; ``loss_fn``
+    defaults to sparse categorical cross-entropy; ``train=False`` takes
+    the step's gradients in eval mode (a model with dropout: the card's
+    and the CPU's masks would differ), and a module whose forward takes
+    no ``train`` is called without it."""
     from analytics_zoo_tpu_torch.keras.layers.normalization import (
         BatchNorm)
     from analytics_zoo_tpu_torch.keras.layers.transformer import (
@@ -3973,6 +4014,9 @@ def _card_cpu(torch, build, x, y, label, card, draw_norms=False):
         sparse_categorical_crossentropy)
     from analytics_zoo_tpu_torch.learn.optim import (batch_stats_tree,
                                                      param_tree)
+    from analytics_zoo_tpu_torch.utils.tree import tree_map
+
+    loss_fn = loss_fn or sparse_categorical_crossentropy
 
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.backends.cudnn.allow_tf32:
@@ -3993,13 +4037,19 @@ def _card_cpu(torch, build, x, y, label, card, draw_norms=False):
                     m.var.copy_(torch.from_numpy(rng.rand(c) + 0.5))
     gpu = build().cuda()
     gpu.load_state_dict(cpu.state_dict())
+    takes_train = "train" in inspect.signature(cpu.forward).parameters
+
+    def forward(m, xt, training):
+        return m(xt, train=training) if takes_train else m(xt)
+
     out = {}
     for dev, m in (("cpu", cpu), ("cuda", gpu)):
-        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
-        loss = sparse_categorical_crossentropy(m(xt, train=True), yt)
+        xt = tree_map(lambda a: torch.from_numpy(a).to(dev), x)
+        yt = torch.from_numpy(y).to(dev)
+        loss = loss_fn(forward(m, xt, train), yt)
         loss.backward()
         with torch.no_grad():
-            ev = m(xt, train=False).cpu().numpy()
+            ev = forward(m, xt, False).cpu().numpy()
         out[dev] = {"loss": np.asarray(loss.item()),
                     **{f"grad {k}": p.grad.cpu().numpy()
                        for k, p in param_tree(m).items()},
@@ -4534,6 +4584,532 @@ def all_layers_check(torch, card):
         k.startswith("grad ") for k in out["cpu"])})
 
 
+# phase 32: the zoo's sequence and tabular models at their published or
+# default widths, each through ZooModel.fit -> Estimator for 2 epochs of
+# ZOO_STEPS steps (the anomaly detector's series holds 10 batches)
+ZOO_STEPS = 16
+ZOO_CHECK_ROWS = 8
+# KNRM at the widths of the reference's WikiQA ranker (GloVe-300,
+# seeded here)
+ZOO_KNRM = dict(text1_length=10, text2_length=40, vocab=20000,
+                embed_dim=300, kernel_num=21)
+ZOO_KNRM_BATCH, ZOO_KNRM_QUERIES, ZOO_KNRM_DOCS = 256, 128, 10
+# Wide & Deep: wide_n_deep.ipynb's MovieLens-1M column info
+ZOO_WND_INFO = dict(
+    wide_base_cols=["occupation", "gender"], wide_base_dims=[21, 3],
+    wide_cross_cols=["age-gender"], wide_cross_dims=[100],
+    indicator_cols=["genres", "gender"], indicator_dims=[19, 3],
+    embed_cols=["userId", "itemId"], embed_in_dims=[6040, 3952],
+    embed_out_dims=[64, 64], continuous_cols=["age"])
+ZOO_WND = dict(model_type="wide_n_deep", class_num=5,
+               hidden_layers=(40, 20, 10))
+ZOO_WND_BATCH = 8192
+# the session recommender over GRU4Rec's preprocessed YOOCHOOSE clicks
+# (37483 items; Hidasi et al. 2016), the class defaults, the history MLP
+ZOO_SESSION = dict(item_count=37483, item_embed=100,
+                   rnn_hidden_layers=(40, 20), session_length=10,
+                   include_history=True, mlp_hidden_layers=(40, 20),
+                   history_length=5)
+ZOO_SESSION_BATCH, ZOO_SESSION_RECS = 1024, 256
+# Seq2seq at the class defaults over a 20000-token vocabulary
+ZOO_SEQ2SEQ = dict(vocab=20000, embed_dim=128, hidden_sizes=(128,),
+                   max_len=32)
+ZOO_SEQ2SEQ_BATCH, ZOO_INFER_ROWS = 256, 64
+# infer's tokens on the card may differ from the CPU's only from a step
+# where the CPU's top-two logit gap is below this
+ZOO_TIE_GAP = 1e-5
+# the anomaly detector as the reference's NYC-taxi app: unroll 50 over
+# 3 features of a 10320-point half-hourly series, the class defaults
+ZOO_ANOMALY = dict(feature_shape=(50, 3), hidden_layers=(8, 32, 15),
+                   dropouts=(0.2, 0.2, 0.2))
+ZOO_SERIES, ZOO_ANOMALY_BATCH, ZOO_ANOMALIES = 10320, 1024, 20
+# the TextClassifier (CNN) served through launch()
+ZOO_SERVE_REQUESTS, ZOO_SERVE_BATCH = 256, 32
+# a zoo model's train step by kernel group: phase 31's, with cuDNN's GRU
+# and persistent-kernel recurrences in the RNN group and the softmax
+# (the heads' cross-entropy) on its own
+ZOO_GROUPS = (
+    TEXT_GROUPS[0], TEXT_GROUPS[1],
+    ("cuDNN RNN", ("RNN", "LSTM", "GRU", "lstm", "rnn", "elemWise",
+                   "elementWise")),
+    ("softmax", ("SoftMax",)),
+    *TEXT_GROUPS[3:])
+
+
+def _rows(x, n):
+    """The first ``n`` rows of an array or a dict of arrays."""
+    if isinstance(x, dict):
+        return {k: np.ascontiguousarray(v[:n]) for k, v in x.items()}
+    return np.ascontiguousarray(x[:n])
+
+
+def _on_device(torch, x, device):
+    if isinstance(x, dict):
+        return {k: torch.from_numpy(v).to(device) for k, v in x.items()}
+    return torch.from_numpy(x).to(device)
+
+
+def zoo_fit(torch, model, x, y, batch, label, card):
+    """``model`` through ``ZooModel.fit`` for 2 epochs, then one profiled
+    train step. Fails if a parameter is not on the model's device (the
+    card) before the fit. Returns the summary: the second epoch's
+    samples/s, the peak memory, the losses, the step's wall and busy
+    ms, idle share and device ms by kernel group."""
+    off = [k for k, p in model.module.named_parameters()
+           if p.device.type != model.device.type]
+    if off:
+        fail(f"{label}: parameters off {model.device} before fit: {off[:4]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- main path: ZooModel.fit -> Estimator.fit ----
+    hist = model.fit((x, y), batch_size=batch, epochs=2)
+    torch.cuda.synchronize()
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    losses = _finite_losses(hist, label)
+    per_epoch = len(y) // batch
+    steps = model.estimator.global_step
+    if steps != 2 * per_epoch:
+        fail(f"{label}: fit ran {steps} steps, not {2 * per_epoch}")
+    wall, busy, groups = profile_train_step(
+        torch, model.estimator, _on_device(torch, _rows(x, batch),
+                                           model.device),
+        torch.from_numpy(y[:batch]).to(model.device),
+        kernel_groups=ZOO_GROUPS)
+    return {"batch": batch, "steps": steps, "losses": losses,
+            "losses_finite": True,
+            "samples_per_s": per_epoch * batch / hist[1]["seconds"],
+            "peak_mem_gib": peak / 2 ** 30,
+            "params": sum(p.numel() for p in model.module.parameters()),
+            "step_wall_ms": wall, "step_busy_ms": busy,
+            "idle_share": 1 - busy / max(wall, 1e-9),
+            "step_ms_by_group": {g: round(v, 4) for g, v in groups.items()},
+            "card": card}
+
+
+def zoo_after_fit(model, x, y, batch, out_width, label, batches=4):
+    """``evaluate`` (finite) and ``predict`` (finite, of the expected
+    shape, timed) on the first ``batches`` batches."""
+    m = min(batches * batch, len(y))
+    xm, ym = _rows(x, m), y[:m]
+    ev = model.evaluate((xm, ym), batch_size=batch)
+    if not all(np.isfinite(v) for v in ev.values()):
+        fail(f"{label} evaluate: non-finite {ev}")
+    t0 = time.perf_counter()
+    pred = np.asarray(model.predict(xm, batch_size=batch))
+    secs = time.perf_counter() - t0
+    if pred.shape[:2] != (m, out_width) or not np.isfinite(pred).all():
+        fail(f"{label} predict: bad output {pred.shape}")
+    return {"eval": ev, "predict_samples_per_s": m / secs}
+
+
+def _report(label, summary):
+    print(f"{label}: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def zoo_text_classifiers(torch, card, device="cuda"):
+    """TextClassifier at the class defaults (phase 31's widths and
+    data) with each encoder, 20 classes, batch 128."""
+    from analytics_zoo_tpu_torch.models import TextClassifier
+
+    rng = np.random.RandomState(32)
+    x, y = text_data(rng, TEXT_BATCH * ZOO_STEPS)
+    out = {}
+    for enc in ("cnn", "lstm", "gru"):
+        label = f"zoo text classifier {enc}"
+        model = TextClassifier(
+            TEXT["classes"], vocab=TEXT["vocab"] - 1,
+            embed_dim=TEXT["embed"], sequence_length=TEXT["seq"],
+            encoder=enc, encoder_output_dim=TEXT["encoder"],
+            device=device, seed=0)
+        check = _card_cpu(torch, model._build_module, x[:ZOO_CHECK_ROWS],
+                          y[:ZOO_CHECK_ROWS].astype(np.int64),
+                          f"card vs cpu, {label}", card, train=False)
+        summary = zoo_fit(torch, model, x, y, TEXT_BATCH, label, card)
+        out[enc] = _report(label, {
+            **summary, **zoo_after_fit(model, x, y, TEXT_BATCH,
+                                       TEXT["classes"], label),
+            "card_cpu_max_excess": check["max_excess"]})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def knrm_rows(rng, queries, matches):
+    """Query ++ doc rows: each doc random ids with ``matches[i]`` of its
+    tokens copied from its query (exact matches for the last kernel);
+    10% of all slots padding."""
+    n, l1 = queries.shape
+    docs = rng.randint(1, ZOO_KNRM["vocab"] + 1,
+                       (n, ZOO_KNRM["text2_length"]))
+    copied = queries[np.arange(n)[:, None], rng.randint(0, l1, docs.shape)]
+    docs = np.where(np.arange(docs.shape[1])
+                    < np.asarray(matches).reshape(-1, 1), copied, docs)
+    x = np.concatenate([queries, docs], 1)
+    x[rng.rand(*x.shape) < 0.1] = 0
+    return x.astype(np.int32)
+
+
+def zoo_knrm(torch, card, device="cuda"):
+    """KNRM ranking: (pos, neg) pairs of a query with a doc sharing 4 of
+    its tokens and one sharing none, rank_hinge, batch 256 pairs; then
+    NDCG@5 and MAP over 128 queries of 10 docs (relevance r for a doc
+    sharing 2r tokens)."""
+    from analytics_zoo_tpu_torch.learn.objectives import rank_hinge
+    from analytics_zoo_tpu_torch.models import KNRM
+
+    label = "zoo knrm"
+    rng = np.random.RandomState(33)
+    n = ZOO_KNRM_BATCH * ZOO_STEPS
+    q = rng.randint(1, ZOO_KNRM["vocab"] + 1, (n, ZOO_KNRM["text1_length"]))
+    x = np.stack([knrm_rows(rng, q, np.full(n, 4)),
+                  knrm_rows(rng, q, np.zeros(n))], 1)
+    y = np.zeros(n, np.float32)
+    model = KNRM(device=device, seed=0, **ZOO_KNRM)
+    check = _card_cpu(torch, model._build_module, x[:ZOO_CHECK_ROWS],
+                      y[:ZOO_CHECK_ROWS], f"card vs cpu, {label}", card,
+                      loss_fn=rank_hinge)
+    summary = zoo_fit(torch, model, x, y, ZOO_KNRM_BATCH, label, card)
+    after = zoo_after_fit(model, x, y, ZOO_KNRM_BATCH, 2, label)
+    rel = rng.randint(0, 3, ZOO_KNRM_QUERIES * ZOO_KNRM_DOCS)
+    rows = knrm_rows(rng, np.repeat(q[:ZOO_KNRM_QUERIES], ZOO_KNRM_DOCS, 0),
+                     2 * rel)
+    labels = [list(r) for r in rel.reshape(ZOO_KNRM_QUERIES, -1)]
+    t0 = time.perf_counter()
+    ndcg = model.evaluate_ndcg(rows, labels, k=5)
+    mean_ap = model.evaluate_map(rows, labels)
+    rank_s = time.perf_counter() - t0
+    if not (0 <= ndcg <= 1 and 0 <= mean_ap <= 1):
+        fail(f"{label}: NDCG@5 {ndcg} or MAP {mean_ap} out of [0, 1]")
+    return _report(label, {
+        **summary, **after, "ndcg5": ndcg, "map": mean_ap,
+        "ranking_s": rank_s, "card_cpu_max_excess": check["max_excess"]})
+
+
+def wnd_features(rng, users, items):
+    """MovieLens-1M-shaped features of (user, item) rows: occupation,
+    gender and the age-gender cross as wide indices (1-based, each
+    column's after those of the columns before it), the two ids, a
+    multi-hot genre block beside a one-hot gender one, and a
+    standardised age."""
+    info, n = ZOO_WND_INFO, len(users)
+    occ_dim, gender_dim = info["wide_base_dims"]
+    gender = 1 + users % gender_dim
+    age = (18 + users % 50).astype(np.float32)
+    cross = 1 + (users * 7 + gender) % info["wide_cross_dims"][0]
+    wide = np.stack([1 + users % occ_dim, occ_dim + gender,
+                     occ_dim + gender_dim + cross], 1)
+    genres = rng.rand(n, info["indicator_dims"][0]) < 0.15
+    genres[np.arange(n), items % info["indicator_dims"][0]] = True
+    return {"wide": wide.astype(np.int32),
+            "embed": np.stack([users, items], 1).astype(np.int32),
+            "indicator": np.concatenate(
+                [genres, np.eye(gender_dim)[gender - 1]],
+                1).astype(np.float32),
+            "continuous": ((age[:, None] - 40.0) / 15.0)}
+
+
+def zoo_wide_and_deep(torch, card, device="cuda"):
+    """Wide & Deep at wide_n_deep.ipynb's column info, 5 rating classes,
+    batch 8192; then recommend_for_user over every item through a
+    feature assembler."""
+    from analytics_zoo_tpu_torch.models import WideAndDeep
+    from analytics_zoo_tpu_torch.models.recommendation.ncf import _shifted_ce
+
+    label = "zoo wide and deep"
+    rng = np.random.RandomState(34)
+    info = ZOO_WND_INFO
+    n = ZOO_WND_BATCH * ZOO_STEPS
+    users = rng.randint(1, info["embed_in_dims"][0] + 1, n)
+    items = rng.randint(1, info["embed_in_dims"][1] + 1, n)
+    x = wnd_features(rng, users, items)
+    y = (1 + (users + 2 * items) % 5).astype(np.int32)
+    model = WideAndDeep(device=device, seed=0, column_info=info, **ZOO_WND)
+
+    def build():
+        # the wide weights start at zero, as in the reference: drawn
+        # here so that the eval-mode forward reads them too
+        net = model._build_module()
+        with torch.no_grad():
+            g = torch.Generator().manual_seed(1)
+            net.wide_weight.normal_(0.0, 0.1, generator=g)
+            net.wide_bias.normal_(0.0, 0.1, generator=g)
+        return net
+
+    check = _card_cpu(torch, build, _rows(x, ZOO_CHECK_ROWS),
+                      y[:ZOO_CHECK_ROWS], f"card vs cpu, {label}", card,
+                      loss_fn=_shifted_ce)
+    summary = zoo_fit(torch, model, x, y, ZOO_WND_BATCH, label, card)
+    after = zoo_after_fit(model, x, y, ZOO_WND_BATCH, ZOO_WND["class_num"],
+                          label)
+    model.set_feature_assembler(lambda u, i: wnd_features(rng, u, i))
+    t0 = time.perf_counter()
+    recs = model.recommend_for_user(
+        7, 10, candidate_items=range(1, info["embed_in_dims"][1] + 1),
+        batch_size=ZOO_WND_BATCH)
+    rec_s = time.perf_counter() - t0
+    if len(recs) != 10 or not all(1 <= r.prediction <= 5 for r in recs):
+        fail(f"{label}: bad recommendations {recs[:3]}")
+    return _report(label, {
+        **summary, **after, "recommend_for_user_s": rec_s,
+        "card_cpu_max_excess": check["max_excess"]})
+
+
+def session_data(rng, n):
+    """Sessions left-padded at random, whose next item follows from the
+    last one (``last * 7 % items + 1``), with a 5-item history (padding
+    id 0 among its slots)."""
+    cfg = ZOO_SESSION
+    items, length = cfg["item_count"], cfg["session_length"]
+    s = rng.randint(1, items + 1, (n, length))
+    cut = rng.randint(0, length - 2, n)
+    s[np.arange(length)[None, :] < cut[:, None]] = 0
+    h = rng.randint(0, items + 1, (n, cfg["history_length"]))
+    return ({"session": s.astype(np.int32), "history": h.astype(np.int32)},
+            ((s[:, -1] * 7) % items + 1).astype(np.int32))
+
+
+def zoo_session(torch, card, device="cuda"):
+    """The session recommender at 37483 items with the history MLP,
+    batch 1024; then recommend_for_session on 256 sessions."""
+    from analytics_zoo_tpu_torch.models import SessionRecommender
+    from analytics_zoo_tpu_torch.models.recommendation import (
+        session_recommender)
+
+    label = "zoo session recommender"
+    rng = np.random.RandomState(35)
+    x, y = session_data(rng, ZOO_SESSION_BATCH * ZOO_STEPS)
+    model = SessionRecommender(device=device, seed=0, **ZOO_SESSION)
+    check = _card_cpu(torch, model._build_module, _rows(x, ZOO_CHECK_ROWS),
+                      y[:ZOO_CHECK_ROWS], f"card vs cpu, {label}", card,
+                      loss_fn=session_recommender._next_item_ce)
+    summary = zoo_fit(torch, model, x, y, ZOO_SESSION_BATCH, label, card)
+    after = zoo_after_fit(model, x, y, ZOO_SESSION_BATCH,
+                          ZOO_SESSION["item_count"] + 1, label)
+    t0 = time.perf_counter()
+    recs = model.recommend_for_session(_rows(x, ZOO_SESSION_RECS),
+                                       max_items=5)
+    rec_s = time.perf_counter() - t0
+    if len(recs) != ZOO_SESSION_RECS or any(
+            len(r) != 5 or any(i == 0 for i, _ in r) for r in recs):
+        fail(f"{label}: bad recommendations {recs[:2]}")
+    return _report(label, {
+        **summary, **after, "recommend_for_session_s": rec_s,
+        "card_cpu_max_excess": check["max_excess"]})
+
+
+def seq2seq_data(rng, n):
+    """Sources of at most max_len ids (padded tails); the target is the
+    source reversed, fed shifted behind start id 1."""
+    length = ZOO_SEQ2SEQ["max_len"]
+    src = rng.randint(2, ZOO_SEQ2SEQ["vocab"] + 1, (n, length))
+    lens = rng.randint(length // 2, length + 1, n)
+    src[np.arange(length)[None, :] >= lens[:, None]] = 0
+    tgt = np.zeros_like(src)
+    for i, k in enumerate(lens):
+        tgt[i, :k] = src[i, :k][::-1]
+    tgt_in = np.concatenate([np.ones((n, 1), src.dtype), tgt[:, :-1]], 1)
+    return ({"src": src.astype(np.int32), "tgt_in": tgt_in.astype(np.int32)},
+            tgt.astype(np.int32))
+
+
+def infer_check(torch, model, src, label):
+    """``infer`` on the card against ``infer`` of the same weights on
+    the CPU: a row may differ only from a step where the CPU's top-two
+    logit gap is below ZOO_TIE_GAP (each such step is printed)."""
+    from analytics_zoo_tpu_torch.models import Seq2seq
+
+    cpu = Seq2seq(device="cpu", **model._config)
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                model.module.state_dict().items()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = model.infer(src, start_id=1)
+    secs = time.perf_counter() - t0
+    want = cpu.infer(src, start_id=1)
+    tgt = np.concatenate([np.ones((len(src), 1), np.int32), want[:, :-1]],
+                         1)
+    with torch.no_grad():
+        logits = cpu.module({"src": torch.from_numpy(src),
+                             "tgt_in": torch.from_numpy(tgt)}).numpy()
+    top2 = np.sort(logits, -1)[..., -2:]
+    gap = top2[..., 1] - top2[..., 0]
+    differ = tokens != want
+    first = [(int(r), int(np.argmax(differ[r])))
+             for r in np.flatnonzero(differ.any(1))]
+    for r, t in first:
+        print(f"{label}: row {r} differs from step {t}, where the CPU's "
+              f"top-two gap is {gap[r, t]:.3g}", flush=True)
+    bad = [(r, t, float(gap[r, t])) for r, t in first
+           if not gap[r, t] < ZOO_TIE_GAP]
+    if bad:
+        fail(f"{label}: the card's tokens differ from the CPU's at steps "
+             f"whose gap is at least {ZOO_TIE_GAP}: {bad}")
+    return {"rows": len(src), "rows_differing": len(first),
+            "min_cpu_gap": float(gap.min()), "infer_s": secs,
+            "tokens_per_s": tokens.size / secs}
+
+
+def zoo_seq2seq(torch, card, device="cuda"):
+    """Seq2seq at the class defaults (embedding 128, one LSTM of 128,
+    max_len 32) over a 20000-token vocabulary: a teacher-forced fit,
+    batch 256; then infer on 64 sources, the card against the CPU."""
+    from analytics_zoo_tpu_torch.models import Seq2seq
+
+    label = "zoo seq2seq"
+    rng = np.random.RandomState(36)
+    x, y = seq2seq_data(rng, ZOO_SEQ2SEQ_BATCH * ZOO_STEPS)
+    model = Seq2seq(device=device, seed=0, **ZOO_SEQ2SEQ)
+    check = _card_cpu(torch, model._build_module, _rows(x, ZOO_CHECK_ROWS),
+                      y[:ZOO_CHECK_ROWS], f"card vs cpu, {label}", card,
+                      loss_fn=Seq2seq.default_loss)
+    summary = zoo_fit(torch, model, x, y, ZOO_SEQ2SEQ_BATCH, label, card)
+    # one batch: its logits alone are 0.6 GB on the host
+    after = zoo_after_fit(model, x, y, ZOO_SEQ2SEQ_BATCH,
+                          ZOO_SEQ2SEQ["max_len"], label, batches=1)
+    infer = infer_check(torch, model, x["src"][:ZOO_INFER_ROWS],
+                        f"{label} infer")
+    return _report(label, {
+        **summary, **after, "infer": infer,
+        "card_cpu_max_excess": check["max_excess"]})
+
+
+def taxi_series(rng):
+    """A half-hourly series of 3 standardised features (a count with
+    daily and weekly cycles and 10 spikes, the time of day, the
+    weekday)."""
+    n = ZOO_SERIES
+    t = np.arange(n, dtype=np.float64)
+    day, week = 48.0, 336.0
+    count = (1.0 + 0.6 * np.sin(2 * np.pi * t / day)
+             + 0.3 * np.sin(2 * np.pi * t / week) + 0.05 * rng.randn(n))
+    count[rng.randint(0, n, 10)] += rng.choice([-1.5, 1.5], 10)
+    data = np.stack([count, (t % day) / day, (t // day) % 7 / 7], 1)
+    return ((data - data.mean(0)) / data.std(0)).astype(np.float32)
+
+
+def zoo_anomaly(torch, card, device="cuda"):
+    """The anomaly detector at the class defaults (LSTMs 8, 32, 15,
+    dropouts 0.2, RMSprop): unroll 50 over the 10320-point series,
+    batch 1024; predict every window, then detect_anomalies."""
+    from analytics_zoo_tpu_torch.learn.objectives import mean_squared_error
+    from analytics_zoo_tpu_torch.models import AnomalyDetector
+
+    label = "zoo anomaly detector"
+    rng = np.random.RandomState(37)
+    x, y = AnomalyDetector.unroll(taxi_series(rng),
+                                  ZOO_ANOMALY["feature_shape"][0])
+    model = AnomalyDetector(device=device, seed=0, **ZOO_ANOMALY)
+    if model.default_optimizer != "rmsprop":
+        fail(f"{label}: optimizer {model.default_optimizer}")
+    check = _card_cpu(torch, model._build_module, x[:ZOO_CHECK_ROWS],
+                      y[:ZOO_CHECK_ROWS], f"card vs cpu, {label}", card,
+                      loss_fn=mean_squared_error, train=False)
+    summary = zoo_fit(torch, model, x, y, ZOO_ANOMALY_BATCH, label, card)
+    after = zoo_after_fit(model, x, y, ZOO_ANOMALY_BATCH, 1, label)
+    pred = model.predict(x, batch_size=ZOO_ANOMALY_BATCH)
+    idx, threshold = AnomalyDetector.detect_anomalies(y, pred,
+                                                      ZOO_ANOMALIES)
+    if len(idx) != ZOO_ANOMALIES or not np.isfinite(threshold):
+        fail(f"{label}: detect_anomalies gave {len(idx)} at {threshold}")
+    return _report(label, {
+        **summary, **after, "windows": len(x), "anomalies": idx.tolist(),
+        "threshold": threshold, "card_cpu_max_excess": check["max_excess"]})
+
+
+def zoo_serving(torch, card, device="cuda"):
+    """A TextClassifier (CNN, the class defaults, 20 classes) saved by
+    the port and served through launch() on the memory queue (batch
+    32): 256 requests of 500 ids, each answer within CARD_CPU_TOL (1 +
+    |x|) of predict's."""
+    from analytics_zoo_tpu_torch.models import TextClassifier
+    from analytics_zoo_tpu_torch.serving.launcher import launch
+
+    label = "zoo text serving"
+    docs, _ = text_data(np.random.RandomState(38), ZOO_SERVE_REQUESTS)
+    model = TextClassifier(TEXT["classes"], vocab=TEXT["vocab"] - 1,
+                           device=device, seed=0)
+    want = model.predict(docs, batch_size=ZOO_SERVE_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save_model(tmp)
+        # ---- main path: launch -> ServingWorker -> InferenceModel ----
+        t0 = time.perf_counter()
+        app = launch({"model": {"path": tmp},
+                      "params": {"batch_size": ZOO_SERVE_BATCH,
+                                 "max_batch_size": ZOO_SERVE_BATCH,
+                                 "timeout_ms": 2.0},
+                      "http": {"enabled": False}}, device=device)
+        up = time.perf_counter() - t0
+        try:
+            sent, got, lat = {}, {}, []
+            t_start = time.perf_counter()
+            for i in range(ZOO_SERVE_REQUESTS):
+                uri = f"doc{i:03d}"
+                sent[uri] = time.perf_counter()
+                if not app.input_queue.enqueue(uri, ids=docs[i]):
+                    fail(f"{label}: enqueue refused {uri}")
+            deadline = time.perf_counter() + 120
+            while len(got) < ZOO_SERVE_REQUESTS and \
+                    time.perf_counter() < deadline:
+                item = app.output_queue.dequeue(timeout=1.0)
+                if item is None:
+                    continue
+                uri, tensors = item
+                if uri in got:
+                    fail(f"{label}: {uri} answered twice")
+                lat.append(time.perf_counter() - sent[uri])
+                got[uri] = tensors
+            wall = time.perf_counter() - t_start
+        finally:
+            app.stop()
+        # ---- end of the main path ----
+    if len(got) != ZOO_SERVE_REQUESTS:
+        fail(f"{label}: answered {len(got)}/{ZOO_SERVE_REQUESTS}")
+    served = np.stack([np.asarray(got[f"doc{i:03d}"]["output"])
+                       for i in range(ZOO_SERVE_REQUESTS)])
+    if served.shape != want.shape:
+        fail(f"{label}: replies {served.shape}, predict {want.shape}")
+    excess = float((np.abs(served - want)
+                    - CARD_CPU_TOL * (1 + np.abs(want))).max())
+    lat_ms = np.asarray(lat) * 1e3
+    summary = _report(label, {
+        "requests": ZOO_SERVE_REQUESTS, "up_s": up, "wall_s": wall,
+        "rps": ZOO_SERVE_REQUESTS / wall,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "max_abs_diff": float(np.abs(served - want).max()),
+        "max_excess": excess, "card": card})
+    if not excess <= 0:
+        fail(f"{label}: answers beyond {CARD_CPU_TOL} (1 + |x|) of "
+             f"predict's by {excess:.3g}")
+    return summary
+
+
+def zoo_models_learn(torch, card, device="cuda"):
+    """Phase 32 (see the module docstring). Returns the summaries."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+
+    # no per-step host sync for logging, as in the other learn phases
+    get_config().set("zoo.train.log_every_n_steps", 100000)
+    out = {}
+    for name, fn in (("text_classifier", zoo_text_classifiers),
+                     ("knrm", zoo_knrm),
+                     ("wide_and_deep", zoo_wide_and_deep),
+                     ("session_recommender", zoo_session),
+                     ("seq2seq", zoo_seq2seq),
+                     ("anomaly_detector", zoo_anomaly),
+                     ("serving", zoo_serving)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, card, device)
+        print(f"zoo models: {name} {time.perf_counter() - t0:.1f}s "
+              f"({card})", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4659,6 +5235,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     timed("Keras text learn", keras_text_learn, torch, card, peaks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("zoo models learn", zoo_models_learn, torch, card)
     k5b_bf16, k5b_masked, k5b_padded = (
         _pick(k5b, "bf16_d80"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))

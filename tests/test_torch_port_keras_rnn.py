@@ -25,6 +25,7 @@ from analytics_zoo_tpu_torch.keras import Sequential
 from analytics_zoo_tpu_torch.keras import layers as PL
 from analytics_zoo_tpu_torch.keras.layers.transformer import reset_parameters
 from analytics_zoo_tpu_torch.learn.optim import param_tree
+from analytics_zoo_tpu_torch.utils.tree import tree_map
 
 torch.set_num_threads(2)
 
@@ -185,6 +186,50 @@ def test_layer_matches_reference(make, x, tol):
     want, got = _layer_pair(make, x)
     assert got.dtype == want.dtype or tol > 0, (got.dtype, want.dtype)
     _close(got, want, tol)
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_run_fused_carries_match_flax(kind):
+    """``run_fused`` from a non-zero initial carry, returning the final
+    one, against flax's ``nn.RNN(cell, return_carry=True)`` at the same
+    (perturbed) weights: flax's carry form both ways (the LSTM's
+    ``(c, h)``, the GRU's ``h``)."""
+    import flax.linen as fnn
+
+    from analytics_zoo_tpu_torch.keras.layers.recurrent import (
+        GRUCell, LSTMCell, run_fused)
+
+    units = 6
+    flax_cell, port_cell = {
+        "lstm": (fnn.OptimizedLSTMCell, LSTMCell),
+        "gru": (fnn.GRUCell, GRUCell)}[kind]
+    rnn = fnn.RNN(flax_cell(units), return_carry=True)
+    carry = (_rand(3, units, seed=11), _rand(3, units, seed=12))
+    if kind == "gru":
+        carry = carry[1]
+    variables = _perturbed(rnn.init(jax.random.PRNGKey(0), X3,
+                                    initial_carry=carry))
+    want_carry, want = rnn.apply(variables, X3, initial_carry=carry)
+    cell = port_cell(X3.shape[-1], units)
+    load_flax_into(cell, variables["params"]["cell"])
+    with torch.no_grad():
+        got_carry, got = run_fused([cell], torch.from_numpy(X3),
+                                   initial_carry=tree_map(torch.from_numpy,
+                                                          carry),
+                                   return_carry=True)
+        _close(got.numpy(), want, PROD_TOL, "outputs")
+        want_carry, got_carry = (jax.tree_util.tree_leaves(want_carry),
+                                 jax.tree_util.tree_leaves(got_carry))
+        assert len(got_carry) == len(want_carry) == (2 if kind == "lstm"
+                                                     else 1)
+        for g, w in zip(got_carry, want_carry):
+            _close(g.numpy(), w, PROD_TOL, "carry")
+        # the default carry is zeros, and the outputs alone come back
+        zero = run_fused([cell], torch.from_numpy(X3))
+        zeros = jax.tree_util.tree_map(np.zeros_like, carry)
+        _close(zero.numpy(), rnn.apply(variables, X3,
+                                       initial_carry=zeros)[1], PROD_TOL,
+               "zero carry")
 
 
 PARAM_CASES = {
