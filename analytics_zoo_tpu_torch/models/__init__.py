@@ -24,6 +24,7 @@ from analytics_zoo_tpu_torch.models.seq2seq import Seq2seq  # noqa: F401
 from analytics_zoo_tpu_torch.models.anomaly import AnomalyDetector  # noqa: F401
 from analytics_zoo_tpu_torch.models.image import (  # noqa: F401
     ImageClassifier,
+    ObjectDetector,
     ResNet18,
     ResNet50,
 )

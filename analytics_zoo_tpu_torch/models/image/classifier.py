@@ -1,20 +1,21 @@
 """Image classification model wrapper.
 
 The counterpart of ``analytics_zoo_tpu/models/image/classifier.py``:
-``ImageClassifier`` over a ResNet backbone (``resnet18`` or
-``resnet50``), whose module ``_NormalizedBackbone`` takes raw uint8
-NHWC images and normalizes them on the device (``(x / 255 - mean) /
-std`` with ImageNet's channel statistics) or float images as they are.
-Served clients send uint8, a quarter of the bytes of host-side f32
-preprocessing. The flax submodule is ``backbone``, so parameter paths
-are ``backbone/stage0_block0/conv1/kernel`` and so on.
-
-The reference's other backbones (Inception, MobileNet, VGG, AlexNet,
-SqueezeNet, DenseNet) raise ``NotImplementedError`` until ROADMAP's
-"other models" item ports them.
+``ImageClassifier`` over any of the reference's twelve backbones
+(``resnet18``, ``resnet50`` and those of ``backbones.py``), whose module
+``_NormalizedBackbone`` takes raw uint8 NHWC images and normalizes them
+on the device (``(x / 255 - mean) / std`` with ImageNet's channel
+statistics) or float images as they are. Served clients send uint8, a
+quarter of the bytes of host-side f32 preprocessing. The flax submodule
+is ``backbone``, so parameter paths are
+``backbone/stage0_block0/conv1/kernel`` and so on. VGG and AlexNet are
+built for the classifier's ``image_size`` (their ``fc6`` width depends
+on it).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -22,13 +23,20 @@ from torch import nn
 
 from analytics_zoo_tpu_torch.models.common import (
     ZooModel, register_model, softmax_probs, topk_with_probs, torch_dtype)
+from analytics_zoo_tpu_torch.models.image.backbones import (
+    AlexNet, DenseNet, InceptionV1, InceptionV3, MobileNetV1, MobileNetV2,
+    SqueezeNet, VGG16, VGG19, densenet161)
 from analytics_zoo_tpu_torch.models.image.resnet import ResNet18, ResNet50
 
-_BACKBONES = {"resnet18": ResNet18, "resnet50": ResNet50}
-# the reference's other backbones (its _BACKBONES), not ported yet
-_UNPORTED = ("inception-v1", "inception-v3", "mobilenet", "mobilenet-v2",
-             "vgg16", "vgg19", "alexnet", "squeezenet", "densenet121",
-             "densenet161")
+# the reference's full family, every member trainable
+_BACKBONES = {"resnet18": ResNet18, "resnet50": ResNet50,
+              "inception-v1": InceptionV1, "inception-v3": InceptionV3,
+              "mobilenet": MobileNetV1, "mobilenet-v2": MobileNetV2,
+              "vgg16": VGG16, "vgg19": VGG19, "alexnet": AlexNet,
+              "squeezenet": SqueezeNet, "densenet121": DenseNet,
+              "densenet161": densenet161}
+# the backbones whose fc6 is built for the image size
+_SIZED = ("vgg16", "vgg19", "alexnet")
 
 # ImageNet channel stats (the reference's ImageChannelNormalize defaults)
 _MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
@@ -49,16 +57,18 @@ class _NormalizedBackbone(nn.Module):
         self.register_buffer("pixel_std", torch.from_numpy(_STD),
                              persistent=False)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         if not torch.is_floating_point(x):
             x = (x.float() / 255.0 - self.pixel_mean) / self.pixel_std
-        return self.backbone(x, train=train)
+        return self.backbone(x, train=train, rng=rng)
 
 
 @register_model
 class ImageClassifier(ZooModel):
-    """Trainable classifier over a ResNet backbone. Accepts normalized
-    float images or raw uint8 (normalized on the device)."""
+    """Trainable classifier over one of the reference's backbones.
+    Accepts normalized float images or raw uint8 (normalized on the
+    device)."""
 
     default_loss = "sparse_categorical_crossentropy"
     default_optimizer = "adam"
@@ -67,21 +77,20 @@ class ImageClassifier(ZooModel):
     def __init__(self, class_num: int, backbone: str = "resnet50",
                  image_size: int = 224, dtype: str = "float32",
                  device=None, seed: int = 0):
-        if backbone in _UNPORTED:
-            raise NotImplementedError(
-                f"backbone {backbone!r} is not ported yet (ROADMAP queue "
-                f"1: other models); ported: {sorted(_BACKBONES)}")
         if backbone not in _BACKBONES:
-            raise ValueError(f"unknown backbone {backbone!r}; known: "
-                             f"{sorted([*_BACKBONES, *_UNPORTED])}")
+            raise ValueError(f"unknown backbone {backbone!r}; "
+                             f"known: {sorted(_BACKBONES)}")
         super().__init__(device=device, seed=seed, class_num=class_num,
                          backbone=backbone, image_size=image_size,
                          dtype=dtype)
 
     def _build_module(self):
         c = self._config
+        sized = ({"image_size": c["image_size"]}
+                 if c["backbone"] in _SIZED else {})
         return _NormalizedBackbone(_BACKBONES[c["backbone"]](
-            num_classes=c["class_num"], dtype=torch_dtype(c["dtype"])))
+            num_classes=c["class_num"], dtype=torch_dtype(c["dtype"]),
+            **sized))
 
     def _example_input(self):
         s = self._config["image_size"]

@@ -136,7 +136,9 @@ class ResNet(nn.Module):
                 width = filters * block.expansion
         self.head = Dense(width, num_classes, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        # ``rng``: the backbones' common signature (no dropout here)
         x = F.relu(self.stem_bn(self.stem_conv(x), train))
         x = pool(x, "max", (3, 3), (2, 2), "SAME")
         for name in self.block_names:

@@ -492,6 +492,53 @@ figure they print carries the card's name and power limit.
    losses, and the served requests/s, p50 and p99, with the card's
    name and power limit.
 
+33. Image models: the image models of slice 4b on their main paths,
+   f32 checks with TF32 off, seeded weights on synthetic images. The
+   ten other backbones (Inception-v1 and -v3, MobileNet and
+   MobileNet-v2, VGG-16 and -19, AlexNet, SqueezeNet, DenseNet-121 and
+   -161), each ImageClassifier(1000, backbone, dtype="bfloat16") built
+   on the card at 224 x 224 (Inception-v3 at its published 299), fit
+   through ZooModel.fit(device_cache=True) on raw uint8 images, batch
+   64, 3 epochs of 8 steps (finite losses), then predict on 256 (finite,
+   [256, 1000]) and one profiled train step by kernel group; MFU is
+   images/s x 3 x the forward FLOPs counted from the port's Conv and
+   Dense shapes on one probe image (2 x multiply-adds, depthwise by
+   group) against the bf16 peak. Then each backbone (10 classes,
+   dropout 0) on 8 rows at 96 x 96 (Inception-v3 139; each last map 3
+   x 3, AlexNet's 2 x 2) with the same seeded weights (every BatchNorm
+   drawn) on the card and on the CPU: one f32 train step's loss,
+   gradients and BatchNorm statistics and then the eval forward, within
+   1e-4 (1 + |cpu|); for the nets whose f32 step lay beyond that on the
+   card (train-mode BatchNorm's backward passes small differences of
+   nearly equal f32 numbers), the reading is printed and the step is
+   held in f64 within 1e-4 (1 + |cpu|), and the card's f32 step must lie
+   no farther from the f64 one than 2 x the CPU's f32 step + 1e-6
+   (relative norms, group by group). SSD: ObjectDetector(20,
+   image_size=128) at its default widths (1344 anchors) fits with the
+   MultiBox loss on 1024 seeded toy scenes (bright rectangles labelled
+   1-20, prepare_targets), batch 64, 2 epochs of 16 steps, losses
+   finite and falling, one profiled step; detect on 64 scenes: the raw
+   outputs within 1e-4 (1 + |cpu|) of a CPU twin's at the same weights
+   and the detection lists (threshold 0.1) equal but for scores within
+   the tolerance of the threshold (counted). FasterRCNN(20,
+   image_size=128) at its defaults: predict's images/s and detect on 64
+   scenes at threshold 0.055 (its seeded 21-way scores sit near 1/21);
+   against the CPU twin the sorted top-K objectness, and the second
+   stage (proposals, class logits, box deltas) of every anchor both
+   sides select, run by each side on those anchors; an anchor one side
+   alone selects must lie within the tolerance of the K-th value
+   (counted); the detection lists equal the twin's on every image whose
+   top-K sets agree, in each class whose scores hold no two within the
+   tolerance (NMS keeps either of two tied boxes; counted).
+   MobileNet-v2 (bf16, seeded) saved and served through launch() (batch
+   128, depth 3): 512 raw uint8 224 x 224 requests, each within 2e-2 (1
+   + |x|) of predict's. Launches none of the port's
+   kernels. Prints per backbone images/s (best and median of epochs
+   2-3), MFU, peak memory, the step's wall, busy ms, idle share and
+   kernel groups; SSD's samples/s and step; Faster-RCNN's images/s; the
+   served requests/s, p50 and p99; every figure with the card's name
+   and power limit.
+
 The three full-width generation phases (13, 15, 19) draw their seeded
 weights on the card (device_draws): every check there holds the port to
 its own plain paths on the same weights.
@@ -2592,7 +2639,8 @@ def _ner_input(tensors):
 def profile_train_step(torch, est, x, y, iters=5,
                        kernel_groups=KERNEL_GROUPS):
     """Where one train step's time goes: host wall time per step and
-    device time by kernel (torch.profiler), kernel rows only. Returns
+    device time by kernel (torch.profiler over one step: tracing and
+    summing a deep net's three took seconds), kernel rows only. Returns
     ``_print_rows``'s (wall ms, busy ms, {group: ms})."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2605,10 +2653,10 @@ def profile_train_step(torch, est, x, y, iters=5,
     wall = (time.perf_counter() - t0) / iters
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            est._train_step(x, y)
+        est._train_step(x, y)
         torch.cuda.synchronize()
-    return _print_rows(prof, 3, wall, f"train step {tuple(y.shape[:1])}",
+    rows = (y[0] if isinstance(y, (tuple, list)) else y).shape[0]
+    return _print_rows(prof, 1, wall, f"train step ({rows},)",
                        top=20, kernel_groups=kernel_groups)
 
 
@@ -3905,6 +3953,61 @@ def resnet_learn(torch, card, peaks):
     return summary
 
 
+def serve_images(model, images, batch, depth, label, device="cuda"):
+    """``model`` saved and served through launch() on the memory queue
+    (batch = max batch ``batch``, timeout 2 ms, pipeline depth ``depth``,
+    every bucket warmed with a uint8 example, the HTTP frontend off); a
+    closed burst of one request a raw uint8 image (no image decoder on
+    the path). Fails unless every request is answered once with a finite
+    row. Returns (the answers stacked in request order, the latencies in
+    seconds, wall s, start-up s, the batcher's stats)."""
+    from analytics_zoo_tpu_torch.serving.launcher import launch
+
+    n = len(images)
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save_model(tmp)
+        # ---- main path: launch -> ServingWorker -> InferenceModel ----
+        t0 = time.perf_counter()
+        app = launch({
+            "model": {"path": tmp},
+            "params": {"batch_size": batch, "max_batch_size": batch,
+                       "timeout_ms": 2.0, "pipeline_depth": depth,
+                       "warm_example": np.zeros((1, *images.shape[1:]),
+                                                np.uint8)},
+            "http": {"enabled": False}}, device=device)
+        up = time.perf_counter() - t0
+        try:
+            sent, got, lat = {}, {}, []
+            t_start = time.perf_counter()
+            for i in range(n):
+                uri = f"img{i:03d}"
+                sent[uri] = time.perf_counter()
+                if not app.input_queue.enqueue(uri, image=images[i]):
+                    fail(f"{label}: enqueue refused {uri}")
+            deadline = time.perf_counter() + 300
+            while len(got) < n and time.perf_counter() < deadline:
+                item = app.output_queue.dequeue(timeout=1.0)
+                if item is None:
+                    continue
+                uri, tensors = item
+                if uri in got:
+                    fail(f"{label}: {uri} answered twice")
+                lat.append(time.perf_counter() - sent[uri])
+                got[uri] = tensors
+            wall = time.perf_counter() - t_start
+            stats = app.worker.batcher.stats()
+        finally:
+            app.stop()
+        # ---- end of the main path ----
+    if len(got) != n:
+        fail(f"{label}: answered {len(got)}/{n}")
+    served = np.stack([np.asarray(got[f"img{i:03d}"]["output"])
+                       for i in range(n)])
+    if not np.isfinite(served).all():
+        fail(f"{label}: non-finite replies")
+    return served, lat, wall, up, stats
+
+
 def image_serving(torch, card):
     """bench.py's measure_serving deployment on the card: a seeded
     ImageClassifier(1000, "resnet18", dtype="bfloat16") saved and served
@@ -3914,57 +4017,16 @@ def image_serving(torch, card):
     once, with the top class of an eval-mode forward of the same model
     on the same image and logits within 2e-2 (1 + |ref|) of it."""
     from analytics_zoo_tpu_torch.models import ImageClassifier
-    from analytics_zoo_tpu_torch.serving.launcher import launch
 
     rng = np.random.RandomState(1)
     images = rng.randint(0, 256, (IMAGE_SERVING_REQUESTS, IMAGE_SIZE,
                                   IMAGE_SIZE, 3), dtype=np.uint8)
     model = ImageClassifier(class_num=1000, backbone="resnet18",
                             dtype="bfloat16", device="cuda", seed=0)
-    with tempfile.TemporaryDirectory() as tmp:
-        model.save_model(tmp)
-        # ---- main path: launch -> ServingWorker -> InferenceModel ----
-        t0 = time.perf_counter()
-        app = launch({
-            "model": {"path": tmp},
-            "params": {"batch_size": IMAGE_SERVING_BATCH,
-                       "max_batch_size": IMAGE_SERVING_BATCH,
-                       "timeout_ms": 2.0,
-                       "pipeline_depth": IMAGE_SERVING_DEPTH,
-                       "warm_example": np.zeros(
-                           (1, IMAGE_SIZE, IMAGE_SIZE, 3), np.uint8)},
-            "http": {"enabled": False}})
-        up = time.perf_counter() - t0
-        try:
-            sent, got, lat = {}, {}, []
-            t_start = time.perf_counter()
-            for i in range(IMAGE_SERVING_REQUESTS):
-                uri = f"img{i:03d}"
-                sent[uri] = time.perf_counter()
-                if not app.input_queue.enqueue(uri, image=images[i]):
-                    fail(f"image serving: enqueue refused {uri}")
-            deadline = time.perf_counter() + 300
-            while len(got) < IMAGE_SERVING_REQUESTS and \
-                    time.perf_counter() < deadline:
-                item = app.output_queue.dequeue(timeout=1.0)
-                if item is None:
-                    continue
-                uri, tensors = item
-                if uri in got:
-                    fail(f"image serving: {uri} answered twice")
-                lat.append(time.perf_counter() - sent[uri])
-                got[uri] = tensors
-            wall = time.perf_counter() - t_start
-            stats = app.worker.batcher.stats()
-        finally:
-            app.stop()
-        # ---- end of the main path ----
-    if len(got) != IMAGE_SERVING_REQUESTS:
-        fail(f"image serving: answered {len(got)}/{IMAGE_SERVING_REQUESTS}")
-    served = np.stack([got[f"img{i:03d}"]["output"]
-                       for i in range(IMAGE_SERVING_REQUESTS)])
-    if served.shape != (IMAGE_SERVING_REQUESTS, 1000) or \
-            not np.isfinite(served).all():
+    served, lat, wall, up, stats = serve_images(
+        model, images, IMAGE_SERVING_BATCH, IMAGE_SERVING_DEPTH,
+        "image serving")
+    if served.shape != (IMAGE_SERVING_REQUESTS, 1000):
         fail(f"image serving: bad replies {served.shape}")
     ref = []
     with torch.inference_mode():
@@ -3996,27 +4058,15 @@ def image_serving(torch, card):
     return summary
 
 
-def _card_cpu(torch, build, x, y, label, card, draw_norms=False,
-              loss_fn=None, train=True):
-    """One train step (the loss's gradients, the BatchNorm statistics it
-    leaves) and then an eval-mode forward of the same seeded module on
-    the CPU and on the card, f32 with TF32 off; every value within
-    1e-4 (1 + |cpu|). ``x`` is an array or a dict of arrays; ``loss_fn``
-    defaults to sparse categorical cross-entropy; ``train=False`` takes
-    the step's gradients in eval mode (a model with dropout: the card's
-    and the CPU's masks would differ), and a module whose forward takes
-    no ``train`` is called without it."""
+def _seeded_pair(torch, build, label, draw_norms=False):
+    """``build()`` seeded on the CPU (every BatchNorm's scale, bias and
+    running statistics drawn too with ``draw_norms``, so that no
+    residual branch starts at scale 0 and gradient 0) and a copy of it
+    on the card. Fails if TF32 is on."""
     from analytics_zoo_tpu_torch.keras.layers.normalization import (
         BatchNorm)
     from analytics_zoo_tpu_torch.keras.layers.transformer import (
         reset_parameters)
-    from analytics_zoo_tpu_torch.learn.objectives import (
-        sparse_categorical_crossentropy)
-    from analytics_zoo_tpu_torch.learn.optim import (batch_stats_tree,
-                                                     param_tree)
-    from analytics_zoo_tpu_torch.utils.tree import tree_map
-
-    loss_fn = loss_fn or sparse_categorical_crossentropy
 
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.backends.cudnn.allow_tf32:
@@ -4024,8 +4074,6 @@ def _card_cpu(torch, build, x, y, label, card, draw_norms=False,
     cpu = build()
     reset_parameters(cpu, 0)
     if draw_norms:
-        # every norm's scale, bias and running statistics drawn too, so
-        # that no residual branch starts at scale 0 (and gradient 0)
         rng = np.random.RandomState(1)
         with torch.no_grad():
             for m in cpu.modules():
@@ -4037,28 +4085,68 @@ def _card_cpu(torch, build, x, y, label, card, draw_norms=False,
                     m.var.copy_(torch.from_numpy(rng.rand(c) + 0.5))
     gpu = build().cuda()
     gpu.load_state_dict(cpu.state_dict())
-    takes_train = "train" in inspect.signature(cpu.forward).parameters
+    return cpu, gpu
 
-    def forward(m, xt, training):
+
+def _step_values(torch, m, x, y, loss_fn=None, train=True):
+    """One train step of ``m`` on its device (the loss's gradients, the
+    BatchNorm statistics it leaves), then an eval-mode forward, as
+    {"group name": array}. ``x`` is an array or a dict of arrays;
+    ``loss_fn`` defaults to sparse categorical cross-entropy;
+    ``train=False`` takes the step's gradients in eval mode, and a
+    module whose forward takes no ``train`` is called without it."""
+    from analytics_zoo_tpu_torch.learn.objectives import (
+        sparse_categorical_crossentropy)
+    from analytics_zoo_tpu_torch.learn.optim import (batch_stats_tree,
+                                                     param_tree)
+    from analytics_zoo_tpu_torch.utils.tree import tree_map
+
+    loss_fn = loss_fn or sparse_categorical_crossentropy
+    takes_train = "train" in inspect.signature(m.forward).parameters
+
+    def forward(xt, training):
         return m(xt, train=training) if takes_train else m(xt)
 
-    out = {}
-    for dev, m in (("cpu", cpu), ("cuda", gpu)):
-        xt = tree_map(lambda a: torch.from_numpy(a).to(dev), x)
-        yt = torch.from_numpy(y).to(dev)
-        loss = loss_fn(forward(m, xt, train), yt)
-        loss.backward()
-        with torch.no_grad():
-            ev = forward(m, xt, False).cpu().numpy()
-        out[dev] = {"loss": np.asarray(loss.item()),
-                    **{f"grad {k}": p.grad.cpu().numpy()
-                       for k, p in param_tree(m).items()},
-                    **{f"stats {k}": b.cpu().numpy()
-                       for k, b in batch_stats_tree(m).items()},
-                    "eval": ev}
+    dev = next(m.parameters()).device
+    xt = tree_map(lambda a: torch.from_numpy(a).to(dev), x)
+    loss = loss_fn(forward(xt, train), torch.from_numpy(y).to(dev))
+    loss.backward()
+    with torch.no_grad():
+        ev = forward(xt, False).cpu().numpy()
+    return {"loss": np.asarray(loss.item()),
+            **{f"grad {k}": p.grad.cpu().numpy()
+               for k, p in param_tree(m).items()},
+            **{f"stats {k}": b.cpu().numpy()
+               for k, b in batch_stats_tree(m).items()},
+            "eval": ev}
+
+
+def _card_cpu(torch, build, x, y, label, card, draw_norms=False,
+              loss_fn=None, train=True):
+    """``_step_values`` of the same seeded module on the CPU and on the
+    card, in the module's type (f32, or f64 where f32 rounding would
+    swamp the comparison) with TF32 off; every value within 1e-4 (1 +
+    |cpu|). ``train=False`` for a model with dropout: the card's and
+    the CPU's masks would differ."""
+    cpu, gpu = _seeded_pair(torch, build, label, draw_norms)
+    out = {dev: _step_values(torch, m, x, y, loss_fn, train)
+           for dev, m in (("cpu", cpu), ("cuda", gpu))}
     return _compare_card_cpu(out, label, card, {
         "loss_cuda": float(out["cuda"]["loss"]),
         "loss_cpu": float(out["cpu"]["loss"])})
+
+
+def _worst_excess(got, want):
+    """Per group ("group name" keys), the largest excess of ``got`` over
+    CARD_CPU_TOL (1 + |want|): {group: (excess, key)}."""
+    worst = {}
+    for k, w in want.items():
+        excess = float((np.abs(got[k] - w)
+                        - CARD_CPU_TOL * (1 + np.abs(w))).max())
+        group = k.split(" ")[0]
+        if group not in worst or excess > worst[group][0]:
+            worst[group] = (excess, k)
+    return worst
 
 
 def _compare_card_cpu(out, label, card, summary):
@@ -4068,14 +4156,7 @@ def _compare_card_cpu(out, label, card, summary):
     if sorted(out["cuda"]) != sorted(out["cpu"]):
         fail(f"{label}: the card's values are not the CPU's: "
              f"{sorted(set(out['cuda']) ^ set(out['cpu']))}")
-    worst = {}
-    for k, want in out["cpu"].items():
-        got = out["cuda"][k]
-        excess = float((np.abs(got - want)
-                        - CARD_CPU_TOL * (1 + np.abs(want))).max())
-        group = k.split(" ")[0]
-        if group not in worst or excess > worst[group][0]:
-            worst[group] = (excess, k)
+    worst = _worst_excess(out["cuda"], out["cpu"])
     summary = {**summary, "values": len(out["cpu"]),
                "max_excess": {g: [round(e, 9), k] for g, (e, k)
                               in worst.items()}, "card": card}
@@ -5110,6 +5191,520 @@ def zoo_models_learn(torch, card, device="cuda"):
     return out
 
 
+# phase 33: the image models (slice 4b) at the reference's full widths,
+# seeded weights on synthetic images
+BACKBONES = ("inception-v1", "inception-v3", "mobilenet", "mobilenet-v2",
+             "vgg16", "vgg19", "alexnet", "squeezenet", "densenet121",
+             "densenet161")
+# the published input sizes: 299 x 299 for Inception-v3, 224 for the rest
+BACKBONE_SIZE = {"inception-v3": 299}
+BACKBONE_BATCH, BACKBONE_STEPS, BACKBONE_EPOCHS = 64, 8, 3
+BACKBONE_PREDICT_ROWS = 256
+# the card against the CPU: 8 rows at 96 x 96 (Inception-v3 139), where
+# each net's last map is 3 x 3 (AlexNet's 2 x 2)
+BACKBONE_CHECK_SIZE = {"inception-v3": 139}
+BACKBONE_CHECK_ROWS, BACKBONE_CHECK_CLASSES = 8, 10
+# the nets whose f32 train step on the card lay beyond CARD_CPU_TOL of
+# the CPU's (PERF.md §6, with the CPU's own f32 against f64): held in
+# f64, and their f32 step against the f64 one within F32_STEP_RATIO x
+# the CPU's f32 deviation + F32_STEP_SLACK
+BACKBONE_F64_STEP = ("inception-v1", "inception-v3", "mobilenet",
+                     "mobilenet-v2", "vgg16", "vgg19", "densenet121",
+                     "densenet161")
+F32_STEP_RATIO, F32_STEP_SLACK = 2.0, 1e-6
+# the detectors at their class defaults with PASCAL VOC's 20 classes
+DETECT_CLASSES, DETECT_SIZE = 20, 128
+SSD_BATCH, SSD_STEPS, SSD_EPOCHS = 64, 16, 2
+DETECT_ROWS = 64
+# detections compared between the card and the CPU at this threshold;
+# Faster-RCNN's seeded 21-way scores sit near 1 / 21 and none reaches
+# 0.1, so it takes 0.055 (about 960 detections on the CPU, 72 of them
+# in classes without tied scores)
+DETECT_THRESHOLD, DETECT_TOP_K = 0.1, 1000
+FRCNN_THRESHOLD = 0.055
+V2_SERVE_BATCH, V2_SERVE_REQUESTS = 128, 512
+
+
+def forward_flops(torch, module, x) -> int:
+    """2 x the multiply-adds of ``module``'s ``Conv`` and ``Dense`` layers
+    on ``x``, counted from their shapes in one forward (a depthwise
+    convolution's by group: in / groups inputs an output); pools, norms
+    and elementwise work are not counted."""
+    from analytics_zoo_tpu_torch.keras.layers.convolutional import Conv
+    from analytics_zoo_tpu_torch.keras.layers.transformer import Dense
+
+    total = [0]
+
+    def conv(m, inputs, out):
+        taps = int(np.prod(m.kernel))
+        total[0] += 2 * out.numel() * m.weight.shape[1] * taps
+
+    def dense(m, inputs, out):
+        total[0] += 2 * out.numel() * m.in_features
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv) else dense)
+             for m in module.modules() if isinstance(m, (Conv, Dense))]
+    try:
+        with torch.no_grad():
+            module(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def backbone_learn(torch, name, card, peaks, device="cuda"):
+    """``ImageClassifier(1000, name, dtype="bfloat16")``, built on the
+    card, through ZooModel.fit(device_cache=True): batch 64, 3 epochs of
+    8 steps on seeded raw uint8 images (normalized on the card); then
+    predict on 256 images and one profiled train step by kernel group.
+    MFU is images/s x 3 x the forward's FLOPs (``forward_flops``)
+    against the bf16 peak."""
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+
+    size = BACKBONE_SIZE.get(name, IMAGE_SIZE)
+    rng = np.random.RandomState(33)
+    n = BACKBONE_BATCH * BACKBONE_STEPS
+    x = rng.randint(0, 256, (n, size, size, 3), dtype=np.uint8)
+    y = rng.randint(0, 1000, n).astype(np.int32)
+    t0 = time.perf_counter()
+    # built on the card: the seeded draw runs there (on the host VGG's
+    # 139 M parameters take seconds)
+    with torch.device(device):
+        model = ImageClassifier(class_num=1000, backbone=name,
+                                image_size=size, dtype="bfloat16",
+                                device=device, seed=0)
+    build_s = time.perf_counter() - t0
+    off = [k for k, p in model.module.named_parameters()
+           if p.device.type != model.device.type]
+    if off:
+        fail(f"{name}: parameters off the card: {off[:4]}")
+    probe = torch.from_numpy(x[:1]).to(device)
+    flops = forward_flops(torch, model.module, probe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- main path: ZooModel.fit -> Estimator._fit_device_cached ----
+    history = model.fit((x, y), batch_size=BACKBONE_BATCH,
+                        epochs=BACKBONE_EPOCHS, device_cache=True)
+    torch.cuda.synchronize()
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    losses = _finite_losses(history, name)
+    best, median = _epoch_rates(history, n)
+    t0 = time.perf_counter()
+    pred = model.predict(x[:BACKBONE_PREDICT_ROWS], batch_size=BACKBONE_BATCH)
+    predict_s = time.perf_counter() - t0
+    if pred.shape != (BACKBONE_PREDICT_ROWS, 1000) or \
+            not np.isfinite(pred).all():
+        fail(f"{name} predict: bad output {pred.shape}")
+    xb = torch.from_numpy(x[:BACKBONE_BATCH]).to(device)
+    yb = torch.from_numpy(y[:BACKBONE_BATCH]).to(device)
+    del x
+    wall, busy, groups = profile_train_step(torch, model.estimator, xb, yb,
+                                            kernel_groups=RESNET_GROUPS)
+    return _report(f"{name} fit", {
+        "image_size": size, "batch": BACKBONE_BATCH,
+        "images_per_s": best, "median_images_per_s": median,
+        "forward_gflop": flops / 1e9,
+        "mfu": best * 3 * flops / peaks["bf16"],
+        "median_mfu": median * 3 * flops / peaks["bf16"],
+        "epoch_seconds": [h["seconds"] for h in history], "losses": losses,
+        "peak_gib": peak / 2 ** 30, "build_s": build_s,
+        "predict_images_per_s": BACKBONE_PREDICT_ROWS / predict_s,
+        "params": sum(p.numel() for p in model.module.parameters()),
+        "step_wall_ms": wall, "step_busy_ms": busy,
+        "idle_share": 1 - busy / max(wall, 1e-9),
+        "step_ms_by_group": {g: round(v, 4) for g, v in groups.items()},
+        "card": card})
+
+
+def _rel_dev(vals, truth):
+    """Per group ("group name" keys), the relative deviation of
+    ``vals`` from ``truth`` over all of the group's values: ||v - t|| /
+    ||t|| with each norm taken over the group's arrays together."""
+    err, ref = {}, {}
+    for k, t in truth.items():
+        group = k.split(" ")[0]
+        err[group] = err.get(group, 0.0) + float(
+            np.sum((np.asarray(vals[k], np.float64) - t) ** 2))
+        ref[group] = ref.get(group, 0.0) + float(np.sum(np.square(t)))
+    return {g: (err[g] / max(ref[g], 1e-60)) ** 0.5 for g in err}
+
+
+def backbone_card_cpu(torch, name, card):
+    """The backbone (10 classes, dropout 0, every BatchNorm drawn) on 8
+    rows at 96 x 96 (Inception-v3 139), where its last map is 3 x 3
+    (AlexNet's 2 x 2); the same seeded weights on the card and on the
+    CPU, TF32 off. In f32: one train step's loss, gradients and
+    BatchNorm statistics and then an eval forward, within CARD_CPU_TOL
+    (1 + |cpu|). For the nets of BACKBONE_F64_STEP, whose f32 step on
+    the card lay beyond that (PERF.md §6), the f32 reading is printed
+    and the step is held twice: in f64 on the same weights within
+    CARD_CPU_TOL, and the card's f32 step no farther from the f64 one,
+    group by group, than F32_STEP_RATIO x the CPU's f32 step plus
+    F32_STEP_SLACK (``_rel_dev``). Gradients that a downstream
+    train-mode BatchNorm nearly cancels (it ignores its input's shift
+    and scale) come out of f32 as small differences of large sums: their
+    relative rounding is what parts two f32 runs."""
+    from analytics_zoo_tpu_torch.models.image.classifier import (
+        _BACKBONES, _SIZED)
+
+    size = BACKBONE_CHECK_SIZE.get(name, 96)
+    cls = _BACKBONES[name]
+    kw = ({"image_size": size} if name in _SIZED else {})
+    if "dropout_rate" in inspect.signature(cls).parameters:
+        kw["dropout_rate"] = 0.0
+    rng = np.random.RandomState(len(name))
+    x = rng.randn(BACKBONE_CHECK_ROWS, size, size, 3).astype(np.float32)
+    y = rng.randint(0, BACKBONE_CHECK_CLASSES,
+                    BACKBONE_CHECK_ROWS).astype(np.int64)
+    label = f"card vs cpu, {name}"
+    cpu, gpu = _seeded_pair(
+        torch, lambda: cls(num_classes=BACKBONE_CHECK_CLASSES, **kw), label,
+        draw_norms=True)
+    init = {k: v.double() for k, v in cpu.state_dict().items()}
+    f32 = {dev: _step_values(torch, m, x, y)
+           for dev, m in (("cpu", cpu), ("cuda", gpu))}
+    if name not in BACKBONE_F64_STEP:
+        check = _compare_card_cpu(f32, f"{label} (f32 step)", card,
+                                  {"image_size": size})
+        return {"f32_step": check["max_excess"]}
+    reading = _worst_excess(f32["cuda"], f32["cpu"])
+    f64 = {}
+    for dev in ("cpu", "cuda"):
+        m = cls(num_classes=BACKBONE_CHECK_CLASSES, dtype=torch.float64,
+                **kw).double()
+        m.load_state_dict(init)
+        f64[dev] = _step_values(torch, m.to(dev), x.astype(np.float64), y)
+    check = _compare_card_cpu(f64, f"{label} (f64 step)", card,
+                              {"image_size": size})
+    dev_card = _rel_dev(f32["cuda"], f64["cpu"])
+    dev_cpu = _rel_dev(f32["cpu"], f64["cpu"])
+    summary = _report(f"{label} (f32 step)", {
+        "image_size": size,
+        "max_excess": {g: [e, k] for g, (e, k) in reading.items()},
+        "card_rel_dev_from_f64": dev_card, "cpu_rel_dev_from_f64": dev_cpu,
+        "card": card})
+    bad = {g: (d, dev_cpu[g]) for g, d in dev_card.items()
+           if d > F32_STEP_RATIO * dev_cpu[g] + F32_STEP_SLACK}
+    if bad:
+        fail(f"{label}: the card's f32 step lies farther from the f64 "
+             f"step than {F32_STEP_RATIO} x the CPU's + {F32_STEP_SLACK}: "
+             f"{bad}")
+    return {"f32_step": summary, "f64_step": check["max_excess"]}
+
+
+def toy_scenes(rng, n, size=DETECT_SIZE, classes=DETECT_CLASSES):
+    """``n`` dim noise images, each with one to three bright rectangles
+    labelled with a foreground class (1..classes): (images, [(boxes,
+    labels)])."""
+    images = rng.rand(n, size, size, 3).astype(np.float32) * 0.1
+    gt = []
+    for img in images:
+        boxes, labels = [], []
+        for _ in range(rng.randint(1, 4)):
+            w, h = rng.randint(size // 4, size // 2, 2)
+            x1, y1 = rng.randint(0, size - w), rng.randint(0, size - h)
+            img[y1:y1 + h, x1:x1 + w] = rng.rand(3) * 0.5 + 0.5
+            boxes.append([x1, y1, x1 + w, y1 + h])
+            labels.append(rng.randint(1, classes + 1))
+        gt.append((np.asarray(boxes, np.float32),
+                   np.asarray(labels, np.int32)))
+    return images, gt
+
+
+def _cpu_twin(torch, model, cls, **cfg):
+    """A CPU copy of ``model`` (a ZooModel on the card): the same class
+    and configuration, the card's weights and statistics."""
+    from analytics_zoo_tpu_torch.bridge import (load_flax_into,
+                                                variables_from_module)
+
+    twin = cls(device="cpu", **cfg)
+    load_flax_into(twin.module, variables_from_module(model.module))
+    return twin
+
+
+def compare_detections(card_dets, cpu_dets, label,
+                       threshold=DETECT_THRESHOLD):
+    """The card's per-image detection lists against the CPU's: each
+    (class, score, box) matched to one of the same class with score and
+    box within CARD_CPU_TOL (1 + |cpu|); an entry without a match is
+    allowed only where its score lies within the tolerance of the
+    threshold (counted). Returns (detections, unmatched near it)."""
+    near, total = 0, 0
+
+    def close(a, b):
+        return bool(np.all(np.abs(np.asarray(a) - np.asarray(b))
+                           <= CARD_CPU_TOL * (1 + np.abs(np.asarray(b)))))
+
+    def at_threshold(score):
+        return abs(score - threshold) <= CARD_CPU_TOL * (1 + threshold)
+
+    for card_img, cpu_img in zip(card_dets, cpu_dets):
+        rest = list(cpu_img)
+        total += len(cpu_img)
+        for c, score, box in card_img:
+            j = next((i for i, (c2, s2, b2) in enumerate(rest)
+                      if c2 == c and close(score, s2) and close(box, b2)),
+                     None)
+            if j is not None:
+                rest.pop(j)
+            elif at_threshold(score):
+                near += 1
+            else:
+                fail(f"{label}: the card's detection {(c, score)} has no "
+                     "match on the CPU")
+        for c, score, _ in rest:
+            if not at_threshold(score):
+                fail(f"{label}: the CPU's detection {(c, score)} has no "
+                     "match on the card")
+            near += 1
+    return total, near
+
+
+def untied_classes(probs, threshold):
+    """Per image, the classes whose scores at or above ``threshold``
+    (``probs`` [B, N, 1 + C], the CPU's) hold no two within CARD_CPU_TOL
+    (1 + |score|) of each other: greedy NMS keeps either of two tied
+    boxes, and which one it keeps changes what it suppresses next."""
+    out = []
+    for p in probs:
+        keep = set()
+        for c in range(1, p.shape[1]):
+            sc = np.sort(p[:, c][p[:, c] >= threshold * (1 - CARD_CPU_TOL)])
+            if not (np.diff(sc) <= CARD_CPU_TOL * (1 + sc[1:])).any():
+                keep.add(c)
+        out.append(keep)
+    return out
+
+
+def _max_excess(got, want):
+    return float((np.abs(got - want)
+                  - CARD_CPU_TOL * (1 + np.abs(want))).max())
+
+
+def ssd_learn(torch, card, device="cuda"):
+    """``ObjectDetector(20, image_size=128)`` at its default widths, f32:
+    fit with the MultiBox loss on 1024 seeded toy scenes
+    (``prepare_targets``), batch 64, 2 epochs of 16 steps, losses finite
+    and falling; one profiled train step; then ``detect`` on 64 scenes,
+    its raw outputs against the CPU twin's within CARD_CPU_TOL and the
+    detection lists equal but for scores at the threshold."""
+    from analytics_zoo_tpu_torch.models import ObjectDetector
+
+    label = "ssd"
+    cfg = dict(class_num=DETECT_CLASSES, image_size=DETECT_SIZE)
+    rng = np.random.RandomState(35)
+    x, gt = toy_scenes(rng, SSD_BATCH * SSD_STEPS)
+    model = ObjectDetector(device=device, seed=0, **cfg)
+    targets = model.prepare_targets(gt)
+    if not (targets[0] > 0).any():
+        fail(f"{label}: the matcher found no positive anchor")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- main path: ZooModel.fit -> Estimator.fit ----
+    hist = model.fit((x, targets), batch_size=SSD_BATCH, epochs=SSD_EPOCHS)
+    torch.cuda.synchronize()
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    losses = _finite_losses(hist, label)
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall: {losses}")
+    xb = torch.from_numpy(x[:SSD_BATCH]).to(device)
+    yb = tuple(torch.from_numpy(t[:SSD_BATCH]).to(device) for t in targets)
+    wall, busy, groups = profile_train_step(torch, model.estimator, xb, yb,
+                                            kernel_groups=RESNET_GROUPS)
+    xd = x[:DETECT_ROWS]
+    t0 = time.perf_counter()
+    # ---- main path: ObjectDetector.detect ----
+    dets = model.detect(xd, batch_size=DETECT_ROWS,
+                        score_threshold=DETECT_THRESHOLD, top_k=DETECT_TOP_K)
+    # ---- end of the main path ----
+    detect_s = time.perf_counter() - t0
+    twin = _cpu_twin(torch, model, ObjectDetector, **cfg)
+    raw_card = model.predict(xd, batch_size=DETECT_ROWS)
+    raw_cpu = twin.predict(xd, batch_size=DETECT_ROWS)
+    excess = {k: _max_excess(g, w) for k, g, w in
+              zip(("class_logits", "box_deltas"), raw_card, raw_cpu)}
+    if max(excess.values()) > 0:
+        fail(f"{label}: raw outputs beyond {CARD_CPU_TOL} (1 + |cpu|) of "
+             f"the CPU's: {excess}")
+    total, near = compare_detections(
+        dets, twin.detect(xd, batch_size=DETECT_ROWS,
+                          score_threshold=DETECT_THRESHOLD,
+                          top_k=DETECT_TOP_K), label)
+    return _report(label, {
+        "batch": SSD_BATCH, "steps": model.estimator.global_step,
+        "losses": losses,
+        "samples_per_s": SSD_STEPS * SSD_BATCH / hist[-1]["seconds"],
+        "peak_gib": peak / 2 ** 30, "anchors": int(len(model.anchors)),
+        "step_wall_ms": wall, "step_busy_ms": busy,
+        "idle_share": 1 - busy / max(wall, 1e-9),
+        "step_ms_by_group": {g: round(v, 4) for g, v in groups.items()},
+        "detect_images_per_s": DETECT_ROWS / detect_s,
+        "raw_max_excess": excess, "detections": total,
+        "unmatched_at_threshold": near, "card": card})
+
+
+def frcnn_detect(torch, card, device="cuda"):
+    """``FasterRCNN(20, image_size=128)`` at its defaults (width 64,
+    top_k 64, pool 7), seeded: ``detect`` on 64 toy scenes and predict's
+    images/s; against the CPU twin: the sorted top-K objectness values
+    within CARD_CPU_TOL, and for each anchor both sides select the
+    proposal, class logits and box deltas; an anchor only one side
+    selects is allowed only where its objectness lies within the
+    tolerance of the K-th value (counted). The uniform rectangles give
+    equal objectness at many anchors, and ``torch.topk`` orders no
+    ties, so the second stage is compared anchor by anchor: each side
+    runs it on the anchors both selected, in one order. ``detect`` runs
+    at FRCNN_THRESHOLD; its lists are held against the CPU twin's
+    (``compare_detections``) on every image whose two top-K sets are
+    equal (an image with a one-sided anchor decodes a proposal the
+    other side has not), class by class where ``untied_classes`` finds
+    no tied scores; the rest are counted."""
+    from analytics_zoo_tpu_torch.models.image.faster_rcnn import FasterRCNN
+    from analytics_zoo_tpu_torch.models.image.object_detection import (
+        softmax_probs)
+
+    label = "faster-rcnn"
+    cfg = dict(class_num=DETECT_CLASSES, image_size=DETECT_SIZE)
+    x, _ = toy_scenes(np.random.RandomState(36), DETECT_ROWS)
+    model = FasterRCNN(device=device, seed=0, **cfg)
+    model.predict(x, batch_size=DETECT_ROWS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        # ---- main path: ZooModel.predict ----
+        out_card = model.predict(x, batch_size=DETECT_ROWS)
+    predict_s = (time.perf_counter() - t0) / 5
+    t0 = time.perf_counter()
+    # ---- main path: FasterRCNN.detect ----
+    dets = model.detect(x, batch_size=DETECT_ROWS,
+                        score_threshold=FRCNN_THRESHOLD, top_k=DETECT_TOP_K)
+    # ---- end of the main path ----
+    detect_s = time.perf_counter() - t0
+    if any(not np.isfinite(o).all() for o in out_card):
+        fail(f"{label}: non-finite outputs")
+    twin = _cpu_twin(torch, model, FasterRCNN, **cfg)
+    k = model.module.top_k
+    worst, one_side, matched, same_sets = {}, 0, 0, []
+    with torch.no_grad():
+        rpn = {dev: m.module.rpn(torch.from_numpy(x).to(m.device))
+               for dev, m in (("cuda", model), ("cpu", twin))}
+        top = {dev: [t.cpu().numpy() for t in torch.topk(r[1], k, dim=1)]
+               for dev, r in rpn.items()}
+        worst["topk_values"] = _max_excess(top["cuda"][0], top["cpu"][0])
+        obj_cpu = rpn["cpu"][1].numpy()
+        for b in range(len(x)):
+            kth = top["cpu"][0][b, -1]
+            sel = {dev: set(top[dev][1][b].tolist()) for dev in top}
+            if sel["cuda"] == sel["cpu"]:
+                same_sets.append(b)
+            for a in sel["cuda"] ^ sel["cpu"]:
+                if abs(obj_cpu[b, a] - kth) > CARD_CPU_TOL * (1 + abs(kth)):
+                    fail(f"{label}: image {b} anchor {a} selected on one "
+                         f"side only, objectness {obj_cpu[b, a]} against "
+                         f"the K-th {kth}")
+                one_side += 1
+            # the second stage of the anchors both select, in one order
+            common = sorted(sel["cuda"] & sel["cpu"])
+            matched += len(common)
+            outs = {}
+            for dev, m in (("cuda", model), ("cpu", twin)):
+                feat, _, dlt = rpn[dev]
+                idx = torch.tensor([common], device=m.device)
+                outs[dev] = [o.cpu().numpy() for o in m.module.second_stage(
+                    feat[b:b + 1], dlt[b:b + 1], idx)]
+            for name, oc, ou in zip(("proposals", "class_logits",
+                                     "box_deltas"), outs["cuda"],
+                                    outs["cpu"]):
+                worst[name] = max(worst.get(name, -1.0), _max_excess(oc, ou))
+    if max(worst.values()) > 0:
+        fail(f"{label}: the card differs from the CPU beyond "
+             f"{CARD_CPU_TOL} (1 + |cpu|): {worst}")
+    cpu_dets = twin.detect(x, batch_size=DETECT_ROWS,
+                           score_threshold=FRCNN_THRESHOLD,
+                           top_k=DETECT_TOP_K)
+    untied = untied_classes(softmax_probs(twin.predict(
+        x, batch_size=DETECT_ROWS)[1]), FRCNN_THRESHOLD)
+    lists = [[[d for d in side[b] if d[0] in untied[b]] for b in same_sets]
+             for side in (dets, cpu_dets)]
+    total, near = compare_detections(*lists, label,
+                                     threshold=FRCNN_THRESHOLD)
+    if total == 0:
+        fail(f"{label}: no detection at {FRCNN_THRESHOLD} to compare")
+    return _report(label, {
+        "images": DETECT_ROWS, "top_k": k,
+        "predict_images_per_s": DETECT_ROWS / predict_s,
+        "detect_images_per_s": DETECT_ROWS / detect_s,
+        "score_threshold": FRCNN_THRESHOLD,
+        "detections": sum(map(len, dets)), "matched_proposals": matched,
+        "one_side_at_kth": one_side, "max_excess": worst,
+        "images_compared": len(same_sets),
+        "tied_classes": sum(DETECT_CLASSES - len(untied[b])
+                            for b in same_sets),
+        "detections_compared": total,
+        "unmatched_at_threshold": near, "card": card})
+
+
+def mobilenet_v2_serving(torch, card, device="cuda"):
+    """A seeded ImageClassifier(1000, "mobilenet-v2", dtype="bfloat16")
+    saved and served through launch() (batch 128, pipeline depth 3): a
+    closed burst of 512 raw uint8 224 x 224 requests, each answer within
+    2e-2 (1 + |x|) of ``predict``'s."""
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+
+    label = "mobilenet-v2 serving"
+    images = np.random.RandomState(37).randint(
+        0, 256, (V2_SERVE_REQUESTS, IMAGE_SIZE, IMAGE_SIZE, 3),
+        dtype=np.uint8)
+    model = ImageClassifier(class_num=1000, backbone="mobilenet-v2",
+                            dtype="bfloat16", device=device, seed=0)
+    want = model.predict(images, batch_size=V2_SERVE_BATCH)
+    served, lat, wall, up, stats = serve_images(
+        model, images, V2_SERVE_BATCH, IMAGE_SERVING_DEPTH, label, device)
+    if served.shape != want.shape:
+        fail(f"{label}: replies {served.shape}, predict {want.shape}")
+    excess = float((np.abs(served - want)
+                    - IMAGE_SERVE_TOL * (1 + np.abs(want))).max())
+    lat_ms = np.asarray(lat) * 1e3
+    summary = _report(label, {
+        "requests": V2_SERVE_REQUESTS, "up_s": up, "wall_s": wall,
+        "rps": V2_SERVE_REQUESTS / wall,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "served_batches": stats["batches"],
+        "max_abs_diff": float(np.abs(served - want).max()),
+        "max_excess": excess, "card": card})
+    if not excess <= 0:
+        fail(f"{label}: answers beyond {IMAGE_SERVE_TOL} (1 + |x|) of "
+             f"predict's by {excess:.3g}")
+    return summary
+
+
+def image_models_learn(torch, card, peaks, device="cuda"):
+    """Phase 33 (see the module docstring). Returns the summaries."""
+    from analytics_zoo_tpu_torch.common.config import get_config
+
+    get_config().set("zoo.train.log_every_n_steps", 100000)
+    out = {}
+    steps = [(f"{name} fit", backbone_learn, (name, card, peaks, device))
+             for name in BACKBONES]
+    steps += [(f"{name} card vs cpu", backbone_card_cpu, (name, card))
+              for name in BACKBONES]
+    steps += [("ssd", ssd_learn, (card, device)),
+              ("faster-rcnn", frcnn_detect, (card, device)),
+              ("mobilenet-v2 serving", mobilenet_v2_serving, (card, device))]
+    for key, fn, args in steps:
+        t0 = time.perf_counter()
+        out[key] = fn(torch, *args)
+        print(f"image models: {key} {time.perf_counter() - t0:.1f}s "
+              f"({card})", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5238,6 +5833,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     timed("zoo models learn", zoo_models_learn, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("image models learn", image_models_learn, torch, card, peaks)
     k5b_bf16, k5b_masked, k5b_padded = (
         _pick(k5b, "bf16_d80"), _pick(k5b, "minilm_masked"),
         _pick(k5b, "padded_d20"))

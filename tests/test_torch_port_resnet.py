@@ -515,8 +515,19 @@ def test_resume_restores_conv_moments_in_torch_axes(tmp_path,
         np.testing.assert_array_equal(v.numpy(), want[k].numpy(), err_msg=k)
 
 
-def test_other_backbones_raise_until_ported():
-    with pytest.raises(NotImplementedError, match="other models"):
-        ImageClassifier(class_num=3, backbone="mobilenet", device="cpu")
+def test_all_reference_backbones_build():
+    """Every name of the reference's ``_BACKBONES`` builds on the CPU at 3
+    classes and its smallest image size and classifies a uint8 image;
+    an unknown name raises the reference's ``ValueError``."""
+    from analytics_zoo_tpu.models.image.classifier import (
+        _BACKBONES as REF_BACKBONES)
+
+    smallest = {"alexnet": 64, "inception-v3": 75}
+    for name in sorted(REF_BACKBONES):
+        size = smallest.get(name, 32)
+        model = ImageClassifier(class_num=3, backbone=name, image_size=size,
+                                device="cpu")
+        x = np.zeros((1, size, size, 3), np.uint8)
+        assert model.predict(x, batch_size=1).shape == (1, 3), name
     with pytest.raises(ValueError, match="unknown backbone"):
         ImageClassifier(class_num=3, backbone="resnet99", device="cpu")
